@@ -1,0 +1,139 @@
+"""Build the package's CUDA kernels at first use and bind them with ctypes.
+
+`csrc/*.cu` are compiled by `nvcc` for Hopper (`sm_90a`) into one shared
+library with a plain C interface, under `build/` beside the sources (a
+directory git ignores). The library's file name carries a hash of the
+sources and flags, so an edited kernel is rebuilt and a stale one is never
+loaded. Each C entry point returns `cudaGetLastError()` after its launch;
+`check()` turns a non-zero code into an exception.
+
+Nothing here runs at import: `library()` builds and loads on its first
+call, which only a wrapper handed a CUDA tensor makes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import List, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+# where the CUDA toolkit installs itself when neither CUDA_HOME nor PATH
+# names it
+DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
+# C signatures of the entry points (all return an int cudaError_t).
+SIGNATURES = {
+    # q, k, v, o, lse, B, H, Hkv, Nq, Nk, D,
+    # q/k/v strides (batch, head, row) in elements,
+    # causal, kv_offset, out_f32, stream
+    "cfa_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                      _I, _I, _I, _P],
+    # q, k, v, lengths, o, lse, B, H, Hkv, max_n, D, scale, stream
+    "cfa_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                   ctypes.c_float, _P],
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+build_seconds: Optional[float] = None
+
+
+def sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def find_nvcc() -> str:
+    """nvcc from $CUDA_HOME/bin, then PATH, then DEFAULT_CUDA_HOME/bin.
+    Raises when there is none."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(Path(on_path))
+    candidates.append(DEFAULT_CUDA_HOME / "bin" / "nvcc")
+    for c in candidates:
+        if c.is_file() and os.access(c, os.X_OK):
+            return str(c)
+    raise RuntimeError(
+        f"nvcc not found (looked in $CUDA_HOME/bin, PATH and "
+        f"{DEFAULT_CUDA_HOME}/bin): the CUDA kernels of "
+        f"cuda_flashattention_torch need the CUDA toolkit to build")
+
+
+def nvcc_command(nvcc: str, srcs: List[Path], out: Path) -> List[str]:
+    return [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(out),
+            *[str(s) for s in srcs]]
+
+
+def _library_path(srcs: List[Path]) -> Path:
+    h = hashlib.sha256(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    return BUILD_DIR / f"libcfa_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _build(out: Path) -> None:
+    global build_seconds
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # build into a private file and rename, so a concurrent process never
+    # loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(nvcc_command(nvcc, sources(), Path(tmp)),
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}"
+                f"\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    build_seconds = time.perf_counter() - t0
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = _library_path(sources())
+            if not path.exists():
+                _build(path)
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.cfa_error_string.argtypes = [ctypes.c_int]
+            lib.cfa_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        name = library().cfa_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({name})")

@@ -1,0 +1,31 @@
+"""Device timing with CUDA events (counterpart of
+cuda_flashattention_tpu/utils/timing.py; the TPU's slope timing is not
+needed on a GPU, where events bracket the device's own work)."""
+
+from __future__ import annotations
+
+import statistics
+from typing import Callable
+
+import torch
+
+
+def cuda_time_ms(fn: Callable[[], object], iters: int = 20,
+                 warmup: int = 3) -> float:
+    """Median device milliseconds of one `fn()` call, each call bracketed
+    by its own pair of CUDA events on the current stream. Raises when
+    there is no card: a CPU time is never reported as a device time."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("cuda_time_ms needs a CUDA device")
+    for _ in range(warmup):
+        fn()
+    pairs = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
