@@ -7,15 +7,27 @@ kernels for sm_90a (csrc/), built by nvcc at first use on the card
 (_build.py); on CPU tensors each op runs its plain PyTorch version.
 
 Ported so far: the serving path — prefill (FA2 forward) and decode over
-the KV cache, driven by `generate()`.
+the KV cache, driven by `generate()` — and the training path: `forward`,
+`loss_fn` and `make_train_step`, with attention through the
+differentiable `flash_attention` (FA2 forward, and the FA2 backward
+kernels: fused, or split into dK/dV and dQ).
 """
 
 __version__ = "0.1.0"
 
+from cuda_flashattention_torch.ops.attention import (
+    FlashAttention,
+    flash_attention,
+    mha,
+)
 from cuda_flashattention_torch.ops.common import NEG_INF
 from cuda_flashattention_torch.ops.decode import (
     decode_attention,
     decode_attention_plain,
+)
+from cuda_flashattention_torch.ops.flash_bwd import (
+    flash_attention_backward,
+    flash_attention_backward_plain,
 )
 from cuda_flashattention_torch.ops.flash_fwd import (
     flash_attention_forward,
@@ -27,25 +39,40 @@ from cuda_flashattention_torch.ops.kv_cache import (
     decode_step,
     init_cache,
 )
-from cuda_flashattention_torch.ops.naive import naive_attention, naive_decode
+from cuda_flashattention_torch.ops.naive import (
+    naive_attention,
+    naive_attention_backward,
+    naive_decode,
+)
 from cuda_flashattention_torch.parallel.ring import combine_partials
 from cuda_flashattention_torch.models.transformer import (
     Transformer,
     TransformerConfig,
     decode_one,
+    forward,
     init_caches,
+    loss_fn,
+    make_train_step,
     prefill,
     prefill_chunk,
     prefill_chunked,
 )
-from cuda_flashattention_torch.models.convert import params_from_jax
+from cuda_flashattention_torch.models.convert import (
+    params_from_jax,
+    params_to_jax,
+)
 from cuda_flashattention_torch.models.generate import generate
 from cuda_flashattention_torch.utils.timing import cuda_time_ms
 
 __all__ = [
+    "FlashAttention",
+    "flash_attention",
+    "mha",
     "NEG_INF",
     "decode_attention",
     "decode_attention_plain",
+    "flash_attention_backward",
+    "flash_attention_backward_plain",
     "flash_attention_forward",
     "flash_attention_forward_plain",
     "KVCache",
@@ -53,16 +80,21 @@ __all__ = [
     "decode_step",
     "init_cache",
     "naive_attention",
+    "naive_attention_backward",
     "naive_decode",
     "combine_partials",
     "Transformer",
     "TransformerConfig",
     "decode_one",
+    "forward",
     "init_caches",
+    "loss_fn",
+    "make_train_step",
     "prefill",
     "prefill_chunk",
     "prefill_chunked",
     "params_from_jax",
+    "params_to_jax",
     "generate",
     "cuda_time_ms",
 ]

@@ -1,10 +1,11 @@
 """Build the package's CUDA kernels at first use and bind them with ctypes.
 
-`csrc/*.cu` are compiled by `nvcc` for Hopper (`sm_90a`) into one shared
-library with a plain C interface, under `build/` beside the sources (a
-directory git ignores). The library's file name carries a hash of the
-sources and flags, so an edited kernel is rebuilt and a stale one is never
-loaded. Each C entry point returns `cudaGetLastError()` after its launch;
+`csrc/*.cu` are compiled by `nvcc` for Hopper (`sm_90a`), one process
+per source, all started together, and linked into one shared library with
+a plain C interface, under `build/` beside the sources (a directory git
+ignores). The library's file name carries a hash of the sources and
+flags, so an edited kernel is rebuilt and a stale one is never loaded.
+Each C entry point returns `cudaGetLastError()` after its launch;
 `check()` turns a non-zero code into an exception.
 
 Nothing here runs at import: `library()` builds and loads on its first
@@ -30,11 +31,13 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 # names it
 DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_LP = ctypes.POINTER(ctypes.c_longlong)
+_D = ctypes.c_double
 
 # C signatures of the entry points (all return an int cudaError_t).
 SIGNATURES = {
@@ -47,6 +50,15 @@ SIGNATURES = {
     # q, k, v, lengths, o, lse, B, H, Hkv, max_n, D, scale, stream
     "cfa_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                    ctypes.c_float, _P],
+    # q, k, v, dO, lse, delta, dk, dv, dq_acc (NULL: K2, else K4),
+    # B, H, Hkv, Nq, Nk, D, strides[12] (q/k/v/dO: batch, head, row),
+    # scale, causal, kv_offset, stream
+    "cfa_flash_bwd_kv": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _LP, _D, _I, _I, _P],
+    # q, k, v, dO, lse, delta, dq, B, H, Hkv, Nq, Nk, D, strides[12],
+    # scale, causal, kv_offset, stream
+    "cfa_flash_bwd_q": [_P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _LP, _D, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -77,9 +89,15 @@ def find_nvcc() -> str:
         f"cuda_flashattention_torch need the CUDA toolkit to build")
 
 
-def nvcc_command(nvcc: str, srcs: List[Path], out: Path) -> List[str]:
-    return [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(out),
-            *[str(s) for s in srcs]]
+def compile_command(nvcc: str, src: Path, obj: Path) -> List[str]:
+    """nvcc command compiling one source into a relocatable object."""
+    return [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+
+
+def link_command(nvcc: str, objs: List[Path], out: Path) -> List[str]:
+    """nvcc command linking the objects into the shared library."""
+    return [nvcc, *ARCH_FLAGS, "-shared", "-o", str(out),
+            *[str(o) for o in objs]]
 
 
 def _library_path(srcs: List[Path]) -> Path:
@@ -90,26 +108,33 @@ def _library_path(srcs: List[Path]) -> Path:
     return BUILD_DIR / f"libcfa_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: List[List[str]]) -> None:
+    """Run the commands concurrently; raise with nvcc's output if any
+    fails. Every process started is waited for."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outputs = [p.communicate()[0] for p in procs]
+    for cmd, p, text in zip(cmds, procs, outputs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(cmd)}\n{text}")
+
+
 def _build(out: Path) -> None:
     global build_seconds
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build into a private file and rename, so a concurrent process never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(nvcc_command(nvcc, sources(), Path(tmp)),
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}"
-                f"\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    # build in a private directory and rename the library into place, so
+    # a concurrent process never loads a half-written one
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        srcs = sources()
+        objs = [Path(tmp) / f"{s.stem}.o" for s in srcs]
+        _run_all([compile_command(nvcc, s, o) for s, o in zip(srcs, objs)])
+        lib = Path(tmp) / out.name
+        _run_all([link_command(nvcc, objs, lib)])
+        os.replace(lib, out)
     build_seconds = time.perf_counter() - t0
 
 

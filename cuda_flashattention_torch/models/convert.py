@@ -1,16 +1,18 @@
-"""Load the JAX package's parameters into the port's module.
+"""Carry parameters between the JAX package's layout and the port's
+module.
 
 `params_from_jax` takes the nested dict that
 cuda_flashattention_tpu.models.transformer.init_params returns, with its
 leaves as numpy arrays (so this module needs no JAX), and fills a
-`Transformer` with them. JAX keeps dense weights as [in, out] for
-`x @ W`; `nn.Linear.weight` is [out, in], so each is transposed. The
-embedding is tied and keeps its [vocab, d_model] layout.
+`Transformer` with them; `params_to_jax` is its inverse, for parameters
+or their gradients. JAX keeps dense weights as [in, out] for `x @ W`;
+`nn.Linear.weight` is [out, in], so each is transposed. The embedding is
+tied and keeps its [vocab, d_model] layout.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -49,3 +51,26 @@ def params_from_jax(params: Mapping[str, Any],
             for name in _LINEARS:
                 put(getattr(blk, name).weight, layer[name], transpose=True)
     return model
+
+
+def params_to_jax(model: Transformer, grads: bool = False) -> Dict[str, Any]:
+    """The model's parameters, or with `grads=True` their `.grad`, as the
+    JAX package's nested dict with fp32 numpy leaves (linear weights
+    transposed back to [in, out])."""
+
+    def get(p: torch.Tensor, transpose: bool = False) -> np.ndarray:
+        t = p.grad if grads else p
+        if t is None:
+            raise ValueError("a parameter has no gradient")
+        t = t.detach().float().cpu()
+        return (t.T if transpose else t).contiguous().numpy()
+
+    layers = []
+    for blk in model.layers:
+        layer = dict(attn_norm=get(blk.attn_norm),
+                     mlp_norm=get(blk.mlp_norm))
+        for name in _LINEARS:
+            layer[name] = get(getattr(blk, name).weight, transpose=True)
+        layers.append(layer)
+    return dict(embed=get(model.embed), final_norm=get(model.final_norm),
+                layers=layers)

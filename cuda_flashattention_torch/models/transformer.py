@@ -1,12 +1,15 @@
-"""Decoder-only transformer for serving: prefill and decode over the KV
-cache, attention through the package's kernels.
+"""Decoder-only transformer: training (forward, loss, train step) and
+serving (prefill and decode over the KV cache), attention through the
+package's kernels.
 
-Counterpart of the inference half of
-cuda_flashattention_tpu/models/transformer.py: RMSNorm + RoPE (split
-halves) + GQA attention + SwiGLU MLP, tied embedding/unembedding. The
-projections, MLP and unembedding are plain `F.linear` products; attention
-is `flash_attention_forward` (prefill) and `decode_step` (decode). The
-training path (forward, loss, train step) is not ported yet.
+Counterpart of cuda_flashattention_tpu/models/transformer.py: RMSNorm +
+RoPE (split halves) + GQA attention + SwiGLU MLP, tied
+embedding/unembedding. The projections, MLP and unembedding are plain
+`F.linear` products. Attention is `flash_attention` (training: forward
+kernel K1, backward kernel K4 or K2 + K3), `flash_attention_forward`
+(prefill) and `decode_step` (decode). The sequence-parallel, pipelined
+and sharded forms of the JAX model (`mesh`, `pipeline_forward`,
+`param_shardings`) wait for the distributed layer.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from cuda_flashattention_torch.ops.attention import flash_attention
 from cuda_flashattention_torch.ops.flash_fwd import flash_attention_forward
 from cuda_flashattention_torch.ops.kv_cache import (
     KVCache,
@@ -104,7 +108,8 @@ class Block(nn.Module):
 class Transformer(nn.Module):
     """The model's parameters, initialised from `generator` (normal
     divided by sqrt(fan_in), as the JAX package does; norms at 1). The
-    parameters live on the generator's device."""
+    parameters live on the generator's device and are trainable; the
+    serving functions run under `torch.no_grad()`."""
 
     def __init__(self, cfg: TransformerConfig, generator: torch.Generator):
         super().__init__()
@@ -116,9 +121,9 @@ class Transformer(nn.Module):
             torch.ones(cfg.d_model, dtype=cfg.dtype, device=device))
         self.layers = nn.ModuleList(
             Block(cfg, device=device) for _ in range(cfg.n_layers))
-        self.requires_grad_(False)
         self._init_weights(generator)
 
+    @torch.no_grad()
     def _init_weights(self, generator: torch.Generator) -> None:
         def dense(p: torch.Tensor, fan_in: int) -> None:
             w = torch.randn(p.shape, generator=generator,
@@ -142,17 +147,8 @@ class Transformer(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# Inference: prefill + decode over the KV cache
+# Training: forward, loss, train step
 # ---------------------------------------------------------------------------
-
-def init_caches(cfg: TransformerConfig, batch: int, max_len: int,
-                qtype: Optional[str] = None,
-                device=None) -> Tuple[KVCache, ...]:
-    return tuple(
-        init_cache(batch, cfg.n_kv_heads, max_len, cfg.d_head, qtype=qtype,
-                   dtype=cfg.dtype, device=device)
-        for _ in range(cfg.n_layers))
-
 
 def _qkv(blk: Block, x: torch.Tensor, cfg: TransformerConfig,
          positions: torch.Tensor):
@@ -165,6 +161,62 @@ def _qkv(blk: Block, x: torch.Tensor, cfg: TransformerConfig,
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def forward(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+    """Causal LM forward: tokens [B, T] → fp32 logits [B, T, V], with
+    attention through the differentiable `flash_attention(causal=True)`."""
+    cfg = model.cfg
+    b, t = tokens.shape
+    x = model.embed[tokens].to(cfg.dtype)
+    positions = torch.arange(t, device=x.device)
+    for blk in model.layers:
+        qt, kt, vt = _qkv(blk, x, cfg, positions)
+        o = flash_attention(qt, kt, vt, causal=True, window=cfg.window)
+        o = o.transpose(1, 2).reshape(b, t, cfg.d_q)
+        x = x + blk.wo(o).to(x.dtype)
+        x = blk.mlp(x)
+    return model.unembed(x)
+
+
+def loss_fn(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+    """Next-token cross entropy: targets are the tokens rolled by −1, and
+    the mean NLL is taken over positions [:, :-1] (the wrapped-around last
+    position is dropped), as the JAX package's `loss_fn`."""
+    logits = forward(model, tokens)
+    targets = torch.roll(tokens, -1, dims=1).long()
+    return F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
+                           targets[:, :-1].reshape(-1))
+
+
+def make_train_step(model: Transformer, optimizer: torch.optim.Optimizer):
+    """A train step for `model`: step(tokens) zeroes the gradients, runs
+    `loss_fn` and its backward, applies `optimizer` (built over
+    `model.parameters()`) and returns the loss. The parameters and the
+    optimizer state are updated in place, which is what the JAX version's
+    buffer donation buys, so there is no `donate` option."""
+
+    def step(tokens: torch.Tensor) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(model, tokens)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Inference: prefill + decode over the KV cache
+# ---------------------------------------------------------------------------
+
+def init_caches(cfg: TransformerConfig, batch: int, max_len: int,
+                qtype: Optional[str] = None,
+                device=None) -> Tuple[KVCache, ...]:
+    return tuple(
+        init_cache(batch, cfg.n_kv_heads, max_len, cfg.d_head, qtype=qtype,
+                   dtype=cfg.dtype, device=device)
+        for _ in range(cfg.n_layers))
 
 
 def prefill(model: Transformer, tokens: torch.Tensor,

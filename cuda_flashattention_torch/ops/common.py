@@ -11,6 +11,9 @@ from typing import Optional
 # inf - inf = nan in the running-max updates. Empty rows report it as LSE.
 NEG_INF = -1e30
 
+# head dims the CUDA kernels are instantiated for (csrc/*.cu)
+KERNEL_HEAD_DIMS = (64, 128)
+
 
 def cdiv(a: int, b: int) -> int:
     """Ceiling division."""
@@ -24,3 +27,27 @@ def round_up(x: int, m: int) -> int:
 def resolve_scale(scale: Optional[float], d: int) -> float:
     """Softmax scale: 1/sqrt(d) unless given."""
     return 1.0 / math.sqrt(d) if scale is None else float(scale)
+
+
+def check_qkv(q, k, v) -> None:
+    """Raise ValueError unless q [B,H,Nq,d] and k/v [B,Hkv,Nk,d] fit
+    together, with Hkv dividing H (GQA)."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError(f"expected [B,H,N,d] inputs, got q {tuple(q.shape)}"
+                         f" k {tuple(k.shape)} v {tuple(v.shape)}")
+    if k.shape != v.shape or k.shape[0] != q.shape[0] or (
+            k.shape[3] != q.shape[3]):
+        raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if q.shape[1] % k.shape[1] != 0:
+        raise ValueError(f"q heads {q.shape[1]} not a multiple of kv heads "
+                         f"{k.shape[1]}")
+
+
+def kernel_operand(x):
+    """Tensor x as the attention kernels read it: unit stride on d, 16-byte
+    aligned rows (strides a multiple of 8 elements). Copies only when x is
+    not."""
+    ok = (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+          and all(s % 8 == 0 for s in x.stride()[:-1]))
+    return x if ok else x.contiguous()

@@ -19,9 +19,12 @@ from typing import Optional, Tuple
 import torch
 
 from cuda_flashattention_torch import _build
-from cuda_flashattention_torch.ops.common import NEG_INF, resolve_scale
+from cuda_flashattention_torch.ops.common import (
+    KERNEL_HEAD_DIMS,
+    NEG_INF,
+    resolve_scale,
+)
 
-KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_GROUPS = (1, 2, 4, 8)
 
 

@@ -20,11 +20,16 @@ from typing import Optional, Tuple
 import torch
 
 from cuda_flashattention_torch import _build
-from cuda_flashattention_torch.ops.common import NEG_INF, resolve_scale
+from cuda_flashattention_torch.ops.common import (
+    KERNEL_HEAD_DIMS,
+    NEG_INF,
+    check_qkv,
+    kernel_operand,
+    resolve_scale,
+)
 
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
-KERNEL_HEAD_DIMS = (64, 128)
 
 
 def _prescale_q(q: torch.Tensor, scale: float) -> torch.Tensor:
@@ -74,14 +79,6 @@ def flash_attention_forward_plain(
             lse.reshape(b, h, nq))
 
 
-def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
-    """x as the kernel reads it: unit stride on d, 16-byte aligned rows
-    (strides a multiple of 8 elements). Copies only when x is not."""
-    ok = (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
-          and all(s % 8 == 0 for s in x.stride()[:-1]))
-    return x if ok else x.contiguous()
-
-
 def _fwd_cuda(q, k, v, scale, causal, kv_offset, out_dtype):
     b, h, nq, d = q.shape
     h_kv, nk = k.shape[1], k.shape[2]
@@ -96,8 +93,8 @@ def _fwd_cuda(q, k, v, scale, causal, kv_offset, out_dtype):
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"out_dtype {out_dtype} on the card")
-    qs = _kernel_operand(_prescale_q(q, resolve_scale(scale, d)))
-    k, v = _kernel_operand(k), _kernel_operand(v)
+    qs = kernel_operand(_prescale_q(q, resolve_scale(scale, d)))
+    k, v = kernel_operand(k), kernel_operand(v)
     o = torch.empty((b, h, nq, d), dtype=out_dtype, device=q.device)
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -139,16 +136,7 @@ def flash_attention_forward(
     `out_dtype` (default: q's dtype). On the card the kernel takes bf16
     inputs with d in {64, 128}; the count of its launches is
     `flash_attention_forward.launches`."""
-    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
-        raise ValueError(f"expected [B,H,N,d] inputs, got q {tuple(q.shape)}"
-                         f" k {tuple(k.shape)} v {tuple(v.shape)}")
-    if k.shape != v.shape or k.shape[0] != q.shape[0] or (
-            k.shape[3] != q.shape[3]):
-        raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not "
-                         f"match q {tuple(q.shape)}")
-    if q.shape[1] % k.shape[1] != 0:
-        raise ValueError(f"q heads {q.shape[1]} not a multiple of kv heads "
-                         f"{k.shape[1]}")
+    check_qkv(q, k, v)
     if int(window or 0):
         raise NotImplementedError("sliding window is not ported yet")
     if k_scale is not None or v_scale is not None:

@@ -1,4 +1,5 @@
-"""Golden oracle: exact softmax attention forward (+ LSE) and decode.
+"""Golden oracle: exact softmax attention forward (+ LSE), backward and
+decode.
 
 Counterpart of cuda_flashattention_tpu/ops/naive.py. Dense O(N^2) math in
 fp32 (or fp64); TF32 is switched off for both matmuls and convolutions so
@@ -51,6 +52,47 @@ def naive_attention(
     o = torch.einsum("...qk,...kd->...qd", p, v) / l
     lse = (m_safe + torch.log(l))[..., 0]
     return o, lse
+
+
+def naive_attention_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    do: torch.Tensor,
+    scale: Optional[float] = None,
+    causal: bool = False,
+    window: int = 0,
+    kv_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Exact attention backward through the explicit softmax Jacobian;
+    returns (dQ, dK, dV) in fp32.
+
+    Shapes and masks as `naive_attention`. dV = Pᵀ·dO, dP = dO·Vᵀ,
+    dS = P ⊙ (dP − rowsum(P ⊙ dP))·scale, dQ = dS·K, dK = dSᵀ·Q; masked
+    pairs and rows with no visible key have P = 0."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    q, k, v, do = (x.to(torch.float32) for x in (q, k, v, do))
+    scale = resolve_scale(scale, q.shape[-1])
+    s = torch.einsum("...qd,...kd->...qk", q, k) * scale
+    if causal:
+        nq, nk = q.shape[-2], k.shape[-2]
+        qi = torch.arange(nq, device=q.device)[:, None] + kv_offset
+        kj = torch.arange(nk, device=q.device)[None, :]
+        ok = kj <= qi
+        if window:
+            ok = ok & (kj > qi - window)
+        s = s.masked_fill(~ok, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(torch.isfinite(s), p, torch.zeros_like(p))
+    dv = torch.einsum("...qk,...qd->...kd", p, do)
+    dp = torch.einsum("...qd,...kd->...qk", do, v)
+    # rowsum(P ⊙ dP) equals the flash backward's D = rowsum(dO ⊙ O)
+    delta = (p * dp).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("...qk,...kd->...qd", ds, k)
+    dk = torch.einsum("...qk,...qd->...kd", ds, q)
+    return dq, dk, dv
 
 
 def naive_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -10,6 +10,16 @@ from typing import Callable
 import torch
 
 
+def attention_flops(b: int, h: int, nq: int, nk: int, d: int,
+                    causal: bool = False, backward: bool = False) -> float:
+    """Matmul FLOPs of one attention call, counted as the JAX package's
+    utils/timing.py counts them: 2 products forward (QKᵀ, PV), 5 backward
+    (S, dP, dV, dK, dQ), 2·d flops per (query, key) pair each, half the
+    pairs when causal."""
+    pairs = b * h * nq * nk * (0.5 if causal else 1.0)
+    return 2.0 * pairs * d * (5 if backward else 2)
+
+
 def cuda_time_ms(fn: Callable[[], object], iters: int = 20,
                  warmup: int = 3) -> float:
     """Median device milliseconds of one `fn()` call, each call bracketed

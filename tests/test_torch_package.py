@@ -42,12 +42,20 @@ def test_chip_smoke_fails_alone(tmp_path):
 
 
 def test_build_command_targets_sm90a():
-    cmd = _build.nvcc_command("nvcc", _build.sources(), Path("out.so"))
-    assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
-    for flag in ("-std=c++17", "-O3", "-shared", "-fPIC"):
-        assert flag in cmd
-    names = {Path(c).name for c in cmd}
-    assert {"flash_fwd.cu", "decode.cu"} <= names
+    """One nvcc per source (started together), then one link."""
+    srcs = _build.sources()
+    assert {s.name for s in srcs} >= {"flash_fwd.cu", "flash_bwd.cu",
+                                      "decode.cu"}
+    arch = ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
+    for src in srcs:
+        cmd = _build.compile_command("nvcc", src, Path("x.o"))
+        assert cmd[:3] == arch and cmd[-1] == str(src)
+        for flag in ("-std=c++17", "-O3", "-fPIC", "-c"):
+            assert flag in cmd
+    link = _build.link_command("nvcc", [Path("a.o"), Path("b.o")],
+                               Path("out.so"))
+    assert link[:3] == arch and "-shared" in link
+    assert {"a.o", "b.o", "out.so"} <= {Path(c).name for c in link}
 
 
 def test_build_dir_is_git_ignored():
