@@ -7,10 +7,13 @@ kernels for sm_90a (csrc/), built by nvcc at first use on the card
 (_build.py); on CPU tensors each op runs its plain PyTorch version.
 
 Ported so far: the serving path — prefill (FA2 forward) and decode over
-the KV cache, driven by `generate()` — and the training path: `forward`,
+the KV cache (bf16, int8, fp8 or mixed; windows; integer Q·Kᵀ), driven by
+`generate()`; paged serving (page pools, block tables, the host-side
+`PageAllocator`, the paged decode kernel); the training path: `forward`,
 `loss_fn` and `make_train_step`, with attention through the
 differentiable `flash_attention` (FA2 forward, and the FA2 backward
-kernels: fused, or split into dK/dV and dQ).
+kernels: fused, or split into dK/dV and dQ); and the FlashAttention-1
+rung (`fa1_attention`).
 """
 
 __version__ = "0.1.0"
@@ -21,6 +24,10 @@ from cuda_flashattention_torch.ops.attention import (
     mha,
 )
 from cuda_flashattention_torch.ops.common import NEG_INF
+from cuda_flashattention_torch.ops.fa1 import (
+    fa1_attention,
+    fa1_attention_plain,
+)
 from cuda_flashattention_torch.ops.decode import (
     decode_attention,
     decode_attention_plain,
@@ -39,10 +46,27 @@ from cuda_flashattention_torch.ops.kv_cache import (
     decode_step,
     init_cache,
 )
+from cuda_flashattention_torch.ops.paged import (
+    PageAllocator,
+    PagedKVCache,
+    init_paged_cache,
+    paged_append,
+    paged_bulk_append,
+    paged_decode_attention,
+    paged_decode_attention_plain,
+    paged_decode_step,
+    paged_prefix_attention,
+)
 from cuda_flashattention_torch.ops.naive import (
     naive_attention,
     naive_attention_backward,
     naive_decode,
+)
+from cuda_flashattention_torch.ops.quant import (
+    QuantizedKV,
+    flash_attention_quantized,
+    quantize_kv,
+    quantize_tensor,
 )
 from cuda_flashattention_torch.parallel.ring import combine_partials
 from cuda_flashattention_torch.models.transformer import (
@@ -58,6 +82,8 @@ from cuda_flashattention_torch.models.transformer import (
     prefill_chunked,
 )
 from cuda_flashattention_torch.models.convert import (
+    kv_cache_from_numpy,
+    paged_cache_from_numpy,
     params_from_jax,
     params_to_jax,
 )
@@ -69,8 +95,19 @@ __all__ = [
     "flash_attention",
     "mha",
     "NEG_INF",
+    "fa1_attention",
+    "fa1_attention_plain",
     "decode_attention",
     "decode_attention_plain",
+    "paged_decode_attention",
+    "paged_decode_attention_plain",
+    "PagedKVCache",
+    "PageAllocator",
+    "init_paged_cache",
+    "paged_append",
+    "paged_bulk_append",
+    "paged_decode_step",
+    "paged_prefix_attention",
     "flash_attention_backward",
     "flash_attention_backward_plain",
     "flash_attention_forward",
@@ -82,6 +119,10 @@ __all__ = [
     "naive_attention",
     "naive_attention_backward",
     "naive_decode",
+    "QuantizedKV",
+    "flash_attention_quantized",
+    "quantize_kv",
+    "quantize_tensor",
     "combine_partials",
     "Transformer",
     "TransformerConfig",
@@ -93,6 +134,8 @@ __all__ = [
     "prefill",
     "prefill_chunk",
     "prefill_chunked",
+    "kv_cache_from_numpy",
+    "paged_cache_from_numpy",
     "params_from_jax",
     "params_to_jax",
     "generate",

@@ -3,8 +3,9 @@
 `csrc/*.cu` are compiled by `nvcc` for Hopper (`sm_90a`), one process
 per source, all started together, and linked into one shared library with
 a plain C interface, under `build/` beside the sources (a directory git
-ignores). The library's file name carries a hash of the sources and
-flags, so an edited kernel is rebuilt and a stale one is never loaded.
+ignores). The library's file name carries a hash of the sources, the
+headers they share (`csrc/*.cuh`) and the flags, so an edited kernel is
+rebuilt and a stale one is never loaded.
 Each C entry point returns `cudaGetLastError()` after its launch;
 `check()` turns a non-zero code into an exception.
 
@@ -47,9 +48,20 @@ SIGNATURES = {
     "cfa_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _L, _L, _L, _L, _L, _L, _L, _L, _L,
                       _I, _I, _I, _P],
-    # q, k, v, lengths, o, lse, B, H, Hkv, max_n, D, scale, stream
-    "cfa_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                   ctypes.c_float, _P],
+    # q, k, v, k_scale, v_scale, q_sigma, lengths, windows, o, lse,
+    # B, H, Hkv, max_n, D, k_type, v_type (0 bf16, 1 int8, 2 fp8), qq,
+    # scale, window, stream
+    "cfa_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                   _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+    # q, k_pages, v_pages, k_scale, v_scale, q_sigma, page_table, lengths,
+    # windows, o, lse, B, H, Hkv, page, max_pages, D, k_type, v_type, qq,
+    # scale, window, stream
+    "cfa_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         ctypes.c_float, _I, _P],
+    # q, k, v, o, B, H, Nq, Nk, D, strides[9] (q/k/v: batch, head, row),
+    # causal, n_sub, stream
+    "cfa_fa1": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LP, _I, _I, _P],
     # q, k, v, dO, lse, delta, dk, dv, dq_acc (NULL: K2, else K4),
     # B, H, Hkv, Nq, Nk, D, strides[12] (q/k/v/dO: batch, head, row),
     # scale, causal, kv_offset, stream
@@ -68,6 +80,11 @@ build_seconds: Optional[float] = None
 
 def sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> List[Path]:
+    """The headers the sources include (hashed, not compiled)."""
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def find_nvcc() -> str:
@@ -102,7 +119,7 @@ def link_command(nvcc: str, objs: List[Path], out: Path) -> List[str]:
 
 def _library_path(srcs: List[Path]) -> Path:
     h = hashlib.sha256(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in [*srcs, *headers()]:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return BUILD_DIR / f"libcfa_kernels_{h.hexdigest()[:16]}.so"

@@ -1,0 +1,321 @@
+// The body shared by the two one-token decode kernels: the contiguous
+// cache walk of decode.cu (K6) and the page-table walk of paged.cu (K7).
+//
+// Replaces: cuda_flashattention_tpu/ops/decode.py::attend_block (the
+// per-block online-softmax update) and ::decode_epilogue, which the TPU
+// package shares between _decode_kernel and ops/paged.py::_paged_kernel
+// in the same way. A walk decides WHICH keys a CTA visits and where they
+// lie; everything a key does to the softmax state is here, so the two
+// kernels cannot drift apart.
+//
+// A CTA serves a tile of R query rows that share one KV head (the H/Hkv
+// heads of a GQA group, or group x chunk rows when a prefill chunk is
+// folded into the row dimension); more rows are more CTAs over the same
+// keys. The row count is a run-time value; R is 1, 4 or 8, the smallest
+// that holds min(rows, 8). The row loops are fully unrolled over R with no
+// branch inside them, so the state stays in registers and the rows' shuffle
+// chains overlap: a tile's rows past the last live one carry q = 0 through
+// the walk and are dropped at the write. Why three tiles and not the 8-row
+// one alone, on an H100 at 700 W with a cold L2: for one row per KV head
+// the 1-row tile walks 640 contiguous keys in 0.084 ms where the 8-row
+// tile takes 0.125; for four rows (the serving model's GQA group) the
+// paged walk over 4224 keys takes 0.79 ms with the 4-row tile and 0.98 ms
+// with the 8-row one, though the contiguous walk differs by 1% only. A
+// 2-row tile was 5% faster than the 4-row one for two rows and was not
+// kept. Each of the CTA's NWARPS warps visits its own share of the keys; a
+// lane owns D/32 consecutive elements of the head dim, a score is a
+// warp-shuffle sum of the lanes' partial dots, and the warps' partial
+// (m, l, acc) states merge once in shared memory.
+//
+// Storage types, per array: bf16, int8, or fp8 e4m3 (converted by the
+// hardware's cvt, no bit surgery), the quantized ones with one fp32
+// scale per cached token. Numerics follow the TPU body:
+//   s = (q . k_q) * scale * k_scale[j]            (fp32 sum of exact products)
+//   s = float(int32 q8 . k8) * (sigma_q*scale)[row] * k_scale[j]   under QQ,
+//       where the int8 dot runs on __dp4a and is exact
+//   p = exp(s - m); l sums the unrounded p
+//   acc += bf16(p * v_scale[j]) * v_q             (rounded AFTER the scale)
+//   O = acc / l in bf16, LSE = m + ln l; l = 0 gives O = 0, LSE = NEG_INF.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace cfa_decode_body {
+
+constexpr float kNegInf = -1e30f;
+constexpr int NWARPS = 4;
+constexpr int NTHREADS = NWARPS * 32;
+
+// Rows per CTA for `rows` query rows per KV head: 1, 4 or 8.
+inline int tile_rows(int rows) { return rows == 1 ? 1 : rows <= 4 ? 4 : 8; }
+
+// storage type codes of the C interface
+constexpr int kBf16 = 0, kInt8 = 1, kFp8 = 2;
+
+// What both kernels are given besides their cache.
+struct Args {
+  const void* q;         // [B, Hkv*rows, D] bf16, or int8 under QQ
+  const float* q_sigma;  // [B, Hkv*rows] sigma_q * scale, QQ only
+  const float* k_scale;  // one fp32 per cached token, quantized only
+  const float* v_scale;
+  const int* lengths;    // [B]
+  const int* windows;    // [B] or nullptr
+  __nv_bfloat16* o;      // [B, Hkv*rows, D]
+  float* lse;            // [B, Hkv*rows]
+  int rows;              // query rows per KV head
+  int Hkv;
+  float scale;
+  int window;            // 0: none; with `windows`, a cap on each of them
+};
+
+// First visible key of sequence b: max(0, length - win), where win is the
+// static window, the sequence's own, or the smaller of the two.
+__device__ __forceinline__ int first_key(const Args& a, int b, int length) {
+  if (a.windows == nullptr && a.window <= 0) return 0;
+  int win = a.windows != nullptr ? a.windows[b] : a.window;
+  if (a.windows != nullptr && a.window > 0) win = min(win, a.window);
+  win = min(max(win, 0), length);
+  return length - win;
+}
+
+// N consecutive stored values (N = 2 or 4) as floats. Every conversion is
+// exact: bf16, int8 and e4m3 all embed in fp32.
+template <int N>
+__device__ __forceinline__ void load_vals(const __nv_bfloat16* p, float* out) {
+  if constexpr (N == 4) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const float2 fa =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 fb =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    out[0] = fa.x; out[1] = fa.y; out[2] = fb.x; out[3] = fb.y;
+  } else {
+    const float2 fa =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    out[0] = fa.x; out[1] = fa.y;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void load_vals(const int8_t* p, float* out) {
+  if constexpr (N == 4) {
+    const char4 c = *reinterpret_cast<const char4*>(p);
+    out[0] = (float)c.x; out[1] = (float)c.y;
+    out[2] = (float)c.z; out[3] = (float)c.w;
+  } else {
+    const char2 c = *reinterpret_cast<const char2*>(p);
+    out[0] = (float)c.x; out[1] = (float)c.y;
+  }
+}
+
+__device__ __forceinline__ float2 fp8x2_to_float2(unsigned short pair) {
+  const __half2_raw raw = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(pair), __NV_E4M3);
+  return __half22float2(__half2(raw));
+}
+
+template <int N>
+__device__ __forceinline__ void load_vals(const __nv_fp8_e4m3* p, float* out) {
+  if constexpr (N == 4) {
+    const unsigned int w = *reinterpret_cast<const unsigned int*>(p);
+    const float2 fa = fp8x2_to_float2((unsigned short)(w & 0xffffu));
+    const float2 fb = fp8x2_to_float2((unsigned short)(w >> 16));
+    out[0] = fa.x; out[1] = fa.y; out[2] = fb.x; out[3] = fb.y;
+  } else {
+    const float2 fa =
+        fp8x2_to_float2(*reinterpret_cast<const unsigned short*>(p));
+    out[0] = fa.x; out[1] = fa.y;
+  }
+}
+
+// N consecutive int8 packed into the low bytes of a word (for __dp4a; the
+// bytes above N are zero and add nothing to the dot).
+template <int N>
+__device__ __forceinline__ int load_word(const int8_t* p) {
+  if constexpr (N == 4) {
+    return *reinterpret_cast<const int*>(p);
+  } else {
+    return (int)*reinterpret_cast<const unsigned short*>(p);
+  }
+}
+
+// The online-softmax state of one warp for the CTA's row tile.
+template <int D, typename KT, typename VT, bool QQ, int ROWS>
+struct Body {
+  static constexpr int N = D / 32;  // d-elements each lane owns
+  static constexpr bool kQuant = !std::is_same<KT, __nv_bfloat16>::value;
+  static_assert(!QQ || std::is_same<KT, int8_t>::value,
+                "the int8 Q.K dot needs int8 keys");
+
+  float qf[ROWS][N];  // the rows' q slices (unused under QQ)
+  int q8[ROWS];       // the same as packed int8 (QQ)
+  float qs[ROWS];     // sigma_q * scale per row (QQ)
+  float m[ROWS], l[ROWS], acc[ROWS][N];
+  int nrows;          // live rows of this tile
+  long long row0;     // flat index of the tile's first row in q, o, lse
+  int c0;             // this lane's first d-element
+
+  __device__ __forceinline__ void init(const Args& a, int b, int hk,
+                                       int tile) {
+    const int lane = threadIdx.x % 32;
+    c0 = lane * N;
+    nrows = min(ROWS, a.rows - tile * ROWS);
+    row0 = ((long long)b * a.Hkv + hk) * a.rows + (long long)tile * ROWS;
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      m[r] = kNegInf;
+      l[r] = 0.f;
+      q8[r] = 0;
+      qs[r] = 0.f;
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        acc[r][c] = 0.f;
+        qf[r][c] = 0.f;
+      }
+      if (r < nrows) {
+        if constexpr (QQ) {
+          q8[r] = load_word<N>(static_cast<const int8_t*>(a.q) +
+                               (row0 + r) * D + c0);
+          qs[r] = a.q_sigma[row0 + r];
+        } else {
+          load_vals<N>(static_cast<const __nv_bfloat16*>(a.q) +
+                           (row0 + r) * D + c0,
+                       qf[r]);
+        }
+      }
+    }
+  }
+
+  // One key: krow/vrow point at the key's D stored values, ks/vs are its
+  // scales (ignored for a bf16 cache).
+  __device__ __forceinline__ void attend(const KT* krow, const VT* vrow,
+                                         float ks, float vs, float scale) {
+    float kf[N], vf[N];
+    int kw = 0;
+    if constexpr (QQ) {
+      kw = load_word<N>(krow + c0);
+    } else {
+      load_vals<N>(krow + c0, kf);
+    }
+    load_vals<N>(vrow + c0, vf);
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      float s;
+      if constexpr (QQ) {
+        int dot = __dp4a(q8[r], kw, 0);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        s = (float)dot * qs[r];
+      } else {
+        s = 0.f;
+#pragma unroll
+        for (int c = 0; c < N; ++c) s = fmaf(qf[r][c], kf[c], s);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          s += __shfl_xor_sync(0xffffffffu, s, off);
+        s *= scale;
+      }
+      if constexpr (kQuant) s *= ks;
+      const float m_next = fmaxf(m[r], s);
+      const float alpha = __expf(m[r] - m_next);
+      const float p = __expf(s - m_next);
+      l[r] = l[r] * alpha + p;
+      m[r] = m_next;
+      // P weights V rounded to bf16, after the V scale is folded in
+      const float pr =
+          __bfloat162float(__float2bfloat16(kQuant ? p * vs : p));
+#pragma unroll
+      for (int c = 0; c < N; ++c) acc[r][c] = acc[r][c] * alpha + pr * vf[c];
+    }
+  }
+
+  // Merge the warps' states and write O and LSE of the tile's rows.
+  __device__ __forceinline__ void finish(const Args& a) {
+    __shared__ float part_m[NWARPS][ROWS];
+    __shared__ float part_l[NWARPS][ROWS];
+    __shared__ float part_o[NWARPS][ROWS][D];
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      if (lane == 0) {
+        part_m[warp][r] = m[r];
+        part_l[warp][r] = l[r];
+      }
+#pragma unroll
+      for (int c = 0; c < N; ++c) part_o[warp][r][c0 + c] = acc[r][c];
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < nrows * D; i += NTHREADS) {
+      const int r = i / D;
+      const int c = i % D;
+      float mx = kNegInf;
+#pragma unroll
+      for (int w = 0; w < NWARPS; ++w) mx = fmaxf(mx, part_m[w][r]);
+      float lsum = 0.f, osum = 0.f;
+#pragma unroll
+      for (int w = 0; w < NWARPS; ++w) {
+        // a warp that saw no key has l = 0 and contributes nothing
+        const float wgt = part_l[w][r] > 0.f ? __expf(part_m[w][r] - mx) : 0.f;
+        lsum += part_l[w][r] * wgt;
+        osum += part_o[w][r][c] * wgt;
+      }
+      a.o[(row0 + r) * D + c] =
+          __float2bfloat16(lsum > 0.f ? osum / lsum : 0.f);
+      if (c == 0) a.lse[row0 + r] = lsum > 0.f ? mx + logf(lsum) : kNegInf;
+    }
+  }
+};
+
+inline bool valid_types(int kt, int vt, int qq) {
+  const bool pair = (kt == kBf16 && vt == kBf16) ||
+                    (kt == kInt8 && vt == kInt8) ||
+                    (kt == kFp8 && vt == kFp8) || (kt == kInt8 && vt == kFp8);
+  return pair && (!qq || kt == kInt8);
+}
+
+// Calls L<D, KT, VT, QQ, R>::run(args...) for the storage types, head dim
+// and row tile asked for; cudaErrorInvalidValue for a combination that is
+// not built.
+template <template <int, typename, typename, bool, int> class L, int D, int R,
+          typename... A>
+cudaError_t dispatch_types(int kt, int vt, int qq, A... args) {
+  if (kt == kBf16)
+    return L<D, __nv_bfloat16, __nv_bfloat16, false, R>::run(args...);
+  if (kt == kFp8)
+    return L<D, __nv_fp8_e4m3, __nv_fp8_e4m3, false, R>::run(args...);
+  if (vt == kInt8)
+    return qq ? L<D, int8_t, int8_t, true, R>::run(args...)
+              : L<D, int8_t, int8_t, false, R>::run(args...);
+  return qq ? L<D, int8_t, __nv_fp8_e4m3, true, R>::run(args...)
+            : L<D, int8_t, __nv_fp8_e4m3, false, R>::run(args...);
+}
+
+template <template <int, typename, typename, bool, int> class L, int D,
+          typename... A>
+cudaError_t dispatch_rows(int rows, int kt, int vt, int qq, A... args) {
+  switch (tile_rows(rows)) {
+    case 1: return dispatch_types<L, D, 1>(kt, vt, qq, args...);
+    case 4: return dispatch_types<L, D, 4>(kt, vt, qq, args...);
+    default: return dispatch_types<L, D, 8>(kt, vt, qq, args...);
+  }
+}
+
+template <template <int, typename, typename, bool, int> class L,
+          typename... A>
+cudaError_t dispatch(int D, int rows, int kt, int vt, int qq, A... args) {
+  if (!valid_types(kt, vt, qq)) return cudaErrorInvalidValue;
+  if (D == 64) return dispatch_rows<L, 64>(rows, kt, vt, qq, args...);
+  if (D == 128) return dispatch_rows<L, 128>(rows, kt, vt, qq, args...);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace cfa_decode_body

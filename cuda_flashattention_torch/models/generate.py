@@ -34,12 +34,20 @@ def generate(
     prompt: torch.Tensor,
     max_new_tokens: int,
     max_len: Optional[int] = None,
+    qtype: Optional[str] = None,
     temperature: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    quantize_q: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Generate continuations. prompt [B, T] int → (tokens [B, T+N] in the
     prompt's dtype, logits [B, V] fp32 of the last decode step, or of the
     prefill when N = 0).
+
+    `qtype` None, "int8", "fp8" or "mixed" selects the cache storage (on
+    the model's device); decode reads it through the decode kernel either
+    way, and the whole-prompt prefill never reads it back. `quantize_q`
+    additionally runs the decode's Q·Kᵀ as an integer dot for int8-K
+    caches (per-head int8 Q).
 
     Each decode step consumes the previous step's sampled token, so the
     output is prompt ++ [first, ...] and the last sampled token is not
@@ -50,13 +58,15 @@ def generate(
     if max_len < t + max_new_tokens:
         raise ValueError(f"max_len {max_len} < prompt {t} + new "
                          f"{max_new_tokens}")
-    caches = init_caches(model.cfg, b, max_len, device=model.device)
+    caches = init_caches(model.cfg, b, max_len, qtype=qtype,
+                         device=model.device)
     logits, caches = prefill(model, prompt, caches)
     token = _sample(logits, temperature, generator).to(prompt.dtype)
     tokens = []
     for i in range(max_new_tokens):
         tokens.append(token)
-        logits, caches = decode_one(model, token, t + i, caches)
+        logits, caches = decode_one(model, token, t + i, caches,
+                                    quantize_q=quantize_q)
         token = _sample(logits, temperature, generator).to(prompt.dtype)
     out = torch.cat([prompt, *[tk[:, None] for tk in tokens]], dim=1)
     return out, logits

@@ -7,7 +7,8 @@ RoPE (split halves) + GQA attention + SwiGLU MLP, tied
 embedding/unembedding. The projections, MLP and unembedding are plain
 `F.linear` products. Attention is `flash_attention` (training: forward
 kernel K1, backward kernel K4 or K2 + K3), `flash_attention_forward`
-(prefill) and `decode_step` (decode). The sequence-parallel, pipelined
+(prefill) and `decode_step` (decode), over a cache that may be quantized
+(`init_caches(qtype=...)`). The sequence-parallel, pipelined
 and sharded forms of the JAX model (`mesh`, `pipeline_forward`,
 `param_shardings`) wait for the distributed layer.
 """
@@ -44,7 +45,9 @@ class TransformerConfig:
     d_ff: int = 1408
     max_seq: int = 2048
     rope_theta: float = 10000.0
-    window: int = 0  # 0 = full causal; sliding windows are not ported yet
+    # 0 = full causal. Decode honours a window; prefill and training raise
+    # for one until the forward and backward kernels take it
+    window: int = 0
     dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -213,6 +216,9 @@ def make_train_step(model: Transformer, optimizer: torch.optim.Optimizer):
 def init_caches(cfg: TransformerConfig, batch: int, max_len: int,
                 qtype: Optional[str] = None,
                 device=None) -> Tuple[KVCache, ...]:
+    """One empty cache per layer; `qtype` None, "int8", "fp8" or "mixed"
+    selects the storage. `device=None` means the card and raises without
+    one; the caches must live where the model does."""
     return tuple(
         init_cache(batch, cfg.n_kv_heads, max_len, cfg.d_head, qtype=qtype,
                    dtype=cfg.dtype, device=device)
@@ -232,9 +238,18 @@ def prefill_chunk(model: Transformer, tokens: torch.Tensor, start: int,
     """Prefill one chunk of C tokens starting at position `start`: the
     chunk attends itself causally and, when start > 0, the cached prefix
     [0, start) in full; the two partials merge in log space
-    (combine_partials). Returns (logits_last [B, V], caches)."""
+    (combine_partials). Returns (logits_last [B, V], caches).
+
+    Over a quantized cache only start = 0 is ported: a later chunk reads
+    the quantized prefix through the forward kernel's quantized form,
+    which does not exist yet."""
     cfg = model.cfg
     b, c = tokens.shape
+    if start > 0 and any(cache.quantized for cache in caches):
+        raise NotImplementedError(
+            "prefill_chunk at start > 0 over a quantized cache needs the "
+            "quantized form of the forward kernel (k_scale/v_scale in "
+            "flash_attention_forward), which is not ported yet")
     x = model.embed[tokens].to(cfg.dtype)
     positions = torch.arange(start, start + c, device=x.device)
     for blk, cache in zip(model.layers, caches):
@@ -269,9 +284,12 @@ def prefill_chunked(model: Transformer, tokens: torch.Tensor,
 
 @torch.no_grad()
 def decode_one(model: Transformer, token: torch.Tensor, position: int,
-               caches: Tuple[KVCache, ...]):
+               caches: Tuple[KVCache, ...], quantize_q: bool = False):
     """One autoregressive step: token [B] → (logits [B, V], caches). The
-    token's K/V are appended before attention, so it attends to itself."""
+    token's K/V are appended before attention, so it attends to itself.
+    Attention reads the (possibly quantized) caches through the decode
+    kernel; `quantize_q` runs its Q·Kᵀ as an integer dot on int8-K
+    caches."""
     cfg = model.cfg
     b = token.shape[0]
     x = model.embed[token].to(cfg.dtype)[:, None, :]  # [B, 1, D]
@@ -279,7 +297,8 @@ def decode_one(model: Transformer, token: torch.Tensor, position: int,
     for blk, cache in zip(model.layers, caches):
         qt, kt, vt = _qkv(blk, x, cfg, positions)
         cache_append(cache, kt, vt)
-        o, _ = decode_step(qt[:, :, 0], cache, window=cfg.window)
+        o, _ = decode_step(qt[:, :, 0], cache, window=cfg.window,
+                           quantize_q=quantize_q)
         x = x + blk.wo(o.reshape(b, 1, cfg.d_q)).to(x.dtype)
         x = blk.mlp(x)
     return model.unembed(x[:, 0]), caches

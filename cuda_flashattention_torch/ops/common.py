@@ -1,11 +1,14 @@
 """Shared helpers of the attention ops (counterpart of
 cuda_flashattention_tpu/ops/common.py, without its TPU-only parts: the
-VMEM block-size heuristics, interpret-mode selection and fp8 bit casts)."""
+VMEM block-size heuristics, interpret-mode selection and the fp8 bit
+casts, which Hopper's hardware conversion of e4m3 makes needless)."""
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
+
+import torch
 
 # A finite stand-in for -inf: exp(x - NEG_INF) == 0 in fp32 while avoiding
 # inf - inf = nan in the running-max updates. Empty rows report it as LSE.
@@ -27,6 +30,31 @@ def round_up(x: int, m: int) -> int:
 def resolve_scale(scale: Optional[float], d: int) -> float:
     """Softmax scale: 1/sqrt(d) unless given."""
     return 1.0 / math.sqrt(d) if scale is None else float(scale)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point allocates on: `None` means the card (the
+    current CUDA device), and raises RuntimeError when there is none —
+    it never falls back to the CPU. Ask for the CPU with `device="cpu"`."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is present: this allocates on the card by "
+            "default; pass device=\"cpu\" to allocate on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def quantize_q_per_head(q: torch.Tensor,
+                        axes) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-head absmax int8 quantisation of Q for the integer Q·Kᵀ path
+    (`quantize_q`): absmax over `axes`, sigma = max(absmax, 1e-12) / 127,
+    codes round(q / sigma) (half to even) clipped to ±127. Returns
+    (q_int8, sigma fp32, broadcastable against q)."""
+    qf = q.float()
+    sq = qf.abs().amax(dim=axes, keepdim=True).clamp_min(1e-12) / 127.0
+    q8 = torch.clamp(torch.round(qf / sq), -127, 127).to(torch.int8)
+    return q8, sq
 
 
 def check_qkv(q, k, v) -> None:

@@ -1,15 +1,19 @@
-"""Single-token decode attention over a bf16 KV cache.
+"""Single-token decode attention over a (possibly quantized) KV cache.
 
 Counterpart of cuda_flashattention_tpu/ops/decode.py (`decode_attention`).
 On a CUDA tensor it launches the hand-written Hopper kernel of
-csrc/decode.cu (one CTA per (batch, KV head) serving the G = H/Hkv query
-heads of the group, natural-exp online softmax, keys past lengths[b] never
+csrc/decode.cu (one CTA per (batch, KV head, tile of up to 8 query rows),
+natural-exp online softmax, keys outside [length − window, length) never
 read). On a CPU tensor it runs `decode_attention_plain`, a dense PyTorch
 version of the same numerics.
 
-Not yet ported (raise NotImplementedError): quantized caches
-(`k_scale`/`v_scale`), `window`/`windows`, `quantize_q`, explicit
-`block_k`.
+The cache may be bf16 (fp32 too on the CPU), int8, fp8 e4m3 or mixed
+(int8 K, fp8 V), the quantized ones with per-token scales `k_scale`/
+`v_scale` [B,Hkv,max_N]; `window` and per-sequence `windows` restrict
+attention to the newest tokens; `quantize_q` runs Q·Kᵀ as an integer dot
+over an int8-K cache; H/Hkv may be any size. An explicit `block_k` raises
+NotImplementedError: the kernel walks keys, not blocks (the TPU default
+block rule, `default_decode_block_k`, has no counterpart).
 """
 
 from __future__ import annotations
@@ -22,10 +26,29 @@ from cuda_flashattention_torch import _build
 from cuda_flashattention_torch.ops.common import (
     KERNEL_HEAD_DIMS,
     NEG_INF,
+    quantize_q_per_head,
     resolve_scale,
 )
 
-KERNEL_GROUPS = (1, 2, 4, 8)
+# storage type codes of the C interface (csrc/decode_body.cuh)
+_TYPE_CODES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
+# (K, V) storage pairs the kernels are instantiated for
+_KERNEL_PAIRS = ((0, 0), (1, 1), (2, 2), (1, 2))
+
+
+def effective_windows(b: int, window: int, windows: Optional[torch.Tensor],
+                      device) -> Optional[torch.Tensor]:
+    """Per-sequence windows [B] int64, or None when nothing is windowed:
+    `window` alone applies to every sequence, `windows` alone is honoured
+    as it is (one ≥ its length means no window), and both together give
+    min(windows[i], window)."""
+    window = int(window or 0)
+    if windows is None:
+        if window <= 0:
+            return None
+        return torch.full((b,), window, dtype=torch.long, device=device)
+    win = windows.to(device=device, dtype=torch.long).reshape(b)
+    return win.clamp_max(window) if window > 0 else win
 
 
 def decode_attention_plain(
@@ -33,66 +56,139 @@ def decode_attention_plain(
     k: torch.Tensor,
     v: torch.Tensor,
     lengths: torch.Tensor,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    window: int = 0,
+    windows: Optional[torch.Tensor] = None,
+    quantize_q: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense PyTorch version of the kernel's arithmetic, on any device.
 
-    fp32 scores times `scale`, keys at or past lengths[b] masked with
-    probability 0, natural exp, P rounded to q's dtype before P·V with
-    fp32 accumulation; O in q's dtype, LSE = m + ln l in fp32, and a
-    sequence with no live key gets O = 0 and LSE = NEG_INF."""
+    fp32 scores `(q · k_q) · scale · k_scale[j]` — under `quantize_q` on
+    an int8-K cache `float(q8 · k8) · (σ_q·scale) · k_scale[j]`, the
+    integer sum being exact in fp32 — with key j visible when
+    length − win ≤ j < length; natural exp; l sums the unrounded P;
+    `P · v_scale[j]` is rounded to the compute dtype (q's; bf16 under
+    `quantize_q`) before it weights `v_q` with fp32 accumulation; O in q's
+    dtype, LSE = m + ln l in fp32, and a sequence with no visible key
+    gets O = 0 and LSE = NEG_INF."""
     b, h, d = q.shape
     h_kv, max_n = k.shape[1], k.shape[2]
     group = h // h_kv
     scale = resolve_scale(scale, d)
-    qg = q.float().view(b, h_kv, group, d)
-    s = torch.einsum("bhgd,bhkd->bhgk", qg, k.float()) * scale
-    cols = torch.arange(max_n, device=q.device)
-    live = cols[None, :] < lengths.to(q.device).view(b, 1).long()
-    s = torch.where(live[:, None, None, :], s,
-                    torch.full((), NEG_INF, device=q.device))
+    quantized = k_scale is not None
+    qq = bool(quantize_q) and quantized and k.dtype == torch.int8
+    cd = torch.bfloat16 if qq else q.dtype
+    zero = torch.zeros((), device=q.device)
+
+    if qq:
+        q8, sq = quantize_q_per_head(q, (-1,))  # sq [B,H,1]
+        s = torch.einsum("bhgd,bhkd->bhgk",
+                         q8.float().view(b, h_kv, group, d), k.float())
+        s = s * (sq * scale).view(b, h_kv, group, 1)
+    else:
+        s = torch.einsum("bhgd,bhkd->bhgk",
+                         q.float().view(b, h_kv, group, d),
+                         k.to(cd).float()) * scale
+    if quantized:
+        s = s * k_scale.float()[:, :, None, :]
+    cols = torch.arange(max_n, device=q.device)[None, :]
+    lens = lengths.to(q.device).view(b, 1).long()
+    live = cols < lens
+    win = effective_windows(b, window, windows, q.device)
+    if win is not None:
+        live = live & (cols >= lens - win.view(b, 1))
+    live = live[:, None, None, :]
+    s = torch.where(live, s, torch.full((), NEG_INF, device=q.device))
     m = s.amax(dim=-1, keepdim=True)
-    p = torch.where(s > NEG_INF * 0.5, torch.exp(s - m),
-                    torch.zeros((), device=q.device))
+    p = torch.where(s > NEG_INF * 0.5, torch.exp(s - m), zero)
     l = p.sum(dim=-1, keepdim=True)
-    pv = torch.einsum("bhgk,bhkd->bhgd", p.to(q.dtype).float(), v.float())
+    if quantized:
+        # rows past the live context may hold anything, NaN included
+        p = torch.where(live, p * v_scale.float()[:, :, None, :], zero)
+    vf = torch.where(live[:, :, 0, :, None], v.float(), zero)
+    pv = torch.einsum("bhgk,bhkd->bhgd", p.to(cd).float(), vf)
     empty = l == 0.0
     l_safe = torch.where(empty, torch.ones_like(l), l)
-    o = torch.where(empty, torch.zeros((), device=q.device), pv / l_safe)
+    o = torch.where(empty, zero, pv / l_safe)
     lse = torch.where(empty, torch.full_like(l, NEG_INF),
                       m + torch.log(l_safe))
     return o.reshape(b, h, d).to(q.dtype), lse.reshape(b, h)
 
 
-def _decode_cuda(q, k, v, lengths, scale):
-    b, h, d = q.shape
-    h_kv, max_n = k.shape[1], k.shape[2]
+def kernel_inputs(q, k, v, k_scale, v_scale, windows, quantize_q, scale,
+                  what: str):
+    """Check and prepare what the contiguous and the paged decode kernels
+    share. Returns (q or its int8 codes, q_sigma or None, k_scale,
+    v_scale, windows int32 or None, k code, v code, qq)."""
+    d = q.shape[-1]
     if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the CUDA decode takes d in {KERNEL_HEAD_DIMS}, "
+        raise ValueError(f"the CUDA {what} takes d in {KERNEL_HEAD_DIMS}, "
                          f"got {d}")
-    if h // h_kv not in KERNEL_GROUPS:
-        raise ValueError(f"the CUDA decode takes H/Hkv in {KERNEL_GROUPS}, "
-                         f"got {h // h_kv}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.dtype != torch.bfloat16:
-            raise NotImplementedError(
-                f"the CUDA decode takes bf16 inputs, got {name} {x.dtype}")
+    if q.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"the CUDA {what} takes a bf16 q, got {q.dtype}")
+    quantized = k_scale is not None
+    pair = (_TYPE_CODES.get(k.dtype), _TYPE_CODES.get(v.dtype))
+    if pair not in _KERNEL_PAIRS or (pair != (0, 0)) != quantized:
+        raise NotImplementedError(
+            f"the CUDA {what} takes a bf16 cache without scales, or an "
+            f"int8, fp8 or int8-K/fp8-V cache with scales; got k {k.dtype} "
+            f"v {v.dtype}, scales {'given' if quantized else 'absent'}")
+    for name, x in (("k", k), ("v", v), ("k_scale", k_scale),
+                    ("v_scale", v_scale)):
+        if x is None:
+            continue
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-    if not (k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("the CUDA decode reads a contiguous cache")
-    q = q.contiguous()
+        if not x.is_contiguous():
+            raise ValueError(f"the CUDA {what} reads a contiguous {name}")
+    if quantized:
+        if k_scale.shape != k.shape[:-1] or v_scale.shape != v.shape[:-1]:
+            raise ValueError(
+                f"scales {tuple(k_scale.shape)}/{tuple(v_scale.shape)} do "
+                f"not match the cache {tuple(k.shape)}")
+        if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+            raise ValueError("per-token scales must be fp32")
+    qq = bool(quantize_q) and quantized and k.dtype == torch.int8
+    q_sigma = None
+    if qq:
+        q, sq = quantize_q_per_head(q, (-1,))
+        q_sigma = (sq * resolve_scale(scale, d)).reshape(q.shape[:-1])
+        q_sigma = q_sigma.contiguous()
+    if windows is not None:
+        windows = windows.to(device=q.device, dtype=torch.int32).reshape(
+            q.shape[0]).contiguous()
+    return q.contiguous(), q_sigma, k_scale, v_scale, windows, *pair, qq
+
+
+def optional_ptr(x: Optional[torch.Tensor]) -> Optional[int]:
+    """The tensor's address for the C interface, or None (a null pointer)
+    for an absent optional argument."""
+    return None if x is None else x.data_ptr()
+
+
+def _decode_cuda(q, k, v, lengths, k_scale, v_scale, scale, window, windows,
+                 quantize_q):
+    b, h, d = q.shape
+    h_kv, max_n = k.shape[1], k.shape[2]
+    out_dtype = q.dtype
+    q, q_sigma, k_scale, v_scale, windows, kt, vt, qq = kernel_inputs(
+        q, k, v, k_scale, v_scale, windows, quantize_q, scale, "decode")
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     if lengths.shape != (b,):
         raise ValueError(f"lengths {tuple(lengths.shape)} != ({b},)")
-    o = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    o = torch.empty((b, h, d), dtype=out_dtype, device=q.device)
     lse = torch.empty((b, h), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _build.library().cfa_decode(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), b, h, h_kv, max_n, d,
-            resolve_scale(scale, d), stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            optional_ptr(k_scale), optional_ptr(v_scale),
+            optional_ptr(q_sigma), lengths.data_ptr(), optional_ptr(windows),
+            o.data_ptr(), lse.data_ptr(), b, h, h_kv, max_n, d, kt, vt,
+            int(qq), resolve_scale(scale, d), int(window or 0), stream)
     _build.check(err, "decode_attention kernel launch")
     decode_attention.launches += 1
     return o, lse
@@ -114,9 +210,22 @@ def decode_attention(
     """One decode step: q [B,H,d] attends to cache k/v [B,Hkv,max_N,d].
 
     `lengths` [B] int gives each sequence's live context; cache rows at or
-    past it are neither read nor attended. Returns (o [B,H,d] in q's
-    dtype, lse [B,H] fp32). On the card the kernel takes bf16, d in
-    {64, 128} and H/Hkv in {1, 2, 4, 8}; the count of its launches is
+    past it are neither read nor attended. A quantized cache (int8, fp8
+    e4m3, or int8 K with fp8 V) passes its per-token scales
+    [B,Hkv,max_N] fp32.
+
+    `window` > 0 restricts attention to the last `window` live tokens;
+    cache rows before them are not read. `windows` [B] int gives
+    per-sequence windows (one ≥ its length means none). With both, each
+    effective window is min(windows[i], window).
+
+    `quantize_q=True` quantizes Q per (batch, head) to int8 and runs Q·Kᵀ
+    as an exact integer dot, on an int8-K cache only (int8 or mixed); an
+    fp8-K or unquantized cache ignores the flag.
+
+    Returns (o [B,H,d] in q's dtype, lse [B,H] fp32). On the card the
+    kernel takes a bf16 q, d in {64, 128}, and a cache that is bf16, int8,
+    fp8, or int8 K with fp8 V; the count of its launches is
     `decode_attention.launches`."""
     if q.ndim != 3 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"expected q [B,H,d] and k/v [B,Hkv,N,d], got q "
@@ -128,19 +237,18 @@ def decode_attention(
     if q.shape[1] % k.shape[1] != 0:
         raise ValueError(f"q heads {q.shape[1]} not a multiple of kv heads "
                          f"{k.shape[1]}")
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError("quantized caches are not ported yet")
-    if int(window or 0) or windows is not None:
-        raise NotImplementedError("windowed decode is not ported yet")
-    if quantize_q:
-        raise NotImplementedError("quantize_q is not ported yet")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be given together")
     if block_k is not None:
         raise NotImplementedError("block_k: the kernel walks keys directly")
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, lengths, scale=scale)
+        return decode_attention_plain(
+            q, k, v, lengths, k_scale=k_scale, v_scale=v_scale, scale=scale,
+            window=window, windows=windows, quantize_q=quantize_q)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    return _decode_cuda(q, k, v, lengths, scale)
+    return _decode_cuda(q, k, v, lengths, k_scale, v_scale, scale, window,
+                        windows, quantize_q)
 
 
 decode_attention.launches = 0

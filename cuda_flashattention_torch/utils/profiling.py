@@ -38,25 +38,35 @@ def _union_ms(intervals: List[Tuple[float, float]]) -> float:
     return total / 1e3
 
 
-def kernel_times(fn: Callable[[], object], iters: int = 1) -> KernelTimes:
-    """Profile `iters` calls of `fn()` on the card. Raises when there is no
-    card, or when the profiler recorded no device activity."""
+def kernel_times(fn: Callable[[], object], iters: int = 1,
+                 attempts: int = 3) -> KernelTimes:
+    """Profile `iters` calls of `fn()` on the card. The profiler now and
+    then hands back a window without its device events; such a window is
+    profiled again, up to `attempts` times, and a window may still lack
+    some of its launches, so divide a kernel's `ms` by its `count`, not
+    by `iters`. Raises when there is no card, or when no attempt recorded
+    device activity."""
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_times needs a CUDA device")
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
+    for _ in range(attempts):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not events:
-        raise RuntimeError("torch.profiler recorded no device activity")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+    else:
+        raise RuntimeError(f"torch.profiler recorded no device activity in "
+                           f"{attempts} attempts")
     ms: Dict[str, float] = {}
     count: Dict[str, int] = {}
     for e in events:

@@ -5,7 +5,7 @@ needed on a GPU, where events bracket the device's own work)."""
 from __future__ import annotations
 
 import statistics
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -21,16 +21,21 @@ def attention_flops(b: int, h: int, nq: int, nk: int, d: int,
 
 
 def cuda_time_ms(fn: Callable[[], object], iters: int = 20,
-                 warmup: int = 3) -> float:
+                 warmup: int = 3,
+                 before: Optional[Callable[[], object]] = None) -> float:
     """Median device milliseconds of one `fn()` call, each call bracketed
-    by its own pair of CUDA events on the current stream. Raises when
-    there is no card: a CPU time is never reported as a device time."""
+    by its own pair of CUDA events on the current stream. `before()`, when
+    given, runs ahead of each timed call and outside its events (to evict
+    the L2 cache, say). Raises when there is no card: a CPU time is never
+    reported as a device time."""
     if not torch.cuda.is_available():
         raise RuntimeError("cuda_time_ms needs a CUDA device")
     for _ in range(warmup):
         fn()
     pairs = []
     for _ in range(iters):
+        if before is not None:
+            before()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()

@@ -4,7 +4,8 @@ The JAX package's `init_params` for the fp32 test model of
 tests/test_generate.py is carried across with `params_from_jax`; prompts
 come from a numpy seed. Prefill logits and cache contents, chunked
 prefill, one decode step and the last logits of `generate` agree within
-1e-4; greedy `generate` tokens are identical."""
+1e-4; greedy `generate` tokens are identical. Over an int8 or a mixed
+cache (the latter with `quantize_q`) the last logits agree within 1e-3."""
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +26,7 @@ TCFG = ttf.TransformerConfig(
     vocab_size=97, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
     d_head=16, d_ff=128, max_seq=64, dtype=torch.float32)
 GATE = 1e-4
+QUANT_GATE = 1e-3  # last logits of generate() over a quantized cache
 
 
 @pytest.fixture(scope="module")
@@ -46,7 +48,7 @@ def test_prefill_logits_and_caches_match(setup):
     lj, cj = jtf.prefill(jparams, jnp.asarray(prompt), JCFG,
                          jtf.init_caches(JCFG, 2, 16))
     lt, ct = ttf.prefill(model, torch.from_numpy(prompt),
-                         ttf.init_caches(TCFG, 2, 16))
+                         ttf.init_caches(TCFG, 2, 16, device="cpu"))
     assert _diff(lj, lt) <= GATE
     for a, b in zip(cj, ct):
         assert int(a.length) == b.length == 7
@@ -58,10 +60,10 @@ def test_chunked_prefill_matches(setup):
     lj, _ = jtf.prefill_chunked(jparams, jnp.asarray(prompt), JCFG,
                                 jtf.init_caches(JCFG, 2, 16), chunk=3)
     lt, ct = ttf.prefill_chunked(model, torch.from_numpy(prompt),
-                                 ttf.init_caches(TCFG, 2, 16), chunk=3)
+                                 ttf.init_caches(TCFG, 2, 16, device="cpu"), chunk=3)
     assert _diff(lj, lt) <= GATE
     whole, _ = ttf.prefill(model, torch.from_numpy(prompt),
-                           ttf.init_caches(TCFG, 2, 16))
+                           ttf.init_caches(TCFG, 2, 16, device="cpu"))
     assert torch.max(torch.abs(whole - lt)) <= GATE
     assert all(c.length == 7 for c in ct)
 
@@ -71,7 +73,7 @@ def test_decode_one_matches(setup):
     _, cj = jtf.prefill(jparams, jnp.asarray(prompt), JCFG,
                         jtf.init_caches(JCFG, 2, 16))
     _, ct = ttf.prefill(model, torch.from_numpy(prompt),
-                        ttf.init_caches(TCFG, 2, 16))
+                        ttf.init_caches(TCFG, 2, 16, device="cpu"))
     token = np.array([3, 50], np.int32)
     lj, cj = jtf.decode_one(jparams, jnp.asarray(token), 7, JCFG, cj)
     lt, ct = ttf.decode_one(model, torch.from_numpy(token), 7, ct)
@@ -88,6 +90,30 @@ def test_greedy_generate_tokens_identical(setup):
     assert tuple(out_t.shape) == (2, 13)
     np.testing.assert_array_equal(np.asarray(out_j), out_t.numpy())
     assert _diff(lj, lt) <= GATE
+
+
+@pytest.mark.parametrize("qtype,quantize_q", [("int8", False),
+                                              ("mixed", True)])
+def test_quantized_generate_matches_jax(setup, qtype, quantize_q):
+    """`generate` over a quantized cache: both sides quantize the same K/V
+    onto the same grid at append, so the last logits agree within
+    QUANT_GATE (the fp8 V of a mixed cache is read natively here and
+    through a bit cast that flushes e4m3 subnormals there), and the greedy
+    tokens are identical unless a JAX top-2 logit margin is inside that
+    gate, which this seed's are not."""
+    jparams, model, prompt = setup
+    out_j, lj = jgen.generate(jparams, jnp.asarray(prompt), JCFG,
+                              max_new_tokens=6, qtype=qtype,
+                              quantize_q=quantize_q)
+    out_t, lt = tgen.generate(model, torch.from_numpy(prompt), 6,
+                              qtype=qtype, quantize_q=quantize_q)
+    assert _diff(lj, lt) <= QUANT_GATE
+    top2 = np.sort(np.asarray(lj), axis=-1)[:, -2:]
+    assert np.all(top2[:, 1] - top2[:, 0] > QUANT_GATE)
+    np.testing.assert_array_equal(np.asarray(out_j), out_t.numpy())
+    # the quantized cache changes the logits: it is really in the path
+    _, l_full = tgen.generate(model, torch.from_numpy(prompt), 6)
+    assert torch.max(torch.abs(l_full - lt)) > 0
 
 
 def test_sampled_generate_reproducible(setup):

@@ -2,6 +2,7 @@
 to run without a card, and its kernels are built for Hopper (sm_90a)."""
 
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -20,12 +21,65 @@ def _python(args, cwd, timeout=120):
                           capture_output=True, text=True, timeout=timeout)
 
 
+def _modules():
+    """Every module of the package, by import path."""
+    root = REPO / "cuda_flashattention_torch"
+    for path in sorted(root.rglob("*.py")):
+        parts = path.relative_to(REPO).with_suffix("").parts
+        yield ".".join(p for p in parts if p != "__init__")
+
+
 def test_import_leaves_jax_out():
-    proc = _python(["-c", "import sys, cuda_flashattention_torch; "
-                    "import cuda_flashattention_torch.models.convert; "
-                    "print('jax' in sys.modules)"], cwd=REPO)
+    """Importing every module of the package (the paged, quant and FA1
+    ones included) loads neither JAX nor the JAX package."""
+    mods = sorted(set(_modules()))
+    assert {"cuda_flashattention_torch.ops.paged",
+            "cuda_flashattention_torch.ops.quant",
+            "cuda_flashattention_torch.ops.fa1",
+            "cuda_flashattention_torch.models.convert"} <= set(mods)
+    code = ("import sys, importlib\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "print(any(n == 'jax' or n.startswith(('jax.', "
+            "'cuda_flashattention_tpu')) for n in sys.modules))")
+    proc = _python(["-c", code], cwd=REPO)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "False"
+
+
+def test_sources_name_no_jax_import():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|cuda_flashattention_tpu)\b",
+                         re.M)
+    root = REPO / "cuda_flashattention_torch"
+    for path in [*root.rglob("*.py"), REPO / "chip_smoke.py"]:
+        assert not pattern.search(path.read_text()), path
+
+
+@pytest.mark.parametrize("entry", ["init_cache", "init_caches",
+                                   "init_paged_cache", "resolve_device"])
+def test_entry_points_raise_without_a_card(entry):
+    """`device=None` means the card: with none present the allocating
+    entry points raise and do not land on the CPU."""
+    import torch
+    from cuda_flashattention_torch.models import transformer as tfm
+    from cuda_flashattention_torch.ops import common, kv_cache, paged
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    cfg = tfm.TransformerConfig(vocab_size=8, d_model=16, n_layers=1,
+                                n_heads=1, n_kv_heads=1, d_head=16, d_ff=16)
+    calls = dict(
+        init_cache=lambda **kw: kv_cache.init_cache(1, 1, 4, 16, **kw),
+        init_caches=lambda **kw: tfm.init_caches(cfg, 1, 4, **kw),
+        init_paged_cache=lambda **kw: paged.init_paged_cache(
+            2, 1, 2, 1, 4, 16, **kw),
+        resolve_device=lambda **kw: common.resolve_device(**kw))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+    if entry != "resolve_device":
+        out = calls[entry](device="cpu")
+        first = out[0] if isinstance(out, tuple) else out
+        pool = getattr(first, "k", None)
+        pool = first.k_pages if pool is None else pool
+        assert pool.device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -45,7 +99,9 @@ def test_build_command_targets_sm90a():
     """One nvcc per source (started together), then one link."""
     srcs = _build.sources()
     assert {s.name for s in srcs} >= {"flash_fwd.cu", "flash_bwd.cu",
-                                      "decode.cu"}
+                                      "decode.cu", "paged.cu", "fa1.cu"}
+    # the body shared by decode.cu and paged.cu is hashed, not compiled
+    assert "decode_body.cuh" in {h.name for h in _build.headers()}
     arch = ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
     for src in srcs:
         cmd = _build.compile_command("nvcc", src, Path("x.o"))

@@ -121,5 +121,5 @@ def test_serving_stays_gradient_free(setup):
     model = _model(jparams)
     assert all(p.requires_grad for p in model.parameters())
     logits, _ = ttf.prefill(model, torch.from_numpy(tokens[:, :8]),
-                            ttf.init_caches(TCFG, 2, 16))
+                            ttf.init_caches(TCFG, 2, 16, device="cpu"))
     assert not logits.requires_grad
