@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving, paged-serving and training
-paths on one NVIDIA card.
+"""Smoke run of the PyTorch port's serving, chunked-serving, paged-serving
+and training paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -23,6 +23,20 @@ Phases, each of which raises on failure (so the script exits non-zero):
    also the kernel's own device time, from torch.profiler). K6 and K7
    are timed on a cold L2 cache, as a server's decode step finds it; K6
    is also timed under 1 to 16 query rows per KV head.
+   Then the forward's other forms at the serving model's width, on peaked
+   inputs, O held to min(5e-3, 2e-2 · max |plain O|) and LSE to 5e-3: K1
+   (online) under a window and under segment ids; and, at the two shapes
+   chunked serving reads the cache at (512 rows over a 3584-key prefix,
+   every key visible; 512 rows over a 1024-key slice under window 1024
+   with kv_offset 1024), over bf16, int8, fp8 and mixed K/V: what "auto"
+   routes to against the plain version, each of online (K1), bound (K1b)
+   and K-major (K5) pinned against the plain version of its strategy, K5
+   against K1b (1e-4), `quantize_q` where K/V are quantized; the wrapper
+   time of each form, of the routed call with and without its guarded
+   fallback launch, the routed kernel alone, its bound and the library
+   call on the dequantised K/V. A loose bound (anti-aligned Q and K) must
+   return the online kernel's bits under "bound" and O = 0, LSE = NEG_INF
+   under "bound_unchecked".
 4. Main path of serving: the 246M GQA serving model (vocab 32000, d_model
    2048, 4 layers, 16 query heads over 4 KV heads, d_head 128, d_ff 5632,
    bf16; random weights from a seeded generator) runs `generate()` on
@@ -34,6 +48,18 @@ Phases, each of which raises on failure (so the script exits non-zero):
    logits meet the bf16 run's on the same context (gate 0.25). Chunked
    prefill must agree with whole prefill, and prefill through the kernels
    with prefill through the plain attention functions.
+   Main path of chunked serving, on the same model: B=8 prompts of 4096
+   tokens through `prefill_chunked(chunk=512)`, then 128 `decode_one`
+   steps, over a bf16, an int8 and an fp8 cache, and with `cfg.window` =
+   1024 over an int8 cache. Per layer, each chunk launches K1 (online) on
+   itself and, after the first, K1b (bf16 and int8 caches) or K5 (fp8
+   cache; any quantized cache under a window) on the cached prefix, with
+   one guarded fallback launch behind it: the counts per form must be 32,
+   28 and 28, and K6's 512. The last chunk's logits must meet those of the
+   same run on the plain attention functions (0.125) and, without a
+   window, those of a whole-prompt `prefill` over a bf16 cache (0.125
+   bf16, 0.25 int8, 0.5 fp8). A torch.profiler breakdown of one chunked
+   prefill over a bf16 and an fp8 cache follows.
 5. Main path of paged serving, at pools of 4096 pages x 4 KV heads x 128
    tokens x d 128 (512 MiB per bf16 pool), B=8, H=16, 64 table slots per
    sequence: 4096 tokens per sequence are prefilled in eight page-aligned
@@ -59,6 +85,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
    max |plain|, with max |plain| > 0. Each case prints both numbers, the
    wrapper's median times (CUDA events) and each kernel's device time
    (torch.profiler); K1 is also checked at the training shape, bf16 out.
+   Then K4 and K2 + K3 under a window (the training shape with window
+   1024; a GQA prefix shape with kv_offset) and under segment ids (causal
+   and not), same gate.
 8. Main path of training: the 271M training model (vocab 32000, d_model
    2048, 4 layers, 16 query heads over 16 KV heads, d_head 128, d_ff 5632,
    bf16; random weights from a seeded generator) takes `make_train_step`
@@ -70,18 +99,23 @@ Phases, each of which raises on failure (so the script exits non-zero):
    through the plain attention functions (loss within 2e-2, each
    parameter's gradient within 5e-2 relative L2), and with the same
    through the split backward, whose run must launch K2 and K3 once per
-   layer. Ten Adam(1e-3) steps on a fresh model must lower the loss.
+   layer. Then the sliding-window model (`cfg.window` = 1024) takes 5
+   timed steps on the same batch: K1 and K4 once per layer and step, loss
+   and gradients against the plain attention functions at the same gates.
+   Ten Adam(1e-3) steps on a fresh model must lower the loss.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; a kernel's `launches` in the JSON line is its sum over
-those runs (the three `generate()` runs, the paged lifecycle, the two FA1
-calls, the timed training steps, the split-backward step). Launches made
-to compare a kernel with its plain version or to time it are not in it.
+those runs (the three `generate()` runs, the four chunked-serving runs,
+the paged lifecycle, the two FA1 calls, the timed training steps of both
+models, the split-backward step). Launches made to compare a kernel with
+its plain version or to time it are not in it, nor are K1's guarded
+fallback launches behind a checked bound call, which exit at once.
 
 Each kernel's `bound_ms` is the least time the card could take for the
 same call: the larger of its bytes (each input read once, each output
-written once; only the live, in-window part of a cache) over the card's
-memory rate and its matmul operations (the visible half when causal) over
+written once; only the live, in-window part of a cache; quantized K/V at
+their storage width plus their scales) over the card's memory rate and its matmul operations (the visible half when causal) over
 the card's bf16 rate, from the data sheet of the H100 SXM (3.35 TB/s,
 989 TFLOP/s at a 700 W power limit). `library_ms` is one call of
 `torch.nn.functional.scaled_dot_product_attention` (or its autograd
@@ -94,6 +128,9 @@ describing each kernel, then `{"ok": true, "device": {...}}`.
 
 from __future__ import annotations
 
+import contextlib
+import copy
+import dataclasses
 import functools
 import json
 import math
@@ -121,10 +158,15 @@ LOGIT_GATE = 0.125
 # same tokens: the cache's K and V carry up to 0.4% (int8) or 6% (e4m3)
 # error per element on top of the rounding flips above.
 QUANT_LOGIT_GATE = 0.25
+# The same over an fp8 cache: e4m3 keys carry their 6% into the scores as
+# well, not only into the values as the mixed cache's V does.
+FP8_LOGIT_GATE = 0.5
 
 CFG_KW = dict(vocab_size=32000, d_model=2048, n_layers=4, n_heads=16,
               n_kv_heads=4, d_head=128, d_ff=5632, max_seq=8192)
 BATCH, PROMPT, NEW = 8, 512, 128
+# chunked serving: a long prompt in chunks, and the sliding-window model
+LONG_PROMPT, LONG_CHUNK, LONG_WINDOW = 4096, 512, 1024
 
 # the paged pools: what one card of a server would hold for this model
 N_PAGES, PAGE, MAX_PAGES = 4096, 128, 64
@@ -179,10 +221,13 @@ def _bound(nbytes: float, flops: float) -> dict:
 
 def _kernel_of(name: str) -> str:
     """The package kernel a profiler kernel name belongs to, else ''."""
-    for pattern, label in ((r"flash_bwd_kv_kernel<\d+, true>", "K4"),
-                           (r"flash_bwd_kv_kernel<\d+, false>", "K2"),
+    for pattern, label in ((r"flash_bwd_kv_kernel<\d+, true,", "K4"),
+                           (r"flash_bwd_kv_kernel<\d+, false,", "K2"),
                            (r"flash_bwd_q_kernel", "K3"),
-                           (r"flash_fwd_kernel", "K1")):
+                           (r"flash_fwd_kmajor", "K5"),
+                           (r"flash_fwd_kernel<\d+, [12],", "K1b"),
+                           (r"flash_fwd_kernel", "K1"),
+                           (r"::decode_kernel<", "K6")):
         if re.search(pattern, name):
             return label
     return ""
@@ -212,6 +257,7 @@ def main() -> int:
     from cuda_flashattention_torch.models import transformer as tfm
     from cuda_flashattention_torch.models.generate import generate
     from cuda_flashattention_torch.ops import attention
+    from cuda_flashattention_torch.ops import flash_fwd as ffwd
     from cuda_flashattention_torch.ops.decode import (
         decode_attention, decode_attention_plain)
     from cuda_flashattention_torch.ops.fa1 import (
@@ -269,8 +315,12 @@ def main() -> int:
 
     bwd_launches = flash_attention_backward.launches
 
+    fwd_forms = flash_attention_forward.form_launches
+
     def zero_counts():
         flash_attention_forward.launches = 0
+        for name in fwd_forms:
+            fwd_forms[name] = 0
         decode_attention.launches = 0
         paged_decode_attention.launches = 0
         fa1_attention.launches = 0
@@ -309,7 +359,7 @@ def main() -> int:
     failures = []
     # per kernel: ms, plain_ms, bound_ms, bound_by, library_ms, max_abs_err
     rec = {kn: dict(max_abs_err=0.0) for kn in
-           ("K1", "K2", "K3", "K4", "K6", "K7", "K8")}
+           ("K1", "K1b", "K5", "K2", "K3", "K4", "K6", "K7", "K8")}
     # launches on the main paths, summed over the runs that drive them
     launches = {kn: 0 for kn in rec}
 
@@ -323,7 +373,7 @@ def main() -> int:
     ]
     for name, b, h, hkv, nq, nk, causal in fwd_cases:
         q, k, v = mk(b, h, nq, 128), mk(b, hkv, nk, 128), mk(b, hkv, nk, 128)
-        kw = dict(causal=causal, out_dtype=torch.float32)
+        kw = dict(causal=causal, out_dtype=torch.float32, softmax="online")
         o, lse = flash_attention_forward(q, k, v, **kw)
         torch.cuda.synchronize()
         o_p, lse_p = flash_attention_forward_plain(q, k, v, **kw)
@@ -441,6 +491,229 @@ def main() -> int:
     _check(not failures, "; ".join(failures))
     del q, k, v, o, lse, o_p, lse_p, args, skw
 
+    # ---- 3b. the forward's other forms vs the plain version ---------------
+    # K1 with a window, segment ids and quantized K/V; K1b (bound softmax,
+    # Q-major) and K5 (bound softmax, K-major) in each storage type, with
+    # and without quantize_q; all on peaked inputs at the serving model's
+    # width. "prefix": the last chunk of chunked serving reading the cache
+    # (512 rows over 3584 keys, every key visible); "windowed prefix": the
+    # same under cfg.window = 1024 (a 1024-key slice, causal + window with
+    # kv_offset 1024, so that only the window cuts).
+    gen = torch.Generator(device=dev).manual_seed(4)
+    b, h, hkv, d = BATCH, 16, 4, 128
+
+    def stored(k, v, qtype):
+        """(k, v, scales) as a cache of `qtype` holds them."""
+        if qtype is None:
+            return k, v, {}
+        kv = quantize_kv(k, v, qtype)
+        return kv.k_q, kv.v_q, dict(k_scale=kv.k_scale, v_scale=kv.v_scale)
+
+    def run_form(form, q, k, v, quantize_q=False, **kw):
+        """One pinned kernel form, whatever "auto" would route to:
+        "online" (K1), "bound" (K1b) or "kmajor" (K5), the bound ones
+        without the guarded fallback launch."""
+        plan = ffwd._plan(
+            q, k, v, None, kw.get("causal", False), kw.get("window", 0),
+            kw.get("kv_offset", 0), None, kw.get("k_scale"),
+            kw.get("v_scale"), None, None,
+            "online" if form == "online" else "bound_unchecked", quantize_q)
+        plan = dataclasses.replace(plan, use_kmajor=form == "kmajor")
+        return ffwd._fwd_cuda(q, k, v, plan, torch.float32,
+                              kw.get("k_scale"), kw.get("v_scale"), None,
+                              None)
+
+    def fwd_bound(q, k, v, scales, pairs):
+        """bound_ms of one forward call: K/V and scales at their storage
+        width, O in fp32; `pairs` (query, key) pairs of 4·d flops."""
+        nbytes = (_nbytes(q, k, v, *scales.values())
+                  + q.numel() * 4 + q.numel() // d * 4)
+        return _bound(nbytes, 4.0 * d * pairs)
+
+    def check_fwd(tag, kern, got, want):
+        (o, lse), (o_p, lse_p) = got, want
+        (e_o, ref, ok), e_l = o_close(o, o_p), diff(lse, lse_p)
+        rec[kern]["max_abs_err"] = max(rec[kern]["max_abs_err"], e_o, e_l)
+        if not (ok and e_l <= GATE and bool(torch.isfinite(o).all())):
+            failures.append(f"{kern} {tag}: dO {e_o:.3e} (max|O| {ref:.3e}) "
+                            f"dLSE {e_l:.3e}")
+        return f"max|dO|={e_o:.3e} (max|O| {ref:.3e}) max|dLSE|={e_l:.3e}"
+
+    # K1 (online) under a window and under segment ids, at the chunk's
+    # own shape
+    q = mk(b, h, PROMPT, d, peak=Q_PEAK)
+    k, v = mk(b, hkv, PROMPT, d, peak=K_PEAK), mk(b, hkv, PROMPT, d)
+    seg = torch.repeat_interleave(
+        torch.arange(4, device=dev),
+        torch.tensor([200, 1, 120, 191], device=dev))[None].expand(b, PROMPT)
+    for tag, kw in (("window 128", dict(causal=True, window=128)),
+                    ("window 128, kv_offset -100",
+                     dict(causal=True, window=128, kv_offset=-100)),
+                    ("segments 200|1|120|191, causal",
+                     dict(causal=True, q_segment_ids=seg,
+                          kv_segment_ids=seg)),
+                    ("segments, not causal",
+                     dict(q_segment_ids=seg, kv_segment_ids=seg))):
+        kw = dict(kw, out_dtype=torch.float32, softmax="online")
+        got = flash_attention_forward(q, k, v, **kw)
+        torch.cuda.synchronize()
+        line = check_fwd(tag, "K1", got,
+                         flash_attention_forward_plain(q, k, v, **kw))
+        ms = cuda_time_ms(lambda: flash_attention_forward(q, k, v, **kw))
+        print(f"[K1] {tag}: B={b} H={h} Hkv={hkv} N={PROMPT} {line} kernel "
+              f"{ms:.4f} ms ({card})", flush=True)
+    del q, k, v, seg
+
+    fwd_shapes = [
+        # tag, Nq, Nk, mask, visible pairs per (batch, head)
+        ("prefix 512x3584", PAGED_CHUNK, 3584, dict(causal=False),
+         PAGED_CHUNK * 3584),
+        ("windowed prefix 512x1024", PAGED_CHUNK, 1024,
+         dict(causal=True, window=1024, kv_offset=1024),
+         sum(1023 - r for r in range(PAGED_CHUNK))),
+    ]
+    routed_kernel = {"online": "K1", "bound": "K1b", "kmajor": "K5"}
+    form_ms = {}
+    for tag, nq, nk, mask, pairs in fwd_shapes:
+        q = mk(b, h, nq, d, peak=Q_PEAK)
+        k_bf, v_bf = mk(b, hkv, nk, d, peak=K_PEAK), mk(b, hkv, nk, d)
+        for qtype in (None, "int8", "fp8", "mixed"):
+            k, v, scales = stored(k_bf, v_bf, qtype)
+            kw = dict(mask, **scales)
+            name = f"{tag}, {qtype or 'bf16'} K/V"
+            # what "auto" routes to, with its guarded fallback launch
+            zero_counts()
+            got = flash_attention_forward(q, k, v, out_dtype=torch.float32,
+                                          **kw)
+            torch.cuda.synchronize()
+            routed = next(f for f in ("bound", "kmajor", "online")
+                          if fwd_forms[f])
+            _check(fwd_forms == dict(online=int(routed == "online"),
+                                     fallback=int(routed != "online"),
+                                     bound=int(routed == "bound"),
+                                     kmajor=int(routed == "kmajor")),
+                   f"{name}: launches {fwd_forms}")
+            kern = routed_kernel[routed]
+            want = flash_attention_forward_plain(
+                q, k, v, out_dtype=torch.float32, **kw)
+            line = check_fwd(name, kern, got, want)
+            # each form pinned, against the plain version of its strategy
+            want_on = flash_attention_forward_plain(
+                q, k, v, out_dtype=torch.float32, softmax="online", **kw)
+            outs = {f: run_form(f, q, k, v, **kw)
+                    for f in ("online", "bound", "kmajor")}
+            torch.cuda.synchronize()
+            for f, out in outs.items():
+                check_fwd(f"{name} pinned {f}", routed_kernel[f], out,
+                          want_on if f == "online" else want)
+            e_km = max(diff(outs["kmajor"][0], outs["bound"][0]),
+                       diff(outs["kmajor"][1], outs["bound"][1]))
+            if not e_km <= 1e-4:
+                failures.append(f"{name}: K5 vs K1b {e_km:.3e} > 1e-4")
+            ms = {f: cuda_time_ms(lambda: run_form(f, q, k, v, **kw),
+                                  iters=10)
+                  for f in ("online", "bound", "kmajor")}
+            ms_auto = cuda_time_ms(lambda: flash_attention_forward(
+                q, k, v, out_dtype=torch.float32, **kw), iters=10)
+            ms_unchecked = cuda_time_ms(lambda: flash_attention_forward(
+                q, k, v, out_dtype=torch.float32, softmax="bound_unchecked",
+                **kw), iters=10)
+            ms_p = cuda_time_ms(lambda: flash_attention_forward_plain(
+                q, k, v, out_dtype=torch.float32, **kw), iters=3, warmup=1)
+            ms_d = device_ms(lambda: run_form(routed, q, k, v, **kw),
+                             {"kmajor": "flash_fwd_kmajor_kernel",
+                              "bound": r"flash_fwd_kernel<\d+, 1,",
+                              "online": r"flash_fwd_kernel<\d+, 0,"}[routed])
+            form_ms[name] = ms
+            bound = fwd_bound(q, k, v, scales, b * h * pairs)
+            # the library call on the dequantised K/V (a band mask under a
+            # window)
+            if qtype is None:
+                k_d, v_d = k, v
+            else:
+                k_d = (k.float() * scales["k_scale"][..., None]).to(
+                    torch.bfloat16)
+                v_d = (v.float() * scales["v_scale"][..., None]).to(
+                    torch.bfloat16)
+            band = None
+            if mask["causal"]:
+                rows_ = torch.arange(nq, device=dev)[:, None] + mask[
+                    "kv_offset"]
+                cols_ = torch.arange(nk, device=dev)[None, :]
+                band = (cols_ <= rows_) & (cols_ > rows_ - mask["window"])
+            lib_ms = sdpa_ms(q, k_d, v_d, attn_mask=band)
+            print(f"[fwd] {name}: auto -> {kern}: {line}; K5 vs K1b "
+                  f"{e_km:.3e}; wrapper ms: online {ms['online']:.4f}, "
+                  f"bound (K1b) {ms['bound']:.4f}, K-major (K5) "
+                  f"{ms['kmajor']:.4f}; auto {ms_auto:.4f} (unchecked "
+                  f"{ms_unchecked:.4f}: the guard costs "
+                  f"{(ms_auto - ms_unchecked) * 1e3:.1f} us); {kern} kernel "
+                  f"alone {ms_d:.4f}; plain {ms_p:.4f}; bound "
+                  f"{bound['bound_ms']:.4f} ({bound['bound_by']}); library "
+                  f"call {lib_ms:.4f} ({card})", flush=True)
+            first = (kern == "K1b" and qtype is None) or (
+                kern == "K5" and qtype == "fp8" and not mask["causal"])
+            if first:  # the rows of the kernels' table
+                rec[kern].update(ms=ms_auto, plain_ms=ms_p,
+                                 library_ms=lib_ms, **bound)
+            # quantize_q, where the storage allows it
+            if qtype is not None:
+                qkw = dict(kw, quantize_q=True, out_dtype=torch.float32)
+                zero_counts()
+                got = flash_attention_forward(q, k, v, **qkw)
+                torch.cuda.synchronize()
+                routed_q = next(f for f in ("bound", "kmajor")
+                                if fwd_forms[f])
+                _check(fwd_forms["fallback"] == 0 and fwd_forms["online"]
+                       == 0, f"{name} quantize_q: launches {fwd_forms}")
+                line = check_fwd(name + " quantize_q",
+                                 routed_kernel[routed_q], got,
+                                 flash_attention_forward_plain(q, k, v,
+                                                               **qkw))
+                ms_q = cuda_time_ms(lambda: flash_attention_forward(
+                    q, k, v, **qkw), iters=10)
+                ms_qd = device_ms(
+                    lambda: flash_attention_forward(q, k, v, **qkw),
+                    "flash_fwd_kmajor_kernel" if routed_q == "kmajor"
+                    else r"flash_fwd_kernel<\d+, 2,")
+                print(f"[fwd] {name}, quantize_q -> "
+                      f"{routed_kernel[routed_q]}: {line}; wrapper "
+                      f"{ms_q:.4f} ms, kernel alone {ms_qd:.4f} ms ({card})",
+                      flush=True)
+        del q, k_bf, v_bf, k, v, got, want, want_on, outs
+    _check(not failures, "; ".join(failures))
+
+    # the loose-bound fallback: anti-aligned Q and K of large norm put every
+    # score ~400 log2 units under the bound, so every bound weight
+    # underflows. "bound" must return the online kernel's bits (the guarded
+    # launch ran), "bound_unchecked" the degraded O = 0, LSE = NEG_INF.
+    unit = torch.ones(d, device=dev) / math.sqrt(d)
+    q = (40.0 * unit + mk(b, h, PAGED_CHUNK, d).float() * 0.1).to(
+        torch.bfloat16)
+    k = (-40.0 * unit + mk(b, hkv, 3584, d).float() * 0.1).to(torch.bfloat16)
+    v = mk(b, hkv, 3584, d)
+    for causal, kern in ((False, "K1b"), (True, "K5")):
+        kw = dict(causal=causal, kv_offset=3584 if causal else 0,
+                  out_dtype=torch.float32)
+        o_on, lse_on = flash_attention_forward(q, k, v, softmax="online",
+                                               **kw)
+        zero_counts()
+        o_b, lse_b = flash_attention_forward(q, k, v, softmax="bound", **kw)
+        o_u, lse_u = flash_attention_forward(q, k, v,
+                                             softmax="bound_unchecked", **kw)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(o_b, o_on) and torch.equal(lse_b, lse_on))
+        degraded = bool((lse_u == -1e30).all() and (o_u == 0).all())
+        print(f"[fwd] loose bound ({kern}): 'bound' returns the online "
+              f"kernel's bits: {same}; 'bound_unchecked' underflows to "
+              f"O = 0, LSE = NEG_INF: {degraded}; online LSE in "
+              f"[{lse_on.min().item():.1f}, {lse_on.max().item():.1f}]; "
+              f"launches {fwd_forms}", flush=True)
+        _check(same and degraded and fwd_forms["fallback"] == 1,
+               f"loose-bound fallback ({kern}): same {same}, degraded "
+               f"{degraded}, launches {fwd_forms}")
+    del q, k, v, o_on, lse_on, o_b, lse_b, o_u, lse_u
+
     # ---- 4. main path: generate() on the 246M serving model --------------
     cfg = tfm.TransformerConfig(dtype=torch.bfloat16, **CFG_KW)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -555,8 +828,7 @@ def main() -> int:
     # prefill through the plain attention function agrees with the kernel
     caches = tfm.init_caches(cfg, BATCH, max_len, device=dev)
     with mock.patch.object(tfm, "flash_attention_forward",
-                           lambda q, k, v, window=0, **kw:
-                           flash_attention_forward_plain(q, k, v, **kw)):
+                           flash_attention_forward_plain):
         lg_plain, _ = tfm.prefill(model, prompt, caches)
     e_plain = diff(lg_plain, lg_whole)
     agree = (lg_plain.argmax(-1) == lg_whole.argmax(-1)).float().mean()
@@ -567,7 +839,119 @@ def main() -> int:
           flush=True)
     _check(e_chunk <= LOGIT_GATE, f"chunked prefill logits {e_chunk:.3e}")
     _check(e_plain <= LOGIT_GATE, f"plain-attention logits {e_plain:.3e}")
-    del model, caches, out, logits, lg_whole, lg_chunk, lg_plain, lg_last
+
+    # ---- 4b. main path of chunked serving --------------------------------
+    # A 4096-token prompt per sequence through prefill_chunked(chunk=512),
+    # then 128 decode_one steps: every chunk after the first reads the
+    # cached prefix through K1b (bf16 and int8 caches) or K5 (fp8 caches,
+    # and any quantized cache under cfg.window), and itself through K1.
+    long_prompt = torch.randint(0, cfg.vocab_size, (BATCH, LONG_PROMPT),
+                                generator=gen, device=dev, dtype=torch.int32)
+    n_chunks = LONG_PROMPT // LONG_CHUNK
+    long_len = LONG_PROMPT + NEW
+
+    def windowed(m, window):
+        """`m` with cfg.window set: the same parameters, another config."""
+        w = copy.copy(m)
+        w.cfg = dataclasses.replace(m.cfg, window=window)
+        return w
+
+    def chunked_run(m, qtype):
+        caches = tfm.init_caches(m.cfg, BATCH, long_len, qtype=qtype,
+                                 device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, caches = tfm.prefill_chunked(m, long_prompt, caches,
+                                         chunk=LONG_CHUNK)
+        torch.cuda.synchronize()
+        return lg, caches, time.perf_counter() - t0
+
+    chunked_run(model, None)  # warm-up: allocator at the long shapes
+    caches = tfm.init_caches(cfg, BATCH, long_len, device=dev)
+    lg_long, _ = tfm.prefill(model, long_prompt, caches)  # whole prompt
+    del caches
+    lg_chunked = {}
+    for label, qtype, window, prefix_form in (
+            ("bf16 cache", None, 0, "bound"),
+            ("int8 cache", "int8", 0, "bound"),
+            ("fp8 cache", "fp8", 0, "kmajor"),
+            ("int8 cache, window 1024", "int8", LONG_WINDOW, "kmajor")):
+        m = windowed(model, window) if window else model
+        zero_counts()
+        lg, caches, prefill_s = chunked_run(m, qtype)
+        counts = dict(fwd_forms)
+        tok = torch.argmax(lg, dim=-1).to(long_prompt.dtype)
+        t0 = time.perf_counter()
+        for i in range(NEW):
+            lg_dec, caches = tfm.decode_one(m, tok, LONG_PROMPT + i, caches)
+            tok = torch.argmax(lg_dec, dim=-1).to(long_prompt.dtype)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        n_dec = decode_attention.launches
+        n_prefix = (n_chunks - 1) * cfg.n_layers
+        expect = dict(online=n_chunks * cfg.n_layers, bound=0, kmajor=0,
+                      fallback=n_prefix)
+        expect[prefix_form] = n_prefix
+        print(f"[chunked] {label}: B={BATCH} x {LONG_PROMPT} tokens in "
+              f"chunks of {LONG_CHUNK}: launches {counts} (expect {expect}),"
+              f" decode {n_dec} (expect {cfg.n_layers * NEW}); prefill "
+              f"{prefill_s * 1e3:.3f} ms ({BATCH * LONG_PROMPT / prefill_s:.0f}"
+              f" prompt tok/s); decode {BATCH * NEW / decode_s:.1f} tok/s "
+              f"({decode_s / NEW * 1e3:.3f} ms/step at context "
+              f"{LONG_PROMPT}-{long_len}) ({card})", flush=True)
+        _check(counts == expect, f"chunked {label}: launches {counts}, "
+               f"expected {expect}")
+        _check(n_dec == cfg.n_layers * NEW,
+               f"chunked {label}: decode kernel launched {n_dec} times")
+        _check(bool(torch.isfinite(lg).all() and torch.isfinite(lg_dec).all()),
+               f"chunked {label}: non-finite logits")
+        launches["K1"] += counts["online"]
+        launches["K1b"] += counts["bound"]
+        launches["K5"] += counts["kmajor"]
+        launches["K6"] += n_dec
+        lg_chunked[label] = lg
+        del caches
+        # the same prefill on the plain versions of the attention functions
+        with mock.patch.object(tfm, "flash_attention_forward",
+                               flash_attention_forward_plain):
+            lg_plain, _, _ = chunked_run(m, qtype)
+        e_plain = diff(lg, lg_plain)
+        line = (f"[chunked] {label}: last-chunk logits: kernels vs plain "
+                f"versions max|d|={e_plain:.3e} (gate {LOGIT_GATE})")
+        _check(e_plain <= LOGIT_GATE,
+               f"chunked {label}: plain-version logits {e_plain:.3e}")
+        if not window:
+            e_whole = diff(lg, lg_long)
+            gate = {None: LOGIT_GATE, "int8": QUANT_LOGIT_GATE,
+                    "fp8": FP8_LOGIT_GATE}[qtype]
+            line += (f"; vs whole-prompt prefill over a bf16 cache max|d|="
+                     f"{e_whole:.3e} (gate {gate})")
+            _check(e_whole <= gate,
+                   f"chunked {label}: whole-prompt logits {e_whole:.3e}")
+        else:
+            e_full = diff(lg, lg_chunked["int8 cache"])
+            line += (f"; the window moves them by {e_full:.3e} from the "
+                     f"full-causal int8 run")
+            _check(e_full > 0, "the window changed nothing")
+        print(line, flush=True)
+        del lg_plain
+
+    # where a chunked prefill's time goes (bf16 and fp8 caches)
+    for label, qtype in (("bf16 cache", None), ("fp8 cache", "fp8")):
+        prof = kernel_times(lambda: chunked_run(model, qtype))
+        groups = {}
+        for n, t in prof.ms.items():
+            groups[_group_of(n)] = groups.get(_group_of(n), 0.0) + t
+        print(f"[chunked] profile of one chunked prefill, {label}: "
+              f"{sum(prof.count.values())} kernels, device busy "
+              f"{prof.busy_ms:.3f} ms of a profiled wall of "
+              f"{prof.wall_ms:.3f} ms ({prof.busy_ms / prof.wall_ms:.1%})",
+              flush=True)
+        for g, t in sorted(groups.items(), key=lambda kv: -kv[1]):
+            print(f"[chunked]   {g}: {t:.3f} ms "
+                  f"({t / prof.busy_ms:.1%} of busy)")
+    del lg_long, lg_chunked, long_prompt
+    del model, out, logits, lg_whole, lg_chunk, lg_last
 
     # ---- 5. main path of paged serving -----------------------------------
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -830,14 +1214,15 @@ def main() -> int:
            f"FA1 kernel launched {fa1_attention.launches} times in 2 calls")
     for causal, o in fa1_out.items():
         o_p = fa1_attention_plain(q, k, v, causal=causal)
-        o_2, _ = flash_attention_forward(q, k, v, causal=causal)
+        o_2, _ = flash_attention_forward(q, k, v, causal=causal,
+                                         softmax="online")
         (e_p, ref, ok_p), (e_2, _, ok_2) = o_close(o, o_p), o_close(o, o_2)
         ms = cuda_time_ms(lambda: fa1_attention(q, k, v, causal=causal))
         ms_p = cuda_time_ms(
             lambda: fa1_attention_plain(q, k, v, causal=causal), iters=3,
             warmup=1)
-        ms_1 = cuda_time_ms(
-            lambda: flash_attention_forward(q, k, v, causal=causal))
+        ms_1 = cuda_time_ms(lambda: flash_attention_forward(
+            q, k, v, causal=causal, softmax="online"))
         print(f"[K8] B=1 H=16 N={TRAIN_T} d=128 causal={causal} block_k=256"
               f": vs plain max|dO|={e_p:.3e}, vs K1 max|dO|={e_2:.3e} "
               f"(max|O| {ref:.3e}; gate {GATE}); kernel {ms:.4f} ms plain {ms_p:.4f} ms; K1 "
@@ -969,6 +1354,59 @@ def main() -> int:
                   flush=True)
             del ql, kl, vl, o_l
         del q, k, v, o, lse, do, args, fused, split, plain
+
+    # the backward's masks: a sliding window at the training shape, a
+    # window on a GQA prefix shape with kv_offset, and segment ids
+    seg = torch.repeat_interleave(
+        torch.arange(4, device=dev),
+        torch.tensor([300, 1, 450, 249], device=dev))[None].expand(2, 1000)
+    masked_cases = [
+        ("training 4096 window 1024", 1, 16, 16, TRAIN_T, TRAIN_T,
+         dict(causal=True, window=LONG_WINDOW)),
+        ("GQA 300x1000 window 200 kv_offset 700", 2, 16, 4, 300, 1000,
+         dict(causal=True, window=200, kv_offset=700)),
+        ("GQA ragged 1000 segments causal", 2, 16, 4, 1000, 1000,
+         dict(causal=True, q_segment_ids=seg, kv_segment_ids=seg)),
+        ("GQA ragged 1000 segments", 2, 16, 4, 1000, 1000,
+         dict(q_segment_ids=seg, kv_segment_ids=seg)),
+    ]
+    for name, b, h, hkv, nq, nk, kw in masked_cases:
+        q, do = mk(b, h, nq, 128), mk(b, h, nq, 128)
+        k, v = mk(b, hkv, nk, 128), mk(b, hkv, nk, 128)
+        o, lse = flash_attention_forward(q, k, v, **kw)
+        args = (q, k, v, o, lse, do)
+        fused = flash_attention_backward(*args, fused=True, **kw)
+        split = flash_attention_backward(*args, fused=False, **kw)
+        torch.cuda.synchronize()
+        plain = flash_attention_backward_plain(*args, **kw)
+        for label, got, kerns in (("K4", fused, ("K4", "K4", "K4")),
+                                  ("K2+K3", split, ("K3", "K2", "K2"))):
+            line = []
+            for gname, g, w, kern in zip(("dQ", "dK", "dV"), got, plain,
+                                         kerns):
+                e, ref = diff(g, w), w.float().abs().max().item()
+                line.append(f"{gname} {e:.3e}/{ref:.3e}")
+                rec[kern]["max_abs_err"] = max(rec[kern]["max_abs_err"], e)
+                if not (ref > 0 and e <= BWD_GATE * ref
+                        and bool(torch.isfinite(g).all())):
+                    failures.append(f"{name} {label} {gname}: max|diff| "
+                                    f"{e:.3e}, max|ref| {ref:.3e}")
+            print(f"[bwd] {name}: {label} vs plain: max|diff|/max|ref| "
+                  f"{', '.join(line)} (gate {BWD_GATE} x max|ref|)",
+                  flush=True)
+        ms_f = cuda_time_ms(
+            lambda: flash_attention_backward(*args, fused=True, **kw),
+            iters=10)
+        ms_s = cuda_time_ms(
+            lambda: flash_attention_backward(*args, fused=False, **kw),
+            iters=10)
+        ms_1 = cuda_time_ms(lambda: flash_attention_forward(q, k, v, **kw),
+                            iters=10)
+        print(f"[bwd] {name}: B={b} H={h} Hkv={hkv} Nq={nq} Nk={nk}: "
+              f"wrapper fused {ms_f:.4f} ms, split {ms_s:.4f} ms; K1 "
+              f"forward {ms_1:.4f} ms ({card})", flush=True)
+        del q, k, v, o, lse, do, args, fused, split, plain
+    del seg
     _check(not failures, "; ".join(failures))
 
     # ---- 8. main path: make_train_step on the 271M training model -------
@@ -1032,11 +1470,12 @@ def main() -> int:
     for n, t in top:
         print(f"[train]   top: {t:.3f} ms x{prof.count[n]} {n[:110]}")
 
-    def loss_and_grads():
-        model.zero_grad(set_to_none=True)
-        loss = tfm.loss_fn(model, tokens)
+    def loss_and_grads(m=None):
+        m = model if m is None else m
+        m.zero_grad(set_to_none=True)
+        loss = tfm.loss_fn(m, tokens)
         loss.backward()
-        return loss.item(), [p.grad.float() for p in model.parameters()]
+        return loss.item(), [p.grad.float() for p in m.parameters()]
 
     names = [n for n, _ in model.named_parameters()]
 
@@ -1046,15 +1485,21 @@ def main() -> int:
         return errs[i], names[i]
 
     loss_k, grads_k = loss_and_grads()
-    plain_fwd = (lambda q, k, v, window=0, block_sizes=None,
-                 q_segment_ids=None, kv_segment_ids=None, **kw:
-                 flash_attention_forward_plain(q, k, v, **kw))
-    plain_bwd = (lambda q, k, v, o, lse, do, window=0, block_sizes=None,
-                 q_segment_ids=None, kv_segment_ids=None, fused=None, **kw:
+    plain_bwd = (lambda q, k, v, o, lse, do, block_sizes=None, fused=None,
+                 **kw:
                  flash_attention_backward_plain(q, k, v, o, lse, do, **kw))
-    with mock.patch.object(attention, "flash_attention_forward", plain_fwd), \
-            mock.patch.object(attention, "flash_attention_backward",
-                              plain_bwd):
+
+    def plain_attention():
+        """The training path on the plain attention functions."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.object(
+            attention, "flash_attention_forward",
+            flash_attention_forward_plain))
+        stack.enter_context(mock.patch.object(
+            attention, "flash_attention_backward", plain_bwd))
+        return stack
+
+    with plain_attention():
         loss_p, grads_p = loss_and_grads()
     e_grad, worst = rel_l2(grads_k, grads_p)
     print(f"[train] kernels vs plain attention: loss {loss_k:.6f} vs "
@@ -1092,6 +1537,60 @@ def main() -> int:
            f"of {worst} {e_split:.3e}")
     del grads_k, grads_s, model, step
 
+    # ---- 8b. main path of windowed training ------------------------------
+    # The sliding-window model (cfg.window = 1024) on the same batch: K1
+    # and K4 walk the band only.
+    wmodel = tfm.Transformer(
+        dataclasses.replace(tcfg, window=LONG_WINDOW),
+        generator=torch.Generator(device=dev).manual_seed(0))
+    wstep = tfm.make_train_step(
+        wmodel, torch.optim.SGD(wmodel.parameters(), lr=1e-4))
+    for _ in range(2):
+        wstep(tokens)
+    torch.cuda.synchronize()
+    zero_counts()
+    step_s, losses = [], []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        loss = wstep(tokens)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    counts = dict(fwd=fwd_forms["online"],
+                  total=flash_attention_forward.launches, **bwd_launches)
+    print(f"[wtrain] window {LONG_WINDOW}: launches over {TIMED_STEPS} "
+          f"steps: K1 {counts['fwd']}, K4 {counts['fused']}, K2 "
+          f"{counts['dkdv']}, K3 {counts['dq']} (expect {expect}, {expect}, "
+          f"0, 0); step {statistics.median(step_s) * 1e3:.3f} ms (median "
+          f"of {TIMED_STEPS}: {', '.join(f'{x * 1e3:.3f}' for x in step_s)})"
+          f", {TRAIN_T / statistics.median(step_s):.1f} tokens/s; losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)} ({card})", flush=True)
+    _check(counts == dict(fwd=expect, total=expect, fused=expect, dkdv=0,
+                          dq=0), f"windowed train-step launch counts {counts}")
+    launches["K1"] += counts["fwd"]
+    launches["K4"] += counts["fused"]
+    _check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    prof = kernel_times(lambda: wstep(tokens))
+    dev_ms = {kn: launch_ms(prof, lambda n: _kernel_of(n) == kn)
+              for kn in ("K1", "K4")}
+    print(f"[wtrain] profile of one step: device busy {prof.busy_ms:.3f} ms "
+          f"of a profiled wall of {prof.wall_ms:.3f} ms; per launch K1 "
+          f"{dev_ms['K1']:.4f} ms, K4 {dev_ms['K4']:.4f} ms ({card})",
+          flush=True)
+    loss_k, grads_k = loss_and_grads(wmodel)
+    with plain_attention():
+        loss_p, grads_p = loss_and_grads(wmodel)
+    e_grad, worst = rel_l2(grads_k, grads_p)
+    print(f"[wtrain] kernels vs plain attention: loss {loss_k:.6f} vs "
+          f"{loss_p:.6f} (|d| {abs(loss_k - loss_p):.3e}, gate "
+          f"{LOSS_GATE}); worst gradient relative L2 {e_grad:.3e} "
+          f"({worst}; gate {GRAD_GATE})", flush=True)
+    _check(abs(loss_k - loss_p) <= LOSS_GATE,
+           f"windowed kernel vs plain loss {loss_k} vs {loss_p}")
+    _check(e_grad <= GRAD_GATE, f"windowed kernel vs plain gradient of "
+           f"{worst}: relative L2 {e_grad:.3e}")
+    del grads_k, grads_p, wmodel, wstep
+
     # loss falls: 10 Adam steps on a fresh model and the same batch
     gen = torch.Generator(device=dev).manual_seed(0)
     model = tfm.Transformer(tcfg, generator=gen)
@@ -1108,8 +1607,15 @@ def main() -> int:
     csrc = "cuda_flashattention_torch/csrc/"
     tpu = "cuda_flashattention_tpu/ops/"
     described = [
-        ("K1", "flash_attention_forward (K1, online FA2 forward)",
-         "flash_fwd.cu", "flash_fwd.py:123"),
+        ("K1", "flash_attention_forward (K1, online FA2 forward: causal, "
+         "window, segments, int8/fp8/mixed K/V)", "flash_fwd.cu",
+         "flash_fwd.py:123"),
+        ("K1b", "flash_attention_forward softmax=bound (K1b, score-bound "
+         "FA2 forward, Q-major; quantize_q)", "flash_fwd.cu",
+         "flash_fwd.py:123"),
+        ("K5", "flash_attention_forward softmax=bound, causal or fp8 keys "
+         "(K5, score-bound FA2 forward, K-major)", "flash_fwd_kmajor.cu",
+         "flash_fwd.py:399"),
         ("K6", "decode_attention (K6, one-token decode: bf16, int8, fp8 "
          "and mixed caches, windows, quantize_q)", "decode.cu",
          "decode.py:145"),

@@ -6,9 +6,12 @@ package is tested against. Attention runs through hand-written CUDA C++
 kernels for sm_90a (csrc/), built by nvcc at first use on the card
 (_build.py); on CPU tensors each op runs its plain PyTorch version.
 
-Ported so far: the serving path — prefill (FA2 forward) and decode over
-the KV cache (bf16, int8, fp8 or mixed; windows; integer Q·Kᵀ), driven by
-`generate()`; paged serving (page pools, block tables, the host-side
+Ported so far: the serving path — prefill, whole or chunked (the FA2
+forward in all its forms: online, score-bound and K-major softmax,
+sliding windows, segment ids, int8 / fp8 / mixed K/V, integer Q·Kᵀ) and
+decode over the KV cache (bf16, int8, fp8 or mixed; windows; integer
+Q·Kᵀ), driven by `generate()`; `flash_attention_quantized`; the
+sliding-window model in serving and training; paged serving (page pools, block tables, the host-side
 `PageAllocator`, the paged decode kernel); the training path: `forward`,
 `loss_fn` and `make_train_step`, with attention through the
 differentiable `flash_attention` (FA2 forward, and the FA2 backward

@@ -38,16 +38,23 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _LP = ctypes.POINTER(ctypes.c_longlong)
+_PP = ctypes.POINTER(ctypes.c_void_p)
 _D = ctypes.c_double
 
 # C signatures of the entry points (all return an int cudaError_t).
 SIGNATURES = {
-    # q, k, v, o, lse, B, H, Hkv, Nq, Nk, D,
-    # q/k/v strides (batch, head, row) in elements,
-    # causal, kv_offset, out_f32, stream
-    "cfa_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                      _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                      _I, _I, _I, _P],
+    # ptrs[12] (q, k, v, k_scale, v_scale, q_seg, kv_seg, c, guard,
+    # n_loose, o, lse), B, H, Hkv, Nq, Nk, D, strides[9] (q/k/v: batch,
+    # head, row, in elements), k_type, v_type (0 bf16, 1 int8, 2 fp8),
+    # form (0 online, 1 bound, 2 bound with int8 Q), causal, window,
+    # kv_offset, out_f32, stream
+    "cfa_flash_fwd": [_PP, _I, _I, _I, _I, _I, _I, _LP,
+                      _I, _I, _I, _I, _I, _I, _I, _P],
+    # ptrs[11] (q, k, v, k_scale, v_scale, c, l_acc, o_acc, n_loose, o,
+    # lse), B, H, Hkv, Nq, Nk, D, strides[9], k_type, v_type, qq, causal,
+    # window, kv_offset, out_f32, stream
+    "cfa_flash_fwd_kmajor": [_PP, _I, _I, _I, _I, _I, _I, _LP,
+                             _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, k_scale, v_scale, q_sigma, lengths, windows, o, lse,
     # B, H, Hkv, max_n, D, k_type, v_type (0 bf16, 1 int8, 2 fp8), qq,
     # scale, window, stream
@@ -62,15 +69,15 @@ SIGNATURES = {
     # q, k, v, o, B, H, Nq, Nk, D, strides[9] (q/k/v: batch, head, row),
     # causal, n_sub, stream
     "cfa_fa1": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LP, _I, _I, _P],
-    # q, k, v, dO, lse, delta, dk, dv, dq_acc (NULL: K2, else K4),
-    # B, H, Hkv, Nq, Nk, D, strides[12] (q/k/v/dO: batch, head, row),
-    # scale, causal, kv_offset, stream
-    "cfa_flash_bwd_kv": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _LP, _D, _I, _I, _P],
-    # q, k, v, dO, lse, delta, dq, B, H, Hkv, Nq, Nk, D, strides[12],
-    # scale, causal, kv_offset, stream
-    "cfa_flash_bwd_q": [_P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _LP, _D, _I, _I, _P],
+    # q, k, v, dO, lse, delta, q_seg, kv_seg (int32 ids or NULL), dk, dv,
+    # dq_acc (NULL: K2, else K4), B, H, Hkv, Nq, Nk, D, strides[12]
+    # (q/k/v/dO: batch, head, row), scale, causal, window, kv_offset, stream
+    "cfa_flash_bwd_kv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _LP, _D, _I, _I, _I, _P],
+    # q, k, v, dO, lse, delta, q_seg, kv_seg, dq, B, H, Hkv, Nq, Nk, D,
+    # strides[12], scale, causal, window, kv_offset, stream
+    "cfa_flash_bwd_q": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _LP, _D, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -34,7 +34,8 @@
 //
 // Numerics follow the TPU kernels (flash_bwd.py:53-114): S is recomputed
 // from the raw q as fp32 q·kᵀ times scale·log2(e); P = exp2(S − LSE·log2e)
-// with P = 0 for masked entries and for rows whose LSE < NEG_INF/2;
+// with P = 0 for masked entries (ragged tail, causal, sliding window,
+// segment ids) and for rows whose LSE < NEG_INF/2;
 // dP = dO·Vᵀ and dS = P ⊙ (dP − D)·scale in fp32; P is rounded to bf16
 // before dV += Pᵀ·dO and dS before dK += dSᵀ·Q and dQ += dS·K. A K/V tile
 // that no query sees, or a Q tile that sees no key, writes zeros.
@@ -85,7 +86,9 @@ struct Smem {
   static constexpr size_t acc2_off = acc_off + tile_a; // dV (K2/K4)
   static constexpr size_t lse_off = acc2_off + tile_a;
   static constexpr size_t delta_off = lse_off + sizeof(float) * BQ;
-  static constexpr size_t bytes = delta_off + sizeof(float) * BQ;
+  static constexpr size_t qseg_off = delta_off + sizeof(float) * BQ;
+  static constexpr size_t kseg_off = qseg_off + sizeof(int) * BQ;
+  static constexpr size_t bytes = kseg_off + sizeof(int) * BK;
   // K4's per-tile dQ partial reuses S and dP once dS is formed
   static_assert(tile_a <= 2 * tile_s, "dQ scratch must fit in S + dP");
   static_assert(bytes <= 232448, "over the 227 KB a CTA may use");
@@ -120,6 +123,14 @@ __device__ __forceinline__ void load_rows(float* lse_s, float* delta_s,
     const float l = qi < Nq ? lse[qi] : kNegInf;
     lse_s[r] = l < kNegInf * 0.5f ? INFINITY : l * (float)kLog2e;
     delta_s[r] = qi < Nq ? delta[qi] : 0.f;
+  }
+}
+
+// One tile's segment ids; past the end `pad`, which matches no real id.
+__device__ __forceinline__ void load_ids(int* dst, const int* src, int i0,
+                                         int n, int pad) {
+  for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
+    dst[i] = i0 + i < n ? src[i0 + i] : pad;
   }
 }
 
@@ -162,11 +173,15 @@ __device__ __forceinline__ void scores(const bf16* qs, const bf16* dos,
 
 // P and dS for the warp's 16 rows, rounded to bf16. q0/c0: first query
 // row and first key of the tiles; lane owns columns lane and lane + 32.
-template <int D>
-__device__ __forceinline__ void probs_and_ds(
+// qsegs/ksegs: the tiles' segment ids, or null. With MASKED false every
+// pair of the warp's rows and the tile's keys is visible and no element is
+// tested (a row past Nq or with no visible key has lse_s = +inf, P = 0).
+template <int D, bool MASKED>
+__device__ __forceinline__ void probs_rows(
     const float* ss, const float* dps, const float* lse_s,
-    const float* delta_s, bf16* ps, bf16* dss, int r0, int q0, int c0,
-    int Nk, int causal, int kv_offset, float scale_log2e, float scale) {
+    const float* delta_s, const int* qsegs, const int* ksegs, bf16* ps,
+    bf16* dss, int r0, int q0, int c0, int Nk, int causal, int window,
+    int kv_offset, float scale_log2e, float scale) {
   using S = Smem<D>;
   const int lane = threadIdx.x % 32;
   for (int rr = 0; rr < ROWS; ++rr) {
@@ -177,14 +192,53 @@ __device__ __forceinline__ void probs_and_ds(
 #pragma unroll
     for (int j = 0; j < BK / 32; ++j) {
       const int c = lane + 32 * j;
-      const int col = c0 + c;
-      const bool ok = col < Nk && (!causal || col <= qpos);
+      bool ok = true;
+      if (MASKED) {
+        const int col = c0 + c;
+        ok = col < Nk;
+        if (causal) {
+          ok = ok && col <= qpos;
+          if (window > 0) ok = ok && col > qpos - window;
+        }
+        if (qsegs != nullptr) ok = ok && qsegs[row] == ksegs[c];
+      }
       const float p =
           ok ? exp2f(ss[row * S::LDS + c] * scale_log2e - lse2) : 0.f;
       const float ds = p * (dps[row * S::LDS + c] - dl) * scale;
       ps[row * S::LDP + c] = __float2bfloat16(p);
       dss[row * S::LDP + c] = __float2bfloat16(ds);
     }
+  }
+}
+
+// The kernels are built twice: with EXTRA false a call has no window and
+// no segment ids, and every test of them folds away at compile time.
+template <int D, bool EXTRA>
+__device__ __forceinline__ void probs_and_ds(
+    const float* ss, const float* dps, const float* lse_s,
+    const float* delta_s, const int* qsegs, const int* ksegs, bf16* ps,
+    bf16* dss, int r0, int q0, int c0, int Nk, int causal, int window,
+    int kv_offset, float scale_log2e, float scale) {
+  if (!EXTRA) {
+    window = 0;
+    qsegs = nullptr;
+  }
+  // an interior tile of the causal band: the warp's first row sees the
+  // tile's last key and its last row's window reaches the first
+  const int qpos_first = q0 + r0 + kv_offset;
+  bool full = qsegs == nullptr && c0 + BK <= Nk;
+  if (causal) {
+    full = full && c0 + BK - 1 <= qpos_first &&
+           (window <= 0 || c0 > qpos_first + ROWS - 1 - window);
+  }
+  if (full) {
+    probs_rows<D, false>(ss, dps, lse_s, delta_s, qsegs, ksegs, ps, dss, r0,
+                         q0, c0, Nk, causal, window, kv_offset, scale_log2e,
+                         scale);
+  } else {
+    probs_rows<D, true>(ss, dps, lse_s, delta_s, qsegs, ksegs, ps, dss, r0,
+                        q0, c0, Nk, causal, window, kv_offset, scale_log2e,
+                        scale);
   }
 }
 
@@ -253,15 +307,17 @@ struct Args {
   bf16* dk;            // [B, Hkv, Nk, D] (K2, K4)
   bf16* dv;
   float* dq_acc;       // [B, H, Nq, D] fp32, zeroed (K4)
+  const int* q_seg;    // [B, Nq] or null
+  const int* kv_seg;   // [B, Nk] or null
   int H, Hkv, Nq, Nk;
   long long sqb, sqh, sqn, skb, skh, skn, svb, svh, svn, sob, soh, son;
   float scale_log2e, scale;
-  int causal, kv_offset;
+  int causal, window, kv_offset;
 };
 
 // K2 (FUSED = false) and K4 (FUSED = true): one CTA per (key tile, KV
 // head, batch).
-template <int D, bool FUSED>
+template <int D, bool FUSED, bool EXTRA>
 __global__ void __launch_bounds__(NTHREADS) flash_bwd_kv_kernel(Args a) {
   using S = Smem<D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -277,7 +333,11 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_kv_kernel(Args a) {
   float* dv_acc = reinterpret_cast<float*>(smem + S::acc2_off);
   float* lse_s = reinterpret_cast<float*>(smem + S::lse_off);
   float* delta_s = reinterpret_cast<float*>(smem + S::delta_off);
+  int* qsegs = reinterpret_cast<int*>(smem + S::qseg_off);
+  int* ksegs = reinterpret_cast<int*>(smem + S::kseg_off);
   float* dq_part = ss;  // K4: this tile pair's dQ, once S/dP are spent
+  const bool seg = EXTRA && a.q_seg != nullptr;
+  const int window = EXTRA ? a.window : 0;
 
   const int c0 = blockIdx.x * BK;
   const int hk = blockIdx.y;
@@ -295,29 +355,39 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_kv_kernel(Args a) {
     dk_acc[i] = 0.f;
     dv_acc[i] = 0.f;
   }
+  if (seg) load_ids(ksegs, a.kv_seg + (long long)b * a.Nk, c0, a.Nk, -2);
 
   const int n_q_tiles = (a.Nq + BQ - 1) / BQ;
-  // causal: Q tile i sees this key tile iff (i+1)·BQ − 1 + kv_offset ≥ c0
+  // causal: Q tile i sees this key tile iff (i+1)·BQ − 1 + kv_offset ≥ c0;
+  // with a window the last row that reaches the tile's last key is
+  // c0 + BK − 2 + window − kv_offset
   const int first = a.causal ? max(0, c0 - a.kv_offset) / BQ : 0;
+  int last = n_q_tiles - 1;
+  if (a.causal && window > 0) {
+    const int last_row = c0 + BK - 2 + window - a.kv_offset;
+    last = last_row < 0 ? -1 : min(last, last_row / BQ);
+  }
 
   for (int g = 0; g < group; ++g) {
     const int h = hk * group + g;
     const bf16* qb = a.q + b * a.sqb + h * a.sqh;
     const bf16* dob = a.dout + b * a.sob + h * a.soh;
     const long long row_base = (long long)(b * a.H + h) * a.Nq;
-    for (int it = first; it < n_q_tiles; ++it) {
+    for (int it = first; it <= last; ++it) {
       const int q0 = it * BQ;
       __syncthreads();  // the previous tile's readers are done
       load_tile<D, BQ>(qs, S::LDH, qb, a.sqn, q0, a.Nq);
       load_tile<D, BQ>(dos, S::LDH, dob, a.son, q0, a.Nq);
       load_rows(lse_s, delta_s, a.lse + row_base, a.delta + row_base, q0,
                 a.Nq);
+      if (seg) load_ids(qsegs, a.q_seg + (long long)b * a.Nq, q0, a.Nq, -1);
       __syncthreads();
 
       scores<D>(qs, dos, ks, vs, ss, dps, r0);
       __syncwarp();
-      probs_and_ds<D>(ss, dps, lse_s, delta_s, ps, dss, r0, q0, c0, a.Nk,
-                      a.causal, a.kv_offset, a.scale_log2e, a.scale);
+      probs_and_ds<D, EXTRA>(ss, dps, lse_s, delta_s, seg ? qsegs : nullptr,
+                             ksegs, ps, dss, r0, q0, c0, a.Nk, a.causal,
+                             window, a.kv_offset, a.scale_log2e, a.scale);
       __syncthreads();  // P and dS of every row are in place
 
       // the warp's 16 keys: dV += Pᵀ·dO, dK += dSᵀ·Q
@@ -355,7 +425,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_kv_kernel(Args a) {
 }
 
 // K3: one CTA per (query tile, head, batch).
-template <int D>
+template <int D, bool EXTRA>
 __global__ void __launch_bounds__(NTHREADS) flash_bwd_q_kernel(Args a) {
   using S = Smem<D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -370,6 +440,10 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_q_kernel(Args a) {
   float* dq_acc = reinterpret_cast<float*>(smem + S::acc_off);
   float* lse_s = reinterpret_cast<float*>(smem + S::lse_off);
   float* delta_s = reinterpret_cast<float*>(smem + S::delta_off);
+  int* qsegs = reinterpret_cast<int*>(smem + S::qseg_off);
+  int* ksegs = reinterpret_cast<int*>(smem + S::kseg_off);
+  const bool seg = EXTRA && a.q_seg != nullptr;
+  const int window = EXTRA ? a.window : 0;
 
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
@@ -385,25 +459,35 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_q_kernel(Args a) {
                    a.Nq);
   load_rows(lse_s, delta_s, a.lse + row_base, a.delta + row_base, q0, a.Nq);
   for (int i = threadIdx.x; i < BQ * S::LDA; i += NTHREADS) dq_acc[i] = 0.f;
+  if (seg) load_ids(qsegs, a.q_seg + (long long)b * a.Nq, q0, a.Nq, -1);
 
-  // keys this Q tile can see: causal rows see keys <= row + kv_offset
+  // keys this Q tile can see: causal rows see keys <= row + kv_offset and,
+  // with a window, keys > row + kv_offset − window
   int kv_end = a.Nk;
-  if (a.causal) kv_end = min(a.Nk, max(0, q0 + BQ + a.kv_offset));
+  int t_begin = 0;
+  if (a.causal) {
+    kv_end = min(a.Nk, max(0, q0 + BQ + a.kv_offset));
+    if (window > 0) {
+      t_begin = max(0, q0 + a.kv_offset - window + 1) / BK;
+    }
+  }
   const int n_tiles = (kv_end + BK - 1) / BK;
   const bf16* kb = a.k + b * a.skb + hk * a.skh;
   const bf16* vb = a.v + b * a.svb + hk * a.svh;
 
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = t_begin; t < n_tiles; ++t) {
     const int c0 = t * BK;
     __syncthreads();  // the previous tile's K/V reads are done (and init)
     load_tile<D, BK>(ks, S::LDH, kb, a.skn, c0, a.Nk);
     load_tile<D, BK>(vs, S::LDH, vb, a.svn, c0, a.Nk);
+    if (seg) load_ids(ksegs, a.kv_seg + (long long)b * a.Nk, c0, a.Nk, -2);
     __syncthreads();
 
     scores<D>(qs, dos, ks, vs, ss, dps, r0);
     __syncwarp();
-    probs_and_ds<D>(ss, dps, lse_s, delta_s, ps, dss, r0, q0, c0, a.Nk,
-                    a.causal, a.kv_offset, a.scale_log2e, a.scale);
+    probs_and_ds<D, EXTRA>(ss, dps, lse_s, delta_s, seg ? qsegs : nullptr,
+                           ksegs, ps, dss, r0, q0, c0, a.Nk, a.causal, window,
+                           a.kv_offset, a.scale_log2e, a.scale);
     __syncwarp();
     accumulate_dq<D>(dq_acc, dss, ks, r0, false);
     __syncwarp();
@@ -430,9 +514,25 @@ cudaError_t launch(void (*kernel)(Args), dim3 grid, size_t smem,
   return cudaGetLastError();
 }
 
+// Whether a call uses a window or segment ids: the build without them
+// serves a call that uses neither.
+bool has_extras(const Args& a) { return a.window > 0 || a.q_seg != nullptr; }
+
+// K2 (fused false) or K4, built with or without the extras.
+template <int D>
+void (*kv_kernel(bool fused, bool extra))(Args) {
+  if (fused) {
+    return extra ? flash_bwd_kv_kernel<D, true, true>
+                 : flash_bwd_kv_kernel<D, true, false>;
+  }
+  return extra ? flash_bwd_kv_kernel<D, false, true>
+               : flash_bwd_kv_kernel<D, false, false>;
+}
+
 Args make_args(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, int H, int Hkv, int Nq,
-               int Nk, const long long* strides, double scale, int causal,
+               const void* lse, const void* delta, const void* q_seg,
+               const void* kv_seg, int H, int Hkv, int Nq, int Nk,
+               const long long* strides, double scale, int causal, int window,
                int kv_offset) {
   Args a = {};
   a.q = static_cast<const bf16*>(q);
@@ -441,6 +541,8 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
   a.dout = static_cast<const bf16*>(dout);
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);
+  a.q_seg = static_cast<const int*>(q_seg);
+  a.kv_seg = static_cast<const int*>(kv_seg);
   a.H = H;
   a.Hkv = Hkv;
   a.Nq = Nq;
@@ -452,6 +554,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
   a.scale_log2e = (float)(scale * kLog2e);
   a.scale = (float)scale;
   a.causal = causal;
+  a.window = window;
   a.kv_offset = kv_offset;
   return a;
 }
@@ -459,18 +562,20 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // K2 when dq_acc is null, else K4 (which also adds dQ into dq_acc).
-// strides: q, k, v, dO, each (batch, head, row), in elements.
+// strides: q, k, v, dO, each (batch, head, row), in elements. q_seg
+// [B, Nq] and kv_seg [B, Nk] are int32 segment ids, or both null.
 extern "C" int cfa_flash_bwd_kv(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
-                                const void* delta, void* dk, void* dv,
+                                const void* delta, const void* q_seg,
+                                const void* kv_seg, void* dk, void* dv,
                                 void* dq_acc, int B, int H, int Hkv, int Nq,
                                 int Nk, int D, const long long* strides,
-                                double scale, int causal, int kv_offset,
-                                void* stream) {
+                                double scale, int causal, int window,
+                                int kv_offset, void* stream) {
   if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
   if (B == 0 || Nk == 0) return cudaSuccess;
-  Args a = make_args(q, k, v, dout, lse, delta, H, Hkv, Nq, Nk, strides,
-                     scale, causal, kv_offset);
+  Args a = make_args(q, k, v, dout, lse, delta, q_seg, kv_seg, H, Hkv, Nq,
+                     Nk, strides, scale, causal, window, kv_offset);
   a.dk = static_cast<bf16*>(dk);
   a.dv = static_cast<bf16*>(dv);
   a.dq_acc = static_cast<float*>(dq_acc);
@@ -479,15 +584,11 @@ extern "C" int cfa_flash_bwd_kv(const void* q, const void* k, const void* v,
   const bool fused = dq_acc != nullptr;
   switch (D) {
     case 64:
-      return fused ? launch(flash_bwd_kv_kernel<64, true>, grid,
-                            Smem<64>::bytes, a, s)
-                   : launch(flash_bwd_kv_kernel<64, false>, grid,
-                            Smem<64>::bytes, a, s);
+      return launch(kv_kernel<64>(fused, has_extras(a)), grid,
+                    Smem<64>::bytes, a, s);
     case 128:
-      return fused ? launch(flash_bwd_kv_kernel<128, true>, grid,
-                            Smem<128>::bytes, a, s)
-                   : launch(flash_bwd_kv_kernel<128, false>, grid,
-                            Smem<128>::bytes, a, s);
+      return launch(kv_kernel<128>(fused, has_extras(a)), grid,
+                    Smem<128>::bytes, a, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -496,22 +597,28 @@ extern "C" int cfa_flash_bwd_kv(const void* q, const void* k, const void* v,
 // K3. strides as for cfa_flash_bwd_kv.
 extern "C" int cfa_flash_bwd_q(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
-                               const void* delta, void* dq, int B, int H,
+                               const void* delta, const void* q_seg,
+                               const void* kv_seg, void* dq, int B, int H,
                                int Hkv, int Nq, int Nk, int D,
                                const long long* strides, double scale,
-                               int causal, int kv_offset, void* stream) {
+                               int causal, int window, int kv_offset,
+                               void* stream) {
   if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
   if (B == 0 || H == 0 || Nq == 0) return cudaSuccess;
-  Args a = make_args(q, k, v, dout, lse, delta, H, Hkv, Nq, Nk, strides,
-                     scale, causal, kv_offset);
+  Args a = make_args(q, k, v, dout, lse, delta, q_seg, kv_seg, H, Hkv, Nq,
+                     Nk, strides, scale, causal, window, kv_offset);
   a.dq = static_cast<bf16*>(dq);
   const dim3 grid((Nq + BQ - 1) / BQ, H, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch(flash_bwd_q_kernel<64>, grid, Smem<64>::bytes, a, s);
+      return launch(has_extras(a) ? flash_bwd_q_kernel<64, true>
+                                  : flash_bwd_q_kernel<64, false>,
+                    grid, Smem<64>::bytes, a, s);
     case 128:
-      return launch(flash_bwd_q_kernel<128>, grid, Smem<128>::bytes, a, s);
+      return launch(has_extras(a) ? flash_bwd_q_kernel<128, true>
+                                  : flash_bwd_q_kernel<128, false>,
+                    grid, Smem<128>::bytes, a, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,300 +1,324 @@
-// FlashAttention-2 forward (online softmax) for Hopper, bf16 in, fp32 or
-// bf16 out, with the natural-log LSE per query row.
+// FlashAttention-2 forward for Hopper on a Q-major walk: the online
+// softmax (K1) and the score-bound softmax (K1b), bf16 Q, K/V in bf16, int8
+// or fp8 e4m3 with per-token scales, fp32 or bf16 out, with the natural-log
+// LSE per query row.
 //
-// Replaces: cuda_flashattention_tpu/ops/flash_fwd.py::_fwd_kernel, online
-// form (bound=False), with the causal band of its compact grid.
+// Replaces: cuda_flashattention_tpu/ops/flash_fwd.py::_fwd_kernel, both
+// its forms (bound=False and bound=True), with the causal band of its
+// compact grid, its window and segment masks, its folded dequantisation
+// and its int8 Q·Kᵀ (quantize_q).
 //
 // What bounds it on the H100: at the prefill shapes (N = 512..4096,
 // d = 128) the two products are ~4·N²·d flops against 4·N·d bytes per
 // head, far above the card's ~295 flop/byte balance point, so the kernel
 // is compute-bound — on the tensor cores for Q·Kᵀ and P·V and, in this
-// first version, as much on the fp32 softmax and the shared-memory round
-// trips of S, P and the accumulator.
+// version, as much on the fp32 softmax and the shared-memory round trips
+// of S, P and the accumulator. A quantized K/V halves the bytes and leaves
+// the operations as they were.
 //
 // What this design does about it: the products run on the tensor cores
-// through nvcuda::wmma bf16 fragments with fp32 accumulation; one CTA
-// holds a 64-row Q tile in shared memory for its whole walk over K/V, so
-// Q is read from device memory once and K/V once per Q tile. For causal
-// calls the walk stops at the tile's last visible key, which replaces the
-// TPU kernel's host-enumerated band grid. Each warp owns 16 query rows
-// end to end (scores, softmax, accumulator), so the only block-wide
-// barriers are the two around each K/V tile load. Later work: wgmma, TMA
-// and a producer warp that prefetches the next tile.
+// through nvcuda::wmma bf16 (or int8) fragments; one CTA holds a 64-row Q
+// tile in shared memory for its whole walk over K/V, so Q is read from
+// device memory once and K/V once per Q tile. For causal calls the walk
+// stops at the tile's last visible key and, with a window, starts at the
+// first row's first visible key, which replaces the TPU kernel's
+// host-enumerated band grid. Each warp owns 16 query rows end to end
+// (scores, softmax, accumulator), so the only block-wide barriers are the
+// two around each K/V tile load. The bound form is the same kernel under a
+// template parameter, as on the TPU: it drops the running max and the
+// accumulator's rescale. Later work: wgmma, TMA and a producer warp.
 //
-// Numerics follow the TPU kernel: Q arrives pre-scaled by scale·log2(e)
-// (rounded in Q's dtype by the host), scores are in log2 units and use
-// exp2; masked scores are NEG_INF and their probabilities are forced to 0;
-// P is rounded to bf16 before P·V; O = acc / l; LSE = m·ln2 + ln l, and a
-// row with no visible key gets O = 0 and LSE = NEG_INF.
+// Numerics follow the TPU kernel (see flash_fwd_body.cuh for what a tile
+// pair computes). Online: m, l carried per row, O = acc / l, LSE = m·ln2 +
+// ln l. Bound: p = 2^(s − c) against the host's per-row bound c, LSE =
+// c·ln2 + ln l, and a count of rows whose l < 2^-96 though they have
+// visible keys. A row with no visible key gets O = 0 and LSE = NEG_INF in
+// both. The online form can be launched behind a device-side guard: it
+// then exits at once unless the bound form before it counted a loose row,
+// which is how the loose-bound fallback runs without a host round trip.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "flash_fwd_body.cuh"
 
-using namespace nvcuda;
+using namespace cfa_fwd_body;
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr float kLn2 = 0.6931471805599453f;
-constexpr int BQ = 64;       // query rows per CTA
-constexpr int BK = 64;       // keys per K/V tile
-constexpr int NWARPS = 4;    // each warp owns BQ / NWARPS = 16 rows
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int ROWS_PER_WARP = BQ / NWARPS;
+constexpr int kOnline = 0, kBound = 1, kBoundQQ = 2;
 
-template <int D>
-struct Smem {
-  // padded leading dimensions (elements); every wmma tile pointer stays
-  // 32-byte aligned and rows fall on different banks
-  static constexpr int LDH = D + 8;    // bf16 Q, K, V tiles
-  static constexpr int LDS = BK + 4;   // fp32 scores
-  static constexpr int LDP = BK + 8;   // bf16 probabilities
-  static constexpr int LDO = D + 4;    // fp32 accumulator
-  static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = q_off + sizeof(__nv_bfloat16) * BQ * LDH;
-  static constexpr size_t v_off = k_off + sizeof(__nv_bfloat16) * BK * LDH;
-  static constexpr size_t p_off = v_off + sizeof(__nv_bfloat16) * BK * LDH;
-  static constexpr size_t s_off = p_off + sizeof(__nv_bfloat16) * BQ * LDP;
-  static constexpr size_t o_off = s_off + sizeof(float) * BQ * LDS;
-  static constexpr size_t m_off = o_off + sizeof(float) * BQ * LDO;
-  static constexpr size_t l_off = m_off + sizeof(float) * BQ;
-  static constexpr size_t bytes = l_off + sizeof(float) * BQ;
-};
-
-// Copy `rows` rows of D bf16 (row stride `stride` elements) into a padded
-// shared tile of BQ/BK rows; rows at or past `valid` are zero-filled.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int ld,
-                                          const __nv_bfloat16* src,
-                                          long long stride, int row0,
-                                          int valid) {
-  constexpr int VPR = D / 8;  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < ROWS * VPR; i += NTHREADS) {
-    const int r = i / VPR;
-    const int c = (i % VPR) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < valid) {
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * stride + c);
+// The online-softmax step for the warp's 16 rows of one tile pair; lane
+// owns columns lane and lane + 32. With MASKED false every pair is visible
+// and no element is tested.
+template <int D, bool EXTRA, bool MASKED>
+__device__ __forceinline__ void online_rows(
+    const Args& a, const Extras<EXTRA>& x, const float* ss, const float* kscs,
+    const float* vscs, const int* qsegs, const int* ksegs, bf16* ps,
+    float* os, float* ms, float* ls, int r0, int q0, int c0) {
+  using S = Smem<D>;
+  const int lane = threadIdx.x % 32;
+  for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
+    const int row = r0 + rr;
+    const int qpos = q0 + row + a.kv_offset;
+    float s[BK / 32];
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < BK / 32; ++j) {
+      const int c = lane + 32 * j;
+      const bool ok = !MASKED || visible(a, x, qpos, c0 + c,
+                                         x.seg ? qsegs[row] : 0,
+                                         x.seg ? ksegs[c] : 0);
+      s[j] = ok ? score<D, false>(ss, row, c, x.quant, kscs) : kNegInf;
+      mx = fmaxf(mx, s[j]);
     }
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_prev = ms[row];
+    const float m_next = fmaxf(m_prev, mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 32; ++j) {
+      const int c = lane + 32 * j;
+      // a fully masked row has m_next = NEG_INF: force its p to 0
+      const float p = !MASKED || s[j] > kNegInf * 0.5f
+                          ? exp2f(s[j] - m_next) : 0.f;
+      sum += p;
+      ps[row * S::LDP + c] = __float2bfloat16(x.quant ? p * vscs[c] : p);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    const float alpha = exp2f(m_prev - m_next);
+#pragma unroll
+    for (int c = lane; c < D; c += 32) os[row * S::LDO + c] *= alpha;
+    __syncwarp();
+    if (lane == 0) {
+      ms[row] = m_next;
+      ls[row] = ls[row] * alpha + sum;
+    }
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 void* __restrict__ o, float* __restrict__ lse,
-                 int H, int group, int Nq, int Nk,
-                 long long sqb, long long sqh, long long sqn,
-                 long long skb, long long skh, long long skn,
-                 long long svb, long long svh, long long svn,
-                 int causal, int kv_offset, int out_f32) {
+template <int D, int FORM, bool EXTRA>
+__global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(Args a) {
+  constexpr bool BOUND = FORM != kOnline;
+  constexpr bool QQ = FORM == kBoundQQ;
+  static_assert(EXTRA || !QQ, "quantize_q reads quantized K/V");
+  if (!BOUND && a.guard != nullptr && *a.guard == 0) return;
+  const Extras<EXTRA> x(a);
+
   using S = Smem<D>;
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + S::q_off);
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + S::k_off);
-  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem + S::v_off);
-  __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(smem + S::p_off);
+  bf16* qs = reinterpret_cast<bf16*>(smem + S::q_off);
+  bf16* ks = reinterpret_cast<bf16*>(smem + S::k_off);
+  bf16* vs = reinterpret_cast<bf16*>(smem + S::v_off);
+  bf16* ps = reinterpret_cast<bf16*>(smem + S::p_off);
   float* ss = reinterpret_cast<float*>(smem + S::s_off);
   float* os = reinterpret_cast<float*>(smem + S::o_off);
-  float* ms = reinterpret_cast<float*>(smem + S::m_off);
+  float* ms = reinterpret_cast<float*>(smem + S::m_off);  // m, or c (bound)
   float* ls = reinterpret_cast<float*>(smem + S::l_off);
+  float* kscs = reinterpret_cast<float*>(smem + S::ksc_off);
+  float* vscs = reinterpret_cast<float*>(smem + S::vsc_off);
+  int* qsegs = reinterpret_cast<int*>(smem + S::qseg_off);
+  int* ksegs = reinterpret_cast<int*>(smem + S::kseg_off);
 
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int hk = h / group;  // GQA: KV head shared by `group` q heads
+  const int hk = h / (a.H / a.Hkv);  // GQA: KV head shared by a group
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int r0 = warp * ROWS_PER_WARP;  // this warp's first row in the tile
+  const bool quant = x.quant;
+  const bool seg = x.seg;
+  const int k_type = EXTRA ? a.k_type : kBf16;
+  const int v_type = EXTRA ? a.v_type : kBf16;
+  const long long row_base = (long long)(b * a.H + h) * a.Nq;
 
-  const __nv_bfloat16* qb = q + b * sqb + h * sqh;
-  const __nv_bfloat16* kb = k + b * skb + hk * skh;
-  const __nv_bfloat16* vb = v + b * svb + hk * svh;
-
-  load_tile<D, BQ>(qs, S::LDH, qb, sqn, q0, Nq);
+  if (QQ) {
+    load_tile_s8<D, BQ>(reinterpret_cast<signed char*>(qs),
+                        static_cast<const uint8_t*>(a.q) + b * a.sqb +
+                            h * a.sqh,
+                        kInt8, a.sqn, q0, a.Nq);
+  } else {
+    load_tile<D, BQ>(qs, S::LDH,
+                     static_cast<const bf16*>(a.q) + b * a.sqb + h * a.sqh,
+                     a.sqn, q0, a.Nq);
+  }
   for (int i = threadIdx.x; i < BQ * S::LDO; i += NTHREADS) os[i] = 0.f;
   for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
-    ms[i] = kNegInf;
+    if (BOUND) {
+      ms[i] = q0 + i < a.Nq ? a.c[row_base + q0 + i] : 0.f;
+    } else {
+      ms[i] = kNegInf;
+    }
     ls[i] = 0.f;
   }
+  if (seg) load_ids(qsegs, a.q_seg + (long long)b * a.Nq, q0, a.Nq, -1);
 
-  // KV extent this Q tile can see: causal rows see keys <= row + kv_offset
-  int kv_end = Nk;
-  if (causal) {
-    const int last_row = q0 + BQ - 1 + kv_offset;
-    kv_end = min(Nk, max(0, last_row + 1));
+  // under quantize_q the K scale rows are per query head
+  const float* ksc_g =
+      quant ? a.k_scale + (long long)(QQ ? b * a.H + h : b * a.Hkv + hk) * a.Nk
+            : nullptr;
+  const float* vsc_g =
+      quant ? a.v_scale + (long long)(b * a.Hkv + hk) * a.Nk : nullptr;
+  const uint8_t* kb = static_cast<const uint8_t*>(a.k) +
+                      (b * a.skb + hk * a.skh) * (k_type == kBf16 ? 2 : 1);
+  const uint8_t* vb = static_cast<const uint8_t*>(a.v) +
+                      (b * a.svb + hk * a.svh) * (v_type == kBf16 ? 2 : 1);
+
+  // KV tiles this Q tile can see: causal rows see keys <= row + kv_offset
+  // and, with a window, keys > row + kv_offset − window
+  int kv_end = a.Nk;
+  int t_begin = 0;
+  if (a.causal) {
+    kv_end = min(a.Nk, max(0, q0 + BQ + a.kv_offset));
+    if (x.window > 0) {
+      t_begin = max(0, q0 + a.kv_offset - x.window + 1) / BK;
+    }
   }
   const int n_tiles = (kv_end + BK - 1) / BK;
 
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = t_begin; t < n_tiles; ++t) {
     const int c0 = t * BK;
     __syncthreads();  // previous tile's K/V reads are done (and Q/O init)
-    load_tile<D, BK>(ks, S::LDH, kb, skn, c0, Nk);
-    load_tile<D, BK>(vs, S::LDH, vb, svn, c0, Nk);
+    if (QQ) {
+      load_tile_s8<D, BK>(reinterpret_cast<signed char*>(ks), kb, k_type,
+                          a.skn, c0, a.Nk);
+    } else {
+      load_kv<D>(ks, kb, k_type, a.skn, c0, a.Nk);
+    }
+    load_kv<D>(vs, vb, v_type, a.svn, c0, a.Nk);
+    if (quant) {
+      load_scales(kscs, ksc_g, c0, a.Nk);
+      load_scales(vscs, vsc_g, c0, a.Nk);
+    }
+    if (seg) load_ids(ksegs, a.kv_seg + (long long)b * a.Nk, c0, a.Nk, -2);
     __syncthreads();
 
-    // S[r0:r0+16, :] = Q[r0:r0+16, :] · Kᵀ (fp32 accumulate)
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BK / 16];
-#pragma unroll
-      for (int nb = 0; nb < BK / 16; ++nb) wmma::fill_fragment(acc[nb], 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, qs + r0 * S::LDH + kk * 16, S::LDH);
-#pragma unroll
-        for (int nb = 0; nb < BK / 16; ++nb) {
-          // Kᵀ as a column-major B: element (kk, n) sits at K[n][kk]
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::col_major> fb;
-          wmma::load_matrix_sync(fb, ks + nb * 16 * S::LDH + kk * 16,
-                                 S::LDH);
-          wmma::mma_sync(acc[nb], fa, fb, acc[nb]);
-        }
-      }
-#pragma unroll
-      for (int nb = 0; nb < BK / 16; ++nb) {
-        wmma::store_matrix_sync(ss + r0 * S::LDS + nb * 16, acc[nb], S::LDS,
-                                wmma::mem_row_major);
-      }
+    if (QQ) {
+      qk_s8<D>(reinterpret_cast<const signed char*>(qs),
+               reinterpret_cast<const signed char*>(ks),
+               reinterpret_cast<int*>(ss), r0);
+    } else {
+      qk_bf16<D>(qs, ks, ss, r0);
     }
     __syncwarp();
 
-    // online softmax over this warp's rows; lane owns columns lane, lane+32
-    for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
-      const int row = r0 + rr;
-      const int qrow = q0 + row + kv_offset;  // causal position of the row
-      float s[BK / 32];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < BK / 32; ++j) {
-        const int col = c0 + lane + 32 * j;
-        const bool ok = col < Nk && (!causal || col <= qrow);
-        s[j] = ok ? ss[row * S::LDS + lane + 32 * j] : kNegInf;
-        mx = fmaxf(mx, s[j]);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = ms[row];
-      const float m_next = fmaxf(m_prev, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < BK / 32; ++j) {
-        const float p = s[j] > kNegInf * 0.5f ? exp2f(s[j] - m_next) : 0.f;
-        sum += p;
-        ps[row * S::LDP + lane + 32 * j] = __float2bfloat16(p);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float alpha = exp2f(m_prev - m_next);
-#pragma unroll
-      for (int c = lane; c < D; c += 32) os[row * S::LDO + c] *= alpha;
-      __syncwarp();
-      if (lane == 0) {
-        ms[row] = m_next;
-        ls[row] = ls[row] * alpha + sum;
-      }
+    if (BOUND) {
+      bound_probs<D, QQ, EXTRA>(a, x, ss, ms, kscs, vscs, qsegs, ksegs, ps, r0,
+                                q0, c0, ls, true);
+    } else if (all_visible(a, x, q0 + r0 + a.kv_offset, c0)) {
+      online_rows<D, EXTRA, false>(a, x, ss, kscs, vscs, qsegs, ksegs, ps, os,
+                                   ms, ls, r0, q0, c0);
+    } else {
+      online_rows<D, EXTRA, true>(a, x, ss, kscs, vscs, qsegs, ksegs, ps, os,
+                                  ms, ls, r0, q0, c0);
     }
     __syncwarp();
 
-    // O[r0:r0+16, :] += P[r0:r0+16, :] · V
-#pragma unroll
-    for (int nb = 0; nb < D / 16; ++nb) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, os + r0 * S::LDO + nb * 16, S::LDO,
-                             wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, ps + r0 * S::LDP + kk * 16, S::LDP);
-        wmma::load_matrix_sync(fb, vs + kk * 16 * S::LDH + nb * 16, S::LDH);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(os + r0 * S::LDO + nb * 16, acc, S::LDO,
-                              wmma::mem_row_major);
-    }
+    pv<D>(os, ps, vs, r0, false);
     __syncwarp();
   }
   __syncthreads();  // Q/O init is visible when no tile ran
 
-  // epilogue: O = acc / l, LSE = m·ln2 + ln l; the ragged Q tail is skipped
+  // epilogue; the ragged Q tail is skipped
   for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
     const int row = r0 + rr;
     const int qi = q0 + row;
-    if (qi >= Nq) break;
+    if (qi >= a.Nq) break;
     const float l = ls[row];
+    if (BOUND) {
+      bound_epilogue_row<D>(a, os + row * S::LDO, l, ms[row], b, h, qi);
+      continue;
+    }
     const float inv = l == 0.f ? 0.f : 1.f / l;
-    const long long orow = ((long long)(b * H + h) * Nq + qi) * D;
     for (int c = lane; c < D; c += 32) {
       const float val = os[row * S::LDO + c] * inv;
-      if (out_f32) {
-        static_cast<float*>(o)[orow + c] = val;
+      if (a.out_f32) {
+        static_cast<float*>(a.o)[(row_base + qi) * D + c] = val;
       } else {
-        static_cast<__nv_bfloat16*>(o)[orow + c] = __float2bfloat16(val);
+        static_cast<bf16*>(a.o)[(row_base + qi) * D + c] =
+            __float2bfloat16(val);
       }
     }
     if (lane == 0) {
-      lse[(long long)(b * H + h) * Nq + qi] =
-          l == 0.f ? kNegInf : ms[row] * kLn2 + logf(l);
+      a.lse[row_base + qi] = l == 0.f ? kNegInf : ms[row] * kLn2 + logf(l);
     }
   }
 }
 
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int B, int H, int Hkv, int Nq, int Nk,
-                   long long sqb, long long sqh, long long sqn,
-                   long long skb, long long skh, long long skn,
-                   long long svb, long long svh, long long svn,
-                   int causal, int kv_offset, int out_f32,
-                   cudaStream_t stream) {
+template <int D, int FORM, bool EXTRA>
+cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   const size_t smem = Smem<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_kernel<D, FORM, EXTRA>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Nq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), o, static_cast<float*>(lse), H,
-      H / Hkv, Nq, Nk, sqb, sqh, sqn, skb, skh, skn, svb, svh, svn, causal,
-      kv_offset, out_f32);
+  dim3 grid((a.Nq + BQ - 1) / BQ, a.H, B);
+  flash_fwd_kernel<D, FORM, EXTRA><<<grid, NTHREADS, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_form(const Args& a, int B, int form, cudaStream_t stream) {
+  // the build without the extras serves a call that uses none of them
+  const bool extra =
+      a.k_scale != nullptr || a.q_seg != nullptr || a.window > 0;
+  switch (form) {
+    case kOnline:
+      return extra ? launch<D, kOnline, true>(a, B, stream)
+                   : launch<D, kOnline, false>(a, B, stream);
+    case kBound:
+      return extra ? launch<D, kBound, true>(a, B, stream)
+                   : launch<D, kBound, false>(a, B, stream);
+    case kBoundQQ:
+      return launch<D, kBoundQQ, true>(a, B, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-extern "C" int cfa_flash_fwd(const void* q, const void* k, const void* v,
-                             void* o, void* lse, int B, int H, int Hkv,
-                             int Nq, int Nk, int D, long long sqb,
-                             long long sqh, long long sqn, long long skb,
-                             long long skh, long long skn, long long svb,
-                             long long svh, long long svn, int causal,
-                             int kv_offset, int out_f32, void* stream) {
+// form: 0 online (K1; behind `guard` when that is not null), 1 bound (K1b),
+// 2 bound with int8 Q (quantize_q). ptrs: q, k, v, k_scale, v_scale, q_seg,
+// kv_seg, c, guard, n_loose, o, lse (null where a form has no use for one).
+// strides: q, k, v, each (batch, head, row), in elements. k_type/v_type:
+// 0 bf16, 1 int8, 2 fp8 e4m3.
+extern "C" int cfa_flash_fwd(void* const* ptrs, int B, int H, int Hkv, int Nq,
+                             int Nk, int D, const long long* strides,
+                             int k_type, int v_type, int form, int causal,
+                             int window, int kv_offset, int out_f32,
+                             void* stream) {
   if (B == 0 || H == 0 || Nq == 0) return cudaSuccess;
   if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
+  if (form == kBoundQQ && k_type == kBf16) return cudaErrorInvalidValue;
+  Args a = {};
+  a.q = ptrs[0];
+  a.k = ptrs[1];
+  a.v = ptrs[2];
+  a.k_scale = static_cast<const float*>(ptrs[3]);
+  a.v_scale = static_cast<const float*>(ptrs[4]);
+  a.q_seg = static_cast<const int*>(ptrs[5]);
+  a.kv_seg = static_cast<const int*>(ptrs[6]);
+  a.c = static_cast<const float*>(ptrs[7]);
+  a.guard = static_cast<const int*>(ptrs[8]);
+  a.n_loose = static_cast<int*>(ptrs[9]);
+  a.o = ptrs[10];
+  a.lse = static_cast<float*>(ptrs[11]);
+  a.H = H; a.Hkv = Hkv; a.Nq = Nq; a.Nk = Nk;
+  a.sqb = strides[0]; a.sqh = strides[1]; a.sqn = strides[2];
+  a.skb = strides[3]; a.skh = strides[4]; a.skn = strides[5];
+  a.svb = strides[6]; a.svh = strides[7]; a.svn = strides[8];
+  a.k_type = k_type; a.v_type = v_type;
+  a.causal = causal; a.window = window; a.kv_offset = kv_offset;
+  a.out_f32 = out_f32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch<64>(q, k, v, o, lse, B, H, Hkv, Nq, Nk, sqb, sqh, sqn,
-                        skb, skh, skn, svb, svh, svn, causal, kv_offset,
-                        out_f32, s);
+      return launch_form<64>(a, B, form, s);
     case 128:
-      return launch<128>(q, k, v, o, lse, B, H, Hkv, Nq, Nk, sqb, sqh, sqn,
-                         skb, skh, skn, svb, svh, svn, causal, kv_offset,
-                         out_f32, s);
+      return launch_form<128>(a, B, form, s);
     default:
       return cudaErrorInvalidValue;
   }

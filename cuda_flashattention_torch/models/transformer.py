@@ -7,8 +7,10 @@ RoPE (split halves) + GQA attention + SwiGLU MLP, tied
 embedding/unembedding. The projections, MLP and unembedding are plain
 `F.linear` products. Attention is `flash_attention` (training: forward
 kernel K1, backward kernel K4 or K2 + K3), `flash_attention_forward`
-(prefill) and `decode_step` (decode), over a cache that may be quantized
-(`init_caches(qtype=...)`). The sequence-parallel, pipelined
+(prefill: K1 on the chunk itself, the bound kernels K1b or K5 on the
+cached prefix) and `decode_step` (decode), over a cache that may be
+quantized (`init_caches(qtype=...)`) and with a sliding window
+(`TransformerConfig.window`) in all of them. The sequence-parallel, pipelined
 and sharded forms of the JAX model (`mesh`, `pipeline_forward`,
 `param_shardings`) wait for the distributed layer.
 """
@@ -45,9 +47,7 @@ class TransformerConfig:
     d_ff: int = 1408
     max_seq: int = 2048
     rope_theta: float = 10000.0
-    # 0 = full causal. Decode honours a window; prefill and training raise
-    # for one until the forward and backward kernels take it
-    window: int = 0
+    window: int = 0  # sliding-window size; 0 = full causal
     dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -236,20 +236,21 @@ def prefill(model: Transformer, tokens: torch.Tensor,
 def prefill_chunk(model: Transformer, tokens: torch.Tensor, start: int,
                   caches: Tuple[KVCache, ...]):
     """Prefill one chunk of C tokens starting at position `start`: the
-    chunk attends itself causally and, when start > 0, the cached prefix
-    [0, start) in full; the two partials merge in log space
-    (combine_partials). Returns (logits_last [B, V], caches).
+    chunk attends itself causally (with the model's window, if any) and,
+    when start > 0, the cached prefix, read in its storage type with the
+    dequantisation folded into the kernel when the cache is quantized; the
+    two partials merge in log space (combine_partials). Returns
+    (logits_last [B, V], caches).
 
-    Over a quantized cache only start = 0 is ported: a later chunk reads
-    the quantized prefix through the forward kernel's quantized form,
-    which does not exist yet."""
+    Without a window the whole prefix [0, start) is visible
+    (causal=False). With one, only keys in (g − W, start) matter to global
+    row g: the cache is sliced to [lo, start), lo = max(0, start − W), and
+    the band is causal + window with kv_offset = start − lo (every prefix
+    column is causally visible; the window cut is the kernel's mask). Rows
+    whose window misses the prefix come back with LSE = NEG_INF and drop
+    out of the combine."""
     cfg = model.cfg
     b, c = tokens.shape
-    if start > 0 and any(cache.quantized for cache in caches):
-        raise NotImplementedError(
-            "prefill_chunk at start > 0 over a quantized cache needs the "
-            "quantized form of the forward kernel (k_scale/v_scale in "
-            "flash_attention_forward), which is not ported yet")
     x = model.embed[tokens].to(cfg.dtype)
     positions = torch.arange(start, start + c, device=x.device)
     for blk, cache in zip(model.layers, caches):
@@ -259,9 +260,14 @@ def prefill_chunk(model: Transformer, tokens: torch.Tensor, start: int,
             qt, kt, vt, causal=True, window=cfg.window,
             out_dtype=torch.float32)
         if start > 0:
+            lo = max(0, start - cfg.window) if cfg.window else 0
+            ks = cache.k_scale[:, :, lo:start] if cache.quantized else None
+            vs = cache.v_scale[:, :, lo:start] if cache.quantized else None
             o_old, lse_old = flash_attention_forward(
-                qt, cache.k[:, :, :start], cache.v[:, :, :start],
-                causal=False, window=cfg.window, out_dtype=torch.float32)
+                qt, cache.k[:, :, lo:start], cache.v[:, :, lo:start],
+                k_scale=ks, v_scale=vs, causal=bool(cfg.window),
+                window=cfg.window, kv_offset=start - lo,
+                out_dtype=torch.float32)
             o_c, _ = combine_partials(o_old, lse_old, o_new, lse_new)
         else:
             o_c = o_new

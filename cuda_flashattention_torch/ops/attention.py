@@ -3,8 +3,9 @@
 Counterpart of cuda_flashattention_tpu/ops/attention.py. The JAX package
 joins forward and backward with `jax.custom_vjp`; here `FlashAttention` is
 a `torch.autograd.Function` whose forward runs `flash_attention_forward`
-(kernel K1 on the card) and whose backward runs `flash_attention_backward`
-(K4, or K2 + K3), so `loss.backward()` goes through the kernels.
+(kernel K1, or K1b / K5 where its `softmax="auto"` routes to the bound
+softmax) and whose backward runs `flash_attention_backward` (K4, or
+K2 + K3), so `loss.backward()` goes through the kernels.
 """
 
 from __future__ import annotations
@@ -59,9 +60,11 @@ def flash_attention(
     [B,H,Nq,d] in q's dtype.
 
     GQA when Hkv divides H; `causal` masks key j for query i when
-    j > i + kv_offset; ragged lengths. Sliding windows, segment ids and
-    explicit block sizes are not ported yet and raise
-    NotImplementedError."""
+    j > i + kv_offset and, with `window` (requires causal), when
+    j <= i + kv_offset − window; `q_segment_ids` [B,Nq] /
+    `kv_segment_ids` [B,Nk] (integer, no gradient) mask pairs of different
+    segments, forward and backward; ragged lengths. Explicit block sizes
+    raise NotImplementedError (the kernels' tiles are fixed)."""
     return FlashAttention.apply(q, k, v, scale, causal, window, kv_offset,
                                 block_sizes, q_segment_ids, kv_segment_ids)
 

@@ -73,9 +73,11 @@ def check_qkv(q, k, v) -> None:
 
 
 def kernel_operand(x):
-    """Tensor x as the attention kernels read it: unit stride on d, 16-byte
-    aligned rows (strides a multiple of 8 elements). Copies only when x is
+    """Tensor x as the attention kernels read it: unit stride on d and
+    16-byte aligned rows (every other stride a multiple of the elements in
+    16 bytes: 8 for bf16, 16 for int8 and fp8). Copies only when x is
     not."""
+    vec = 16 // x.element_size()
     ok = (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
-          and all(s % 8 == 0 for s in x.stride()[:-1]))
+          and all(s % vec == 0 for s in x.stride()[:-1]))
     return x if ok else x.contiguous()

@@ -13,8 +13,9 @@ D = rowsum(dO ⊙ O) is one PyTorch reduction before the kernels, as the
 JAX split path computes it (the JAX fused kernel's in-kernel D is a VMEM
 schedule, not a different result).
 
-Not yet ported (raise NotImplementedError): sliding `window`, segment ids
-and explicit `block_sizes`, as in the forward.
+Masks are the forward's: causal with `kv_offset`, a sliding `window`,
+segment ids and the ragged tail. Explicit `block_sizes` raise
+NotImplementedError (the kernels' tiles are fixed).
 """
 
 from __future__ import annotations
@@ -45,12 +46,16 @@ def flash_attention_backward_plain(
     do: torch.Tensor,
     scale: Optional[float] = None,
     causal: bool = False,
+    window: int = 0,
     kv_offset: int = 0,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Dense PyTorch version of the kernels' arithmetic, on any device.
 
     S from the raw q in fp32 times scale·log2e; P = exp2(S − LSE·log2e),
-    0 where masked or where the row's LSE < NEG_INF/2; dS = P ⊙ (dP − D)
+    0 where masked (causal, window, segment ids) or where the row's
+    LSE < NEG_INF/2; dS = P ⊙ (dP − D)
     ·scale; P rounded to dO's dtype before dV = Pᵀ·dO, dS to q's before
     dK = dSᵀ·Q and to k's before dQ = dS·K, each product accumulated in
     fp32. GQA sums dK/dV over the query heads of a group in fp32."""
@@ -68,6 +73,11 @@ def flash_attention_backward_plain(
         rows = torch.arange(nq, device=q.device)[:, None] + kv_offset
         cols = torch.arange(nk, device=q.device)[None, :]
         dead = dead | (cols > rows)
+        if window:
+            dead = dead | (cols <= rows - window)
+    if q_segment_ids is not None:
+        dead = dead | (q_segment_ids[:, :, None]
+                       != kv_segment_ids[:, None, :])[:, None, None]
     p = torch.where(dead, torch.zeros((), device=q.device),
                     torch.exp2(s - lse * _LOG2E))
     delta = (dof * o.float().reshape(b, h_kv, group, nq, d)).sum(
@@ -81,7 +91,8 @@ def flash_attention_backward_plain(
             dv.to(v.dtype))
 
 
-def _bwd_cuda(q, k, v, o, lse, do, scale, causal, kv_offset, fused):
+def _bwd_cuda(q, k, v, o, lse, do, scale, causal, window, kv_offset, q_seg,
+              kv_seg, fused):
     b, h, nq, d = q.shape
     h_kv, nk = k.shape[1], k.shape[2]
     if d not in KERNEL_HEAD_DIMS:
@@ -91,8 +102,9 @@ def _bwd_cuda(q, k, v, o, lse, do, scale, causal, kv_offset, fused):
         if x.dtype != torch.bfloat16:
             raise NotImplementedError(
                 f"the CUDA backward takes bf16 inputs, got {name} {x.dtype}")
-    for name, x in (("k", k), ("v", v), ("o", o), ("lse", lse), ("do", do)):
-        if x.device != q.device:
+    for name, x in (("k", k), ("v", v), ("o", o), ("lse", lse), ("do", do),
+                    ("q_segment_ids", q_seg), ("kv_segment_ids", kv_seg)):
+        if x is not None and x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
     q, k, v, do = (kernel_operand(x) for x in (q, k, v, do))
     lse = lse.float().contiguous()
@@ -101,10 +113,15 @@ def _bwd_cuda(q, k, v, o, lse, do, scale, causal, kv_offset, fused):
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3])
     dk = torch.empty((b, h_kv, nk, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, h_kv, nk, d), dtype=v.dtype, device=q.device)
+    if q_seg is not None:
+        q_seg = q_seg.to(torch.int32).contiguous()
+        kv_seg = kv_seg.to(torch.int32).contiguous()
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr())
+            lse.data_ptr(), delta.data_ptr(),
+            None if q_seg is None else q_seg.data_ptr(),
+            None if kv_seg is None else kv_seg.data_ptr())
     shape = (b, h, h_kv, nq, nk, d, strides, resolve_scale(scale, d),
-             int(bool(causal)), int(kv_offset))
+             int(bool(causal)), int(window), int(kv_offset))
     launches = flash_attention_backward.launches
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -148,7 +165,10 @@ def flash_attention_backward(
     (natural log, as the forward returns it) → (dQ [B,H,Nq,d],
     dK/dV [B,Hkv,Nk,d]) in the input dtypes.
 
-    GQA: dK/dV sum the query heads of each group in fp32. `fused`: None
+    GQA: dK/dV sum the query heads of each group in fp32. `causal`,
+    `window`, `kv_offset` and the segment ids mask as in the forward; a
+    row that saw no key (LSE = NEG_INF) gives and gets zero gradients.
+    `fused`: None
     and True run the single-pass kernel K4, False the split pair K2 + K3;
     all three give the same gradients. The JAX version picks fused only
     while its full-sequence state fits a TPU VMEM budget
@@ -164,19 +184,29 @@ def flash_attention_backward(
         raise ValueError(f"o {tuple(o.shape)}, do {tuple(do.shape)}, lse "
                          f"{tuple(lse.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    if int(window or 0):
-        raise NotImplementedError("sliding window is not ported yet")
-    if q_segment_ids is not None or kv_segment_ids is not None:
-        raise NotImplementedError("segment ids are not ported yet")
+    window = int(window or 0)
+    if window and not causal:
+        raise ValueError("window requires causal=True")
+    if (q_segment_ids is None) != (kv_segment_ids is None):
+        raise ValueError("q_segment_ids and kv_segment_ids go together")
+    if q_segment_ids is not None and (
+            tuple(q_segment_ids.shape) != (q.shape[0], q.shape[2])
+            or tuple(kv_segment_ids.shape) != (k.shape[0], k.shape[2])):
+        raise ValueError(
+            f"segment ids {tuple(q_segment_ids.shape)} / "
+            f"{tuple(kv_segment_ids.shape)} do not match q "
+            f"{tuple(q.shape)} / k {tuple(k.shape)}")
     if block_sizes is not None:
         raise NotImplementedError("block_sizes: the kernels' tiles are fixed")
     if q.device.type == "cpu":
-        return flash_attention_backward_plain(q, k, v, o, lse, do,
-                                              scale=scale, causal=causal,
-                                              kv_offset=kv_offset)
+        return flash_attention_backward_plain(
+            q, k, v, o, lse, do, scale=scale, causal=causal, window=window,
+            kv_offset=kv_offset, q_segment_ids=q_segment_ids,
+            kv_segment_ids=kv_segment_ids)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    return _bwd_cuda(q, k, v, o, lse, do, scale, causal, kv_offset,
+    return _bwd_cuda(q, k, v, o, lse, do, scale, causal, window, kv_offset,
+                     q_segment_ids, kv_segment_ids,
                      fused is None or bool(fused))
 
 

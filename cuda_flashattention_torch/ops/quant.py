@@ -3,8 +3,10 @@
 Counterpart of cuda_flashattention_tpu/ops/quant.py. Each row of K and V
 (one token of one head) is absmax-quantized over the head dim to int8 or
 `torch.float8_e4m3fn` with one fp32 scale; `"mixed"` stores K as int8 and
-V as fp8. The decode kernels (ops/decode.py, ops/paged.py) read the codes
-and scales as they are and fold the dequantisation into their products:
+V as fp8. The decode kernels (ops/decode.py, ops/paged.py) and the forward
+kernels (ops/flash_fwd.py, through `flash_attention_quantized`) read the
+codes and scales as they are and fold the dequantisation into their
+products:
 
     S = (Q · K_qᵀ) · scale ⊙ k_scaleᵀ
     O += (P ⊙ v_scaleᵀ) · V_q
@@ -14,9 +16,6 @@ e4m3 converts to fp32 exactly, in hardware on the card and by
 package's fp8 bit casts. Accuracy gates, as there: the dequantised round
 trip within 1e-3 of the input at int8 and 1e-2 at fp8 on values in
 [-0.5, 0.5].
-
-`flash_attention_quantized` (the FA2 forward over a quantized pair) is
-not ported yet: the forward kernel does not take `k_scale`/`v_scale`.
 """
 
 from __future__ import annotations
@@ -134,11 +133,14 @@ def flash_attention_quantized(
     block_sizes=None,
     quantize_q: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """FA2 forward over a quantized K/V pair. Not ported yet: it is the
-    forward kernel's quantized form (`k_scale`/`v_scale` in
-    `flash_attention_forward`, csrc/flash_fwd.cu), which does not exist
-    yet."""
-    raise NotImplementedError(
-        "flash_attention_quantized needs the quantized form of the forward "
-        "kernel (k_scale/v_scale in flash_attention_forward), which is not "
-        "ported yet")
+    """FA2 forward over a quantized K/V pair, the dequantisation folded
+    into the kernel's products. An inference path: it has no backward.
+    `quantize_q` also runs Q·Kᵀ on per-head int8 Q (fp8 keys are
+    re-gridded onto int8 in the kernel); see `flash_attention_forward`.
+    Returns (O, LSE) as `flash_attention_forward` does."""
+    from cuda_flashattention_torch.ops.flash_fwd import (
+        flash_attention_forward)
+    return flash_attention_forward(
+        q, kv.k_q, kv.v_q, scale=scale, causal=causal, kv_offset=kv_offset,
+        block_sizes=block_sizes, k_scale=kv.k_scale, v_scale=kv.v_scale,
+        quantize_q=quantize_q)

@@ -5,8 +5,8 @@
 the [B, N, H, d] layout) runs the port's `FlashAttention` function, whose
 backward on CPU tensors is the plain version of the backward kernels;
 the same numpy inputs go through `jax.grad` of the JAX op (Pallas in
-interpret mode). Gate: fp32, max |diff| <= 1e-4 · max |JAX| per output
-and gradient."""
+interpret mode), also under a sliding window and segment ids. Gate: fp32,
+max |diff| <= 1e-4 · max |JAX| per output and gradient."""
 
 import jax
 import jax.numpy as jnp
@@ -62,6 +62,36 @@ def test_flash_attention_grad_matches_jax(b, h, h_kv, nq, nk, d, kw):
             (b, h, nq, d)], seed=nq + nk)
 
 
+def _seg(b, n):
+    ids = np.repeat(np.arange(3), [n // 3, 5, n - n // 3 - 5])
+    return np.stack([np.roll(ids, 2 * i) for i in range(b)]).astype(np.int32)
+
+
+@pytest.mark.parametrize("b,h,h_kv,nq,nk,d,kw,segments", [
+    (1, 4, 2, 48, 48, 32, dict(causal=True, window=12), False),
+    (2, 2, 1, 37, 53, 32, dict(causal=True, window=8, kv_offset=16), False),
+    (1, 2, 2, 24, 40, 16, dict(causal=True, window=8, kv_offset=-4), False),
+    (2, 4, 2, 48, 48, 32, dict(causal=True), True),
+    (1, 4, 1, 40, 40, 16, dict(causal=False), True),
+    (1, 2, 2, 48, 48, 32, dict(causal=True, window=12), True),
+])
+def test_flash_attention_masks_grad_matches_jax(b, h, h_kv, nq, nk, d, kw,
+                                                segments):
+    """Window and segment ids through the differentiable op: ids are
+    integer inputs that take no gradient."""
+    jkw, tkw = dict(kw), dict(kw)
+    if segments:
+        seg = _seg(b, nk)
+        jkw.update(q_segment_ids=jnp.asarray(seg[:, :nq]),
+                   kv_segment_ids=jnp.asarray(seg))
+        tkw.update(q_segment_ids=torch.from_numpy(seg[:, :nq]),
+                   kv_segment_ids=torch.from_numpy(seg))
+    _check(lambda q, k, v: jax_flash_attention(q, k, v, **jkw),
+           lambda q, k, v: flash_attention(q, k, v, **tkw),
+           [(b, h, nq, d), (b, h_kv, nk, d), (b, h_kv, nk, d),
+            (b, h, nq, d)], seed=nq + 2 * nk)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_mha_grad_matches_jax(causal):
     """[B, N, H, d] in and out: the gradients flow back through the
@@ -84,9 +114,13 @@ def test_no_gradient_for_options():
 
 
 def test_unported_options_raise():
+    """Explicit block sizes are the one option not ported; a window
+    without causal and half a pair of segment ids are refused as the JAX
+    op refuses them."""
     q = torch.from_numpy(seeded_random((1, 2, 8, 32), 0))
-    with pytest.raises(NotImplementedError):
-        flash_attention(q, q, q, causal=True, window=4)
-    with pytest.raises(NotImplementedError):
-        flash_attention(q, q, q, q_segment_ids=torch.zeros(1, 8),
-                        kv_segment_ids=torch.zeros(1, 8))
+    with pytest.raises(NotImplementedError, match="block_sizes"):
+        flash_attention(q, q, q, causal=True, block_sizes=object())
+    with pytest.raises(ValueError, match="window requires causal"):
+        flash_attention(q, q, q, window=4)
+    with pytest.raises(ValueError, match="without kv_segment_ids"):
+        flash_attention(q, q, q, q_segment_ids=torch.zeros(1, 8))

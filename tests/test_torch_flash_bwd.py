@@ -5,8 +5,9 @@ forward) go through `cuda_flashattention_tpu`'s `flash_attention_backward`
 (its Pallas kernels in interpret mode on the CPU, with `fused` pinned to
 True and to False) and through `cuda_flashattention_torch`'s, which on
 CPU tensors runs its plain PyTorch version. Gates, per gradient:
-max |diff| <= 1e-4 · max |JAX| in fp32 and 2e-2 · max |JAX| in bf16. The
-backward oracle is held against the JAX oracle at 1e-5."""
+max |diff| <= 1e-4 · max |JAX| in fp32 and 2e-2 · max |JAX| in bf16, with
+and without a sliding window and segment ids. The backward oracle is held
+against the JAX oracle at 1e-5."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +27,7 @@ from cuda_flashattention_tpu.utils.testing import (
     random_qkv as jax_random_qkv,
 )
 from cuda_flashattention_torch.ops.flash_bwd import flash_attention_backward
+from cuda_flashattention_torch.ops.flash_fwd import flash_attention_forward
 from cuda_flashattention_torch.ops.naive import naive_attention_backward
 from cuda_flashattention_torch.utils.testing import (
     assert_close,
@@ -82,6 +84,87 @@ def test_backward_matches_jax(b, h, h_kv, nq, nk, d, causal, kv_offset,
         assert_close(g, w, GATES[dtype] * scale, name)
 
 
+# (b, h, h_kv, nq, nk, d, window, kv_offset, dtype): GQA, ragged, a
+# prefix slice where only the window cuts, rows before the shard, and a
+# window that leaves the last keys unseen and the first rows empty
+WINDOW_CASES = [
+    (1, 4, 2, 64, 64, 32, 16, 0, "float32"),
+    (1, 4, 2, 37, 53, 32, 8, 16, "float32"),
+    (2, 2, 1, 40, 100, 32, 16, 60, "float32"),
+    (1, 2, 2, 24, 40, 32, 8, -4, "float32"),
+    (1, 4, 2, 64, 64, 64, 16, 0, "bfloat16"),
+    (1, 4, 2, 37, 53, 32, 8, 16, "bfloat16"),
+]
+
+
+def _compare_with_jax(q, k, v, do, dtype, fused, kw, jkw=None, tkw=None):
+    """JAX forward + backward, then the port's backward on the JAX O and
+    LSE, per-gradient gate GATES[dtype] · max |JAX|."""
+    jkw, tkw = jkw or {}, tkw or {}
+    jq, jk, jv, jdo = (jnp.asarray(a, JAX_DT[dtype]) for a in (q, k, v, do))
+    o, lse = jax_fwd(jq, jk, jv, **kw, **jkw)
+    want = jax_bwd(jq, jk, jv, o, lse, jdo, fused=fused, **kw, **jkw)
+    tq, tk, tv, tdo, to = (
+        torch.from_numpy(np.array(a, np.float32)).to(TORCH_DT[dtype])
+        for a in (q, k, v, do, o))
+    tlse = torch.from_numpy(np.array(lse, np.float32))
+    got = flash_attention_backward(tq, tk, tv, to, tlse, tdo, fused=fused,
+                                   **kw, **tkw)
+    for g, w, name, shape in zip(got, want, ("dQ", "dK", "dV"),
+                                 (q.shape, k.shape, k.shape)):
+        assert g.dtype == TORCH_DT[dtype] and tuple(g.shape) == shape
+        scale = max_abs(w)
+        assert scale > 0, f"{name}: the JAX gradient is all zero"
+        assert_close(g, w, GATES[dtype] * scale, name)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("b,h,h_kv,nq,nk,d,window,kv_offset,dtype",
+                         WINDOW_CASES)
+def test_backward_window_matches_jax(b, h, h_kv, nq, nk, d, window,
+                                     kv_offset, dtype, fused):
+    q, k, v, do = _inputs(nq * 5 + nk + window, b, h, h_kv, nq, nk, d)
+    _compare_with_jax(q, k, v, do, dtype, fused,
+                      dict(causal=True, window=window, kv_offset=kv_offset))
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("b,h,h_kv,n,d,kw,dtype", [
+    (2, 4, 2, 64, 32, dict(causal=True), "float32"),
+    (1, 4, 1, 50, 32, dict(causal=False), "float32"),
+    (1, 2, 2, 48, 32, dict(causal=True, window=12), "float32"),
+    (1, 4, 2, 64, 64, dict(causal=True), "bfloat16"),
+])
+def test_backward_segments_match_jax(b, h, h_kv, n, d, kw, dtype, fused):
+    q, k, v, do = _inputs(n * 3 + h, b, h, h_kv, n, n, d)
+    seg = np.stack([np.repeat(np.arange(4), [n // 4, 3, n // 2,
+                                             n - n // 4 - 3 - n // 2])
+                    for _ in range(b)]).astype(np.int32)
+    seg[-1] = np.roll(seg[-1], 5)  # a segment that wraps: ids 3 | 0.. | 3
+    _compare_with_jax(
+        q, k, v, do, dtype, fused, kw,
+        jkw=dict(q_segment_ids=jnp.asarray(seg),
+                 kv_segment_ids=jnp.asarray(seg)),
+        tkw=dict(q_segment_ids=torch.from_numpy(seg),
+                 kv_segment_ids=torch.from_numpy(seg)))
+
+
+def test_window_leaves_zero_gradients_where_nothing_is_seen():
+    """window 8 at kv_offset 30 over 40 keys: query row r sees keys
+    (22 + r, 30 + r], so rows 17.. see none (dQ = 0) and keys 0..22 are
+    seen by no row (dK = dV = 0)."""
+    q, k, v, do = (torch.from_numpy(a)
+                   for a in _inputs(4, 1, 2, 2, 24, 40, 32))
+    kw = dict(causal=True, window=8, kv_offset=30)
+    o, lse = flash_attention_forward(q, k, v, **kw)
+    assert torch.all(lse[:, :, 17:] == -1e30)
+    dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do, **kw)
+    assert torch.all(dq[:, :, 17:] == 0) and torch.any(dq[:, :, :17] != 0)
+    assert torch.all(dk[:, :, :23] == 0) and torch.all(dv[:, :, :23] == 0)
+    assert torch.any(dv[:, :, 23:] != 0)
+    assert all(torch.isfinite(g).all() for g in (dq, dk, dv))
+
+
 def test_unseen_keys_and_empty_rows_get_zero_gradients():
     """kv_offset = -8: query rows 0..7 see no key (dQ = 0) and keys past
     Nq - 1 - 8 are seen by no query (dK = dV = 0)."""
@@ -125,13 +208,16 @@ def test_fixtures_match_jax(dtype):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(window=4, causal=True),
-    dict(q_segment_ids=torch.zeros(1, 8), kv_segment_ids=torch.zeros(1, 8)),
-    dict(block_sizes=object()),
+    dict(block_sizes=object()),                  # TPU tiling: not ported
+    dict(window=4),                              # a window needs causal
+    dict(q_segment_ids=torch.zeros(1, 8)),       # without kv_segment_ids
 ])
 def test_unported_options_raise(kw):
+    """Explicit block sizes are the one option not ported; the others are
+    argument combinations that mean nothing."""
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(0, 1, 2, 2, 8, 8, 32))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError if "block_sizes" in kw
+                       else ValueError):
         flash_attention_backward(q, k, v, q, torch.zeros(1, 2, 8), do, **kw)
 
 

@@ -5,7 +5,15 @@ tests/test_generate.py is carried across with `params_from_jax`; prompts
 come from a numpy seed. Prefill logits and cache contents, chunked
 prefill, one decode step and the last logits of `generate` agree within
 1e-4; greedy `generate` tokens are identical. Over an int8 or a mixed
-cache (the latter with `quantize_q`) the last logits agree within 1e-3."""
+cache (the latter with `quantize_q`) the last logits agree within 1e-3.
+Chunked prefill is also held against the JAX `prefill_chunked` over bf16,
+int8, fp8 and mixed caches with and without `cfg.window` (a window shorter
+than a chunk, whose last rows miss the prefix altogether, among them), and
+greedy `generate` with a window gives identical tokens."""
+
+import copy
+import dataclasses
+
 
 import jax
 import jax.numpy as jnp
@@ -66,6 +74,71 @@ def test_chunked_prefill_matches(setup):
                            ttf.init_caches(TCFG, 2, 16, device="cpu"))
     assert torch.max(torch.abs(whole - lt)) <= GATE
     assert all(c.length == 7 for c in ct)
+
+
+@pytest.mark.parametrize("window", [0, 2, 5])
+@pytest.mark.parametrize("qtype", [None, "int8", "fp8", "mixed"])
+def test_chunked_prefill_matches_jax(setup, qtype, window):
+    """A 7-token prompt in chunks of 3: the second and third chunks read
+    the cached prefix through the forward's quantized and windowed forms
+    (window 2 < chunk: a chunk's last row sees no prefix key and drops
+    out of the combine; window 5 cuts the prefix slice at start − 5). The
+    caches end up holding the same codes and scales."""
+    jparams, model, prompt = setup
+    jcfg = dataclasses.replace(JCFG, window=window)
+    wmodel = copy.copy(model)  # the same parameters, another config
+    wmodel.cfg = dataclasses.replace(TCFG, window=window)
+    lj, cj = jtf.prefill_chunked(
+        jparams, jnp.asarray(prompt), jcfg,
+        jtf.init_caches(jcfg, 2, 16, qtype=qtype), chunk=3)
+    lt, ct = ttf.prefill_chunked(
+        wmodel, torch.from_numpy(prompt),
+        ttf.init_caches(wmodel.cfg, 2, 16, qtype=qtype, device="cpu"),
+        chunk=3)
+    assert torch.isfinite(lt).all()
+    assert _diff(lj, lt) <= (GATE if qtype is None else QUANT_GATE)
+    for a, b in zip(cj, ct):
+        assert int(a.length) == b.length == 7
+        if qtype is None:
+            assert _diff(a.k, b.k) <= GATE
+        else:
+            assert _diff(a.k_scale, b.k_scale) <= 1e-6
+            assert _diff(a.v_scale, b.v_scale) <= 1e-6
+    # against the port's own whole-prompt prefill over the same storage
+    whole, _ = ttf.prefill(
+        wmodel, torch.from_numpy(prompt),
+        ttf.init_caches(wmodel.cfg, 2, 16, qtype=qtype, device="cpu"))
+    if qtype is None:
+        assert torch.max(torch.abs(whole - lt)) <= GATE
+    else:
+        # the prefix is read back quantized (0.4% per element at int8, 6%
+        # at e4m3), the whole prompt attends its unquantized K/V
+        d = torch.max(torch.abs(whole - lt)).item()
+        assert 0 < d <= (0.05 if qtype == "int8" else 0.5)
+
+
+@pytest.mark.parametrize("window", [3, 8])
+def test_windowed_prefill_decode_and_generate_match(setup, window):
+    """cfg.window in prefill, decode_one and generate: same logits, and
+    identical greedy tokens; the window changes the logits."""
+    jparams, model, prompt = setup
+    jcfg = dataclasses.replace(JCFG, window=window)
+    wmodel = copy.copy(model)  # the same parameters, another config
+    wmodel.cfg = dataclasses.replace(TCFG, window=window)
+    lj, _ = jtf.prefill(jparams, jnp.asarray(prompt), jcfg,
+                        jtf.init_caches(jcfg, 2, 16))
+    lt, _ = ttf.prefill(wmodel, torch.from_numpy(prompt),
+                        ttf.init_caches(wmodel.cfg, 2, 16, device="cpu"))
+    assert _diff(lj, lt) <= GATE
+    if window < prompt.shape[1]:
+        full, _ = ttf.prefill(model, torch.from_numpy(prompt),
+                              ttf.init_caches(TCFG, 2, 16, device="cpu"))
+        assert torch.max(torch.abs(full - lt)) > 1e-3
+    out_j, lj = jgen.generate(jparams, jnp.asarray(prompt), jcfg,
+                              max_new_tokens=6)
+    out_t, lt = tgen.generate(wmodel, torch.from_numpy(prompt), 6)
+    np.testing.assert_array_equal(np.asarray(out_j), out_t.numpy())
+    assert _diff(lj, lt) <= GATE
 
 
 def test_decode_one_matches(setup):

@@ -5,8 +5,10 @@ imports no JAX, so on a machine without it they run with
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Gates (bf16 inputs): 5e-3 on O and LSE of the forward, the decode (every
-storage type, window and `quantize_q` form), the paged decode and FA1;
+Gates (bf16 inputs): 5e-3 on O and LSE of the forward (every softmax
+form, mask, storage type and `quantize_q`; on peaked inputs O is also held
+to 2e-2 of the plain version's largest |O|), the decode (every storage
+type, window and `quantize_q` form), the paged decode and FA1;
 for the backward, per gradient, max |diff| <= 2e-2 · max |plain| (an
 absolute gate near the gradients' own size would pass all-zero dK)."""
 
@@ -75,7 +77,8 @@ def test_forward_kernel(dev, b, h, h_kv, nq, nk, d, causal, kv_offset,
     gen = torch.Generator(device=dev).manual_seed(nq + nk)
     q = _rand(gen, dev, b, h, nq, d)
     k, v = _rand(gen, dev, b, h_kv, nk, d), _rand(gen, dev, b, h_kv, nk, d)
-    kw = dict(causal=causal, kv_offset=kv_offset, out_dtype=out_dtype)
+    kw = dict(causal=causal, kv_offset=kv_offset, out_dtype=out_dtype,
+              softmax="online")
     before = flash_attention_forward.launches
     o, lse = flash_attention_forward(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -453,3 +456,259 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         flash_attention_backward(q32, q32, q32, q32, lse, q32)
     with pytest.raises(ValueError, match="d in"):
         flash_attention_backward(q, q, q, q, lse, q)
+
+
+# ---------------------------------------------------------------------------
+# The forward's other forms: masks, quantized K/V, bound softmax (K1b), the
+# K-major walk (K5), quantize_q; the backward's masks
+# ---------------------------------------------------------------------------
+
+REL_GATE = 2e-2
+
+
+def _fwd_inputs(dev, b, h, h_kv, nq, nk, d, qtype, seed):
+    """Peaked Q (x8) and K (x4), so that |O| stays well above the gate
+    over hundreds of keys; K/V quantized to `qtype` (None: bf16)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = (_rand(gen, dev, b, h, nq, d).float() * 8).to(torch.bfloat16)
+    k = (_rand(gen, dev, b, h_kv, nk, d).float() * 4).to(torch.bfloat16)
+    v = _rand(gen, dev, b, h_kv, nk, d)
+    if qtype is None:
+        return (q, k, v), {}
+    kv = quantize_kv(k, v, qtype)
+    return (q, kv.k_q, kv.v_q), dict(k_scale=kv.k_scale, v_scale=kv.v_scale)
+
+
+def _form_counts():
+    return dict(flash_attention_forward.form_launches)
+
+
+def _assert_fwd_close(got, want):
+    (o, lse), (o_p, lse_p) = got, want
+    ref = o_p.float().abs().max().item()
+    assert ref > 0, "the plain O is all zero"
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    assert _err(o, o_p) <= min(GATE, REL_GATE * ref)
+    assert _err(lse, lse_p) <= GATE
+
+
+@pytest.mark.parametrize("qtype", [None, "int8", "fp8", "mixed"])
+@pytest.mark.parametrize("b,h,h_kv,nq,nk,d,kw", [
+    (2, 8, 2, 300, 300, 128, dict(causal=True, window=100)),
+    (1, 4, 2, 130, 500, 64, dict(causal=True, window=70, kv_offset=370)),
+    (1, 4, 4, 200, 200, 128, dict(causal=True, window=64, kv_offset=-70)),
+    (2, 8, 2, 128, 384, 128, dict(causal=False)),
+    (1, 4, 2, 100, 257, 64, dict(causal=True, kv_offset=157)),
+])
+def test_forward_online_masks_and_storage(dev, qtype, b, h, h_kv, nq, nk, d,
+                                          kw):
+    args, scales = _fwd_inputs(dev, b, h, h_kv, nq, nk, d, qtype, nq + nk)
+    kw = dict(kw, softmax="online", out_dtype=torch.float32, **scales)
+    _nan_fill_allocator(dev)
+    before = _form_counts()
+    got = flash_attention_forward(*args, **kw)
+    torch.cuda.synchronize()
+    after = _form_counts()
+    assert after["online"] == before["online"] + 1
+    assert {n: after[n] - before[n] for n in after if n != "online"} == {
+        "bound": 0, "kmajor": 0, "fallback": 0}
+    _assert_fwd_close(got, flash_attention_forward_plain(*args, **kw))
+
+
+def _segments(dev, b, n, lengths):
+    ids = torch.repeat_interleave(
+        torch.arange(len(lengths), device=dev),
+        torch.tensor(lengths, device=dev))[:n]
+    return ids[None].expand(b, n).contiguous()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_forward_and_backward_segments(dev, causal):
+    b, h, h_kv, n, d = 2, 8, 2, 300, 128
+    (q, k, v), _ = _fwd_inputs(dev, b, h, h_kv, n, n, d, None, 11)
+    seg = _segments(dev, b, n, [70, 1, 129, 100])
+    kw = dict(causal=causal, q_segment_ids=seg, kv_segment_ids=seg)
+    got = flash_attention_forward(q, k, v, **kw)
+    _assert_fwd_close(got, flash_attention_forward_plain(q, k, v, **kw))
+    o, lse = got
+    gen = torch.Generator(device=dev).manual_seed(2)
+    do = _rand(gen, dev, b, h, n, d)
+    want = flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
+    for fused in (True, False):
+        grads = flash_attention_backward(q, k, v, o, lse, do, fused=fused,
+                                         **kw)
+        for g, w, name in zip(grads, want, ("dQ", "dK", "dV")):
+            _assert_rel(g, w, f"{name} fused={fused}")
+
+
+def test_forward_segments_leave_empty_rows(dev):
+    """A query segment that no key carries: O = 0, LSE = NEG_INF."""
+    (q, k, v), _ = _fwd_inputs(dev, 1, 4, 2, 100, 100, 64, None, 3)
+    qseg = _segments(dev, 1, 100, [40, 60])
+    kseg = torch.zeros_like(qseg)
+    o, lse = flash_attention_forward(q, k, v, q_segment_ids=qseg,
+                                     kv_segment_ids=kseg)
+    torch.cuda.synchronize()
+    assert torch.all(o[:, :, 40:] == 0) and torch.all(lse[:, :, 40:] == -1e30)
+    _assert_fwd_close((o, lse), flash_attention_forward_plain(
+        q, k, v, q_segment_ids=qseg, kv_segment_ids=kseg))
+
+
+# what each (storage, mask) routes to under a pinned bound softmax
+@pytest.mark.parametrize("softmax", ["bound", "bound_unchecked"])
+@pytest.mark.parametrize("qtype,quantize_q", [
+    (None, False), ("int8", False), ("fp8", False), ("mixed", False),
+    ("int8", True), ("fp8", True), ("mixed", True)])
+@pytest.mark.parametrize("b,h,h_kv,nq,nk,d,kw", [
+    (2, 8, 2, 128, 384, 128, dict(causal=False)),
+    (1, 4, 2, 100, 257, 64, dict(causal=False)),
+    (2, 8, 2, 300, 300, 128, dict(causal=True)),
+    (1, 8, 2, 130, 500, 128, dict(causal=True, window=70, kv_offset=370)),
+    (1, 4, 4, 200, 200, 64, dict(causal=True, window=64, kv_offset=-70)),
+    (1, 4, 2, 100, 257, 128, dict(causal=True, kv_offset=157)),
+])
+def test_forward_bound_forms(dev, softmax, qtype, quantize_q, b, h, h_kv, nq,
+                             nk, d, kw):
+    args, scales = _fwd_inputs(dev, b, h, h_kv, nq, nk, d, qtype, nq + nk)
+    kw = dict(kw, softmax=softmax, quantize_q=quantize_q,
+              out_dtype=torch.float32, **scales)
+    _nan_fill_allocator(dev)
+    before = _form_counts()
+    got = flash_attention_forward(*args, **kw)
+    torch.cuda.synchronize()
+    after = _form_counts()
+    kmajor = kw["causal"] or qtype == "fp8"
+    checked = softmax == "bound" and not quantize_q
+    assert {n: after[n] - before[n] for n in after} == {
+        "online": 0, "bound": int(not kmajor), "kmajor": int(kmajor),
+        "fallback": int(checked)}
+    _assert_fwd_close(got, flash_attention_forward_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("qtype,quantize_q", [
+    (None, False), ("int8", False), ("mixed", False), ("int8", True)])
+def test_kmajor_matches_qmajor(dev, qtype, quantize_q):
+    """K5 and K1b compute one function: a causal call whose kv_offset makes
+    every key visible (K-major) against the non-causal call (Q-major)."""
+    b, h, h_kv, nq, nk, d = 2, 8, 2, 128, 384, 128
+    args, scales = _fwd_inputs(dev, b, h, h_kv, nq, nk, d, qtype, 5)
+    kw = dict(softmax="bound_unchecked", quantize_q=quantize_q,
+              out_dtype=torch.float32, **scales)
+    before = _form_counts()
+    o_q, lse_q = flash_attention_forward(*args, causal=False, **kw)
+    o_k, lse_k = flash_attention_forward(*args, causal=True, kv_offset=nk,
+                                         **kw)
+    torch.cuda.synchronize()
+    after = _form_counts()
+    assert (after["bound"], after["kmajor"]) == (before["bound"] + 1,
+                                                 before["kmajor"] + 1)
+    # the same products and roundings; only fp32 summation order differs
+    assert _err(o_k, o_q) <= 1e-4 and _err(lse_k, lse_q) <= 1e-4
+
+
+def _loose_inputs(dev):
+    """Anti-aligned Q and K of large norm: every score sits ~2·10³ log2
+    units under the Cauchy–Schwarz bound, so the bound softmax underflows
+    to l = 0 in every row."""
+    b, h, n, d = 1, 2, 128, 64
+    gen = torch.Generator(device=dev).manual_seed(0)
+    u = torch.ones(d, device=dev) / d ** 0.5
+    noise = (torch.rand((b, h, n, d), generator=gen, device=dev) - 0.5) * 0.1
+    q = (40.0 * u + noise).to(torch.bfloat16)
+    k = (-40.0 * u + noise.flip(2)).to(torch.bfloat16)
+    v = _rand(gen, dev, b, h, n, d)
+    return q, k, v
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_loose_bound_falls_back_to_online(dev, causal):
+    q, k, v = _loose_inputs(dev)
+    kw = dict(causal=causal, out_dtype=torch.float32)
+    o_on, lse_on = flash_attention_forward(q, k, v, softmax="online", **kw)
+    before = _form_counts()
+    o_b, lse_b = flash_attention_forward(q, k, v, softmax="bound", **kw)
+    o_u, lse_u = flash_attention_forward(q, k, v, softmax="bound_unchecked",
+                                         **kw)
+    torch.cuda.synchronize()
+    after = _form_counts()
+    assert after["fallback"] == before["fallback"] + 1
+    # the guarded online kernel ran and overwrote the bound result
+    assert torch.equal(o_b, o_on) and torch.equal(lse_b, lse_on)
+    # unchecked: the rows underflowed (O = 0, LSE = NEG_INF)
+    assert torch.all(lse_u == -1e30) and torch.all(o_u == 0)
+    assert lse_on.abs().max().item() < 1e5
+    o_p, lse_p = flash_attention_forward_plain(q, k, v, softmax="bound", **kw)
+    assert _err(o_b, o_p) <= GATE
+    assert _err(lse_b, lse_p) <= 2e-3 * lse_p.abs().max().item()
+
+
+def test_tight_bound_leaves_the_bound_result(dev):
+    """With a tight bound the guarded online launch exits at once: the
+    checked and the unchecked calls give the same bits (Q-major)."""
+    args, _ = _fwd_inputs(dev, 2, 8, 2, 128, 384, 128, None, 9)
+    kw = dict(causal=False, out_dtype=torch.float32)
+    o_b, lse_b = flash_attention_forward(*args, softmax="bound", **kw)
+    o_u, lse_u = flash_attention_forward(*args, softmax="bound_unchecked",
+                                         **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o_b, o_u) and torch.equal(lse_b, lse_u)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("b,h,h_kv,nq,nk,d,window,kv_offset", [
+    (1, 16, 16, 1024, 1024, 128, 256, 0),
+    (2, 8, 2, 300, 300, 128, 100, 0),
+    (1, 4, 2, 130, 500, 64, 70, 370),
+    (1, 4, 4, 200, 200, 64, 64, -70),
+])
+def test_backward_kernels_window(dev, b, h, h_kv, nq, nk, d, window,
+                                 kv_offset, fused):
+    gen = torch.Generator(device=dev).manual_seed(nq + nk)
+    q, do = _rand(gen, dev, b, h, nq, d), _rand(gen, dev, b, h, nq, d)
+    k, v = _rand(gen, dev, b, h_kv, nk, d), _rand(gen, dev, b, h_kv, nk, d)
+    kw = dict(causal=True, window=window, kv_offset=kv_offset)
+    o, lse = flash_attention_forward(q, k, v, **kw)
+    _nan_fill_allocator(dev)
+    got = flash_attention_backward(q, k, v, o, lse, do, fused=fused, **kw)
+    torch.cuda.synchronize()
+    want = flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
+    for g, w, name in zip(got, want, ("dQ", "dK", "dV")):
+        assert torch.isfinite(g.float()).all()
+        _assert_rel(g, w, name)
+
+
+def test_autograd_window_and_segments(dev):
+    """flash_attention under a window and segment ids: K1 + K4 once each,
+    gradients as the plain backward's."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q = _rand(gen, dev, 2, 300, 8, 128).transpose(1, 2).requires_grad_(True)
+    k = _rand(gen, dev, 2, 300, 2, 128).transpose(1, 2).requires_grad_(True)
+    v = _rand(gen, dev, 2, 300, 2, 128).transpose(1, 2).requires_grad_(True)
+    do = _rand(gen, dev, 2, 300, 8, 128).transpose(1, 2)
+    seg = _segments(dev, 2, 300, [120, 180])
+    kw = dict(causal=True, window=90, q_segment_ids=seg, kv_segment_ids=seg)
+    fwd0, bwd0 = _form_counts(), flash_attention_backward.launches["fused"]
+    o = flash_attention(q, k, v, **kw)
+    grads = torch.autograd.grad(o, (q, k, v), grad_outputs=do)
+    torch.cuda.synchronize()
+    assert _form_counts()["online"] == fwd0["online"] + 1
+    assert flash_attention_backward.launches["fused"] == bwd0 + 1
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    _, lse = flash_attention_forward_plain(qd, kd, vd, **kw)
+    want = flash_attention_backward_plain(qd, kd, vd, o.detach(), lse, do,
+                                          **kw)
+    for g, w, name in zip(grads, want, ("dQ", "dK", "dV")):
+        _assert_rel(g, w, name)
+
+
+def test_forward_refuses_what_it_does_not_take(dev):
+    q = torch.zeros(1, 2, 8, 64, device=dev, dtype=torch.bfloat16)
+    k8 = torch.zeros(1, 2, 8, 64, device=dev, dtype=torch.int8)
+    sc = torch.ones(1, 2, 8, device=dev)
+    with pytest.raises(NotImplementedError, match="stored as"):  # fp8 K
+        flash_attention_forward(q, k8.to(torch.float8_e4m3fn), k8,
+                                k_scale=sc, v_scale=sc)
+    with pytest.raises(ValueError, match="need k_scale"):
+        flash_attention_forward(q, k8, k8)
+    with pytest.raises(NotImplementedError, match="block_sizes"):
+        flash_attention_forward(q, q, q, block_sizes=object())

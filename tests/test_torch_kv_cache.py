@@ -154,8 +154,8 @@ def test_init_cache_rejects_unknown_qtype():
 
 
 def test_quantized_cache_not_ported():
-    """What is still not ported over a quantized cache: reading it back
-    in a later prefill chunk (the forward kernel's quantized form)."""
+    """Nothing over a quantized cache is left unported: a later prefill
+    chunk reads it back through the forward's quantized form."""
     from cuda_flashattention_torch.models import transformer as ttf
     cfg = ttf.TransformerConfig(vocab_size=31, d_model=32, n_layers=1,
                                 n_heads=2, n_kv_heads=1, d_head=16, d_ff=64,
@@ -165,5 +165,9 @@ def test_quantized_cache_not_ported():
     tokens = torch.arange(4, dtype=torch.int32)[None]
     ttf.prefill_chunk(model, tokens[:, :2], 0, caches)  # start 0 is ported
     assert caches[0].length == 2 and caches[0].quantized
-    with pytest.raises(NotImplementedError, match="forward kernel"):
-        ttf.prefill_chunk(model, tokens[:, 2:], 2, caches)
+    logits, caches = ttf.prefill_chunk(model, tokens[:, 2:], 2, caches)
+    assert caches[0].length == 4 and torch.isfinite(logits).all()
+    whole, _ = ttf.prefill(model, tokens,
+                           ttf.init_caches(cfg, 1, 8, device="cpu"))
+    # int8 prefix against the unquantized whole prompt: close, not equal
+    assert 0 < torch.max(torch.abs(logits - whole)).item() < 5e-2

@@ -128,6 +128,37 @@ def test_quantize_q_per_head_matches_jax(shape, axes):
 
 
 def test_flash_attention_quantized_names_what_it_waits_for():
+    """It waits for nothing any more: it is the forward over the pair's
+    codes and scales, and only explicit block sizes are refused."""
     kv = tq.quantize_kv(torch.zeros(1, 1, 4, 8), torch.zeros(1, 1, 4, 8))
-    with pytest.raises(NotImplementedError, match="forward kernel"):
-        tq.flash_attention_quantized(torch.zeros(1, 1, 4, 8), kv)
+    o, lse = tq.flash_attention_quantized(torch.zeros(1, 1, 4, 8), kv)
+    assert tuple(o.shape) == (1, 1, 4, 8) and torch.all(o == 0)
+    assert torch.allclose(lse, torch.full((1, 1, 4), float(np.log(4.0))))
+    with pytest.raises(NotImplementedError, match="block_sizes"):
+        tq.flash_attention_quantized(torch.zeros(1, 1, 4, 8), kv,
+                                     block_sizes=object())
+
+
+@pytest.mark.parametrize("quantize_q", [False, True])
+@pytest.mark.parametrize("qtype", ["int8", "fp8", "mixed"])
+@pytest.mark.parametrize("kw", [dict(), dict(causal=True),
+                                dict(causal=True, kv_offset=30)])
+def test_flash_attention_quantized_matches_jax(qtype, kw, quantize_q):
+    """`flash_attention_quantized` on both sides with its default
+    "auto" softmax, which is the bound strategy over a quantized pair on
+    either side. bf16 Q (so that fp8 keys take the K-major form and, under
+    quantize_q, the int8 re-grid), GQA 4 over 2, ragged; gate 5e-3."""
+    q = _data(21, (1, 4, 40, 32), -1.0, 1.0)
+    k = _data(22, (1, 2, 70, 32), -1.0, 1.0)
+    v = _data(23, (1, 2, 70, 32), -1.0, 1.0)
+    jkv = jq.quantize_kv(jnp.asarray(k), jnp.asarray(v), qtype)
+    tkv = tq.quantize_kv(torch.from_numpy(k), torch.from_numpy(v), qtype)
+    o_j, lse_j = jq.flash_attention_quantized(
+        jnp.asarray(q, jnp.bfloat16), jkv, quantize_q=quantize_q, **kw)
+    o_t, lse_t = tq.flash_attention_quantized(
+        torch.from_numpy(q).to(torch.bfloat16), tkv, quantize_q=quantize_q,
+        **kw)
+    assert o_t.dtype == torch.bfloat16 and lse_t.dtype == torch.float32
+    assert np.max(np.abs(np.asarray(o_j, np.float32)
+                         - o_t.float().numpy())) <= 5e-3
+    assert np.max(np.abs(np.asarray(lse_j) - lse_t.numpy())) <= 5e-3

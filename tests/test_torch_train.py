@@ -6,7 +6,10 @@ tokens come from a numpy seed. `forward` logits, `loss_fn` and every
 parameter's gradient are held against `jax.value_and_grad(loss_fn)`, and
 the parameters after one SGD(1e-2) step against the JAX
 `make_train_step(cfg, optax.sgd(1e-2))`. Gates: 1e-5 on the loss,
-1e-4 · max |JAX| on logits, each gradient and each updated parameter."""
+1e-4 · max |JAX| on logits, each gradient and each updated parameter. The
+same with `cfg.window` set (the sliding-window model)."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -86,6 +89,46 @@ def test_sgd_step_matches(setup):
     loss_t = step_t(torch.from_numpy(tokens))
     assert not loss_t.requires_grad
     assert abs(loss_t.item() - float(loss_j)) <= LOSS_GATE
+    _assert_trees_close(params_to_jax(model),
+                        jax.tree_util.tree_map(np.asarray, new_j), "param")
+
+
+@pytest.mark.parametrize("window", [5, 16])
+def test_windowed_training_matches(setup, window):
+    """The sliding-window model: forward logits, loss, every gradient and
+    one SGD(1e-2) step against the JAX package's, and the window is really
+    in the path (the logits differ from the full-causal model's)."""
+    jparams, tokens = setup
+    jcfg = dataclasses.replace(JCFG, window=window)
+    tcfg = dataclasses.replace(TCFG, window=window)
+
+    def wmodel():
+        return params_from_jax(
+            jax.tree_util.tree_map(np.asarray, jparams), tcfg)
+
+    tok = torch.from_numpy(tokens)
+    want = jtf.forward(jparams, jnp.asarray(tokens), jcfg)
+    with torch.no_grad():
+        got = ttf.forward(wmodel(), tok)
+        full = ttf.forward(_model(jparams), tok)
+    assert_close(got, want, GATE * max_abs(want), "logits")
+    assert torch.max(torch.abs(got - full)) > 1e-3
+
+    loss_j, grads_j = jax.value_and_grad(jtf.loss_fn)(
+        jparams, jnp.asarray(tokens), jcfg)
+    model = wmodel()
+    loss_t = ttf.loss_fn(model, tok)
+    loss_t.backward()
+    assert abs(loss_t.item() - float(loss_j)) <= LOSS_GATE
+    _assert_trees_close(params_to_jax(model, grads=True),
+                        jax.tree_util.tree_map(np.asarray, grads_j), "grad")
+
+    opt = optax.sgd(1e-2)
+    new_j, _, _ = jtf.make_train_step(jcfg, opt, donate=False)(
+        jparams, opt.init(jparams), jnp.asarray(tokens))
+    model = wmodel()
+    ttf.make_train_step(
+        model, torch.optim.SGD(model.parameters(), lr=1e-2))(tok)
     _assert_trees_close(params_to_jax(model),
                         jax.tree_util.tree_map(np.asarray, new_j), "param")
 
