@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving, chunked-serving, paged-serving
-and training paths on one NVIDIA card.
+"""Smoke run of the PyTorch port's serving, chunked-serving, paged-serving,
+training and distributed paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -103,12 +103,64 @@ Phases, each of which raises on failure (so the script exits non-zero):
    timed steps on the same batch: K1 and K4 once per layer and step, loss
    and gradients against the plain attention functions at the same gates.
    Ten Adam(1e-3) steps on a fresh model must lower the loss.
+9. The distributed layer. The ranks of every mesh share card 0 (a mesh's
+   entries may repeat), each rank with its own compute and copy stream;
+   with two or more cards visible, phases 9 and 14 run once more over
+   distinct cards, and the output says which. First the kernels of one
+   ring step against their plain versions at the step's own shapes (one
+   [1, 16, L, 128] query shard over one K/V block, fp32 O, `softmax=
+   "auto"`; K4 against the LSE of a two-block context): a full block with
+   Hkv = 16 and 4, the block one hop behind under window 4096 (causal,
+   kv_offset 4096), and the padded last block of the ragged case under
+   its segment ids. Then ring attention alone, 4 ranks, B=1, H=16, d=128,
+   bf16, so that every ring step is K1's and K4's 4096 x 4096 shape:
+   causal at N=16384, non-causal at N=15998 (ragged: padded to shards of
+   4000, the tail under segment ids), GQA (Hkv=4), and causal with window
+   4096 (the ring must end after 2 steps). O against `flash_attention` on
+   the whole sequence (min(5e-3, 2e-2 · max |ref|)), dQ, dK, dV of a
+   seeded dO against the same (2e-2 · max |ref|); forward launches (by
+   form: a full step goes where `softmax="auto"` routes a non-causal
+   4096-row call) and K4 launches must be 10, 16, 10 and 7; forward and
+   forward + backward times against the one-rank call; from
+   torch.profiler, the share of the copy streams' time that lies under a
+   K1 / K1b / K4 kernel.
+10. Ulysses on the same causal case: against one rank and against the
+   ring (5e-3), forward and gradients; 4 forward and 4 K4 launches.
+11. Ring decode: B=8, H=16, Hkv=4, a 16384-token cache over 4 ranks
+   (resident shards), lengths in 12000-16384, bf16 and int8 caches, with
+   and without window 4096: O and LSE against `decode_attention` on the
+   whole cache (5e-3; the int8 cache's fp32 LSE 1e-3 against the same int8
+   cache unsharded, its bf16 O 5e-3: one bf16 ulp at |O| 0.3 is 1.95e-3)
+   and against `decode_attention_plain` on the whole cache, and K6 on each
+   rank's 4096-token shard, under the live lengths and windows the ring
+   derives for it, against `decode_attention_plain`; K6 launches 4 per
+   call; both timed on a cold L2.
+12. Main path of the distributed layer: the 271M training config takes
+   `make_train_step(model, SGD(1e-4), mesh=<4 ranks>, seq_axis="sp")`
+   steps on one seeded batch of B=1 x T=16384: 3 timed steps (ms,
+   tokens/s, peak memory) must launch the forward and K4 4 layers x 10
+   times per step and K2, K3 never; one step's loss and every gradient
+   against the same model without a mesh at T=16384 (2e-2, 5e-2 relative
+   L2).
+13. GPipe: `pipeline_forward` of the same config at B=4 x T=2048, 2 stages
+   x 2 layers, 4 microbatches: logits against `forward` (0.125).
+14. K9, the device-initiated ring. Its path is the example stage
+   `cuda_flashattention_torch.examples.device_ring` (both rings within
+   1e-2 of the reference, `Test PASSED!`). Then K9 against
+   `ring_matmul_plain` and against tile((sum x_i) @ W) in fp32 (gates 1e-2
+   and 2e-2 · max |ref|, which must be > 0) at n in {1, 2, 4, 8} ranks, at
+   the example's shape (L=1024, d=128) and at L=8192 (a 2 MiB shard), 20
+   timed iterations each of the wrapper, the kernel alone (torch.profiler),
+   the plain ring and one `torch.einsum` over the shards; the time per
+   hop; 50 repeats at n=8 must equal the first call bit for bit.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; a kernel's `launches` in the JSON line is its sum over
 those runs (the three `generate()` runs, the four chunked-serving runs,
 the paged lifecycle, the two FA1 calls, the timed training steps of both
-models, the split-backward step). Launches made to compare a kernel with
+models, the split-backward step, the ring-attention cases, Ulysses, the
+ring-decode calls, the sequence-parallel train steps, the pipelined
+forward, the device-ring stage). Launches made to compare a kernel with
 its plain version or to time it are not in it, nor are K1's guarded
 fallback launches behind a checked bound call, which exit at once.
 
@@ -139,6 +191,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from unittest import mock
 
 GATE = 5e-3  # bf16 kernel vs its plain version, on O and LSE
@@ -227,10 +280,30 @@ def _kernel_of(name: str) -> str:
                            (r"flash_fwd_kmajor", "K5"),
                            (r"flash_fwd_kernel<\d+, [12],", "K1b"),
                            (r"flash_fwd_kernel", "K1"),
-                           (r"::decode_kernel<", "K6")):
+                           (r"::decode_kernel<", "K6"),
+                           (r"device_ring_kernel", "K9")):
         if re.search(pattern, name):
             return label
     return ""
+
+
+def _device_ms_by_kernel(fn, labels, iters, attempts=3) -> dict:
+    """Mean device ms per recorded launch of each package kernel in
+    `labels` over `iters` calls of fn() (torch.profiler). The profiler now
+    and then loses the launches of a window: such a window is profiled
+    again, up to `attempts` times; a kernel still missing reads NaN."""
+    from cuda_flashattention_torch.utils.profiling import kernel_times
+    out = {}
+    for _ in range(attempts):
+        prof = kernel_times(fn, iters=iters)
+        for label in labels:
+            names = [n for n in prof.ms if _kernel_of(n) == label]
+            count = sum(prof.count[n] for n in names)
+            out[label] = (sum(prof.ms[n] for n in names) / count if count
+                          else float("nan"))
+        if all(math.isfinite(t) for t in out.values()):
+            break
+    return out
 
 
 def _group_of(name: str) -> str:
@@ -241,6 +314,575 @@ def _group_of(name: str) -> str:
     if re.search(r"gemm|nvjet|cutlass|xmma|cublas", name, re.I):
         return "cuBLAS GEMM"
     return "elementwise/reduction/copy"
+
+
+# ---------------------------------------------------------------------------
+# The distributed layer (phases 9-14). Each function takes `ctx`, the
+# helpers and records that main() shares with them (mk, diff, o_close,
+# zero_counts, rec, launches, the card's name), and raises on failure.
+# ---------------------------------------------------------------------------
+
+# ring attention, ring decode and Ulysses alone: one long sequence over 4
+# ranks, so that every ring step is the 4096 x 4096 shape of K1 and K4
+RING_RANKS, RING_N, RING_H, RING_WINDOW = 4, 16384, 16, 4096
+# padded to shards of 4000, whose tail carries segment ids
+RING_RAGGED_N = 15998
+DECODE_B, DECODE_LEN_LO = 8, 12000
+# sequence-parallel training: the training config over a 16384-token batch
+SP_T, SP_STEPS = 16384, 3
+# GPipe: 2 stages x 2 layers, 4 microbatches
+PP_B, PP_T, PP_MICRO = 4, 2048, 4
+# K9: the example's shape and one whose shard is 2 MiB
+K9_RANKS, K9_SHAPES, K9_ITERS, K9_REPEATS = (1, 2, 4, 8), (1024, 8192), 20, 50
+K9_GATE = 1e-2  # the example's gate, beside REL_GATE x max |ref|
+
+
+def _forward_launches(ctx, add=True) -> int:
+    """Forward kernel launches since the counts were zeroed, without the
+    guarded fallback launches (which exit at once); adds them to the
+    run's per-kernel sums."""
+    f = ctx.fwd_forms
+    if add:
+        ctx.launches["K1"] += f["online"]
+        ctx.launches["K1b"] += f["bound"]
+        ctx.launches["K5"] += f["kmajor"]
+    return f["online"] + f["bound"] + f["kmajor"]
+
+
+def _grads_close(ctx, grads, grads_ref, what):
+    """Each gradient within BWD_GATE x max |reference|, which must be > 0."""
+    line = []
+    for name, g, w in zip(("dQ", "dK", "dV"), grads, grads_ref):
+        e, ref = ctx.diff(g, w), w.float().abs().max().item()
+        line.append(f"{name} {e:.3e}/{ref:.3e}")
+        _check(ref > 0 and e <= BWD_GATE * ref
+               and bool(ctx.torch.isfinite(g).all()),
+               f"{what} {name}: max|diff| {e:.3e}, max|ref| {ref:.3e}")
+    return ", ".join(line)
+
+
+def _shared_card_mesh(ctx, n, axis="sp"):
+    from cuda_flashattention_torch.parallel.mesh import make_mesh
+    return make_mesh((n,), (axis,), [ctx.dev] * n)
+
+
+def _phase_ring_steps(ctx, n_ranks):
+    """K1 / K1b / K5 and K4 against their plain versions at the shapes one
+    ring step gives them: a [1, H, L, d] query shard over one [1, Hkv, L, d]
+    K/V block, fp32 O, `softmax="auto"`; the backward against the LSE of a
+    context of two blocks, as a ring step gets the global LSE. The phases
+    after this one hold the ring against `flash_attention`, which is these
+    same kernels on the whole sequence."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.ops.flash_bwd import (
+        flash_attention_backward, flash_attention_backward_plain)
+    from cuda_flashattention_torch.ops.flash_fwd import (
+        flash_attention_forward, flash_attention_forward_plain)
+
+    full = RING_N // n_ranks
+    ragged = -(-RING_RAGGED_N // n_ranks)
+    tail = n_ranks * ragged - RING_RAGGED_N
+    assert 0 < tail < ragged
+    form_kernel = dict(online="K1", bound="K1b", kmajor="K5")
+
+    def segs(length, pad, value, blocks=1):
+        """Segment ids of `blocks` shards, the last one ending in `pad`
+        rows of `value` (the ring's mark of the padded tail)."""
+        ids = torch.zeros(1, blocks * length, dtype=torch.int32,
+                          device=ctx.dev)
+        if pad:
+            ids[:, -pad:] = value
+        return ids
+
+    # (name, L, Hkv, the step's mask options, (q ids, k ids) of the step
+    # and of the two-block context)
+    cases = [
+        ("full block", full, RING_H, dict(causal=False), None),
+        ("full block, GQA", full, 4, dict(causal=False), None),
+        (f"block one hop behind, window {RING_WINDOW}", full, RING_H,
+         dict(causal=True, window=RING_WINDOW, kv_offset=full), None),
+        (f"last block with {tail} pad keys, segment ids", ragged, RING_H,
+         dict(causal=False), (0, tail)),
+        (f"last block and {tail} pad queries, segment ids", ragged, RING_H,
+         dict(causal=False), (tail, tail)),
+    ]
+    for name, length, hkv, opts, pads in cases:
+        q, do = (ctx.mk(1, RING_H, length, 128) for _ in range(2))
+        # a context of two blocks. Causal: the block behind the queries
+        # and their own, and the step attends the one behind; else the
+        # step's block is the second, which ends in the pad
+        k2, v2 = (ctx.mk(1, hkv, 2 * length, 128) for _ in range(2))
+        lo = 0 if opts["causal"] else length
+        k, v = (x[:, :, lo:lo + length].contiguous() for x in (k2, v2))
+        kw, kw2 = dict(opts), dict(opts)
+        if pads is not None:
+            qseg = segs(length, pads[0], -1)
+            kw.update(q_segment_ids=qseg,
+                      kv_segment_ids=segs(length, pads[1], -2))
+            kw2.update(q_segment_ids=qseg,
+                       kv_segment_ids=segs(length, pads[1], -2, blocks=2))
+        ctx.zero_counts()
+        o, lse = flash_attention_forward(q, k, v, out_dtype=torch.float32,
+                                         **kw)
+        torch.cuda.synchronize()
+        forms = [f for f, n in ctx.fwd_forms.items() if n and f != "fallback"]
+        _check(len(forms) == 1 and ctx.fwd_forms[forms[0]] == 1,
+               f"ring step {name}: forward launches {dict(ctx.fwd_forms)}")
+        kern = form_kernel[forms[0]]
+        o_p, lse_p = flash_attention_forward_plain(
+            q, k, v, out_dtype=torch.float32, **kw)
+        (e_o, ref, ok), e_l = ctx.o_close(o, o_p), ctx.diff(lse, lse_p)
+        ctx.rec[kern]["max_abs_err"] = max(ctx.rec[kern]["max_abs_err"],
+                                           e_o, e_l)
+        _check(ok and e_l <= GATE and bool(torch.isfinite(o).all()),
+               f"ring step {name}: {kern} vs plain O {e_o:.3e} (max|O| "
+               f"{ref:.3e}), LSE {e_l:.3e}")
+        del o, lse, o_p, lse_p
+        # the backward against the LSE of the two-block context
+        o2, lse2 = flash_attention_forward(q, k2, v2, **kw2)
+        args = (q, k, v, o2, lse2, do)
+        grads = flash_attention_backward(*args, **kw)
+        torch.cuda.synchronize()
+        plain = flash_attention_backward_plain(*args, **kw)
+        line = _grads_close(ctx, grads, plain, f"ring step {name}: K4")
+        ctx.rec["K4"]["max_abs_err"] = max(
+            ctx.rec["K4"]["max_abs_err"],
+            *(ctx.diff(g, w) for g, w in zip(grads, plain)))
+        print(f"[ring-step] {name}: B=1 H={RING_H} Hkv={hkv} {length} x "
+              f"{length}, fp32 O, softmax auto -> {kern}: vs plain max|dO|="
+              f"{e_o:.3e} (max|O| {ref:.3e}) max|dLSE|={e_l:.3e}; K4 against "
+              f"the LSE of a {2 * length}-key context vs plain: "
+              f"max|diff|/max|ref| {line} (gate {BWD_GATE} x max|ref|)",
+              flush=True)
+        del q, do, k2, v2, k, v, o2, lse2, args, grads, plain
+
+
+def _phase_ring_attention(ctx, mesh, where):
+    """Ring attention alone against one call on the whole sequence."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.ops.attention import flash_attention
+    from cuda_flashattention_torch.parallel.ring import ring_attention
+    from cuda_flashattention_torch.utils.profiling import (
+        covered_share, device_events)
+    from cuda_flashattention_torch.utils.timing import cuda_time_ms
+
+    n_ranks = mesh.shape["sp"]
+    tri = n_ranks * (n_ranks + 1) // 2
+    # (name, N, Hkv, causal, window, forward = K4 launches)
+    cases = [
+        ("causal", RING_N, RING_H, True, 0, tri),
+        ("ragged non-causal", RING_RAGGED_N, RING_H, False, 0,
+         n_ranks * n_ranks),
+        ("GQA causal", RING_N, 4, True, 0, tri),
+        (f"causal window {RING_WINDOW}", RING_N, RING_H, True, RING_WINDOW,
+         2 * n_ranks - 1),
+    ]
+    kept = None
+    for name, n, hkv, causal, window, expect in cases:
+        q = ctx.mk(1, RING_H, n, 128).requires_grad_()
+        k = ctx.mk(1, hkv, n, 128).requires_grad_()
+        v = ctx.mk(1, hkv, n, 128).requires_grad_()
+        do = ctx.mk(1, RING_H, n, 128)
+        kw = dict(causal=causal, window=window)
+        ctx.zero_counts()
+        o = ring_attention(q, k, v, mesh, **kw)
+        grads = torch.autograd.grad(o, (q, k, v), do)
+        torch.cuda.synchronize()
+        forms = dict(ctx.fwd_forms)
+        n_fwd, n_bwd = _forward_launches(ctx), ctx.bwd_launches["fused"]
+        ctx.launches["K4"] += n_bwd
+        o_ref = flash_attention(q, k, v, **kw)
+        grads_ref = torch.autograd.grad(o_ref, (q, k, v), do)
+        e, ref, ok = ctx.o_close(o, o_ref)
+        line = _grads_close(ctx, grads, grads_ref, f"ring {name}")
+        print(f"[ring] {name} ({where}): B=1 H={RING_H} Hkv={hkv} N={n} over "
+              f"{n_ranks} ranks: forward launches {n_fwd} (online "
+              f"{forms['online']}, bound {forms['bound']}, K-major "
+              f"{forms['kmajor']}; guarded fallback {forms['fallback']}), "
+              f"K4 {n_bwd} (expect {expect} each); vs one rank: max|dO|="
+              f"{e:.3e} (max|O| {ref:.3e}), max|diff|/max|ref| {line}",
+              flush=True)
+        _check(ok, f"ring {name}: O {e:.3e} against max|O| {ref:.3e}")
+        _check(n_fwd == expect and n_bwd == expect
+               and ctx.bwd_launches["dkdv"] == ctx.bwd_launches["dq"] == 0,
+               f"ring {name} launch counts {forms} {ctx.bwd_launches}")
+        if name == "causal":
+            kept = (q, k, v, do, o_ref, grads_ref, o)
+            ctx.rec["K4"]["max_abs_err"] = max(
+                ctx.rec["K4"]["max_abs_err"],
+                *(ctx.diff(g, w) for g, w in zip(grads, grads_ref)))
+    q, k, v, do, o_ref, grads_ref, o_ring = kept
+
+    def fwd(fn):
+        with torch.no_grad():
+            return fn(q, k, v, causal=True)
+
+    def fwd_bwd(fn):
+        return torch.autograd.grad(fn(q, k, v, causal=True), (q, k, v), do)
+
+    ring = lambda *a, **kw: ring_attention(*a, mesh=mesh, **kw)
+    t = {(name, what): cuda_time_ms(lambda: run(fn), iters=3, warmup=1)
+         for name, fn in (("ring", ring), ("one rank", flash_attention))
+         for what, run in (("forward", fwd), ("forward+backward", fwd_bwd))}
+    print(f"[ring] causal N={RING_N}, {n_ranks} ranks ({where}): forward "
+          f"{t['ring', 'forward']:.3f} ms (one rank "
+          f"{t['one rank', 'forward']:.3f} ms), forward+backward "
+          f"{t['ring', 'forward+backward']:.3f} ms (one rank "
+          f"{t['one rank', 'forward+backward']:.3f} ms) ({ctx.card})",
+          flush=True)
+
+    # how much of the copies' time lies under a step kernel: the copies
+    # are whatever ran on a stream that is neither the caller's nor one
+    # that carried a step kernel
+    probe, _ = device_events(lambda: torch.zeros(8, device=ctx.dev).add_(1))
+    main_stream = probe[0].stream
+    events, wall_ms = device_events(lambda: fwd_bwd(ring))
+    steps = [e for e in events
+             if _kernel_of(e.name) in ("K1", "K1b", "K5", "K4")]
+    compute = {e.stream for e in steps} | {main_stream}
+    copies = [e for e in events if e.stream not in compute]
+    copy_ms = sum(e.end_us - e.start_us for e in copies) / 1e3
+    share = covered_share(copies, steps)
+    print(f"[ring] profile of one forward+backward ({where}): "
+          f"{len(events)} device events on "
+          f"{len({e.stream for e in events})} streams in {wall_ms:.3f} ms of "
+          f"wall; {len(steps)} step kernels; {len(copies)} copies on the "
+          f"copy streams, {copy_ms:.3f} ms in all, {share:.1%} of it under a "
+          f"K1/K1b/K4 kernel ({ctx.card})", flush=True)
+    _check(len(copies) > 0 and share == share,
+           "the profiler saw no copy on the ring's copy streams")
+    return kept
+
+
+def _phase_ulysses(ctx, mesh, kept):
+    """Ulysses on the causal case against one rank and against the ring."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.parallel.ulysses import ulysses_attention
+    from cuda_flashattention_torch.utils.timing import cuda_time_ms
+
+    q, k, v, do, o_ref, grads_ref, o_ring = kept
+    n_ranks = mesh.shape["sp"]
+    ctx.zero_counts()
+    o = ulysses_attention(q, k, v, mesh, causal=True)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    forms = dict(ctx.fwd_forms)
+    n_fwd, n_bwd = _forward_launches(ctx), ctx.bwd_launches["fused"]
+    ctx.launches["K4"] += n_bwd
+    e, ref, ok = ctx.o_close(o, o_ref)
+    e_ring = ctx.diff(o, o_ring)
+    line = _grads_close(ctx, grads, grads_ref, "ulysses")
+    ms_f = cuda_time_ms(lambda: ulysses_attention(
+        q.detach(), k.detach(), v.detach(), mesh, causal=True),
+        iters=3, warmup=1)
+    ms_fb = cuda_time_ms(lambda: torch.autograd.grad(
+        ulysses_attention(q, k, v, mesh, causal=True), (q, k, v), do),
+        iters=3, warmup=1)
+    print(f"[ulysses] causal B=1 H={RING_H} N={RING_N} over {n_ranks} ranks: "
+          f"forward launches {n_fwd} (online {forms['online']}, bound "
+          f"{forms['bound']}, K-major {forms['kmajor']}), K4 {n_bwd} (expect "
+          f"{n_ranks} each); vs one rank max|dO|={e:.3e} (max|O| {ref:.3e}), "
+          f"vs the ring {e_ring:.3e} (gate {GATE}); max|diff|/max|ref| "
+          f"{line}; forward {ms_f:.3f} ms, forward+backward {ms_fb:.3f} ms "
+          f"({ctx.card})", flush=True)
+    _check(ok and e_ring <= GATE, f"ulysses O: {e:.3e} vs one rank, "
+           f"{e_ring:.3e} vs the ring")
+    _check(n_fwd == n_ranks and n_bwd == n_ranks,
+           f"ulysses launch counts {forms} {ctx.bwd_launches}")
+
+
+def _phase_ring_decode(ctx, mesh):
+    """Sharded-cache decode: K6 on each rank's resident shard."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.ops.decode import (
+        decode_attention, decode_attention_plain)
+    from cuda_flashattention_torch.ops.quant import quantize_kv
+    from cuda_flashattention_torch.parallel.mesh import shard_on_axis
+    from cuda_flashattention_torch.parallel.ring import ring_decode
+    from cuda_flashattention_torch.utils.timing import cuda_time_ms
+
+    n_ranks = mesh.shape["sp"]
+    local_n = RING_N // n_ranks
+    q = ctx.mk(DECODE_B, RING_H, 128, peak=Q_PEAK)
+    k = ctx.mk(DECODE_B, 4, RING_N, 128, peak=K_PEAK)
+    v = ctx.mk(DECODE_B, 4, RING_N, 128)
+    lengths = torch.randint(DECODE_LEN_LO, RING_N + 1, (DECODE_B,),
+                            generator=ctx.gen, device=ctx.dev,
+                            dtype=torch.int32)
+    lengths[0] = RING_N
+    kv8 = quantize_kv(k, v, "int8")
+    cut = lambda x: shard_on_axis(mesh, x, 2, "sp")
+    # O comes back in bf16: at |O| ~ 0.3 one ulp is 1.95e-3, so O is held
+    # to the bf16 gate whatever the cache; the fp32 LSE of the int8 cache
+    # is held to the repo's int8 gate against the same cache unsharded
+    for qtype, (kk, vv, scales), lse_gate in (
+            ("bf16", (k, v, {}), GATE),
+            ("int8", (kv8.k_q, kv8.v_q, dict(k_scale=kv8.k_scale,
+                                             v_scale=kv8.v_scale)), 1e-3)):
+        shards = dict(k=cut(kk), v=cut(vv),
+                      **{n: cut(s) for n, s in scales.items()})
+        for window in (0, RING_WINDOW):
+            run = lambda: ring_decode(q, shards["k"], shards["v"], lengths,
+                                      mesh, window=window,
+                                      **{n: shards[n] for n in scales})
+            ctx.zero_counts()
+            o, lse = run()
+            torch.cuda.synchronize()
+            n_k6 = decode_attention.launches
+            ctx.launches["K6"] += n_k6
+            whole = lambda: decode_attention(q, kk, vv, lengths,
+                                             window=window, **scales)
+            o_w, lse_w = whole()
+            e, ref = ctx.diff(o, o_w), o_w.float().abs().max().item()
+            e_l = ctx.diff(lse, lse_w)
+            ms = cuda_time_ms(run, before=ctx.l2_flush.zero_)
+            ms_w = cuda_time_ms(whole, before=ctx.l2_flush.zero_)
+            # ... and against the plain version: the whole call on the
+            # whole cache, then K6 alone on each rank's shard under the
+            # live lengths and windows the ring derives for it (a shard
+            # wholly before the window has every window <= 0 and must
+            # come back empty: O = 0 exactly)
+            o_p, lse_p = decode_attention_plain(q, kk, vv, lengths,
+                                                window=window, **scales)
+            (e_p, _, ok_p), e_lp = ctx.o_close(o, o_p), ctx.diff(lse, lse_p)
+            _check(ok_p and e_lp <= lse_gate,
+                   f"ring decode {qtype} window {window} vs the plain "
+                   f"version on the whole cache: O {e_p:.3e}, LSE {e_lp:.3e}")
+            shard_line = []
+            for idx in range(n_ranks):
+                my_len = (lengths - idx * local_n).clamp(0, local_n)
+                kw = {n: shards[n][idx] for n in scales}
+                if window:
+                    kw["windows"] = my_len - lengths + window + idx * local_n
+                args = (q, shards["k"][idx], shards["v"][idx], my_len)
+                o_s, lse_s = decode_attention(*args, **kw)
+                o_sp, lse_sp = decode_attention_plain(*args, **kw)
+                e_s, ref_s, ok_s = ctx.o_close(o_s, o_sp)
+                e_ls = ctx.diff(lse_s, lse_sp)
+                shard_line.append(f"{idx}: {e_s:.3e}/{ref_s:.3e}, "
+                                  f"{e_ls:.3e}")
+                _check((ok_s if ref_s > 0 else e_s == 0.0) and e_ls <= GATE,
+                       f"K6 on shard {idx} of the {qtype} cache, window "
+                       f"{window}: O {e_s:.3e} (max|O| {ref_s:.3e}), LSE "
+                       f"{e_ls:.3e}")
+                ctx.rec["K6"]["max_abs_err"] = max(
+                    ctx.rec["K6"]["max_abs_err"], e_s, e_ls)
+            print(f"[ring-decode] {qtype} cache, window {window}: vs the "
+                  f"plain version on the whole cache max|dO|={e_p:.3e} "
+                  f"max|dLSE|={e_lp:.3e}; K6 vs plain on each "
+                  f"{local_n}-token shard (max|dO|/max|O|, max|dLSE|): "
+                  + "; ".join(shard_line), flush=True)
+            print(f"[ring-decode] {qtype} cache, window {window}: B="
+                  f"{DECODE_B} H={RING_H} Hkv=4, {RING_N}-token cache over "
+                  f"{n_ranks} ranks, lengths {lengths.tolist()}: K6 launches "
+                  f"{n_k6} (expect {n_ranks}); vs K6 on the whole cache "
+                  f"max|dO|={e:.3e} (max|O| {ref:.3e}; gate {GATE}) "
+                  f"max|dLSE|={e_l:.3e} (gate {lse_gate}); sharded "
+                  f"{ms:.4f} ms, whole {ms_w:.4f} ms, "
+                  f"cold L2 ({ctx.card})", flush=True)
+            _check(ref > 0 and e <= min(GATE, REL_GATE * ref)
+                   and e_l <= lse_gate,
+                   f"ring decode {qtype} window {window}: O {e:.3e}, LSE "
+                   f"{e_l:.3e}")
+            _check(n_k6 == n_ranks, f"ring decode launched K6 {n_k6} times")
+            ctx.rec["K6"]["max_abs_err"] = max(ctx.rec["K6"]["max_abs_err"],
+                                               e, e_l)
+
+
+def _phase_sp_training(ctx, mesh):
+    """The main path of the distributed layer: the 271M training config
+    takes sequence-parallel train steps on one batch of B=1 x T=16384."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.models import transformer as tfm
+
+    n_ranks = mesh.shape["sp"]
+    tcfg = tfm.TransformerConfig(dtype=torch.bfloat16,
+                                 **{**TRAIN_KW, "max_seq": SP_T})
+    gen = torch.Generator(device=ctx.dev).manual_seed(0)
+    model = tfm.Transformer(tcfg, generator=gen)
+    tokens = torch.randint(0, tcfg.vocab_size, (1, SP_T), generator=gen,
+                           device=ctx.dev, dtype=torch.int32)
+    step = tfm.make_train_step(
+        model, torch.optim.SGD(model.parameters(), lr=1e-4), mesh=mesh,
+        seq_axis="sp")
+    step(tokens)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ctx.zero_counts()
+    step_s, losses = [], []
+    for _ in range(SP_STEPS):
+        t0 = time.perf_counter()
+        loss = step(tokens)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    forms = dict(ctx.fwd_forms)
+    n_fwd = _forward_launches(ctx)
+    counts = dict(fwd=n_fwd, **ctx.bwd_launches)
+    ctx.launches["K4"] += counts["fused"]
+    expect = SP_STEPS * tcfg.n_layers * n_ranks * (n_ranks + 1) // 2
+    step_ms = statistics.median(step_s) * 1e3
+    print(f"[sp-train] 271M config, B=1 T={SP_T}, sequence_mesh({n_ranks}), "
+          f"seq_axis='sp', SGD(1e-4): launches over {SP_STEPS} steps: "
+          f"forward {n_fwd} (online {forms['online']}, bound "
+          f"{forms['bound']}, K-major {forms['kmajor']}; guarded fallback "
+          f"{forms['fallback']}), K4 {counts['fused']}, K2 {counts['dkdv']}, "
+          f"K3 {counts['dq']} (expect {expect}, {expect}, 0, 0); step "
+          f"{step_ms:.3f} ms (median of {SP_STEPS}: "
+          f"{', '.join(f'{x * 1e3:.3f}' for x in step_s)}), "
+          f"{SP_T / step_ms * 1e3:.1f} tokens/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)} ({ctx.card})", flush=True)
+    _check(counts == dict(fwd=expect, fused=expect, dkdv=0, dq=0),
+           f"sequence-parallel train-step launch counts {counts}")
+    _check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+
+    def loss_and_grads(**kw):
+        model.zero_grad(set_to_none=True)
+        loss = tfm.loss_fn(model, tokens, **kw)
+        loss.backward()
+        return loss.item(), [p.grad.float() for p in model.parameters()]
+
+    names = [n for n, _ in model.named_parameters()]
+    loss_sp, grads_sp = loss_and_grads(mesh=mesh, seq_axis="sp")
+    loss_1, grads_1 = loss_and_grads()
+    errs = [((a - b).norm() / b.norm()).item()
+            for a, b in zip(grads_sp, grads_1)]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    print(f"[sp-train] sequence-parallel vs the same model without a mesh at "
+          f"T={SP_T}: loss {loss_sp:.6f} vs {loss_1:.6f} (|d| "
+          f"{abs(loss_sp - loss_1):.3e}, gate {LOSS_GATE}); worst gradient "
+          f"relative L2 {errs[worst]:.3e} ({names[worst]}; gate {GRAD_GATE})",
+          flush=True)
+    _check(abs(loss_sp - loss_1) <= LOSS_GATE,
+           f"sequence-parallel loss {loss_sp} vs {loss_1}")
+    _check(errs[worst] <= GRAD_GATE, f"sequence-parallel gradient of "
+           f"{names[worst]}: relative L2 {errs[worst]:.3e}")
+
+
+def _phase_gpipe(ctx):
+    """`pipeline_forward` of the training config against `forward`."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.models import transformer as tfm
+
+    tcfg = tfm.TransformerConfig(dtype=torch.bfloat16, **TRAIN_KW)
+    gen = torch.Generator(device=ctx.dev).manual_seed(0)
+    model = tfm.Transformer(tcfg, generator=gen)
+    tokens = torch.randint(0, tcfg.vocab_size, (PP_B, PP_T), generator=gen,
+                           device=ctx.dev, dtype=torch.int32)
+    mesh = _shared_card_mesh(ctx, 2, "pp")
+    with torch.no_grad():
+        want = tfm.forward(model, tokens)
+        ctx.zero_counts()
+        got = tfm.pipeline_forward(model, tokens, mesh, n_micro=PP_MICRO)
+        torch.cuda.synchronize()
+    n_fwd = _forward_launches(ctx)
+    e = ctx.diff(got, want)
+    print(f"[gpipe] 271M config, B={PP_B} T={PP_T}, 2 stages x 2 layers, "
+          f"n_micro={PP_MICRO}: forward launches {n_fwd} (expect "
+          f"{tcfg.n_layers * PP_MICRO}); logits vs forward: max|diff|="
+          f"{e:.3e} (gate {LOGIT_GATE})", flush=True)
+    _check(bool(torch.isfinite(got).all()) and e <= LOGIT_GATE,
+           f"pipeline_forward logits off by {e:.3e}")
+    _check(n_fwd == tcfg.n_layers * PP_MICRO,
+           f"pipeline_forward launched the forward {n_fwd} times")
+
+
+def _k9_bound(n, rows, d):
+    """K9's least time: every rank reads its shard, pushes n - 1 shards
+    and reads them back, reads W and writes o; n x n tile products."""
+    shard = rows * d * 2
+    nbytes = n * ((2 * n - 1) * shard + d * d * 2 + rows * d * 4)
+    return _bound(nbytes, n * n * 2.0 * rows * d * d)
+
+
+def _phase_device_ring(ctx, devices, where, record):
+    """K9 against its plain version and against (sum x_i) @ W in fp32."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.parallel.device_ring import (
+        device_ring_matmul, ring_matmul_plain)
+    from cuda_flashattention_torch.parallel.mesh import make_mesh
+    from cuda_flashattention_torch.utils.timing import cuda_time_ms
+
+    d = 128
+    kernel_ms = {}
+    for rows in K9_SHAPES:
+        for n in K9_RANKS:
+            mesh = make_mesh((n,), ("sp",),
+                             [devices[i % len(devices)] for i in range(n)])
+            x, w = ctx.mk(n * rows, d), ctx.mk(d, d)
+            o = device_ring_matmul(x, w, mesh)
+            torch.cuda.synchronize()
+            grid = device_ring_matmul.last_grid
+            o_p = ring_matmul_plain(x, w, mesh)
+            ref = (x.float().view(n, rows, d).sum(0) @ w.float()).repeat(n, 1)
+            top = ref.abs().max().item()
+            e_ref, e_plain = ctx.diff(o, ref), ctx.diff(o, o_p)
+            ms = cuda_time_ms(lambda: device_ring_matmul(x, w, mesh),
+                              iters=K9_ITERS)
+            ms_p = cuda_time_ms(lambda: ring_matmul_plain(x, w, mesh),
+                                iters=K9_ITERS)
+            x3 = x.view(n, rows, d)
+            ms_lib = cuda_time_ms(
+                lambda: torch.einsum("nld,de->le", x3, w), iters=K9_ITERS)
+            ms_k = _device_ms_by_kernel(
+                lambda: device_ring_matmul(x, w, mesh), ("K9",),
+                iters=K9_ITERS)["K9"]
+            kernel_ms[rows, n] = ms_k
+            bound = _k9_bound(n, rows, d)
+            print(f"[K9] n={n} ranks ({where}), L={rows} d={d}: grid "
+                  f"{grid[0]} CTAs x {grid[1]} ranks per launch; vs "
+                  f"tile((sum x_i) @ W) in fp32 {e_ref:.3e} (max|ref| "
+                  f"{top:.3e}), vs the plain ring {e_plain:.3e} (gates "
+                  f"{K9_GATE} and {REL_GATE} x max|ref|); wrapper {ms:.4f} "
+                  f"ms, kernel alone {ms_k:.4f} ms, plain ring {ms_p:.4f} "
+                  f"ms, one einsum over the shards {ms_lib:.4f} ms, bound "
+                  f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}) "
+                  f"({ctx.card})", flush=True)
+            gate = min(K9_GATE, REL_GATE * top)
+            _check(top > 0 and e_ref <= gate and e_plain <= gate
+                   and bool(torch.isfinite(o).all()),
+                   f"K9 n={n} L={rows}: {e_ref:.3e} vs the reference, "
+                   f"{e_plain:.3e} vs the plain ring")
+            if record:
+                r = ctx.rec["K9"]
+                r["max_abs_err"] = max(r["max_abs_err"], e_plain)
+                if (n, rows) == (4, K9_SHAPES[0]):  # the example's path
+                    r.update(ms=ms, plain_ms=ms_p, library_ms=ms_lib,
+                             **bound)
+        hops = K9_RANKS[-1] - 1
+        per_hop = (kernel_ms[rows, K9_RANKS[-1]] - kernel_ms[rows, 1]) / hops
+        print(f"[K9] L={rows} ({where}): kernel alone "
+              f"{kernel_ms[rows, K9_RANKS[-1]]:.4f} ms at n={K9_RANKS[-1]} "
+              f"against {kernel_ms[rows, 1]:.4f} ms at n=1: "
+              f"{per_hop * 1e3:.2f} us per hop ({ctx.card})", flush=True)
+    n = K9_RANKS[-1]
+    mesh = make_mesh((n,), ("sp",),
+                     [devices[i % len(devices)] for i in range(n)])
+    x, w = ctx.mk(n * K9_SHAPES[0], d), ctx.mk(d, d)
+    first = device_ring_matmul(x, w, mesh)
+    same = sum(torch.equal(device_ring_matmul(x, w, mesh), first)
+               for _ in range(K9_REPEATS))
+    print(f"[K9] n={n} ({where}): {same} of {K9_REPEATS} repeats equal the "
+          f"first call bit for bit", flush=True)
+    _check(same == K9_REPEATS, f"K9 flaked: {same} of {K9_REPEATS} repeats "
+           f"bit-identical")
+
+
+def _phase_device_ring_path(ctx):
+    """K9's own path, as a user runs it: the example stage."""
+    from cuda_flashattention_torch.examples import device_ring as stage
+    from cuda_flashattention_torch.parallel.device_ring import (
+        device_ring_matmul)
+    ctx.zero_counts()
+    rc = stage.main(["--ranks", "4"] if ctx.torch.cuda.device_count() < 2
+                    else [])
+    n = device_ring_matmul.launches
+    ctx.launches["K9"] += n
+    print(f"[K9] the example stage returned {rc}; K9 launches {n}",
+          flush=True)
+    _check(rc == 0 and n > 0, f"the device-ring stage returned {rc} after "
+           f"{n} launches")
 
 
 def main() -> int:
@@ -273,6 +915,8 @@ def main() -> int:
         paged_decode_attention, paged_decode_attention_plain,
         paged_decode_step, paged_prefix_attention)
     from cuda_flashattention_torch.ops.quant import quantize_kv
+    from cuda_flashattention_torch.parallel.device_ring import (
+        device_ring_matmul)
     from cuda_flashattention_torch.parallel.ring import combine_partials
     from cuda_flashattention_torch.utils.profiling import kernel_times
     from cuda_flashattention_torch.utils.timing import (
@@ -324,6 +968,7 @@ def main() -> int:
         decode_attention.launches = 0
         paged_decode_attention.launches = 0
         fa1_attention.launches = 0
+        device_ring_matmul.launches = 0
         for name in bwd_launches:
             bwd_launches[name] = 0
 
@@ -359,7 +1004,7 @@ def main() -> int:
     failures = []
     # per kernel: ms, plain_ms, bound_ms, bound_by, library_ms, max_abs_err
     rec = {kn: dict(max_abs_err=0.0) for kn in
-           ("K1", "K1b", "K5", "K2", "K3", "K4", "K6", "K7", "K8")}
+           ("K1", "K1b", "K5", "K2", "K3", "K4", "K6", "K7", "K8", "K9")}
     # launches on the main paths, summed over the runs that drive them
     launches = {kn: 0 for kn in rec}
 
@@ -1313,11 +1958,10 @@ def main() -> int:
         ms_p = cuda_time_ms(
             lambda: flash_attention_backward_plain(*args, **kw), iters=3,
             warmup=1)
-        prof = kernel_times(lambda: (
+        dev_ms = _device_ms_by_kernel(lambda: (
             flash_attention_backward(*args, fused=True, **kw),
-            flash_attention_backward(*args, fused=False, **kw)), iters=3)
-        dev_ms = {kn: launch_ms(prof, lambda n: _kernel_of(n) == kn)
-                  for kn in ("K2", "K3", "K4")}
+            flash_attention_backward(*args, fused=False, **kw)),
+            ("K2", "K3", "K4"), iters=3)
         _check(all(math.isfinite(t) for t in dev_ms.values()),
                f"{name}: the profiler recorded no launch of a backward "
                f"kernel: {dev_ms}")
@@ -1603,6 +2247,44 @@ def main() -> int:
            f"Adam losses did not fall: {adam}")
     del model, step
 
+    # ---- 9-14. the distributed layer --------------------------------------
+    torch.cuda.empty_cache()
+    ctx = types.SimpleNamespace(
+        torch=torch, dev=dev, card=card, gen=gen, mk=mk, diff=diff,
+        o_close=o_close, zero_counts=zero_counts, rec=rec,
+        launches=launches, fwd_forms=fwd_forms, bwd_launches=bwd_launches,
+        l2_flush=l2_flush)
+    n_cards = torch.cuda.device_count()
+    shared = f"{RING_RANKS} ranks share card 0"
+    print(f"[mesh] {n_cards} card(s) visible: the ranks of every mesh share "
+          f"card 0, each with its own compute and copy stream"
+          + ("; ring attention and K9 then run again over distinct cards"
+             if n_cards > 1 else ""), flush=True)
+    mesh = _shared_card_mesh(ctx, RING_RANKS)
+    _phase_ring_steps(ctx, RING_RANKS)
+    torch.cuda.empty_cache()
+    kept = _phase_ring_attention(ctx, mesh, shared)
+    _phase_ulysses(ctx, mesh, kept)
+    del kept
+    torch.cuda.empty_cache()
+    _phase_ring_decode(ctx, mesh)
+    torch.cuda.empty_cache()
+    _phase_sp_training(ctx, mesh)
+    torch.cuda.empty_cache()
+    _phase_gpipe(ctx)
+    torch.cuda.empty_cache()
+    _phase_device_ring_path(ctx)
+    _phase_device_ring(ctx, [dev], "sharing card 0", record=True)
+    if n_cards > 1:
+        cards = [torch.device("cuda", i) for i in range(n_cards)]
+        from cuda_flashattention_torch.parallel.mesh import make_mesh
+        over = f"over {n_cards} distinct cards"
+        _phase_ring_attention(
+            ctx, make_mesh((RING_RANKS,), ("sp",),
+                           [cards[i % n_cards] for i in range(RING_RANKS)]),
+            over)
+        _phase_device_ring(ctx, cards, over, record=False)
+
     # ---- last lines ------------------------------------------------------
     csrc = "cuda_flashattention_torch/csrc/"
     tpu = "cuda_flashattention_tpu/ops/"
@@ -1628,6 +2310,10 @@ def main() -> int:
          "flash_bwd.cu", "flash_bwd.py:192"),
         ("K4", "flash_attention_backward (K4, fused dQ/dK/dV)",
          "flash_bwd.cu", "flash_bwd.py:252"),
+        ("K9", "device_ring_matmul (K9, device-initiated ring: the kernel "
+         "pushes its shard to the next rank and orders the steps with "
+         "device-side flags)", "device_ring.cu",
+         "examples/07_device_ring.py:46"),
     ]
     kernels = []
     for kn, name, source, replaces in described:
@@ -1635,7 +2321,8 @@ def main() -> int:
         r = rec[kn]
         kernels.append(dict(
             name=name, route="cuda", source=csrc + source,
-            replaces=tpu + replaces, launches=launches[kn],
+            replaces=replaces if "/" in replaces else tpu + replaces,
+            launches=launches[kn],
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))

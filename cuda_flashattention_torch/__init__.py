@@ -15,8 +15,13 @@ sliding-window model in serving and training; paged serving (page pools, block t
 `PageAllocator`, the paged decode kernel); the training path: `forward`,
 `loss_fn` and `make_train_step`, with attention through the
 differentiable `flash_attention` (FA2 forward, and the FA2 backward
-kernels: fused, or split into dK/dV and dQ); and the FlashAttention-1
-rung (`fa1_attention`).
+kernels: fused, or split into dK/dV and dQ); the FlashAttention-1
+rung (`fa1_attention`); and the distributed layer, single-controller as
+the JAX package's: a `Mesh` of devices that may repeat (N ranks on one
+card, each with its own streams), `ring_attention` (forward and backward),
+`ring_decode`, `ulysses_attention`, `gpipe_spmd`, the model's
+sequence-, data-, tensor-parallel and pipelined forms, and the
+device-initiated ring (`device_ring_matmul`, kernel K9).
 """
 
 __version__ = "0.1.0"
@@ -71,18 +76,44 @@ from cuda_flashattention_torch.ops.quant import (
     quantize_kv,
     quantize_tensor,
 )
-from cuda_flashattention_torch.parallel.ring import combine_partials
+from cuda_flashattention_torch.parallel.device_ring import (
+    device_ring_matmul,
+    ring_matmul_plain,
+)
+from cuda_flashattention_torch.parallel.mesh import (
+    Mesh,
+    initialize_distributed,
+    make_mesh,
+    sequence_mesh,
+    shard_on_axis,
+)
+from cuda_flashattention_torch.parallel.pipeline import (
+    gpipe_spmd,
+    stack_stage_params,
+    stage_param_sharding,
+)
+from cuda_flashattention_torch.parallel.ring import (
+    combine_partials,
+    ring_attention,
+    ring_decode,
+    ring_decode_local,
+)
+from cuda_flashattention_torch.parallel.ulysses import ulysses_attention
 from cuda_flashattention_torch.models.transformer import (
     Transformer,
     TransformerConfig,
     decode_one,
     forward,
     init_caches,
+    layer_weights,
     loss_fn,
     make_train_step,
+    param_shardings,
+    pipeline_forward,
     prefill,
     prefill_chunk,
     prefill_chunked,
+    shard_param,
 )
 from cuda_flashattention_torch.models.convert import (
     kv_cache_from_numpy,
@@ -127,6 +158,20 @@ __all__ = [
     "quantize_kv",
     "quantize_tensor",
     "combine_partials",
+    "ring_attention",
+    "ring_decode",
+    "ring_decode_local",
+    "ulysses_attention",
+    "gpipe_spmd",
+    "stack_stage_params",
+    "stage_param_sharding",
+    "device_ring_matmul",
+    "ring_matmul_plain",
+    "Mesh",
+    "initialize_distributed",
+    "make_mesh",
+    "sequence_mesh",
+    "shard_on_axis",
     "Transformer",
     "TransformerConfig",
     "decode_one",
@@ -137,6 +182,10 @@ __all__ = [
     "prefill",
     "prefill_chunk",
     "prefill_chunked",
+    "layer_weights",
+    "param_shardings",
+    "pipeline_forward",
+    "shard_param",
     "kv_cache_from_numpy",
     "paged_cache_from_numpy",
     "params_from_jax",

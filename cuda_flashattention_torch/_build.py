@@ -40,6 +40,7 @@ _L = ctypes.c_longlong
 _LP = ctypes.POINTER(ctypes.c_longlong)
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _D = ctypes.c_double
+_IP = ctypes.POINTER(ctypes.c_int)
 
 # C signatures of the entry points (all return an int cudaError_t).
 SIGNATURES = {
@@ -78,6 +79,13 @@ SIGNATURES = {
     # strides[12], scale, causal, window, kv_offset, stream
     "cfa_flash_bwd_q": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _LP, _D, _I, _I, _I, _P],
+    # x[n], w[n], buf[n], flags[n], out[n] (per-rank device pointers),
+    # n_shards, local[n_local] (the ranks this launch runs), n_local, L, D,
+    # device, grid_out (CTAs per rank, or NULL), stream
+    "cfa_device_ring": [_PP, _PP, _PP, _PP, _PP, _I, _IP, _I, _I, _I, _I,
+                        _IP, _P],
+    # device, peer: cudaDeviceEnablePeerAccess(peer) on `device`
+    "cfa_enable_peer_access": [_I, _I],
 }
 
 _lock = threading.Lock()

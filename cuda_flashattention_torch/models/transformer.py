@@ -10,17 +10,28 @@ kernel K1, backward kernel K4 or K2 + K3), `flash_attention_forward`
 (prefill: K1 on the chunk itself, the bound kernels K1b or K5 on the
 cached prefix) and `decode_step` (decode), over a cache that may be
 quantized (`init_caches(qtype=...)`) and with a sliding window
-(`TransformerConfig.window`) in all of them. The sequence-parallel, pipelined
-and sharded forms of the JAX model (`mesh`, `pipeline_forward`,
-`param_shardings`) wait for the distributed layer.
+(`TransformerConfig.window`) in all of them.
+
+With a `mesh` and a `seq_axis`, `forward`, `loss_fn` and `make_train_step`
+run attention sequence-parallel (`ring_attention`, parallel/ring.py);
+`batch_axis` and `head_axis` shard its batch and heads over further mesh
+axes. The token-local layers (norms, projections, MLP) run where the
+model's parameters live, as plain `F.linear` products: `head_axis` shards
+the ring's heads and nothing else. `param_shardings` states the Megatron
+tensor-parallel layout of the matrices (wq, wk, wv, w_gate and w_up split
+on their output dimension, wo and w_down on their input dimension) and
+`shard_param` cuts a tensor by it; the projections do not compute from
+those slices yet. `pipeline_forward` runs the layer stack as a GPipe
+pipeline (parallel/pipeline.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -33,7 +44,11 @@ from cuda_flashattention_torch.ops.kv_cache import (
     decode_step,
     init_cache,
 )
-from cuda_flashattention_torch.parallel.ring import combine_partials
+from cuda_flashattention_torch.parallel.mesh import Mesh
+from cuda_flashattention_torch.parallel.ring import (
+    combine_partials,
+    ring_attention,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,12 +115,8 @@ class Block(nn.Module):
         self.w_down = nn.Linear(cfg.d_ff, cfg.d_model, **kw)
 
     def mlp(self, x: torch.Tensor) -> torch.Tensor:
-        """SwiGLU residual branch: SiLU(gate)·up in fp32, cast to x's dtype
-        before the down projection."""
-        h = rms_norm(x, self.mlp_norm)
-        gated = F.silu(self.w_gate(h).float())
-        up = self.w_up(h).float()
-        return x + self.w_down((gated * up).to(x.dtype)).to(x.dtype)
+        """SwiGLU residual branch (`_mlp_block` on this block's weights)."""
+        return _mlp_block(layer_weights(self), x)
 
 
 class Transformer(nn.Module):
@@ -153,60 +164,199 @@ class Transformer(nn.Module):
 # Training: forward, loss, train step
 # ---------------------------------------------------------------------------
 
-def _qkv(blk: Block, x: torch.Tensor, cfg: TransformerConfig,
-         positions: torch.Tensor):
+# The per-layer weights by the JAX package's names; matrices are [out, in].
+_MATRICES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+# Megatron split of each matrix, as the dim of the [out, in] weight that
+# the tensor-parallel axis cuts: the output dim of wq/wk/wv/w_gate/w_up
+# (column parallel: a rank computes its heads, its slice of the hidden
+# dim), the input dim of wo/w_down (row parallel: partial outputs, summed)
+_TP_DIM = dict(wq=0, wk=0, wv=0, w_gate=0, w_up=0, wo=1, w_down=1)
+
+
+def layer_weights(blk: Block) -> Dict[str, torch.Tensor]:
+    """A block's parameters as a dict of tensors (a pytree leaf per
+    weight), which the pipelined and tensor-parallel forms cut."""
+    w = {name: getattr(blk, name).weight for name in _MATRICES}
+    w["attn_norm"], w["mlp_norm"] = blk.attn_norm, blk.mlp_norm
+    return w
+
+
+def _qkv(w: Dict[str, torch.Tensor], x: torch.Tensor,
+         cfg: TransformerConfig, positions: torch.Tensor):
     """Normed input → rotated q [B,H,T,d] and k/v [B,Hkv,T,d] (views)."""
     b, t, _ = x.shape
-    h = rms_norm(x, blk.attn_norm)
-    q = blk.wq(h).view(b, t, cfg.n_heads, cfg.d_head)
-    k = blk.wk(h).view(b, t, cfg.n_kv_heads, cfg.d_head)
-    v = blk.wv(h).view(b, t, cfg.n_kv_heads, cfg.d_head)
+    h = rms_norm(x, w["attn_norm"])
+    q = F.linear(h, w["wq"]).view(b, t, cfg.n_heads, cfg.d_head)
+    k = F.linear(h, w["wk"]).view(b, t, cfg.n_kv_heads, cfg.d_head)
+    v = F.linear(h, w["wv"]).view(b, t, cfg.n_kv_heads, cfg.d_head)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
 
-def forward(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+def _attention_block(w: Dict[str, torch.Tensor], x: torch.Tensor,
+                     cfg: TransformerConfig, positions: torch.Tensor,
+                     mesh: Optional[Mesh] = None,
+                     seq_axis: Optional[str] = None,
+                     batch_axis: Optional[str] = None,
+                     head_axis: Optional[str] = None) -> torch.Tensor:
+    """x + attention(norm(x)) for one layer's weights `w`."""
+    b, t, _ = x.shape
+    qt, kt, vt = _qkv(w, x, cfg, positions)
+    if mesh is not None and seq_axis is not None:
+        # sequence-parallel path: ring attention over the mesh (GQA is
+        # the kernels' own; a sliding window ends the ring early)
+        o = ring_attention(qt, kt, vt, mesh, axis_name=seq_axis, causal=True,
+                           window=cfg.window, batch_axis=batch_axis,
+                           head_axis=head_axis)
+    else:
+        o = flash_attention(qt, kt, vt, causal=True, window=cfg.window)
+    o = o.transpose(1, 2).reshape(b, t, cfg.d_q)
+    return x + F.linear(o, w["wo"]).to(x.dtype)
+
+
+def _mlp_block(w: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """x + SwiGLU(norm(x)) for one layer's weights `w` (as `Block.mlp`)."""
+    h = rms_norm(x, w["mlp_norm"])
+    gated = F.silu(F.linear(h, w["w_gate"]).float())
+    up = F.linear(h, w["w_up"]).float()
+    return x + F.linear((gated * up).to(x.dtype), w["w_down"]).to(x.dtype)
+
+
+def forward(model: Transformer, tokens: torch.Tensor,
+            mesh: Optional[Mesh] = None, seq_axis: Optional[str] = None,
+            batch_axis: Optional[str] = None,
+            head_axis: Optional[str] = None) -> torch.Tensor:
     """Causal LM forward: tokens [B, T] → fp32 logits [B, T, V], with
-    attention through the differentiable `flash_attention(causal=True)`."""
+    attention through the differentiable `flash_attention(causal=True)`.
+
+    With `mesh` and `seq_axis`, attention runs sequence-parallel
+    (`ring_attention`) while the token-local layers (norms, projections,
+    MLP) run on the model's device. `batch_axis` shards the ring's batch
+    over a mesh axis and `head_axis` its heads; the projections are not
+    computed from `param_shardings`' per-rank slices."""
     cfg = model.cfg
     b, t = tokens.shape
     x = model.embed[tokens].to(cfg.dtype)
     positions = torch.arange(t, device=x.device)
     for blk in model.layers:
-        qt, kt, vt = _qkv(blk, x, cfg, positions)
-        o = flash_attention(qt, kt, vt, causal=True, window=cfg.window)
-        o = o.transpose(1, 2).reshape(b, t, cfg.d_q)
-        x = x + blk.wo(o).to(x.dtype)
-        x = blk.mlp(x)
+        w = layer_weights(blk)
+        x = _attention_block(w, x, cfg, positions, mesh, seq_axis,
+                             batch_axis, head_axis)
+        x = _mlp_block(w, x)
     return model.unembed(x)
 
 
-def loss_fn(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+def loss_fn(model: Transformer, tokens: torch.Tensor,
+            **fwd_kw) -> torch.Tensor:
     """Next-token cross entropy: targets are the tokens rolled by −1, and
     the mean NLL is taken over positions [:, :-1] (the wrapped-around last
-    position is dropped), as the JAX package's `loss_fn`."""
-    logits = forward(model, tokens)
+    position is dropped), as the JAX package's `loss_fn`. `fwd_kw`
+    (`mesh`, `seq_axis`, `batch_axis`, `head_axis`) go to `forward`."""
+    logits = forward(model, tokens, **fwd_kw)
     targets = torch.roll(tokens, -1, dims=1).long()
     return F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
                            targets[:, :-1].reshape(-1))
 
 
-def make_train_step(model: Transformer, optimizer: torch.optim.Optimizer):
+def make_train_step(model: Transformer, optimizer: torch.optim.Optimizer,
+                    **fwd_kw):
     """A train step for `model`: step(tokens) zeroes the gradients, runs
     `loss_fn` and its backward, applies `optimizer` (built over
     `model.parameters()`) and returns the loss. The parameters and the
     optimizer state are updated in place, which is what the JAX version's
-    buffer donation buys, so there is no `donate` option."""
+    buffer donation buys, so there is no `donate` option. `fwd_kw`
+    (`mesh`, `seq_axis`, `batch_axis`, `head_axis`) select the
+    sequence-, data- and tensor-parallel forms of `forward`."""
 
     def step(tokens: torch.Tensor) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model, tokens)
+        loss = loss_fn(model, tokens, **fwd_kw)
         loss.backward()
         optimizer.step()
         return loss.detach()
 
     return step
+
+
+def pipeline_forward(model: Transformer, tokens: torch.Tensor, mesh: Mesh,
+                     n_micro: int, pp_axis: str = "pp",
+                     batch_axis: Optional[str] = None,
+                     stacked: Any = None) -> torch.Tensor:
+    """Causal LM forward with the layer stack run as a GPipe pipeline over
+    `pp_axis` (parallel/pipeline.py): stage s holds layers
+    [s·L/S, (s+1)·L/S); embedding and unembedding stay on the model's
+    device. Equals `forward`; composes with a data-parallel `batch_axis`.
+
+    `stacked` is the layers' stacked pytree (`stack_stage_params` over
+    `layer_weights`), or the per-stage list `stage_param_sharding` makes
+    of it: a training loop stacks once and passes it through; without it
+    the layers are stacked on every call."""
+    from cuda_flashattention_torch.parallel.pipeline import (
+        gpipe_spmd, stack_stage_params, tree_leaves, tree_map)
+
+    cfg = model.cfg
+    x = model.embed[tokens].to(cfg.dtype)
+    t = tokens.shape[1]
+    if stacked is None:
+        stacked = stack_stage_params(
+            [layer_weights(blk) for blk in model.layers])
+
+    def stage_fn(stage_layers, x):
+        positions = torch.arange(t, device=x.device)
+        for i in range(tree_leaves(stage_layers)[0].shape[0]):
+            w = tree_map(lambda a: a[i], stage_layers)
+            x = _attention_block(w, x, cfg, positions)
+            x = _mlp_block(w, x)
+        return x
+
+    x = gpipe_spmd(stage_fn, stacked, x, mesh, n_micro=n_micro,
+                   axis_name=pp_axis, batch_axis=batch_axis)
+    return model.unembed(x)
+
+
+def param_shardings(model: Transformer, mesh: Mesh, batch_axis: str = "dp",
+                    head_axis: Optional[str] = None) -> Dict[str, Any]:
+    """Parameter shardings, as a pytree shaped like the JAX package's
+    parameters (`embed`, `final_norm`, `layers`: one dict per layer), each
+    leaf a tuple with one entry per dim of the torch tensor: a mesh axis
+    name where that dim is cut over the axis, else None.
+
+    Without `head_axis` everything is replicated (the data-parallel
+    baseline). With it: Megatron tensor parallelism. The matrices here are
+    nn.Linear's [out, in], the transpose of the JAX package's [in, out]:
+    wq, wk, wv, w_gate, w_up are cut on their output dim (dim 0), wo and
+    w_down on their input dim (dim 1), so each tensor-parallel rank holds
+    1/tp of every layer's matrices. `shard_param` cuts a tensor by its
+    leaf; `forward` does not compute from the slices (its `head_axis`
+    shards the ring's heads only)."""
+    def spec(name: str, ndim: int):
+        dims = [None] * ndim
+        if head_axis is not None and name in _TP_DIM:
+            dims[_TP_DIM[name]] = head_axis
+        return tuple(dims)
+
+    return dict(
+        embed=(None, None), final_norm=(None,),
+        layers=[{name: spec(name, w.ndim)
+                 for name, w in layer_weights(blk).items()}
+                for blk in model.layers])
+
+
+def shard_param(w: torch.Tensor, spec: Tuple[Optional[str], ...],
+                mesh: Mesh) -> Dict[int, torch.Tensor]:
+    """The slice of `w` that each rank of the mesh holds under `spec` (a
+    leaf of `param_shardings`): {rank: slice, on the rank's device}."""
+    out = {}
+    for rank in range(mesh.size):
+        coords = dict(zip(mesh.axis_names, map(
+            int, np.unravel_index(rank, mesh.devices.shape))))
+        piece = w
+        for dim, axis in enumerate(spec):
+            if axis is not None:
+                piece = piece.chunk(mesh.shape[axis], dim=dim)[coords[axis]]
+        out[rank] = piece.to(mesh.device(rank))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -254,7 +404,7 @@ def prefill_chunk(model: Transformer, tokens: torch.Tensor, start: int,
     x = model.embed[tokens].to(cfg.dtype)
     positions = torch.arange(start, start + c, device=x.device)
     for blk, cache in zip(model.layers, caches):
-        qt, kt, vt = _qkv(blk, x, cfg, positions)
+        qt, kt, vt = _qkv(layer_weights(blk), x, cfg, positions)
         cache_append(cache, kt, vt)
         o_new, lse_new = flash_attention_forward(
             qt, kt, vt, causal=True, window=cfg.window,
@@ -301,7 +451,7 @@ def decode_one(model: Transformer, token: torch.Tensor, position: int,
     x = model.embed[token].to(cfg.dtype)[:, None, :]  # [B, 1, D]
     positions = torch.full((1,), position, device=x.device)
     for blk, cache in zip(model.layers, caches):
-        qt, kt, vt = _qkv(blk, x, cfg, positions)
+        qt, kt, vt = _qkv(layer_weights(blk), x, cfg, positions)
         cache_append(cache, kt, vt)
         o, _ = decode_step(qt[:, :, 0], cache, window=cfg.window,
                            quantize_q=quantize_q)

@@ -1,1 +1,3 @@
-"""Parallel helpers of the port (only combine_partials so far)."""
+"""The distributed layer of the port: mesh and streams (mesh), ring
+attention and sharded decode (ring), Ulysses (ulysses), GPipe (pipeline)
+and the device-initiated ring (device_ring)."""

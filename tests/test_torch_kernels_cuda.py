@@ -712,3 +712,165 @@ def test_forward_refuses_what_it_does_not_take(dev):
         flash_attention_forward(q, k8, k8)
     with pytest.raises(NotImplementedError, match="block_sizes"):
         flash_attention_forward(q, q, q, block_sizes=object())
+
+
+# ---------------------------------------------------------------------------
+# The distributed layer on the card: the ranks of a mesh share card 0 (its
+# entries repeat), each with its own streams.
+# ---------------------------------------------------------------------------
+
+def _ring_mesh(dev, n, axis="sp"):
+    from cuda_flashattention_torch.parallel.mesh import make_mesh
+    return make_mesh((n,), (axis,), [dev] * n)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("rows,d", [(1024, 128), (192, 64), (8192, 128)])
+def test_device_ring_kernel(dev, n, rows, d):
+    """K9 against its plain version and against (Σ x_i) @ W in fp32; the
+    grid is capped at what is resident and walks the tiles."""
+    from cuda_flashattention_torch.parallel.device_ring import (
+        device_ring_matmul, ring_matmul_plain)
+    gen = torch.Generator(device=dev).manual_seed(n * rows + d)
+    x, w = _rand(gen, dev, n * rows, d), _rand(gen, dev, d, d)
+    mesh = _ring_mesh(dev, n)
+    before = device_ring_matmul.launches
+    o = device_ring_matmul(x, w, mesh)
+    torch.cuda.synchronize()
+    assert device_ring_matmul.launches == before + 1
+    grid, ranks = device_ring_matmul.last_grid
+    assert ranks == n and 1 <= grid <= rows // 64
+    ref = (x.float().view(n, rows, d).sum(0) @ w.float()).repeat(n, 1)
+    top = ref.abs().max().item()
+    assert o.dtype == torch.float32 and top > 0
+    assert _err(o, ref) <= min(1e-2, 2e-2 * top)
+    assert _err(o, ring_matmul_plain(x, w, mesh)) <= min(1e-2, 2e-2 * top)
+
+
+def test_device_ring_repeats_bit_for_bit(dev):
+    """A race between a push and a read would show as a flake: 50 calls
+    at 8 ranks must return the same bits."""
+    from cuda_flashattention_torch.parallel.device_ring import (
+        device_ring_matmul)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x, w = _rand(gen, dev, 8 * 1024, 128), _rand(gen, dev, 128, 128)
+    mesh = _ring_mesh(dev, 8)
+    first = device_ring_matmul(x, w, mesh)
+    for _ in range(50):
+        assert torch.equal(device_ring_matmul(x, w, mesh), first)
+
+
+def test_device_ring_refuses_what_it_does_not_take(dev):
+    from cuda_flashattention_torch.parallel.device_ring import (
+        device_ring_matmul)
+    from cuda_flashattention_torch.parallel.mesh import make_mesh
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x, w = _rand(gen, dev, 4 * 64, 128), _rand(gen, dev, 128, 128)
+    mesh = _ring_mesh(dev, 4)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        device_ring_matmul(x.float(), w.float(), mesh)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        device_ring_matmul(x[:4 * 40], w, mesh)
+    with pytest.raises(ValueError, match="d in"):
+        device_ring_matmul(x[:, :32].contiguous(),
+                           w[:32, :32].contiguous(), mesh)
+    with pytest.raises(ValueError, match="every rank on a card"):
+        device_ring_matmul(x, w, make_mesh((4,), ("sp",), ["cpu"] * 4))
+
+
+@pytest.mark.parametrize("causal,window,n,h_kv", [
+    (True, 0, 2048, 8), (False, 0, 2000, 2), (True, 512, 2048, 2),
+    (True, 3000, 2048, 8)])
+def test_ring_attention_on_the_card(dev, causal, window, n, h_kv):
+    """The ring over 4 ranks against one call on the whole sequence,
+    forward and gradients; the launch counts show what each step ran."""
+    from cuda_flashattention_torch.parallel.ring import ring_attention
+    gen = torch.Generator(device=dev).manual_seed(n + window)
+    q = _rand(gen, dev, 1, 8, n, 128).requires_grad_()
+    k = _rand(gen, dev, 1, h_kv, n, 128).requires_grad_()
+    v = _rand(gen, dev, 1, h_kv, n, 128).requires_grad_()
+    do = _rand(gen, dev, 1, 8, n, 128)
+    forms = flash_attention_forward.form_launches
+    before = sum(forms[f] for f in ("online", "bound", "kmajor"))
+    before_bwd = flash_attention_backward.launches["fused"]
+    o = ring_attention(q, k, v, _ring_mesh(dev, 4), causal=causal,
+                       window=window)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    if not causal:
+        steps = 16
+    elif window:
+        steps = {2: 7, 4: 10}[min(4, -(-window // 512) + 1)]
+    else:
+        steps = 10
+    assert sum(forms[f] for f in ("online", "bound", "kmajor")
+               ) == before + steps
+    assert flash_attention_backward.launches["fused"] == before_bwd + steps
+    ref = flash_attention(q, k, v, causal=causal, window=window)
+    grads_ref = torch.autograd.grad(ref, (q, k, v), do)
+    assert _err(o, ref) <= GATE
+    for g, want in zip(grads, grads_ref):
+        top = want.float().abs().max().item()
+        assert top > 0 and _err(g, want) <= BWD_GATE * top
+
+
+@pytest.mark.parametrize("qtype", [None, "int8", "mixed"])
+@pytest.mark.parametrize("window", [0, 700])
+def test_ring_decode_on_the_card(dev, qtype, window):
+    """K6 on each rank's resident shard, reduced once, against K6 on the
+    whole cache; one launch per rank."""
+    from cuda_flashattention_torch.parallel.mesh import shard_on_axis
+    from cuda_flashattention_torch.parallel.ring import ring_decode
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = _rand(gen, dev, 4, 16, 128) * 8
+    k, v = _rand(gen, dev, 4, 4, 2048, 128) * 4, _rand(gen, dev, 4, 4, 2048,
+                                                       128)
+    lengths = torch.tensor([1, 900, 1537, 2048], dtype=torch.int32,
+                           device=dev)
+    mesh = _ring_mesh(dev, 4)
+    scales = {}
+    if qtype:
+        kv = quantize_kv(k, v, qtype)
+        k, v = kv.k_q, kv.v_q
+        scales = dict(k_scale=kv.k_scale, v_scale=kv.v_scale)
+    cut = lambda x: shard_on_axis(mesh, x, 2, "sp")
+    before = decode_attention.launches
+    o, lse = ring_decode(q, cut(k), cut(v), lengths, mesh, window=window,
+                         **{n: cut(s) for n, s in scales.items()})
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 4
+    o_w, lse_w = decode_attention(q, k, v, lengths, window=window, **scales)
+    top = o_w.float().abs().max().item()
+    assert top > 0 and _err(o, o_w) <= min(GATE, 2e-2 * top)
+    assert _err(lse, lse_w) <= GATE
+    o_g, lse_g = ring_decode(q, k, v, lengths, mesh, window=window, **scales)
+    assert torch.equal(o_g, o) and torch.equal(lse_g, lse)
+
+
+def test_ulysses_and_gpipe_on_the_card(dev):
+    from cuda_flashattention_torch.models import transformer as tfm
+    from cuda_flashattention_torch.parallel.ulysses import ulysses_attention
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = _rand(gen, dev, 1, 8, 2048, 128).requires_grad_()
+    k = _rand(gen, dev, 1, 2, 2048, 128).requires_grad_()
+    v = _rand(gen, dev, 1, 2, 2048, 128).requires_grad_()
+    do = _rand(gen, dev, 1, 8, 2048, 128)
+    o = ulysses_attention(q, k, v, _ring_mesh(dev, 4), causal=True)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    ref = flash_attention(q, k, v, causal=True)
+    grads_ref = torch.autograd.grad(ref, (q, k, v), do)
+    assert _err(o, ref) <= GATE
+    for g, want in zip(grads, grads_ref):
+        top = want.float().abs().max().item()
+        assert top > 0 and _err(g, want) <= BWD_GATE * top
+
+    cfg = tfm.TransformerConfig(vocab_size=512, d_model=256, n_layers=4,
+                                n_heads=4, n_kv_heads=2, d_head=64, d_ff=512,
+                                max_seq=512)
+    model = tfm.Transformer(cfg, torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.randint(0, 512, (4, 512), generator=gen, device=dev)
+    with torch.no_grad():
+        want = tfm.forward(model, tokens)
+        got = tfm.pipeline_forward(model, tokens, _ring_mesh(dev, 2, "pp"),
+                                   n_micro=2)
+    assert _err(got, want) <= 0.125

@@ -36,7 +36,13 @@ def test_import_leaves_jax_out():
     assert {"cuda_flashattention_torch.ops.paged",
             "cuda_flashattention_torch.ops.quant",
             "cuda_flashattention_torch.ops.fa1",
-            "cuda_flashattention_torch.models.convert"} <= set(mods)
+            "cuda_flashattention_torch.models.convert",
+            "cuda_flashattention_torch.parallel.mesh",
+            "cuda_flashattention_torch.parallel.ring",
+            "cuda_flashattention_torch.parallel.ulysses",
+            "cuda_flashattention_torch.parallel.pipeline",
+            "cuda_flashattention_torch.parallel.device_ring",
+            "cuda_flashattention_torch.examples.device_ring"} <= set(mods)
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(any(n == 'jax' or n.startswith(('jax.', "
@@ -98,8 +104,9 @@ def test_chip_smoke_fails_alone(tmp_path):
 def test_build_command_targets_sm90a():
     """One nvcc per source (started together), then one link."""
     srcs = _build.sources()
-    assert {s.name for s in srcs} >= {"flash_fwd.cu", "flash_bwd.cu",
-                                      "decode.cu", "paged.cu", "fa1.cu"}
+    assert {s.name for s in srcs} == {
+        "flash_fwd.cu", "flash_fwd_kmajor.cu", "flash_bwd.cu", "decode.cu",
+        "paged.cu", "fa1.cu", "device_ring.cu"}
     # the body shared by decode.cu and paged.cu is hashed, not compiled
     assert "decode_body.cuh" in {h.name for h in _build.headers()}
     arch = ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
@@ -112,6 +119,36 @@ def test_build_command_targets_sm90a():
                                Path("out.so"))
     assert link[:3] == arch and "-shared" in link
     assert {"a.o", "b.o", "out.so"} <= {Path(c).name for c in link}
+
+
+@pytest.mark.parametrize("name", [
+    "Mesh", "make_mesh", "sequence_mesh", "shard_on_axis",
+    "initialize_distributed", "ring_attention", "ring_decode",
+    "ring_decode_local", "combine_partials", "ulysses_attention",
+    "gpipe_spmd", "stack_stage_params", "stage_param_sharding",
+    "device_ring_matmul", "ring_matmul_plain", "pipeline_forward",
+    "param_shardings", "shard_param", "layer_weights"])
+def test_distributed_layer_is_exported(name):
+    """The names of the JAX package's parallel layer, at the top of the
+    port, each from the module named after its JAX counterpart."""
+    import cuda_flashattention_torch as cfa
+    assert name in cfa.__all__ and callable(getattr(cfa, name))
+    home = getattr(cfa, name).__module__
+    assert home.startswith(("cuda_flashattention_torch.parallel.",
+                            "cuda_flashattention_torch.models.transformer"))
+
+
+def test_device_ring_is_bound_with_its_signature():
+    """K9's C entry points are declared for ctypes (a pointer passed
+    without argtypes would be cut to 32 bits), and its source holds the
+    kernel's own stores and system-scope flags."""
+    assert len(_build.SIGNATURES["cfa_device_ring"]) == 13
+    assert len(_build.SIGNATURES["cfa_enable_peer_access"]) == 2
+    src = (_build.CSRC / "device_ring.cu").read_text()
+    for needle in ("st.release.sys", "ld.acquire.sys",
+                   "__threadfence_system", "cudaLaunchCooperativeKernel",
+                   "__trap()", "wmma::mma_sync"):
+        assert needle in src, needle
 
 
 def test_build_dir_is_git_ignored():
