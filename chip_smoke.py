@@ -278,7 +278,7 @@ def _kernel_of(name: str) -> str:
                            (r"flash_bwd_kv_kernel<\d+, false,", "K2"),
                            (r"flash_bwd_q_kernel", "K3"),
                            (r"flash_fwd_kmajor", "K5"),
-                           (r"flash_fwd_kernel<\d+, [12],", "K1b"),
+                           (r"flash_fwd_bound_kernel", "K1b"),
                            (r"flash_fwd_kernel", "K1"),
                            (r"::decode_kernel<", "K6"),
                            (r"device_ring_kernel", "K9")):
@@ -736,6 +736,19 @@ def _phase_sp_training(ctx, mesh):
     _check(counts == dict(fwd=expect, fused=expect, dkdv=0, dq=0),
            f"sequence-parallel train-step launch counts {counts}")
     _check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    # where one step's device time goes, by kernel group (the ranks' streams
+    # overlap on the card: shares are of the summed kernel time)
+    from cuda_flashattention_torch.utils.profiling import kernel_times
+    prof = kernel_times(lambda: step(tokens))
+    groups = {}
+    for n, t in prof.ms.items():
+        groups[_group_of(n)] = groups.get(_group_of(n), 0.0) + t
+    total = sum(groups.values()) or float("nan")
+    print(f"[sp-train] one step profiled: busy {prof.busy_ms:.3f} ms of "
+          f"{prof.wall_ms:.3f} ms wall; " + ", ".join(
+              f"{g} {t:.3f} ms ({100 * t / total:.1f}%)" for g, t in
+              sorted(groups.items(), key=lambda x: -x[1]))
+          + f" ({ctx.card})", flush=True)
 
     def loss_and_grads(**kw):
         model.zero_grad(set_to_none=True)
@@ -993,13 +1006,13 @@ def main() -> int:
         return (sum(prof.ms[n] for n in names) / n_launches if n_launches
                 else float("nan"))
 
-    def device_ms(fn, pattern, iters=5):
-        """Mean device ms per launch of the kernels whose name matches
-        `pattern` (torch.profiler), each call on a cold L2 cache: the
-        kernel alone, without the small launches and host work of its
-        wrapper."""
+    def device_ms(fn, pattern, iters=5, per_call=1):
+        """Device ms per call of the kernels whose name matches `pattern`
+        (torch.profiler; the mean per launch times the `per_call` launches
+        of a call), each call on a cold L2 cache: the kernel alone, without
+        the small launches and host work of its wrapper."""
         prof = kernel_times(lambda: (l2_flush.zero_(), fn()), iters=iters)
-        return launch_ms(prof, lambda n: re.search(pattern, n))
+        return per_call * launch_ms(prof, lambda n: re.search(pattern, n))
 
     failures = []
     # per kernel: ms, plain_ms, bound_ms, bound_by, library_ms, max_abs_err
@@ -1266,9 +1279,10 @@ def main() -> int:
             ms_p = cuda_time_ms(lambda: flash_attention_forward_plain(
                 q, k, v, out_dtype=torch.float32, **kw), iters=3, warmup=1)
             ms_d = device_ms(lambda: run_form(routed, q, k, v, **kw),
-                             {"kmajor": "flash_fwd_kmajor_kernel",
-                              "bound": r"flash_fwd_kernel<\d+, 1,",
-                              "online": r"flash_fwd_kernel<\d+, 0,"}[routed])
+                             {"kmajor": "flash_fwd_kmajor",
+                              "bound": "flash_fwd_bound_kernel",
+                              "online": "flash_fwd_kernel"}[routed],
+                             per_call=2 if routed == "kmajor" else 1)
             form_ms[name] = ms
             bound = fwd_bound(q, k, v, scales, b * h * pairs)
             # the library call on the dequantised K/V (a band mask under a
@@ -1319,8 +1333,9 @@ def main() -> int:
                     q, k, v, **qkw), iters=10)
                 ms_qd = device_ms(
                     lambda: flash_attention_forward(q, k, v, **qkw),
-                    "flash_fwd_kmajor_kernel" if routed_q == "kmajor"
-                    else r"flash_fwd_kernel<\d+, 2,")
+                    "flash_fwd_kmajor" if routed_q == "kmajor"
+                    else "flash_fwd_bound_kernel",
+                    per_call=2 if routed_q == "kmajor" else 1)
                 print(f"[fwd] {name}, quantize_q -> "
                       f"{routed_kernel[routed_q]}: {line}; wrapper "
                       f"{ms_q:.4f} ms, kernel alone {ms_qd:.4f} ms ({card})",
@@ -2293,10 +2308,11 @@ def main() -> int:
          "window, segments, int8/fp8/mixed K/V)", "flash_fwd.cu",
          "flash_fwd.py:123"),
         ("K1b", "flash_attention_forward softmax=bound (K1b, score-bound "
-         "FA2 forward, Q-major; quantize_q)", "flash_fwd.cu",
-         "flash_fwd.py:123"),
+         "FA2 forward, Q-major, wgmma + TMA; quantize_q)",
+         "flash_fwd_bound.cu", "flash_fwd.py:123"),
         ("K5", "flash_attention_forward softmax=bound, causal or fp8 keys "
-         "(K5, score-bound FA2 forward, K-major)", "flash_fwd_kmajor.cu",
+         "(K5, score-bound FA2 forward, split over keys, wgmma + TMA)",
+         "flash_fwd_kmajor.cu",
          "flash_fwd.py:399"),
         ("K6", "decode_attention (K6, one-token decode: bf16, int8, fp8 "
          "and mixed caches, windows, quantize_q)", "decode.cu",

@@ -44,18 +44,22 @@ _IP = ctypes.POINTER(ctypes.c_int)
 
 # C signatures of the entry points (all return an int cudaError_t).
 SIGNATURES = {
-    # ptrs[12] (q, k, v, k_scale, v_scale, q_seg, kv_seg, c, guard,
-    # n_loose, o, lse), B, H, Hkv, Nq, Nk, D, strides[9] (q/k/v: batch,
-    # head, row, in elements), k_type, v_type (0 bf16, 1 int8, 2 fp8),
-    # form (0 online, 1 bound, 2 bound with int8 Q), causal, window,
+    # ptrs[10] (q, k, v, k_scale, v_scale, q_seg, kv_seg, guard, o, lse),
+    # B, H, Hkv, Nq, Nk, D, strides[9] (q/k/v: batch, head, row, in
+    # elements), k_type, v_type (0 bf16, 1 int8, 2 fp8), causal, window,
     # kv_offset, out_f32, stream
     "cfa_flash_fwd": [_PP, _I, _I, _I, _I, _I, _I, _LP,
-                      _I, _I, _I, _I, _I, _I, _I, _P],
-    # ptrs[11] (q, k, v, k_scale, v_scale, c, l_acc, o_acc, n_loose, o,
-    # lse), B, H, Hkv, Nq, Nk, D, strides[9], k_type, v_type, qq, causal,
-    # window, kv_offset, out_f32, stream
+                      _I, _I, _I, _I, _I, _I, _P],
+    # ptrs[10] (q, k, v, k_scale, v_scale, q_factor, c, n_loose, o, lse),
+    # B, H, Hkv, Nq, Nk, D, strides[9], k_type, v_type, qq, causal, window,
+    # kv_offset, out_f32, stream
+    "cfa_flash_fwd_bound": [_PP, _I, _I, _I, _I, _I, _I, _LP,
+                            _I, _I, _I, _I, _I, _I, _I, _P],
+    # ptrs[12] (q, k, v, k_scale, v_scale, q_factor, c, l_acc, o_acc,
+    # n_loose, o, lse), B, H, Hkv, Nq, Nk, D, strides[9], k_type, v_type,
+    # qq, causal, window, kv_offset, out_f32, span, stream
     "cfa_flash_fwd_kmajor": [_PP, _I, _I, _I, _I, _I, _I, _LP,
-                             _I, _I, _I, _I, _I, _I, _I, _P],
+                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, k_scale, v_scale, q_sigma, lengths, windows, o, lse,
     # B, H, Hkv, max_n, D, k_type, v_type (0 bf16, 1 int8, 2 fp8), qq,
     # scale, window, stream

@@ -1,12 +1,11 @@
-// FlashAttention-2 forward for Hopper on a Q-major walk: the online
-// softmax (K1) and the score-bound softmax (K1b), bf16 Q, K/V in bf16, int8
-// or fp8 e4m3 with per-token scales, fp32 or bf16 out, with the natural-log
-// LSE per query row.
+// FlashAttention-2 forward for Hopper on a Q-major walk with the online
+// softmax (K1): bf16 Q, K/V in bf16, int8 or fp8 e4m3 with per-token
+// scales, fp32 or bf16 out, with the natural-log LSE per query row.
 //
-// Replaces: cuda_flashattention_tpu/ops/flash_fwd.py::_fwd_kernel, both
-// its forms (bound=False and bound=True), with the causal band of its
-// compact grid, its window and segment masks, its folded dequantisation
-// and its int8 Q·Kᵀ (quantize_q).
+// Replaces: cuda_flashattention_tpu/ops/flash_fwd.py::_fwd_kernel with
+// bound=False, with the causal band of its compact grid, its window and
+// segment masks and its folded dequantisation. Its bound=True form (K1b)
+// is flash_fwd_bound.cu.
 //
 // What bounds it on the H100: at the prefill shapes (N = 512..4096,
 // d = 128) the two products are ~4·N²·d flops against 4·N·d bytes per
@@ -24,26 +23,21 @@
 // first row's first visible key, which replaces the TPU kernel's
 // host-enumerated band grid. Each warp owns 16 query rows end to end
 // (scores, softmax, accumulator), so the only block-wide barriers are the
-// two around each K/V tile load. The bound form is the same kernel under a
-// template parameter, as on the TPU: it drops the running max and the
-// accumulator's rescale. Later work: wgmma, TMA and a producer warp.
+// two around each K/V tile load. Later work: wgmma, TMA and a producer
+// warp, as the bound forms have them (flash_fwd_bound_sm90.cuh).
 //
 // Numerics follow the TPU kernel (see flash_fwd_body.cuh for what a tile
-// pair computes). Online: m, l carried per row, O = acc / l, LSE = m·ln2 +
-// ln l. Bound: p = 2^(s − c) against the host's per-row bound c, LSE =
-// c·ln2 + ln l, and a count of rows whose l < 2^-96 though they have
-// visible keys. A row with no visible key gets O = 0 and LSE = NEG_INF in
-// both. The online form can be launched behind a device-side guard: it
-// then exits at once unless the bound form before it counted a loose row,
-// which is how the loose-bound fallback runs without a host round trip.
+// pair computes): m, l carried per row, O = acc / l, LSE = m·ln2 + ln l; a
+// row with no visible key gets O = 0 and LSE = NEG_INF. The kernel can be
+// launched behind a device-side guard: it then exits at once unless the
+// bound form before it counted a loose row, which is how the loose-bound
+// fallback runs without a host round trip.
 
 #include "flash_fwd_body.cuh"
 
 using namespace cfa_fwd_body;
 
 namespace {
-
-constexpr int kOnline = 0, kBound = 1, kBoundQQ = 2;
 
 // The online-softmax step for the warp's 16 rows of one tile pair; lane
 // owns columns lane and lane + 32. With MASKED false every pair is visible
@@ -66,7 +60,7 @@ __device__ __forceinline__ void online_rows(
       const bool ok = !MASKED || visible(a, x, qpos, c0 + c,
                                          x.seg ? qsegs[row] : 0,
                                          x.seg ? ksegs[c] : 0);
-      s[j] = ok ? score<D, false>(ss, row, c, x.quant, kscs) : kNegInf;
+      s[j] = ok ? score<D>(ss, row, c, x.quant, kscs) : kNegInf;
       mx = fmaxf(mx, s[j]);
     }
 #pragma unroll
@@ -98,12 +92,9 @@ __device__ __forceinline__ void online_rows(
   }
 }
 
-template <int D, int FORM, bool EXTRA>
+template <int D, bool EXTRA>
 __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(Args a) {
-  constexpr bool BOUND = FORM != kOnline;
-  constexpr bool QQ = FORM == kBoundQQ;
-  static_assert(EXTRA || !QQ, "quantize_q reads quantized K/V");
-  if (!BOUND && a.guard != nullptr && *a.guard == 0) return;
+  if (a.guard != nullptr && *a.guard == 0) return;
   const Extras<EXTRA> x(a);
 
   using S = Smem<D>;
@@ -114,7 +105,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(Args a) {
   bf16* ps = reinterpret_cast<bf16*>(smem + S::p_off);
   float* ss = reinterpret_cast<float*>(smem + S::s_off);
   float* os = reinterpret_cast<float*>(smem + S::o_off);
-  float* ms = reinterpret_cast<float*>(smem + S::m_off);  // m, or c (bound)
+  float* ms = reinterpret_cast<float*>(smem + S::m_off);
   float* ls = reinterpret_cast<float*>(smem + S::l_off);
   float* kscs = reinterpret_cast<float*>(smem + S::ksc_off);
   float* vscs = reinterpret_cast<float*>(smem + S::vsc_off);
@@ -134,31 +125,18 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(Args a) {
   const int v_type = EXTRA ? a.v_type : kBf16;
   const long long row_base = (long long)(b * a.H + h) * a.Nq;
 
-  if (QQ) {
-    load_tile_s8<D, BQ>(reinterpret_cast<signed char*>(qs),
-                        static_cast<const uint8_t*>(a.q) + b * a.sqb +
-                            h * a.sqh,
-                        kInt8, a.sqn, q0, a.Nq);
-  } else {
-    load_tile<D, BQ>(qs, S::LDH,
-                     static_cast<const bf16*>(a.q) + b * a.sqb + h * a.sqh,
-                     a.sqn, q0, a.Nq);
-  }
+  load_tile<D, BQ>(qs, S::LDH,
+                   static_cast<const bf16*>(a.q) + b * a.sqb + h * a.sqh,
+                   a.sqn, q0, a.Nq);
   for (int i = threadIdx.x; i < BQ * S::LDO; i += NTHREADS) os[i] = 0.f;
   for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
-    if (BOUND) {
-      ms[i] = q0 + i < a.Nq ? a.c[row_base + q0 + i] : 0.f;
-    } else {
-      ms[i] = kNegInf;
-    }
+    ms[i] = kNegInf;
     ls[i] = 0.f;
   }
   if (seg) load_ids(qsegs, a.q_seg + (long long)b * a.Nq, q0, a.Nq, -1);
 
-  // under quantize_q the K scale rows are per query head
   const float* ksc_g =
-      quant ? a.k_scale + (long long)(QQ ? b * a.H + h : b * a.Hkv + hk) * a.Nk
-            : nullptr;
+      quant ? a.k_scale + (long long)(b * a.Hkv + hk) * a.Nk : nullptr;
   const float* vsc_g =
       quant ? a.v_scale + (long long)(b * a.Hkv + hk) * a.Nk : nullptr;
   const uint8_t* kb = static_cast<const uint8_t*>(a.k) +
@@ -181,12 +159,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(Args a) {
   for (int t = t_begin; t < n_tiles; ++t) {
     const int c0 = t * BK;
     __syncthreads();  // previous tile's K/V reads are done (and Q/O init)
-    if (QQ) {
-      load_tile_s8<D, BK>(reinterpret_cast<signed char*>(ks), kb, k_type,
-                          a.skn, c0, a.Nk);
-    } else {
-      load_kv<D>(ks, kb, k_type, a.skn, c0, a.Nk);
-    }
+    load_kv<D>(ks, kb, k_type, a.skn, c0, a.Nk);
     load_kv<D>(vs, vb, v_type, a.svn, c0, a.Nk);
     if (quant) {
       load_scales(kscs, ksc_g, c0, a.Nk);
@@ -195,19 +168,10 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(Args a) {
     if (seg) load_ids(ksegs, a.kv_seg + (long long)b * a.Nk, c0, a.Nk, -2);
     __syncthreads();
 
-    if (QQ) {
-      qk_s8<D>(reinterpret_cast<const signed char*>(qs),
-               reinterpret_cast<const signed char*>(ks),
-               reinterpret_cast<int*>(ss), r0);
-    } else {
-      qk_bf16<D>(qs, ks, ss, r0);
-    }
+    qk_bf16<D>(qs, ks, ss, r0);
     __syncwarp();
 
-    if (BOUND) {
-      bound_probs<D, QQ, EXTRA>(a, x, ss, ms, kscs, vscs, qsegs, ksegs, ps, r0,
-                                q0, c0, ls, true);
-    } else if (all_visible(a, x, q0 + r0 + a.kv_offset, c0)) {
+    if (all_visible(a, x, q0 + r0 + a.kv_offset, c0)) {
       online_rows<D, EXTRA, false>(a, x, ss, kscs, vscs, qsegs, ksegs, ps, os,
                                    ms, ls, r0, q0, c0);
     } else {
@@ -227,10 +191,6 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(Args a) {
     const int qi = q0 + row;
     if (qi >= a.Nq) break;
     const float l = ls[row];
-    if (BOUND) {
-      bound_epilogue_row<D>(a, os + row * S::LDO, l, ms[row], b, h, qi);
-      continue;
-    }
     const float inv = l == 0.f ? 0.f : 1.f / l;
     for (int c = lane; c < D; c += 32) {
       const float val = os[row * S::LDO + c] * inv;
@@ -247,52 +207,39 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(Args a) {
   }
 }
 
-template <int D, int FORM, bool EXTRA>
+template <int D, bool EXTRA>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   const size_t smem = Smem<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, FORM, EXTRA>,
+      flash_fwd_kernel<D, EXTRA>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((a.Nq + BQ - 1) / BQ, a.H, B);
-  flash_fwd_kernel<D, FORM, EXTRA><<<grid, NTHREADS, smem, stream>>>(a);
+  flash_fwd_kernel<D, EXTRA><<<grid, NTHREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_form(const Args& a, int B, int form, cudaStream_t stream) {
+cudaError_t launch_extra(const Args& a, int B, cudaStream_t stream) {
   // the build without the extras serves a call that uses none of them
   const bool extra =
       a.k_scale != nullptr || a.q_seg != nullptr || a.window > 0;
-  switch (form) {
-    case kOnline:
-      return extra ? launch<D, kOnline, true>(a, B, stream)
-                   : launch<D, kOnline, false>(a, B, stream);
-    case kBound:
-      return extra ? launch<D, kBound, true>(a, B, stream)
-                   : launch<D, kBound, false>(a, B, stream);
-    case kBoundQQ:
-      return launch<D, kBoundQQ, true>(a, B, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return extra ? launch<D, true>(a, B, stream)
+               : launch<D, false>(a, B, stream);
 }
 
 }  // namespace
 
-// form: 0 online (K1; behind `guard` when that is not null), 1 bound (K1b),
-// 2 bound with int8 Q (quantize_q). ptrs: q, k, v, k_scale, v_scale, q_seg,
-// kv_seg, c, guard, n_loose, o, lse (null where a form has no use for one).
-// strides: q, k, v, each (batch, head, row), in elements. k_type/v_type:
-// 0 bf16, 1 int8, 2 fp8 e4m3.
+// K1, behind `guard` when that is not null. ptrs: q, k, v, k_scale,
+// v_scale, q_seg, kv_seg, guard, o, lse (null where a call has no use for
+// one). strides: q, k, v, each (batch, head, row), in elements.
+// k_type/v_type: 0 bf16, 1 int8, 2 fp8 e4m3.
 extern "C" int cfa_flash_fwd(void* const* ptrs, int B, int H, int Hkv, int Nq,
                              int Nk, int D, const long long* strides,
-                             int k_type, int v_type, int form, int causal,
-                             int window, int kv_offset, int out_f32,
-                             void* stream) {
+                             int k_type, int v_type, int causal, int window,
+                             int kv_offset, int out_f32, void* stream) {
   if (B == 0 || H == 0 || Nq == 0) return cudaSuccess;
   if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
-  if (form == kBoundQQ && k_type == kBf16) return cudaErrorInvalidValue;
   Args a = {};
   a.q = ptrs[0];
   a.k = ptrs[1];
@@ -301,11 +248,9 @@ extern "C" int cfa_flash_fwd(void* const* ptrs, int B, int H, int Hkv, int Nq,
   a.v_scale = static_cast<const float*>(ptrs[4]);
   a.q_seg = static_cast<const int*>(ptrs[5]);
   a.kv_seg = static_cast<const int*>(ptrs[6]);
-  a.c = static_cast<const float*>(ptrs[7]);
-  a.guard = static_cast<const int*>(ptrs[8]);
-  a.n_loose = static_cast<int*>(ptrs[9]);
-  a.o = ptrs[10];
-  a.lse = static_cast<float*>(ptrs[11]);
+  a.guard = static_cast<const int*>(ptrs[7]);
+  a.o = ptrs[8];
+  a.lse = static_cast<float*>(ptrs[9]);
   a.H = H; a.Hkv = Hkv; a.Nq = Nq; a.Nk = Nk;
   a.sqb = strides[0]; a.sqh = strides[1]; a.sqn = strides[2];
   a.skb = strides[3]; a.skh = strides[4]; a.skn = strides[5];
@@ -316,9 +261,9 @@ extern "C" int cfa_flash_fwd(void* const* ptrs, int B, int H, int Hkv, int Nq,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch_form<64>(a, B, form, s);
+      return launch_extra<64>(a, B, s);
     case 128:
-      return launch_form<128>(a, B, form, s);
+      return launch_extra<128>(a, B, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,14 +1,11 @@
-// What the two FlashAttention-2 forward kernels share: the Q-major walk of
-// flash_fwd.cu (K1 online, K1b bound) and the K-major walk of
-// flash_fwd_kmajor.cu (K5).
+// The tile pair of the online FlashAttention-2 forward (K1,
+// flash_fwd.cu).
 //
-// Replaces: the parts of cuda_flashattention_tpu/ops/flash_fwd.py that
-// ::_fwd_kernel and ::_fwd_kernel_kmajor have in common: the tile loads
-// with their dequantising casts, the Q·Kᵀ and P·V products, the element
-// mask, the bound-softmax step p = 2^(s − c) and the loose-bound test of
-// the epilogue. A walk decides which (Q tile, K/V tile) pairs a CTA
-// visits and where their partial sums go; what a pair computes is here,
-// so the two kernels cannot drift apart.
+// Replaces: the parts of cuda_flashattention_tpu/ops/flash_fwd.py::
+// _fwd_kernel (bound=False) that a (Q tile, K/V tile) pair computes: the
+// tile loads with their dequantising casts, the Q·Kᵀ and P·V products and
+// the element mask. The bound forms (K1b, K5) have their own Hopper body,
+// flash_fwd_bound_sm90.cuh.
 //
 // Tiles are 64 query rows by 64 keys, four warps, each warp owning 16
 // query rows end to end. K and V may be stored as bf16, int8 or fp8 e4m3
@@ -16,14 +13,11 @@
 // scale per token; a tile is converted to bf16 ONCE when it is copied into
 // shared memory (every int8 and e4m3 value is a bf16 value), so the
 // products run on the same bf16 tensor-core fragments whatever the
-// storage. Under quantize_q both Q and K are int8 and Q·Kᵀ runs on int8
-// fragments with exact int32 accumulation; fp8 keys are re-gridded onto
-// int8 as the tile is loaded: clip(round_half_even(k · 127/448), ±127).
+// storage.
 //
-// Numerics follow the TPU kernels:
+// Numerics follow the TPU kernel:
 //   s = (q̂ · k_q) · k_scale[col]          fp32; q̂ is Q·scale·log2e rounded
-//       to bf16 by the host, or under quantize_q the int8 Q, whose
-//       sigma_q·scale·log2e the host folded into per-query-head k_scale rows
+//       to bf16 by the host
 //   masked s = NEG_INF, p = 0
 //   acc += bf16(p · v_scale[col]) · v_q    rounded AFTER the scale
 //   l sums the unrounded p.
@@ -55,27 +49,17 @@ static_assert(BQ == BK, "the per-tile vectors are sized for either");
 // storage type codes of the C interface
 constexpr int kBf16 = 0, kInt8 = 1, kFp8 = 2;
 
-// A bound-softmax row whose l = sum 2^(s − c) falls below 2^-96 although it
-// has visible keys has a loose bound: every weight sits 96 log2 units or
-// more under c, on the way to the fp32 subnormals.
-constexpr float kLooseBound = 0x1p-96f;
-// fp8 code units to int8 code units (the quantize_q re-grid)
-constexpr float kRegrid = (float)(127.0 / 448.0);
 
-// What both walks are given.
+// What the kernel is given.
 struct Args {
-  const void* q;         // [B,H,Nq,D] bf16 prescaled, or int8 (quantize_q)
+  const void* q;         // [B,H,Nq,D] bf16 prescaled
   const void* k;         // [B,Hkv,Nk,D] in k_type
   const void* v;         // [B,Hkv,Nk,D] in v_type
-  const float* k_scale;  // [B,Hkv,Nk]; [B,H,Nk] under quantize_q; or null
+  const float* k_scale;  // [B,Hkv,Nk] or null
   const float* v_scale;  // [B,Hkv,Nk] or null
   const int* q_seg;      // [B,Nq] or null
   const int* kv_seg;     // [B,Nk] or null
-  const float* c;        // [B,H,Nq] log2 score bound (bound forms)
-  const int* guard;      // online form: run only when *guard != 0
-  int* n_loose;          // bound forms: count of loose-bound rows
-  float* l_acc;          // [B,H,Nq] fp32, zeroed (K-major)
-  float* o_acc;          // [B,H,Nq,D] fp32, zeroed (K-major)
+  const int* guard;      // run only when *guard != 0 (or null)
   void* o;               // [B,H,Nq,D] fp32 or bf16
   float* lse;            // [B,H,Nq]
   int H, Hkv, Nq, Nk;
@@ -92,10 +76,6 @@ struct Smem {
   static constexpr int LDS = BK + 4;   // fp32 (or int32) scores
   static constexpr int LDP = BK + 8;   // bf16 probabilities
   static constexpr int LDO = D + 4;    // fp32 accumulator
-  // An int8 tile (quantize_q) lives in a bf16 tile's space: LDB bytes per
-  // row, each 16-value k-slice on its own 32 bytes, so that every int8
-  // fragment pointer is 32-byte aligned as wmma asks.
-  static constexpr int LDB = 2 * LDH;
   static constexpr size_t q_off = 0;
   static constexpr size_t k_off = q_off + sizeof(bf16) * BQ * LDH;
   static constexpr size_t v_off = k_off + sizeof(bf16) * BK * LDH;
@@ -198,43 +178,6 @@ __device__ __forceinline__ void load_kv(bf16* dst, const void* src, int type,
   }
 }
 
-// An int8 tile for the integer Q·Kᵀ, in the spread layout of Smem::LDB:
-// int8 storage is copied; e4m3 storage is re-gridded onto int8.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile_s8(signed char* dst,
-                                             const uint8_t* src, int type,
-                                             long long stride, int row0,
-                                             int valid) {
-  using S = Smem<D>;
-  constexpr int VPR = D / 16;
-  for (int i = threadIdx.x; i < ROWS * VPR; i += NTHREADS) {
-    const int r = i / VPR;
-    const int sl = i % VPR;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (row0 + r < valid) {
-      raw = *reinterpret_cast<const uint4*>(src + (row0 + r) * stride +
-                                            sl * 16);
-      if (type == kFp8) {
-        float f[16];
-        cvt16(raw, kFp8, f);
-        unsigned int w[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          w[j] = 0;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int code =
-                max(-127, min(127, __float2int_rn(f[4 * j + e] * kRegrid)));
-            w[j] |= ((unsigned int)code & 0xffu) << (8 * e);
-          }
-        }
-        raw = make_uint4(w[0], w[1], w[2], w[3]);
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * S::LDB + sl * 32) = raw;
-  }
-}
-
 // One tile's per-token scales (1 past the ragged end) into shared memory.
 __device__ __forceinline__ void load_scales(float* dst, const float* src,
                                             int c0, int Nk) {
@@ -274,36 +217,6 @@ __device__ __forceinline__ void qk_bf16(const bf16* qs, const bf16* ks,
 #pragma unroll
   for (int nb = 0; nb < BK / 16; ++nb) {
     wmma::store_matrix_sync(ss + r0 * S::LDS + nb * 16, acc[nb], S::LDS,
-                            wmma::mem_row_major);
-  }
-}
-
-// The same on int8 fragments with int32 accumulation (exact); the tiles
-// are in the spread layout.
-template <int D>
-__device__ __forceinline__ void qk_s8(const signed char* q8,
-                                      const signed char* k8, int* si,
-                                      int r0) {
-  using S = Smem<D>;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[BK / 16];
-#pragma unroll
-  for (int nb = 0; nb < BK / 16; ++nb) wmma::fill_fragment(acc[nb], 0);
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major>
-        fa;
-    wmma::load_matrix_sync(fa, q8 + r0 * S::LDB + kk * 32, S::LDB);
-#pragma unroll
-    for (int nb = 0; nb < BK / 16; ++nb) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
-                     wmma::col_major> fb;
-      wmma::load_matrix_sync(fb, k8 + nb * 16 * S::LDB + kk * 32, S::LDB);
-      wmma::mma_sync(acc[nb], fa, fb, acc[nb]);
-    }
-  }
-#pragma unroll
-  for (int nb = 0; nb < BK / 16; ++nb) {
-    wmma::store_matrix_sync(si + r0 * S::LDS + nb * 16, acc[nb], S::LDS,
                             wmma::mem_row_major);
   }
 }
@@ -384,99 +297,12 @@ __device__ __forceinline__ bool all_visible(const Args& a,
 }
 
 // The score of (row, column c of the tile) in log2 units, dequantised.
-template <int D, bool QQ>
+template <int D>
 __device__ __forceinline__ float score(const float* ss, int row, int c,
                                        bool quant, const float* kscs) {
   using S = Smem<D>;
-  float s;
-  if (QQ) {
-    s = (float)reinterpret_cast<const int*>(ss)[row * S::LDS + c];
-  } else {
-    s = ss[row * S::LDS + c];
-  }
+  const float s = ss[row * S::LDS + c];
   return quant ? s * kscs[c] : s;
-}
-
-// The bound-softmax step for the warp's 16 rows of one tile pair:
-// p = 2^(s − c_row) (0 where masked), P·v_scale rounded to bf16 into `ps`,
-// and each row's sum of p added to ls[row] (`add`) or stored there. With
-// MASKED false every pair is visible and no element is tested.
-template <int D, bool QQ, bool EXTRA, bool MASKED>
-__device__ __forceinline__ void bound_rows(
-    const Args& a, const Extras<EXTRA>& x, const float* ss, const float* cs,
-    const float* kscs, const float* vscs, const int* qsegs, const int* ksegs,
-    bf16* ps, int r0, int q0, int c0, float* ls, bool add) {
-  using S = Smem<D>;
-  const int lane = threadIdx.x % 32;
-  for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
-    const int row = r0 + rr;
-    const int qpos = q0 + row + a.kv_offset;
-    const float cval = cs[row];
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK / 32; ++j) {
-      const int c = lane + 32 * j;
-      const bool ok = !MASKED || visible(a, x, qpos, c0 + c,
-                                         x.seg ? qsegs[row] : 0,
-                                         x.seg ? ksegs[c] : 0);
-      const float p =
-          ok ? exp2f(score<D, QQ>(ss, row, c, x.quant, kscs) - cval) : 0.f;
-      sum += p;
-      ps[row * S::LDP + c] = __float2bfloat16(x.quant ? p * vscs[c] : p);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (lane == 0) ls[row] = add ? ls[row] + sum : sum;
-  }
-}
-
-template <int D, bool QQ, bool EXTRA>
-__device__ __forceinline__ void bound_probs(
-    const Args& a, const Extras<EXTRA>& x, const float* ss, const float* cs,
-    const float* kscs, const float* vscs, const int* qsegs, const int* ksegs,
-    bf16* ps, int r0, int q0, int c0, float* ls, bool add) {
-  if (all_visible(a, x, q0 + r0 + a.kv_offset, c0)) {
-    bound_rows<D, QQ, EXTRA, false>(a, x, ss, cs, kscs, vscs, qsegs, ksegs,
-                                    ps, r0, q0, c0, ls, add);
-  } else {
-    bound_rows<D, QQ, EXTRA, true>(a, x, ss, cs, kscs, vscs, qsegs, ksegs, ps,
-                                   r0, q0, c0, ls, add);
-  }
-}
-
-// Whether query row qi provably has a visible key (the loose-bound test
-// applies to such rows only; an empty row's l = 0 is legitimate).
-__device__ __forceinline__ bool provably_visible(const Args& a, int qi) {
-  if (!a.causal) return true;
-  const int g = qi + a.kv_offset;
-  return g >= 0 && (a.window <= 0 || g - a.window + 1 <= a.Nk - 1);
-}
-
-
-// One row of the bound forms' epilogue: O = acc / l, LSE = c·ln2 + ln l
-// (O = 0, LSE = NEG_INF where l = 0), and the loose-bound count. `acc`
-// is the row's D accumulated values with unit stride; called by a warp.
-template <int D>
-__device__ __forceinline__ void bound_epilogue_row(const Args& a,
-                                                   const float* acc, float l,
-                                                   float cval, int b, int h,
-                                                   int qi) {
-  const int lane = threadIdx.x % 32;
-  const float inv = l == 0.f ? 0.f : 1.f / l;
-  const long long row = (long long)(b * a.H + h) * a.Nq + qi;
-  for (int c = lane; c < D; c += 32) {
-    const float val = acc[c] * inv;
-    if (a.out_f32) {
-      static_cast<float*>(a.o)[row * D + c] = val;
-    } else {
-      static_cast<bf16*>(a.o)[row * D + c] = __float2bfloat16(val);
-    }
-  }
-  if (lane == 0) {
-    a.lse[row] = l == 0.f ? kNegInf : cval * kLn2 + logf(l);
-    if (l < kLooseBound && provably_visible(a, qi)) atomicAdd(a.n_loose, 1);
-  }
 }
 
 }  // namespace cfa_fwd_body

@@ -25,6 +25,7 @@ from cuda_flashattention_torch.models.transformer import (
     Transformer,
     TransformerConfig,
 )
+from cuda_flashattention_torch.ops.common import resolve_device
 from cuda_flashattention_torch.ops.kv_cache import KVCache
 from cuda_flashattention_torch.ops.paged import PagedKVCache
 
@@ -105,10 +106,12 @@ def kv_cache_from_numpy(k: np.ndarray, v: np.ndarray,
                         v_scale: Optional[np.ndarray] = None,
                         length: int = 0,
                         dtype: Optional[torch.dtype] = None,
-                        device="cpu") -> KVCache:
+                        device=None) -> KVCache:
     """A `KVCache` holding the arrays of a JAX one: k/v [B,Hkv,max_len,d]
     (see `_values` for the storage types), scales [B,Hkv,max_len] or None,
-    and the live length."""
+    and the live length. `device=None` means the card (`resolve_device`);
+    pass `device="cpu"` for the CPU."""
+    device = resolve_device(device)
     return KVCache(_values(k, dtype, device), _values(v, dtype, device),
                    _scales(k_scale, device), _scales(v_scale, device),
                    int(length))
@@ -119,10 +122,12 @@ def paged_cache_from_numpy(k_pages: np.ndarray, v_pages: np.ndarray,
                            v_scale: Optional[np.ndarray],
                            page_table: np.ndarray, lengths: np.ndarray,
                            dtype: Optional[torch.dtype] = None,
-                           device="cpu") -> PagedKVCache:
+                           device=None) -> PagedKVCache:
     """A `PagedKVCache` holding the arrays of a JAX one: pools
     [n_pages,Hkv,page,d], scale pools [n_pages,Hkv,page] or None, the
-    page table [B,max_pages] and the lengths [B]."""
+    page table [B,max_pages] and the lengths [B]. `device=None` means the
+    card (`resolve_device`); pass `device="cpu"` for the CPU."""
+    device = resolve_device(device)
     def ints(x):
         return torch.from_numpy(np.asarray(x, dtype=np.int32).copy()).to(
             device)

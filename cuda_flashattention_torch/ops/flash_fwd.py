@@ -7,14 +7,17 @@ Counterpart of cuda_flashattention_tpu/ops/flash_fwd.py
   online   K1: running max and rescale (csrc/flash_fwd.cu), one CTA per
            64-row Q tile, the walk bounded by the causal and window
            frontiers, GQA through `h // group` with no repeat materialised.
-  bound    K1b: the same kernel with the score-bound softmax. The host
-           computes c[b,h,i] = ‖q̂_i‖₂ · max_j ‖k_j‖₂ (Cauchy–Schwarz, log2
-           units) and the kernel evaluates p = 2^(s − c) with no running max
-           and no rescale.
-  kmajor   K5: the bound form on a K-outer walk (csrc/flash_fwd_kmajor.cu):
-           a K/V tile is dequantised once and the Q tiles stream past it,
-           their partial l and acc added with fp32 atomics, so O differs in
-           its last fp32 bits from run to run.
+  bound    K1b: the score-bound softmax on a Q-major walk
+           (csrc/flash_fwd_bound.cu, wgmma + TMA). The host computes
+           c[b,h,i] = ‖q̂_i‖₂ · max_j ‖k_j‖₂ (Cauchy–Schwarz, log2 units)
+           and the kernel evaluates p = 2^(s − c) with no running max and
+           no rescale; a CTA packs the query heads of one KV head.
+  kmajor   K5: the same function split over keys
+           (csrc/flash_fwd_kmajor.cu): a CTA keeps a span of key tiles
+           resident (dequantised once) and the Q tiles of its group stream
+           past; each (Q tile, span) pair's l and acc are added with fp32
+           atomics, so O differs in its last fp32 bits from run to run.
+           `_kmajor_span` sizes the span so that the grid fills the card.
 
 `softmax="auto"` routes as the JAX function does (`_resolve_use_bound`,
 and K-major for a bound call that is causal or reads fp8 keys), without its
@@ -51,6 +54,7 @@ from cuda_flashattention_torch import _build
 from cuda_flashattention_torch.ops.common import (
     KERNEL_HEAD_DIMS,
     NEG_INF,
+    cdiv,
     check_qkv,
     kernel_operand,
     quantize_q_per_head,
@@ -181,19 +185,23 @@ def _plan(q, k, v, scale, causal, window, kv_offset, block_sizes, k_scale,
         checked=use_bound and not qq and softmax != "bound_unchecked")
 
 
-def _quantize_q(q, k_scale, plan: _Plan):
-    """quantize_q's host part: per-(batch, head) int8 Q, and the K scale
-    rows expanded per QUERY head with sigma_q·scale·log2e (and 448/127 for
-    the fp8 → int8 re-grid) folded in. Returns (q8 [B,H,Nq,d] int8,
-    factor [B,H,1] restoring q8 to log2 score units, rows [B,H,Nk])."""
-    group = q.shape[1] // k_scale.shape[1]
+def _quantize_q(q, plan: _Plan):
+    """quantize_q's host part: per-(batch, head) int8 Q. Returns (q8
+    [B,H,Nq,d] int8, factor [B,H,1] restoring q8 to log2 score units, the
+    per-head factor of the K scale rows: `factor`, times 448/127 for the
+    fp8 → int8 re-grid)."""
     q8, sq = quantize_q_per_head(q, (2, 3))            # sq [B,H,1,1]
     factor = sq[:, :, :, 0] * (plan.scale * _LOG2E)    # [B,H,1]
-    rows = k_scale.float()
-    if group > 1:
-        rows = rows.repeat_interleave(group, dim=1)    # [B,H,Nk]
-    rows = rows * (factor * (448.0 / 127.0) if plan.regrid else factor)
-    return q8, factor, rows
+    return q8, factor, factor * (448.0 / 127.0) if plan.regrid else factor
+
+
+def _row_norms(x):
+    """‖x_i‖₂ over the last dim, fp32: one fp32-accumulating reduction
+    with no fp32 copy (one-byte codes are read through bf16, which holds
+    every int8 and e4m3 value exactly)."""
+    if x.element_size() == 1:
+        x = x.to(torch.bfloat16)
+    return torch.linalg.vector_norm(x, dim=-1, dtype=torch.float32)
 
 
 def _score_bound(q_hat, k, k_scale, *, factor=None, regrid=False):
@@ -203,21 +211,19 @@ def _score_bound(q_hat, k, k_scale, *, factor=None, regrid=False):
     quantized key's norm is its codes' norm times its scale, inflated by
     the re-grid's worst rounding √d·(224/127)·scale under `regrid`."""
     group = q_hat.shape[1] // k.shape[1]
-    kf = k.float()
-    k_norms = torch.sqrt((kf * kf).sum(-1))                  # [B,Hkv,Nk]
+    k_norms = _row_norms(k)                                  # [B,Hkv,Nk]
     if k_scale is not None:
         ks = k_scale.float()
         k_norms = k_norms * ks
         if regrid:
             k_norms = k_norms + ks * (math.sqrt(k.shape[-1]) * 224.0 / 127.0)
-    kmax = k_norms.amax(dim=-1, keepdim=True)                # [B,Hkv,1]
-    if group > 1:
-        kmax = kmax.repeat_interleave(group, dim=1)          # [B,H,1]
-    qf = q_hat.float()
-    qn = torch.sqrt((qf * qf).sum(-1))                       # [B,H,Nq]
+    kmax = k_norms.amax(dim=-1)                              # [B,Hkv]
+    qn = _row_norms(q_hat)                                   # [B,H,Nq]
     if factor is not None:
         qn = qn * factor
-    return qn * kmax
+    b, h, nq = qn.shape
+    return (qn.view(b, h // group, group, nq)
+            * kmax[:, :, None, None]).view(b, h, nq)
 
 
 def _visible(nq, nk, plan: _Plan, q_seg, kv_seg, device):
@@ -244,7 +250,11 @@ def _forward_plain(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
     group = h // h_kv
     zero = torch.zeros((), device=q.device)
     if bound and plan.qq:
-        q8, factor, rows = _quantize_q(q, k_scale, plan)
+        q8, factor, row_factor = _quantize_q(q, plan)
+        rows = k_scale.float()
+        if group > 1:
+            rows = rows.repeat_interleave(group, dim=1)      # [B,H,Nk]
+        rows = rows * row_factor
         qs, krow = q8.float(), rows.view(b, h_kv, group, 1, nk)
         kf = k.float()
         if plan.regrid:
@@ -350,6 +360,24 @@ def _ptrs(*tensors):
         *[None if t is None else t.data_ptr() for t in tensors])
 
 
+# key tiles (of 64) a K5 CTA keeps resident at each head dim: what fits
+# beside its Q ring (csrc/flash_fwd_kmajor.cu, max_span)
+_KMAJOR_MAX_SPAN = {64: 8, 128: 4}
+_KMAJOR_TILE = 64
+
+
+def _kmajor_span(b: int, h_kv: int, nk: int, d: int, sms: int) -> int:
+    """Key tiles per K5 CTA: the longest span the CTA can keep resident
+    whose grid (one CTA per span, KV head and batch) still holds two waves
+    of `sms` CTAs; 1, the most CTAs, when none does. Longer spans add each
+    query row's partial sums fewer times."""
+    tiles = cdiv(nk, _KMAJOR_TILE)
+    for span in range(_KMAJOR_MAX_SPAN[d], 1, -1):
+        if cdiv(tiles, span) * h_kv * b >= 2 * sms:
+            return span
+    return 1
+
+
 def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
               kv_seg):
     b, h, nq, d = q.shape
@@ -380,7 +408,9 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
     if plan.segmented:
         q_seg = q_seg.to(torch.int32).contiguous()
         kv_seg = kv_seg.to(torch.int32).contiguous()
-    q_hat = kernel_operand(_prescale_q(q, plan.scale))
+    # the prescaled Q, unless only the int8 Q of quantize_q is read
+    q_hat = (None if plan.use_bound and plan.qq
+             else kernel_operand(_prescale_q(q, plan.scale)))
     o = torch.empty((b, h, nq, d), dtype=out_dtype, device=q.device)
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
     counts = flash_attention_forward.form_launches
@@ -397,10 +427,9 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
 
         def online(guard):
             err = lib.cfa_flash_fwd(
-                _ptrs(q_hat, k, v, ksc, vsc, q_seg, kv_seg, None, guard,
-                      None, o, lse),
-                b, h, h_kv, nq, nk, d, strides(q_hat), k_type, v_type, 0,
-                *tail, stream)
+                _ptrs(q_hat, k, v, ksc, vsc, q_seg, kv_seg, guard, o, lse),
+                b, h, h_kv, nq, nk, d, strides(q_hat), k_type, v_type, *tail,
+                stream)
             _build.check(err, "flash_attention_forward online kernel launch")
             counts["online" if guard is None else "fallback"] += 1
             flash_attention_forward.launches += 1
@@ -410,34 +439,39 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
             return o, lse
 
         if plan.qq:
-            q8, factor, ksc_rows = _quantize_q(q, k_scale, plan)
-            q_op, ksc_rows = q8.contiguous(), ksc_rows.contiguous()
+            q8, factor, row_factor = _quantize_q(q, plan)
+            q_op = kernel_operand(q8)
+            q_factor = row_factor[:, :, 0].contiguous()
             c = _score_bound(q8, k, k_scale, factor=factor,
                              regrid=plan.regrid)
         else:
-            q_op, ksc_rows = q_hat, ksc
+            q_op, q_factor = q_hat, None
             c = _score_bound(q_hat, k, k_scale)
         c = c.contiguous()
-        n_loose = torch.zeros(1, dtype=torch.int32, device=q.device)
+        shape = (b, h, h_kv, nq, nk, d, strides(q_op), k_type, v_type,
+                 int(plan.qq), *tail)
         if plan.use_kmajor:
-            # the walk's fp32 partial sums, added with atomics
-            l_acc = torch.zeros((b, h, nq), dtype=torch.float32,
-                                device=q.device)
-            o_acc = torch.zeros((b, h, nq, d), dtype=torch.float32,
-                                device=q.device)
+            # one zeroed buffer: each (Q tile, span) pair's partial sums,
+            # added with atomics (acc, then l), then the loose-row count
+            n_acc = b * h * nq * d
+            scratch = torch.zeros(n_acc + b * h * nq + 1,
+                                  dtype=torch.float32, device=q.device)
+            o_acc = scratch[:n_acc]
+            l_acc = scratch[n_acc:-1]
+            n_loose = scratch[-1:].view(torch.int32)
+            sms = torch.cuda.get_device_properties(
+                q.device).multi_processor_count
+            span = _kmajor_span(b, h_kv, nk, d, sms)
             err = lib.cfa_flash_fwd_kmajor(
-                _ptrs(q_op, k, v, ksc_rows, vsc, c, l_acc, o_acc, n_loose, o,
-                      lse),
-                b, h, h_kv, nq, nk, d, strides(q_op), k_type, v_type,
-                int(plan.qq), *tail, stream)
+                _ptrs(q_op, k, v, ksc, vsc, q_factor, c, l_acc, o_acc,
+                      n_loose, o, lse), *shape, span, stream)
             _build.check(err, "flash_attention_forward K-major kernel launch")
             counts["kmajor"] += 1
         else:
-            err = lib.cfa_flash_fwd(
-                _ptrs(q_op, k, v, ksc_rows, vsc, None, None, c, None,
-                      n_loose, o, lse),
-                b, h, h_kv, nq, nk, d, strides(q_op), k_type, v_type,
-                2 if plan.qq else 1, *tail, stream)
+            n_loose = torch.zeros(1, dtype=torch.int32, device=q.device)
+            err = lib.cfa_flash_fwd_bound(
+                _ptrs(q_op, k, v, ksc, vsc, q_factor, c, n_loose, o, lse),
+                *shape, stream)
             _build.check(err, "flash_attention_forward bound kernel launch")
             counts["bound"] += 1
         flash_attention_forward.launches += 1

@@ -487,13 +487,20 @@ def ring_decode_local(
                     v_scale=None if v_scale is None else v_scale[i],
                     scale=scale, block_k=block_k, window=window,
                     windows=None if windows is None else windows[i].to(dev)))
-    o_i = torch.stack([o.to(q.device).float() for o, _ in parts])
-    lse_i = torch.stack([l.to(q.device) for _, l in parts])
+    o, lse = _merge_ranks(parts, q.device)
+    return o.to(q.dtype), lse
+
+
+def _merge_ranks(parts, device):
+    """The ranks' normalised decode partials [(O, LSE), ...] merged on
+    `device` by one max / sum reduction: (O fp32, before any cast; LSE)."""
+    o_i = torch.stack([o.to(device).float() for o, _ in parts])
+    lse_i = torch.stack([l.to(device) for _, l in parts])
     lse_max = lse_i.amax(dim=0)
     w = torch.exp(lse_i - lse_max)
     w_sum = w.sum(dim=0).clamp_min(1e-30)
     o = (o_i * w[..., None]).sum(dim=0) / w_sum[..., None]
-    return o.to(q.dtype), lse_max + torch.log(w_sum)
+    return o, lse_max + torch.log(w_sum)
 
 
 def _shards(mesh: Mesh, axis_name: str, x: Optional[Shards], dim: int,

@@ -4,14 +4,20 @@ package, to compare two commits on one card within one call.
     python3 cuda_flashattention_torch/utils/ab_kernels.py <checkout root>
 
 imports `cuda_flashattention_torch` from <checkout root> (building its
-kernels there), and prints, for the serving prefill shape (B=8, H=16,
-Hkv=4, N=512, fp32 out) and the training shape (B=1, H=16, N=4096, bf16
-out), both causal, bf16, d=128: the forward wrapper's median ms (CUDA
-events), the forward kernel's own device ms per launch (torch.profiler),
-and the same for the fused backward. Unpack the parent commit beside the
-change (`git archive <commit> | tar -x -C <dir>`) and run parent, change,
-change, parent: two cards, or two calls, differ by more than two commits
-do. Needs a CUDA device.
+kernels there), and prints, on bf16 inputs with d=128:
+  - the online forward (K1) and the fused backward (K4), both causal, at
+    the serving prefill shape (B=8, H=16, Hkv=4, N=512, fp32 out) and the
+    training shape (B=1, H=16, N=4096, bf16 out);
+  - the score-bound forward (`softmax="bound_unchecked"`, no guarded
+    fallback launch) at the chunked-prefill prefix (B=8, H=16, Hkv=4, 512
+    query rows over 3584 keys, fp32 out): K1b over bf16 and int8 K/V, K5
+    over fp8 K/V; and K5 at B=1, H=16, N=16384 causal (the one-rank call
+    of the ring's shape, and Ulysses').
+For each: the wrapper's median ms (CUDA events) and the device ms per
+call of its kernels (torch.profiler), with each kernel's ms per launch.
+Unpack the parent commit beside the change (`git archive <commit> | tar
+-x -C <dir>`) and run parent, change, change, parent: two cards, or two
+calls, differ by more than two commits do. Needs a CUDA device.
 """
 
 import sys
@@ -25,19 +31,29 @@ def main(root: str) -> None:
         flash_attention_backward)
     from cuda_flashattention_torch.ops.flash_fwd import (
         flash_attention_forward)
+    from cuda_flashattention_torch.ops.quant import quantize_kv
     from cuda_flashattention_torch.utils.profiling import kernel_times
     from cuda_flashattention_torch.utils.timing import cuda_time_ms
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
+    card = torch.cuda.get_device_name(0)
 
-    def mk(*shape):
-        return (torch.rand(shape, generator=gen, device=dev) - 0.5).to(
-            torch.bfloat16)
+    def mk(*shape, peak=1.0):
+        return ((torch.rand(shape, generator=gen, device=dev) - 0.5)
+                * peak).to(torch.bfloat16)
 
-    def per_launch(prof, word):
-        return ", ".join(f"{prof.ms[n] / prof.count[n]:.4f}"
-                         for n in prof.ms if word in n)
+    def report(label, fn, word, iters):
+        """`label`: wrapper ms, the matching kernels' device ms per call
+        (each launches once a call) and each one's ms per launch."""
+        wrapper = cuda_time_ms(fn, iters=iters)
+        prof = kernel_times(fn, iters=max(1, iters // 4))
+        names = [n for n in prof.ms if word in n]
+        per_call = sum(prof.ms[n] / prof.count[n] for n in names)
+        each = ", ".join(f"{n.split('(')[0][:48]} "
+                         f"{prof.ms[n] / prof.count[n]:.4f}" for n in names)
+        print(f"{root} {label}: wrapper {wrapper:.4f} ms, kernels "
+              f"{per_call:.4f} ms per call [{each}] ({card})", flush=True)
 
     for name, (b, h, hkv, n), out_dtype in (
             ("prefill", (8, 16, 4, 512), torch.float32),
@@ -54,12 +70,28 @@ def main(root: str) -> None:
         def bwd():
             return flash_attention_backward(q, k, v, o, lse, do, causal=True)
 
-        print(f"{root} {name}: forward wrapper "
-              f"{cuda_time_ms(fwd, iters=50):.4f} ms, kernel "
-              f"{per_launch(kernel_times(fwd, iters=10), 'flash_fwd')} ms; "
-              f"fused backward wrapper {cuda_time_ms(bwd, iters=20):.4f} ms, "
-              f"kernel {per_launch(kernel_times(bwd, iters=5), 'flash_bwd')}"
-              f" ms ({torch.cuda.get_device_name(0)})", flush=True)
+        report(f"{name} K1 forward", fwd, "flash_fwd", 40)
+        report(f"{name} K4 fused backward", bwd, "flash_bwd", 20)
+
+    # the score-bound forms, peaked inputs as chip_smoke feeds them
+    q = mk(8, 16, 512, 128, peak=8)
+    k, v = mk(8, 4, 3584, 128, peak=4), mk(8, 4, 3584, 128)
+    for label, qtype in (("prefix K1b bf16", None),
+                         ("prefix K1b int8", "int8"),
+                         ("prefix K5 fp8", "fp8")):
+        kk, vv, scales = k, v, {}
+        if qtype is not None:
+            kv = quantize_kv(k, v, qtype)
+            kk, vv = kv.k_q, kv.v_q
+            scales = dict(k_scale=kv.k_scale, v_scale=kv.v_scale)
+        report(label, lambda: flash_attention_forward(
+            q, kk, vv, out_dtype=torch.float32, softmax="bound_unchecked",
+            **scales), "flash_fwd", 20)
+    del q, k, v
+    q = mk(1, 16, 16384, 128, peak=8)
+    k, v = mk(1, 16, 16384, 128, peak=4), mk(1, 16, 16384, 128)
+    report("N=16384 causal K5", lambda: flash_attention_forward(
+        q, k, v, causal=True, softmax="bound_unchecked"), "flash_fwd", 8)
 
 
 if __name__ == "__main__":

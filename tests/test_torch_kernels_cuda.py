@@ -606,6 +606,113 @@ def test_kmajor_matches_qmajor(dev, qtype, quantize_q):
     assert _err(o_k, o_q) <= 1e-4 and _err(lse_k, lse_q) <= 1e-4
 
 
+def _pinned(form, q, k, v, quantize_q=False, out_dtype=torch.float32,
+            **kw):
+    """One bound kernel pinned, whatever "auto" would route to: "bound"
+    (K1b, Q-major) or "kmajor" (K5, key split), without the guarded
+    fallback launch."""
+    import dataclasses
+    from cuda_flashattention_torch.ops import flash_fwd as ff
+    plan = ff._plan(q, k, v, None, kw.get("causal", False),
+                    kw.get("window", 0), kw.get("kv_offset", 0), None,
+                    kw.get("k_scale"), kw.get("v_scale"), None, None,
+                    "bound_unchecked", quantize_q)
+    plan = dataclasses.replace(plan, use_kmajor=form == "kmajor")
+    return ff._fwd_cuda(q, k, v, plan, out_dtype, kw.get("k_scale"),
+                        kw.get("v_scale"), None, None)
+
+
+_STORAGE_FORMS = [(None, False), ("int8", False), ("fp8", False),
+                  ("mixed", False), ("int8", True), ("fp8", True),
+                  ("mixed", True)]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qtype,quantize_q", _STORAGE_FORMS)
+@pytest.mark.parametrize("b,h,h_kv,nq,nk,d,kw", [
+    (1, 4, 4, 37, 1, 128, dict()),                      # Nk = 1, G = 1
+    (2, 16, 4, 100, 300, 64, dict(causal=True, kv_offset=200)),  # G = 4
+    (1, 16, 1, 77, 300, 128, dict(causal=True, window=100,
+                                  kv_offset=223)),      # G = 16
+    (2, 8, 8, 130, 500, 128, dict()),
+    (1, 8, 2, 200, 333, 64, dict(causal=True, window=90, kv_offset=133)),
+])
+def test_bound_kernels_pinned(dev, out_dtype, qtype, quantize_q, b, h, h_kv,
+                              nq, nk, d, kw):
+    """K1b and K5, each pinned, against the plain version: ragged Nq and
+    Nk, windows that start inside a key tile, kv_offset, GQA groups of 1,
+    4 and 16, d 64 and 128, every storage pair with and without
+    quantize_q, fp32 and bf16 O; K5 within 1e-4 of K1b; one launch each."""
+    args, scales = _fwd_inputs(dev, b, h, h_kv, nq, nk, d, qtype, nq + nk)
+    kw = dict(kw, **scales)
+    want = flash_attention_forward_plain(
+        *args, softmax="bound_unchecked", quantize_q=quantize_q,
+        out_dtype=out_dtype, **kw)
+    _nan_fill_allocator(dev)
+    got = {}
+    for form in ("bound", "kmajor"):
+        before = _form_counts()
+        got[form] = _pinned(form, *args, quantize_q=quantize_q,
+                            out_dtype=out_dtype, **kw)
+        torch.cuda.synchronize()
+        after = _form_counts()
+        assert {n: after[n] - before[n] for n in after} == {
+            "online": 0, "bound": int(form == "bound"),
+            "kmajor": int(form == "kmajor"), "fallback": 0}
+        assert got[form][0].dtype == out_dtype
+        _assert_fwd_close(got[form], want)
+    if out_dtype == torch.float32:
+        assert _err(got["kmajor"][0], got["bound"][0]) <= 1e-4
+    assert _err(got["kmajor"][1], got["bound"][1]) <= 1e-4
+
+
+@pytest.mark.parametrize("qtype", [None, "int8", "mixed"])
+def test_bound_kernels_read_a_view_of_a_longer_cache(dev, qtype):
+    """K/V sliced to the live 300 keys of a 1000-key cache whose tail is
+    NaN: the TMA descriptors stop at the live length."""
+    b, h, h_kv, nq, d, n_live = 2, 8, 2, 96, 128, 300
+    (q, k, v), _ = _fwd_inputs(dev, b, h, h_kv, nq, 1000, d, None, 7)
+    scales = {}
+    if qtype is not None:
+        kv = quantize_kv(k, v, qtype)
+        k, v = kv.k_q, kv.v_q
+        scales = dict(k_scale=kv.k_scale[:, :, :n_live],
+                      v_scale=kv.v_scale[:, :, :n_live])
+    if qtype is None:
+        k[:, :, n_live:] = float("nan")
+        v[:, :, n_live:] = float("nan")
+    else:
+        k.view(torch.uint8)[:, :, n_live:] = 0x7F  # e4m3 NaN, int8 127
+        v.view(torch.uint8)[:, :, n_live:] = 0x7F
+    k, v = k[:, :, :n_live], v[:, :, :n_live]
+    assert not k.is_contiguous()
+    kw = dict(causal=True, kv_offset=n_live - nq, **scales)
+    want = flash_attention_forward_plain(q, k, v, softmax="bound_unchecked",
+                                         out_dtype=torch.float32, **kw)
+    for form in ("bound", "kmajor"):
+        got = _pinned(form, q, k, v, **kw)
+        torch.cuda.synchronize()
+        _assert_fwd_close(got, want)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_kmajor_takes_its_longest_span(dev, d):
+    """The host's longest span (`_KMAJOR_MAX_SPAN`) is one the kernel
+    takes: enough keys for two waves of 132 CTAs get it, and K5 matches
+    the plain version there."""
+    from cuda_flashattention_torch.ops import flash_fwd as ff
+    span = ff._KMAJOR_MAX_SPAN[d]
+    b, h, h_kv, nq = 2, 8, 4, 64
+    nk = 64 * span * -(-2 * 132 // (b * h_kv))
+    assert ff._kmajor_span(b, h_kv, nk, d, 132) == span
+    args, _ = _fwd_inputs(dev, b, h, h_kv, nq, nk, d, None, d)
+    want = flash_attention_forward_plain(*args, softmax="bound_unchecked",
+                                         out_dtype=torch.float32)
+    got = _pinned("kmajor", *args)
+    torch.cuda.synchronize()
+    _assert_fwd_close(got, want)
+
+
 def _loose_inputs(dev):
     """Anti-aligned Q and K of large norm: every score sits ~2·10³ log2
     units under the Cauchy–Schwarz bound, so the bound softmax underflows

@@ -133,7 +133,7 @@ def test_cache_carried_across_from_numpy(qtype):
         raw(jc.k), raw(jc.v),
         None if qtype is None else np.asarray(jc.k_scale),
         None if qtype is None else np.asarray(jc.v_scale),
-        length=int(jc.length))
+        length=int(jc.length), device="cpu")
     assert carried.length == 7 and carried.k.dtype == tc.k.dtype
     assert carried.v.dtype == tc.v.dtype
     assert carried.quantized == (qtype is not None)

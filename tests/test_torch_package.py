@@ -105,10 +105,11 @@ def test_build_command_targets_sm90a():
     """One nvcc per source (started together), then one link."""
     srcs = _build.sources()
     assert {s.name for s in srcs} == {
-        "flash_fwd.cu", "flash_fwd_kmajor.cu", "flash_bwd.cu", "decode.cu",
-        "paged.cu", "fa1.cu", "device_ring.cu"}
-    # the body shared by decode.cu and paged.cu is hashed, not compiled
-    assert "decode_body.cuh" in {h.name for h in _build.headers()}
+        "flash_fwd.cu", "flash_fwd_bound.cu", "flash_fwd_kmajor.cu",
+        "flash_bwd.cu", "decode.cu", "paged.cu", "fa1.cu", "device_ring.cu"}
+    # the bodies the sources share are hashed, not compiled
+    assert {"decode_body.cuh", "flash_fwd_body.cuh",
+            "flash_fwd_bound_sm90.cuh"} <= {h.name for h in _build.headers()}
     arch = ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
     for src in srcs:
         cmd = _build.compile_command("nvcc", src, Path("x.o"))
@@ -136,6 +137,35 @@ def test_distributed_layer_is_exported(name):
     home = getattr(cfa, name).__module__
     assert home.startswith(("cuda_flashattention_torch.parallel.",
                             "cuda_flashattention_torch.models.transformer"))
+
+
+@pytest.mark.parametrize("name", ["flash_fwd_bound.cu", "flash_fwd_kmajor.cu",
+                                  "flash_fwd_bound_sm90.cuh"])
+def test_bound_forward_sources_are_hopper_kernels(name):
+    """K1b and K5, and the body they share: each names the TPU kernel it
+    replaces, and the products run on wgmma fed by TMA, not on wmma."""
+    src = (_build.CSRC / name).read_text()
+    assert "Replaces: cuda_flashattention_tpu/ops/flash_fwd.py::" in src
+    assert "nvcuda" not in src and "wmma::" not in src
+    if name.endswith(".cu"):
+        assert _build.CSRC / name in _build.sources()
+        assert '#include "flash_fwd_bound_sm90.cuh"' in src
+    else:
+        for needle in ("wgmma.mma_async", "cp.async.bulk.tensor",
+                       "setmaxnreg", "mbarrier.try_wait"):
+            assert needle in src, needle
+
+
+def test_online_forward_builds_no_bound_form():
+    """flash_fwd.cu instantiates the online form (K1) only; the bound
+    forms have entry points of their own."""
+    src = (_build.CSRC / "flash_fwd.cu").read_text()
+    body = (_build.CSRC / "flash_fwd_body.cuh").read_text()
+    for needle in ("FORM", "kBound", "bound_probs", "qk_s8", "n_loose"):
+        assert needle not in src + body, needle
+    assert len(_build.SIGNATURES["cfa_flash_fwd"]) == 15
+    assert len(_build.SIGNATURES["cfa_flash_fwd_bound"]) == 16
+    assert len(_build.SIGNATURES["cfa_flash_fwd_kmajor"]) == 17
 
 
 def test_device_ring_is_bound_with_its_signature():

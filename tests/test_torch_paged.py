@@ -446,7 +446,7 @@ def test_paged_cache_carried_across_from_numpy():
         np.asarray(jc.k_pages).view(np.uint8),
         np.asarray(jc.v_pages).view(np.uint8), np.asarray(jc.k_scale),
         np.asarray(jc.v_scale), np.asarray(jc.page_table),
-        np.asarray(jc.lengths))
+        np.asarray(jc.lengths), device="cpu")
     assert tc.k_pages.dtype == torch.float8_e4m3fn and tc.quantized
     assert tc.page_table.dtype == tc.lengths.dtype == torch.int32
     q = _uniform(3, (2, 4, 16))

@@ -122,3 +122,42 @@ def test_ring_decode_ragged_cache():
                                tmesh, k_scale=kv_t.k_scale,
                                v_scale=kv_t.v_scale)
     assert_close(o_t, o_j, QUANT_GATES["int8"], "ragged ring decode int8 O")
+
+
+def test_ring_decode_int8_merge_within_1e3_of_the_whole_cache():
+    """An int8 cache sharded over 4 ranks: the fp32 merge of the ranks'
+    partials (`_merge_ranks`, what `ring_decode_local` computes before its
+    cast to q's dtype) within 1e-3 of one decode over the whole cache and
+    of the JAX package's ring decode."""
+    from cuda_flashattention_torch.ops.decode import decode_attention
+    q = seeded_random((2, 4, 32), 12)
+    k, v = seeded_random((2, 2, 512, 32), 43), seeded_random((2, 2, 512, 32),
+                                                             44)
+    lengths = np.array([300, 512], np.int32)
+    kv_t = quantize_kv(torch.from_numpy(k), torch.from_numpy(v), "int8")
+    kv_j = jax_quantize_kv(jnp.asarray(k), jnp.asarray(v), "int8")
+    jmesh, tmesh = _meshes(4)
+    cut = lambda x: shard_on_axis(tmesh, x, 2, "sp")
+    qt, lt = torch.from_numpy(q), torch.from_numpy(lengths)
+    parts = []
+    for i, (ks, vs, kss, vss) in enumerate(zip(
+            cut(kv_t.k_q), cut(kv_t.v_q), cut(kv_t.k_scale),
+            cut(kv_t.v_scale))):
+        local = (lt - 128 * i).clamp(0, 128)
+        parts.append(decode_attention(qt, ks, vs, local, k_scale=kss,
+                                      v_scale=vss))
+    o32, lse = tring._merge_ranks(parts, qt.device)
+    assert o32.dtype == torch.float32
+    o_w, lse_w = decode_attention(qt, kv_t.k_q, kv_t.v_q, lt,
+                                  k_scale=kv_t.k_scale, v_scale=kv_t.v_scale)
+    assert_close(o32, o_w, QUANT_GATES["int8"], "int8 merge vs whole O")
+    assert_close(lse, lse_w, QUANT_GATES["int8"], "int8 merge vs whole LSE")
+    o_j, lse_j = jring.ring_decode(jnp.asarray(q), kv_j.k_q, kv_j.v_q,
+                                   jnp.asarray(lengths), jmesh,
+                                   k_scale=kv_j.k_scale, v_scale=kv_j.v_scale)
+    assert_close(o32, o_j, QUANT_GATES["int8"], "int8 merge vs JAX O")
+    assert_close(lse, lse_j, QUANT_GATES["int8"], "int8 merge vs JAX LSE")
+    o_r, lse_r = tring.ring_decode(qt, cut(kv_t.k_q), cut(kv_t.v_q), lt,
+                                   tmesh, k_scale=cut(kv_t.k_scale),
+                                   v_scale=cut(kv_t.v_scale))
+    assert torch.equal(o_r, o32) and torch.equal(lse_r, lse)
