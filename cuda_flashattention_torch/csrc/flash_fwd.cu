@@ -1,269 +1,365 @@
-// FlashAttention-2 forward for Hopper on a Q-major walk with the online
-// softmax (K1): bf16 Q, K/V in bf16, int8 or fp8 e4m3 with per-token
-// scales, fp32 or bf16 out, with the natural-log LSE per query row.
+// FlashAttention-2 forward with the online softmax on a Q-major walk (K1),
+// for Hopper: bf16 Q, K/V in bf16, int8 or fp8 e4m3 with per-token scales,
+// fp32 or bf16 out, with the natural-log LSE per query row.
 //
 // Replaces: cuda_flashattention_tpu/ops/flash_fwd.py::_fwd_kernel with
 // bound=False, with the causal band of its compact grid, its window and
 // segment masks and its folded dequantisation. Its bound=True form (K1b)
-// is flash_fwd_bound.cu.
+// is flash_fwd_bound.cu; both run on flash_fwd_bound_sm90.cuh.
 //
-// What bounds it on the H100: at the prefill shapes (N = 512..4096,
-// d = 128) the two products are ~4·N²·d flops against 4·N·d bytes per
-// head, far above the card's ~295 flop/byte balance point, so the kernel
-// is compute-bound — on the tensor cores for Q·Kᵀ and P·V and, in this
-// version, as much on the fp32 softmax and the shared-memory round trips
-// of S, P and the accumulator. A quantized K/V halves the bytes and leaves
-// the operations as they were.
+// What bounds it on the H100: at the prefill and training shapes (N =
+// 512..4096, d = 128) the two products are ~4·N²·d operations against
+// 4·N·d bytes per head, far above the card's ~295 operations per byte, so
+// it is bound by the tensor cores, and in practice by how well the softmax
+// between the two products (here with a running max and a rescale of the
+// accumulator) hides under them. Quantized K/V halves the bytes and leaves
+// the operations as they were, plus one conversion per key tile.
 //
-// What this design does about it: the products run on the tensor cores
-// through nvcuda::wmma bf16 (or int8) fragments; one CTA holds a 64-row Q
-// tile in shared memory for its whole walk over K/V, so Q is read from
-// device memory once and K/V once per Q tile. For causal calls the walk
-// stops at the tile's last visible key and, with a window, starts at the
-// first row's first visible key, which replaces the TPU kernel's
-// host-enumerated band grid. Each warp owns 16 query rows end to end
-// (scores, softmax, accumulator), so the only block-wide barriers are the
-// two around each K/V tile load. Later work: wgmma, TMA and a producer
-// warp, as the bound forms have them (flash_fwd_bound_sm90.cuh).
+// What this design does about it (flash_fwd_bound_sm90.cuh): the walk of
+// K1b with the online step in place of the bound step. A CTA owns a
+// 128-row tile of packed query heads (two consumer warpgroups of 64 rows,
+// all Gp heads of one KV head when the group allows) and walks the key
+// tiles its rows can see, from the window's frontier to the causal one. A
+// producer thread keeps the next key tiles' TMA loads in flight in a ring
+// of 3 stages (its warp brings one-byte K/V's scales and a tile's segment
+// ids in beside them) while the consumers run wgmma; S, P, m, l and O
+// never leave registers. Each warpgroup issues a tile's Q·Kᵀ and then the
+// previous tile's P·V, and runs the tile's softmax while the P·V is on the
+// tensor cores; the rescale of O waits for it. One-byte K/V tiles are
+// converted once per CTA and key tile, for all Gp heads. Interior tiles
+// skip the element mask; a call with segment ids is a build of its own
+// (SEG), and its tiles always take the masked step. Under causal the Q
+// tiles are issued heaviest first (cta_tile).
 //
-// Numerics follow the TPU kernel (see flash_fwd_body.cuh for what a tile
-// pair computes): m, l carried per row, O = acc / l, LSE = m·ln2 + ln l; a
-// row with no visible key gets O = 0 and LSE = NEG_INF. The kernel can be
-// launched behind a device-side guard: it then exits at once unless the
-// bound form before it counted a loose row, which is how the loose-bound
-// fallback runs without a host round trip.
+// The kernel can be launched behind a device-side guard: it then exits
+// before anything else unless the bound form before it counted a loose
+// row, which is how the loose-bound fallback runs without a host round
+// trip. The guard and the segment ids are parameters of this kernel
+// beside the body's Args, which holds what the four forms share.
 
-#include "flash_fwd_body.cuh"
+#include "flash_fwd_bound_sm90.cuh"
 
-using namespace cfa_fwd_body;
+using namespace cfa_bound;
 
 namespace {
 
-// The online-softmax step for the warp's 16 rows of one tile pair; lane
-// owns columns lane and lane + 32. With MASKED false every pair is visible
-// and no element is tested.
-template <int D, bool EXTRA, bool MASKED>
-__device__ __forceinline__ void online_rows(
-    const Args& a, const Extras<EXTRA>& x, const float* ss, const float* kscs,
-    const float* vscs, const int* qsegs, const int* ksegs, bf16* ps,
-    float* os, float* ms, float* ls, int r0, int q0, int c0) {
-  using S = Smem<D>;
-  const int lane = threadIdx.x % 32;
-  for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
-    const int row = r0 + rr;
-    const int qpos = q0 + row + a.kv_offset;
-    float s[BK / 32];
-    float mx = kNegInf;
-#pragma unroll
-    for (int j = 0; j < BK / 32; ++j) {
-      const int c = lane + 32 * j;
-      const bool ok = !MASKED || visible(a, x, qpos, c0 + c,
-                                         x.seg ? qsegs[row] : 0,
-                                         x.seg ? ksegs[c] : 0);
-      s[j] = ok ? score<D>(ss, row, c, x.quant, kscs) : kNegInf;
-      mx = fmaxf(mx, s[j]);
+constexpr int NST = 3;  // key-tile stages in flight
+constexpr int NCV = 3;  // converted K/V pairs (one-byte K/V), used in turn
+
+// Shared memory of one CTA (byte offsets from a 1024-aligned base): the Q
+// tile; NST stages of K and V as TMA writes them (bf16 slabs, or one-byte
+// codes), each followed by the tile's K and V scales (QUANT) and key
+// segment ids (SEG); under QUANT NCV converted K/V pairs; barriers.
+template <int D, bool QUANT, bool SEG>
+struct Layout {
+  using T = Tiles<D, false>;
+  static constexpr int kvh = QUANT ? T::CODES : T::KV16;  // K, then V
+  static constexpr int tma_bytes = 2 * kvh;
+  static constexpr int ids = tma_bytes + (QUANT ? 2 * BN * 4 : 0);
+  static constexpr int stage = align1k(ids + (SEG ? BN * 4 : 0));
+  static constexpr int st_off = align1k(T::Q);
+  static constexpr int cv_v = align1k(T::KV16);        // V in a converted pair
+  static constexpr int cv_stride = align1k(cv_v + T::KV16);
+  static constexpr int cv_off = st_off + NST * stage;
+  static constexpr int bar_off = cv_off + (QUANT ? NCV * cv_stride : 0);
+  static constexpr int bytes = bar_off + 8 * (2 * NST + 1) + 1024;
+  static_assert(bytes <= 232448, "the CTA's shared memory");
+};
+
+template <int D, bool QUANT, bool SEG>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, const Args a,
+                     const int* __restrict__ q_seg,
+                     const int* __restrict__ kv_seg, const int* guard) {
+  // the guard (a bound form's loose-row count) is read before anything
+  if (guard != nullptr && *guard == 0) return;
+  using T = Tiles<D, false>;
+  using L = Layout<D, QUANT, SEG>;
+  // the producer warp's per-tile loads beside the TMA: scales, segment ids
+  constexpr bool SIDE = QUANT || SEG;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t full = base + L::bar_off;     // + 8 * stage
+  const uint32_t empty = full + 8 * NST;       // + 8 * stage
+  const uint32_t q_bar = empty + 8 * NST;
+
+  int qt, hg, b;
+  cta_tile(a, qt, hg, b);
+  const int q0 = qt * a.R;
+  const int h0 = hg * a.Gp;
+  const int hk = h0 / a.G;
+  const int q_hi = min(q0 + a.R, a.Nq) - 1;
+  int t_begin, t_end;
+  visible_tiles(a, q0, q_hi, 0, (a.Nk + BN - 1) / BN, t_begin, t_end);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NST; ++s) {
+      // the TMA issue, and with SIDE the 32 lanes of the side loads
+      mbar_init(full + 8 * s, SIDE ? 33 : 1);
+      mbar_init(empty + 8 * s, 8);  // lane 0 of each consumer warp
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    const float m_prev = ms[row];
-    const float m_next = fmaxf(m_prev, mx);
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK / 32; ++j) {
-      const int c = lane + 32 * j;
-      // a fully masked row has m_next = NEG_INF: force its p to 0
-      const float p = !MASKED || s[j] > kNegInf * 0.5f
-                          ? exp2f(s[j] - m_next) : 0.f;
-      sum += p;
-      ps[row * S::LDP + c] = __float2bfloat16(x.quant ? p * vscs[c] : p);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    const float alpha = exp2f(m_prev - m_next);
-#pragma unroll
-    for (int c = lane; c < D; c += 32) os[row * S::LDO + c] *= alpha;
-    __syncwarp();
-    if (lane == 0) {
-      ms[row] = m_next;
-      ls[row] = ls[row] * alpha + sum;
-    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-}
+  __syncthreads();
 
-template <int D, bool EXTRA>
-__global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(Args a) {
-  if (a.guard != nullptr && *a.guard == 0) return;
-  const Extras<EXTRA> x(a);
-
-  using S = Smem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem + S::q_off);
-  bf16* ks = reinterpret_cast<bf16*>(smem + S::k_off);
-  bf16* vs = reinterpret_cast<bf16*>(smem + S::v_off);
-  bf16* ps = reinterpret_cast<bf16*>(smem + S::p_off);
-  float* ss = reinterpret_cast<float*>(smem + S::s_off);
-  float* os = reinterpret_cast<float*>(smem + S::o_off);
-  float* ms = reinterpret_cast<float*>(smem + S::m_off);
-  float* ls = reinterpret_cast<float*>(smem + S::l_off);
-  float* kscs = reinterpret_cast<float*>(smem + S::ksc_off);
-  float* vscs = reinterpret_cast<float*>(smem + S::vsc_off);
-  int* qsegs = reinterpret_cast<int*>(smem + S::qseg_off);
-  int* ksegs = reinterpret_cast<int*>(smem + S::kseg_off);
-
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (a.H / a.Hkv);  // GQA: KV head shared by a group
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r0 = warp * ROWS_PER_WARP;  // this warp's first row in the tile
-  const bool quant = x.quant;
-  const bool seg = x.seg;
-  const int k_type = EXTRA ? a.k_type : kBf16;
-  const int v_type = EXTRA ? a.v_type : kBf16;
-  const long long row_base = (long long)(b * a.H + h) * a.Nq;
-
-  load_tile<D, BQ>(qs, S::LDH,
-                   static_cast<const bf16*>(a.q) + b * a.sqb + h * a.sqh,
-                   a.sqn, q0, a.Nq);
-  for (int i = threadIdx.x; i < BQ * S::LDO; i += NTHREADS) os[i] = 0.f;
-  for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
-    ms[i] = kNegInf;
-    ls[i] = 0.f;
-  }
-  if (seg) load_ids(qsegs, a.q_seg + (long long)b * a.Nq, q0, a.Nq, -1);
-
-  const float* ksc_g =
-      quant ? a.k_scale + (long long)(b * a.Hkv + hk) * a.Nk : nullptr;
-  const float* vsc_g =
-      quant ? a.v_scale + (long long)(b * a.Hkv + hk) * a.Nk : nullptr;
-  const uint8_t* kb = static_cast<const uint8_t*>(a.k) +
-                      (b * a.skb + hk * a.skh) * (k_type == kBf16 ? 2 : 1);
-  const uint8_t* vb = static_cast<const uint8_t*>(a.v) +
-                      (b * a.svb + hk * a.svh) * (v_type == kBf16 ? 2 : 1);
-
-  // KV tiles this Q tile can see: causal rows see keys <= row + kv_offset
-  // and, with a window, keys > row + kv_offset − window
-  int kv_end = a.Nk;
-  int t_begin = 0;
-  if (a.causal) {
-    kv_end = min(a.Nk, max(0, q0 + BQ + a.kv_offset));
-    if (x.window > 0) {
-      t_begin = max(0, q0 + a.kv_offset - x.window + 1) / BK;
-    }
-  }
-  const int n_tiles = (kv_end + BK - 1) / BK;
-
-  for (int t = t_begin; t < n_tiles; ++t) {
-    const int c0 = t * BK;
-    __syncthreads();  // previous tile's K/V reads are done (and Q/O init)
-    load_kv<D>(ks, kb, k_type, a.skn, c0, a.Nk);
-    load_kv<D>(vs, vb, v_type, a.svn, c0, a.Nk);
-    if (quant) {
-      load_scales(kscs, ksc_g, c0, a.Nk);
-      load_scales(vscs, vsc_g, c0, a.Nk);
-    }
-    if (seg) load_ids(ksegs, a.kv_seg + (long long)b * a.Nk, c0, a.Nk, -2);
-    __syncthreads();
-
-    qk_bf16<D>(qs, ks, ss, r0);
-    __syncwarp();
-
-    if (all_visible(a, x, q0 + r0 + a.kv_offset, c0)) {
-      online_rows<D, EXTRA, false>(a, x, ss, kscs, vscs, qsegs, ksegs, ps, os,
-                                   ms, ls, r0, q0, c0);
-    } else {
-      online_rows<D, EXTRA, true>(a, x, ss, kscs, vscs, qsegs, ksegs, ps, os,
-                                  ms, ls, r0, q0, c0);
-    }
-    __syncwarp();
-
-    pv<D>(os, ps, vs, r0, false);
-    __syncwarp();
-  }
-  __syncthreads();  // Q/O init is visible when no tile ran
-
-  // epilogue; the ragged Q tail is skipped
-  for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
-    const int row = r0 + rr;
-    const int qi = q0 + row;
-    if (qi >= a.Nq) break;
-    const float l = ls[row];
-    const float inv = l == 0.f ? 0.f : 1.f / l;
-    for (int c = lane; c < D; c += 32) {
-      const float val = os[row * S::LDO + c] * inv;
-      if (a.out_f32) {
-        static_cast<float*>(a.o)[(row_base + qi) * D + c] = val;
-      } else {
-        static_cast<bf16*>(a.o)[(row_base + qi) * D + c] =
-            __float2bfloat16(val);
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // the producer: one thread issues every load; with SIDE its warp also
+    // brings each tile's scales and segment ids beside the TMA
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    const int lane = threadIdx.x & 31;
+    if (threadIdx.x < 2 * 128 + (SIDE ? 32 : 1)) {
+      if (lane == 0) {
+        mbar_expect_tx(q_bar, a.Gp * a.R * D * 2);
+        for (int sl = 0; sl < T::SLABS; ++sl) {
+          tma_load_4d(base + sl * BM * 128, &tm_q, q_bar, sl * 64, q0, h0,
+                      b);
+        }
+      }
+      for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
+        const int st = i % NST;
+        mbar_wait(empty + 8 * st, ((i / NST) & 1) ^ 1);
+        const uint32_t dst = base + L::st_off + st * L::stage;
+        if (lane == 0) {
+          mbar_expect_tx(full + 8 * st, L::tma_bytes);
+          if (QUANT) {
+            tma_load_4d(dst, &tm_k, full + 8 * st, 0, t * BN, hk, b);
+            tma_load_4d(dst + L::kvh, &tm_v, full + 8 * st, 0, t * BN, hk,
+                        b);
+          } else {
+            for (int sl = 0; sl < T::SLABS; ++sl) {
+              tma_load_4d(dst + sl * BN * 128, &tm_k, full + 8 * st, sl * 64,
+                          t * BN, hk, b);
+              tma_load_4d(dst + L::kvh + sl * BN * 128, &tm_v, full + 8 * st,
+                          sl * 64, t * BN, hk, b);
+            }
+          }
+        }
+        // the side loads, while the tiles are in flight
+        if (SIDE) {
+          uint8_t* stage = smem + L::st_off + st * L::stage;
+          if (QUANT) {
+            load_scales<32>(reinterpret_cast<float*>(stage + L::tma_bytes), a,
+                            b, hk, t * BN, lane);
+          }
+          if (SEG) {
+            load_ids<32>(reinterpret_cast<int*>(stage + L::ids), kv_seg, a, b,
+                         t * BN, lane);
+          }
+          mbar_arrive(full + 8 * st);
+        }
       }
     }
-    if (lane == 0) {
-      a.lse[row_base + qi] = l == 0.f ? kNegInf : ms[row] * kLn2 + logf(l);
+  } else {
+    // two consumer warpgroups, 64 rows each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    Rows r = row_info<false>(a, b, h0, q0, tid);
+    int qseg[2] = {0, 0};  // the rows' segment ids
+    if (SEG) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        if (r.pos[hr] >= 0) {
+          qseg[hr] = q_seg[(long long)b * a.Nq + r.pos[hr]];
+        }
+      }
     }
+    float acc[D / 64][32];
+#pragma unroll
+    for (int sl = 0; sl < D / 64; ++sl) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[sl][i] = 0.f;
+    }
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.f, 0.f};
+    mbar_wait(q_bar, 0);
+
+    // Step i's key tile (t_begin + i): where wgmma reads its K and V (its
+    // codes converted first under QUANT), its scales and key ids.
+    auto tile = [&](int i, uint32_t& kt, uint32_t& vt, const float*& ksc,
+                    const float*& vsc, const int*& kseg) {
+      const int st = i % NST;
+      mbar_wait(full + 8 * st, (i / NST) & 1);
+      const int stage_off = L::st_off + st * L::stage;
+      kt = base + stage_off;
+      vt = kt + L::kvh;
+      kseg = SEG ? reinterpret_cast<const int*>(smem + stage_off + L::ids)
+                 : nullptr;
+      if (QUANT) {
+        // both warpgroups convert the tile once for the CTA's Gp heads,
+        // into the pair of three tiles ago: each warpgroup waited for that
+        // tile's P·V before the barrier of the tile after it
+        uint8_t* cv = smem + L::cv_off + (i % NCV) * L::cv_stride;
+        const uint8_t* raw = smem + stage_off;
+        codes_to_bf16<D, NCONSUMER>(cv, raw, a.k_type, tid);
+        codes_to_bf16<D, NCONSUMER>(cv + L::cv_v, raw + L::kvh, a.v_type,
+                                    tid);
+        fence_proxy_async();
+        consumer_sync();
+        kt = smem_u32(cv);
+        vt = kt + L::cv_v;
+        ksc = reinterpret_cast<const float*>(smem + stage_off + L::tma_bytes);
+        vsc = ksc + BN;
+      }
+    };
+    // Step i's online step on its scores s; under QUANT the stage is then
+    // read (codes, scales, ids) and released. A bf16 stage is released
+    // once its V has gone through the P·V, in the next step.
+    auto softmax = [&](int i, float (&s)[32], const float* ksc,
+                       const float* vsc, const int* kseg, float (&alpha)[2],
+                       uint32_t (&pn)[16]) {
+      const int c0 = (t_begin + i) * BN;
+      if (!SEG && interior(a, c0, q0, q0 + a.R - 1)) {
+        online_step<QUANT, false, false>(a, r, s, ksc, vsc, kseg, qseg, c0, m,
+                                         l, alpha, pn);
+      } else {
+        online_step<QUANT, SEG, true>(a, r, s, ksc, vsc, kseg, qseg, c0, m, l,
+                                      alpha, pn);
+      }
+      if (QUANT && lane == 0) mbar_arrive(empty + 8 * (i % NST));
+    };
+
+    const int n = t_end - t_begin;
+    if (n > 0) {
+      uint32_t kt, vt;
+      const float* ksc = nullptr;
+      const float* vsc = nullptr;
+      const int* kseg;
+      float s_acc[32], s[32], alpha[2];
+      uint32_t p[16];  // the P whose P·V is the next to issue
+      // the first tile: S and its softmax, no P·V before it (acc is 0)
+      tile(0, kt, vt, ksc, vsc, kseg);
+      wgmma_fence();
+      qk_issue<D>(s_acc, base, kt, wg);
+      wgmma_commit();
+      wgmma_wait_all();
+      copy_after_wait(s, s_acc);
+      softmax(0, s, ksc, vsc, kseg, alpha, p);
+      uint32_t v_prev = vt;
+      for (int i = 1; i < n; ++i) {
+        // this tile's Q·Kᵀ, then the previous tile's P·V: the softmax runs
+        // while the tensor cores do the P·V, the rescale of O after it
+        tile(i, kt, vt, ksc, vsc, kseg);
+        wgmma_fence();
+        qk_issue<D>(s_acc, base, kt, wg);
+        wgmma_commit();
+        pv_issue<D>(acc, p, v_prev);
+        wgmma_commit();
+        wgmma_wait_one();
+        copy_after_wait(s, s_acc);
+        uint32_t p_next[16];
+        softmax(i, s, ksc, vsc, kseg, alpha, p_next);
+        wgmma_wait_all();
+        fence_regs(p);
+#pragma unroll
+        for (int sl = 0; sl < D / 64; ++sl) fence_regs(acc[sl]);
+        if (!QUANT && lane == 0) mbar_arrive(empty + 8 * ((i - 1) % NST));
+        scale_acc<D>(acc, alpha);
+#pragma unroll
+        for (int j = 0; j < 16; ++j) p[j] = p_next[j];
+        v_prev = vt;
+      }
+      wgmma_fence();
+      pv_issue<D>(acc, p, v_prev);
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int sl = 0; sl < D / 64; ++sl) fence_regs(acc[sl]);
+      if (!QUANT && lane == 0) mbar_arrive(empty + 8 * ((n - 1) % NST));
+    }
+    // the LSE's reference is the running max
+    r.c[0] = m[0];
+    r.c[1] = m[1];
+    store_rows<D, false>(a, r, acc, l, b);
   }
 }
 
-template <int D, bool EXTRA>
-cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = Smem<D>::bytes;
+// The segment ids and the guard of one launch (each null when absent).
+struct Extra {
+  const int* q_seg;
+  const int* kv_seg;
+  const int* guard;
+};
+
+template <int D, bool QUANT, bool SEG>
+cudaError_t launch(const Maps& mp, const Args& a, const Extra& x, int B,
+                   cudaStream_t stream) {
+  const int smem = Layout<D, QUANT, SEG>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, EXTRA>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_kernel<D, QUANT, SEG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.Nq + BQ - 1) / BQ, a.H, B);
-  flash_fwd_kernel<D, EXTRA><<<grid, NTHREADS, smem, stream>>>(a);
+  const dim3 grid((a.Nq + a.R - 1) / a.R, a.H / a.Gp, B);
+  flash_fwd_kernel<D, QUANT, SEG>
+      <<<grid, NTHREADS, smem, stream>>>(mp.q, mp.k, mp.v, a, x.q_seg,
+                                         x.kv_seg, x.guard);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_extra(const Args& a, int B, cudaStream_t stream) {
-  // the build without the extras serves a call that uses none of them
-  const bool extra =
-      a.k_scale != nullptr || a.q_seg != nullptr || a.window > 0;
-  return extra ? launch<D, true>(a, B, stream)
-               : launch<D, false>(a, B, stream);
+cudaError_t launch_form(const Maps& mp, const Args& a, const Extra& x,
+                        int B, cudaStream_t stream) {
+  const bool quant = a.k_type != kBf16;
+  if (x.q_seg != nullptr) {
+    return quant ? launch<D, true, true>(mp, a, x, B, stream)
+                 : launch<D, false, true>(mp, a, x, B, stream);
+  }
+  return quant ? launch<D, true, false>(mp, a, x, B, stream)
+               : launch<D, false, false>(mp, a, x, B, stream);
 }
 
 }  // namespace
 
-// K1, behind `guard` when that is not null. ptrs: q, k, v, k_scale,
-// v_scale, q_seg, kv_seg, guard, o, lse (null where a call has no use for
-// one). strides: q, k, v, each (batch, head, row), in elements.
-// k_type/v_type: 0 bf16, 1 int8, 2 fp8 e4m3.
+// K1, behind `guard` when that is not null. ptrs: q (bf16 prescaled), k, v,
+// k_scale, v_scale ([B,Hkv,Nk] fp32 or NULL), q_seg ([B,Nq] int32 or
+// NULL), kv_seg ([B,Nk]), guard (int32 or NULL), o ([B,H,Nq,D]
+// contiguous), lse ([B,H,Nq]). strides: q, k, v, each (batch, head, row),
+// in elements, rows 16-byte aligned. k_type/v_type: 0 bf16, 1 int8, 2 fp8
+// e4m3 (K and V both bf16 or both one-byte).
 extern "C" int cfa_flash_fwd(void* const* ptrs, int B, int H, int Hkv, int Nq,
                              int Nk, int D, const long long* strides,
                              int k_type, int v_type, int causal, int window,
                              int kv_offset, int out_f32, void* stream) {
   if (B == 0 || H == 0 || Nq == 0) return cudaSuccess;
   if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
+  if ((k_type == kBf16) != (v_type == kBf16)) return cudaErrorInvalidValue;
   Args a = {};
-  a.q = ptrs[0];
-  a.k = ptrs[1];
-  a.v = ptrs[2];
   a.k_scale = static_cast<const float*>(ptrs[3]);
   a.v_scale = static_cast<const float*>(ptrs[4]);
-  a.q_seg = static_cast<const int*>(ptrs[5]);
-  a.kv_seg = static_cast<const int*>(ptrs[6]);
-  a.guard = static_cast<const int*>(ptrs[7]);
+  const Extra x = {static_cast<const int*>(ptrs[5]),
+                   static_cast<const int*>(ptrs[6]),
+                   static_cast<const int*>(ptrs[7])};
   a.o = ptrs[8];
   a.lse = static_cast<float*>(ptrs[9]);
   a.H = H; a.Hkv = Hkv; a.Nq = Nq; a.Nk = Nk;
-  a.sqb = strides[0]; a.sqh = strides[1]; a.sqn = strides[2];
-  a.skb = strides[3]; a.skh = strides[4]; a.skn = strides[5];
-  a.svb = strides[6]; a.svh = strides[7]; a.svn = strides[8];
+  a.G = H / Hkv;
+  a.Gp = packed_heads(a.G);
+  a.R = BM / a.Gp;
   a.k_type = k_type; a.v_type = v_type;
   a.causal = causal; a.window = window; a.kv_offset = kv_offset;
   a.out_f32 = out_f32;
+  if (k_type != kBf16 && (a.k_scale == nullptr || a.v_scale == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  if ((x.q_seg == nullptr) != (x.kv_seg == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  Maps mp;
+  if (!make_maps(&mp, ptrs[0], ptrs[1], ptrs[2], B, H, Hkv, Nq, Nk, D,
+                 strides, k_type, v_type, 0, a.Gp, a.R)) {
+    return cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch_extra<64>(a, B, s);
+      return launch_form<64>(mp, a, x, B, s);
     case 128:
-      return launch_extra<128>(a, B, s);
+      return launch_form<128>(mp, a, x, B, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,22 +1,26 @@
-// The Hopper body of the two score-bound forward kernels: the Q-major walk
-// of flash_fwd_bound.cu (K1b) and the key-split walk of flash_fwd_kmajor.cu
-// (K5).
+// The Hopper body of the forward kernels: the online Q-major walk of
+// flash_fwd.cu (K1), the score-bound Q-major walk of flash_fwd_bound.cu
+// (K1b), the score-bound key-split walk of flash_fwd_kmajor.cu (K5), and
+// the FA1 walk of fa1.cu (K8).
 //
-// Replaces: cuda_flashattention_tpu/ops/flash_fwd.py::_fwd_kernel
-// (bound=True) and ::_fwd_kernel_kmajor, in what they have in common: the
+// Replaces: cuda_flashattention_tpu/ops/flash_fwd.py::_fwd_kernel (both
+// softmax forms) and ::_fwd_kernel_kmajor, in what they have in common: the
 // tile loads with their dequantising casts, Q·Kᵀ and P·V, the element
-// mask, the bound step p = 2^(s − c) and the loose-bound test. A walk decides
-// which (Q tile, key tile) pairs a CTA visits and where its sums go; what a
-// pair computes is here, so the two kernels cannot drift apart.
+// mask (causal with kv_offset, window, ragged tail, segment ids), the
+// online step with its running max, the bound step p = 2^(s − c) and the
+// loose-bound test. A walk decides which (Q tile, key tile) pairs a CTA
+// visits and where its sums go; what a pair computes is here, so the
+// kernels cannot drift apart.
 //
 // The machine this is written for (sm_90a):
 //   - TMA (cp.async.bulk.tensor) brings Q and K/V tiles into shared memory,
-//     128-byte swizzled, behind mbarriers; one producer thread issues them.
+//     128-byte swizzled, behind mbarriers; one producer thread issues them
+//     (its warp also loads a key tile's per-token scales and segment ids).
 //   - Two consumer warpgroups each own 64 query rows of a 128-row tile and
 //     run wgmma.mma_async: S = Q·Kᵀ from shared memory (bf16, or s8 with
 //     int32 accumulation under quantize_q), then P·V with P as the A
 //     operand from registers and V from shared memory (MN-major B). S, P,
-//     l and the O accumulator stay in registers for the whole walk.
+//     m, l and the O accumulator stay in registers for the whole walk.
 //   - setmaxnreg gives the producer warpgroup 40 registers and the
 //     consumers 232.
 //   - int8 or e4m3 K/V come in as codes (half the bytes of bf16) and are
@@ -31,10 +35,18 @@
 //   s = (q̂ · k_q) · k_scale[col]     fp32; under quantize_q the int32 dot
 //       of the int8 Q and K times k_scale[col] · factor[h] (the host's
 //       per-head factor, with 448/127 folded in for the fp8 → int8 re-grid)
-//   p = 2^(s − c_row), 0 where masked (causal with kv_offset, window,
-//       ragged tail); l sums the unrounded p
+//   masked pairs (causal with kv_offset, window, ragged tail, segment ids)
+//       have p = 0
+//   bound (K1b, K5): p = 2^(s − c_row) against the host's bound c
+//   online (K1), per key tile on each row: m_new = max(m, max over the
+//       tile's visible s), α = 2^(m − m_new), acc and l scaled by α,
+//       p = 2^(s − m_new); a row none of whose keys is visible yet keeps
+//       m = NEG_INF and p = 0
+//   l sums the unrounded p
 //   acc += bf16(p · v_scale[col]) · v_q     rounded AFTER the scale
-//   O = acc / l, LSE = c·ln2 + ln l; O = 0, LSE = NEG_INF where l = 0.
+//   O = acc / l, LSE = ref·ln2 + ln l (ref: c bound, m online); O = 0,
+//   LSE = NEG_INF (−1e30) where l = 0.
+// FA1 (K8) has numerics of its own, in fa1.cu.
 
 #pragma once
 
@@ -137,6 +149,10 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
+// all but the most recent group
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+}
 
 // Keep the compiler from moving reads of wgmma results above the wait.
 template <int N>
@@ -146,6 +162,13 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 }
 template <int N>
 __device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+// Keep registers an in-flight wgmma reads (P) from being reused before
+// its wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
@@ -232,8 +255,8 @@ struct Args {
   const float* k_scale;   // [B,Hkv,Nk] or null (bf16 K/V)
   const float* v_scale;   // [B,Hkv,Nk] or null
   const float* q_factor;  // [B,H] under quantize_q: the int8 Q to log2 units
-  const float* c;         // [B,H,Nq] log2 score bound
-  int* n_loose;           // count of loose-bound rows
+  const float* c;         // [B,H,Nq] log2 score bound (bound forms)
+  int* n_loose;           // count of loose-bound rows (bound forms)
   float* l_acc;           // K5: [B,H,Nq] fp32, zeroed
   float* o_acc;           // K5: [B,H,Nq,D] fp32, zeroed
   void* o;                // [B,H,Nq,D] fp32 or bf16, contiguous
@@ -485,6 +508,40 @@ __device__ __forceinline__ void load_scales(float* sc, const Args& a, int b,
   }
 }
 
+// One key tile's segment ids, ids[0..BN) (past the ragged end the pair is
+// masked by the column test), by NT threads; kv_seg is [B,Nk].
+template <int NT>
+__device__ __forceinline__ void load_ids(int* ids, const int* kv_seg,
+                                         const Args& a, int b, int c0,
+                                         int tid) {
+  for (int i = tid; i < BN; i += NT) {
+    const int c = c0 + i;
+    ids[i] = c < a.Nk ? kv_seg[(long long)b * a.Nk + c] : -1;
+  }
+}
+
+// The (Q tile, head group, batch) of this CTA of a Q-major grid (Q tiles,
+// head groups, batches). Under causal the linear block index walks the Q
+// tiles from the last to the first, all head groups and batches of one
+// tile together: the last tiles see the most keys, so the longest walks
+// start in the first wave and the short ones fill the tail (K1, K8).
+__device__ __forceinline__ void cta_tile(const Args& a, int& qt, int& hg,
+                                         int& b) {
+  qt = blockIdx.x;
+  hg = blockIdx.y;
+  b = blockIdx.z;
+  if (a.causal) {
+    const long long per_tile = (long long)gridDim.y * gridDim.z;
+    const long long lin =
+        blockIdx.x + (long long)gridDim.x * (blockIdx.y + (long long)gridDim.y *
+                                                              blockIdx.z);
+    qt = gridDim.x - 1 - (int)(lin / per_tile);
+    const int rest = (int)(lin % per_tile);
+    hg = rest % gridDim.y;
+    b = rest / gridDim.y;
+  }
+}
+
 // The two rows a consumer thread holds in wgmma's accumulator layout
 // (warp w of warpgroup g: rows 64g + 16w + lane/4 and that + 8), as
 // (query head, position) of the packed tile.
@@ -492,10 +549,12 @@ struct Rows {
   int pos[2];    // position, or -1 past the tile
   int head[2];   // query head
   int qp[2];     // position + kv_offset
-  float c[2];    // the bound
+  float c[2];    // the bound (bound forms); the online walk puts its
+                 // running max here before the epilogue: the LSE's reference
   float f[2];    // quantize_q's factor, else 1
 };
 
+template <bool BOUND = true>
 __device__ __forceinline__ Rows row_info(const Args& a, int b, int h0, int q0,
                                          int tid) {
   Rows r;
@@ -509,7 +568,11 @@ __device__ __forceinline__ Rows row_info(const Args& a, int b, int h0, int q0,
     r.pos[hr] = ok ? pos : -1;
     r.head[hr] = h0 + (ok ? g : 0);
     r.qp[hr] = pos + a.kv_offset;
-    r.c[hr] = ok ? a.c[(long long)(b * a.H + r.head[hr]) * a.Nq + pos] : 0.f;
+    if (BOUND) {
+      r.c[hr] = ok ? a.c[(long long)(b * a.H + r.head[hr]) * a.Nq + pos] : 0.f;
+    } else {
+      r.c[hr] = kNegInf;
+    }
     r.f[hr] = ok && a.q_factor != nullptr ? a.q_factor[b * a.H + r.head[hr]]
                                           : 1.f;
   }
@@ -545,6 +608,39 @@ __device__ __forceinline__ bool interior(const Args& a, int c0, int q_lo,
   return true;
 }
 
+// The two products of a tile pair, issued without a fence, a commit or a
+// wait: S = Q·Kᵀ of this warpgroup's rows (bf16) and acc += P·V. qk() and
+// pv() wait for each; the online walk overlaps them.
+template <int D>
+__device__ __forceinline__ void qk_issue(float (&s)[32], uint32_t q,
+                                         uint32_t k, int wg) {
+#pragma unroll
+  for (int sl = 0; sl < D / 64; ++sl) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_ss_bf16(
+          s,
+          make_desc(q + sl * BM * 128 + wg * 64 * 128 + kk * 32, 16, 1024,
+                    1),
+          make_desc(k + sl * BN * 128 + kk * 32, 16, 1024, 1), sl + kk > 0);
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void pv_issue(float (&acc)[D / 64][32],
+                                         const uint32_t (&p)[16], uint32_t v) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int sl = 0; sl < D / 64; ++sl) {
+      wgmma_rs_bf16(acc[sl], &p[4 * kk],
+                    make_desc(v + sl * BN * 128 + kk * 16 * 128, 1024, 1024,
+                              1));
+    }
+  }
+}
+
 // S[64x64] of this warpgroup's rows = Q · Kᵀ. q: the Q tile, k: the K tile
 // (shared-memory addresses).
 template <int D, bool QQ>
@@ -567,18 +663,7 @@ __device__ __forceinline__ void qk(float (&s)[32], uint32_t q, uint32_t k,
     for (int i = 0; i < 32; ++i) s[i] = (float)si[i];
   } else {
     wgmma_fence();
-#pragma unroll
-    for (int sl = 0; sl < T::SLABS; ++sl) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        wgmma_ss_bf16(
-            s,
-            make_desc(q + sl * BM * 128 + wg * 64 * 128 + kk * 32, 16, 1024,
-                      1),
-            make_desc(k + sl * BN * 128 + kk * 32, 16, 1024, 1),
-            sl + kk > 0);
-      }
-    }
+    qk_issue<D>(s, q, k, wg);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
@@ -591,19 +676,33 @@ template <int D>
 __device__ __forceinline__ void pv(float (&acc)[D / 64][32],
                                    const uint32_t (&p)[16], uint32_t v) {
   wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int sl = 0; sl < D / 64; ++sl) {
-      wgmma_rs_bf16(acc[sl], &p[4 * kk],
-                    make_desc(v + sl * BN * 128 + kk * 16 * 128, 1024, 1024,
-                              1));
-    }
-  }
+  pv_issue<D>(acc, p, v);
   wgmma_commit();
   wgmma_wait_all();
 #pragma unroll
   for (int sl = 0; sl < D / 64; ++sl) fence_regs(acc[sl]);
+}
+
+// Copies of wgmma results, read after their wait: the volatile moves keep
+// the reads below the wait, and the accumulator registers are not written
+// while a later group is still in flight (ptxas would serialize the
+// groups).
+__device__ __forceinline__ void copy_after_wait(float (&dst)[32],
+                                                const float (&src)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    asm volatile("mov.b32 %0, %1;" : "=f"(dst[i]) : "f"(src[i]) : "memory");
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void scale_acc(float (&acc)[D / 64][32],
+                                          const float (&f)[2]) {
+#pragma unroll
+  for (int sl = 0; sl < D / 64; ++sl) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[sl][i] *= f[(i >> 1) & 1];
+  }
 }
 
 // The bound step on this thread's 32 scores of a tile pair: p = 2^(s − c)
@@ -644,6 +743,71 @@ __device__ __forceinline__ void bound_step(const Args& a, const Rows& r,
   }
 }
 
+// The online step on this thread's 32 scores of a tile pair (its two
+// rows' columns in wgmma's accumulator layout; the four lanes of a quad
+// share a row): the tile's row max over visible pairs, m_new = max(m, it),
+// α = 2^(m − m_new) applied to l and returned for acc (which the caller
+// scales once the P·V before it has landed), p = 2^(s − m_new) (0 where
+// masked), l += p, P = bf16(p · v_scale) packed in pairs. With MASKED
+// false every pair is visible and no element is tested; SEG adds the
+// segment-id test (kseg: the tile's key ids, qseg: the two rows' ids).
+template <bool QUANT, bool SEG, bool MASKED>
+__device__ __forceinline__ void online_step(
+    const Args& a, const Rows& r, float (&s)[32], const float* ksc,
+    const float* vsc, const int* kseg, const int (&qseg)[2], int c0,
+    float (&m)[2], float (&l)[2], float (&alpha)[2], uint32_t (&p)[16]) {
+  const int lane = threadIdx.x & 31;
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int col = 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+    const int hr = (j >> 1) & 1;
+    float x = s[j];
+    if (QUANT) x *= ksc[col];
+    if (MASKED) {
+      const int cg = c0 + col;
+      bool ok = cg < a.Nk;
+      if (a.causal) {
+        ok = ok && cg <= r.qp[hr] &&
+             (a.window <= 0 || cg > r.qp[hr] - a.window);
+      }
+      if (SEG) ok = ok && kseg[col] == qseg[hr];
+      x = ok ? x : kNegInf;
+    }
+    s[j] = x;
+    mx[hr] = fmaxf(mx[hr], x);
+  }
+  float m_new[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+    mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+    m_new[hr] = fmaxf(m[hr], mx[hr]);
+    alpha[hr] = exp2f(m[hr] - m_new[hr]);
+    m[hr] = m_new[hr];
+    l[hr] *= alpha[hr];
+  }
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    float pr[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = i + e;
+      const int col = 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+      const int hr = (j >> 1) & 1;
+      // a masked pair of a row with no visible key so far has s = m_new
+      // = NEG_INF: its p is forced to 0
+      const float pe = !MASKED || s[j] > kNegInf * 0.5f
+                           ? exp2f(s[j] - m_new[hr])
+                           : 0.f;
+      l[hr] += pe;
+      pr[e] = QUANT ? pe * vsc[col] : pe;
+    }
+    __nv_bfloat162 pair = __floats2bfloat162_rn(pr[0], pr[1]);
+    p[i >> 1] = *reinterpret_cast<uint32_t*>(&pair);
+  }
+}
+
 // Each row's l summed over the four lanes that hold its columns.
 __device__ __forceinline__ void quad_sum(float (&l)[2]) {
 #pragma unroll
@@ -661,16 +825,20 @@ __device__ __forceinline__ bool provably_visible(const Args& a, int pos) {
   return g >= 0 && (a.window <= 0 || g - a.window + 1 <= a.Nk - 1);
 }
 
-// One row's LSE and loose-bound test (by one lane).
+// One row's LSE and, for the bound forms, the loose-bound test (by one
+// lane).
+template <bool BOUND = true>
 __device__ __forceinline__ void finish_row(const Args& a, long long row,
                                            int pos, float l, float c) {
   a.lse[row] = l == 0.f ? kNegInf : c * kLn2 + logf(l);
-  if (l < kLooseBound && provably_visible(a, pos)) atomicAdd(a.n_loose, 1);
+  if (BOUND && l < kLooseBound && provably_visible(a, pos)) {
+    atomicAdd(a.n_loose, 1);
+  }
 }
 
 // The Q-major epilogue of this thread's rows: O = acc / l (0 where l = 0),
-// LSE, the loose-bound count.
-template <int D>
+// LSE against r.c, the loose-bound count (bound forms).
+template <int D, bool BOUND = true>
 __device__ __forceinline__ void store_rows(const Args& a, const Rows& r,
                                            const float (&acc)[D / 64][32],
                                            float (&l)[2], int b) {
@@ -704,7 +872,9 @@ __device__ __forceinline__ void store_rows(const Args& a, const Rows& r,
   if ((lane & 3) == 0) {
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-      if (r.pos[hr] >= 0) finish_row(a, row[hr], r.pos[hr], l[hr], r.c[hr]);
+      if (r.pos[hr] >= 0) {
+        finish_row<BOUND>(a, row[hr], r.pos[hr], l[hr], r.c[hr]);
+      }
     }
   }
 }

@@ -11,10 +11,11 @@ that trade-off observable beside FA2 and the oracle. Forward only, O
 only (no LSE), no GQA.
 
 On a CUDA tensor it launches the hand-written Hopper kernel of
-csrc/fa1.cu (one CTA per 64-row Q tile streams K and V through shared
-memory; a renormalising block is one to four 64-key sub-tiles). On a CPU
-tensor it runs `fa1_attention_plain`, which walks the same blocks in
-PyTorch.
+csrc/fa1.cu (the forward's wgmma + TMA body: one CTA per 128-row Q tile
+streams K and V through a ring of shared-memory stages; a renormalising
+block is one to four 64-key tiles, walked twice: its row max first, then
+P and P·V). On a CPU tensor it runs `fa1_attention_plain`, which walks the
+same blocks in PyTorch.
 """
 
 from __future__ import annotations
@@ -34,8 +35,9 @@ from cuda_flashattention_torch.ops.common import (
     round_up,
 )
 
-# the kernel's tiles (csrc/fa1.cu): Q rows per CTA, keys per sub-tile, and
-# the most sub-tiles a renormalising block may span
+# what the card's kernel takes (csrc/fa1.cu): block_q in multiples of 64
+# rows (rows are independent, so block_q changes no number; a CTA owns 128),
+# keys per tile, and the most tiles a renormalising block may span
 KERNEL_BLOCK_Q = 64
 KERNEL_SUB_K = 64
 KERNEL_MAX_SUB = 4
@@ -153,7 +155,7 @@ def fa1_attention(
     `block_k` is the number of keys after which O is renormalised, and
     `block_q` the rows worked on together; as in the JAX function each is
     first clamped to max(8, min(block, round_up(N, 8))). Rows are
-    independent, so `block_q` changes no number. On the card a CTA owns 64
+    independent, so `block_q` changes no number. On the card a CTA owns 128
     rows and the kernel takes bf16 inputs, d in {64, 128}, `block_q` a
     multiple of 64 (or one block over all rows) and `block_k` in {64, 128,
     192, 256} (or one block over all keys when Nk ≤ 256); any other value

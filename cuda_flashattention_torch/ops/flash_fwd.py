@@ -4,11 +4,12 @@ version.
 Counterpart of cuda_flashattention_tpu/ops/flash_fwd.py
 (`flash_attention_forward`), with its three kernel forms:
 
-  online   K1: running max and rescale (csrc/flash_fwd.cu), one CTA per
-           64-row Q tile, the walk bounded by the causal and window
-           frontiers, GQA through `h // group` with no repeat materialised.
+  online   K1: running max and rescale (csrc/flash_fwd.cu), on the
+           Q-major walk of K1b: a CTA packs the query heads of one KV head
+           into a 128-row tile, the walk bounded by the causal and window
+           frontiers; under causal the Q tiles are issued heaviest first.
   bound    K1b: the score-bound softmax on a Q-major walk
-           (csrc/flash_fwd_bound.cu, wgmma + TMA). The host computes
+           (csrc/flash_fwd_bound.cu). The host computes
            c[b,h,i] = ‖q̂_i‖₂ · max_j ‖k_j‖₂ (Cauchy–Schwarz, log2 units)
            and the kernel evaluates p = 2^(s − c) with no running max and
            no rescale; a CTA packs the query heads of one KV head.
@@ -19,7 +20,8 @@ Counterpart of cuda_flashattention_tpu/ops/flash_fwd.py
            atomics, so O differs in its last fp32 bits from run to run.
            `_kmajor_span` sizes the span so that the grid fills the card.
 
-`softmax="auto"` routes as the JAX function does (`_resolve_use_bound`,
+All three run on one Hopper body, csrc/flash_fwd_bound_sm90.cuh (wgmma,
+TMA). `softmax="auto"` routes as the JAX function does (`_resolve_use_bound`,
 and K-major for a bound call that is causal or reads fp8 keys), without its
 environment knobs and without its on-chip memory budgets, which are TPU
 sizes; "online", "bound" and "bound_unchecked" pin the strategy.

@@ -52,14 +52,22 @@ class DeviceEvent:
     end_us: float
 
 
+# Host seconds the profiler runs idle before the first launch of a window
+# and after its closing synchronize. The profiler keeps only the device
+# events that fall inside its window on the host's clock, once their device
+# timestamps are mapped to it; a window no longer than the error of that
+# mapping can lose every one of its events.
+WINDOW_PAD_S = 0.05
+
+
 def device_events(fn: Callable[[], object], iters: int = 1,
                   attempts: int = 3) -> Tuple[List[DeviceEvent], float]:
     """Profile `iters` calls of `fn()` on the card: (the device events of
     the window, its host wall ms, which ends in `torch.cuda.synchronize()`).
-    The profiler now and then hands back a window without its device
-    events; such a window is profiled again, up to `attempts` times.
-    Raises when there is no card, or when no attempt recorded device
-    activity."""
+    The window is padded by `WINDOW_PAD_S` of idle time on each side. The
+    profiler now and then hands back a window without its device events;
+    such a window is profiled again, up to `attempts` times. Raises when
+    there is no card, or when no attempt recorded device activity."""
     if not torch.cuda.is_available():
         raise RuntimeError("device_events needs a CUDA device")
     from torch.autograd import DeviceType
@@ -69,11 +77,13 @@ def device_events(fn: Callable[[], object], iters: int = 1,
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(WINDOW_PAD_S)
             t0 = time.perf_counter()
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+            time.sleep(WINDOW_PAD_S)
         events = [DeviceEvent(e.name, e.device_resource_id,
                               e.time_range.start, e.time_range.end)
                   for e in prof.events()

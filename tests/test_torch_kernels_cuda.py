@@ -981,3 +981,145 @@ def test_ulysses_and_gpipe_on_the_card(dev):
         got = tfm.pipeline_forward(model, tokens, _ring_mesh(dev, 2, "pp"),
                                    n_micro=2)
     assert _err(got, want) <= 0.125
+
+
+# ---------------------------------------------------------------------------
+# The online forward (K1) and FA1 (K8) on the Hopper body: the edges of the
+# packed 128-row walk
+# ---------------------------------------------------------------------------
+
+def _online(args, **kw):
+    """One K1 launch (softmax pinned online), checked for its count."""
+    before = _form_counts()
+    got = flash_attention_forward(*args, softmax="online", **kw)
+    torch.cuda.synchronize()
+    after = _form_counts()
+    assert {n: after[n] - before[n] for n in after} == {
+        "online": 1, "bound": 0, "kmajor": 0, "fallback": 0}
+    return got
+
+
+# group sizes 1, 2, 4, 8, 16 pack 1..16 heads into a tile of R = 128 / Gp
+# positions; Nq = 203 is a multiple of none of the R
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("kw", [
+    dict(causal=True),
+    dict(causal=True, kv_offset=-37),
+    dict(causal=True, kv_offset=90, window=77),
+    dict(causal=False),
+])
+def test_forward_online_every_packing(dev, group, kw):
+    args, _ = _fwd_inputs(dev, 2, 16, 16 // group, 203, 293, 128, None,
+                          group)
+    _nan_fill_allocator(dev)
+    kw = dict(kw, out_dtype=torch.float32)
+    _assert_fwd_close(_online(args, **kw),
+                      flash_attention_forward_plain(*args, softmax="online",
+                                                    **kw))
+
+
+# kv_offset below and above 0, and windows whose edge falls inside a tile,
+# at d = 64 and 128, fp32 and bf16 O, over bf16 and one-byte K/V
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qtype", [None, "int8", "mixed"])
+@pytest.mark.parametrize("d,kw", [
+    (64, dict(causal=True, kv_offset=-150)),
+    (128, dict(causal=True, kv_offset=333)),
+    (64, dict(causal=True, window=45, kv_offset=19)),
+    (128, dict(causal=True, window=100, kv_offset=-31)),
+])
+def test_forward_online_offsets_and_window_edges(dev, out_dtype, qtype, d,
+                                                 kw):
+    args, scales = _fwd_inputs(dev, 1, 8, 2, 250, 400, d, qtype, d + 7)
+    _nan_fill_allocator(dev)
+    kw = dict(kw, out_dtype=out_dtype, **scales)
+    got = _online(args, **kw)
+    assert got[0].dtype == out_dtype
+    _assert_fwd_close(got, flash_attention_forward_plain(
+        *args, softmax="online", **kw))
+
+
+@pytest.mark.parametrize("qtype", [None, "int8"])
+@pytest.mark.parametrize("group,causal", [(4, True), (8, False), (16, True)])
+def test_forward_online_segments_packed(dev, qtype, group, causal):
+    """Segment ids with Gp > 1 heads in a tile, and a query segment that
+    no key carries: its rows stay empty (O = 0, LSE = NEG_INF)."""
+    n = 300
+    args, scales = _fwd_inputs(dev, 2, 16, 16 // group, n, n, 64, qtype, 3)
+    qseg = _segments(dev, 2, n, [70, 1, 129, 100])
+    kseg = qseg.clone()
+    kseg[kseg == 2] = 7  # no key of segment 2: rows 71..199 see nothing
+    kw = dict(causal=causal, q_segment_ids=qseg, kv_segment_ids=kseg,
+              out_dtype=torch.float32, **scales)
+    _nan_fill_allocator(dev)
+    o, lse = _online(args, **kw)
+    assert torch.all(o[:, :, 71:200] == 0)
+    assert torch.all(lse[:, :, 71:200] == -1e30)
+    _assert_fwd_close((o, lse), flash_attention_forward_plain(
+        *args, softmax="online", **kw))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_forward_online_guard(dev, d):
+    """The guarded launch writes nothing while the guard is 0 and the
+    unguarded launch's bits when it is 1."""
+    import ctypes
+    from cuda_flashattention_torch import _build
+    from cuda_flashattention_torch.ops import flash_fwd as ff
+    (q, k, v), _ = _fwd_inputs(dev, 1, 8, 2, 150, 220, d, None, 4)
+    want = flash_attention_forward(q, k, v, causal=True, softmax="online",
+                                   out_dtype=torch.float32)
+    q_hat = ff._prescale_q(q, ff.resolve_scale(None, d))
+    strides = (ctypes.c_longlong * 9)(*q_hat.stride()[:3], *k.stride()[:3],
+                                      *v.stride()[:3])
+    for flag in (0, 1):
+        guard = torch.tensor([flag], dtype=torch.int32, device=dev)
+        o = torch.full_like(want[0], 7.0)
+        lse = torch.full_like(want[1], 7.0)
+        err = _build.library().cfa_flash_fwd(
+            ff._ptrs(q_hat, k, v, None, None, None, None, guard, o, lse),
+            1, 8, 2, 150, 220, d, strides, 0, 0, 1, 0, 0, 1,
+            torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert err == 0
+        if flag:
+            assert torch.equal(o, want[0]) and torch.equal(lse, want[1])
+        else:
+            assert torch.all(o == 7.0) and torch.all(lse == 7.0)
+
+
+@pytest.mark.parametrize("group,qtype", [(4, None), (1, "int8")])
+def test_forward_online_tile_order_changes_no_bit(dev, group, qtype):
+    """A causal call whose kv_offset lets every query see every key takes
+    the non-causal call's tiles and masks, but issues its Q tiles heaviest
+    first where the other issues them in order: both give the same bits
+    (each CTA computes its tile alone, and the reordered grid still covers
+    every tile of every head group and batch once)."""
+    nk = 1100
+    args, scales = _fwd_inputs(dev, 2, 8, 8 // group, 1000, nk, 128, qtype,
+                               6)
+    kw = dict(out_dtype=torch.bfloat16, **scales)
+    causal = _online(args, causal=True, kv_offset=nk, **kw)
+    plain = _online(args, causal=False, **kw)
+    assert torch.equal(causal[0], plain[0])
+    assert torch.equal(causal[1], plain[1])
+
+
+# every renormalising block the kernel takes, a block over all keys of a
+# short Nk, ragged N; peaked inputs so that a wrong renormalisation shows
+@pytest.mark.parametrize("block_k", [64, 128, 192, 256])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("nq,nk,d", [(1000, 1000, 128), (333, 250, 64),
+                                     (70, 777, 128)])
+def test_fa1_kernel_block_plans(dev, block_k, causal, nq, nk, d):
+    args, _ = _fwd_inputs(dev, 1, 4, 4, nq, nk, d, None, block_k + nq)
+    _nan_fill_allocator(dev)
+    before = fa1_attention.launches
+    o = fa1_attention(*args, causal=causal, block_k=block_k)
+    torch.cuda.synchronize()
+    assert fa1_attention.launches == before + 1
+    o_p = fa1_attention_plain(*args, causal=causal, block_q=256,
+                              block_k=max(8, min(block_k, -(-nk // 8) * 8)))
+    ref = o_p.float().abs().max().item()
+    assert ref > 0 and torch.isfinite(o.float()).all()
+    assert _err(o, o_p) <= min(GATE, REL_GATE * ref)

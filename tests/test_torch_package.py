@@ -108,8 +108,8 @@ def test_build_command_targets_sm90a():
         "flash_fwd.cu", "flash_fwd_bound.cu", "flash_fwd_kmajor.cu",
         "flash_bwd.cu", "decode.cu", "paged.cu", "fa1.cu", "device_ring.cu"}
     # the bodies the sources share are hashed, not compiled
-    assert {"decode_body.cuh", "flash_fwd_body.cuh",
-            "flash_fwd_bound_sm90.cuh"} <= {h.name for h in _build.headers()}
+    assert {"decode_body.cuh", "flash_fwd_bound_sm90.cuh"} <= {
+        h.name for h in _build.headers()}
     arch = ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
     for src in srcs:
         cmd = _build.compile_command("nvcc", src, Path("x.o"))
@@ -140,7 +140,7 @@ def test_distributed_layer_is_exported(name):
 
 
 @pytest.mark.parametrize("name", ["flash_fwd_bound.cu", "flash_fwd_kmajor.cu",
-                                  "flash_fwd_bound_sm90.cuh"])
+                                  "flash_fwd_bound_sm90.cuh", "flash_fwd.cu"])
 def test_bound_forward_sources_are_hopper_kernels(name):
     """K1b and K5, and the body they share: each names the TPU kernel it
     replaces, and the products run on wgmma fed by TMA, not on wmma."""
@@ -157,15 +157,30 @@ def test_bound_forward_sources_are_hopper_kernels(name):
 
 
 def test_online_forward_builds_no_bound_form():
-    """flash_fwd.cu instantiates the online form (K1) only; the bound
-    forms have entry points of their own."""
+    """flash_fwd.cu instantiates the online form (K1) only, on the shared
+    Hopper body; the bound forms have entry points of their own."""
     src = (_build.CSRC / "flash_fwd.cu").read_text()
-    body = (_build.CSRC / "flash_fwd_body.cuh").read_text()
-    for needle in ("FORM", "kBound", "bound_probs", "qk_s8", "n_loose"):
-        assert needle not in src + body, needle
+    for needle in ("FORM", "kBound", "bound_step", "QQ", "store_rows<D>(",
+                   "n_loose"):
+        assert needle not in src, needle
+    # the online step, and the epilogue without the loose-bound count
+    assert "online_step<" in src and "store_rows<D, false>(" in src
     assert len(_build.SIGNATURES["cfa_flash_fwd"]) == 15
     assert len(_build.SIGNATURES["cfa_flash_fwd_bound"]) == 16
     assert len(_build.SIGNATURES["cfa_flash_fwd_kmajor"]) == 17
+
+
+def test_fa1_source_is_a_hopper_kernel():
+    """K8 names the TPU kernel it replaces and runs on the forward's wgmma
+    + TMA body; no source includes the old wmma body."""
+    src = (_build.CSRC / "fa1.cu").read_text()
+    assert "Replaces: cuda_flashattention_tpu/ops/fa1.py::_fa1_kernel" in src
+    assert "nvcuda" not in src and "wmma::" not in src
+    assert '#include "flash_fwd_bound_sm90.cuh"' in src
+    for needle in ("qk<D, false>", "pv<D>", "mbar_wait", "tma_load_4d"):
+        assert needle in src, needle
+    assert not (_build.CSRC / "flash_fwd_body.cuh").exists()
+    assert len(_build.SIGNATURES["cfa_fa1"]) == 13
 
 
 def test_device_ring_is_bound_with_its_signature():
