@@ -79,7 +79,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
 6. FA1 (K8) against its plain version at B=1, H=16, N=4096, d=128,
    causal and not (gate 5e-3), with K1's time at the same shape.
 7. Backward kernels against their plain version, on the card, in bf16:
-   the fused K4 (`fused=True`) and the split K2 + K3 (`fused=False`), each
+   the fused K4 (`fused=True`) and the split K2 + K3 (`fused=False`; K2
+   is K4's wgmma + TMA kernel without dQ, K3 the wmma dQ kernel), each
    against `flash_attention_backward_plain` and against each other, at the
    training shape (B=1, H=16, N=4096, d=128, causal), a GQA ragged shape,
    a `kv_offset` = -20 case with empty rows and unseen keys, and a
@@ -2384,12 +2385,12 @@ def main() -> int:
         ("K7", "paged_decode_attention (K7, one-token decode over paged "
          "pools)", "paged.cu", "paged.py:51"),
         ("K8", "fa1_attention (K8, FA1 forward)", "fa1.cu", "fa1.py:54"),
-        ("K2", "flash_attention_backward fused=False (K2, dK/dV)",
-         "flash_bwd.cu", "flash_bwd.py:117"),
+        ("K2", "flash_attention_backward fused=False (K2, dK/dV; wgmma + "
+         "TMA)", "flash_bwd_kv.cu", "flash_bwd.py:117"),
         ("K3", "flash_attention_backward fused=False (K3, dQ)",
          "flash_bwd.cu", "flash_bwd.py:192"),
-        ("K4", "flash_attention_backward (K4, fused dQ/dK/dV)",
-         "flash_bwd.cu", "flash_bwd.py:252"),
+        ("K4", "flash_attention_backward (K4, fused dQ/dK/dV; wgmma + TMA, "
+         "dQ by TMA reduce)", "flash_bwd_kv.cu", "flash_bwd.py:252"),
         ("K9", "device_ring_matmul (K9, device-initiated ring: the kernel "
          "pushes its shard to the next rank and orders the steps with "
          "device-side flags)", "device_ring.cu",

@@ -1,44 +1,32 @@
-// FlashAttention-2 backward for Hopper, bf16 in, fp32 accumulation:
-// dK/dV (K2), dQ (K3), and dQ/dK/dV in one pass (K4).
+// FlashAttention-2 backward's Q-parallel dQ kernel (K3), bf16 in, fp32
+// accumulation, on nvcuda::wmma.
 //
-// Replaces: cuda_flashattention_tpu/ops/flash_bwd.py::_bwd_dkdv_kernel
-// (K2), ::_bwd_dq_kernel (K3) and ::_bwd_fused_kernel (K4).
+// Replaces: cuda_flashattention_tpu/ops/flash_bwd.py::_bwd_dq_kernel (K3).
+// Its key-parallel partners, dK/dV (K2) and the fused pass (K4), are the
+// Hopper kernel of flash_bwd_kv.cu; K3 runs only beside K2 on the split
+// path (fused=False).
 //
-// What bounds them on the H100: per visible (Q tile, K/V tile) pair the
-// backward does 4 (K2), 3 (K3) or 5 (K4) products of 2·64·64·d flops on
-// tiles that are read once per pair, so at the training shapes (N = 4096,
-// d = 128) they are compute-bound like the forward. In this first version
-// the tensor-core products are not the limit: the fp32 round trips of S,
-// dP and the accumulators through shared memory, the block barriers
-// around every tile, and (K4) the fp32 atomics into dQ are.
+// What bounds it on the H100: per visible (Q tile, K/V tile) pair it does
+// 3 products of 2·64·64·d operations on tiles read once per pair, so at the
+// training shapes (N = 4096, d = 128) it is compute-bound like the
+// forward. In this version the tensor-core products are not the limit: the
+// fp32 round trips of S, dP and the accumulator through shared memory and
+// the block barriers around every tile are.
 //
 // What this design does about it: the products run on the tensor cores
-// through nvcuda::wmma bf16 fragments with fp32 accumulation, and each CTA
-// keeps its resident operands in shared memory for its whole walk.
-//  - K2: one CTA per (batch, KV head, 64-key tile). K_j and V_j stay
-//    resident; the CTA walks the G query heads of its group and the Q
-//    tiles that can see tile j (causal: from (j·BK − kv_offset) / BQ on,
-//    which replaces the TPU host's block clamping). dK and dV accumulate
-//    in fp32 shared memory across the whole group and are cast once.
-//  - K4: K2's walk plus dQ_i += dS·K_j, added with fp32 atomicAdd into a
-//    zeroed fp32 [B,H,Nq,d] buffer. The TPU kernel keeps the full-sequence
-//    gradient state in VMEM; 227 KB of shared memory cannot, so this is the
-//    GPU form (the reference CUDA backward's own design). It is K2's body
-//    with one template parameter.
-//  - K3: one CTA per (batch, head, 64-row Q tile), walking the visible
-//    K/V tiles of head h // G; each warp owns 16 rows end to end, so only
-//    the K/V tile loads need block barriers.
+// through nvcuda::wmma bf16 fragments with fp32 accumulation. One CTA per
+// (batch, head, 64-row Q tile) keeps Q, dO and its dQ accumulator resident
+// and walks the visible K/V tiles of head h // G; each warp owns 16 rows
+// end to end, so only the K/V tile loads need block barriers.
 // Shared memory at d = 128: four bf16 tiles (Q, dO, K, V) 68 KB, fp32 S
-// and dP 34 KB, bf16 P and dS 18 KB, two fp32 accumulators 66 KB: about
-// 187 KB, one CTA per SM. K4's dQ partial reuses the S/dP space.
+// and dP 34 KB, bf16 P and dS 18 KB, the fp32 accumulator 33 KB.
 //
 // Numerics follow the TPU kernels (flash_bwd.py:53-114): S is recomputed
 // from the raw q as fp32 q·kᵀ times scale·log2(e); P = exp2(S − LSE·log2e)
 // with P = 0 for masked entries (ragged tail, causal, sliding window,
 // segment ids) and for rows whose LSE < NEG_INF/2;
-// dP = dO·Vᵀ and dS = P ⊙ (dP − D)·scale in fp32; P is rounded to bf16
-// before dV += Pᵀ·dO and dS before dK += dSᵀ·Q and dQ += dS·K. A K/V tile
-// that no query sees, or a Q tile that sees no key, writes zeros.
+// dP = dO·Vᵀ and dS = P ⊙ (dP − D)·scale in fp32; dS is rounded to bf16
+// before dQ += dS·K. A Q tile that sees no key writes zeros.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,8 +47,7 @@ constexpr int BK = 64;      // keys per tile
 constexpr int NWARPS = 4;   // each warp owns 16 rows of a tile
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int ROWS = 16;
-static_assert(BQ == NWARPS * ROWS && BK == NWARPS * ROWS,
-              "a warp owns 16 query rows and 16 key rows");
+static_assert(BQ == NWARPS * ROWS, "a warp owns 16 query rows");
 
 template <int D>
 struct Smem {
@@ -82,15 +69,12 @@ struct Smem {
   static constexpr size_t dp_off = s_off + tile_s;
   static constexpr size_t p_off = dp_off + tile_s;
   static constexpr size_t ds_off = p_off + tile_p;
-  static constexpr size_t acc_off = ds_off + tile_p;   // dK (K2/K4), dQ (K3)
-  static constexpr size_t acc2_off = acc_off + tile_a; // dV (K2/K4)
-  static constexpr size_t lse_off = acc2_off + tile_a;
+  static constexpr size_t acc_off = ds_off + tile_p;   // dQ
+  static constexpr size_t lse_off = acc_off + tile_a;
   static constexpr size_t delta_off = lse_off + sizeof(float) * BQ;
   static constexpr size_t qseg_off = delta_off + sizeof(float) * BQ;
   static constexpr size_t kseg_off = qseg_off + sizeof(int) * BQ;
   static constexpr size_t bytes = kseg_off + sizeof(int) * BK;
-  // K4's per-tile dQ partial reuses S and dP once dS is formed
-  static_assert(tile_a <= 2 * tile_s, "dQ scratch must fit in S + dP");
   static_assert(bytes <= 232448, "over the 227 KB a CTA may use");
 };
 
@@ -211,7 +195,7 @@ __device__ __forceinline__ void probs_rows(
   }
 }
 
-// The kernels are built twice: with EXTRA false a call has no window and
+// K3 is built twice: with EXTRA false a call has no window and
 // no segment ids, and every test of them folds away at compile time.
 template <int D, bool EXTRA>
 __device__ __forceinline__ void probs_and_ds(
@@ -239,31 +223,6 @@ __device__ __forceinline__ void probs_and_ds(
     probs_rows<D, true>(ss, dps, lse_s, delta_s, qsegs, ksegs, ps, dss, r0,
                         q0, c0, Nk, causal, window, kv_offset, scale_log2e,
                         scale);
-  }
-}
-
-// acc[r0:r0+16, :] += Aᵀ · B for a bf16 [BQ, BK] A (P or dS) and a bf16
-// [BQ, D] B (dO or Q): the warp's 16 key rows of dV or dK.
-template <int D>
-__device__ __forceinline__ void accumulate_t(float* acc, const bf16* a,
-                                             const bf16* b, int r0) {
-  using S = Smem<D>;
-#pragma unroll
-  for (int nb = 0; nb < D / 16; ++nb) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> f;
-    wmma::load_matrix_sync(f, acc + r0 * S::LDA + nb * 16, S::LDA,
-                           wmma::mem_row_major);
-#pragma unroll
-    for (int kq = 0; kq < BQ / 16; ++kq) {
-      // Aᵀ as a column-major A: element (m, k) sits at A[k][r0 + m]
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, a + kq * 16 * S::LDP + r0, S::LDP);
-      wmma::load_matrix_sync(fb, b + kq * 16 * S::LDH + nb * 16, S::LDH);
-      wmma::mma_sync(f, fa, fb, f);
-    }
-    wmma::store_matrix_sync(acc + r0 * S::LDA + nb * 16, f, S::LDA,
-                            wmma::mem_row_major);
   }
 }
 
@@ -303,10 +262,7 @@ struct Args {
   const bf16* dout;
   const float* lse;    // [B, H, Nq], natural log
   const float* delta;  // [B, H, Nq], rowsum(dO ⊙ O)
-  bf16* dq;            // [B, H, Nq, D] (K3)
-  bf16* dk;            // [B, Hkv, Nk, D] (K2, K4)
-  bf16* dv;
-  float* dq_acc;       // [B, H, Nq, D] fp32, zeroed (K4)
+  bf16* dq;            // [B, H, Nq, D]
   const int* q_seg;    // [B, Nq] or null
   const int* kv_seg;   // [B, Nk] or null
   int H, Hkv, Nq, Nk;
@@ -314,115 +270,6 @@ struct Args {
   float scale_log2e, scale;
   int causal, window, kv_offset;
 };
-
-// K2 (FUSED = false) and K4 (FUSED = true): one CTA per (key tile, KV
-// head, batch).
-template <int D, bool FUSED, bool EXTRA>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_kv_kernel(Args a) {
-  using S = Smem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem + S::k_off);
-  bf16* vs = reinterpret_cast<bf16*>(smem + S::v_off);
-  bf16* qs = reinterpret_cast<bf16*>(smem + S::q_off);
-  bf16* dos = reinterpret_cast<bf16*>(smem + S::do_off);
-  float* ss = reinterpret_cast<float*>(smem + S::s_off);
-  float* dps = reinterpret_cast<float*>(smem + S::dp_off);
-  bf16* ps = reinterpret_cast<bf16*>(smem + S::p_off);
-  bf16* dss = reinterpret_cast<bf16*>(smem + S::ds_off);
-  float* dk_acc = reinterpret_cast<float*>(smem + S::acc_off);
-  float* dv_acc = reinterpret_cast<float*>(smem + S::acc2_off);
-  float* lse_s = reinterpret_cast<float*>(smem + S::lse_off);
-  float* delta_s = reinterpret_cast<float*>(smem + S::delta_off);
-  int* qsegs = reinterpret_cast<int*>(smem + S::qseg_off);
-  int* ksegs = reinterpret_cast<int*>(smem + S::kseg_off);
-  float* dq_part = ss;  // K4: this tile pair's dQ, once S/dP are spent
-  const bool seg = EXTRA && a.q_seg != nullptr;
-  const int window = EXTRA ? a.window : 0;
-
-  const int c0 = blockIdx.x * BK;
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
-  const int group = a.H / a.Hkv;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r0 = warp * ROWS;
-
-  load_tile<D, BK>(ks, S::LDH, a.k + b * a.skb + hk * a.skh, a.skn, c0,
-                   a.Nk);
-  load_tile<D, BK>(vs, S::LDH, a.v + b * a.svb + hk * a.svh, a.svn, c0,
-                   a.Nk);
-  for (int i = threadIdx.x; i < BK * S::LDA; i += NTHREADS) {
-    dk_acc[i] = 0.f;
-    dv_acc[i] = 0.f;
-  }
-  if (seg) load_ids(ksegs, a.kv_seg + (long long)b * a.Nk, c0, a.Nk, -2);
-
-  const int n_q_tiles = (a.Nq + BQ - 1) / BQ;
-  // causal: Q tile i sees this key tile iff (i+1)·BQ − 1 + kv_offset ≥ c0;
-  // with a window the last row that reaches the tile's last key is
-  // c0 + BK − 2 + window − kv_offset
-  const int first = a.causal ? max(0, c0 - a.kv_offset) / BQ : 0;
-  int last = n_q_tiles - 1;
-  if (a.causal && window > 0) {
-    const int last_row = c0 + BK - 2 + window - a.kv_offset;
-    last = last_row < 0 ? -1 : min(last, last_row / BQ);
-  }
-
-  for (int g = 0; g < group; ++g) {
-    const int h = hk * group + g;
-    const bf16* qb = a.q + b * a.sqb + h * a.sqh;
-    const bf16* dob = a.dout + b * a.sob + h * a.soh;
-    const long long row_base = (long long)(b * a.H + h) * a.Nq;
-    for (int it = first; it <= last; ++it) {
-      const int q0 = it * BQ;
-      __syncthreads();  // the previous tile's readers are done
-      load_tile<D, BQ>(qs, S::LDH, qb, a.sqn, q0, a.Nq);
-      load_tile<D, BQ>(dos, S::LDH, dob, a.son, q0, a.Nq);
-      load_rows(lse_s, delta_s, a.lse + row_base, a.delta + row_base, q0,
-                a.Nq);
-      if (seg) load_ids(qsegs, a.q_seg + (long long)b * a.Nq, q0, a.Nq, -1);
-      __syncthreads();
-
-      scores<D>(qs, dos, ks, vs, ss, dps, r0);
-      __syncwarp();
-      probs_and_ds<D, EXTRA>(ss, dps, lse_s, delta_s, seg ? qsegs : nullptr,
-                             ksegs, ps, dss, r0, q0, c0, a.Nk, a.causal,
-                             window, a.kv_offset, a.scale_log2e, a.scale);
-      __syncthreads();  // P and dS of every row are in place
-
-      // the warp's 16 keys: dV += Pᵀ·dO, dK += dSᵀ·Q
-      accumulate_t<D>(dv_acc, ps, dos, r0);
-      accumulate_t<D>(dk_acc, dss, qs, r0);
-
-      if (FUSED) {
-        // the warp's 16 query rows: dQ += dS·K, added to device memory
-        accumulate_dq<D>(dq_part, dss, ks, r0, true);
-        __syncwarp();
-        for (int rr = 0; rr < ROWS; ++rr) {
-          const int qi = q0 + r0 + rr;
-          if (qi >= a.Nq) break;
-          float* dst = a.dq_acc + (row_base + qi) * D;
-          for (int c = lane; c < D; c += 32) {
-            atomicAdd(dst + c, dq_part[(r0 + rr) * S::LDA + c]);
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();  // accumulator init is visible when no Q tile ran
-
-  // epilogue: dK, dV cast once; the ragged key tail is skipped, and a key
-  // tile that no query sees writes its zeros
-  const long long kv_base = (long long)(b * a.Hkv + hk) * a.Nk;
-  for (int i = threadIdx.x; i < BK * D; i += NTHREADS) {
-    const int r = i / D;
-    const int c = i % D;
-    if (c0 + r >= a.Nk) break;
-    const long long o = (kv_base + c0 + r) * D + c;
-    a.dk[o] = __float2bfloat16(dk_acc[r * S::LDA + c]);
-    a.dv[o] = __float2bfloat16(dv_acc[r * S::LDA + c]);
-  }
-}
 
 // K3: one CTA per (query tile, head, batch).
 template <int D, bool EXTRA>
@@ -518,17 +365,6 @@ cudaError_t launch(void (*kernel)(Args), dim3 grid, size_t smem,
 // serves a call that uses neither.
 bool has_extras(const Args& a) { return a.window > 0 || a.q_seg != nullptr; }
 
-// K2 (fused false) or K4, built with or without the extras.
-template <int D>
-void (*kv_kernel(bool fused, bool extra))(Args) {
-  if (fused) {
-    return extra ? flash_bwd_kv_kernel<D, true, true>
-                 : flash_bwd_kv_kernel<D, true, false>;
-  }
-  return extra ? flash_bwd_kv_kernel<D, false, true>
-               : flash_bwd_kv_kernel<D, false, false>;
-}
-
 Args make_args(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, const void* q_seg,
                const void* kv_seg, int H, int Hkv, int Nq, int Nk,
@@ -561,40 +397,8 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// K2 when dq_acc is null, else K4 (which also adds dQ into dq_acc).
-// strides: q, k, v, dO, each (batch, head, row), in elements. q_seg
+// K3. strides: q, k, v, dO, each (batch, head, row), in elements. q_seg
 // [B, Nq] and kv_seg [B, Nk] are int32 segment ids, or both null.
-extern "C" int cfa_flash_bwd_kv(const void* q, const void* k, const void* v,
-                                const void* dout, const void* lse,
-                                const void* delta, const void* q_seg,
-                                const void* kv_seg, void* dk, void* dv,
-                                void* dq_acc, int B, int H, int Hkv, int Nq,
-                                int Nk, int D, const long long* strides,
-                                double scale, int causal, int window,
-                                int kv_offset, void* stream) {
-  if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
-  if (B == 0 || Nk == 0) return cudaSuccess;
-  Args a = make_args(q, k, v, dout, lse, delta, q_seg, kv_seg, H, Hkv, Nq,
-                     Nk, strides, scale, causal, window, kv_offset);
-  a.dk = static_cast<bf16*>(dk);
-  a.dv = static_cast<bf16*>(dv);
-  a.dq_acc = static_cast<float*>(dq_acc);
-  const dim3 grid((Nk + BK - 1) / BK, Hkv, B);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool fused = dq_acc != nullptr;
-  switch (D) {
-    case 64:
-      return launch(kv_kernel<64>(fused, has_extras(a)), grid,
-                    Smem<64>::bytes, a, s);
-    case 128:
-      return launch(kv_kernel<128>(fused, has_extras(a)), grid,
-                    Smem<128>::bytes, a, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-// K3. strides as for cfa_flash_bwd_kv.
 extern "C" int cfa_flash_bwd_q(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, const void* q_seg,

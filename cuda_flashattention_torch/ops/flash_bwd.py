@@ -3,10 +3,12 @@ version.
 
 Counterpart of cuda_flashattention_tpu/ops/flash_bwd.py
 (`flash_attention_backward`). On a CUDA tensor it launches the
-hand-written Hopper kernels of csrc/flash_bwd.cu: the fused single pass
-K4 (dK/dV per key tile, dQ added with fp32 atomics) by default, or the
-split pair K2 (dK/dV) + K3 (dQ) with `fused=False`. On a CPU tensor it
-runs `flash_attention_backward_plain`, a dense PyTorch version of the same
+hand-written Hopper kernels: the fused single pass K4 (dK/dV per 128-key
+tile, dQ added into an fp32 buffer by TMA reduces) by default, or the
+split pair K2 (dK/dV) + K3 (dQ) with `fused=False`. K2 and K4 are one
+wgmma + TMA kernel (csrc/flash_bwd_kv.cu), K3 the wmma kernel of
+csrc/flash_bwd.cu. On a CPU tensor it runs
+`flash_attention_backward_plain`, a dense PyTorch version of the same
 numerics; the CPU tests and the on-card comparisons use it.
 
 D = rowsum(dO ⊙ O) is one PyTorch reduction before the kernels, as the
@@ -21,7 +23,7 @@ NotImplementedError (the kernels' tiles are fixed).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -29,12 +31,45 @@ from cuda_flashattention_torch import _build
 from cuda_flashattention_torch.ops.common import (
     KERNEL_HEAD_DIMS,
     NEG_INF,
+    cdiv,
     check_qkv,
     kernel_operand,
     resolve_scale,
 )
 
 _LOG2E = 1.4426950408889634
+
+# K2/K4's tiles (csrc/flash_bwd_kv.cu): a CTA owns BK keys, two warpgroups
+# of 64, and streams the query rows that see them BQ at a time
+_BWD_BK = 128
+_BWD_BQ = 64
+
+
+def _bwd_q_tiles(c0: int, nq: int, nk: int, causal: bool, window: int,
+                 kv_offset: int) -> Tuple[int, int]:
+    """The Q tiles [first, last] that the K2/K4 CTA of the key tile at c0
+    walks (for each query head of its group), as the kernel's `q_tiles`
+    computes them: causal rows see keys <= row + kv_offset, so the first
+    tile holds row c0 − kv_offset; with a window the last row that reaches
+    the tile's last key is that key − kv_offset + window − 1. Empty when
+    first > last. Exactly the tiles with a visible pair (segment ids
+    aside, which mask inside the walk)."""
+    first, last = 0, cdiv(nq, _BWD_BQ) - 1
+    if causal:
+        first = max(0, c0 - kv_offset) // _BWD_BQ
+        if window > 0:
+            last_row = min(nk, c0 + _BWD_BK) - 2 + window - kv_offset
+            last = -1 if last_row < 0 else min(last, last_row // _BWD_BQ)
+    return first, last
+
+
+def _bwd_cta_order(nk: int, h_kv: int, b: int) -> List[Tuple[int, int, int]]:
+    """(key tile, KV head, batch) of each K2/K4 CTA in launch order, as the
+    kernel's `cta_tile` maps its block index: key tiles slowest, so that
+    under causal, where key tile 0 sees the most queries, the longest walks
+    start in the first wave."""
+    return [(kt, lin % h_kv, lin // h_kv)
+            for kt in range(cdiv(nk, _BWD_BK)) for lin in range(h_kv * b)]
 
 
 def flash_attention_backward_plain(

@@ -9,6 +9,9 @@ kernels there), and prints, on bf16 inputs with d=128:
     the serving prefill shape (B=8, H=16, Hkv=4, N=512, fp32 out) and the
     training shape (B=1, H=16, N=4096, bf16 out); K1 there also under
     window 1024;
+  - at the training shape: K4 under window 1024 and without a mask (a
+    ring step's full 4096 x 4096 block), and the split backward's dK/dV
+    kernel (K2, `fused=False`; its K3 launch is listed beside it);
   - K1's other forms: at the chunked-prefill prefix pinned online over
     bf16 and int8 K/V, and under segment ids (the serving chunk's shape,
     causal and not);
@@ -51,15 +54,23 @@ def main(root: str) -> None:
         return ((torch.rand(shape, generator=gen, device=dev) - 0.5)
                 * peak).to(torch.bfloat16)
 
+    def short(name):
+        """A profiler kernel name without its return type, namespace and
+        arguments."""
+        name = name.replace("void ", "", 1)
+        return name.replace("(anonymous namespace)::", "").split("(")[0][:48]
+
     def report(label, fn, word, iters):
-        """`label`: wrapper ms, the matching kernels' device ms per call
-        (each launches once a call) and each one's ms per launch."""
+        """`label`: wrapper ms, the device ms per call of the kernels whose
+        name holds `word` (each launches once a call) and each listed
+        package kernel's ms per launch."""
         wrapper = cuda_time_ms(fn, iters=iters)
         prof = kernel_times(fn, iters=max(1, iters // 4))
         names = [n for n in prof.ms if word in n]
         per_call = sum(prof.ms[n] / prof.count[n] for n in names)
-        each = ", ".join(f"{n.split('(')[0][:48]} "
-                         f"{prof.ms[n] / prof.count[n]:.4f}" for n in names)
+        each = ", ".join(f"{short(n)} "
+                         f"{prof.ms[n] / prof.count[n]:.4f}" for n in prof.ms
+                         if "flash_" in n or "fa1" in n)
         print(f"{root} {label}: wrapper {wrapper:.4f} ms, kernels "
               f"{per_call:.4f} ms per call [{each}] ({card})", flush=True)
 
@@ -78,6 +89,17 @@ def main(root: str) -> None:
         report(f"{name} K4 fused backward",
                lambda: flash_attention_backward(q, k, v, o, lse, do,
                                                 causal=True), "flash_bwd", 20)
+    _, q, k, v, do, o, lse, _ = cases[1]
+    report("train K2 dK/dV (fused=False)",
+           lambda: flash_attention_backward(q, k, v, o, lse, do, causal=True,
+                                            fused=False), "flash_bwd_kv", 20)
+    for label, kw in (("window 1024", dict(causal=True, window=1024)),
+                      ("no mask (ring full block)", dict(causal=False))):
+        o_m, lse_m = flash_attention_forward(q, k, v, **kw)
+        report(f"train K4 fused backward, {label}",
+               lambda: flash_attention_backward(q, k, v, o_m, lse_m, do,
+                                                **kw), "flash_bwd", 20)
+        del o_m, lse_m
     for name, q, k, v, _, _, _, out_dtype in cases:
 
         def fwd():

@@ -808,6 +808,109 @@ def test_autograd_window_and_segments(dev):
         _assert_rel(g, w, name)
 
 
+# K2/K4 walk 128-key tiles (csrc/flash_bwd_kv.cu): Nk at BK - 1, BK,
+# BK + 1 and 2·BK + 3 with Nq != Nk; kv_offset crossing a key tile
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("b,h,h_kv,nq,nk,d,causal,kv_offset", [
+    (1, 4, 2, 100, 127, 128, True, 0),
+    (1, 4, 2, 100, 127, 128, False, 0),
+    (2, 4, 4, 200, 128, 128, True, 30),
+    (2, 4, 4, 200, 128, 128, False, 0),
+    (1, 8, 2, 64, 129, 128, True, 65),
+    (1, 8, 2, 64, 129, 128, False, 0),
+    (1, 4, 1, 300, 259, 64, True, 0),
+    (1, 4, 1, 300, 259, 64, False, 0),
+    (1, 4, 2, 64, 300, 128, True, 100),
+    (1, 4, 2, 64, 300, 128, True, 127),
+    (1, 4, 2, 64, 300, 128, True, 128),
+    (1, 4, 2, 190, 300, 64, True, -70),
+    (1, 16, 4, 1000, 1000, 64, True, 0),
+])
+def test_backward_kernels_key_tile_edges(dev, b, h, h_kv, nq, nk, d, causal,
+                                         kv_offset, fused):
+    args = _bwd_inputs(dev, b, h, h_kv, nq, nk, d, causal, kv_offset,
+                       seed=3 * nq + nk)
+    kw = dict(causal=causal, kv_offset=kv_offset)
+    _nan_fill_allocator(dev)
+    got = flash_attention_backward(*args, fused=fused, **kw)
+    torch.cuda.synchronize()
+    want = flash_attention_backward_plain(*args, **kw)
+    for g, w, name in zip(got, want, ("dQ", "dK", "dV")):
+        assert torch.isfinite(g.float()).all(), name
+        _assert_rel(g, w, name)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_backward_kernels_gqa_training_shape(dev, fused):
+    """B=1, 16 query heads over 4 KV heads, N=4096 causal: each CTA walks
+    four query heads into one dK/dV."""
+    args = _bwd_inputs(dev, 1, 16, 4, 4096, 4096, 128, True, 0, seed=16)
+    got = flash_attention_backward(*args, causal=True, fused=fused)
+    torch.cuda.synchronize()
+    want = flash_attention_backward_plain(*args, causal=True)
+    for g, w, name in zip(got, want, ("dQ", "dK", "dV")):
+        _assert_rel(g, w, name)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("nq,nk,d,window,kv_offset,lengths", [
+    (100, 127, 128, 50, 27, None),
+    (200, 129, 128, 64, 0, [64, 1, 64]),
+    (300, 259, 64, 100, 0, [128, 2, 129]),
+    (64, 300, 128, 90, 128, None),
+    (259, 259, 128, 0, 0, [127, 1, 129, 2]),
+])
+def test_backward_kernels_window_and_segments_at_key_tile_edges(
+        dev, nq, nk, d, window, kv_offset, lengths, fused):
+    b, h, h_kv = 2, 4, 2
+    gen = torch.Generator(device=dev).manual_seed(nq + 7 * nk)
+    q, do = _rand(gen, dev, b, h, nq, d), _rand(gen, dev, b, h, nq, d)
+    k, v = _rand(gen, dev, b, h_kv, nk, d), _rand(gen, dev, b, h_kv, nk, d)
+    kw = dict(causal=True, window=window, kv_offset=kv_offset)
+    if lengths is not None:
+        kw.update(q_segment_ids=_segments(dev, b, nq, lengths + [nq]),
+                  kv_segment_ids=_segments(dev, b, nk, lengths + [nk]))
+    o, lse = flash_attention_forward(q, k, v, **kw)
+    _nan_fill_allocator(dev)
+    got = flash_attention_backward(q, k, v, o, lse, do, fused=fused, **kw)
+    torch.cuda.synchronize()
+    want = flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
+    for g, w, name in zip(got, want, ("dQ", "dK", "dV")):
+        assert torch.isfinite(g.float()).all(), name
+        _assert_rel(g, w, name)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_backward_without_queries_gives_zero_dk_dv(dev, fused):
+    """Nq = 0: no Q tile to walk; dK and dV are zeros, written over NaN."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q = _rand(gen, dev, 1, 4, 0, 128)
+    k, v = _rand(gen, dev, 1, 2, 200, 128), _rand(gen, dev, 1, 2, 200, 128)
+    o, do = torch.zeros_like(q), torch.zeros_like(q)
+    lse = torch.zeros((1, 4, 0), device=dev)
+    _nan_fill_allocator(dev)
+    dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do, causal=True,
+                                          fused=fused)
+    torch.cuda.synchronize()
+    assert dq.shape == q.shape
+    assert torch.all(dk == 0) and torch.all(dv == 0)
+
+
+def test_fused_backward_repeats(dev):
+    """Two K4 runs on the same inputs: dK and dV bit for bit (each CTA sums
+    its keys in a fixed order), dQ within one bf16 step of its largest
+    value: its fp32 atomics add the key tiles' parts in the order they
+    land, and a sum in another order can round to the neighbouring bf16
+    (8 significant bits: 2^-7 of the largest |dQ| covers it)."""
+    args = _bwd_inputs(dev, 1, 16, 4, 2048, 2048, 128, True, 0, seed=21)
+    a = flash_attention_backward(*args, causal=True, fused=True)
+    b_ = flash_attention_backward(*args, causal=True, fused=True)
+    torch.cuda.synchronize()
+    assert torch.equal(a[1], b_[1]) and torch.equal(a[2], b_[2])
+    top = a[0].float().abs().max().item()
+    assert _err(a[0], b_[0]) <= 2.0 ** -7 * top
+
+
 def test_forward_refuses_what_it_does_not_take(dev):
     q = torch.zeros(1, 2, 8, 64, device=dev, dtype=torch.bfloat16)
     k8 = torch.zeros(1, 2, 8, 64, device=dev, dtype=torch.int8)

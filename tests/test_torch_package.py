@@ -106,7 +106,8 @@ def test_build_command_targets_sm90a():
     srcs = _build.sources()
     assert {s.name for s in srcs} == {
         "flash_fwd.cu", "flash_fwd_bound.cu", "flash_fwd_kmajor.cu",
-        "flash_bwd.cu", "decode.cu", "paged.cu", "fa1.cu", "device_ring.cu"}
+        "flash_bwd.cu", "flash_bwd_kv.cu", "decode.cu", "paged.cu", "fa1.cu",
+        "device_ring.cu"}
     # the bodies the sources share are hashed, not compiled
     assert {"decode_body.cuh", "flash_fwd_bound_sm90.cuh"} <= {
         h.name for h in _build.headers()}
@@ -181,6 +182,26 @@ def test_fa1_source_is_a_hopper_kernel():
         assert needle in src, needle
     assert not (_build.CSRC / "flash_fwd_body.cuh").exists()
     assert len(_build.SIGNATURES["cfa_fa1"]) == 13
+
+
+def test_key_parallel_backward_is_a_hopper_kernel():
+    """K2 and K4 are one kernel on the forward's wgmma + TMA helpers, with
+    its own arguments and its dQ added by TMA reduces; the wmma file keeps
+    K3 alone."""
+    src = (_build.CSRC / "flash_bwd_kv.cu").read_text()
+    for tpu in ("_bwd_dkdv_kernel", "_bwd_fused_kernel"):
+        assert tpu in src.split("Replaces:")[1][:200], tpu
+    assert "nvcuda" not in src and "wmma::" not in src
+    assert '#include "flash_fwd_bound_sm90.cuh"' in src
+    for needle in ("struct BwdArgs", "qk_issue<D>", "pv_issue<D>",
+                   "stmatrix", "cp.reduce.async.bulk.tensor", "setmaxnreg",
+                   "extern \"C\" int cfa_flash_bwd_kv("):
+        assert needle in src, needle
+    wmma = (_build.CSRC / "flash_bwd.cu").read_text()
+    assert "flash_bwd_q_kernel" in wmma and "cfa_flash_bwd_q(" in wmma
+    assert "flash_bwd_kv_kernel" not in wmma
+    assert "cfa_flash_bwd_kv" not in wmma
+    assert len(_build.SIGNATURES["cfa_flash_bwd_kv"]) == 23
 
 
 def test_device_ring_is_bound_with_its_signature():
