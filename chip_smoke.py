@@ -20,11 +20,13 @@ Phases, each of which raises on failure (so the script exits non-zero):
    of keys, O must also agree within 2e-2 of the plain version's largest
    |O|, which must be > 0. Each case prints the max |diff| and both
    median times (CUDA events around the wrapper; for K6's forms and K7
-   also the kernel's own device time, from torch.profiler); each K1 and K8
-   row also its share of its bound and the library call's time (under the
-   row's boolean mask where it has one). K6 and K7
-   are timed on a cold L2 cache, as a server's decode step finds it; K6
-   is also timed under 1 to 16 query rows per KV head.
+   also the kernel's own device time, from torch.profiler); each K1, K6,
+   K7 and K8 row also its share of its bound and, where one call computes
+   the same thing, the library call's time (under the row's boolean mask
+   where it has one; for K7's bf16 pools, on the same keys held
+   contiguously). K6 and K7 are timed on a cold L2 cache, as a server's
+   decode step finds it; K6 is also timed under 1 to 16 query rows per KV
+   head.
    Then the forward's other forms at the serving model's width, on peaked
    inputs, O held to min(5e-3, 2e-2 · max |plain O|) and LSE to 5e-3: K1
    (online) under a window and under segment ids; and, at the two shapes
@@ -60,8 +62,10 @@ Phases, each of which raises on failure (so the script exits non-zero):
    28 and 28, and K6's 512. The last chunk's logits must meet those of the
    same run on the plain attention functions (0.125) and, without a
    window, those of a whole-prompt `prefill` over a bf16 cache (0.125
-   bf16, 0.25 int8, 0.5 fp8). A torch.profiler breakdown of one chunked
-   prefill over a bf16 and an fp8 cache follows.
+   bf16, 0.25 int8, 0.5 fp8). Over the bf16 cache the last decode step
+   is profiled (device busy and K6's share at context 4224). A
+   torch.profiler breakdown of one chunked prefill over a bf16 and an fp8
+   cache follows.
 5. Main path of paged serving, at pools of 4096 pages x 4 KV heads x 128
    tokens x d 128 (512 MiB per bf16 pool), B=8, H=16, 64 table slots per
    sequence: 4096 tokens per sequence are prefilled in eight page-aligned
@@ -80,7 +84,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
    causal and not (gate 5e-3), with K1's time at the same shape.
 7. Backward kernels against their plain version, on the card, in bf16:
    the fused K4 (`fused=True`) and the split K2 + K3 (`fused=False`; K2
-   is K4's wgmma + TMA kernel without dQ, K3 the wmma dQ kernel), each
+   is K4's wgmma + TMA kernel without dQ, K3 the Q-major wgmma + TMA dQ
+   kernel), each
    against `flash_attention_backward_plain` and against each other, at the
    training shape (B=1, H=16, N=4096, d=128, causal), a GQA ragged shape,
    a `kv_offset` = -20 case with empty rows and unseen keys, and a
@@ -288,6 +293,7 @@ def _kernel_of(name: str) -> str:
                            (r"flash_fwd_bound_kernel", "K1b"),
                            (r"flash_fwd_kernel", "K1"),
                            (r"::decode_kernel<", "K6"),
+                           (r"::paged_kernel<", "K7"),
                            (r"device_ring_kernel", "K9")):
         if re.search(pattern, name):
             return label
@@ -937,7 +943,7 @@ def main() -> int:
     from cuda_flashattention_torch.ops import attention
     from cuda_flashattention_torch.ops import flash_fwd as ffwd
     from cuda_flashattention_torch.ops.decode import (
-        decode_attention, decode_attention_plain)
+        decode_attention, decode_attention_plain, effective_windows)
     from cuda_flashattention_torch.ops.fa1 import (
         fa1_attention, fa1_attention_plain)
     from cuda_flashattention_torch.ops.flash_bwd import (
@@ -1087,6 +1093,18 @@ def main() -> int:
     dec_lengths = [1, 63, 64, 513, 640, 0, 200, 577]
     q = mk(8, 16, 128, peak=Q_PEAK)
     k, v = mk(8, 4, max_len, 128, peak=K_PEAK), mk(8, 4, max_len, 128)
+    def decode_bound(q, seen, k, v, scales=()):
+        """bound_ms of one decode call: q, O, LSE and the lengths, and the
+        `seen` (live, in-window) tokens of each sequence's K and V at their
+        storage width (with their two fp32 scales when quantized)."""
+        tokens = int(seen.sum()) * k.shape[1]
+        nbytes = (2 * _nbytes(q) + q.shape[0] * (q.shape[1] + 1) * 4
+                  + tokens * k.shape[3] * (k.element_size()
+                                           + v.element_size())
+                  + (tokens * 8 if scales else 0))
+        return _bound(nbytes, 4.0 * q.shape[1] * k.shape[3]
+                      * int(seen.sum()))
+
     for name, lens in (("ragged lengths", dec_lengths),
                        ("full cache", [max_len] * 8)):
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -1099,25 +1117,23 @@ def main() -> int:
         ms_w = cuda_time_ms(lambda: decode_attention(q, k, v, lengths))
         ms_p = cuda_time_ms(lambda: decode_attention_plain(q, k, v, lengths),
                             before=l2_flush.zero_)
+        # the library call: a one-row query under the length mask
+        live = torch.arange(max_len, device=dev)[None, :] < lengths[:, None]
+        lib_ms = sdpa_ms(q[:, :, None], k, v, before=l2_flush.zero_,
+                         attn_mask=live[:, None, None, :])
+        bound = decode_bound(q, lengths, k, v)
         print(f"[K6] {name}: B=8 H=16 Hkv=4 max_len={max_len} "
               f"lengths={lens} max|dO|={e_o:.3e} (max|O| {ref:.3e}) "
-              f"max|dLSE|={e_l:.3e} kernel {ms:.4f} ms ({ms_w:.4f} ms with the cache warm in "
-              f"L2) plain {ms_p:.4f} ms ({card})", flush=True)
+              f"max|dLSE|={e_l:.3e} kernel {ms:.4f} ms "
+              f"({vs_bound(ms, bound)}; {ms_w:.4f} ms with the cache warm "
+              f"in L2) library call {lib_ms:.4f} ms plain {ms_p:.4f} ms "
+              f"({card})", flush=True)
         rec["K6"]["max_abs_err"] = max(rec["K6"]["max_abs_err"], e_o, e_l)
-        rec["K6"].update(ms=ms, plain_ms=ms_p)  # the last: the full cache
+        # the last: the full cache, every key live
+        rec["K6"].update(ms=ms, plain_ms=ms_p, library_ms=lib_ms, **bound)
         if not (ok and e_l <= GATE):
             failures.append(f"K6 {name}: dO {e_o:.3e} (max|O| {ref:.3e}) "
                             f"dLSE {e_l:.3e}")
-    # bound and library call at the full cache: every key is live
-    live = torch.arange(max_len, device=dev)[None, :] < lengths[:, None]
-    rec["K6"].update(
-        library_ms=sdpa_ms(q[:, :, None], k, v, before=l2_flush.zero_,
-                           attn_mask=live[:, None, None, :]),
-        **_bound(_nbytes(q, k, v, lengths, o, lse),
-                 attention_flops(8, 16, 1, max_len, 128)))
-    print(f"[K6] full cache: bound {rec['K6']['bound_ms']:.4f} ms "
-          f"({rec['K6']['bound_by']}), library call (one-row query, length "
-          f"mask) {rec['K6']['library_ms']:.4f} ms", flush=True)
     # what a CTA's row tile costs: the same full cache under 1 to 16 query
     # rows per KV head (tiles of 1, 4, 4, 8 and two of 8 rows)
     row_ms = {}
@@ -1163,10 +1179,16 @@ def main() -> int:
                          "::decode_kernel<")
         label = ", ".join(f"{n}={'per-sequence' if n == 'windows' else x}"
                           for n, x in kw.items()) or "no window"
+        win = effective_windows(8, kw.get("window", 0), kw.get("windows"),
+                                dev)
+        seen = lengths if win is None else torch.minimum(
+            lengths.long(), win.clamp_min(0))
+        bound = decode_bound(q, seen, args[1], args[2], skw)
         print(f"[K6] {qtype or 'bf16'} cache, {label}: {live_n} live of "
               f"{cache_n} max|dO|={e_o:.3e} (max|O| {ref:.3e}) "
               f"max|dLSE|={e_l:.3e} wrapper "
-              f"{ms:.4f} ms (kernel alone {ms_d:.4f} ms) plain {ms_p:.4f} ms "
+              f"{ms:.4f} ms (kernel alone {ms_d:.4f} ms, "
+              f"{vs_bound(ms_d, bound)}) plain {ms_p:.4f} ms "
               f"({card})", flush=True)
         rec["K6"]["max_abs_err"] = max(rec["K6"]["max_abs_err"], e_o, e_l)
         if not (ok and e_l <= GATE):
@@ -1599,6 +1621,26 @@ def main() -> int:
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
         n_dec = decode_attention.launches
+        if label == "bf16 cache":
+            # the last step again, 4 times, under torch.profiler (each
+            # call first takes its token back off the caches): the decode
+            # step's device time at context 4224, K6's part of it
+            def last_step():
+                for c in caches:
+                    c.length -= 1
+                tfm.decode_one(m, tok, long_len - 1, caches)
+
+            prof = kernel_times(last_step, iters=4)
+            k6_ms = sum(t for n, t in prof.ms.items()
+                        if _kernel_of(n) == "K6")
+            k6_n = sum(c for n, c in prof.count.items()
+                       if _kernel_of(n) == "K6")
+            print(f"[chunked] {label}: one decode step at context "
+                  f"{long_len}, device busy {prof.busy_ms / 4:.3f} ms of a "
+                  f"profiled wall {prof.wall_ms / 4:.3f} ms; K6 "
+                  f"{k6_ms / max(k6_n, 1) * cfg.n_layers:.3f} ms per step "
+                  f"({k6_n} launches recorded, {cfg.n_layers} per step) "
+                  f"({card})", flush=True)
         n_prefix = (n_chunks - 1) * cfg.n_layers
         expect = dict(online=n_chunks * cfg.n_layers, bound=0, kmajor=0,
                       fallback=n_prefix)
@@ -1749,12 +1791,19 @@ def main() -> int:
                                   + cache.v_pages.element_size())
                   + (tokens * 8 if cache.quantized else 0))
         bound = _bound(nbytes, 4.0 * b * h * d * int(seen.sum()) / b)
+        lib = ""
+        if not cache.quantized and not window and len(set(lens.tolist())) == 1:
+            # the same keys held contiguously (k_all's prefix, as written
+            # into the pools): one library call, its gather not counted
+            n = int(lens[0])
+            lib_ms = sdpa_ms(q1[:, :, None], k_all[:, :, :n],
+                             v_all[:, :, :n], before=l2_flush.zero_)
+            lib = (f"; library call on the same keys held contiguously "
+                   f"(the gather not counted) {lib_ms:.4f} ms")
         print(f"[K7] {label}: lengths {lens.tolist()} window {window}: "
-              f"wrapper {ms:.4f} ms (kernel alone {ms_d:.4f} ms; wrapper "
-              f"{ms_w:.4f} ms with the pools warm in L2); bound "
-              f"{bound['bound_ms']:.4f} ms "
-              f"({bound['bound_by']}, {nbytes / 1e6:.2f} MB) ({card})",
-              flush=True)
+              f"wrapper {ms:.4f} ms ({vs_bound(ms, bound)}; kernel alone "
+              f"{ms_d:.4f} ms; wrapper {ms_w:.4f} ms with the pools warm in "
+              f"L2; {nbytes / 1e6:.2f} MB){lib} ({card})", flush=True)
         return ms, bound
 
     zero_counts()

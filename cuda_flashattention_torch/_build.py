@@ -60,17 +60,18 @@ SIGNATURES = {
     # qq, causal, window, kv_offset, out_f32, span, stream
     "cfa_flash_fwd_kmajor": [_PP, _I, _I, _I, _I, _I, _I, _LP,
                              _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # q, k, v, k_scale, v_scale, q_sigma, lengths, windows, o, lse,
-    # B, H, Hkv, max_n, D, k_type, v_type (0 bf16, 1 int8, 2 fp8), qq,
-    # scale, window, stream
-    "cfa_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                   _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+    # q, k, v, k_scale, v_scale, q_sigma, lengths, windows, o, lse, part,
+    # tickets (the split's scratch, or NULL), B, H, Hkv, max_n, D, k_type,
+    # v_type (0 bf16, 1 int8, 2 fp8), qq, scale, window, split, stream
+    "cfa_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                   _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I,
+                   _P],
     # q, k_pages, v_pages, k_scale, v_scale, q_sigma, page_table, lengths,
-    # windows, o, lse, B, H, Hkv, page, max_pages, D, k_type, v_type, qq,
-    # scale, window, stream
-    "cfa_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    # windows, o, lse, part, tickets, B, H, Hkv, page, max_pages, D, k_type,
+    # v_type, qq, scale, window, split, stream
+    "cfa_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                         ctypes.c_float, _I, _P],
+                         ctypes.c_float, _I, _I, _P],
     # q, k, v, o, B, H, Nq, Nk, D, strides[9] (q/k/v: batch, head, row),
     # causal, n_sub, stream
     "cfa_fa1": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LP, _I, _I, _P],

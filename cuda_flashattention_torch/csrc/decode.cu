@@ -13,22 +13,21 @@
 // about G flops per byte in bf16 (G = H/Hkv query heads per KV head, 4 in
 // the serving model), two orders of magnitude under the card's balance
 // point. A quantized cache halves those bytes (plus 8 bytes of scales per
-// token), so its bound is half the bf16 one; but at small batch the grid
-// is small: B·Hkv CTAs (32 at B=8, Hkv=4) on 132 SMs, so one step cannot
-// reach the card's memory bandwidth in either form and is bound by the
-// latency of each warp's walk over its keys, which is the same walk with
-// narrower loads. Quantizing the cache therefore buys capacity here, and
-// time only once the walk is bandwidth-bound.
+// token). But at a serving batch the walk is bound by latency first: one
+// warp attends one key at a time, and B·Hkv row tiles (32 CTAs at B=8,
+// Hkv=4) would leave most of the 132 SMs idle.
 //
-// What this design does about it: one CTA per (batch, KV head, tile of up
-// to 8 query rows) serves all the rows of the tile, so K/V are read from
-// device memory once per tile rather than once per query head. Each warp
-// walks its own interleaved share of the keys with coalesced loads and
-// keeps a private online softmax in registers; the warps' states merge
-// once, in shared memory, at the end. A window is a loop bound: the walk
-// starts at max(0, length − window) and keys outside it are never read.
-// Split-K across CTAs (flash-decoding), to fill the card at small batch,
-// is later work.
+// What this design does about it: one CTA per (split of the context, row
+// tile of up to 8 query rows, KV head, batch) serves all the rows of the
+// tile, so K/V are read from device memory once per tile rather than once
+// per query head, and the splits (decode_body.cuh; their size C from the
+// host's rule, ops/decode.py::split_size) put B·Hkv·tiles·length/C CTAs
+// on the card, each walking C keys. Each warp walks its own interleaved
+// share of the split's keys with coalesced loads and keeps a private
+// online softmax in registers; the warps' states merge once in shared
+// memory, the splits' in the same launch by the last CTA of the tile. A
+// window is a loop bound: the walk starts at max(0, length − window), and
+// keys outside it are never read; splits outside it exit at once.
 
 #include "decode_body.cuh"
 
@@ -40,17 +39,22 @@ template <int D, typename KT, typename VT, bool QQ, int R>
 __global__ void __launch_bounds__(NTHREADS)
 decode_kernel(Args a, const KT* __restrict__ k,  // [B, Hkv, max_n, D]
               const VT* __restrict__ v, int max_n) {
-  const int tile = blockIdx.x;
+  const int s = blockIdx.x % a.nsplit;
+  const int tile = blockIdx.x / a.nsplit;
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int warp = threadIdx.x / 32;
   const int length = min(max(a.lengths[b], 0), max_n);
   const int first = first_key(a, b, length);
+  int lo, hi, s_first, s_last;
+  if (!split_keys(a, first, length, s, lo, hi, s_first, s_last)) return;
 
   Body<D, KT, VT, QQ, R> body;
   body.init(a, b, hk, tile);
   const long long base = ((long long)b * a.Hkv + hk) * max_n;  // in tokens
-  for (int j = first + warp; j < length; j += NWARPS) {
+  // unrolled: four keys' loads in flight at once, the sums in key order
+#pragma unroll 4
+  for (int j = lo + warp; j < hi; j += NWARPS) {
     const long long t = base + j;
     float ks = 1.f, vs = 1.f;
     if constexpr (Body<D, KT, VT, QQ, R>::kQuant) {
@@ -59,14 +63,16 @@ decode_kernel(Args a, const KT* __restrict__ k,  // [B, Hkv, max_n, D]
     }
     body.attend(k + t * D, v + t * D, ks, vs, a.scale);
   }
-  body.finish(a);
+  const int tiles = gridDim.x / a.nsplit;
+  body.finish(a, ((long long)b * a.Hkv + hk) * tiles + tile, s, s_first,
+              s_last);
 }
 
 template <int D, typename KT, typename VT, bool QQ, int R>
 struct Launch {
   static cudaError_t run(const Args& a, const void* k, const void* v, int B,
                          int max_n, cudaStream_t stream) {
-    dim3 grid((a.rows + R - 1) / R, a.Hkv, B);
+    dim3 grid(a.nsplit * ((a.rows + R - 1) / R), a.Hkv, B);
     decode_kernel<D, KT, VT, QQ, R><<<grid, NTHREADS, 0, stream>>>(
         a, static_cast<const KT*>(k), static_cast<const VT*>(v), max_n);
     return cudaGetLastError();
@@ -78,16 +84,19 @@ struct Launch {
 // k_type / v_type: 0 bf16, 1 int8, 2 fp8 e4m3. k_scale / v_scale
 // [B, Hkv, max_n] fp32 for a quantized cache, else null. With qq != 0, q is
 // int8 and q_sigma [B, H] holds sigma_q * scale per row. windows [B] or
-// null; window 0 for none.
+// null; window 0 for none. split: C, keys per split of the context (the
+// host's rule); with more than one split of max_n, part [B·Hkv·row tiles ·
+// ceil(max_n / C) · R · (D + 2)] fp32 and tickets [B·Hkv·row tiles] int32
+// are the call's scratch (tickets are zeroed here, on the stream).
 extern "C" int cfa_decode(const void* q, const void* k, const void* v,
                           const void* k_scale, const void* v_scale,
                           const void* q_sigma, const void* lengths,
-                          const void* windows, void* o, void* lse, int B,
-                          int H, int Hkv, int max_n, int D, int k_type,
-                          int v_type, int qq, float scale, int window,
-                          void* stream) {
+                          const void* windows, void* o, void* lse,
+                          void* part, void* tickets, int B, int H, int Hkv,
+                          int max_n, int D, int k_type, int v_type, int qq,
+                          float scale, int window, int split, void* stream) {
   if (B == 0 || H == 0) return cudaSuccess;
-  if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
+  if (Hkv <= 0 || H % Hkv != 0 || max_n < 0) return cudaErrorInvalidValue;
   Args a;
   a.q = q;
   a.q_sigma = static_cast<const float*>(q_sigma);
@@ -101,6 +110,9 @@ extern "C" int cfa_decode(const void* q, const void* k, const void* v,
   a.Hkv = Hkv;
   a.scale = scale;
   a.window = window;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = prepare_split(&a, B, max_n, split, part, tickets, st);
+  if (err != cudaSuccess) return err;
   return dispatch<Launch>(D, a.rows, k_type, v_type, qq, a, k, v, B, max_n,
-                          static_cast<cudaStream_t>(stream));
+                          st);
 }

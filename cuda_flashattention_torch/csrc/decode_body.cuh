@@ -10,23 +10,37 @@
 //
 // A CTA serves a tile of R query rows that share one KV head (the H/Hkv
 // heads of a GQA group, or group x chunk rows when a prefill chunk is
-// folded into the row dimension); more rows are more CTAs over the same
-// keys. The row count is a run-time value; R is 1, 4 or 8, the smallest
-// that holds min(rows, 8). The row loops are fully unrolled over R with no
-// branch inside them, so the state stays in registers and the rows' shuffle
-// chains overlap: a tile's rows past the last live one carry q = 0 through
-// the walk and are dropped at the write. Why three tiles and not the 8-row
-// one alone, on an H100 at 700 W with a cold L2: for one row per KV head
-// the 1-row tile walks 640 contiguous keys in 0.084 ms where the 8-row
-// tile takes 0.125; for four rows (the serving model's GQA group) the
-// paged walk over 4224 keys takes 0.79 ms with the 4-row tile and 0.98 ms
-// with the 8-row one, though the contiguous walk differs by 1% only. A
-// 2-row tile was 5% faster than the 4-row one for two rows and was not
-// kept. Each of the CTA's NWARPS warps visits its own share of the keys; a
-// lane owns D/32 consecutive elements of the head dim, a score is a
-// warp-shuffle sum of the lanes' partial dots, and the warps' partial
-// (m, l, acc) states merge once in shared memory.
+// folded into the row dimension) over one split of the context; more rows
+// are more CTAs over the same keys. The row count is a run-time value; R is
+// 1, 4 or 8, the smallest that holds min(rows, 8). The row loops are fully
+// unrolled over R with no branch inside them, so the state stays in
+// registers and the rows' shuffle chains overlap: a tile's rows past the
+// last live one carry q = 0 through the walk and are dropped at the write.
+// Why three tiles and not the 8-row one alone, on an H100 at 700 W with a
+// cold L2 (before the split): for one row per KV head the 1-row tile walked
+// 640 contiguous keys in 0.084 ms where the 8-row tile took 0.125; for four
+// rows (the serving model's GQA group) the paged walk over 4224 keys took
+// 0.79 ms with the 4-row tile and 0.98 ms with the 8-row one. Each of the
+// CTA's NWARPS warps visits its own share of the split's keys; a lane owns
+// D/32 consecutive elements of the head dim, a score is a warp-shuffle sum
+// of the lanes' partial dots, and the warps' partial (m, l, acc) states
+// merge once in shared memory.
 //
+// The split (flash-decoding): at a serving batch B·Hkv·row tiles CTAs leave
+// most of the card's 132 SMs idle and each warp's walk is latency-bound,
+// so the host (ops/decode.py::split_size, from B, Hkv, the row tiles and d
+// alone) may cut the context into splits of C keys: split s covers keys
+// [s·C, (s+1)·C) ∩ [first, length), and key j of it goes to warp (j − lo)
+// mod NWARPS, lo being the split's first live key. The partition depends
+// on the key index only, never on the grid, the cache's capacity or the
+// order in which CTAs run, so the contiguous and the paged walks sum the
+// same keys in the same order. A row tile with one live split writes O and
+// LSE itself. With more, each split's CTA writes its merged (m, l, acc) to
+// the call's scratch and takes a ticket; the last to arrive merges the
+// live splits in split order with the weights of the warps' merge, writes
+// O and LSE, and resets the ticket. No other atomic: the result does not
+// depend on the arrival order.
+
 // Storage types, per array: bf16, int8, or fp8 e4m3 (converted by the
 // hardware's cvt, no bit surgery), the quantized ones with one fp32
 // scale per cached token. Numerics follow the TPU body:
@@ -73,6 +87,10 @@ struct Args {
   int Hkv;
   float scale;
   int window;            // 0: none; with `windows`, a cap on each of them
+  int split;             // C, keys per split
+  int nsplit;            // splits per row tile in the grid
+  float* part;           // [row tiles, nsplit, R, D + 2] fp32, or null
+  int* tickets;          // [row tiles], zero before the launch, or null
 };
 
 // First visible key of sequence b: max(0, length - win), where win is the
@@ -83,6 +101,28 @@ __device__ __forceinline__ int first_key(const Args& a, int b, int length) {
   if (a.windows != nullptr && a.window > 0) win = min(win, a.window);
   win = min(max(win, 0), length);
   return length - win;
+}
+
+// The keys [lo, hi) of split s of a walk over [first, length), and the
+// live splits [s_first, s_last] (ops/decode.py::decode_splits states the
+// same partition). False when this CTA has nothing to do: its split holds
+// no key, unless no split does, in which case split 0 writes the empty
+// rows' O = 0 and LSE = NEG_INF.
+__device__ __forceinline__ bool split_keys(const Args& a, int first,
+                                           int length, int s, int& lo,
+                                           int& hi, int& s_first,
+                                           int& s_last) {
+  if (first >= length) {
+    lo = hi = s_first = s_last = 0;
+    return s == 0;
+  }
+  s_first = first / a.split;
+  s_last = (length - 1) / a.split;
+  if (s < s_first || s > s_last) return false;
+  const long long s0 = (long long)s * a.split;
+  lo = (int)max((long long)first, s0);
+  hi = (int)min((long long)length, s0 + a.split);
+  return true;
 }
 
 // N consecutive stored values (N = 2 or 4) as floats. Every conversion is
@@ -237,11 +277,16 @@ struct Body {
     }
   }
 
-  // Merge the warps' states and write O and LSE of the tile's rows.
-  __device__ __forceinline__ void finish(const Args& a) {
+  // Merge the warps' states; then write O and LSE of the tile's rows when
+  // this is the tile's only live split, else this split's partial, and
+  // the last split to arrive merges the partials. tile_id: the row tile's
+  // flat index (b, hk, tile); s: this split.
+  __device__ __forceinline__ void finish(const Args& a, long long tile_id,
+                                         int s, int s_first, int s_last) {
     __shared__ float part_m[NWARPS][ROWS];
     __shared__ float part_l[NWARPS][ROWS];
     __shared__ float part_o[NWARPS][ROWS][D];
+    __shared__ int merges;
     const int warp = threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
 #pragma unroll
@@ -254,6 +299,9 @@ struct Body {
       for (int c = 0; c < N; ++c) part_o[warp][r][c0 + c] = acc[r][c];
     }
     __syncthreads();
+    const bool alone = s_first == s_last;
+    float* mine =
+        alone ? nullptr : a.part + (tile_id * a.nsplit + s) * ROWS * (D + 2);
     for (int i = threadIdx.x; i < nrows * D; i += NTHREADS) {
       const int r = i / D;
       const int c = i % D;
@@ -268,12 +316,82 @@ struct Body {
         lsum += part_l[w][r] * wgt;
         osum += part_o[w][r][c] * wgt;
       }
-      a.o[(row0 + r) * D + c] =
-          __float2bfloat16(lsum > 0.f ? osum / lsum : 0.f);
-      if (c == 0) a.lse[row0 + r] = lsum > 0.f ? mx + logf(lsum) : kNegInf;
+      if (alone) {
+        put(a, r, c, mx, lsum, osum);
+      } else {
+        mine[r * (D + 2) + 2 + c] = osum;
+        if (c == 0) {
+          mine[r * (D + 2)] = mx;
+          mine[r * (D + 2) + 1] = lsum;
+        }
+      }
     }
+    if (alone) return;
+    // the partial is visible before the ticket is taken; the last of the
+    // live splits to take one merges
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      merges = atomicAdd(a.tickets + tile_id, 1) == s_last - s_first;
+    }
+    __syncthreads();
+    if (!merges) return;
+    __threadfence();
+    const float* parts = a.part + tile_id * a.nsplit * ROWS * (D + 2);
+    for (int i = threadIdx.x; i < nrows * D; i += NTHREADS) {
+      const int r = i / D;
+      const int c = i % D;
+      // unrolled: the partials' loads go out eight at a time, the sums
+      // stay in split order
+      float mx = kNegInf;
+#pragma unroll 8
+      for (int t = s_first; t <= s_last; ++t) {
+        mx = fmaxf(mx, __ldcg(parts + (t * ROWS + r) * (D + 2)));
+      }
+      float lsum = 0.f, osum = 0.f;
+#pragma unroll 8
+      for (int t = s_first; t <= s_last; ++t) {
+        const float* p = parts + (t * ROWS + r) * (D + 2);
+        const float lt = __ldcg(p + 1);
+        const float wgt = lt > 0.f ? __expf(__ldcg(p) - mx) : 0.f;
+        lsum += lt * wgt;
+        osum += __ldcg(p + 2 + c) * wgt;
+      }
+      put(a, r, c, mx, lsum, osum);
+    }
+    if (threadIdx.x == 0) a.tickets[tile_id] = 0;  // for the next launch
+  }
+
+  // Element c of row r: O = osum / lsum (0 where lsum = 0) and, once per
+  // row, LSE = mx + ln lsum (NEG_INF where lsum = 0).
+  __device__ __forceinline__ void put(const Args& a, int r, int c, float mx,
+                                        float lsum, float osum) {
+    a.o[(row0 + r) * D + c] = __float2bfloat16(lsum > 0.f ? osum / lsum : 0.f);
+    if (c == 0) a.lse[row0 + r] = lsum > 0.f ? mx + logf(lsum) : kNegInf;
   }
 };
+
+// The split of a call over a cache of `cap` tokens per sequence: C keys a
+// split, ceil(cap / C) splits per row tile in the grid (the partition is
+// C's alone; cap only sizes the grid), and the scratch with its tickets
+// zeroed on the stream when there is more than one.
+inline cudaError_t prepare_split(Args* a, int B, long long cap, int split,
+                                 void* part, void* tickets,
+                                 cudaStream_t stream) {
+  if (split <= 0) return cudaErrorInvalidValue;
+  const long long n = cap > 0 ? (cap + split - 1) / split : 1;
+  const int r = tile_rows(a->rows);
+  const long long tiles = (a->rows + r - 1) / r;
+  if (n * tiles > 0x7fffffffll) return cudaErrorInvalidValue;
+  a->split = split;
+  a->nsplit = (int)n;
+  a->part = static_cast<float*>(part);
+  a->tickets = static_cast<int*>(tickets);
+  if (n == 1) return cudaSuccess;
+  if (part == nullptr || tickets == nullptr) return cudaErrorInvalidValue;
+  return cudaMemsetAsync(tickets, 0, (size_t)B * a->Hkv * tiles * sizeof(int),
+                         stream);
+}
 
 inline bool valid_types(int kt, int vt, int qq) {
   const bool pair = (kt == kBf16 && vt == kBf16) ||

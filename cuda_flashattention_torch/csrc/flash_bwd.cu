@@ -1,404 +1,409 @@
-// FlashAttention-2 backward's Q-parallel dQ kernel (K3), bf16 in, fp32
-// accumulation, on nvcuda::wmma.
+// FlashAttention-2 backward's Q-parallel dQ kernel (K3), for Hopper: bf16
+// in, fp32 accumulation, bf16 dQ.
 //
 // Replaces: cuda_flashattention_tpu/ops/flash_bwd.py::_bwd_dq_kernel (K3).
 // Its key-parallel partners, dK/dV (K2) and the fused pass (K4), are the
-// Hopper kernel of flash_bwd_kv.cu; K3 runs only beside K2 on the split
-// path (fused=False).
+// kernel of flash_bwd_kv.cu; K3 runs only beside K2 on the split path
+// (fused=False).
 //
-// What bounds it on the H100: per visible (Q tile, K/V tile) pair it does
-// 3 products of 2·64·64·d operations on tiles read once per pair, so at the
-// training shapes (N = 4096, d = 128) it is compute-bound like the
-// forward. In this version the tensor-core products are not the limit: the
-// fp32 round trips of S, dP and the accumulator through shared memory and
-// the block barriers around every tile are.
+// What bounds it on the H100: per visible (query, key) pair it does three
+// products of 2·d operations (S = Q·Kᵀ, dP = dO·Vᵀ, dQ += dS·K) on tiles
+// read once per pair, so at the training shapes (N = 4096, d = 128) it is
+// compute-bound like the forward, and in practice bound by how much of the
+// elementwise work between the products (exp2, the masks, dS) hides under
+// them.
 //
-// What this design does about it: the products run on the tensor cores
-// through nvcuda::wmma bf16 fragments with fp32 accumulation. One CTA per
-// (batch, head, 64-row Q tile) keeps Q, dO and its dQ accumulator resident
-// and walks the visible K/V tiles of head h // G; each warp owns 16 rows
-// end to end, so only the K/V tile loads need block barriers.
-// Shared memory at d = 128: four bf16 tiles (Q, dO, K, V) 68 KB, fp32 S
-// and dP 34 KB, bf16 P and dS 18 KB, the fp32 accumulator 33 KB.
+// What this design does about it: K3 is the forward's Q-major walk with
+// one product more, on the forward's Hopper helpers
+// (flash_fwd_bound_sm90.cuh; nothing there changes, and K3 has its own
+// argument struct, so the forward kernels compile as before):
+//   - One CTA per 128-row query tile of packed heads (the Gp query heads of
+//     one KV head that K1 packs, R = 128 / Gp positions each), heaviest
+//     tiles first under causal, as K1's `cta_tile` orders them. Q and dO
+//     come in once by TMA, 128 B swizzled, and stay resident; a producer
+//     warp streams the visible K/V tiles (64 keys) through NST mbarrier
+//     stages, with each tile's key segment ids beside them (SEG).
+//   - Two consumer warpgroups own 64 query rows each. Per key tile each
+//     issues S = Q·Kᵀ and dP = dO·Vᵀ (SS wgmma: `qk_issue` with dO in Q's
+//     place and V in K's), computes P while dP is on the tensor cores,
+//     then dS in registers, rounded to bf16 into wgmma's A layout, and
+//     issues dQ += dS·K (RS wgmma: `pv_issue` with K in V's place, a K
+//     tile [keys, d] having V's layout). That product is left in flight
+//     under the next tile's S and dP, whose wait also releases its stage.
+//   - S, dP, dS and the dQ accumulator never leave registers (dQ 64 of
+//     setmaxnreg's 240 at d = 128); results are copied out of the
+//     accumulators after their waits, so ptxas keeps the groups async.
+//   - A warpgroup whose 64 rows see every key of a tile takes the unmasked
+//     step; segment ids are a build of their own (SEG), whose tiles always
+//     take the masked step.
+// Budget at d = 128: shared memory Q and dO 64 KB, NST = 4 stages of K
+// and V 128 KB (132 KB with the ids): 193-197 KB of 227 KB, one CTA (384
+// threads) per SM (on one H100 a fourth stage was 1-3% faster than three,
+// two stages 1-7% slower); registers per consumer thread: dQ 64, S and dP
+// 64 (and their copies read after the waits), dS 16, within setmaxnreg's
+// 240, with no spill.
 //
-// Numerics follow the TPU kernels (flash_bwd.py:53-114): S is recomputed
-// from the raw q as fp32 q·kᵀ times scale·log2(e); P = exp2(S − LSE·log2e)
-// with P = 0 for masked entries (ragged tail, causal, sliding window,
-// segment ids) and for rows whose LSE < NEG_INF/2;
-// dP = dO·Vᵀ and dS = P ⊙ (dP − D)·scale in fp32; dS is rounded to bf16
-// before dQ += dS·K. A Q tile that sees no key writes zeros.
+// Numerics follow the TPU kernels (flash_bwd.py:53-114) and
+// flash_attention_backward_plain: S from the raw q as fp32 q·kᵀ times
+// scale·log2(e); P = exp2(S − LSE·log2e) with P = 0 for masked pairs
+// (ragged tail, causal with kv_offset, sliding window, segment ids) and
+// for rows whose LSE < NEG_INF/2; dP = dO·Vᵀ and dS = P ⊙ (dP − D)·scale
+// in fp32; dS is rounded to bf16 before dQ += dS·K. A Q tile that sees no
+// key writes zeros.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
-#include <stdint.h>
 
-using namespace nvcuda;
+#include "flash_fwd_bound_sm90.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
+using cfa_bound::align1k;
+using cfa_bound::bf16;
+using cfa_bound::copy_after_wait;
+using cfa_bound::fence_regs;
+using cfa_bound::kBf16;
+using cfa_bound::kNegInf;
+using cfa_bound::mbar_arrive;
+using cfa_bound::mbar_expect_tx;
+using cfa_bound::mbar_init;
+using cfa_bound::mbar_wait;
+using cfa_bound::smem_u32;
+using cfa_bound::tma_load_4d;
+using cfa_bound::wgmma_commit;
+using cfa_bound::wgmma_fence;
+using cfa_bound::wgmma_wait_all;
+using cfa_bound::wgmma_wait_one;
 
-constexpr float kNegInf = -1e30f;
 constexpr double kLog2e = 1.4426950408889634;
-constexpr int BQ = 64;      // query rows per tile
-constexpr int BK = 64;      // keys per tile
-constexpr int NWARPS = 4;   // each warp owns 16 rows of a tile
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int ROWS = 16;
-static_assert(BQ == NWARPS * ROWS, "a warp owns 16 query rows");
+constexpr int BM = cfa_bound::BM;  // query rows of a CTA (two warpgroups)
+constexpr int BN = cfa_bound::BN;  // keys of a streamed tile
+constexpr int NST = 4;             // K/V stages in flight
+constexpr int NTHREADS = 384;      // two consumer warpgroups and the producer's
 
-template <int D>
-struct Smem {
-  // padded leading dimensions (elements); every wmma tile pointer stays
-  // 32-byte aligned and rows fall on different banks
-  static constexpr int LDH = D + 8;   // bf16 Q, dO, K, V tiles
-  static constexpr int LDS = BK + 4;  // fp32 S and dP
-  static constexpr int LDP = BK + 8;  // bf16 P and dS
-  static constexpr int LDA = D + 4;   // fp32 accumulators
-  static constexpr size_t tile_h = sizeof(bf16) * BQ * LDH;
-  static constexpr size_t tile_s = sizeof(float) * BQ * LDS;
-  static constexpr size_t tile_p = sizeof(bf16) * BQ * LDP;
-  static constexpr size_t tile_a = sizeof(float) * BQ * LDA;
-  static constexpr size_t k_off = 0;
-  static constexpr size_t v_off = k_off + tile_h;
-  static constexpr size_t q_off = v_off + tile_h;
-  static constexpr size_t do_off = q_off + tile_h;
-  static constexpr size_t s_off = do_off + tile_h;
-  static constexpr size_t dp_off = s_off + tile_s;
-  static constexpr size_t p_off = dp_off + tile_s;
-  static constexpr size_t ds_off = p_off + tile_p;
-  static constexpr size_t acc_off = ds_off + tile_p;   // dQ
-  static constexpr size_t lse_off = acc_off + tile_a;
-  static constexpr size_t delta_off = lse_off + sizeof(float) * BQ;
-  static constexpr size_t qseg_off = delta_off + sizeof(float) * BQ;
-  static constexpr size_t kseg_off = qseg_off + sizeof(int) * BQ;
-  static constexpr size_t bytes = kseg_off + sizeof(int) * BK;
-  static_assert(bytes <= 232448, "over the 227 KB a CTA may use");
-};
-
-// Copy `ROWS_` rows of D bf16 (row stride `stride` elements) into a padded
-// shared tile; rows at or past `valid` are zero-filled.
-template <int D, int ROWS_>
-__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
-                                          long long stride, int row0,
-                                          int valid) {
-  constexpr int VPR = D / 8;  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < ROWS_ * VPR; i += NTHREADS) {
-    const int r = i / VPR;
-    const int c = (i % VPR) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < valid) {
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
-
-// The Q tile's LSE in log2 units (+inf for rows past Nq or with no visible
-// key, so that their P is 0, as the TPU kernel's `lse_safe`) and its D.
-__device__ __forceinline__ void load_rows(float* lse_s, float* delta_s,
-                                          const float* lse,
-                                          const float* delta, int q0,
-                                          int Nq) {
-  for (int r = threadIdx.x; r < BQ; r += NTHREADS) {
-    const int qi = q0 + r;
-    const float l = qi < Nq ? lse[qi] : kNegInf;
-    lse_s[r] = l < kNegInf * 0.5f ? INFINITY : l * (float)kLog2e;
-    delta_s[r] = qi < Nq ? delta[qi] : 0.f;
-  }
-}
-
-// One tile's segment ids; past the end `pad`, which matches no real id.
-__device__ __forceinline__ void load_ids(int* dst, const int* src, int i0,
-                                         int n, int pad) {
-  for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
-    dst[i] = i0 + i < n ? src[i0 + i] : pad;
-  }
-}
-
-// S = Q·Kᵀ and dP = dO·Vᵀ for the warp's 16 query rows r0.. (fp32).
-template <int D>
-__device__ __forceinline__ void scores(const bf16* qs, const bf16* dos,
-                                       const bf16* ks, const bf16* vs,
-                                       float* ss, float* dps, int r0) {
-  using S = Smem<D>;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> s[BK / 16];
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dp[BK / 16];
-#pragma unroll
-  for (int nb = 0; nb < BK / 16; ++nb) {
-    wmma::fill_fragment(s[nb], 0.f);
-    wmma::fill_fragment(dp[nb], 0.f);
-  }
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fq, fdo;
-    wmma::load_matrix_sync(fq, qs + r0 * S::LDH + kk * 16, S::LDH);
-    wmma::load_matrix_sync(fdo, dos + r0 * S::LDH + kk * 16, S::LDH);
-#pragma unroll
-    for (int nb = 0; nb < BK / 16; ++nb) {
-      // Kᵀ (and Vᵀ) as a column-major B: element (kk, n) sits at K[n][kk]
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fb, ks + nb * 16 * S::LDH + kk * 16, S::LDH);
-      wmma::mma_sync(s[nb], fq, fb, s[nb]);
-      wmma::load_matrix_sync(fb, vs + nb * 16 * S::LDH + kk * 16, S::LDH);
-      wmma::mma_sync(dp[nb], fdo, fb, dp[nb]);
-    }
-  }
-#pragma unroll
-  for (int nb = 0; nb < BK / 16; ++nb) {
-    wmma::store_matrix_sync(ss + r0 * S::LDS + nb * 16, s[nb], S::LDS,
-                            wmma::mem_row_major);
-    wmma::store_matrix_sync(dps + r0 * S::LDS + nb * 16, dp[nb], S::LDS,
-                            wmma::mem_row_major);
-  }
-}
-
-// P and dS for the warp's 16 rows, rounded to bf16. q0/c0: first query
-// row and first key of the tiles; lane owns columns lane and lane + 32.
-// qsegs/ksegs: the tiles' segment ids, or null. With MASKED false every
-// pair of the warp's rows and the tile's keys is visible and no element is
-// tested (a row past Nq or with no visible key has lse_s = +inf, P = 0).
-template <int D, bool MASKED>
-__device__ __forceinline__ void probs_rows(
-    const float* ss, const float* dps, const float* lse_s,
-    const float* delta_s, const int* qsegs, const int* ksegs, bf16* ps,
-    bf16* dss, int r0, int q0, int c0, int Nk, int causal, int window,
-    int kv_offset, float scale_log2e, float scale) {
-  using S = Smem<D>;
-  const int lane = threadIdx.x % 32;
-  for (int rr = 0; rr < ROWS; ++rr) {
-    const int row = r0 + rr;
-    const int qpos = q0 + row + kv_offset;  // causal position of the row
-    const float lse2 = lse_s[row];
-    const float dl = delta_s[row];
-#pragma unroll
-    for (int j = 0; j < BK / 32; ++j) {
-      const int c = lane + 32 * j;
-      bool ok = true;
-      if (MASKED) {
-        const int col = c0 + c;
-        ok = col < Nk;
-        if (causal) {
-          ok = ok && col <= qpos;
-          if (window > 0) ok = ok && col > qpos - window;
-        }
-        if (qsegs != nullptr) ok = ok && qsegs[row] == ksegs[c];
-      }
-      const float p =
-          ok ? exp2f(ss[row * S::LDS + c] * scale_log2e - lse2) : 0.f;
-      const float ds = p * (dps[row * S::LDS + c] - dl) * scale;
-      ps[row * S::LDP + c] = __float2bfloat16(p);
-      dss[row * S::LDP + c] = __float2bfloat16(ds);
-    }
-  }
-}
-
-// K3 is built twice: with EXTRA false a call has no window and
-// no segment ids, and every test of them folds away at compile time.
-template <int D, bool EXTRA>
-__device__ __forceinline__ void probs_and_ds(
-    const float* ss, const float* dps, const float* lse_s,
-    const float* delta_s, const int* qsegs, const int* ksegs, bf16* ps,
-    bf16* dss, int r0, int q0, int c0, int Nk, int causal, int window,
-    int kv_offset, float scale_log2e, float scale) {
-  if (!EXTRA) {
-    window = 0;
-    qsegs = nullptr;
-  }
-  // an interior tile of the causal band: the warp's first row sees the
-  // tile's last key and its last row's window reaches the first
-  const int qpos_first = q0 + r0 + kv_offset;
-  bool full = qsegs == nullptr && c0 + BK <= Nk;
-  if (causal) {
-    full = full && c0 + BK - 1 <= qpos_first &&
-           (window <= 0 || c0 > qpos_first + ROWS - 1 - window);
-  }
-  if (full) {
-    probs_rows<D, false>(ss, dps, lse_s, delta_s, qsegs, ksegs, ps, dss, r0,
-                         q0, c0, Nk, causal, window, kv_offset, scale_log2e,
-                         scale);
-  } else {
-    probs_rows<D, true>(ss, dps, lse_s, delta_s, qsegs, ksegs, ps, dss, r0,
-                        q0, c0, Nk, causal, window, kv_offset, scale_log2e,
-                        scale);
-  }
-}
-
-// out[r0:r0+16, :] (+)= dS[r0:r0+16, :] · K: the warp's 16 rows of dQ.
-// With `fresh` the previous contents of `out` are ignored.
-template <int D>
-__device__ __forceinline__ void accumulate_dq(float* out, const bf16* dss,
-                                              const bf16* ks, int r0,
-                                              bool fresh) {
-  using S = Smem<D>;
-#pragma unroll
-  for (int nb = 0; nb < D / 16; ++nb) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> f;
-    if (fresh) {
-      wmma::fill_fragment(f, 0.f);
-    } else {
-      wmma::load_matrix_sync(f, out + r0 * S::LDA + nb * 16, S::LDA,
-                             wmma::mem_row_major);
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, dss + r0 * S::LDP + kk * 16, S::LDP);
-      wmma::load_matrix_sync(fb, ks + kk * 16 * S::LDH + nb * 16, S::LDH);
-      wmma::mma_sync(f, fa, fb, f);
-    }
-    wmma::store_matrix_sync(out + r0 * S::LDA + nb * 16, f, S::LDA,
-                            wmma::mem_row_major);
-  }
-}
-
-struct Args {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* dout;
-  const float* lse;    // [B, H, Nq], natural log
-  const float* delta;  // [B, H, Nq], rowsum(dO ⊙ O)
-  bf16* dq;            // [B, H, Nq, D]
-  const int* q_seg;    // [B, Nq] or null
-  const int* kv_seg;   // [B, Nk] or null
-  int H, Hkv, Nq, Nk;
-  long long sqb, sqh, sqn, skb, skh, skn, svb, svh, svn, sob, soh, son;
+// What the kernel is given besides its four TMA maps (its own struct: the
+// forward's Args is left exactly as the forward kernels compile it).
+struct DqArgs {
+  const float* lse;    // [B,H,Nq], natural log
+  const float* delta;  // [B,H,Nq], rowsum(dO ⊙ O)
+  const int* q_seg;    // [B,Nq] (SEG)
+  const int* kv_seg;   // [B,Nk] (SEG)
+  bf16* dq;            // [B,H,Nq,D] contiguous
+  int H, Nq, Nk;
+  int G, Gp, R;        // group size, heads packed in a tile, rows per head
   float scale_log2e, scale;
   int causal, window, kv_offset;
 };
 
-// K3: one CTA per (query tile, head, batch).
-template <int D, bool EXTRA>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_q_kernel(Args a) {
-  using S = Smem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem + S::k_off);
-  bf16* vs = reinterpret_cast<bf16*>(smem + S::v_off);
-  bf16* qs = reinterpret_cast<bf16*>(smem + S::q_off);
-  bf16* dos = reinterpret_cast<bf16*>(smem + S::do_off);
-  float* ss = reinterpret_cast<float*>(smem + S::s_off);
-  float* dps = reinterpret_cast<float*>(smem + S::dp_off);
-  bf16* ps = reinterpret_cast<bf16*>(smem + S::p_off);
-  bf16* dss = reinterpret_cast<bf16*>(smem + S::ds_off);
-  float* dq_acc = reinterpret_cast<float*>(smem + S::acc_off);
-  float* lse_s = reinterpret_cast<float*>(smem + S::lse_off);
-  float* delta_s = reinterpret_cast<float*>(smem + S::delta_off);
-  int* qsegs = reinterpret_cast<int*>(smem + S::qseg_off);
-  int* ksegs = reinterpret_cast<int*>(smem + S::kseg_off);
-  const bool seg = EXTRA && a.q_seg != nullptr;
-  const int window = EXTRA ? a.window : 0;
+// Shared memory (byte offsets from a 1024-aligned base): the Q and dO tiles
+// (D/64 slabs of 128 rows x 128 B each); NST stages of K and V (D/64 slabs
+// of 64 rows x 128 B each) and the tile's key segment ids (SEG); barriers.
+template <int D, bool SEG>
+struct Layout {
+  static constexpr int QT = BM * D * 2;    // the Q (or dO) tile
+  static constexpr int KV = BN * D * 2;    // a K (or V) tile
+  static constexpr int do_off = QT;
+  static constexpr int st_off = 2 * QT;
+  static constexpr int ids = 2 * KV;       // within a stage
+  static constexpr int stage = align1k(ids + (SEG ? BN * 4 : 0));
+  static constexpr int bar_off = st_off + NST * stage;
+  static constexpr int bytes = bar_off + 8 * (2 * NST + 1) + 1024;
+  static_assert(bytes <= 232448, "the CTA's shared memory");
+};
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (a.H / a.Hkv);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r0 = warp * ROWS;
-  const long long row_base = (long long)(b * a.H + h) * a.Nq;
-
-  load_tile<D, BQ>(qs, S::LDH, a.q + b * a.sqb + h * a.sqh, a.sqn, q0, a.Nq);
-  load_tile<D, BQ>(dos, S::LDH, a.dout + b * a.sob + h * a.soh, a.son, q0,
-                   a.Nq);
-  load_rows(lse_s, delta_s, a.lse + row_base, a.delta + row_base, q0, a.Nq);
-  for (int i = threadIdx.x; i < BQ * S::LDA; i += NTHREADS) dq_acc[i] = 0.f;
-  if (seg) load_ids(qsegs, a.q_seg + (long long)b * a.Nq, q0, a.Nq, -1);
-
-  // keys this Q tile can see: causal rows see keys <= row + kv_offset and,
-  // with a window, keys > row + kv_offset − window
-  int kv_end = a.Nk;
-  int t_begin = 0;
+// The (Q tile, head group, batch) of this CTA: under causal the linear
+// block index walks the Q tiles from the last to the first, all head groups
+// and batches of one tile together, so the longest walks start in the
+// first wave (K1's order; ops/flash_bwd.py::_dq_cta_order states it).
+__device__ __forceinline__ void cta_tile(const DqArgs& a, int& qt, int& hg,
+                                         int& b) {
+  qt = blockIdx.x;
+  hg = blockIdx.y;
+  b = blockIdx.z;
   if (a.causal) {
-    kv_end = min(a.Nk, max(0, q0 + BQ + a.kv_offset));
-    if (window > 0) {
-      t_begin = max(0, q0 + a.kv_offset - window + 1) / BK;
-    }
+    const long long per_tile = (long long)gridDim.y * gridDim.z;
+    const long long lin =
+        blockIdx.x + (long long)gridDim.x * (blockIdx.y + (long long)gridDim.y *
+                                                              blockIdx.z);
+    qt = gridDim.x - 1 - (int)(lin / per_tile);
+    const int rest = (int)(lin % per_tile);
+    hg = rest % gridDim.y;
+    b = rest / gridDim.y;
   }
-  const int n_tiles = (kv_end + BK - 1) / BK;
-  const bf16* kb = a.k + b * a.skb + hk * a.skh;
-  const bf16* vb = a.v + b * a.svb + hk * a.svh;
+}
 
-  for (int t = t_begin; t < n_tiles; ++t) {
-    const int c0 = t * BK;
-    __syncthreads();  // the previous tile's K/V reads are done (and init)
-    load_tile<D, BK>(ks, S::LDH, kb, a.skn, c0, a.Nk);
-    load_tile<D, BK>(vs, S::LDH, vb, a.svn, c0, a.Nk);
-    if (seg) load_ids(ksegs, a.kv_seg + (long long)b * a.Nk, c0, a.Nk, -2);
-    __syncthreads();
-
-    scores<D>(qs, dos, ks, vs, ss, dps, r0);
-    __syncwarp();
-    probs_and_ds<D, EXTRA>(ss, dps, lse_s, delta_s, seg ? qsegs : nullptr,
-                           ksegs, ps, dss, r0, q0, c0, a.Nk, a.causal, window,
-                           a.kv_offset, a.scale_log2e, a.scale);
-    __syncwarp();
-    accumulate_dq<D>(dq_acc, dss, ks, r0, false);
-    __syncwarp();
-  }
-  __syncthreads();  // accumulator init is visible when no tile ran
-
-  // epilogue: the warp's rows, cast once; the ragged Q tail is skipped
-  for (int rr = 0; rr < ROWS; ++rr) {
-    const int qi = q0 + r0 + rr;
-    if (qi >= a.Nq) break;
-    for (int c = lane; c < D; c += 32) {
-      a.dq[(row_base + qi) * D + c] =
-          __float2bfloat16(dq_acc[(r0 + rr) * S::LDA + c]);
+// Key tiles [t_begin, t_end) that positions q_lo..q_hi can see
+// (ops/flash_bwd.py::_dq_key_tiles states the same walk): causal rows see
+// keys <= pos + kv_offset, windowed ones keys > pos + kv_offset − window.
+__device__ __forceinline__ void key_tiles(const DqArgs& a, int q_lo, int q_hi,
+                                          int& t_begin, int& t_end) {
+  t_begin = 0;
+  t_end = (a.Nk + BN - 1) / BN;
+  if (a.causal) {
+    const int kv_end = min(a.Nk, max(0, q_hi + a.kv_offset + 1));
+    t_end = min(t_end, (kv_end + BN - 1) / BN);
+    if (a.window > 0) {
+      // a window that starts past the last key leaves nothing to see
+      const int lo_key = q_lo + a.kv_offset - a.window + 1;
+      t_begin = max(0, lo_key) / BN;
+      if (lo_key >= a.Nk) t_end = min(t_end, t_begin);
     }
   }
 }
 
-cudaError_t launch(void (*kernel)(Args), dim3 grid, size_t smem,
-                   const Args& a, cudaStream_t stream) {
+// Whether every (position in q_lo..q_hi, key of the tile at c0) pair is
+// visible, so that the element mask can be skipped.
+__device__ __forceinline__ bool interior(const DqArgs& a, int c0, int q_lo,
+                                         int q_hi) {
+  if (c0 + BN > a.Nk) return false;
+  if (a.causal) {
+    if (c0 + BN - 1 > q_lo + a.kv_offset) return false;
+    if (a.window > 0 && c0 <= q_hi + a.kv_offset - a.window) return false;
+  }
+  return true;
+}
+
+// P in place on this thread's 32 scores of a tile pair (its two rows'
+// columns in wgmma's accumulator layout): p = exp2(s · scale·log2e −
+// lse2[row]), 0 where masked. With MASKED false no element is tested.
+template <bool MASKED, bool SEG>
+__device__ __forceinline__ void probs(const DqArgs& a, float (&s)[32],
+                                      const float (&lse2)[2],
+                                      const int (&qp)[2], const int* kseg,
+                                      const int (&qseg)[2], int c0) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int col = 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+    const int hr = (j >> 1) & 1;
+    bool ok = true;
+    if (MASKED) {
+      const int cg = c0 + col;
+      ok = cg < a.Nk;
+      if (a.causal) {
+        ok = ok && cg <= qp[hr] && (a.window <= 0 || cg > qp[hr] - a.window);
+      }
+      if (SEG) ok = ok && kseg[col] == qseg[hr];
+    }
+    s[j] = ok ? exp2f(fmaf(s[j], a.scale_log2e, -lse2[hr])) : 0.f;
+  }
+}
+
+template <int D, bool SEG>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    flash_bwd_q_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const DqArgs a) {
+  using L = Layout<D, SEG>;
+  constexpr int SLABS = D / 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t full = base + L::bar_off;  // + 8 * stage
+  const uint32_t empty = full + 8 * NST;    // + 8 * stage
+  const uint32_t q_bar = empty + 8 * NST;
+
+  int qt, hg, b;
+  cta_tile(a, qt, hg, b);
+  const int q0 = qt * a.R;
+  const int h0 = hg * a.Gp;
+  const int hk = h0 / a.G;
+  const int q_hi = min(q0 + a.R, a.Nq) - 1;
+  int t_begin, t_end;
+  key_tiles(a, q0, q_hi, t_begin, t_end);
+  const int n = t_end - t_begin;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NST; ++s) {
+      // the TMA issue, and with SEG the 32 lanes of the id loads
+      mbar_init(full + 8 * s, SEG ? 33 : 1);
+      mbar_init(empty + 8 * s, 8);  // lane 0 of each consumer warp
+    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x & 31;
+  if (wg == 2) {
+    // the producer: one thread issues every load; with SEG its warp also
+    // brings each tile's key segment ids beside the TMA
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (threadIdx.x >= 2 * 128 + (SEG ? 32 : 1) || n <= 0) return;
+    if (lane == 0) {
+      mbar_expect_tx(q_bar, 2 * a.Gp * a.R * D * 2);
+      for (int sl = 0; sl < SLABS; ++sl) {
+        tma_load_4d(base + sl * BM * 128, &tm_q, q_bar, sl * 64, q0, h0, b);
+        tma_load_4d(base + L::do_off + sl * BM * 128, &tm_do, q_bar, sl * 64,
+                    q0, h0, b);
+      }
+    }
+    for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
+      const int st = i % NST;
+      mbar_wait(empty + 8 * st, ((i / NST) & 1) ^ 1);
+      const uint32_t dst = base + L::st_off + st * L::stage;
+      if (lane == 0) {
+        mbar_expect_tx(full + 8 * st, 2 * L::KV);
+        for (int sl = 0; sl < SLABS; ++sl) {
+          tma_load_4d(dst + sl * BN * 128, &tm_k, full + 8 * st, sl * 64,
+                      t * BN, hk, b);
+          tma_load_4d(dst + L::KV + sl * BN * 128, &tm_v, full + 8 * st,
+                      sl * 64, t * BN, hk, b);
+        }
+      }
+      if (SEG) {
+        int* ids = reinterpret_cast<int*>(smem + L::st_off + st * L::stage +
+                                          L::ids);
+        for (int c = lane; c < BN; c += 32) {
+          const int key = t * BN + c;
+          ids[c] = key < a.Nk ? a.kv_seg[(long long)b * a.Nk + key] : -2;
+        }
+        mbar_arrive(full + 8 * st);
+      }
+    }
+    return;
+  }
+
+  // two consumer warpgroups, 64 query rows each
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+  // the thread's two rows (wgmma's accumulator layout) as (head, position):
+  // their LSE in log2 units (+inf past the tile or Nq, or on a row that saw
+  // no key, so that its P is 0), D, causal position and segment id
+  float lse2[2], dl[2];
+  int qp[2], qseg[2], pos[2], head[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = wg * 64 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2) +
+                    8 * hr;
+    const int g = row / a.R;
+    const int p = q0 + row - g * a.R;
+    const bool ok = g < a.Gp && p < a.Nq;
+    pos[hr] = ok ? p : -1;
+    head[hr] = h0 + (ok ? g : 0);
+    qp[hr] = p + a.kv_offset;
+    const long long r = (long long)(b * a.H + head[hr]) * a.Nq + p;
+    const float l = ok ? a.lse[r] : kNegInf;
+    lse2[hr] = l < kNegInf * 0.5f ? INFINITY : l * (float)kLog2e;
+    dl[hr] = ok ? a.delta[r] : 0.f;
+    qseg[hr] = SEG && ok ? a.q_seg[(long long)b * a.Nq + p] : -1;
+  }
+  // this warpgroup's positions, for the unmasked-step test
+  const int w_lo = a.R == BM ? q0 + 64 * wg : q0;
+  const int w_hi = min(w_lo + min(a.R, 64), a.Nq) - 1;
+
+  float dq[SLABS][32];
+#pragma unroll
+  for (int sl = 0; sl < SLABS; ++sl) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) dq[sl][j] = 0.f;
+  }
+  if (n > 0) {
+    const uint32_t q_tile = base;
+    const uint32_t do_tile = base + L::do_off;
+    uint32_t dsk[16];  // dS as bf16 pairs: the A operand of dQ's product
+#pragma unroll
+    for (int j = 0; j < 16; ++j) dsk[j] = 0;
+    mbar_wait(q_bar, 0);
+    uint32_t k_tile = 0;
+    for (int i = 0; i < n; ++i) {
+      const int st = i % NST;
+      const int c0 = (t_begin + i) * BN;
+      mbar_wait(full + 8 * st, (i / NST) & 1);
+      k_tile = base + L::st_off + st * L::stage;
+      const uint32_t v_tile = k_tile + L::KV;
+
+      // S = Q·Kᵀ, then dP = dO·Vᵀ, behind the previous tile's dQ product;
+      // P while dP is on the tensor cores
+      float s_acc[32], dp_acc[32];
+      wgmma_fence();
+      cfa_bound::qk_issue<D>(s_acc, q_tile, k_tile, wg);
+      wgmma_commit();
+      cfa_bound::qk_issue<D>(dp_acc, do_tile, v_tile, wg);
+      wgmma_commit();
+      wgmma_wait_one();
+      // the previous tile's dQ product has landed: its dS registers and
+      // its stage are free
+      fence_regs(dsk);
+      if (i > 0 && lane == 0) mbar_arrive(empty + 8 * ((i - 1) % NST));
+      float p[32];
+      copy_after_wait(p, s_acc);
+      if (!SEG && interior(a, c0, w_lo, w_hi)) {
+        probs<false, false>(a, p, lse2, qp, nullptr, qseg, c0);
+      } else {
+        const int* kseg = SEG ? reinterpret_cast<const int*>(
+                                    smem + L::st_off + st * L::stage + L::ids)
+                              : nullptr;
+        probs<true, SEG>(a, p, lse2, qp, kseg, qseg, c0);
+      }
+      wgmma_wait_all();
+      float dp[32];
+      copy_after_wait(dp, dp_acc);
+
+      // dS = P ⊙ (dP − D)·scale, rounded to bf16 in wgmma's A layout
+#pragma unroll
+      for (int j = 0; j < 32; j += 2) {
+        const int hr = (j >> 1) & 1;
+        const float ds0 = p[j] * (dp[j] - dl[hr]) * a.scale;
+        const float ds1 = p[j + 1] * (dp[j + 1] - dl[hr]) * a.scale;
+        __nv_bfloat162 pair = __floats2bfloat162_rn(ds0, ds1);
+        dsk[j >> 1] = *reinterpret_cast<uint32_t*>(&pair);
+      }
+      // dQ += dS·K, left in flight under the next tile's S and dP
+      wgmma_fence();
+      cfa_bound::pv_issue<D>(dq, dsk, k_tile);
+      wgmma_commit();
+    }
+    wgmma_wait_all();
+    fence_regs(dsk);
+#pragma unroll
+    for (int sl = 0; sl < SLABS; ++sl) fence_regs(dq[sl]);
+    if (lane == 0) mbar_arrive(empty + 8 * ((n - 1) % NST));
+  }
+
+  // dQ cast once; rows past Nq are skipped, a tile that saw no key writes
+  // its zeros
+#pragma unroll
+  for (int sl = 0; sl < SLABS; ++sl) {
+#pragma unroll
+    for (int j = 0; j < 32; j += 2) {
+      const int hr = (j >> 1) & 1;
+      if (pos[hr] < 0) continue;
+      const int col = sl * 64 + 8 * (j >> 2) + 2 * (lane & 3);
+      const long long row = (long long)(b * a.H + head[hr]) * a.Nq + pos[hr];
+      *reinterpret_cast<__nv_bfloat162*>(a.dq + row * D + col) =
+          __floats2bfloat162_rn(dq[sl][j], dq[sl][j + 1]);
+    }
+  }
+}
+
+template <int D, bool SEG>
+cudaError_t launch(const CUtensorMap (&m)[4], const DqArgs& a, int B,
+                   cudaStream_t stream) {
+  const int smem = Layout<D, SEG>::bytes;
+  auto kernel = flash_bwd_q_kernel<D, SEG>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, NTHREADS, smem, stream>>>(a);
+  const dim3 grid((a.Nq + a.R - 1) / a.R, a.H / a.Gp, B);
+  kernel<<<grid, NTHREADS, smem, stream>>>(m[0], m[1], m[2], m[3], a);
   return cudaGetLastError();
 }
 
-// Whether a call uses a window or segment ids: the build without them
-// serves a call that uses neither.
-bool has_extras(const Args& a) { return a.window > 0 || a.q_seg != nullptr; }
-
-Args make_args(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, const void* q_seg,
-               const void* kv_seg, int H, int Hkv, int Nq, int Nk,
-               const long long* strides, double scale, int causal, int window,
-               int kv_offset) {
-  Args a = {};
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
-  a.dout = static_cast<const bf16*>(dout);
-  a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<const float*>(delta);
-  a.q_seg = static_cast<const int*>(q_seg);
-  a.kv_seg = static_cast<const int*>(kv_seg);
-  a.H = H;
-  a.Hkv = Hkv;
-  a.Nq = Nq;
-  a.Nk = Nk;
-  a.sqb = strides[0]; a.sqh = strides[1]; a.sqn = strides[2];
-  a.skb = strides[3]; a.skh = strides[4]; a.skn = strides[5];
-  a.svb = strides[6]; a.svh = strides[7]; a.svn = strides[8];
-  a.sob = strides[9]; a.soh = strides[10]; a.son = strides[11];
-  a.scale_log2e = (float)(scale * kLog2e);
-  a.scale = (float)scale;
-  a.causal = causal;
-  a.window = window;
-  a.kv_offset = kv_offset;
-  return a;
+template <int D>
+cudaError_t launch_form(const CUtensorMap (&m)[4], const DqArgs& a, int B,
+                        cudaStream_t stream) {
+  return a.q_seg != nullptr ? launch<D, true>(m, a, B, stream)
+                            : launch<D, false>(m, a, B, stream);
 }
 
 }  // namespace
 
-// K3. strides: q, k, v, dO, each (batch, head, row), in elements. q_seg
-// [B, Nq] and kv_seg [B, Nk] are int32 segment ids, or both null.
+// K3. strides: q, k, v, dO, each (batch, head, row), in elements, every one
+// a multiple of 8 and the bases 16-byte aligned (TMA). q_seg [B, Nq] and
+// kv_seg [B, Nk] are int32 segment ids, or both null. dq [B,H,Nq,D]
+// contiguous; lse, delta [B,H,Nq] contiguous fp32.
 extern "C" int cfa_flash_bwd_q(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, const void* q_seg,
@@ -408,21 +413,48 @@ extern "C" int cfa_flash_bwd_q(const void* q, const void* k, const void* v,
                                int causal, int window, int kv_offset,
                                void* stream) {
   if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
+  if ((q_seg == nullptr) != (kv_seg == nullptr)) return cudaErrorInvalidValue;
   if (B == 0 || H == 0 || Nq == 0) return cudaSuccess;
-  Args a = make_args(q, k, v, dout, lse, delta, q_seg, kv_seg, H, Hkv, Nq,
-                     Nk, strides, scale, causal, window, kv_offset);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Nk == 0) {
+    // no key: dQ is zeros (and K/V's maps would have no memory)
+    return cudaMemsetAsync(dq, 0, (size_t)B * H * Nq * D * sizeof(bf16), st);
+  }
+  DqArgs a = {};
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.q_seg = static_cast<const int*>(q_seg);
+  a.kv_seg = static_cast<const int*>(kv_seg);
   a.dq = static_cast<bf16*>(dq);
-  const dim3 grid((Nq + BQ - 1) / BQ, H, B);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  a.H = H; a.Nq = Nq; a.Nk = Nk;
+  a.G = H / Hkv;
+  a.Gp = cfa_bound::packed_heads(a.G);
+  a.R = BM / a.Gp;
+  a.scale_log2e = (float)(scale * kLog2e);
+  a.scale = (float)scale;
+  a.causal = causal;
+  a.window = causal ? window : 0;
+  a.kv_offset = kv_offset;
+  // Q and dO [B,H,Nq,D] in boxes of 64 columns x R positions x Gp heads, K
+  // and V [B,Hkv,Nk,D] in boxes of 64 columns x 64 keys, 128 B swizzled,
+  // zeros past the live rows
+  cfa_bound::Maps mp;
+  CUtensorMap m[4];
+  const long long* sd = strides + 9;
+  if (!cfa_bound::make_maps(&mp, q, k, v, B, H, Hkv, Nq, Nk, D, strides,
+                            kBf16, kBf16, 0, a.Gp, a.R) ||
+      !cfa_bound::encode4(&m[3], dout, false, D, Nq, H, B, sd[2] * 2,
+                          sd[1] * 2, sd[0] * 2, 64, a.R, a.Gp, 128)) {
+    return cudaErrorInvalidValue;
+  }
+  m[0] = mp.q;
+  m[1] = mp.k;
+  m[2] = mp.v;
   switch (D) {
     case 64:
-      return launch(has_extras(a) ? flash_bwd_q_kernel<64, true>
-                                  : flash_bwd_q_kernel<64, false>,
-                    grid, Smem<64>::bytes, a, s);
+      return launch_form<64>(m, a, B, st);
     case 128:
-      return launch(has_extras(a) ? flash_bwd_q_kernel<128, true>
-                                  : flash_bwd_q_kernel<128, false>,
-                    grid, Smem<128>::bytes, a, s);
+      return launch_form<128>(m, a, B, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -3,9 +3,9 @@
 //
 // Replaces: cuda_flashattention_tpu/ops/flash_bwd.py::_bwd_dkdv_kernel
 // (flash_bwd.py:117, K2) and ::_bwd_fused_kernel (flash_bwd.py:252, K4).
-// The Q-parallel dQ kernel (K3, ::_bwd_dq_kernel) stays in flash_bwd.cu on
-// 16x16 wmma fragments: it runs only on the split path (fused=False),
-// which no training step takes, and it is the next kernel to rebuild.
+// The Q-parallel dQ kernel (K3, ::_bwd_dq_kernel) is the forward's Q-major
+// walk in flash_bwd.cu: it runs only on the split path (fused=False),
+// which no training step takes.
 //
 // What bounds it on the H100: per visible (64-query, 128-key) pair K2 does
 // 4 and K4 5 products of 2·64·128·d operations (Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ,

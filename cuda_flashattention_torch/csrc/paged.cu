@@ -10,20 +10,23 @@
 // What bounds it on the H100: bytes, as for the contiguous decode — the
 // visible pages of each (sequence, KV head) are read once, 2·len·d·bytes
 // plus 4 bytes of table per page — and, at a serving batch, the latency
-// of each warp's walk, since B·Hkv·row-tiles CTAs do not fill 132 SMs.
-// With a prefill chunk folded into the rows (paged_prefix_attention) there
-// are thousands of CTAs and the kernel is bound by its CUDA-core dots and
-// the re-read of K/V per 8-row tile; that form is written down as slow.
+// of each warp's walk. With a prefill chunk folded into the rows
+// (paged_prefix_attention) there are thousands of CTAs and the kernel is
+// bound by its CUDA-core dots and the re-read of K/V per 8-row tile; that
+// form is written down as slow.
 //
-// What this design does about it: grid (row tile, KV head, sequence). A
-// CTA walks the logical pages first_page … ceil(length/page) − 1 of its
-// sequence, reads each page's physical id from the table and streams that
-// page's keys. It never reads a table entry at or past
-// ceil(length/page): those may hold anything. A sequence of length 0 reads
-// no page. A page is only a stride, so any page size ≥ 1 works. Key j
-// goes to warp (j − first) mod NWARPS, exactly as in the contiguous walk,
-// so the two kernels sum the same keys in the same order and give the
-// same bits on the same cache contents.
+// What this design does about it: grid (split of the context, row tile,
+// KV head, sequence), the splits those of the contiguous walk
+// (decode_body.cuh: the same C from the host's rule, the same partition of
+// [first, length) by key index, the same merge). A CTA walks the logical
+// pages that hold its split's keys, reads each page's physical id from the
+// table and streams that page's keys in the split. It never reads a table
+// entry at or past ceil(length/page): those may hold anything. A sequence
+// of length 0 reads no page. A page is only a stride, so any page size ≥ 1
+// works. Key j of a split starting at lo goes to warp (j − lo) mod
+// NWARPS, exactly as in the contiguous walk, so the two kernels sum the
+// same keys in the same order and give the same bits on the same cache
+// contents.
 
 #include "decode_body.cuh"
 
@@ -38,27 +41,32 @@ paged_kernel(Args a,
              const VT* __restrict__ v_pages,
              const int* __restrict__ table,   // [B, max_pages]
              int page, int max_pages) {
-  const int tile = blockIdx.x;
+  const int s = blockIdx.x % a.nsplit;
+  const int tile = blockIdx.x / a.nsplit;
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int warp = threadIdx.x / 32;
   const long long cap = (long long)page * max_pages;
   const int length = (int)min((long long)max(a.lengths[b], 0), cap);
   const int first = first_key(a, b, length);
+  int lo, hi, s_first, s_last;
+  if (!split_keys(a, first, length, s, lo, hi, s_first, s_last)) return;
 
   Body<D, KT, VT, QQ, R> body;
   body.init(a, b, hk, tile);
-  if (first < length) {
-    const int last_page = (length - 1) / page;
-    for (int ip = first / page; ip <= last_page; ++ip) {
+  if (lo < hi) {
+    const int last_page = (hi - 1) / page;
+    for (int ip = lo / page; ip <= last_page; ++ip) {
       const int pid = table[(long long)b * max_pages + ip];
       const int page0 = ip * page;  // first logical token of the page
-      const int lo = max(first, page0);
-      const int hi = min(length, page0 + page);
+      const int p_lo = max(lo, page0);
+      const int p_hi = min(hi, page0 + page);
       // first key of this page that belongs to this warp
-      int j = lo + ((warp - (lo - first)) & (NWARPS - 1));
+      int j = p_lo + ((warp - (p_lo - lo)) & (NWARPS - 1));
       const long long base = ((long long)pid * a.Hkv + hk) * page - page0;
-      for (; j < hi; j += NWARPS) {
+      // unrolled as the contiguous walk: four keys' loads in flight
+#pragma unroll 4
+      for (; j < p_hi; j += NWARPS) {
         const long long t = base + j;  // token slot in the pools
         float ks = 1.f, vs = 1.f;
         if constexpr (Body<D, KT, VT, QQ, R>::kQuant) {
@@ -69,7 +77,9 @@ paged_kernel(Args a,
       }
     }
   }
-  body.finish(a);
+  const int tiles = gridDim.x / a.nsplit;
+  body.finish(a, ((long long)b * a.Hkv + hk) * tiles + tile, s, s_first,
+              s_last);
 }
 
 template <int D, typename KT, typename VT, bool QQ, int R>
@@ -77,7 +87,7 @@ struct Launch {
   static cudaError_t run(const Args& a, const void* k, const void* v,
                          const int* table, int B, int page, int max_pages,
                          cudaStream_t stream) {
-    dim3 grid((a.rows + R - 1) / R, a.Hkv, B);
+    dim3 grid(a.nsplit * ((a.rows + R - 1) / R), a.Hkv, B);
     paged_kernel<D, KT, VT, QQ, R><<<grid, NTHREADS, 0, stream>>>(
         a, static_cast<const KT*>(k), static_cast<const VT*>(v), table, page,
         max_pages);
@@ -89,16 +99,17 @@ struct Launch {
 
 // Pools [n_pages, Hkv, page, D]; scale pools [n_pages, Hkv, page] fp32 or
 // null; page_table [B, max_pages] int32. The other arguments are those of
-// cfa_decode.
+// cfa_decode, with page·max_pages in max_n's place for the split's grid
+// and scratch.
 extern "C" int cfa_paged_decode(const void* q, const void* k_pages,
                                 const void* v_pages, const void* k_scale,
                                 const void* v_scale, const void* q_sigma,
                                 const void* page_table, const void* lengths,
                                 const void* windows, void* o, void* lse,
-                                int B, int H, int Hkv, int page,
-                                int max_pages, int D, int k_type, int v_type,
-                                int qq, float scale, int window,
-                                void* stream) {
+                                void* part, void* tickets, int B, int H,
+                                int Hkv, int page, int max_pages, int D,
+                                int k_type, int v_type, int qq, float scale,
+                                int window, int split, void* stream) {
   if (B == 0 || H == 0) return cudaSuccess;
   if (Hkv <= 0 || H % Hkv != 0 || page <= 0 || max_pages < 0)
     return cudaErrorInvalidValue;
@@ -115,7 +126,11 @@ extern "C" int cfa_paged_decode(const void* q, const void* k_pages,
   a.Hkv = Hkv;
   a.scale = scale;
   a.window = window;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = prepare_split(&a, B, (long long)page * max_pages, split,
+                                  part, tickets, st);
+  if (err != cudaSuccess) return err;
   return dispatch<Launch>(D, a.rows, k_type, v_type, qq, a, k_pages, v_pages,
                           static_cast<const int*>(page_table), B, page,
-                          max_pages, static_cast<cudaStream_t>(stream));
+                          max_pages, st);
 }

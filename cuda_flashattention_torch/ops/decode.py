@@ -2,10 +2,13 @@
 
 Counterpart of cuda_flashattention_tpu/ops/decode.py (`decode_attention`).
 On a CUDA tensor it launches the hand-written Hopper kernel of
-csrc/decode.cu (one CTA per (batch, KV head, tile of up to 8 query rows),
-natural-exp online softmax, keys outside [length − window, length) never
-read). On a CPU tensor it runs `decode_attention_plain`, a dense PyTorch
-version of the same numerics.
+csrc/decode.cu (one CTA per (split of the context, tile of up to 8 query
+rows, KV head, batch), natural-exp online softmax, keys outside
+[length − window, length) never read, the splits merged in the same
+launch). On a CPU tensor it runs `decode_attention_plain`, a dense PyTorch
+version of the same numerics. `split_size`, `decode_splits` and
+`warp_keys` state the kernels' partition of the context, which the paged
+kernel shares.
 
 The cache may be bf16 (fp32 too on the CPU), int8, fp8 e4m3 or mixed
 (int8 K, fp8 V), the quantized ones with per-token scales `k_scale`/
@@ -18,7 +21,7 @@ block rule, `default_decode_block_k`, has no counterpart).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -26,6 +29,7 @@ from cuda_flashattention_torch import _build
 from cuda_flashattention_torch.ops.common import (
     KERNEL_HEAD_DIMS,
     NEG_INF,
+    cdiv,
     quantize_q_per_head,
     resolve_scale,
 )
@@ -34,6 +38,84 @@ from cuda_flashattention_torch.ops.common import (
 _TYPE_CODES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
 # (K, V) storage pairs the kernels are instantiated for
 _KERNEL_PAIRS = ((0, 0), (1, 1), (2, 2), (1, 2))
+
+# The split of the context shared by K6 and K7 (csrc/decode_body.cuh):
+# warps per CTA; keys per split at d = 128 (at d = 64 twice as many, so a
+# split reads as many bytes); the grid of B·Hkv·row tiles CTAs at which a
+# call already fills the card (about four 128-thread CTAs per SM of an
+# H100) and is walked unsplit.
+DECODE_WARPS = 4
+SPLIT_KEYS = 128
+SPLIT_FILL_CTAS = 512
+NO_SPLIT = 1 << 30  # a split size no cache reaches: one split
+
+
+def tile_rows(rows: int) -> int:
+    """Query rows per CTA for `rows` rows per KV head: 1, 4 or 8, as
+    csrc/decode_body.cuh's `tile_rows` picks them."""
+    return 1 if rows == 1 else 4 if rows <= 4 else 8
+
+
+def split_size(b: int, h_kv: int, row_tiles: int, d: int) -> int:
+    """C, the keys of one split of a decode walk, from the call's shape
+    alone (never from the cache's capacity or the lengths), so that the
+    contiguous (K6) and the paged (K7) kernels split alike: unsplit once
+    b·h_kv·row_tiles CTAs fill the card, else SPLIT_KEYS·128/d keys."""
+    if b * h_kv * row_tiles >= SPLIT_FILL_CTAS:
+        return NO_SPLIT
+    return SPLIT_KEYS * 128 // d
+
+
+def decode_splits(first: int, length: int, split: int,
+                  capacity: int) -> List[Tuple[int, int, int]]:
+    """(s, lo, hi) of each live split of a walk over keys [first, length)
+    of a cache holding `capacity` keys per sequence, as the kernels' grid
+    finds them: split s covers [s·split, (s+1)·split) ∩ [first, length);
+    the grid's ceil(capacity / split) splits sit beyond every live one,
+    so the partition is the key index's alone. Empty when no key is
+    visible (split 0 then writes O = 0, LSE = NEG_INF)."""
+    n = max(1, cdiv(capacity, split))
+    out = []
+    for s in range(n):
+        lo, hi = max(first, s * split), min(length, (s + 1) * split)
+        if lo < hi:
+            out.append((s, lo, hi))
+    return out
+
+
+def warp_keys(lo: int, hi: int, warp: int, page: int = 0) -> List[int]:
+    """The keys of split [lo, hi) that `warp` attends, in its order: key j
+    goes to warp (j − lo) mod DECODE_WARPS. With `page` > 0, as the paged
+    kernel reaches them (page by page, the first key of each page that
+    belongs to the warp found from the page's first key in the split);
+    otherwise as the contiguous kernel strides through them."""
+    if page <= 0:
+        return list(range(lo + warp, hi, DECODE_WARPS))
+    keys = []
+    for ip in range(lo // page, (hi - 1) // page + 1):
+        p_lo, p_hi = max(lo, ip * page), min(hi, (ip + 1) * page)
+        j = p_lo + ((warp - (p_lo - lo)) & (DECODE_WARPS - 1))
+        keys.extend(range(j, p_hi, DECODE_WARPS))
+    return keys
+
+
+def split_scratch(b: int, h_kv: int, rows: int, d: int, capacity: int,
+                  device) -> Tuple[int, Optional[torch.Tensor],
+                                   Optional[torch.Tensor]]:
+    """(split size, partials, tickets) of one kernel call, the scratch
+    from the caching allocator on the current stream (the kernel's entry
+    point zeroes the tickets there), or None when the grid has one split
+    per row tile."""
+    r = tile_rows(rows)
+    tiles = cdiv(rows, r)
+    split = split_size(b, h_kv, tiles, d)
+    n = max(1, cdiv(capacity, split))
+    if n == 1:
+        return split, None, None
+    part = torch.empty(b * h_kv * tiles * n * r * (d + 2),
+                       dtype=torch.float32, device=device)
+    tickets = torch.empty(b * h_kv * tiles, dtype=torch.int32, device=device)
+    return split, part, tickets
 
 
 def effective_windows(b: int, window: int, windows: Optional[torch.Tensor],
@@ -182,13 +264,16 @@ def _decode_cuda(q, k, v, lengths, k_scale, v_scale, scale, window, windows,
     o = torch.empty((b, h, d), dtype=out_dtype, device=q.device)
     lse = torch.empty((b, h), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
+        split, part, tickets = split_scratch(b, h_kv, h // h_kv, d, max_n,
+                                             q.device)
         stream = torch.cuda.current_stream().cuda_stream
         err = _build.library().cfa_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             optional_ptr(k_scale), optional_ptr(v_scale),
             optional_ptr(q_sigma), lengths.data_ptr(), optional_ptr(windows),
-            o.data_ptr(), lse.data_ptr(), b, h, h_kv, max_n, d, kt, vt,
-            int(qq), resolve_scale(scale, d), int(window or 0), stream)
+            o.data_ptr(), lse.data_ptr(), optional_ptr(part),
+            optional_ptr(tickets), b, h, h_kv, max_n, d, kt, vt, int(qq),
+            resolve_scale(scale, d), int(window or 0), split, stream)
     _build.check(err, "decode_attention kernel launch")
     decode_attention.launches += 1
     return o, lse

@@ -6,8 +6,8 @@ Counterpart of cuda_flashattention_tpu/ops/flash_bwd.py
 hand-written Hopper kernels: the fused single pass K4 (dK/dV per 128-key
 tile, dQ added into an fp32 buffer by TMA reduces) by default, or the
 split pair K2 (dK/dV) + K3 (dQ) with `fused=False`. K2 and K4 are one
-wgmma + TMA kernel (csrc/flash_bwd_kv.cu), K3 the wmma kernel of
-csrc/flash_bwd.cu. On a CPU tensor it runs
+wgmma + TMA kernel (csrc/flash_bwd_kv.cu), K3 the Q-major wgmma + TMA
+kernel of csrc/flash_bwd.cu. On a CPU tensor it runs
 `flash_attention_backward_plain`, a dense PyTorch version of the same
 numerics; the CPU tests and the on-card comparisons use it.
 
@@ -70,6 +70,65 @@ def _bwd_cta_order(nk: int, h_kv: int, b: int) -> List[Tuple[int, int, int]]:
     start in the first wave."""
     return [(kt, lin % h_kv, lin // h_kv)
             for kt in range(cdiv(nk, _BWD_BK)) for lin in range(h_kv * b)]
+
+
+# K3's tiles (csrc/flash_bwd.cu): a CTA owns 128 query rows, the Gp query
+# heads of one KV head packed as K1 packs them (R = 128 / Gp positions
+# each), and streams the key tiles they see, 64 keys at a time
+_DQ_BM = 128
+_DQ_BN = 64
+
+
+def _dq_packing(h: int, h_kv: int) -> Tuple[int, int]:
+    """(Gp, R): the query heads of one KV head that a K3 CTA packs (the
+    largest divisor of the group size up to 16) and the positions of each
+    (128 / Gp)."""
+    group = h // h_kv
+    gp = max(d for d in range(1, min(group, 16) + 1) if group % d == 0)
+    return gp, _DQ_BM // gp
+
+
+def _dq_key_tiles(q0: int, r: int, nq: int, nk: int, causal: bool,
+                  window: int, kv_offset: int) -> Tuple[int, int]:
+    """The key tiles [begin, end) that the K3 CTA of positions q0 .. q0 +
+    r − 1 walks, as the kernel's `key_tiles` computes them: causal rows
+    see keys <= pos + kv_offset, so the walk ends at the tile holding the
+    last row's; with a window it starts at the tile of the first row's
+    first key, q0 + kv_offset − window + 1, and is empty when that lies
+    past the last key. Exactly the tiles with a visible pair (segment ids
+    aside, which mask inside the walk)."""
+    end = cdiv(nk, _DQ_BN)
+    begin = 0
+    if causal:
+        q_hi = min(q0 + r, nq) - 1
+        end = min(end, cdiv(min(nk, max(0, q_hi + kv_offset + 1)), _DQ_BN))
+        if window > 0:
+            lo_key = q0 + kv_offset - window + 1
+            begin = max(0, lo_key) // _DQ_BN
+            if lo_key >= nk:
+                end = min(end, begin)
+    return begin, end
+
+
+def _dq_cta_order(nq: int, h: int, h_kv: int, b: int,
+                  causal: bool) -> List[Tuple[int, int, int]]:
+    """(Q tile, head group, batch) of each K3 CTA in launch order, as the
+    kernel's `cta_tile` maps its block index (K1's order): the grid's own
+    order, except under causal, where the Q tiles run from the last,
+    which sees the most keys, to the first, all head groups and batches
+    of a tile together."""
+    gp, r = _dq_packing(h, h_kv)
+    n_qt, n_hg = cdiv(nq, r), h // gp
+    order = []
+    for lin in range(n_qt * n_hg * b):
+        if causal:
+            rest = lin % (n_hg * b)
+            order.append((n_qt - 1 - lin // (n_hg * b), rest % n_hg,
+                          rest // n_hg))
+        else:
+            order.append((lin % n_qt, lin // n_qt % n_hg,
+                          lin // (n_qt * n_hg)))
+    return order
 
 
 def flash_attention_backward_plain(

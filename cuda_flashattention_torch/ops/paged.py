@@ -14,8 +14,9 @@ instead of one contiguous strip per sequence:
 
 On CUDA tensors `paged_decode_attention` launches the hand-written Hopper
 kernel of csrc/paged.cu, which gathers through the table as it walks (no
-copy is materialised) and shares its arithmetic with the contiguous
-decode (csrc/decode_body.cuh). On CPU tensors it runs
+copy is materialised) and shares its arithmetic, its split of the context
+and the splits' merge with the contiguous decode (csrc/decode_body.cuh,
+ops/decode.py::split_size). On CPU tensors it runs
 `paged_decode_attention_plain`, which gathers each sequence's live pages
 and runs `decode_attention_plain` on them. The caches are updated in
 place, as `KVCache` is.
@@ -38,6 +39,7 @@ from cuda_flashattention_torch.ops.decode import (
     decode_attention_plain,
     kernel_inputs,
     optional_ptr,
+    split_scratch,
 )
 from cuda_flashattention_torch.ops.quant import (
     pair_qtypes,
@@ -109,14 +111,17 @@ def _paged_cuda(q, k_pages, v_pages, page_table, lengths, k_scale, v_scale,
     o = torch.empty((b, h, d), dtype=out_dtype, device=q.device)
     lse = torch.empty((b, h), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
+        split, part, tickets = split_scratch(b, h_kv, h // h_kv, d,
+                                             ps * max_pages, q.device)
         stream = torch.cuda.current_stream().cuda_stream
         err = _build.library().cfa_paged_decode(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             optional_ptr(k_scale), optional_ptr(v_scale),
             optional_ptr(q_sigma), table.data_ptr(), lengths.data_ptr(),
             optional_ptr(windows), o.data_ptr(), lse.data_ptr(),
-            b, h, h_kv, ps, max_pages, d, kt, vt, int(qq),
-            resolve_scale(scale, d), int(window or 0), stream)
+            optional_ptr(part), optional_ptr(tickets), b, h, h_kv, ps,
+            max_pages, d, kt, vt, int(qq), resolve_scale(scale, d),
+            int(window or 0), split, stream)
     _build.check(err, "paged_decode_attention kernel launch")
     paged_decode_attention.launches += 1
     return o, lse

@@ -1,5 +1,5 @@
-"""Time the forward and fused-backward kernels of one checkout of this
-package, to compare two commits on one card within one call.
+"""Time the kernels of one checkout of this package, to compare two
+commits on one card within one call.
 
     python3 cuda_flashattention_torch/utils/ab_kernels.py <checkout root>
 
@@ -10,8 +10,9 @@ kernels there), and prints, on bf16 inputs with d=128:
     training shape (B=1, H=16, N=4096, bf16 out); K1 there also under
     window 1024;
   - at the training shape: K4 under window 1024 and without a mask (a
-    ring step's full 4096 x 4096 block), and the split backward's dK/dV
-    kernel (K2, `fused=False`; its K3 launch is listed beside it);
+    ring step's full 4096 x 4096 block), and the split backward
+    (`fused=False`): its dK/dV kernel (K2) and its dQ kernel (K3), each
+    listed with its own time;
   - K1's other forms: at the chunked-prefill prefix pinned online over
     bf16 and int8 K/V, and under segment ids (the serving chunk's shape,
     causal and not);
@@ -20,7 +21,13 @@ kernels there), and prints, on bf16 inputs with d=128:
     fallback launch) at the chunked-prefill prefix (B=8, H=16, Hkv=4, 512
     query rows over 3584 keys, fp32 out): K1b over bf16 and int8 K/V, K5
     over fp8 K/V; and K5 at B=1, H=16, N=16384 causal (the one-rank call
-    of the ring's shape, and Ulysses').
+    of the ring's shape, and Ulysses');
+  - the decode (K6) at B=8, H=16, Hkv=4 over 640 and 4224 live tokens of
+    a bf16 cache, and the paged decode (K7) over 4224 live tokens in
+    128-token pages, each on a cold L2 (a 256 MiB write before every
+    call, as a server's decode step finds the cache); where the checkout
+    splits the context (`ops.decode.SPLIT_KEYS`), the same three rows
+    under split sizes of 64, 128, 256 and 512 keys and unsplit.
 For each: the wrapper's median ms (CUDA events) and the device ms per
 call of its kernels (torch.profiler), with each kernel's ms per launch.
 The K4 rows run first, so that both checkouts reach them after the same
@@ -37,11 +44,14 @@ def main(root: str) -> None:
     sys.path.insert(0, root)
     import torch
 
+    from cuda_flashattention_torch.ops import decode as dec
+    from cuda_flashattention_torch.ops.decode import decode_attention
     from cuda_flashattention_torch.ops.fa1 import fa1_attention
     from cuda_flashattention_torch.ops.flash_bwd import (
         flash_attention_backward)
     from cuda_flashattention_torch.ops.flash_fwd import (
         flash_attention_forward)
+    from cuda_flashattention_torch.ops.paged import paged_decode_attention
     from cuda_flashattention_torch.ops.quant import quantize_kv
     from cuda_flashattention_torch.utils.profiling import kernel_times
     from cuda_flashattention_torch.utils.timing import cuda_time_ms
@@ -60,17 +70,24 @@ def main(root: str) -> None:
         name = name.replace("void ", "", 1)
         return name.replace("(anonymous namespace)::", "").split("(")[0][:48]
 
-    def report(label, fn, word, iters):
+    # a write of 256 MiB evicts the 50 MB L2 cache
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+
+    def report(label, fn, word, iters, cold=False):
         """`label`: wrapper ms, the device ms per call of the kernels whose
         name holds `word` (each launches once a call) and each listed
-        package kernel's ms per launch."""
-        wrapper = cuda_time_ms(fn, iters=iters)
-        prof = kernel_times(fn, iters=max(1, iters // 4))
+        package kernel's ms per launch; with `cold`, each call follows a
+        write that evicts the L2 cache."""
+        wrapper = cuda_time_ms(fn, iters=iters,
+                               before=flush.zero_ if cold else None)
+        prof = kernel_times((lambda: (flush.zero_(), fn())) if cold else fn,
+                            iters=max(1, iters // 4))
         names = [n for n in prof.ms if word in n]
         per_call = sum(prof.ms[n] / prof.count[n] for n in names)
         each = ", ".join(f"{short(n)} "
                          f"{prof.ms[n] / prof.count[n]:.4f}" for n in prof.ms
-                         if "flash_" in n or "fa1" in n)
+                         if any(w in n for w in ("flash_", "fa1", "decode_k",
+                                                 "paged_k")))
         print(f"{root} {label}: wrapper {wrapper:.4f} ms, kernels "
               f"{per_call:.4f} ms per call [{each}] ({card})", flush=True)
 
@@ -90,9 +107,9 @@ def main(root: str) -> None:
                lambda: flash_attention_backward(q, k, v, o, lse, do,
                                                 causal=True), "flash_bwd", 20)
     _, q, k, v, do, o, lse, _ = cases[1]
-    report("train K2 dK/dV (fused=False)",
+    report("train K2 + K3 (fused=False)",
            lambda: flash_attention_backward(q, k, v, o, lse, do, causal=True,
-                                            fused=False), "flash_bwd_kv", 20)
+                                            fused=False), "flash_bwd", 20)
     for label, kw in (("window 1024", dict(causal=True, window=1024)),
                       ("no mask (ring full block)", dict(causal=False))):
         o_m, lse_m = flash_attention_forward(q, k, v, **kw)
@@ -148,6 +165,42 @@ def main(root: str) -> None:
     k, v = mk(1, 16, 16384, 128, peak=4), mk(1, 16, 16384, 128)
     report("N=16384 causal K5", lambda: flash_attention_forward(
         q, k, v, causal=True, softmax="bound_unchecked"), "flash_fwd", 8)
+    del q, k, v
+
+    # the decode kernels on a cold L2, peaked inputs as chip_smoke feeds them
+    b, h, hkv, page = 8, 16, 4, 128
+    q1 = mk(b, h, 128, peak=8)
+    decode_rows = []
+    for live in (640, 4224):
+        k, v = mk(b, hkv, live, 128, peak=4), mk(b, hkv, live, 128)
+        lens = torch.full((b,), live, dtype=torch.int32, device=dev)
+        decode_rows.append((f"K6 decode {live} live", "decode_k",
+                            lambda k=k, v=v, lens=lens: decode_attention(
+                                q1, k, v, lens)))
+    # the 4224 live tokens again, in 128-token pages behind a shuffled table
+    n_pages = b * live // page
+    k_pages = k.reshape(b, hkv, live // page, page, 128).permute(
+        0, 2, 1, 3, 4).reshape(n_pages, hkv, page, 128)
+    v_pages = v.reshape(b, hkv, live // page, page, 128).permute(
+        0, 2, 1, 3, 4).reshape(n_pages, hkv, page, 128)
+    order = torch.randperm(n_pages, generator=gen, device=dev)
+    k_pages, v_pages = k_pages[order].contiguous(), v_pages[order].contiguous()
+    table = torch.argsort(order).to(torch.int32).reshape(b, live // page)
+    decode_rows.append(("K7 paged decode 4224 live", "paged_k",
+                        lambda: paged_decode_attention(
+                            q1, k_pages, v_pages, table, lens)))
+    for label, word, fn in decode_rows:
+        report(label, fn, word, 40, cold=True)
+    if hasattr(dec, "SPLIT_KEYS"):
+        keys = dec.SPLIT_KEYS
+        try:
+            for size in (64, 128, 256, 512, 1 << 20):
+                dec.SPLIT_KEYS = size
+                name = "unsplit" if size > live else f"split {size}"
+                for label, word, fn in decode_rows:
+                    report(f"{label}, {name}", fn, word, 40, cold=True)
+        finally:
+            dec.SPLIT_KEYS = keys
 
 
 if __name__ == "__main__":

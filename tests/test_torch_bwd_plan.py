@@ -1,11 +1,14 @@
-"""The key-parallel backward's walk (K2 and K4, csrc/flash_bwd_kv.cu), on
-the CPU: which Q tiles each 128-key tile visits and the order of the CTAs.
+"""The backward's walks on the CPU: which Q tiles each 128-key tile of the
+key-parallel kernel (K2 and K4, csrc/flash_bwd_kv.cu) visits, which key
+tiles each 128-row query tile of the dQ kernel (K3, csrc/flash_bwd.cu)
+visits, and the order of their CTAs.
 
-`_bwd_q_tiles` and `_bwd_cta_order` state what the kernel's `q_tiles` and
-`cta_tile` compute. They are held against a dense visibility mask built
-here (causal with kv_offset, window, ragged tails, Nq != Nk), and a walk
-over only the visited tile pairs must give the plain backward's gradients.
-The kernel itself is held to the plain version on the card
+`_bwd_q_tiles` / `_bwd_cta_order` and `_dq_key_tiles` / `_dq_cta_order`
+state what the kernels' `q_tiles` / `key_tiles` and `cta_tile` compute.
+They are held against a dense visibility mask built here (causal with
+kv_offset, window, ragged tails, Nq != Nk), and a walk over only the
+visited tile pairs must give the plain backward's gradients. The kernels
+themselves are held to the plain version on the card
 (tests/test_torch_kernels_cuda.py)."""
 
 import numpy as np
@@ -142,3 +145,101 @@ def test_walk_over_visited_pairs_gives_the_plain_gradients(
     for got, w, name in zip((dq, dk, dv), want, ("dQ", "dK", "dV")):
         torch.testing.assert_close(got, w, rtol=1e-5, atol=1e-5,
                                    msg=lambda m: f"{name}: {m}")
+
+
+# K3: 128 query rows of packed heads per CTA, 64-key tiles
+DQ_BM, DQ_BN = fb._DQ_BM, fb._DQ_BN
+
+DQ_CASES = CASES + [
+    (300, 100, True, 50, 150),       # every window starts past the keys
+    (200, 300, True, 30, 280),       # some do
+    (63, 64, True, 0, 0), (64, 65, True, 0, 1), (65, 63, False, 0, 0),
+    (127, 200, True, 0, 63), (129, 129, True, 64, 0),
+]
+
+
+@pytest.mark.parametrize("r", [128, 64, 32])
+@pytest.mark.parametrize("nq,nk,causal,window,kv_offset", DQ_CASES)
+def test_dq_walk_visits_exactly_the_tiles_with_a_visible_pair(
+        nq, nk, causal, window, kv_offset, r):
+    vis = _visible(nq, nk, causal, window, kv_offset)
+    for qt in range(cdiv(nq, r)):
+        q0 = qt * r
+        begin, end = fb._dq_key_tiles(q0, r, nq, nk, causal, window,
+                                      kv_offset)
+        walked = set(range(begin, end))
+        assert walked <= set(range(cdiv(nk, DQ_BN)))
+        seen = {kt for kt in range(cdiv(nk, DQ_BN))
+                if vis[q0:q0 + r, kt * DQ_BN:(kt + 1) * DQ_BN].any()}
+        assert walked == seen, (qt, begin, end, sorted(seen))
+
+
+@pytest.mark.parametrize("h,h_kv,gp", [(16, 16, 1), (16, 4, 4), (8, 2, 4),
+                                       (12, 4, 3), (40, 2, 10), (32, 1, 16),
+                                       (64, 2, 16)])
+def test_dq_packs_the_heads_of_a_group_as_k1(h, h_kv, gp):
+    assert fb._dq_packing(h, h_kv) == (gp, DQ_BM // gp)
+
+
+@pytest.mark.parametrize("nq,h,h_kv,b", [(4096, 16, 16, 1), (1000, 16, 4, 2),
+                                         (127, 4, 2, 3), (129, 12, 4, 1)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_dq_cta_order_is_every_tile_once_heaviest_first(nq, h, h_kv, b,
+                                                        causal):
+    gp, r = fb._dq_packing(h, h_kv)
+    order = fb._dq_cta_order(nq, h, h_kv, b, causal)
+    assert sorted(order) == sorted(
+        (qt, hg, bb) for qt in range(cdiv(nq, r)) for hg in range(h // gp)
+        for bb in range(b))
+    if causal:
+        # under causal the walks only shorten along the order
+        work = [(lambda t: t[1] - t[0])(fb._dq_key_tiles(
+            qt * r, r, nq, nq, True, 0, 0)) for qt, _, _ in order]
+        assert work == sorted(work, reverse=True)
+    else:  # the grid's own order: Q tiles fastest, then head groups
+        assert order == [(qt, hg, bb) for bb in range(b)
+                         for hg in range(h // gp) for qt in range(cdiv(nq, r))]
+
+
+@pytest.mark.parametrize("nq,nk,h,h_kv,causal,window,kv_offset,seg", [
+    (150, 300, 4, 2, True, 0, 100, False),
+    (200, 129, 4, 4, True, 0, 0, True),
+    (259, 259, 4, 2, True, 90, 0, False),
+    (100, 260, 4, 1, True, 0, -20, False),
+    (130, 257, 4, 2, False, 0, 0, True),
+    (65, 300, 4, 4, True, 40, 250, False),
+])
+def test_dq_walk_over_visited_pairs_gives_the_plain_dq(
+        nq, nk, h, h_kv, causal, window, kv_offset, seg):
+    """dQ summed over K3's (Q tile, key tile) pairs only, in fp32, equals
+    the dense plain backward's: no pair the walk skips holds a visible
+    entry. Each CTA's packed heads share its positions and its walk."""
+    rng = np.random.default_rng(nq + 3 * nk)
+    b, d = 1, 64
+    mk = lambda *s: torch.from_numpy(rng.uniform(-1, 1, s).astype(np.float32))
+    q, do = mk(b, h, nq, d), mk(b, h, nq, d)
+    k, v = mk(b, h_kv, nk, d), mk(b, h_kv, nk, d)
+    kw = dict(causal=causal, window=window, kv_offset=kv_offset)
+    if seg:
+        qs = torch.from_numpy(rng.integers(0, 3, (b, nq)).astype(np.int32))
+        ks = torch.from_numpy(rng.integers(0, 3, (b, nk)).astype(np.int32))
+        kw.update(q_segment_ids=qs.sort(-1).values,
+                  kv_segment_ids=ks.sort(-1).values)
+    o, lse = flash_attention_forward_plain(q, k, v, **kw)
+    want = fb.flash_attention_backward_plain(q, k, v, o, lse, do, **kw)[0]
+    _, r = fb._dq_packing(h, h_kv)
+    dq = torch.zeros_like(q)
+    for qt in range(cdiv(nq, r)):
+        r0, r1 = qt * r, min(nq, qt * r + r)
+        begin, end = fb._dq_key_tiles(r0, r, nq, nk, causal, window,
+                                      kv_offset)
+        for kt in range(begin, end):
+            c0, c1 = kt * DQ_BN, min(nk, kt * DQ_BN + DQ_BN)
+            sub = dict(kw, kv_offset=kv_offset + r0 - c0)
+            if seg:
+                sub.update(q_segment_ids=kw["q_segment_ids"][:, r0:r1],
+                           kv_segment_ids=kw["kv_segment_ids"][:, c0:c1])
+            dq[:, :, r0:r1] += fb.flash_attention_backward_plain(
+                q[:, :, r0:r1], k[:, :, c0:c1], v[:, :, c0:c1],
+                o[:, :, r0:r1], lse[:, :, r0:r1], do[:, :, r0:r1], **sub)[0]
+    torch.testing.assert_close(dq, want, rtol=1e-5, atol=1e-5)

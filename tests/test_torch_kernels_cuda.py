@@ -1226,3 +1226,164 @@ def test_fa1_kernel_block_plans(dev, block_k, causal, nq, nk, d):
     ref = o_p.float().abs().max().item()
     assert ref > 0 and torch.isfinite(o.float()).all()
     assert _err(o, o_p) <= min(GATE, REL_GATE * ref)
+
+
+# ---------------------------------------------------------------------------
+# K3 (the split backward's dQ, a Q-major wgmma + TMA walk) at its tile
+# edges, and K6 / K7 split over the context
+# ---------------------------------------------------------------------------
+
+
+def _split_backward(dev, b, h, h_kv, nq, nk, d, seed, **kw):
+    """K2 + K3 (fused=False) into NaN-filled memory against the plain
+    backward; dQ must be finite, and all three gradients within the gate,
+    or all zero where the plain ones are (no row sees a key). Returns
+    dQ."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, do = _rand(gen, dev, b, h, nq, d), _rand(gen, dev, b, h, nq, d)
+    k, v = _rand(gen, dev, b, h_kv, nk, d), _rand(gen, dev, b, h_kv, nk, d)
+    o, lse = flash_attention_forward(q, k, v, **kw)
+    args = (q, k, v, o, lse, do)
+    _nan_fill_allocator(dev)
+    before = flash_attention_backward.launches["dq"]
+    got = flash_attention_backward(*args, fused=False, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_backward.launches["dq"] == before + 1
+    assert torch.isfinite(got[0]).all()
+    want = flash_attention_backward_plain(*args, **kw)
+    for g, w, name in zip(got, want, ("dQ", "dK", "dV")):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if torch.all(w == 0):
+            assert torch.all(g == 0), name
+        else:
+            _assert_rel(g, w, name)
+    return got[0]
+
+
+@pytest.mark.parametrize("b,h,h_kv,nq,nk,d,causal,kv_offset", [
+    (1, 4, 4, 63, 100, 128, True, 37),
+    (1, 4, 4, 64, 64, 128, False, 0),
+    (2, 4, 4, 65, 130, 128, True, 65),     # kv_offset crossing a key tile
+    (1, 4, 2, 127, 300, 128, True, 173),
+    (1, 4, 4, 129, 129, 128, True, 0),
+    (1, 8, 8, 129, 1000, 128, False, 0),
+    (1, 16, 4, 129, 200, 64, True, 71),    # GQA 16:4, d = 64
+    (2, 16, 4, 1000, 777, 64, False, 0),
+    (1, 12, 4, 100, 300, 128, True, -30),  # three heads packed per tile
+])
+def test_dq_kernel_tile_edges(dev, b, h, h_kv, nq, nk, d, causal, kv_offset):
+    _split_backward(dev, b, h, h_kv, nq, nk, d, seed=nq + nk + d,
+                    causal=causal, kv_offset=kv_offset)
+
+
+@pytest.mark.parametrize("b,h,h_kv,nq,nk,d,window,kv_offset", [
+    (1, 4, 4, 129, 300, 128, 64, 171),     # windows ending inside tiles
+    (1, 16, 4, 65, 700, 64, 63, 600),
+    (2, 8, 2, 300, 300, 128, 129, 0),
+    (1, 4, 4, 100, 100, 128, 30, 150),     # windows starting past the keys
+])
+def test_dq_kernel_window(dev, b, h, h_kv, nq, nk, d, window, kv_offset):
+    dq = _split_backward(dev, b, h, h_kv, nq, nk, d, seed=window + nq,
+                         causal=True, window=window, kv_offset=kv_offset)
+    # where no row sees a key, K3 walks no tile and writes its zeros
+    assert torch.all(dq == 0) == (kv_offset - window + 1 >= nk)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h,h_kv,d", [(4, 4, 128), (16, 4, 64)])
+def test_dq_kernel_segments_at_tile_edges(dev, causal, h, h_kv, d):
+    """Segments ending one key before, at, and one key after 64-key tile
+    edges, and one of a single token."""
+    n = 300
+    seg = torch.repeat_interleave(
+        torch.arange(5, device=dev),
+        torch.tensor([63, 1, 65, 128, 43], device=dev))[None].expand(2, n)
+    _split_backward(dev, 2, h, h_kv, n, n, d, seed=d, causal=causal,
+                    q_segment_ids=seg, kv_segment_ids=seg)
+
+
+def _split_keys(dev, b, h, h_kv, d):
+    from cuda_flashattention_torch.ops.decode import split_size, tile_rows
+    rows = h // h_kv
+    return split_size(b, h_kv, -(-rows // tile_rows(rows)), d)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(window="C+3"), dict(windows=[0, 1, 5, 130, 4224, 200]),
+    dict(quantize_q=True), dict(quantize_q=True, window="C+3"),
+])
+@pytest.mark.parametrize("qtype", [None, "int8", "fp8", "mixed"])
+def test_decode_split_edges(dev, qtype, kw):
+    """Lengths 0, 1, C − 1, C, C + 1 and 4224 (C: the split size the host
+    rule gives this shape), windows that start inside a split, on peaked
+    inputs: K6 against its plain version, two calls bit-identical, and K7
+    over pools of 16- and 128-token pages bit-equal to K6 on the same
+    keys."""
+    b, h, h_kv, d, max_n = 6, 16, 4, 128, 4230
+    c = _split_keys(dev, b, h, h_kv, d)
+    assert c < max_n  # the shape splits
+    lengths = [0, 1, c - 1, c, c + 1, 4224]
+    gen = torch.Generator(device=dev).manual_seed(c)
+    q = _rand(gen, dev, b, h, d) * 8
+    k = _rand(gen, dev, b, h_kv, max_n, d) * 4
+    v = _rand(gen, dev, b, h_kv, max_n, d)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    kw = dict(kw)
+    if kw.get("window") == "C+3":
+        kw["window"] = c + 3
+    if "windows" in kw:
+        kw["windows"] = torch.tensor(kw["windows"], dtype=torch.int32,
+                                     device=dev)
+    scales = {}
+    kq, vq = k, v
+    if qtype is not None:
+        kv = quantize_kv(k, v, qtype)
+        kq, vq = kv.k_q, kv.v_q
+        scales = dict(k_scale=kv.k_scale, v_scale=kv.v_scale)
+    _nan_fill_allocator(dev)
+    before = decode_attention.launches
+    o, lse = decode_attention(q, kq, vq, lens, **scales, **kw)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    o_p, lse_p = decode_attention_plain(q, kq, vq, lens, **scales, **kw)
+    top = o_p.float().abs().max().item()
+    assert top > 0 and _err(o, o_p) <= min(GATE, REL_GATE * top)
+    assert _err(lse, lse_p) <= GATE
+    assert torch.all(o[0] == 0) and torch.all(lse[0] == -1e30)
+    o2, lse2 = decode_attention(q, kq, vq, lens, **scales, **kw)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    for page in (16, 128):
+        cache, (kq2, vq2, ks2, vs2) = _paged_copy(
+            dev, k, v, lengths, page, -(-4224 // page) + 2, qtype, gen)
+        o_k, lse_k = paged_decode_step(q, cache, **kw)
+        torch.cuda.synchronize()
+        o_c, lse_c = decode_attention(q, kq2, vq2, lens, k_scale=ks2,
+                                      v_scale=vs2, **kw)
+        assert torch.equal(o_k, o_c) and torch.equal(lse_k, lse_c), page
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_decode_split_sizes_agree(dev, d):
+    """Forcing other split sizes moves the result by fp32 rounding only:
+    every size meets the plain version, the unsplit walk included."""
+    from cuda_flashattention_torch.ops import decode as dec
+    b, h, h_kv, max_n = 8, 16, 4, 4224
+    gen = torch.Generator(device=dev).manual_seed(d)
+    q = _rand(gen, dev, b, h, d) * 8
+    k = _rand(gen, dev, b, h_kv, max_n, d) * 4
+    v = _rand(gen, dev, b, h_kv, max_n, d)
+    lens = torch.tensor([4224, 640, 1, 0, 127, 128, 129, 3000],
+                        dtype=torch.int32, device=dev)
+    o_p, lse_p = decode_attention_plain(q, k, v, lens)
+    top = o_p.float().abs().max().item()
+    keys = dec.SPLIT_KEYS
+    try:
+        for size in (32, 64, 128, 256, 512, 1 << 20):
+            dec.SPLIT_KEYS = size
+            o, lse = decode_attention(q, k, v, lens)
+            torch.cuda.synchronize()
+            assert _err(o, o_p) <= min(GATE, REL_GATE * top), size
+            assert _err(lse, lse_p) <= GATE, size
+    finally:
+        dec.SPLIT_KEYS = keys

@@ -186,7 +186,7 @@ def test_fa1_source_is_a_hopper_kernel():
 
 def test_key_parallel_backward_is_a_hopper_kernel():
     """K2 and K4 are one kernel on the forward's wgmma + TMA helpers, with
-    its own arguments and its dQ added by TMA reduces; the wmma file keeps
+    its own arguments and its dQ added by TMA reduces; flash_bwd.cu keeps
     K3 alone."""
     src = (_build.CSRC / "flash_bwd_kv.cu").read_text()
     for tpu in ("_bwd_dkdv_kernel", "_bwd_fused_kernel"):
@@ -197,11 +197,49 @@ def test_key_parallel_backward_is_a_hopper_kernel():
                    "stmatrix", "cp.reduce.async.bulk.tensor", "setmaxnreg",
                    "extern \"C\" int cfa_flash_bwd_kv("):
         assert needle in src, needle
-    wmma = (_build.CSRC / "flash_bwd.cu").read_text()
-    assert "flash_bwd_q_kernel" in wmma and "cfa_flash_bwd_q(" in wmma
-    assert "flash_bwd_kv_kernel" not in wmma
-    assert "cfa_flash_bwd_kv" not in wmma
+    k3 = (_build.CSRC / "flash_bwd.cu").read_text()
+    assert "flash_bwd_q_kernel" in k3 and "cfa_flash_bwd_q(" in k3
+    assert "flash_bwd_kv_kernel" not in k3
+    assert "cfa_flash_bwd_kv" not in k3
     assert len(_build.SIGNATURES["cfa_flash_bwd_kv"]) == 23
+
+
+def test_dq_kernel_is_a_hopper_kernel():
+    """K3 names the TPU kernel it replaces and is the forward's Q-major
+    walk on its wgmma + TMA helpers, with its own arguments; no wmma is
+    left in any source of the backward."""
+    src = (_build.CSRC / "flash_bwd.cu").read_text()
+    assert "_bwd_dq_kernel" in src.split("Replaces:")[1][:200]
+    assert '#include "flash_fwd_bound_sm90.cuh"' in src
+    assert "nvcuda" not in src and "wmma::" not in src and "<mma.h>" not in src
+    for needle in ("struct DqArgs", "qk_issue<D>(s_acc", "qk_issue<D>(dp_acc",
+                   "pv_issue<D>(dq", "tma_load_4d", "mbar_wait",
+                   "setmaxnreg", "extern \"C\" int cfa_flash_bwd_q("):
+        assert needle in src, needle
+    assert len(_build.SIGNATURES["cfa_flash_bwd_q"]) == 21
+
+
+def test_decode_walks_share_the_split_and_its_merge():
+    """K6 and K7 take their split of the context and the splits' merge
+    from the one body, and their wrappers the split size from the one
+    host rule; each entry point takes the call's scratch."""
+    body = (_build.CSRC / "decode_body.cuh").read_text()
+    for needle in ("split_keys(", "prepare_split(", "atomicAdd(a.tickets",
+                   "__ldcg(", "void finish(const Args& a, long long tile_id"):
+        assert needle in body, needle
+    for name in ("decode.cu", "paged.cu"):
+        src = (_build.CSRC / name).read_text()
+        assert '#include "decode_body.cuh"' in src
+        assert "split_keys(a, first, length, s, lo, hi" in src, name
+        assert "body.finish(a, " in src and "prepare_split(&a, B, " in src
+        assert "atomic" not in src, name
+    import inspect
+    from cuda_flashattention_torch.ops import decode, paged
+    for fn in (decode._decode_cuda, paged._paged_cuda):
+        assert "split_scratch(" in inspect.getsource(fn)
+    # part, tickets and the split size joined both C signatures
+    assert len(_build.SIGNATURES["cfa_decode"]) == 24
+    assert len(_build.SIGNATURES["cfa_paged_decode"]) == 26
 
 
 def test_device_ring_is_bound_with_its_signature():
