@@ -161,7 +161,14 @@ Phases, each of which raises on failure (so the script exits non-zero):
    the example's shape (L=1024, d=128) and at L=8192 (a 2 MiB shard), 20
    timed iterations each of the wrapper, the kernel alone (torch.profiler),
    the plain ring and one `torch.einsum` over the shards; the time per
-   hop; 50 repeats at n=8 must equal the first call bit for bit.
+   hop; which scope build ran (`.gpu` flags when every rank shares a card,
+   `.sys` across cards); the latency floor: the round trip of one hop
+   (kernel alone at L=64, one tile per rank: (n=8 − n=1) / 7) times
+   n − 1, beside each shape's bound; 50 repeats at n=8 must equal the
+   first call bit for bit. K9's bound prices, per card, the shards and W
+   read once, o written once and the ring's n x n tile products; the
+   pushes only where they cross to another card (over NVLink, 450 GB/s
+   each way), since between ranks of one card they stay in L2.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; a kernel's `launches` in the JSON line is its sum over
@@ -256,6 +263,8 @@ PROFILE_ATTEMPTS = 5
 # H100 SXM data sheet, dense, at a 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+# NVLink 4 (the same sheet): 900 GB/s per card, counting both directions
+NVLINK_BYTES_PER_S = 450e9
 
 
 def _run(cmd):
@@ -347,6 +356,7 @@ SP_T, SP_STEPS = 16384, 3
 PP_B, PP_T, PP_MICRO = 4, 2048, 4
 # K9: the example's shape and one whose shard is 2 MiB
 K9_RANKS, K9_SHAPES, K9_ITERS, K9_REPEATS = (1, 2, 4, 8), (1024, 8192), 20, 50
+K9_HOP_ROWS = 64  # one tile per rank: the ring's latency alone
 K9_GATE = 1e-2  # the example's gate, beside REL_GATE x max |ref|
 
 
@@ -830,12 +840,27 @@ def _phase_gpipe(ctx):
            f"pipeline_forward launched the forward {n_fwd} times")
 
 
-def _k9_bound(n, rows, d):
-    """K9's least time: every rank reads its shard, pushes n - 1 shards
-    and reads them back, reads W and writes o; n x n tile products."""
-    shard = rows * d * 2
-    nbytes = n * ((2 * n - 1) * shard + d * d * 2 + rows * d * 4)
-    return _bound(nbytes, n * n * 2.0 * rows * d * d)
+def _k9_bound(ring_devices, rows, d):
+    """K9's least time over the ring's cards, each at work at once: on a
+    card, its ranks' shards and W read once and their o written once
+    (fp32) over the memory rate, and their n x n tile products (every
+    rank multiplies every shard) over the bf16 rate; where a rank's right
+    neighbour is on another card, its n - 1 pushed shards over one
+    direction of NVLink. Pushes between ranks of one card need not reach
+    the memory (they stay in L2) and are not priced."""
+    n, shard = len(ring_devices), rows * d * 2
+    worst = dict(bound_ms=0.0, bound_by="bytes")
+    for card in dict.fromkeys(ring_devices):
+        mine = [i for i, c in enumerate(ring_devices) if c == card]
+        b = _bound(len(mine) * (shard + rows * d * 4) + d * d * 2,
+                   len(mine) * n * 2.0 * rows * d * d)
+        crossing = sum(ring_devices[(i + 1) % n] != card for i in mine)
+        t_link = crossing * (n - 1) * shard / NVLINK_BYTES_PER_S * 1e3
+        if t_link > b["bound_ms"]:
+            b = dict(bound_ms=t_link, bound_by="bytes")
+        if b["bound_ms"] > worst["bound_ms"]:
+            worst = b
+    return worst
 
 
 def _phase_device_ring(ctx, devices, where, record):
@@ -848,10 +873,25 @@ def _phase_device_ring(ctx, devices, where, record):
 
     d = 128
     kernel_ms = {}
+    for n in (1, K9_RANKS[-1]):
+        mesh = make_mesh((n,), ("sp",),
+                         [devices[i % len(devices)] for i in range(n)])
+        x, w = ctx.mk(n * K9_HOP_ROWS, d), ctx.mk(d, d)
+        kernel_ms[K9_HOP_ROWS, n] = _device_ms_by_kernel(
+            lambda: device_ring_matmul(x, w, mesh), ("K9",),
+            iters=K9_ITERS)["K9"]
+    hop = (kernel_ms[K9_HOP_ROWS, K9_RANKS[-1]]
+           - kernel_ms[K9_HOP_ROWS, 1]) / (K9_RANKS[-1] - 1)
+    scope = device_ring_matmul.last_scope
+    print(f"[K9] round trip of one hop ({where}, {scope} scope): "
+          f"{hop * 1e3:.2f} us (kernel alone at L={K9_HOP_ROWS}: n=1 "
+          f"{kernel_ms[K9_HOP_ROWS, 1]:.4f} ms, n={K9_RANKS[-1]} "
+          f"{kernel_ms[K9_HOP_ROWS, K9_RANKS[-1]]:.4f} ms) ({ctx.card})",
+          flush=True)
     for rows in K9_SHAPES:
         for n in K9_RANKS:
-            mesh = make_mesh((n,), ("sp",),
-                             [devices[i % len(devices)] for i in range(n)])
+            ring_devices = [devices[i % len(devices)] for i in range(n)]
+            mesh = make_mesh((n,), ("sp",), ring_devices)
             x, w = ctx.mk(n * rows, d), ctx.mk(d, d)
             o = device_ring_matmul(x, w, mesh)
             torch.cuda.synchronize()
@@ -871,16 +911,18 @@ def _phase_device_ring(ctx, devices, where, record):
                 lambda: device_ring_matmul(x, w, mesh), ("K9",),
                 iters=K9_ITERS)["K9"]
             kernel_ms[rows, n] = ms_k
-            bound = _k9_bound(n, rows, d)
-            print(f"[K9] n={n} ranks ({where}), L={rows} d={d}: grid "
+            bound = _k9_bound(ring_devices, rows, d)
+            print(f"[K9] n={n} ranks ({where}), L={rows} d={d}: "
+                  f"{device_ring_matmul.last_scope} scope, grid "
                   f"{grid[0]} CTAs x {grid[1]} ranks per launch; vs "
                   f"tile((sum x_i) @ W) in fp32 {e_ref:.3e} (max|ref| "
                   f"{top:.3e}), vs the plain ring {e_plain:.3e} (gates "
                   f"{K9_GATE} and {REL_GATE} x max|ref|); wrapper {ms:.4f} "
                   f"ms, kernel alone {ms_k:.4f} ms, plain ring {ms_p:.4f} "
                   f"ms, one einsum over the shards {ms_lib:.4f} ms, bound "
-                  f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}) "
-                  f"({ctx.card})", flush=True)
+                  f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
+                  f"latency floor {hop * (n - 1):.4f} ms ({ctx.card})",
+                  flush=True)
             gate = min(K9_GATE, REL_GATE * top)
             _check(top > 0 and e_ref <= gate and e_plain <= gate
                    and bool(torch.isfinite(o).all()),

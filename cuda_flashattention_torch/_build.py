@@ -84,11 +84,14 @@ SIGNATURES = {
     # strides[12], scale, causal, window, kv_offset, stream
     "cfa_flash_bwd_q": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _LP, _D, _I, _I, _I, _P],
-    # x[n], w[n], buf[n], flags[n], out[n] (per-rank device pointers),
-    # n_shards, local[n_local] (the ranks this launch runs), n_local, L, D,
-    # device, grid_out (CTAs per rank, or NULL), stream
-    "cfa_device_ring": [_PP, _PP, _PP, _PP, _PP, _I, _IP, _I, _I, _I, _I,
-                        _IP, _P],
+    # x, w, out (this launch's shards, W and o), buf[n], flags[n] (per-rank
+    # device pointers), n_shards, local[n_local] (the ranks this launch
+    # runs), n_local, L, D, grid (CTAs per rank, common to the ring), epoch,
+    # sys (flags at system scope), device, stream
+    "cfa_device_ring": [_P, _P, _P, _PP, _PP, _I, _IP, _I, _I, _I, _I,
+                        ctypes.c_ulonglong, _I, _I, _P],
+    # D, sys, device, out: CTAs of that build the card holds at once
+    "cfa_device_ring_resident": [_I, _I, _I, _IP],
     # device, peer: cudaDeviceEnablePeerAccess(peer) on `device`
     "cfa_enable_peer_access": [_I, _I],
 }

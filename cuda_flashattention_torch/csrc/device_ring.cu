@@ -1,331 +1,566 @@
 // Device-initiated ring for Hopper: every rank holds a shard x_i [L, D]
-// bf16 and W [D, D] bf16; the kernel itself pushes the shard it holds into
+// bf16 and W [D, D] bf16; the kernel itself moves the shard it holds into
 // its right neighbour's double buffer while it computes o += shard @ W
 // (fp32 accumulate). After n steps every rank holds (sum_i x_i) @ W in
 // o [L, D] fp32. No host copy, no collective library: the kernel's own
-// stores move the data and device-side flags order the steps.
+// bulk copies move the data and device-side flags order the steps.
 //
 // Replaces: examples/07_device_ring.py::_ring_kernel (the Pallas kernel
 // that starts a remote DMA into the neighbour's VMEM buffer, multiplies the
 // resident shard, and waits for the DMA).
 //
-// What bounds it on the H100: neither bytes nor operations. Per rank the
-// work is n·2·L·D² flops and about (2n − 1)·L·D·2 bytes (its shard read,
-// n − 1 shards pushed and read back, W, o written): microseconds of
-// either at the example's shape. What it waits for is n − 1 flag round
-// trips between CTAs (a store that must reach L2, or the peer card over
-// NVLink, then a polling load that must see it): the kernel is bound by
-// that latency, and the design keeps everything else off that path.
+// What bounds it on the H100: per rank the work is n·2·L·D² flops and,
+// to memory, its shard read once, W read and o written in fp32; the
+// n − 1 shards it pushes stay in L2 when the ring shares a card, and
+// cross NVLink only where a neighbour is on another card. At L = 8192,
+// n = 8 on one card that is 0.017 ms of products against 0.015 ms of
+// bytes. Below that, each of the n − 1 hops is a latency chain (the
+// pushes complete, a release, an acquire that sees it, the next loads
+// land), which sets the floor at small L.
 //
 // What this design does about it:
-//  * Addressing is a table of per-rank pointers passed by value (shard,
-//    W, double buffer, flag words, output). On one card the neighbours'
-//    buffers are other allocations of the same card and all ranks run in
-//    ONE launch (rank = local[blockIdx.y]); across cards they are
-//    peer-mapped allocations and each card launches its own ranks. The
-//    kernel, the flags and the pushes are the same code.
-//  * Rows of o depend only on the same rows of the shards, so CTA t of a
-//    rank owns a 64-row tile and talks only to CTA t of its neighbours:
-//    flags per (rank, tile), no grid-wide barrier. A CTA walks the tiles
-//    t, t + gridDim.x, ... so that the grid can be capped at what is
-//    resident at once; the launch is cooperative, which refuses a grid
-//    that is not (a spin-wait on a CTA that never starts would hang).
-//  * Protocol per tile, as the TPU kernel's: a barrier with both
-//    neighbours; then per step: read the resident tile (the rank's own x
-//    at step 0, else buf[step % 2]) into registers and shared memory;
-//    unless it is the last step, store it into the right neighbour's
-//    buf[(step + 1) % 2] (16-byte stores), fence at system scope, and
-//    after a block barrier one thread release-stores the step count into
-//    the neighbour's receive flag; multiply the tile from shared memory
-//    (wmma bf16, W resident in shared memory, o in registers until the
-//    end); then one thread spins on the own receive flag with an acquire
-//    load at system scope. Flags are monotonic counters, never reset.
-//  * A hazard the TPU kernel leaves open: at step s + 1 the left
-//    neighbour overwrites the slot this rank read at step s − 1, and
-//    "the data landed" does not say "the reader is done". TPU cores run
-//    in near lockstep; CTAs do not. So the reader publishes a second
-//    counter, "steps consumed", into its LEFT neighbour's credit word once
-//    the tile is in its shared memory, and a writer awaits that credit
-//    before it pushes into the slot.
-//  * Received data is read with ld.global.cg (L2 only): the same
-//    addresses were read two steps earlier, and an L1 line could be stale.
-//  * Every spin has a cycle cap that traps, so a protocol fault fails the
+//  * Scope is a build parameter (SYS). When every rank of the ring is on
+//    one card the flags are .gpu-scope release / acquire: the neighbours
+//    are other allocations of the same L2. Only a ring with a neighbour on
+//    another card builds .sys. No thread fences: one thread releases after
+//    the CTA's barrier and the completion of its bulk stores.
+//  * A step-outer walk over a span. CTA c of EVERY rank owns the same
+//    span of 64-row tiles (the partition is a function of L and the grid,
+//    and the host passes one grid to every launch of the ring), and talks
+//    only to CTA c of its two neighbours. A span is walked in rounds of G
+//    tiles whose o stays in registers (G = 2 at D = 128, 4 at D = 64); per
+//    round the CTA runs the whole n-step ring: per step it loads its G
+//    tiles, pushes them on and multiplies them, then signals ONE flag for
+//    the (rank, CTA, round, step). So the n − 1 hop latencies are paid
+//    once per round, not once per tile, and the two CTAs on an SM hide
+//    each other's hops under their products (registers are sized for two:
+//    with three, at 168 registers, they spill, and the kernel took 19%
+//    longer at L = 8192, n = 8 on an H100).
+//  * Copies by the bulk-copy engine, products by wgmma. The double buffers
+//    hold each tile's shared-memory image in the 128 B swizzle wgmma reads,
+//    so every step after the first brings a tile in with ONE 1-D bulk copy
+//    (cp.async.bulk, completing on an mbarrier) and pushes it on with one
+//    bulk store from shared memory (cp.async.bulk.global.shared::cta) into
+//    the neighbour's buffer: no tensor map, so nothing is encoded per call.
+//    Step 0's tile (the caller's x) and W, once per CTA, come in by 16-byte
+//    loads that the threads write in the swizzle. o += tile @ W is
+//    wgmma m64n64k16 (SS: the tile K-major, W MN-major), two n64 halves at
+//    D = 128, tile j's products in flight while tile j + 1 lands.
+//  * Flags are 64-bit epoch words, never zeroed after the workspace's
+//    first call: a value is (epoch << 32) | count, count = round·n + step,
+//    written by one writer with a release and read with an acquire, so a
+//    later epoch's values exceed every earlier target. Per (rank, CTA):
+//      RECV   the left neighbour's pushes for (round, step) are complete;
+//      CREDIT the right neighbour has taken what its slot held (a writer
+//             awaits it before overwriting a slot its reader may still be
+//             loading from: "the data landed" does not say "the reader is
+//             done", and CTAs do not run in lockstep);
+//      START  (SYS only) the right neighbour's kernel of this epoch has
+//             started, so its previous call, on another card and not
+//             ordered with ours, no longer reads its buffers.
+//    Every remote store is one its target waits for in the same epoch.
+//  * The proxies: a generic-proxy write to shared memory read by a bulk
+//    store or wgmma is followed by fence.proxy.async.shared::cta; a bulk
+//    load issued after an acquire of data another SM or card wrote is
+//    preceded by fence.proxy.async.global; a bulk store is waited for in
+//    full (cp.async.bulk.wait_group 0, not .read) before the release that
+//    publishes it.
+//  * The launch is cooperative (it refuses a grid that is not resident at
+//    once: a spin on a CTA that never starts would hang), and every spin
+//    and mbarrier wait traps after seconds, so a protocol fault fails the
 //    run instead of hanging the card.
+//
+// The designs that measured slower (o in fp32 in device memory, the push
+// as 16-byte stores, one tile per round, registers for three CTAs per SM)
+// are text patches of a copy of this source in utils/ring_variants.py.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
+#include "flash_fwd_bound_sm90.cuh"
 
 namespace {
 
+using cfa_bound::bf16;
+using cfa_bound::fence_proxy_async;
+using cfa_bound::fence_regs;
+using cfa_bound::make_desc;
+using cfa_bound::mbar_expect_tx;
+using cfa_bound::mbar_init;
+using cfa_bound::mbar_wait;
+using cfa_bound::smem_u32;
+using cfa_bound::swz;
+using cfa_bound::wgmma_commit;
+using cfa_bound::wgmma_fence;
+using cfa_bound::wgmma_wait_all;
+
+typedef unsigned long long u64;
+
 constexpr int MAX_RANKS = 32;
-constexpr int BM = 64;        // rows of o per CTA tile
-constexpr int NWARPS = 4;     // each warp owns BM / NWARPS = 16 rows
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int FLAG_WORDS = 4;  // per (rank, tile): barrier, recv, credit, -
-constexpr int F_BARRIER = 0;
-constexpr int F_RECV = 1;
-constexpr int F_CREDIT = 2;
+constexpr int BM = 64;          // rows of o per tile
+constexpr int NTHREADS = 128;   // one warpgroup
+constexpr int FLAG_WORDS = 4;   // per (rank, CTA): RECV, CREDIT, START, -
+constexpr int F_RECV = 0;
+constexpr int F_CREDIT = 1;
+constexpr int F_START = 2;
+constexpr int MIN_BLOCKS = 2;   // CTAs per SM the registers are sized for
 // a spin gives up (and traps) after this many clock cycles: seconds, where
 // a hop takes microseconds
 constexpr long long SPIN_CYCLES = 6000000000LL;
 
 struct RingTable {
-  const __nv_bfloat16* x[MAX_RANKS];    // the rank's shard [L, D]
-  const __nv_bfloat16* w[MAX_RANKS];    // W [D, D] on the rank's card
-  __nv_bfloat16* buf[MAX_RANKS];        // double buffer [2, L, D]
-  unsigned* flags[MAX_RANKS];           // [L / BM, FLAG_WORDS], zeroed
-  float* out[MAX_RANKS];                // o [L, D]
-  int local[MAX_RANKS];                 // blockIdx.y -> rank of this launch
+  const bf16* x;               // this launch's shards [n_local, L, D]
+  const bf16* w;               // W [D, D] on this launch's card
+  float* out;                  // o [n_local, L, D]
+  bf16* buf[MAX_RANKS];        // per rank: tile images [2, L / BM, BM·D]
+  u64* flags[MAX_RANKS];       // per rank: [grid, FLAG_WORDS]
+  int local[MAX_RANKS];        // blockIdx.y -> rank of this launch
 };
 
-__device__ __forceinline__ void st_release_sys(unsigned* p, unsigned v) {
-  asm volatile("st.release.sys.global.u32 [%0], %1;" ::"l"(p), "r"(v)
-               : "memory");
+template <int D>
+struct Geo {
+  static constexpr int G = D == 64 ? 4 : 2;  // tiles per round
+  static constexpr int TILE = BM * D * 2;   // bytes of a tile image
+  static constexpr int W_BYTES = D * D * 2;
+  static constexpr int st_off = W_BYTES;    // both multiples of 1024
+  static constexpr int bar_off = st_off + G * TILE;
+  static constexpr int bytes = bar_off + 8 * G + 1024;  // + alignment
+};
+
+// ---------------------------------------------------------------------------
+// Flags at the ring's scope
+// ---------------------------------------------------------------------------
+
+template <bool SYS>
+__device__ __forceinline__ void st_release(u64* p, u64 v) {
+  if (SYS) {
+    asm volatile("st.release.sys.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+                 : "memory");
+  } else {
+    asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+                 : "memory");
+  }
 }
 
-__device__ __forceinline__ unsigned ld_acquire_sys(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.sys.global.u32 %0, [%1];" : "=r"(v) : "l"(p)
-               : "memory");
+template <bool SYS>
+__device__ __forceinline__ u64 ld_acquire(const u64* p) {
+  u64 v;
+  if (SYS) {
+    asm volatile("ld.acquire.sys.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+                 : "memory");
+  } else {
+    asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+                 : "memory");
+  }
   return v;
 }
 
-__device__ __forceinline__ void signal_add_sys(unsigned* p) {
-  asm volatile("red.release.sys.global.add.u32 [%0], 1;" ::"l"(p)
-               : "memory");
-}
-
-// One thread waits until the counter at p has reached `target`.
-__device__ __forceinline__ void spin_until(const unsigned* p,
-                                           unsigned target) {
+// One thread waits until the word at p has reached `target`.
+template <bool SYS>
+__device__ __forceinline__ void spin_until(const u64* p, u64 target) {
   const long long t0 = clock64();
-  while (ld_acquire_sys(p) < target) {
+  while (ld_acquire<SYS>(p) < target) {
     if (clock64() - t0 > SPIN_CYCLES) __trap();
   }
 }
 
+// Global memory written through the generic proxy (the flags' acquire)
+// ordered against this thread's bulk copies, both ways.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Bulk copies of tile images
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               ::"l"(dst), "r"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Until this thread's bulk stores are complete (written, not only read).
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// The product
+// ---------------------------------------------------------------------------
+
+// D[64x64] (+)= A[64x16] · B[16x64], bf16 from shared memory, A K-major, B
+// MN-major (W [k][n], n contiguous, as TMA's 128 B swizzle lays out V).
+__device__ __forceinline__ void wgmma_ss_bf16_bmn(float (&d)[32], uint64_t da,
+                                                  uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " CFA_REGS32
+      ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : CFA_D32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// acc (+)= the tile at shared address `a` @ W at `wa`, issued and
+// committed, not waited for.
 template <int D>
-struct Smem {
-  static constexpr int LD = D + 8;  // padded rows, 32-byte aligned tiles
-  static constexpr size_t w_off = 0;
-  static constexpr size_t x_off = w_off + sizeof(__nv_bfloat16) * D * LD;
-  static constexpr size_t bytes = x_off + sizeof(__nv_bfloat16) * BM * LD;
-};
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-device_ring_kernel(const RingTable t, int n_shards, int L) {
-  using S = Smem<D>;
-  constexpr int VPR = D / 8;                    // 16-byte vectors per row
-  constexpr int VPT = BM * VPR / NTHREADS;      // vectors per thread
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem + S::w_off);
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + S::x_off);
-
-  const int rank = t.local[blockIdx.y];
-  const int right = (rank + 1) % n_shards;
-  const int left = (rank + n_shards - 1) % n_shards;
-  const int warp = threadIdx.x / 32;
-  const int n_tiles = L / BM;
-
-  // W stays in shared memory for the whole kernel
-  for (int i = threadIdx.x; i < D * VPR; i += NTHREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    *reinterpret_cast<uint4*>(ws + r * S::LD + c) =
-        *reinterpret_cast<const uint4*>(t.w[rank] + r * D + c);
+__device__ __forceinline__ void tile_product(float (&acc)[D / 64][32],
+                                             uint32_t a, uint32_t wa,
+                                             bool accumulate) {
+  wgmma_fence();
+#pragma unroll
+  for (int kt = 0; kt < D / 16; ++kt) {
+    const uint64_t da =
+        make_desc(a + (kt / 4) * BM * 128 + (kt % 4) * 32, 16, 1024, 1);
+#pragma unroll
+    for (int h = 0; h < D / 64; ++h) {
+      wgmma_ss_bf16_bmn(
+          acc[h], da, make_desc(wa + h * D * 128 + kt * 16 * 128, 1024, 1024,
+                                1),
+          accumulate || kt > 0);
+    }
   }
+  wgmma_commit();
+}
 
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    unsigned* mine = t.flags[rank] + tile * FLAG_WORDS;
-    unsigned* rflags = t.flags[right] + tile * FLAG_WORDS;
-    unsigned* lflags = t.flags[left] + tile * FLAG_WORDS;
-    const long long tile_off = static_cast<long long>(tile) * BM * D;
-    const long long slot_elems = static_cast<long long>(L) * D;
+// Byte offset of 16-byte chunk `ch` of row `row` in a tile image of
+// 64-column slabs of `rows` rows (the layout of TMA's 128 B swizzle).
+__device__ __forceinline__ uint32_t image_off(int row, int ch, int rows) {
+  return (uint32_t)((ch / 8) * rows * 128) + swz(row, ch % 8, 128);
+}
 
-    // Barrier with both neighbours: nobody pushes into a buffer whose
-    // owner has not started this tile.
-    if (threadIdx.x == 0) {
-      signal_add_sys(lflags + F_BARRIER);
-      signal_add_sys(rflags + F_BARRIER);
-      spin_until(mine + F_BARRIER, 2u);
-    }
-    __syncthreads();
+// This thread's element (i, i + 1) of accumulator half h: its row of the
+// 64-row tile and its column.
+__device__ __forceinline__ int acc_row(int i) {
+  return ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2) +
+         8 * ((i >> 1) & 1);
+}
+__device__ __forceinline__ int acc_col(int h, int i) {
+  return h * 64 + 8 * (i >> 2) + 2 * (threadIdx.x & 3);
+}
 
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[D / 16];
+template <int D>
+__device__ __forceinline__ void store_acc(float* o,
+                                          const float (&acc)[D / 64][32]) {
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-
-    for (int step = 0; step < n_shards; ++step) {
-      const bool push = step < n_shards - 1;
-      const __nv_bfloat16* src =
-          step == 0 ? t.x[rank] + tile_off
-                    : t.buf[rank] + (step & 1) * slot_elems + tile_off;
-      // the resident tile: to registers (L2 loads), then to shared memory
-      uint4 vals[VPT];
+  for (int h = 0; h < D / 64; ++h) {
 #pragma unroll
-      for (int i = 0; i < VPT; ++i) {
-        const int e = threadIdx.x + i * NTHREADS;
-        vals[i] = __ldcg(reinterpret_cast<const uint4*>(
-            src + (e / VPR) * D + (e % VPR) * 8));
-      }
-#pragma unroll
-      for (int i = 0; i < VPT; ++i) {
-        const int e = threadIdx.x + i * NTHREADS;
-        *reinterpret_cast<uint4*>(xs + (e / VPR) * S::LD + (e % VPR) * 8) =
-            vals[i];
-      }
-      if (push) {
-        if (step > 0) {
-          // the right neighbour must have consumed what this slot held
-          if (threadIdx.x == 0) spin_until(mine + F_CREDIT, step);
-          __syncthreads();
-        }
-        __nv_bfloat16* dst =
-            t.buf[right] + ((step + 1) & 1) * slot_elems + tile_off;
-#pragma unroll
-        for (int i = 0; i < VPT; ++i) {
-          const int e = threadIdx.x + i * NTHREADS;
-          __stcg(reinterpret_cast<uint4*>(dst + (e / VPR) * D +
-                                          (e % VPR) * 8),
-                 vals[i]);
-        }
-        __threadfence_system();
-      }
-      __syncthreads();  // the tile is in shared memory; the pushes fenced
-      if (threadIdx.x == 0) {
-        if (push) st_release_sys(rflags + F_RECV, step + 1);
-        // This rank's read of its slot is done: credit to the writer,
-        // which awaits credit >= s before its push of step s <= n - 2.
-        // Later credits would be awaited by nobody and could land after
-        // the neighbour's kernel (on another card) has ended, so none is
-        // sent: every remote store is one its target waits for.
-        if (step + 1 <= n_shards - 2) {
-          st_release_sys(lflags + F_CREDIT, step + 1);
-        }
-      }
-
-      // o += tile @ W while the push is in flight
-      const __nv_bfloat16* a_base = xs + warp * 16 * S::LD;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> a;
-        wmma::load_matrix_sync(a, a_base + kk * 16, S::LD);
-#pragma unroll
-        for (int j = 0; j < D / 16; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> b;
-          wmma::load_matrix_sync(b, ws + kk * 16 * S::LD + j * 16, S::LD);
-          wmma::mma_sync(acc[j], a, b, acc[j]);
-        }
-      }
-
-      // wait for the next shard to have landed in the other slot
-      if (push && threadIdx.x == 0) spin_until(mine + F_RECV, step + 1);
-      __syncthreads();
-    }
-
-    float* o = t.out[rank] + tile_off + warp * 16 * D;
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      wmma::store_matrix_sync(o + j * 16, acc[j], D, wmma::mem_row_major);
+    for (int i = 0; i < 32; i += 2) {
+      *reinterpret_cast<float2*>(o + acc_row(i) * D + acc_col(h, i)) =
+          make_float2(acc[h][i], acc[h][i + 1]);
     }
   }
 }
 
-template <int D>
-cudaError_t launch(const RingTable& table, int n_shards, int n_local, int L,
-                   int device, cudaStream_t stream, int* grid_out) {
-  using S = Smem<D>;
-  // CTAs of this kernel the card holds at once, found on the first launch
-  // on each card (with the shared-memory opt-in it needs there)
+// ---------------------------------------------------------------------------
+// The kernel
+// ---------------------------------------------------------------------------
+
+// grid (CTAs per rank, ranks of this launch); CTA c of every rank owns the
+// same span of tiles. epoch_hi = epoch << 32.
+template <int D, bool SYS>
+__global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
+device_ring_kernel(const RingTable t, int n, int L, u64 epoch_hi) {
+  using S = Geo<D>;
+  constexpr int G = S::G;
+  constexpr int CH = D / 8;                      // 16-byte chunks per row
+  constexpr int TILE_VECS = BM * CH / NTHREADS;  // per thread: 4 or 8
+  static_assert(TILE_VECS % 4 == 0, "tile loads in fours");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t wa = base;
+  const uint32_t stages = base + S::st_off;
+  const uint32_t full = base + S::bar_off;       // + 8 * stage
+  const int tid = threadIdx.x;
+
+  const int rank = t.local[blockIdx.y];
+  const int right = (rank + 1) % n;
+  const int left = (rank + n - 1) % n;
+  const int c = blockIdx.x;
+  // the span: tiles [start, start + cnt), the same on every rank
+  const int tiles = L / BM;
+  const int per = tiles / gridDim.x, extra = tiles % gridDim.x;
+  const int start = c * per + min(c, extra);
+  const int cnt = per + (c < extra ? 1 : 0);
+  const long long slot = (long long)tiles * BM * D;  // elements per slot
+
+  u64* mine = t.flags[rank] + c * FLAG_WORDS;
+  u64* rflags = t.flags[right] + c * FLAG_WORDS;
+  u64* lflags = t.flags[left] + c * FLAG_WORDS;
+  const bf16* x = t.x + (long long)blockIdx.y * L * D;
+  float* out = t.out + (long long)blockIdx.y * L * D;
+
+  if (tid == 0) {
+    for (int j = 0; j < G; ++j) mbar_init(full + 8 * j, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    // tell the left neighbour that this rank's call has started
+    if (SYS && n > 1) st_release<SYS>(lflags + F_START, epoch_hi);
+  }
+  // W, once: row k of W is row k of the MN-major B image
+  for (int e = tid; e < D * CH; e += NTHREADS) {
+    const int k = e / CH, ch = e % CH;
+    *reinterpret_cast<uint4*>(smem + image_off(k, ch, D)) =
+        __ldg(reinterpret_cast<const uint4*>(t.w + k * D + ch * 8));
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  uint32_t phase = 0;  // bit j: the parity of stage j's next wait
+  const int rounds = (cnt + G - 1) / G;
+  for (int r = 0; r < rounds; ++r) {
+    const int t0 = start + r * G;  // the round's first tile
+    const int m = min(G, cnt - r * G);
+    float acc[G][D / 64][32];
+    for (int s = 0; s < n; ++s) {
+      const bool push = s < n - 1;
+      const u64 ctr = epoch_hi | (u64)(r * n + s);
+      if (tid == 0 && s > 0) {
+        // the left neighbour's pushes of step s - 1 are complete
+        spin_until<SYS>(mine + F_RECV, ctr);
+        fence_proxy_async_global();
+      }
+      const bf16* src = s == 0 ? x : t.buf[rank] + (s & 1) * slot;
+      bf16* dst = t.buf[right] + ((s + 1) & 1) * slot;
+      if (s == 0) {
+        // the caller's rows, written in the swizzle by the threads, four
+        // 16-byte loads in flight per thread (the o of the round is live
+        // in registers beside them)
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          if (j >= m) break;
+          const bf16* rows = src + (long long)(t0 + j) * BM * D;
+#pragma unroll
+          for (int i0 = 0; i0 < TILE_VECS; i0 += 4) {
+            uint4 v[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int e = tid + (i0 + i) * NTHREADS;
+              v[i] = __ldg(reinterpret_cast<const uint4*>(
+                  rows + (e / CH) * D + (e % CH) * 8));
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int e = tid + (i0 + i) * NTHREADS;
+              *reinterpret_cast<uint4*>(smem + S::st_off + j * S::TILE +
+                                        image_off(e / CH, e % CH, BM)) = v[i];
+            }
+          }
+        }
+        fence_proxy_async();
+      } else if (tid == 0) {
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          if (j >= m) break;
+          mbar_expect_tx(full + 8 * j, S::TILE);
+          bulk_load(stages + j * S::TILE,
+                    src + (long long)(t0 + j) * BM * D, S::TILE,
+                    full + 8 * j);
+        }
+      }
+      if (tid == 0 && push && (s >= 2 || (SYS && r == 0 && s == 0))) {
+        // the right neighbour has taken its slot's previous tiles (and,
+        // across cards, has started this call)
+        spin_until<SYS>(mine + (s >= 2 ? F_CREDIT : F_START),
+                        s >= 2 ? ctr - 1 : epoch_hi);
+        fence_proxy_async_global();
+      }
+      __syncthreads();  // thread 0's waits are over; step 0's tiles in
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        if (j >= m) break;
+        if (s > 0) {
+          mbar_wait(full + 8 * j, (phase >> j) & 1);
+          phase ^= 1u << j;
+        }
+        const uint32_t st = stages + j * S::TILE;
+        if (push && tid == 0) {
+          bulk_store(dst + (long long)(t0 + j) * BM * D, st, S::TILE);
+          bulk_commit();
+        }
+        tile_product<D>(acc[j], st, wa, s > 0);
+      }
+      if (tid == 0) {
+        // The step's tiles are in (and its pushes issued) while its
+        // products run. This rank has taken its slot of step s: credit to
+        // the writer, which awaits it before its push of step s + 1
+        // (<= n - 2). Then publish the pushes once they are complete.
+        if (s >= 1 && s <= n - 3) st_release<SYS>(lflags + F_CREDIT, ctr);
+        if (push) {
+          bulk_wait_all();
+          fence_proxy_async_global();
+          st_release<SYS>(rflags + F_RECV, ctr + 1);
+        }
+      }
+      wgmma_wait_all();
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+#pragma unroll
+        for (int h = 0; h < D / 64; ++h) fence_regs(acc[j][h]);
+      }
+      if (s == n - 1) {
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          if (j >= m) break;
+          store_acc<D>(out + (long long)(t0 + j) * BM * D, acc[j]);
+        }
+      }
+      // the stages are free once every thread's products are done with
+      // them and thread 0's bulk stores have read them
+      if (tid == 0 && push) {
+        asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// CTAs of one build the card holds at once (with the shared-memory opt-in
+// it needs, set once per card on its first query).
+template <int D, bool SYS>
+cudaError_t resident(int device, int* out) {
   constexpr int MAX_CARDS = 64;
-  static int resident[MAX_CARDS] = {0};
+  static int cached[MAX_CARDS] = {0};
   if (device < 0 || device >= MAX_CARDS) return cudaErrorInvalidDevice;
-  cudaError_t err = cudaSuccess;
-  if (resident[device] == 0) {
-    err = cudaFuncSetAttribute(
-        device_ring_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(S::bytes));
+  if (cached[device] == 0) {
+    cudaError_t err = cudaFuncSetAttribute(
+        device_ring_kernel<D, SYS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, Geo<D>::bytes);
     if (err != cudaSuccess) return err;
     int per_sm = 0, sms = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, device_ring_kernel<D>, NTHREADS, S::bytes);
+        &per_sm, device_ring_kernel<D, SYS>, NTHREADS, Geo<D>::bytes);
     if (err != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                  device);
     if (err != cudaSuccess) return err;
-    resident[device] = per_sm * sms;
+    cached[device] = per_sm * sms;
   }
+  *out = cached[device];
+  return cudaSuccess;
+}
+
+template <int D, bool SYS>
+cudaError_t launch(const RingTable& table, int n, int n_local, int L,
+                   int grid, unsigned long long epoch, int device,
+                   cudaStream_t stream) {
+  int cap = 0;
+  cudaError_t err = resident<D, SYS>(device, &cap);
+  if (err != cudaSuccess) return err;
   // every CTA of every rank of this launch must be resident at once
-  int grid_x = resident[device] / n_local;
-  if (grid_x > L / BM) grid_x = L / BM;
-  if (grid_x < 1) return cudaErrorCooperativeLaunchTooLarge;
-  if (grid_out) *grid_out = grid_x;
+  if (grid * n_local > cap) return cudaErrorCooperativeLaunchTooLarge;
   RingTable t = table;
-  void* args[] = {&t, &n_shards, &L};
+  u64 epoch_hi = (u64)epoch << 32;
+  void* args[] = {&t, &n, &L, &epoch_hi};
   return cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(device_ring_kernel<D>), dim3(grid_x, n_local),
-      dim3(NTHREADS), args, S::bytes, stream);
+      reinterpret_cast<void*>(device_ring_kernel<D, SYS>),
+      dim3(grid, n_local), dim3(NTHREADS), args, Geo<D>::bytes, stream);
+}
+
+template <bool SYS>
+cudaError_t resident_for(int D, int device, int* out) {
+  return D == 64 ? resident<64, SYS>(device, out)
+                 : resident<128, SYS>(device, out);
+}
+
+// Runs f with `device` current, restoring the caller's card only where it
+// had to be changed.
+template <typename F>
+cudaError_t on_device(int device, F f) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return err;
+  if (prev == device) return f();
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  err = f();
+  cudaSetDevice(prev);
+  return err;
 }
 
 }  // namespace
 
-// x, w, buf, flags, out: n_shards device pointers each (per rank); local:
-// the n_local ranks this launch runs, all on card `device`; L rows per
-// shard (a multiple of 64), D in {64, 128}; grid_out (may be NULL)
-// receives the CTAs per rank. Launches on `stream` and does not
-// synchronise.
-extern "C" int cfa_device_ring(void* const* x, void* const* w,
+// CTAs of the (D, sys) build that card `device` holds at once. The ring's
+// common grid is the least, over its cards, of this over the card's ranks.
+extern "C" int cfa_device_ring_resident(int D, int sys, int device,
+                                        int* out) {
+  if (D != 64 && D != 128) return cudaErrorInvalidValue;
+  return on_device(device, [&]() {
+    return sys ? resident_for<true>(D, device, out)
+               : resident_for<false>(D, device, out);
+  });
+}
+
+// x, w, out: this launch's shards [n_local, L, D] bf16, W [D, D] bf16 and
+// o [n_local, L, D] fp32, all on card `device`; buf, flags: n_shards device
+// pointers each (per rank: its tile images [2, L, D] bf16, its 64-bit flag
+// words [grid, 4], zeroed once when allocated); local: the n_local ranks
+// this launch runs; L rows per shard (a multiple of 64), D in {64, 128};
+// grid: CTAs per rank, the same for every launch of the ring; epoch: this
+// call's number on these flags, from 1, increasing by one per call and
+// below 2^32; sys: 1 where a neighbour is on another card. Launches on
+// `stream` and does not synchronise.
+extern "C" int cfa_device_ring(const void* x, const void* w, void* out,
                                void* const* buf, void* const* flags,
-                               void* const* out, int n_shards,
-                               const int* local, int n_local, int L, int D,
-                               int device, int* grid_out, void* stream) {
+                               int n_shards, const int* local, int n_local,
+                               int L, int D, int grid,
+                               unsigned long long epoch, int sys, int device,
+                               void* stream) {
   if (n_shards < 1 || n_shards > MAX_RANKS || n_local < 1 ||
-      n_local > n_shards || L < BM || L % BM != 0 || (D != 64 && D != 128)) {
+      n_local > n_shards || L < BM || L % BM != 0 || (D != 64 && D != 128) ||
+      grid < 1 || grid > L / BM || epoch < 1 || epoch >= (1ull << 32)) {
+    return cudaErrorInvalidValue;
+  }
+  // the count round·n + step stays below 2^32
+  if ((unsigned long long)(L / BM) * n_shards >= (1ull << 31)) {
     return cudaErrorInvalidValue;
   }
   RingTable table;
+  table.x = static_cast<const bf16*>(x);
+  table.w = static_cast<const bf16*>(w);
+  table.out = static_cast<float*>(out);
   for (int r = 0; r < n_shards; ++r) {
-    table.x[r] = static_cast<const __nv_bfloat16*>(x[r]);
-    table.w[r] = static_cast<const __nv_bfloat16*>(w[r]);
-    table.buf[r] = static_cast<__nv_bfloat16*>(buf[r]);
-    table.flags[r] = static_cast<unsigned*>(flags[r]);
-    table.out[r] = static_cast<float*>(out[r]);
+    table.buf[r] = static_cast<bf16*>(buf[r]);
+    table.flags[r] = static_cast<u64*>(flags[r]);
   }
   for (int i = 0; i < n_local; ++i) table.local[i] = local[i];
-  int prev = 0;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err != cudaSuccess) return err;
-  err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) {
-    err = launch<64>(table, n_shards, n_local, L, device, s, grid_out);
-  } else {
-    err = launch<128>(table, n_shards, n_local, L, device, s, grid_out);
-  }
+  cudaError_t err = on_device(device, [&]() {
+    if (D == 64) {
+      return sys ? launch<64, true>(table, n_shards, n_local, L, grid, epoch,
+                                    device, s)
+                 : launch<64, false>(table, n_shards, n_local, L, grid,
+                                     epoch, device, s);
+    }
+    return sys ? launch<128, true>(table, n_shards, n_local, L, grid, epoch,
+                                   device, s)
+               : launch<128, false>(table, n_shards, n_local, L, grid, epoch,
+                                    device, s);
+  });
   if (err == cudaSuccess) err = cudaGetLastError();
-  cudaSetDevice(prev);
   return err;
 }
 
 // Let kernels on card `device` store into allocations of card `peer`.
 extern "C" int cfa_enable_peer_access(int device, int peer) {
-  int prev = 0;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err != cudaSuccess) return err;
-  err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceEnablePeerAccess(peer, 0);
-  if (err == cudaErrorPeerAccessAlreadyEnabled) {
-    cudaGetLastError();  // clear the sticky code: it is not a failure
-    err = cudaSuccess;
-  }
-  cudaSetDevice(prev);
-  return err;
+  return on_device(device, [&]() {
+    cudaError_t err = cudaDeviceEnablePeerAccess(peer, 0);
+    if (err == cudaErrorPeerAccessAlreadyEnabled) {
+      cudaGetLastError();  // clear the sticky code: it is not a failure
+      err = cudaSuccess;
+    }
+    return err;
+  });
 }

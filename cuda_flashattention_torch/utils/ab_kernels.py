@@ -2,9 +2,11 @@
 commits on one card within one call.
 
     python3 cuda_flashattention_torch/utils/ab_kernels.py <checkout root>
+                                                          [K9]
 
 imports `cuda_flashattention_torch` from <checkout root> (building its
-kernels there), and prints, on bf16 inputs with d=128:
+kernels there), and prints, on bf16 inputs with d=128 (with `K9`, only the
+last item):
   - the online forward (K1) and the fused backward (K4), both causal, at
     the serving prefill shape (B=8, H=16, Hkv=4, N=512, fp32 out) and the
     training shape (B=1, H=16, N=4096, bf16 out); K1 there also under
@@ -27,7 +29,10 @@ kernels there), and prints, on bf16 inputs with d=128:
     128-token pages, each on a cold L2 (a 256 MiB write before every
     call, as a server's decode step finds the cache); where the checkout
     splits the context (`ops.decode.SPLIT_KEYS`), the same three rows
-    under split sizes of 64, 128, 256 and 512 keys and unsplit.
+    under split sizes of 64, 128, 256 and 512 keys and unsplit;
+  - the device ring (K9, `device_ring_matmul`) with its ranks sharing the
+    card: L=1024 at n=1, 4 (the example stage) and 8, L=8192 at n=1, 4
+    and 8 (kernel alone per launch: its time per hop is (n8 − n1) / 7).
 For each: the wrapper's median ms (CUDA events) and the device ms per
 call of its kernels (torch.profiler), with each kernel's ms per launch.
 The K4 rows run first, so that both checkouts reach them after the same
@@ -40,7 +45,7 @@ calls, differ by more than two commits do. Needs a CUDA device.
 import sys
 
 
-def main(root: str) -> None:
+def main(root: str, only: str = "") -> None:
     sys.path.insert(0, root)
     import torch
 
@@ -87,9 +92,24 @@ def main(root: str) -> None:
         each = ", ".join(f"{short(n)} "
                          f"{prof.ms[n] / prof.count[n]:.4f}" for n in prof.ms
                          if any(w in n for w in ("flash_", "fa1", "decode_k",
-                                                 "paged_k")))
+                                                 "paged_k", "device_ring")))
         print(f"{root} {label}: wrapper {wrapper:.4f} ms, kernels "
               f"{per_call:.4f} ms per call [{each}] ({card})", flush=True)
+
+    def device_ring_rows():
+        from cuda_flashattention_torch.parallel.device_ring import (
+            device_ring_matmul)
+        from cuda_flashattention_torch.parallel.mesh import make_mesh
+        for rows, n in ((1024, 1), (1024, 4), (1024, 8), (8192, 1),
+                        (8192, 4), (8192, 8)):
+            mesh = make_mesh((n,), ("sp",), [dev] * n)
+            x, w = mk(n * rows, 128), mk(128, 128)
+            report(f"K9 device ring n={n} L={rows}",
+                   lambda: device_ring_matmul(x, w, mesh), "device_ring", 40)
+
+    if only == "K9":
+        device_ring_rows()
+        return
 
     cases = []
     for name, (b, h, hkv, n), out_dtype in (
@@ -201,7 +221,8 @@ def main(root: str) -> None:
                     report(f"{label}, {name}", fn, word, 40, cold=True)
         finally:
             dec.SPLIT_KEYS = keys
+    device_ring_rows()
 
 
 if __name__ == "__main__":
-    main(sys.argv[1] if len(sys.argv) > 1 else ".")
+    main(*(sys.argv[1:3] or ["."]))

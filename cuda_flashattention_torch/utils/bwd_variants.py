@@ -125,11 +125,12 @@ DEFAULT = ["as_is", "red_v4", "no_reduce", "no_dq_add", "late_wait",
            "ascending", "red_v4+stages3"]
 
 
-def variant_source(src: str, name: str) -> str:
-    """The kernel's source with the substitutions of each part of `name`;
-    raises if the source no longer holds a text a substitution needs."""
+def variant_source(src: str, name: str, variants=None) -> str:
+    """The kernel's source with the substitutions of each part of `name`
+    in `variants` (this module's by default); raises if the source no
+    longer holds a text a substitution needs."""
     for part in name.split("+"):
-        for old, new in VARIANTS[part]:
+        for old, new in (variants or VARIANTS)[part]:
             if src.count(old) != 1:
                 raise ValueError(f"{part}: the source holds {old[:40]!r} "
                                  f"{src.count(old)} times, not once")

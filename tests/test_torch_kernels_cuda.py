@@ -970,6 +970,193 @@ def test_device_ring_repeats_bit_for_bit(dev):
         assert torch.equal(device_ring_matmul(x, w, mesh), first)
 
 
+def _ring_ref(x, w, n):
+    rows, d = x.shape[0] // n, x.shape[1]
+    return (x.float().view(n, rows, d).sum(0) @ w.float()).repeat(n, 1)
+
+
+def test_device_ring_epochs_bit_for_bit(dev):
+    """1000 back-to-back calls at 8 ranks on one workspace, whose flag
+    words are never zeroed again (epochs 2 to 1001), return the first
+    call's bits."""
+    from cuda_flashattention_torch.parallel import device_ring
+    from cuda_flashattention_torch.parallel.device_ring import (
+        device_ring_matmul)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x, w = _rand(gen, dev, 8 * 1024, 128), _rand(gen, dev, 128, 128)
+    mesh = _ring_mesh(dev, 8)
+    first = device_ring_matmul(x, w, mesh)
+    (ws,) = [v for k, v in device_ring._workspaces.items()
+             if k[:3] == ((dev,) * 8, 1024, 128)
+             and k[3] == (torch.cuda.current_stream(dev).cuda_stream,)]
+    epoch = ws.epoch
+    same = sum(torch.equal(device_ring_matmul(x, w, mesh), first)
+               for _ in range(1000))
+    assert same == 1000 and ws.epoch == epoch + 1000
+    assert _err(first, _ring_ref(x, w, 8)) <= 1e-2
+
+
+def test_device_ring_alternating_shapes_and_streams(dev):
+    """Calls that alternate shapes each keep their own workspace; calls
+    that alternate two streams each keep theirs; every call returns its
+    shape's first bits."""
+    from cuda_flashattention_torch.parallel.device_ring import (
+        device_ring_matmul)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cases = []
+    for n, rows, d in ((4, 1024, 128), (8, 192, 128), (2, 8192, 64),
+                       (3, 640, 128)):
+        x, w = _rand(gen, dev, n * rows, d), _rand(gen, dev, d, d)
+        mesh = _ring_mesh(dev, n)
+        first = device_ring_matmul(x, w, mesh)
+        torch.cuda.synchronize()
+        top = _ring_ref(x, w, n).abs().max().item()
+        assert _err(first, _ring_ref(x, w, n)) <= min(1e-2, 2e-2 * top)
+        cases.append((x, w, mesh, first))
+    side = torch.cuda.Stream(device=dev)
+    main = torch.cuda.current_stream(dev)
+    outs = []
+    for i in range(40):
+        x, w, mesh, first = cases[i % len(cases)]
+        stream = side if (i // len(cases)) % 2 else main
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream):
+            outs.append((device_ring_matmul(x, w, mesh), first))
+        main.wait_stream(stream)
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, first) for o, first in outs)
+
+
+def test_device_ring_two_streams_in_flight(dev):
+    """Calls enqueued on two streams with no wait between them, so that
+    kernels of both are in flight at once, each on its stream's
+    workspace: every call returns its shape's first bits."""
+    from cuda_flashattention_torch.parallel.device_ring import (
+        device_ring_matmul)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = []
+    for n, rows in ((4, 1024), (8, 192)):
+        x, w = _rand(gen, dev, n * rows, 128), _rand(gen, dev, 128, 128)
+        mesh = _ring_mesh(dev, n)
+        first = device_ring_matmul(x, w, mesh)
+        cases.append((x, w, mesh, first))
+    main = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(main)  # the inputs and first calls, once
+    outs = []
+    for i in range(80):
+        x, w, mesh, first = cases[(i // 2) % len(cases)]
+        with torch.cuda.stream(side if i % 2 else main):
+            outs.append((device_ring_matmul(x, w, mesh), first))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, first) for o, first in outs)
+    for (x, w, _, first), n in zip(cases, (4, 8)):
+        ref = _ring_ref(x, w, n)
+        assert _err(first, ref) <= min(1e-2, 2e-2 * ref.abs().max().item())
+
+
+def test_device_ring_two_threads_share_a_stream(dev):
+    """Two host threads call the ring on one stream at once: each call
+    draws its epoch and launches under its workspace's lock, so the
+    kernels run in the order of their epochs and every call returns the
+    first call's bits."""
+    import threading
+    from cuda_flashattention_torch.parallel.device_ring import (
+        device_ring_matmul)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x, w = _rand(gen, dev, 8 * 1024, 128), _rand(gen, dev, 128, 128)
+    mesh = _ring_mesh(dev, 8)
+    stream = torch.cuda.Stream(device=dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        first = device_ring_matmul(x, w, mesh)
+    start = threading.Barrier(2)
+    outs, errors = [[], []], []
+
+    def calls(k):
+        try:
+            with torch.cuda.stream(stream):
+                start.wait()
+                for _ in range(300):
+                    outs[k].append(device_ring_matmul(x, w, mesh))
+        except Exception as e:  # reported by the main thread below
+            errors.append(e)
+
+    threads = [threading.Thread(target=calls, args=(k,)) for k in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    torch.cuda.synchronize()
+    assert len(outs[0]) == len(outs[1]) == 300
+    assert all(torch.equal(o, first) for o in outs[0] + outs[1])
+    ref = _ring_ref(x, w, 8)
+    assert _err(first, ref) <= min(1e-2, 2e-2 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("n,rows", [(8, 6400), (4, 8320), (3, 64 * 301)])
+def test_device_ring_spans_that_do_not_divide_the_grid(dev, n, rows):
+    """More tiles than CTAs per rank, not a multiple of them: the first
+    spans are one tile longer, and some take two rounds."""
+    from cuda_flashattention_torch.parallel.device_ring import (
+        device_ring_matmul)
+    gen = torch.Generator(device=dev).manual_seed(n + rows)
+    x, w = _rand(gen, dev, n * rows, 128), _rand(gen, dev, 128, 128)
+    o = device_ring_matmul(x, w, _ring_mesh(dev, n))
+    torch.cuda.synchronize()
+    grid, ranks = device_ring_matmul.last_grid
+    assert ranks == n and (rows // 64) % grid != 0 and grid < rows // 64
+    ref = _ring_ref(x, w, n)
+    assert _err(o, ref) <= min(1e-2, 2e-2 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("n,rows,d", [(1, 8192, 64), (1, 64, 128),
+                                      (8, 8192, 64), (1, 8192, 128)])
+def test_device_ring_one_rank_and_narrow_width(dev, n, rows, d):
+    """n = 1 (no hop, no flag) and d = 64 (one 64-column slab, four tiles
+    per round) at the long shard."""
+    from cuda_flashattention_torch.parallel.device_ring import (
+        device_ring_matmul, ring_matmul_plain)
+    gen = torch.Generator(device=dev).manual_seed(n * d + rows)
+    x, w = _rand(gen, dev, n * rows, d), _rand(gen, dev, d, d)
+    mesh = _ring_mesh(dev, n)
+    o = device_ring_matmul(x, w, mesh)
+    torch.cuda.synchronize()
+    assert device_ring_matmul.last_scope == "gpu"
+    ref = _ring_ref(x, w, n)
+    gate = min(1e-2, 2e-2 * ref.abs().max().item())
+    assert _err(o, ref) <= gate
+    assert _err(o, ring_matmul_plain(x, w, mesh)) <= gate
+
+
+@pytest.mark.parametrize("n", [4, 8])
+def test_device_ring_across_cards(dev, n):
+    """With two or more cards visible: the ring over distinct cards (rank
+    i on card i % cards, so n = 8 puts several ranks on a card), the .sys
+    build, against the reference and the plain ring; 50 calls return the
+    first call's bits."""
+    from cuda_flashattention_torch.parallel.device_ring import (
+        device_ring_matmul, ring_matmul_plain)
+    from cuda_flashattention_torch.parallel.mesh import make_mesh
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more cards")
+    gen = torch.Generator(device=dev).manual_seed(n)
+    x, w = _rand(gen, dev, n * 1024, 128), _rand(gen, dev, 128, 128)
+    mesh = make_mesh((n,), ("sp",),
+                     [torch.device("cuda", i % cards) for i in range(n)])
+    first = device_ring_matmul(x, w, mesh)
+    torch.cuda.synchronize()
+    assert device_ring_matmul.last_scope == "sys"
+    ref = _ring_ref(x, w, n)
+    gate = min(1e-2, 2e-2 * ref.abs().max().item())
+    assert _err(first, ref) <= gate
+    assert _err(first, ring_matmul_plain(x, w, mesh)) <= gate
+    for _ in range(50):
+        assert torch.equal(device_ring_matmul(x, w, mesh), first)
+
+
 def test_device_ring_refuses_what_it_does_not_take(dev):
     from cuda_flashattention_torch.parallel.device_ring import (
         device_ring_matmul)

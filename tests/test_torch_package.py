@@ -244,15 +244,41 @@ def test_decode_walks_share_the_split_and_its_merge():
 
 def test_device_ring_is_bound_with_its_signature():
     """K9's C entry points are declared for ctypes (a pointer passed
-    without argtypes would be cut to 32 bits), and its source holds the
-    kernel's own stores and system-scope flags."""
-    assert len(_build.SIGNATURES["cfa_device_ring"]) == 13
+    without argtypes would be cut to 32 bits: the epoch, the scope and the
+    common grid joined the launch's arguments), and its source holds the
+    kernel's own bulk copies, wgmma products, and flags at both scopes;
+    it uses no wmma and no thread fence on every thread."""
+    assert len(_build.SIGNATURES["cfa_device_ring"]) == 15
+    assert len(_build.SIGNATURES["cfa_device_ring_resident"]) == 4
     assert len(_build.SIGNATURES["cfa_enable_peer_access"]) == 2
     src = (_build.CSRC / "device_ring.cu").read_text()
-    for needle in ("st.release.sys", "ld.acquire.sys",
-                   "__threadfence_system", "cudaLaunchCooperativeKernel",
-                   "__trap()", "wmma::mma_sync"):
+    assert "nvcuda" not in src and "wmma::" not in src and "<mma.h>" not in src
+    assert "__threadfence_system" not in src
+    assert '#include "flash_fwd_bound_sm90.cuh"' in src
+    for needle in ("st.release.sys", "ld.acquire.sys", "st.release.gpu",
+                   "ld.acquire.gpu", "template <int D, bool SYS>",
+                   "cp.async.bulk.shared::cluster.global.mbarrier",
+                   "cp.async.bulk.global.shared::cta.bulk_group",
+                   "cp.async.bulk.wait_group 0", "fence.proxy.async.global",
+                   "wgmma.mma_async", "mbar_wait",
+                   "cudaLaunchCooperativeKernel", "__trap()"):
         assert needle in src, needle
+
+
+@pytest.mark.parametrize("name", ["as_is", "group1", "o_l2", "push_stores",
+                                  "three_per_sm"])
+def test_ring_variants_patch_the_kept_source(name):
+    """K9's source ships one design, with no build switches; each variant
+    that `utils/ring_variants.py` times is a text patch of a copy of it,
+    and every text a patch needs is found exactly once."""
+    from cuda_flashattention_torch.utils.bwd_variants import variant_source
+    from cuda_flashattention_torch.utils.ring_variants import VARIANTS
+    src = (_build.CSRC / "device_ring.cu").read_text()
+    assert "#if" not in src and "CFA_RING" not in src
+    assert sorted(VARIANTS) == sorted(
+        ["as_is", "group1", "o_l2", "push_stores", "three_per_sm"])
+    out = variant_source(src, name, VARIANTS)
+    assert (out == src) == (name == "as_is")
 
 
 def test_build_dir_is_git_ignored():
