@@ -114,14 +114,17 @@ Phases, each of which raises on failure (so the script exits non-zero):
    Ten Adam(1e-3) steps on a fresh model must lower the loss.
 9. The distributed layer. The ranks of every mesh share card 0 (a mesh's
    entries may repeat), each rank with its own compute and copy stream;
-   with two or more cards visible, phases 9 and 14 run once more over
+   with two or more cards visible, phases 9, 12 and 14 run once more over
    distinct cards, and the output says which. First the kernels of one
    ring step against their plain versions at the step's own shapes (one
    [1, 16, L, 128] query shard over one K/V block, fp32 O, `softmax=
    "auto"`; K4 against the LSE of a two-block context): a full block with
    Hkv = 16 and 4, the block one hop behind under window 4096 (causal,
    kv_offset 4096), and the padded last block of the ragged case under
-   its segment ids. Then ring attention alone, 4 ranks, B=1, H=16, d=128,
+   its segment ids; and the steps of phase 12's rings: the diagonal
+   (causal) block of the sp4 model ([1, 16, 4096, 128]: K1), and the
+   diagonal and full blocks of the tp2 x sp2 model ([1, 8, 8192, 128]: K5
+   and K1b). Then ring attention alone, 4 ranks, B=1, H=16, d=128,
    bf16, so that every ring step is K1's and K4's 4096 x 4096 shape:
    causal at N=16384, non-causal at N=15998 (ragged: padded to shards of
    4000, the tail under segment ids), GQA (Hkv=4), and causal with window
@@ -144,13 +147,23 @@ Phases, each of which raises on failure (so the script exits non-zero):
    rank's 4096-token shard, under the live lengths and windows the ring
    derives for it, against `decode_attention_plain`; K6 launches 4 per
    call; both timed on a cold L2.
-12. Main path of the distributed layer: the 271M training config takes
-   `make_train_step(model, SGD(1e-4), mesh=<4 ranks>, seq_axis="sp")`
-   steps on one seeded batch of B=1 x T=16384: 3 timed steps (ms,
-   tokens/s, peak memory) must launch the forward and K4 4 layers x 10
-   times per step and K2, K3 never; one step's loss and every gradient
-   against the same model without a mesh at T=16384 (2e-2, 5e-2 relative
-   L2).
+12. Main path of the distributed layer: the 271M training config, placed
+   once on a mesh (`shard_model`), takes `make_train_step(placed,
+   SGD(1e-4))` steps on one seeded batch of B=1 x T=16384, every layer on
+   the ranks: over 4 sequence ranks (`seq_axis="sp"`), then over 2 tensor
+   x 2 sequence ranks (`head_axis="tp"`: 16 heads cut 8 + 8, d_ff 5632
+   cut 2816 + 2816). 3 timed steps each (ms, tokens/s, peak memory per
+   card) must launch the forward and K4 4 layers x tp x sp(sp+1)/2 times
+   per step (40 and 24) and K2, K3 never, and call the collectives as the
+   layers need them: per layer and step 4 all-gathers and 4
+   reduce-scatters over the tensor axis, and no gradient all-reduce: the
+   ranks on one card share one copy of each leaf, into which autograd
+   sums their gradients (over distinct cards, one per step for sp4); a
+   torch.profiler breakdown of one step by kernel group; one step's loss
+   and every gradient against the same weights without a mesh at
+   T=16384 (2e-2, 5e-2 relative L2). With two or more cards visible the
+   sp4 step runs again with its ranks over distinct cards (cards[i % n]),
+   else the output says it was skipped.
 13. GPipe: `pipeline_forward` of the same config at B=4 x T=2048, 2 stages
    x 2 layers, 4 microbatches: logits against `forward` (0.125).
 14. K9, the device-initiated ring. Its path is the example stage
@@ -175,7 +188,8 @@ read just after; a kernel's `launches` in the JSON line is its sum over
 those runs (the three `generate()` runs, the four chunked-serving runs,
 the paged lifecycle, the two FA1 calls, the timed training steps of both
 models, the split-backward step, the ring-attention cases, Ulysses, the
-ring-decode calls, the sequence-parallel train steps, the pipelined
+ring-decode calls, the sequence- and tensor-parallel train steps, the
+pipelined
 forward, the device-ring stage). Launches made to compare a kernel with
 its plain version or to time it are not in it, nor are K1's guarded
 fallback launches behind a checked bound call, which exit at once.
@@ -352,6 +366,8 @@ RING_RAGGED_N = 15998
 DECODE_B, DECODE_LEN_LO = 8, 12000
 # sequence-parallel training: the training config over a 16384-token batch
 SP_T, SP_STEPS = 16384, 3
+# the same with tensor parallelism: 16 heads cut 8 + 8, d_ff 2816 + 2816
+TP_SP, TP_SP_AXES = (2, 2), ("tp", "sp")
 # GPipe: 2 stages x 2 layers, 4 microbatches
 PP_B, PP_T, PP_MICRO = 4, 2048, 4
 # K9: the example's shape and one whose shard is 2 MiB
@@ -385,8 +401,11 @@ def _grads_close(ctx, grads, grads_ref, what):
 
 
 def _shared_card_mesh(ctx, n, axis="sp"):
+    """A mesh whose ranks all share card 0: `n` ranks over `axis`, or an
+    (n1, n2, ...) shape over a tuple of axes."""
     from cuda_flashattention_torch.parallel.mesh import make_mesh
-    return make_mesh((n,), (axis,), [ctx.dev] * n)
+    shape, axes = (n, axis) if isinstance(n, tuple) else ((n,), (axis,))
+    return make_mesh(shape, axes, [ctx.dev] * math.prod(shape))
 
 
 def _phase_ring_steps(ctx, n_ranks):
@@ -395,7 +414,11 @@ def _phase_ring_steps(ctx, n_ranks):
     K/V block, fp32 O, `softmax="auto"`; the backward against the LSE of a
     context of two blocks, as a ring step gets the global LSE. The phases
     after this one hold the ring against `flash_attention`, which is these
-    same kernels on the whole sequence."""
+    same kernels on the whole sequence. The steps of the model's rings are
+    here too: the diagonal (causal) and full blocks of the sp4 model
+    (H=16, L=4096: K1 and K1b) and of the tp2·sp2 model (H=8, L=8192: K5
+    and K1b), whose phases compare with the model without a mesh, which
+    runs the same kernels."""
     torch = ctx.torch
     from cuda_flashattention_torch.ops.flash_bwd import (
         flash_attention_backward, flash_attention_backward_plain)
@@ -417,27 +440,38 @@ def _phase_ring_steps(ctx, n_ranks):
             ids[:, -pad:] = value
         return ids
 
-    # (name, L, Hkv, the step's mask options, (q ids, k ids) of the step
-    # and of the two-block context)
+    tp, sp = TP_SP
+    tp_heads, tp_len = TRAIN_KW["n_heads"] // tp, SP_T // sp
+    # (name, H, L, Hkv, the step's mask options, (q ids, k ids) of the
+    # step and of the two-block context)
     cases = [
-        ("full block", full, RING_H, dict(causal=False), None),
-        ("full block, GQA", full, 4, dict(causal=False), None),
-        (f"block one hop behind, window {RING_WINDOW}", full, RING_H,
-         dict(causal=True, window=RING_WINDOW, kv_offset=full), None),
-        (f"last block with {tail} pad keys, segment ids", ragged, RING_H,
-         dict(causal=False), (0, tail)),
-        (f"last block and {tail} pad queries, segment ids", ragged, RING_H,
-         dict(causal=False), (tail, tail)),
+        ("full block", RING_H, full, RING_H, dict(causal=False), None),
+        ("full block, GQA", RING_H, full, 4, dict(causal=False), None),
+        (f"block one hop behind, window {RING_WINDOW}", RING_H, full,
+         RING_H, dict(causal=True, window=RING_WINDOW, kv_offset=full),
+         None),
+        (f"last block with {tail} pad keys, segment ids", RING_H, ragged,
+         RING_H, dict(causal=False), (0, tail)),
+        (f"last block and {tail} pad queries, segment ids", RING_H, ragged,
+         RING_H, dict(causal=False), (tail, tail)),
+        ("sp4 model, diagonal block", TRAIN_KW["n_heads"], SP_T // n_ranks,
+         TRAIN_KW["n_kv_heads"], dict(causal=True), None),
+        ("tp2·sp2 model, diagonal block", tp_heads, tp_len,
+         TRAIN_KW["n_kv_heads"] // tp, dict(causal=True), None),
+        ("tp2·sp2 model, full block", tp_heads, tp_len,
+         TRAIN_KW["n_kv_heads"] // tp, dict(causal=False), None),
     ]
-    for name, length, hkv, opts, pads in cases:
-        q, do = (ctx.mk(1, RING_H, length, 128) for _ in range(2))
-        # a context of two blocks. Causal: the block behind the queries
-        # and their own, and the step attends the one behind; else the
-        # step's block is the second, which ends in the pad
+    for name, h, length, hkv, opts, pads in cases:
+        q, do = (ctx.mk(1, h, length, 128) for _ in range(2))
+        # a context of two blocks, the queries' own the second. A causal
+        # step attends the block kv_offset behind the queries' (its own at
+        # 0); else the step's block is the second, which ends in the pad
         k2, v2 = (ctx.mk(1, hkv, 2 * length, 128) for _ in range(2))
-        lo = 0 if opts["causal"] else length
+        lo = length - opts.get("kv_offset", 0) if opts["causal"] else length
         k, v = (x[:, :, lo:lo + length].contiguous() for x in (k2, v2))
         kw, kw2 = dict(opts), dict(opts)
+        if opts["causal"]:
+            kw2["kv_offset"] = length
         if pads is not None:
             qseg = segs(length, pads[0], -1)
             kw.update(q_segment_ids=qseg,
@@ -471,7 +505,7 @@ def _phase_ring_steps(ctx, n_ranks):
         ctx.rec["K4"]["max_abs_err"] = max(
             ctx.rec["K4"]["max_abs_err"],
             *(ctx.diff(g, w) for g, w in zip(grads, plain)))
-        print(f"[ring-step] {name}: B=1 H={RING_H} Hkv={hkv} {length} x "
+        print(f"[ring-step] {name}: B=1 H={h} Hkv={hkv} {length} x "
               f"{length}, fp32 O, softmax auto -> {kern}: vs plain max|dO|="
               f"{e_o:.3e} (max|O| {ref:.3e}) max|dLSE|={e_l:.3e}; K4 against "
               f"the LSE of a {2 * length}-key context vs plain: "
@@ -728,52 +762,76 @@ def _phase_ring_decode(ctx, mesh):
                                                e, e_l)
 
 
-def _phase_sp_training(ctx, mesh):
-    """The main path of the distributed layer: the 271M training config
-    takes sequence-parallel train steps on one batch of B=1 x T=16384."""
+def _phase_model_parallel(ctx, mesh, tag, **axes):
+    """The main path of the distributed layer: the 271M training config,
+    placed once on the mesh (`shard_model`), takes train steps on one
+    batch of B=1 x T=16384 with every layer on the ranks (`axes`: the
+    sequence axis, and the tensor axis where there is one)."""
     torch = ctx.torch
     from cuda_flashattention_torch.models import transformer as tfm
+    from cuda_flashattention_torch.parallel import collectives
 
-    n_ranks = mesh.shape["sp"]
+    sp = mesh.shape[axes["seq_axis"]]
+    tp = mesh.shape[axes["head_axis"]] if axes.get("head_axis") else 1
+    cards = mesh.distinct_devices()
     tcfg = tfm.TransformerConfig(dtype=torch.bfloat16,
                                  **{**TRAIN_KW, "max_seq": SP_T})
     gen = torch.Generator(device=ctx.dev).manual_seed(0)
     model = tfm.Transformer(tcfg, generator=gen)
     tokens = torch.randint(0, tcfg.vocab_size, (1, SP_T), generator=gen,
                            device=ctx.dev, dtype=torch.int32)
+    placed = tfm.shard_model(model, mesh, **axes)
+    del model
     step = tfm.make_train_step(
-        model, torch.optim.SGD(model.parameters(), lr=1e-4), mesh=mesh,
-        seq_axis="sp")
+        placed, torch.optim.SGD(placed.parameters(), lr=1e-4))
     step(tokens)  # warm-up
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    for card in cards:
+        torch.cuda.reset_peak_memory_stats(card)
     ctx.zero_counts()
+    for kind in collectives.calls:
+        collectives.calls[kind] = 0
     step_s, losses = [], []
     for _ in range(SP_STEPS):
         t0 = time.perf_counter()
         loss = step(tokens)
-        torch.cuda.synchronize()
+        for card in cards:
+            torch.cuda.synchronize(card)
         step_s.append(time.perf_counter() - t0)
         losses.append(loss.item())
     forms = dict(ctx.fwd_forms)
     n_fwd = _forward_launches(ctx)
     counts = dict(fwd=n_fwd, **ctx.bwd_launches)
     ctx.launches["K4"] += counts["fused"]
-    expect = SP_STEPS * tcfg.n_layers * n_ranks * (n_ranks + 1) // 2
+    calls = dict(collectives.calls)
+    expect = SP_STEPS * tcfg.n_layers * tp * sp * (sp + 1) // 2
+    # per layer and step: 2 all-gathers and 2 reduce-scatters forward, as
+    # many backward; per step one gradient all-reduce per group of leaves
+    # with the same replica axes (the tp-cut matrices, and the rest), and
+    # none on one card, whose ranks share one copy of every leaf
+    n_tp = SP_STEPS * tcfg.n_layers * 4 if tp > 1 else 0
+    n_sync = (2 if tp > 1 else 1) if len(cards) > 1 else 0
+    expect_calls = dict(all_reduce=SP_STEPS * n_sync, all_gather=n_tp,
+                        reduce_scatter=n_tp)
+    peaks = ", ".join(
+        f"{card}: {torch.cuda.max_memory_allocated(card) / 2**30:.2f} GiB"
+        for card in cards)
     step_ms = statistics.median(step_s) * 1e3
-    print(f"[sp-train] 271M config, B=1 T={SP_T}, sequence_mesh({n_ranks}), "
-          f"seq_axis='sp', SGD(1e-4): launches over {SP_STEPS} steps: "
-          f"forward {n_fwd} (online {forms['online']}, bound "
-          f"{forms['bound']}, K-major {forms['kmajor']}; guarded fallback "
-          f"{forms['fallback']}), K4 {counts['fused']}, K2 {counts['dkdv']}, "
-          f"K3 {counts['dq']} (expect {expect}, {expect}, 0, 0); step "
+    print(f"[{tag}] 271M config, B=1 T={SP_T}, mesh {mesh.shape} "
+          f"{axes}, SGD(1e-4), every layer on the ranks: launches over "
+          f"{SP_STEPS} steps: forward {n_fwd} (online {forms['online']}, "
+          f"bound {forms['bound']}, K-major {forms['kmajor']}; guarded "
+          f"fallback {forms['fallback']}), K4 {counts['fused']}, K2 "
+          f"{counts['dkdv']}, K3 {counts['dq']} (expect {expect}, {expect}, "
+          f"0, 0); collectives {calls} (expect {expect_calls}); step "
           f"{step_ms:.3f} ms (median of {SP_STEPS}: "
           f"{', '.join(f'{x * 1e3:.3f}' for x in step_s)}), "
-          f"{SP_T / step_ms * 1e3:.1f} tokens/s, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses "
-          f"{', '.join(f'{x:.4f}' for x in losses)} ({ctx.card})", flush=True)
+          f"{SP_T / step_ms * 1e3:.1f} tokens/s, peak memory {peaks}; "
+          f"losses {', '.join(f'{x:.4f}' for x in losses)} ({ctx.card})",
+          flush=True)
     _check(counts == dict(fwd=expect, fused=expect, dkdv=0, dq=0),
-           f"sequence-parallel train-step launch counts {counts}")
+           f"{tag} train-step launch counts {counts}")
+    _check(calls == expect_calls, f"{tag} collective calls {calls}")
     _check(all(math.isfinite(x) for x in losses), f"losses {losses}")
     # where one step's device time goes, by kernel group (the ranks' streams
     # overlap on the card: shares are of the summed kernel time)
@@ -783,33 +841,37 @@ def _phase_sp_training(ctx, mesh):
     for n, t in prof.ms.items():
         groups[_group_of(n)] = groups.get(_group_of(n), 0.0) + t
     total = sum(groups.values()) or float("nan")
-    print(f"[sp-train] one step profiled: busy {prof.busy_ms:.3f} ms of "
+    print(f"[{tag}] one step profiled: busy {prof.busy_ms:.3f} ms of "
           f"{prof.wall_ms:.3f} ms wall; " + ", ".join(
               f"{g} {t:.3f} ms ({100 * t / total:.1f}%)" for g, t in
               sorted(groups.items(), key=lambda x: -x[1]))
           + f" ({ctx.card})", flush=True)
 
-    def loss_and_grads(**kw):
-        model.zero_grad(set_to_none=True)
-        loss = tfm.loss_fn(model, tokens, **kw)
-        loss.backward()
-        return loss.item(), [p.grad.float() for p in model.parameters()]
-
-    names = [n for n, _ in model.named_parameters()]
-    loss_sp, grads_sp = loss_and_grads(mesh=mesh, seq_axis="sp")
-    loss_1, grads_1 = loss_and_grads()
-    errs = [((a - b).norm() / b.norm()).item()
-            for a, b in zip(grads_sp, grads_1)]
-    worst = max(range(len(errs)), key=errs.__getitem__)
-    print(f"[sp-train] sequence-parallel vs the same model without a mesh at "
-          f"T={SP_T}: loss {loss_sp:.6f} vs {loss_1:.6f} (|d| "
-          f"{abs(loss_sp - loss_1):.3e}, gate {LOSS_GATE}); worst gradient "
-          f"relative L2 {errs[worst]:.3e} ({names[worst]}; gate {GRAD_GATE})",
-          flush=True)
-    _check(abs(loss_sp - loss_1) <= LOSS_GATE,
-           f"sequence-parallel loss {loss_sp} vs {loss_1}")
-    _check(errs[worst] <= GRAD_GATE, f"sequence-parallel gradient of "
-           f"{names[worst]}: relative L2 {errs[worst]:.3e}")
+    # one step's loss and gradients against the same weights without a mesh
+    placed.zero_grad(set_to_none=True)
+    loss_mesh = tfm.loss_fn(placed, tokens)
+    loss_mesh.backward()
+    placed.sync_grads()
+    whole = tfm.gather_model(placed, ctx.dev)
+    del placed, step
+    grads_mesh = {n: p.grad.float() for n, p in whole.named_parameters()}
+    whole.zero_grad(set_to_none=True)
+    loss_1 = tfm.loss_fn(whole, tokens)
+    loss_1.backward()
+    loss_mesh, loss_1 = loss_mesh.item(), loss_1.item()
+    errs = {n: ((grads_mesh[n] - p.grad.float()).norm()
+                / p.grad.float().norm()).item()
+            for n, p in whole.named_parameters()}
+    worst = max(errs, key=errs.get)
+    print(f"[{tag}] on the ranks vs the same weights without a mesh at "
+          f"T={SP_T}: loss {loss_mesh:.6f} vs {loss_1:.6f} (|d| "
+          f"{abs(loss_mesh - loss_1):.3e}, gate {LOSS_GATE}); worst gradient "
+          f"relative L2 {errs[worst]:.3e} ({worst}; gate {GRAD_GATE}) "
+          f"({ctx.card})", flush=True)
+    _check(abs(loss_mesh - loss_1) <= LOSS_GATE,
+           f"{tag} loss {loss_mesh} vs {loss_1}")
+    _check(errs[worst] <= GRAD_GATE, f"{tag} gradient of {worst}: "
+           f"relative L2 {errs[worst]:.3e}")
 
 
 def _phase_gpipe(ctx):
@@ -2440,7 +2502,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     _phase_ring_decode(ctx, mesh)
     torch.cuda.empty_cache()
-    _phase_sp_training(ctx, mesh)
+    _phase_model_parallel(ctx, mesh, "sp-train", seq_axis="sp")
+    torch.cuda.empty_cache()
+    _phase_model_parallel(
+        ctx, _shared_card_mesh(ctx, TP_SP, TP_SP_AXES), "tp-sp-train",
+        seq_axis="sp", head_axis="tp")
     torch.cuda.empty_cache()
     _phase_gpipe(ctx)
     torch.cuda.empty_cache()
@@ -2450,11 +2516,15 @@ def main() -> int:
         cards = [torch.device("cuda", i) for i in range(n_cards)]
         from cuda_flashattention_torch.parallel.mesh import make_mesh
         over = f"over {n_cards} distinct cards"
-        _phase_ring_attention(
-            ctx, make_mesh((RING_RANKS,), ("sp",),
-                           [cards[i % n_cards] for i in range(RING_RANKS)]),
-            over)
+        spread = make_mesh((RING_RANKS,), ("sp",),
+                           [cards[i % n_cards] for i in range(RING_RANKS)])
+        _phase_ring_attention(ctx, spread, over)
+        torch.cuda.empty_cache()
+        _phase_model_parallel(ctx, spread, "sp-train-cards", seq_axis="sp")
         _phase_device_ring(ctx, cards, over, record=False)
+    else:
+        print("[sp-train-cards] one card visible: the sp step over distinct "
+              "cards is skipped", flush=True)
 
     # ---- last lines ------------------------------------------------------
     csrc = "cuda_flashattention_torch/csrc/"

@@ -18,9 +18,12 @@ differentiable `flash_attention` (FA2 forward, and the FA2 backward
 kernels: fused, or split into dK/dV and dQ); the FlashAttention-1
 rung (`fa1_attention`); and the distributed layer, single-controller as
 the JAX package's: a `Mesh` of devices that may repeat (N ranks on one
-card, each with its own streams), `ring_attention` (forward and backward),
-`ring_decode`, `ulysses_attention`, `gpipe_spmd`, the model's
-sequence-, data-, tensor-parallel and pipelined forms, and the
+card, each with its own streams), `ring_attention` (forward and backward;
+`ring_attention_local` over shards that stay on their ranks), the
+collectives GSPMD inserts (`parallel/collectives.py`), `ring_decode`,
+`ulysses_attention`, `gpipe_spmd`, the model's sequence-, data- and
+tensor-parallel forms, each layer computed on the ranks from the weight
+slices `shard_model` places, and its pipelined form, and the
 device-initiated ring (`device_ring_matmul`, kernel K9).
 """
 
@@ -95,15 +98,18 @@ from cuda_flashattention_torch.parallel.pipeline import (
 from cuda_flashattention_torch.parallel.ring import (
     combine_partials,
     ring_attention,
+    ring_attention_local,
     ring_decode,
     ring_decode_local,
 )
 from cuda_flashattention_torch.parallel.ulysses import ulysses_attention
 from cuda_flashattention_torch.models.transformer import (
+    ShardedTransformer,
     Transformer,
     TransformerConfig,
     decode_one,
     forward,
+    gather_model,
     init_caches,
     layer_weights,
     loss_fn,
@@ -113,6 +119,7 @@ from cuda_flashattention_torch.models.transformer import (
     prefill,
     prefill_chunk,
     prefill_chunked,
+    shard_model,
     shard_param,
 )
 from cuda_flashattention_torch.models.convert import (
@@ -159,6 +166,7 @@ __all__ = [
     "quantize_tensor",
     "combine_partials",
     "ring_attention",
+    "ring_attention_local",
     "ring_decode",
     "ring_decode_local",
     "ulysses_attention",
@@ -186,6 +194,9 @@ __all__ = [
     "param_shardings",
     "pipeline_forward",
     "shard_param",
+    "shard_model",
+    "gather_model",
+    "ShardedTransformer",
     "kv_cache_from_numpy",
     "paged_cache_from_numpy",
     "params_from_jax",

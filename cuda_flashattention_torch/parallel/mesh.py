@@ -106,6 +106,33 @@ class Mesh:
         return [self.rank_of(**{**coords, axis: i})
                 for i in range(self.shape[axis])]
 
+    def coords(self, rank: int) -> Dict[str, int]:
+        """The entry's index on each axis."""
+        return dict(zip(self.axis_names, map(
+            int, np.unravel_index(rank, self.devices.shape))))
+
+    def fibers(self, axes, ranks: Sequence[int]) -> List[List[int]]:
+        """`ranks` cut into the groups that differ only on `axes` (one axis
+        name or several), each in rank order: for one axis, the
+        `axis_ranks` of each fixed choice of the other coordinates. Every
+        group must be whole."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        for name in axes:
+            if name not in self.shape:
+                raise ValueError(f"mesh has no axis {name!r} "
+                                 f"(axes {self.axis_names})")
+        groups: Dict[tuple, List[int]] = {}
+        for r in sorted(set(ranks)):
+            key = tuple(c for name, c in self.coords(r).items()
+                        if name not in axes)
+            groups.setdefault(key, []).append(r)
+        size = math.prod(self.shape[name] for name in axes)
+        for group in groups.values():
+            if len(group) != size:
+                raise ValueError(f"ranks {group} hold {len(group)} of the "
+                                 f"{size} entries of their {axes} group")
+        return list(groups.values())
+
     def distinct_devices(self) -> List[torch.device]:
         seen: List[torch.device] = []
         for d in self.devices.reshape(-1):
@@ -218,7 +245,7 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     """Multi-process bootstrap. A no-op for a single process with no
     coordinator configured (safe to call more than once), as the JAX
     function is; the multi-process backing on `torch.distributed` is not
-    ported (ROADMAP queue 1, item 9) and raises NotImplementedError."""
+    ported (ROADMAP queue 1, item 6) and raises NotImplementedError."""
     global _DISTRIBUTED_INITIALIZED
     if _DISTRIBUTED_INITIALIZED:
         return
@@ -228,7 +255,7 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     raise NotImplementedError(
         "multi-process meshes (torch.distributed backing, "
         "scripts/launch_multihost.py) are not ported: ROADMAP queue 1, "
-        "item 9. One process drives every card it can see.")
+        "item 6. One process drives every card it can see.")
 
 
 def _visible_cards() -> List[torch.device]:

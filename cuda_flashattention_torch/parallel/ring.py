@@ -3,9 +3,11 @@
 Counterpart of cuda_flashattention_tpu/parallel/ring.py, single-controller
 as the JAX package is: global tensors in, global tensors out, a `Mesh`
 (parallel/mesh.py) and axis names. What `shard_map` + `ppermute` do there
-is written out here: the global q/k/v are cut into the ranks' shards
-(views where a rank shares the input's device, copies to its card
-otherwise), each rank's step runs on that rank's compute stream, and K/V
+is written out here: `ring_attention` cuts the global q/k/v into the
+ranks' shards (views where a rank shares the input's device, copies to
+its card otherwise) and gathers O back; `ring_attention_local` takes the
+shards where they already are (the model's sequence-parallel path) and
+returns O there. Each rank's step runs on that rank's compute stream, and K/V
 travel to the next rank through `Mesh.send` on the copy stream — queued
 before the step's kernels and awaited after them, so the copy is in flight
 under the kernels (the dual-stream design of the CUDA reference).
@@ -32,7 +34,7 @@ its resident slice of the cache and the partials are reduced once.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +44,9 @@ from cuda_flashattention_torch.ops.decode import decode_attention
 from cuda_flashattention_torch.ops.flash_bwd import flash_attention_backward
 from cuda_flashattention_torch.ops.flash_fwd import flash_attention_forward
 from cuda_flashattention_torch.parallel.mesh import Mesh
+
+# per-rank shards: {rank: tensor}, or a list in `Mesh.axis_ranks` order
+ShardsIn = Union[Dict[int, torch.Tensor], List[torch.Tensor]]
 
 
 def combine_partials(o1: torch.Tensor, lse1: torch.Tensor,
@@ -210,59 +215,69 @@ def _gather(out: torch.Tensor, cell: _Cell, part: torch.Tensor,
         out[cell.b_sl, h_sl, cell.n_sl] = part
 
 
+def _forward_cells(plan: _RingPlan, cells: List[_Cell], reg, dtype) -> None:
+    """The ring forward over cells that hold their q, k, v, qseg and kseg
+    shards: sets each cell's O (in `dtype`) and LSE (fp32)."""
+    mesh = plan.mesh
+    steps = plan.max_steps
+    for c in cells:
+        c.o = c.lse = None
+    for step in range(steps):
+        last = step == steps - 1
+        pending = {}
+        if not last:
+            # the next step's K/V start travelling before this step's
+            # kernels are queued, and are awaited after them
+            for i, c in enumerate(cells):
+                j = _right(cells, plan, i)
+                dst = cells[j].rank
+                pending[j] = [
+                    mesh.send(c.k, c.rank, dst),
+                    mesh.send(c.v, c.rank, dst),
+                    mesh.send(c.kseg, c.rank, dst) if plan.ragged
+                    else None]
+        for c in cells:
+            kv_idx = (c.idx - step) % plan.n_shards
+            with mesh.on(c.rank):
+                part = _step_fwd(
+                    c.q, c.k, c.v, kv_idx, c.idx, scale=plan.scale,
+                    causal=plan.causal, window=plan.window, step=step,
+                    shard_len=plan.shard_len, qseg=c.qseg, kseg=c.kseg)
+                if part is None:
+                    continue
+                if c.o is None:
+                    c.o, c.lse = part
+                else:
+                    c.o, c.lse = combine_partials(c.o, c.lse, *part)
+        if not last:
+            for j, (tk, tv, ts) in pending.items():
+                c = cells[j]
+                reg.keep(c.k, c.v, c.kseg)
+                c.k, c.v = tk.wait(), tv.wait()
+                if ts is not None:
+                    c.kseg = ts.wait()
+    for c in cells:
+        with mesh.on(c.rank):
+            c.o = c.o.to(dtype)
+        reg.keep(c.o, c.lse, c.k, c.v, c.kseg)
+    # no rank reuses the memory of a block before its right neighbour
+    # has copied it
+    mesh.barrier([c.rank for c in cells])
+
+
 def _ring_forward(plan: _RingPlan, q, k, v, qseg, kseg):
     """The ring forward on padded global tensors → (O in q's dtype,
     LSE fp32), global, on q's device."""
     mesh = plan.mesh
     b, h, n_pad, d = q.shape
     cells = _cells(plan, b, h, k.shape[1])
-    ranks = [c.rank for c in cells]
-    steps = plan.max_steps
-    with mesh.region(ranks, q.device) as reg:
+    with mesh.region([c.rank for c in cells], q.device) as reg:
         for c in cells:
             c.q = _place(mesh, c, q, "q")
             c.k, c.v = _place(mesh, c, k, "kv"), _place(mesh, c, v, "kv")
             c.qseg, c.kseg = (_place(mesh, c, qseg, ""),
                               _place(mesh, c, kseg, ""))
-            c.o = c.lse = None
-        for step in range(steps):
-            last = step == steps - 1
-            pending = {}
-            if not last:
-                # the next step's K/V start travelling before this step's
-                # kernels are queued, and are awaited after them
-                for i, c in enumerate(cells):
-                    j = _right(cells, plan, i)
-                    dst = cells[j].rank
-                    pending[j] = [
-                        mesh.send(c.k, c.rank, dst),
-                        mesh.send(c.v, c.rank, dst),
-                        mesh.send(c.kseg, c.rank, dst) if plan.ragged
-                        else None]
-            for c in cells:
-                kv_idx = (c.idx - step) % plan.n_shards
-                with mesh.on(c.rank):
-                    part = _step_fwd(
-                        c.q, c.k, c.v, kv_idx, c.idx, scale=plan.scale,
-                        causal=plan.causal, window=plan.window, step=step,
-                        shard_len=plan.shard_len, qseg=c.qseg, kseg=c.kseg)
-                    if part is None:
-                        continue
-                    if c.o is None:
-                        c.o, c.lse = part
-                    else:
-                        c.o, c.lse = combine_partials(c.o, c.lse, *part)
-            if not last:
-                for j, (tk, tv, ts) in pending.items():
-                    c = cells[j]
-                    reg.keep(c.k, c.v, c.kseg)
-                    c.k, c.v = tk.wait(), tv.wait()
-                    if ts is not None:
-                        c.kseg = ts.wait()
-        for c in cells:
-            with mesh.on(c.rank):
-                c.o = c.o.to(q.dtype)
-            reg.keep(c.o, c.lse, c.k, c.v, c.kseg)
+        _forward_cells(plan, cells, reg, q.dtype)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, h, n_pad), dtype=torch.float32, device=q.device)
     for c in cells:
@@ -271,90 +286,99 @@ def _ring_forward(plan: _RingPlan, q, k, v, qseg, kseg):
     return out, lse
 
 
+def _backward_cells(plan: _RingPlan, cells: List[_Cell], reg) -> None:
+    """The ring backward over cells that hold their q, k, v, O, LSE, dO,
+    qseg and kseg shards: sets each cell's dq and its K/V block's
+    dk_home, dv_home (fp32)."""
+    mesh = plan.mesh
+    steps = plan.max_steps
+    for c in cells:
+        with mesh.on(c.rank):
+            c.dq = torch.zeros(c.q.shape, dtype=torch.float32,
+                               device=c.q.device)
+            c.dk = torch.zeros(c.k.shape, dtype=torch.float32,
+                               device=c.k.device)
+            c.dv = torch.zeros_like(c.dk)
+    arriving = {}  # cell → the accumulators sent to it after a step
+    for step in range(steps):
+        last = step == steps - 1
+        pending = {}
+        if not last:
+            for i, c in enumerate(cells):
+                j = _right(cells, plan, i)
+                dst = cells[j].rank
+                pending[j] = [
+                    mesh.send(c.k, c.rank, dst),
+                    mesh.send(c.v, c.rank, dst),
+                    mesh.send(c.kseg, c.rank, dst) if plan.ragged
+                    else None]
+        for i, c in enumerate(cells):
+            kv_idx = (c.idx - step) % plan.n_shards
+            with mesh.on(c.rank):
+                part = _step_bwd(
+                    c.q, c.k, c.v, c.o, c.lse, c.do, kv_idx, c.idx,
+                    scale=plan.scale, causal=plan.causal,
+                    window=plan.window, step=step,
+                    shard_len=plan.shard_len, qseg=c.qseg, kseg=c.kseg)
+                if i in arriving:
+                    # the accumulators of the block this cell now
+                    # holds, sent after the last step
+                    reg.keep(c.dk, c.dv)
+                    c.dk, c.dv = (t.wait() for t in arriving.pop(i))
+                if part is not None:
+                    c.dq += part[0].float()
+                    c.dk += part[1].float()
+                    c.dv += part[2].float()
+        if not last:
+            for j, (tk, tv, ts) in pending.items():
+                c = cells[j]
+                reg.keep(c.k, c.v, c.kseg)
+                c.k, c.v = tk.wait(), tv.wait()
+                if ts is not None:
+                    c.kseg = ts.wait()
+            # dK/dV accumulators travel WITH their K/V block, after
+            # the step that updated them
+            for i, c in enumerate(cells):
+                j = _right(cells, plan, i)
+                arriving[j] = (mesh.send(c.dk, c.rank, cells[j].rank),
+                               mesh.send(c.dv, c.rank, cells[j].rank))
+    # After max_steps − 1 hops the cell at ring index i holds the
+    # accumulators of K/V shard i − (max_steps − 1): one hop sends
+    # each home (none when the ring never moved).
+    homes = {}
+    for i, c in enumerate(cells):
+        j = _right(cells, plan, i, hops=-(steps - 1))
+        if j == i:
+            homes[j] = (c.dk, c.dv)
+        else:
+            homes[j] = tuple(
+                mesh.send(t, c.rank, cells[j].rank) for t in (c.dk, c.dv))
+    for j, (tk, tv) in homes.items():
+        c = cells[j]
+        if isinstance(tk, torch.Tensor):
+            c.dk_home, c.dv_home = tk, tv
+        else:
+            c.dk_home, c.dv_home = tk.wait(), tv.wait()
+    for c in cells:
+        reg.keep(c.dq, c.dk, c.dv, c.dk_home, c.dv_home, c.k, c.v,
+                 c.kseg)
+    mesh.barrier([c.rank for c in cells])
+
+
 def _ring_backward(plan: _RingPlan, q, k, v, o, lse, qseg, kseg, do):
     """The ring backward on padded global tensors → (dQ, dK, dV) in the
     inputs' dtypes, global, on q's device."""
     mesh = plan.mesh
     b, h, n_pad, d = q.shape
     cells = _cells(plan, b, h, k.shape[1])
-    ranks = [c.rank for c in cells]
-    steps = plan.max_steps
-    with mesh.region(ranks, q.device) as reg:
+    with mesh.region([c.rank for c in cells], q.device) as reg:
         for c in cells:
             c.q, c.o = _place(mesh, c, q, "q"), _place(mesh, c, o, "q")
             c.do, c.lse = _place(mesh, c, do, "q"), _place(mesh, c, lse, "q")
             c.k, c.v = _place(mesh, c, k, "kv"), _place(mesh, c, v, "kv")
             c.qseg, c.kseg = (_place(mesh, c, qseg, ""),
                               _place(mesh, c, kseg, ""))
-            with mesh.on(c.rank):
-                c.dq = torch.zeros(c.q.shape, dtype=torch.float32,
-                                   device=c.q.device)
-                c.dk = torch.zeros(c.k.shape, dtype=torch.float32,
-                                   device=c.k.device)
-                c.dv = torch.zeros_like(c.dk)
-        arriving = {}  # cell → the accumulators sent to it after a step
-        for step in range(steps):
-            last = step == steps - 1
-            pending = {}
-            if not last:
-                for i, c in enumerate(cells):
-                    j = _right(cells, plan, i)
-                    dst = cells[j].rank
-                    pending[j] = [
-                        mesh.send(c.k, c.rank, dst),
-                        mesh.send(c.v, c.rank, dst),
-                        mesh.send(c.kseg, c.rank, dst) if plan.ragged
-                        else None]
-            for i, c in enumerate(cells):
-                kv_idx = (c.idx - step) % plan.n_shards
-                with mesh.on(c.rank):
-                    part = _step_bwd(
-                        c.q, c.k, c.v, c.o, c.lse, c.do, kv_idx, c.idx,
-                        scale=plan.scale, causal=plan.causal,
-                        window=plan.window, step=step,
-                        shard_len=plan.shard_len, qseg=c.qseg, kseg=c.kseg)
-                    if i in arriving:
-                        # the accumulators of the block this cell now
-                        # holds, sent after the last step
-                        reg.keep(c.dk, c.dv)
-                        c.dk, c.dv = (t.wait() for t in arriving.pop(i))
-                    if part is not None:
-                        c.dq += part[0].float()
-                        c.dk += part[1].float()
-                        c.dv += part[2].float()
-            if not last:
-                for j, (tk, tv, ts) in pending.items():
-                    c = cells[j]
-                    reg.keep(c.k, c.v, c.kseg)
-                    c.k, c.v = tk.wait(), tv.wait()
-                    if ts is not None:
-                        c.kseg = ts.wait()
-                # dK/dV accumulators travel WITH their K/V block, after
-                # the step that updated them
-                for i, c in enumerate(cells):
-                    j = _right(cells, plan, i)
-                    arriving[j] = (mesh.send(c.dk, c.rank, cells[j].rank),
-                                   mesh.send(c.dv, c.rank, cells[j].rank))
-        # After max_steps − 1 hops the cell at ring index i holds the
-        # accumulators of K/V shard i − (max_steps − 1): one hop sends
-        # each home (none when the ring never moved).
-        homes = {}
-        for i, c in enumerate(cells):
-            j = _right(cells, plan, i, hops=-(steps - 1))
-            if j == i:
-                homes[j] = (c.dk, c.dv)
-            else:
-                homes[j] = tuple(
-                    mesh.send(t, c.rank, cells[j].rank) for t in (c.dk, c.dv))
-        for j, (tk, tv) in homes.items():
-            c = cells[j]
-            if isinstance(tk, torch.Tensor):
-                c.dk_home, c.dv_home = tk, tv
-            else:
-                c.dk_home, c.dv_home = tk.wait(), tv.wait()
-        for c in cells:
-            reg.keep(c.dq, c.dk, c.dv, c.dk_home, c.dv_home, c.k, c.v,
-                     c.kseg)
+        _backward_cells(plan, cells, reg)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
@@ -441,6 +465,117 @@ def ring_attention(
                      window=window, ragged=ragged)
     out = RingAttention.apply(q, k, v, qseg, kseg, plan)
     return out[:, :, :n]
+
+
+def _local_cells(mesh: Mesh, axis_name: str, ranks) -> List[_Cell]:
+    """One ring per group of `axis_name` over `ranks`, its cells
+    consecutive in ring order (the shards' slices are not needed)."""
+    cells = []
+    for group, ring in enumerate(mesh.fibers(axis_name, ranks)):
+        cells += [_Cell(rank, idx, group, None, None, None, None)
+                  for idx, rank in enumerate(ring)]
+    return cells
+
+
+class RingAttentionLocal(torch.autograd.Function):
+    """Per-rank O of ring attention over resident shards:
+    forward(ctx, plan, ranks, *q, *k, *v), one shard of each per rank in
+    `ranks` order; saves the shards, O and LSE for the ring backward."""
+
+    @staticmethod
+    def forward(ctx, plan: _RingPlan, ranks, *qkv):
+        n = len(ranks)
+        mesh = plan.mesh
+        cells = _local_cells(mesh, plan.axis_name, ranks)
+        at = {r: i for i, r in enumerate(ranks)}
+        with mesh.region(ranks, mesh.device(ranks[0])) as reg:
+            for c in cells:
+                i = at[c.rank]
+                c.q, c.k, c.v = qkv[i], qkv[n + i], qkv[2 * n + i]
+                c.qseg = c.kseg = None
+            _forward_cells(plan, cells, reg, qkv[0].dtype)
+        by_rank = {c.rank: c for c in cells}
+        o = [by_rank[r].o for r in ranks]
+        ctx.save_for_backward(*qkv, *o, *(by_rank[r].lse for r in ranks))
+        ctx.plan, ctx.ranks = plan, ranks
+        return tuple(o)
+
+    @staticmethod
+    def backward(ctx, *do):
+        plan, ranks = ctx.plan, ctx.ranks
+        n, mesh = len(ranks), plan.mesh
+        saved = ctx.saved_tensors
+        cells = _local_cells(mesh, plan.axis_name, ranks)
+        at = {r: i for i, r in enumerate(ranks)}
+        with mesh.region(ranks, mesh.device(ranks[0])) as reg:
+            for c in cells:
+                i = at[c.rank]
+                c.q, c.k, c.v = saved[i], saved[n + i], saved[2 * n + i]
+                c.o, c.lse, c.do = saved[3 * n + i], saved[4 * n + i], do[i]
+                c.qseg = c.kseg = None
+            _backward_cells(plan, cells, reg)
+            grads = [None] * (3 * n)
+            for c in cells:
+                i = at[c.rank]
+                with mesh.on(c.rank):
+                    grads[i] = c.dq.to(saved[i].dtype)
+                    grads[n + i] = c.dk_home.to(saved[n + i].dtype)
+                    grads[2 * n + i] = c.dv_home.to(saved[2 * n + i].dtype)
+                reg.keep(c.dq, c.dk_home, c.dv_home)
+        return (None, None, *grads)
+
+
+def ring_attention_local(
+    q: ShardsIn,
+    k: ShardsIn,
+    v: ShardsIn,
+    mesh: Mesh,
+    axis_name: str = "sp",
+    scale: Optional[float] = None,
+    causal: bool = False,
+    window: int = 0,
+) -> ShardsIn:
+    """Ring attention over shards that already sit on their ranks: q, k, v
+    are `{rank: shard}` (q [B,H,L,d], k/v [B,Hkv,L,d] on the rank's
+    device) over whole groups of `axis_name`, or lists in
+    `mesh.axis_ranks(axis_name)` order for one ring. Returns each rank's
+    O shard the same way, in q's dtype. Differentiable (the ring
+    backward); the kernels of each step are those of `ring_attention`.
+
+    The shards of a ring are the blocks of one sequence of L·n tokens in
+    ring order; each group of the axis (every choice of the other mesh
+    coordinates: batch or head shards) runs its own ring. Nothing is
+    placed or gathered: this is the form a caller that keeps its
+    activations on the ranks uses. A sequence that does not divide the
+    axis is padded by the caller up to L·n (`ring_attention`'s rule); under
+    a causal mask the pad rows sit past every real row and need no mask."""
+    listed = not isinstance(q, dict)
+    if listed:
+        ranks = mesh.axis_ranks(axis_name)
+        q, k, v = (dict(zip(ranks, x)) for x in (q, k, v))
+    ranks = tuple(q)
+    q0, k0 = q[ranks[0]], k[ranks[0]]
+    if q0.shape[1] % k0.shape[1] != 0:
+        raise ValueError(f"q heads {q0.shape[1]} not a multiple of kv "
+                         f"heads {k0.shape[1]}")
+    window = int(window or 0)
+    if window and not causal:
+        raise ValueError("window requires causal=True")
+    for r in ranks:
+        if q[r].shape != q0.shape or k[r].shape != k0.shape \
+                or v[r].shape != k0.shape:
+            raise ValueError(f"rank {r}'s shards {tuple(q[r].shape)}, "
+                             f"{tuple(k[r].shape)}, {tuple(v[r].shape)} "
+                             f"differ from rank {ranks[0]}'s")
+    plan = _RingPlan(mesh=mesh, axis_name=axis_name, batch_axis=None,
+                     head_axis=None, n_shards=mesh.shape[axis_name],
+                     shard_len=q0.shape[2],
+                     scale=resolve_scale(scale, q0.shape[-1]),
+                     causal=bool(causal), window=window, ragged=False)
+    out = RingAttentionLocal.apply(
+        plan, ranks, *(q[r] for r in ranks), *(k[r] for r in ranks),
+        *(v[r] for r in ranks))
+    return list(out) if listed else dict(zip(ranks, out))
 
 
 # ---------------------------------------------------------------------------

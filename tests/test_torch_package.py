@@ -129,7 +129,9 @@ def test_build_command_targets_sm90a():
     "ring_decode_local", "combine_partials", "ulysses_attention",
     "gpipe_spmd", "stack_stage_params", "stage_param_sharding",
     "device_ring_matmul", "ring_matmul_plain", "pipeline_forward",
-    "param_shardings", "shard_param", "layer_weights"])
+    "param_shardings", "shard_param", "layer_weights",
+    "ring_attention_local", "shard_model", "gather_model",
+    "ShardedTransformer"])
 def test_distributed_layer_is_exported(name):
     """The names of the JAX package's parallel layer, at the top of the
     port, each from the module named after its JAX counterpart."""
