@@ -182,6 +182,29 @@ Phases, each of which raises on failure (so the script exits non-zero):
    read once, o written once and the ring's n x n tile products; the
    pushes only where they cross to another card (over NVLink, 450 GB/s
    each way), since between ranks of one card they stay in L2.
+15. fp32: the fp32 builds of K1 (online), K1b and K5 (each pinned), K4
+   and K2 (alone, through `ops/flash_bwd._dkdv_cuda`: `fused=False`
+   refuses fp32 until K3 has an fp32 build) against their plain fp32
+   versions, on flat (uniform ±0.5) and peaked (Q x8, K x4) inputs: O and
+   LSE within 1e-4, each gradient within 1e-4 · max(1, max |plain|), at
+   the reference's 02_fwd shape [1, 1, 512, 64], the ladder's stage 03
+   [1, 1, 5096, 64] and stage 04 ring steps [1, 1, 637, 64], [1, 16,
+   4096, 128] causal, GQA 16:4, window 1024 and segment ids; each row
+   prints the kernel's ms (torch.profiler), its bound (fp32: 4 bytes per
+   element over 3.35 TB/s, products over the 495 TFLOP/s TF32 rate), the
+   fp32 library call's ms (TF32 off) and the bf16 build's ms at the same
+   shape. Then the fp32 path through K5: `flash_attention` on fp32 [1,
+   16, 6144, 128] causal (past the online rule's 5120 rows), forward and
+   backward against the plain versions: K5 1, its guarded fallback 1, K4
+   1.
+16. The ladder (`cuda_flashattention_torch/examples`): stages 00-04 and 07
+   through their `main` at the reference's shapes (SEQ 5096, d 64; 8
+   ranks on card 0; stage 04 again over distinct cards when two or more
+   are visible), each printing `Test PASSED!`; the fp32 launches of
+   stage 03 (K1b 1 + its guarded fallback) and stage 04 (the full ring's
+   64 K1b steps, the causal ring's 8 K1 and 28 K1b steps twice, 36 K4)
+   against the ring's schedule; the torch oracle on the card against the
+   native C++ oracle (`runtime/native.py`) at [1, 2, 256, 64].
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; a kernel's `launches` in the JSON line is its sum over
@@ -190,8 +213,9 @@ the paged lifecycle, the two FA1 calls, the timed training steps of both
 models, the split-backward step, the ring-attention cases, Ulysses, the
 ring-decode calls, the sequence- and tensor-parallel train steps, the
 pipelined
-forward, the device-ring stage). Launches made to compare a kernel with
-its plain version or to time it are not in it, nor are K1's guarded
+forward, the device-ring stage; for the fp32 forms the ladder's stages 03
+and 04 and the fp32 `flash_attention` path). Launches made to compare a
+kernel with its plain version or to time it are not in it, nor are K1's guarded
 fallback launches behind a checked bound call, which exit at once.
 
 Each kernel's `bound_ms` is the least time the card could take for the
@@ -1031,6 +1055,399 @@ def _phase_device_ring_path(ctx):
            f"{n} launches")
 
 
+# ---------------------------------------------------------------------------
+# fp32 (phases 15-16): the fp32 builds of K1, K1b, K5, K4 and K2, and the
+# ladder that runs on them. Gates: O and LSE within 1e-4 of the plain fp32
+# version, each gradient within 1e-4 · max(1, max |plain|), on flat
+# (uniform ±0.5) and peaked (Q x8, K x4) inputs; the plain versions and
+# the library call run with TF32 off.
+# ---------------------------------------------------------------------------
+
+F32_GATE = 1e-4
+# the fp32 bound's operations rate: the TF32 dense peak, the least time any
+# fp32-input tensor-core product could take (the same data sheet)
+PEAK_TF32_FLOPS = 495e12
+# the fp32 path through K5: `flash_attention` past the online rule's 5120
+# rows, causal, forward and backward
+F32_PATH = (1, 16, 6144, 128)
+LADDER_RANKS = 8
+
+
+def _bound_f32(nbytes: float, flops: float) -> dict:
+    """The least time of an fp32 call: bytes (4 per element) over the
+    memory rate, matmul operations over the TF32 rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_TF32_FLOPS * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def _call_ms(fn, label, iters=3, attempts=3) -> float:
+    """Device ms per call of package kernel `label` (torch.profiler): its
+    launches' time over the launches of its main kernel (K5's finalise
+    is added to its kernel's call); NaN when none was recorded."""
+    from cuda_flashattention_torch.utils.profiling import kernel_times
+    for _ in range(attempts):
+        prof = kernel_times(fn, iters=iters)
+        names = [n for n in prof.ms if _kernel_of(n) == label]
+        calls = sum(prof.count[n] for n in names if "finalize" not in n)
+        if calls:
+            return sum(prof.ms[n] for n in names) / calls
+    return float("nan")
+
+
+def _visible_pairs(ctx, b, h, nq, nk, kw) -> int:
+    """Visible (query, key) pairs of a call under its masks."""
+    ok = _mask(ctx, nq, nk, kw)
+    if ok is None:
+        return b * h * nq * nk
+    n = int(ok.sum().item())
+    return h * (n if ok.ndim == 3 else b * n)  # a 3-D mask has the batch
+
+
+def _mask(ctx, nq, nk, kw):
+    """The boolean mask (True: visible) the library call is given, [Nq,
+    Nk] or [B, Nq, Nk]; None when `is_causal` or nothing says it."""
+    torch = ctx.torch
+    rows = torch.arange(nq, device=ctx.dev)[:, None]
+    cols = torch.arange(nk, device=ctx.dev)[None, :]
+    if kw.get("q_segment_ids") is not None:
+        qs, ks = kw["q_segment_ids"], kw["kv_segment_ids"]
+        ok = qs[:, :, None] == ks[:, None, :]
+        return ok & (cols <= rows) if kw.get("causal") else ok
+    if kw.get("window"):
+        return (cols <= rows) & (cols > rows - kw["window"])
+    if kw.get("causal"):
+        return cols <= rows
+    return None
+
+
+def _library_ms(ctx, q, k, v, kw, backward=False, do=None):
+    """One `scaled_dot_product_attention` on the same inputs (its autograd
+    backward under `backward`), TF32 off, the call's mask given as a
+    boolean mask where it has one."""
+    torch = ctx.torch
+    F = torch.nn.functional
+    from cuda_flashattention_torch.utils.timing import cuda_time_ms
+    ok = _mask(ctx, q.shape[2], k.shape[2], kw)
+    mkw = dict(enable_gqa=q.shape[1] != k.shape[1])
+    if ok is not None:
+        mkw["attn_mask"] = ok[:, None] if ok.ndim == 3 else ok
+    if not backward:
+        return cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, **mkw), iters=10)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    o = F.scaled_dot_product_attention(*leaves, **mkw)
+    return cuda_time_ms(lambda: torch.autograd.grad(
+        o, leaves, do, retain_graph=True), iters=10)
+
+
+def _phase_fp32(ctx):
+    """The fp32 builds against their plain fp32 versions, each form
+    pinned (K1 online, K1b and K5 through `_plan` + `_fwd_cuda`, K4 through
+    `flash_attention_backward`, K2 alone through `ops/flash_bwd._dkdv_cuda`:
+    `fused=False` refuses fp32 until K3 has an fp32 build), at the
+    reference's 02_fwd shape [1, 1, 512, 64], stage 03's [1, 1, 5096, 64],
+    the ring steps of stage 04 ([1, 1, 637, 64]), [1, 16, 4096, 128]
+    causal, GQA 16:4, a window and segment ids; each row's kernel ms
+    (torch.profiler), bound, plain and library ms beside the bf16 build's
+    kernel ms at the same shape. Then the fp32 path through K5:
+    `flash_attention` on fp32 [1, 16, 6144, 128] causal, forward and
+    backward, against the plain versions, with its launch counts."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.ops import flash_bwd as fb
+    from cuda_flashattention_torch.ops import flash_fwd as ff
+    from cuda_flashattention_torch.ops.attention import flash_attention
+    from cuda_flashattention_torch.utils.timing import (
+        attention_flops, cuda_time_ms)
+    dev, card = ctx.dev, ctx.card
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def inputs(b, h, hkv, nq, nk, d, peaked):
+        def u(*shape):
+            return torch.rand(shape, generator=gen, device=dev) - 0.5
+        q, k, v = u(b, h, nq, d), u(b, hkv, nk, d), u(b, hkv, nk, d)
+        return (q * 8, k * 4, v) if peaked else (q, k, v)
+
+    def fwd(form, q, k, v, kw):
+        if form == "online":
+            return ff.flash_attention_forward(q, k, v, softmax="online",
+                                              **kw)
+        plan = ff._plan(q, k, v, None, kw.get("causal", False),
+                        kw.get("window", 0), 0, None, None, None, None, None,
+                        "bound_unchecked", False)
+        plan = dataclasses.replace(plan, use_kmajor=form == "kmajor")
+        return ff._fwd_cuda(q, k, v, plan, q.dtype, None, None, None, None)
+
+    def fwd_plain(form, q, k, v, kw):
+        return ff.flash_attention_forward_plain(
+            q, k, v, softmax="online" if form == "online"
+            else "bound_unchecked", **kw)
+
+    ids = torch.arange(1024, device=dev) // 300
+    segs = dict(q_segment_ids=ids[None], kv_segment_ids=ids[None])
+    step = _ladder_rows()
+    label = {"online": "K1", "bound": "K1b", "kmajor": "K5"}
+    # (name, (B, H, Hkv, Nq, Nk, d), options, forms, the form recorded
+    # for the kernels line at this shape: its main path's)
+    fwd_cases = [
+        ("02_fwd 512", (1, 1, 1, 512, 512, 64), {},
+         ("online", "bound", "kmajor"), None),
+        ("stage 03 5096", (1, 1, 1, 5096, 5096, 64), {},
+         ("online", "bound", "kmajor"), "bound"),
+        (f"stage 04 diagonal step {step}", (1, 1, 1, step, step, 64),
+         dict(causal=True), ("online",), "online"),
+        (f"stage 04 full step {step}", (1, 1, 1, step, step, 64), {},
+         ("bound",), None),
+        ("4096 causal", (1, 16, 16, 4096, 4096, 128), dict(causal=True),
+         ("online", "bound", "kmajor"), None),
+        ("GQA 16:4 4096 causal", (1, 16, 4, 4096, 4096, 128),
+         dict(causal=True), ("online", "bound", "kmajor"), None),
+        ("4096 window 1024", (1, 16, 16, 4096, 4096, 128),
+         dict(causal=True, window=1024), ("online", "kmajor"), None),
+        ("1024 segment ids", (1, 16, 16, 1024, 1024, 128), segs,
+         ("online",), None),
+        (f"fp32 path {F32_PATH[2]} causal", (F32_PATH[0], F32_PATH[1],
+                                             F32_PATH[1], F32_PATH[2],
+                                             F32_PATH[2], F32_PATH[3]),
+         dict(causal=True), ("kmajor",), "kmajor"),
+    ]
+    for name, (b, h, hkv, nq, nk, d), kw, forms, rec_form in fwd_cases:
+        flat = inputs(b, h, hkv, nq, nk, d, False)
+        peaked = inputs(b, h, hkv, nq, nk, d, True)
+        bf = [x.to(torch.bfloat16) for x in flat]
+        pairs = _visible_pairs(ctx, b, h, nq, nk, kw)
+        nbytes = 4 * (2 * b * h * nq * d + 2 * b * hkv * nk * d + b * h * nq)
+        bound = _bound_f32(nbytes, 4.0 * d * pairs)
+        lib_ms = _library_ms(ctx, *flat, kw)
+        for form in forms:
+            errs = []
+            for x in (flat, peaked):
+                o, lse = fwd(form, *x, kw)
+                torch.cuda.synchronize()
+                o_p, lse_p = fwd_plain(form, *x, kw)
+                errs += [ctx.diff(o, o_p), ctx.diff(lse, lse_p)]
+                _check(o.dtype == torch.float32 and bool(
+                    torch.isfinite(o).all()) and o_p.abs().max().item() > 0,
+                       f"fp32 {label[form]} {name}: O not finite or all 0")
+            kn = label[form]
+            ms = _call_ms(lambda: fwd(form, *flat, kw), kn)
+            ms_bf16 = _call_ms(lambda: fwd(form, *bf, kw), kn)
+            ms_w = cuda_time_ms(lambda: fwd(form, *flat, kw), iters=10)
+            ms_p = cuda_time_ms(lambda: fwd_plain(form, *flat, kw), iters=3,
+                                warmup=1)
+            print(f"[fp32] {kn} {name}: B={b} H={h} Hkv={hkv} Nq={nq} "
+                  f"Nk={nk} d={d} max|dO| flat {errs[0]:.3e} peaked "
+                  f"{errs[2]:.3e}, max|dLSE| {errs[1]:.3e} / {errs[3]:.3e} "
+                  f"(gate {F32_GATE}); kernel {ms:.4f} ms "
+                  f"({100 * bound['bound_ms'] / ms:.1f}% of its bound "
+                  f"{bound['bound_ms']:.4f} ms, {bound['bound_by']}), bf16 "
+                  f"kernel {ms_bf16:.4f} ms, wrapper {ms_w:.4f} ms, library "
+                  f"fp32 {lib_ms:.4f} ms, plain {ms_p:.4f} ms ({card})",
+                  flush=True)
+            _check(max(errs) <= F32_GATE, f"fp32 {kn} {name}: max |diff| "
+                   f"{max(errs):.3e} > {F32_GATE}")
+            r = ctx.rec[f"{kn} fp32"]
+            r["max_abs_err"] = max(r["max_abs_err"], *errs)
+            if form == rec_form:
+                r.update(ms=ms, plain_ms=ms_p, library_ms=lib_ms, **bound)
+        del flat, peaked, bf
+
+    def grads_close(got, want):
+        return [ctx.diff(g, w) / max(1.0, w.abs().max().item())
+                for g, w in zip(got, want)]
+
+    bwd_cases = [
+        (f"stage 04 full step {step}", (1, 1, 1, step, step, 64), {}, True),
+        (f"stage 04 diagonal step {step}", (1, 1, 1, step, step, 64),
+         dict(causal=True), False),
+        ("02 512", (1, 1, 1, 512, 512, 64), {}, False),
+        ("4096 causal", (1, 16, 16, 4096, 4096, 128), dict(causal=True),
+         False),
+        ("GQA 16:4 4096 causal", (1, 16, 4, 4096, 4096, 128),
+         dict(causal=True), False),
+        ("4096 window 1024", (1, 16, 16, 4096, 4096, 128),
+         dict(causal=True, window=1024), False),
+        ("1024 segment ids", (1, 16, 16, 1024, 1024, 128), segs, False),
+    ]
+    for name, (b, h, hkv, nq, nk, d), kw, record in bwd_cases:
+        errs = {"K4": [], "K2": []}
+        for peaked in (False, True):
+            q, k, v = inputs(b, h, hkv, nq, nk, d, peaked)
+            do = torch.rand((b, h, nq, d), generator=gen, device=dev) - 0.5
+            o, lse = ff.flash_attention_forward_plain(q, k, v, **kw)
+            args = (q, k, v, o, lse, do)
+            want = fb.flash_attention_backward_plain(*args, **kw)
+            got4 = fb.flash_attention_backward(*args, **kw)
+            got2 = fb._dkdv_cuda(*args, **kw)
+            torch.cuda.synchronize()
+            _check(all(g.dtype == torch.float32 and bool(
+                torch.isfinite(g).all()) for g in (*got4, *got2)),
+                   f"fp32 backward {name}: a gradient is not fp32 or finite")
+            errs["K4"] += grads_close(got4, want)
+            errs["K2"] += grads_close(got2, want[1:])
+        bf = [x.to(torch.bfloat16) for x in (q, k, v, o)] + [
+            lse, do.to(torch.bfloat16)]
+        ms4 = _call_ms(lambda: fb.flash_attention_backward(*args, **kw), "K4")
+        ms2 = _call_ms(lambda: fb._dkdv_cuda(*args, **kw), "K2")
+        ms4_bf = _call_ms(lambda: fb.flash_attention_backward(*bf, **kw),
+                          "K4")
+        ms2_bf = _call_ms(lambda: fb._dkdv_cuda(*bf, **kw), "K2")
+        ms_p = cuda_time_ms(lambda: fb.flash_attention_backward_plain(
+            *args, **kw), iters=3, warmup=1)
+        lib_ms = _library_ms(ctx, q, k, v, kw, backward=True, do=do)
+        pairs = _visible_pairs(ctx, b, h, nq, nk, kw)
+        read = 4 * (3 * b * h * nq * d + 2 * b * hkv * nk * d + b * h * nq)
+        bounds = {"K4": _bound_f32(read + 4 * (b * h * nq * d
+                                               + 2 * b * hkv * nk * d),
+                                   10.0 * d * pairs),
+                  "K2": _bound_f32(read + 4 * 2 * b * hkv * nk * d,
+                                   8.0 * d * pairs)}
+        for kn, ms, ms_bf in (("K4", ms4, ms4_bf), ("K2", ms2, ms2_bf)):
+            bd = bounds[kn]
+            e = errs[kn]
+            grads = ("dQ", "dK", "dV") if kn == "K4" else ("dK", "dV")
+            half = len(e) // 2
+            print(f"[fp32] {kn} {name}: B={b} H={h} Hkv={hkv} N={nq} d={d} "
+                  f"max|diff|/max(1, max|plain|) flat "
+                  + ", ".join(f"{g} {x:.3e}" for g, x in zip(grads, e[:half]))
+                  + " peaked "
+                  + ", ".join(f"{g} {x:.3e}" for g, x in zip(grads, e[half:]))
+                  + f" (gate {F32_GATE}); kernel {ms:.4f} ms "
+                  f"({100 * bd['bound_ms'] / ms:.1f}% of its bound "
+                  f"{bd['bound_ms']:.4f} ms, {bd['bound_by']}), bf16 kernel "
+                  f"{ms_bf:.4f} ms, library fp32 backward {lib_ms:.4f} ms, "
+                  f"plain {ms_p:.4f} ms ({card})", flush=True)
+            _check(max(errs[kn]) <= F32_GATE, f"fp32 {kn} {name}: "
+                   f"{max(errs[kn]):.3e} > {F32_GATE} x max(1, max|plain|)")
+            r = ctx.rec[f"{kn} fp32"]
+            r["max_abs_err"] = max(r["max_abs_err"], *errs[kn])
+            if record:
+                r.update(ms=ms, plain_ms=ms_p, library_ms=lib_ms, **bd)
+        del q, k, v, o, lse, do, args, bf, want, got4, got2
+
+    # the fp32 path through K5: flash_attention, forward and backward
+    b, h, n, d = F32_PATH
+    q, k, v = inputs(b, h, h, n, n, d, False)
+    do = torch.rand((b, h, n, d), generator=gen, device=dev) - 0.5
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ctx.zero_counts()
+    o = flash_attention(*leaves, causal=True)
+    grads = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    forms = dict(ctx.fwd_forms)
+    fused = ctx.bwd_launches["fused"]
+    o_p, lse_p = ff.flash_attention_forward_plain(q, k, v, causal=True)
+    want = fb.flash_attention_backward_plain(q, k, v, o_p, lse_p, do,
+                                             causal=True)
+    e_o = ctx.diff(o, o_p)
+    e_g = max(grads_close(grads, want))
+    print(f"[fp32] path: flash_attention on fp32 {list(F32_PATH)} causal: "
+          f"launches {forms} + K4 {fused} (expect kmajor 1, fallback 1, K4 "
+          f"1); max|dO| {e_o:.3e}, worst gradient max|diff|/max(1, "
+          f"max|plain|) {e_g:.3e} (gate {F32_GATE})", flush=True)
+    _check(forms == dict(online=0, bound=0, kmajor=1, fallback=1)
+           and fused == 1, f"fp32 path launch counts {forms}, K4 {fused}")
+    _check(e_o <= F32_GATE and e_g <= F32_GATE,
+           f"fp32 path: dO {e_o:.3e}, gradients {e_g:.3e}")
+    ctx.launches["K5 fp32"] += forms["kmajor"]
+    ctx.launches["K4 fp32"] += fused
+
+
+def _ladder_rows() -> int:
+    """Rows per rank of stage 04 at the reference's shape."""
+    from cuda_flashattention_torch.examples import _ladder
+    n = LADDER_RANKS
+    while _ladder.LADDER_SEQ % n:
+        n -= 1
+    return _ladder.LADDER_SEQ // n
+
+
+def _phase_ladder(ctx):
+    """Ladder stages 00-04 and 07 through their `main` at the reference's
+    shapes (SEQ 5096, d 64; 8 ranks on card 0), each of which must print
+    its pass line; the fp32 launches of stages 03 and 04 against the
+    ring's schedule (counts zeroed before each stage, read after it);
+    stage 04 again over distinct cards when two or more are visible; the
+    torch oracle against the native C++ oracle."""
+    import importlib
+    import io
+    torch = ctx.torch
+    from cuda_flashattention_torch.examples import _ladder
+    from cuda_flashattention_torch.ops.naive import naive_attention
+    from cuda_flashattention_torch.parallel.device_ring import (
+        device_ring_matmul)
+    from cuda_flashattention_torch.runtime import native
+
+    seq = _ladder.LADDER_SEQ
+    n = LADDER_RANKS
+    while seq % n:
+        n -= 1
+    tri = n * (n - 1) // 2
+    # stage 04: the full ring (n² steps, each K1b behind its guarded
+    # fallback), then the causal ring twice (its check, then under
+    # autograd): n diagonal steps on K1 and n(n − 1)/2 full ones on K1b
+    # each, and one backward of n(n + 1)/2 K4 steps: blocks ahead skipped
+    expect = {
+        "03": dict(online=0, bound=1, kmajor=0, fallback=1, fused=0),
+        "04": dict(online=2 * n, bound=n * n + 2 * tri, kmajor=0,
+                   fallback=n * n + 2 * tri, fused=n * (n + 1) // 2),
+    }
+    one = ["--ranks", str(LADDER_RANKS), "--one-card"]
+    runs = [("00", "psum_vecadd", one), ("01", "ppermute_verify", one),
+            ("02", "overlap", one), ("03", "attention_1chip", []),
+            ("04", "ring_attention", one),
+            ("07", "device_ring",
+             ["--ranks", "4"] if torch.cuda.device_count() < 2 else [])]
+    if torch.cuda.device_count() > 1:
+        runs.append(("04", "ring_attention", ["--ranks", str(LADDER_RANKS)]))
+    for num, name, argv in runs:
+        stage = importlib.import_module(
+            f"cuda_flashattention_torch.examples.{name}")
+        ctx.zero_counts()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = stage.main(argv)
+        wall = time.perf_counter() - t0
+        text = out.getvalue()
+        print("".join(f"[ladder {num}] {line}\n"
+                      for line in text.splitlines()), end="", flush=True)
+        counts = dict(ctx.fwd_forms, fused=ctx.bwd_launches["fused"])
+        print(f"[ladder {num}] {name} {' '.join(argv)}: rc {rc}, "
+              f"{wall:.2f} s of wall; forward launches by form and K4: "
+              f"{counts}" + (f" (expect {expect[num]})" if num in expect
+                             else ""), flush=True)
+        _check(rc == 0 and "Test PASSED!" in text,
+               f"ladder stage {num} {name} {argv}: rc {rc}")
+        if num in expect:
+            _check(counts == expect[num], f"ladder stage {num} launch counts "
+                   f"{counts}, expected {expect[num]}")
+            ctx.launches["K1 fp32"] += counts["online"]
+            ctx.launches["K1b fp32"] += counts["bound"]
+            ctx.launches["K4 fp32"] += counts["fused"]
+        if num == "07":
+            _check(device_ring_matmul.launches > 0, "stage 07 launched no K9")
+    if not native.available():
+        print("[ladder] the native oracle does not build here: its check "
+              "is skipped", flush=True)
+        return
+    gen = torch.Generator(device=ctx.dev).manual_seed(5)
+    q, k, v = (torch.rand((1, 2, 256, 64), generator=gen, device=ctx.dev)
+               - 0.5 for _ in range(3))
+    for causal in (False, True):
+        o_t, lse_t = naive_attention(q, k, v, causal=causal)
+        o_n, lse_n = native.naive_attention_native(q, k, v, causal=causal)
+        e_o = float(abs(o_t.cpu().numpy() - o_n).max())
+        e_l = float(abs(lse_t.cpu().numpy() - lse_n).max())
+        print(f"[ladder] torch oracle on the card against the native C++ "
+              f"oracle ({native.num_threads()} threads), [1, 2, 256, 64] "
+              f"causal={causal}: max|dO| {e_o:.3e}, max|dLSE| {e_l:.3e} "
+              f"(gate 1e-5 / 1e-4)", flush=True)
+        _check(e_o <= 1e-5 and e_l <= 1e-4,
+               f"torch vs native oracle: {e_o:.3e} / {e_l:.3e}")
+
+
 def main() -> int:
     import torch
 
@@ -1155,7 +1572,8 @@ def main() -> int:
     failures = []
     # per kernel: ms, plain_ms, bound_ms, bound_by, library_ms, max_abs_err
     rec = {kn: dict(max_abs_err=0.0) for kn in
-           ("K1", "K1b", "K5", "K2", "K3", "K4", "K6", "K7", "K8", "K9")}
+           ("K1", "K1b", "K5", "K2", "K3", "K4", "K6", "K7", "K8", "K9",
+            "K1 fp32", "K1b fp32", "K5 fp32", "K4 fp32", "K2 fp32")}
     # launches on the main paths, summed over the runs that drive them
     launches = {kn: 0 for kn in rec}
 
@@ -2526,6 +2944,12 @@ def main() -> int:
         print("[sp-train-cards] one card visible: the sp step over distinct "
               "cards is skipped", flush=True)
 
+    # ---- 15-16. fp32: the kernels' fp32 builds and the ladder ------------
+    torch.cuda.empty_cache()
+    _phase_fp32(ctx)
+    torch.cuda.empty_cache()
+    _phase_ladder(ctx)
+
     # ---- last lines ------------------------------------------------------
     csrc = "cuda_flashattention_torch/csrc/"
     tpu = "cuda_flashattention_tpu/ops/"
@@ -2556,6 +2980,19 @@ def main() -> int:
          "pushes its shard to the next rank and orders the steps with "
          "device-side flags)", "device_ring.cu",
          "examples/07_device_ring.py:46"),
+        ("K1 fp32", "flash_attention_forward softmax=online on fp32 Q/K/V "
+         "(K1's fp32 build: tiles split into bf16 hi + lo, three wgmma "
+         "products each; ladder stage 04's diagonal ring steps)",
+         "flash_fwd.cu", "flash_fwd.py:123"),
+        ("K1b fp32", "flash_attention_forward softmax=bound on fp32 Q/K/V "
+         "(K1b's fp32 build; ladder stage 03 and stage 04's full ring "
+         "steps)", "flash_fwd_bound.cu", "flash_fwd.py:123"),
+        ("K5 fp32", "flash_attention_forward softmax=bound, causal, on fp32 "
+         "Q/K/V (K5's fp32 build; flash_attention past 5120 causal rows)",
+         "flash_fwd_kmajor.cu", "flash_fwd.py:399"),
+        ("K4 fp32", "flash_attention_backward on fp32 Q/K/V/dO (K4's fp32 "
+         "build, fp32 dK/dV; ladder stage 04's ring backward)",
+         "flash_bwd_kv.cu", "flash_bwd.py:252"),
     ]
     kernels = []
     for kn, name, source, replaces in described:

@@ -46,8 +46,8 @@ _IP = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     # ptrs[10] (q, k, v, k_scale, v_scale, q_seg, kv_seg, guard, o, lse),
     # B, H, Hkv, Nq, Nk, D, strides[9] (q/k/v: batch, head, row, in
-    # elements), k_type, v_type (0 bf16, 1 int8, 2 fp8), causal, window,
-    # kv_offset, out_f32, stream
+    # elements), k_type, v_type (0 bf16, 1 int8, 2 fp8, 3 fp32: with an
+    # fp32 q), causal, window, kv_offset, out_f32, stream
     "cfa_flash_fwd": [_PP, _I, _I, _I, _I, _I, _I, _LP,
                       _I, _I, _I, _I, _I, _I, _P],
     # ptrs[10] (q, k, v, k_scale, v_scale, q_factor, c, n_loose, o, lse),
@@ -77,9 +77,11 @@ SIGNATURES = {
     "cfa_fa1": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LP, _I, _I, _P],
     # q, k, v, dO, lse, delta, q_seg, kv_seg (int32 ids or NULL), dk, dv,
     # dq_acc (NULL: K2, else K4), B, H, Hkv, Nq, Nk, D, strides[12]
-    # (q/k/v/dO: batch, head, row), scale, causal, window, kv_offset, stream
+    # (q/k/v/dO: batch, head, row), scale, causal, window, kv_offset, f32
+    # (fp32 q/k/v/dO and dK/dV, else bf16), stream
     "cfa_flash_bwd_kv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _LP, _D, _I, _I, _I, _P],
+                         _I, _I, _I, _I, _I, _I, _LP, _D, _I, _I, _I, _I,
+                         _P],
     # q, k, v, dO, lse, delta, q_seg, kv_seg, dq, B, H, Hkv, Nq, Nk, D,
     # strides[12], scale, causal, window, kv_offset, stream
     "cfa_flash_bwd_q": [_P, _P, _P, _P, _P, _P, _P, _P, _P,

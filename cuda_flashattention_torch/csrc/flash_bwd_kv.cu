@@ -1,5 +1,6 @@
 // FlashAttention-2 backward, key-parallel, for Hopper: dK/dV (K2) and
-// dQ/dK/dV in one pass (K4), bf16 in, fp32 accumulation.
+// dQ/dK/dV in one pass (K4), bf16 in, or fp32 in and dK/dV out (the F32
+// build), fp32 accumulation.
 //
 // Replaces: cuda_flashattention_tpu/ops/flash_bwd.py::_bwd_dkdv_kernel
 // (flash_bwd.py:117, K2) and ::_bwd_fused_kernel (flash_bwd.py:252, K4).
@@ -66,6 +67,16 @@
 // P rounded to bf16 before dV += Pᵀ·dO, dS before dK += dSᵀ·Q and dQ +=
 // dS·K; all sums in fp32; GQA sums dK/dV over the group in fp32. A key tile
 // that no query sees writes zeros.
+// The F32 build (fp32 Q, K, V, dO): the producer warpgroup's 128 threads
+// read every tile and split it into bf16 hi and lo tiles (split_rows), P
+// and dS are split in registers (dS's lo tile stored beside its hi tile),
+// and each of the five products is three bf16 wgmmas (lo·hi + hi·lo +
+// hi·hi), so P and dS keep ~16 significant bits where the bf16 build
+// rounds them to 8; dK and dV are stored fp32. Split tiles double the
+// bytes: one dS tile (at d = 128 the warpgroups sync before overwriting
+// it), one Q/dO stage at d = 128, and there dQ goes into dq_acc by 8-byte
+// atomics from the registers, the staging tiles of the TMA reduce not
+// fitting (225 KB); at d = 64 it keeps both stages and the TMA reduce.
 
 #include <math.h>
 
@@ -78,6 +89,7 @@ using cfa_bound::consumer_sync;
 using cfa_bound::copy_after_wait;
 using cfa_bound::fence_proxy_async;
 using cfa_bound::fence_regs;
+using cfa_bound::F32Src;
 using cfa_bound::kNegInf;
 using cfa_bound::make_desc;
 using cfa_bound::mbar_arrive;
@@ -85,6 +97,8 @@ using cfa_bound::mbar_expect_tx;
 using cfa_bound::mbar_init;
 using cfa_bound::mbar_wait;
 using cfa_bound::smem_u32;
+using cfa_bound::split2;
+using cfa_bound::split_rows;
 using cfa_bound::swz;
 using cfa_bound::tma_load_4d;
 using cfa_bound::wgmma_commit;
@@ -95,7 +109,6 @@ using cfa_bound::wgmma_wait_one;
 constexpr double kLog2e = 1.4426950408889634;
 constexpr int BK = 128;        // keys of a CTA (two warpgroups of 64)
 constexpr int BQ = 64;         // query rows of a streamed tile
-constexpr int NST = 2;         // Q/dO stages in flight
 constexpr int NTHREADS = 384;  // two consumer warpgroups and the producer's
 static_assert(BK == cfa_bound::BM && BQ == cfa_bound::BN,
               "the forward's qk_issue / pv_issue tile shapes");
@@ -107,8 +120,8 @@ struct BwdArgs {
   const float* delta;  // [B,H,Nq], rowsum(dO ⊙ O)
   const int* q_seg;    // [B,Nq] (SEG)
   const int* kv_seg;   // [B,Nk] (SEG)
-  bf16* dk;            // [B,Hkv,Nk,D] contiguous
-  bf16* dv;
+  void* dk;            // [B,Hkv,Nk,D] contiguous, bf16 (fp32 under F32)
+  void* dv;
   float* dq_acc;       // [B,H,Nq,D] fp32, zeroed (K4)
   int B, H, Hkv, Nq, Nk;
   float scale_log2e, scale;
@@ -116,22 +129,30 @@ struct BwdArgs {
 };
 
 // Shared memory (byte offsets from a 1024-aligned base): K and V (D/64
-// slabs of 128 rows x 128 B each); K4's two dS tiles (2 slabs of 64 query
-// rows x 64 keys), used in turn, and a dQ staging tile per warpgroup (64
-// rows x 64 fp32); NST stages of Q and dO (D/64 slabs of 64 rows) and
-// their rows' LSE (log2), D and segment ids; barriers.
-template <int D, bool FUSED>
+// slabs of 128 rows x 128 B each); K4's dS tiles (2 slabs of 64 query
+// rows x 64 keys; NDS used in turn), and a dQ staging tile per warpgroup
+// (64 rows x 64 fp32) where dQ goes by TMA reduce (RED); NST stages of Q
+// and dO (D/64 slabs of 64 rows) and their rows' LSE (log2), D and segment
+// ids; barriers. Under F32 each of K, V, dS, Q and dO is a hi tile and a
+// lo tile (lo right after hi), twice the bytes: one dS tile, and at d =
+// 128 one stage and dQ added by vector atomics from the registers
+// (130 + 32 + 65 KB of the 227).
+template <int D, bool FUSED, bool F32>
 struct Layout {
-  static constexpr int KV = BK * D * 2;
+  static constexpr int PL = F32 ? 2 : 1;  // planes of a tile: hi (and lo)
+  static constexpr int NST = F32 && D == 128 ? 1 : 2;  // Q/dO stages
+  static constexpr int NDS = F32 ? 1 : 2;              // dS tiles
+  static constexpr bool RED = !F32 || D == 64;         // dQ by TMA reduce
+  static constexpr int KV = BK * D * 2;  // a bf16 K or V tile (or plane)
   static constexpr int QT = BQ * D * 2;
   static constexpr int DS = BQ * BK * 2;
   static constexpr int k_off = 0;
-  static constexpr int v_off = KV;
-  static constexpr int ds_off = 2 * KV;
+  static constexpr int v_off = PL * KV;
+  static constexpr int ds_off = 2 * PL * KV;
   static constexpr int STG = BQ * 64 * 4;  // a warpgroup's dQ staging
-  static constexpr int stg_off = ds_off + (FUSED ? 2 * DS : 0);
-  static constexpr int st_off = stg_off + (FUSED ? 2 * STG : 0);
-  static constexpr int rows_off = 2 * QT;  // within a stage
+  static constexpr int stg_off = ds_off + (FUSED ? NDS * PL * DS : 0);
+  static constexpr int st_off = stg_off + (FUSED && RED ? 2 * STG : 0);
+  static constexpr int rows_off = 2 * PL * QT;  // within a stage
   static constexpr int stage = cfa_bound::align1k(rows_off + 3 * BQ * 4);
   static constexpr int bar_off = st_off + NST * stage;
   static constexpr int bytes = bar_off + 8 * (2 * NST + 1) + 1024;
@@ -236,8 +257,9 @@ __device__ __forceinline__ void probs(const BwdArgs& a, float (&s)[32],
 
 // dQ_i (this warpgroup's part) = dS · K: at d = 128 columns 64·wg.. over
 // all 128 keys, at d = 64 all columns over the warpgroup's own 64 keys. ds:
-// the dS tile (2 slabs of 64 keys, K-major), k: the K tile.
-template <int D>
+// the dS tile (2 slabs of 64 keys, K-major), k: the K tile; ACC adds into
+// d.
+template <int D, bool ACC = false>
 __device__ __forceinline__ void dq_issue(float (&d)[32], uint32_t ds,
                                          uint32_t k, int wg) {
   constexpr int NKK = D == 128 ? BK / 16 : 4;
@@ -249,8 +271,19 @@ __device__ __forceinline__ void dq_issue(float (&d)[32], uint32_t ds,
     wgmma_ss_bf16_tb(
         d, make_desc(ds + (kb >> 6) * BQ * 128 + ((kb & 63) >> 4) * 32, 16,
                      1024, 1),
-        make_desc(k + slab * BK * 128 + kb * 128, 1024, 1024, 1), kk > 0);
+        make_desc(k + slab * BK * 128 + kb * 128, 1024, 1024, 1),
+        ACC || kk > 0);
   }
+}
+
+// The same on split tiles (F32): dS_lo·K + dS·K_lo + dS·K (the dS lo tile
+// DS bytes after its hi tile, K's lo tile KV bytes after K's).
+template <int D>
+__device__ __forceinline__ void dq_issue_f32(float (&d)[32], uint32_t ds,
+                                             uint32_t k, int wg) {
+  dq_issue<D>(d, ds + BQ * BK * 2, k, wg);
+  dq_issue<D, true>(d, ds, k + BK * D * 2, wg);
+  dq_issue<D, true>(d, ds, k, wg);
 }
 
 // One 4-D box of fp32 from shared memory added into device memory by TMA
@@ -294,9 +327,10 @@ __device__ __forceinline__ void stage_dq(uint8_t* stg, const float (&d)[32]) {
   }
 }
 
-// This warpgroup's 64 rows of dK (or dV) as bf16, past Nk skipped.
-template <int D>
-__device__ __forceinline__ void store_kv(bf16* out,
+// This warpgroup's 64 rows of dK (or dV) as bf16 (fp32 under F32), past
+// Nk skipped.
+template <int D, bool F32>
+__device__ __forceinline__ void store_kv(void* out,
                                          const float (&acc)[D / 64][32],
                                          const int (&kr)[2], int Nk,
                                          long long kv_base) {
@@ -308,22 +342,49 @@ __device__ __forceinline__ void store_kv(bf16* out,
       const int hr = (i >> 1) & 1;
       if (kr[hr] >= Nk) continue;
       const int col = sl * 64 + 8 * (i >> 2) + 2 * (lane & 3);
-      *reinterpret_cast<__nv_bfloat162*>(out + (kv_base + kr[hr]) * D + col) =
-          __floats2bfloat162_rn(acc[sl][i], acc[sl][i + 1]);
+      const long long at = (kv_base + kr[hr]) * D + col;
+      if (F32) {
+        *reinterpret_cast<float2*>(static_cast<float*>(out) + at) =
+            make_float2(acc[sl][i], acc[sl][i + 1]);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + at) =
+            __floats2bfloat162_rn(acc[sl][i], acc[sl][i + 1]);
+      }
     }
   }
 }
 
-// K2 (FUSED = false) and K4 (FUSED = true).
-template <int D, bool FUSED, bool SEG>
+// This warpgroup's dQ part (64 rows x 64 columns from col0) added into
+// dq_acc by 8-byte atomics, rows past Nq skipped: K4's fp32 build at d =
+// 128, which has no room for the staging tiles of the TMA reduce.
+template <int D>
+__device__ __forceinline__ void add_dq(float* dq_acc, const float (&d)[32],
+                                       int q0, int Nq, long long row_base,
+                                       int col0) {
+  const int lane = threadIdx.x & 31;
+  const int r = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < 32; j += 2) {
+    const int q = q0 + r + 8 * ((j >> 1) & 1);
+    if (q >= Nq) continue;
+    const int col = col0 + 8 * (j >> 2) + 2 * (lane & 3);
+    atomicAdd(reinterpret_cast<float2*>(dq_acc + (row_base + q) * D + col),
+              make_float2(d[j], d[j + 1]));
+  }
+}
+
+// K2 (FUSED = false) and K4 (FUSED = true); F32: fp32 Q, K, V, dO read
+// through f and split by the producer warpgroup, dK and dV stored fp32.
+template <int D, bool FUSED, bool SEG, bool F32>
 __global__ void __launch_bounds__(NTHREADS, 1)
     flash_bwd_kv_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_k,
                         const __grid_constant__ CUtensorMap tm_v,
                         const __grid_constant__ CUtensorMap tm_do,
                         const __grid_constant__ CUtensorMap tm_dq,
-                        const BwdArgs a) {
-  using L = Layout<D, FUSED>;
+                        const BwdArgs a, const F32Src f) {
+  using L = Layout<D, FUSED, F32>;
+  constexpr int NST = L::NST;
   constexpr int SLABS = D / 64;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -342,10 +403,12 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < NST; ++s) {
-      mbar_init(full + 8 * s, 33);  // the TMA issue and the warp's row loads
+      // the TMA issue and the warp's row loads, or under F32 the producer
+      // warpgroup's 128 threads
+      mbar_init(full + 8 * s, F32 ? 128 : 33);
       mbar_init(empty + 8 * s, 8);  // lane 0 of each consumer warp
     }
-    mbar_init(kv_bar, 1);
+    mbar_init(kv_bar, F32 ? 128 : 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -353,9 +416,28 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const int wg = threadIdx.x / 128;
   const int lane = threadIdx.x & 31;
   if (wg == 2) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
-    if (threadIdx.x >= 2 * 128 + 32) return;
-    if (lane == 0 && per_head > 0) {
+    // the producer: under F32 its 128 threads read and split every tile
+    // (split_rows), else one thread issues the TMA and its warp loads the
+    // rows' LSE, D and ids
+    if (F32) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    } else {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+      if (threadIdx.x >= 2 * 128 + 32) return;
+    }
+    const int pt = F32 ? threadIdx.x - 2 * 128 : lane;  // among the loaders
+    constexpr int NL = F32 ? 128 : 32;
+    const long long* fs = f.st;
+    if (F32 && per_head > 0) {
+      split_rows<D, 128>(smem + L::k_off, smem + L::k_off + L::KV, BK,
+                         f.p[1] + b * fs[3], fs[4], fs[5], hk, 1, BK, c0,
+                         a.Nk, pt);
+      split_rows<D, 128>(smem + L::v_off, smem + L::v_off + L::KV, BK,
+                         f.p[2] + b * fs[6], fs[7], fs[8], hk, 1, BK, c0,
+                         a.Nk, pt);
+      fence_proxy_async();
+      mbar_arrive(kv_bar);
+    } else if (!F32 && lane == 0 && per_head > 0) {
       mbar_expect_tx(kv_bar, 2 * L::KV);
       for (int sl = 0; sl < SLABS; ++sl) {
         tma_load_4d(base + L::k_off + sl * BK * 128, &tm_k, kv_bar, sl * 64,
@@ -373,7 +455,14 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         const int q0 = it * BQ;
         mbar_wait(empty + 8 * st, ((i / NST) & 1) ^ 1);
         const uint32_t dst = base + L::st_off + st * L::stage;
-        if (lane == 0) {
+        if (F32) {
+          uint8_t* stage = smem + L::st_off + st * L::stage;
+          split_rows<D, 128>(stage, stage + L::QT, BQ, f.p[0] + b * fs[0],
+                             fs[1], fs[2], h, 1, BQ, q0, a.Nq, pt);
+          split_rows<D, 128>(stage + 2 * L::QT, stage + 3 * L::QT, BQ,
+                             f.p[3] + b * fs[9], fs[10], fs[11], h, 1, BQ, q0,
+                             a.Nq, pt);
+        } else if (lane == 0) {
           mbar_expect_tx(full + 8 * st, 2 * L::QT);
           for (int sl = 0; sl < SLABS; ++sl) {
             tma_load_4d(dst + sl * BQ * 128, &tm_q, full + 8 * st, sl * 64,
@@ -386,7 +475,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         // no key, so that its P is 0), D, segment ids (-1 past Nq)
         float* rows = reinterpret_cast<float*>(smem + L::st_off +
                                                st * L::stage + L::rows_off);
-        for (int r = lane; r < BQ; r += 32) {
+        for (int r = pt; r < BQ; r += NL) {
           const int qi = q0 + r;
           const float l = qi < a.Nq ? a.lse[row_base + qi] : kNegInf;
           rows[r] = l < kNegInf * 0.5f ? INFINITY : l * (float)kLog2e;
@@ -396,6 +485,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                 qi < a.Nq ? a.q_seg[(long long)b * a.Nq + qi] : -1;
           }
         }
+        if (F32) fence_proxy_async();
         mbar_arrive(full + 8 * st);
       }
     }
@@ -403,7 +493,11 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
 
   // two consumer warpgroups, 64 keys each
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+  if (F32) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+  }
   const int window = a.causal ? a.window : 0;
   const int kc0 = c0 + 64 * wg;
   int kr[2], kseg[2] = {0, 0};  // the thread's key rows and their ids
@@ -435,16 +529,22 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       const int q0 = it * BQ;
       mbar_wait(full + 8 * st, (i / NST) & 1);
       const uint32_t q_tile = base + L::st_off + st * L::stage;
-      const uint32_t do_tile = q_tile + L::QT;
       const float* rows = reinterpret_cast<const float*>(
           smem + L::st_off + st * L::stage + L::rows_off);
 
       // Sᵀ = K·Qᵀ, then dPᵀ = V·dOᵀ; P while dPᵀ is on the tensor cores
       float s_acc[32], dp_acc[32];
+      const uint32_t do_tile = q_tile + L::PL * L::QT;
       wgmma_fence();
-      cfa_bound::qk_issue<D>(s_acc, k_tile, q_tile, wg);
-      wgmma_commit();
-      cfa_bound::qk_issue<D>(dp_acc, v_tile, do_tile, wg);
+      if (F32) {
+        cfa_bound::qk_issue_f32<D>(s_acc, k_tile, q_tile, wg);
+        wgmma_commit();
+        cfa_bound::qk_issue_f32<D>(dp_acc, v_tile, do_tile, wg);
+      } else {
+        cfa_bound::qk_issue<D>(s_acc, k_tile, q_tile, wg);
+        wgmma_commit();
+        cfa_bound::qk_issue<D>(dp_acc, v_tile, do_tile, wg);
+      }
       wgmma_commit();
       wgmma_wait_one();
       float p[32];
@@ -460,21 +560,31 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       float dp[32];
       copy_after_wait(dp, dp_acc);
 
-      // dS = P ⊙ (dP − D)·scale; P and dS as bf16 A fragments
-      uint32_t pk[16], dsk[16];
+      // dS = P ⊙ (dP − D)·scale; P and dS as bf16 A fragments (under F32
+      // each split: P = pk + pk_lo, dS = dsk + dsk_lo)
+      uint32_t pk[16], dsk[16], pk_lo[16], dsk_lo[16];
 #pragma unroll
       for (int j = 0; j < 32; j += 2) {
         const int col = 8 * (j >> 2) + 2 * (lane & 3);
         const float2 dl = *reinterpret_cast<const float2*>(rows + BQ + col);
         const float ds0 = p[j] * (dp[j] - dl.x) * a.scale;
         const float ds1 = p[j + 1] * (dp[j + 1] - dl.y) * a.scale;
-        __nv_bfloat162 pp = __floats2bfloat162_rn(p[j], p[j + 1]);
-        __nv_bfloat162 dd = __floats2bfloat162_rn(ds0, ds1);
-        pk[j >> 1] = *reinterpret_cast<uint32_t*>(&pp);
-        dsk[j >> 1] = *reinterpret_cast<uint32_t*>(&dd);
+        if (F32) {
+          split2(p[j], p[j + 1], pk[j >> 1], pk_lo[j >> 1]);
+          split2(ds0, ds1, dsk[j >> 1], dsk_lo[j >> 1]);
+        } else {
+          __nv_bfloat162 pp = __floats2bfloat162_rn(p[j], p[j + 1]);
+          __nv_bfloat162 dd = __floats2bfloat162_rn(ds0, ds1);
+          pk[j >> 1] = *reinterpret_cast<uint32_t*>(&pp);
+          dsk[j >> 1] = *reinterpret_cast<uint32_t*>(&dd);
+        }
       }
-      const uint32_t ds_tile = base + L::ds_off + (i & 1) * L::DS;
+      const uint32_t ds_tile =
+          base + L::ds_off + (L::NDS == 2 ? (i & 1) : 0) * L::PL * L::DS;
       if (FUSED) {
+        // one dS tile (F32): at d = 128 the other warpgroup may still be
+        // reading this one for the previous pair's dQ
+        if (L::NDS == 1 && D == 128) consumer_sync();
         // dSᵀ (keys x queries) into the dS tile (queries x keys): slab wg,
         // key chunk 2·warp + hr; lane l addresses row l % 8 of matrix l / 8
         const int wp = (threadIdx.x >> 5) & 3;
@@ -482,10 +592,14 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int q = 8 * (2 * c + (m >> 1)) + (lane & 7);
-          stmatrix_x4_trans(ds_tile + wg * BQ * 128 + swz(q, 2 * wp + (m & 1),
-                                                          128),
-                            dsk[4 * c], dsk[4 * c + 1], dsk[4 * c + 2],
+          const uint32_t at =
+              ds_tile + wg * BQ * 128 + swz(q, 2 * wp + (m & 1), 128);
+          stmatrix_x4_trans(at, dsk[4 * c], dsk[4 * c + 1], dsk[4 * c + 2],
                             dsk[4 * c + 3]);
+          if (F32) {
+            stmatrix_x4_trans(at + L::DS, dsk_lo[4 * c], dsk_lo[4 * c + 1],
+                              dsk_lo[4 * c + 2], dsk_lo[4 * c + 3]);
+          }
         }
         fence_proxy_async();
       }
@@ -495,18 +609,27 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       // ptxas spills at d = 128, and up to 3% slower), and the stage: Q,
       // dO and the rows are read
       wgmma_fence();
-      cfa_bound::pv_issue<D>(dv, pk, do_tile);
-      cfa_bound::pv_issue<D>(dk, dsk, q_tile);
+      if (F32) {
+        cfa_bound::pv_issue_f32<D>(dv, pk, pk_lo, do_tile);
+        cfa_bound::pv_issue_f32<D>(dk, dsk, dsk_lo, q_tile);
+      } else {
+        cfa_bound::pv_issue<D>(dv, pk, do_tile);
+        cfa_bound::pv_issue<D>(dk, dsk, q_tile);
+      }
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(pk);
       fence_regs(dsk);
+      if (F32) {
+        fence_regs(pk_lo);
+        fence_regs(dsk_lo);
+      }
       if (lane == 0) mbar_arrive(empty + 8 * st);
       if (FUSED) {
         // the staging tile is free once this warpgroup's last reduce has
         // read it; at d = 128 each warpgroup reads the other's dS slab
         const bool leader = (threadIdx.x & 127) == 0;
-        if (leader) bulk_wait_read();
+        if (L::RED && leader) bulk_wait_read();
         if (D == 128) {
           consumer_sync();
         } else {
@@ -514,22 +637,32 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         }
         float dq[32];
         wgmma_fence();
-        dq_issue<D>(dq, ds_tile, k_tile, wg);
+        if (F32) {
+          dq_issue_f32<D>(dq, ds_tile, k_tile, wg);
+        } else {
+          dq_issue<D>(dq, ds_tile, k_tile, wg);
+        }
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(dq);
-        // dQ_i's part into the staging tile, then added into dq_acc by one
-        // TMA reduce per 32 columns, issued by the warpgroup's first thread
-        uint8_t* stg = smem + L::stg_off + wg * L::STG;
-        stage_dq(stg, dq);
-        fence_proxy_async();
-        wg_sync(wg);
-        if (leader) {
-          const int col = D == 128 ? 64 * wg : 0;
-          tma_reduce_add_4d(&tm_dq, smem_u32(stg), col, q0, h, b);
-          tma_reduce_add_4d(&tm_dq, smem_u32(stg) + BQ * 128, col + 32, q0,
-                            h, b);
-          bulk_commit();
+        if (!L::RED) {
+          add_dq<D>(a.dq_acc, dq, q0, a.Nq, (long long)(b * a.H + h) * a.Nq,
+                    64 * wg);
+        } else {
+          // dQ_i's part into the staging tile, then added into dq_acc by
+          // one TMA reduce per 32 columns, issued by the warpgroup's first
+          // thread
+          uint8_t* stg = smem + L::stg_off + wg * L::STG;
+          stage_dq(stg, dq);
+          fence_proxy_async();
+          wg_sync(wg);
+          if (leader) {
+            const int col = D == 128 ? 64 * wg : 0;
+            tma_reduce_add_4d(&tm_dq, smem_u32(stg), col, q0, h, b);
+            tma_reduce_add_4d(&tm_dq, smem_u32(stg) + BQ * 128, col + 32, q0,
+                              h, b);
+            bulk_commit();
+          }
         }
       }
     }
@@ -541,45 +674,48 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
 
   // the last reduces complete before the CTA's shared memory goes
-  if (FUSED && (threadIdx.x & 127) == 0) bulk_wait();
+  if (FUSED && L::RED && (threadIdx.x & 127) == 0) bulk_wait();
   // dK, dV cast once; a key tile that no query sees writes its zeros
   const long long kv_base = (long long)(b * a.Hkv + hk) * a.Nk;
-  store_kv<D>(a.dk, dk, kr, a.Nk, kv_base);
-  store_kv<D>(a.dv, dv, kr, a.Nk, kv_base);
+  store_kv<D, F32>(a.dk, dk, kr, a.Nk, kv_base);
+  store_kv<D, F32>(a.dv, dv, kr, a.Nk, kv_base);
 }
 
-template <int D, bool FUSED, bool SEG>
+template <int D, bool FUSED, bool SEG, bool F32>
 cudaError_t launch(const CUtensorMap (&m)[5], const BwdArgs& a,
-                   cudaStream_t stream) {
-  const int smem = Layout<D, FUSED>::bytes;
-  auto kernel = flash_bwd_kv_kernel<D, FUSED, SEG>;
+                   const F32Src& f, cudaStream_t stream) {
+  const int smem = Layout<D, FUSED, F32>::bytes;
+  auto kernel = flash_bwd_kv_kernel<D, FUSED, SEG, F32>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int grid = ((a.Nk + BK - 1) / BK) * a.Hkv * a.B;
-  kernel<<<grid, NTHREADS, smem, stream>>>(m[0], m[1], m[2], m[3], m[4], a);
+  kernel<<<grid, NTHREADS, smem, stream>>>(m[0], m[1], m[2], m[3], m[4], a,
+                                           f);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool F32>
 cudaError_t launch_form(const CUtensorMap (&m)[5], const BwdArgs& a,
-                        cudaStream_t stream) {
+                        const F32Src& f, cudaStream_t stream) {
   const bool fused = a.dq_acc != nullptr;
   if (a.q_seg != nullptr) {
-    return fused ? launch<D, true, true>(m, a, stream)
-                 : launch<D, false, true>(m, a, stream);
+    return fused ? launch<D, true, true, F32>(m, a, f, stream)
+                 : launch<D, false, true, F32>(m, a, f, stream);
   }
-  return fused ? launch<D, true, false>(m, a, stream)
-               : launch<D, false, false>(m, a, stream);
+  return fused ? launch<D, true, false, F32>(m, a, f, stream)
+               : launch<D, false, false, F32>(m, a, f, stream);
 }
 
 }  // namespace
 
 // K2 when dq_acc is null, else K4 (which also adds dQ into dq_acc).
-// strides: q, k, v, dO, each (batch, head, row), in elements, every one a
-// multiple of 8 and the bases 16-byte aligned (TMA). q_seg [B, Nq] and
-// kv_seg [B, Nk] are int32 segment ids, or both null. dk, dv [B,Hkv,Nk,D]
-// contiguous; lse, delta [B,H,Nq] contiguous fp32.
+// f32: q, k, v, dO (and dk, dv) fp32, else bf16. strides: q, k, v, dO,
+// each (batch, head, row), in elements, every one a multiple of 16 bytes'
+// elements and the bases 16-byte aligned (TMA; fp32 rows are read as
+// float4). q_seg [B, Nq] and kv_seg [B, Nk] are int32 segment ids, or both
+// null. dk, dv [B,Hkv,Nk,D] contiguous; lse, delta [B,H,Nq] contiguous
+// fp32.
 extern "C" int cfa_flash_bwd_kv(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, const void* q_seg,
@@ -587,14 +723,15 @@ extern "C" int cfa_flash_bwd_kv(const void* q, const void* k, const void* v,
                                 void* dq_acc, int B, int H, int Hkv, int Nq,
                                 int Nk, int D, const long long* strides,
                                 double scale, int causal, int window,
-                                int kv_offset, void* stream) {
+                                int kv_offset, int f32, void* stream) {
   if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
   if ((q_seg == nullptr) != (kv_seg == nullptr)) return cudaErrorInvalidValue;
   if (B == 0 || Nk == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (H == 0 || Nq == 0) {
     // no query: dK and dV are zeros (and Q's maps would have no memory)
-    const size_t bytes = (size_t)B * Hkv * Nk * D * sizeof(bf16);
+    const size_t bytes =
+        (size_t)B * Hkv * Nk * D * (f32 ? sizeof(float) : sizeof(bf16));
     cudaError_t err = cudaMemsetAsync(dk, 0, bytes, st);
     if (err == cudaSuccess) err = cudaMemsetAsync(dv, 0, bytes, st);
     return err;
@@ -604,8 +741,8 @@ extern "C" int cfa_flash_bwd_kv(const void* q, const void* k, const void* v,
   a.delta = static_cast<const float*>(delta);
   a.q_seg = static_cast<const int*>(q_seg);
   a.kv_seg = static_cast<const int*>(kv_seg);
-  a.dk = static_cast<bf16*>(dk);
-  a.dv = static_cast<bf16*>(dv);
+  a.dk = dk;
+  a.dv = dv;
   a.dq_acc = static_cast<float*>(dq_acc);
   a.B = B; a.H = H; a.Hkv = Hkv; a.Nq = Nq; a.Nk = Nk;
   a.scale_log2e = (float)(scale * kLog2e);
@@ -614,16 +751,21 @@ extern "C" int cfa_flash_bwd_kv(const void* q, const void* k, const void* v,
   // Q and dO [B,H,Nq,D] in boxes of 64 columns x BQ rows; K and V
   // [B,Hkv,Nk,D] in boxes of 64 columns x BK rows; 128 B swizzled, zeros
   // past the live rows
+  // (the fp32 build reads them through F32Src instead)
   CUtensorMap m[5] = {};
+  F32Src f = {};
   const void* ptr[4] = {q, k, v, dout};
   const int heads[4] = {H, Hkv, Hkv, H};
   const int rows[4] = {Nq, Nk, Nk, Nq};
   const int box[4] = {BQ, BK, BK, BQ};
   for (int t = 0; t < 4; ++t) {
     const long long* s = strides + 3 * t;
-    if (!cfa_bound::encode4(&m[t], ptr[t], false, D, rows[t], heads[t], B,
-                            s[2] * 2, s[1] * 2, s[0] * 2, 64, box[t], 1,
-                            128)) {
+    if (f32) {
+      f.p[t] = static_cast<const float*>(ptr[t]);
+      for (int j = 0; j < 3; ++j) f.st[3 * t + j] = s[j];
+    } else if (!cfa_bound::encode4(&m[t], ptr[t], false, D, rows[t],
+                                   heads[t], B, s[2] * 2, s[1] * 2, s[0] * 2,
+                                   64, box[t], 1, 128)) {
       return cudaErrorInvalidValue;
     }
   }
@@ -647,9 +789,11 @@ extern "C" int cfa_flash_bwd_kv(const void* q, const void* k, const void* v,
   }
   switch (D) {
     case 64:
-      return launch_form<64>(m, a, st);
+      return f32 ? launch_form<64, true>(m, a, f, st)
+                 : launch_form<64, false>(m, a, f, st);
     case 128:
-      return launch_form<128>(m, a, st);
+      return f32 ? launch_form<128, true>(m, a, f, st)
+                 : launch_form<128, false>(m, a, f, st);
     default:
       return cudaErrorInvalidValue;
   }

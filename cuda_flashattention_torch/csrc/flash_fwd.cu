@@ -1,6 +1,8 @@
 // FlashAttention-2 forward with the online softmax on a Q-major walk (K1),
 // for Hopper: bf16 Q, K/V in bf16, int8 or fp8 e4m3 with per-token scales,
-// fp32 or bf16 out, with the natural-log LSE per query row.
+// or fp32 Q, K and V (the F32 build: tiles split into bf16 hi and lo,
+// flash_fwd_bound_sm90.cuh), fp32 or bf16 out, with the natural-log LSE
+// per query row.
 //
 // Replaces: cuda_flashattention_tpu/ops/flash_fwd.py::_fwd_kernel with
 // bound=False, with the causal band of its compact grid, its window and
@@ -43,21 +45,25 @@ using namespace cfa_bound;
 
 namespace {
 
-constexpr int NST = 3;  // key-tile stages in flight
 constexpr int NCV = 3;  // converted K/V pairs (one-byte K/V), used in turn
 
 // Shared memory of one CTA (byte offsets from a 1024-aligned base): the Q
-// tile; NST stages of K and V as TMA writes them (bf16 slabs, or one-byte
-// codes), each followed by the tile's K and V scales (QUANT) and key
-// segment ids (SEG); under QUANT NCV converted K/V pairs; barriers.
-template <int D, bool QUANT, bool SEG>
+// tile (under F32 its hi and lo tiles); NST stages of K and V as TMA
+// writes them (bf16 slabs, or one-byte codes; under F32 the producer
+// warpgroup's hi and lo tiles of each), each followed by the tile's K and
+// V scales (QUANT) and key segment ids (SEG); under QUANT NCV converted
+// K/V pairs; barriers. Split tiles take twice the bytes: at d = 128 two
+// stages fit, else three.
+template <int D, bool QUANT, bool SEG, bool F32>
 struct Layout {
   using T = Tiles<D, false>;
-  static constexpr int kvh = QUANT ? T::CODES : T::KV16;  // K, then V
+  static constexpr int NST = F32 && D == 128 ? 2 : 3;  // key-tile stages
+  static constexpr int kvh =                          // K, then V
+      QUANT ? T::CODES : F32 ? 2 * T::KV16 : T::KV16;
   static constexpr int tma_bytes = 2 * kvh;
   static constexpr int ids = tma_bytes + (QUANT ? 2 * BN * 4 : 0);
   static constexpr int stage = align1k(ids + (SEG ? BN * 4 : 0));
-  static constexpr int st_off = align1k(T::Q);
+  static constexpr int st_off = align1k(F32 ? 2 * T::Q : T::Q);
   static constexpr int cv_v = align1k(T::KV16);        // V in a converted pair
   static constexpr int cv_stride = align1k(cv_v + T::KV16);
   static constexpr int cv_off = st_off + NST * stage;
@@ -66,17 +72,20 @@ struct Layout {
   static_assert(bytes <= 232448, "the CTA's shared memory");
 };
 
-template <int D, bool QUANT, bool SEG>
+template <int D, bool QUANT, bool SEG, bool F32>
 __global__ void __launch_bounds__(NTHREADS, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v, const Args a,
                      const int* __restrict__ q_seg,
-                     const int* __restrict__ kv_seg, const int* guard) {
+                     const int* __restrict__ kv_seg, const int* guard,
+                     const F32Src f) {
   // the guard (a bound form's loose-row count) is read before anything
   if (guard != nullptr && *guard == 0) return;
+  static_assert(!(QUANT && F32), "fp32 K/V carry no scales");
   using T = Tiles<D, false>;
-  using L = Layout<D, QUANT, SEG>;
+  using L = Layout<D, QUANT, SEG, F32>;
+  constexpr int NST = L::NST;
   // the producer warp's per-tile loads beside the TMA: scales, segment ids
   constexpr bool SIDE = QUANT || SEG;
   extern __shared__ uint8_t smem_raw[];
@@ -97,11 +106,12 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < NST; ++s) {
-      // the TMA issue, and with SIDE the 32 lanes of the side loads
-      mbar_init(full + 8 * s, SIDE ? 33 : 1);
+      // the TMA issue, and with SIDE the 32 lanes of the side loads; under
+      // F32 the producer warpgroup's 128 threads
+      mbar_init(full + 8 * s, F32 ? 128 : SIDE ? 33 : 1);
       mbar_init(empty + 8 * s, 8);  // lane 0 of each consumer warp
     }
-    mbar_init(q_bar, 1);
+    mbar_init(q_bar, F32 ? 128 : 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -112,7 +122,32 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     // brings each tile's scales and segment ids beside the TMA
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
     const int lane = threadIdx.x & 31;
-    if (threadIdx.x < 2 * 128 + (SIDE ? 32 : 1)) {
+    if (F32) {
+      // fp32 Q/K/V: the warpgroup's 128 threads read each tile from device
+      // memory and write its hi and lo tiles (split_rows)
+      const int pt = threadIdx.x - 2 * 128;
+      const long long* st = f.st;
+      split_rows<D, 128>(smem, smem + T::Q, BM, f.p[0] + b * st[0], st[1],
+                         st[2], h0, a.Gp, a.R, q0, a.Nq, pt);
+      fence_proxy_async();
+      mbar_arrive(q_bar);
+      for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
+        const int st_i = i % NST;
+        mbar_wait(empty + 8 * st_i, ((i / NST) & 1) ^ 1);
+        uint8_t* stage = smem + L::st_off + st_i * L::stage;
+        split_rows<D, 128>(stage, stage + T::KV16, BN, f.p[1] + b * st[3],
+                           st[4], st[5], hk, 1, BN, t * BN, a.Nk, pt);
+        split_rows<D, 128>(stage + L::kvh, stage + L::kvh + T::KV16, BN,
+                           f.p[2] + b * st[6], st[7], st[8], hk, 1, BN,
+                           t * BN, a.Nk, pt);
+        if (SEG) {
+          load_ids<128>(reinterpret_cast<int*>(stage + L::ids), kv_seg, a, b,
+                        t * BN, pt);
+        }
+        fence_proxy_async();
+        mbar_arrive(full + 8 * st_i);
+      }
+    } else if (threadIdx.x < 2 * 128 + (SIDE ? 32 : 1)) {
       if (lane == 0) {
         mbar_expect_tx(q_bar, a.Gp * a.R * D * 2);
         for (int sl = 0; sl < T::SLABS; ++sl) {
@@ -212,14 +247,14 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     // once its V has gone through the P·V, in the next step.
     auto softmax = [&](int i, float (&s)[32], const float* ksc,
                        const float* vsc, const int* kseg, float (&alpha)[2],
-                       uint32_t (&pn)[16]) {
+                       uint32_t (&pn)[16], uint32_t* pn_lo) {
       const int c0 = (t_begin + i) * BN;
       if (!SEG && interior(a, c0, q0, q0 + a.R - 1)) {
-        online_step<QUANT, false, false>(a, r, s, ksc, vsc, kseg, qseg, c0, m,
-                                         l, alpha, pn);
+        online_step<QUANT, false, false, F32>(a, r, s, ksc, vsc, kseg, qseg,
+                                              c0, m, l, alpha, pn, pn_lo);
       } else {
-        online_step<QUANT, SEG, true>(a, r, s, ksc, vsc, kseg, qseg, c0, m, l,
-                                      alpha, pn);
+        online_step<QUANT, SEG, true, F32>(a, r, s, ksc, vsc, kseg, qseg, c0,
+                                           m, l, alpha, pn, pn_lo);
       }
       if (QUANT && lane == 0) mbar_arrive(empty + 8 * (i % NST));
     };
@@ -231,41 +266,47 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       const float* vsc = nullptr;
       const int* kseg;
       float s_acc[32], s[32], alpha[2];
-      uint32_t p[16];  // the P whose P·V is the next to issue
+      // the P whose P·V is the next to issue (under F32 P = p + p_lo; the
+      // products on split tiles)
+      uint32_t p[16], p_lo[16];
       // the first tile: S and its softmax, no P·V before it (acc is 0)
       tile(0, kt, vt, ksc, vsc, kseg);
       wgmma_fence();
-      qk_issue<D>(s_acc, base, kt, wg);
+      qk_issue_any<D, F32>(s_acc, base, kt, wg);
       wgmma_commit();
       wgmma_wait_all();
       copy_after_wait(s, s_acc);
-      softmax(0, s, ksc, vsc, kseg, alpha, p);
+      softmax(0, s, ksc, vsc, kseg, alpha, p, p_lo);
       uint32_t v_prev = vt;
       for (int i = 1; i < n; ++i) {
         // this tile's Q·Kᵀ, then the previous tile's P·V: the softmax runs
         // while the tensor cores do the P·V, the rescale of O after it
         tile(i, kt, vt, ksc, vsc, kseg);
         wgmma_fence();
-        qk_issue<D>(s_acc, base, kt, wg);
+        qk_issue_any<D, F32>(s_acc, base, kt, wg);
         wgmma_commit();
-        pv_issue<D>(acc, p, v_prev);
+        pv_issue_any<D, F32>(acc, p, p_lo, v_prev);
         wgmma_commit();
         wgmma_wait_one();
         copy_after_wait(s, s_acc);
-        uint32_t p_next[16];
-        softmax(i, s, ksc, vsc, kseg, alpha, p_next);
+        uint32_t p_next[16], p_lo_next[16];
+        softmax(i, s, ksc, vsc, kseg, alpha, p_next, p_lo_next);
         wgmma_wait_all();
         fence_regs(p);
+        if (F32) fence_regs(p_lo);
 #pragma unroll
         for (int sl = 0; sl < D / 64; ++sl) fence_regs(acc[sl]);
         if (!QUANT && lane == 0) mbar_arrive(empty + 8 * ((i - 1) % NST));
         scale_acc<D>(acc, alpha);
 #pragma unroll
-        for (int j = 0; j < 16; ++j) p[j] = p_next[j];
+        for (int j = 0; j < 16; ++j) {
+          p[j] = p_next[j];
+          if (F32) p_lo[j] = p_lo_next[j];
+        }
         v_prev = vt;
       }
       wgmma_fence();
-      pv_issue<D>(acc, p, v_prev);
+      pv_issue_any<D, F32>(acc, p, p_lo, v_prev);
       wgmma_commit();
       wgmma_wait_all();
 #pragma unroll
@@ -286,41 +327,47 @@ struct Extra {
   const int* guard;
 };
 
-template <int D, bool QUANT, bool SEG>
-cudaError_t launch(const Maps& mp, const Args& a, const Extra& x, int B,
-                   cudaStream_t stream) {
-  const int smem = Layout<D, QUANT, SEG>::bytes;
+template <int D, bool QUANT, bool SEG, bool F32>
+cudaError_t launch(const Maps& mp, const Args& a, const Extra& x,
+                   const F32Src& f, int B, cudaStream_t stream) {
+  const int smem = Layout<D, QUANT, SEG, F32>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, QUANT, SEG>,
+      flash_fwd_kernel<D, QUANT, SEG, F32>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Nq + a.R - 1) / a.R, a.H / a.Gp, B);
-  flash_fwd_kernel<D, QUANT, SEG>
+  flash_fwd_kernel<D, QUANT, SEG, F32>
       <<<grid, NTHREADS, smem, stream>>>(mp.q, mp.k, mp.v, a, x.q_seg,
-                                         x.kv_seg, x.guard);
+                                         x.kv_seg, x.guard, f);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_form(const Maps& mp, const Args& a, const Extra& x,
-                        int B, cudaStream_t stream) {
-  const bool quant = a.k_type != kBf16;
-  if (x.q_seg != nullptr) {
-    return quant ? launch<D, true, true>(mp, a, x, B, stream)
-                 : launch<D, false, true>(mp, a, x, B, stream);
+                        const F32Src& f, int B, cudaStream_t stream) {
+  const bool seg = x.q_seg != nullptr;
+  if (a.k_type == kF32) {
+    return seg ? launch<D, false, true, true>(mp, a, x, f, B, stream)
+               : launch<D, false, false, true>(mp, a, x, f, B, stream);
   }
-  return quant ? launch<D, true, false>(mp, a, x, B, stream)
-               : launch<D, false, false>(mp, a, x, B, stream);
+  const bool quant = a.k_type != kBf16;
+  if (seg) {
+    return quant ? launch<D, true, true, false>(mp, a, x, f, B, stream)
+                 : launch<D, false, true, false>(mp, a, x, f, B, stream);
+  }
+  return quant ? launch<D, true, false, false>(mp, a, x, f, B, stream)
+               : launch<D, false, false, false>(mp, a, x, f, B, stream);
 }
 
 }  // namespace
 
-// K1, behind `guard` when that is not null. ptrs: q (bf16 prescaled), k, v,
-// k_scale, v_scale ([B,Hkv,Nk] fp32 or NULL), q_seg ([B,Nq] int32 or
-// NULL), kv_seg ([B,Nk]), guard (int32 or NULL), o ([B,H,Nq,D]
-// contiguous), lse ([B,H,Nq]). strides: q, k, v, each (batch, head, row),
-// in elements, rows 16-byte aligned. k_type/v_type: 0 bf16, 1 int8, 2 fp8
-// e4m3 (K and V both bf16 or both one-byte).
+// K1, behind `guard` when that is not null. ptrs: q (bf16 prescaled, fp32
+// under k_type 3), k, v, k_scale, v_scale ([B,Hkv,Nk] fp32 or NULL), q_seg
+// ([B,Nq] int32 or NULL), kv_seg ([B,Nk]), guard (int32 or NULL), o
+// ([B,H,Nq,D] contiguous), lse ([B,H,Nq]). strides: q, k, v, each (batch,
+// head, row), in elements, rows 16-byte aligned. k_type/v_type: 0 bf16, 1
+// int8, 2 fp8 e4m3, 3 fp32 (K and V both bf16, both one-byte or, with an
+// fp32 Q, both fp32).
 extern "C" int cfa_flash_fwd(void* const* ptrs, int B, int H, int Hkv, int Nq,
                              int Nk, int D, const long long* strides,
                              int k_type, int v_type, int causal, int window,
@@ -328,6 +375,8 @@ extern "C" int cfa_flash_fwd(void* const* ptrs, int B, int H, int Hkv, int Nq,
   if (B == 0 || H == 0 || Nq == 0) return cudaSuccess;
   if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
   if ((k_type == kBf16) != (v_type == kBf16)) return cudaErrorInvalidValue;
+  if ((k_type == kF32) != (v_type == kF32)) return cudaErrorInvalidValue;
+  const bool f32 = k_type == kF32;
   Args a = {};
   a.k_scale = static_cast<const float*>(ptrs[3]);
   a.v_scale = static_cast<const float*>(ptrs[4]);
@@ -343,23 +392,28 @@ extern "C" int cfa_flash_fwd(void* const* ptrs, int B, int H, int Hkv, int Nq,
   a.k_type = k_type; a.v_type = v_type;
   a.causal = causal; a.window = window; a.kv_offset = kv_offset;
   a.out_f32 = out_f32;
-  if (k_type != kBf16 && (a.k_scale == nullptr || a.v_scale == nullptr)) {
+  if (k_type != kBf16 && !f32 &&
+      (a.k_scale == nullptr || a.v_scale == nullptr)) {
     return cudaErrorInvalidValue;
   }
   if ((x.q_seg == nullptr) != (x.kv_seg == nullptr)) {
     return cudaErrorInvalidValue;
   }
-  Maps mp;
-  if (!make_maps(&mp, ptrs[0], ptrs[1], ptrs[2], B, H, Hkv, Nq, Nk, D,
-                 strides, k_type, v_type, 0, a.Gp, a.R)) {
+  // the fp32 build reads its operands through F32Src, not through TMA
+  Maps mp = {};
+  F32Src f = {};
+  if (f32) {
+    f = f32_src(ptrs, strides);
+  } else if (!make_maps(&mp, ptrs[0], ptrs[1], ptrs[2], B, H, Hkv, Nq, Nk, D,
+                        strides, k_type, v_type, 0, a.Gp, a.R)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch_form<64>(mp, a, x, B, s);
+      return launch_form<64>(mp, a, x, f, B, s);
     case 128:
-      return launch_form<128>(mp, a, x, B, s);
+      return launch_form<128>(mp, a, x, f, B, s);
     default:
       return cudaErrorInvalidValue;
   }

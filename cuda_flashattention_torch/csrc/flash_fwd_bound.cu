@@ -1,6 +1,7 @@
 // FlashAttention-2 forward with the score-bound softmax on a Q-major walk
 // (K1b), for Hopper: bf16 Q, K/V in bf16, int8 or fp8 e4m3 with per-token
-// scales (or int8 Q and K under quantize_q), fp32 or bf16 out, the
+// scales (or int8 Q and K under quantize_q), or fp32 Q, K and V (the F32
+// build: tiles split into bf16 hi and lo), fp32 or bf16 out, the
 // natural-log LSE and the count of loose-bound rows.
 //
 // Replaces: cuda_flashattention_tpu/ops/flash_fwd.py::_fwd_kernel with
@@ -38,33 +39,37 @@ template <bool QUANT>
 constexpr int stages() { return QUANT ? 3 : 2; }
 
 // Shared memory of one CTA (byte offsets from a 1024-aligned base): the Q
-// tile; NST stages of K and V as TMA writes them (bf16 slabs, or one-byte
-// codes followed by the tile's K and V scales); under QUANT two converted
-// K/V pairs, used in turn; barriers.
-template <int D, bool QUANT, bool QQ>
+// tile (under F32 its hi and lo tiles); NST stages of K and V as TMA
+// writes them (bf16 slabs, or one-byte codes followed by the tile's K and
+// V scales; under F32 the producer warpgroup's hi and lo tiles of each);
+// under QUANT two converted K/V pairs, used in turn; barriers.
+template <int D, bool QUANT, bool QQ, bool F32>
 struct Layout {
   using T = Tiles<D, QQ>;
   static constexpr int NST = stages<QUANT>();
-  static constexpr int kvh = QUANT ? T::CODES : T::KV16;  // K, then V
+  static constexpr int kvh =                          // K, then V
+      QUANT ? T::CODES : F32 ? 2 * T::KV16 : T::KV16;
   static constexpr int tma_bytes = 2 * kvh;
   static constexpr int stage = align1k(tma_bytes + (QUANT ? 2 * BN * 4 : 0));
-  static constexpr int st_off = align1k(T::Q);
+  static constexpr int st_off = align1k(F32 ? 2 * T::Q : T::Q);
   static constexpr int cv_v = align1k(T::KC);          // V in a converted pair
   static constexpr int cv_stride = align1k(cv_v + T::KV16);
   static constexpr int cv_off = st_off + NST * stage;
   static constexpr int bar_off = cv_off + (QUANT ? 2 * cv_stride : 0);
   static constexpr int bytes = bar_off + 8 * (2 * NST + 1) + 1024;
+  static_assert(bytes <= 232448, "the CTA's shared memory");
 };
 
-template <int D, bool QUANT, bool QQ>
+template <int D, bool QUANT, bool QQ, bool F32>
 __global__ void __launch_bounds__(NTHREADS, 1)
     flash_fwd_bound_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v,
-                           const Args a) {
+                           const Args a, const F32Src f) {
   static_assert(QUANT || !QQ, "quantize_q reads quantized K/V");
+  static_assert(!(QUANT && F32), "fp32 K/V carry no scales");
   using T = Tiles<D, QQ>;
-  using L = Layout<D, QUANT, QQ>;
+  using L = Layout<D, QUANT, QQ, F32>;
   constexpr int NST = L::NST;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -83,11 +88,12 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < NST; ++s) {
-      // the TMA issue, and under QUANT the 32 lanes that load the scales
-      mbar_init(full + 8 * s, QUANT ? 33 : 1);
+      // the TMA issue, and under QUANT the 32 lanes that load the scales;
+      // under F32 the producer warpgroup's 128 threads
+      mbar_init(full + 8 * s, F32 ? 128 : QUANT ? 33 : 1);
       mbar_init(empty + 8 * s, 8);  // lane 0 of each consumer warp
     }
-    mbar_init(q_bar, 1);
+    mbar_init(q_bar, F32 ? 128 : 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -98,7 +104,28 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     // also brings each tile's scales beside the codes
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
     const int lane = threadIdx.x & 31;
-    if (threadIdx.x < 2 * 128 + (QUANT ? 32 : 1)) {
+    if (F32) {
+      // fp32 Q/K/V: the warpgroup's 128 threads read each tile from device
+      // memory and write its hi and lo tiles (split_rows)
+      const int pt = threadIdx.x - 2 * 128;
+      const long long* st = f.st;
+      split_rows<D, 128>(smem, smem + T::Q, BM, f.p[0] + b * st[0], st[1],
+                         st[2], h0, a.Gp, a.R, q0, a.Nq, pt);
+      fence_proxy_async();
+      mbar_arrive(q_bar);
+      for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
+        const int st_i = i % NST;
+        mbar_wait(empty + 8 * st_i, ((i / NST) & 1) ^ 1);
+        uint8_t* stage = smem + L::st_off + st_i * L::stage;
+        split_rows<D, 128>(stage, stage + T::KV16, BN, f.p[1] + b * st[3],
+                           st[4], st[5], hk, 1, BN, t * BN, a.Nk, pt);
+        split_rows<D, 128>(stage + L::kvh, stage + L::kvh + T::KV16, BN,
+                           f.p[2] + b * st[6], st[7], st[8], hk, 1, BN,
+                           t * BN, a.Nk, pt);
+        fence_proxy_async();
+        mbar_arrive(full + 8 * st_i);
+      }
+    } else if (threadIdx.x < 2 * 128 + (QUANT ? 32 : 1)) {
       if (lane == 0) {
         const int q_slabs = QQ ? 1 : T::SLABS;
         mbar_expect_tx(q_bar, a.Gp * a.R * D * (QQ ? 1 : 2));
@@ -179,42 +206,48 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         vsc = ksc + BN;
       }
       float s[32];
-      qk<D, QQ>(s, base, kt, wg);
-      uint32_t p[16];
+      qk<D, QQ, F32>(s, base, kt, wg);
+      uint32_t p[16], p_lo[16];  // under F32 P = p + p_lo
       if (interior(a, c0, q0, q0 + a.R - 1)) {
-        bound_step<QUANT, QQ, false>(a, r, s, ksc, vsc, c0, l, p);
+        bound_step<QUANT, QQ, false, F32>(a, r, s, ksc, vsc, c0, l, p, p_lo);
       } else {
-        bound_step<QUANT, QQ, true>(a, r, s, ksc, vsc, c0, l, p);
+        bound_step<QUANT, QQ, true, F32>(a, r, s, ksc, vsc, c0, l, p, p_lo);
       }
       // the stage is read: its codes and scales (QUANT) or its K (bf16;
       // V is read by the P·V below, which completes before the next wait)
       if (QUANT && lane == 0) mbar_arrive(empty + 8 * st);
-      pv<D>(acc, p, vt);
+      pv<D, F32>(acc, p, vt, p_lo);
       if (!QUANT && lane == 0) mbar_arrive(empty + 8 * st);
     }
     store_rows<D>(a, r, acc, l, b);
   }
 }
 
-template <int D, bool QUANT, bool QQ>
-cudaError_t launch(const Maps& m, const Args& a, int B, cudaStream_t stream) {
-  const int smem = Layout<D, QUANT, QQ>::bytes;
+template <int D, bool QUANT, bool QQ, bool F32>
+cudaError_t launch(const Maps& m, const Args& a, const F32Src& f, int B,
+                   cudaStream_t stream) {
+  const int smem = Layout<D, QUANT, QQ, F32>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bound_kernel<D, QUANT, QQ>,
+      flash_fwd_bound_kernel<D, QUANT, QQ, F32>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Nq + a.R - 1) / a.R, a.H / a.Gp, B);
-  flash_fwd_bound_kernel<D, QUANT, QQ>
-      <<<grid, NTHREADS, smem, stream>>>(m.q, m.k, m.v, a);
+  flash_fwd_bound_kernel<D, QUANT, QQ, F32>
+      <<<grid, NTHREADS, smem, stream>>>(m.q, m.k, m.v, a, f);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_form(const Maps& m, const Args& a, int B, int qq,
-                        cudaStream_t stream) {
-  if (a.k_type == kBf16) return launch<D, false, false>(m, a, B, stream);
-  return qq ? launch<D, true, true>(m, a, B, stream)
-            : launch<D, true, false>(m, a, B, stream);
+cudaError_t launch_form(const Maps& m, const Args& a, const F32Src& f, int B,
+                        int qq, cudaStream_t stream) {
+  if (a.k_type == kF32) {
+    return launch<D, false, false, true>(m, a, f, B, stream);
+  }
+  if (a.k_type == kBf16) {
+    return launch<D, false, false, false>(m, a, f, B, stream);
+  }
+  return qq ? launch<D, true, true, false>(m, a, f, B, stream)
+            : launch<D, true, false, false>(m, a, f, B, stream);
 }
 
 }  // namespace
@@ -223,8 +256,8 @@ cudaError_t launch_form(const Maps& m, const Args& a, int B, int qq,
 // ([B,Hkv,Nk] fp32 or NULL), q_factor ([B,H] fp32 under qq, else NULL), c
 // ([B,H,Nq]), n_loose (int32, zeroed), o ([B,H,Nq,D] contiguous), lse
 // ([B,H,Nq]). strides: q, k, v, each (batch, head, row), in elements, rows
-// 16-byte aligned. k_type/v_type: 0 bf16, 1 int8, 2 fp8 e4m3 (K and V both
-// bf16 or both one-byte).
+// 16-byte aligned. k_type/v_type: 0 bf16, 1 int8, 2 fp8 e4m3, 3 fp32 (K
+// and V both bf16, both one-byte or, with an fp32 Q, both fp32).
 extern "C" int cfa_flash_fwd_bound(void* const* ptrs, int B, int H, int Hkv,
                                    int Nq, int Nk, int D,
                                    const long long* strides, int k_type,
@@ -233,7 +266,9 @@ extern "C" int cfa_flash_fwd_bound(void* const* ptrs, int B, int H, int Hkv,
   if (B == 0 || H == 0 || Nq == 0) return cudaSuccess;
   if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
   if ((k_type == kBf16) != (v_type == kBf16)) return cudaErrorInvalidValue;
-  if (qq && k_type == kBf16) return cudaErrorInvalidValue;
+  if ((k_type == kF32) != (v_type == kF32)) return cudaErrorInvalidValue;
+  const bool f32 = k_type == kF32;
+  if (qq && (k_type == kBf16 || f32)) return cudaErrorInvalidValue;
   Args a = {};
   a.k_scale = static_cast<const float*>(ptrs[3]);
   a.v_scale = static_cast<const float*>(ptrs[4]);
@@ -249,20 +284,25 @@ extern "C" int cfa_flash_fwd_bound(void* const* ptrs, int B, int H, int Hkv,
   a.k_type = k_type; a.v_type = v_type;
   a.causal = causal; a.window = window; a.kv_offset = kv_offset;
   a.out_f32 = out_f32;
-  if (k_type != kBf16 && (a.k_scale == nullptr || a.v_scale == nullptr)) {
+  if (k_type != kBf16 && !f32 &&
+      (a.k_scale == nullptr || a.v_scale == nullptr)) {
     return cudaErrorInvalidValue;
   }
-  Maps m;
-  if (!make_maps(&m, ptrs[0], ptrs[1], ptrs[2], B, H, Hkv, Nq, Nk, D, strides,
-                 k_type, v_type, qq, a.Gp, a.R)) {
+  // the fp32 build reads its operands through F32Src, not through TMA
+  Maps m = {};
+  F32Src f = {};
+  if (f32) {
+    f = f32_src(ptrs, strides);
+  } else if (!make_maps(&m, ptrs[0], ptrs[1], ptrs[2], B, H, Hkv, Nq, Nk, D,
+                        strides, k_type, v_type, qq, a.Gp, a.R)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch_form<64>(m, a, B, qq, s);
+      return launch_form<64>(m, a, f, B, qq, s);
     case 128:
-      return launch_form<128>(m, a, B, qq, s);
+      return launch_form<128>(m, a, f, B, qq, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -30,6 +30,16 @@
 //   - A 128-row tile packs the Gp query heads of one KV head that the host
 //     chose (Gp rows blocks of R = 128 / Gp positions): each K/V tile, and
 //     each conversion of one, serves Gp heads.
+//   - fp32 Q, K and V (the F32 builds of K1, K1b, K5, and of K2/K4 in
+//     flash_bwd_kv.cu): the producer warpgroup's 128 threads read each
+//     tile from device memory and write it as two bf16 tiles, hi = bf16(x)
+//     and lo = bf16(x − hi), in the swizzle TMA would have left
+//     (split_rows); every product is three bf16 wgmmas with fp32 sums,
+//     lo·hi + hi·lo + hi·hi, and P is split the same way in registers:
+//     about 16 significant bits per operand where one bf16 rounding
+//     leaves 8, within 1e-4 of the fp32 plain version where bf16 P alone
+//     moves O by ~1e-3. Split tiles take twice the shared memory, so the
+//     F32 builds keep fewer stages (and K5 a shorter span).
 //
 // Numerics (those of the plain version, ops/flash_fwd.py::_forward_plain):
 //   s = (q̂ · k_q) · k_scale[col]     fp32; under quantize_q the int32 dot
@@ -43,7 +53,8 @@
 //       p = 2^(s − m_new); a row none of whose keys is visible yet keeps
 //       m = NEG_INF and p = 0
 //   l sums the unrounded p
-//   acc += bf16(p · v_scale[col]) · v_q     rounded AFTER the scale
+//   acc += bf16(p · v_scale[col]) · v_q     rounded AFTER the scale (F32:
+//       acc += p · v from the split products, no rounding of p to bf16)
 //   O = acc / l, LSE = ref·ln2 + ln l (ref: c bound, m online); O = 0,
 //   LSE = NEG_INF (−1e30) where l = 0.
 // FA1 (K8) has numerics of its own, in fa1.cu.
@@ -67,7 +78,7 @@ constexpr int BM = 128;        // query rows of a tile (two warpgroups)
 constexpr int BN = 64;         // keys of a tile
 constexpr int NTHREADS = 384;  // two consumer warpgroups and the producer's
 constexpr int NCONSUMER = 256;
-constexpr int kBf16 = 0, kInt8 = 1, kFp8 = 2;  // storage codes
+constexpr int kBf16 = 0, kInt8 = 1, kFp8 = 2, kF32 = 3;  // storage codes
 // a row with visible keys whose l < 2^-96 has a loose bound
 constexpr float kLooseBound = 0x1p-96f;
 constexpr float kRegrid = (float)(127.0 / 448.0);  // fp8 → int8 code units
@@ -609,9 +620,9 @@ __device__ __forceinline__ bool interior(const Args& a, int c0, int q_lo,
 }
 
 // The two products of a tile pair, issued without a fence, a commit or a
-// wait: S = Q·Kᵀ of this warpgroup's rows (bf16) and acc += P·V. qk() and
-// pv() wait for each; the online walk overlaps them.
-template <int D>
+// wait: S = Q·Kᵀ of this warpgroup's rows (bf16; ACC adds into s) and acc
+// += P·V. qk() and pv() wait for each; the online walk overlaps them.
+template <int D, bool ACC = false>
 __device__ __forceinline__ void qk_issue(float (&s)[32], uint32_t q,
                                          uint32_t k, int wg) {
 #pragma unroll
@@ -622,7 +633,8 @@ __device__ __forceinline__ void qk_issue(float (&s)[32], uint32_t q,
           s,
           make_desc(q + sl * BM * 128 + wg * 64 * 128 + kk * 32, 16, 1024,
                     1),
-          make_desc(k + sl * BN * 128 + kk * 32, 16, 1024, 1), sl + kk > 0);
+          make_desc(k + sl * BN * 128 + kk * 32, 16, 1024, 1),
+          ACC || sl + kk > 0);
     }
   }
 }
@@ -641,13 +653,144 @@ __device__ __forceinline__ void pv_issue(float (&acc)[D / 64][32],
   }
 }
 
+// The fp32 forms' products on split tiles: an fp32 operand x is held as
+// two bf16 tiles, hi = bf16(x) and lo = bf16(x − hi), lo right after hi
+// (a BM-row tile's lo BM·D·2 bytes on, a BN-row tile's BN·D·2), and a
+// product as three bf16 wgmmas with fp32 sums, lo·hi + hi·lo + hi·hi: x =
+// hi + lo to 2^-17 relatively, and the dropped lo·lo term is ~2^-16 of a
+// product, where one bf16 rounding costs 2^-9.
+template <int D>
+__device__ __forceinline__ void qk_issue_f32(float (&s)[32], uint32_t q,
+                                             uint32_t k, int wg) {
+  qk_issue<D>(s, q + BM * D * 2, k, wg);
+  qk_issue<D, true>(s, q, k + BN * D * 2, wg);
+  qk_issue<D, true>(s, q, k, wg);
+}
+
+// acc += P·V with P = p + p_lo in registers and V split in shared memory.
+template <int D>
+__device__ __forceinline__ void pv_issue_f32(float (&acc)[D / 64][32],
+                                             const uint32_t (&p)[16],
+                                             const uint32_t (&p_lo)[16],
+                                             uint32_t v) {
+  pv_issue<D>(acc, p_lo, v);
+  pv_issue<D>(acc, p, v + BN * D * 2);
+  pv_issue<D>(acc, p, v);
+}
+
+// qk_issue or, under F32, qk_issue_f32; pv_issue or pv_issue_f32.
+template <int D, bool F32>
+__device__ __forceinline__ void qk_issue_any(float (&s)[32], uint32_t q,
+                                             uint32_t k, int wg) {
+  if (F32) {
+    qk_issue_f32<D>(s, q, k, wg);
+  } else {
+    qk_issue<D>(s, q, k, wg);
+  }
+}
+template <int D, bool F32>
+__device__ __forceinline__ void pv_issue_any(float (&acc)[D / 64][32],
+                                             const uint32_t (&p)[16],
+                                             const uint32_t (&p_lo)[16],
+                                             uint32_t v) {
+  if (F32) {
+    pv_issue_f32<D>(acc, p, p_lo, v);
+  } else {
+    pv_issue<D>(acc, p, v);
+  }
+}
+
+// Two fp32 values as bf16 pairs hi = bf16(x), lo = bf16(x − hi).
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// An fp32 tile of `rows` rows x D from device memory into its bf16 hi and
+// lo tiles as wgmma reads them: D/64 slabs of `rows` rows x 128 B, 128 B
+// swizzled as TMA lays out a bf16 tile. Tile row r is position pos0 + r %
+// R of head h0 + r / R (zeros for heads from h0 + heads on, or positions
+// from n on); src is the operand at this batch, s_head and s_row its
+// strides in elements (rows 16-byte aligned). NT threads share the work;
+// tid is the thread's index among them. Each thread issues its loads four
+// at a time before it splits and stores them: one load in flight per
+// thread leaves the producer waiting out device-memory latency per 16
+// bytes. The caller fences the stores (fence_proxy_async) before wgmma may
+// read them.
+template <int D, int NT>
+__device__ __forceinline__ void split_rows(uint8_t* hi, uint8_t* lo, int rows,
+                                          const float* src, long long s_head,
+                                          long long s_row, int h0, int heads,
+                                          int R, int pos0, int n, int tid) {
+  constexpr int C4 = D / 4;  // float4s in a row
+  constexpr int U = 4;       // loads in flight per thread
+  const int total = rows * C4;
+  for (int w0 = tid; w0 < total; w0 += U * NT) {
+    float4 x[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int w = w0 + u * NT;
+      const int r = w / C4, c = w % C4;
+      const int g = r / R, pos = pos0 + r - g * R;
+      x[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (w < total && g < heads && pos < n) {
+        x[u] = __ldg(reinterpret_cast<const float4*>(
+                         src + (h0 + g) * s_head + (long long)pos * s_row) +
+                     c);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int w = w0 + u * NT;
+      if (w >= total) break;
+      const int r = w / C4, c = w % C4;
+      uint2 h, l;
+      split2(x[u].x, x[u].y, h.x, l.x);
+      split2(x[u].z, x[u].w, h.y, l.y);
+      // columns 4c .. 4c + 3: slab c / 16, 16-byte chunk (c % 16) / 2,
+      // half c % 2 of it
+      const uint32_t off =
+          (c >> 4) * rows * 128 + swz(r, (c & 15) >> 1, 128) + (c & 1) * 8;
+      *reinterpret_cast<uint2*>(hi + off) = h;
+      *reinterpret_cast<uint2*>(lo + off) = l;
+    }
+  }
+}
+
+// The fp32 operands of a call: base pointers (q, k, v and, for the
+// backward, dO) and their (batch, head, row) strides in elements. A
+// kernel parameter of the fp32 builds beside Args, which it leaves as the
+// other forms compile it.
+struct F32Src {
+  const float* p[4];
+  long long st[12];
+};
+
+// A forward entry point's q, k, v pointers and their nine strides.
+inline F32Src f32_src(void* const* ptrs, const long long* strides) {
+  F32Src f = {};
+  for (int i = 0; i < 3; ++i) f.p[i] = static_cast<const float*>(ptrs[i]);
+  for (int i = 0; i < 9; ++i) f.st[i] = strides[i];
+  return f;
+}
+
 // S[64x64] of this warpgroup's rows = Q · Kᵀ. q: the Q tile, k: the K tile
-// (shared-memory addresses).
-template <int D, bool QQ>
+// (shared-memory addresses; split tiles under F32).
+template <int D, bool QQ, bool F32 = false>
 __device__ __forceinline__ void qk(float (&s)[32], uint32_t q, uint32_t k,
                                    int wg) {
   using T = Tiles<D, QQ>;
-  if (QQ) {
+  if (F32) {
+    wgmma_fence();
+    qk_issue_f32<D>(s, q, k, wg);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+  } else if (QQ) {
     int si[32];
     wgmma_fence();
 #pragma unroll
@@ -671,12 +814,19 @@ __device__ __forceinline__ void qk(float (&s)[32], uint32_t q, uint32_t k,
 }
 
 // acc[64xD] += P[64x64] · V[64xD]: P from registers (bf16 pairs in the A
-// layout, which is S's accumulator layout), V MN-major from shared memory.
-template <int D>
+// layout, which is S's accumulator layout), V MN-major from shared memory;
+// under F32 P = p + p_lo and V split.
+template <int D, bool F32 = false>
 __device__ __forceinline__ void pv(float (&acc)[D / 64][32],
-                                   const uint32_t (&p)[16], uint32_t v) {
+                                   const uint32_t (&p)[16], uint32_t v,
+                                   const uint32_t* p_lo = nullptr) {
   wgmma_fence();
-  pv_issue<D>(acc, p, v);
+  if (F32) {
+    pv_issue_f32<D>(acc, p, *reinterpret_cast<const uint32_t(*)[16]>(p_lo),
+                    v);
+  } else {
+    pv_issue<D>(acc, p, v);
+  }
   wgmma_commit();
   wgmma_wait_all();
 #pragma unroll
@@ -706,14 +856,16 @@ __device__ __forceinline__ void scale_acc(float (&acc)[D / 64][32],
 }
 
 // The bound step on this thread's 32 scores of a tile pair: p = 2^(s − c)
-// (0 where masked), l += p, P = bf16(p · v_scale) packed in pairs. With
-// MASKED false every pair is visible and no element is tested.
-template <bool QUANT, bool QQ, bool MASKED>
+// (0 where masked), l += p, P = bf16(p · v_scale) packed in pairs (under
+// F32 split: P = p + p_lo). With MASKED false every pair is visible and no
+// element is tested.
+template <bool QUANT, bool QQ, bool MASKED, bool F32 = false>
 __device__ __forceinline__ void bound_step(const Args& a, const Rows& r,
                                            const float (&s)[32],
                                            const float* ksc, const float* vsc,
                                            int c0, float (&l)[2],
-                                           uint32_t (&p)[16]) {
+                                           uint32_t (&p)[16],
+                                           uint32_t* p_lo = nullptr) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int i = 0; i < 32; i += 2) {
@@ -738,8 +890,12 @@ __device__ __forceinline__ void bound_step(const Args& a, const Rows& r,
       l[hr] += pe;
       pr[e] = QUANT ? pe * vsc[col] : pe;
     }
-    __nv_bfloat162 pair = __floats2bfloat162_rn(pr[0], pr[1]);
-    p[i >> 1] = *reinterpret_cast<uint32_t*>(&pair);
+    if (F32) {
+      split2(pr[0], pr[1], p[i >> 1], p_lo[i >> 1]);
+    } else {
+      __nv_bfloat162 pair = __floats2bfloat162_rn(pr[0], pr[1]);
+      p[i >> 1] = *reinterpret_cast<uint32_t*>(&pair);
+    }
   }
 }
 
@@ -748,14 +904,16 @@ __device__ __forceinline__ void bound_step(const Args& a, const Rows& r,
 // share a row): the tile's row max over visible pairs, m_new = max(m, it),
 // α = 2^(m − m_new) applied to l and returned for acc (which the caller
 // scales once the P·V before it has landed), p = 2^(s − m_new) (0 where
-// masked), l += p, P = bf16(p · v_scale) packed in pairs. With MASKED
-// false every pair is visible and no element is tested; SEG adds the
-// segment-id test (kseg: the tile's key ids, qseg: the two rows' ids).
-template <bool QUANT, bool SEG, bool MASKED>
+// masked), l += p, P = bf16(p · v_scale) packed in pairs (under F32
+// split: P = p + p_lo). With MASKED false every pair is visible and no
+// element is tested; SEG adds the segment-id test (kseg: the tile's key
+// ids, qseg: the two rows' ids).
+template <bool QUANT, bool SEG, bool MASKED, bool F32 = false>
 __device__ __forceinline__ void online_step(
     const Args& a, const Rows& r, float (&s)[32], const float* ksc,
     const float* vsc, const int* kseg, const int (&qseg)[2], int c0,
-    float (&m)[2], float (&l)[2], float (&alpha)[2], uint32_t (&p)[16]) {
+    float (&m)[2], float (&l)[2], float (&alpha)[2], uint32_t (&p)[16],
+    uint32_t* p_lo = nullptr) {
   const int lane = threadIdx.x & 31;
   float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
@@ -803,8 +961,12 @@ __device__ __forceinline__ void online_step(
       l[hr] += pe;
       pr[e] = QUANT ? pe * vsc[col] : pe;
     }
-    __nv_bfloat162 pair = __floats2bfloat162_rn(pr[0], pr[1]);
-    p[i >> 1] = *reinterpret_cast<uint32_t*>(&pair);
+    if (F32) {
+      split2(pr[0], pr[1], p[i >> 1], p_lo[i >> 1]);
+    } else {
+      __nv_bfloat162 pair = __floats2bfloat162_rn(pr[0], pr[1]);
+      p[i >> 1] = *reinterpret_cast<uint32_t*>(&pair);
+    }
   }
 }
 

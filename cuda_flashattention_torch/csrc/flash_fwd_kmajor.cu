@@ -1,6 +1,8 @@
 // FlashAttention-2 forward with the score-bound softmax on a key-split walk
 // (K5), for Hopper: a span of key tiles is made resident and converted
-// once, and the Q tiles of every query head of its group stream past.
+// once, and the Q tiles of every query head of its group stream past. Its
+// F32 build reads fp32 Q, K and V and holds each tile split into bf16 hi
+// and lo tiles (a span of one key tile at d = 128, four at d = 64).
 //
 // Replaces: cuda_flashattention_tpu/ops/flash_fwd.py::_fwd_kernel_kmajor.
 // What that kernel computes is the bound forward's result (K1b) on a
@@ -40,19 +42,24 @@ namespace {
 
 constexpr int NQS = 2;  // Q tiles in flight
 
-// the most key tiles a CTA keeps resident (what fits beside the Q ring)
-__host__ __device__ constexpr int max_span(int D) { return D == 128 ? 4 : 8; }
+// the most key tiles a CTA keeps resident (what fits beside the Q ring);
+// fp32 tiles are held split, at twice the bytes
+__host__ __device__ constexpr int max_span(int D, bool f32) {
+  return f32 ? (D == 128 ? 1 : 4) : (D == 128 ? 4 : 8);
+}
 
 // Shared memory of one CTA (byte offsets from a 1024-aligned base): the
-// span's K and V tiles as wgmma reads them; the Q ring, whose space first
-// holds the span's codes under QUANT; the span's scales; barriers.
-template <int D, bool QUANT, bool QQ>
+// span's K and V tiles as wgmma reads them (under F32 the hi and lo tiles
+// of each); the Q ring (F32: split), whose space first holds the span's
+// codes under QUANT; the span's scales; barriers.
+template <int D, bool QUANT, bool QQ, bool F32>
 struct Layout {
   using T = Tiles<D, QQ>;
-  static constexpr int SPAN = max_span(D);
-  static constexpr int tile_v = align1k(T::KC);  // V after K in a tile pair
-  static constexpr int tile_stride = tile_v + T::KV16;
-  static constexpr int q_stride = align1k(T::Q);
+  static constexpr int SPAN = max_span(D, F32);
+  // V after K in a tile pair; under F32 each is hi then lo
+  static constexpr int tile_v = F32 ? 2 * T::KV16 : align1k(T::KC);
+  static constexpr int tile_stride = tile_v + (F32 ? 2 : 1) * T::KV16;
+  static constexpr int q_stride = align1k(F32 ? 2 * T::Q : T::Q);
   static constexpr int q_off = SPAN * tile_stride;
   static constexpr int raw_pair = 2 * T::CODES;  // one key tile's codes
   static constexpr int q_region = NQS * q_stride > (QUANT ? SPAN * raw_pair : 0)
@@ -64,15 +71,16 @@ struct Layout {
   static_assert(bytes <= 232448, "the CTA's shared memory");
 };
 
-template <int D, bool QUANT, bool QQ>
+template <int D, bool QUANT, bool QQ, bool F32>
 __global__ void __launch_bounds__(NTHREADS, 1)
     flash_fwd_kmajor_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
                             const __grid_constant__ CUtensorMap tm_v,
-                            const Args a) {
+                            const Args a, const F32Src f) {
   static_assert(QUANT || !QQ, "quantize_q reads quantized K/V");
+  static_assert(!(QUANT && F32), "fp32 K/V carry no scales");
   using T = Tiles<D, QQ>;
-  using L = Layout<D, QUANT, QQ>;
+  using L = Layout<D, QUANT, QQ, F32>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t base = smem_u32(smem);
@@ -104,10 +112,11 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < NQS; ++s) {
-      mbar_init(q_full + 8 * s, 1);
+      // the TMA issue, or under F32 the producer warpgroup's 128 threads
+      mbar_init(q_full + 8 * s, F32 ? 128 : 1);
       mbar_init(q_empty + 8 * s, 8);  // lane 0 of each consumer warp
     }
-    mbar_init(span_bar, 1);
+    mbar_init(span_bar, F32 ? 128 : 1);
     mbar_init(free_bar, 8);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -116,7 +125,34 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const int wg = threadIdx.x / 128;
   if (wg == 2) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
-    if (threadIdx.x == 2 * 128) {
+    if (F32) {
+      // fp32 Q/K/V: the warpgroup's 128 threads read the span and then
+      // each Q tile from device memory and write their hi and lo tiles
+      const int pt = threadIdx.x - 2 * 128;
+      const long long* st = f.st;
+      for (int j = 0; j < nt; ++j) {
+        const int t = t_lo + j;
+        uint8_t* dst = smem + j * L::tile_stride;
+        split_rows<D, 128>(dst, dst + T::KV16, BN, f.p[1] + b * st[3], st[4],
+                           st[5], hk, 1, BN, t * BN, a.Nk, pt);
+        split_rows<D, 128>(dst + L::tile_v, dst + L::tile_v + T::KV16, BN,
+                           f.p[2] + b * st[6], st[7], st[8], hk, 1, BN,
+                           t * BN, a.Nk, pt);
+      }
+      fence_proxy_async();
+      mbar_arrive(span_bar);
+      for (int item = 0; item < n_items; ++item) {
+        const int qs = item % NQS;
+        const int h0 = hk * a.G + (item / per_pack) * a.Gp;
+        const int q0 = (first + item % per_pack) * a.R;
+        mbar_wait(q_empty + 8 * qs, ((item / NQS) & 1) ^ 1);
+        uint8_t* dst = smem + L::q_off + qs * L::q_stride;
+        split_rows<D, 128>(dst, dst + T::Q, BM, f.p[0] + b * st[0], st[1],
+                           st[2], h0, a.Gp, a.R, q0, a.Nq, pt);
+        fence_proxy_async();
+        mbar_arrive(q_full + 8 * qs);
+      }
+    } else if (threadIdx.x == 2 * 128) {
       // the span: bf16 straight into its resident tiles, codes into the
       // Q ring's space for the consumers to convert
       mbar_expect_tx(span_bar, nt * (QUANT ? L::raw_pair : 2 * T::KV16));
@@ -204,14 +240,16 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         const float* ksc = QUANT ? scales + j * 2 * BN : nullptr;
         const float* vsc = QUANT ? ksc + BN : nullptr;
         float s[32];
-        qk<D, QQ>(s, q, kt, wg);
-        uint32_t p[16];
+        qk<D, QQ, F32>(s, q, kt, wg);
+        uint32_t p[16], p_lo[16];  // under F32 P = p + p_lo
         if (interior(a, t * BN, q0, q0 + a.R - 1)) {
-          bound_step<QUANT, QQ, false>(a, r, s, ksc, vsc, t * BN, l, p);
+          bound_step<QUANT, QQ, false, F32>(a, r, s, ksc, vsc, t * BN, l, p,
+                                            p_lo);
         } else {
-          bound_step<QUANT, QQ, true>(a, r, s, ksc, vsc, t * BN, l, p);
+          bound_step<QUANT, QQ, true, F32>(a, r, s, ksc, vsc, t * BN, l, p,
+                                           p_lo);
         }
-        pv<D>(acc, p, kt + L::tile_v);
+        pv<D, F32>(acc, p, kt + L::tile_v, p_lo);
       }
       if (lane == 0) mbar_arrive(q_empty + 8 * st);  // Q is read
       add_rows<D>(a, r, acc, l, b);
@@ -240,18 +278,19 @@ __global__ void __launch_bounds__(128)
   if (lane == 0) finish_row(a, row, (int)(row % a.Nq), l, a.c[row]);
 }
 
-template <int D, bool QUANT, bool QQ>
-cudaError_t launch(const Maps& m, const Args& a, int B, cudaStream_t stream) {
+template <int D, bool QUANT, bool QQ, bool F32>
+cudaError_t launch(const Maps& m, const Args& a, const F32Src& f, int B,
+                   cudaStream_t stream) {
   if (a.Nk > 0) {
-    const int smem = Layout<D, QUANT, QQ>::bytes;
+    const int smem = Layout<D, QUANT, QQ, F32>::bytes;
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kmajor_kernel<D, QUANT, QQ>,
+        flash_fwd_kmajor_kernel<D, QUANT, QQ, F32>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     const int n_tiles = (a.Nk + BN - 1) / BN;
     const dim3 grid((n_tiles + a.span - 1) / a.span, a.Hkv, B);
-    flash_fwd_kmajor_kernel<D, QUANT, QQ>
-        <<<grid, NTHREADS, smem, stream>>>(m.q, m.k, m.v, a);
+    flash_fwd_kmajor_kernel<D, QUANT, QQ, F32>
+        <<<grid, NTHREADS, smem, stream>>>(m.q, m.k, m.v, a, f);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -262,11 +301,16 @@ cudaError_t launch(const Maps& m, const Args& a, int B, cudaStream_t stream) {
 }
 
 template <int D>
-cudaError_t launch_form(const Maps& m, const Args& a, int B, int qq,
-                        cudaStream_t stream) {
-  if (a.k_type == kBf16) return launch<D, false, false>(m, a, B, stream);
-  return qq ? launch<D, true, true>(m, a, B, stream)
-            : launch<D, true, false>(m, a, B, stream);
+cudaError_t launch_form(const Maps& m, const Args& a, const F32Src& f, int B,
+                        int qq, cudaStream_t stream) {
+  if (a.k_type == kF32) {
+    return launch<D, false, false, true>(m, a, f, B, stream);
+  }
+  if (a.k_type == kBf16) {
+    return launch<D, false, false, false>(m, a, f, B, stream);
+  }
+  return qq ? launch<D, true, true, false>(m, a, f, B, stream)
+            : launch<D, true, false, false>(m, a, f, B, stream);
 }
 
 }  // namespace
@@ -274,7 +318,7 @@ cudaError_t launch_form(const Maps& m, const Args& a, int B, int qq,
 // K5. ptrs: q, k, v, k_scale, v_scale, q_factor, c, l_acc ([B,H,Nq] fp32,
 // zeroed), o_acc ([B,H,Nq,D] fp32, zeroed), n_loose, o, lse; the rest as
 // cfa_flash_fwd_bound's, and span: key tiles of 64 per CTA, 1 to
-// max_span(D) (ops/flash_fwd.py::_KMAJOR_MAX_SPAN).
+// max_span(D, fp32) (ops/flash_fwd.py::_KMAJOR_MAX_SPAN).
 extern "C" int cfa_flash_fwd_kmajor(void* const* ptrs, int B, int H, int Hkv,
                                     int Nq, int Nk, int D,
                                     const long long* strides, int k_type,
@@ -284,9 +328,11 @@ extern "C" int cfa_flash_fwd_kmajor(void* const* ptrs, int B, int H, int Hkv,
   if (B == 0 || H == 0 || Nq == 0) return cudaSuccess;
   if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
   if ((k_type == kBf16) != (v_type == kBf16)) return cudaErrorInvalidValue;
-  if (qq && k_type == kBf16) return cudaErrorInvalidValue;
+  if ((k_type == kF32) != (v_type == kF32)) return cudaErrorInvalidValue;
+  const bool f32 = k_type == kF32;
+  if (qq && (k_type == kBf16 || f32)) return cudaErrorInvalidValue;
   if (D != 64 && D != 128) return cudaErrorInvalidValue;
-  if (span < 1 || span > max_span(D)) return cudaErrorInvalidValue;
+  if (span < 1 || span > max_span(D, f32)) return cudaErrorInvalidValue;
   Args a = {};
   a.k_scale = static_cast<const float*>(ptrs[3]);
   a.v_scale = static_cast<const float*>(ptrs[4]);
@@ -305,20 +351,25 @@ extern "C" int cfa_flash_fwd_kmajor(void* const* ptrs, int B, int H, int Hkv,
   a.causal = causal; a.window = window; a.kv_offset = kv_offset;
   a.out_f32 = out_f32;
   a.span = span;
-  if (k_type != kBf16 && (a.k_scale == nullptr || a.v_scale == nullptr)) {
+  if (k_type != kBf16 && !f32 &&
+      (a.k_scale == nullptr || a.v_scale == nullptr)) {
     return cudaErrorInvalidValue;
   }
-  Maps m;
-  if (!make_maps(&m, ptrs[0], ptrs[1], ptrs[2], B, H, Hkv, Nq, Nk, D, strides,
-                 k_type, v_type, qq, a.Gp, a.R)) {
+  // the fp32 build reads its operands through F32Src, not through TMA
+  Maps m = {};
+  F32Src f = {};
+  if (f32) {
+    f = f32_src(ptrs, strides);
+  } else if (!make_maps(&m, ptrs[0], ptrs[1], ptrs[2], B, H, Hkv, Nq, Nk, D,
+                        strides, k_type, v_type, qq, a.Gp, a.R)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch_form<64>(m, a, B, qq, s);
+      return launch_form<64>(m, a, f, B, qq, s);
     case 128:
-      return launch_form<128>(m, a, B, qq, s);
+      return launch_form<128>(m, a, f, B, qq, s);
     default:
       return cudaErrorInvalidValue;
   }

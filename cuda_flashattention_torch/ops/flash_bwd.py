@@ -185,17 +185,22 @@ def flash_attention_backward_plain(
             dv.to(v.dtype))
 
 
-def _bwd_cuda(q, k, v, o, lse, do, scale, causal, window, kv_offset, q_seg,
-              kv_seg, fused):
+def _bwd_prepare(q, k, v, o, lse, do, scale, causal, window, kv_offset,
+                 q_seg, kv_seg):
+    """Check what the CUDA kernels take and lay out one call's arguments:
+    (q, f32, dk, dv, head, shape, keep), head and shape as the C entry
+    points take them around the outputs (dk and dv allocated, in k's
+    dtype), keep the tensors behind head's pointers."""
     b, h, nq, d = q.shape
     h_kv, nk = k.shape[1], k.shape[2]
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the CUDA backward takes d in {KERNEL_HEAD_DIMS}, "
                          f"got {d}")
-    for name, x in (("q", q), ("k", k), ("v", v), ("do", do)):
-        if x.dtype != torch.bfloat16:
-            raise NotImplementedError(
-                f"the CUDA backward takes bf16 inputs, got {name} {x.dtype}")
+    dtypes = [x.dtype for x in (q, k, v, do)]
+    if dtypes not in ([torch.bfloat16] * 4, [torch.float32] * 4):
+        raise NotImplementedError(
+            f"the CUDA backward takes bf16 or fp32 q/k/v/dO, all of one "
+            f"type, got {[str(t) for t in dtypes]}")
     for name, x in (("k", k), ("v", v), ("o", o), ("lse", lse), ("do", do),
                     ("q_segment_ids", q_seg), ("kv_segment_ids", kv_seg)):
         if x is not None and x.device != q.device:
@@ -216,6 +221,45 @@ def _bwd_cuda(q, k, v, o, lse, do, scale, causal, window, kv_offset, q_seg,
             None if kv_seg is None else kv_seg.data_ptr())
     shape = (b, h, h_kv, nq, nk, d, strides, resolve_scale(scale, d),
              int(bool(causal)), int(window), int(kv_offset))
+    keep = (q, k, v, do, lse, delta, q_seg, kv_seg)
+    return q, q.dtype == torch.float32, dk, dv, head, shape, keep
+
+
+def _launch_dkdv(prep):
+    """K2 on a prepared call (`_bwd_prepare`): (dK, dV)."""
+    q, f32, dk, dv, head, shape, _ = prep
+    with torch.cuda.device(q.device):
+        err = _build.library().cfa_flash_bwd_kv(
+            *head, dk.data_ptr(), dv.data_ptr(), None, *shape, int(f32),
+            torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "flash_attention_backward dK/dV kernel launch")
+        flash_attention_backward.launches["dkdv"] += 1
+    return dk, dv
+
+
+def _dkdv_cuda(q, k, v, o, lse, do, scale=None, causal=False, window=0,
+               kv_offset=0, q_segment_ids=None, kv_segment_ids=None):
+    """K2 alone on CUDA tensors, with `flash_attention_backward`'s
+    arguments: (dK, dV) in k's dtype, counted under `launches["dkdv"]`.
+    The split path's first kernel; on fp32 inputs the one way to reach
+    K2's fp32 build, since the split path refuses fp32 (its dQ kernel K3
+    is bf16-only)."""
+    return _launch_dkdv(_bwd_prepare(q, k, v, o, lse, do, scale, causal,
+                                     window, kv_offset, q_segment_ids,
+                                     kv_segment_ids))
+
+
+def _bwd_cuda(q, k, v, o, lse, do, scale, causal, window, kv_offset, q_seg,
+              kv_seg, fused):
+    if q.dtype == torch.float32 and not fused:
+        raise NotImplementedError(
+            "fused=False on fp32 inputs: the split backward's dQ kernel K3 "
+            "takes bf16 only (its fp32 build is ROADMAP queue 2, item 1); "
+            "the fused kernel K4 takes fp32")
+    prep = _bwd_prepare(q, k, v, o, lse, do, scale, causal, window,
+                        kv_offset, q_seg, kv_seg)
+    q, f32, dk, dv, head, shape, _ = prep
+    b, h, nq, d = q.shape
     launches = flash_attention_backward.launches
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -224,14 +268,12 @@ def _bwd_cuda(q, k, v, o, lse, do, scale, causal, window, kv_offset, q_seg,
             dq_acc = torch.zeros((b, h, nq, d), dtype=torch.float32,
                                  device=q.device)
             err = lib.cfa_flash_bwd_kv(*head, dk.data_ptr(), dv.data_ptr(),
-                                       dq_acc.data_ptr(), *shape, stream)
+                                       dq_acc.data_ptr(), *shape, int(f32),
+                                       stream)
             _build.check(err, "flash_attention_backward fused kernel launch")
             launches["fused"] += 1
             return dq_acc.to(q.dtype), dk, dv
-        err = lib.cfa_flash_bwd_kv(*head, dk.data_ptr(), dv.data_ptr(), None,
-                                   *shape, stream)
-        _build.check(err, "flash_attention_backward dK/dV kernel launch")
-        launches["dkdv"] += 1
+        _launch_dkdv(prep)
         dq = torch.empty((b, h, nq, d), dtype=q.dtype, device=q.device)
         err = lib.cfa_flash_bwd_q(*head, dq.data_ptr(), *shape, stream)
         _build.check(err, "flash_attention_backward dQ kernel launch")
@@ -269,7 +311,10 @@ def flash_attention_backward(
     (`CFA_BWD_FUSED_BUDGET`, `CFA_BWD_FUSED`): that budget has no GPU
     counterpart (K4 keeps no full-sequence state on chip), so neither it
     nor the environment knobs are ported. On the card the kernels take
-    bf16 q/k/v/dO with d in {64, 128}; the counts of their launches are
+    d in {64, 128} and bf16 q/k/v/dO, or fp32 ones through K4's fp32 build
+    (each tile split into bf16 hi and lo parts; dK/dV come back fp32);
+    `fused=False` takes bf16 only and raises on fp32 before any launch.
+    The counts of their launches are
     `flash_attention_backward.launches["dkdv"]`, `["dq"]` and `["fused"]`.
     """
     check_qkv(q, k, v)

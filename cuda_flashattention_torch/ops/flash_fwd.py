@@ -73,9 +73,10 @@ _ONLINE_SHORT_NQ = 5120
 _FALLBACK_SLACK_LOG2 = 96.0
 
 _SOFTMAX_MODES = ("auto", "bound", "bound_unchecked", "online")
-_STORAGE_CODES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
-# (K, V) storage pairs the kernels take: one type for both, or the "mixed"
-# cache's int8 K with fp8 V
+_STORAGE_CODES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2,
+                  torch.float32: 3}
+# (K, V) storage pairs the kernels take under a bf16 Q: one type for both,
+# or the "mixed" cache's int8 K with fp8 V
 _STORAGE_PAIRS = ((torch.bfloat16, torch.bfloat16), (torch.int8, torch.int8),
                   (torch.float8_e4m3fn, torch.float8_e4m3fn),
                   (torch.int8, torch.float8_e4m3fn))
@@ -363,18 +364,23 @@ def _ptrs(*tensors):
 
 
 # key tiles (of 64) a K5 CTA keeps resident at each head dim: what fits
-# beside its Q ring (csrc/flash_fwd_kmajor.cu, max_span)
+# beside its Q ring (csrc/flash_fwd_kmajor.cu, max_span); its fp32 build
+# holds each tile split in two bf16 tiles, twice the bytes
 _KMAJOR_MAX_SPAN = {64: 8, 128: 4}
+_KMAJOR_MAX_SPAN_F32 = {64: 4, 128: 1}
 _KMAJOR_TILE = 64
 
 
-def _kmajor_span(b: int, h_kv: int, nk: int, d: int, sms: int) -> int:
+def _kmajor_span(b: int, h_kv: int, nk: int, d: int, sms: int,
+                 f32: bool = False) -> int:
     """Key tiles per K5 CTA: the longest span the CTA can keep resident
-    whose grid (one CTA per span, KV head and batch) still holds two waves
-    of `sms` CTAs; 1, the most CTAs, when none does. Longer spans add each
-    query row's partial sums fewer times."""
+    (`f32`: in its fp32 build) whose grid (one CTA per span, KV head and
+    batch) still holds two waves of `sms` CTAs; 1, the most CTAs, when
+    none does. Longer spans add each query row's partial sums fewer
+    times."""
     tiles = cdiv(nk, _KMAJOR_TILE)
-    for span in range(_KMAJOR_MAX_SPAN[d], 1, -1):
+    longest = (_KMAJOR_MAX_SPAN_F32 if f32 else _KMAJOR_MAX_SPAN)[d]
+    for span in range(longest, 1, -1):
         if cdiv(tiles, span) * h_kv * b >= 2 * sms:
             return span
     return 1
@@ -387,15 +393,23 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the CUDA forward takes d in {KERNEL_HEAD_DIMS}, "
                          f"got {d}")
-    if q.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"the CUDA forward takes bf16 inputs, got q {q.dtype}")
     for name, x in (("k", k), ("v", v), ("k_scale", k_scale),
                     ("v_scale", v_scale), ("q_segment_ids", q_seg),
                     ("kv_segment_ids", kv_seg)):
         if x is not None and x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-    if (k.dtype, v.dtype) not in _STORAGE_PAIRS:
+    # fp32 Q, K and V go to the kernels' fp32 builds, which read them as
+    # they are and split each tile into bf16 hi and lo parts
+    f32 = q.dtype == torch.float32
+    if f32 and (k.dtype, v.dtype) != (torch.float32, torch.float32):
+        raise NotImplementedError(
+            f"the CUDA forward takes an fp32 Q with fp32 K/V only, got k "
+            f"{k.dtype} / v {v.dtype} (quantized K/V under an fp32 Q: "
+            f"ROADMAP queue 2, item 1)")
+    if not f32 and q.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"the CUDA forward takes bf16 or fp32 inputs, got q {q.dtype}")
+    if not f32 and (k.dtype, v.dtype) not in _STORAGE_PAIRS:
         raise NotImplementedError(
             f"the CUDA forward takes bf16 inputs, or K/V stored as one of "
             f"{_STORAGE_PAIRS[1:]} with scales, got k {k.dtype} / v "
@@ -463,7 +477,7 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
             n_loose = scratch[-1:].view(torch.int32)
             sms = torch.cuda.get_device_properties(
                 q.device).multi_processor_count
-            span = _kmajor_span(b, h_kv, nk, d, sms)
+            span = _kmajor_span(b, h_kv, nk, d, sms, f32)
             err = lib.cfa_flash_fwd_kmajor(
                 _ptrs(q_op, k, v, ksc, vsc, q_factor, c, l_acc, o_acc,
                       n_loose, o, lse), *shape, span, stream)
@@ -514,8 +528,11 @@ def flash_attention_forward(
     per-head int8 Q; it waives the loose-bound fallback, and over fp8 keys
     it takes a bf16 Q (else it is dropped, as in the JAX function, whose
     further gate by on-chip memory is not ported). O is in `out_dtype`
-    (default: q's dtype). On the card the kernels take a bf16 Q with d in
-    {64, 128}; `flash_attention_forward.launches` counts their launches
+    (default: q's dtype). On the card the kernels take d in {64, 128} and
+    a bf16 Q over the K/V above, or fp32 Q, K and V (their fp32 builds:
+    each tile split into bf16 hi and lo parts, each product three bf16
+    products with fp32 sums); `flash_attention_forward.launches` counts
+    their launches
     and `.form_launches` the same per form: "online", "bound", "kmajor",
     and "fallback" for the guarded online launch behind a checked bound
     call."""

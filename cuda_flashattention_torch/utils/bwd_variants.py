@@ -37,8 +37,10 @@ from pathlib import Path
 # each sends four adjacent columns of one row as one 16-byte atomic
 _ADD_DQ = """
 template <int D>
-__device__ __forceinline__ void add_dq(const BwdArgs& a, const float (&d)[32],
-                                       long long row_base, int q0, int wg) {
+__device__ __forceinline__ void add_dq_v4(const BwdArgs& a,
+                                          const float (&d)[32],
+                                          long long row_base, int q0,
+                                          int wg) {
   const int lane = threadIdx.x & 31;
   const int r = q0 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
   const bool odd = lane & 1;
@@ -59,27 +61,33 @@ __device__ __forceinline__ void add_dq(const BwdArgs& a, const float (&d)[32],
   }
 }
 
-// This warpgroup's 64 rows of dK (or dV) as bf16, past Nk skipped."""
+// This warpgroup's 64 rows of dK (or dV) as bf16 (fp32 under F32), past
+// Nk skipped."""
 
-_STAGING = """        // dQ_i's part into the staging tile, then added into dq_acc by one
-        // TMA reduce per 32 columns, issued by the warpgroup's first thread
-        uint8_t* stg = smem + L::stg_off + wg * L::STG;
-        stage_dq(stg, dq);
-        fence_proxy_async();
-        wg_sync(wg);
-        if (leader) {
-          const int col = D == 128 ? 64 * wg : 0;
-          tma_reduce_add_4d(&tm_dq, smem_u32(stg), col, q0, h, b);
-          tma_reduce_add_4d(&tm_dq, smem_u32(stg) + BQ * 128, col + 32, q0,
-                            h, b);
-          bulk_commit();
-        }
+_STAGING = """          // dQ_i's part into the staging tile, then added into dq_acc by
+          // one TMA reduce per 32 columns, issued by the warpgroup's first
+          // thread
+          uint8_t* stg = smem + L::stg_off + wg * L::STG;
+          stage_dq(stg, dq);
+          fence_proxy_async();
+          wg_sync(wg);
+          if (leader) {
+            const int col = D == 128 ? 64 * wg : 0;
+            tma_reduce_add_4d(&tm_dq, smem_u32(stg), col, q0, h, b);
+            tma_reduce_add_4d(&tm_dq, smem_u32(stg) + BQ * 128, col + 32, q0,
+                              h, b);
+            bulk_commit();
+          }
 """
 
 _EARLY_WAIT = """      wgmma_commit();
       wgmma_wait_all();
       fence_regs(pk);
       fence_regs(dsk);
+      if (F32) {
+        fence_regs(pk_lo);
+        fence_regs(dsk_lo);
+      }
       if (lane == 0) mbar_arrive(empty + 8 * st);
       if (FUSED) {"""
 
@@ -87,16 +95,18 @@ _EARLY_WAIT = """      wgmma_commit();
 VARIANTS = {
     "as_is": [],
     "red_v4": [
-        ("\n// This warpgroup's 64 rows of dK (or dV) as bf16, past Nk skipped.",
-         _ADD_DQ),
+        ("\n// This warpgroup's 64 rows of dK (or dV) as bf16 (fp32 under F32), "
+         "past\n// Nk skipped.", _ADD_DQ),
         (_STAGING,
-         "        add_dq<D>(a, dq, (long long)(b * a.H + h) * a.Nq, q0, wg);\n"),
-        ("  static constexpr int st_off = stg_off + (FUSED ? 2 * STG : 0);",
+         "          add_dq_v4<D>(a, dq, (long long)(b * a.H + h) * a.Nq, q0, "
+         "wg);\n"),
+        ("  static constexpr int st_off = stg_off + (FUSED && RED ? 2 * STG "
+         ": 0);",
          "  static constexpr int st_off = stg_off;"),
     ],
     "no_reduce": [
-        ("        if (leader) {\n          const int col",
-         "        if (leader && q0 < 0) {\n          const int col"),
+        ("          if (leader) {\n            const int col",
+         "          if (leader && q0 < 0) {\n            const int col"),
     ],
     "no_dq_add": [(_STAGING, "")],
     "late_wait": [
@@ -105,12 +115,18 @@ VARIANTS = {
         wgmma_wait_all();
         fence_regs(pk);
         fence_regs(dsk);
+        if (F32) {
+          fence_regs(pk_lo);
+          fence_regs(dsk_lo);
+        }
         if (lane == 0) mbar_arrive(empty + 8 * st);
       }
       if (FUSED) {"""),
         ("        wgmma_wait_all();\n        fence_regs(dq);\n",
          "        wgmma_wait_all();\n        fence_regs(dq);\n"
          "        fence_regs(pk);\n        fence_regs(dsk);\n"
+         "        if (F32) {\n          fence_regs(pk_lo);\n"
+         "          fence_regs(dsk_lo);\n        }\n"
          "        if (lane == 0) mbar_arrive(empty + 8 * st);\n"),
     ],
     "ascending": [
@@ -119,7 +135,8 @@ VARIANTS = {
          "  kt = blockIdx.x % ((a.Nk + BK - 1) / BK);\n"
          "  const int rest = blockIdx.x / ((a.Nk + BK - 1) / BK);"),
     ],
-    "stages3": [("constexpr int NST = 2;", "constexpr int NST = 3;")],
+    "stages3": [("  static constexpr int NST = F32 && D == 128 ? 1 : 2;",
+                 "  static constexpr int NST = F32 && D == 128 ? 1 : 3;")],
 }
 DEFAULT = ["as_is", "red_v4", "no_reduce", "no_dq_add", "late_wait",
            "ascending", "red_v4+stages3"]
@@ -196,7 +213,7 @@ def main(names) -> None:
                 lse.data_ptr(), delta.data_ptr(), None, None, dk.data_ptr(),
                 dv.data_ptr(), None if dq is None else dq.data_ptr(), b, h,
                 h_kv, nq, nk, d, strides, d ** -0.5, int(causal), window, 0,
-                torch.cuda.current_stream().cuda_stream)
+                0, torch.cuda.current_stream().cuda_stream)
 
         def run():
             if lib.cfa_flash_bwd_kv(*args) != 0:

@@ -10,7 +10,9 @@ form, mask, storage type and `quantize_q`; on peaked inputs O is also held
 to 2e-2 of the plain version's largest |O|), the decode (every storage
 type, window and `quantize_q` form), the paged decode and FA1;
 for the backward, per gradient, max |diff| <= 2e-2 · max |plain| (an
-absolute gate near the gradients' own size would pass all-zero dK)."""
+absolute gate near the gradients' own size would pass all-zero dK). The
+fp32 builds (the `test_f32_*` tests): 1e-4 on O and LSE, 1e-4 · max(1,
+max |plain|) per gradient."""
 
 import pytest
 import torch
@@ -441,8 +443,11 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="d in"):
         flash_attention_forward(q, q, q)
     q32 = torch.zeros(1, 2, 8, 64, device=dev)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        flash_attention_forward(q32, q32, q32)
+    q16 = q32.half()
+    with pytest.raises(NotImplementedError, match="bf16 or fp32"):
+        flash_attention_forward(q16, q16, q16)
+    with pytest.raises(NotImplementedError, match="fp32 K/V only"):
+        flash_attention_forward(q32, q[..., :64], q[..., :64])
     lens = torch.ones(1, dtype=torch.int32, device=dev)
     with pytest.raises(NotImplementedError, match="bf16 q"):
         decode_attention(q32[:, :, 0], q32, q32, lens)
@@ -452,8 +457,10 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(NotImplementedError, match="cache"):  # no scales
         decode_attention(qd, kd.to(torch.int8), kd.to(torch.int8), lens)
     lse = torch.zeros(1, 2, 8, device=dev)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        flash_attention_backward(q32, q32, q32, q32, lse, q32)
+    with pytest.raises(NotImplementedError, match="bf16 or fp32"):
+        flash_attention_backward(q16, q16, q16, q16, lse, q16)
+    with pytest.raises(NotImplementedError, match="all of one type"):
+        flash_attention_backward(q32, q32, q32, q32, lse, q32.bfloat16())
     with pytest.raises(ValueError, match="d in"):
         flash_attention_backward(q, q, q, q, lse, q)
 
@@ -1628,3 +1635,244 @@ def test_decode_split_sizes_agree(dev, d):
             assert _err(lse, lse_p) <= GATE, size
     finally:
         dec.SPLIT_KEYS = keys
+
+
+# ---------------------------------------------------------------------------
+# fp32 inputs: the fp32 builds of K1, K1b, K5 (forward) and K4, K2
+# (backward) against the plain fp32 versions. Gates: O and LSE within 1e-4,
+# each gradient within 1e-4 · max(1, max |plain|), on flat inputs
+# (uniform ±0.5) and peaked ones (Q x8, K x4). The plain versions run with
+# TF32 off, so that they are fp32 products.
+# ---------------------------------------------------------------------------
+
+F32_GATE = 1e-4
+
+
+@pytest.fixture
+def no_tf32():
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _f32_inputs(dev, b, h, h_kv, nq, nk, d, seed, peaked):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=dev) - 0.5
+    q, k, v = u(b, h, nq, d), u(b, h_kv, nk, d), u(b, h_kv, nk, d)
+    if peaked:
+        q, k = q * 8, k * 4
+    return q, k, v
+
+
+def _assert_f32_fwd(got, want, lse_scale=1.0):
+    """O within the fp32 gate, LSE within it times `lse_scale` (scores of
+    a magnitude past the bar's inputs carry their relative error)."""
+    (o, lse), (o_p, lse_p) = got, want
+    assert o.dtype == o_p.dtype and lse.dtype == torch.float32
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    assert o_p.abs().max().item() > 0, "the plain O is all zero"
+    assert _err(o, o_p) <= F32_GATE, _err(o, o_p)
+    assert _err(lse, lse_p) <= F32_GATE * lse_scale, _err(lse, lse_p)
+
+
+def _assert_f32_grad(got, want, name):
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    top = want.abs().max().item()
+    assert top > 0, f"{name}: the plain gradient is all zero"
+    assert _err(got, want) <= F32_GATE * max(1.0, top), (name, _err(got,
+                                                                   want))
+
+
+_F32_SHAPES = [
+    # (b, h, h_kv, nq, nk, d, kw)
+    (1, 1, 1, 512, 512, 64, dict()),                         # 02_fwd's
+    (2, 8, 2, 300, 200, 128, dict(causal=True, kv_offset=100)),  # GQA 4
+    (1, 4, 4, 70, 130, 64, dict(causal=True, kv_offset=-20)),    # empty rows
+    (1, 16, 4, 257, 257, 128, dict(causal=True)),            # GQA 16:4
+    (2, 4, 1, 200, 333, 64, dict(causal=True, window=90, kv_offset=133)),
+    (1, 8, 8, 130, 500, 128, dict()),
+]
+
+
+@pytest.mark.parametrize("peaked", [False, True])
+@pytest.mark.parametrize("form", ["online", "bound", "kmajor"])
+@pytest.mark.parametrize("b,h,h_kv,nq,nk,d,kw", _F32_SHAPES)
+def test_f32_forward_kernels(dev, no_tf32, form, peaked, b, h, h_kv, nq, nk,
+                             d, kw):
+    """K1 (online), K1b and K5 (each pinned) on fp32 Q/K/V against the
+    plain fp32 version: one launch of the form, fp32 O, 1e-4."""
+    q, k, v = _f32_inputs(dev, b, h, h_kv, nq, nk, d, nq + nk, peaked)
+    _nan_fill_allocator(dev)
+    before = _form_counts()
+    if form == "online":
+        got = flash_attention_forward(q, k, v, softmax="online", **kw)
+        want = flash_attention_forward_plain(q, k, v, softmax="online", **kw)
+    else:
+        got = _pinned(form, q, k, v, **kw)
+        want = flash_attention_forward_plain(
+            q, k, v, softmax="bound_unchecked", **kw)
+    torch.cuda.synchronize()
+    after = _form_counts()
+    assert {n: after[n] - before[n] for n in after} == {
+        "online": int(form == "online"), "bound": int(form == "bound"),
+        "kmajor": int(form == "kmajor"), "fallback": 0}
+    _assert_f32_fwd(got, want)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_f32_forward_auto_and_bf16_out(dev, no_tf32, out_dtype):
+    """What "auto" routes fp32 to (K1b with its guarded fallback at the
+    ladder's non-causal shape; K5 on a causal call past 5120 rows; K1 on a
+    short causal one), O in fp32 or bf16."""
+    cases = [((1, 1, 1, 1000, 1000, 64), dict(), "bound"),
+             ((1, 2, 2, 5200, 5200, 64), dict(causal=True), "kmajor"),
+             ((1, 2, 1, 600, 600, 128), dict(causal=True), "online")]
+    for shape, kw, form in cases:
+        q, k, v = _f32_inputs(dev, *shape, 11, False)
+        before = _form_counts()
+        got = flash_attention_forward(q, k, v, out_dtype=out_dtype, **kw)
+        want = flash_attention_forward_plain(q, k, v, out_dtype=out_dtype,
+                                             **kw)
+        torch.cuda.synchronize()
+        grown = {n: _form_counts()[n] - before[n] for n in before}
+        assert grown[form] == 1, (form, grown)
+        assert got[0].dtype == out_dtype
+        if out_dtype == torch.float32:
+            _assert_f32_fwd(got, want)
+        else:  # one bf16 rounding of O apart at most
+            assert _err(got[0], want[0]) <= 2 ** -8
+            assert _err(got[1], want[1]) <= F32_GATE
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_f32_forward_segments(dev, no_tf32, causal):
+    """fp32 K1 under segment ids (its SEG build), against the plain
+    version."""
+    b, h, n, d = 2, 4, 300, 64
+    q, k, v = _f32_inputs(dev, b, h, h, n, n, d, 3, True)
+    ids = torch.arange(n, device=dev) // 70
+    seg = torch.stack([ids, (ids + 1) % 3])
+    kw = dict(causal=causal, q_segment_ids=seg, kv_segment_ids=seg)
+    got = flash_attention_forward(q, k, v, **kw)
+    want = flash_attention_forward_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _assert_f32_fwd(got, want)
+
+
+def test_f32_loose_bound_falls_back_to_online(dev, no_tf32):
+    """A loose bound on fp32 inputs (anti-aligned Q and K of huge norm):
+    K1b counts the rows and the guarded fp32 K1 rewrites them."""
+    b, h, n, d = 1, 2, 256, 64
+    q, k, v = _f32_inputs(dev, b, h, h, n, n, d, 5, False)
+    q = q.abs() * 40
+    k = -k.abs() * 40
+    k[:, :, 0] = k[:, :, 0].abs()  # one key far above the rows' scores
+    before = _form_counts()
+    got = flash_attention_forward(q, k, v, softmax="bound")
+    want = flash_attention_forward_plain(q, k, v, softmax="online")
+    torch.cuda.synchronize()
+    after = _form_counts()
+    assert after["bound"] - before["bound"] == 1
+    assert after["fallback"] - before["fallback"] == 1
+    # the rows' LSE is ~1000 (inputs x40): held relative to it
+    _assert_f32_fwd(got, want, lse_scale=want[1].abs().max().item())
+
+
+_F32_BWD_SHAPES = [
+    # (b, h, h_kv, nq, nk, d, kw)
+    (1, 4, 4, 512, 512, 64, dict(causal=True)),
+    (2, 8, 2, 300, 200, 128, dict(causal=True, kv_offset=100)),
+    (1, 4, 2, 70, 260, 64, dict(causal=True, kv_offset=-20)),
+    (1, 16, 4, 257, 257, 128, dict(causal=True)),
+    (2, 4, 1, 200, 333, 64, dict(causal=True, window=90, kv_offset=133)),
+    (1, 8, 8, 130, 500, 128, dict()),
+]
+
+
+def _f32_bwd_inputs(dev, b, h, h_kv, nq, nk, d, kw, peaked, seed):
+    q, k, v = _f32_inputs(dev, b, h, h_kv, nq, nk, d, seed, peaked)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    do = torch.rand((b, h, nq, d), generator=gen, device=dev) - 0.5
+    o, lse = flash_attention_forward_plain(q, k, v, softmax="online", **kw)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("peaked", [False, True])
+@pytest.mark.parametrize("b,h,h_kv,nq,nk,d,kw", _F32_BWD_SHAPES)
+def test_f32_backward_kernels(dev, no_tf32, peaked, b, h, h_kv, nq, nk, d,
+                              kw):
+    """K4 (fused) and K2 (dK/dV alone) on fp32 inputs against the plain
+    fp32 backward: fp32 gradients within 1e-4 · max(1, max |plain|)."""
+    from cuda_flashattention_torch.ops import flash_bwd as fb
+    args = _f32_bwd_inputs(dev, b, h, h_kv, nq, nk, d, kw, peaked, nq + nk)
+    want = flash_attention_backward_plain(*args, **kw)
+    _nan_fill_allocator(dev)
+    before = dict(flash_attention_backward.launches)
+    got = flash_attention_backward(*args, **kw)
+    dk2, dv2 = fb._dkdv_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    after = flash_attention_backward.launches
+    assert {n: after[n] - before[n] for n in after} == {
+        "fused": 1, "dkdv": 1, "dq": 0}
+    for g, w, name in zip((*got, dk2, dv2), (*want, *want[1:]),
+                          ("dQ", "dK", "dV", "K2 dK", "K2 dV")):
+        _assert_f32_grad(g, w, name)
+    # K2 and K4 share the dK/dV walk: the same bits
+    assert torch.equal(dk2, got[1]) and torch.equal(dv2, got[2])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_f32_backward_segments(dev, no_tf32, causal):
+    """K4's fp32 SEG build against the plain fp32 backward."""
+    b, h, n, d = 2, 4, 300, 128
+    ids = torch.arange(n, device=dev) // 70
+    seg = torch.stack([ids, (ids + 1) % 3])
+    kw = dict(causal=causal, q_segment_ids=seg, kv_segment_ids=seg)
+    q, k, v, _, _, do = _f32_bwd_inputs(dev, b, h, h, n, n, d, {}, True, 9)
+    o, lse = flash_attention_forward_plain(q, k, v, **kw)
+    want = flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
+    got = flash_attention_backward(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("dQ", "dK", "dV")):
+        _assert_f32_grad(g, w, name)
+
+
+def test_f32_split_backward_raises_before_any_launch(dev):
+    """fused=False on fp32 raises, naming the ROADMAP item, and launches
+    neither K2 nor K3."""
+    args = _f32_bwd_inputs(dev, 1, 2, 2, 64, 64, 64, {}, False, 1)
+    before = dict(flash_attention_backward.launches)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+        flash_attention_backward(*args, fused=False)
+    assert flash_attention_backward.launches == before
+
+
+def test_f32_autograd_through_the_kernels(dev, no_tf32):
+    """flash_attention on fp32 [B,N,H,d] views: K1 once and K4 once, fp32
+    gradients within the fp32 gate of the plain backward."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=dev) - 0.5
+    q = u(2, 300, 8, 128).transpose(1, 2).requires_grad_(True)
+    k = u(2, 300, 2, 128).transpose(1, 2).requires_grad_(True)
+    v = u(2, 300, 2, 128).transpose(1, 2).requires_grad_(True)
+    do = u(2, 300, 8, 128).transpose(1, 2)
+    fwd0 = flash_attention_forward.launches
+    bwd0 = flash_attention_backward.launches["fused"]
+    o = flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(o, (q, k, v), grad_outputs=do)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.float32
+    assert flash_attention_forward.launches == fwd0 + 1
+    assert flash_attention_backward.launches["fused"] == bwd0 + 1
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    o_p, lse = flash_attention_forward_plain(qd, kd, vd, causal=True)
+    assert _err(o, o_p) <= F32_GATE
+    want = flash_attention_backward_plain(qd, kd, vd, o_p, lse, do,
+                                          causal=True)
+    for g, w, name in zip(grads, want, ("dQ", "dK", "dV")):
+        _assert_f32_grad(g, w, name)

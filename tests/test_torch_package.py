@@ -203,7 +203,7 @@ def test_key_parallel_backward_is_a_hopper_kernel():
     assert "flash_bwd_q_kernel" in k3 and "cfa_flash_bwd_q(" in k3
     assert "flash_bwd_kv_kernel" not in k3
     assert "cfa_flash_bwd_kv" not in k3
-    assert len(_build.SIGNATURES["cfa_flash_bwd_kv"]) == 23
+    assert len(_build.SIGNATURES["cfa_flash_bwd_kv"]) == 24
 
 
 def test_dq_kernel_is_a_hopper_kernel():
