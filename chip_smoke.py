@@ -197,14 +197,44 @@ Phases, each of which raises on failure (so the script exits non-zero):
    16, 6144, 128] causal (past the online rule's 5120 rows), forward and
    backward against the plain versions: K5 1, its guarded fallback 1, K4
    1.
-16. The ladder (`cuda_flashattention_torch/examples`): stages 00-04 and 07
+16. fp32 and narrow heads in decode: K6 and K7 against their plain
+   versions at the serving batch (B=8, H=16, Hkv=4, 4224 live tokens of
+   a 4352-token cache, cold L2), flat and peaked inputs: K6 on an fp32 q
+   at d=128 over fp32, int8, fp8 and mixed caches beside the bf16 row;
+   K6 and K7 (16-token pages, bit for bit against K6 on the same keys)
+   at d = 32 and 16 on bf16 and fp32, and fp32 over int8 at d = 16.
+   Gates: fp32 1e-4 on O and LSE, bf16 5e-3 and 2e-2 · max |plain O|.
+   Each row: kernel ms (torch.profiler), its bytes bound (fp32: 4 bytes
+   an element), plain ms and the library call's (SDPA on the one-row
+   query under the length mask, on the dequantised K/V; TF32 off).
+17. Narrow heads in the forward and K4: K1 (online), K1b and K5 (pinned)
+   and K4 at d = 16 and 32 on heads zero-padded to 64, at [1, 16, 4096,
+   d] causal, fp32 and bf16, against the plain versions at d (fp32 1e-4,
+   per gradient 1e-4 · max(1, max |plain|); bf16 5e-3 and 2e-2 · max
+   |plain|); each row's ms beside the bound of the function at d, the
+   d=64 build on unpadded inputs, plain and library ms.
+18. Main path of fp32 serving: the 246M serving config with
+   `dtype=torch.float32` runs `generate()` on B=8 prompts of 512 tokens
+   for 32 new tokens, greedily, over an fp32 and an int8 cache: K1's
+   fp32 build once per layer, K6's fp32 builds once per layer and token;
+   against the same model on the plain attention functions, the fp32
+   run's tokens equal and its prefill logits within 1e-3 · max(1, max
+   |plain|); the int8 cache, replayed on the fp32 run's tokens, within
+   0.25 of its last-step logits.
+19. The ladder model trains: stage 05's config (fp32, d_head 16) takes 3
+   `make_train_step` SGD steps on B=4 x T=64, K1 and K4 once per layer
+   and step on heads padded to 64; one step's loss and gradients against
+   the plain attention functions (1e-4 · max(1, max |plain|)).
+20. The ladder (`cuda_flashattention_torch/examples`): stages 00-07
    through their `main` at the reference's shapes (SEQ 5096, d 64; 8
    ranks on card 0; stage 04 again over distinct cards when two or more
-   are visible), each printing `Test PASSED!`; the fp32 launches of
-   stage 03 (K1b 1 + its guarded fallback) and stage 04 (the full ring's
-   64 K1b steps, the causal ring's 8 K1 and 28 K1b steps twice, 36 K4)
-   against the ring's schedule; the torch oracle on the card against the
-   native C++ oracle (`runtime/native.py`) at [1, 2, 256, 64].
+   are visible; stage 05's fp32 model at d_head 16, stage 06's fp32
+   pools at d 32), each printing `Test PASSED!`; the fp32 launches of
+   stage 03 (K1b 1 + its guarded fallback), stage 04 (the full ring's
+   64 K1b steps, the causal ring's 8 K1 and 28 K1b steps twice, 36 K4),
+   stage 05 (K1 20, K6 32) and stage 06 (K7 10, K6 10) against their
+   schedules; the torch oracle on the card against the native C++ oracle
+   (`runtime/native.py`) at [1, 2, 256, 64].
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; a kernel's `launches` in the JSON line is its sum over
@@ -214,7 +244,8 @@ models, the split-backward step, the ring-attention cases, Ulysses, the
 ring-decode calls, the sequence- and tensor-parallel train steps, the
 pipelined
 forward, the device-ring stage; for the fp32 forms the ladder's stages 03
-and 04 and the fp32 `flash_attention` path). Launches made to compare a
+to 06, the fp32 `flash_attention` path, the fp32 `generate()` runs and
+the ladder model's training steps). Launches made to compare a
 kernel with its plain version or to time it are not in it, nor are K1's guarded
 fallback launches behind a checked bound call, which exit at once.
 
@@ -1082,13 +1113,15 @@ def _bound_f32(nbytes: float, flops: float) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def _call_ms(fn, label, iters=3, attempts=3) -> float:
+def _call_ms(fn, label, iters=3, attempts=3, before=None) -> float:
     """Device ms per call of package kernel `label` (torch.profiler): its
     launches' time over the launches of its main kernel (K5's finalise
-    is added to its kernel's call); NaN when none was recorded."""
+    is added to its kernel's call); NaN when none was recorded. `before()`,
+    when given, runs ahead of each call (to evict the L2 cache, say)."""
     from cuda_flashattention_torch.utils.profiling import kernel_times
     for _ in range(attempts):
-        prof = kernel_times(fn, iters=iters)
+        prof = kernel_times(fn if before is None else
+                            lambda: (before(), fn()), iters=iters)
         names = [n for n in prof.ms if _kernel_of(n) == label]
         calls = sum(prof.count[n] for n in names if "finalize" not in n)
         if calls:
@@ -1354,6 +1387,455 @@ def _phase_fp32(ctx):
     ctx.launches["K4 fp32"] += fused
 
 
+# K6 / K7 on an fp32 q and at the narrow heads: the serving batch over
+# 4224 live tokens of a 4352-token cache, as the bf16 decode rows
+DEC_LIVE, DEC_CAP, DEC_PAGE = 4224, 4352, 16
+# the forward and K4 at the narrow heads: the training shape at d < 64
+NARROW_FWD = (1, 16, 4096)
+# fp32 serving at full width: B, prompt, new tokens (greedy)
+F32_GEN = (8, 512, 32)
+# first-step logits of the fp32 model through the kernels against the same
+# through the plain attention functions, times max(1, max |plain|)
+F32_LOGIT_GATE = 1e-3
+# the ladder model's training steps at d_head 16
+LADDER_TRAIN_STEPS, LADDER_TRAIN_T = 3, 64
+
+
+def _phase_decode_f32(ctx):
+    """K6 and K7 on an fp32 q and at d = 16 and 32 against their plain
+    versions at the serving batch (B=8, H=16, Hkv=4, 4224 live tokens of
+    4352), on flat and peaked inputs: K6 fp32 at d=128 over fp32, int8,
+    fp8 and mixed caches beside the bf16 row; K6 and K7 (16-token pages,
+    bit for bit against K6 on the same keys) at d = 32 and 16 on bf16 and
+    fp32, and fp32 over int8 at d = 16. Each row: the kernel's ms on a
+    cold L2 (torch.profiler), its bytes bound, the plain ms and the
+    library call's (SDPA on the one-row query under the length mask, on
+    the dequantised K/V in q's dtype; TF32 off)."""
+    torch = ctx.torch
+    F = torch.nn.functional
+    from cuda_flashattention_torch.ops.decode import (
+        decode_attention, decode_attention_plain)
+    from cuda_flashattention_torch.ops.paged import (
+        paged_decode_attention, paged_decode_attention_plain)
+    from cuda_flashattention_torch.ops.quant import quantize_kv
+    from cuda_flashattention_torch.utils.timing import cuda_time_ms
+    dev, card = ctx.dev, ctx.card
+    b, h, hkv = BATCH, 16, 4
+    gen = torch.Generator(device=dev).manual_seed(13)
+    lens = torch.full((b,), DEC_LIVE, dtype=torch.int32, device=dev)
+    live = torch.arange(DEC_CAP, device=dev)[None, :] < lens[:, None]
+    n_pages = DEC_CAP // DEC_PAGE
+    order = torch.randperm(b * n_pages, generator=gen, device=dev)
+    table = order.view(b, n_pages).to(torch.int32)
+
+    def inputs(dtype, d, peaked):
+        def u(*shape):
+            return torch.rand(shape, generator=gen, device=dev) - 0.5
+        q, k, v = u(b, h, d), u(b, hkv, DEC_CAP, d), u(b, hkv, DEC_CAP, d)
+        if peaked:
+            q, k = q * Q_PEAK, k * K_PEAK
+        return q.to(dtype), k.to(dtype), v.to(dtype)
+
+    def paged(x):
+        """The cache [B, Hkv, N, ...] as 16-token pages behind `table`."""
+        pages = x.view(b, hkv, n_pages, DEC_PAGE, *x.shape[3:]).transpose(
+            1, 2).reshape(b * n_pages, hkv, DEC_PAGE, *x.shape[3:])
+        pool = torch.empty_like(pages)
+        pool[order] = pages
+        return pool
+
+    def close(o, lse, o_p, lse_p, f32):
+        e_o, e_l = ctx.diff(o, o_p), ctx.diff(lse, lse_p)
+        top = o_p.float().abs().max().item()
+        ok = top > 0 and bool(torch.isfinite(o.float()).all())
+        ok = ok and (e_o <= F32_GATE and e_l <= F32_GATE if f32 else
+                     e_o <= min(GATE, REL_GATE * top) and e_l <= GATE)
+        return max(e_o, e_l), ok
+
+    bf16_ms = None
+    rows = [("K6", torch.bfloat16, 128, None), ("K6", torch.float32, 128, None),
+            ("K6", torch.float32, 128, "int8"), ("K6", torch.float32, 128,
+                                                 "fp8"),
+            ("K6", torch.float32, 128, "mixed")]
+    rows += [(kn, dt, d, None) for d in (32, 16)
+             for dt in (torch.bfloat16, torch.float32) for kn in ("K6", "K7")]
+    rows += [("K6", torch.float32, 16, "int8")]
+    for kn, dtype, d, qtype in rows:
+        f32 = dtype == torch.float32
+        errs, runs = [], {}
+        for peaked in (False, True):
+            q, k, v = inputs(dtype, d, peaked)
+            scales = {}
+            if qtype is not None:
+                kv = quantize_kv(k, v, qtype)
+                k, v = kv.k_q, kv.v_q
+                scales = dict(k_scale=kv.k_scale, v_scale=kv.v_scale)
+            if kn == "K7":
+                pk, pv = paged(k), paged(v)
+
+                def call():
+                    return paged_decode_attention(q, pk, pv, table, lens)
+
+                def plain():
+                    return paged_decode_attention_plain(q, pk, pv, table,
+                                                        lens)
+            else:
+                def call():
+                    return decode_attention(q, k, v, lens, **scales)
+
+                def plain():
+                    return decode_attention_plain(q, k, v, lens, **scales)
+            o, lse = call()
+            torch.cuda.synchronize()
+            o_p, lse_p = plain()
+            e, ok = close(o, lse, o_p, lse_p, f32)
+            _check(ok, f"{kn} {dtype} d={d} {qtype or 'cache in q dtype'} "
+                   f"peaked={peaked}: max|diff| {e:.3e}")
+            errs.append(e)
+            if kn == "K7":  # the same keys through K6
+                o_c, lse_c = decode_attention(q, k, v, lens)
+                _check(bool(torch.equal(o, o_c) and torch.equal(lse, lse_c)),
+                       f"K7 {dtype} d={d}: not bit for bit K6's")
+            runs[peaked] = (call, plain, q, k, v, scales)
+        call, plain, q, k, v, scales = runs[False]
+        ms = _call_ms(call, kn, iters=5, before=ctx.l2_flush.zero_)
+        ms_p = cuda_time_ms(plain, iters=5, before=ctx.l2_flush.zero_)
+        if qtype is None:
+            kd, vd = k, v
+        else:
+            kd = (k.float() * scales["k_scale"][..., None]).to(dtype)
+            vd = (v.float() * scales["v_scale"][..., None]).to(dtype)
+        lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kd, vd, attn_mask=live[:, None, None, :],
+            enable_gqa=True), before=ctx.l2_flush.zero_)
+        tokens = b * hkv * DEC_LIVE
+        nbytes = (2 * _nbytes(q) + b * (h + 1) * 4
+                  + tokens * d * (k.element_size() + v.element_size())
+                  + (tokens * 8 if scales else 0)
+                  + (b * n_pages * 4 if kn == "K7" else 0))
+        flops = 4.0 * h * d * DEC_LIVE * b
+        bound = (_bound_f32 if f32 else _bound)(nbytes, flops)
+        if (kn, dtype, d, qtype) == ("K6", torch.bfloat16, 128, None):
+            bf16_ms = ms
+        tag = "fp32" if f32 else "bf16"
+        print(f"[decode-f32] {kn} {tag} q, d={d}, "
+              f"{qtype or tag} cache" + (f" in {DEC_PAGE}-token pages"
+                                        if kn == "K7" else "")
+              + f": B={b} H={h} Hkv={hkv} {DEC_LIVE} live of {DEC_CAP}; "
+              f"max|diff| flat {errs[0]:.3e} peaked {errs[1]:.3e} (gate "
+              f"{F32_GATE if f32 else GATE}); kernel {ms:.4f} ms cold "
+              f"({100 * bound['bound_ms'] / ms:.1f}% of its bound "
+              f"{bound['bound_ms']:.4f} ms, {bound['bound_by']}), library "
+              f"{lib_ms:.4f} ms, plain {ms_p:.4f} ms; bf16 K6 d=128 "
+              f"{bf16_ms:.4f} ms ({card})", flush=True)
+        key = {("K6", 128): "K6 fp32", ("K7", 32): "K7 fp32"}.get((kn, d))
+        if f32 and key is not None:
+            r = ctx.rec[key]
+            r["max_abs_err"] = max(r["max_abs_err"], *errs)
+            if qtype is None:
+                r.update(ms=ms, plain_ms=ms_p, library_ms=lib_ms, **bound)
+        elif f32 and kn == "K6":
+            ctx.rec["K6 fp32"]["max_abs_err"] = max(
+                ctx.rec["K6 fp32"]["max_abs_err"], *errs)
+        del runs, call, plain, q, k, v, scales, kd, vd
+
+
+def _phase_narrow_heads(ctx):
+    """The forward (K1 online, K1b and K5 pinned) and K4 at d = 16 and 32
+    on heads zero-padded to 64, against their plain versions at d, at
+    [1, 16, 4096, d] causal, fp32 and bf16, flat and peaked: fp32 within
+    1e-4 (per gradient 1e-4 · max(1, max |plain|)), bf16 within 5e-3 (O
+    also 2e-2 · max |plain|; per gradient 2e-2 · max |plain|). Each row:
+    kernel ms (torch.profiler), the bound of the function at d, plain and
+    library ms (SDPA at d, causal; TF32 off), beside the d=64 build's ms
+    on unpadded inputs."""
+    torch = ctx.torch
+    F = torch.nn.functional
+    from cuda_flashattention_torch.ops import flash_bwd as fb
+    from cuda_flashattention_torch.ops import flash_fwd as ff
+    from cuda_flashattention_torch.utils.timing import (
+        attention_flops, cuda_time_ms)
+    dev, card = ctx.dev, ctx.card
+    b, h, n = NARROW_FWD
+    gen = torch.Generator(device=dev).manual_seed(14)
+    kw = dict(causal=True)
+    label = {"online": "K1", "bound": "K1b", "kmajor": "K5"}
+
+    def inputs(dtype, d, peaked):
+        def u(*shape):
+            return torch.rand(shape, generator=gen, device=dev) - 0.5
+        q, k, v, do = (u(b, h, n, d) for _ in range(4))
+        if peaked:
+            q, k = q * Q_PEAK, k * K_PEAK
+        return [x.to(dtype) for x in (q, k, v, do)]
+
+    def fwd(form, q, k, v):
+        if form == "online":
+            return ff.flash_attention_forward(q, k, v, softmax="online", **kw)
+        plan = ff._plan(q, k, v, None, True, 0, 0, None, None, None, None,
+                        None, "bound_unchecked", False)
+        plan = dataclasses.replace(plan, use_kmajor=form == "kmajor")
+        return ff._fwd_cuda(q, k, v, plan, q.dtype, None, None, None, None)
+
+    def fwd_plain(form, q, k, v):
+        return ff.flash_attention_forward_plain(
+            q, k, v, softmax="online" if form == "online"
+            else "bound_unchecked", **kw)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        f32 = dtype == torch.float32
+        bnd = _bound_f32 if f32 else _bound
+        for d in (16, 32):
+            flat, peaked = inputs(dtype, d, False), inputs(dtype, d, True)
+            wide = [x.to(dtype) for x in inputs(dtype, 64, False)]
+            lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                *flat[:3], is_causal=True), iters=10)
+            # q, k, v read, O and LSE written
+            nbytes = _nbytes(*flat[:3], flat[0]) + b * h * n * 4
+            for form in ("online", "bound", "kmajor"):
+                errs = []
+                for x in (flat, peaked):
+                    o, lse = fwd(form, *x[:3])
+                    torch.cuda.synchronize()
+                    o_p, lse_p = fwd_plain(form, *x[:3])
+                    top = o_p.float().abs().max().item()
+                    e_o, e_l = ctx.diff(o, o_p), ctx.diff(lse, lse_p)
+                    errs += [e_o, e_l]
+                    ok = (top > 0 and o.shape == x[0].shape
+                          and (max(e_o, e_l) <= F32_GATE if f32 else
+                               e_o <= min(GATE, REL_GATE * top)
+                               and e_l <= GATE))
+                    _check(ok, f"{label[form]} {dtype} d={d}: dO {e_o:.3e} "
+                           f"dLSE {e_l:.3e} (max|O| {top:.3e})")
+                kn = label[form]
+                ms = _call_ms(lambda: fwd(form, *flat[:3]), kn)
+                ms64 = _call_ms(lambda: fwd(form, *wide[:3]), kn)
+                ms_p = cuda_time_ms(lambda: fwd_plain(form, *flat[:3]),
+                                    iters=3, warmup=1)
+                bound = bnd(nbytes, attention_flops(b, h, n, n, d,
+                                                    causal=True))
+                print(f"[narrow] {kn} {'fp32' if f32 else 'bf16'} d={d} "
+                      f"(run at 64): [{b}, {h}, {n}, {d}] causal; max|dO| "
+                      f"flat {errs[0]:.3e} peaked {errs[2]:.3e}, max|dLSE| "
+                      f"{errs[1]:.3e} / {errs[3]:.3e}; kernel {ms:.4f} ms "
+                      f"({100 * bound['bound_ms'] / ms:.1f}% of the bound "
+                      f"at d {bound['bound_ms']:.4f} ms, {bound['bound_by']}"
+                      f"), d=64 inputs {ms64:.4f} ms, library {lib_ms:.4f} "
+                      f"ms, plain {ms_p:.4f} ms ({card})", flush=True)
+                if f32 and form == "online":
+                    r = ctx.rec["K1 fp32 d<64"]
+                    r["max_abs_err"] = max(r["max_abs_err"], *errs)
+                    if d == 16:
+                        r.update(ms=ms, plain_ms=ms_p, library_ms=lib_ms,
+                                 **bound)
+            # K4 on the same inputs
+            errs = []
+            for x in (flat, peaked):
+                q, k, v, do = x
+                o, lse = ff.flash_attention_forward_plain(q, k, v, **kw)
+                want = fb.flash_attention_backward_plain(q, k, v, o, lse,
+                                                         do, **kw)
+                got = fb.flash_attention_backward(q, k, v, o, lse, do, **kw)
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    top = w.float().abs().max().item()
+                    e = ctx.diff(g, w)
+                    errs.append(e / max(1.0, top) if f32 else e / top)
+                    _check(g.shape == w.shape and top > 0 and
+                           errs[-1] <= (F32_GATE if f32 else BWD_GATE),
+                           f"K4 {dtype} d={d}: gradient {errs[-1]:.3e}")
+            q, k, v, do = flat
+            o, lse = ff.flash_attention_forward_plain(q, k, v, **kw)
+            args = (q, k, v, o, lse, do)
+            ms = _call_ms(lambda: fb.flash_attention_backward(*args, **kw),
+                          "K4")
+            ms_p = cuda_time_ms(lambda: fb.flash_attention_backward_plain(
+                *args, **kw), iters=3, warmup=1)
+            lib_ms = _library_ms(ctx, q, k, v, kw, backward=True, do=do)
+            # q, k, v, O, dO and LSE read, dQ, dK and dV written
+            bound = bnd(_nbytes(q, k, v, o, do, q, k, v) + b * h * n * 4,
+                        attention_flops(b, h, n, n, d, causal=True,
+                                        backward=True))
+            print(f"[narrow] K4 {'fp32' if f32 else 'bf16'} d={d} (run at "
+                  f"64): [{b}, {h}, {n}, {d}] causal; worst gradient "
+                  f"max|diff| / {'max(1, max|plain|)' if f32 else 'max|plain|'}"
+                  f" flat {max(errs[:3]):.3e} peaked {max(errs[3:]):.3e}; "
+                  f"kernel {ms:.4f} ms ({100 * bound['bound_ms'] / ms:.1f}% "
+                  f"of the bound at d {bound['bound_ms']:.4f} ms, "
+                  f"{bound['bound_by']}), library backward {lib_ms:.4f} ms, "
+                  f"plain {ms_p:.4f} ms ({card})", flush=True)
+            if f32:
+                r = ctx.rec["K4 fp32 d<64"]
+                r["max_abs_err"] = max(r["max_abs_err"], *errs)
+                if d == 16:
+                    r.update(ms=ms, plain_ms=ms_p, library_ms=lib_ms,
+                             **bound)
+            del flat, peaked, wide, args
+
+
+def _phase_ladder_train(ctx):
+    """The ladder model (stage 05's config: fp32, d_head 16) trains: 3
+    `make_train_step` SGD steps on B=4 x T=64, each launching K1 and K4
+    once per layer on heads padded to 64; one step's loss and gradients
+    against the same through the plain attention functions (1e-4 ·
+    max(1, max |plain|))."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.examples import generate as stage05
+    from cuda_flashattention_torch.models import transformer as tfm
+    from cuda_flashattention_torch.ops import attention
+    from cuda_flashattention_torch.ops.flash_bwd import (
+        flash_attention_backward_plain)
+    from cuda_flashattention_torch.ops.flash_fwd import (
+        flash_attention_forward_plain)
+    cfg = stage05.CFG
+    gen = torch.Generator(device=ctx.dev).manual_seed(15)
+    model = tfm.Transformer(cfg, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (4, LADDER_TRAIN_T),
+                           generator=gen, device=ctx.dev)
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        loss = tfm.loss_fn(model, tokens)
+        loss.backward()
+        return loss.item(), [p.grad.clone() for p in model.parameters()]
+
+    loss_k, grads_k = loss_and_grads()
+    plain_bwd = (lambda q, k, v, o, lse, do, block_sizes=None, fused=None,
+                 **kw: flash_attention_backward_plain(q, k, v, o, lse, do,
+                                                      **kw))
+    with mock.patch.object(attention, "flash_attention_forward",
+                           flash_attention_forward_plain), \
+            mock.patch.object(attention, "flash_attention_backward",
+                              plain_bwd):
+        loss_p, grads_p = loss_and_grads()
+    e_g = max(ctx.diff(g, w) / max(1.0, w.abs().max().item())
+              for g, w in zip(grads_k, grads_p))
+    step = tfm.make_train_step(model, torch.optim.SGD(model.parameters(),
+                                                      lr=1e-2))
+    ctx.zero_counts()
+    losses = [step(tokens).item() for _ in range(LADDER_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    n_fwd, n_bwd = ctx.fwd_forms["online"], ctx.bwd_launches["fused"]
+    expect = cfg.n_layers * LADDER_TRAIN_STEPS
+    print(f"[ladder-train] stage 05's model (fp32, d_head 16, run at 64), "
+          f"B=4 x T={LADDER_TRAIN_T}: {LADDER_TRAIN_STEPS} SGD steps, "
+          f"losses {', '.join(f'{x:.5f}' for x in losses)}; launches K1 "
+          f"{n_fwd}, K4 {n_bwd} (expect {expect} each); kernels vs plain: "
+          f"loss {loss_k:.6f} vs {loss_p:.6f}, worst gradient max|diff| / "
+          f"max(1, max|plain|) {e_g:.3e} (gate {F32_GATE})", flush=True)
+    _check(n_fwd == expect and n_bwd == expect and dict(
+        ctx.fwd_forms, online=0) == dict(bound=0, kmajor=0, fallback=0,
+                                         online=0),
+           f"ladder-train launches {ctx.fwd_forms}, K4 {n_bwd}")
+    _check(abs(loss_k - loss_p) <= F32_GATE * max(1.0, abs(loss_p))
+           and e_g <= F32_GATE and all(math.isfinite(x) for x in losses),
+           f"ladder-train: loss {loss_k} vs {loss_p}, gradients {e_g:.3e}")
+    ctx.launches["K1 fp32 d<64"] += n_fwd
+    ctx.launches["K4 fp32 d<64"] += n_bwd
+
+
+def _phase_f32_generate(ctx):
+    """The 246M serving config in fp32 (`dtype=torch.float32`) runs
+    `generate()` on B=8 prompts of 512 tokens for 32 new tokens, greedily,
+    over an fp32 cache and an int8 cache: prefill through K1's fp32 build
+    (one per layer), each decode step through K6's fp32 builds (one per
+    layer and token). Against the same model on the plain attention
+    functions: the fp32-cache rollout's tokens equal, the prefill's logits
+    within 1e-3 · max(1, max |plain|); the int8 run, replayed on the fp32
+    run's tokens, within 0.25 of its last-step logits."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.models import transformer as tfm
+    from cuda_flashattention_torch.models.generate import generate
+    from cuda_flashattention_torch.ops import kv_cache
+    from cuda_flashattention_torch.ops.decode import (
+        decode_attention, decode_attention_plain)
+    from cuda_flashattention_torch.ops.flash_fwd import (
+        flash_attention_forward_plain)
+    dev, card = ctx.dev, ctx.card
+    bsz, prompt_n, new = F32_GEN
+    cfg = tfm.TransformerConfig(dtype=torch.float32, **CFG_KW)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = tfm.Transformer(cfg, generator=gen)
+    prompt = torch.randint(0, cfg.vocab_size, (bsz, prompt_n), generator=gen,
+                           device=dev, dtype=torch.int32)
+    n_params = sum(p.numel() for p in model.parameters())
+    generate(model, prompt, 2)  # warm-up
+    torch.cuda.synchronize()
+
+    def plain_attention():
+        stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.object(
+            tfm, "flash_attention_forward", flash_attention_forward_plain))
+        stack.enter_context(mock.patch.object(
+            kv_cache, "decode_attention", decode_attention_plain))
+        return stack
+
+    runs = {}
+    for label, kw in (("fp32 cache", {}), ("int8 cache", dict(qtype="int8"))):
+        ctx.zero_counts()
+        t0 = time.perf_counter()
+        out, logits = generate(model, prompt, new, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_fwd, n_dec = ctx.fwd_forms["online"], decode_attention.launches
+        print(f"[f32-main] {n_params / 1e6:.1f}M params in fp32, B={bsz} "
+              f"prompt={prompt_n} new={new}, {label}: launches K1 {n_fwd} "
+              f"(expect {cfg.n_layers}), K6 {n_dec} (expect "
+              f"{cfg.n_layers * new}); generate {bsz * new / wall:.1f} tok/s "
+              f"({wall:.3f} s) ({card})", flush=True)
+        _check(n_fwd == cfg.n_layers and n_dec == cfg.n_layers * new
+               and sum(ctx.fwd_forms.values()) == n_fwd,
+               f"fp32 generate {label}: launches {ctx.fwd_forms}, K6 {n_dec}")
+        _check(tuple(out.shape) == (bsz, prompt_n + new)
+               and bool(((out >= 0) & (out < cfg.vocab_size)).all())
+               and bool(torch.isfinite(logits).all()),
+               f"fp32 generate {label}: tokens or logits")
+        ctx.launches["K1 fp32"] += n_fwd
+        ctx.launches["K6 fp32"] += n_dec
+        runs[label] = (out, logits)
+    out, logits = runs["fp32 cache"]
+    with plain_attention():
+        out_p, logits_p = generate(model, prompt, new)
+    same = (out == out_p).float().mean().item()
+    first = None
+    if not torch.equal(out, out_p):
+        step = int((out != out_p).any(0).nonzero()[0]) - prompt_n
+        first = step
+    # the prefill's logits, kernels against plain
+    caches = tfm.init_caches(cfg, bsz, prompt_n + new, device=dev)
+    lg_k, _ = tfm.prefill(model, prompt, caches)
+    with plain_attention():
+        caches = tfm.init_caches(cfg, bsz, prompt_n + new, device=dev)
+        lg_p, _ = tfm.prefill(model, prompt, caches)
+    top = max(1.0, lg_p.abs().max().item())
+    e_first = ctx.diff(lg_k, lg_p)
+    e_last = ctx.diff(logits, logits_p)
+    # the int8 cache replayed on the fp32 run's tokens
+    caches = tfm.init_caches(cfg, bsz, prompt_n + new, qtype="int8",
+                             device=dev)
+    lg8, caches = tfm.prefill(model, prompt, caches)
+    for i in range(new):
+        lg8, caches = tfm.decode_one(model, out[:, prompt_n + i],
+                                     prompt_n + i, caches)
+    e8 = ctx.diff(lg8, logits)
+    print(f"[f32-main] fp32 cache vs plain attention: tokens equal "
+          f"{same:.4f}" + ("" if first is None else
+                           f" (first departure at new token {first})")
+          + f"; prefill logits max|d| {e_first:.3e} (gate "
+          f"{F32_LOGIT_GATE} x {top:.3f}), last-step logits max|d| "
+          f"{e_last:.3e}; int8 cache on the fp32 run's tokens: last-step "
+          f"logits max|d| {e8:.3e} (gate {QUANT_LOGIT_GATE}); int8 run's "
+          f"free greedy tokens equal to the fp32 run's "
+          f"{(runs['int8 cache'][0] == out).float().mean().item():.4f}",
+          flush=True)
+    _check(first is None, f"fp32 generate: tokens depart from the plain "
+           f"path at new token {first}")
+    _check(e_first <= F32_LOGIT_GATE * top,
+           f"fp32 prefill logits {e_first:.3e} > {F32_LOGIT_GATE * top:.3e}")
+    _check(e8 <= QUANT_LOGIT_GATE, f"fp32 int8-cache logits {e8:.3e}")
+    del model, caches, runs
+
+
 def _ladder_rows() -> int:
     """Rows per rank of stage 04 at the reference's shape."""
     from cuda_flashattention_torch.examples import _ladder
@@ -1364,17 +1846,24 @@ def _ladder_rows() -> int:
 
 
 def _phase_ladder(ctx):
-    """Ladder stages 00-04 and 07 through their `main` at the reference's
-    shapes (SEQ 5096, d 64; 8 ranks on card 0), each of which must print
-    its pass line; the fp32 launches of stages 03 and 04 against the
-    ring's schedule (counts zeroed before each stage, read after it);
-    stage 04 again over distinct cards when two or more are visible; the
-    torch oracle against the native C++ oracle."""
+    """Ladder stages 00-07 through their `main` at the reference's
+    shapes (SEQ 5096, d 64; 8 ranks on card 0; stages 05 and 06 at their
+    own: the fp32 model at d_head 16, fp32 pools at d 32), each of which
+    must print its pass line; the fp32 launches of stages 03 and 04
+    against the ring's schedule, and those of stages 05 (K1 on padded
+    heads, K6) and 06 (K7, and K6 for the shadow) against theirs (counts
+    zeroed before each stage, read after it); stage 04 again over
+    distinct cards when two or more are visible; the torch oracle against
+    the native C++ oracle."""
     import importlib
     import io
     torch = ctx.torch
     from cuda_flashattention_torch.examples import _ladder
+    from cuda_flashattention_torch.examples import generate as stage05
+    from cuda_flashattention_torch.examples import paged_serving as stage06
+    from cuda_flashattention_torch.ops.decode import decode_attention
     from cuda_flashattention_torch.ops.naive import naive_attention
+    from cuda_flashattention_torch.ops.paged import paged_decode_attention
     from cuda_flashattention_torch.parallel.device_ring import (
         device_ring_matmul)
     from cuda_flashattention_torch.runtime import native
@@ -1388,15 +1877,25 @@ def _phase_ladder(ctx):
     # fallback), then the causal ring twice (its check, then under
     # autograd): n diagonal steps on K1 and n(n − 1)/2 full ones on K1b
     # each, and one backward of n(n + 1)/2 K4 steps: blocks ahead skipped
+    # stage 05: the teacher-forced rollout (NEW forwards of every layer on
+    # K1, a short causal call), then two generate() runs (a prefill of
+    # every layer on K1, NEW decode steps of every layer on K6); stage 06:
+    # per step one K7 call and one K6 call on the shadow
+    layers, new = stage05.CFG.n_layers, stage05.NEW
+    none = dict(online=0, bound=0, kmajor=0, fallback=0, fused=0, decode=0,
+                paged=0)
     expect = {
-        "03": dict(online=0, bound=1, kmajor=0, fallback=1, fused=0),
-        "04": dict(online=2 * n, bound=n * n + 2 * tri, kmajor=0,
+        "03": dict(none, bound=1, fallback=1),
+        "04": dict(none, online=2 * n, bound=n * n + 2 * tri,
                    fallback=n * n + 2 * tri, fused=n * (n + 1) // 2),
+        "05": dict(none, online=layers * (new + 2), decode=2 * layers * new),
+        "06": dict(none, decode=stage06.STEPS, paged=stage06.STEPS),
     }
     one = ["--ranks", str(LADDER_RANKS), "--one-card"]
     runs = [("00", "psum_vecadd", one), ("01", "ppermute_verify", one),
             ("02", "overlap", one), ("03", "attention_1chip", []),
-            ("04", "ring_attention", one),
+            ("04", "ring_attention", one), ("05", "generate", []),
+            ("06", "paged_serving", []),
             ("07", "device_ring",
              ["--ranks", "4"] if torch.cuda.device_count() < 2 else [])]
     if torch.cuda.device_count() > 1:
@@ -1413,7 +1912,9 @@ def _phase_ladder(ctx):
         text = out.getvalue()
         print("".join(f"[ladder {num}] {line}\n"
                       for line in text.splitlines()), end="", flush=True)
-        counts = dict(ctx.fwd_forms, fused=ctx.bwd_launches["fused"])
+        counts = dict(ctx.fwd_forms, fused=ctx.bwd_launches["fused"],
+                      decode=decode_attention.launches,
+                      paged=paged_decode_attention.launches)
         print(f"[ladder {num}] {name} {' '.join(argv)}: rc {rc}, "
               f"{wall:.2f} s of wall; forward launches by form and K4: "
               f"{counts}" + (f" (expect {expect[num]})" if num in expect
@@ -1423,9 +1924,13 @@ def _phase_ladder(ctx):
         if num in expect:
             _check(counts == expect[num], f"ladder stage {num} launch counts "
                    f"{counts}, expected {expect[num]}")
-            ctx.launches["K1 fp32"] += counts["online"]
+            narrow = num == "05"  # d_head 16, on heads padded to 64
+            ctx.launches["K1 fp32 d<64" if narrow else "K1 fp32"] += (
+                counts["online"])
             ctx.launches["K1b fp32"] += counts["bound"]
             ctx.launches["K4 fp32"] += counts["fused"]
+            ctx.launches["K6 fp32"] += counts["decode"]
+            ctx.launches["K7 fp32"] += counts["paged"]
         if num == "07":
             _check(device_ring_matmul.launches > 0, "stage 07 launched no K9")
     if not native.available():
@@ -1573,7 +2078,8 @@ def main() -> int:
     # per kernel: ms, plain_ms, bound_ms, bound_by, library_ms, max_abs_err
     rec = {kn: dict(max_abs_err=0.0) for kn in
            ("K1", "K1b", "K5", "K2", "K3", "K4", "K6", "K7", "K8", "K9",
-            "K1 fp32", "K1b fp32", "K5 fp32", "K4 fp32", "K2 fp32")}
+            "K1 fp32", "K1b fp32", "K5 fp32", "K4 fp32", "K2 fp32",
+            "K6 fp32", "K7 fp32", "K1 fp32 d<64", "K4 fp32 d<64")}
     # launches on the main paths, summed over the runs that drive them
     launches = {kn: 0 for kn in rec}
 
@@ -2948,6 +3454,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     _phase_fp32(ctx)
     torch.cuda.empty_cache()
+    _phase_decode_f32(ctx)
+    torch.cuda.empty_cache()
+    _phase_narrow_heads(ctx)
+    torch.cuda.empty_cache()
+    _phase_f32_generate(ctx)
+    torch.cuda.empty_cache()
+    _phase_ladder_train(ctx)
     _phase_ladder(ctx)
 
     # ---- last lines ------------------------------------------------------
@@ -2993,6 +3506,21 @@ def main() -> int:
         ("K4 fp32", "flash_attention_backward on fp32 Q/K/V/dO (K4's fp32 "
          "build, fp32 dK/dV; ladder stage 04's ring backward)",
          "flash_bwd_kv.cu", "flash_bwd.py:252"),
+        ("K6 fp32", "decode_attention on an fp32 q (K6's fp32 builds: fp32, "
+         "int8, fp8 and mixed caches, d 16, 32, 64, 128, P unrounded; the "
+         "fp32 serving model's generate() over fp32 and int8 caches at d "
+         "128, ladder stages 05 at d 16 and 06 at d 32)", "decode.cu",
+         "decode.py:145"),
+        ("K7 fp32", "paged_decode_attention on an fp32 q (K7's fp32 builds; "
+         "ladder stage 06's fp32 pools at d 32, 16-token pages)",
+         "paged.cu", "paged.py:51"),
+        ("K1 fp32 d<64", "flash_attention_forward on fp32 Q/K/V at d 16 "
+         "(K1's fp32 build on heads zero-padded to 64: ladder stage 05's "
+         "prefill and teacher-forced forward, the ladder model's training "
+         "steps)", "flash_fwd.cu", "flash_fwd.py:123"),
+        ("K4 fp32 d<64", "flash_attention_backward on fp32 Q/K/V/dO at d 16 "
+         "(K4's fp32 build on heads zero-padded to 64: the ladder model's "
+         "training steps)", "flash_bwd_kv.cu", "flash_bwd.py:252"),
     ]
     kernels = []
     for kn, name, source, replaces in described:

@@ -62,15 +62,16 @@ SIGNATURES = {
                              _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, k_scale, v_scale, q_sigma, lengths, windows, o, lse, part,
     # tickets (the split's scratch, or NULL), B, H, Hkv, max_n, D, k_type,
-    # v_type (0 bf16, 1 int8, 2 fp8), qq, scale, window, split, stream
+    # v_type (0 bf16, 1 int8, 2 fp8, 3 fp32), qq, q_f32 (q and o fp32, else
+    # bf16), scale, window, split, stream
     "cfa_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                   _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I,
-                   _P],
+                   _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I,
+                   _I, _P],
     # q, k_pages, v_pages, k_scale, v_scale, q_sigma, page_table, lengths,
     # windows, o, lse, part, tickets, B, H, Hkv, page, max_pages, D, k_type,
-    # v_type, qq, scale, window, split, stream
+    # v_type, qq, q_f32, scale, window, split, stream
     "cfa_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          ctypes.c_float, _I, _I, _P],
     # q, k, v, o, B, H, Nq, Nk, D, strides[9] (q/k/v: batch, head, row),
     # causal, n_sub, stream

@@ -1,8 +1,9 @@
 // One-token decode attention over a contiguous KV cache for Hopper: each
 // query row attends the live, in-window keys of its KV head. The cache is
 // bf16, int8, fp8 e4m3, or mixed (int8 K, fp8 V), the quantized ones with
-// per-token fp32 scales; under `qq` Q arrives as per-head int8 and Q.K runs
-// as an exact integer dot.
+// per-token fp32 scales, under a bf16 q; or fp32, int8, fp8 or mixed under
+// an fp32 q; under `qq` Q arrives as per-head int8 and Q.K runs as an
+// exact integer dot. Head dims 16, 32, 64 and 128.
 //
 // Replaces: cuda_flashattention_tpu/ops/decode.py::_decode_kernel. The
 // per-key update and the epilogue (attend_block, decode_epilogue there)
@@ -35,7 +36,8 @@ namespace {
 
 using namespace cfa_decode_body;
 
-template <int D, typename KT, typename VT, bool QQ, int R>
+template <int D, typename QT, typename KT, typename VT, bool QQ,
+          int R>
 __global__ void __launch_bounds__(NTHREADS)
 decode_kernel(Args a, const KT* __restrict__ k,  // [B, Hkv, max_n, D]
               const VT* __restrict__ v, int max_n) {
@@ -49,7 +51,7 @@ decode_kernel(Args a, const KT* __restrict__ k,  // [B, Hkv, max_n, D]
   int lo, hi, s_first, s_last;
   if (!split_keys(a, first, length, s, lo, hi, s_first, s_last)) return;
 
-  Body<D, KT, VT, QQ, R> body;
+  Body<D, QT, KT, VT, QQ, R> body;
   body.init(a, b, hk, tile);
   const long long base = ((long long)b * a.Hkv + hk) * max_n;  // in tokens
   // unrolled: four keys' loads in flight at once, the sums in key order
@@ -57,7 +59,7 @@ decode_kernel(Args a, const KT* __restrict__ k,  // [B, Hkv, max_n, D]
   for (int j = lo + warp; j < hi; j += NWARPS) {
     const long long t = base + j;
     float ks = 1.f, vs = 1.f;
-    if constexpr (Body<D, KT, VT, QQ, R>::kQuant) {
+    if constexpr (Body<D, QT, KT, VT, QQ, R>::kQuant) {
       ks = a.k_scale[t];
       vs = a.v_scale[t];
     }
@@ -68,12 +70,13 @@ decode_kernel(Args a, const KT* __restrict__ k,  // [B, Hkv, max_n, D]
               s_last);
 }
 
-template <int D, typename KT, typename VT, bool QQ, int R>
+template <int D, typename QT, typename KT, typename VT, bool QQ,
+          int R>
 struct Launch {
   static cudaError_t run(const Args& a, const void* k, const void* v, int B,
                          int max_n, cudaStream_t stream) {
     dim3 grid(a.nsplit * ((a.rows + R - 1) / R), a.Hkv, B);
-    decode_kernel<D, KT, VT, QQ, R><<<grid, NTHREADS, 0, stream>>>(
+    decode_kernel<D, QT, KT, VT, QQ, R><<<grid, NTHREADS, 0, stream>>>(
         a, static_cast<const KT*>(k), static_cast<const VT*>(v), max_n);
     return cudaGetLastError();
   }
@@ -81,9 +84,11 @@ struct Launch {
 
 }  // namespace
 
-// k_type / v_type: 0 bf16, 1 int8, 2 fp8 e4m3. k_scale / v_scale
-// [B, Hkv, max_n] fp32 for a quantized cache, else null. With qq != 0, q is
-// int8 and q_sigma [B, H] holds sigma_q * scale per row. windows [B] or
+// q and o [B, H, D] are fp32 when q_f32, else bf16 (D: 16, 32, 64 or
+// 128). k_type / v_type: 0 bf16 (bf16 q), 1 int8, 2 fp8 e4m3, 3 fp32
+// (fp32 q). k_scale / v_scale [B, Hkv, max_n] fp32 for a quantized cache,
+// else null. With qq != 0, q is int8 and q_sigma [B, H] holds
+// sigma_q * scale per row; o keeps the type q_f32 names. windows [B] or
 // null; window 0 for none. split: C, keys per split of the context (the
 // host's rule); with more than one split of max_n, part [B·Hkv·row tiles ·
 // ceil(max_n / C) · R · (D + 2)] fp32 and tickets [B·Hkv·row tiles] int32
@@ -94,7 +99,8 @@ extern "C" int cfa_decode(const void* q, const void* k, const void* v,
                           const void* windows, void* o, void* lse,
                           void* part, void* tickets, int B, int H, int Hkv,
                           int max_n, int D, int k_type, int v_type, int qq,
-                          float scale, int window, int split, void* stream) {
+                          int q_f32, float scale, int window, int split,
+                          void* stream) {
   if (B == 0 || H == 0) return cudaSuccess;
   if (Hkv <= 0 || H % Hkv != 0 || max_n < 0) return cudaErrorInvalidValue;
   Args a;
@@ -104,7 +110,7 @@ extern "C" int cfa_decode(const void* q, const void* k, const void* v,
   a.v_scale = static_cast<const float*>(v_scale);
   a.lengths = static_cast<const int*>(lengths);
   a.windows = static_cast<const int*>(windows);
-  a.o = static_cast<__nv_bfloat16*>(o);
+  a.o = o;
   a.lse = static_cast<float*>(lse);
   a.rows = H / Hkv;
   a.Hkv = Hkv;
@@ -113,6 +119,6 @@ extern "C" int cfa_decode(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = prepare_split(&a, B, max_n, split, part, tickets, st);
   if (err != cudaSuccess) return err;
-  return dispatch<Launch>(D, a.rows, k_type, v_type, qq, a, k, v, B, max_n,
-                          st);
+  return dispatch<Launch>(D, a.rows, k_type, v_type, qq, q_f32, a, k, v, B,
+                          max_n, st);
 }

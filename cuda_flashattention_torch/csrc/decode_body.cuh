@@ -22,9 +22,9 @@
 // rows (the serving model's GQA group) the paged walk over 4224 keys took
 // 0.79 ms with the 4-row tile and 0.98 ms with the 8-row one. Each of the
 // CTA's NWARPS warps visits its own share of the split's keys; a lane owns
-// D/32 consecutive elements of the head dim, a score is a warp-shuffle sum
-// of the lanes' partial dots, and the warps' partial (m, l, acc) states
-// merge once in shared memory.
+// max(1, D/32) consecutive elements of the head dim, a score is a
+// warp-shuffle sum of the lanes' partial dots, and the warps' partial
+// (m, l, acc) states merge once in shared memory.
 //
 // The split (flash-decoding): at a serving batch B·Hkv·row tiles CTAs leave
 // most of the card's 132 SMs idle and each warp's walk is latency-bound,
@@ -41,15 +41,21 @@
 // O and LSE, and resets the ticket. No other atomic: the result does not
 // depend on the arrival order.
 
-// Storage types, per array: bf16, int8, or fp8 e4m3 (converted by the
-// hardware's cvt, no bit surgery), the quantized ones with one fp32
-// scale per cached token. Numerics follow the TPU body:
+// Query and output type QT: bf16 or fp32. Storage types, per array:
+// bf16 (under a bf16 q), fp32 (under an fp32 q), int8, or fp8 e4m3
+// (converted by the hardware's cvt, no bit surgery), the quantized ones
+// with one fp32 scale per cached token. Numerics follow the TPU body,
+// whose compute dtype is q's, or bf16 under QQ:
 //   s = (q . k_q) * scale * k_scale[j]            (fp32 sum of exact products)
 //   s = float(int32 q8 . k8) * (sigma_q*scale)[row] * k_scale[j]   under QQ,
 //       where the int8 dot runs on __dp4a and is exact
 //   p = exp(s - m); l sums the unrounded p
-//   acc += bf16(p * v_scale[j]) * v_q             (rounded AFTER the scale)
-//   O = acc / l in bf16, LSE = m + ln l; l = 0 gives O = 0, LSE = NEG_INF.
+//   acc += cd(p * v_scale[j]) * v_q  (cd: bf16 rounds AFTER the scale; an
+//                                     fp32 q without QQ leaves p as it is)
+//   O = acc / l in QT, LSE = m + ln l; l = 0 gives O = 0, LSE = NEG_INF.
+// Head dims 16, 32, 64 and 128: a lane owns N = max(1, D/32) consecutive
+// elements, so at D = 16 lanes 16-31 own none; they never load, carry
+// zeros through the shuffle sums and write nothing.
 
 #pragma once
 
@@ -70,18 +76,18 @@ constexpr int NTHREADS = NWARPS * 32;
 // Rows per CTA for `rows` query rows per KV head: 1, 4 or 8.
 inline int tile_rows(int rows) { return rows == 1 ? 1 : rows <= 4 ? 4 : 8; }
 
-// storage type codes of the C interface
-constexpr int kBf16 = 0, kInt8 = 1, kFp8 = 2;
+// storage type codes of the C interface; fp32 pairs with an fp32 q only
+constexpr int kBf16 = 0, kInt8 = 1, kFp8 = 2, kF32 = 3;
 
 // What both kernels are given besides their cache.
 struct Args {
-  const void* q;         // [B, Hkv*rows, D] bf16, or int8 under QQ
+  const void* q;         // [B, Hkv*rows, D] in QT, or int8 under QQ
   const float* q_sigma;  // [B, Hkv*rows] sigma_q * scale, QQ only
   const float* k_scale;  // one fp32 per cached token, quantized only
   const float* v_scale;
   const int* lengths;    // [B]
   const int* windows;    // [B] or nullptr
-  __nv_bfloat16* o;      // [B, Hkv*rows, D]
+  void* o;               // [B, Hkv*rows, D] in QT
   float* lse;            // [B, Hkv*rows]
   int rows;              // query rows per KV head
   int Hkv;
@@ -125,8 +131,21 @@ __device__ __forceinline__ bool split_keys(const Args& a, int first,
   return true;
 }
 
-// N consecutive stored values (N = 2 or 4) as floats. Every conversion is
-// exact: bf16, int8 and e4m3 all embed in fp32.
+// N consecutive stored values (N = 1, 2 or 4) as floats, in one load.
+// Every conversion is exact: bf16, int8 and e4m3 all embed in fp32.
+template <int N>
+__device__ __forceinline__ void load_vals(const float* p, float* out) {
+  if constexpr (N == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    out[0] = f.x; out[1] = f.y; out[2] = f.z; out[3] = f.w;
+  } else if constexpr (N == 2) {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    out[0] = f.x; out[1] = f.y;
+  } else {
+    out[0] = *p;
+  }
+}
+
 template <int N>
 __device__ __forceinline__ void load_vals(const __nv_bfloat16* p, float* out) {
   if constexpr (N == 4) {
@@ -136,10 +155,12 @@ __device__ __forceinline__ void load_vals(const __nv_bfloat16* p, float* out) {
     const float2 fb =
         __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
     out[0] = fa.x; out[1] = fa.y; out[2] = fb.x; out[3] = fb.y;
-  } else {
+  } else if constexpr (N == 2) {
     const float2 fa =
         __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
     out[0] = fa.x; out[1] = fa.y;
+  } else {
+    out[0] = __bfloat162float(*p);
   }
 }
 
@@ -149,9 +170,11 @@ __device__ __forceinline__ void load_vals(const int8_t* p, float* out) {
     const char4 c = *reinterpret_cast<const char4*>(p);
     out[0] = (float)c.x; out[1] = (float)c.y;
     out[2] = (float)c.z; out[3] = (float)c.w;
-  } else {
+  } else if constexpr (N == 2) {
     const char2 c = *reinterpret_cast<const char2*>(p);
     out[0] = (float)c.x; out[1] = (float)c.y;
+  } else {
+    out[0] = (float)*p;
   }
 }
 
@@ -168,10 +191,14 @@ __device__ __forceinline__ void load_vals(const __nv_fp8_e4m3* p, float* out) {
     const float2 fa = fp8x2_to_float2((unsigned short)(w & 0xffffu));
     const float2 fb = fp8x2_to_float2((unsigned short)(w >> 16));
     out[0] = fa.x; out[1] = fa.y; out[2] = fb.x; out[3] = fb.y;
-  } else {
+  } else if constexpr (N == 2) {
     const float2 fa =
         fp8x2_to_float2(*reinterpret_cast<const unsigned short*>(p));
     out[0] = fa.x; out[1] = fa.y;
+  } else {
+    const __half_raw raw = __nv_cvt_fp8_to_halfraw(
+        *reinterpret_cast<const __nv_fp8_storage_t*>(p), __NV_E4M3);
+    out[0] = __half2float(__half(raw));
   }
 }
 
@@ -181,18 +208,36 @@ template <int N>
 __device__ __forceinline__ int load_word(const int8_t* p) {
   if constexpr (N == 4) {
     return *reinterpret_cast<const int*>(p);
-  } else {
+  } else if constexpr (N == 2) {
     return (int)*reinterpret_cast<const unsigned short*>(p);
+  } else {
+    return (int)*reinterpret_cast<const unsigned char*>(p);
   }
 }
 
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
 // The online-softmax state of one warp for the CTA's row tile.
-template <int D, typename KT, typename VT, bool QQ, int ROWS>
+template <int D, typename QT, typename KT, typename VT, bool QQ, int ROWS>
 struct Body {
-  static constexpr int N = D / 32;  // d-elements each lane owns
-  static constexpr bool kQuant = !std::is_same<KT, __nv_bfloat16>::value;
+  static constexpr int N = D >= 32 ? D / 32 : 1;  // d-elements a lane owns
+  static constexpr bool kQuant =
+      std::is_same<KT, int8_t>::value || std::is_same<KT, __nv_fp8_e4m3>::value;
+  // P is rounded to the compute dtype before P.V: bf16 for a bf16 q and
+  // under QQ; an fp32 q keeps it
+  static constexpr bool kRoundP = QQ || std::is_same<QT, __nv_bfloat16>::value;
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dim");
+  static_assert(std::is_same<QT, float>::value ||
+                    std::is_same<QT, __nv_bfloat16>::value,
+                "q is bf16 or fp32");
   static_assert(!QQ || std::is_same<KT, int8_t>::value,
                 "the int8 Q.K dot needs int8 keys");
+  static_assert(!std::is_same<KT, float>::value ||
+                    std::is_same<QT, float>::value,
+                "an fp32 cache is read under an fp32 q");
 
   float qf[ROWS][N];  // the rows' q slices (unused under QQ)
   int q8[ROWS];       // the same as packed int8 (QQ)
@@ -201,6 +246,9 @@ struct Body {
   int nrows;          // live rows of this tile
   long long row0;     // flat index of the tile's first row in q, o, lse
   int c0;             // this lane's first d-element
+
+  // Whether this lane owns elements: every lane from D = 32 on.
+  __device__ __forceinline__ bool owns() const { return D >= 32 || c0 < D; }
 
   __device__ __forceinline__ void init(const Args& a, int b, int hk,
                                        int tile) {
@@ -221,12 +269,12 @@ struct Body {
       }
       if (r < nrows) {
         if constexpr (QQ) {
-          q8[r] = load_word<N>(static_cast<const int8_t*>(a.q) +
-                               (row0 + r) * D + c0);
+          if (owns())
+            q8[r] = load_word<N>(static_cast<const int8_t*>(a.q) +
+                                 (row0 + r) * D + c0);
           qs[r] = a.q_sigma[row0 + r];
-        } else {
-          load_vals<N>(static_cast<const __nv_bfloat16*>(a.q) +
-                           (row0 + r) * D + c0,
+        } else if (owns()) {
+          load_vals<N>(static_cast<const QT*>(a.q) + (row0 + r) * D + c0,
                        qf[r]);
         }
       }
@@ -239,12 +287,17 @@ struct Body {
                                          float ks, float vs, float scale) {
     float kf[N], vf[N];
     int kw = 0;
-    if constexpr (QQ) {
-      kw = load_word<N>(krow + c0);
+    if (owns()) {
+      if constexpr (QQ) {
+        kw = load_word<N>(krow + c0);
+      } else {
+        load_vals<N>(krow + c0, kf);
+      }
+      load_vals<N>(vrow + c0, vf);
     } else {
-      load_vals<N>(krow + c0, kf);
+#pragma unroll
+      for (int c = 0; c < N; ++c) kf[c] = vf[c] = 0.f;
     }
-    load_vals<N>(vrow + c0, vf);
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
       float s;
@@ -269,9 +322,10 @@ struct Body {
       const float p = __expf(s - m_next);
       l[r] = l[r] * alpha + p;
       m[r] = m_next;
-      // P weights V rounded to bf16, after the V scale is folded in
+      // P weights V in the compute dtype, after the V scale is folded in
+      const float pv = kQuant ? p * vs : p;
       const float pr =
-          __bfloat162float(__float2bfloat16(kQuant ? p * vs : p));
+          kRoundP ? __bfloat162float(__float2bfloat16(pv)) : pv;
 #pragma unroll
       for (int c = 0; c < N; ++c) acc[r][c] = acc[r][c] * alpha + pr * vf[c];
     }
@@ -295,8 +349,10 @@ struct Body {
         part_m[warp][r] = m[r];
         part_l[warp][r] = l[r];
       }
+      if (owns()) {
 #pragma unroll
-      for (int c = 0; c < N; ++c) part_o[warp][r][c0 + c] = acc[r][c];
+        for (int c = 0; c < N; ++c) part_o[warp][r][c0 + c] = acc[r][c];
+      }
     }
     __syncthreads();
     const bool alone = s_first == s_last;
@@ -366,7 +422,8 @@ struct Body {
   // row, LSE = mx + ln lsum (NEG_INF where lsum = 0).
   __device__ __forceinline__ void put(const Args& a, int r, int c, float mx,
                                         float lsum, float osum) {
-    a.o[(row0 + r) * D + c] = __float2bfloat16(lsum > 0.f ? osum / lsum : 0.f);
+    store(static_cast<QT*>(a.o) + (row0 + r) * D + c,
+          lsum > 0.f ? osum / lsum : 0.f);
     if (c == 0) a.lse[row0 + r] = lsum > 0.f ? mx + logf(lsum) : kNegInf;
   }
 };
@@ -393,47 +450,69 @@ inline cudaError_t prepare_split(Args* a, int B, long long cap, int split,
                          stream);
 }
 
-inline bool valid_types(int kt, int vt, int qq) {
-  const bool pair = (kt == kBf16 && vt == kBf16) ||
+// The (K, V) storage pairs and q types that are built: one type for both
+// arrays, or int8 K with fp8 V; a bf16 cache under a bf16 q, an fp32 one
+// under an fp32 q, the quantized ones under either; QQ on int8 K only.
+inline bool valid_types(int kt, int vt, int qq, int q_f32) {
+  const bool pair = (kt == kBf16 && vt == kBf16 && !q_f32) ||
+                    (kt == kF32 && vt == kF32 && q_f32) ||
                     (kt == kInt8 && vt == kInt8) ||
                     (kt == kFp8 && vt == kFp8) || (kt == kInt8 && vt == kFp8);
   return pair && (!qq || kt == kInt8);
 }
 
-// Calls L<D, KT, VT, QQ, R>::run(args...) for the storage types, head dim
-// and row tile asked for; cudaErrorInvalidValue for a combination that is
-// not built.
-template <template <int, typename, typename, bool, int> class L, int D, int R,
-          typename... A>
+// Calls L<D, QT, KT, VT, QQ, R>::run(args...) for the q type, storage
+// types, head dim and row tile asked for; cudaErrorInvalidValue for a
+// combination that is not built.
+template <template <int, typename, typename, typename, bool, int> class L,
+          int D, typename QT, int R, typename... A>
 cudaError_t dispatch_types(int kt, int vt, int qq, A... args) {
-  if (kt == kBf16)
-    return L<D, __nv_bfloat16, __nv_bfloat16, false, R>::run(args...);
-  if (kt == kFp8)
-    return L<D, __nv_fp8_e4m3, __nv_fp8_e4m3, false, R>::run(args...);
+  using bf16 = __nv_bfloat16;
+  using fp8 = __nv_fp8_e4m3;
+  if constexpr (std::is_same<QT, float>::value) {
+    if (kt == kF32) return L<D, QT, float, float, false, R>::run(args...);
+  } else {
+    if (kt == kBf16) return L<D, QT, bf16, bf16, false, R>::run(args...);
+  }
+  if (kt == kFp8) return L<D, QT, fp8, fp8, false, R>::run(args...);
   if (vt == kInt8)
-    return qq ? L<D, int8_t, int8_t, true, R>::run(args...)
-              : L<D, int8_t, int8_t, false, R>::run(args...);
-  return qq ? L<D, int8_t, __nv_fp8_e4m3, true, R>::run(args...)
-            : L<D, int8_t, __nv_fp8_e4m3, false, R>::run(args...);
+    return qq ? L<D, QT, int8_t, int8_t, true, R>::run(args...)
+              : L<D, QT, int8_t, int8_t, false, R>::run(args...);
+  return qq ? L<D, QT, int8_t, fp8, true, R>::run(args...)
+            : L<D, QT, int8_t, fp8, false, R>::run(args...);
 }
 
-template <template <int, typename, typename, bool, int> class L, int D,
-          typename... A>
+template <template <int, typename, typename, typename, bool, int> class L,
+          int D, typename QT, typename... A>
 cudaError_t dispatch_rows(int rows, int kt, int vt, int qq, A... args) {
   switch (tile_rows(rows)) {
-    case 1: return dispatch_types<L, D, 1>(kt, vt, qq, args...);
-    case 4: return dispatch_types<L, D, 4>(kt, vt, qq, args...);
-    default: return dispatch_types<L, D, 8>(kt, vt, qq, args...);
+    case 1: return dispatch_types<L, D, QT, 1>(kt, vt, qq, args...);
+    case 4: return dispatch_types<L, D, QT, 4>(kt, vt, qq, args...);
+    default: return dispatch_types<L, D, QT, 8>(kt, vt, qq, args...);
   }
 }
 
-template <template <int, typename, typename, bool, int> class L,
+template <template <int, typename, typename, typename, bool, int> class L,
+          typename QT, typename... A>
+cudaError_t dispatch_dim(int D, int rows, int kt, int vt, int qq,
+                         A... args) {
+  switch (D) {
+    case 16: return dispatch_rows<L, 16, QT>(rows, kt, vt, qq, args...);
+    case 32: return dispatch_rows<L, 32, QT>(rows, kt, vt, qq, args...);
+    case 64: return dispatch_rows<L, 64, QT>(rows, kt, vt, qq, args...);
+    case 128: return dispatch_rows<L, 128, QT>(rows, kt, vt, qq, args...);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <template <int, typename, typename, typename, bool, int> class L,
           typename... A>
-cudaError_t dispatch(int D, int rows, int kt, int vt, int qq, A... args) {
-  if (!valid_types(kt, vt, qq)) return cudaErrorInvalidValue;
-  if (D == 64) return dispatch_rows<L, 64>(rows, kt, vt, qq, args...);
-  if (D == 128) return dispatch_rows<L, 128>(rows, kt, vt, qq, args...);
-  return cudaErrorInvalidValue;
+cudaError_t dispatch(int D, int rows, int kt, int vt, int qq, int q_f32,
+                     A... args) {
+  if (!valid_types(kt, vt, qq, q_f32)) return cudaErrorInvalidValue;
+  if (q_f32)
+    return dispatch_dim<L, float>(D, rows, kt, vt, qq, args...);
+  return dispatch_dim<L, __nv_bfloat16>(D, rows, kt, vt, qq, args...);
 }
 
 }  // namespace cfa_decode_body

@@ -34,7 +34,8 @@ namespace {
 
 using namespace cfa_decode_body;
 
-template <int D, typename KT, typename VT, bool QQ, int R>
+template <int D, typename QT, typename KT, typename VT, bool QQ,
+          int R>
 __global__ void __launch_bounds__(NTHREADS)
 paged_kernel(Args a,
              const KT* __restrict__ k_pages,  // [n_pages, Hkv, page, D]
@@ -52,7 +53,7 @@ paged_kernel(Args a,
   int lo, hi, s_first, s_last;
   if (!split_keys(a, first, length, s, lo, hi, s_first, s_last)) return;
 
-  Body<D, KT, VT, QQ, R> body;
+  Body<D, QT, KT, VT, QQ, R> body;
   body.init(a, b, hk, tile);
   if (lo < hi) {
     const int last_page = (hi - 1) / page;
@@ -69,7 +70,7 @@ paged_kernel(Args a,
       for (; j < p_hi; j += NWARPS) {
         const long long t = base + j;  // token slot in the pools
         float ks = 1.f, vs = 1.f;
-        if constexpr (Body<D, KT, VT, QQ, R>::kQuant) {
+        if constexpr (Body<D, QT, KT, VT, QQ, R>::kQuant) {
           ks = a.k_scale[t];
           vs = a.v_scale[t];
         }
@@ -82,13 +83,14 @@ paged_kernel(Args a,
               s_last);
 }
 
-template <int D, typename KT, typename VT, bool QQ, int R>
+template <int D, typename QT, typename KT, typename VT, bool QQ,
+          int R>
 struct Launch {
   static cudaError_t run(const Args& a, const void* k, const void* v,
                          const int* table, int B, int page, int max_pages,
                          cudaStream_t stream) {
     dim3 grid(a.nsplit * ((a.rows + R - 1) / R), a.Hkv, B);
-    paged_kernel<D, KT, VT, QQ, R><<<grid, NTHREADS, 0, stream>>>(
+    paged_kernel<D, QT, KT, VT, QQ, R><<<grid, NTHREADS, 0, stream>>>(
         a, static_cast<const KT*>(k), static_cast<const VT*>(v), table, page,
         max_pages);
     return cudaGetLastError();
@@ -108,8 +110,9 @@ extern "C" int cfa_paged_decode(const void* q, const void* k_pages,
                                 const void* windows, void* o, void* lse,
                                 void* part, void* tickets, int B, int H,
                                 int Hkv, int page, int max_pages, int D,
-                                int k_type, int v_type, int qq, float scale,
-                                int window, int split, void* stream) {
+                                int k_type, int v_type, int qq, int q_f32,
+                                float scale, int window, int split,
+                                void* stream) {
   if (B == 0 || H == 0) return cudaSuccess;
   if (Hkv <= 0 || H % Hkv != 0 || page <= 0 || max_pages < 0)
     return cudaErrorInvalidValue;
@@ -120,7 +123,7 @@ extern "C" int cfa_paged_decode(const void* q, const void* k_pages,
   a.v_scale = static_cast<const float*>(v_scale);
   a.lengths = static_cast<const int*>(lengths);
   a.windows = static_cast<const int*>(windows);
-  a.o = static_cast<__nv_bfloat16*>(o);
+  a.o = o;
   a.lse = static_cast<float*>(lse);
   a.rows = H / Hkv;
   a.Hkv = Hkv;
@@ -130,7 +133,7 @@ extern "C" int cfa_paged_decode(const void* q, const void* k_pages,
   cudaError_t err = prepare_split(&a, B, (long long)page * max_pages, split,
                                   part, tickets, st);
   if (err != cudaSuccess) return err;
-  return dispatch<Launch>(D, a.rows, k_type, v_type, qq, a, k_pages, v_pages,
-                          static_cast<const int*>(page_table), B, page,
-                          max_pages, st);
+  return dispatch<Launch>(D, a.rows, k_type, v_type, qq, q_f32, a, k_pages,
+                          v_pages, static_cast<const int*>(page_table), B,
+                          page, max_pages, st);
 }

@@ -2,13 +2,13 @@
 
     python -m cuda_flashattention_torch.examples [--cpu] [stage ...]
 
-runs the ported stages in order (all of them when none is named): 00
+runs the stages in order (all of them when none is named): 00
 psum_vecadd, 01 ppermute_verify, 02 overlap, 03 attention_1chip, 04
-ring_attention and 07 device_ring, each through its `main` with `--cpu`
-when given. A stage is named by its number or its module name. Prints
-each stage's pass line and exits non-zero if any stage failed. The
-counterpart of scripts/run_ladder.sh and scripts/test_examples.sh;
-stages 05 and 06 are not ported yet.
+ring_attention, 05 generate, 06 paged_serving and 07 device_ring, each
+through its `main` with `--cpu` when given. A stage is named by its
+number or its module name. Prints each stage's pass line and exits
+non-zero if any stage failed. The counterpart of scripts/run_ladder.sh
+and scripts/test_examples.sh.
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ import sys
 
 STAGES = (("00", "psum_vecadd"), ("01", "ppermute_verify"),
           ("02", "overlap"), ("03", "attention_1chip"),
-          ("04", "ring_attention"), ("07", "device_ring"))
+          ("04", "ring_attention"), ("05", "generate"),
+          ("06", "paged_serving"), ("07", "device_ring"))
 
 
 def main(argv=None) -> int:

@@ -14,8 +14,10 @@ import torch
 # inf - inf = nan in the running-max updates. Empty rows report it as LSE.
 NEG_INF = -1e30
 
-# head dims the CUDA kernels are instantiated for (csrc/*.cu)
+# head dims the CUDA kernels are instantiated for (csrc/*.cu); the decode
+# kernels also for 16 and 32 (csrc/decode_body.cuh)
 KERNEL_HEAD_DIMS = (64, 128)
+DECODE_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def cdiv(a: int, b: int) -> int:
@@ -43,6 +45,40 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is present: this allocates on the card by "
             "default; pass device=\"cpu\" to allocate on the CPU")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def pad_heads(what: str, *xs: Optional[torch.Tensor]):
+    """The forward and backward kernels' head dim for these tensors (their
+    last dim d, which they share) and the tensors as the kernels take
+    them: d itself when a build has it (64, 128), with no copy; else, for
+    d = 16, 32 or any other multiple of 8 below 128, each tensor copied
+    with zero columns up to the next of 64 and 128. Zero columns of Q and
+    K add nothing to a score, nor to a row norm or an absmax; zero
+    columns of V and dO give zero columns of O, dQ, dK and dV, which the
+    caller slices away. The softmax scale must be resolved from d before
+    (`resolve_scale`). Returns (d_run, [tensors]), None kept as None;
+    ValueError for any other d."""
+    d = next(x for x in xs if x is not None).shape[-1]
+    if d in KERNEL_HEAD_DIMS:
+        return d, list(xs)
+    if not (0 < d < 128 and d % 8 == 0):
+        raise ValueError(
+            f"the CUDA {what} takes d in {KERNEL_HEAD_DIMS}, or a multiple "
+            f"of 8 below 128 (run at the next of them with zero columns), "
+            f"got {d}")
+    d_run = 64 if d <= 64 else 128
+    padded = []
+    for x in xs:
+        if x is not None:
+            out = x.new_zeros((*x.shape[:-1], d_run))
+            # one-byte codes (fp8) are copied as bytes
+            if x.element_size() == 1:
+                out.view(torch.uint8)[..., :d] = x.view(torch.uint8)
+            else:
+                out[..., :d] = x
+            x = out
+        padded.append(x)
+    return d_run, padded
 
 
 def quantize_q_per_head(q: torch.Tensor,

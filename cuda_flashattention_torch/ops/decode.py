@@ -10,7 +10,8 @@ version of the same numerics. `split_size`, `decode_splits` and
 `warp_keys` state the kernels' partition of the context, which the paged
 kernel shares.
 
-The cache may be bf16 (fp32 too on the CPU), int8, fp8 e4m3 or mixed
+Q may be bf16 or fp32 and the head dim 16, 32, 64 or 128. The cache may
+be bf16 (under a bf16 Q), fp32 (under an fp32 Q), int8, fp8 e4m3 or mixed
 (int8 K, fp8 V), the quantized ones with per-token scales `k_scale`/
 `v_scale` [B,Hkv,max_N]; `window` and per-sequence `windows` restrict
 attention to the newest tokens; `quantize_q` runs Q·Kᵀ as an integer dot
@@ -27,7 +28,7 @@ import torch
 
 from cuda_flashattention_torch import _build
 from cuda_flashattention_torch.ops.common import (
-    KERNEL_HEAD_DIMS,
+    DECODE_HEAD_DIMS,
     NEG_INF,
     cdiv,
     quantize_q_per_head,
@@ -35,9 +36,13 @@ from cuda_flashattention_torch.ops.common import (
 )
 
 # storage type codes of the C interface (csrc/decode_body.cuh)
-_TYPE_CODES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
-# (K, V) storage pairs the kernels are instantiated for
-_KERNEL_PAIRS = ((0, 0), (1, 1), (2, 2), (1, 2))
+_TYPE_CODES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2,
+               torch.float32: 3}
+# (K, V) storage pairs the kernels are instantiated for, by q's dtype: the
+# quantized ones under either, bf16 under bf16, fp32 under fp32
+_QUANT_PAIRS = ((1, 1), (2, 2), (1, 2))
+_KERNEL_PAIRS = {torch.bfloat16: ((0, 0),) + _QUANT_PAIRS,
+                 torch.float32: ((3, 3),) + _QUANT_PAIRS}
 
 # The split of the context shared by K6 and K7 (csrc/decode_body.cuh):
 # warps per CTA; keys per split at d = 128 (at d = 64 twice as many, so a
@@ -203,21 +208,23 @@ def kernel_inputs(q, k, v, k_scale, v_scale, windows, quantize_q, scale,
                   what: str):
     """Check and prepare what the contiguous and the paged decode kernels
     share. Returns (q or its int8 codes, q_sigma or None, k_scale,
-    v_scale, windows int32 or None, k code, v code, qq)."""
+    v_scale, windows int32 or None, k code, v code, qq, q_f32)."""
     d = q.shape[-1]
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the CUDA {what} takes d in {KERNEL_HEAD_DIMS}, "
+    if d not in DECODE_HEAD_DIMS:
+        raise ValueError(f"the CUDA {what} takes d in {DECODE_HEAD_DIMS}, "
                          f"got {d}")
-    if q.dtype != torch.bfloat16:
+    if q.dtype not in _KERNEL_PAIRS:
         raise NotImplementedError(
-            f"the CUDA {what} takes a bf16 q, got {q.dtype}")
+            f"the CUDA {what} takes a bf16 or fp32 q, got {q.dtype}")
     quantized = k_scale is not None
     pair = (_TYPE_CODES.get(k.dtype), _TYPE_CODES.get(v.dtype))
-    if pair not in _KERNEL_PAIRS or (pair != (0, 0)) != quantized:
+    if pair not in _KERNEL_PAIRS[q.dtype] or (
+            pair in _QUANT_PAIRS) != quantized:
         raise NotImplementedError(
-            f"the CUDA {what} takes a bf16 cache without scales, or an "
-            f"int8, fp8 or int8-K/fp8-V cache with scales; got k {k.dtype} "
-            f"v {v.dtype}, scales {'given' if quantized else 'absent'}")
+            f"the CUDA {what} takes a cache in q's dtype ({q.dtype}) "
+            f"without scales, or an int8, fp8 or int8-K/fp8-V cache with "
+            f"scales; got k {k.dtype} v {v.dtype}, scales "
+            f"{'given' if quantized else 'absent'}")
     for name, x in (("k", k), ("v", v), ("k_scale", k_scale),
                     ("v_scale", v_scale)):
         if x is None:
@@ -234,6 +241,7 @@ def kernel_inputs(q, k, v, k_scale, v_scale, windows, quantize_q, scale,
         if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
             raise ValueError("per-token scales must be fp32")
     qq = bool(quantize_q) and quantized and k.dtype == torch.int8
+    q_f32 = q.dtype == torch.float32
     q_sigma = None
     if qq:
         q, sq = quantize_q_per_head(q, (-1,))
@@ -242,7 +250,8 @@ def kernel_inputs(q, k, v, k_scale, v_scale, windows, quantize_q, scale,
     if windows is not None:
         windows = windows.to(device=q.device, dtype=torch.int32).reshape(
             q.shape[0]).contiguous()
-    return q.contiguous(), q_sigma, k_scale, v_scale, windows, *pair, qq
+    return (q.contiguous(), q_sigma, k_scale, v_scale, windows, *pair, qq,
+            q_f32)
 
 
 def optional_ptr(x: Optional[torch.Tensor]) -> Optional[int]:
@@ -256,8 +265,9 @@ def _decode_cuda(q, k, v, lengths, k_scale, v_scale, scale, window, windows,
     b, h, d = q.shape
     h_kv, max_n = k.shape[1], k.shape[2]
     out_dtype = q.dtype
-    q, q_sigma, k_scale, v_scale, windows, kt, vt, qq = kernel_inputs(
-        q, k, v, k_scale, v_scale, windows, quantize_q, scale, "decode")
+    q, q_sigma, k_scale, v_scale, windows, kt, vt, qq, q_f32 = (
+        kernel_inputs(q, k, v, k_scale, v_scale, windows, quantize_q, scale,
+                      "decode"))
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     if lengths.shape != (b,):
         raise ValueError(f"lengths {tuple(lengths.shape)} != ({b},)")
@@ -273,7 +283,8 @@ def _decode_cuda(q, k, v, lengths, k_scale, v_scale, scale, window, windows,
             optional_ptr(q_sigma), lengths.data_ptr(), optional_ptr(windows),
             o.data_ptr(), lse.data_ptr(), optional_ptr(part),
             optional_ptr(tickets), b, h, h_kv, max_n, d, kt, vt, int(qq),
-            resolve_scale(scale, d), int(window or 0), split, stream)
+            int(q_f32), resolve_scale(scale, d), int(window or 0), split,
+            stream)
     _build.check(err, "decode_attention kernel launch")
     decode_attention.launches += 1
     return o, lse
@@ -309,9 +320,10 @@ def decode_attention(
     fp8-K or unquantized cache ignores the flag.
 
     Returns (o [B,H,d] in q's dtype, lse [B,H] fp32). On the card the
-    kernel takes a bf16 q, d in {64, 128}, and a cache that is bf16, int8,
-    fp8, or int8 K with fp8 V; the count of its launches is
-    `decode_attention.launches`."""
+    kernel takes a bf16 or fp32 q, d in {16, 32, 64, 128}, and a cache in
+    q's dtype or an int8, fp8 or int8-K/fp8-V one; with an fp32 q, P
+    weights V unrounded (bf16 under `quantize_q`), as in the JAX body.
+    The count of its launches is `decode_attention.launches`."""
     if q.ndim != 3 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"expected q [B,H,d] and k/v [B,Hkv,N,d], got q "
                          f"{tuple(q.shape)} k {tuple(k.shape)} "

@@ -29,11 +29,11 @@ import torch
 
 from cuda_flashattention_torch import _build
 from cuda_flashattention_torch.ops.common import (
-    KERNEL_HEAD_DIMS,
     NEG_INF,
     cdiv,
     check_qkv,
     kernel_operand,
+    pad_heads,
     resolve_scale,
 )
 
@@ -193,9 +193,6 @@ def _bwd_prepare(q, k, v, o, lse, do, scale, causal, window, kv_offset,
     dtype), keep the tensors behind head's pointers."""
     b, h, nq, d = q.shape
     h_kv, nk = k.shape[1], k.shape[2]
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the CUDA backward takes d in {KERNEL_HEAD_DIMS}, "
-                         f"got {d}")
     dtypes = [x.dtype for x in (q, k, v, do)]
     if dtypes not in ([torch.bfloat16] * 4, [torch.float32] * 4):
         raise NotImplementedError(
@@ -243,10 +240,13 @@ def _dkdv_cuda(q, k, v, o, lse, do, scale=None, causal=False, window=0,
     arguments: (dK, dV) in k's dtype, counted under `launches["dkdv"]`.
     The split path's first kernel; on fp32 inputs the one way to reach
     K2's fp32 build, since the split path refuses fp32 (its dQ kernel K3
-    is bf16-only)."""
-    return _launch_dkdv(_bwd_prepare(q, k, v, o, lse, do, scale, causal,
-                                     window, kv_offset, q_segment_ids,
-                                     kv_segment_ids))
+    is bf16-only). Narrow heads run padded, as in `_bwd_cuda`."""
+    d = q.shape[-1]
+    _, (q, k, v, o, do) = pad_heads("backward", q, k, v, o, do)
+    dk, dv = _launch_dkdv(_bwd_prepare(
+        q, k, v, o, lse, do, resolve_scale(scale, d), causal, window,
+        kv_offset, q_segment_ids, kv_segment_ids))
+    return dk[..., :d], dv[..., :d]
 
 
 def _bwd_cuda(q, k, v, o, lse, do, scale, causal, window, kv_offset, q_seg,
@@ -256,6 +256,14 @@ def _bwd_cuda(q, k, v, o, lse, do, scale, causal, window, kv_offset, q_seg,
             "fused=False on fp32 inputs: the split backward's dQ kernel K3 "
             "takes bf16 only (its fp32 build is ROADMAP queue 2, item 1); "
             "the fused kernel K4 takes fp32")
+    d = q.shape[-1]
+    d_run, padded = pad_heads("backward", q, k, v, o, do)
+    if d_run != d:
+        # the d = 64 or 128 build on zero-padded heads, at d's scale
+        q, k, v, o, do = padded
+        grads = _bwd_cuda(q, k, v, o, lse, do, resolve_scale(scale, d),
+                          causal, window, kv_offset, q_seg, kv_seg, fused)
+        return tuple(g[..., :d] for g in grads)
     prep = _bwd_prepare(q, k, v, o, lse, do, scale, causal, window,
                         kv_offset, q_seg, kv_seg)
     q, f32, dk, dv, head, shape, _ = prep
@@ -311,7 +319,9 @@ def flash_attention_backward(
     (`CFA_BWD_FUSED_BUDGET`, `CFA_BWD_FUSED`): that budget has no GPU
     counterpart (K4 keeps no full-sequence state on chip), so neither it
     nor the environment knobs are ported. On the card the kernels take
-    d in {64, 128} and bf16 q/k/v/dO, or fp32 ones through K4's fp32 build
+    d in {64, 128} (d = 16, 32 or another multiple of 8 below 128 on
+    zero-padded heads, as the forward) and bf16 q/k/v/dO, or fp32 ones
+    through K4's fp32 build
     (each tile split into bf16 hi and lo parts; dK/dV come back fp32);
     `fused=False` takes bf16 only and raises on fp32 before any launch.
     The counts of their launches are

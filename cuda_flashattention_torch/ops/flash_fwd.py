@@ -54,11 +54,11 @@ import torch
 
 from cuda_flashattention_torch import _build
 from cuda_flashattention_torch.ops.common import (
-    KERNEL_HEAD_DIMS,
     NEG_INF,
     cdiv,
     check_qkv,
     kernel_operand,
+    pad_heads,
     quantize_q_per_head,
     resolve_scale,
 )
@@ -105,6 +105,7 @@ def _resolve_use_bound(softmax: str, *, causal: bool, quantized: bool,
 @dataclasses.dataclass(frozen=True)
 class _Plan:
     """What one call resolved to, after validation."""
+    d: int            # the caller's head dim (the kernels may run padded)
     scale: float
     causal: bool
     window: int
@@ -180,7 +181,7 @@ def _plan(q, k, v, scale, causal, window, kv_offset, block_sizes, k_scale,
     if qq and k.dtype == torch.float8_e4m3fn and not fp8_fast:
         qq = False
     return _Plan(
-        scale=resolve_scale(scale, d), causal=causal, window=window,
+        d=d, scale=resolve_scale(scale, d), causal=causal, window=window,
         kv_offset=int(kv_offset), quantized=quantized, segmented=segmented,
         use_bound=use_bound,
         use_kmajor=use_bound and (causal or fp8_fast),
@@ -207,19 +208,22 @@ def _row_norms(x):
     return torch.linalg.vector_norm(x, dim=-1, dtype=torch.float32)
 
 
-def _score_bound(q_hat, k, k_scale, *, factor=None, regrid=False):
+def _score_bound(q_hat, k, k_scale, *, factor=None, regrid=False, d=None):
     """c [B,H,Nq] fp32 = ‖q̂_i‖₂ · max_j ‖k_j‖₂ in log2 units. q_hat is the
     prescaled ROUNDED Q (a score computed from it cannot exceed c), or
     under quantize_q the int8 Q with `factor` restoring real units; a
     quantized key's norm is its codes' norm times its scale, inflated by
-    the re-grid's worst rounding √d·(224/127)·scale under `regrid`."""
+    the re-grid's worst rounding √d·(224/127)·scale under `regrid` (d:
+    the caller's head dim, which k's zero columns past it do not
+    change; default k's)."""
     group = q_hat.shape[1] // k.shape[1]
     k_norms = _row_norms(k)                                  # [B,Hkv,Nk]
     if k_scale is not None:
         ks = k_scale.float()
         k_norms = k_norms * ks
         if regrid:
-            k_norms = k_norms + ks * (math.sqrt(k.shape[-1]) * 224.0 / 127.0)
+            d = k.shape[-1] if d is None else d
+            k_norms = k_norms + ks * (math.sqrt(d) * 224.0 / 127.0)
     kmax = k_norms.amax(dim=-1)                              # [B,Hkv]
     qn = _row_norms(q_hat)                                   # [B,H,Nq]
     if factor is not None:
@@ -262,7 +266,8 @@ def _forward_plain(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
         kf = k.float()
         if plan.regrid:
             kf = torch.clamp(torch.round(kf * (127.0 / 448.0)), -127, 127)
-        c = _score_bound(q8, k, k_scale, factor=factor, regrid=plan.regrid)
+        c = _score_bound(q8, k, k_scale, factor=factor, regrid=plan.regrid,
+                         d=plan.d)
         p_dtype = torch.bfloat16
     else:
         q_hat = _prescale_q(q, plan.scale)
@@ -390,9 +395,12 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
               kv_seg):
     b, h, nq, d = q.shape
     h_kv, nk = k.shape[1], k.shape[2]
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the CUDA forward takes d in {KERNEL_HEAD_DIMS}, "
-                         f"got {d}")
+    d_run, padded = pad_heads("forward", q, k, v)
+    if d_run != d:
+        # the d = 64 or 128 build on zero-padded heads; plan.scale is d's
+        o, lse = _fwd_cuda(*padded, plan, out_dtype, k_scale, v_scale,
+                           q_seg, kv_seg)
+        return o[..., :d], lse
     for name, x in (("k", k), ("v", v), ("k_scale", k_scale),
                     ("v_scale", v_scale), ("q_segment_ids", q_seg),
                     ("kv_segment_ids", kv_seg)):
@@ -459,7 +467,7 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
             q_op = kernel_operand(q8)
             q_factor = row_factor[:, :, 0].contiguous()
             c = _score_bound(q8, k, k_scale, factor=factor,
-                             regrid=plan.regrid)
+                             regrid=plan.regrid, d=plan.d)
         else:
             q_op, q_factor = q_hat, None
             c = _score_bound(q_hat, k, k_scale)
@@ -528,14 +536,15 @@ def flash_attention_forward(
     per-head int8 Q; it waives the loose-bound fallback, and over fp8 keys
     it takes a bf16 Q (else it is dropped, as in the JAX function, whose
     further gate by on-chip memory is not ported). O is in `out_dtype`
-    (default: q's dtype). On the card the kernels take d in {64, 128} and
+    (default: q's dtype). On the card the kernels take d in {64, 128}, and
+    d = 16, 32 or another multiple of 8 below 128 on zero-padded heads
+    (`ops.common.pad_heads`: the next of 64 and 128, O sliced back), and
     a bf16 Q over the K/V above, or fp32 Q, K and V (their fp32 builds:
     each tile split into bf16 hi and lo parts, each product three bf16
     products with fp32 sums); `flash_attention_forward.launches` counts
-    their launches
-    and `.form_launches` the same per form: "online", "bound", "kmajor",
-    and "fallback" for the guarded online launch behind a checked bound
-    call."""
+    their launches and `.form_launches` the same per form: "online",
+    "bound", "kmajor", and "fallback" for the guarded online launch behind
+    a checked bound call."""
     plan = _plan(q, k, v, scale, causal, window, kv_offset, block_sizes,
                  k_scale, v_scale, q_segment_ids, kv_segment_ids, softmax,
                  quantize_q)

@@ -103,9 +103,9 @@ def _paged_cuda(q, k_pages, v_pages, page_table, lengths, k_scale, v_scale,
     _, h_kv, ps, _ = k_pages.shape
     max_pages = page_table.shape[1]
     out_dtype = q.dtype
-    q, q_sigma, k_scale, v_scale, windows, kt, vt, qq = kernel_inputs(
-        q, k_pages, v_pages, k_scale, v_scale, windows, quantize_q, scale,
-        "paged decode")
+    q, q_sigma, k_scale, v_scale, windows, kt, vt, qq, q_f32 = (
+        kernel_inputs(q, k_pages, v_pages, k_scale, v_scale, windows,
+                      quantize_q, scale, "paged decode"))
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
     o = torch.empty((b, h, d), dtype=out_dtype, device=q.device)
@@ -120,8 +120,8 @@ def _paged_cuda(q, k_pages, v_pages, page_table, lengths, k_scale, v_scale,
             optional_ptr(q_sigma), table.data_ptr(), lengths.data_ptr(),
             optional_ptr(windows), o.data_ptr(), lse.data_ptr(),
             optional_ptr(part), optional_ptr(tickets), b, h, h_kv, ps,
-            max_pages, d, kt, vt, int(qq), resolve_scale(scale, d),
-            int(window or 0), split, stream)
+            max_pages, d, kt, vt, int(qq), int(q_f32),
+            resolve_scale(scale, d), int(window or 0), split, stream)
     _build.check(err, "paged_decode_attention kernel launch")
     paged_decode_attention.launches += 1
     return o, lse

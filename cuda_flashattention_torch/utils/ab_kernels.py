@@ -2,11 +2,12 @@
 commits on one card within one call.
 
     python3 cuda_flashattention_torch/utils/ab_kernels.py <checkout root>
-                                                          [K9]
+                                                          [K9 | decode]
 
 imports `cuda_flashattention_torch` from <checkout root> (building its
 kernels there), and prints, on bf16 inputs with d=128 (with `K9`, only the
-last item):
+last item; with `decode`, only the K6 and K7 rows, without the split
+sweep):
   - the online forward (K1) and the fused backward (K4), both causal, at
     the serving prefill shape (B=8, H=16, Hkv=4, N=512, fp32 out) and the
     training shape (B=1, H=16, N=4096, bf16 out); K1 there also under
@@ -49,15 +50,6 @@ def main(root: str, only: str = "") -> None:
     sys.path.insert(0, root)
     import torch
 
-    from cuda_flashattention_torch.ops import decode as dec
-    from cuda_flashattention_torch.ops.decode import decode_attention
-    from cuda_flashattention_torch.ops.fa1 import fa1_attention
-    from cuda_flashattention_torch.ops.flash_bwd import (
-        flash_attention_backward)
-    from cuda_flashattention_torch.ops.flash_fwd import (
-        flash_attention_forward)
-    from cuda_flashattention_torch.ops.paged import paged_decode_attention
-    from cuda_flashattention_torch.ops.quant import quantize_kv
     from cuda_flashattention_torch.utils.profiling import kernel_times
     from cuda_flashattention_torch.utils.timing import cuda_time_ms
 
@@ -110,6 +102,24 @@ def main(root: str, only: str = "") -> None:
     if only == "K9":
         device_ring_rows()
         return
+
+    if only != "decode":
+        forward_backward_rows(mk, dev, report)
+    _decode_rows(mk, gen, dev, report, sweep=only != "decode")
+    if only != "decode":
+        device_ring_rows()
+
+
+def forward_backward_rows(mk, dev, report):
+    """K4, K2 + K3, K1, K8, K1 under segment ids, K1b and K5."""
+    import torch
+
+    from cuda_flashattention_torch.ops.fa1 import fa1_attention
+    from cuda_flashattention_torch.ops.flash_bwd import (
+        flash_attention_backward)
+    from cuda_flashattention_torch.ops.flash_fwd import (
+        flash_attention_forward)
+    from cuda_flashattention_torch.ops.quant import quantize_kv
 
     cases = []
     for name, (b, h, hkv, n), out_dtype in (
@@ -187,6 +197,17 @@ def main(root: str, only: str = "") -> None:
         q, k, v, causal=True, softmax="bound_unchecked"), "flash_fwd", 8)
     del q, k, v
 
+
+def _decode_rows(mk, gen, dev, report, sweep):
+    """K6 at 640 and 4224 live tokens and K7 at 4224 in 128-token pages,
+    bf16, d=128, each call on a cold L2; with `sweep`, again under each
+    split size where the checkout splits the context."""
+    import torch
+
+    from cuda_flashattention_torch.ops import decode as dec
+    from cuda_flashattention_torch.ops.decode import decode_attention
+    from cuda_flashattention_torch.ops.paged import paged_decode_attention
+
     # the decode kernels on a cold L2, peaked inputs as chip_smoke feeds them
     b, h, hkv, page = 8, 16, 4, 128
     q1 = mk(b, h, 128, peak=8)
@@ -211,7 +232,7 @@ def main(root: str, only: str = "") -> None:
                             q1, k_pages, v_pages, table, lens)))
     for label, word, fn in decode_rows:
         report(label, fn, word, 40, cold=True)
-    if hasattr(dec, "SPLIT_KEYS"):
+    if sweep and hasattr(dec, "SPLIT_KEYS"):
         keys = dec.SPLIT_KEYS
         try:
             for size in (64, 128, 256, 512, 1 << 20):
@@ -221,7 +242,6 @@ def main(root: str, only: str = "") -> None:
                     report(f"{label}, {name}", fn, word, 40, cold=True)
         finally:
             dec.SPLIT_KEYS = keys
-    device_ring_rows()
 
 
 if __name__ == "__main__":

@@ -285,3 +285,67 @@ def test_no_plain_fallback_off_the_cpu():
     with pytest.raises(ValueError, match="unsupported device"):
         decode_attention(q, kv, kv, torch.zeros(1, dtype=torch.int32,
                                                 device="meta"))
+
+
+@pytest.mark.parametrize("qtype", [None, "int8", "fp8", "mixed"])
+@pytest.mark.parametrize("d", [16, 32])
+def test_f32_narrow_heads_match_jax(d, qtype):
+    """An fp32 q over an fp32, int8, fp8 or mixed cache at the narrow
+    heads the card's decode kernel now takes (d = 16, 32): the compute
+    dtype is fp32, so O and LSE within 1e-4."""
+    b, h, h_kv, max_n = 3, 8, 2, 70
+    lengths = [70, 0, 33]
+    q, k, v = _inputs(20 + d, b, h, h_kv, max_n, d)
+    if qtype is None:
+        o_j, lse_j = jax_decode(*(jnp.asarray(a) for a in (q, k, v)),
+                                jnp.asarray(lengths, jnp.int32))
+        o_t, lse_t = decode_attention(
+            *(torch.from_numpy(a) for a in (q, k, v)),
+            torch.tensor(lengths, dtype=torch.int32))
+        e_o = np.max(np.abs(np.asarray(o_j) - o_t.numpy()))
+        e_l = np.max(np.abs(np.asarray(lse_j) - lse_t.numpy()))
+    else:
+        kv_t, kv_j = _quantized(k, v, qtype)
+        e_o, e_l, o_t, lse_t = _run_both(q, kv_t, kv_j, lengths, "float32")
+    assert o_t.dtype == torch.float32 and tuple(o_t.shape) == (b, h, d)
+    assert e_o <= GATES["float32"] and e_l <= GATES["float32"]
+    assert torch.all(o_t[1] == 0) and torch.all(lse_t[1] == -1e30)
+
+
+@pytest.mark.parametrize("quantize_q", [False, True])
+def test_plain_rounds_p_only_where_the_jax_body_does(quantize_q):
+    """The compute dtype is q's, or bf16 under `quantize_q` on an int8-K
+    cache (cuda_flashattention_tpu/ops/decode.py: `cd`): over an int8
+    cache an fp32 q weights V with P·v_scale unrounded, and `quantize_q`
+    rounds it to bf16. Both against the same sums written out here."""
+    b, h, h_kv, n, d = 2, 4, 2, 40, 16
+    q, k, v = (torch.from_numpy(a) for a in _inputs(31, b, h, h_kv, n, d))
+    kv = quantize_kv(k, v, "int8")
+    lengths = torch.full((b,), n, dtype=torch.int32)
+    o, lse = decode_attention_plain(q, kv.k_q, kv.v_q, lengths,
+                                    k_scale=kv.k_scale, v_scale=kv.v_scale,
+                                    quantize_q=quantize_q)
+    g = h // h_kv
+    scale = d ** -0.5
+    if quantize_q:
+        sq = q.abs().amax(-1, keepdim=True).clamp_min(1e-12) / 127.0
+        q8 = torch.clamp(torch.round(q / sq), -127, 127)
+        s = torch.einsum("bhgd,bhkd->bhgk", q8.view(b, h_kv, g, d),
+                         kv.k_q.float()) * (sq * scale).view(b, h_kv, g, 1)
+    else:
+        s = torch.einsum("bhgd,bhkd->bhgk", q.view(b, h_kv, g, d),
+                         kv.k_q.float()) * scale
+    s = s * kv.k_scale[:, :, None, :]
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    pw = p * kv.v_scale[:, :, None, :]
+    unrounded = torch.einsum("bhgk,bhkd->bhgd", pw, kv.v_q.float()) / l
+    rounded = torch.einsum("bhgk,bhkd->bhgd", pw.bfloat16().float(),
+                           kv.v_q.float()) / l
+    want, other = (rounded, unrounded) if quantize_q else (unrounded,
+                                                           rounded)
+    assert o.dtype == torch.float32
+    assert torch.max(torch.abs(o - want.reshape(b, h, d))) <= 1e-6
+    assert torch.max(torch.abs(o - other.reshape(b, h, d))) > 1e-5
+    assert torch.max(torch.abs(lse - (m + torch.log(l)).reshape(b, h))) <= 1e-5

@@ -227,3 +227,35 @@ def test_no_plain_fallback_off_the_cpu():
     lse = torch.zeros(1, 2, 8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         flash_attention_backward(q, q, q, q, lse, q, causal=True)
+
+
+@pytest.mark.parametrize("scale", [None, 0.3])
+@pytest.mark.parametrize("d", [16, 32])
+def test_padded_heads_backward_match_jax(d, scale):
+    """What the card runs at d < 64: the plain backward on q, k, v, O and
+    dO zero-padded to 64 at d's scale, the gradients sliced back. It is
+    the identity on the function (the unpadded plain backward within
+    1e-6, zero columns past d) and meets the JAX backward at d (fp32
+    gate, fused K4 there)."""
+    from cuda_flashattention_torch.ops.common import pad_heads, resolve_scale
+    b, h, h_kv, nq, nk = 1, 4, 2, 37, 53
+    q, k, v, do = _inputs(90 + d, b, h, h_kv, nq, nk, d)
+    kw = dict(causal=True, kv_offset=16, scale=scale)
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
+    o, lse = jax_fwd(jq, jk, jv, **kw)
+    want = jax_bwd(jq, jk, jv, o, lse, jdo, fused=True, **kw)
+    tq, tk, tv, tdo, to = (torch.from_numpy(np.array(a, np.float32))
+                           for a in (q, k, v, do, o))
+    tlse = torch.from_numpy(np.array(lse, np.float32))
+    unpadded = flash_attention_backward(tq, tk, tv, to, tlse, tdo, **kw)
+    d_run, padded = pad_heads("backward", tq, tk, tv, to, tdo)
+    assert d_run == 64
+    pq, pk, pv, po, pdo = padded
+    got = flash_attention_backward(
+        pq, pk, pv, po, tlse, pdo, causal=True, kv_offset=16,
+        scale=resolve_scale(scale, d))
+    for g, u, w, name in zip(got, unpadded, want, ("dQ", "dK", "dV")):
+        assert torch.all(g[..., d:] == 0), name
+        assert torch.max(torch.abs(g[..., :d] - u)) <= 1e-6, name
+        w = np.asarray(w)
+        assert_close(g[..., :d], w, GATES["float32"] * max_abs(w), name)

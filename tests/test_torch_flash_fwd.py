@@ -426,3 +426,83 @@ def test_no_plain_fallback_off_the_cpu():
     q = torch.zeros(1, 2, 8, 64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         flash_attention_forward(q, q, q, causal=True)
+
+
+@pytest.mark.parametrize("softmax", ["online", "bound"])
+@pytest.mark.parametrize("qtype", [None, "int8"])
+@pytest.mark.parametrize("d", [16, 32])
+def test_padded_heads_match_jax(d, qtype, softmax):
+    """What the card runs at d < 64: the call resolved at d (`_plan`, the
+    scale 1/√d among it), its plain version on heads zero-padded to 64
+    (`ops.common.pad_heads`), O sliced back. That is the identity on the
+    function (the unpadded plain version within 1e-6) and meets the JAX
+    function at d within the fp32 gate."""
+    from cuda_flashattention_torch.ops.common import pad_heads
+    q, k, v = _inputs(70 + d, 1, 4, 2, 37, 53, d)
+    kw = dict(causal=True, kv_offset=16)
+    jx, th = _both((q, k, v), "float32", qtype=qtype, softmax=softmax, **kw)
+    _assert_parity(jx, th, GATES["float32"])
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    scales = {}
+    if qtype is not None:
+        kv = quantize_kv(tk, tv, qtype)
+        tk, tv = kv.k_q, kv.v_q
+        scales = dict(k_scale=kv.k_scale, v_scale=kv.v_scale)
+    plan = torch_flash_fwd._plan(
+        tq, tk, tv, None, True, 0, 16, None, scales.get("k_scale"),
+        scales.get("v_scale"), None, None, softmax, False)
+    d_run, padded = pad_heads("forward", tq, tk, tv)
+    assert d_run == 64 and padded[0].shape[-1] == 64
+    o, lse = torch_flash_fwd._fwd_plain(
+        *padded, plan, torch.float32, scales.get("k_scale"),
+        scales.get("v_scale"), None, None)
+    assert torch.max(torch.abs(o[..., :d] - th[0])) <= 1e-6
+    assert torch.max(torch.abs(lse - th[1])) <= 1e-6
+    assert torch.all(o[..., d:] == 0)
+
+
+def test_padded_heads_keep_the_quantize_q_bound():
+    """quantize_q over fp8 keys (the re-grid) bounds the scores with the
+    caller's d, not the padded one: the padded plain version equals the
+    unpadded one."""
+    from cuda_flashattention_torch.ops.common import pad_heads
+    q, k, v = (torch.from_numpy(a) for a in _inputs(77, 1, 4, 2, 40, 90, 32))
+    kv = quantize_kv(k, v, "fp8")
+    q = q.to(torch.bfloat16)
+    kw = dict(k_scale=kv.k_scale, v_scale=kv.v_scale, quantize_q=True,
+              softmax="bound", out_dtype=torch.float32)
+    want = flash_attention_forward(q, kv.k_q, kv.v_q, **kw)
+    plan = torch_flash_fwd._plan(q, kv.k_q, kv.v_q, None, False, 0, 0, None,
+                                 kv.k_scale, kv.v_scale, None, None, "bound",
+                                 True)
+    assert plan.regrid and plan.d == 32
+    _, padded = pad_heads("forward", q, kv.k_q, kv.v_q)
+    o, lse = torch_flash_fwd._fwd_plain(*padded, plan, torch.float32,
+                                        kv.k_scale, kv.v_scale, None, None)
+    assert torch.max(torch.abs(o[..., :32] - want[0])) <= 1e-6
+    assert torch.max(torch.abs(lse - want[1])) <= 1e-6
+
+
+@pytest.mark.parametrize("d,d_run", [(8, 64), (16, 64), (48, 64), (64, 64),
+                                     (72, 128), (120, 128), (128, 128)])
+def test_pad_heads_widths(d, d_run):
+    """d = 64, 128 pass through as they are; other multiples of 8 below
+    128 pad to the next of them with zero columns; other widths raise."""
+    from cuda_flashattention_torch.ops.common import pad_heads
+    x = torch.rand(1, 2, 3, d)
+    got, (px, none) = pad_heads("forward", x, None)
+    assert got == d_run and none is None and px.shape[-1] == d_run
+    assert torch.equal(px[..., :d], x) and torch.all(px[..., d:] == 0)
+    if d == d_run:
+        assert px is x  # no copy
+    f8 = x.to(torch.float8_e4m3fn)
+    _, (p8,) = pad_heads("forward", f8)
+    assert p8.dtype == f8.dtype and torch.equal(
+        p8[..., :d].view(torch.uint8), f8.view(torch.uint8))
+
+
+@pytest.mark.parametrize("d", [20, 130, 256])
+def test_pad_heads_refuse_other_widths(d):
+    from cuda_flashattention_torch.ops.common import pad_heads
+    with pytest.raises(ValueError, match="multiple of 8 below 128"):
+        pad_heads("forward", torch.rand(1, 1, 2, d))

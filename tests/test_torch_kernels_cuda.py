@@ -195,7 +195,7 @@ def _paged_copy(dev, k, v, lengths, page, max_pages, qtype, gen):
     n_pages = b * max_pages + 5
     order = torch.randperm(n_pages, generator=gen, device=dev)
     cache = init_paged_cache(n_pages, b, max_pages, h_kv, page, d,
-                             qtype=qtype, device=dev)
+                             qtype=qtype, dtype=k.dtype, device=dev)
     if qtype is None:
         cache.k_pages.fill_(float("nan"))
         cache.v_pages.fill_(float("nan"))
@@ -439,7 +439,8 @@ def test_autograd_through_the_kernels(dev):
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
-    q = torch.zeros(1, 2, 8, 96, device=dev, dtype=torch.bfloat16)
+    # d = 100: no build, and not a multiple of 8 to pad
+    q = torch.zeros(1, 2, 8, 100, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="d in"):
         flash_attention_forward(q, q, q)
     q32 = torch.zeros(1, 2, 8, 64, device=dev)
@@ -449,8 +450,13 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(NotImplementedError, match="fp32 K/V only"):
         flash_attention_forward(q32, q[..., :64], q[..., :64])
     lens = torch.ones(1, dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError, match="bf16 q"):
-        decode_attention(q32[:, :, 0], q32, q32, lens)
+    with pytest.raises(NotImplementedError, match="bf16 or fp32 q"):
+        decode_attention(q16[:, :, 0], q16, q16, lens)
+    with pytest.raises(NotImplementedError, match="cache"):  # bf16 cache
+        decode_attention(q32[:, :, 0], q[..., :64], q[..., :64], lens)
+    with pytest.raises(ValueError, match="d in"):  # no decode build
+        decode_attention(q32[:, :, 0, :48], q32[..., :48], q32[..., :48],
+                         lens)
     qd, kd = q[:, :, 0, :64].contiguous(), q[..., :64].contiguous()
     with pytest.raises(NotImplementedError, match="cache"):  # int8 V alone
         decode_attention(qd, kd, kd.to(torch.int8), lens)
@@ -620,7 +626,7 @@ def _pinned(form, q, k, v, quantize_q=False, out_dtype=torch.float32,
     fallback launch."""
     import dataclasses
     from cuda_flashattention_torch.ops import flash_fwd as ff
-    plan = ff._plan(q, k, v, None, kw.get("causal", False),
+    plan = ff._plan(q, k, v, kw.get("scale"), kw.get("causal", False),
                     kw.get("window", 0), kw.get("kv_offset", 0), None,
                     kw.get("k_scale"), kw.get("v_scale"), None, None,
                     "bound_unchecked", quantize_q)
@@ -1876,3 +1882,274 @@ def test_f32_autograd_through_the_kernels(dev, no_tf32):
                                           causal=True)
     for g, w, name in zip(grads, want, ("dQ", "dK", "dV")):
         _assert_f32_grad(g, w, name)
+
+
+# ---------------------------------------------------------------------------
+# fp32 and narrow heads in decode: K6 and K7 on an fp32 q (over an fp32,
+# int8, fp8 or mixed cache) and at d in {16, 32}, against the plain
+# versions on flat (uniform ±0.5) and peaked (Q x8, K x4) inputs. Gates: an
+# fp32 q within 1e-4 on O and LSE (under `quantize_q` P is rounded to bf16,
+# as in the JAX body, and the bf16 gate holds); bf16 within 5e-3, and O
+# also within 2e-2 · max |plain|. K7 bit for bit against K6 on the same
+# keys. The forward (K1, K1b, K5) and K4 at d in {16, 32}: zero-padded
+# heads at the caller's scale, against the plain versions at d.
+# ---------------------------------------------------------------------------
+
+_NARROW_FORMS = [dict(), dict(window=100),
+                 dict(windows=[5, 300, 64, 1, 0, 130]), dict(quantize_q=True)]
+
+
+def _decode_inputs(dev, dtype, b, h, h_kv, max_n, d, seed, peaked):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=dev) - 0.5
+    q, k, v = u(b, h, d), u(b, h_kv, max_n, d), u(b, h_kv, max_n, d)
+    if peaked:
+        q, k = q * 8, k * 4
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def _stored(k, v, qtype):
+    """(k, v, scale kwargs) as a cache of `qtype` holds them."""
+    if qtype is None:
+        return k, v, {}
+    kv = quantize_kv(k, v, qtype)
+    return kv.k_q, kv.v_q, dict(k_scale=kv.k_scale, v_scale=kv.v_scale)
+
+
+def _assert_decode_close(got, want, dtype, quantize_q, peaked):
+    (o, lse), (o_p, lse_p) = got, want
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    top = o_p.float().abs().max().item()
+    assert top > 0, "the plain O is all zero"
+    gate = F32_GATE if dtype == torch.float32 and not quantize_q else GATE
+    e_o, e_l = _err(o, o_p), _err(lse, lse_p)
+    assert e_o <= gate and e_l <= gate, (e_o, e_l, gate)
+    if peaked and dtype == torch.bfloat16:
+        assert e_o <= REL_GATE * top, (e_o, top)
+
+
+@pytest.mark.parametrize("kw", _NARROW_FORMS)
+@pytest.mark.parametrize("qtype", [None, "int8", "fp8", "mixed"])
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_narrow_heads_and_f32(dev, no_tf32, dtype, d, qtype, kw):
+    """K6 at d = 16 and 32, on a bf16 or fp32 q over a cache in q's dtype
+    or a quantized one, with every window form and `quantize_q`; NaN past
+    each live context; one launch per call."""
+    b, h, h_kv, max_n = 6, 8, 2, 300
+    lengths = [300, 1, 129, 64, 0, 250]
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    kw = dict(kw)
+    if "windows" in kw:
+        kw["windows"] = torch.tensor(kw["windows"], dtype=torch.int32,
+                                     device=dev)
+    for peaked in (False, True):
+        q, k, v = _decode_inputs(dev, dtype, b, h, h_kv, max_n, d, d,
+                                 peaked)
+        k, v, scales = _stored(k, v, qtype)
+        for i, n in enumerate(lengths):
+            for x in (scales.values() if scales else (k, v)):
+                x[i, :, n:] = float("nan")
+        _nan_fill_allocator(dev)
+        before = decode_attention.launches
+        got = decode_attention(q, k, v, lens, **scales, **kw)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == before + 1
+        want = decode_attention_plain(q, k, v, lens, **scales, **kw)
+        qq = kw.get("quantize_q", False) and qtype in ("int8", "mixed")
+        _assert_decode_close(got, want, dtype, qq, peaked)
+        assert torch.all(got[0][4] == 0) and torch.all(got[1][4] == -1e30)
+
+
+@pytest.mark.parametrize("qtype", [None, "int8", "fp8", "mixed"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_decode_f32_wide_heads(dev, no_tf32, d, qtype):
+    """K6's fp32 builds at d = 64 and 128 (the serving model's width),
+    with 4 query rows per KV head and a split context."""
+    b, h, h_kv, max_n = 8, 16, 4, 1100
+    lengths = [1100, 1, 640, 0, 999, 128, 513, 77]
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    for peaked in (False, True):
+        q, k, v = _decode_inputs(dev, torch.float32, b, h, h_kv, max_n, d,
+                                 d + 1, peaked)
+        k, v, scales = _stored(k, v, qtype)
+        got = decode_attention(q, k, v, lens, **scales)
+        torch.cuda.synchronize()
+        want = decode_attention_plain(q, k, v, lens, **scales)
+        _assert_decode_close(got, want, torch.float32, False, peaked)
+
+
+@pytest.mark.parametrize("page", [16, 128])
+@pytest.mark.parametrize("qtype", [None, "int8", "mixed"])
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 16),
+                                     (torch.float32, 32),
+                                     (torch.float32, 128),
+                                     (torch.bfloat16, 16),
+                                     (torch.bfloat16, 32)])
+def test_paged_narrow_heads_and_f32(dev, no_tf32, dtype, d, qtype, page):
+    """K7 at fp32 and the narrow heads: against its plain version, and
+    bit for bit against K6 on the same keys."""
+    b, h, h_kv = 4, 8, 2
+    lengths = [300, 0, 129, 1]
+    max_pages = -(-300 // page) + 2
+    gen = torch.Generator(device=dev).manual_seed(page + d)
+    q, k, v = _decode_inputs(dev, dtype, b, h, h_kv, 300, d, page, True)
+    cache, (kq, vq, ks, vs) = _paged_copy(dev, k, v, lengths, page,
+                                          max_pages, qtype, gen)
+    for kw in (dict(), dict(window=100)):
+        _nan_fill_allocator(dev)
+        before = paged_decode_attention.launches
+        got = paged_decode_step(q, cache, **kw)
+        torch.cuda.synchronize()
+        assert paged_decode_attention.launches == before + 1
+        want = paged_decode_attention_plain(
+            q, cache.k_pages, cache.v_pages, cache.page_table,
+            cache.lengths, k_scale=cache.k_scale, v_scale=cache.v_scale,
+            **kw)
+        _assert_decode_close(got, want, dtype, False, True)
+        o_c, lse_c = decode_attention(q, kq, vq, cache.lengths, k_scale=ks,
+                                      v_scale=vs, **kw)
+        assert torch.equal(got[0], o_c) and torch.equal(got[1], lse_c)
+
+
+@pytest.mark.parametrize("d", [16, 128])
+def test_decode_f32_keeps_p_unrounded(dev, no_tf32, d):
+    """An fp32 q weights V with the unrounded P, as the JAX body's fp32
+    compute dtype does: K6 is ten times nearer the fp32 P·V than the same
+    sum over P rounded to bf16."""
+    b, h, h_kv, n = 2, 4, 2, 200
+    q, k, v = _decode_inputs(dev, torch.float32, b, h, h_kv, n, d, 5, True)
+    lens = torch.full((b,), n, dtype=torch.int32, device=dev)
+    o, _ = decode_attention(q, k, v, lens)
+    s = torch.einsum("bhgd,bhkd->bhgk", q.view(b, h_kv, h // h_kv, d),
+                     k) / d ** 0.5
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    exact = (torch.einsum("bhgk,bhkd->bhgd", p, v) / l).reshape(b, h, d)
+    rounded = (torch.einsum("bhgk,bhkd->bhgd", p.bfloat16().float(), v)
+               / l).reshape(b, h, d)
+    torch.cuda.synchronize()
+    assert _err(o, exact) <= F32_GATE
+    assert _err(o, rounded) > 10 * _err(o, exact)
+
+
+def _padded_counts():
+    return dict(flash_attention_forward.form_launches)
+
+
+@pytest.mark.parametrize("scale", [None, 0.3])
+@pytest.mark.parametrize("form", ["online", "bound", "kmajor"])
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,h_kv,nq,nk,kw", [
+    (2, 4, 2, 200, 200, dict(causal=True)),
+    (1, 8, 8, 130, 300, dict()),
+])
+def test_forward_narrow_heads(dev, no_tf32, dtype, d, form, scale, b, h,
+                              h_kv, nq, nk, kw):
+    """K1 (online), K1b and K5 (pinned) at d = 16 and 32, on heads
+    zero-padded to 64 at the caller's scale, against the plain version at
+    d: one launch of the form, O of width d in q's dtype."""
+    for peaked in (False, True):
+        q, k, v = _f32_inputs(dev, b, h, h_kv, nq, nk, d, nq + d, peaked)
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        before = _padded_counts()
+        if form == "online":
+            got = flash_attention_forward(q, k, v, scale=scale,
+                                          softmax="online", **kw)
+            want = flash_attention_forward_plain(q, k, v, scale=scale,
+                                                 softmax="online", **kw)
+        else:
+            got = _pinned(form, q, k, v, out_dtype=dtype, scale=scale, **kw)
+            want = flash_attention_forward_plain(
+                q, k, v, scale=scale, softmax="bound_unchecked",
+                out_dtype=dtype, **kw)
+        torch.cuda.synchronize()
+        after = _padded_counts()
+        assert after[form] - before[form] == 1
+        assert got[0].shape == q.shape and got[0].dtype == dtype
+        if dtype == torch.float32:
+            _assert_f32_fwd(got, want)
+        else:
+            _assert_fwd_close(got, want)
+
+
+@pytest.mark.parametrize("d", [16, 32])
+# the split pair takes bf16 only (K3 has no fp32 build)
+@pytest.mark.parametrize("dtype,fused", [(torch.float32, True),
+                                         (torch.bfloat16, True),
+                                         (torch.bfloat16, False)])
+@pytest.mark.parametrize("b,h,h_kv,nq,nk,kw", [
+    (1, 4, 4, 300, 300, dict(causal=True)),
+    (2, 8, 2, 200, 333, dict(causal=True, window=90, kv_offset=133)),
+    (1, 8, 8, 130, 260, dict()),
+])
+def test_backward_narrow_heads(dev, no_tf32, dtype, d, fused, b, h, h_kv,
+                               nq, nk, kw):
+    """K4 (and K2 + K3 on bf16) at d = 16 and 32 on zero-padded heads,
+    against the plain backward at d, at the default scale and at 0.3."""
+    for scale in (None, 0.3):
+        for peaked in (False, True):
+            q, k, v = _f32_inputs(dev, b, h, h_kv, nq, nk, d, nq + d, peaked)
+            gen = torch.Generator(device=dev).manual_seed(d)
+            do = torch.rand((b, h, nq, d), generator=gen, device=dev) - 0.5
+            q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
+            o, lse = flash_attention_forward_plain(q, k, v, scale=scale,
+                                                   **kw)
+            want = flash_attention_backward_plain(q, k, v, o, lse, do,
+                                                  scale=scale, **kw)
+            before = dict(flash_attention_backward.launches)
+            got = flash_attention_backward(q, k, v, o, lse, do, scale=scale,
+                                           fused=fused, **kw)
+            torch.cuda.synchronize()
+            grown = {n: flash_attention_backward.launches[n] - before[n]
+                     for n in before}
+            assert grown == ({"fused": 1, "dkdv": 0, "dq": 0} if fused
+                             else {"fused": 0, "dkdv": 1, "dq": 1})
+            for g, w, name in zip(got, want, ("dQ", "dK", "dV")):
+                assert g.shape == w.shape and g.dtype == w.dtype
+                if dtype == torch.float32:
+                    _assert_f32_grad(g, w, name)
+                else:
+                    _assert_rel(g, w, name)
+
+
+def test_narrow_heads_through_autograd(dev, no_tf32):
+    """flash_attention at d = 16 on fp32 [B,N,H,d] views: K1 once and K4
+    once, O and the gradients within the fp32 gates."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=dev) - 0.5
+    q = u(2, 96, 4, 16).transpose(1, 2).requires_grad_(True)
+    k = u(2, 96, 2, 16).transpose(1, 2).requires_grad_(True)
+    v = u(2, 96, 2, 16).transpose(1, 2).requires_grad_(True)
+    do = u(2, 96, 4, 16).transpose(1, 2)
+    fwd0 = flash_attention_forward.launches
+    bwd0 = flash_attention_backward.launches["fused"]
+    o = flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(o, (q, k, v), grad_outputs=do)
+    torch.cuda.synchronize()
+    assert flash_attention_forward.launches == fwd0 + 1
+    assert flash_attention_backward.launches["fused"] == bwd0 + 1
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    o_p, lse = flash_attention_forward_plain(qd, kd, vd, causal=True)
+    assert o.shape == qd.shape and _err(o, o_p) <= F32_GATE
+    want = flash_attention_backward_plain(qd, kd, vd, o_p, lse, do,
+                                          causal=True)
+    for g, w, name in zip(grads, want, ("dQ", "dK", "dV")):
+        _assert_f32_grad(g, w, name)
+
+
+def test_padded_heads_refuse_other_widths(dev):
+    """d = 48 is padded to 64; d = 20 and 136 raise, naming the rule."""
+    q = torch.rand(1, 2, 40, 48, device=dev)
+    o, _ = flash_attention_forward(q, q, q)
+    assert o.shape == q.shape
+    for d in (20, 136):
+        x = torch.rand(1, 2, 40, d, device=dev)
+        with pytest.raises(ValueError, match="multiple of 8 below 128"):
+            flash_attention_forward(x, x, x)

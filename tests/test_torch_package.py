@@ -239,9 +239,10 @@ def test_decode_walks_share_the_split_and_its_merge():
     from cuda_flashattention_torch.ops import decode, paged
     for fn in (decode._decode_cuda, paged._paged_cuda):
         assert "split_scratch(" in inspect.getsource(fn)
-    # part, tickets and the split size joined both C signatures
-    assert len(_build.SIGNATURES["cfa_decode"]) == 24
-    assert len(_build.SIGNATURES["cfa_paged_decode"]) == 26
+    # part, tickets and the split size joined both C signatures, then the
+    # q type (q_f32)
+    assert len(_build.SIGNATURES["cfa_decode"]) == 25
+    assert len(_build.SIGNATURES["cfa_paged_decode"]) == 27
 
 
 def test_device_ring_is_bound_with_its_signature():

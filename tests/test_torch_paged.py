@@ -473,3 +473,54 @@ def test_shape_errors_and_no_plain_fallback_off_the_cpu():
     before = tpg.paged_decode_attention.launches
     tpg.paged_decode_attention(q, pool, pool, table, lens)
     assert tpg.paged_decode_attention.launches == before  # CPU: no kernel
+
+
+@pytest.mark.parametrize("qtype", [None, "int8", "fp8", "mixed"])
+@pytest.mark.parametrize("d", [16, 32])
+def test_paged_f32_narrow_heads_match_jax(d, qtype):
+    """`paged_decode_attention` on an fp32 q over fp32 or quantized pools
+    of 16-token pages at d = 16 and 32, against the JAX function (1e-4:
+    the compute dtype is fp32) and the port's contiguous decode on the
+    same keys (1e-6)."""
+    b, h, h_kv, n, page, max_pages = 2, 4, 2, 64, 16, 5
+    lengths = [64, 37]
+    q, k, v = (_uniform(40 + d, (b, h, d)), _uniform(41, (b, h_kv, n, d)),
+               _uniform(42, (b, h_kv, n, d)))
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    rng = np.random.default_rng(9)
+    if qtype is None:
+        (k_pool, v_pool), table, valid = _paginate(
+            (k, v), lengths, page, max_pages, rng, 9.0)
+        jargs, tkw, jkw = (jnp.asarray(k_pool), jnp.asarray(v_pool)), {}, {}
+        tpools = (torch.from_numpy(k_pool), torch.from_numpy(v_pool))
+        contiguous = (torch.from_numpy(k), torch.from_numpy(v))
+    else:
+        kv = quantize_kv(torch.from_numpy(k), torch.from_numpy(v), qtype)
+        kv_j = jax_quantize_kv(jnp.asarray(k), jnp.asarray(v), qtype)
+        arrays = (kv.k_q.view(torch.uint8).numpy(),
+                  kv.v_q.view(torch.uint8).numpy(),
+                  kv.k_scale.numpy(), kv.v_scale.numpy())
+        (k_pool, v_pool, ks_pool, vs_pool), table, valid = _paginate(
+            arrays, lengths, page, max_pages, rng, 100.0)
+        jargs = (jnp.asarray(k_pool.view(np.asarray(kv_j.k_q).dtype)),
+                 jnp.asarray(v_pool.view(np.asarray(kv_j.v_q).dtype)))
+        jkw = dict(k_scale=jnp.asarray(ks_pool), v_scale=jnp.asarray(vs_pool))
+        tpools = (torch.from_numpy(k_pool).view(kv.k_q.dtype),
+                  torch.from_numpy(v_pool).view(kv.v_q.dtype))
+        tkw = dict(k_scale=torch.from_numpy(ks_pool),
+                   v_scale=torch.from_numpy(vs_pool))
+        contiguous = (kv.k_q, kv.v_q)
+    o_j, lse_j = jpg.paged_decode_attention(
+        jnp.asarray(q), *jargs, jnp.asarray(valid),
+        jnp.asarray(lengths, jnp.int32), **jkw)
+    o_t, lse_t = tpg.paged_decode_attention(
+        torch.from_numpy(q), *tpools, torch.from_numpy(table), lens, **tkw)
+    assert o_t.dtype == torch.float32 and tuple(o_t.shape) == (b, h, d)
+    assert _err(o_j, o_t) <= GATES["float32"]
+    assert _err(lse_j, lse_t) <= GATES["float32"]
+    ckw = {} if qtype is None else dict(k_scale=kv.k_scale,
+                                        v_scale=kv.v_scale)
+    o_c, lse_c = decode_attention(torch.from_numpy(q), *contiguous, lens,
+                                  **ckw)
+    assert torch.max(torch.abs(o_t - o_c)) <= 1e-6
+    assert torch.max(torch.abs(lse_t - lse_c)) <= 1e-6
