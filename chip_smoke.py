@@ -193,10 +193,27 @@ Phases, each of which raises on failure (so the script exits non-zero):
    prints the kernel's ms (torch.profiler), its bound (fp32: 4 bytes per
    element over 3.35 TB/s, products over the 495 TFLOP/s TF32 rate), the
    fp32 library call's ms (TF32 off) and the bf16 build's ms at the same
-   shape. Then the fp32 path through K5: `flash_attention` on fp32 [1,
+   shape. The backward rows hold K3's fp32 build with them (`fused=False`:
+   K2 + K3's three gradients, K3's own ms and bound), also at the
+   reference's backward case [1, 1, 128, 64] and at [1, 16, 6144, 128]
+   causal. Then the fp32 path through K5: `flash_attention` on fp32 [1,
    16, 6144, 128] causal (past the online rule's 5120 rows), forward and
    backward against the plain versions: K5 1, its guarded fallback 1, K4
-   1.
+   1; and again through the split backward: K2 1, K3 1. Then an fp32 Q
+   over int8, fp8 and mixed K/V at the fp32 serving model's prefix reads
+   (B=8, H=16, Hkv=4, 512 rows over 3584 keys, and over the 1024-key
+   slice under window 1024): K1 (online), K1b and K5 pinned, and
+   `quantize_q` (over int8 keys; dropped over fp8), each against its
+   plain fp32 version on flat and peaked inputs (1e-4; `quantize_q`
+   5e-3), with the fp32 K/V build's ms on the dequantised K/V beside it
+   and fp32 SDPA on the dequantised K/V as the library call; K8's fp32
+   build at [1, 16, 4096, 128] causal and not and the reference rung's
+   seeded 64 x 32 case (d 32 on padded heads), launches counted; K9's
+   fp32 build at n=4 L=1024 (its path, launches counted) and n=8 L=8192
+   on ranks sharing card 0 (and over distinct cards where two or more
+   are visible), against the plain ring and the fp32 reference (1e-4 ·
+   max(1, max |ref|)), 20 repeats bit for bit, one fp32 einsum as the
+   library call.
 16. fp32 and narrow heads in decode: K6 and K7 against their plain
    versions at the serving batch (B=8, H=16, Hkv=4, 4224 live tokens of
    a 4352-token cache, cold L2), flat and peaked inputs: K6 on an fp32 q
@@ -220,7 +237,16 @@ Phases, each of which raises on failure (so the script exits non-zero):
    against the same model on the plain attention functions, the fp32
    run's tokens equal and its prefill logits within 1e-3 · max(1, max
    |plain|); the int8 cache, replayed on the fp32 run's tokens, within
-   0.25 of its last-step logits.
+   0.25 of its last-step logits. Then fp32 chunked serving: the same
+   model, B=8 prompts of 4096 tokens through `prefill_chunked(chunk=512)`
+   and 32 greedy steps over int8, fp8 and mixed caches and, with
+   `cfg.window` = 1024, an int8 cache: launches per form (K1 fp32 32; the
+   prefix reads with an fp32 Q over the codes, K1b or under the window
+   K5, 28, each behind its guarded K1 of the same build; K6 fp32 128),
+   the last chunk's logits within 1e-3 · max(1, max |plain|) of the run
+   on the plain attention functions, the greedy tokens equal to that
+   run's (or departing only where its two best logits tie within that
+   gate), and a profile of one chunked prefill over the int8 cache.
 19. The ladder model trains: stage 05's config (fp32, d_head 16) takes 3
    `make_train_step` SGD steps on B=4 x T=64, K1 and K4 once per layer
    and step on heads padded to 64; one step's loss and gradients against
@@ -244,10 +270,14 @@ models, the split-backward step, the ring-attention cases, Ulysses, the
 ring-decode calls, the sequence- and tensor-parallel train steps, the
 pipelined
 forward, the device-ring stage; for the fp32 forms the ladder's stages 03
-to 06, the fp32 `flash_attention` path, the fp32 `generate()` runs and
-the ladder model's training steps). Launches made to compare a
-kernel with its plain version or to time it are not in it, nor are K1's guarded
-fallback launches behind a checked bound call, which exit at once.
+to 06, the fp32 `flash_attention` path with its fused and split
+backward, the fp32 `generate()` runs, the fp32 chunked-serving runs, the
+fp32 FA1 calls and device-ring call, and the ladder model's training
+steps). Launches made to compare a kernel with its plain version or to
+time it are not in it, nor are K1's guarded fallback launches behind a
+checked bound call, which exit at once, but for K1's fp32-Q build over
+codes: on its path (fp32 chunked serving) it runs only as that guarded
+launch, so its line counts those.
 
 Each kernel's `bound_ms` is the least time the card could take for the
 same call: the larger of its bytes (each input read once, each output
@@ -370,6 +400,7 @@ def _kernel_of(name: str) -> str:
                            (r"flash_fwd_kmajor", "K5"),
                            (r"flash_fwd_bound_kernel", "K1b"),
                            (r"flash_fwd_kernel", "K1"),
+                           (r"fa1_kernel", "K8"),
                            (r"::decode_kernel<", "K6"),
                            (r"::paged_kernel<", "K7"),
                            (r"device_ring_kernel", "K9")):
@@ -957,20 +988,24 @@ def _phase_gpipe(ctx):
            f"pipeline_forward launched the forward {n_fwd} times")
 
 
-def _k9_bound(ring_devices, rows, d):
+def _k9_bound(ring_devices, rows, d, f32=False):
     """K9's least time over the ring's cards, each at work at once: on a
     card, its ranks' shards and W read once and their o written once
     (fp32) over the memory rate, and their n x n tile products (every
     rank multiplies every shard) over the bf16 rate; where a rank's right
     neighbour is on another card, its n - 1 pushed shards over one
     direction of NVLink. Pushes between ranks of one card need not reach
-    the memory (they stay in L2) and are not priced."""
-    n, shard = len(ring_devices), rows * d * 2
+    the memory (they stay in L2) and are not priced. `f32`: fp32 shards
+    and W (4 bytes an element, pushed as split images of the same size),
+    the products at the TF32 rate (`_bound_f32`)."""
+    size = 4 if f32 else 2
+    n, shard = len(ring_devices), rows * d * size
     worst = dict(bound_ms=0.0, bound_by="bytes")
     for card in dict.fromkeys(ring_devices):
         mine = [i for i, c in enumerate(ring_devices) if c == card]
-        b = _bound(len(mine) * (shard + rows * d * 4) + d * d * 2,
-                   len(mine) * n * 2.0 * rows * d * d)
+        b = (_bound_f32 if f32 else _bound)(
+            len(mine) * (shard + rows * d * 4) + d * d * size,
+            len(mine) * n * 2.0 * rows * d * d)
         crossing = sum(ring_devices[(i + 1) % n] != card for i in mine)
         t_link = crossing * (n - 1) * shard / NVLINK_BYTES_PER_S * 1e3
         if t_link > b["bound_ms"]:
@@ -1140,9 +1175,11 @@ def _visible_pairs(ctx, b, h, nq, nk, kw) -> int:
 
 def _mask(ctx, nq, nk, kw):
     """The boolean mask (True: visible) the library call is given, [Nq,
-    Nk] or [B, Nq, Nk]; None when `is_causal` or nothing says it."""
+    Nk] or [B, Nq, Nk]; None when `is_causal` or nothing says it. Row i
+    is position i + kv_offset."""
     torch = ctx.torch
-    rows = torch.arange(nq, device=ctx.dev)[:, None]
+    rows = (torch.arange(nq, device=ctx.dev)[:, None]
+            + kw.get("kv_offset", 0))
     cols = torch.arange(nk, device=ctx.dev)[None, :]
     if kw.get("q_segment_ids") is not None:
         qs, ks = kw["q_segment_ids"], kw["kv_segment_ids"]
@@ -1188,6 +1225,7 @@ def _phase_fp32(ctx):
     `flash_attention` on fp32 [1, 16, 6144, 128] causal, forward and
     backward, against the plain versions, with its launch counts."""
     torch = ctx.torch
+    from cuda_flashattention_torch.ops import attention
     from cuda_flashattention_torch.ops import flash_bwd as fb
     from cuda_flashattention_torch.ops import flash_fwd as ff
     from cuda_flashattention_torch.ops.attention import flash_attention
@@ -1290,21 +1328,30 @@ def _phase_fp32(ctx):
         return [ctx.diff(g, w) / max(1.0, w.abs().max().item())
                 for g, w in zip(got, want)]
 
+    # (name, shape, options, the kernels recorded for the kernels line at
+    # this shape: their main path's). K3 runs beside K2 on the split path
+    # (fused=False), whose errors are its three gradients.
     bwd_cases = [
-        (f"stage 04 full step {step}", (1, 1, 1, step, step, 64), {}, True),
+        (f"stage 04 full step {step}", (1, 1, 1, step, step, 64), {},
+         ("K4",)),
         (f"stage 04 diagonal step {step}", (1, 1, 1, step, step, 64),
-         dict(causal=True), False),
-        ("02 512", (1, 1, 1, 512, 512, 64), {}, False),
+         dict(causal=True), ()),
+        ("03_bwd 128", (1, 1, 1, 128, 128, 64), {}, ()),
+        ("02 512", (1, 1, 1, 512, 512, 64), {}, ()),
         ("4096 causal", (1, 16, 16, 4096, 4096, 128), dict(causal=True),
-         False),
+         ()),
         ("GQA 16:4 4096 causal", (1, 16, 4, 4096, 4096, 128),
-         dict(causal=True), False),
+         dict(causal=True), ()),
         ("4096 window 1024", (1, 16, 16, 4096, 4096, 128),
-         dict(causal=True, window=1024), False),
-        ("1024 segment ids", (1, 16, 16, 1024, 1024, 128), segs, False),
+         dict(causal=True, window=1024), ()),
+        ("1024 segment ids", (1, 16, 16, 1024, 1024, 128), segs, ()),
+        (f"fp32 path {F32_PATH[2]} causal", (F32_PATH[0], F32_PATH[1],
+                                             F32_PATH[1], F32_PATH[2],
+                                             F32_PATH[2], F32_PATH[3]),
+         dict(causal=True), ("K2", "K3")),
     ]
     for name, (b, h, hkv, nq, nk, d), kw, record in bwd_cases:
-        errs = {"K4": [], "K2": []}
+        errs = {"K4": [], "K2": [], "K3": []}
         for peaked in (False, True):
             q, k, v = inputs(b, h, hkv, nq, nk, d, peaked)
             do = torch.rand((b, h, nq, d), generator=gen, device=dev) - 0.5
@@ -1313,19 +1360,26 @@ def _phase_fp32(ctx):
             want = fb.flash_attention_backward_plain(*args, **kw)
             got4 = fb.flash_attention_backward(*args, **kw)
             got2 = fb._dkdv_cuda(*args, **kw)
+            got3 = fb.flash_attention_backward(*args, fused=False, **kw)
             torch.cuda.synchronize()
             _check(all(g.dtype == torch.float32 and bool(
-                torch.isfinite(g).all()) for g in (*got4, *got2)),
+                torch.isfinite(g).all()) for g in (*got4, *got2, *got3)),
                    f"fp32 backward {name}: a gradient is not fp32 or finite")
             errs["K4"] += grads_close(got4, want)
             errs["K2"] += grads_close(got2, want[1:])
+            errs["K3"] += grads_close(got3, want)
+            del want, got4, got2, got3
         bf = [x.to(torch.bfloat16) for x in (q, k, v, o)] + [
             lse, do.to(torch.bfloat16)]
         ms4 = _call_ms(lambda: fb.flash_attention_backward(*args, **kw), "K4")
         ms2 = _call_ms(lambda: fb._dkdv_cuda(*args, **kw), "K2")
+        ms3 = _call_ms(lambda: fb.flash_attention_backward(
+            *args, fused=False, **kw), "K3")
         ms4_bf = _call_ms(lambda: fb.flash_attention_backward(*bf, **kw),
                           "K4")
         ms2_bf = _call_ms(lambda: fb._dkdv_cuda(*bf, **kw), "K2")
+        ms3_bf = _call_ms(lambda: fb.flash_attention_backward(
+            *bf, fused=False, **kw), "K3")
         ms_p = cuda_time_ms(lambda: fb.flash_attention_backward_plain(
             *args, **kw), iters=3, warmup=1)
         lib_ms = _library_ms(ctx, q, k, v, kw, backward=True, do=do)
@@ -1335,13 +1389,17 @@ def _phase_fp32(ctx):
                                                + 2 * b * hkv * nk * d),
                                    10.0 * d * pairs),
                   "K2": _bound_f32(read + 4 * 2 * b * hkv * nk * d,
-                                   8.0 * d * pairs)}
-        for kn, ms, ms_bf in (("K4", ms4, ms4_bf), ("K2", ms2, ms2_bf)):
+                                   8.0 * d * pairs),
+                  "K3": _bound_f32(read + 4 * b * h * nq * d,
+                                   6.0 * d * pairs)}
+        for kn, ms, ms_bf in (("K4", ms4, ms4_bf), ("K2", ms2, ms2_bf),
+                              ("K3", ms3, ms3_bf)):
             bd = bounds[kn]
             e = errs[kn]
-            grads = ("dQ", "dK", "dV") if kn == "K4" else ("dK", "dV")
+            grads = ("dK", "dV") if kn == "K2" else ("dQ", "dK", "dV")
             half = len(e) // 2
-            print(f"[fp32] {kn} {name}: B={b} H={h} Hkv={hkv} N={nq} d={d} "
+            what = "K3 (K2 + K3's gradients)" if kn == "K3" else kn
+            print(f"[fp32] {what} {name}: B={b} H={h} Hkv={hkv} N={nq} d={d} "
                   f"max|diff|/max(1, max|plain|) flat "
                   + ", ".join(f"{g} {x:.3e}" for g, x in zip(grads, e[:half]))
                   + " peaked "
@@ -1355,9 +1413,9 @@ def _phase_fp32(ctx):
                    f"{max(errs[kn]):.3e} > {F32_GATE} x max(1, max|plain|)")
             r = ctx.rec[f"{kn} fp32"]
             r["max_abs_err"] = max(r["max_abs_err"], *errs[kn])
-            if record:
+            if kn in record:
                 r.update(ms=ms, plain_ms=ms_p, library_ms=lib_ms, **bd)
-        del q, k, v, o, lse, do, args, bf, want, got4, got2
+        del q, k, v, o, lse, do, args, bf
 
     # the fp32 path through K5: flash_attention, forward and backward
     b, h, n, d = F32_PATH
@@ -1385,6 +1443,41 @@ def _phase_fp32(ctx):
            f"fp32 path: dO {e_o:.3e}, gradients {e_g:.3e}")
     ctx.launches["K5 fp32"] += forms["kmajor"]
     ctx.launches["K4 fp32"] += fused
+    # the same path through the split backward (K2 + K3's fp32 builds)
+    ctx.zero_counts()
+    with mock.patch.object(attention, "flash_attention_backward",
+                           functools.partial(fb.flash_attention_backward,
+                                             fused=False)):
+        o = flash_attention(*leaves, causal=True)
+        grads = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    forms = dict(ctx.fwd_forms)
+    split = dict(ctx.bwd_launches)
+    e_g = max(grads_close(grads, want))
+    print(f"[fp32] path, split backward: launches {forms} + {split} (expect "
+          f"kmajor 1, fallback 1, dkdv 1, dq 1, fused 0); worst gradient "
+          f"max|diff|/max(1, max|plain|) {e_g:.3e} (gate {F32_GATE})",
+          flush=True)
+    _check(forms == dict(online=0, bound=0, kmajor=1, fallback=1)
+           and split == dict(dkdv=1, dq=1, fused=0),
+           f"fp32 split path launch counts {forms}, {split}")
+    _check(e_g <= F32_GATE, f"fp32 split path: gradients {e_g:.3e}")
+    ctx.launches["K5 fp32"] += forms["kmajor"]
+    ctx.launches["K2 fp32"] += split["dkdv"]
+    ctx.launches["K3 fp32"] += split["dq"]
+    del leaves, grads, o, want
+
+    # an fp32 Q over quantized K/V, K8 and K9 on fp32
+    torch.cuda.empty_cache()
+    _phase_f32q_prefix(ctx)
+    torch.cuda.empty_cache()
+    _phase_f32_fa1(ctx)
+    _phase_f32_ring(ctx, [dev], "sharing card 0", record=True)
+    if torch.cuda.device_count() > 1:
+        cards = [torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count())]
+        _phase_f32_ring(ctx, cards, f"over {len(cards)} distinct cards",
+                        record=False)
 
 
 # K6 / K7 on an fp32 q and at the narrow heads: the serving batch over
@@ -1734,6 +1827,30 @@ def _phase_ladder_train(ctx):
     ctx.launches["K4 fp32 d<64"] += n_bwd
 
 
+def _serving_on_plain_attention():
+    """A context in which the serving model's attention (prefill and
+    chunks, and decode) runs on the plain versions."""
+    from cuda_flashattention_torch.models import transformer as tfm
+    from cuda_flashattention_torch.ops import kv_cache
+    from cuda_flashattention_torch.ops.decode import decode_attention_plain
+    from cuda_flashattention_torch.ops.flash_fwd import (
+        flash_attention_forward_plain)
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(
+        tfm, "flash_attention_forward", flash_attention_forward_plain))
+    stack.enter_context(mock.patch.object(
+        kv_cache, "decode_attention", decode_attention_plain))
+    return stack
+
+
+def _windowed(m, window):
+    """Model `m` with cfg.window set: the same parameters, another
+    config."""
+    w = copy.copy(m)
+    w.cfg = dataclasses.replace(m.cfg, window=window)
+    return w
+
+
 def _phase_f32_generate(ctx):
     """The 246M serving config in fp32 (`dtype=torch.float32`) runs
     `generate()` on B=8 prompts of 512 tokens for 32 new tokens, greedily,
@@ -1746,11 +1863,7 @@ def _phase_f32_generate(ctx):
     torch = ctx.torch
     from cuda_flashattention_torch.models import transformer as tfm
     from cuda_flashattention_torch.models.generate import generate
-    from cuda_flashattention_torch.ops import kv_cache
-    from cuda_flashattention_torch.ops.decode import (
-        decode_attention, decode_attention_plain)
-    from cuda_flashattention_torch.ops.flash_fwd import (
-        flash_attention_forward_plain)
+    from cuda_flashattention_torch.ops.decode import decode_attention
     dev, card = ctx.dev, ctx.card
     bsz, prompt_n, new = F32_GEN
     cfg = tfm.TransformerConfig(dtype=torch.float32, **CFG_KW)
@@ -1761,14 +1874,7 @@ def _phase_f32_generate(ctx):
     n_params = sum(p.numel() for p in model.parameters())
     generate(model, prompt, 2)  # warm-up
     torch.cuda.synchronize()
-
-    def plain_attention():
-        stack = contextlib.ExitStack()
-        stack.enter_context(mock.patch.object(
-            tfm, "flash_attention_forward", flash_attention_forward_plain))
-        stack.enter_context(mock.patch.object(
-            kv_cache, "decode_attention", decode_attention_plain))
-        return stack
+    plain_attention = _serving_on_plain_attention
 
     runs = {}
     for label, kw in (("fp32 cache", {}), ("int8 cache", dict(qtype="int8"))):
@@ -1834,6 +1940,394 @@ def _phase_f32_generate(ctx):
            f"fp32 prefill logits {e_first:.3e} > {F32_LOGIT_GATE * top:.3e}")
     _check(e8 <= QUANT_LOGIT_GATE, f"fp32 int8-cache logits {e8:.3e}")
     del model, caches, runs
+
+
+# an fp32 Q over one-byte K/V (phase 15): the two shapes the fp32 serving
+# model's chunked prefill reads its quantized cache at, (B, H, Hkv, Nq,
+# Nk, d): the prefix of the last chunk (every key visible) and the
+# windowed prefix's slice (window 1024, kv_offset 1024)
+F32Q_PREFIX = (8, 16, 4, 512, 3584, 128)
+F32Q_WINDOW = (8, 16, 4, 512, 1024, 128)
+# K8's fp32 rows: the training shape, and the reference FA1 rung's seeded
+# fp32 case (64 rows, d 32, on heads padded to 64)
+F32_FA1 = (1, 16, 4096, 128)
+F32_FA1_REF = (1, 1, 64, 32)
+# fp32 chunked serving: greedy decode steps after the chunked prefill
+F32_CHUNK_NEW = 32
+
+
+def _phase_f32q_prefix(ctx):
+    """An fp32 Q over int8, fp8 and mixed K/V at the fp32 serving model's
+    prefix shapes: each of K1 (online), K1b and K5 pinned (through `_plan`
+    + `_fwd_cuda`, no guarded fallback), and `quantize_q` (its int8 Q over
+    int8 keys; dropped over fp8 keys), against the plain fp32 version on
+    flat and peaked inputs: O and LSE within 1e-4 (quantize_q computes in
+    bf16: 5e-3). Each row: the kernel's ms (torch.profiler), the fp32
+    build's ms on the dequantised K/V held in fp32 (three wgmmas a product
+    where the codes take two), its bound (the fp32 Q, O and LSE at 4 bytes
+    an element, the codes at 1 and their scales; products at the TF32
+    rate), the plain ms and the library call (fp32 SDPA, TF32 off, on the
+    dequantised K/V)."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.ops import flash_fwd as ff
+    from cuda_flashattention_torch.ops.quant import quantize_kv
+    from cuda_flashattention_torch.utils.timing import cuda_time_ms
+    dev, card = ctx.dev, ctx.card
+    gen = torch.Generator(device=dev).manual_seed(14)
+    cases = [
+        ("prefix 512x3584", F32Q_PREFIX, {}, "bound"),
+        ("windowed prefix 512x1024", F32Q_WINDOW,
+         dict(causal=True, window=1024, kv_offset=1024), "kmajor"),
+    ]
+    for name, (b, h, hkv, nq, nk, d), kw, routed in cases:
+        pairs = _visible_pairs(ctx, b, h, nq, nk, kw)
+        nbytes = (4 * (2 * b * h * nq * d + b * h * nq)
+                  + 2 * b * hkv * nk * d + 4 * 2 * b * hkv * nk)
+        bound = _bound_f32(nbytes, 4.0 * d * pairs)
+        for qtype in ("int8", "fp8", "mixed"):
+            draws = []
+            for peaked in (False, True):
+                def u(*shape):
+                    return torch.rand(shape, generator=gen,
+                                      device=dev) - 0.5
+                q, k, v = u(b, h, nq, d), u(b, hkv, nk, d), u(b, hkv, nk, d)
+                if peaked:
+                    q, k = q * Q_PEAK, k * K_PEAK
+                kv = quantize_kv(k, v, qtype)
+                draws.append((q, kv.k_q, kv.v_q, kv.k_scale, kv.v_scale))
+            q, kq, vq, ks, vs = draws[0]
+            kd = kq.float() * ks[..., None]
+            vd = vq.float() * vs[..., None]
+            lib_ms = _library_ms(ctx, q, kd, vd, kw)
+            for form in ("online", "bound", "kmajor", "qq"):
+                if form == "qq" and qtype == "fp8":
+                    continue  # dropped over fp8 keys under an fp32 Q
+                softmax = ("online" if form == "online" else "auto"
+                           if form == "qq" else "bound_unchecked")
+
+                def plan_of(x, form=form, softmax=softmax):
+                    plan = ff._plan(x[0], x[1], x[2], None,
+                                    kw.get("causal", False),
+                                    kw.get("window", 0),
+                                    kw.get("kv_offset", 0), None, x[3], x[4],
+                                    None, None, softmax, form == "qq")
+                    if form in ("bound", "kmajor"):
+                        plan = dataclasses.replace(
+                            plan, use_kmajor=form == "kmajor")
+                    return plan
+
+                def call(x, form=form):
+                    return ff._fwd_cuda(x[0], x[1], x[2], plan_of(x),
+                                        torch.float32, x[3], x[4], None,
+                                        None)
+
+                def plain(x, form=form, softmax=softmax):
+                    return ff.flash_attention_forward_plain(
+                        x[0], x[1], x[2], k_scale=x[3], v_scale=x[4],
+                        softmax=softmax, quantize_q=form == "qq",
+                        out_dtype=torch.float32, **kw)
+
+                plan = plan_of(draws[0])
+                kn = ("K1" if form == "online" else
+                      "K5" if plan.use_kmajor else "K1b")
+                errs = []
+                for x in draws:
+                    o, lse = call(x)
+                    torch.cuda.synchronize()
+                    o_p, lse_p = plain(x)
+                    errs += [ctx.diff(o, o_p), ctx.diff(lse, lse_p)]
+                    _check(bool(torch.isfinite(o).all())
+                           and o_p.abs().max().item() > 0,
+                           f"fp32 Q {kn} {qtype} {name}: O not finite or "
+                           f"all 0")
+                gate = GATE if form == "qq" else F32_GATE
+                ms = _call_ms(lambda: call(draws[0]), kn)
+                dq = (q, kd, vd, None, None)
+                ms_kv = (float("nan") if form == "qq" else
+                         _call_ms(lambda: call(dq), kn))
+                ms_p = cuda_time_ms(lambda: plain(draws[0]), iters=3,
+                                    warmup=1)
+                tag = "quantize_q " if form == "qq" else ""
+                print(f"[fp32 Q] {tag}{kn} over {qtype} {name}: B={b} H={h} "
+                      f"Hkv={hkv} Nq={nq} Nk={nk} d={d} max|dO| flat "
+                      f"{errs[0]:.3e} peaked {errs[2]:.3e}, max|dLSE| "
+                      f"{errs[1]:.3e} / {errs[3]:.3e} (gate {gate}); kernel "
+                      f"{ms:.4f} ms ({100 * bound['bound_ms'] / ms:.1f}% of "
+                      f"its bound {bound['bound_ms']:.4f} ms, "
+                      f"{bound['bound_by']}), the fp32 K/V build on the "
+                      f"dequantised K/V {ms_kv:.4f} ms, library fp32 "
+                      f"{lib_ms:.4f} ms, plain {ms_p:.4f} ms ({card})",
+                      flush=True)
+                _check(max(errs) <= gate, f"fp32 Q {tag}{kn} over {qtype} "
+                       f"{name}: max |diff| {max(errs):.3e} > {gate}")
+                if form == "qq":
+                    continue
+                r = ctx.rec[f"{kn} fp32 Q over codes"]
+                r["max_abs_err"] = max(r["max_abs_err"], *errs)
+                # the main path's shapes: K1b and K5 where "auto" routes,
+                # K1 (its guarded fallback there) at the prefix
+                if qtype == "int8" and (form == routed or (
+                        form == "online" and routed == "bound")):
+                    r.update(ms=ms, plain_ms=ms_p, library_ms=lib_ms,
+                             **bound)
+            del draws, q, kq, vq, ks, vs, kd, vd
+
+
+def _phase_f32_fa1(ctx):
+    """K8's fp32 build against its plain fp32 version on flat and peaked
+    inputs (1e-4): its path, fa1_attention on fp32 at [1, 16, 4096, 128]
+    causal and not and the reference rung's seeded 64 x 32 case (d 32 on
+    heads padded to 64), with the launch counts; each row's kernel ms
+    (torch.profiler), bound, plain ms and the library call (fp32 SDPA,
+    TF32 off)."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.ops.fa1 import (
+        fa1_attention, fa1_attention_plain)
+    from cuda_flashattention_torch.utils.timing import cuda_time_ms
+    dev, card = ctx.dev, ctx.card
+    gen = torch.Generator(device=dev).manual_seed(17)
+    cases = [(F32_FA1, True), (F32_FA1, False), (F32_FA1_REF, False)]
+
+    def draw(shape, peaked):
+        x = [torch.rand(shape, generator=gen, device=dev) - 0.5
+             for _ in range(3)]
+        return (x[0] * Q_PEAK, x[1] * K_PEAK, x[2]) if peaked else x
+
+    inputs = {c: (draw(c[0], False), draw(c[0], True)) for c in cases}
+    ctx.zero_counts()
+    outs = {c: fa1_attention(*inputs[c][0], causal=c[1]) for c in cases}
+    torch.cuda.synchronize()
+    n = fa1_attention.launches
+    _check(n == len(cases), f"fp32 FA1 launched {n} times in {len(cases)} "
+           f"calls")
+    ctx.launches["K8 fp32"] += n
+    for (shape, causal), o in outs.items():
+        b, h, nn, d = shape
+        flat, peaked = inputs[shape, causal]
+        errs = [ctx.diff(o, fa1_attention_plain(*flat, causal=causal))]
+        o_pk = fa1_attention(*peaked, causal=causal)
+        torch.cuda.synchronize()
+        o_pp = fa1_attention_plain(*peaked, causal=causal)
+        errs.append(ctx.diff(o_pk, o_pp))
+        _check(o.dtype == torch.float32 and bool(torch.isfinite(o).all())
+               and o_pp.abs().max().item() > 0,
+               f"fp32 K8 {shape}: O not fp32, not finite or all 0")
+        kw = dict(causal=causal)
+        pairs = _visible_pairs(ctx, b, h, nn, nn, kw)
+        bound = _bound_f32(4 * 4 * b * h * nn * d, 4.0 * d * pairs)
+        ms = _call_ms(lambda: fa1_attention(*flat, causal=causal), "K8")
+        ms_p = cuda_time_ms(lambda: fa1_attention_plain(*flat, causal=causal),
+                            iters=3, warmup=1)
+        lib_ms = _library_ms(ctx, *flat, kw)
+        print(f"[fp32] K8 B={b} H={h} N={nn} d={d} causal={causal}: max|dO| "
+              f"flat {errs[0]:.3e} peaked {errs[1]:.3e} (gate {F32_GATE}); "
+              f"kernel {ms:.4f} ms ({100 * bound['bound_ms'] / ms:.1f}% of "
+              f"its bound {bound['bound_ms']:.4f} ms, {bound['bound_by']}), "
+              f"library fp32 {lib_ms:.4f} ms, plain {ms_p:.4f} ms ({card})",
+              flush=True)
+        _check(max(errs) <= F32_GATE, f"fp32 K8 {shape} causal={causal}: "
+               f"{max(errs):.3e} > {F32_GATE}")
+        r = ctx.rec["K8 fp32"]
+        r["max_abs_err"] = max(r["max_abs_err"], *errs)
+        if shape == F32_FA1 and causal:
+            r.update(ms=ms, plain_ms=ms_p, library_ms=lib_ms, **bound)
+    del inputs, outs
+
+
+def _phase_f32_ring(ctx, devices, where, record):
+    """K9's fp32 build on fp32 shards: its path (`device_ring_matmul` at
+    the example's n=4, L=1024, d=128, launches counted) when `record`;
+    then at n=4 L=1024 and n=8 L=8192 against the plain ring and
+    tile((Σ x_i) @ W) in fp32 (1e-4 · max(1, max |ref|)), the kernel's ms
+    (torch.profiler), its bound, the plain ring's ms and one fp32
+    `torch.einsum` (TF32 off); 20 repeats at n=8 give the first call's
+    bits."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.parallel.device_ring import (
+        device_ring_matmul, ring_matmul_plain)
+    from cuda_flashattention_torch.parallel.mesh import make_mesh
+    from cuda_flashattention_torch.utils.timing import cuda_time_ms
+    gen = torch.Generator(device=ctx.dev).manual_seed(18)
+    d = 128
+
+    def draw(*shape):
+        return torch.rand(shape, generator=gen, device=ctx.dev) - 0.5
+
+    if record:
+        n, rows = 4, K9_SHAPES[0]
+        mesh = make_mesh((n,), ("sp",), [devices[0]] * n)
+        x, w = draw(n * rows, d), draw(d, d)
+        ctx.zero_counts()
+        device_ring_matmul(x, w, mesh)
+        torch.cuda.synchronize()
+        ctx.launches["K9 fp32"] += device_ring_matmul.launches
+        _check(device_ring_matmul.launches == 1,
+               f"fp32 K9 path: {device_ring_matmul.launches} launches")
+    for n, rows in ((4, K9_SHAPES[0]), (8, K9_SHAPES[1])):
+        ring_devices = [devices[i % len(devices)] for i in range(n)]
+        mesh = make_mesh((n,), ("sp",), ring_devices)
+        x, w = draw(n * rows, d), draw(d, d)
+        o = device_ring_matmul(x, w, mesh)
+        torch.cuda.synchronize()
+        ref = (x.view(n, rows, d).sum(0) @ w).repeat(n, 1)
+        gate = F32_GATE * max(1.0, ref.abs().max().item())
+        o_p = ring_matmul_plain(x, w, mesh)
+        errs = [ctx.diff(o, ref), ctx.diff(o, o_p)]
+        ms_k = _device_ms_by_kernel(lambda: device_ring_matmul(x, w, mesh),
+                                    ("K9",), iters=K9_ITERS)["K9"]
+        ms_p = cuda_time_ms(lambda: ring_matmul_plain(x, w, mesh),
+                            iters=K9_ITERS)
+        x3 = x.view(n, rows, d)
+        ms_lib = cuda_time_ms(lambda: torch.einsum("nld,de->le", x3, w),
+                              iters=K9_ITERS)
+        bound = _k9_bound(ring_devices, rows, d, f32=True)
+        same = sum(torch.equal(device_ring_matmul(x, w, mesh), o)
+                   for _ in range(20)) if n == 8 else 20
+        print(f"[fp32] K9 n={n} ranks ({where}), L={rows} d={d}: "
+              f"{device_ring_matmul.last_scope} scope; vs tile((sum x_i) @ "
+              f"W) {errs[0]:.3e}, vs the plain ring {errs[1]:.3e} (gate "
+              f"{gate:.3e}); kernel {ms_k:.4f} ms "
+              f"({100 * bound['bound_ms'] / ms_k:.1f}% of its bound "
+              f"{bound['bound_ms']:.4f} ms, {bound['bound_by']}), plain ring "
+              f"{ms_p:.4f} ms, one fp32 einsum {ms_lib:.4f} ms; repeats "
+              f"equal {same}/20 ({ctx.card})", flush=True)
+        _check(max(errs) <= gate and bool(torch.isfinite(o).all())
+               and same == 20, f"fp32 K9 n={n} L={rows}: {errs}, "
+               f"{same}/20 repeats")
+        if record:
+            r = ctx.rec["K9 fp32"]
+            r["max_abs_err"] = max(r["max_abs_err"], *errs)
+            if n == 4:
+                r.update(ms=ms_k, plain_ms=ms_p, library_ms=ms_lib, **bound)
+
+
+def _phase_f32_chunked(ctx):
+    """Main path of fp32 chunked serving over a quantized cache: the 246M
+    serving config with `dtype=torch.float32`, B=8 prompts of 4096 tokens
+    through `prefill_chunked(chunk=512)`, then 32 greedy `decode_one`
+    steps, over an int8, an fp8 and a mixed cache and, with `cfg.window` =
+    1024, an int8 cache. Per layer each chunk launches K1's fp32 build on
+    itself and, after the first, reads the cached prefix with its fp32 Q
+    over the codes: K1b (no window) or K5 (window), each with its guarded
+    fallback (K1's fp32-Q build, which exits at once); K6's fp32 builds
+    decode. Counts per form: 32, 28 and 28, K6 128. Against the same run
+    on the plain attention functions: the last chunk's logits within
+    F32_LOGIT_GATE · max(1, max |plain|), and the greedy tokens equal, or
+    departing only where the plain run's two best logits lie within that
+    gate of each other (a tie the kernels' fp32 rounding may break).
+    Then a torch.profiler breakdown of one chunked prefill over the int8
+    cache."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.models import transformer as tfm
+    from cuda_flashattention_torch.ops.decode import decode_attention
+    from cuda_flashattention_torch.utils.profiling import kernel_times
+    dev, card = ctx.dev, ctx.card
+    cfg = tfm.TransformerConfig(dtype=torch.float32, **CFG_KW)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    model = tfm.Transformer(cfg, generator=gen)
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, LONG_PROMPT),
+                           generator=gen, device=dev, dtype=torch.int32)
+    new = F32_CHUNK_NEW
+    n_chunks = LONG_PROMPT // LONG_CHUNK
+    long_len = LONG_PROMPT + new
+
+    def prefill(m, qtype):
+        caches = tfm.init_caches(m.cfg, BATCH, long_len, qtype=qtype,
+                                 device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, caches = tfm.prefill_chunked(m, prompt, caches, chunk=LONG_CHUNK)
+        torch.cuda.synchronize()
+        return lg, caches, time.perf_counter() - t0
+
+    def serve(m, qtype):
+        """(last-chunk logits, tokens [B, 1 + new], each decode step's
+        logits, prefill s, decode s)"""
+        lg, caches, prefill_s = prefill(m, qtype)
+        tok = torch.argmax(lg, dim=-1).to(prompt.dtype)
+        toks, steps = [tok], []
+        t0 = time.perf_counter()
+        for i in range(new):
+            lg_dec, caches = tfm.decode_one(m, tok, LONG_PROMPT + i, caches)
+            tok = torch.argmax(lg_dec, dim=-1).to(prompt.dtype)
+            toks.append(tok)
+            steps.append(lg_dec)
+        torch.cuda.synchronize()
+        return (lg, torch.stack(toks, 1), steps, prefill_s,
+                time.perf_counter() - t0)
+
+    prefill(model, "int8")  # warm-up: allocator at the long shapes
+    n_prefix = (n_chunks - 1) * cfg.n_layers
+    for label, qtype, window, prefix_form in (
+            ("int8 cache", "int8", 0, "bound"),
+            ("fp8 cache", "fp8", 0, "bound"),
+            ("mixed cache", "mixed", 0, "bound"),
+            ("int8 cache, window 1024", "int8", LONG_WINDOW, "kmajor")):
+        m = _windowed(model, window) if window else model
+        ctx.zero_counts()
+        lg, toks, _, prefill_s, decode_s = serve(m, qtype)
+        counts = dict(ctx.fwd_forms)
+        n_dec = decode_attention.launches
+        expect = dict(online=n_chunks * cfg.n_layers, bound=0, kmajor=0,
+                      fallback=n_prefix)
+        expect[prefix_form] = n_prefix
+        with _serving_on_plain_attention():
+            lg_p, toks_p, steps_p, _, _ = serve(m, qtype)
+        top = max(1.0, lg_p.abs().max().item())
+        e_lg = ctx.diff(lg, lg_p)
+        same = (toks == toks_p).float().mean().item()
+        departure = ""
+        tie_ok = True
+        if not torch.equal(toks, toks_p):
+            step = int((toks != toks_p).any(0).nonzero()[0])
+            at = lg_p if step == 0 else steps_p[step - 1]
+            rows = toks[:, step] != toks_p[:, step]
+            best = at[rows].float().topk(2, dim=-1).values
+            gap = (best[:, 0] - best[:, 1]).max().item()
+            tie_ok = gap <= F32_LOGIT_GATE * top
+            departure = (f" (first departure at token {step}, where the "
+                         f"plain run's two best logits lie {gap:.3e} apart)")
+        print(f"[f32-chunked] {label}: fp32 model, B={BATCH} x "
+              f"{LONG_PROMPT} tokens in chunks of {LONG_CHUNK}, then {new} "
+              f"greedy steps: launches {counts} (expect {expect}), K6 "
+              f"{n_dec} (expect {cfg.n_layers * new}); last-chunk logits vs "
+              f"plain attention max|d| {e_lg:.3e} (gate {F32_LOGIT_GATE} x "
+              f"{top:.3f}); greedy tokens equal {same:.4f}{departure}; "
+              f"prefill {prefill_s * 1e3:.3f} ms "
+              f"({BATCH * LONG_PROMPT / prefill_s:.0f} prompt tok/s), decode "
+              f"{decode_s / new * 1e3:.3f} ms/step ({card})", flush=True)
+        _check(counts == expect and n_dec == cfg.n_layers * new,
+               f"fp32 chunked {label}: launches {counts}, K6 {n_dec}")
+        _check(bool(torch.isfinite(lg).all()) and e_lg <= F32_LOGIT_GATE * top,
+               f"fp32 chunked {label}: logits {e_lg:.3e}")
+        _check(tie_ok, f"fp32 chunked {label}: tokens depart from the plain "
+               f"run{departure}")
+        ctx.launches["K1 fp32"] += counts["online"]
+        ctx.launches["K1b fp32 Q over codes"] += counts["bound"]
+        ctx.launches["K5 fp32 Q over codes"] += counts["kmajor"]
+        # the guarded launches behind the prefix reads: K1's fp32-Q build,
+        # launched and exiting at once (no row's bound was loose)
+        ctx.launches["K1 fp32 Q over codes"] += counts["fallback"]
+        ctx.launches["K6 fp32"] += n_dec
+        del lg_p, steps_p
+    # where one chunked prefill's time goes (int8 cache)
+    prof = kernel_times(lambda: prefill(model, "int8"))
+    groups, by_name = {}, {}
+    for n, t in prof.ms.items():
+        groups[_group_of(n)] = groups.get(_group_of(n), 0.0) + t
+        short = n.replace("void ", "", 1).replace(
+            "(anonymous namespace)::", "").split("(")[0][:80]
+        by_name[short] = by_name.get(short, 0.0) + t
+    print(f"[f32-chunked] profile of one chunked prefill, int8 cache: "
+          f"{sum(prof.count.values())} kernels, device busy "
+          f"{prof.busy_ms:.3f} ms of a profiled wall of {prof.wall_ms:.3f} "
+          f"ms ({prof.busy_ms / prof.wall_ms:.1%}) ({card})", flush=True)
+    for g, t in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"[f32-chunked]   {g}: {t:.3f} ms ({t / prof.busy_ms:.1%} of "
+              f"busy)")
+    for n, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
+        print(f"[f32-chunked]   top kernel {n}: {t:.3f} ms")
+    del model
 
 
 def _ladder_rows() -> int:
@@ -2079,7 +2573,9 @@ def main() -> int:
     rec = {kn: dict(max_abs_err=0.0) for kn in
            ("K1", "K1b", "K5", "K2", "K3", "K4", "K6", "K7", "K8", "K9",
             "K1 fp32", "K1b fp32", "K5 fp32", "K4 fp32", "K2 fp32",
-            "K6 fp32", "K7 fp32", "K1 fp32 d<64", "K4 fp32 d<64")}
+            "K6 fp32", "K7 fp32", "K1 fp32 d<64", "K4 fp32 d<64",
+            "K1 fp32 Q over codes", "K1b fp32 Q over codes",
+            "K5 fp32 Q over codes", "K3 fp32", "K8 fp32", "K9 fp32")}
     # launches on the main paths, summed over the runs that drive them
     launches = {kn: 0 for kn in rec}
 
@@ -2611,12 +3107,6 @@ def main() -> int:
     n_chunks = LONG_PROMPT // LONG_CHUNK
     long_len = LONG_PROMPT + NEW
 
-    def windowed(m, window):
-        """`m` with cfg.window set: the same parameters, another config."""
-        w = copy.copy(m)
-        w.cfg = dataclasses.replace(m.cfg, window=window)
-        return w
-
     def chunked_run(m, qtype):
         caches = tfm.init_caches(m.cfg, BATCH, long_len, qtype=qtype,
                                  device=dev)
@@ -2637,7 +3127,7 @@ def main() -> int:
             ("int8 cache", "int8", 0, "bound"),
             ("fp8 cache", "fp8", 0, "kmajor"),
             ("int8 cache, window 1024", "int8", LONG_WINDOW, "kmajor")):
-        m = windowed(model, window) if window else model
+        m = _windowed(model, window) if window else model
         zero_counts()
         lg, caches, prefill_s = chunked_run(m, qtype)
         counts = dict(fwd_forms)
@@ -3460,6 +3950,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     _phase_f32_generate(ctx)
     torch.cuda.empty_cache()
+    _phase_f32_chunked(ctx)
+    torch.cuda.empty_cache()
     _phase_ladder_train(ctx)
     _phase_ladder(ctx)
 
@@ -3521,6 +4013,35 @@ def main() -> int:
         ("K4 fp32 d<64", "flash_attention_backward on fp32 Q/K/V/dO at d 16 "
          "(K4's fp32 build on heads zero-padded to 64: the ladder model's "
          "training steps)", "flash_bwd_kv.cu", "flash_bwd.py:252"),
+        ("K1b fp32 Q over codes", "flash_attention_forward softmax=bound "
+         "on an fp32 Q over int8, fp8 or mixed K/V (K1b's fp32-Q build: Q "
+         "split into bf16 hi + lo, the codes exact in bf16, two wgmma "
+         "products each, P unrounded; the fp32 serving model's chunked "
+         "prefill reading its int8, fp8 and mixed caches)",
+         "flash_fwd_bound.cu", "flash_fwd.py:123"),
+        ("K5 fp32 Q over codes", "flash_attention_forward softmax=bound, "
+         "causal, on an fp32 Q over one-byte K/V (K5's fp32-Q build; the "
+         "fp32 serving model's windowed prefix reads over an int8 cache)",
+         "flash_fwd_kmajor.cu", "flash_fwd.py:399"),
+        ("K1 fp32 Q over codes", "flash_attention_forward softmax=online "
+         "on an fp32 Q over one-byte K/V (K1's fp32-Q build; on the main "
+         "path the guarded launch behind each prefix read of the fp32 "
+         "chunked serving runs, which exits at once when no row's bound "
+         "was loose)", "flash_fwd.cu", "flash_fwd.py:123"),
+        ("K2 fp32", "flash_attention_backward fused=False on fp32 (K2's fp32 "
+         "build; flash_attention's split backward on fp32 [1, 16, 6144, "
+         "128] causal)", "flash_bwd_kv.cu", "flash_bwd.py:117"),
+        ("K3 fp32", "flash_attention_backward fused=False on fp32 (K3's fp32 "
+         "build: 32-key tiles, split tiles, three wgmma products each; "
+         "flash_attention's split backward on fp32 [1, 16, 6144, 128] "
+         "causal)", "flash_bwd.cu", "flash_bwd.py:192"),
+        ("K8 fp32", "fa1_attention on fp32 (K8's fp32 build, d 32 on heads "
+         "padded to 64: [1, 16, 4096, 128] causal and not, and the "
+         "reference rung's seeded 64 x 32 case)", "fa1.cu", "fa1.py:54"),
+        ("K9 fp32", "device_ring_matmul on fp32 shards and W (K9's fp32 "
+         "build: split images pushed, three wgmma products a step; n=4 "
+         "L=1024 d=128)", "device_ring.cu",
+         "examples/07_device_ring.py:46"),
     ]
     kernels = []
     for kn, name, source, replaces in described:

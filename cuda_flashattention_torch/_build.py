@@ -47,19 +47,20 @@ SIGNATURES = {
     # ptrs[10] (q, k, v, k_scale, v_scale, q_seg, kv_seg, guard, o, lse),
     # B, H, Hkv, Nq, Nk, D, strides[9] (q/k/v: batch, head, row, in
     # elements), k_type, v_type (0 bf16, 1 int8, 2 fp8, 3 fp32: with an
-    # fp32 q), causal, window, kv_offset, out_f32, stream
+    # fp32 q), q_f32 (an fp32 q, over fp32 or one-byte K/V), causal,
+    # window, kv_offset, out_f32, stream
     "cfa_flash_fwd": [_PP, _I, _I, _I, _I, _I, _I, _LP,
-                      _I, _I, _I, _I, _I, _I, _P],
+                      _I, _I, _I, _I, _I, _I, _I, _P],
     # ptrs[10] (q, k, v, k_scale, v_scale, q_factor, c, n_loose, o, lse),
-    # B, H, Hkv, Nq, Nk, D, strides[9], k_type, v_type, qq, causal, window,
-    # kv_offset, out_f32, stream
+    # B, H, Hkv, Nq, Nk, D, strides[9], k_type, v_type, q_f32, qq, causal,
+    # window, kv_offset, out_f32, stream
     "cfa_flash_fwd_bound": [_PP, _I, _I, _I, _I, _I, _I, _LP,
-                            _I, _I, _I, _I, _I, _I, _I, _P],
+                            _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # ptrs[12] (q, k, v, k_scale, v_scale, q_factor, c, l_acc, o_acc,
     # n_loose, o, lse), B, H, Hkv, Nq, Nk, D, strides[9], k_type, v_type,
-    # qq, causal, window, kv_offset, out_f32, span, stream
+    # q_f32, qq, causal, window, kv_offset, out_f32, span, stream
     "cfa_flash_fwd_kmajor": [_PP, _I, _I, _I, _I, _I, _I, _LP,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, k_scale, v_scale, q_sigma, lengths, windows, o, lse, part,
     # tickets (the split's scratch, or NULL), B, H, Hkv, max_n, D, k_type,
     # v_type (0 bf16, 1 int8, 2 fp8, 3 fp32), qq, q_f32 (q and o fp32, else
@@ -74,8 +75,8 @@ SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          ctypes.c_float, _I, _I, _P],
     # q, k, v, o, B, H, Nq, Nk, D, strides[9] (q/k/v: batch, head, row),
-    # causal, n_sub, stream
-    "cfa_fa1": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LP, _I, _I, _P],
+    # causal, n_sub, f32 (fp32 q/k/v and o, else bf16), stream
+    "cfa_fa1": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LP, _I, _I, _I, _P],
     # q, k, v, dO, lse, delta, q_seg, kv_seg (int32 ids or NULL), dk, dv,
     # dq_acc (NULL: K2, else K4), B, H, Hkv, Nq, Nk, D, strides[12]
     # (q/k/v/dO: batch, head, row), scale, causal, window, kv_offset, f32
@@ -84,17 +85,19 @@ SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _LP, _D, _I, _I, _I, _I,
                          _P],
     # q, k, v, dO, lse, delta, q_seg, kv_seg, dq, B, H, Hkv, Nq, Nk, D,
-    # strides[12], scale, causal, window, kv_offset, stream
+    # strides[12], scale, causal, window, kv_offset, f32 (fp32 q/k/v/dO
+    # and dq, else bf16), stream
     "cfa_flash_bwd_q": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _LP, _D, _I, _I, _I, _P],
+                        _I, _I, _I, _I, _I, _I, _LP, _D, _I, _I, _I, _I,
+                        _P],
     # x, w, out (this launch's shards, W and o), buf[n], flags[n] (per-rank
     # device pointers), n_shards, local[n_local] (the ranks this launch
     # runs), n_local, L, D, grid (CTAs per rank, common to the ring), epoch,
-    # sys (flags at system scope), device, stream
+    # sys (flags at system scope), f32 (fp32 x and w), device, stream
     "cfa_device_ring": [_P, _P, _P, _PP, _PP, _I, _IP, _I, _I, _I, _I,
-                        ctypes.c_ulonglong, _I, _I, _P],
-    # D, sys, device, out: CTAs of that build the card holds at once
-    "cfa_device_ring_resident": [_I, _I, _I, _IP],
+                        ctypes.c_ulonglong, _I, _I, _I, _P],
+    # D, sys, f32, device, out: CTAs of that build the card holds at once
+    "cfa_device_ring_resident": [_I, _I, _I, _I, _IP],
     # device, peer: cudaDeviceEnablePeerAccess(peer) on `device`
     "cfa_enable_peer_access": [_I, _I],
 }

@@ -1,9 +1,10 @@
 // Device-initiated ring for Hopper: every rank holds a shard x_i [L, D]
-// bf16 and W [D, D] bf16; the kernel itself moves the shard it holds into
-// its right neighbour's double buffer while it computes o += shard @ W
-// (fp32 accumulate). After n steps every rank holds (sum_i x_i) @ W in
-// o [L, D] fp32. No host copy, no collective library: the kernel's own
-// bulk copies move the data and device-side flags order the steps.
+// and W [D, D], both bf16 or both fp32 (the F32 build); the kernel itself
+// moves the shard it holds into its right neighbour's double buffer while
+// it computes o += shard @ W (fp32 accumulate). After n steps every rank
+// holds (sum_i x_i) @ W in o [L, D] fp32. No host copy, no collective
+// library: the kernel's own bulk copies move the data and device-side
+// flags order the steps.
 //
 // Replaces: examples/07_device_ring.py::_ring_kernel (the Pallas kernel
 // that starts a remote DMA into the neighbour's VMEM buffer, multiplies the
@@ -70,6 +71,17 @@
 //    and mbarrier wait traps after seconds, so a protocol fault fails the
 //    run instead of hanging the card.
 //
+//  * fp32 x and W (the F32 build): every value is held as two bf16 halves,
+//    hi = bf16(x) and lo = bf16(x − hi), and o += shard @ W is three bf16
+//    wgmmas (lo·W_hi + hi·W_lo + hi·W_hi) with fp32 sums. The threads
+//    split W and the caller's step-0 rows once, as they write them in the
+//    swizzle; what is pushed around the ring is the split tile image, hi
+//    image then lo image (PL = 2 planes): 4 bytes an element, the bytes of
+//    raw fp32, but every later step lands in wgmma's layout by its one bulk
+//    copy with no work on arrival, where a raw fp32 push would be split by
+//    the threads at every hop. W hi + lo is 64 KB at D = 128, so a round
+//    there is one tile (G = 1), which keeps two CTAs per SM.
+//
 // The designs that measured slower (o in fp32 in device memory, the push
 // as 16-byte stores, one tile per round, registers for three CTAs per SM)
 // are text patches of a copy of this source in utils/ring_variants.py.
@@ -86,6 +98,7 @@ using cfa_bound::mbar_expect_tx;
 using cfa_bound::mbar_init;
 using cfa_bound::mbar_wait;
 using cfa_bound::smem_u32;
+using cfa_bound::split2;
 using cfa_bound::swz;
 using cfa_bound::wgmma_commit;
 using cfa_bound::wgmma_fence;
@@ -106,19 +119,21 @@ constexpr int MIN_BLOCKS = 2;   // CTAs per SM the registers are sized for
 constexpr long long SPIN_CYCLES = 6000000000LL;
 
 struct RingTable {
-  const bf16* x;               // this launch's shards [n_local, L, D]
-  const bf16* w;               // W [D, D] on this launch's card
+  const void* x;               // this launch's shards [n_local, L, D]
+  const void* w;               // W [D, D] on this launch's card
   float* out;                  // o [n_local, L, D]
-  bf16* buf[MAX_RANKS];        // per rank: tile images [2, L / BM, BM·D]
+  bf16* buf[MAX_RANKS];        // per rank: tile images [2, L / BM, PL·BM·D]
   u64* flags[MAX_RANKS];       // per rank: [grid, FLAG_WORDS]
   int local[MAX_RANKS];        // blockIdx.y -> rank of this launch
 };
 
-template <int D>
+// PL: the planes of an image, hi (and lo under F32)
+template <int D, bool F32>
 struct Geo {
-  static constexpr int G = D == 64 ? 4 : 2;  // tiles per round
-  static constexpr int TILE = BM * D * 2;   // bytes of a tile image
-  static constexpr int W_BYTES = D * D * 2;
+  static constexpr int PL = F32 ? 2 : 1;
+  static constexpr int G = D == 64 ? 4 : F32 ? 1 : 2;  // tiles per round
+  static constexpr int TILE = PL * BM * D * 2;  // bytes of a tile image
+  static constexpr int W_BYTES = PL * D * D * 2;
   static constexpr int st_off = W_BYTES;    // both multiples of 1024
   static constexpr int bar_off = st_off + G * TILE;
   static constexpr int bytes = bar_off + 8 * G + 1024;  // + alignment
@@ -213,13 +228,11 @@ __device__ __forceinline__ void wgmma_ss_bf16_bmn(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// acc (+)= the tile at shared address `a` @ W at `wa`, issued and
-// committed, not waited for.
+// acc (+)= the tile image at shared address `a` @ W's image at `wa`.
 template <int D>
-__device__ __forceinline__ void tile_product(float (&acc)[D / 64][32],
-                                             uint32_t a, uint32_t wa,
-                                             bool accumulate) {
-  wgmma_fence();
+__device__ __forceinline__ void tile_issue(float (&acc)[D / 64][32],
+                                           uint32_t a, uint32_t wa,
+                                           bool accumulate) {
 #pragma unroll
   for (int kt = 0; kt < D / 16; ++kt) {
     const uint64_t da =
@@ -232,7 +245,64 @@ __device__ __forceinline__ void tile_product(float (&acc)[D / 64][32],
           accumulate || kt > 0);
     }
   }
+}
+
+// acc (+)= the tile at shared address `a` @ W at `wa`, issued and
+// committed, not waited for; under F32 both split (each lo image right
+// after its hi image): lo·W_hi + hi·W_lo + hi·W_hi.
+template <int D, bool F32>
+__device__ __forceinline__ void tile_product(float (&acc)[D / 64][32],
+                                             uint32_t a, uint32_t wa,
+                                             bool accumulate) {
+  wgmma_fence();
+  if (F32) {
+    tile_issue<D>(acc, a + BM * D * 2, wa, accumulate);
+    tile_issue<D>(acc, a, wa + D * D * 2, true);
+    tile_issue<D>(acc, a, wa, true);
+  } else {
+    tile_issue<D>(acc, a, wa, accumulate);
+  }
   wgmma_commit();
+}
+
+// 16-byte chunk `e` of `rows` (D columns) into an image at `img` (its lo
+// plane `lo_off` bytes on): a bf16 chunk as it is, or, under F32, eight
+// fp32 values (two 16-byte loads) split into a hi and a lo chunk. Loads
+// first (ld), stores after (st), so that a thread keeps several in flight.
+template <bool F32>
+struct Chunk {
+  uint4 v[F32 ? 2 : 1];
+};
+template <int D, bool F32>
+__device__ __forceinline__ void ld_chunk(Chunk<F32>& c, const void* rows,
+                                         int e) {
+  constexpr int CH = D / 8;
+  if constexpr (F32) {
+    const float* src = static_cast<const float*>(rows) + (e / CH) * D +
+                       (e % CH) * 8;
+    c.v[0] = __ldg(reinterpret_cast<const uint4*>(src));
+    c.v[1] = __ldg(reinterpret_cast<const uint4*>(src) + 1);
+  } else {
+    c.v[0] = __ldg(reinterpret_cast<const uint4*>(
+        static_cast<const bf16*>(rows) + (e / CH) * D + (e % CH) * 8));
+  }
+}
+template <bool F32>
+__device__ __forceinline__ void st_chunk(uint8_t* img, uint32_t off,
+                                         uint32_t lo_off,
+                                         const Chunk<F32>& c) {
+  if constexpr (F32) {
+    uint4 hi, lo;
+    const uint4 a = c.v[0], b = c.v[1];
+    split2(__uint_as_float(a.x), __uint_as_float(a.y), hi.x, lo.x);
+    split2(__uint_as_float(a.z), __uint_as_float(a.w), hi.y, lo.y);
+    split2(__uint_as_float(b.x), __uint_as_float(b.y), hi.z, lo.z);
+    split2(__uint_as_float(b.z), __uint_as_float(b.w), hi.w, lo.w);
+    *reinterpret_cast<uint4*>(img + off) = hi;
+    *reinterpret_cast<uint4*>(img + lo_off + off) = lo;
+  } else {
+    *reinterpret_cast<uint4*>(img + off) = c.v[0];
+  }
 }
 
 // Byte offset of 16-byte chunk `ch` of row `row` in a tile image of
@@ -270,11 +340,12 @@ __device__ __forceinline__ void store_acc(float* o,
 
 // grid (CTAs per rank, ranks of this launch); CTA c of every rank owns the
 // same span of tiles. epoch_hi = epoch << 32.
-template <int D, bool SYS>
+template <int D, bool SYS, bool F32>
 __global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
 device_ring_kernel(const RingTable t, int n, int L, u64 epoch_hi) {
-  using S = Geo<D>;
+  using S = Geo<D, F32>;
   constexpr int G = S::G;
+  constexpr int PL = S::PL;
   constexpr int CH = D / 8;                      // 16-byte chunks per row
   constexpr int TILE_VECS = BM * CH / NTHREADS;  // per thread: 4 or 8
   static_assert(TILE_VECS % 4 == 0, "tile loads in fours");
@@ -295,12 +366,13 @@ device_ring_kernel(const RingTable t, int n, int L, u64 epoch_hi) {
   const int per = tiles / gridDim.x, extra = tiles % gridDim.x;
   const int start = c * per + min(c, extra);
   const int cnt = per + (c < extra ? 1 : 0);
-  const long long slot = (long long)tiles * BM * D;  // elements per slot
+  const long long slot = (long long)tiles * BM * D * PL;  // bf16 per slot
 
   u64* mine = t.flags[rank] + c * FLAG_WORDS;
   u64* rflags = t.flags[right] + c * FLAG_WORDS;
   u64* lflags = t.flags[left] + c * FLAG_WORDS;
-  const bf16* x = t.x + (long long)blockIdx.y * L * D;
+  const uint8_t* x = static_cast<const uint8_t*>(t.x) +
+                     (long long)blockIdx.y * L * D * (F32 ? 4 : 2);
   float* out = t.out + (long long)blockIdx.y * L * D;
 
   if (tid == 0) {
@@ -309,11 +381,12 @@ device_ring_kernel(const RingTable t, int n, int L, u64 epoch_hi) {
     // tell the left neighbour that this rank's call has started
     if (SYS && n > 1) st_release<SYS>(lflags + F_START, epoch_hi);
   }
-  // W, once: row k of W is row k of the MN-major B image
+  // W, once: row k of W is row k of the MN-major B image (F32: its hi
+  // image, then its lo image)
   for (int e = tid; e < D * CH; e += NTHREADS) {
-    const int k = e / CH, ch = e % CH;
-    *reinterpret_cast<uint4*>(smem + image_off(k, ch, D)) =
-        __ldg(reinterpret_cast<const uint4*>(t.w + k * D + ch * 8));
+    Chunk<F32> c;
+    ld_chunk<D, F32>(c, t.w, e);
+    st_chunk<F32>(smem, image_off(e / CH, e % CH, D), D * D * 2, c);
   }
   fence_proxy_async();
   __syncthreads();
@@ -332,30 +405,29 @@ device_ring_kernel(const RingTable t, int n, int L, u64 epoch_hi) {
         spin_until<SYS>(mine + F_RECV, ctr);
         fence_proxy_async_global();
       }
-      const bf16* src = s == 0 ? x : t.buf[rank] + (s & 1) * slot;
+      const bf16* src = t.buf[rank] + (s & 1) * slot;
       bf16* dst = t.buf[right] + ((s + 1) & 1) * slot;
       if (s == 0) {
-        // the caller's rows, written in the swizzle by the threads, four
-        // 16-byte loads in flight per thread (the o of the round is live
-        // in registers beside them)
+        // the caller's rows, written in the swizzle by the threads (F32:
+        // split), four chunks' loads in flight per thread (the o of the
+        // round is live in registers beside them)
 #pragma unroll
         for (int j = 0; j < G; ++j) {
           if (j >= m) break;
-          const bf16* rows = src + (long long)(t0 + j) * BM * D;
+          const uint8_t* rows = x + (long long)(t0 + j) * BM * D *
+                                        (F32 ? 4 : 2);
 #pragma unroll
           for (int i0 = 0; i0 < TILE_VECS; i0 += 4) {
-            uint4 v[4];
+            Chunk<F32> v[4];
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
-              const int e = tid + (i0 + i) * NTHREADS;
-              v[i] = __ldg(reinterpret_cast<const uint4*>(
-                  rows + (e / CH) * D + (e % CH) * 8));
+              ld_chunk<D, F32>(v[i], rows, tid + (i0 + i) * NTHREADS);
             }
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
               const int e = tid + (i0 + i) * NTHREADS;
-              *reinterpret_cast<uint4*>(smem + S::st_off + j * S::TILE +
-                                        image_off(e / CH, e % CH, BM)) = v[i];
+              st_chunk<F32>(smem + S::st_off + j * S::TILE,
+                            image_off(e / CH, e % CH, BM), BM * D * 2, v[i]);
             }
           }
         }
@@ -366,7 +438,7 @@ device_ring_kernel(const RingTable t, int n, int L, u64 epoch_hi) {
           if (j >= m) break;
           mbar_expect_tx(full + 8 * j, S::TILE);
           bulk_load(stages + j * S::TILE,
-                    src + (long long)(t0 + j) * BM * D, S::TILE,
+                    src + (long long)(t0 + j) * BM * D * PL, S::TILE,
                     full + 8 * j);
         }
       }
@@ -387,10 +459,10 @@ device_ring_kernel(const RingTable t, int n, int L, u64 epoch_hi) {
         }
         const uint32_t st = stages + j * S::TILE;
         if (push && tid == 0) {
-          bulk_store(dst + (long long)(t0 + j) * BM * D, st, S::TILE);
+          bulk_store(dst + (long long)(t0 + j) * BM * D * PL, st, S::TILE);
           bulk_commit();
         }
-        tile_product<D>(acc[j], st, wa, s > 0);
+        tile_product<D, F32>(acc[j], st, wa, s > 0);
       }
       if (tid == 0) {
         // The step's tiles are in (and its pushes issued) while its
@@ -429,19 +501,20 @@ device_ring_kernel(const RingTable t, int n, int L, u64 epoch_hi) {
 
 // CTAs of one build the card holds at once (with the shared-memory opt-in
 // it needs, set once per card on its first query).
-template <int D, bool SYS>
+template <int D, bool SYS, bool F32>
 cudaError_t resident(int device, int* out) {
   constexpr int MAX_CARDS = 64;
   static int cached[MAX_CARDS] = {0};
   if (device < 0 || device >= MAX_CARDS) return cudaErrorInvalidDevice;
   if (cached[device] == 0) {
     cudaError_t err = cudaFuncSetAttribute(
-        device_ring_kernel<D, SYS>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, Geo<D>::bytes);
+        device_ring_kernel<D, SYS, F32>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, Geo<D, F32>::bytes);
     if (err != cudaSuccess) return err;
     int per_sm = 0, sms = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, device_ring_kernel<D, SYS>, NTHREADS, Geo<D>::bytes);
+        &per_sm, device_ring_kernel<D, SYS, F32>, NTHREADS,
+        Geo<D, F32>::bytes);
     if (err != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                  device);
@@ -452,12 +525,12 @@ cudaError_t resident(int device, int* out) {
   return cudaSuccess;
 }
 
-template <int D, bool SYS>
+template <int D, bool SYS, bool F32>
 cudaError_t launch(const RingTable& table, int n, int n_local, int L,
                    int grid, unsigned long long epoch, int device,
                    cudaStream_t stream) {
   int cap = 0;
-  cudaError_t err = resident<D, SYS>(device, &cap);
+  cudaError_t err = resident<D, SYS, F32>(device, &cap);
   if (err != cudaSuccess) return err;
   // every CTA of every rank of this launch must be resident at once
   if (grid * n_local > cap) return cudaErrorCooperativeLaunchTooLarge;
@@ -465,14 +538,42 @@ cudaError_t launch(const RingTable& table, int n, int n_local, int L,
   u64 epoch_hi = (u64)epoch << 32;
   void* args[] = {&t, &n, &L, &epoch_hi};
   return cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(device_ring_kernel<D, SYS>),
-      dim3(grid, n_local), dim3(NTHREADS), args, Geo<D>::bytes, stream);
+      reinterpret_cast<void*>(device_ring_kernel<D, SYS, F32>),
+      dim3(grid, n_local), dim3(NTHREADS), args, Geo<D, F32>::bytes, stream);
 }
 
-template <bool SYS>
+template <bool SYS, bool F32>
 cudaError_t resident_for(int D, int device, int* out) {
-  return D == 64 ? resident<64, SYS>(device, out)
-                 : resident<128, SYS>(device, out);
+  return D == 64 ? resident<64, SYS, F32>(device, out)
+                 : resident<128, SYS, F32>(device, out);
+}
+
+// launch<D, SYS, F32> for run-time D, sys and f32.
+cudaError_t launch_any(const RingTable& t, int n, int n_local, int L, int D,
+                       int grid, unsigned long long epoch, int sys, int f32,
+                       int device, cudaStream_t s) {
+  if (f32) {
+    if (D == 64) {
+      return sys ? launch<64, true, true>(t, n, n_local, L, grid, epoch,
+                                          device, s)
+                 : launch<64, false, true>(t, n, n_local, L, grid, epoch,
+                                           device, s);
+    }
+    return sys ? launch<128, true, true>(t, n, n_local, L, grid, epoch,
+                                         device, s)
+               : launch<128, false, true>(t, n, n_local, L, grid, epoch,
+                                          device, s);
+  }
+  if (D == 64) {
+    return sys ? launch<64, true, false>(t, n, n_local, L, grid, epoch,
+                                         device, s)
+               : launch<64, false, false>(t, n, n_local, L, grid, epoch,
+                                          device, s);
+  }
+  return sys ? launch<128, true, false>(t, n, n_local, L, grid, epoch,
+                                        device, s)
+             : launch<128, false, false>(t, n, n_local, L, grid, epoch,
+                                         device, s);
 }
 
 // Runs f with `device` current, restoring the caller's card only where it
@@ -492,32 +593,38 @@ cudaError_t on_device(int device, F f) {
 
 }  // namespace
 
-// CTAs of the (D, sys) build that card `device` holds at once. The ring's
-// common grid is the least, over its cards, of this over the card's ranks.
-extern "C" int cfa_device_ring_resident(int D, int sys, int device,
+// CTAs of the (D, sys, f32) build that card `device` holds at once. The
+// ring's common grid is the least, over its cards, of this over the card's
+// ranks.
+extern "C" int cfa_device_ring_resident(int D, int sys, int f32, int device,
                                         int* out) {
   if (D != 64 && D != 128) return cudaErrorInvalidValue;
   return on_device(device, [&]() {
-    return sys ? resident_for<true>(D, device, out)
-               : resident_for<false>(D, device, out);
+    if (f32) {
+      return sys ? resident_for<true, true>(D, device, out)
+                 : resident_for<false, true>(D, device, out);
+    }
+    return sys ? resident_for<true, false>(D, device, out)
+               : resident_for<false, false>(D, device, out);
   });
 }
 
-// x, w, out: this launch's shards [n_local, L, D] bf16, W [D, D] bf16 and
-// o [n_local, L, D] fp32, all on card `device`; buf, flags: n_shards device
-// pointers each (per rank: its tile images [2, L, D] bf16, its 64-bit flag
-// words [grid, 4], zeroed once when allocated); local: the n_local ranks
+// x, w, out: this launch's shards [n_local, L, D] and W [D, D], bf16 (fp32
+// under f32), and o [n_local, L, D] fp32, all on card `device`; buf, flags:
+// n_shards device pointers each (per rank: its tile images [2, L, D] bf16,
+// [2, 2·L, D] under f32 (hi and lo images), its 64-bit flag words [grid,
+// 4], zeroed once when allocated); local: the n_local ranks
 // this launch runs; L rows per shard (a multiple of 64), D in {64, 128};
 // grid: CTAs per rank, the same for every launch of the ring; epoch: this
 // call's number on these flags, from 1, increasing by one per call and
-// below 2^32; sys: 1 where a neighbour is on another card. Launches on
-// `stream` and does not synchronise.
+// below 2^32; sys: 1 where a neighbour is on another card; f32: fp32 x
+// and W. Launches on `stream` and does not synchronise.
 extern "C" int cfa_device_ring(const void* x, const void* w, void* out,
                                void* const* buf, void* const* flags,
                                int n_shards, const int* local, int n_local,
                                int L, int D, int grid,
-                               unsigned long long epoch, int sys, int device,
-                               void* stream) {
+                               unsigned long long epoch, int sys, int f32,
+                               int device, void* stream) {
   if (n_shards < 1 || n_shards > MAX_RANKS || n_local < 1 ||
       n_local > n_shards || L < BM || L % BM != 0 || (D != 64 && D != 128) ||
       grid < 1 || grid > L / BM || epoch < 1 || epoch >= (1ull << 32)) {
@@ -528,8 +635,8 @@ extern "C" int cfa_device_ring(const void* x, const void* w, void* out,
     return cudaErrorInvalidValue;
   }
   RingTable table;
-  table.x = static_cast<const bf16*>(x);
-  table.w = static_cast<const bf16*>(w);
+  table.x = x;
+  table.w = w;
   table.out = static_cast<float*>(out);
   for (int r = 0; r < n_shards; ++r) {
     table.buf[r] = static_cast<bf16*>(buf[r]);
@@ -538,16 +645,8 @@ extern "C" int cfa_device_ring(const void* x, const void* w, void* out,
   for (int i = 0; i < n_local; ++i) table.local[i] = local[i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = on_device(device, [&]() {
-    if (D == 64) {
-      return sys ? launch<64, true>(table, n_shards, n_local, L, grid, epoch,
-                                    device, s)
-                 : launch<64, false>(table, n_shards, n_local, L, grid,
-                                     epoch, device, s);
-    }
-    return sys ? launch<128, true>(table, n_shards, n_local, L, grid, epoch,
-                                   device, s)
-               : launch<128, false>(table, n_shards, n_local, L, grid, epoch,
-                                    device, s);
+    return launch_any(table, n_shards, n_local, L, D, grid, epoch, sys, f32,
+                      device, s);
   });
   if (err == cudaSuccess) err = cudaGetLastError();
   return err;

@@ -1,6 +1,6 @@
-// FlashAttention-1 forward for Hopper, bf16 in and out: the ladder rung
-// whose O is renormalised after every K/V block instead of once at the
-// end. Forward only, O only, no GQA.
+// FlashAttention-1 forward for Hopper, bf16 in and out, or fp32 in and out
+// (the F32 build): the ladder rung whose O is renormalised after every
+// K/V block instead of once at the end. Forward only, O only, no GQA.
 //
 // Replaces: cuda_flashattention_tpu/ops/fa1.py::_fa1_kernel.
 //
@@ -34,6 +34,13 @@
 // l the running sum and o the normalised output of the blocks before:
 //   o = (l_prev · α · o_prev + P·V) / max(l_new, 1e-30),
 //   α = 2^(m_prev − m_new),  l_new = l_prev · α + Σ p.
+// The F32 build (the reference's own precision: fp32 Q, K, V and O) keeps
+// the walk and the renormalisation in fp32 registers; the producer
+// warpgroup's 128 threads read each Q, K and V tile from device memory and
+// write it as bf16 hi and lo tiles (split_rows), each product is three
+// bf16 wgmmas (lo·hi + hi·lo + hi·hi), and P is split in registers, not
+// rounded (the TPU kernel's p.astype(v.dtype) is fp32 there). Split tiles
+// take twice the shared memory: two stages at d = 128.
 
 #include "flash_fwd_bound_sm90.cuh"
 
@@ -41,19 +48,23 @@ using namespace cfa_bound;
 
 namespace {
 
-constexpr int NST = 3;      // K/V stages in the ring
 constexpr int MAX_SUB = 4;  // 64-key tiles per renormalising block, at most
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory of one CTA (byte offsets from a 1024-aligned base): the Q
-// tile; NST stages of a K tile and a V tile (bf16 slabs); barriers.
-template <int D>
+// tile; NST stages of a K tile and a V tile (bf16 slabs); barriers. Under
+// F32 each tile is a hi tile and a lo tile (lo right after hi).
+template <int D, bool F32>
 struct Layout {
   using T = Tiles<D, false>;
-  static constexpr int st_off = align1k(T::Q);
-  static constexpr int stage = 2 * T::KV16;  // K, then V
+  static constexpr int PL = F32 ? 2 : 1;   // planes of a tile: hi (and lo)
+  static constexpr int NST = F32 && D == 128 ? 2 : 3;  // K/V stages
+  static constexpr int st_off = align1k(PL * T::Q);
+  static constexpr int v_off = PL * T::KV16;     // V within a stage
+  static constexpr int stage = 2 * PL * T::KV16;  // K, then V
   static constexpr int bar_off = st_off + NST * stage;
   static constexpr int bytes = bar_off + 8 * (2 * NST + 1) + 1024;
+  static_assert(bytes <= 232448, "the CTA's shared memory");
 };
 
 // The thread's 32 scores of a tile in log2 units, NEG_INF where masked,
@@ -78,11 +89,13 @@ __device__ __forceinline__ void scores(const Args& a, const Rows& r,
   }
 }
 
-// p = 2^(s − m) (0 where masked) into P, bf16 pairs; each row's sum of
-// the unrounded p added to sum.
+// p = 2^(s − m) (0 where masked) into P, bf16 pairs (F32: split, P = p +
+// p_lo); each row's sum of the unrounded p added to sum.
+template <bool F32>
 __device__ __forceinline__ void probs(const float (&s)[32],
                                       const float (&m)[2], float (&sum)[2],
-                                      uint32_t (&p)[16]) {
+                                      uint32_t (&p)[16],
+                                      uint32_t (&p_lo)[16]) {
 #pragma unroll
   for (int i = 0; i < 32; i += 2) {
     float pr[2];
@@ -93,19 +106,24 @@ __device__ __forceinline__ void probs(const float (&s)[32],
       pr[e] = x > kNegInf * 0.5f ? exp2f(x - m[hr]) : 0.f;
       sum[hr] += pr[e];
     }
-    __nv_bfloat162 pair = __floats2bfloat162_rn(pr[0], pr[1]);
-    p[i >> 1] = *reinterpret_cast<uint32_t*>(&pair);
+    if (F32) {
+      split2(pr[0], pr[1], p[i >> 1], p_lo[i >> 1]);
+    } else {
+      __nv_bfloat162 pair = __floats2bfloat162_rn(pr[0], pr[1]);
+      p[i >> 1] = *reinterpret_cast<uint32_t*>(&pair);
+    }
   }
 }
 
-template <int D>
+template <int D, bool F32>
 __global__ void __launch_bounds__(NTHREADS, 1)
     fa1_kernel(const __grid_constant__ CUtensorMap tm_q,
                const __grid_constant__ CUtensorMap tm_k,
                const __grid_constant__ CUtensorMap tm_v, const Args a,
-               int n_sub) {
+               int n_sub, const F32Src f) {
   using T = Tiles<D, false>;
-  using L = Layout<D>;
+  using L = Layout<D, F32>;
+  constexpr int NST = L::NST;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t base = smem_u32(smem);
@@ -123,10 +141,11 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < NST; ++s) {
-      mbar_init(full + 8 * s, 1);
+      // the TMA issue, or under F32 the producer warpgroup's 128 threads
+      mbar_init(full + 8 * s, F32 ? 128 : 1);
       mbar_init(empty + 8 * s, 8);  // lane 0 of each consumer warp
     }
-    mbar_init(q_bar, 1);
+    mbar_init(q_bar, F32 ? 128 : 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -136,7 +155,38 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     // the producer: per block, its K tiles for the first pass, then its K
     // and V tiles for the second
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
-    if (threadIdx.x == 2 * 128) {
+    if (F32) {
+      // fp32 Q/K/V: the warpgroup's 128 threads split each tile into its
+      // hi and lo tiles (split_rows)
+      const int pt = threadIdx.x - 2 * 128;
+      const long long* st = f.st;
+      split_rows<D, 128>(smem, smem + T::Q, BM, f.p[0] + b * st[0] +
+                         h * st[1], 0, st[2], 0, 1, BM, q0, a.Nq, pt);
+      fence_proxy_async();
+      mbar_arrive(q_bar);
+      int i = 0;
+      for (int blk = 0; blk < n_blocks; ++blk) {
+        const int t_last = min(t_end, (blk + 1) * n_sub);
+        for (int pass = 0; pass < 2; ++pass) {
+          for (int t = blk * n_sub; t < t_last; ++t, ++i) {
+            const int s = i % NST;
+            mbar_wait(empty + 8 * s, ((i / NST) & 1) ^ 1);
+            uint8_t* stage = smem + L::st_off + s * L::stage;
+            split_rows<D, 128>(stage, stage + T::KV16, BN,
+                               f.p[1] + b * st[3] + h * st[4], 0, st[5], 0,
+                               1, BN, t * BN, a.Nk, pt);
+            if (pass == 1) {
+              split_rows<D, 128>(stage + L::v_off,
+                                 stage + L::v_off + T::KV16, BN,
+                                 f.p[2] + b * st[6] + h * st[7], 0, st[8], 0,
+                                 1, BN, t * BN, a.Nk, pt);
+            }
+            fence_proxy_async();
+            mbar_arrive(full + 8 * s);
+          }
+        }
+      }
+    } else if (threadIdx.x == 2 * 128) {
       mbar_expect_tx(q_bar, BM * D * 2);
       for (int sl = 0; sl < T::SLABS; ++sl) {
         tma_load_4d(base + sl * BM * 128, &tm_q, q_bar, sl * 64, q0, h, b);
@@ -186,7 +236,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         const int st = i % NST;
         mbar_wait(full + 8 * st, (i / NST) & 1);
         float s[32];
-        qk<D, false>(s, base, base + L::st_off + st * L::stage, wg);
+        qk<D, false, F32>(s, base, base + L::st_off + st * L::stage, wg);
         if (lane == 0) mbar_arrive(empty + 8 * st);
         if (interior(a, t * BN, q0, q_hi)) {
           scores<false>(a, r, s, t * BN, mx);
@@ -211,16 +261,16 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         mbar_wait(full + 8 * st, (i / NST) & 1);
         const uint32_t kt = base + L::st_off + st * L::stage;
         float s[32];
-        qk<D, false>(s, base, kt, wg);
+        qk<D, false, F32>(s, base, kt, wg);
         float unused[2] = {kNegInf, kNegInf};
         if (interior(a, t * BN, q0, q_hi)) {
           scores<false>(a, r, s, t * BN, unused);
         } else {
           scores<true>(a, r, s, t * BN, unused);
         }
-        uint32_t p[16];
-        probs(s, m_new, sum, p);
-        pv<D>(acc, p, kt + T::KV16);
+        uint32_t p[16], p_lo[16];  // under F32 P = p + p_lo
+        probs<F32>(s, m_new, sum, p, p_lo);
+        pv<D, F32>(acc, p, kt + L::v_off, p_lo);
         if (lane == 0) mbar_arrive(empty + 8 * st);
       }
       // the FA1 step: O is divided by the new l after every block
@@ -235,7 +285,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       }
       scale_acc<D>(acc, inv);
     }
-    // O in bf16; rows past Nq are not written
+    // O in bf16 (F32: fp32); rows past Nq are not written
 #pragma unroll
     for (int sl = 0; sl < D / 64; ++sl) {
 #pragma unroll
@@ -244,37 +294,43 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         if (r.pos[hr] < 0) continue;
         const int col = sl * 64 + 8 * (j >> 2) + 2 * (lane & 3);
         const long long row = (long long)(b * a.H + h) * a.Nq + r.pos[hr];
-        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.o) +
-                                           row * D + col) =
-            __floats2bfloat162_rn(acc[sl][j], acc[sl][j + 1]);
+        if (F32) {
+          *reinterpret_cast<float2*>(static_cast<float*>(a.o) + row * D +
+                                     col) = make_float2(acc[sl][j],
+                                                        acc[sl][j + 1]);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.o) +
+                                             row * D + col) =
+              __floats2bfloat162_rn(acc[sl][j], acc[sl][j + 1]);
+        }
       }
     }
   }
 }
 
-template <int D>
+template <int D, bool F32>
 cudaError_t launch(const Maps& mp, const Args& a, int B, int n_sub,
-                   cudaStream_t stream) {
-  const int smem = Layout<D>::bytes;
+                   const F32Src& f, cudaStream_t stream) {
+  const int smem = Layout<D, F32>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      fa1_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fa1_kernel<D, F32>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Nq + BM - 1) / BM, a.H, B);
-  fa1_kernel<D><<<grid, NTHREADS, smem, stream>>>(mp.q, mp.k, mp.v, a,
-                                                  n_sub);
+  fa1_kernel<D, F32><<<grid, NTHREADS, smem, stream>>>(mp.q, mp.k, mp.v, a,
+                                                       n_sub, f);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q/k/v [B, H, N, D] bf16 with unit stride on D and 16-byte aligned rows;
-// `strides` holds the (batch, head, row) strides of q, k and v in elements;
-// o [B, H, Nq, D] contiguous bf16. A renormalising block is n_sub (1..4)
-// tiles of 64 keys.
+// q/k/v [B, H, N, D] bf16 (fp32 under f32) with unit stride on D and
+// 16-byte aligned rows; `strides` holds the (batch, head, row) strides of
+// q, k and v in elements; o [B, H, Nq, D] contiguous, bf16 (fp32 under
+// f32). A renormalising block is n_sub (1..4) tiles of 64 keys.
 extern "C" int cfa_fa1(const void* q, const void* k, const void* v, void* o,
                        int B, int H, int Nq, int Nk, int D,
                        const long long* strides, int causal, int n_sub,
-                       void* stream) {
+                       int f32, void* stream) {
   if (B == 0 || H == 0 || Nq == 0) return cudaSuccess;
   if (n_sub < 1 || n_sub > MAX_SUB) return cudaErrorInvalidValue;
   Args a = {};
@@ -282,17 +338,25 @@ extern "C" int cfa_fa1(const void* q, const void* k, const void* v, void* o,
   a.H = H; a.Hkv = H; a.Nq = Nq; a.Nk = Nk;
   a.G = 1; a.Gp = 1; a.R = BM;
   a.causal = causal;
-  Maps mp;
-  if (!make_maps(&mp, q, k, v, B, H, H, Nq, Nk, D, strides, kBf16, kBf16, 0,
-                 1, BM)) {
+  // the fp32 build reads its operands through F32Src, not through TMA
+  Maps mp = {};
+  F32Src fs = {};
+  if (f32) {
+    void* const ptrs[3] = {const_cast<void*>(q), const_cast<void*>(k),
+                           const_cast<void*>(v)};
+    fs = f32_src(ptrs, strides);
+  } else if (!make_maps(&mp, q, k, v, B, H, H, Nq, Nk, D, strides, kBf16,
+                        kBf16, 0, 1, BM)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch<64>(mp, a, B, n_sub, s);
+      return f32 ? launch<64, true>(mp, a, B, n_sub, fs, s)
+                 : launch<64, false>(mp, a, B, n_sub, fs, s);
     case 128:
-      return launch<128>(mp, a, B, n_sub, s);
+      return f32 ? launch<128, true>(mp, a, B, n_sub, fs, s)
+                 : launch<128, false>(mp, a, B, n_sub, fs, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,5 +1,5 @@
 // FlashAttention-2 backward's Q-parallel dQ kernel (K3), for Hopper: bf16
-// in, fp32 accumulation, bf16 dQ.
+// in, fp32 accumulation, bf16 dQ; or fp32 in and out (the F32 build).
 //
 // Replaces: cuda_flashattention_tpu/ops/flash_bwd.py::_bwd_dq_kernel (K3).
 // Its key-parallel partners, dK/dV (K2) and the fused pass (K4), are the
@@ -50,6 +50,21 @@
 // for rows whose LSE < NEG_INF/2; dP = dO·Vᵀ and dS = P ⊙ (dP − D)·scale
 // in fp32; dS is rounded to bf16 before dQ += dS·K. A Q tile that sees no
 // key writes zeros.
+//
+// The F32 build (fp32 Q, K, V, dO and dQ) is the split of K2/K4's fp32
+// build: the producer warpgroup's 128 threads read every tile and write it
+// as bf16 hi and lo tiles (split_rows), each of the three products is
+// three bf16 wgmmas (lo·hi + hi·lo + hi·hi), dS is split in registers and
+// not rounded, and dQ is stored fp32. Its budget at d = 128: Q and dO
+// resident as hi + lo take 128 KB, and a 64-key stage of K and V as hi +
+// lo 64 KB, so 64-key tiles leave room for one stage, whose split by the
+// producer could then never overlap the products. The F32 build walks
+// 32-key tiles instead (wgmma m64n32 for S and dP, two k16 steps for dQ):
+// a stage is 32 KB and three fit (226 KB; two under SEG, whose ids push a
+// stage past 32 KB), with Q, dO and the 128-row CTA of the bf16 build
+// unchanged. A 64-row CTA with two 64-key stages would fit as well, but
+// with one consumer warpgroup and every K/V tile split once per 64 rows
+// instead of per 128.
 
 #include <math.h>
 
@@ -60,6 +75,8 @@ namespace {
 using cfa_bound::align1k;
 using cfa_bound::bf16;
 using cfa_bound::copy_after_wait;
+using cfa_bound::F32Src;
+using cfa_bound::fence_proxy_async;
 using cfa_bound::fence_regs;
 using cfa_bound::kBf16;
 using cfa_bound::kNegInf;
@@ -67,7 +84,10 @@ using cfa_bound::mbar_arrive;
 using cfa_bound::mbar_expect_tx;
 using cfa_bound::mbar_init;
 using cfa_bound::mbar_wait;
+using cfa_bound::make_desc;
 using cfa_bound::smem_u32;
+using cfa_bound::split2;
+using cfa_bound::split_rows;
 using cfa_bound::tma_load_4d;
 using cfa_bound::wgmma_commit;
 using cfa_bound::wgmma_fence;
@@ -76,8 +96,7 @@ using cfa_bound::wgmma_wait_one;
 
 constexpr double kLog2e = 1.4426950408889634;
 constexpr int BM = cfa_bound::BM;  // query rows of a CTA (two warpgroups)
-constexpr int BN = cfa_bound::BN;  // keys of a streamed tile
-constexpr int NST = 4;             // K/V stages in flight
+constexpr int BN = cfa_bound::BN;  // keys of a streamed tile (F32: 32)
 constexpr int NTHREADS = 384;      // two consumer warpgroups and the producer's
 
 // What the kernel is given besides its four TMA maps (its own struct: the
@@ -87,7 +106,7 @@ struct DqArgs {
   const float* delta;  // [B,H,Nq], rowsum(dO ⊙ O)
   const int* q_seg;    // [B,Nq] (SEG)
   const int* kv_seg;   // [B,Nk] (SEG)
-  bf16* dq;            // [B,H,Nq,D] contiguous
+  void* dq;            // [B,H,Nq,D] contiguous, bf16 (fp32 under F32)
   int H, Nq, Nk;
   int G, Gp, R;        // group size, heads packed in a tile, rows per head
   float scale_log2e, scale;
@@ -96,15 +115,21 @@ struct DqArgs {
 
 // Shared memory (byte offsets from a 1024-aligned base): the Q and dO tiles
 // (D/64 slabs of 128 rows x 128 B each); NST stages of K and V (D/64 slabs
-// of 64 rows x 128 B each) and the tile's key segment ids (SEG); barriers.
-template <int D, bool SEG>
+// of KN rows x 128 B each) and the tile's key segment ids (SEG); barriers.
+// Under F32 each tile is a hi tile and a lo tile (lo right after hi) and a
+// key tile is 32 keys.
+template <int D, bool SEG, bool F32>
 struct Layout {
-  static constexpr int QT = BM * D * 2;    // the Q (or dO) tile
-  static constexpr int KV = BN * D * 2;    // a K (or V) tile
-  static constexpr int do_off = QT;
-  static constexpr int st_off = 2 * QT;
-  static constexpr int ids = 2 * KV;       // within a stage
-  static constexpr int stage = align1k(ids + (SEG ? BN * 4 : 0));
+  static constexpr int PL = F32 ? 2 : 1;   // planes of a tile: hi (and lo)
+  static constexpr int KN = F32 ? 32 : BN;  // keys of a tile
+  static constexpr int NST = !F32 ? 4 : D == 64 ? 4 : SEG ? 2 : 3;  // stages
+  static constexpr int QT = BM * D * 2;    // the Q (or dO) tile (a plane)
+  static constexpr int KV = KN * D * 2;    // a K (or V) tile (a plane)
+  static constexpr int do_off = PL * QT;
+  static constexpr int st_off = 2 * PL * QT;
+  static constexpr int v_off = PL * KV;    // V within a stage
+  static constexpr int ids = 2 * PL * KV;  // within a stage
+  static constexpr int stage = align1k(ids + (SEG ? KN * 4 : 0));
   static constexpr int bar_off = st_off + NST * stage;
   static constexpr int bytes = bar_off + 8 * (2 * NST + 1) + 1024;
   static_assert(bytes <= 232448, "the CTA's shared memory");
@@ -131,48 +156,51 @@ __device__ __forceinline__ void cta_tile(const DqArgs& a, int& qt, int& hg,
   }
 }
 
-// Key tiles [t_begin, t_end) that positions q_lo..q_hi can see
+// Key tiles [t_begin, t_end) of KN keys that positions q_lo..q_hi can see
 // (ops/flash_bwd.py::_dq_key_tiles states the same walk): causal rows see
 // keys <= pos + kv_offset, windowed ones keys > pos + kv_offset − window.
+template <int KN>
 __device__ __forceinline__ void key_tiles(const DqArgs& a, int q_lo, int q_hi,
                                           int& t_begin, int& t_end) {
   t_begin = 0;
-  t_end = (a.Nk + BN - 1) / BN;
+  t_end = (a.Nk + KN - 1) / KN;
   if (a.causal) {
     const int kv_end = min(a.Nk, max(0, q_hi + a.kv_offset + 1));
-    t_end = min(t_end, (kv_end + BN - 1) / BN);
+    t_end = min(t_end, (kv_end + KN - 1) / KN);
     if (a.window > 0) {
       // a window that starts past the last key leaves nothing to see
       const int lo_key = q_lo + a.kv_offset - a.window + 1;
-      t_begin = max(0, lo_key) / BN;
+      t_begin = max(0, lo_key) / KN;
       if (lo_key >= a.Nk) t_end = min(t_end, t_begin);
     }
   }
 }
 
-// Whether every (position in q_lo..q_hi, key of the tile at c0) pair is
-// visible, so that the element mask can be skipped.
+// Whether every (position in q_lo..q_hi, key of the KN-key tile at c0)
+// pair is visible, so that the element mask can be skipped.
+template <int KN>
 __device__ __forceinline__ bool interior(const DqArgs& a, int c0, int q_lo,
                                          int q_hi) {
-  if (c0 + BN > a.Nk) return false;
+  if (c0 + KN > a.Nk) return false;
   if (a.causal) {
-    if (c0 + BN - 1 > q_lo + a.kv_offset) return false;
+    if (c0 + KN - 1 > q_lo + a.kv_offset) return false;
     if (a.window > 0 && c0 <= q_hi + a.kv_offset - a.window) return false;
   }
   return true;
 }
 
-// P in place on this thread's 32 scores of a tile pair (its two rows'
-// columns in wgmma's accumulator layout): p = exp2(s · scale·log2e −
-// lse2[row]), 0 where masked. With MASKED false no element is tested.
-template <bool MASKED, bool SEG>
-__device__ __forceinline__ void probs(const DqArgs& a, float (&s)[32],
+// P in place on this thread's N scores of a tile pair (its two rows'
+// columns in wgmma's accumulator layout; N = 32 for 64 keys, 16 for 32):
+// p = exp2(s · scale·log2e − lse2[row]), 0 where masked. With MASKED false
+// no element is tested.
+template <bool MASKED, bool SEG, int N>
+__device__ __forceinline__ void probs(const DqArgs& a, float (&s)[N],
                                       const float (&lse2)[2],
                                       const int (&qp)[2], const int* kseg,
                                       const int (&qseg)[2], int c0) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int j = 0; j < 32; ++j) {
+  for (int j = 0; j < N; ++j) {
     const int col = 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
     const int hr = (j >> 1) & 1;
     bool ok = true;
@@ -188,14 +216,63 @@ __device__ __forceinline__ void probs(const DqArgs& a, float (&s)[32],
   }
 }
 
-template <int D, bool SEG>
+// The F32 build's S (or dP) [64 x 32] of this warpgroup's rows = Q · Kᵀ
+// on 32-key split tiles (a lo tile right after its hi tile), as wgmma
+// m64n32k16; its dQ += dS · K is the body's pv_issue_f32 over 32 keys.
+#define CFA_D16(d)                                                        \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),        \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define CFA_REGS16                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// D[64x32] (+)= A[64x16] · B[16x32], bf16 from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_bf16_n32(float (&d)[16], uint64_t da,
+                                                  uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " CFA_REGS16
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : CFA_D16(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <int D, bool ACC>
+__device__ __forceinline__ void qk32_issue(float (&s)[16], uint32_t q,
+                                           uint32_t k, int wg) {
+#pragma unroll
+  for (int sl = 0; sl < D / 64; ++sl) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_ss_bf16_n32(
+          s,
+          make_desc(q + sl * BM * 128 + wg * 64 * 128 + kk * 32, 16, 1024,
+                    1),
+          make_desc(k + sl * 32 * 128 + kk * 32, 16, 1024, 1),
+          ACC || sl + kk > 0);
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void qk32_issue_f32(float (&s)[16], uint32_t q,
+                                               uint32_t k, int wg) {
+  qk32_issue<D, false>(s, q + BM * D * 2, k, wg);
+  qk32_issue<D, true>(s, q, k + 32 * D * 2, wg);
+  qk32_issue<D, true>(s, q, k, wg);
+}
+
+template <int D, bool SEG, bool F32>
 __global__ void __launch_bounds__(NTHREADS, 1)
     flash_bwd_q_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
                        const __grid_constant__ CUtensorMap tm_do,
-                       const DqArgs a) {
-  using L = Layout<D, SEG>;
+                       const DqArgs a, const F32Src f) {
+  using L = Layout<D, SEG, F32>;
+  constexpr int NST = L::NST;
+  constexpr int KN = L::KN;
   constexpr int SLABS = D / 64;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -211,22 +288,59 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const int hk = h0 / a.G;
   const int q_hi = min(q0 + a.R, a.Nq) - 1;
   int t_begin, t_end;
-  key_tiles(a, q0, q_hi, t_begin, t_end);
+  key_tiles<KN>(a, q0, q_hi, t_begin, t_end);
   const int n = t_end - t_begin;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < NST; ++s) {
-      // the TMA issue, and with SEG the 32 lanes of the id loads
-      mbar_init(full + 8 * s, SEG ? 33 : 1);
+      // the TMA issue, and with SEG the 32 lanes of the id loads; under
+      // F32 the producer warpgroup's 128 threads
+      mbar_init(full + 8 * s, F32 ? 128 : SEG ? 33 : 1);
       mbar_init(empty + 8 * s, 8);  // lane 0 of each consumer warp
     }
-    mbar_init(q_bar, 1);
+    mbar_init(q_bar, F32 ? 128 : 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
   const int lane = threadIdx.x & 31;
+  if (F32 && wg == 2) {
+    // the producer of the F32 build: its 128 threads read Q and dO, then
+    // each key tile's K and V, from device memory and write their hi and
+    // lo tiles (split_rows), and the tile's key ids (SEG)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (n <= 0) return;
+    const int pt = threadIdx.x - 2 * 128;
+    const long long* fs = f.st;
+    split_rows<D, 128>(smem, smem + L::QT, BM, f.p[0] + b * fs[0], fs[1],
+                       fs[2], h0, a.Gp, a.R, q0, a.Nq, pt);
+    split_rows<D, 128>(smem + L::do_off, smem + L::do_off + L::QT, BM,
+                       f.p[3] + b * fs[9], fs[10], fs[11], h0, a.Gp, a.R, q0,
+                       a.Nq, pt);
+    fence_proxy_async();
+    mbar_arrive(q_bar);
+    for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
+      const int st = i % NST;
+      mbar_wait(empty + 8 * st, ((i / NST) & 1) ^ 1);
+      uint8_t* stage = smem + L::st_off + st * L::stage;
+      split_rows<D, 128>(stage, stage + L::KV, KN, f.p[1] + b * fs[3], fs[4],
+                         fs[5], hk, 1, KN, t * KN, a.Nk, pt);
+      split_rows<D, 128>(stage + L::v_off, stage + L::v_off + L::KV, KN,
+                         f.p[2] + b * fs[6], fs[7], fs[8], hk, 1, KN, t * KN,
+                         a.Nk, pt);
+      if (SEG) {
+        int* ids = reinterpret_cast<int*>(stage + L::ids);
+        for (int c = pt; c < KN; c += 128) {
+          const int key = t * KN + c;
+          ids[c] = key < a.Nk ? a.kv_seg[(long long)b * a.Nk + key] : -2;
+        }
+      }
+      fence_proxy_async();
+      mbar_arrive(full + 8 * st);
+    }
+    return;
+  }
   if (wg == 2) {
     // the producer: one thread issues every load; with SEG its warp also
     // brings each tile's key segment ids beside the TMA
@@ -267,7 +381,11 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
 
   // two consumer warpgroups, 64 query rows each
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+  if (F32) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+  }
   // the thread's two rows (wgmma's accumulator layout) as (head, position):
   // their LSE in log2 units (+inf past the tile or Nq, or on a row that saw
   // no key, so that its P is 0), D, causal position and segment id
@@ -300,36 +418,46 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     for (int j = 0; j < 32; ++j) dq[sl][j] = 0.f;
   }
   if (n > 0) {
+    constexpr int NS = KN / 2;  // a thread's scores of a tile: 32, F32 16
     const uint32_t q_tile = base;
     const uint32_t do_tile = base + L::do_off;
-    uint32_t dsk[16];  // dS as bf16 pairs: the A operand of dQ's product
+    // dS as bf16 pairs: the A operand of dQ's product (F32: dS = dsk +
+    // dsk_lo)
+    uint32_t dsk[NS / 2], dsk_lo[NS / 2];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) dsk[j] = 0;
+    for (int j = 0; j < NS / 2; ++j) dsk[j] = dsk_lo[j] = 0;
     mbar_wait(q_bar, 0);
     uint32_t k_tile = 0;
     for (int i = 0; i < n; ++i) {
       const int st = i % NST;
-      const int c0 = (t_begin + i) * BN;
+      const int c0 = (t_begin + i) * KN;
       mbar_wait(full + 8 * st, (i / NST) & 1);
       k_tile = base + L::st_off + st * L::stage;
-      const uint32_t v_tile = k_tile + L::KV;
+      const uint32_t v_tile = k_tile + L::v_off;
 
       // S = Q·Kᵀ, then dP = dO·Vᵀ, behind the previous tile's dQ product;
       // P while dP is on the tensor cores
-      float s_acc[32], dp_acc[32];
+      float s_acc[NS], dp_acc[NS];
       wgmma_fence();
-      cfa_bound::qk_issue<D>(s_acc, q_tile, k_tile, wg);
-      wgmma_commit();
-      cfa_bound::qk_issue<D>(dp_acc, do_tile, v_tile, wg);
+      if constexpr (F32) {
+        qk32_issue_f32<D>(s_acc, q_tile, k_tile, wg);
+        wgmma_commit();
+        qk32_issue_f32<D>(dp_acc, do_tile, v_tile, wg);
+      } else {
+        cfa_bound::qk_issue<D>(s_acc, q_tile, k_tile, wg);
+        wgmma_commit();
+        cfa_bound::qk_issue<D>(dp_acc, do_tile, v_tile, wg);
+      }
       wgmma_commit();
       wgmma_wait_one();
       // the previous tile's dQ product has landed: its dS registers and
       // its stage are free
       fence_regs(dsk);
+      if (F32) fence_regs(dsk_lo);
       if (i > 0 && lane == 0) mbar_arrive(empty + 8 * ((i - 1) % NST));
-      float p[32];
+      float p[NS];
       copy_after_wait(p, s_acc);
-      if (!SEG && interior(a, c0, w_lo, w_hi)) {
+      if (!SEG && interior<KN>(a, c0, w_lo, w_hi)) {
         probs<false, false>(a, p, lse2, qp, nullptr, qseg, c0);
       } else {
         const int* kseg = SEG ? reinterpret_cast<const int*>(
@@ -338,32 +466,42 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         probs<true, SEG>(a, p, lse2, qp, kseg, qseg, c0);
       }
       wgmma_wait_all();
-      float dp[32];
+      float dp[NS];
       copy_after_wait(dp, dp_acc);
 
       // dS = P ⊙ (dP − D)·scale, rounded to bf16 in wgmma's A layout
+      // (F32: split, dS = dsk + dsk_lo)
 #pragma unroll
-      for (int j = 0; j < 32; j += 2) {
+      for (int j = 0; j < NS; j += 2) {
         const int hr = (j >> 1) & 1;
         const float ds0 = p[j] * (dp[j] - dl[hr]) * a.scale;
         const float ds1 = p[j + 1] * (dp[j + 1] - dl[hr]) * a.scale;
-        __nv_bfloat162 pair = __floats2bfloat162_rn(ds0, ds1);
-        dsk[j >> 1] = *reinterpret_cast<uint32_t*>(&pair);
+        if (F32) {
+          split2(ds0, ds1, dsk[j >> 1], dsk_lo[j >> 1]);
+        } else {
+          __nv_bfloat162 pair = __floats2bfloat162_rn(ds0, ds1);
+          dsk[j >> 1] = *reinterpret_cast<uint32_t*>(&pair);
+        }
       }
       // dQ += dS·K, left in flight under the next tile's S and dP
       wgmma_fence();
-      cfa_bound::pv_issue<D>(dq, dsk, k_tile);
+      if constexpr (F32) {
+        cfa_bound::pv_issue_f32<D, false, KN>(dq, dsk, dsk_lo, k_tile);
+      } else {
+        cfa_bound::pv_issue<D>(dq, dsk, k_tile);
+      }
       wgmma_commit();
     }
     wgmma_wait_all();
     fence_regs(dsk);
+    if (F32) fence_regs(dsk_lo);
 #pragma unroll
     for (int sl = 0; sl < SLABS; ++sl) fence_regs(dq[sl]);
     if (lane == 0) mbar_arrive(empty + 8 * ((n - 1) % NST));
   }
 
-  // dQ cast once; rows past Nq are skipped, a tile that saw no key writes
-  // its zeros
+  // dQ cast once (F32: stored fp32); rows past Nq are skipped, a tile
+  // that saw no key writes its zeros
 #pragma unroll
   for (int sl = 0; sl < SLABS; ++sl) {
 #pragma unroll
@@ -372,45 +510,53 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       if (pos[hr] < 0) continue;
       const int col = sl * 64 + 8 * (j >> 2) + 2 * (lane & 3);
       const long long row = (long long)(b * a.H + head[hr]) * a.Nq + pos[hr];
-      *reinterpret_cast<__nv_bfloat162*>(a.dq + row * D + col) =
-          __floats2bfloat162_rn(dq[sl][j], dq[sl][j + 1]);
+      if (F32) {
+        *reinterpret_cast<float2*>(static_cast<float*>(a.dq) + row * D +
+                                   col) = make_float2(dq[sl][j], dq[sl][j + 1]);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.dq) +
+                                           row * D + col) =
+            __floats2bfloat162_rn(dq[sl][j], dq[sl][j + 1]);
+      }
     }
   }
 }
 
-template <int D, bool SEG>
-cudaError_t launch(const CUtensorMap (&m)[4], const DqArgs& a, int B,
-                   cudaStream_t stream) {
-  const int smem = Layout<D, SEG>::bytes;
-  auto kernel = flash_bwd_q_kernel<D, SEG>;
+template <int D, bool SEG, bool F32>
+cudaError_t launch(const CUtensorMap (&m)[4], const DqArgs& a,
+                   const F32Src& f, int B, cudaStream_t stream) {
+  const int smem = Layout<D, SEG, F32>::bytes;
+  auto kernel = flash_bwd_q_kernel<D, SEG, F32>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Nq + a.R - 1) / a.R, a.H / a.Gp, B);
-  kernel<<<grid, NTHREADS, smem, stream>>>(m[0], m[1], m[2], m[3], a);
+  kernel<<<grid, NTHREADS, smem, stream>>>(m[0], m[1], m[2], m[3], a, f);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_form(const CUtensorMap (&m)[4], const DqArgs& a, int B,
-                        cudaStream_t stream) {
-  return a.q_seg != nullptr ? launch<D, true>(m, a, B, stream)
-                            : launch<D, false>(m, a, B, stream);
+template <int D, bool F32>
+cudaError_t launch_form(const CUtensorMap (&m)[4], const DqArgs& a,
+                        const F32Src& f, int B, cudaStream_t stream) {
+  return a.q_seg != nullptr ? launch<D, true, F32>(m, a, f, B, stream)
+                            : launch<D, false, F32>(m, a, f, B, stream);
 }
 
 }  // namespace
 
-// K3. strides: q, k, v, dO, each (batch, head, row), in elements, every one
-// a multiple of 8 and the bases 16-byte aligned (TMA). q_seg [B, Nq] and
-// kv_seg [B, Nk] are int32 segment ids, or both null. dq [B,H,Nq,D]
-// contiguous; lse, delta [B,H,Nq] contiguous fp32.
+// K3. f32: q, k, v, dO and dq fp32 (the F32 build), else bf16. strides: q,
+// k, v, dO, each (batch, head, row), in elements, every one a multiple of
+// 16 bytes' elements and the bases 16-byte aligned (TMA; fp32 rows are
+// read as float4). q_seg [B, Nq] and kv_seg [B, Nk] are int32 segment ids,
+// or both null. dq [B,H,Nq,D] contiguous; lse, delta [B,H,Nq] contiguous
+// fp32.
 extern "C" int cfa_flash_bwd_q(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, const void* q_seg,
                                const void* kv_seg, void* dq, int B, int H,
                                int Hkv, int Nq, int Nk, int D,
                                const long long* strides, double scale,
-                               int causal, int window, int kv_offset,
+                               int causal, int window, int kv_offset, int f32,
                                void* stream) {
   if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
   if ((q_seg == nullptr) != (kv_seg == nullptr)) return cudaErrorInvalidValue;
@@ -418,14 +564,16 @@ extern "C" int cfa_flash_bwd_q(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Nk == 0) {
     // no key: dQ is zeros (and K/V's maps would have no memory)
-    return cudaMemsetAsync(dq, 0, (size_t)B * H * Nq * D * sizeof(bf16), st);
+    return cudaMemsetAsync(
+        dq, 0, (size_t)B * H * Nq * D * (f32 ? sizeof(float) : sizeof(bf16)),
+        st);
   }
   DqArgs a = {};
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);
   a.q_seg = static_cast<const int*>(q_seg);
   a.kv_seg = static_cast<const int*>(kv_seg);
-  a.dq = static_cast<bf16*>(dq);
+  a.dq = dq;
   a.H = H; a.Nq = Nq; a.Nk = Nk;
   a.G = H / Hkv;
   a.Gp = cfa_bound::packed_heads(a.G);
@@ -438,13 +586,21 @@ extern "C" int cfa_flash_bwd_q(const void* q, const void* k, const void* v,
   // Q and dO [B,H,Nq,D] in boxes of 64 columns x R positions x Gp heads, K
   // and V [B,Hkv,Nk,D] in boxes of 64 columns x 64 keys, 128 B swizzled,
   // zeros past the live rows
-  cfa_bound::Maps mp;
-  CUtensorMap m[4];
+  // (the fp32 build reads them through F32Src instead)
+  cfa_bound::Maps mp = {};
+  CUtensorMap m[4] = {};
+  F32Src f = {};
   const long long* sd = strides + 9;
-  if (!cfa_bound::make_maps(&mp, q, k, v, B, H, Hkv, Nq, Nk, D, strides,
-                            kBf16, kBf16, 0, a.Gp, a.R) ||
-      !cfa_bound::encode4(&m[3], dout, false, D, Nq, H, B, sd[2] * 2,
-                          sd[1] * 2, sd[0] * 2, 64, a.R, a.Gp, 128)) {
+  if (f32) {
+    const void* ptr[4] = {q, k, v, dout};
+    for (int t = 0; t < 4; ++t) {
+      f.p[t] = static_cast<const float*>(ptr[t]);
+      for (int j = 0; j < 3; ++j) f.st[3 * t + j] = strides[3 * t + j];
+    }
+  } else if (!cfa_bound::make_maps(&mp, q, k, v, B, H, Hkv, Nq, Nk, D,
+                                   strides, kBf16, kBf16, 0, a.Gp, a.R) ||
+             !cfa_bound::encode4(&m[3], dout, false, D, Nq, H, B, sd[2] * 2,
+                                 sd[1] * 2, sd[0] * 2, 64, a.R, a.Gp, 128)) {
     return cudaErrorInvalidValue;
   }
   m[0] = mp.q;
@@ -452,9 +608,11 @@ extern "C" int cfa_flash_bwd_q(const void* q, const void* k, const void* v,
   m[2] = mp.v;
   switch (D) {
     case 64:
-      return launch_form<64>(m, a, B, st);
+      return f32 ? launch_form<64, true>(m, a, f, B, st)
+                 : launch_form<64, false>(m, a, f, B, st);
     case 128:
-      return launch_form<128>(m, a, B, st);
+      return f32 ? launch_form<128, true>(m, a, f, B, st)
+                 : launch_form<128, false>(m, a, f, B, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,8 +1,8 @@
 // FlashAttention-2 forward with the online softmax on a Q-major walk (K1),
 // for Hopper: bf16 Q, K/V in bf16, int8 or fp8 e4m3 with per-token scales,
-// or fp32 Q, K and V (the F32 build: tiles split into bf16 hi and lo,
-// flash_fwd_bound_sm90.cuh), fp32 or bf16 out, with the natural-log LSE
-// per query row.
+// or an fp32 Q over fp32 K and V or over those one-byte K/V (the F32
+// builds: fp32 tiles split into bf16 hi and lo, flash_fwd_bound_sm90.cuh),
+// fp32 or bf16 out, with the natural-log LSE per query row.
 //
 // Replaces: cuda_flashattention_tpu/ops/flash_fwd.py::_fwd_kernel with
 // bound=False, with the causal band of its compact grid, its window and
@@ -49,15 +49,16 @@ constexpr int NCV = 3;  // converted K/V pairs (one-byte K/V), used in turn
 
 // Shared memory of one CTA (byte offsets from a 1024-aligned base): the Q
 // tile (under F32 its hi and lo tiles); NST stages of K and V as TMA
-// writes them (bf16 slabs, or one-byte codes; under F32 the producer
-// warpgroup's hi and lo tiles of each), each followed by the tile's K and
-// V scales (QUANT) and key segment ids (SEG); under QUANT NCV converted
-// K/V pairs; barriers. Split tiles take twice the bytes: at d = 128 two
-// stages fit, else three.
+// writes them (bf16 slabs, or one-byte codes; under F32 without QUANT the
+// producer warpgroup's hi and lo tiles of each), each followed by the
+// tile's K and V scales (QUANT) and key segment ids (SEG); under QUANT NCV
+// converted K/V pairs (exact bf16, so one tile each under F32 too);
+// barriers. Split K/V tiles take twice the bytes: at d = 128 two stages
+// fit, else three (an fp32 Q over codes: 212 KB at d = 128).
 template <int D, bool QUANT, bool SEG, bool F32>
 struct Layout {
   using T = Tiles<D, false>;
-  static constexpr int NST = F32 && D == 128 ? 2 : 3;  // key-tile stages
+  static constexpr int NST = F32 && !QUANT && D == 128 ? 2 : 3;  // stages
   static constexpr int kvh =                          // K, then V
       QUANT ? T::CODES : F32 ? 2 * T::KV16 : T::KV16;
   static constexpr int tma_bytes = 2 * kvh;
@@ -82,7 +83,6 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                      const F32Src f) {
   // the guard (a bound form's loose-row count) is read before anything
   if (guard != nullptr && *guard == 0) return;
-  static_assert(!(QUANT && F32), "fp32 K/V carry no scales");
   using T = Tiles<D, false>;
   using L = Layout<D, QUANT, SEG, F32>;
   constexpr int NST = L::NST;
@@ -107,8 +107,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   if (threadIdx.x == 0) {
     for (int s = 0; s < NST; ++s) {
       // the TMA issue, and with SIDE the 32 lanes of the side loads; under
-      // F32 the producer warpgroup's 128 threads
-      mbar_init(full + 8 * s, F32 ? 128 : SIDE ? 33 : 1);
+      // F32 (fp32 K/V) the producer warpgroup's 128 threads
+      mbar_init(full + 8 * s, F32 && !QUANT ? 128 : SIDE ? 33 : 1);
       mbar_init(empty + 8 * s, 8);  // lane 0 of each consumer warp
     }
     mbar_init(q_bar, F32 ? 128 : 1);
@@ -122,15 +122,18 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     // brings each tile's scales and segment ids beside the TMA
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
     const int lane = threadIdx.x & 31;
+    const int pt = threadIdx.x - 2 * 128;
+    const long long* st = f.st;
     if (F32) {
-      // fp32 Q/K/V: the warpgroup's 128 threads read each tile from device
+      // an fp32 Q: the warpgroup's 128 threads read the tile from device
       // memory and write its hi and lo tiles (split_rows)
-      const int pt = threadIdx.x - 2 * 128;
-      const long long* st = f.st;
       split_rows<D, 128>(smem, smem + T::Q, BM, f.p[0] + b * st[0], st[1],
                          st[2], h0, a.Gp, a.R, q0, a.Nq, pt);
       fence_proxy_async();
       mbar_arrive(q_bar);
+    }
+    if (F32 && !QUANT) {
+      // fp32 K/V: split in the same way, a stage at a time
       for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
         const int st_i = i % NST;
         mbar_wait(empty + 8 * st_i, ((i / NST) & 1) ^ 1);
@@ -148,7 +151,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         mbar_arrive(full + 8 * st_i);
       }
     } else if (threadIdx.x < 2 * 128 + (SIDE ? 32 : 1)) {
-      if (lane == 0) {
+      if (!F32 && lane == 0) {
         mbar_expect_tx(q_bar, a.Gp * a.R * D * 2);
         for (int sl = 0; sl < T::SLABS; ++sl) {
           tma_load_4d(base + sl * BM * 128, &tm_q, q_bar, sl * 64, q0, h0,
@@ -272,7 +275,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       // the first tile: S and its softmax, no P·V before it (acc is 0)
       tile(0, kt, vt, ksc, vsc, kseg);
       wgmma_fence();
-      qk_issue_any<D, F32>(s_acc, base, kt, wg);
+      qk_issue_any<D, F32, QUANT>(s_acc, base, kt, wg);
       wgmma_commit();
       wgmma_wait_all();
       copy_after_wait(s, s_acc);
@@ -283,9 +286,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         // while the tensor cores do the P·V, the rescale of O after it
         tile(i, kt, vt, ksc, vsc, kseg);
         wgmma_fence();
-        qk_issue_any<D, F32>(s_acc, base, kt, wg);
+        qk_issue_any<D, F32, QUANT>(s_acc, base, kt, wg);
         wgmma_commit();
-        pv_issue_any<D, F32>(acc, p, p_lo, v_prev);
+        pv_issue_any<D, F32, QUANT>(acc, p, p_lo, v_prev);
         wgmma_commit();
         wgmma_wait_one();
         copy_after_wait(s, s_acc);
@@ -306,7 +309,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         v_prev = vt;
       }
       wgmma_fence();
-      pv_issue_any<D, F32>(acc, p, p_lo, v_prev);
+      pv_issue_any<D, F32, QUANT>(acc, p, p_lo, v_prev);
       wgmma_commit();
       wgmma_wait_all();
 #pragma unroll
@@ -344,11 +347,16 @@ cudaError_t launch(const Maps& mp, const Args& a, const Extra& x,
 
 template <int D>
 cudaError_t launch_form(const Maps& mp, const Args& a, const Extra& x,
-                        const F32Src& f, int B, cudaStream_t stream) {
+                        const F32Src& f, int B, bool f32,
+                        cudaStream_t stream) {
   const bool seg = x.q_seg != nullptr;
-  if (a.k_type == kF32) {
+  if (f32 && a.k_type == kF32) {
     return seg ? launch<D, false, true, true>(mp, a, x, f, B, stream)
                : launch<D, false, false, true>(mp, a, x, f, B, stream);
+  }
+  if (f32) {  // an fp32 Q over one-byte K/V
+    return seg ? launch<D, true, true, true>(mp, a, x, f, B, stream)
+               : launch<D, true, false, true>(mp, a, x, f, B, stream);
   }
   const bool quant = a.k_type != kBf16;
   if (seg) {
@@ -361,22 +369,24 @@ cudaError_t launch_form(const Maps& mp, const Args& a, const Extra& x,
 
 }  // namespace
 
-// K1, behind `guard` when that is not null. ptrs: q (bf16 prescaled, fp32
-// under k_type 3), k, v, k_scale, v_scale ([B,Hkv,Nk] fp32 or NULL), q_seg
-// ([B,Nq] int32 or NULL), kv_seg ([B,Nk]), guard (int32 or NULL), o
+// K1, behind `guard` when that is not null. ptrs: q (prescaled: bf16, or
+// fp32 under q_f32), k, v, k_scale, v_scale ([B,Hkv,Nk] fp32 or NULL),
+// q_seg ([B,Nq] int32 or NULL), kv_seg ([B,Nk]), guard (int32 or NULL), o
 // ([B,H,Nq,D] contiguous), lse ([B,H,Nq]). strides: q, k, v, each (batch,
 // head, row), in elements, rows 16-byte aligned. k_type/v_type: 0 bf16, 1
 // int8, 2 fp8 e4m3, 3 fp32 (K and V both bf16, both one-byte or, with an
-// fp32 Q, both fp32).
+// fp32 Q, both fp32). q_f32: an fp32 Q (over fp32 or one-byte K/V).
 extern "C" int cfa_flash_fwd(void* const* ptrs, int B, int H, int Hkv, int Nq,
                              int Nk, int D, const long long* strides,
-                             int k_type, int v_type, int causal, int window,
-                             int kv_offset, int out_f32, void* stream) {
+                             int k_type, int v_type, int q_f32, int causal,
+                             int window, int kv_offset, int out_f32,
+                             void* stream) {
   if (B == 0 || H == 0 || Nq == 0) return cudaSuccess;
   if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
   if ((k_type == kBf16) != (v_type == kBf16)) return cudaErrorInvalidValue;
   if ((k_type == kF32) != (v_type == kF32)) return cudaErrorInvalidValue;
-  const bool f32 = k_type == kF32;
+  const bool f32 = q_f32 != 0;
+  if (f32 ? k_type == kBf16 : k_type == kF32) return cudaErrorInvalidValue;
   Args a = {};
   a.k_scale = static_cast<const float*>(ptrs[3]);
   a.v_scale = static_cast<const float*>(ptrs[4]);
@@ -392,28 +402,29 @@ extern "C" int cfa_flash_fwd(void* const* ptrs, int B, int H, int Hkv, int Nq,
   a.k_type = k_type; a.v_type = v_type;
   a.causal = causal; a.window = window; a.kv_offset = kv_offset;
   a.out_f32 = out_f32;
-  if (k_type != kBf16 && !f32 &&
+  if (k_type != kBf16 && k_type != kF32 &&
       (a.k_scale == nullptr || a.v_scale == nullptr)) {
     return cudaErrorInvalidValue;
   }
   if ((x.q_seg == nullptr) != (x.kv_seg == nullptr)) {
     return cudaErrorInvalidValue;
   }
-  // the fp32 build reads its operands through F32Src, not through TMA
+  // the fp32 builds read fp32 operands through F32Src, not through TMA
+  // (one-byte K/V still come by TMA)
   Maps mp = {};
   F32Src f = {};
-  if (f32) {
-    f = f32_src(ptrs, strides);
-  } else if (!make_maps(&mp, ptrs[0], ptrs[1], ptrs[2], B, H, Hkv, Nq, Nk, D,
-                        strides, k_type, v_type, 0, a.Gp, a.R)) {
+  if (f32) f = f32_src(ptrs, strides);
+  if (k_type != kF32 &&
+      !make_maps(&mp, f32 ? nullptr : ptrs[0], ptrs[1], ptrs[2], B, H, Hkv,
+                 Nq, Nk, D, strides, k_type, v_type, 0, a.Gp, a.R)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch_form<64>(mp, a, x, f, B, s);
+      return launch_form<64>(mp, a, x, f, B, f32, s);
     case 128:
-      return launch_form<128>(mp, a, x, f, B, s);
+      return launch_form<128>(mp, a, x, f, B, f32, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,8 +1,9 @@
 // FlashAttention-2 forward with the score-bound softmax on a Q-major walk
 // (K1b), for Hopper: bf16 Q, K/V in bf16, int8 or fp8 e4m3 with per-token
-// scales (or int8 Q and K under quantize_q), or fp32 Q, K and V (the F32
-// build: tiles split into bf16 hi and lo), fp32 or bf16 out, the
-// natural-log LSE and the count of loose-bound rows.
+// scales (or int8 Q and K under quantize_q), or an fp32 Q over fp32 K and V
+// or over those one-byte K/V (the F32 builds: fp32 tiles split into bf16
+// hi and lo), fp32 or bf16 out, the natural-log LSE and the count of
+// loose-bound rows.
 //
 // Replaces: cuda_flashattention_tpu/ops/flash_fwd.py::_fwd_kernel with
 // bound=True: p = 2^(s − c) against the host's per-row bound c, no running
@@ -41,8 +42,9 @@ constexpr int stages() { return QUANT ? 3 : 2; }
 // Shared memory of one CTA (byte offsets from a 1024-aligned base): the Q
 // tile (under F32 its hi and lo tiles); NST stages of K and V as TMA
 // writes them (bf16 slabs, or one-byte codes followed by the tile's K and
-// V scales; under F32 the producer warpgroup's hi and lo tiles of each);
-// under QUANT two converted K/V pairs, used in turn; barriers.
+// V scales; under F32 without QUANT the producer warpgroup's hi and lo
+// tiles of each); under QUANT two converted K/V pairs (exact bf16 tiles),
+// used in turn; barriers.
 template <int D, bool QUANT, bool QQ, bool F32>
 struct Layout {
   using T = Tiles<D, QQ>;
@@ -67,7 +69,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                            const __grid_constant__ CUtensorMap tm_v,
                            const Args a, const F32Src f) {
   static_assert(QUANT || !QQ, "quantize_q reads quantized K/V");
-  static_assert(!(QUANT && F32), "fp32 K/V carry no scales");
+  static_assert(!(QQ && F32), "quantize_q's Q is int8");
   using T = Tiles<D, QQ>;
   using L = Layout<D, QUANT, QQ, F32>;
   constexpr int NST = L::NST;
@@ -89,8 +91,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   if (threadIdx.x == 0) {
     for (int s = 0; s < NST; ++s) {
       // the TMA issue, and under QUANT the 32 lanes that load the scales;
-      // under F32 the producer warpgroup's 128 threads
-      mbar_init(full + 8 * s, F32 ? 128 : QUANT ? 33 : 1);
+      // under F32 (fp32 K/V) the producer warpgroup's 128 threads
+      mbar_init(full + 8 * s, F32 && !QUANT ? 128 : QUANT ? 33 : 1);
       mbar_init(empty + 8 * s, 8);  // lane 0 of each consumer warp
     }
     mbar_init(q_bar, F32 ? 128 : 1);
@@ -104,15 +106,18 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     // also brings each tile's scales beside the codes
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
     const int lane = threadIdx.x & 31;
+    const int pt = threadIdx.x - 2 * 128;
+    const long long* st = f.st;
     if (F32) {
-      // fp32 Q/K/V: the warpgroup's 128 threads read each tile from device
+      // an fp32 Q: the warpgroup's 128 threads read the tile from device
       // memory and write its hi and lo tiles (split_rows)
-      const int pt = threadIdx.x - 2 * 128;
-      const long long* st = f.st;
       split_rows<D, 128>(smem, smem + T::Q, BM, f.p[0] + b * st[0], st[1],
                          st[2], h0, a.Gp, a.R, q0, a.Nq, pt);
       fence_proxy_async();
       mbar_arrive(q_bar);
+    }
+    if (F32 && !QUANT) {
+      // fp32 K/V: split in the same way, a stage at a time
       for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
         const int st_i = i % NST;
         mbar_wait(empty + 8 * st_i, ((i / NST) & 1) ^ 1);
@@ -126,7 +131,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         mbar_arrive(full + 8 * st_i);
       }
     } else if (threadIdx.x < 2 * 128 + (QUANT ? 32 : 1)) {
-      if (lane == 0) {
+      if (!F32 && lane == 0) {
         const int q_slabs = QQ ? 1 : T::SLABS;
         mbar_expect_tx(q_bar, a.Gp * a.R * D * (QQ ? 1 : 2));
         for (int sl = 0; sl < q_slabs; ++sl) {
@@ -206,7 +211,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         vsc = ksc + BN;
       }
       float s[32];
-      qk<D, QQ, F32>(s, base, kt, wg);
+      qk<D, QQ, F32, QUANT>(s, base, kt, wg);
       uint32_t p[16], p_lo[16];  // under F32 P = p + p_lo
       if (interior(a, c0, q0, q0 + a.R - 1)) {
         bound_step<QUANT, QQ, false, F32>(a, r, s, ksc, vsc, c0, l, p, p_lo);
@@ -216,7 +221,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       // the stage is read: its codes and scales (QUANT) or its K (bf16;
       // V is read by the P·V below, which completes before the next wait)
       if (QUANT && lane == 0) mbar_arrive(empty + 8 * st);
-      pv<D, F32>(acc, p, vt, p_lo);
+      pv<D, F32, QUANT>(acc, p, vt, p_lo);
       if (!QUANT && lane == 0) mbar_arrive(empty + 8 * st);
     }
     store_rows<D>(a, r, acc, l, b);
@@ -239,9 +244,10 @@ cudaError_t launch(const Maps& m, const Args& a, const F32Src& f, int B,
 
 template <int D>
 cudaError_t launch_form(const Maps& m, const Args& a, const F32Src& f, int B,
-                        int qq, cudaStream_t stream) {
-  if (a.k_type == kF32) {
-    return launch<D, false, false, true>(m, a, f, B, stream);
+                        int qq, bool f32, cudaStream_t stream) {
+  if (f32) {  // an fp32 Q over fp32 K/V, or over one-byte K/V
+    return a.k_type == kF32 ? launch<D, false, false, true>(m, a, f, B, stream)
+                            : launch<D, true, false, true>(m, a, f, B, stream);
   }
   if (a.k_type == kBf16) {
     return launch<D, false, false, false>(m, a, f, B, stream);
@@ -257,17 +263,20 @@ cudaError_t launch_form(const Maps& m, const Args& a, const F32Src& f, int B,
 // ([B,H,Nq]), n_loose (int32, zeroed), o ([B,H,Nq,D] contiguous), lse
 // ([B,H,Nq]). strides: q, k, v, each (batch, head, row), in elements, rows
 // 16-byte aligned. k_type/v_type: 0 bf16, 1 int8, 2 fp8 e4m3, 3 fp32 (K
-// and V both bf16, both one-byte or, with an fp32 Q, both fp32).
+// and V both bf16, both one-byte or, with an fp32 Q, both fp32). q_f32:
+// an fp32 Q (over fp32 or one-byte K/V; not with qq, whose Q is int8).
 extern "C" int cfa_flash_fwd_bound(void* const* ptrs, int B, int H, int Hkv,
                                    int Nq, int Nk, int D,
                                    const long long* strides, int k_type,
-                                   int v_type, int qq, int causal, int window,
-                                   int kv_offset, int out_f32, void* stream) {
+                                   int v_type, int q_f32, int qq, int causal,
+                                   int window, int kv_offset, int out_f32,
+                                   void* stream) {
   if (B == 0 || H == 0 || Nq == 0) return cudaSuccess;
   if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
   if ((k_type == kBf16) != (v_type == kBf16)) return cudaErrorInvalidValue;
   if ((k_type == kF32) != (v_type == kF32)) return cudaErrorInvalidValue;
-  const bool f32 = k_type == kF32;
+  const bool f32 = q_f32 != 0;
+  if (f32 ? k_type == kBf16 : k_type == kF32) return cudaErrorInvalidValue;
   if (qq && (k_type == kBf16 || f32)) return cudaErrorInvalidValue;
   Args a = {};
   a.k_scale = static_cast<const float*>(ptrs[3]);
@@ -284,25 +293,26 @@ extern "C" int cfa_flash_fwd_bound(void* const* ptrs, int B, int H, int Hkv,
   a.k_type = k_type; a.v_type = v_type;
   a.causal = causal; a.window = window; a.kv_offset = kv_offset;
   a.out_f32 = out_f32;
-  if (k_type != kBf16 && !f32 &&
+  if (k_type != kBf16 && k_type != kF32 &&
       (a.k_scale == nullptr || a.v_scale == nullptr)) {
     return cudaErrorInvalidValue;
   }
-  // the fp32 build reads its operands through F32Src, not through TMA
+  // the fp32 builds read fp32 operands through F32Src, not through TMA
+  // (one-byte K/V still come by TMA)
   Maps m = {};
   F32Src f = {};
-  if (f32) {
-    f = f32_src(ptrs, strides);
-  } else if (!make_maps(&m, ptrs[0], ptrs[1], ptrs[2], B, H, Hkv, Nq, Nk, D,
-                        strides, k_type, v_type, qq, a.Gp, a.R)) {
+  if (f32) f = f32_src(ptrs, strides);
+  if (k_type != kF32 &&
+      !make_maps(&m, f32 ? nullptr : ptrs[0], ptrs[1], ptrs[2], B, H, Hkv,
+                 Nq, Nk, D, strides, k_type, v_type, qq, a.Gp, a.R)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch_form<64>(m, a, f, B, qq, s);
+      return launch_form<64>(m, a, f, B, qq, f32, s);
     case 128:
-      return launch_form<128>(m, a, f, B, qq, s);
+      return launch_form<128>(m, a, f, B, qq, f32, s);
     default:
       return cudaErrorInvalidValue;
   }

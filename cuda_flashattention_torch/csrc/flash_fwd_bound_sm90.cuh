@@ -356,13 +356,16 @@ struct Maps {
 // boxes of a slab's columns x R positions x Gp heads; K and V
 // [B,Hkv,Nk,D] in boxes of 64 keys: bf16 as 64-column slabs, 128 B
 // swizzled, one-byte codes whole rows unswizzled (the consumers convert
-// them). strides: q, k, v, each (batch, head, row), in elements.
+// them); no Q map when q is null (an fp32 Q, which the producer
+// warpgroup reads and splits). strides: q, k, v, each (batch, head, row),
+// in elements.
 inline bool make_maps(Maps* m, const void* q, const void* k, const void* v,
                       int B, int H, int Hkv, int Nq, int Nk, int D,
                       const long long* st, int k_type, int v_type, int qq,
                       int Gp, int R) {
   const int qe = qq ? 1 : 2;
-  bool ok = encode4(&m->q, q, qq, D, Nq, H, B, st[2] * qe, st[1] * qe,
+  bool ok = q == nullptr ||
+            encode4(&m->q, q, qq, D, Nq, H, B, st[2] * qe, st[1] * qe,
                     st[0] * qe, qq ? D : 64, R, Gp, qq ? D : 128);
   const void* kv[2] = {k, v};
   const int types[2] = {k_type, v_type};
@@ -639,15 +642,17 @@ __device__ __forceinline__ void qk_issue(float (&s)[32], uint32_t q,
   }
 }
 
-template <int D>
+// (KN: the keys of the V tile, 64 or K3's fp32 32; P holds KN / 4 pairs)
+template <int D, int KN = BN>
 __device__ __forceinline__ void pv_issue(float (&acc)[D / 64][32],
-                                         const uint32_t (&p)[16], uint32_t v) {
+                                         const uint32_t (&p)[KN / 4],
+                                         uint32_t v) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < KN / 16; ++kk) {
 #pragma unroll
     for (int sl = 0; sl < D / 64; ++sl) {
       wgmma_rs_bf16(acc[sl], &p[4 * kk],
-                    make_desc(v + sl * BN * 128 + kk * 16 * 128, 1024, 1024,
+                    make_desc(v + sl * KN * 128 + kk * 16 * 128, 1024, 1024,
                               1));
     }
   }
@@ -659,42 +664,48 @@ __device__ __forceinline__ void pv_issue(float (&acc)[D / 64][32],
 // product as three bf16 wgmmas with fp32 sums, lo·hi + hi·lo + hi·hi: x =
 // hi + lo to 2^-17 relatively, and the dropped lo·lo term is ~2^-16 of a
 // product, where one bf16 rounding costs 2^-9.
-template <int D>
+//
+// EXACT_KV: the K (V) tile is one bf16 tile that holds its values exactly
+// (one-byte codes converted under an fp32 Q: every int8 code and every
+// e4m3 value is a bf16 value), so its lo part is 0 and the product is two
+// wgmmas, lo·k + hi·k.
+template <int D, bool EXACT_KV = false>
 __device__ __forceinline__ void qk_issue_f32(float (&s)[32], uint32_t q,
                                              uint32_t k, int wg) {
   qk_issue<D>(s, q + BM * D * 2, k, wg);
-  qk_issue<D, true>(s, q, k + BN * D * 2, wg);
+  if (!EXACT_KV) qk_issue<D, true>(s, q, k + BN * D * 2, wg);
   qk_issue<D, true>(s, q, k, wg);
 }
 
-// acc += P·V with P = p + p_lo in registers and V split in shared memory.
-template <int D>
+// acc += P·V with P = p + p_lo in registers and V split in shared memory
+// (EXACT_KV: V one exact bf16 tile; KN as pv_issue's).
+template <int D, bool EXACT_KV = false, int KN = BN>
 __device__ __forceinline__ void pv_issue_f32(float (&acc)[D / 64][32],
-                                             const uint32_t (&p)[16],
-                                             const uint32_t (&p_lo)[16],
+                                             const uint32_t (&p)[KN / 4],
+                                             const uint32_t (&p_lo)[KN / 4],
                                              uint32_t v) {
-  pv_issue<D>(acc, p_lo, v);
-  pv_issue<D>(acc, p, v + BN * D * 2);
-  pv_issue<D>(acc, p, v);
+  pv_issue<D, KN>(acc, p_lo, v);
+  if (!EXACT_KV) pv_issue<D, KN>(acc, p, v + KN * D * 2);
+  pv_issue<D, KN>(acc, p, v);
 }
 
 // qk_issue or, under F32, qk_issue_f32; pv_issue or pv_issue_f32.
-template <int D, bool F32>
+template <int D, bool F32, bool EXACT_KV = false>
 __device__ __forceinline__ void qk_issue_any(float (&s)[32], uint32_t q,
                                              uint32_t k, int wg) {
   if (F32) {
-    qk_issue_f32<D>(s, q, k, wg);
+    qk_issue_f32<D, EXACT_KV>(s, q, k, wg);
   } else {
     qk_issue<D>(s, q, k, wg);
   }
 }
-template <int D, bool F32>
+template <int D, bool F32, bool EXACT_KV = false>
 __device__ __forceinline__ void pv_issue_any(float (&acc)[D / 64][32],
                                              const uint32_t (&p)[16],
                                              const uint32_t (&p_lo)[16],
                                              uint32_t v) {
   if (F32) {
-    pv_issue_f32<D>(acc, p, p_lo, v);
+    pv_issue_f32<D, EXACT_KV>(acc, p, p_lo, v);
   } else {
     pv_issue<D>(acc, p, v);
   }
@@ -780,13 +791,13 @@ inline F32Src f32_src(void* const* ptrs, const long long* strides) {
 
 // S[64x64] of this warpgroup's rows = Q · Kᵀ. q: the Q tile, k: the K tile
 // (shared-memory addresses; split tiles under F32).
-template <int D, bool QQ, bool F32 = false>
+template <int D, bool QQ, bool F32 = false, bool EXACT_KV = false>
 __device__ __forceinline__ void qk(float (&s)[32], uint32_t q, uint32_t k,
                                    int wg) {
   using T = Tiles<D, QQ>;
   if (F32) {
     wgmma_fence();
-    qk_issue_f32<D>(s, q, k, wg);
+    qk_issue_f32<D, EXACT_KV>(s, q, k, wg);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
@@ -815,15 +826,15 @@ __device__ __forceinline__ void qk(float (&s)[32], uint32_t q, uint32_t k,
 
 // acc[64xD] += P[64x64] · V[64xD]: P from registers (bf16 pairs in the A
 // layout, which is S's accumulator layout), V MN-major from shared memory;
-// under F32 P = p + p_lo and V split.
-template <int D, bool F32 = false>
+// under F32 P = p + p_lo and V split (EXACT_KV: V one exact bf16 tile).
+template <int D, bool F32 = false, bool EXACT_KV = false>
 __device__ __forceinline__ void pv(float (&acc)[D / 64][32],
                                    const uint32_t (&p)[16], uint32_t v,
                                    const uint32_t* p_lo = nullptr) {
   wgmma_fence();
   if (F32) {
-    pv_issue_f32<D>(acc, p, *reinterpret_cast<const uint32_t(*)[16]>(p_lo),
-                    v);
+    pv_issue_f32<D, EXACT_KV>(
+        acc, p, *reinterpret_cast<const uint32_t(*)[16]>(p_lo), v);
   } else {
     pv_issue<D>(acc, p, v);
   }
@@ -837,10 +848,11 @@ __device__ __forceinline__ void pv(float (&acc)[D / 64][32],
 // the reads below the wait, and the accumulator registers are not written
 // while a later group is still in flight (ptxas would serialize the
 // groups).
-__device__ __forceinline__ void copy_after_wait(float (&dst)[32],
-                                                const float (&src)[32]) {
+template <int N>
+__device__ __forceinline__ void copy_after_wait(float (&dst)[N],
+                                                const float (&src)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < N; ++i) {
     asm volatile("mov.b32 %0, %1;" : "=f"(dst[i]) : "f"(src[i]) : "memory");
   }
 }

@@ -1,8 +1,10 @@
 // FlashAttention-2 forward with the score-bound softmax on a key-split walk
 // (K5), for Hopper: a span of key tiles is made resident and converted
 // once, and the Q tiles of every query head of its group stream past. Its
-// F32 build reads fp32 Q, K and V and holds each tile split into bf16 hi
-// and lo tiles (a span of one key tile at d = 128, four at d = 64).
+// F32 builds read an fp32 Q and hold each Q tile split into bf16 hi and lo
+// tiles, over fp32 K and V split the same way (a span of one key tile at
+// d = 128, four at d = 64) or over one-byte K/V converted to exact bf16
+// tiles (three at d = 128, eight at d = 64).
 //
 // Replaces: cuda_flashattention_tpu/ops/flash_fwd.py::_fwd_kernel_kmajor.
 // What that kernel computes is the bound forward's result (K1b) on a
@@ -43,22 +45,25 @@ namespace {
 constexpr int NQS = 2;  // Q tiles in flight
 
 // the most key tiles a CTA keeps resident (what fits beside the Q ring);
-// fp32 tiles are held split, at twice the bytes
-__host__ __device__ constexpr int max_span(int D, bool f32) {
-  return f32 ? (D == 128 ? 1 : 4) : (D == 128 ? 4 : 8);
+// fp32 K/V tiles are held split, at twice the bytes, and an fp32 Q's ring
+// is split too (ops/flash_fwd.py::_KMAJOR_MAX_SPAN*)
+__host__ __device__ constexpr int max_span(int D, bool f32, bool quant) {
+  return f32 ? (quant ? (D == 128 ? 3 : 8) : (D == 128 ? 1 : 4))
+             : (D == 128 ? 4 : 8);
 }
 
 // Shared memory of one CTA (byte offsets from a 1024-aligned base): the
-// span's K and V tiles as wgmma reads them (under F32 the hi and lo tiles
-// of each); the Q ring (F32: split), whose space first holds the span's
-// codes under QUANT; the span's scales; barriers.
+// span's K and V tiles as wgmma reads them (under F32 without QUANT the hi
+// and lo tiles of each); the Q ring (F32: split), whose space first holds
+// the span's codes under QUANT; the span's scales; barriers.
 template <int D, bool QUANT, bool QQ, bool F32>
 struct Layout {
   using T = Tiles<D, QQ>;
-  static constexpr int SPAN = max_span(D, F32);
-  // V after K in a tile pair; under F32 each is hi then lo
-  static constexpr int tile_v = F32 ? 2 * T::KV16 : align1k(T::KC);
-  static constexpr int tile_stride = tile_v + (F32 ? 2 : 1) * T::KV16;
+  static constexpr int SPAN = max_span(D, F32, QUANT);
+  static constexpr bool SPLIT_KV = F32 && !QUANT;
+  // V after K in a tile pair; split K/V are each hi then lo
+  static constexpr int tile_v = SPLIT_KV ? 2 * T::KV16 : align1k(T::KC);
+  static constexpr int tile_stride = tile_v + (SPLIT_KV ? 2 : 1) * T::KV16;
   static constexpr int q_stride = align1k(F32 ? 2 * T::Q : T::Q);
   static constexpr int q_off = SPAN * tile_stride;
   static constexpr int raw_pair = 2 * T::CODES;  // one key tile's codes
@@ -78,7 +83,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                             const __grid_constant__ CUtensorMap tm_v,
                             const Args a, const F32Src f) {
   static_assert(QUANT || !QQ, "quantize_q reads quantized K/V");
-  static_assert(!(QUANT && F32), "fp32 K/V carry no scales");
+  static_assert(!(QQ && F32), "quantize_q's Q is int8");
   using T = Tiles<D, QQ>;
   using L = Layout<D, QUANT, QQ, F32>;
   extern __shared__ uint8_t smem_raw[];
@@ -116,7 +121,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       mbar_init(q_full + 8 * s, F32 ? 128 : 1);
       mbar_init(q_empty + 8 * s, 8);  // lane 0 of each consumer warp
     }
-    mbar_init(span_bar, F32 ? 128 : 1);
+    mbar_init(span_bar, L::SPLIT_KV ? 128 : 1);
     mbar_init(free_bar, 8);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -125,22 +130,11 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const int wg = threadIdx.x / 128;
   if (wg == 2) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
-    if (F32) {
-      // fp32 Q/K/V: the warpgroup's 128 threads read the span and then
-      // each Q tile from device memory and write their hi and lo tiles
-      const int pt = threadIdx.x - 2 * 128;
-      const long long* st = f.st;
-      for (int j = 0; j < nt; ++j) {
-        const int t = t_lo + j;
-        uint8_t* dst = smem + j * L::tile_stride;
-        split_rows<D, 128>(dst, dst + T::KV16, BN, f.p[1] + b * st[3], st[4],
-                           st[5], hk, 1, BN, t * BN, a.Nk, pt);
-        split_rows<D, 128>(dst + L::tile_v, dst + L::tile_v + T::KV16, BN,
-                           f.p[2] + b * st[6], st[7], st[8], hk, 1, BN,
-                           t * BN, a.Nk, pt);
-      }
-      fence_proxy_async();
-      mbar_arrive(span_bar);
+    const int pt = threadIdx.x - 2 * 128;
+    const long long* st = f.st;
+    // an fp32 Q: the warpgroup's 128 threads read each Q tile from device
+    // memory and write its hi and lo tiles into the ring
+    auto split_q_ring = [&]() {
       for (int item = 0; item < n_items; ++item) {
         const int qs = item % NQS;
         const int h0 = hk * a.G + (item / per_pack) * a.Gp;
@@ -152,6 +146,35 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         fence_proxy_async();
         mbar_arrive(q_full + 8 * qs);
       }
+    };
+    if (L::SPLIT_KV) {
+      // fp32 K/V: the span split the same way, then the Q tiles
+      for (int j = 0; j < nt; ++j) {
+        const int t = t_lo + j;
+        uint8_t* dst = smem + j * L::tile_stride;
+        split_rows<D, 128>(dst, dst + T::KV16, BN, f.p[1] + b * st[3], st[4],
+                           st[5], hk, 1, BN, t * BN, a.Nk, pt);
+        split_rows<D, 128>(dst + L::tile_v, dst + L::tile_v + T::KV16, BN,
+                           f.p[2] + b * st[6], st[7], st[8], hk, 1, BN,
+                           t * BN, a.Nk, pt);
+      }
+      fence_proxy_async();
+      mbar_arrive(span_bar);
+      split_q_ring();
+    } else if (F32) {
+      // one-byte K/V under an fp32 Q: the span's codes by TMA into the Q
+      // ring's space; once the consumers have converted them, the Q tiles
+      if (threadIdx.x == 2 * 128) {
+        mbar_expect_tx(span_bar, nt * L::raw_pair);
+        for (int j = 0; j < nt; ++j) {
+          const uint32_t dst = base + L::q_off + j * L::raw_pair;
+          tma_load_4d(dst, &tm_k, span_bar, 0, (t_lo + j) * BN, hk, b);
+          tma_load_4d(dst + T::CODES, &tm_v, span_bar, 0, (t_lo + j) * BN,
+                      hk, b);
+        }
+      }
+      mbar_wait(free_bar, 0);
+      split_q_ring();
     } else if (threadIdx.x == 2 * 128) {
       // the span: bf16 straight into its resident tiles, codes into the
       // Q ring's space for the consumers to convert
@@ -240,7 +263,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         const float* ksc = QUANT ? scales + j * 2 * BN : nullptr;
         const float* vsc = QUANT ? ksc + BN : nullptr;
         float s[32];
-        qk<D, QQ, F32>(s, q, kt, wg);
+        qk<D, QQ, F32, QUANT>(s, q, kt, wg);
         uint32_t p[16], p_lo[16];  // under F32 P = p + p_lo
         if (interior(a, t * BN, q0, q0 + a.R - 1)) {
           bound_step<QUANT, QQ, false, F32>(a, r, s, ksc, vsc, t * BN, l, p,
@@ -249,7 +272,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
           bound_step<QUANT, QQ, true, F32>(a, r, s, ksc, vsc, t * BN, l, p,
                                            p_lo);
         }
-        pv<D, F32>(acc, p, kt + L::tile_v, p_lo);
+        pv<D, F32, QUANT>(acc, p, kt + L::tile_v, p_lo);
       }
       if (lane == 0) mbar_arrive(q_empty + 8 * st);  // Q is read
       add_rows<D>(a, r, acc, l, b);
@@ -302,9 +325,10 @@ cudaError_t launch(const Maps& m, const Args& a, const F32Src& f, int B,
 
 template <int D>
 cudaError_t launch_form(const Maps& m, const Args& a, const F32Src& f, int B,
-                        int qq, cudaStream_t stream) {
-  if (a.k_type == kF32) {
-    return launch<D, false, false, true>(m, a, f, B, stream);
+                        int qq, bool f32, cudaStream_t stream) {
+  if (f32) {  // an fp32 Q over fp32 K/V, or over one-byte K/V
+    return a.k_type == kF32 ? launch<D, false, false, true>(m, a, f, B, stream)
+                            : launch<D, true, false, true>(m, a, f, B, stream);
   }
   if (a.k_type == kBf16) {
     return launch<D, false, false, false>(m, a, f, B, stream);
@@ -318,21 +342,25 @@ cudaError_t launch_form(const Maps& m, const Args& a, const F32Src& f, int B,
 // K5. ptrs: q, k, v, k_scale, v_scale, q_factor, c, l_acc ([B,H,Nq] fp32,
 // zeroed), o_acc ([B,H,Nq,D] fp32, zeroed), n_loose, o, lse; the rest as
 // cfa_flash_fwd_bound's, and span: key tiles of 64 per CTA, 1 to
-// max_span(D, fp32) (ops/flash_fwd.py::_KMAJOR_MAX_SPAN).
+// max_span(D, q_f32, one-byte K/V) (ops/flash_fwd.py::_KMAJOR_MAX_SPAN*).
 extern "C" int cfa_flash_fwd_kmajor(void* const* ptrs, int B, int H, int Hkv,
                                     int Nq, int Nk, int D,
                                     const long long* strides, int k_type,
-                                    int v_type, int qq, int causal,
+                                    int v_type, int q_f32, int qq, int causal,
                                     int window, int kv_offset, int out_f32,
                                     int span, void* stream) {
   if (B == 0 || H == 0 || Nq == 0) return cudaSuccess;
   if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
   if ((k_type == kBf16) != (v_type == kBf16)) return cudaErrorInvalidValue;
   if ((k_type == kF32) != (v_type == kF32)) return cudaErrorInvalidValue;
-  const bool f32 = k_type == kF32;
+  const bool f32 = q_f32 != 0;
+  if (f32 ? k_type == kBf16 : k_type == kF32) return cudaErrorInvalidValue;
   if (qq && (k_type == kBf16 || f32)) return cudaErrorInvalidValue;
   if (D != 64 && D != 128) return cudaErrorInvalidValue;
-  if (span < 1 || span > max_span(D, f32)) return cudaErrorInvalidValue;
+  const bool quant = k_type != kBf16 && k_type != kF32;
+  if (span < 1 || span > max_span(D, f32, quant)) {
+    return cudaErrorInvalidValue;
+  }
   Args a = {};
   a.k_scale = static_cast<const float*>(ptrs[3]);
   a.v_scale = static_cast<const float*>(ptrs[4]);
@@ -351,25 +379,25 @@ extern "C" int cfa_flash_fwd_kmajor(void* const* ptrs, int B, int H, int Hkv,
   a.causal = causal; a.window = window; a.kv_offset = kv_offset;
   a.out_f32 = out_f32;
   a.span = span;
-  if (k_type != kBf16 && !f32 &&
-      (a.k_scale == nullptr || a.v_scale == nullptr)) {
+  if (quant && (a.k_scale == nullptr || a.v_scale == nullptr)) {
     return cudaErrorInvalidValue;
   }
-  // the fp32 build reads its operands through F32Src, not through TMA
+  // the fp32 builds read fp32 operands through F32Src, not through TMA
+  // (one-byte K/V still come by TMA)
   Maps m = {};
   F32Src f = {};
-  if (f32) {
-    f = f32_src(ptrs, strides);
-  } else if (!make_maps(&m, ptrs[0], ptrs[1], ptrs[2], B, H, Hkv, Nq, Nk, D,
-                        strides, k_type, v_type, qq, a.Gp, a.R)) {
+  if (f32) f = f32_src(ptrs, strides);
+  if (k_type != kF32 &&
+      !make_maps(&m, f32 ? nullptr : ptrs[0], ptrs[1], ptrs[2], B, H, Hkv,
+                 Nq, Nk, D, strides, k_type, v_type, qq, a.Gp, a.R)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch_form<64>(m, a, f, B, qq, s);
+      return launch_form<64>(m, a, f, B, qq, f32, s);
     case 128:
-      return launch_form<128>(m, a, f, B, qq, s);
+      return launch_form<128>(m, a, f, B, qq, f32, s);
     default:
       return cudaErrorInvalidValue;
   }

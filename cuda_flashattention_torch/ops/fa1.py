@@ -14,8 +14,9 @@ On a CUDA tensor it launches the hand-written Hopper kernel of
 csrc/fa1.cu (the forward's wgmma + TMA body: one CTA per 128-row Q tile
 streams K and V through a ring of shared-memory stages; a renormalising
 block is one to four 64-key tiles, walked twice: its row max first, then
-P and P·V). On a CPU tensor it runs `fa1_attention_plain`, which walks the
-same blocks in PyTorch.
+P and P·V), in bf16 or, for fp32 inputs, its fp32 build (each tile split
+into bf16 hi and lo parts, P unrounded). On a CPU tensor it runs
+`fa1_attention_plain`, which walks the same blocks in PyTorch.
 """
 
 from __future__ import annotations
@@ -27,10 +28,10 @@ import torch
 
 from cuda_flashattention_torch import _build
 from cuda_flashattention_torch.ops.common import (
-    KERNEL_HEAD_DIMS,
     NEG_INF,
     cdiv,
     kernel_operand,
+    pad_heads,
     resolve_scale,
     round_up,
 )
@@ -115,29 +116,33 @@ def _kernel_sub_tiles(nq: int, nk: int, block_q: int, block_k: int) -> int:
 def _fa1_cuda(q, k, v, scale, causal, block_q, block_k):
     b, h, nq, d = q.shape
     nk = k.shape[2]
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the CUDA FA1 takes d in {KERNEL_HEAD_DIMS}, "
-                         f"got {d}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.dtype != torch.bfloat16:
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(
+            f"the CUDA FA1 takes bf16 or fp32 inputs, got q {q.dtype}")
+    for name, x in (("k", k), ("v", v)):
+        if x.dtype != q.dtype:
             raise NotImplementedError(
-                f"the CUDA FA1 takes bf16 inputs, got {name} {x.dtype}")
+                f"the CUDA FA1 takes q, k and v of one dtype, got q "
+                f"{q.dtype}, {name} {x.dtype}")
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
     n_sub = _kernel_sub_tiles(nq, nk, block_q, block_k)
-    qs = kernel_operand(_prescale_q(q, resolve_scale(scale, d)))
-    k, v = kernel_operand(k), kernel_operand(v)
-    o = torch.empty((b, h, nq, d), dtype=q.dtype, device=q.device)
+    # the scale from the caller's d, before narrow heads are padded
+    qs = _prescale_q(q, resolve_scale(scale, d))
+    d_run, (qs, k, v) = pad_heads("FA1", qs, k, v)
+    qs, k, v = kernel_operand(qs), kernel_operand(k), kernel_operand(v)
+    o = torch.empty((b, h, nq, d_run), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 9)(*qs.stride()[:3], *k.stride()[:3],
                                       *v.stride()[:3])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _build.library().cfa_fa1(
             qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h,
-            nq, nk, d, strides, int(bool(causal)), n_sub, stream)
+            nq, nk, d_run, strides, int(bool(causal)), n_sub,
+            int(q.dtype == torch.float32), stream)
     _build.check(err, "fa1_attention kernel launch")
     fa1_attention.launches += 1
-    return o
+    return o[..., :d]
 
 
 def fa1_attention(
@@ -156,7 +161,10 @@ def fa1_attention(
     `block_q` the rows worked on together; as in the JAX function each is
     first clamped to max(8, min(block, round_up(N, 8))). Rows are
     independent, so `block_q` changes no number. On the card a CTA owns 128
-    rows and the kernel takes bf16 inputs, d in {64, 128}, `block_q` a
+    rows and the kernel takes bf16 or fp32 inputs (its fp32 build: each
+    tile split into bf16 hi and lo parts), d in {64, 128} or d = 16, 32 or
+    another multiple of 8 below 128 on zero-padded heads
+    (`ops.common.pad_heads`, the scale from the caller's d), `block_q` a
     multiple of 64 (or one block over all rows) and `block_k` in {64, 128,
     192, 256} (or one block over all keys when Nk ≤ 256); any other value
     raises ValueError. The count of its launches is

@@ -5,9 +5,11 @@ Counterpart of cuda_flashattention_tpu/ops/flash_bwd.py
 (`flash_attention_backward`). On a CUDA tensor it launches the
 hand-written Hopper kernels: the fused single pass K4 (dK/dV per 128-key
 tile, dQ added into an fp32 buffer by TMA reduces) by default, or the
-split pair K2 (dK/dV) + K3 (dQ) with `fused=False`. K2 and K4 are one
-wgmma + TMA kernel (csrc/flash_bwd_kv.cu), K3 the Q-major wgmma + TMA
-kernel of csrc/flash_bwd.cu. On a CPU tensor it runs
+split pair K2 (dK/dV) + K3 (dQ) with `fused=False`, on bf16 or fp32
+inputs (each kernel's fp32 build splits every tile into bf16 hi and lo
+parts). K2 and K4 are one wgmma + TMA kernel (csrc/flash_bwd_kv.cu), K3
+the Q-major wgmma + TMA kernel of csrc/flash_bwd.cu. On a CPU tensor it
+runs
 `flash_attention_backward_plain`, a dense PyTorch version of the same
 numerics; the CPU tests and the on-card comparisons use it.
 
@@ -74,9 +76,11 @@ def _bwd_cta_order(nk: int, h_kv: int, b: int) -> List[Tuple[int, int, int]]:
 
 # K3's tiles (csrc/flash_bwd.cu): a CTA owns 128 query rows, the Gp query
 # heads of one KV head packed as K1 packs them (R = 128 / Gp positions
-# each), and streams the key tiles they see, 64 keys at a time
+# each), and streams the key tiles they see, 64 keys at a time (32 in its
+# fp32 build, whose split tiles take twice the shared memory)
 _DQ_BM = 128
 _DQ_BN = 64
+_DQ_BN_F32 = 32
 
 
 def _dq_packing(h: int, h_kv: int) -> Tuple[int, int]:
@@ -89,22 +93,24 @@ def _dq_packing(h: int, h_kv: int) -> Tuple[int, int]:
 
 
 def _dq_key_tiles(q0: int, r: int, nq: int, nk: int, causal: bool,
-                  window: int, kv_offset: int) -> Tuple[int, int]:
-    """The key tiles [begin, end) that the K3 CTA of positions q0 .. q0 +
-    r − 1 walks, as the kernel's `key_tiles` computes them: causal rows
-    see keys <= pos + kv_offset, so the walk ends at the tile holding the
-    last row's; with a window it starts at the tile of the first row's
-    first key, q0 + kv_offset − window + 1, and is empty when that lies
-    past the last key. Exactly the tiles with a visible pair (segment ids
-    aside, which mask inside the walk)."""
-    end = cdiv(nk, _DQ_BN)
+                  window: int, kv_offset: int,
+                  bn: int = _DQ_BN) -> Tuple[int, int]:
+    """The key tiles [begin, end) of `bn` keys (`_DQ_BN`, or `_DQ_BN_F32`
+    in the fp32 build) that the K3 CTA of positions q0 .. q0 + r − 1
+    walks, as the kernel's `key_tiles` computes them: causal rows see keys
+    <= pos + kv_offset, so the walk ends at the tile holding the last
+    row's; with a window it starts at the tile of the first row's first
+    key, q0 + kv_offset − window + 1, and is empty when that lies past the
+    last key. Exactly the tiles with a visible pair (segment ids aside,
+    which mask inside the walk)."""
+    end = cdiv(nk, bn)
     begin = 0
     if causal:
         q_hi = min(q0 + r, nq) - 1
-        end = min(end, cdiv(min(nk, max(0, q_hi + kv_offset + 1)), _DQ_BN))
+        end = min(end, cdiv(min(nk, max(0, q_hi + kv_offset + 1)), bn))
         if window > 0:
             lo_key = q0 + kv_offset - window + 1
-            begin = max(0, lo_key) // _DQ_BN
+            begin = max(0, lo_key) // bn
             if lo_key >= nk:
                 end = min(end, begin)
     return begin, end
@@ -237,10 +243,9 @@ def _launch_dkdv(prep):
 def _dkdv_cuda(q, k, v, o, lse, do, scale=None, causal=False, window=0,
                kv_offset=0, q_segment_ids=None, kv_segment_ids=None):
     """K2 alone on CUDA tensors, with `flash_attention_backward`'s
-    arguments: (dK, dV) in k's dtype, counted under `launches["dkdv"]`.
-    The split path's first kernel; on fp32 inputs the one way to reach
-    K2's fp32 build, since the split path refuses fp32 (its dQ kernel K3
-    is bf16-only). Narrow heads run padded, as in `_bwd_cuda`."""
+    arguments: (dK, dV) in k's dtype, counted under `launches["dkdv"]`:
+    the split path's first kernel, timed on its own. Narrow heads run
+    padded, as in `_bwd_cuda`."""
     d = q.shape[-1]
     _, (q, k, v, o, do) = pad_heads("backward", q, k, v, o, do)
     dk, dv = _launch_dkdv(_bwd_prepare(
@@ -251,11 +256,6 @@ def _dkdv_cuda(q, k, v, o, lse, do, scale=None, causal=False, window=0,
 
 def _bwd_cuda(q, k, v, o, lse, do, scale, causal, window, kv_offset, q_seg,
               kv_seg, fused):
-    if q.dtype == torch.float32 and not fused:
-        raise NotImplementedError(
-            "fused=False on fp32 inputs: the split backward's dQ kernel K3 "
-            "takes bf16 only (its fp32 build is ROADMAP queue 2, item 1); "
-            "the fused kernel K4 takes fp32")
     d = q.shape[-1]
     d_run, padded = pad_heads("backward", q, k, v, o, do)
     if d_run != d:
@@ -283,7 +283,8 @@ def _bwd_cuda(q, k, v, o, lse, do, scale, causal, window, kv_offset, q_seg,
             return dq_acc.to(q.dtype), dk, dv
         _launch_dkdv(prep)
         dq = torch.empty((b, h, nq, d), dtype=q.dtype, device=q.device)
-        err = lib.cfa_flash_bwd_q(*head, dq.data_ptr(), *shape, stream)
+        err = lib.cfa_flash_bwd_q(*head, dq.data_ptr(), *shape, int(f32),
+                                  stream)
         _build.check(err, "flash_attention_backward dQ kernel launch")
         launches["dq"] += 1
     return dq, dk, dv
@@ -321,9 +322,8 @@ def flash_attention_backward(
     nor the environment knobs are ported. On the card the kernels take
     d in {64, 128} (d = 16, 32 or another multiple of 8 below 128 on
     zero-padded heads, as the forward) and bf16 q/k/v/dO, or fp32 ones
-    through K4's fp32 build
-    (each tile split into bf16 hi and lo parts; dK/dV come back fp32);
-    `fused=False` takes bf16 only and raises on fp32 before any launch.
+    through the kernels' fp32 builds (each tile split into bf16 hi and lo
+    parts; the gradients come back fp32), fused or split.
     The counts of their launches are
     `flash_attention_backward.launches["dkdv"]`, `["dq"]` and `["fused"]`.
     """

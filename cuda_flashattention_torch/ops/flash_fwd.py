@@ -76,10 +76,12 @@ _SOFTMAX_MODES = ("auto", "bound", "bound_unchecked", "online")
 _STORAGE_CODES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2,
                   torch.float32: 3}
 # (K, V) storage pairs the kernels take under a bf16 Q: one type for both,
-# or the "mixed" cache's int8 K with fp8 V
+# or the "mixed" cache's int8 K with fp8 V; an fp32 Q takes fp32 K/V or
+# the three quantized pairs
 _STORAGE_PAIRS = ((torch.bfloat16, torch.bfloat16), (torch.int8, torch.int8),
                   (torch.float8_e4m3fn, torch.float8_e4m3fn),
                   (torch.int8, torch.float8_e4m3fn))
+_F32_STORAGE_PAIRS = ((torch.float32, torch.float32),) + _STORAGE_PAIRS[1:]
 
 
 def _prescale_q(q: torch.Tensor, scale: float) -> torch.Tensor:
@@ -370,20 +372,28 @@ def _ptrs(*tensors):
 
 # key tiles (of 64) a K5 CTA keeps resident at each head dim: what fits
 # beside its Q ring (csrc/flash_fwd_kmajor.cu, max_span); its fp32 build
-# holds each tile split in two bf16 tiles, twice the bytes
+# holds each K/V tile split in two bf16 tiles, twice the bytes, and its
+# build for an fp32 Q over one-byte K/V holds exact bf16 K/V tiles beside
+# a split Q ring
 _KMAJOR_MAX_SPAN = {64: 8, 128: 4}
 _KMAJOR_MAX_SPAN_F32 = {64: 4, 128: 1}
+_KMAJOR_MAX_SPAN_F32Q = {64: 8, 128: 3}
 _KMAJOR_TILE = 64
 
 
 def _kmajor_span(b: int, h_kv: int, nk: int, d: int, sms: int,
-                 f32: bool = False) -> int:
+                 f32: bool = False, quantized: bool = False) -> int:
     """Key tiles per K5 CTA: the longest span the CTA can keep resident
-    (`f32`: in its fp32 build) whose grid (one CTA per span, KV head and
-    batch) still holds two waves of `sms` CTAs; 1, the most CTAs, when
-    none does. Longer spans add each query row's partial sums fewer
-    times."""
+    (`f32`: in its build for an fp32 Q, over fp32 K/V or, `quantized`,
+    over one-byte K/V) whose grid (one CTA per span, KV head and batch)
+    still holds two waves of `sms` CTAs; 1, the most CTAs, when none
+    does. Longer spans add each query row's partial sums fewer times.
+    An fp32 Q over codes takes the longest span whatever the grid: its
+    producer reads and splits every Q tile once per span, which a short
+    span repeats (`utils/kmajor_spans.py` times each span)."""
     tiles = cdiv(nk, _KMAJOR_TILE)
+    if f32 and quantized:
+        return _KMAJOR_MAX_SPAN_F32Q[d]
     longest = (_KMAJOR_MAX_SPAN_F32 if f32 else _KMAJOR_MAX_SPAN)[d]
     for span in range(longest, 1, -1):
         if cdiv(tiles, span) * h_kv * b >= 2 * sms:
@@ -406,14 +416,16 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
                     ("kv_segment_ids", kv_seg)):
         if x is not None and x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-    # fp32 Q, K and V go to the kernels' fp32 builds, which read them as
-    # they are and split each tile into bf16 hi and lo parts
+    # an fp32 Q goes to the kernels' fp32 builds, which read it as it is
+    # and split each tile into bf16 hi and lo parts: over fp32 K/V split
+    # the same way, or over one-byte K/V (converted exactly to bf16); under
+    # quantize_q the int8 Q of the host runs the int8 build as for bf16
     f32 = q.dtype == torch.float32
-    if f32 and (k.dtype, v.dtype) != (torch.float32, torch.float32):
+    if f32 and (k.dtype, v.dtype) not in _F32_STORAGE_PAIRS:
         raise NotImplementedError(
-            f"the CUDA forward takes an fp32 Q with fp32 K/V only, got k "
-            f"{k.dtype} / v {v.dtype} (quantized K/V under an fp32 Q: "
-            f"ROADMAP queue 2, item 1)")
+            f"the CUDA forward takes an fp32 Q with fp32 K/V, or K/V stored "
+            f"as one of {_F32_STORAGE_PAIRS[1:]} with scales, got k "
+            f"{k.dtype} / v {v.dtype}")
     if not f32 and q.dtype != torch.bfloat16:
         raise NotImplementedError(
             f"the CUDA forward takes bf16 or fp32 inputs, got q {q.dtype}")
@@ -440,6 +452,8 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
     counts = flash_attention_forward.form_launches
     tail = (int(plan.causal), plan.window, plan.kv_offset,
             int(out_dtype == torch.float32))
+    # the Q the kernel reads is fp32 unless it is quantize_q's int8 Q
+    q_f32 = int(f32 and not (plan.use_bound and plan.qq))
 
     def strides(q_op):
         return (ctypes.c_longlong * 9)(
@@ -452,8 +466,8 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
         def online(guard):
             err = lib.cfa_flash_fwd(
                 _ptrs(q_hat, k, v, ksc, vsc, q_seg, kv_seg, guard, o, lse),
-                b, h, h_kv, nq, nk, d, strides(q_hat), k_type, v_type, *tail,
-                stream)
+                b, h, h_kv, nq, nk, d, strides(q_hat), k_type, v_type, q_f32,
+                *tail, stream)
             _build.check(err, "flash_attention_forward online kernel launch")
             counts["online" if guard is None else "fallback"] += 1
             flash_attention_forward.launches += 1
@@ -473,7 +487,7 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
             c = _score_bound(q_hat, k, k_scale)
         c = c.contiguous()
         shape = (b, h, h_kv, nq, nk, d, strides(q_op), k_type, v_type,
-                 int(plan.qq), *tail)
+                 q_f32, int(plan.qq), *tail)
         if plan.use_kmajor:
             # one zeroed buffer: each (Q tile, span) pair's partial sums,
             # added with atomics (acc, then l), then the loose-row count
@@ -485,7 +499,8 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
             n_loose = scratch[-1:].view(torch.int32)
             sms = torch.cuda.get_device_properties(
                 q.device).multi_processor_count
-            span = _kmajor_span(b, h_kv, nk, d, sms, f32)
+            span = _kmajor_span(b, h_kv, nk, d, sms, bool(q_f32),
+                                plan.quantized)
             err = lib.cfa_flash_fwd_kmajor(
                 _ptrs(q_op, k, v, ksc, vsc, q_factor, c, l_acc, o_acc,
                       n_loose, o, lse), *shape, span, stream)
@@ -539,9 +554,11 @@ def flash_attention_forward(
     (default: q's dtype). On the card the kernels take d in {64, 128}, and
     d = 16, 32 or another multiple of 8 below 128 on zero-padded heads
     (`ops.common.pad_heads`: the next of 64 and 128, O sliced back), and
-    a bf16 Q over the K/V above, or fp32 Q, K and V (their fp32 builds:
-    each tile split into bf16 hi and lo parts, each product three bf16
-    products with fp32 sums); `flash_attention_forward.launches` counts
+    a bf16 Q over the K/V above, or an fp32 Q over fp32 K/V or over the
+    quantized K/V above (their fp32 builds: each fp32 tile split into bf16
+    hi and lo parts, each product three bf16 products with fp32 sums, two
+    over one-byte K/V, whose codes are exact in bf16; P · v_scale is not
+    rounded); `flash_attention_forward.launches` counts
     their launches and `.form_launches` the same per form: "online",
     "bound", "kmajor", and "fallback" for the guarded online launch behind
     a checked bound call."""

@@ -3,9 +3,9 @@ around the ring by the kernel itself.
 
 Counterpart of examples/07_device_ring.py (`device_ring_matmul`, kernel
 `_ring_kernel`; `xla_ring_matmul` is its plain version there). Every rank
-of a mesh axis holds a shard x_i [L, d] bf16 and W [d, d] bf16; the ring
-rotates the shards while each rank accumulates o += shard @ W in fp32, so
-that after n steps every rank holds (Σ_i x_i) @ W.
+of a mesh axis holds a shard x_i [L, d] and W [d, d], both bf16 or both
+fp32; the ring rotates the shards while each rank accumulates o += shard
+@ W in fp32, so that after n steps every rank holds (Σ_i x_i) @ W.
 
 `device_ring_matmul` on CUDA tensors launches the hand-written Hopper
 kernel of csrc/device_ring.cu (K9): the kernel copies the tiles it holds
@@ -57,8 +57,11 @@ from cuda_flashattention_torch.parallel.mesh import Mesh
 
 KERNEL_TILE_ROWS = 64   # rows of a tile (csrc/device_ring.cu BM)
 KERNEL_MAX_RANKS = 32   # entries of the kernel's pointer table
-# tiles whose o a CTA keeps in registers per round (csrc Geo<D>::G)
+# tiles whose o a CTA keeps in registers per round (csrc Geo<D, F32>::G):
+# the fp32 build holds W and each tile as bf16 hi and lo images, twice the
+# shared memory, so at d = 128 a round is one tile
 KERNEL_GROUP_TILES = {64: 4, 128: 2}
+KERNEL_GROUP_TILES_F32 = {64: 4, 128: 1}
 FLAG_WORDS = 4          # per (rank, CTA): recv, credit, start, unused
 EPOCH_LIMIT = 1 << 32   # epochs are 1 .. EPOCH_LIMIT - 1 on one workspace
 MAX_WORKSPACES = 16     # kept at once, least recently used dropped first
@@ -75,9 +78,10 @@ def span_partition(tiles: int, grid: int) -> List[Tuple[int, int]]:
             for c in range(grid)]
 
 
-def rounds_of(count: int, d: int) -> int:
-    """Rounds in which a CTA walks a span of `count` tiles."""
-    group = KERNEL_GROUP_TILES[d]
+def rounds_of(count: int, d: int, f32: bool = False) -> int:
+    """Rounds in which a CTA walks a span of `count` tiles (`f32`: in the
+    fp32 build)."""
+    group = (KERNEL_GROUP_TILES_F32 if f32 else KERNEL_GROUP_TILES)[d]
     return -(-count // group)
 
 
@@ -148,17 +152,19 @@ def ring_matmul_plain(x: torch.Tensor, w: torch.Tensor, mesh: Mesh,
 
 
 class _Workspace:
-    """What a ring keeps between calls on one (devices, rows, d, streams):
-    per card the ranks it runs, their double buffers (tile images) and
-    their flag words; the ctypes pointer tables; the common grid and the
-    scope. Made once: peer access is checked and enabled, the flags
-    zeroed, and with several cards every card synchronised, so that no
-    card's kernel stores into flags that are not zero yet. `lock` is held
-    from `next_epoch` to a call's last launch."""
+    """What a ring keeps between calls on one (devices, rows, d, type,
+    streams): per card the ranks it runs, their double buffers (tile
+    images: bf16, or under `f32` each tile's hi and lo images, 4 bytes an
+    element as fp32 is) and their flag words; the ctypes pointer tables;
+    the common grid and the scope. Made once: peer access is checked and
+    enabled, the flags zeroed, and with several cards every card
+    synchronised, so that no card's kernel stores into flags that are not
+    zero yet. `lock` is held from `next_epoch` to a call's last launch."""
 
-    def __init__(self, lib, devs: Sequence[torch.device], rows: int, d: int):
+    def __init__(self, lib, devs: Sequence[torch.device], rows: int, d: int,
+                 f32: bool = False):
         n = len(devs)
-        self.n, self.rows, self.d = n, rows, d
+        self.n, self.rows, self.d, self.f32 = n, rows, d, int(f32)
         self.cards: Dict[torch.device, List[int]] = {}
         for i, dev in enumerate(devs):
             self.cards.setdefault(dev, []).append(i)
@@ -181,7 +187,7 @@ class _Workspace:
         for dev in self.cards:
             count = ctypes.c_int(0)
             _build.check(lib.cfa_device_ring_resident(
-                d, self.sys, dev.index, ctypes.byref(count)),
+                d, self.sys, self.f32, dev.index, ctypes.byref(count)),
                 "device ring occupancy")
             resident[dev] = count.value
         tiles = rows // KERNEL_TILE_ROWS
@@ -190,8 +196,8 @@ class _Workspace:
         bufs, flags = [0] * n, [0] * n
         self._bufs, self._flags = [], []
         for dev, idxs in self.cards.items():
-            b = torch.empty((len(idxs), 2, rows, d), dtype=torch.bfloat16,
-                            device=dev)
+            b = torch.empty((len(idxs), 2, (1 + self.f32) * rows, d),
+                            dtype=torch.bfloat16, device=dev)
             f = torch.zeros((len(idxs), self.grid, FLAG_WORDS),
                             dtype=torch.int64, device=dev)
             self._bufs.append(b)
@@ -232,14 +238,15 @@ _ring_devices: "weakref.WeakKeyDictionary[Mesh, Dict]" = (
 
 
 def _workspace(lib, devs: Tuple[torch.device, ...], rows: int, d: int,
-               streams: Tuple[int, ...]) -> _Workspace:
-    """The workspace of `devs` (in ring order) at (rows, d), whose cards'
-    current streams are `streams` (in the order the cards first appear)."""
-    key = (devs, rows, d, streams)
+               f32: bool, streams: Tuple[int, ...]) -> _Workspace:
+    """The workspace of `devs` (in ring order) at (rows, d) of the bf16 or
+    (`f32`) fp32 build, whose cards' current streams are `streams` (in the
+    order the cards first appear)."""
+    key = (devs, rows, d, streams, f32)
     with _workspaces_lock:
         ws = _workspaces.get(key)
         if ws is None:
-            ws = _Workspace(lib, devs, rows, d)
+            ws = _Workspace(lib, devs, rows, d, f32)
             _workspaces[key] = ws
             # dropping one is safe: its buffers go back to the allocator in
             # the order of the streams its kernels ran on, and each kernel
@@ -257,7 +264,7 @@ def _launch(lib, ws: _Workspace, dev: torch.device, x_dev, w_dev, out_dev,
     err = lib.cfa_device_ring(
         x_dev.data_ptr(), w_dev.data_ptr(), out_dev.data_ptr(), ws.bufs,
         ws.flags, ws.n, ws.local[dev], len(idxs), ws.rows, ws.d, ws.grid,
-        epoch, ws.sys, dev.index, stream.cuda_stream)
+        epoch, ws.sys, ws.f32, dev.index, stream.cuda_stream)
     _build.check(err, "device_ring_matmul kernel launch")
     device_ring_matmul.launches += 1
     device_ring_matmul.last_grid = (ws.grid, len(idxs))
@@ -276,9 +283,10 @@ def _device_ring_cuda(x, w, mesh: Mesh, axis_name: str) -> torch.Tensor:
     devs = _devices_of(mesh, axis_name)
     n = len(devs)
     rows, d = _check(x, w, n)
-    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+    if x.dtype != w.dtype or x.dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(
-            f"the CUDA ring takes bf16 x and w, got {x.dtype} / {w.dtype}")
+            f"the CUDA ring takes bf16 or fp32 x and w of one dtype, got "
+            f"{x.dtype} / {w.dtype}")
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the CUDA ring takes d in {KERNEL_HEAD_DIMS}, "
                          f"got {d}")
@@ -298,7 +306,7 @@ def _device_ring_cuda(x, w, mesh: Mesh, axis_name: str) -> torch.Tensor:
     one_card = cards == [x.device]
     streams = ((main.cuda_stream,) if one_card else tuple(
         torch.cuda.current_stream(c).cuda_stream for c in cards))
-    ws = _workspace(lib, devs, rows, d, streams)
+    ws = _workspace(lib, devs, rows, d, x.dtype == torch.float32, streams)
     x, w = x.contiguous(), w.contiguous()
     out = torch.empty((n * rows, d), dtype=torch.float32, device=x.device)
     if one_card:
@@ -342,7 +350,9 @@ def device_ring_matmul(x: torch.Tensor, w: torch.Tensor, mesh: Mesh,
     on rows over `axis_name`, w [d, d] → o [n·L, d] fp32 on x's device,
     every rank's L rows holding the same (Σ_i x_i) @ W.
 
-    On the card the kernel takes bf16 x and w, d in {64, 128}, L a
+    On the card the kernel takes bf16 x and w, or fp32 ones (its fp32
+    build: every value split into bf16 hi and lo halves, three bf16
+    products per step, the split images pushed), d in {64, 128}, L a
     multiple of 64 and at most 32 ranks, every one on a card; ranks on
     different cards need peer access. It raises otherwise: a CUDA tensor
     never takes the plain version. `device_ring_matmul.launches` counts

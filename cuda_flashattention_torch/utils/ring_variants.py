@@ -40,12 +40,12 @@ import time
 from pathlib import Path
 
 _PUSH_BULK = """        if (push && tid == 0) {
-          bulk_store(dst + (long long)(t0 + j) * BM * D, st, S::TILE);
+          bulk_store(dst + (long long)(t0 + j) * BM * D * PL, st, S::TILE);
           bulk_commit();
         }
 """
 _PUSH_STORES = """        if (push) {
-          bf16* to = dst + (long long)(t0 + j) * BM * D;
+          bf16* to = dst + (long long)(t0 + j) * BM * D * PL;
           for (int e = tid; e < S::TILE / 16; e += NTHREADS) {
             uint4 v;
             asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
@@ -121,7 +121,7 @@ _STEP_END = "      __syncthreads();\n    }\n  }\n}\n"
 
 VARIANTS = {
     "as_is": [],
-    "group1": [("  static constexpr int G = D == 64 ? 4 : 2;",
+    "group1": [("  static constexpr int G = D == 64 ? 4 : F32 ? 1 : 2;",
                 "  static constexpr int G = D == 64 ? 2 : 1;")],
     "o_l2": [
         (_KERNEL_RULE, _LOAD_ACC + _KERNEL_RULE),

@@ -243,3 +243,23 @@ def test_dq_walk_over_visited_pairs_gives_the_plain_dq(
                 q[:, :, r0:r1], k[:, :, c0:c1], v[:, :, c0:c1],
                 o[:, :, r0:r1], lse[:, :, r0:r1], do[:, :, r0:r1], **sub)[0]
     torch.testing.assert_close(dq, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("r", [128, 32])
+@pytest.mark.parametrize("nq,nk,causal,window,kv_offset", DQ_CASES + [
+    (31, 33, True, 0, 0), (32, 32, True, 0, 0), (33, 95, True, 0, 62),
+    (300, 100, True, 40, 0), (65, 31, False, 0, 0)])
+def test_dq_walk_of_the_f32_build_visits_exactly_the_32_key_tiles(
+        nq, nk, causal, window, kv_offset, r):
+    """K3's fp32 build walks 32-key tiles (`_DQ_BN_F32`): the same rule at
+    that width visits exactly the tiles with a visible pair."""
+    bn = fb._DQ_BN_F32
+    vis = _visible(nq, nk, causal, window, kv_offset)
+    for qt in range(cdiv(nq, r)):
+        q0 = qt * r
+        begin, end = fb._dq_key_tiles(q0, r, nq, nk, causal, window,
+                                      kv_offset, bn=bn)
+        walked = set(range(begin, end))
+        seen = {kt for kt in range(cdiv(nk, bn))
+                if vis[q0:q0 + r, kt * bn:(kt + 1) * bn].any()}
+        assert walked == seen, (qt, begin, end, sorted(seen))

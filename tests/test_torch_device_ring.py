@@ -149,3 +149,25 @@ def test_example_stage_needs_a_card_unless_asked_for_the_cpu():
         [sys.executable, "-m", STAGE], cwd=REPO, capture_output=True, text=True, timeout=300,
         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert proc.returncode != 0 and "Test PASSED!" not in proc.stdout
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_plain_ring_matches_the_jax_example_in_fp32(example, n):
+    """fp32 shards and W, which the example takes as they come and the
+    card's fp32 build computes: the plain ring against `xla_ring_matmul`
+    on the same fp32 values."""
+    rng = np.random.default_rng(11 + n)
+    x = torch.from_numpy(rng.uniform(-0.5, 0.5, (n * 128, 128)).astype(
+        np.float32))
+    w = torch.from_numpy(rng.uniform(-0.5, 0.5, (128, 128)).astype(
+        np.float32))
+    jmesh = jax_make_mesh((n,), ("sp",), jax.devices()[:n])
+    with jax.default_matmul_precision("highest"):
+        want = example.xla_ring_matmul(jnp.asarray(x.numpy()),
+                                       jnp.asarray(w.numpy()), jmesh)
+    got = ring_matmul_plain(x, w, make_mesh((n,), ("sp",), ["cpu"] * n))
+    assert got.dtype == torch.float32
+    ref = _reference(x, w, n)
+    assert_close(got, want, 1e-4 * max_abs(want),
+                 f"fp32 plain ring vs JAX n={n}")
+    assert_close(got, ref, 1e-4 * max_abs(ref), f"fp32 plain ring n={n}")

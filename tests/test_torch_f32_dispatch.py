@@ -1,0 +1,268 @@
+"""Which CUDA build an fp32 call reaches, on the CPU: the host functions
+that launch the kernels (`ops/flash_fwd._fwd_cuda`, `ops/flash_bwd.
+_bwd_cuda`, `ops/fa1._fa1_cuda`, `parallel/device_ring._launch`) run with
+the kernels' library replaced by a recorder of the C calls, so that what
+they hand each entry point (the storage codes, the q type, quantize_q's
+int8 Q, the split path's pair of kernels, the f32 flags) is checked where
+no card is. The kernels themselves are held to their plain versions on
+the card (tests/test_torch_kernels_cuda.py)."""
+
+import contextlib
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from cuda_flashattention_torch import _build
+from cuda_flashattention_torch.ops import fa1 as tfa1
+from cuda_flashattention_torch.ops import flash_bwd as fb
+from cuda_flashattention_torch.ops import flash_fwd as ff
+from cuda_flashattention_torch.ops.quant import quantize_kv
+from cuda_flashattention_torch.parallel import device_ring as dr
+
+CODES = {torch.int8: 1, torch.float8_e4m3fn: 2, torch.float32: 3}
+# the argument after the strides in the forward entry points: k_type,
+# v_type, q_f32, then (bound forms) qq
+FWD_STRIDES_AT = 7
+
+
+class _Lib:
+    """The kernels' library as the host code sees it: every entry point
+    records its arguments and returns 0 (no CUDA error)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("cfa_"):
+            raise AttributeError(name)
+
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+        return entry
+
+    def names(self):
+        return [n for n, _ in self.calls]
+
+
+@pytest.fixture
+def lib(monkeypatch):
+    fake = _Lib()
+    monkeypatch.setattr(_build, "library", lambda: fake)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda *_: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *_: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda *_: types.SimpleNamespace(
+                            multi_processor_count=132))
+    return fake
+
+
+def _qkv(qtype, b=2, h=8, h_kv=2, nq=40, nk=300, d=128, seed=0):
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: torch.from_numpy(rng.uniform(-1, 1, s).astype(np.float32))
+    q, k, v = mk(b, h, nq, d), mk(b, h_kv, nk, d), mk(b, h_kv, nk, d)
+    if qtype is None:
+        return q, k, v, {}
+    kv = quantize_kv(k, v, qtype)
+    return q, kv.k_q, kv.v_q, dict(k_scale=kv.k_scale, v_scale=kv.v_scale)
+
+
+def _forward(q, k, v, kw, softmax, quantize_q=False, causal=False,
+             window=0):
+    plan = ff._plan(q, k, v, None, causal, window, 0, None,
+                    kw.get("k_scale"), kw.get("v_scale"), None, None,
+                    softmax, quantize_q)
+    return plan, ff._fwd_cuda(q, k, v, plan, torch.float32,
+                              kw.get("k_scale"), kw.get("v_scale"), None,
+                              None)
+
+
+def _types(args):
+    """(k_type, v_type, q_f32) of a forward entry point's arguments."""
+    return args[FWD_STRIDES_AT + 1:FWD_STRIDES_AT + 4]
+
+
+@pytest.mark.parametrize("qtype", ["int8", "fp8", "mixed"])
+@pytest.mark.parametrize("softmax,entry", [
+    ("online", "cfa_flash_fwd"), ("bound_unchecked", "cfa_flash_fwd_bound")])
+def test_fp32_q_over_codes_reaches_the_fp32_build(lib, qtype, softmax,
+                                                  entry):
+    """An fp32 Q over int8, fp8 or mixed K/V launches the fp32-Q build of
+    the pinned form with K's and V's storage codes and q_f32 = 1: it no
+    longer raises."""
+    q, k, v, kw = _qkv(qtype)
+    _forward(q, k, v, kw, softmax)
+    assert lib.names() == [entry]
+    k_type, v_type, q_f32 = _types(lib.calls[0][1])
+    assert (k_type, v_type, q_f32) == (CODES[k.dtype], CODES[v.dtype], 1)
+    if entry == "cfa_flash_fwd_bound":
+        assert lib.calls[0][1][FWD_STRIDES_AT + 4] == 0  # qq
+
+
+@pytest.mark.parametrize("qtype", ["int8", "fp8", "mixed"])
+def test_fp32_q_over_codes_routes_as_fp32_under_auto(lib, qtype):
+    """"auto" routes as for any fp32 Q: the bound form on the Q-major walk
+    (an fp32 Q is not fp8's fast path), K5 under causal, and behind each
+    bound launch the guarded online one of the same build."""
+    q, k, v, kw = _qkv(qtype)
+    _forward(q, k, v, kw, "auto")
+    assert lib.names() == ["cfa_flash_fwd_bound", "cfa_flash_fwd"]
+    assert all(_types(a)[2] == 1 for _, a in lib.calls)
+    lib.calls.clear()
+    plan, _ = _forward(q, k, v, kw, "auto", causal=True, window=64)
+    assert plan.use_kmajor
+    assert lib.names() == ["cfa_flash_fwd_kmajor", "cfa_flash_fwd"]
+    span = lib.calls[0][1][-2]
+    assert 1 <= span <= ff._KMAJOR_MAX_SPAN_F32Q[128]
+
+
+@pytest.mark.parametrize("b,h_kv,nk,d", [
+    (8, 4, 3584, 128), (8, 4, 1024, 128), (1, 4, 4096, 128), (1, 1, 64, 64),
+    (2, 2, 257, 64)])
+def test_kmajor_span_of_the_fp32_q_build(b, h_kv, nk, d):
+    """An fp32 Q over codes keeps exact bf16 K/V tiles beside its split Q
+    ring: a longer span than the fp32 K/V build, and always its longest
+    (its producer splits each Q tile once per span), where the other
+    builds keep two waves."""
+    assert ff._KMAJOR_MAX_SPAN_F32[d] < ff._KMAJOR_MAX_SPAN_F32Q[d]
+    span = ff._kmajor_span(b, h_kv, nk, d, 132, True, True)
+    assert span == ff._KMAJOR_MAX_SPAN_F32Q[d]
+    assert ff._kmajor_span(8, 4, 3584, 128, 132, True, False) == 1
+    assert ff._kmajor_span(8, 4, 3584, 128, 132) == ff._KMAJOR_MAX_SPAN[128]
+
+
+@pytest.mark.parametrize("qtype", ["int8", "mixed"])
+def test_quantize_q_on_an_fp32_q_over_int8_keys_runs_the_int8_build(
+        lib, monkeypatch, qtype):
+    """quantize_q stays on over int8 keys: the host quantizes the fp32 Q
+    to int8 and the bound launch reads that int8 Q (q_f32 = 0, qq = 1),
+    with no guarded online launch behind it."""
+    q, k, v, kw = _qkv(qtype)
+    made = []
+    real = ff._quantize_q
+    monkeypatch.setattr(ff, "_quantize_q",
+                        lambda *a: made.append(real(*a)) or made[-1])
+    plan, _ = _forward(q, k, v, kw, "auto", quantize_q=True)
+    assert plan.qq and not plan.regrid and not plan.checked
+    assert lib.names() == ["cfa_flash_fwd_bound"]
+    args = lib.calls[0][1]
+    assert _types(args)[2] == 0 and args[FWD_STRIDES_AT + 4] == 1
+    assert len(made) == 1 and made[0][0].dtype == torch.int8
+    assert args[0][0] == made[0][0].data_ptr()
+
+
+def test_quantize_q_on_an_fp32_q_over_fp8_keys_is_dropped(lib, monkeypatch):
+    """Over fp8 keys quantize_q needs a bf16 Q (the JAX function's
+    `q.dtype != bfloat16` drop): an fp32 Q runs the fp32-Q build, checked,
+    and no int8 Q is made."""
+    q, k, v, kw = _qkv("fp8")
+    monkeypatch.setattr(ff, "_quantize_q", lambda *a: pytest.fail("made"))
+    plan, _ = _forward(q, k, v, kw, "auto", quantize_q=True)
+    assert not plan.qq and plan.checked
+    assert lib.names() == ["cfa_flash_fwd_bound", "cfa_flash_fwd"]
+    assert _types(lib.calls[0][1]) == (2, 2, 1)
+    assert lib.calls[0][1][FWD_STRIDES_AT + 4] == 0
+
+
+def test_fp32_q_over_bf16_k_still_raises(lib):
+    """What stays refused: an fp32 Q over bf16 K/V (the forward takes fp32
+    K/V or one-byte codes under an fp32 Q), before any launch."""
+    q, k, v, _ = _qkv(None)
+    with pytest.raises(NotImplementedError, match="fp32 Q with fp32 K/V"):
+        _forward(q, k.to(torch.bfloat16), v.to(torch.bfloat16), {},
+                 "online")
+    assert lib.calls == []
+
+
+@pytest.mark.parametrize("d", [128, 32])
+@pytest.mark.parametrize("seg", [False, True])
+def test_split_backward_on_fp32_plans_k2_then_k3(lib, d, seg):
+    """fused=False on fp32 launches K2's and K3's fp32 builds (f32 = 1)
+    and counts them; narrow heads run at d = 64."""
+    q, k, v, _ = _qkv(None, nq=70, nk=70, d=d)
+    o, do = torch.zeros_like(q), torch.ones_like(q)
+    lse = torch.zeros(q.shape[:3])
+    kw = {}
+    if seg:
+        ids = torch.zeros((2, 70), dtype=torch.int32)
+        kw = dict(q_seg=ids, kv_seg=ids)
+    before = dict(fb.flash_attention_backward.launches)
+    dq, dk, dv = fb._bwd_cuda(q, k, v, o, lse, do, None, True, 0, 0,
+                              kw.get("q_seg"), kw.get("kv_seg"), False)
+    assert lib.names() == ["cfa_flash_bwd_kv", "cfa_flash_bwd_q"]
+    kv_args, q_args = lib.calls[0][1], lib.calls[1][1]
+    assert kv_args[10] is None and kv_args[-2] == 1      # K2, f32
+    assert q_args[-2] == 1 and q_args[14] == (64 if d < 64 else d)
+    assert all(g.dtype == torch.float32 for g in (dq, dk, dv))
+    assert dq.shape == q.shape and dk.shape == k.shape
+    after = fb.flash_attention_backward.launches
+    assert after["dkdv"] == before["dkdv"] + 1
+    assert after["dq"] == before["dq"] + 1
+
+
+def test_split_backward_on_bf16_passes_f32_0(lib):
+    q, k, v, _ = _qkv(None, nq=70, nk=70)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    fb._bwd_cuda(q, k, v, q, torch.zeros(q.shape[:3]), q, None, True, 0, 0,
+                 None, None, False)
+    assert [a[-2] for _, a in lib.calls] == [0, 0]
+
+
+@pytest.mark.parametrize("d,d_run", [(128, 128), (64, 64), (32, 64),
+                                     (16, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fa1_reaches_its_build_at_any_narrow_head(lib, d, d_run, dtype):
+    """fa1_attention's host part hands the kernel f32 = 1 for fp32 inputs
+    and heads zero-padded to the kernel's d; O comes back at d."""
+    q = torch.ones((1, 2, 64, d), dtype=dtype)
+    before = tfa1.fa1_attention.launches
+    o = tfa1._fa1_cuda(q, q, q, None, False, 64, 64)
+    (name, args), = lib.calls
+    assert name == "cfa_fa1"
+    assert args[8] == d_run and args[-2] == int(dtype == torch.float32)
+    assert o.shape == q.shape and o.dtype == dtype
+    assert tfa1.fa1_attention.launches == before + 1
+
+
+def test_fa1_refuses_mixed_dtypes(lib):
+    q = torch.ones((1, 2, 64, 64))
+    with pytest.raises(NotImplementedError, match="one dtype"):
+        tfa1._fa1_cuda(q, q.to(torch.bfloat16), q, None, False, 64, 64)
+    with pytest.raises(NotImplementedError, match="bf16 or fp32"):
+        tfa1._fa1_cuda(q.half(), q.half(), q.half(), None, False, 64, 64)
+    assert lib.calls == []
+
+
+@pytest.mark.parametrize("f32", [0, 1])
+def test_device_ring_launch_names_its_build(lib, f32):
+    """`_launch` hands the kernel the workspace's type (f32 beside the
+    scope), and the fp32 build walks one tile per round at d = 128."""
+    dev = torch.device("cuda", 0)
+    ws = types.SimpleNamespace(
+        cards={dev: [0, 1]}, bufs=None, flags=None, n=2, local={dev: None},
+        rows=128, d=128, grid=4, sys=0, f32=f32)
+    x = torch.zeros(1)
+    dr._launch(lib, ws, dev, x, x, x, 1, types.SimpleNamespace(cuda_stream=0))
+    (name, args), = lib.calls
+    assert name == "cfa_device_ring" and args[12:14] == (0, f32)
+    assert dr.rounds_of(5, 128, f32=bool(f32)) == (5 if f32 else 3)
+    assert dr.rounds_of(5, 64, f32=bool(f32)) == 2
+
+
+def test_device_ring_refuses_what_it_does_not_take():
+    """The dtype check comes before any card is touched: fp32 x with bf16
+    w, and int8, raise; fp32 x and w pass it (and then need the mesh on a
+    card)."""
+    from cuda_flashattention_torch.parallel.mesh import make_mesh
+    mesh = make_mesh((2,), ("sp",), ["cpu"] * 2)
+    x, w = torch.zeros((128, 64)), torch.zeros((64, 64))
+    with pytest.raises(NotImplementedError, match="one dtype"):
+        dr._device_ring_cuda(x, w.to(torch.bfloat16), mesh, "sp")
+    with pytest.raises(NotImplementedError, match="bf16 or fp32"):
+        dr._device_ring_cuda(x.to(torch.int8), w.to(torch.int8), mesh, "sp")
+    with pytest.raises(ValueError, match="every rank on a card"):
+        dr._device_ring_cuda(x, w, mesh, "sp")

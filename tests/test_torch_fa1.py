@@ -116,3 +116,33 @@ def test_block_sizes_the_card_takes(nq, nk, block_q, block_k, want):
             tfa1._kernel_sub_tiles(nq, nk, block_q, block_k)
     else:
         assert tfa1._kernel_sub_tiles(nq, nk, block_q, block_k) == want
+
+
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("causal", [False, True])
+def test_fa1_padded_heads_match_the_unpadded_plain_and_jax(d, causal):
+    """What the card runs at a narrow head: Q (prescaled at d's scale), K
+    and V zero-padded to the kernel's d = 64 (`ops.common.pad_heads`),
+    O sliced back. On the CPU the plain version on the padded heads
+    equals the plain version at d and JAX's `fa1_attention` at d (fp32,
+    the reference rung's own precision: its seeded 64 x 32 case
+    included)."""
+    from cuda_flashattention_torch.ops.common import pad_heads
+    q, k, v = _inputs(d + causal, 1, 2, 64, 64, d)
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    scale = d ** -0.5
+    qs = tfa1._prescale_q(qt, scale)
+    d_run, (qp, kp, vp) = pad_heads("FA1", qs, kt, vt)
+    assert d_run == 64 and qp.shape[-1] == 64
+    padded = fa1_attention_plain(qp, kp, vp, scale=1.0, causal=causal,
+                                 block_q=64, block_k=64)[..., :d]
+    unpadded = fa1_attention_plain(qt, kt, vt, causal=causal, block_q=64,
+                                   block_k=64)
+    assert float((padded - unpadded).abs().max()) <= 1e-6
+    err, _ = _both(q, k, v, "float32", causal=causal, block_q=64,
+                   block_k=64)
+    o_j = jax_fa1(*[jnp.asarray(a) for a in (q, k, v)], causal=causal,
+                  block_q=64, block_k=64)
+    assert err <= GATES["float32"]
+    assert float(np.max(np.abs(np.asarray(o_j) - padded.numpy()))) <= (
+        GATES["float32"])

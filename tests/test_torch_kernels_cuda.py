@@ -329,8 +329,11 @@ def test_fa1_kernel_strided_views_and_refusals(dev):
         fa1_attention(big, big, big, block_k=96)
     with pytest.raises(ValueError, match="the CUDA FA1 takes block_q"):
         fa1_attention(big, big, big, block_q=96)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        fa1_attention(big.float(), big.float(), big.float())
+    # fp32 has a build since K8's F32 one; mixed and fp16 inputs do not
+    with pytest.raises(NotImplementedError, match="one dtype"):
+        fa1_attention(big.float(), big, big)
+    with pytest.raises(NotImplementedError, match="bf16 or fp32"):
+        fa1_attention(big.half(), big.half(), big.half())
 
 
 def test_entry_points_allocate_on_the_card_by_default(dev):
@@ -447,7 +450,8 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     q16 = q32.half()
     with pytest.raises(NotImplementedError, match="bf16 or fp32"):
         flash_attention_forward(q16, q16, q16)
-    with pytest.raises(NotImplementedError, match="fp32 K/V only"):
+    # an fp32 Q takes fp32 or one-byte K/V, not bf16 ones
+    with pytest.raises(NotImplementedError, match="fp32 Q with fp32 K/V"):
         flash_attention_forward(q32, q[..., :64], q[..., :64])
     lens = torch.ones(1, dtype=torch.int32, device=dev)
     with pytest.raises(NotImplementedError, match="bf16 or fp32 q"):
@@ -1231,8 +1235,12 @@ def test_device_ring_refuses_what_it_does_not_take(dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     x, w = _rand(gen, dev, 4 * 64, 128), _rand(gen, dev, 128, 128)
     mesh = _ring_mesh(dev, 4)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        device_ring_matmul(x.float(), w.float(), mesh)
+    # fp32 x and w have a build since K9's F32 one; mixed types and fp16
+    # do not
+    with pytest.raises(NotImplementedError, match="one dtype"):
+        device_ring_matmul(x.float(), w, mesh)
+    with pytest.raises(NotImplementedError, match="bf16 or fp32"):
+        device_ring_matmul(x.half(), w.half(), mesh)
     with pytest.raises(ValueError, match="multiple of 64"):
         device_ring_matmul(x[:4 * 40], w, mesh)
     with pytest.raises(ValueError, match="d in"):
@@ -1435,7 +1443,7 @@ def test_forward_online_guard(dev, d):
         lse = torch.full_like(want[1], 7.0)
         err = _build.library().cfa_flash_fwd(
             ff._ptrs(q_hat, k, v, None, None, None, None, guard, o, lse),
-            1, 8, 2, 150, 220, d, strides, 0, 0, 1, 0, 0, 1,
+            1, 8, 2, 150, 220, d, strides, 0, 0, 0, 1, 0, 0, 1,
             torch.cuda.current_stream().cuda_stream)
         torch.cuda.synchronize()
         assert err == 0
@@ -1847,11 +1855,13 @@ def test_f32_backward_segments(dev, no_tf32, causal):
 
 
 def test_f32_split_backward_raises_before_any_launch(dev):
-    """fused=False on fp32 raises, naming the ROADMAP item, and launches
-    neither K2 nor K3."""
+    """fused=False takes fp32 since K3's fp32 build (test_f32_split_*);
+    what it still refuses, fp32 q/k/v with a bf16 dO, raises before it
+    launches K2 or K3."""
     args = _f32_bwd_inputs(dev, 1, 2, 2, 64, 64, 64, {}, False, 1)
+    args = (*args[:5], args[5].to(torch.bfloat16))
     before = dict(flash_attention_backward.launches)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+    with pytest.raises(NotImplementedError, match="all of one type"):
         flash_attention_backward(*args, fused=False)
     assert flash_attention_backward.launches == before
 
@@ -2153,3 +2163,249 @@ def test_padded_heads_refuse_other_widths(dev):
         x = torch.rand(1, 2, 40, d, device=dev)
         with pytest.raises(ValueError, match="multiple of 8 below 128"):
             flash_attention_forward(x, x, x)
+
+
+# ---------------------------------------------------------------------------
+# fp32 on the rest of the card: an fp32 Q over int8, fp8 and mixed K/V in
+# the forward (K1, K1b, K5), K3's fp32 build under the split backward, K8's
+# fp32 build and narrow heads, K9's fp32 build. Gates as the fp32 builds
+# above (quantize_q computes in bf16: the bf16 gate).
+# ---------------------------------------------------------------------------
+
+_F32Q_SHAPES = [
+    # (b, h, h_kv, nq, nk, d, kw)
+    (2, 8, 2, 300, 500, 128, dict()),
+    (1, 16, 4, 257, 700, 64, dict(causal=True, kv_offset=443)),
+    (2, 4, 1, 200, 333, 64, dict(causal=True, window=90, kv_offset=133)),
+    (1, 8, 8, 130, 1000, 128, dict(causal=True, window=700,
+                                   kv_offset=870)),
+]
+
+
+def _f32q_inputs(dev, qtype, b, h, h_kv, nq, nk, d, seed, peaked):
+    q, k, v = _f32_inputs(dev, b, h, h_kv, nq, nk, d, seed, peaked)
+    kv = quantize_kv(k, v, qtype)
+    return (q, kv.k_q, kv.v_q), dict(k_scale=kv.k_scale, v_scale=kv.v_scale)
+
+
+@pytest.mark.parametrize("peaked", [False, True])
+@pytest.mark.parametrize("form", ["online", "bound", "kmajor"])
+@pytest.mark.parametrize("qtype", ["int8", "fp8", "mixed"])
+@pytest.mark.parametrize("b,h,h_kv,nq,nk,d,kw", _F32Q_SHAPES)
+def test_f32q_forward_over_codes(dev, no_tf32, qtype, form, peaked, b, h,
+                                 h_kv, nq, nk, d, kw):
+    """K1 (online), K1b and K5 (each pinned) on an fp32 Q over one-byte
+    K/V against the plain fp32 version (S in fp32, P · v_scale not
+    rounded): one launch of the form, fp32 O and LSE within 1e-4."""
+    (q, k, v), sc = _f32q_inputs(dev, qtype, b, h, h_kv, nq, nk, d,
+                                 nq + nk, peaked)
+    _nan_fill_allocator(dev)
+    before = _form_counts()
+    if form == "online":
+        got = flash_attention_forward(q, k, v, softmax="online", **sc, **kw)
+        want = flash_attention_forward_plain(q, k, v, softmax="online",
+                                             **sc, **kw)
+    else:
+        got = _pinned(form, q, k, v, **sc, **kw)
+        want = flash_attention_forward_plain(
+            q, k, v, softmax="bound_unchecked", **sc, **kw)
+    torch.cuda.synchronize()
+    after = _form_counts()
+    assert {n: after[n] - before[n] for n in after} == {
+        "online": int(form == "online"), "bound": int(form == "bound"),
+        "kmajor": int(form == "kmajor"), "fallback": 0}
+    _assert_f32_fwd(got, want)
+
+
+@pytest.mark.parametrize("qtype", ["int8", "fp8", "mixed"])
+def test_f32q_forward_auto_routes_and_checks(dev, no_tf32, qtype):
+    """"auto" on an fp32 Q over codes: K1b with its guarded fallback
+    without a mask, K5 with it under a window; O in fp32 and in bf16."""
+    for kw, form in ((dict(), "bound"),
+                     (dict(causal=True, window=300, kv_offset=500),
+                      "kmajor")):
+        (q, k, v), sc = _f32q_inputs(dev, qtype, 2, 16, 4, 256, 800, 128, 4,
+                                     True)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            before = _form_counts()
+            got = flash_attention_forward(q, k, v, out_dtype=out_dtype,
+                                          **sc, **kw)
+            want = flash_attention_forward_plain(
+                q, k, v, out_dtype=out_dtype, **sc, **kw)
+            torch.cuda.synchronize()
+            grown = {n: _form_counts()[n] - before[n] for n in before}
+            assert grown == dict(online=0, bound=int(form == "bound"),
+                                 kmajor=int(form == "kmajor"), fallback=1)
+            if out_dtype == torch.float32:
+                _assert_f32_fwd(got, want)
+            else:
+                assert _err(got[0], want[0]) <= 2 ** -8
+                assert _err(got[1], want[1]) <= F32_GATE
+
+
+@pytest.mark.parametrize("form", ["bound", "kmajor"])
+@pytest.mark.parametrize("qtype", ["int8", "mixed", "fp8"])
+def test_f32q_quantize_q(dev, no_tf32, qtype, form):
+    """quantize_q on an fp32 Q: over int8 keys the host's int8 Q runs the
+    int8 build (the bf16 gate: its P is rounded to bf16, as the JAX
+    function's `cd`); over fp8 keys it is dropped as in the JAX function,
+    and the fp32-Q build gives the unquantized call's bits."""
+    (q, k, v), sc = _f32q_inputs(dev, qtype, 2, 8, 2, 300, 600, 128, 7,
+                                 True)
+    kw = dict(causal=True, kv_offset=300)
+    got = _pinned(form, q, k, v, quantize_q=True, **sc, **kw)
+    want = flash_attention_forward_plain(q, k, v, softmax="bound_unchecked",
+                                         quantize_q=True, **sc, **kw)
+    torch.cuda.synchronize()
+    if qtype == "fp8":
+        _assert_f32_fwd(got, want)
+    else:
+        assert _err(got[0], want[0]) <= GATE
+        assert _err(got[1], want[1]) <= GATE
+
+
+@pytest.mark.parametrize("peaked", [False, True])
+@pytest.mark.parametrize("b,h,h_kv,nq,nk,d,kw", _F32_BWD_SHAPES)
+def test_f32_split_backward_kernels(dev, no_tf32, peaked, b, h, h_kv, nq, nk,
+                                    d, kw):
+    """fused=False on fp32: K2 and K3's fp32 builds once each, fp32
+    gradients within 1e-4 · max(1, max |plain|); dK and dV the fused
+    pass's bits (one dK/dV walk)."""
+    args = _f32_bwd_inputs(dev, b, h, h_kv, nq, nk, d, kw, peaked, nq + nk)
+    want = flash_attention_backward_plain(*args, **kw)
+    _nan_fill_allocator(dev)
+    before = dict(flash_attention_backward.launches)
+    got = flash_attention_backward(*args, fused=False, **kw)
+    torch.cuda.synchronize()
+    after = flash_attention_backward.launches
+    assert {n: after[n] - before[n] for n in after} == {
+        "fused": 0, "dkdv": 1, "dq": 1}
+    for g, w, name in zip(got, want, ("dQ", "dK", "dV")):
+        _assert_f32_grad(g, w, name)
+    fused = flash_attention_backward(*args, **kw)
+    assert torch.equal(got[1], fused[1]) and torch.equal(got[2], fused[2])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h,h_kv,d,n", [(4, 4, 128, 300), (16, 4, 64, 257)])
+def test_f32_split_backward_segments(dev, no_tf32, causal, h, h_kv, d, n):
+    """K3's fp32 SEG build (two 32-key stages at d = 128) against the
+    plain fp32 backward, segments crossing key tiles."""
+    ids = torch.arange(n, device=dev) // 70
+    seg = torch.stack([ids, (ids + 1) % 3])
+    kw = dict(causal=causal, q_segment_ids=seg, kv_segment_ids=seg)
+    q, k, v, _, _, do = _f32_bwd_inputs(dev, 2, h, h_kv, n, n, d, {}, True,
+                                        9)
+    o, lse = flash_attention_forward_plain(q, k, v, **kw)
+    want = flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
+    got = flash_attention_backward(q, k, v, o, lse, do, fused=False, **kw)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("dQ", "dK", "dV")):
+        _assert_f32_grad(g, w, name)
+
+
+@pytest.mark.parametrize("nq,nk,causal,kv_offset,window", [
+    (31, 33, True, 0, 0), (32, 32, True, 0, 0), (33, 95, True, 62, 0),
+    (300, 100, True, 0, 40), (100, 260, True, -20, 0), (65, 31, False, 0, 0),
+])
+def test_f32_dq_kernel_32_key_tile_edges(dev, no_tf32, nq, nk, causal,
+                                         kv_offset, window):
+    """K3's fp32 walk of 32-key tiles at their edges (ragged tails, the
+    causal and window frontiers inside a tile, empty rows)."""
+    kw = dict(causal=causal, kv_offset=kv_offset, window=window)
+    args = _f32_bwd_inputs(dev, 1, 8, 2, nq, nk, 128, kw, True, nq * nk)
+    want = flash_attention_backward_plain(*args, **kw)
+    got = flash_attention_backward(*args, fused=False, **kw)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("dQ", "dK", "dV")):
+        _assert_f32_grad(g, w, name)
+
+
+@pytest.mark.parametrize("peaked", [False, True])
+@pytest.mark.parametrize("b,h,nq,nk,d,causal,block_q,block_k", [
+    (1, 1, 64, 64, 32, False, 64, 64),       # the reference rung's 64 x 32
+    (1, 4, 512, 512, 128, True, 256, 256),
+    (2, 2, 300, 300, 64, True, 64, 64),
+    (1, 2, 100, 333, 128, False, 128, 192),
+    (2, 3, 37, 200, 16, False, 256, 256),
+    (1, 2, 70, 40, 64, True, 256, 256),
+])
+def test_f32_fa1_kernel(dev, no_tf32, peaked, b, h, nq, nk, d, causal,
+                        block_q, block_k):
+    """K8's fp32 build (narrow heads padded to 64) against the plain fp32
+    FA1 walk: one launch, fp32 O within 1e-4."""
+    q, k, v = _f32_inputs(dev, b, h, h, nq, nk, d, nq + nk + d, peaked)
+    kw = dict(causal=causal, block_q=block_q, block_k=block_k)
+    _nan_fill_allocator(dev)
+    before = fa1_attention.launches
+    o = fa1_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa1_attention.launches == before + 1
+    assert o.dtype == torch.float32 and o.shape == q.shape
+    o_p = fa1_attention_plain(q, k, v, causal=causal,
+                              block_q=max(8, min(block_q, -(-nq // 8) * 8)),
+                              block_k=max(8, min(block_k, -(-nk // 8) * 8)))
+    assert o_p.abs().max().item() > 0
+    assert _err(o, o_p) <= F32_GATE
+
+
+@pytest.mark.parametrize("d", [16, 32, 48])
+def test_fa1_narrow_heads_bf16(dev, d):
+    """K8's bf16 build on heads padded to 64, at the caller's scale."""
+    gen = torch.Generator(device=dev).manual_seed(d)
+    q = _rand(gen, dev, 1, 4, 300, d)
+    k, v = _rand(gen, dev, 1, 4, 300, d), _rand(gen, dev, 1, 4, 300, d)
+    o = fa1_attention(q, k, v, causal=True, block_q=64, block_k=128)
+    torch.cuda.synchronize()
+    assert o.shape == q.shape
+    assert _err(o, fa1_attention_plain(q, k, v, causal=True, block_q=64,
+                                       block_k=128)) <= GATE
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+@pytest.mark.parametrize("rows,d", [(1024, 128), (192, 64), (8192, 128)])
+def test_f32_device_ring_kernel(dev, no_tf32, n, rows, d):
+    """K9's fp32 build against the plain ring and (Σ x_i) @ W in fp32, one
+    launch, within 1e-4 · max(1, max |ref|); 5 calls give the first's
+    bits."""
+    from cuda_flashattention_torch.parallel.device_ring import (
+        device_ring_matmul, ring_matmul_plain)
+    gen = torch.Generator(device=dev).manual_seed(n * rows + d)
+    x = torch.rand((n * rows, d), generator=gen, device=dev) - 0.5
+    w = torch.rand((d, d), generator=gen, device=dev) - 0.5
+    mesh = _ring_mesh(dev, n)
+    before = device_ring_matmul.launches
+    o = device_ring_matmul(x, w, mesh)
+    torch.cuda.synchronize()
+    assert device_ring_matmul.launches == before + 1
+    ref = _ring_ref(x, w, n)
+    gate = F32_GATE * max(1.0, ref.abs().max().item())
+    assert o.dtype == torch.float32
+    assert _err(o, ref) <= gate
+    assert _err(o, ring_matmul_plain(x, w, mesh)) <= gate
+    for _ in range(5):
+        assert torch.equal(device_ring_matmul(x, w, mesh), o)
+
+
+def test_f32_device_ring_across_cards(dev, no_tf32):
+    """With two or more cards visible: K9's fp32 .sys build over distinct
+    cards against the reference; 20 calls give the first's bits."""
+    from cuda_flashattention_torch.parallel.device_ring import (
+        device_ring_matmul)
+    from cuda_flashattention_torch.parallel.mesh import make_mesh
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more cards")
+    n = 4
+    gen = torch.Generator(device=dev).manual_seed(n)
+    x = torch.rand((n * 1024, 128), generator=gen, device=dev) - 0.5
+    w = torch.rand((128, 128), generator=gen, device=dev) - 0.5
+    mesh = make_mesh((n,), ("sp",),
+                     [torch.device("cuda", i % cards) for i in range(n)])
+    first = device_ring_matmul(x, w, mesh)
+    torch.cuda.synchronize()
+    assert device_ring_matmul.last_scope == "sys"
+    ref = _ring_ref(x, w, n)
+    assert _err(first, ref) <= F32_GATE * max(1.0, ref.abs().max().item())
+    for _ in range(20):
+        assert torch.equal(device_ring_matmul(x, w, mesh), first)

@@ -168,9 +168,10 @@ def test_online_forward_builds_no_bound_form():
         assert needle not in src, needle
     # the online step, and the epilogue without the loose-bound count
     assert "online_step<" in src and "store_rows<D, false>(" in src
-    assert len(_build.SIGNATURES["cfa_flash_fwd"]) == 15
-    assert len(_build.SIGNATURES["cfa_flash_fwd_bound"]) == 16
-    assert len(_build.SIGNATURES["cfa_flash_fwd_kmajor"]) == 17
+    # each took the q type (q_f32) beside k_type and v_type
+    assert len(_build.SIGNATURES["cfa_flash_fwd"]) == 16
+    assert len(_build.SIGNATURES["cfa_flash_fwd_bound"]) == 17
+    assert len(_build.SIGNATURES["cfa_flash_fwd_kmajor"]) == 18
 
 
 def test_fa1_source_is_a_hopper_kernel():
@@ -180,10 +181,13 @@ def test_fa1_source_is_a_hopper_kernel():
     assert "Replaces: cuda_flashattention_tpu/ops/fa1.py::_fa1_kernel" in src
     assert "nvcuda" not in src and "wmma::" not in src
     assert '#include "flash_fwd_bound_sm90.cuh"' in src
-    for needle in ("qk<D, false>", "pv<D>", "mbar_wait", "tma_load_4d"):
+    # its products and walk are the body's, in both builds (bf16, F32)
+    for needle in ("qk<D, false, F32>", "pv<D, F32>", "mbar_wait",
+                   "tma_load_4d", "split_rows<D, 128>"):
         assert needle in src, needle
     assert not (_build.CSRC / "flash_fwd_body.cuh").exists()
-    assert len(_build.SIGNATURES["cfa_fa1"]) == 13
+    # the f32 flag joined it with K8's fp32 build
+    assert len(_build.SIGNATURES["cfa_fa1"]) == 14
 
 
 def test_key_parallel_backward_is_a_hopper_kernel():
@@ -218,7 +222,8 @@ def test_dq_kernel_is_a_hopper_kernel():
                    "pv_issue<D>(dq", "tma_load_4d", "mbar_wait",
                    "setmaxnreg", "extern \"C\" int cfa_flash_bwd_q("):
         assert needle in src, needle
-    assert len(_build.SIGNATURES["cfa_flash_bwd_q"]) == 21
+    # the f32 flag joined it with K3's fp32 build
+    assert len(_build.SIGNATURES["cfa_flash_bwd_q"]) == 22
 
 
 def test_decode_walks_share_the_split_and_its_merge():
@@ -251,15 +256,16 @@ def test_device_ring_is_bound_with_its_signature():
     common grid joined the launch's arguments), and its source holds the
     kernel's own bulk copies, wgmma products, and flags at both scopes;
     it uses no wmma and no thread fence on every thread."""
-    assert len(_build.SIGNATURES["cfa_device_ring"]) == 15
-    assert len(_build.SIGNATURES["cfa_device_ring_resident"]) == 4
+    # the f32 flag joined both with K9's fp32 build
+    assert len(_build.SIGNATURES["cfa_device_ring"]) == 16
+    assert len(_build.SIGNATURES["cfa_device_ring_resident"]) == 5
     assert len(_build.SIGNATURES["cfa_enable_peer_access"]) == 2
     src = (_build.CSRC / "device_ring.cu").read_text()
     assert "nvcuda" not in src and "wmma::" not in src and "<mma.h>" not in src
     assert "__threadfence_system" not in src
     assert '#include "flash_fwd_bound_sm90.cuh"' in src
     for needle in ("st.release.sys", "ld.acquire.sys", "st.release.gpu",
-                   "ld.acquire.gpu", "template <int D, bool SYS>",
+                   "ld.acquire.gpu", "template <int D, bool SYS, bool F32>",
                    "cp.async.bulk.shared::cluster.global.mbarrier",
                    "cp.async.bulk.global.shared::cta.bulk_group",
                    "cp.async.bulk.wait_group 0", "fence.proxy.async.global",
