@@ -261,6 +261,21 @@ Phases, each of which raises on failure (so the script exits non-zero):
    stage 05 (K1 20, K6 32) and stage 06 (K7 10, K6 10) against their
    schedules; the torch oracle on the card against the native C++ oracle
    (`runtime/native.py`) at [1, 2, 256, 64].
+21. The tuning path (`_phase_tuning`): the tuners of
+   `utils/autotune.py` over a temporary `CFA_AUTOTUNE_CACHE`, "fwd" and
+   "bwd" at [1, 16, 4096, 128] causal, K6's split size at B=8 H=16 Hkv=4
+   with 4224 live tokens of 4352, K7's page size at the same context;
+   every candidate must run and match the plain version, and a second
+   call must hit the cache (the timer then raises). The 128-key builds of
+   K1 (training shape causal, not causal, window 1024; segment ids at
+   N=1024, causal and not) and K1b (the chunked-prefill prefix) against
+   the plain version and the 64-key builds; the backward's prologue (D
+   and K4's zeroed dQ accumulator) against the plain D, and one CUDA
+   backward under torch.profiler with no aten::sum / zeros / zero_. Then
+   the 246M serving config's `prefill` and `prefill_chunked` (bf16
+   cache) with the tuned tiles and, when the tuner kept 64 keys, at 128
+   keys, and 16 `decode_one` steps at the tuned split size: logits within
+   0.125 of the plain path, and the 128-key builds' launch counts.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; a kernel's `launches` in the JSON line is its sum over
@@ -269,7 +284,7 @@ the paged lifecycle, the two FA1 calls, the timed training steps of both
 models, the split-backward step, the ring-attention cases, Ulysses, the
 ring-decode calls, the sequence- and tensor-parallel train steps, the
 pipelined
-forward, the device-ring stage; for the fp32 forms the ladder's stages 03
+forward, the device-ring stage, the tuned serving runs; for the fp32 forms the ladder's stages 03
 to 06, the fp32 `flash_attention` path with its fused and split
 backward, the fp32 `generate()` runs, the fp32 chunked-serving runs, the
 fp32 FA1 calls and device-ring call, and the ladder model's training
@@ -403,7 +418,8 @@ def _kernel_of(name: str) -> str:
                            (r"fa1_kernel", "K8"),
                            (r"::decode_kernel<", "K6"),
                            (r"::paged_kernel<", "K7"),
-                           (r"device_ring_kernel", "K9")):
+                           (r"device_ring_kernel", "K9"),
+                           (r"bwd_delta_kernel", "K4 D prologue")):
         if re.search(pattern, name):
             return label
     return ""
@@ -915,7 +931,8 @@ def _phase_model_parallel(ctx, mesh, tag, **axes):
           f"{SP_T / step_ms * 1e3:.1f} tokens/s, peak memory {peaks}; "
           f"losses {', '.join(f'{x:.4f}' for x in losses)} ({ctx.card})",
           flush=True)
-    _check(counts == dict(fwd=expect, fused=expect, dkdv=0, dq=0),
+    _check(counts == dict(fwd=expect, fused=expect, dkdv=0, dq=0,
+                          delta=expect),
            f"{tag} train-step launch counts {counts}")
     _check(calls == expect_calls, f"{tag} collective calls {calls}")
     _check(all(math.isfinite(x) for x in losses), f"losses {losses}")
@@ -1459,7 +1476,7 @@ def _phase_fp32(ctx):
           f"max|diff|/max(1, max|plain|) {e_g:.3e} (gate {F32_GATE})",
           flush=True)
     _check(forms == dict(online=0, bound=0, kmajor=1, fallback=1)
-           and split == dict(dkdv=1, dq=1, fused=0),
+           and split == dict(dkdv=1, dq=1, fused=0, delta=1),
            f"fp32 split path launch counts {forms}, {split}")
     _check(e_g <= F32_GATE, f"fp32 split path: gradients {e_g:.3e}")
     ctx.launches["K5 fp32"] += forms["kmajor"]
@@ -2330,6 +2347,404 @@ def _phase_f32_chunked(ctx):
     del model
 
 
+# The tuning phase (17): the tuners' shapes, the training shape the
+# 128-key K1 is held at, and the timed iterations per candidate (few: the
+# sweep is a check that every built tile runs and of the cache)
+TUNE_ITERS = 5
+TUNE_FWD = (1, 16, 16, 4096, 128)  # B, H, Hkv, N, d: causal
+TUNE_DECODE = (8, 16, 4, 4352, 4224, 128)  # B, H, Hkv, capacity, live, d
+TUNE_SEG_N = 1024
+TUNE_DECODE_STEPS = 16
+
+
+def _vs_bound(ms, bound):
+    """A row's time as a share of its bound, for its printed line."""
+    return (f"{100 * bound['bound_ms'] / ms:.1f}% of its bound "
+            f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+
+
+def _tuner_sweeps(ctx, autotune):
+    """Print every measured sweep; fail on a candidate that did not run."""
+    for key, sweep in autotune.sweeps.items():
+        what = json.loads(key)[3:]
+        line = ", ".join(f"{c}: " + ("FAILED" if ms is None else f"{ms:.4f}")
+                         for c, ms in sweep)
+        print(f"[tuning] sweep {what}: {line} ms ({ctx.card})", flush=True)
+        _check(all(ms is not None for _, ms in sweep),
+               f"tuner sweep {what}: a candidate failed: {line}")
+
+
+def _phase_tuning(ctx):
+    """The tuning path. The tuners of `utils/autotune.py` over a
+    temporary `CFA_AUTOTUNE_CACHE`: "fwd" and "bwd" at [1, 16, 4096, 128]
+    causal, the decode split size at B=8 H=16 Hkv=4 with 4224 live tokens
+    of 4352, the page size at the same context. Every candidate must run
+    (a failure fails the phase, though the tuner only skips it) and match
+    the plain version; a second call must hit the cache (the timer then
+    raises). The 128-key builds of K1 (training shape causal, not causal,
+    window 1024; segment ids at N=1024) and K1b (the chunked-prefill
+    prefix) against the plain version and their 64-key builds, with
+    times, bounds and SDPA's time; the backward's prologue (D and K4's
+    zeroed accumulator) against the plain D, timed, and one CUDA backward
+    under torch.profiler with no aten::sum / zeros / zero_. Then the 246M
+    serving config's `prefill` (B=8 × 512) and `prefill_chunked` (B=8 ×
+    4096, chunk 512, bf16 cache) with the tuned tiles and, where the
+    tuner kept 64 keys, again at 128 keys; then `decode_one` steps with
+    the tuned split size; logits against the plain path at LOGIT_GATE."""
+    torch = ctx.torch
+    import os
+    import tempfile
+    from cuda_flashattention_torch.models import transformer as tfm
+    from cuda_flashattention_torch.ops import flash_bwd as fb
+    from cuda_flashattention_torch.ops.common import BlockSizes
+    from cuda_flashattention_torch.ops.decode import (
+        decode_attention, decode_attention_plain)
+    from cuda_flashattention_torch.ops.flash_fwd import (
+        flash_attention_forward, flash_attention_forward_plain)
+    from cuda_flashattention_torch.ops.paged import (
+        paged_decode_attention, paged_decode_attention_plain)
+    from cuda_flashattention_torch.utils import autotune
+    from cuda_flashattention_torch.utils.timing import (
+        attention_flops, cuda_time_ms)
+    dev, card, mk, diff = ctx.dev, ctx.card, ctx.mk, ctx.diff
+    rec, launches = ctx.rec, ctx.launches
+    key128 = flash_attention_forward.key128_launches
+
+    # ---- the tuners -----------------------------------------------------
+    b, h, hkv, n, d = TUNE_FWD
+    db, dh, dhkv, cap, live, dd = TUNE_DECODE
+    saved = os.environ.get("CFA_AUTOTUNE_CACHE")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["CFA_AUTOTUNE_CACHE"] = os.path.join(tmp, "autotune.json")
+        try:
+            autotune._MEM_CACHE.clear()
+            autotune.sweeps.clear()
+            shape = dict(nq=n, nk=n, d=d, batch=b, heads=h, kv_heads=hkv,
+                         causal=True, iters=TUNE_ITERS)
+            dshape = dict(ctx=cap, heads=dh, kv_heads=dhkv, d=dd, batch=db,
+                          live=live, iters=TUNE_ITERS)
+            t0 = time.perf_counter()
+            fwd = autotune.autotune_block_sizes(**shape)
+            bwd = autotune.autotune_block_sizes(mode="bwd", **shape)
+            split = autotune.autotune_decode_block_k(**dshape)
+            page = autotune.autotune_page_size(**dshape)
+            tune_s = time.perf_counter() - t0
+            _tuner_sweeps(ctx, autotune)
+            print(f"[tuning] winners: fwd {fwd}, bwd ({bwd.block_q_bwd}, "
+                  f"{bwd.block_k_bwd}), decode block_k {split}, page size "
+                  f"{page}; the four sweeps took {tune_s:.2f} s ({card})",
+                  flush=True)
+            _check(len(autotune._disk_cache_load()) == 4,
+                   "the tuners' winners were not all written to the cache")
+            # a second call measures nothing: from the process's cache,
+            # then from the disk's
+            real = autotune.time_fn
+
+            def poisoned(*a, **k):
+                raise RuntimeError("the tuner measured on a cached key")
+            autotune.time_fn = poisoned
+            try:
+                for _ in range(2):
+                    _check(autotune.autotune_block_sizes(**shape) == fwd
+                           and autotune.autotune_block_sizes(
+                               mode="bwd", **shape) == bwd
+                           and autotune.autotune_decode_block_k(
+                               **dshape) == split
+                           and autotune.autotune_page_size(**dshape) == page,
+                           "a second tuner call did not return the winner")
+                    autotune._MEM_CACHE.clear()
+            finally:
+                autotune.time_fn = real
+            print("[tuning] second calls: every winner from the cache, the "
+                  "timer untouched (process cache, then the disk's)",
+                  flush=True)
+        finally:
+            if saved is None:
+                os.environ.pop("CFA_AUTOTUNE_CACHE", None)
+            else:
+                os.environ["CFA_AUTOTUNE_CACHE"] = saved
+    _check(fwd.block_k in (64, 128) and fwd.block_q == 128
+           and (bwd.block_q_bwd, bwd.block_k_bwd) == (64, 128)
+           and split in autotune.decode_candidates(cap)
+           and page in autotune.page_candidates(cap),
+           f"tuners returned an unbuilt choice {fwd} {bwd} {split} {page}")
+
+    # ---- every candidate against the plain version ----------------------
+    q, k, v = (mk(b, h, n, d, peak=Q_PEAK), mk(b, hkv, n, d, peak=K_PEAK),
+               mk(b, hkv, n, d))
+    do = mk(b, h, n, d)
+    want = flash_attention_forward_plain(q, k, v, causal=True)
+    for bq, bk in autotune.candidate_blocks(n, n, d, causal=True):
+        got = flash_attention_forward(q, k, v, causal=True,
+                                      block_sizes=BlockSizes(bq, bk))
+        torch.cuda.synchronize()
+        (e_o, ref, ok), e_l = ctx.o_close(got[0], want[0]), diff(got[1],
+                                                                 want[1])
+        print(f"[tuning] fwd candidate ({bq}, {bk}): vs plain max|dO| "
+              f"{e_o:.3e} (max|O| {ref:.3e}) max|dLSE| {e_l:.3e}",
+              flush=True)
+        _check(ok and e_l <= GATE, f"fwd candidate ({bq}, {bk}) vs plain")
+    o, lse = flash_attention_forward(q, k, v, causal=True)
+    want_g = fb.flash_attention_backward_plain(q, k, v, o, lse, do,
+                                               causal=True)
+    for bq, bk in autotune.candidate_blocks(n, n, d, causal=True,
+                                            mode="bwd"):
+        got = fb.flash_attention_backward(
+            q, k, v, o, lse, do, causal=True,
+            block_sizes=BlockSizes(block_q_bwd=bq, block_k_bwd=bk))
+        torch.cuda.synchronize()
+        line = _grads_close(ctx, got, want_g, f"bwd candidate ({bq}, {bk})")
+        print(f"[tuning] bwd candidate ({bq}, {bk}): vs plain {line}",
+              flush=True)
+    del want, want_g
+    dq = mk(db, dh, dd, peak=Q_PEAK)
+    dk, dv = mk(db, dhkv, cap, dd, peak=K_PEAK), mk(db, dhkv, cap, dd)
+    lengths = torch.full((db,), live, dtype=torch.int32, device=dev)
+    want = decode_attention_plain(dq, dk, dv, lengths)
+    for bk in autotune.decode_candidates(cap):
+        got = decode_attention(dq, dk, dv, lengths, block_k=bk)
+        torch.cuda.synchronize()
+        (e_o, ref, ok), e_l = ctx.o_close(got[0], want[0]), diff(got[1],
+                                                                 want[1])
+        _check(ok and e_l <= GATE, f"decode block_k {bk}: {e_o:.3e} / "
+               f"{e_l:.3e}")
+    print(f"[tuning] decode candidates {autotune.decode_candidates(cap)}: "
+          f"each within the gates of the plain version", flush=True)
+
+    def paged(x, ps):
+        """The cache [B, Hkv, cap, d] as a pool of pages of `ps` keys,
+        sequence b's pages b·per_seq, ..., zeros past the capacity."""
+        per_seq = -(-cap // ps)
+        x = torch.nn.functional.pad(x, (0, 0, 0, per_seq * ps - cap))
+        return x.reshape(db, dhkv, per_seq, ps, dd).transpose(1, 2).reshape(
+            db * per_seq, dhkv, ps, dd).contiguous()
+
+    for ps in autotune.page_candidates(cap):
+        pk, pv = paged(dk, ps), paged(dv, ps)
+        table = torch.arange(pk.shape[0], dtype=torch.int32,
+                             device=dev).reshape(db, -1)
+        got = paged_decode_attention(dq, pk, pv, table, lengths)
+        torch.cuda.synchronize()
+        (e_o, ref, ok), e_l = ctx.o_close(got[0], want[0]), diff(got[1],
+                                                                 want[1])
+        _check(ok and e_l <= GATE, f"page size {ps}: {e_o:.3e} / {e_l:.3e}")
+        e_p = diff(got[0], paged_decode_attention_plain(
+            dq, pk, pv, table, lengths)[0])
+        _check(e_p <= GATE, f"page size {ps} vs its plain version {e_p}")
+        del pk, pv
+    print(f"[tuning] page candidates {autotune.page_candidates(cap)}: K7 "
+          f"over the same keys in pages of each size within the gates of "
+          f"the plain decode", flush=True)
+    del dq, dk, dv, want, got
+
+    # ---- the 128-key builds against plain and the 64-key builds ---------
+    seg_ids = torch.repeat_interleave(
+        torch.arange(4, device=dev),
+        torch.tensor([300, 1, 250, TUNE_SEG_N - 551], device=dev))[None]
+    cases = [("4096 causal", (b, h, hkv, n, n), dict(causal=True)),
+             ("4096 not causal", (b, h, hkv, n, n), dict(causal=False)),
+             ("4096 window 1024", (b, h, hkv, n, n),
+              dict(causal=True, window=1024)),
+             ("segments 1024 causal", (1, h, hkv, TUNE_SEG_N, TUNE_SEG_N),
+              dict(causal=True, q_segment_ids=seg_ids,
+                   kv_segment_ids=seg_ids)),
+             ("segments 1024", (1, h, hkv, TUNE_SEG_N, TUNE_SEG_N),
+              dict(q_segment_ids=seg_ids, kv_segment_ids=seg_ids))]
+    t128 = BlockSizes(block_k=128)
+    for name, (cb, ch, chkv, cnq, cnk), kw in cases:
+        q, k, v = (mk(cb, ch, cnq, d, peak=Q_PEAK),
+                   mk(cb, chkv, cnk, d, peak=K_PEAK), mk(cb, chkv, cnk, d))
+        kw = dict(kw, softmax="online")
+        got = flash_attention_forward(q, k, v, block_sizes=t128, **kw)
+        k64 = flash_attention_forward(q, k, v, **kw)
+        want = flash_attention_forward_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        (e_o, ref, ok), e_l = ctx.o_close(got[0], want[0]), diff(got[1],
+                                                                 want[1])
+        (e_6, _, ok6), e_l6 = ctx.o_close(got[0], k64[0]), diff(got[1],
+                                                                k64[1])
+        rec["K1 bf16 128-key"]["max_abs_err"] = max(
+            rec["K1 bf16 128-key"]["max_abs_err"], e_o, e_l)
+        ms = _call_ms(lambda: flash_attention_forward(
+            q, k, v, block_sizes=t128, **kw), "K1", iters=5)
+        ms64 = _call_ms(lambda: flash_attention_forward(q, k, v, **kw), "K1",
+                        iters=5)
+        pairs = _visible_pairs(ctx, cb, ch, cnq, cnk, kw)
+        bound = _bound(_nbytes(q, k, v, got[0], got[1]), 4.0 * d * pairs)
+        line = (f"[tuning] K1 128-key, {name} [{cb}, {ch}, {cnq}, {d}] "
+                f"Hkv={chkv}: vs plain max|dO| {e_o:.3e} (max|O| {ref:.3e}) "
+                f"max|dLSE| {e_l:.3e}; vs 64-key max|dO| {e_6:.3e} max|dLSE| "
+                f"{e_l6:.3e}; kernel alone {ms:.4f} ms, 64-key build "
+                f"{ms64:.4f} ms ({_vs_bound(ms, bound)})")
+        if name == "4096 causal":
+            ms_p = cuda_time_ms(lambda: flash_attention_forward_plain(
+                q, k, v, **kw), iters=3)
+            lib = cuda_time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=ch != chkv),
+                iters=10)
+            rec["K1 bf16 128-key"].update(ms=ms, plain_ms=ms_p,
+                                          library_ms=lib, **bound)
+            line += f"; plain {ms_p:.4f} ms; library call {lib:.4f} ms"
+        print(line + f" ({card})", flush=True)
+        _check(ok and e_l <= GATE and ok6 and e_l6 <= GATE,
+               f"K1 128-key {name}: plain {e_o:.3e}/{e_l:.3e}, 64-key "
+               f"{e_6:.3e}/{e_l6:.3e}")
+        del q, k, v, got, k64, want
+    # K1b at the chunked-prefill prefix (every key visible, "auto": the
+    # bound form behind its guard)
+    pb, ph, phkv, pnq, pnk = 8, 16, 4, 512, LONG_PROMPT - LONG_CHUNK
+    q, k, v = (mk(pb, ph, pnq, d, peak=Q_PEAK),
+               mk(pb, phkv, pnk, d, peak=K_PEAK), mk(pb, phkv, pnk, d))
+    kw = dict(out_dtype=torch.float32)
+    before = dict(key128)
+    got = flash_attention_forward(q, k, v, block_sizes=t128, **kw)
+    _check(key128["bound"] == before["bound"] + 1,
+           f"the prefix read did not take K1b's 128-key build: {key128}")
+    k64 = flash_attention_forward(q, k, v, **kw)
+    want = flash_attention_forward_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    (e_o, ref, ok), e_l = ctx.o_close(got[0], want[0]), diff(got[1], want[1])
+    (e_6, _, ok6), e_l6 = ctx.o_close(got[0], k64[0]), diff(got[1], k64[1])
+    ms = _call_ms(lambda: flash_attention_forward(q, k, v, block_sizes=t128,
+                                                  **kw), "K1b", iters=5)
+    ms64 = _call_ms(lambda: flash_attention_forward(q, k, v, **kw), "K1b",
+                    iters=5)
+    ms_p = cuda_time_ms(lambda: flash_attention_forward_plain(q, k, v, **kw),
+                        iters=3)
+    lib = _library_ms(ctx, q, k, v, {})
+    bound = _bound(_nbytes(q, k, v, got[0], got[1]),
+                   attention_flops(pb, ph, pnq, pnk, d))
+    rec["K1b bf16 128-key"].update(
+        max_abs_err=max(e_o, e_l), ms=ms, plain_ms=ms_p, library_ms=lib,
+        **bound)
+    print(f"[tuning] K1b 128-key, prefix B={pb} H={ph} Hkv={phkv} {pnq} x "
+          f"{pnk}: vs plain max|dO| {e_o:.3e} (max|O| {ref:.3e}) max|dLSE| "
+          f"{e_l:.3e}; vs 64-key max|dO| {e_6:.3e} max|dLSE| {e_l6:.3e}; "
+          f"kernel alone {ms:.4f} ms, 64-key build {ms64:.4f} ms "
+          f"({_vs_bound(ms, bound)}); plain {ms_p:.4f} ms; library call "
+          f"{lib:.4f} ms ({card})", flush=True)
+    _check(ok and e_l <= GATE and ok6 and e_l6 <= GATE,
+           f"K1b 128-key prefix: plain {e_o:.3e}/{e_l:.3e}, 64-key "
+           f"{e_6:.3e}/{e_l6:.3e}")
+    del q, k, v, got, k64, want
+
+    # ---- the backward's prologue ----------------------------------------
+    o, do = mk(b, h, n, d), mk(b, h, n, d)
+    acc = torch.full((b, h, n, d), 7.0, device=dev)
+    got = fb._launch_delta(o, do, acc)
+    want = fb.delta_plain(o, do)
+    torch.cuda.synchronize()
+    e = diff(got, want)
+    gate = 1e-5 * max(1.0, want.abs().max().item())
+    _check(e <= gate and torch.count_nonzero(acc).item() == 0,
+           f"prologue D {e:.3e} > {gate:.3e}, or dQ's accumulator not zero")
+    ms = _call_ms(lambda: fb._launch_delta(o, do, acc), "K4 D prologue",
+                  iters=10)
+
+    def plain():
+        fb.delta_plain(o, do)
+        torch.zeros((b, h, n, d), dtype=torch.float32, device=dev)
+    ms_p = cuda_time_ms(plain, iters=10)
+    lib = cuda_time_ms(lambda: (do.float() * o.float()).sum(-1), iters=10)
+    bound = _bound(_nbytes(o, do, got, acc), 0.0)
+    rec["K4 D prologue"].update(max_abs_err=e, ms=ms, plain_ms=ms_p,
+                                library_ms=lib, **bound)
+    print(f"[tuning] prologue (D and K4's zeroed accumulator) [{b}, {h}, "
+          f"{n}, {d}] bf16: vs plain max|dD| {e:.3e} (gate {gate:.3e}); "
+          f"kernel alone {ms:.4f} ms ({_vs_bound(ms, bound)}: O and dO read, "
+          f"D and the fp32 accumulator written); plain (the reduction and "
+          f"torch.zeros) {ms_p:.4f} ms; library call "
+          f"(do.float() * o.float()).sum(-1) {lib:.4f} ms ({card})",
+          flush=True)
+    # no PyTorch reduction or zeroing is left in the CUDA backward
+    q, k, v = mk(b, h, n, d), mk(b, hkv, n, d), mk(b, hkv, n, d)
+    o, lse = flash_attention_forward(q, k, v, causal=True)
+    fb.flash_attention_backward(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fb.flash_attention_backward(q, k, v, o, lse, do, causal=True)
+        torch.cuda.synchronize()
+    ops = sorted({e.name for e in prof.events() if e.name.startswith("aten::")})
+    print(f"[tuning] one CUDA backward at d={d}: aten ops {ops}", flush=True)
+    _check(not set(ops) & {"aten::sum", "aten::zeros", "aten::zero_"},
+           f"the CUDA backward still runs {ops}")
+    del q, k, v, o, lse, do, acc, got, want
+
+    # ---- the serving model with the tuned tiles -------------------------
+    torch.cuda.empty_cache()
+    cfg = tfm.TransformerConfig(dtype=torch.bfloat16, **CFG_KW)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = tfm.Transformer(cfg, generator=gen)
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, LONG_PROMPT),
+                           generator=gen, device=dev, dtype=torch.int32)
+    tiles = [fwd] + ([t128] if fwd.block_k != 128 else [])
+    for bs in tiles:
+        ctx.zero_counts()
+        caches = tfm.init_caches(cfg, BATCH, PROMPT, device=dev)
+        lg, _ = tfm.prefill(model, prompt[:, :PROMPT], caches,
+                            block_sizes=bs)
+        caches = tfm.init_caches(cfg, BATCH, LONG_PROMPT + TUNE_DECODE_STEPS,
+                                 device=dev)
+        lg_c, caches = tfm.prefill_chunked(model, prompt, caches, LONG_CHUNK,
+                                           block_sizes=bs)
+        tokens = []
+        tok = lg_c.argmax(-1)
+        n_dec0 = decode_attention.launches
+        for i in range(TUNE_DECODE_STEPS):
+            tokens.append(tok)
+            lg_d, caches = tfm.decode_one(model, tok, LONG_PROMPT + i,
+                                          caches, block_k=split)
+            tok = lg_d.argmax(-1)
+        torch.cuda.synchronize()
+        n_dec = decode_attention.launches - n_dec0
+        forms, k128 = dict(ctx.fwd_forms), dict(key128)
+        with _serving_on_plain_attention():
+            caches = tfm.init_caches(cfg, BATCH, PROMPT, device=dev)
+            lg_p, _ = tfm.prefill(model, prompt[:, :PROMPT], caches)
+            caches = tfm.init_caches(cfg, BATCH,
+                                     LONG_PROMPT + TUNE_DECODE_STEPS,
+                                     device=dev)
+            lg_cp, caches = tfm.prefill_chunked(model, prompt, caches,
+                                                LONG_CHUNK)
+            for i, t in enumerate(tokens):
+                lg_dp, caches = tfm.decode_one(model, t, LONG_PROMPT + i,
+                                               caches)
+        e_p, e_c, e_d = (diff(lg, lg_p), diff(lg_c, lg_cp),
+                         diff(lg_d, lg_dp))
+        chunks = LONG_PROMPT // LONG_CHUNK
+        print(f"[tuning] 246M serving config with block_k {bs.block_k} and "
+              f"decode block_k {split}: prefill B={BATCH} x {PROMPT}, "
+              f"chunked prefill B={BATCH} x {LONG_PROMPT} (chunk "
+              f"{LONG_CHUNK}), {TUNE_DECODE_STEPS} decode steps; logits vs "
+              f"the plain path max|d| prefill {e_p:.3e}, chunked {e_c:.3e}, "
+              f"last decode step {e_d:.3e} (gate {LOGIT_GATE}); launches "
+              f"{forms}, of the 128-key builds {k128}, K6 {n_dec}",
+              flush=True)
+        _check(max(e_p, e_c, e_d) <= LOGIT_GATE
+               and all(bool(torch.isfinite(x).all()) for x in
+                       (lg, lg_c, lg_d)),
+               f"tuned serving logits {e_p:.3e} {e_c:.3e} {e_d:.3e}")
+        _check(n_dec == cfg.n_layers * TUNE_DECODE_STEPS,
+               f"tuned decode launches {n_dec}")
+        expect_online = cfg.n_layers * (1 + chunks)
+        _check(forms["online"] == expect_online
+               and forms["bound"] == cfg.n_layers * (chunks - 1),
+               f"tuned serving forward launches {forms}")
+        if bs.block_k == 128:
+            _check(k128["online"] == expect_online
+                   and k128["bound"] == forms["bound"],
+                   f"the 128-key builds were not launched on the path: "
+                   f"{k128}")
+            launches["K1 bf16 128-key"] += k128["online"]
+            launches["K1b bf16 128-key"] += k128["bound"]
+        launches["K1"] += forms["online"] - k128["online"]
+        launches["K1b"] += forms["bound"] - k128["bound"]
+        launches["K6"] += n_dec
+    del model, caches
+
+
 def _ladder_rows() -> int:
     """Rows per rank of stage 04 at the reference's shape."""
     from cuda_flashattention_torch.examples import _ladder
@@ -2532,6 +2947,8 @@ def main() -> int:
         flash_attention_forward.launches = 0
         for name in fwd_forms:
             fwd_forms[name] = 0
+        for name in flash_attention_forward.key128_launches:
+            flash_attention_forward.key128_launches[name] = 0
         decode_attention.launches = 0
         paged_decode_attention.launches = 0
         fa1_attention.launches = 0
@@ -2575,7 +2992,8 @@ def main() -> int:
             "K1 fp32", "K1b fp32", "K5 fp32", "K4 fp32", "K2 fp32",
             "K6 fp32", "K7 fp32", "K1 fp32 d<64", "K4 fp32 d<64",
             "K1 fp32 Q over codes", "K1b fp32 Q over codes",
-            "K5 fp32 Q over codes", "K3 fp32", "K8 fp32", "K9 fp32")}
+            "K5 fp32 Q over codes", "K3 fp32", "K8 fp32", "K9 fp32",
+            "K1 bf16 128-key", "K1b bf16 128-key", "K4 D prologue")}
     # launches on the main paths, summed over the runs that drive them
     launches = {kn: 0 for kn in rec}
 
@@ -3727,12 +4145,15 @@ def main() -> int:
     counts = dict(fwd=flash_attention_forward.launches, **bwd_launches)
     expect = TIMED_STEPS * tcfg.n_layers
     print(f"[train] launches over {TIMED_STEPS} steps: K1 {counts['fwd']}, "
-          f"K4 {counts['fused']}, K2 {counts['dkdv']}, K3 {counts['dq']} "
-          f"(expect {expect}, {expect}, 0, 0)", flush=True)
-    _check(counts == dict(fwd=expect, fused=expect, dkdv=0, dq=0),
+          f"K4 {counts['fused']}, K2 {counts['dkdv']}, K3 {counts['dq']}, "
+          f"the prologue (D) {counts['delta']} (expect {expect}, {expect}, "
+          f"0, 0, {expect})", flush=True)
+    _check(counts == dict(fwd=expect, fused=expect, dkdv=0, dq=0,
+                          delta=expect),
            f"train-step launch counts {counts}")
     launches["K1"] += counts["fwd"]
     launches["K4"] += counts["fused"]
+    launches["K4 D prologue"] += counts["delta"]
     _check(all(math.isfinite(x) for x in losses), f"losses {losses}")
     step_ms = statistics.median(step_s) * 1e3
     train_flops = (6.0 * n_params * TRAIN_T
@@ -3818,7 +4239,7 @@ def main() -> int:
           f"loss {loss_s:.6f}; worst gradient relative L2 to the fused "
           f"backward {e_split:.3e} ({worst}; gate {GRAD_GATE})", flush=True)
     n = tcfg.n_layers
-    _check(split_counts == dict(fwd=n, fused=0, dkdv=n, dq=n),
+    _check(split_counts == dict(fwd=n, fused=0, dkdv=n, dq=n, delta=n),
            f"split-backward launch counts {split_counts}")
     launches["K1"] += split_counts["fwd"]
     launches["K2"] += split_counts["dkdv"]
@@ -3857,7 +4278,8 @@ def main() -> int:
           f", {TRAIN_T / statistics.median(step_s):.1f} tokens/s; losses "
           f"{', '.join(f'{x:.4f}' for x in losses)} ({card})", flush=True)
     _check(counts == dict(fwd=expect, total=expect, fused=expect, dkdv=0,
-                          dq=0), f"windowed train-step launch counts {counts}")
+                          dq=0, delta=expect),
+           f"windowed train-step launch counts {counts}")
     launches["K1"] += counts["fwd"]
     launches["K4"] += counts["fused"]
     _check(all(math.isfinite(x) for x in losses), f"losses {losses}")
@@ -3954,6 +4376,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     _phase_ladder_train(ctx)
     _phase_ladder(ctx)
+    torch.cuda.empty_cache()
+    _phase_tuning(ctx)
 
     # ---- last lines ------------------------------------------------------
     csrc = "cuda_flashattention_torch/csrc/"
@@ -4042,6 +4466,18 @@ def main() -> int:
          "build: split images pushed, three wgmma products a step; n=4 "
          "L=1024 d=128)", "device_ring.cu",
          "examples/07_device_ring.py:46"),
+        ("K1 bf16 128-key", "flash_attention_forward block_sizes.block_k="
+         "128 (K1's 128-key build: one m64n128 wgmma a step for S; the "
+         "serving model's prefill and chunked prefill at 128 keys; times "
+         "at [1, 16, 4096, 128] causal)", "flash_fwd.cu", "flash_fwd.py:123"),
+        ("K1b bf16 128-key", "flash_attention_forward softmax=bound, "
+         "block_sizes.block_k=128 (K1b's 128-key build; the chunked "
+         "prefill's prefix reads at 128 keys; times at the prefix, 512 x "
+         "3584)", "flash_fwd_bound.cu", "flash_fwd.py:123"),
+        ("K4 D prologue", "flash_attention_backward's prologue (D = "
+         "rowsum(dO * O) and K4's dQ accumulator zeroed, one launch before "
+         "K4 or K2 + K3; the train steps; times at [1, 16, 4096, 128])",
+         "flash_bwd_kv.cu", "flash_bwd.py:252"),
     ]
     kernels = []
     for kn, name, source, replaces in described:

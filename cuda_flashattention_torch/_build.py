@@ -48,14 +48,15 @@ SIGNATURES = {
     # B, H, Hkv, Nq, Nk, D, strides[9] (q/k/v: batch, head, row, in
     # elements), k_type, v_type (0 bf16, 1 int8, 2 fp8, 3 fp32: with an
     # fp32 q), q_f32 (an fp32 q, over fp32 or one-byte K/V), causal,
-    # window, kv_offset, out_f32, stream
+    # window, kv_offset, out_f32, kn (keys of a tile: 64, or 128 over bf16
+    # q/k/v), stream
     "cfa_flash_fwd": [_PP, _I, _I, _I, _I, _I, _I, _LP,
-                      _I, _I, _I, _I, _I, _I, _I, _P],
+                      _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # ptrs[10] (q, k, v, k_scale, v_scale, q_factor, c, n_loose, o, lse),
     # B, H, Hkv, Nq, Nk, D, strides[9], k_type, v_type, q_f32, qq, causal,
-    # window, kv_offset, out_f32, stream
+    # window, kv_offset, out_f32, kn, stream
     "cfa_flash_fwd_bound": [_PP, _I, _I, _I, _I, _I, _I, _LP,
-                            _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # ptrs[12] (q, k, v, k_scale, v_scale, q_factor, c, l_acc, o_acc,
     # n_loose, o, lse), B, H, Hkv, Nq, Nk, D, strides[9], k_type, v_type,
     # q_f32, qq, causal, window, kv_offset, out_f32, span, stream
@@ -77,6 +78,10 @@ SIGNATURES = {
     # q, k, v, o, B, H, Nq, Nk, D, strides[9] (q/k/v: batch, head, row),
     # causal, n_sub, f32 (fp32 q/k/v and o, else bf16), stream
     "cfa_fa1": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LP, _I, _I, _I, _P],
+    # the backward's prologue: o, dO, delta (out), dq_acc (zeroed, or NULL
+    # on the split path), B, H, Nq, D, strides[6] (o/dO: batch, head, row),
+    # o_f32, do_f32 (each fp32, else bf16), stream
+    "cfa_bwd_delta": [_P, _P, _P, _P, _I, _I, _I, _I, _LP, _I, _I, _P],
     # q, k, v, dO, lse, delta, q_seg, kv_seg (int32 ids or NULL), dk, dv,
     # dq_acc (NULL: K2, else K4), B, H, Hkv, Nq, Nk, D, strides[12]
     # (q/k/v/dO: batch, head, row), scale, causal, window, kv_offset, f32

@@ -798,3 +798,168 @@ extern "C" int cfa_flash_bwd_kv(const void* q, const void* k, const void* v,
       return cudaErrorInvalidValue;
   }
 }
+
+// ---------------------------------------------------------------------------
+// The backward's prologue: D and the zeroed dQ accumulator
+// ---------------------------------------------------------------------------
+//
+// Replaces: the `_delta` and `_init_dq` steps of
+// cuda_flashattention_tpu/ops/flash_bwd.py::_bwd_fused_kernel (its
+// `fuse_delta` form, flash_bwd.py:289-296, :322, :330-337): D[b,h,i] =
+// Σ_c dO[b,h,i,c] · O[b,h,i,c] in fp32 from O and dO in their storage
+// types, and K4's fp32 dQ accumulator set to zero. The TPU kernel computes
+// D in a first pass over the KV grid of each row tile it owns; K2 and K4
+// here are key-parallel (every one of the Nk / 128 CTAs streams every Q
+// tile), so D inside them would read O Nk / 128 times. One launch before
+// them reads each row of O and dO once, for every window and for the
+// split path alike (K2 and K3 read the same D; there it zeroes nothing).
+//
+// What bounds it on the H100: bytes. It reads O and dO once (2 · B·H·Nq·D
+// elements), writes D (4 bytes a row) and, for K4, writes the fp32
+// accumulator (4 · B·H·Nq·D bytes): ~1.5 operations a byte, far under
+// the card's ~295. What the design does about it: D / 8 lanes own a row,
+// 8 elements each (16 bytes of bf16, two float4 of fp32), and a thread
+// issues the loads of 4 rows before it sums any, so that each lane keeps
+// four 16-byte loads of O and four of dO in flight; the row's sum is a
+// shuffle reduction over its lanes (its order is not PyTorch's: D differs
+// from the plain version's in its last fp32 bits).
+
+namespace {
+
+constexpr int kDeltaThreads = 256;
+constexpr int kDeltaRows = 4;  // rows a thread loads before it sums
+
+// 8 elements at p (bf16, or fp32 under F32) as floats; p 16-byte aligned.
+template <bool F32>
+__device__ __forceinline__ void load8(const void* p, float (&x)[8]) {
+  if (F32) {
+    const float4 a = __ldg(static_cast<const float4*>(p));
+    const float4 b = __ldg(static_cast<const float4*>(p) + 1);
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+    x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+  } else {
+    const uint4 w = __ldg(static_cast<const uint4*>(p));
+    const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[2 * i] = __uint_as_float(u[i] << 16);
+      x[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+    }
+  }
+}
+
+// The (batch, head, row) strides of O and dO, in elements.
+struct DeltaStrides {
+  long long o[3], d[3];
+};
+
+template <int D, bool O32, bool DO32>
+__global__ void __launch_bounds__(kDeltaThreads)
+    bwd_delta_kernel(const void* __restrict__ o, const void* __restrict__ dout,
+                     float* __restrict__ delta, float* __restrict__ dq_acc,
+                     long long rows, int H, int Nq, const DeltaStrides st) {
+  constexpr int LPR = D / 8;                  // lanes of a row
+  constexpr int RPP = kDeltaThreads / LPR;    // rows of a block's pass
+  const int part = threadIdx.x % LPR;
+  const long long r0 =
+      (long long)blockIdx.x * RPP * kDeltaRows + threadIdx.x / LPR;
+  float x[kDeltaRows][8], y[kDeltaRows][8];
+#pragma unroll
+  for (int u = 0; u < kDeltaRows; ++u) {
+    const long long r = r0 + (long long)u * RPP;
+    if (r < rows) {
+      const long long b = r / ((long long)H * Nq);
+      const int h = (int)(r / Nq % H), i = (int)(r % Nq);
+      const long long oo = b * st.o[0] + h * st.o[1] + i * st.o[2] + part * 8;
+      const long long od = b * st.d[0] + h * st.d[1] + i * st.d[2] + part * 8;
+      load8<O32>(static_cast<const char*>(o) + oo * (O32 ? 4 : 2), x[u]);
+      load8<DO32>(static_cast<const char*>(dout) + od * (DO32 ? 4 : 2), y[u]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[u][e] = y[u][e] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kDeltaRows; ++u) {
+    const long long r = r0 + (long long)u * RPP;
+    float sum = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sum = fmaf(x[u][e], y[u][e], sum);
+#pragma unroll
+    for (int off = LPR / 2; off > 0; off >>= 1) {
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    }
+    if (r < rows) {
+      if (part == 0) delta[r] = sum;
+      if (dq_acc != nullptr) {
+        float4* row = reinterpret_cast<float4*>(dq_acc + r * D);
+#pragma unroll
+        for (int c = part; c < D / 4; c += LPR) {
+          row[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+    }
+  }
+}
+
+template <int D, bool O32, bool DO32>
+cudaError_t launch_delta(const void* o, const void* dout, float* delta,
+                         float* dq_acc, long long rows, int H, int Nq,
+                         const DeltaStrides& st, cudaStream_t stream) {
+  constexpr long long per_block = kDeltaThreads / (D / 8) * kDeltaRows;
+  const long long blocks = (rows + per_block - 1) / per_block;
+  bwd_delta_kernel<D, O32, DO32><<<(unsigned)blocks, kDeltaThreads, 0,
+                                   stream>>>(o, dout, delta, dq_acc, rows, H,
+                                             Nq, st);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_delta_types(const void* o, const void* dout, float* delta,
+                               float* dq_acc, long long rows, int H, int Nq,
+                               const DeltaStrides& st, int o_f32, int do_f32,
+                               cudaStream_t s) {
+  if (o_f32) {
+    return do_f32 ? launch_delta<D, true, true>(o, dout, delta, dq_acc, rows,
+                                                H, Nq, st, s)
+                  : launch_delta<D, true, false>(o, dout, delta, dq_acc, rows,
+                                                 H, Nq, st, s);
+  }
+  return do_f32 ? launch_delta<D, false, true>(o, dout, delta, dq_acc, rows, H,
+                                               Nq, st, s)
+                : launch_delta<D, false, false>(o, dout, delta, dq_acc, rows,
+                                                H, Nq, st, s);
+}
+
+}  // namespace
+
+// The backward's prologue, before K4 (or K2 + K3): delta [B,H,Nq] fp32 =
+// rowsum(dO ⊙ O), and dq_acc [B,H,Nq,D] fp32 contiguous set to zero when it
+// is not null (K4). o, dout [B,H,Nq,D], bf16 or fp32 each (o_f32, do_f32);
+// strides: o then dO, each (batch, head, row), in elements, rows of unit
+// stride and 16-byte aligned.
+extern "C" int cfa_bwd_delta(const void* o, const void* dout, void* delta,
+                             void* dq_acc, int B, int H, int Nq, int D,
+                             const long long* strides, int o_f32, int do_f32,
+                             void* stream) {
+  const long long rows = (long long)B * H * Nq;
+  if (rows == 0) return cudaSuccess;
+  DeltaStrides st;
+  for (int i = 0; i < 3; ++i) {
+    st.o[i] = strides[i];
+    st.d[i] = strides[3 + i];
+  }
+  float* dl = static_cast<float*>(delta);
+  float* dq = static_cast<float*>(dq_acc);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64:
+      return launch_delta_types<64>(o, dout, dl, dq, rows, H, Nq, st, o_f32,
+                                    do_f32, s);
+    case 128:
+      return launch_delta_types<128>(o, dout, dl, dq, rows, H, Nq, st, o_f32,
+                                     do_f32, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}

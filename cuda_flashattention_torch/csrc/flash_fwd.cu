@@ -33,6 +33,14 @@
 // (SEG), and its tiles always take the masked step. Under causal the Q
 // tiles are issued heaviest first (cta_tile).
 //
+// The 128-key build (KN = BN2, bf16 Q and K/V, every mask; `block_k` =
+// 128 on the host selects it) walks key tiles of 128: one m64n128 wgmma a
+// step for S, half the steps, barriers and softmax passes of the 64-key
+// walk. Its S (64 registers a thread) leaves no room for the overlap of
+// one tile's P·V under the next tile's softmax, which keeps a second S and
+// P live, so its steps run in order: S, the softmax, P·V. At d = 128 a K+V
+// stage is 64 KB: two stages beside the 32 KB Q tile.
+//
 // The kernel can be launched behind a device-side guard: it then exits
 // before anything else unless the bound form before it counted a loose
 // row, which is how the loose-bound fallback runs without a host round
@@ -54,16 +62,20 @@ constexpr int NCV = 3;  // converted K/V pairs (one-byte K/V), used in turn
 // tile's K and V scales (QUANT) and key segment ids (SEG); under QUANT NCV
 // converted K/V pairs (exact bf16, so one tile each under F32 too);
 // barriers. Split K/V tiles take twice the bytes: at d = 128 two stages
-// fit, else three (an fp32 Q over codes: 212 KB at d = 128).
-template <int D, bool QUANT, bool SEG, bool F32>
+// fit, else three (an fp32 Q over codes: 212 KB at d = 128); so do the
+// 128-key build's bf16 tiles (KN keys a tile).
+template <int D, bool QUANT, bool SEG, bool F32, int KN>
 struct Layout {
   using T = Tiles<D, false>;
-  static constexpr int NST = F32 && !QUANT && D == 128 ? 2 : 3;  // stages
+  static_assert(KN == BN || (!QUANT && !F32), "128 keys: bf16 K/V only");
+  static constexpr int NST = (F32 && !QUANT) || KN == BN2 ? (D == 128 ? 2 : 3)
+                                                         : 3;  // stages
+  static constexpr int kv16 = KN * D * 2;             // a bf16 K or V tile
   static constexpr int kvh =                          // K, then V
-      QUANT ? T::CODES : F32 ? 2 * T::KV16 : T::KV16;
+      QUANT ? T::CODES : F32 ? 2 * T::KV16 : kv16;
   static constexpr int tma_bytes = 2 * kvh;
   static constexpr int ids = tma_bytes + (QUANT ? 2 * BN * 4 : 0);
-  static constexpr int stage = align1k(ids + (SEG ? BN * 4 : 0));
+  static constexpr int stage = align1k(ids + (SEG ? KN * 4 : 0));
   static constexpr int st_off = align1k(F32 ? 2 * T::Q : T::Q);
   static constexpr int cv_v = align1k(T::KV16);        // V in a converted pair
   static constexpr int cv_stride = align1k(cv_v + T::KV16);
@@ -73,7 +85,7 @@ struct Layout {
   static_assert(bytes <= 232448, "the CTA's shared memory");
 };
 
-template <int D, bool QUANT, bool SEG, bool F32>
+template <int D, bool QUANT, bool SEG, bool F32, int KN>
 __global__ void __launch_bounds__(NTHREADS, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
@@ -84,7 +96,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   // the guard (a bound form's loose-row count) is read before anything
   if (guard != nullptr && *guard == 0) return;
   using T = Tiles<D, false>;
-  using L = Layout<D, QUANT, SEG, F32>;
+  using L = Layout<D, QUANT, SEG, F32, KN>;
   constexpr int NST = L::NST;
   // the producer warp's per-tile loads beside the TMA: scales, segment ids
   constexpr bool SIDE = QUANT || SEG;
@@ -102,7 +114,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const int hk = h0 / a.G;
   const int q_hi = min(q0 + a.R, a.Nq) - 1;
   int t_begin, t_end;
-  visible_tiles(a, q0, q_hi, 0, (a.Nk + BN - 1) / BN, t_begin, t_end);
+  visible_tiles<KN>(a, q0, q_hi, 0, (a.Nk + KN - 1) / KN, t_begin, t_end);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < NST; ++s) {
@@ -170,10 +182,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                         b);
           } else {
             for (int sl = 0; sl < T::SLABS; ++sl) {
-              tma_load_4d(dst + sl * BN * 128, &tm_k, full + 8 * st, sl * 64,
-                          t * BN, hk, b);
-              tma_load_4d(dst + L::kvh + sl * BN * 128, &tm_v, full + 8 * st,
-                          sl * 64, t * BN, hk, b);
+              tma_load_4d(dst + sl * KN * 128, &tm_k, full + 8 * st, sl * 64,
+                          t * KN, hk, b);
+              tma_load_4d(dst + L::kvh + sl * KN * 128, &tm_v, full + 8 * st,
+                          sl * 64, t * KN, hk, b);
             }
           }
         }
@@ -185,8 +197,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                             b, hk, t * BN, lane);
           }
           if (SEG) {
-            load_ids<32>(reinterpret_cast<int*>(stage + L::ids), kv_seg, a, b,
-                         t * BN, lane);
+            load_ids<32, KN>(reinterpret_cast<int*>(stage + L::ids), kv_seg,
+                             a, b, t * KN, lane);
           }
           mbar_arrive(full + 8 * st);
         }
@@ -263,7 +275,42 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     };
 
     const int n = t_end - t_begin;
-    if (n > 0) {
+    if constexpr (KN == BN2) {
+      // the 128-key walk, in order: S, its softmax, P·V
+      for (int i = 0; i < n; ++i) {
+        const int st = i % NST;
+        mbar_wait(full + 8 * st, (i / NST) & 1);
+        const int stage_off = L::st_off + st * L::stage;
+        const uint32_t kt = base + stage_off, vt = kt + L::kvh;
+        const int* kseg =
+            SEG ? reinterpret_cast<const int*>(smem + stage_off + L::ids)
+                : nullptr;
+        float s[KN / 2], alpha[2];
+        uint32_t p[KN / 4];
+        wgmma_fence();
+        qk_issue<D, false, KN>(s, base, kt, wg);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(s);
+        const int c0 = (t_begin + i) * KN;
+        if (!SEG && interior<KN>(a, c0, q0, q0 + a.R - 1)) {
+          online_step<false, false, false, false, KN>(
+              a, r, s, nullptr, nullptr, kseg, qseg, c0, m, l, alpha, p);
+        } else {
+          online_step<false, SEG, true, false, KN>(
+              a, r, s, nullptr, nullptr, kseg, qseg, c0, m, l, alpha, p);
+        }
+        scale_acc<D>(acc, alpha);
+        wgmma_fence();
+        pv_issue<D, KN>(acc, p, vt);
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int sl = 0; sl < D / 64; ++sl) fence_regs(acc[sl]);
+        // the stage's K, V and ids are read
+        if (lane == 0) mbar_arrive(empty + 8 * st);
+      }
+    } else if (n > 0) {
       uint32_t kt, vt;
       const float* ksc = nullptr;
       const float* vsc = nullptr;
@@ -330,16 +377,16 @@ struct Extra {
   const int* guard;
 };
 
-template <int D, bool QUANT, bool SEG, bool F32>
+template <int D, bool QUANT, bool SEG, bool F32, int KN = BN>
 cudaError_t launch(const Maps& mp, const Args& a, const Extra& x,
                    const F32Src& f, int B, cudaStream_t stream) {
-  const int smem = Layout<D, QUANT, SEG, F32>::bytes;
+  const int smem = Layout<D, QUANT, SEG, F32, KN>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, QUANT, SEG, F32>,
+      flash_fwd_kernel<D, QUANT, SEG, F32, KN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Nq + a.R - 1) / a.R, a.H / a.Gp, B);
-  flash_fwd_kernel<D, QUANT, SEG, F32>
+  flash_fwd_kernel<D, QUANT, SEG, F32, KN>
       <<<grid, NTHREADS, smem, stream>>>(mp.q, mp.k, mp.v, a, x.q_seg,
                                          x.kv_seg, x.guard, f);
   return cudaGetLastError();
@@ -347,9 +394,13 @@ cudaError_t launch(const Maps& mp, const Args& a, const Extra& x,
 
 template <int D>
 cudaError_t launch_form(const Maps& mp, const Args& a, const Extra& x,
-                        const F32Src& f, int B, bool f32,
+                        const F32Src& f, int B, bool f32, int kn,
                         cudaStream_t stream) {
   const bool seg = x.q_seg != nullptr;
+  if (kn == BN2) {  // bf16 Q and K/V (the entry point checked)
+    return seg ? launch<D, false, true, false, BN2>(mp, a, x, f, B, stream)
+               : launch<D, false, false, false, BN2>(mp, a, x, f, B, stream);
+  }
   if (f32 && a.k_type == kF32) {
     return seg ? launch<D, false, true, true>(mp, a, x, f, B, stream)
                : launch<D, false, false, true>(mp, a, x, f, B, stream);
@@ -375,11 +426,12 @@ cudaError_t launch_form(const Maps& mp, const Args& a, const Extra& x,
 // ([B,H,Nq,D] contiguous), lse ([B,H,Nq]). strides: q, k, v, each (batch,
 // head, row), in elements, rows 16-byte aligned. k_type/v_type: 0 bf16, 1
 // int8, 2 fp8 e4m3, 3 fp32 (K and V both bf16, both one-byte or, with an
-// fp32 Q, both fp32). q_f32: an fp32 Q (over fp32 or one-byte K/V).
+// fp32 Q, both fp32). q_f32: an fp32 Q (over fp32 or one-byte K/V). kn:
+// keys of a tile, 64, or 128 (bf16 Q and K/V only).
 extern "C" int cfa_flash_fwd(void* const* ptrs, int B, int H, int Hkv, int Nq,
                              int Nk, int D, const long long* strides,
                              int k_type, int v_type, int q_f32, int causal,
-                             int window, int kv_offset, int out_f32,
+                             int window, int kv_offset, int out_f32, int kn,
                              void* stream) {
   if (B == 0 || H == 0 || Nq == 0) return cudaSuccess;
   if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
@@ -387,6 +439,9 @@ extern "C" int cfa_flash_fwd(void* const* ptrs, int B, int H, int Hkv, int Nq,
   if ((k_type == kF32) != (v_type == kF32)) return cudaErrorInvalidValue;
   const bool f32 = q_f32 != 0;
   if (f32 ? k_type == kBf16 : k_type == kF32) return cudaErrorInvalidValue;
+  if (kn != BN && (kn != BN2 || f32 || k_type != kBf16)) {
+    return cudaErrorInvalidValue;
+  }
   Args a = {};
   a.k_scale = static_cast<const float*>(ptrs[3]);
   a.v_scale = static_cast<const float*>(ptrs[4]);
@@ -416,15 +471,15 @@ extern "C" int cfa_flash_fwd(void* const* ptrs, int B, int H, int Hkv, int Nq,
   if (f32) f = f32_src(ptrs, strides);
   if (k_type != kF32 &&
       !make_maps(&mp, f32 ? nullptr : ptrs[0], ptrs[1], ptrs[2], B, H, Hkv,
-                 Nq, Nk, D, strides, k_type, v_type, 0, a.Gp, a.R)) {
+                 Nq, Nk, D, strides, k_type, v_type, 0, a.Gp, a.R, kn)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch_form<64>(mp, a, x, f, B, f32, s);
+      return launch_form<64>(mp, a, x, f, B, f32, kn, s);
     case 128:
-      return launch_form<128>(mp, a, x, f, B, f32, s);
+      return launch_form<128>(mp, a, x, f, B, f32, kn, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -26,7 +26,10 @@
 // beside them) while the consumers run wgmma; S, P, l and O never leave
 // registers. One-byte K/V tiles are converted once per CTA and key tile,
 // into a double-buffered bf16 (or s8) tile, for all Gp heads at once.
-// Interior tiles skip the element mask.
+// Interior tiles skip the element mask. The 128-key build (KN = BN2, bf16
+// Q and K/V; `block_k` = 128 on the host selects it) walks key tiles of
+// 128 with one m64n128 wgmma a step for S: half the steps, barriers and
+// bound passes; two stages of 64 KB at d = 128.
 
 #include "flash_fwd_bound_sm90.cuh"
 
@@ -45,12 +48,13 @@ constexpr int stages() { return QUANT ? 3 : 2; }
 // V scales; under F32 without QUANT the producer warpgroup's hi and lo
 // tiles of each); under QUANT two converted K/V pairs (exact bf16 tiles),
 // used in turn; barriers.
-template <int D, bool QUANT, bool QQ, bool F32>
+template <int D, bool QUANT, bool QQ, bool F32, int KN>
 struct Layout {
   using T = Tiles<D, QQ>;
+  static_assert(KN == BN || (!QUANT && !F32), "128 keys: bf16 K/V only");
   static constexpr int NST = stages<QUANT>();
   static constexpr int kvh =                          // K, then V
-      QUANT ? T::CODES : F32 ? 2 * T::KV16 : T::KV16;
+      QUANT ? T::CODES : F32 ? 2 * T::KV16 : KN * D * 2;
   static constexpr int tma_bytes = 2 * kvh;
   static constexpr int stage = align1k(tma_bytes + (QUANT ? 2 * BN * 4 : 0));
   static constexpr int st_off = align1k(F32 ? 2 * T::Q : T::Q);
@@ -62,7 +66,7 @@ struct Layout {
   static_assert(bytes <= 232448, "the CTA's shared memory");
 };
 
-template <int D, bool QUANT, bool QQ, bool F32>
+template <int D, bool QUANT, bool QQ, bool F32, int KN>
 __global__ void __launch_bounds__(NTHREADS, 1)
     flash_fwd_bound_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
@@ -71,7 +75,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   static_assert(QUANT || !QQ, "quantize_q reads quantized K/V");
   static_assert(!(QQ && F32), "quantize_q's Q is int8");
   using T = Tiles<D, QQ>;
-  using L = Layout<D, QUANT, QQ, F32>;
+  using L = Layout<D, QUANT, QQ, F32, KN>;
   constexpr int NST = L::NST;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -86,7 +90,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const int hk = h0 / a.G;
   const int q_hi = min(q0 + a.R, a.Nq) - 1;
   int t_begin, t_end;
-  visible_tiles(a, q0, q_hi, 0, (a.Nk + BN - 1) / BN, t_begin, t_end);
+  visible_tiles<KN>(a, q0, q_hi, 0, (a.Nk + KN - 1) / KN, t_begin, t_end);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < NST; ++s) {
@@ -151,10 +155,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                         b);
           } else {
             for (int sl = 0; sl < T::SLABS; ++sl) {
-              tma_load_4d(dst + sl * BN * 128, &tm_k, full + 8 * st, sl * 64,
-                          t * BN, hk, b);
-              tma_load_4d(dst + L::kvh + sl * BN * 128, &tm_v, full + 8 * st,
-                          sl * 64, t * BN, hk, b);
+              tma_load_4d(dst + sl * KN * 128, &tm_k, full + 8 * st, sl * 64,
+                          t * KN, hk, b);
+              tma_load_4d(dst + L::kvh + sl * KN * 128, &tm_v, full + 8 * st,
+                          sl * 64, t * KN, hk, b);
             }
           }
         }
@@ -184,7 +188,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     mbar_wait(q_bar, 0);
     for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
       const int st = i % NST;
-      const int c0 = t * BN;
+      const int c0 = t * KN;
       mbar_wait(full + 8 * st, (i / NST) & 1);
       const int stage_off = L::st_off + st * L::stage;
       uint32_t kt = base + stage_off, vt = kt + L::kvh;
@@ -210,41 +214,63 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         ksc = reinterpret_cast<const float*>(smem + stage_off + L::tma_bytes);
         vsc = ksc + BN;
       }
-      float s[32];
-      qk<D, QQ, F32, QUANT>(s, base, kt, wg);
-      uint32_t p[16], p_lo[16];  // under F32 P = p + p_lo
-      if (interior(a, c0, q0, q0 + a.R - 1)) {
-        bound_step<QUANT, QQ, false, F32>(a, r, s, ksc, vsc, c0, l, p, p_lo);
+      float s[KN / 2];
+      if constexpr (KN == BN2) {
+        wgmma_fence();
+        qk_issue<D, false, KN>(s, base, kt, wg);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(s);
       } else {
-        bound_step<QUANT, QQ, true, F32>(a, r, s, ksc, vsc, c0, l, p, p_lo);
+        qk<D, QQ, F32, QUANT>(s, base, kt, wg);
+      }
+      uint32_t p[KN / 4], p_lo[KN / 4];  // under F32 P = p + p_lo
+      if (interior<KN>(a, c0, q0, q0 + a.R - 1)) {
+        bound_step<QUANT, QQ, false, F32, KN>(a, r, s, ksc, vsc, c0, l, p,
+                                              p_lo);
+      } else {
+        bound_step<QUANT, QQ, true, F32, KN>(a, r, s, ksc, vsc, c0, l, p,
+                                             p_lo);
       }
       // the stage is read: its codes and scales (QUANT) or its K (bf16;
       // V is read by the P·V below, which completes before the next wait)
       if (QUANT && lane == 0) mbar_arrive(empty + 8 * st);
-      pv<D, F32, QUANT>(acc, p, vt, p_lo);
+      if constexpr (KN == BN2) {
+        wgmma_fence();
+        pv_issue<D, KN>(acc, p, vt);
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int sl = 0; sl < D / 64; ++sl) fence_regs(acc[sl]);
+      } else {
+        pv<D, F32, QUANT>(acc, p, vt, p_lo);
+      }
       if (!QUANT && lane == 0) mbar_arrive(empty + 8 * st);
     }
     store_rows<D>(a, r, acc, l, b);
   }
 }
 
-template <int D, bool QUANT, bool QQ, bool F32>
+template <int D, bool QUANT, bool QQ, bool F32, int KN = BN>
 cudaError_t launch(const Maps& m, const Args& a, const F32Src& f, int B,
                    cudaStream_t stream) {
-  const int smem = Layout<D, QUANT, QQ, F32>::bytes;
+  const int smem = Layout<D, QUANT, QQ, F32, KN>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bound_kernel<D, QUANT, QQ, F32>,
+      flash_fwd_bound_kernel<D, QUANT, QQ, F32, KN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Nq + a.R - 1) / a.R, a.H / a.Gp, B);
-  flash_fwd_bound_kernel<D, QUANT, QQ, F32>
+  flash_fwd_bound_kernel<D, QUANT, QQ, F32, KN>
       <<<grid, NTHREADS, smem, stream>>>(m.q, m.k, m.v, a, f);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_form(const Maps& m, const Args& a, const F32Src& f, int B,
-                        int qq, bool f32, cudaStream_t stream) {
+                        int qq, bool f32, int kn, cudaStream_t stream) {
+  if (kn == BN2) {  // bf16 Q and K/V (the entry point checked)
+    return launch<D, false, false, false, BN2>(m, a, f, B, stream);
+  }
   if (f32) {  // an fp32 Q over fp32 K/V, or over one-byte K/V
     return a.k_type == kF32 ? launch<D, false, false, true>(m, a, f, B, stream)
                             : launch<D, true, false, true>(m, a, f, B, stream);
@@ -265,12 +291,13 @@ cudaError_t launch_form(const Maps& m, const Args& a, const F32Src& f, int B,
 // 16-byte aligned. k_type/v_type: 0 bf16, 1 int8, 2 fp8 e4m3, 3 fp32 (K
 // and V both bf16, both one-byte or, with an fp32 Q, both fp32). q_f32:
 // an fp32 Q (over fp32 or one-byte K/V; not with qq, whose Q is int8).
+// kn: keys of a tile, 64, or 128 (bf16 Q and K/V only).
 extern "C" int cfa_flash_fwd_bound(void* const* ptrs, int B, int H, int Hkv,
                                    int Nq, int Nk, int D,
                                    const long long* strides, int k_type,
                                    int v_type, int q_f32, int qq, int causal,
                                    int window, int kv_offset, int out_f32,
-                                   void* stream) {
+                                   int kn, void* stream) {
   if (B == 0 || H == 0 || Nq == 0) return cudaSuccess;
   if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
   if ((k_type == kBf16) != (v_type == kBf16)) return cudaErrorInvalidValue;
@@ -278,6 +305,9 @@ extern "C" int cfa_flash_fwd_bound(void* const* ptrs, int B, int H, int Hkv,
   const bool f32 = q_f32 != 0;
   if (f32 ? k_type == kBf16 : k_type == kF32) return cudaErrorInvalidValue;
   if (qq && (k_type == kBf16 || f32)) return cudaErrorInvalidValue;
+  if (kn != BN && (kn != BN2 || f32 || k_type != kBf16)) {
+    return cudaErrorInvalidValue;
+  }
   Args a = {};
   a.k_scale = static_cast<const float*>(ptrs[3]);
   a.v_scale = static_cast<const float*>(ptrs[4]);
@@ -304,15 +334,15 @@ extern "C" int cfa_flash_fwd_bound(void* const* ptrs, int B, int H, int Hkv,
   if (f32) f = f32_src(ptrs, strides);
   if (k_type != kF32 &&
       !make_maps(&m, f32 ? nullptr : ptrs[0], ptrs[1], ptrs[2], B, H, Hkv,
-                 Nq, Nk, D, strides, k_type, v_type, qq, a.Gp, a.R)) {
+                 Nq, Nk, D, strides, k_type, v_type, qq, a.Gp, a.R, kn)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch_form<64>(m, a, f, B, qq, f32, s);
+      return launch_form<64>(m, a, f, B, qq, f32, kn, s);
     case 128:
-      return launch_form<128>(m, a, f, B, qq, f32, s);
+      return launch_form<128>(m, a, f, B, qq, f32, kn, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -76,6 +76,9 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int BM = 128;        // query rows of a tile (two warpgroups)
 constexpr int BN = 64;         // keys of a tile
+// K1's and K1b's second key tile (bf16 Q and K/V only): `block_k` = 128
+// selects it; every other kernel and form keeps BN
+constexpr int BN2 = 128;
 constexpr int NTHREADS = 384;  // two consumer warpgroups and the producer's
 constexpr int NCONSUMER = 256;
 constexpr int kBf16 = 0, kInt8 = 1, kFp8 = 2, kF32 = 3;  // storage codes
@@ -234,6 +237,36 @@ __device__ __forceinline__ void wgmma_ss_bf16(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+#define CFA_D32_HI(d)                                                     \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),        \
+      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),    \
+      "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),    \
+      "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),    \
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),    \
+      "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),    \
+      "+f"(d[62]), "+f"(d[63])
+#define CFA_REGS64                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+
+// D[64x128] (+)= A[64x16] · B[16x128], bf16 from shared memory, both
+// K-major (the 128-key tile's S: d[j] is row (j >> 1) & 1 of the thread's
+// pair, column 8·(j >> 2) + 2·(lane & 3) + (j & 1), as two m64n64 halves
+// side by side would hold it).
+__device__ __forceinline__ void wgmma_ss_bf16_n128(float (&d)[64], uint64_t da,
+                                                   uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " CFA_REGS64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : CFA_D32(d), CFA_D32_HI(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D[64x64] (+)= A[64x32] · B[32x64], s8 from shared memory, int32 sums.
 __device__ __forceinline__ void wgmma_ss_s8(int (&d)[32], uint64_t da,
                                             uint64_t db, int accumulate) {
@@ -354,7 +387,8 @@ struct Maps {
 
 // The maps of one call. Q [B,H,Nq,D] (bf16, or int8 under quantize_q) in
 // boxes of a slab's columns x R positions x Gp heads; K and V
-// [B,Hkv,Nk,D] in boxes of 64 keys: bf16 as 64-column slabs, 128 B
+// [B,Hkv,Nk,D] in boxes of kn keys (BN, or BN2 for the 128-key builds of
+// K1 and K1b): bf16 as 64-column slabs, 128 B
 // swizzled, one-byte codes whole rows unswizzled (the consumers convert
 // them); no Q map when q is null (an fp32 Q, which the producer
 // warpgroup reads and splits). strides: q, k, v, each (batch, head, row),
@@ -362,7 +396,7 @@ struct Maps {
 inline bool make_maps(Maps* m, const void* q, const void* k, const void* v,
                       int B, int H, int Hkv, int Nq, int Nk, int D,
                       const long long* st, int k_type, int v_type, int qq,
-                      int Gp, int R) {
+                      int Gp, int R, int kn = BN) {
   const int qe = qq ? 1 : 2;
   bool ok = q == nullptr ||
             encode4(&m->q, q, qq, D, Nq, H, B, st[2] * qe, st[1] * qe,
@@ -375,7 +409,7 @@ inline bool make_maps(Maps* m, const void* q, const void* k, const void* v,
     const int e = byte ? 1 : 2;
     const long long* s = st + 3 * (i + 1);
     ok = ok && encode4(maps[i], kv[i], byte, D, Nk, Hkv, B, s[2] * e,
-                       s[1] * e, s[0] * e, byte ? D : 64, BN, 1,
+                       s[1] * e, s[0] * e, byte ? D : 64, kn, 1,
                        byte ? 0 : 128);
   }
   return ok;
@@ -522,13 +556,13 @@ __device__ __forceinline__ void load_scales(float* sc, const Args& a, int b,
   }
 }
 
-// One key tile's segment ids, ids[0..BN) (past the ragged end the pair is
+// One key tile's segment ids, ids[0..KN) (past the ragged end the pair is
 // masked by the column test), by NT threads; kv_seg is [B,Nk].
-template <int NT>
+template <int NT, int KN = BN>
 __device__ __forceinline__ void load_ids(int* ids, const int* kv_seg,
                                          const Args& a, int b, int c0,
                                          int tid) {
-  for (int i = tid; i < BN; i += NT) {
+  for (int i = tid; i < KN; i += NT) {
     const int c = c0 + i;
     ids[i] = c < a.Nk ? kv_seg[(long long)b * a.Nk + c] : -1;
   }
@@ -593,9 +627,10 @@ __device__ __forceinline__ Rows row_info(const Args& a, int b, int h0, int q0,
   return r;
 }
 
-// Key tiles [t_begin, t_end) within [t_lo, t_hi) that positions q_lo..q_hi
-// can see: causal rows see keys <= pos + kv_offset, windowed ones keys
-// > pos + kv_offset − window.
+// Key tiles [t_begin, t_end) of KN keys within [t_lo, t_hi) that positions
+// q_lo..q_hi can see: causal rows see keys <= pos + kv_offset, windowed
+// ones keys > pos + kv_offset − window.
+template <int KN = BN>
 __device__ __forceinline__ void visible_tiles(const Args& a, int q_lo, int q_hi,
                                               int t_lo, int t_hi, int& t_begin,
                                               int& t_end) {
@@ -603,46 +638,53 @@ __device__ __forceinline__ void visible_tiles(const Args& a, int q_lo, int q_hi,
   t_end = t_hi;
   if (a.causal) {
     const int kv_end = min(a.Nk, max(0, q_hi + a.kv_offset + 1));
-    t_end = min(t_end, (kv_end + BN - 1) / BN);
+    t_end = min(t_end, (kv_end + KN - 1) / KN);
     if (a.window > 0) {
-      t_begin = max(t_begin, max(0, q_lo + a.kv_offset - a.window + 1) / BN);
+      t_begin = max(t_begin, max(0, q_lo + a.kv_offset - a.window + 1) / KN);
     }
   }
 }
 
-// Whether every (position in q_lo..q_hi, key of the tile at c0) pair is
-// visible, so that the element mask can be skipped.
+// Whether every (position in q_lo..q_hi, key of the KN-key tile at c0)
+// pair is visible, so that the element mask can be skipped.
+template <int KN = BN>
 __device__ __forceinline__ bool interior(const Args& a, int c0, int q_lo,
                                          int q_hi) {
-  if (c0 + BN > a.Nk) return false;
+  if (c0 + KN > a.Nk) return false;
   if (a.causal) {
-    if (c0 + BN - 1 > q_lo + a.kv_offset) return false;
+    if (c0 + KN - 1 > q_lo + a.kv_offset) return false;
     if (a.window > 0 && c0 <= q_hi + a.kv_offset - a.window) return false;
   }
   return true;
 }
 
 // The two products of a tile pair, issued without a fence, a commit or a
-// wait: S = Q·Kᵀ of this warpgroup's rows (bf16; ACC adds into s) and acc
-// += P·V. qk() and pv() wait for each; the online walk overlaps them.
-template <int D, bool ACC = false>
-__device__ __forceinline__ void qk_issue(float (&s)[32], uint32_t q,
+// wait: S = Q·Kᵀ of this warpgroup's rows (bf16; ACC adds into s) over a
+// K tile of KN keys (BN, or BN2: one m64n128 wgmma a step, s holding 64
+// columns a thread's row pair more) and acc += P·V. qk() and pv() wait for
+// each; the online walk overlaps them.
+template <int D, bool ACC = false, int KN = BN>
+__device__ __forceinline__ void qk_issue(float (&s)[KN / 2], uint32_t q,
                                          uint32_t k, int wg) {
+  static_assert(KN == BN || KN == BN2, "key tiles of 64 or 128");
 #pragma unroll
   for (int sl = 0; sl < D / 64; ++sl) {
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      wgmma_ss_bf16(
-          s,
-          make_desc(q + sl * BM * 128 + wg * 64 * 128 + kk * 32, 16, 1024,
-                    1),
-          make_desc(k + sl * BN * 128 + kk * 32, 16, 1024, 1),
-          ACC || sl + kk > 0);
+      const uint64_t da =
+          make_desc(q + sl * BM * 128 + wg * 64 * 128 + kk * 32, 16, 1024, 1);
+      const uint64_t db = make_desc(k + sl * KN * 128 + kk * 32, 16, 1024, 1);
+      if constexpr (KN == BN2) {
+        wgmma_ss_bf16_n128(s, da, db, ACC || sl + kk > 0);
+      } else {
+        wgmma_ss_bf16(s, da, db, ACC || sl + kk > 0);
+      }
     }
   }
 }
 
-// (KN: the keys of the V tile, 64 or K3's fp32 32; P holds KN / 4 pairs)
+// (KN: the keys of the V tile, 64, K3's fp32 32 or the 128-key builds' BN2;
+// P holds KN / 4 pairs)
 template <int D, int KN = BN>
 __device__ __forceinline__ void pv_issue(float (&acc)[D / 64][32],
                                          const uint32_t (&p)[KN / 4],
@@ -867,20 +909,20 @@ __device__ __forceinline__ void scale_acc(float (&acc)[D / 64][32],
   }
 }
 
-// The bound step on this thread's 32 scores of a tile pair: p = 2^(s − c)
-// (0 where masked), l += p, P = bf16(p · v_scale) packed in pairs (under
-// F32 split: P = p + p_lo). With MASKED false every pair is visible and no
-// element is tested.
-template <bool QUANT, bool QQ, bool MASKED, bool F32 = false>
+// The bound step on this thread's KN / 2 scores of a tile pair (32, or 64
+// over a BN2 tile): p = 2^(s − c) (0 where masked), l += p, P = bf16(p ·
+// v_scale) packed in pairs (under F32 split: P = p + p_lo). With MASKED
+// false every pair is visible and no element is tested.
+template <bool QUANT, bool QQ, bool MASKED, bool F32 = false, int KN = BN>
 __device__ __forceinline__ void bound_step(const Args& a, const Rows& r,
-                                           const float (&s)[32],
+                                           const float (&s)[KN / 2],
                                            const float* ksc, const float* vsc,
                                            int c0, float (&l)[2],
-                                           uint32_t (&p)[16],
+                                           uint32_t (&p)[KN / 4],
                                            uint32_t* p_lo = nullptr) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int i = 0; i < 32; i += 2) {
+  for (int i = 0; i < KN / 2; i += 2) {
     float pr[2];
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
@@ -911,7 +953,7 @@ __device__ __forceinline__ void bound_step(const Args& a, const Rows& r,
   }
 }
 
-// The online step on this thread's 32 scores of a tile pair (its two
+// The online step on this thread's KN / 2 scores of a tile pair (its two
 // rows' columns in wgmma's accumulator layout; the four lanes of a quad
 // share a row): the tile's row max over visible pairs, m_new = max(m, it),
 // α = 2^(m − m_new) applied to l and returned for acc (which the caller
@@ -920,16 +962,16 @@ __device__ __forceinline__ void bound_step(const Args& a, const Rows& r,
 // split: P = p + p_lo). With MASKED false every pair is visible and no
 // element is tested; SEG adds the segment-id test (kseg: the tile's key
 // ids, qseg: the two rows' ids).
-template <bool QUANT, bool SEG, bool MASKED, bool F32 = false>
+template <bool QUANT, bool SEG, bool MASKED, bool F32 = false, int KN = BN>
 __device__ __forceinline__ void online_step(
-    const Args& a, const Rows& r, float (&s)[32], const float* ksc,
+    const Args& a, const Rows& r, float (&s)[KN / 2], const float* ksc,
     const float* vsc, const int* kseg, const int (&qseg)[2], int c0,
-    float (&m)[2], float (&l)[2], float (&alpha)[2], uint32_t (&p)[16],
+    float (&m)[2], float (&l)[2], float (&alpha)[2], uint32_t (&p)[KN / 4],
     uint32_t* p_lo = nullptr) {
   const int lane = threadIdx.x & 31;
   float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-  for (int j = 0; j < 32; ++j) {
+  for (int j = 0; j < KN / 2; ++j) {
     const int col = 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
     const int hr = (j >> 1) & 1;
     float x = s[j];
@@ -958,7 +1000,7 @@ __device__ __forceinline__ void online_step(
     l[hr] *= alpha[hr];
   }
 #pragma unroll
-  for (int i = 0; i < 32; i += 2) {
+  for (int i = 0; i < KN / 2; i += 2) {
     float pr[2];
 #pragma unroll
     for (int e = 0; e < 2; ++e) {

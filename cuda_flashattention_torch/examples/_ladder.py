@@ -13,15 +13,16 @@ returns 0 or 1.
 from __future__ import annotations
 
 import argparse
-import os
 import time
 from typing import Callable, List, Optional
 
 import torch
 
+from cuda_flashattention_torch import config
+
 # the ring stages' sequence: the reference's 5096 (not a tile multiple),
 # or what $CFA_LADDER_SEQ says (the CPU tests use a shorter one)
-LADDER_SEQ = int(os.environ.get("CFA_LADDER_SEQ", "5096"))
+LADDER_SEQ = config.LADDER_SEQ.as_int
 DEFAULT_RANKS = 8  # the JAX stages' virtual mesh
 
 

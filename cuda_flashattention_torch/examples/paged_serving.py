@@ -11,13 +11,13 @@ and `paged_decode_step`, each held within 1e-5 against
 0 retires (3 pages reclaimed) and a reservation of 16 tokens takes one of
 them back. Inputs are numpy draws seeded with 11, as the JAX stage's.
 
-The JAX stage passes `block_k=page` to `decode_attention`; that argument
-sets the TPU kernel's key block, which the port's kernel does not have
-(it walks keys, and raises on `block_k`), so the call here leaves it out:
-the function is the same. On the card `paged_decode_step` runs K7's fp32
-build at d = 32 and the shadow's `decode_attention` K6's, which sums the
-same keys in the same order. `--ranks` and `--one-card` are taken for the
-ladder's sake and unused: the stage runs on card 0.
+The shadow's `decode_attention` takes `block_k=page`, as in the JAX
+stage: on the card K6 then splits the context into pages of keys (its
+split size), so each split sums one page's keys; on the CPU the plain
+version takes no tile. On the card `paged_decode_step` runs K7's fp32
+build at d = 32 and the shadow's `decode_attention` K6's. `--ranks` and
+`--one-card` are taken for the ladder's sake and unused: the stage runs
+on card 0.
 """
 
 from __future__ import annotations
@@ -89,8 +89,8 @@ def run(dev):
         outs.append(paged_decode_step(put(q), cache)[0])
         lengths = torch.full((B,), PROMPT + 1 + t, dtype=torch.int32,
                              device=dev)
-        refs.append(decode_attention(put(q), shadow_k, shadow_v,
-                                     lengths)[0])
+        refs.append(decode_attention(put(q), shadow_k, shadow_v, lengths,
+                                     block_k=PAGE)[0])
 
     # retire sequence 0, reuse its pages
     free_before = len(alloc.free)

@@ -51,7 +51,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from cuda_flashattention_torch.ops.attention import flash_attention
-from cuda_flashattention_torch.ops.common import cdiv
+from cuda_flashattention_torch.ops.common import BlockSizes, cdiv
 from cuda_flashattention_torch.ops.flash_fwd import flash_attention_forward
 from cuda_flashattention_torch.ops.kv_cache import (
     KVCache,
@@ -225,12 +225,14 @@ def _project_qkv(w: Dict[str, torch.Tensor], h: torch.Tensor,
 
 
 def _attention_block(w: Dict[str, torch.Tensor], x: torch.Tensor,
-                     cfg: TransformerConfig,
-                     positions: torch.Tensor) -> torch.Tensor:
+                     cfg: TransformerConfig, positions: torch.Tensor,
+                     block_sizes: Optional[BlockSizes] = None
+                     ) -> torch.Tensor:
     """x + attention(norm(x)) for one layer's weights `w`."""
     b, t, _ = x.shape
     qt, kt, vt = _qkv(w, x, cfg, positions)
-    o = flash_attention(qt, kt, vt, causal=True, window=cfg.window)
+    o = flash_attention(qt, kt, vt, causal=True, window=cfg.window,
+                        block_sizes=block_sizes)
     o = o.transpose(1, 2).reshape(b, t, cfg.d_q)
     return x + F.linear(o, w["wo"]).to(x.dtype)
 
@@ -251,7 +253,8 @@ def _mlp_block(w: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
 def forward(model, tokens: torch.Tensor, mesh: Optional[Mesh] = None,
             seq_axis: Optional[str] = None,
             batch_axis: Optional[str] = None,
-            head_axis: Optional[str] = None) -> torch.Tensor:
+            head_axis: Optional[str] = None,
+            block_sizes: Optional[BlockSizes] = None) -> torch.Tensor:
     """Causal LM forward: tokens [B, T] → fp32 logits [B, T, V] on the
     tokens' device, with attention through the differentiable
     `flash_attention(causal=True)`.
@@ -264,21 +267,24 @@ def forward(model, tokens: torch.Tensor, mesh: Optional[Mesh] = None,
     `model` is the `ShardedTransformer` that `shard_model` placed, which
     carries its mesh and axes (the keywords may repeat them); a plain
     `Transformer` with a mesh raises TypeError. Only the logits are
-    gathered onto the tokens' device."""
+    gathered onto the tokens' device. `block_sizes` reaches every
+    attention call, forward and backward."""
     plan = _plan_for(model, tokens, mesh, seq_axis, batch_axis, head_axis)
     if plan is None:
-        return _forward_plain(model, tokens)
-    per_rank = _forward_ranks(model, tokens, plan, lambda r, logits: logits)
+        return _forward_plain(model, tokens, block_sizes)
+    per_rank = _forward_ranks(model, tokens, plan, lambda r, logits: logits,
+                              block_sizes)
     return _assemble(plan, per_rank, tokens)
 
 
-def _forward_plain(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+def _forward_plain(model: Transformer, tokens: torch.Tensor,
+                   block_sizes: Optional[BlockSizes] = None) -> torch.Tensor:
     cfg = model.cfg
     x = model.embed[tokens].to(cfg.dtype)
     positions = torch.arange(tokens.shape[1], device=x.device)
     for blk in model.layers:
         w = layer_weights(blk)
-        x = _attention_block(w, x, cfg, positions)
+        x = _attention_block(w, x, cfg, positions, block_sizes)
         x = _mlp_block(w, x)
     return model.unembed(x)
 
@@ -287,16 +293,18 @@ def loss_fn(model, tokens: torch.Tensor, **fwd_kw) -> torch.Tensor:
     """Next-token cross entropy: targets are the tokens rolled by −1, and
     the mean NLL is taken over positions [:, :-1] (the wrapped-around last
     position is dropped), as the JAX package's `loss_fn`. `fwd_kw`
-    (`mesh`, `seq_axis`, `batch_axis`, `head_axis`) go to `forward`.
+    (`mesh`, `seq_axis`, `batch_axis`, `head_axis`, `block_sizes`) go to
+    `forward`.
 
     On a mesh the targets are made from the global tokens before they are
     cut, so the last row of a sequence block keeps its target in the next
     block; each rank sums the NLL of its rows (the global last position
     and the padding have none) and the ranks' sums are added on the
     tokens' device and divided by B · (T − 1)."""
+    block_sizes = fwd_kw.pop("block_sizes", None)
     plan = _plan_for(model, tokens, **fwd_kw)
     if plan is None:
-        logits = _forward_plain(model, tokens)
+        logits = _forward_plain(model, tokens, block_sizes)
         targets = torch.roll(tokens, -1, dims=1).long()
         return F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
                                targets[:, :-1].reshape(-1))
@@ -306,7 +314,7 @@ def loss_fn(model, tokens: torch.Tensor, **fwd_kw) -> torch.Tensor:
         return F.cross_entropy(logits, targets, ignore_index=-1,
                                reduction="sum")
 
-    per_rank = _forward_ranks(model, tokens, plan, nll_sum)
+    per_rank = _forward_ranks(model, tokens, plan, nll_sum, block_sizes)
     b, t = tokens.shape
     total = sum(x.to(tokens.device) for x in per_rank.values())
     return total / (b * (t - 1))
@@ -328,7 +336,8 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, **fwd_kw):
     raises TypeError, as `forward` does."""
     sharded = isinstance(model, ShardedTransformer)
     if not sharded:
-        _needs_placed(**fwd_kw)
+        _needs_placed(**{k: v for k, v in fwd_kw.items()
+                         if k != "block_sizes"})
 
     def step(tokens: torch.Tensor) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
@@ -476,8 +485,9 @@ def _scatter_rows(plan: _MeshPlan, xs):
     return reduce_scatter_to_axis(plan.mesh, plan.head_axis, xs, 0)
 
 
-def _forward_ranks(model, tokens: torch.Tensor, plan: _MeshPlan,
-                   head) -> Dict[int, torch.Tensor]:
+def _forward_ranks(model, tokens: torch.Tensor, plan: _MeshPlan, head,
+                   block_sizes: Optional[BlockSizes] = None
+                   ) -> Dict[int, torch.Tensor]:
     """Every layer on the ranks: {rank: head(rank, fp32 logits of the
     rank's rows)}, computed on the rank's stream."""
     cfg, mesh = model.cfg, plan.mesh
@@ -508,13 +518,15 @@ def _forward_ranks(model, tokens: torch.Tensor, plan: _MeshPlan,
                         lw[r], h[r].view(n_b, ell, -1), cfg, pos[r])
             if plan.seq_axis:
                 o = ring_attention_local(q, k, v, mesh, plan.seq_axis,
-                                         causal=True, window=cfg.window)
+                                         causal=True, window=cfg.window,
+                                         block_sizes=block_sizes)
             else:
                 o = {}
                 for r in ranks:
                     with mesh.on(r):
                         o[r] = flash_attention(q[r], k[r], v[r], causal=True,
-                                               window=cfg.window)
+                                               window=cfg.window,
+                                               block_sizes=block_sizes)
             part = {}
             for r in ranks:
                 with mesh.on(r):
@@ -807,15 +819,17 @@ def init_caches(cfg: TransformerConfig, batch: int, max_len: int,
 
 
 def prefill(model: Transformer, tokens: torch.Tensor,
-            caches: Tuple[KVCache, ...]):
+            caches: Tuple[KVCache, ...],
+            block_sizes: Optional[BlockSizes] = None):
     """Run the prompt through the model, filling the caches (in place).
     Returns (logits_last [B, V] fp32, caches)."""
-    return prefill_chunk(model, tokens, 0, caches)
+    return prefill_chunk(model, tokens, 0, caches, block_sizes=block_sizes)
 
 
 @torch.no_grad()
 def prefill_chunk(model: Transformer, tokens: torch.Tensor, start: int,
-                  caches: Tuple[KVCache, ...]):
+                  caches: Tuple[KVCache, ...],
+                  block_sizes: Optional[BlockSizes] = None):
     """Prefill one chunk of C tokens starting at position `start`: the
     chunk attends itself causally (with the model's window, if any) and,
     when start > 0, the cached prefix, read in its storage type with the
@@ -829,7 +843,7 @@ def prefill_chunk(model: Transformer, tokens: torch.Tensor, start: int,
     the band is causal + window with kv_offset = start − lo (every prefix
     column is causally visible; the window cut is the kernel's mask). Rows
     whose window misses the prefix come back with LSE = NEG_INF and drop
-    out of the combine."""
+    out of the combine. `block_sizes` reaches both forward calls."""
     cfg = model.cfg
     b, c = tokens.shape
     x = model.embed[tokens].to(cfg.dtype)
@@ -839,7 +853,7 @@ def prefill_chunk(model: Transformer, tokens: torch.Tensor, start: int,
         cache_append(cache, kt, vt)
         o_new, lse_new = flash_attention_forward(
             qt, kt, vt, causal=True, window=cfg.window,
-            out_dtype=torch.float32)
+            block_sizes=block_sizes, out_dtype=torch.float32)
         if start > 0:
             lo = max(0, start - cfg.window) if cfg.window else 0
             ks = cache.k_scale[:, :, lo:start] if cache.quantized else None
@@ -848,7 +862,7 @@ def prefill_chunk(model: Transformer, tokens: torch.Tensor, start: int,
                 qt, cache.k[:, :, lo:start], cache.v[:, :, lo:start],
                 k_scale=ks, v_scale=vs, causal=bool(cfg.window),
                 window=cfg.window, kv_offset=start - lo,
-                out_dtype=torch.float32)
+                block_sizes=block_sizes, out_dtype=torch.float32)
             o_c, _ = combine_partials(o_old, lse_old, o_new, lse_new)
         else:
             o_c = o_new
@@ -859,24 +873,27 @@ def prefill_chunk(model: Transformer, tokens: torch.Tensor, start: int,
 
 
 def prefill_chunked(model: Transformer, tokens: torch.Tensor,
-                    caches: Tuple[KVCache, ...], chunk: int):
+                    caches: Tuple[KVCache, ...], chunk: int,
+                    block_sizes: Optional[BlockSizes] = None):
     """Prefill a long prompt in chunks of `chunk` tokens (the last may be
     shorter). Equivalent to `prefill`, with memory bounded by the chunk."""
     logits = None
     for s in range(0, tokens.shape[1], chunk):
         logits, caches = prefill_chunk(model, tokens[:, s:s + chunk], s,
-                                       caches)
+                                       caches, block_sizes=block_sizes)
     return logits, caches
 
 
 @torch.no_grad()
 def decode_one(model: Transformer, token: torch.Tensor, position: int,
-               caches: Tuple[KVCache, ...], quantize_q: bool = False):
+               caches: Tuple[KVCache, ...], quantize_q: bool = False,
+               block_k: Optional[int] = None):
     """One autoregressive step: token [B] → (logits [B, V], caches). The
     token's K/V are appended before attention, so it attends to itself.
     Attention reads the (possibly quantized) caches through the decode
     kernel; `quantize_q` runs its Q·Kᵀ as an integer dot on int8-K
-    caches."""
+    caches; `block_k` is the decode kernel's split size (`decode_step`;
+    the JAX function has none)."""
     cfg = model.cfg
     b = token.shape[0]
     x = model.embed[token].to(cfg.dtype)[:, None, :]  # [B, 1, D]
@@ -884,8 +901,8 @@ def decode_one(model: Transformer, token: torch.Tensor, position: int,
     for blk, cache in zip(model.layers, caches):
         qt, kt, vt = _qkv(layer_weights(blk), x, cfg, positions)
         cache_append(cache, kt, vt)
-        o, _ = decode_step(qt[:, :, 0], cache, window=cfg.window,
-                           quantize_q=quantize_q)
+        o, _ = decode_step(qt[:, :, 0], cache, block_k=block_k,
+                           window=cfg.window, quantize_q=quantize_q)
         x = x + blk.wo(o.reshape(b, 1, cfg.d_q)).to(x.dtype)
         x = blk.mlp(x)
     return model.unembed(x[:, 0]), caches

@@ -63,8 +63,10 @@ def flash_attention(
     j > i + kv_offset and, with `window` (requires causal), when
     j <= i + kv_offset − window; `q_segment_ids` [B,Nq] /
     `kv_segment_ids` [B,Nk] (integer, no gradient) mask pairs of different
-    segments, forward and backward; ragged lengths. Explicit block sizes
-    raise NotImplementedError (the kernels' tiles are fixed)."""
+    segments, forward and backward; ragged lengths. `block_sizes`
+    (`ops.common.BlockSizes`) picks the forward's and the backward's tiles
+    among those the kernels are built for, and raises ValueError on any
+    other."""
     return FlashAttention.apply(q, k, v, scale, causal, window, kv_offset,
                                 block_sizes, q_segment_ids, kv_segment_ids)
 

@@ -1,12 +1,20 @@
 """Shared helpers of the attention ops (counterpart of
 cuda_flashattention_tpu/ops/common.py, without its TPU-only parts: the
-VMEM block-size heuristics, interpret-mode selection and the fp8 bit
-casts, which Hopper's hardware conversion of e4m3 makes needless)."""
+VMEM arithmetic of its block-size heuristic, interpret-mode selection and
+the fp8 bit casts, which Hopper's hardware conversion of e4m3 makes
+needless).
+
+`BlockSizes` keeps the JAX fields, and `BUILT_TILES` states the tiles
+each CUDA kernel is compiled for: a tile is a build on the card, not a
+run-time size, so a request names one of them or raises ValueError,
+on the CPU as well (where the plain versions then ignore it: every tile
+computes the same function)."""
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -18,6 +26,161 @@ NEG_INF = -1e30
 # kernels also for 16 and 32 (csrc/decode_body.cuh)
 KERNEL_HEAD_DIMS = (64, 128)
 DECODE_HEAD_DIMS = (16, 32, 64, 128)
+
+
+# The forward kernels' query tile (K1, K1b, K5: two warpgroups of 64 rows
+# of packed heads) and their key tiles: 64 everywhere, and 128 in the
+# bf16 builds of K1 and K1b (csrc/flash_fwd.cu, csrc/flash_fwd_bound.cu).
+# K5 keeps `block_k` = 64 · span keys resident (a span of 64-key tiles,
+# up to what its shared memory holds beside its Q ring; fp32 tiles are
+# split in two bf16 tiles, and an fp32 Q over one-byte K/V keeps exact
+# bf16 K/V tiles beside a split Q ring: csrc/flash_fwd_kmajor.cu).
+FWD_BLOCK_Q = 128
+KMAJOR_TILE = 64
+KMAJOR_MAX_SPAN = {64: 8, 128: 4}
+KMAJOR_MAX_SPAN_F32 = {64: 4, 128: 1}
+KMAJOR_MAX_SPAN_F32Q = {64: 8, 128: 3}
+# K2 and K4's pair (csrc/flash_bwd_kv.cu: 128-key CTAs stream 64-row Q
+# tiles); K3 runs at its own tile (128 rows, 64 keys; 32 in fp32) under it
+BWD_BLOCK_Q, BWD_BLOCK_K = 64, 128
+# Below this many query rows "auto" keeps unquantized causal forwards on
+# the online softmax (K1), as the JAX function does; past it they take
+# the bound softmax on the K-major walk (K5).
+ONLINE_SHORT_NQ = 5120
+
+# Operand types of the table: "bf16" (bf16 Q, K, V, dO), "fp32" (fp32
+# ones), "codes" (one-byte K/V: int8, fp8 or int8 K with fp8 V, under a
+# bf16 Q) and "fp32/codes" (the same under an fp32 Q).
+TILE_TYPES = ("bf16", "fp32", "codes", "fp32/codes")
+
+
+def _kmajor_tiles(spans: Dict[int, int], d: int) -> Tuple[int, ...]:
+    return tuple(KMAJOR_TILE * s for s in range(1, spans[d] + 1))
+
+
+# (kernel, operand type, head dim the kernel runs at) -> (block_q choices,
+# block_k choices): the tiles each kernel is built for. The wrappers
+# validate a request against it; utils/autotune.py enumerates it.
+BUILT_TILES: Dict[Tuple[str, str, int], Tuple[Tuple[int, ...],
+                                              Tuple[int, ...]]] = {
+    **{(kn, ty, d): ((FWD_BLOCK_Q,), (64, 128) if ty == "bf16" else (64,))
+       for kn in ("K1", "K1b") for ty in TILE_TYPES for d in (64, 128)},
+    **{("K5", ty, d): ((FWD_BLOCK_Q,), _kmajor_tiles(spans, d))
+       for ty, spans in (("bf16", KMAJOR_MAX_SPAN),
+                         ("codes", KMAJOR_MAX_SPAN),
+                         ("fp32", KMAJOR_MAX_SPAN_F32),
+                         ("fp32/codes", KMAJOR_MAX_SPAN_F32Q))
+       for d in (64, 128)},
+    **{(kn, ty, d): ((BWD_BLOCK_Q,), (BWD_BLOCK_K,))
+       for kn in ("K2", "K4") for ty in ("bf16", "fp32") for d in (64, 128)},
+}
+
+
+def tile_type(q_dtype: torch.dtype, k_dtype: torch.dtype) -> str:
+    """The operand type of a call, as `BUILT_TILES` names it."""
+    codes = k_dtype.itemsize == 1
+    if q_dtype == torch.float32:
+        return "fp32/codes" if codes else "fp32"
+    return "codes" if codes else "bf16"
+
+
+def built_tiles(kernel: str, ty: str,
+                d: int) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """(block_q choices, block_k choices) of `kernel` over operands of type
+    `ty` at head dim d (narrow heads run padded to 64, `pad_heads`)."""
+    return BUILT_TILES[kernel, ty, 64 if d <= 64 else 128]
+
+
+def check_tiles(kernel: str, ty: str, d: int, block_sizes, what: str,
+                bwd: bool = False) -> int:
+    """The key tile of `block_sizes` (the backward's with `bwd`) once its
+    (block_q, block_k) pair is checked against the tiles `kernel` is built
+    for: ValueError naming them otherwise, TypeError when `block_sizes`
+    has not the four fields of `BlockSizes` (the JAX class has them too).
+    """
+    names = ("block_q_bwd", "block_k_bwd") if bwd else ("block_q", "block_k")
+    try:
+        block_q, block_k = (getattr(block_sizes, n) for n in names)
+    except AttributeError:
+        raise TypeError(f"{what}: expected a BlockSizes (fields block_q, "
+                        f"block_k, block_q_bwd, block_k_bwd), got "
+                        f"{block_sizes!r}") from None
+    qs, ks = built_tiles(kernel, ty, d)
+    if block_q not in qs or block_k not in ks:
+        raise ValueError(
+            f"{what}: the CUDA kernel {kernel} over {ty} operands at d="
+            f"{64 if d <= 64 else 128} is built for block_q in {qs} and "
+            f"block_k in {ks}; got block_q={block_q}, block_k={block_k}")
+    return block_k
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSizes:
+    """Tile sizes of the attention kernels, under the JAX fields: the
+    forward's query and key tiles, and the backward's (the 64-row Q tiles
+    that K2 / K4 stream past each 128-key CTA). The defaults are the
+    card's default tiles; `BUILT_TILES` lists every other choice. On the
+    card a tile is a template instance, not a run-time size: any built
+    tile runs any problem size (the kernels mask the ragged tail)."""
+
+    block_q: int = FWD_BLOCK_Q
+    block_k: int = 64
+    block_q_bwd: int = BWD_BLOCK_Q
+    block_k_bwd: int = BWD_BLOCK_K
+
+    def with_bwd_like(self, nq: int, nk: int) -> "BlockSizes":
+        """The JAX version shrinks the backward's tiles with a small
+        problem; the card's backward has one built pair, which runs any
+        size, so it is the one kept."""
+        del nq, nk
+        return dataclasses.replace(self, block_q_bwd=BWD_BLOCK_Q,
+                                   block_k_bwd=BWD_BLOCK_K)
+
+    def clamp(self, nq: int, nk: int) -> "BlockSizes":
+        """The JAX version shrinks each tile to the problem. A built tile
+        runs a problem smaller than itself masked, and a shrunk tile need
+        not be built, so nothing changes: no request becomes legal or
+        illegal by it."""
+        del nq, nk
+        return self
+
+
+def kmajor_span(b: int, h_kv: int, nk: int, d: int, sms: int,
+                f32: bool = False, quantized: bool = False) -> int:
+    """Key tiles per K5 CTA: the longest span the CTA can keep resident
+    (`f32`: in its build for an fp32 Q, over fp32 K/V or, `quantized`,
+    over one-byte K/V) whose grid (one CTA per span, KV head and batch)
+    still holds two waves of `sms` CTAs; 1, the most CTAs, when none
+    does. Longer spans add each query row's partial sums fewer times.
+    An fp32 Q over codes takes the longest span whatever the grid: its
+    producer reads and splits every Q tile once per span, which a short
+    span repeats (`utils/kmajor_spans.py` times each span)."""
+    d = 64 if d <= 64 else 128
+    tiles = cdiv(nk, KMAJOR_TILE)
+    if f32 and quantized:
+        return KMAJOR_MAX_SPAN_F32Q[d]
+    longest = (KMAJOR_MAX_SPAN_F32 if f32 else KMAJOR_MAX_SPAN)[d]
+    for span in range(longest, 1, -1):
+        if cdiv(tiles, span) * h_kv * b >= 2 * sms:
+            return span
+    return 1
+
+
+def auto_block_sizes(nq: int, nk: int, d: int, causal: bool = False,
+                     fp8: bool = False, *, batch: int = 1,
+                     kv_heads: int = 1, sms: int = 132,
+                     f32: bool = False) -> BlockSizes:
+    """The tiles the card's kernels take when a call names none: 128
+    query rows and 64 keys, the backward's (64, 128), and, where "auto"
+    routes to the K-major walk K5 (fp8 keys, or causal past
+    `ONLINE_SHORT_NQ` rows), block_k = 64 · `kmajor_span` for `batch` ×
+    `kv_heads` over an H100's 132 SMs. None of the JAX version's VMEM
+    arithmetic applies."""
+    block_k = 64
+    if fp8 or (causal and nq > ONLINE_SHORT_NQ):
+        block_k = KMAJOR_TILE * kmajor_span(batch, kv_heads, nk, d, sms, f32,
+                                            fp8)
+    return BlockSizes(block_k=block_k)
 
 
 def cdiv(a: int, b: int) -> int:

@@ -15,9 +15,11 @@ be bf16 (under a bf16 Q), fp32 (under an fp32 Q), int8, fp8 e4m3 or mixed
 (int8 K, fp8 V), the quantized ones with per-token scales `k_scale`/
 `v_scale` [B,Hkv,max_N]; `window` and per-sequence `windows` restrict
 attention to the newest tokens; `quantize_q` runs Q·Kᵀ as an integer dot
-over an int8-K cache; H/Hkv may be any size. An explicit `block_k` raises
-NotImplementedError: the kernel walks keys, not blocks (the TPU default
-block rule, `default_decode_block_k`, has no counterpart).
+over an int8-K cache; H/Hkv may be any size. `block_k` is the kernel's
+split size C (keys per split of the context): any size from 1 to the
+cache's capacity, which is one split; another raises ValueError, on the
+CPU as well. Unset, `split_size` picks it (`default_decode_block_k` is
+that rule under the JAX name).
 """
 
 from __future__ import annotations
@@ -104,16 +106,47 @@ def warp_keys(lo: int, hi: int, warp: int, page: int = 0) -> List[int]:
     return keys
 
 
+def default_decode_block_k(k_dtype, v_dtype, q_dtype, qq: bool, window: int,
+                           has_windows: bool, max_n: int, *, batch: int = 1,
+                           kv_heads: int = 1, rows: int = 1,
+                           d: int = 128) -> int:
+    """The split size a call with `block_k=None` runs at (the counterpart
+    of the JAX rule, under its name and arguments): `split_size` for
+    `batch` × `kv_heads` × the row tiles of `rows` query rows per KV head
+    at head dim d, and `max_n`, one split, where that rule leaves the
+    context unsplit. The types, `qq` and the windows do not enter it (the
+    JAX rule's widths are TPU block sizes)."""
+    del k_dtype, v_dtype, q_dtype, qq, window, has_windows
+    split = split_size(batch, kv_heads, cdiv(rows, tile_rows(rows)), d)
+    return max(1, min(split, max_n))
+
+
+def check_block_k(block_k: int, capacity: int, what: str) -> int:
+    """`block_k` as the decode kernels take it, a split size from 1 to
+    the cache's capacity (the most keys one split can hold); ValueError
+    otherwise."""
+    if not (isinstance(block_k, int) and 1 <= block_k <= max(1, capacity)):
+        raise ValueError(
+            f"{what}: block_k is the decode kernel's split size, an int from "
+            f"1 to the cache's capacity {capacity} (that: one split); got "
+            f"{block_k!r}")
+    return block_k
+
+
 def split_scratch(b: int, h_kv: int, rows: int, d: int, capacity: int,
-                  device) -> Tuple[int, Optional[torch.Tensor],
-                                   Optional[torch.Tensor]]:
+                  device, split: Optional[int] = None
+                  ) -> Tuple[int, Optional[torch.Tensor],
+                             Optional[torch.Tensor]]:
     """(split size, partials, tickets) of one kernel call, the scratch
     from the caching allocator on the current stream (the kernel's entry
     point zeroes the tickets there), or None when the grid has one split
-    per row tile."""
+    per row tile. `split`: the caller's split size (an explicit
+    `block_k`), else `split_size`'s; the partials are sized from the one
+    used."""
     r = tile_rows(rows)
     tiles = cdiv(rows, r)
-    split = split_size(b, h_kv, tiles, d)
+    if split is None:
+        split = split_size(b, h_kv, tiles, d)
     n = max(1, cdiv(capacity, split))
     if n == 1:
         return split, None, None
@@ -149,8 +182,11 @@ def decode_attention_plain(
     window: int = 0,
     windows: Optional[torch.Tensor] = None,
     quantize_q: bool = False,
+    block_k: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dense PyTorch version of the kernel's arithmetic, on any device.
+    """Dense PyTorch version of the kernel's arithmetic, on any device
+    (`block_k`, the kernel's split size, is taken and ignored: every
+    split computes the same function).
 
     fp32 scores `(q · k_q) · scale · k_scale[j]` — under `quantize_q` on
     an int8-K cache `float(q8 · k8) · (σ_q·scale) · k_scale[j]`, the
@@ -160,6 +196,7 @@ def decode_attention_plain(
     `quantize_q`) before it weights `v_q` with fp32 accumulation; O in q's
     dtype, LSE = m + ln l in fp32, and a sequence with no visible key
     gets O = 0 and LSE = NEG_INF."""
+    del block_k
     b, h, d = q.shape
     h_kv, max_n = k.shape[1], k.shape[2]
     group = h // h_kv
@@ -261,7 +298,7 @@ def optional_ptr(x: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def _decode_cuda(q, k, v, lengths, k_scale, v_scale, scale, window, windows,
-                 quantize_q):
+                 quantize_q, block_k=None):
     b, h, d = q.shape
     h_kv, max_n = k.shape[1], k.shape[2]
     out_dtype = q.dtype
@@ -275,7 +312,7 @@ def _decode_cuda(q, k, v, lengths, k_scale, v_scale, scale, window, windows,
     lse = torch.empty((b, h), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         split, part, tickets = split_scratch(b, h_kv, h // h_kv, d, max_n,
-                                             q.device)
+                                             q.device, block_k)
         stream = torch.cuda.current_stream().cuda_stream
         err = _build.library().cfa_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -323,7 +360,9 @@ def decode_attention(
     kernel takes a bf16 or fp32 q, d in {16, 32, 64, 128}, and a cache in
     q's dtype or an int8, fp8 or int8-K/fp8-V one; with an fp32 q, P
     weights V unrounded (bf16 under `quantize_q`), as in the JAX body.
-    The count of its launches is `decode_attention.launches`."""
+    `block_k`: the split size (module docstring); every size gives the
+    same result up to the order of the splits' merge. The count of its
+    launches is `decode_attention.launches`."""
     if q.ndim != 3 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"expected q [B,H,d] and k/v [B,Hkv,N,d], got q "
                          f"{tuple(q.shape)} k {tuple(k.shape)} "
@@ -337,7 +376,7 @@ def decode_attention(
     if (k_scale is None) != (v_scale is None):
         raise ValueError("k_scale and v_scale must be given together")
     if block_k is not None:
-        raise NotImplementedError("block_k: the kernel walks keys directly")
+        check_block_k(block_k, k.shape[2], "decode_attention")
     if q.device.type == "cpu":
         return decode_attention_plain(
             q, k, v, lengths, k_scale=k_scale, v_scale=v_scale, scale=scale,
@@ -345,7 +384,7 @@ def decode_attention(
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     return _decode_cuda(q, k, v, lengths, k_scale, v_scale, scale, window,
-                        windows, quantize_q)
+                        windows, quantize_q, block_k)
 
 
 decode_attention.launches = 0

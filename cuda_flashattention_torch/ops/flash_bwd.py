@@ -13,13 +13,18 @@ runs
 `flash_attention_backward_plain`, a dense PyTorch version of the same
 numerics; the CPU tests and the on-card comparisons use it.
 
-D = rowsum(dO ⊙ O) is one PyTorch reduction before the kernels, as the
-JAX split path computes it (the JAX fused kernel's in-kernel D is a VMEM
-schedule, not a different result).
+D = rowsum(dO ⊙ O) and the zeroing of K4's fp32 dQ accumulator are the
+work of a hand-written prologue kernel (`cfa_bwd_delta` in
+csrc/flash_bwd_kv.cu: the `_delta` and `_init_dq` steps of the JAX fused
+kernel's `fuse_delta` form), one launch before K4 or K2 + K3 that reads
+each row of O and dO once; K2, K3 and K4 read its D. Its plain version
+is the PyTorch reduction of `flash_attention_backward_plain`.
 
 Masks are the forward's: causal with `kv_offset`, a sliding `window`,
-segment ids and the ragged tail. Explicit `block_sizes` raise
-NotImplementedError (the kernels' tiles are fixed).
+segment ids and the ragged tail. `block_sizes` names the backward's
+tiles (`block_q_bwd`, `block_k_bwd`): K2 and K4 are built for (64, 128)
+only, and K3 runs at its own tile under that pair; any other pair raises
+ValueError, on the CPU as well.
 """
 
 from __future__ import annotations
@@ -31,9 +36,12 @@ import torch
 
 from cuda_flashattention_torch import _build
 from cuda_flashattention_torch.ops.common import (
+    BWD_BLOCK_K,
+    BWD_BLOCK_Q,
     NEG_INF,
     cdiv,
     check_qkv,
+    check_tiles,
     kernel_operand,
     pad_heads,
     resolve_scale,
@@ -43,8 +51,8 @@ _LOG2E = 1.4426950408889634
 
 # K2/K4's tiles (csrc/flash_bwd_kv.cu): a CTA owns BK keys, two warpgroups
 # of 64, and streams the query rows that see them BQ at a time
-_BWD_BK = 128
-_BWD_BQ = 64
+_BWD_BK = BWD_BLOCK_K
+_BWD_BQ = BWD_BLOCK_Q
 
 
 def _bwd_q_tiles(c0: int, nq: int, nk: int, causal: bool, window: int,
@@ -180,8 +188,7 @@ def flash_attention_backward_plain(
                        != kv_segment_ids[:, None, :])[:, None, None]
     p = torch.where(dead, torch.zeros((), device=q.device),
                     torch.exp2(s - lse * _LOG2E))
-    delta = (dof * o.float().reshape(b, h_kv, group, nq, d)).sum(
-        -1, keepdim=True)
+    delta = delta_plain(o, do).reshape(b, h_kv, group, nq, 1)
     dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, vf)
     ds = p * (dp - delta) * scale
     dv = torch.einsum("bhgqk,bhgqd->bhkd", p.to(do.dtype).float(), dof)
@@ -191,12 +198,44 @@ def flash_attention_backward_plain(
             dv.to(v.dtype))
 
 
+def delta_plain(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """D = rowsum(dO ⊙ O) [B, H, Nq] in fp32: the prologue kernel's plain
+    version (the expression `flash_attention_backward_plain` uses)."""
+    return (do.float() * o.float()).sum(-1)
+
+
+def _launch_delta(o, do, dq_acc=None):
+    """The prologue on CUDA tensors: D [B, H, Nq] fp32 from O and dO
+    (bf16 or fp32 each, at d 64 or 128), and dq_acc zeroed when given;
+    counted under `launches["delta"]`."""
+    for name, x in (("o", o), ("do", do)):
+        if x.dtype not in (torch.bfloat16, torch.float32):
+            raise NotImplementedError(
+                f"the CUDA backward's prologue takes a bf16 or fp32 {name}, "
+                f"got {x.dtype}")
+    o, do = kernel_operand(o), kernel_operand(do)
+    b, h, nq, d = o.shape
+    delta = torch.empty((b, h, nq), dtype=torch.float32, device=o.device)
+    strides = (ctypes.c_longlong * 6)(*o.stride()[:3], *do.stride()[:3])
+    with torch.cuda.device(o.device):
+        err = _build.library().cfa_bwd_delta(
+            o.data_ptr(), do.data_ptr(), delta.data_ptr(),
+            None if dq_acc is None else dq_acc.data_ptr(), b, h, nq, d,
+            strides, int(o.dtype == torch.float32),
+            int(do.dtype == torch.float32),
+            torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "flash_attention_backward prologue (D) launch")
+        flash_attention_backward.launches["delta"] += 1
+    return delta
+
+
 def _bwd_prepare(q, k, v, o, lse, do, scale, causal, window, kv_offset,
-                 q_seg, kv_seg):
+                 q_seg, kv_seg, dq_acc=None):
     """Check what the CUDA kernels take and lay out one call's arguments:
     (q, f32, dk, dv, head, shape, keep), head and shape as the C entry
     points take them around the outputs (dk and dv allocated, in k's
-    dtype), keep the tensors behind head's pointers."""
+    dtype), keep the tensors behind head's pointers. D comes from the
+    prologue, which also zeroes `dq_acc` (K4's accumulator) when given."""
     b, h, nq, d = q.shape
     h_kv, nk = k.shape[1], k.shape[2]
     dtypes = [x.dtype for x in (q, k, v, do)]
@@ -210,7 +249,7 @@ def _bwd_prepare(q, k, v, o, lse, do, scale, causal, window, kv_offset,
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
     q, k, v, do = (kernel_operand(x) for x in (q, k, v, do))
     lse = lse.float().contiguous()
-    delta = (do.float() * o.float()).sum(-1)  # [B, H, Nq] fp32
+    delta = _launch_delta(o, do, dq_acc)  # [B, H, Nq] fp32
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3])
     dk = torch.empty((b, h_kv, nk, d), dtype=k.dtype, device=q.device)
@@ -264,8 +303,11 @@ def _bwd_cuda(q, k, v, o, lse, do, scale, causal, window, kv_offset, q_seg,
         grads = _bwd_cuda(q, k, v, o, lse, do, resolve_scale(scale, d),
                           causal, window, kv_offset, q_seg, kv_seg, fused)
         return tuple(g[..., :d] for g in grads)
+    # K4's fp32 dQ accumulator, zeroed by the prologue
+    dq_acc = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
+              if fused else None)
     prep = _bwd_prepare(q, k, v, o, lse, do, scale, causal, window,
-                        kv_offset, q_seg, kv_seg)
+                        kv_offset, q_seg, kv_seg, dq_acc)
     q, f32, dk, dv, head, shape, _ = prep
     b, h, nq, d = q.shape
     launches = flash_attention_backward.launches
@@ -273,8 +315,6 @@ def _bwd_cuda(q, k, v, o, lse, do, scale, causal, window, kv_offset, q_seg,
         stream = torch.cuda.current_stream().cuda_stream
         lib = _build.library()
         if fused:
-            dq_acc = torch.zeros((b, h, nq, d), dtype=torch.float32,
-                                 device=q.device)
             err = lib.cfa_flash_bwd_kv(*head, dk.data_ptr(), dv.data_ptr(),
                                        dq_acc.data_ptr(), *shape, int(f32),
                                        stream)
@@ -319,13 +359,17 @@ def flash_attention_backward(
     while its full-sequence state fits a TPU VMEM budget
     (`CFA_BWD_FUSED_BUDGET`, `CFA_BWD_FUSED`): that budget has no GPU
     counterpart (K4 keeps no full-sequence state on chip), so neither it
-    nor the environment knobs are ported. On the card the kernels take
+    nor the environment knobs are ported. `block_sizes`: its
+    (`block_q_bwd`, `block_k_bwd`) must be the built (64, 128); the
+    forward's fields are not read here. On the card the kernels take
     d in {64, 128} (d = 16, 32 or another multiple of 8 below 128 on
     zero-padded heads, as the forward) and bf16 q/k/v/dO, or fp32 ones
     through the kernels' fp32 builds (each tile split into bf16 hi and lo
     parts; the gradients come back fp32), fused or split.
     The counts of their launches are
-    `flash_attention_backward.launches["dkdv"]`, `["dq"]` and `["fused"]`.
+    `flash_attention_backward.launches["dkdv"]`, `["dq"]` and `["fused"]`,
+    and of the prologue before them (D, and K4's zeroed accumulator)
+    `["delta"]`.
     """
     check_qkv(q, k, v)
     if o.shape != q.shape or do.shape != q.shape or (
@@ -346,7 +390,10 @@ def flash_attention_backward(
             f"{tuple(kv_segment_ids.shape)} do not match q "
             f"{tuple(q.shape)} / k {tuple(k.shape)}")
     if block_sizes is not None:
-        raise NotImplementedError("block_sizes: the kernels' tiles are fixed")
+        ty = "fp32" if q.dtype == torch.float32 else "bf16"
+        check_tiles("K4" if fused is None or fused else "K2", ty, q.shape[-1],
+                    block_sizes, "flash_attention_backward block_sizes",
+                    bwd=True)
     if q.device.type == "cpu":
         return flash_attention_backward_plain(
             q, k, v, o, lse, do, scale=scale, causal=causal, window=window,
@@ -359,4 +406,5 @@ def flash_attention_backward(
                      fused is None or bool(fused))
 
 
-flash_attention_backward.launches = {"dkdv": 0, "dq": 0, "fused": 0}
+flash_attention_backward.launches = {"dkdv": 0, "dq": 0, "fused": 0,
+                                     "delta": 0}

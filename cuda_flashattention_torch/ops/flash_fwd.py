@@ -18,7 +18,14 @@ Counterpart of cuda_flashattention_tpu/ops/flash_fwd.py
            resident (dequantised once) and the Q tiles of its group stream
            past; each (Q tile, span) pair's l and acc are added with fp32
            atomics, so O differs in its last fp32 bits from run to run.
-           `_kmajor_span` sizes the span so that the grid fills the card.
+           `_kmajor_span` sizes the span so that the grid fills the card,
+           unless `block_sizes.block_k` (64 · span) names it.
+
+`block_sizes` picks the key tile among those the routed kernel is built
+for (`ops.common.BUILT_TILES`): 64 keys everywhere, or 128 in the bf16
+builds of K1 and K1b; K5's span; the query tile is 128 rows. Any other
+request raises ValueError, on the CPU as well, where the plain version
+then ignores the tile (every tile computes the same function).
 
 All three run on one Hopper body, csrc/flash_fwd_bound_sm90.cuh (wgmma,
 TMA). `softmax="auto"` routes as the JAX function does (`_resolve_use_bound`,
@@ -39,8 +46,7 @@ each in its own type), masks are causal with `kv_offset`, a sliding
 int8 (fp8 keys re-gridded to int8 in the kernel). On a CPU tensor the call
 runs `flash_attention_forward_plain`, a dense PyTorch version of the same
 arithmetic with the same rounding points; the CPU tests and the on-card
-comparisons use it. Only explicit `block_sizes` still raise
-NotImplementedError (the kernels' tiles are fixed).
+comparisons use it.
 """
 
 from __future__ import annotations
@@ -54,21 +60,29 @@ import torch
 
 from cuda_flashattention_torch import _build
 from cuda_flashattention_torch.ops.common import (
+    KMAJOR_MAX_SPAN,
+    KMAJOR_MAX_SPAN_F32,
+    KMAJOR_MAX_SPAN_F32Q,
+    KMAJOR_TILE,
     NEG_INF,
-    cdiv,
+    ONLINE_SHORT_NQ,
+    built_tiles,
     check_qkv,
+    check_tiles,
     kernel_operand,
+    kmajor_span,
     pad_heads,
     quantize_q_per_head,
     resolve_scale,
+    tile_type,
 )
 
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
 
 # Below this many query rows "auto" keeps unquantized causal forwards on
-# the online softmax, as the JAX function does.
-_ONLINE_SHORT_NQ = 5120
+# the online softmax, as the JAX function does (ops/common.py).
+_ONLINE_SHORT_NQ = ONLINE_SHORT_NQ
 # A bound-softmax row with visible keys whose l < 2^-96 has a loose bound.
 _FALLBACK_SLACK_LOG2 = 96.0
 
@@ -119,6 +133,9 @@ class _Plan:
     qq: bool          # int8 Q · int8 K
     regrid: bool      # qq over fp8 keys: re-grid them to int8
     checked: bool     # run the loose-bound fallback
+    block_k: Optional[int] = None  # the routed kernel's key tile (K5: 64
+                                   # · span); None: the default rule
+    fallback_k: int = 64  # the guarded online launch's key tile
 
 
 def _plan(q, k, v, scale, causal, window, kv_offset, block_sizes, k_scale,
@@ -158,8 +175,6 @@ def _plan(q, k, v, scale, causal, window, kv_offset, block_sizes, k_scale,
     if qq and not use_bound:
         raise ValueError("quantize_q requires the bound softmax "
                          "(softmax='auto'/'bound', no segment ids)")
-    if block_sizes is not None:
-        raise NotImplementedError("block_sizes: the kernels' tiles are fixed")
     if quantized:
         for name, x, sc in (("k", k, k_scale), ("v", v, v_scale)):
             if x.dtype not in (torch.int8, torch.float8_e4m3fn):
@@ -182,13 +197,24 @@ def _plan(q, k, v, scale, causal, window, kv_offset, block_sizes, k_scale,
                 and q.dtype == torch.bfloat16)
     if qq and k.dtype == torch.float8_e4m3fn and not fp8_fast:
         qq = False
+    use_kmajor = use_bound and (causal or fp8_fast)
+    block_k, fallback_k = None, 64
+    if block_sizes is not None:
+        kernel = "K5" if use_kmajor else "K1b" if use_bound else "K1"
+        ty = tile_type(q.dtype, k.dtype)
+        block_k = check_tiles(kernel, ty, d, block_sizes,
+                              "flash_attention_forward block_sizes")
+        # the guarded online launch behind a bound one keeps the tile
+        # where K1 is built for it
+        if block_k in built_tiles("K1", ty, d)[1]:
+            fallback_k = block_k
     return _Plan(
         d=d, scale=resolve_scale(scale, d), causal=causal, window=window,
         kv_offset=int(kv_offset), quantized=quantized, segmented=segmented,
-        use_bound=use_bound,
-        use_kmajor=use_bound and (causal or fp8_fast),
+        use_bound=use_bound, use_kmajor=use_kmajor,
         qq=qq, regrid=qq and fp8_fast,
-        checked=use_bound and not qq and softmax != "bound_unchecked")
+        checked=use_bound and not qq and softmax != "bound_unchecked",
+        block_k=block_k, fallback_k=fallback_k)
 
 
 def _quantize_q(q, plan: _Plan):
@@ -370,35 +396,13 @@ def _ptrs(*tensors):
         *[None if t is None else t.data_ptr() for t in tensors])
 
 
-# key tiles (of 64) a K5 CTA keeps resident at each head dim: what fits
-# beside its Q ring (csrc/flash_fwd_kmajor.cu, max_span); its fp32 build
-# holds each K/V tile split in two bf16 tiles, twice the bytes, and its
-# build for an fp32 Q over one-byte K/V holds exact bf16 K/V tiles beside
-# a split Q ring
-_KMAJOR_MAX_SPAN = {64: 8, 128: 4}
-_KMAJOR_MAX_SPAN_F32 = {64: 4, 128: 1}
-_KMAJOR_MAX_SPAN_F32Q = {64: 8, 128: 3}
-_KMAJOR_TILE = 64
-
-
-def _kmajor_span(b: int, h_kv: int, nk: int, d: int, sms: int,
-                 f32: bool = False, quantized: bool = False) -> int:
-    """Key tiles per K5 CTA: the longest span the CTA can keep resident
-    (`f32`: in its build for an fp32 Q, over fp32 K/V or, `quantized`,
-    over one-byte K/V) whose grid (one CTA per span, KV head and batch)
-    still holds two waves of `sms` CTAs; 1, the most CTAs, when none
-    does. Longer spans add each query row's partial sums fewer times.
-    An fp32 Q over codes takes the longest span whatever the grid: its
-    producer reads and splits every Q tile once per span, which a short
-    span repeats (`utils/kmajor_spans.py` times each span)."""
-    tiles = cdiv(nk, _KMAJOR_TILE)
-    if f32 and quantized:
-        return _KMAJOR_MAX_SPAN_F32Q[d]
-    longest = (_KMAJOR_MAX_SPAN_F32 if f32 else _KMAJOR_MAX_SPAN)[d]
-    for span in range(longest, 1, -1):
-        if cdiv(tiles, span) * h_kv * b >= 2 * sms:
-            return span
-    return 1
+# key tiles (of 64) a K5 CTA keeps resident at each head dim, and the
+# rule that picks its span (ops/common.py); `utils/kmajor_spans.py`
+# replaces `_kmajor_span` to time each span
+_KMAJOR_MAX_SPAN = KMAJOR_MAX_SPAN
+_KMAJOR_MAX_SPAN_F32 = KMAJOR_MAX_SPAN_F32
+_KMAJOR_MAX_SPAN_F32Q = KMAJOR_MAX_SPAN_F32Q
+_kmajor_span = kmajor_span
 
 
 def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
@@ -464,13 +468,17 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
         lib = _build.library()
 
         def online(guard):
+            kn = (plan.block_k or 64) if guard is None else plan.fallback_k
             err = lib.cfa_flash_fwd(
                 _ptrs(q_hat, k, v, ksc, vsc, q_seg, kv_seg, guard, o, lse),
                 b, h, h_kv, nq, nk, d, strides(q_hat), k_type, v_type, q_f32,
-                *tail, stream)
+                *tail, kn, stream)
             _build.check(err, "flash_attention_forward online kernel launch")
             counts["online" if guard is None else "fallback"] += 1
             flash_attention_forward.launches += 1
+            if kn == 128:
+                flash_attention_forward.key128_launches[
+                    "online" if guard is None else "fallback"] += 1
 
         if not plan.use_bound:
             online(None)
@@ -497,10 +505,13 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
             o_acc = scratch[:n_acc]
             l_acc = scratch[n_acc:-1]
             n_loose = scratch[-1:].view(torch.int32)
-            sms = torch.cuda.get_device_properties(
-                q.device).multi_processor_count
-            span = _kmajor_span(b, h_kv, nk, d, sms, bool(q_f32),
-                                plan.quantized)
+            if plan.block_k is not None:
+                span = plan.block_k // KMAJOR_TILE
+            else:
+                sms = torch.cuda.get_device_properties(
+                    q.device).multi_processor_count
+                span = _kmajor_span(b, h_kv, nk, d, sms, bool(q_f32),
+                                    plan.quantized)
             err = lib.cfa_flash_fwd_kmajor(
                 _ptrs(q_op, k, v, ksc, vsc, q_factor, c, l_acc, o_acc,
                       n_loose, o, lse), *shape, span, stream)
@@ -510,9 +521,11 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
             n_loose = torch.zeros(1, dtype=torch.int32, device=q.device)
             err = lib.cfa_flash_fwd_bound(
                 _ptrs(q_op, k, v, ksc, vsc, q_factor, c, n_loose, o, lse),
-                *shape, stream)
+                *shape, plan.block_k or 64, stream)
             _build.check(err, "flash_attention_forward bound kernel launch")
             counts["bound"] += 1
+            if plan.block_k == 128:
+                flash_attention_forward.key128_launches["bound"] += 1
         flash_attention_forward.launches += 1
         if plan.checked:
             online(n_loose)
@@ -547,7 +560,9 @@ def flash_attention_forward(
     K/V: int8 or float8_e4m3fn values with per-token fp32 `k_scale` /
     `v_scale` [B,Hkv,Nk], dequantisation folded into the products.
     `softmax`: "auto", "online", "bound" or "bound_unchecked" (module
-    docstring). `quantize_q` (quantized K/V, bound softmax): Q·Kᵀ on
+    docstring). `block_sizes` (`ops.common.BlockSizes`): block_q 128 and
+    the routed kernel's key tile, 64, or 128 over bf16 Q/K/V in K1 and
+    K1b, or K5's 64 · span; ValueError on a tile no build has. `quantize_q` (quantized K/V, bound softmax): Q·Kᵀ on
     per-head int8 Q; it waives the loose-bound fallback, and over fp8 keys
     it takes a bf16 Q (else it is dropped, as in the JAX function, whose
     further gate by on-chip memory is not ported). O is in `out_dtype`
@@ -561,7 +576,9 @@ def flash_attention_forward(
     rounded); `flash_attention_forward.launches` counts
     their launches and `.form_launches` the same per form: "online",
     "bound", "kmajor", and "fallback" for the guarded online launch behind
-    a checked bound call."""
+    a checked bound call; `.key128_launches` counts those of the 128-key
+    builds of K1 ("online", and "fallback" for its guarded launches) and
+    K1b ("bound")."""
     plan = _plan(q, k, v, scale, causal, window, kv_offset, block_sizes,
                  k_scale, v_scale, q_segment_ids, kv_segment_ids, softmax,
                  quantize_q)
@@ -578,3 +595,5 @@ def flash_attention_forward(
 flash_attention_forward.launches = 0
 flash_attention_forward.form_launches = {"online": 0, "bound": 0,
                                          "kmajor": 0, "fallback": 0}
+flash_attention_forward.key128_launches = {"online": 0, "bound": 0,
+                                           "fallback": 0}

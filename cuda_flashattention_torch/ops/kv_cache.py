@@ -96,16 +96,17 @@ def append(cache: KVCache, k_new: torch.Tensor,
 
 def decode_step(q: torch.Tensor, cache: KVCache,
                 scale: Optional[float] = None,
+                block_k: Optional[int] = None,
                 window: int = 0,
                 quantize_q: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Attend one new query token q [B,H,d] against the live cache.
     Returns (o [B,H,d], lse [B,H]). The caller appends the token's K/V
-    first, so that the token attends to itself. `window` and `quantize_q`
-    are `decode_attention`'s."""
+    first, so that the token attends to itself. `block_k` (the split
+    size), `window` and `quantize_q` are `decode_attention`'s."""
     lengths = torch.full((q.shape[0],), cache.length, dtype=torch.int32,
                          device=q.device)
     return decode_attention(q, cache.k, cache.v, lengths,
                             k_scale=cache.k_scale, v_scale=cache.v_scale,
-                            scale=scale, window=window,
+                            scale=scale, block_k=block_k, window=window,
                             quantize_q=quantize_q)

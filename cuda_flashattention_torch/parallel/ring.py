@@ -39,7 +39,11 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from cuda_flashattention_torch.ops.common import cdiv, resolve_scale
+from cuda_flashattention_torch.ops.common import (
+    BlockSizes,
+    cdiv,
+    resolve_scale,
+)
 from cuda_flashattention_torch.ops.decode import decode_attention
 from cuda_flashattention_torch.ops.flash_bwd import flash_attention_backward
 from cuda_flashattention_torch.ops.flash_fwd import flash_attention_forward
@@ -85,25 +89,27 @@ def _step_opts(kv_idx: int, my_idx: int, *, causal: bool, window: int,
 
 
 def _step_fwd(q, k, v, kv_idx, my_idx, *, scale, causal, window, step,
-              shard_len, qseg=None, kseg=None):
+              shard_len, qseg=None, kseg=None, block_sizes=None):
     """One ring step's local attention: (O fp32, LSE), or None (skipped)."""
     opts = _step_opts(kv_idx, my_idx, causal=causal, window=window,
                       step=step, shard_len=shard_len, qseg=qseg, kseg=kseg)
     if opts is None:
         return None
     return flash_attention_forward(q, k, v, scale=scale,
-                                   out_dtype=torch.float32, **opts)
+                                   out_dtype=torch.float32,
+                                   block_sizes=block_sizes, **opts)
 
 
 def _step_bwd(q, k, v, o, lse, do, kv_idx, my_idx, *, scale, causal, window,
-              step, shard_len, qseg=None, kseg=None):
+              step, shard_len, qseg=None, kseg=None, block_sizes=None):
     """One ring step's gradient partials against the global LSE, or None
     (skipped)."""
     opts = _step_opts(kv_idx, my_idx, causal=causal, window=window,
                       step=step, shard_len=shard_len, qseg=qseg, kseg=kseg)
     if opts is None:
         return None
-    return flash_attention_backward(q, k, v, o, lse, do, scale=scale, **opts)
+    return flash_attention_backward(q, k, v, o, lse, do, scale=scale,
+                                    block_sizes=block_sizes, **opts)
 
 
 # ---------------------------------------------------------------------------
@@ -123,6 +129,7 @@ class _RingPlan:
     causal: bool
     window: int
     ragged: bool
+    block_sizes: Optional[BlockSizes] = None  # every step's tiles
 
     @property
     def max_steps(self) -> int:
@@ -242,7 +249,8 @@ def _forward_cells(plan: _RingPlan, cells: List[_Cell], reg, dtype) -> None:
                 part = _step_fwd(
                     c.q, c.k, c.v, kv_idx, c.idx, scale=plan.scale,
                     causal=plan.causal, window=plan.window, step=step,
-                    shard_len=plan.shard_len, qseg=c.qseg, kseg=c.kseg)
+                    shard_len=plan.shard_len, qseg=c.qseg, kseg=c.kseg,
+                    block_sizes=plan.block_sizes)
                 if part is None:
                     continue
                 if c.o is None:
@@ -319,7 +327,8 @@ def _backward_cells(plan: _RingPlan, cells: List[_Cell], reg) -> None:
                     c.q, c.k, c.v, c.o, c.lse, c.do, kv_idx, c.idx,
                     scale=plan.scale, causal=plan.causal,
                     window=plan.window, step=step,
-                    shard_len=plan.shard_len, qseg=c.qseg, kseg=c.kseg)
+                    shard_len=plan.shard_len, qseg=c.qseg, kseg=c.kseg,
+                    block_sizes=plan.block_sizes)
                 if i in arriving:
                     # the accumulators of the block this cell now
                     # holds, sent after the last step
@@ -433,7 +442,8 @@ def ring_attention(
     A sequence length that does not divide the axis is padded up to the
     shard grid: causal needs no mask (pad rows sit past every real row),
     non-causal marks the pad tail with segment ids (−1 on the query side,
-    −2 on the key side) that travel around the ring with their shard."""
+    −2 on the key side) that travel around the ring with their shard.
+    `block_sizes` reaches every step's forward and backward kernels."""
     n_shards = mesh.shape[axis_name]
     b, h, n, d = q.shape
     if h % k.shape[1] != 0:
@@ -442,8 +452,6 @@ def ring_attention(
     window = int(window or 0)
     if window and not causal:
         raise ValueError("window requires causal=True")
-    if block_sizes is not None:
-        raise NotImplementedError("block_sizes: the kernels' tiles are fixed")
 
     n_pad = cdiv(n, n_shards) * n_shards
     ragged = n_pad != n and not causal
@@ -462,7 +470,7 @@ def ring_attention(
                      head_axis=head_axis, n_shards=n_shards,
                      shard_len=n_pad // n_shards,
                      scale=resolve_scale(scale, d), causal=bool(causal),
-                     window=window, ragged=ragged)
+                     window=window, ragged=ragged, block_sizes=block_sizes)
     out = RingAttention.apply(q, k, v, qseg, kseg, plan)
     return out[:, :, :n]
 
@@ -534,6 +542,7 @@ def ring_attention_local(
     scale: Optional[float] = None,
     causal: bool = False,
     window: int = 0,
+    block_sizes: Optional[BlockSizes] = None,
 ) -> ShardsIn:
     """Ring attention over shards that already sit on their ranks: q, k, v
     are `{rank: shard}` (q [B,H,L,d], k/v [B,Hkv,L,d] on the rank's
@@ -548,7 +557,8 @@ def ring_attention_local(
     placed or gathered: this is the form a caller that keeps its
     activations on the ranks uses. A sequence that does not divide the
     axis is padded by the caller up to L·n (`ring_attention`'s rule); under
-    a causal mask the pad rows sit past every real row and need no mask."""
+    a causal mask the pad rows sit past every real row and need no mask.
+    `block_sizes` reaches every step's kernels."""
     listed = not isinstance(q, dict)
     if listed:
         ranks = mesh.axis_ranks(axis_name)
@@ -571,7 +581,8 @@ def ring_attention_local(
                      head_axis=None, n_shards=mesh.shape[axis_name],
                      shard_len=q0.shape[2],
                      scale=resolve_scale(scale, q0.shape[-1]),
-                     causal=bool(causal), window=window, ragged=False)
+                     causal=bool(causal), window=window, ragged=False,
+                     block_sizes=block_sizes)
     out = RingAttentionLocal.apply(
         plan, ranks, *(q[r] for r in ranks), *(k[r] for r in ranks),
         *(v[r] for r in ranks))

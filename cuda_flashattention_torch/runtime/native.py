@@ -27,8 +27,10 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from cuda_flashattention_torch import config
+
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "naive_attention.cpp"
-DEFAULT_CACHE = Path(__file__).resolve().parents[1] / "build" / "native"
+DEFAULT_CACHE = Path(config.NATIVE_CACHE.default)
 
 
 class NativeBuildError(RuntimeError):
@@ -36,7 +38,7 @@ class NativeBuildError(RuntimeError):
 
 
 def cache_dir() -> Path:
-    return Path(os.environ.get("CFA_NATIVE_CACHE") or DEFAULT_CACHE)
+    return Path(config.NATIVE_CACHE() or DEFAULT_CACHE)
 
 
 def _build() -> Path:

@@ -20,18 +20,20 @@ def attention_flops(b: int, h: int, nq: int, nk: int, d: int,
     return 2.0 * pairs * d * (5 if backward else 2)
 
 
-def cuda_time_ms(fn: Callable[[], object], iters: int = 20,
-                 warmup: int = 3,
-                 before: Optional[Callable[[], object]] = None) -> float:
-    """Median device milliseconds of one `fn()` call, each call bracketed
-    by its own pair of CUDA events on the current stream. `before()`, when
-    given, runs ahead of each timed call and outside its events (to evict
-    the L2 cache, say). Raises when there is no card: a CPU time is never
-    reported as a device time."""
+def time_fn(fn: Callable, *args, iters: int = 20, warmup: int = 3,
+            before: Optional[Callable[[], object]] = None,
+            **kwargs) -> float:
+    """Median device milliseconds of one `fn(*args, **kwargs)` call (the
+    JAX function's name and arguments; the JAX one returns wall seconds),
+    after `warmup` calls: each call bracketed by its own pair of CUDA
+    events on the current stream, so the time is the device's, not the
+    enqueue's. `before()`, when given, runs ahead of each timed call and
+    outside its events (to evict the L2 cache, say). Raises when there is
+    no card: a CPU time is never reported as a device time."""
     if not torch.cuda.is_available():
-        raise RuntimeError("cuda_time_ms needs a CUDA device")
+        raise RuntimeError("time_fn needs a CUDA device")
     for _ in range(warmup):
-        fn()
+        fn(*args, **kwargs)
     pairs = []
     for _ in range(iters):
         if before is not None:
@@ -39,8 +41,17 @@ def cuda_time_ms(fn: Callable[[], object], iters: int = 20,
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        fn(*args, **kwargs)
         end.record()
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def cuda_time_ms(fn: Callable[[], object], iters: int = 20,
+                 warmup: int = 3,
+                 before: Optional[Callable[[], object]] = None) -> float:
+    """`time_fn` of a call with no arguments."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("cuda_time_ms needs a CUDA device")
+    return time_fn(fn, iters=iters, warmup=warmup, before=before)

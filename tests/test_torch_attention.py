@@ -19,6 +19,7 @@ from cuda_flashattention_tpu.ops.attention import (
     mha as jax_mha,
 )
 from cuda_flashattention_torch.ops.attention import flash_attention, mha
+from cuda_flashattention_torch.ops.common import BlockSizes
 from cuda_flashattention_torch.utils.testing import (
     assert_close,
     max_abs,
@@ -114,12 +115,16 @@ def test_no_gradient_for_options():
 
 
 def test_unported_options_raise():
-    """Explicit block sizes are the one option not ported; a window
-    without causal and half a pair of segment ids are refused as the JAX
-    op refuses them."""
+    """Block sizes that are not a `BlockSizes`, or name a tile no kernel
+    is built for, are refused (TypeError, ValueError); a window without
+    causal and half a pair of segment ids are refused as the JAX op
+    refuses them."""
     q = torch.from_numpy(seeded_random((1, 2, 8, 32), 0))
-    with pytest.raises(NotImplementedError, match="block_sizes"):
+    with pytest.raises(TypeError, match="BlockSizes"):
         flash_attention(q, q, q, causal=True, block_sizes=object())
+    with pytest.raises(ValueError, match="built for"):
+        flash_attention(q, q, q, causal=True,
+                        block_sizes=BlockSizes(block_q=2048, block_k=2048))
     with pytest.raises(ValueError, match="window requires causal"):
         flash_attention(q, q, q, window=4)
     with pytest.raises(ValueError, match="without kv_segment_ids"):

@@ -249,14 +249,14 @@ def test_dead_cache_rows_may_hold_anything():
     dict(block_k=8),
 ])
 def test_unported_options_raise(kw):
-    """Of the options that used to raise, only `block_k` still does (the
-    kernel walks keys, not blocks); the others are taken."""
+    """None of the options that used to raise does now: `block_k` is the
+    kernel's split size (here the capacity, one split; one past it is
+    refused), and the others are taken."""
     q, k, v = (torch.from_numpy(a) for a in _inputs(0, 1, 2, 2, 8, 32))
     lengths = torch.tensor([8], dtype=torch.int32)
     if "block_k" in kw:
-        with pytest.raises(NotImplementedError, match="block_k"):
-            decode_attention(q, k, v, lengths, **kw)
-        return
+        with pytest.raises(ValueError, match="split size"):
+            decode_attention(q, k, v, lengths, block_k=kw["block_k"] + 1)
     o, lse = decode_attention(q, k, v, lengths, **kw)
     assert o.shape == q.shape and lse.shape == q.shape[:2]
     assert torch.isfinite(o).all() and torch.isfinite(lse).all()

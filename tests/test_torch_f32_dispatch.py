@@ -181,8 +181,9 @@ def test_fp32_q_over_bf16_k_still_raises(lib):
 @pytest.mark.parametrize("d", [128, 32])
 @pytest.mark.parametrize("seg", [False, True])
 def test_split_backward_on_fp32_plans_k2_then_k3(lib, d, seg):
-    """fused=False on fp32 launches K2's and K3's fp32 builds (f32 = 1)
-    and counts them; narrow heads run at d = 64."""
+    """fused=False on fp32 launches the prologue (D, no accumulator to
+    zero), then K2's and K3's fp32 builds (f32 = 1), and counts them;
+    narrow heads run at d = 64."""
     q, k, v, _ = _qkv(None, nq=70, nk=70, d=d)
     o, do = torch.zeros_like(q), torch.ones_like(q)
     lse = torch.zeros(q.shape[:3])
@@ -193,8 +194,12 @@ def test_split_backward_on_fp32_plans_k2_then_k3(lib, d, seg):
     before = dict(fb.flash_attention_backward.launches)
     dq, dk, dv = fb._bwd_cuda(q, k, v, o, lse, do, None, True, 0, 0,
                               kw.get("q_seg"), kw.get("kv_seg"), False)
-    assert lib.names() == ["cfa_flash_bwd_kv", "cfa_flash_bwd_q"]
-    kv_args, q_args = lib.calls[0][1], lib.calls[1][1]
+    assert lib.names() == ["cfa_bwd_delta", "cfa_flash_bwd_kv",
+                           "cfa_flash_bwd_q"]
+    delta_args, kv_args, q_args = (a for _, a in lib.calls)
+    assert delta_args[3] is None and delta_args[9:11] == (1, 1)
+    assert kv_args[5] == delta_args[2]  # K2 and K3 read the prologue's D
+    assert q_args[5] == delta_args[2]
     assert kv_args[10] is None and kv_args[-2] == 1      # K2, f32
     assert q_args[-2] == 1 and q_args[14] == (64 if d < 64 else d)
     assert all(g.dtype == torch.float32 for g in (dq, dk, dv))
@@ -202,6 +207,7 @@ def test_split_backward_on_fp32_plans_k2_then_k3(lib, d, seg):
     after = fb.flash_attention_backward.launches
     assert after["dkdv"] == before["dkdv"] + 1
     assert after["dq"] == before["dq"] + 1
+    assert after["delta"] == before["delta"] + 1
 
 
 def test_split_backward_on_bf16_passes_f32_0(lib):
@@ -209,7 +215,8 @@ def test_split_backward_on_bf16_passes_f32_0(lib):
     q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
     fb._bwd_cuda(q, k, v, q, torch.zeros(q.shape[:3]), q, None, True, 0, 0,
                  None, None, False)
-    assert [a[-2] for _, a in lib.calls] == [0, 0]
+    # the prologue's do_f32, then K2's and K3's f32
+    assert [a[-2] for _, a in lib.calls] == [0, 0, 0]
 
 
 @pytest.mark.parametrize("d,d_run", [(128, 128), (64, 64), (32, 64),

@@ -26,6 +26,7 @@ from cuda_flashattention_tpu.ops.naive import (
 from cuda_flashattention_tpu.utils.testing import (
     random_qkv as jax_random_qkv,
 )
+from cuda_flashattention_torch.ops.common import BlockSizes
 from cuda_flashattention_torch.ops.flash_bwd import flash_attention_backward
 from cuda_flashattention_torch.ops.flash_fwd import flash_attention_forward
 from cuda_flashattention_torch.ops.naive import naive_attention_backward
@@ -208,15 +209,18 @@ def test_fixtures_match_jax(dtype):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(block_sizes=object()),                  # TPU tiling: not ported
+    dict(block_sizes=object()),                  # not a BlockSizes
+    dict(block_sizes=BlockSizes(block_q_bwd=1024,
+                                block_k_bwd=2048)),  # a TPU tile: unbuilt
     dict(window=4),                              # a window needs causal
     dict(q_segment_ids=torch.zeros(1, 8)),       # without kv_segment_ids
 ])
 def test_unported_options_raise(kw):
-    """Explicit block sizes are the one option not ported; the others are
-    argument combinations that mean nothing."""
+    """Block sizes must be a `BlockSizes` naming the backward's built
+    pair; the others are argument combinations that mean nothing."""
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(0, 1, 2, 2, 8, 8, 32))
-    with pytest.raises(NotImplementedError if "block_sizes" in kw
+    with pytest.raises(TypeError if kw.get("block_sizes") is not None
+                       and not isinstance(kw["block_sizes"], BlockSizes)
                        else ValueError):
         flash_attention_backward(q, k, v, q, torch.zeros(1, 2, 8), do, **kw)
 

@@ -22,6 +22,7 @@ from cuda_flashattention_tpu.ops.flash_fwd import (
 )
 from cuda_flashattention_tpu.ops.quant import quantize_kv as jax_quantize_kv
 from cuda_flashattention_torch.ops import flash_fwd as torch_flash_fwd
+from cuda_flashattention_torch.ops.common import BlockSizes
 from cuda_flashattention_torch.ops.flash_fwd import flash_attention_forward
 from cuda_flashattention_torch.ops.naive import naive_attention
 from cuda_flashattention_torch.ops.quant import quantize_kv
@@ -387,7 +388,8 @@ def test_forward_matches_oracle_fp32():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(block_sizes=object()),                                # TPU tiling
+    dict(block_sizes=object()),                           # not a BlockSizes
+    dict(block_sizes=BlockSizes(2048, 2048)),             # a TPU tile
     dict(window=4),                                            # not causal
     dict(k_scale=torch.ones(1, 2, 8)),                         # no v_scale
     dict(q_segment_ids=torch.zeros(1, 8), kv_segment_ids=torch.zeros(1, 8),
@@ -396,10 +398,12 @@ def test_forward_matches_oracle_fp32():
     dict(softmax="nope"),
 ])
 def test_unported_options_raise(kw):
-    """Explicit block sizes are the one option not ported; the rest are
-    the argument combinations the JAX function refuses too."""
+    """Block sizes must be a `BlockSizes` naming a built tile (TypeError,
+    ValueError); the rest are the argument combinations the JAX function
+    refuses too."""
     q, k, v = (torch.from_numpy(a) for a in _inputs(0, 1, 2, 2, 8, 8, 32))
-    with pytest.raises(NotImplementedError if "block_sizes" in kw
+    with pytest.raises(TypeError if kw.get("block_sizes") is not None
+                       and not isinstance(kw["block_sizes"], BlockSizes)
                        else ValueError):
         flash_attention_forward(q, k, v, **kw)
 

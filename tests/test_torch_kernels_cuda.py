@@ -378,8 +378,8 @@ def test_backward_kernels(dev, b, h, h_kv, nq, nk, d, causal, kv_offset,
     torch.cuda.synchronize()
     after = flash_attention_backward.launches
     grown = {n: after[n] - before[n] for n in after}
-    assert grown == ({"fused": 1, "dkdv": 0, "dq": 0} if fused
-                     else {"fused": 0, "dkdv": 1, "dq": 1})
+    assert grown == ({"fused": 1, "dkdv": 0, "dq": 0, "delta": 1} if fused
+                     else {"fused": 0, "dkdv": 1, "dq": 1, "delta": 1})
     want = flash_attention_backward_plain(*args, **kw)
     for g, w, name in zip(got, want, ("dQ", "dK", "dV")):
         assert g.dtype == w.dtype and g.shape == w.shape
@@ -937,8 +937,12 @@ def test_forward_refuses_what_it_does_not_take(dev):
                                 k_scale=sc, v_scale=sc)
     with pytest.raises(ValueError, match="need k_scale"):
         flash_attention_forward(q, k8, k8)
-    with pytest.raises(NotImplementedError, match="block_sizes"):
+    with pytest.raises(TypeError, match="BlockSizes"):
         flash_attention_forward(q, q, q, block_sizes=object())
+    from cuda_flashattention_torch.ops.common import BlockSizes
+    with pytest.raises(ValueError, match="built for"):
+        flash_attention_forward(q, q, q, block_sizes=BlockSizes(
+            block_q=2048, block_k=2048))
 
 
 # ---------------------------------------------------------------------------
@@ -1427,23 +1431,25 @@ def test_forward_online_segments_packed(dev, qtype, group, causal):
 @pytest.mark.parametrize("d", [64, 128])
 def test_forward_online_guard(dev, d):
     """The guarded launch writes nothing while the guard is 0 and the
-    unguarded launch's bits when it is 1."""
+    unguarded launch's bits when it is 1, at 64 and 128 keys a tile."""
     import ctypes
     from cuda_flashattention_torch import _build
     from cuda_flashattention_torch.ops import flash_fwd as ff
     (q, k, v), _ = _fwd_inputs(dev, 1, 8, 2, 150, 220, d, None, 4)
-    want = flash_attention_forward(q, k, v, causal=True, softmax="online",
-                                   out_dtype=torch.float32)
     q_hat = ff._prescale_q(q, ff.resolve_scale(None, d))
     strides = (ctypes.c_longlong * 9)(*q_hat.stride()[:3], *k.stride()[:3],
                                       *v.stride()[:3])
-    for flag in (0, 1):
+    for flag, kn in ((0, 64), (1, 64), (0, 128), (1, 128)):
+        want = flash_attention_forward(q, k, v, causal=True,
+                                       softmax="online",
+                                       out_dtype=torch.float32,
+                                       block_sizes=_tiles(kn))
         guard = torch.tensor([flag], dtype=torch.int32, device=dev)
         o = torch.full_like(want[0], 7.0)
         lse = torch.full_like(want[1], 7.0)
         err = _build.library().cfa_flash_fwd(
             ff._ptrs(q_hat, k, v, None, None, None, None, guard, o, lse),
-            1, 8, 2, 150, 220, d, strides, 0, 0, 0, 1, 0, 0, 1,
+            1, 8, 2, 150, 220, d, strides, 0, 0, 0, 1, 0, 0, 1, kn,
             torch.cuda.current_stream().cuda_stream)
         torch.cuda.synchronize()
         assert err == 0
@@ -1830,7 +1836,7 @@ def test_f32_backward_kernels(dev, no_tf32, peaked, b, h, h_kv, nq, nk, d,
     torch.cuda.synchronize()
     after = flash_attention_backward.launches
     assert {n: after[n] - before[n] for n in after} == {
-        "fused": 1, "dkdv": 1, "dq": 0}
+        "fused": 1, "dkdv": 1, "dq": 0, "delta": 2}
     for g, w, name in zip((*got, dk2, dv2), (*want, *want[1:]),
                           ("dQ", "dK", "dV", "K2 dK", "K2 dV")):
         _assert_f32_grad(g, w, name)
@@ -2117,8 +2123,9 @@ def test_backward_narrow_heads(dev, no_tf32, dtype, d, fused, b, h, h_kv,
             torch.cuda.synchronize()
             grown = {n: flash_attention_backward.launches[n] - before[n]
                      for n in before}
-            assert grown == ({"fused": 1, "dkdv": 0, "dq": 0} if fused
-                             else {"fused": 0, "dkdv": 1, "dq": 1})
+            assert grown == ({"fused": 1, "dkdv": 0, "dq": 0, "delta": 1}
+                             if fused else
+                             {"fused": 0, "dkdv": 1, "dq": 1, "delta": 1})
             for g, w, name in zip(got, want, ("dQ", "dK", "dV")):
                 assert g.shape == w.shape and g.dtype == w.dtype
                 if dtype == torch.float32:
@@ -2279,7 +2286,7 @@ def test_f32_split_backward_kernels(dev, no_tf32, peaked, b, h, h_kv, nq, nk,
     torch.cuda.synchronize()
     after = flash_attention_backward.launches
     assert {n: after[n] - before[n] for n in after} == {
-        "fused": 0, "dkdv": 1, "dq": 1}
+        "fused": 0, "dkdv": 1, "dq": 1, "delta": 1}
     for g, w, name in zip(got, want, ("dQ", "dK", "dV")):
         _assert_f32_grad(g, w, name)
     fused = flash_attention_backward(*args, **kw)
@@ -2409,3 +2416,214 @@ def test_f32_device_ring_across_cards(dev, no_tf32):
     assert _err(first, ref) <= F32_GATE * max(1.0, ref.abs().max().item())
     for _ in range(20):
         assert torch.equal(device_ring_matmul(x, w, mesh), first)
+
+
+
+# ---------------------------------------------------------------------------
+# Tiles (ops.common.BlockSizes), the 128-key builds of K1 and K1b, the
+# backward's prologue (D and K4's zeroed accumulator), K6's split size as
+# block_k, K5's spans, and the tuners
+# ---------------------------------------------------------------------------
+
+def _tiles(block_k):
+    from cuda_flashattention_torch.ops.common import BlockSizes
+    return BlockSizes(block_k=block_k)
+
+
+K128_CASES = [
+    (1, 16, 16, 1024, 1024, 128, dict(causal=True)),
+    (1, 16, 16, 1024, 1024, 128, dict(causal=False)),
+    (2, 8, 2, 777, 777, 64, dict(causal=True)),
+    (2, 16, 4, 512, 1536, 128, dict(causal=True, kv_offset=1024,
+                                    window=700)),
+    (1, 8, 2, 1000, 1000, 128, dict(causal=True, window=300)),
+    (2, 8, 8, 300, 900, 64, dict(causal=False)),
+    (1, 4, 4, 200, 200, 128, dict(causal=True, window=64, kv_offset=-70)),
+]
+
+
+@pytest.mark.parametrize("softmax", ["online", "bound_unchecked"])
+@pytest.mark.parametrize("b,h,h_kv,nq,nk,d,kw", K128_CASES)
+def test_128_key_builds_match_plain_and_64_keys(dev, softmax, b, h, h_kv,
+                                                nq, nk, d, kw):
+    """K1 ("online") and K1b ("bound_unchecked", non-causal: Q-major) at
+    block_k = 128 against the plain version (5e-3, and 2e-2 · max |O|)
+    and against their 64-key builds (the same gates), under causal,
+    kv_offset, window and the ragged tail, d 64 and 128; K1b's causal
+    calls go to K5, whose 128 keys are a span of 2."""
+    args, _ = _fwd_inputs(dev, b, h, h_kv, nq, nk, d, None, nq + nk + d)
+    kw = dict(kw, softmax=softmax, out_dtype=torch.float32)
+    before = _form_counts()
+    got = flash_attention_forward(*args, block_sizes=_tiles(128), **kw)
+    torch.cuda.synchronize()
+    after = _form_counts()
+    form = ("online" if softmax == "online"
+            else "kmajor" if kw.get("causal") else "bound")
+    assert after[form] == before[form] + 1
+    _assert_fwd_close(got, flash_attention_forward_plain(*args, **kw))
+    _assert_fwd_close(got, flash_attention_forward(*args, **kw))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_128_key_k1_under_segment_ids(dev, causal):
+    b, h, n, d = 2, 8, 1000, 128
+    args, _ = _fwd_inputs(dev, b, h, 4, n, n, d, None, 7)
+    ids = _segments(dev, b, n, [300, 1, 250, 449])
+    kw = dict(causal=causal, q_segment_ids=ids, kv_segment_ids=ids)
+    got = flash_attention_forward(*args, block_sizes=_tiles(128), **kw)
+    torch.cuda.synchronize()
+    _assert_fwd_close(got, flash_attention_forward_plain(*args, **kw))
+    _assert_fwd_close(got, flash_attention_forward(*args, **kw))
+
+
+def test_128_key_k1b_behind_its_guard(dev):
+    """"bound" at block_k = 128: K1b's 128-key build, then the guarded
+    online launch at the same tile; a loose bound (anti-aligned Q and K)
+    returns the online kernel's bits."""
+    b, h, n, d = 1, 4, 300, 128
+    gen = torch.Generator(device=dev).manual_seed(3)
+    base = _rand(gen, dev, b, 1, 1, d).float()
+    q = (base * 200).expand(b, h, n, d).contiguous().to(torch.bfloat16)
+    k = (-base * 200).expand(b, h, n, d).contiguous().to(torch.bfloat16)
+    v = _rand(gen, dev, b, h, n, d)
+    got = flash_attention_forward(q, k, v, softmax="bound",
+                                  block_sizes=_tiles(128))
+    online = flash_attention_forward(q, k, v, softmax="online",
+                                     block_sizes=_tiles(128))
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], online[0]) and torch.equal(got[1], online[1])
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_kmajor_at_each_span(dev, d):
+    """K5 at every span its build keeps (block_k = 64 · span) against the
+    plain version and against the rule's span."""
+    from cuda_flashattention_torch.ops.common import BUILT_TILES
+    b, h, h_kv, nq, nk = 2, 8, 2, 256, 1100
+    args, _ = _fwd_inputs(dev, b, h, h_kv, nq, nk, d, None, d + 1)
+    kw = dict(causal=True, kv_offset=nk - nq, softmax="bound_unchecked",
+              out_dtype=torch.float32)
+    want = flash_attention_forward_plain(*args, **kw)
+    rule = flash_attention_forward(*args, **kw)
+    for block_k in BUILT_TILES["K5", "bf16", d][1]:
+        got = flash_attention_forward(*args, block_sizes=_tiles(block_k),
+                                      **kw)
+        torch.cuda.synchronize()
+        _assert_fwd_close(got, want)
+        assert _err(got[0], rule[0]) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_prologue_matches_the_plain_d(dev, dtype, d):
+    """The prologue's D within 1e-5 · max(1, max |plain D|) of the plain
+    version at a ragged Nq, on heads padded to the kernel's d, and K4's
+    accumulator zeroed (it was filled with 7 before)."""
+    from cuda_flashattention_torch.ops import flash_bwd as fb
+    from cuda_flashattention_torch.ops.common import pad_heads
+    gen = torch.Generator(device=dev).manual_seed(d)
+    b, h, n = 2, 8, 333
+    o = torch.randn((b, h, n, d), generator=gen, device=dev).to(dtype)
+    do = torch.randn((b, h, n, d), generator=gen, device=dev).to(dtype)
+    _, (o_run, do_run) = pad_heads("test", o, do)
+    acc = torch.full((*o_run.shape[:3], o_run.shape[-1]), 7.0, device=dev)
+    before = fb.flash_attention_backward.launches["delta"]
+    got = fb._launch_delta(o_run, do_run, acc)
+    torch.cuda.synchronize()
+    assert fb.flash_attention_backward.launches["delta"] == before + 1
+    want = fb.delta_plain(o, do)
+    assert _err(got, want) <= 1e-5 * max(1.0, want.abs().max().item())
+    assert torch.count_nonzero(acc).item() == 0
+    # an fp32 O (a ring's combined output) with a bf16 dO
+    got = fb._launch_delta(o_run.float(), do_run.to(torch.bfloat16))
+    want = fb.delta_plain(o.float(), do.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    assert _err(got, want) <= 1e-5 * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_backward_takes_d_from_the_prologue(dev, fused):
+    """GQA, segment ids, a ragged Nq: one prologue launch per backward
+    call, before K4 (or K2 + K3), and the gradients at the backward's
+    gate; the explicit built pair gives the same bits as none."""
+    from cuda_flashattention_torch.ops.common import BlockSizes
+    b, h, h_kv, n, d = 2, 8, 2, 700, 128
+    q, k, v, _, _, do = _bwd_inputs(dev, b, h, h_kv, n, n, d, True, 0, 5)
+    ids = _segments(dev, b, n, [200, 1, 499])
+    kw = dict(causal=True, q_segment_ids=ids, kv_segment_ids=ids)
+    args = (q, k, v, *flash_attention_forward(q, k, v, **kw), do)
+    launches = flash_attention_backward.launches
+    before = dict(launches)
+    got = flash_attention_backward(*args, fused=fused, **kw)
+    torch.cuda.synchronize()
+    assert launches["delta"] == before["delta"] + 1
+    assert launches["fused" if fused else "dkdv"] == before[
+        "fused" if fused else "dkdv"] + 1
+    want = flash_attention_backward_plain(*args, **kw)
+    for g, w, name in zip(got, want, ("dQ", "dK", "dV")):
+        _assert_rel(g, w, name)
+    tiled = flash_attention_backward(*args, fused=fused,
+                                     block_sizes=BlockSizes(), **kw)
+    for g, t in zip(got[1:], tiled[1:]):
+        assert torch.equal(g, t)
+
+
+def test_backward_runs_no_torch_reduction_or_zeros(dev):
+    """On CUDA tensors at d = 128 the backward's D and dQ's zeroing are
+    the prologue's: the profiler records no aten::sum, aten::zeros or
+    aten::zero_."""
+    args = _bwd_inputs(dev, 1, 16, 16, 1024, 1024, 128, True, 0, 9)
+    flash_attention_backward(*args, causal=True)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        flash_attention_backward(*args, causal=True)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()}
+    assert not names & {"aten::sum", "aten::zeros", "aten::zero_"}, names
+
+
+@pytest.mark.parametrize("block_k", [64, 128, 1000, 4352, None])
+def test_decode_at_explicit_split_sizes(dev, block_k):
+    """K6 with block_k below the rule's 128 keys, above it, the whole
+    capacity (one split) and the rule, against the plain version."""
+    b, h, h_kv, cap, d = 8, 16, 4, 4352, 128
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q = (_rand(gen, dev, b, h, d).float() * 8).to(torch.bfloat16)
+    k = (_rand(gen, dev, b, h_kv, cap, d).float() * 4).to(torch.bfloat16)
+    v = _rand(gen, dev, b, h_kv, cap, d)
+    lengths = torch.tensor([4224, 1, 0, 4352, 129, 128, 3000, 64],
+                           dtype=torch.int32, device=dev)
+    got = decode_attention(q, k, v, lengths, block_k=block_k)
+    torch.cuda.synchronize()
+    _assert_fwd_close(got, decode_attention_plain(q, k, v, lengths))
+
+
+def test_tuners_on_a_small_shape(dev, tmp_path, monkeypatch):
+    """Each tuner returns a built choice, writes it to its cache, and a
+    second call measures nothing."""
+    from cuda_flashattention_torch.ops.common import BlockSizes
+    from cuda_flashattention_torch.utils import autotune
+    monkeypatch.setenv("CFA_AUTOTUNE_CACHE", str(tmp_path / "c.json"))
+    autotune._MEM_CACHE.clear()
+    fwd = autotune.autotune_block_sizes(nq=512, nk=512, d=128, heads=4,
+                                        causal=True, iters=2)
+    bwd = autotune.autotune_block_sizes(nq=512, nk=512, d=128, heads=4,
+                                        causal=True, mode="bwd", iters=2)
+    bk = autotune.autotune_decode_block_k(ctx=600, heads=8, kv_heads=2,
+                                          batch=2, iters=2)
+    ps = autotune.autotune_page_size(ctx=600, heads=8, kv_heads=2, batch=2,
+                                     iters=2)
+    assert fwd.block_k in (64, 128) and fwd.block_q == 128
+    assert (bwd.block_q_bwd, bwd.block_k_bwd) == (64, 128)
+    assert bk in autotune.decode_candidates(600)
+    assert ps in autotune.page_candidates(600)
+    assert all(ms is not None for sweep in autotune.sweeps.values()
+               for _, ms in sweep)
+    assert len(autotune._disk_cache_load()) == 4
+    autotune._MEM_CACHE.clear()
+    monkeypatch.setattr(autotune, "time_fn",
+                        lambda *a, **k: pytest.fail("cache miss"))
+    assert autotune.autotune_block_sizes(nq=512, nk=512, d=128, heads=4,
+                                         causal=True, iters=2) == fwd
+    assert isinstance(fwd, BlockSizes)

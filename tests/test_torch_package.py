@@ -168,9 +168,10 @@ def test_online_forward_builds_no_bound_form():
         assert needle not in src, needle
     # the online step, and the epilogue without the loose-bound count
     assert "online_step<" in src and "store_rows<D, false>(" in src
-    # each took the q type (q_f32) beside k_type and v_type
-    assert len(_build.SIGNATURES["cfa_flash_fwd"]) == 16
-    assert len(_build.SIGNATURES["cfa_flash_fwd_bound"]) == 17
+    # each took the q type (q_f32) beside k_type and v_type, then K1 and
+    # K1b the key tile (kn: 64, or the 128-key build)
+    assert len(_build.SIGNATURES["cfa_flash_fwd"]) == 17
+    assert len(_build.SIGNATURES["cfa_flash_fwd_bound"]) == 18
     assert len(_build.SIGNATURES["cfa_flash_fwd_kmajor"]) == 18
 
 

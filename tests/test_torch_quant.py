@@ -19,7 +19,10 @@ from cuda_flashattention_tpu.ops.common import (
     quantize_q_per_head as jax_quantize_q,
 )
 from cuda_flashattention_torch.ops import quant as tq
-from cuda_flashattention_torch.ops.common import quantize_q_per_head
+from cuda_flashattention_torch.ops.common import (
+    BlockSizes,
+    quantize_q_per_head,
+)
 from cuda_flashattention_torch.ops.naive import naive_attention
 
 SCALE_RTOL = 1e-6
@@ -129,14 +132,21 @@ def test_quantize_q_per_head_matches_jax(shape, axes):
 
 def test_flash_attention_quantized_names_what_it_waits_for():
     """It waits for nothing any more: it is the forward over the pair's
-    codes and scales, and only explicit block sizes are refused."""
+    codes and scales, and takes the forward's block sizes (refusing what
+    is not a `BlockSizes`, and unbuilt tiles)."""
     kv = tq.quantize_kv(torch.zeros(1, 1, 4, 8), torch.zeros(1, 1, 4, 8))
     o, lse = tq.flash_attention_quantized(torch.zeros(1, 1, 4, 8), kv)
     assert tuple(o.shape) == (1, 1, 4, 8) and torch.all(o == 0)
     assert torch.allclose(lse, torch.full((1, 1, 4), float(np.log(4.0))))
-    with pytest.raises(NotImplementedError, match="block_sizes"):
+    with pytest.raises(TypeError, match="BlockSizes"):
         tq.flash_attention_quantized(torch.zeros(1, 1, 4, 8), kv,
                                      block_sizes=object())
+    with pytest.raises(ValueError, match="built for"):
+        tq.flash_attention_quantized(torch.zeros(1, 1, 4, 8), kv,
+                                     block_sizes=BlockSizes(block_k=128))
+    o2, _ = tq.flash_attention_quantized(torch.zeros(1, 1, 4, 8), kv,
+                                         block_sizes=BlockSizes())
+    assert torch.equal(o2, o)
 
 
 @pytest.mark.parametrize("quantize_q", [False, True])

@@ -21,6 +21,7 @@ import torch
 from cuda_flashattention_tpu.parallel import ring as jring
 from cuda_flashattention_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from cuda_flashattention_torch.ops.attention import flash_attention
+from cuda_flashattention_torch.ops.common import BlockSizes
 from cuda_flashattention_torch.parallel import ring as tring
 from cuda_flashattention_torch.parallel.mesh import make_mesh
 from cuda_flashattention_torch.utils.testing import (
@@ -221,5 +222,8 @@ def test_ring_rejects_bad_arguments():
     q = q[:, :2]
     with pytest.raises(ValueError, match="window requires causal"):
         tring.ring_attention(q, k, v, tmesh, window=8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="BlockSizes"):
         tring.ring_attention(q, k, v, tmesh, block_sizes=(8, 8))
+    with pytest.raises(ValueError, match="built for"):
+        tring.ring_attention(q, k, v, tmesh,
+                             block_sizes=BlockSizes(block_k=8))
