@@ -276,6 +276,37 @@ Phases, each of which raises on failure (so the script exits non-zero):
    cache) with the tuned tiles and, when the tuner kept 64 keys, at 128
    keys, and 16 `decode_one` steps at the tuned split size: logits within
    0.125 of the plain path, and the 128-key builds' launch counts.
+22. An fp32 Q over bf16 K/V in the forward (`_phase_f32_bf16_forward`):
+   K1 (online), K1b and K5 pinned at [1, 16, 4096, 128] causal, at the
+   fp32 serving model's prefix reads (512 x 3584; 512 x 1024 under window
+   1024) and at [1, 16, 6144, 128] causal, against the plain fp32
+   version on flat and peaked inputs (1e-4); fp16 O from the same
+   launches against the fp32-out O rounded to fp16 (K5 within one fp16
+   ulp); each row's ms beside the fp32 K/V build's on the upcast K/V, the
+   fp16-out ms, the bound, the plain ms, fp32 SDPA on the upcast K/V and
+   the upcast's own ms. K6 and K7 on an fp32 q over a bf16 cache
+   (`_phase_f32_bf16_decode`) at B=8 H=16 Hkv=4, 4224 live of 4352, d
+   128, 64, 32 and 16 (1e-4; K7 bit for bit K6's), timed at d = 128 on a
+   cold L2.
+23. Main path of an fp32 model served over bf16 caches
+   (`_phase_f32_bf16_serving`): the 246M serving config in fp32 with one
+   `init_cache(..., dtype=torch.bfloat16)` per layer, B=8 prompts of
+   4096 tokens through `prefill_chunked(chunk=512)`, 32 greedy
+   `decode_one` steps, without and with `cfg.window` = 1024: launches
+   (online 32, bound 28, fallback 28, K6 128; under the window online 60
+   and K6 128), logits within 1e-3 · max(1, max |plain|) of the run on
+   the plain attention functions and greedy tokens equal; the forward on
+   an fp32 Q over bf16 K/V at [1, 16, 6144, 128] causal (K5 1, fallback
+   1); the paged run over bf16 pools (4096 pages x 128 tokens, B=8 x
+   4096 tokens, 32 fp32-q steps bit for bit K6's on a bf16 shadow, a
+   sequence retired and its pages reused).
+24. The port's utilities on the card (`_phase_utils`): the 271M training
+   config takes 2 steps, is saved with `utils/checkpoint.py`, restored
+   into a fresh model and optimizer, and both take one more step (split
+   backward) with equal losses, gradients and parameters; one step under
+   `utils/profiling.trace` + `annotate`, whose Chrome trace names K1 and
+   K4; `kernel_report` of K1 at `device_peaks`' rates; a memory snapshot
+   and `memory_stats`; `utils/monitor.poll_once`.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; a kernel's `launches` in the JSON line is its sum over
@@ -284,15 +315,18 @@ the paged lifecycle, the two FA1 calls, the timed training steps of both
 models, the split-backward step, the ring-attention cases, Ulysses, the
 ring-decode calls, the sequence- and tensor-parallel train steps, the
 pipelined
-forward, the device-ring stage, the tuned serving runs; for the fp32 forms the ladder's stages 03
+forward, the device-ring stage, the tuned serving runs, the checkpointed
+and traced train steps; for the fp32 forms the ladder's stages 03
 to 06, the fp32 `flash_attention` path with its fused and split
 backward, the fp32 `generate()` runs, the fp32 chunked-serving runs, the
-fp32 FA1 calls and device-ring call, and the ladder model's training
-steps). Launches made to compare a kernel with its plain version or to
+fp32 FA1 calls and device-ring call, the ladder model's training
+steps, and the fp32 model's serving runs over bf16 caches with its
+paged run and the forward at [1, 16, 6144, 128]). Launches made to compare a kernel with its plain version or to
 time it are not in it, nor are K1's guarded fallback launches behind a
 checked bound call, which exit at once, but for K1's fp32-Q build over
 codes: on its path (fp32 chunked serving) it runs only as that guarded
-launch, so its line counts those.
+launch, so its line counts those; K1's fp32-Q-over-bf16 build counts its
+windowed prefix reads and its guarded launches alike.
 
 Each kernel's `bound_ms` is the least time the card could take for the
 same call: the larger of its bytes (each input read once, each output
@@ -2347,6 +2381,605 @@ def _phase_f32_chunked(ctx):
     del model
 
 
+# An fp32 model over bf16 caches (phases 22-24): the forward's shapes (the
+# training shape, and the chunked prefill's prefix reads), the decode rows'
+# context, and the main path's decode steps and paged run
+F32BF16_TRAIN = (1, 16, 16, 4096, 4096, 128)  # B, H, Hkv, Nq, Nk, d: causal
+F32BF16_PAGED_STEPS = 32
+
+
+def _phase_f32_bf16_forward(ctx):
+    """An fp32 Q over bf16 K/V in K1 (online), K1b and K5, each pinned
+    (through `_plan` + `_fwd_cuda`, no guarded fallback), at [1, 16, 4096,
+    128] causal, at the fp32 serving model's prefix reads (512 rows over
+    3584 keys; over the 1024-key slice under window 1024) and at [1, 16,
+    6144, 128] causal (where "auto" sends such a call to K5), against the
+    plain fp32 version on flat and peaked inputs: O and LSE within 1e-4.
+    Then fp16 O from the same launches: the fp32-out O rounded to fp16 (K5,
+    whose fp32 sums add in any order, within one fp16 ulp). Each row: the
+    kernel's ms (torch.profiler), the fp32 K/V build's ms on the K/V
+    upcast to fp32, the fp16-out ms, its bound (fp32 Q, O and LSE at 4
+    bytes an element, bf16 K/V at 2; products at the TF32 rate), the plain
+    ms, and the library call (fp32 SDPA, TF32 off, on the K/V upcast to
+    fp32) with the upcast's own ms."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.ops import flash_fwd as ff
+    from cuda_flashattention_torch.utils.timing import cuda_time_ms
+    dev, card = ctx.dev, ctx.card
+    gen = torch.Generator(device=dev).manual_seed(22)
+    # (name, shape, masks, the forms whose JSON row this shape fills: the
+    # main path's; K1 is the guarded launch behind K1b at the prefix)
+    n6144 = F32_PATH[2]
+    cases = [
+        ("[1, 16, 4096, 128] causal", F32BF16_TRAIN, dict(causal=True), ()),
+        ("prefix 512x3584", F32Q_PREFIX, {}, ("bound", "online")),
+        ("windowed prefix 512x1024", F32Q_WINDOW,
+         dict(causal=True, window=1024, kv_offset=1024), ()),
+        (f"[1, 16, {n6144}, 128] causal", (1, 16, 16, n6144, n6144, 128),
+         dict(causal=True), ("kmajor",)),
+    ]
+    for name, (b, h, hkv, nq, nk, d), kw, recorded in cases:
+        pairs = _visible_pairs(ctx, b, h, nq, nk, kw)
+        nbytes = 4 * (2 * b * h * nq * d + b * h * nq) + 2 * 2 * b * hkv * nk * d
+        bound = _bound_f32(nbytes, 4.0 * d * pairs)
+        draws = []
+        for peaked in (False, True):
+            def u(*shape):
+                return torch.rand(shape, generator=gen, device=dev) - 0.5
+            q, k, v = u(b, h, nq, d), u(b, hkv, nk, d), u(b, hkv, nk, d)
+            if peaked:
+                q, k = q * Q_PEAK, k * K_PEAK
+            draws.append((q, k.bfloat16(), v.bfloat16()))
+        q, k, v = draws[0]
+        up_ms = cuda_time_ms(lambda: (k.float(), v.float()), iters=10)
+        kf, vf = k.float(), v.float()
+        lib_ms = _library_ms(ctx, q, kf, vf, kw)
+        for form in ("online", "bound", "kmajor"):
+            softmax = "online" if form == "online" else "bound_unchecked"
+
+            def call(x, out=torch.float32, form=form, softmax=softmax):
+                plan = ff._plan(x[0], x[1], x[2], None,
+                                kw.get("causal", False), kw.get("window", 0),
+                                kw.get("kv_offset", 0), None, None, None,
+                                None, None, softmax, False)
+                if form != "online":
+                    plan = dataclasses.replace(
+                        plan, use_kmajor=form == "kmajor")
+                return ff._fwd_cuda(x[0], x[1], x[2], plan, out, None, None,
+                                    None, None)
+
+            def plain(x, softmax=softmax):
+                return ff.flash_attention_forward_plain(
+                    x[0], x[1], x[2], softmax=softmax,
+                    out_dtype=torch.float32, **kw)
+
+            kn = {"online": "K1", "bound": "K1b", "kmajor": "K5"}[form]
+            errs = []
+            for x in draws:
+                o, lse = call(x)
+                torch.cuda.synchronize()
+                o_p, lse_p = plain(x)
+                errs += [ctx.diff(o, o_p), ctx.diff(lse, lse_p)]
+                _check(bool(torch.isfinite(o).all())
+                       and o_p.abs().max().item() > 0,
+                       f"fp32 Q {kn} over bf16 {name}: O not finite or "
+                       f"all 0")
+            o32, lse32 = call(draws[0])
+            o16, lse16 = call(draws[0], torch.float16)
+            torch.cuda.synchronize()
+            top = max(1.0, o32.abs().max().item())
+            e16 = ctx.diff(o16, o32.half())
+            gate16 = 2.0 ** -10 * top if form == "kmajor" else 0.0
+            ms = _call_ms(lambda: call(draws[0]), kn)
+            ms16 = _call_ms(lambda: call(draws[0], torch.float16), kn)
+            ms_kv = _call_ms(lambda: call((q, kf, vf)), kn)
+            ms_p = cuda_time_ms(lambda: plain(draws[0]), iters=3, warmup=1)
+            print(f"[fp32 Q over bf16] {kn} {name}: B={b} H={h} Hkv={hkv} "
+                  f"Nq={nq} Nk={nk} d={d} max|dO| flat {errs[0]:.3e} "
+                  f"peaked {errs[2]:.3e}, max|dLSE| {errs[1]:.3e} / "
+                  f"{errs[3]:.3e} (gate {F32_GATE}); kernel {ms:.4f} ms "
+                  f"({100 * bound['bound_ms'] / ms:.1f}% of its bound "
+                  f"{bound['bound_ms']:.4f} ms, {bound['bound_by']}), the "
+                  f"fp32 K/V build on the upcast K/V {ms_kv:.4f} ms, "
+                  f"library fp32 {lib_ms:.4f} ms + upcast {up_ms:.4f} ms, "
+                  f"plain {ms_p:.4f} ms; fp16 O {ms16:.4f} ms, vs the fp32 "
+                  f"O rounded {e16:.3e} (gate {gate16:.3e}) ({card})",
+                  flush=True)
+            _check(max(errs) <= F32_GATE, f"fp32 Q {kn} over bf16 {name}: "
+                   f"max |diff| {max(errs):.3e} > {F32_GATE}")
+            _check(o16.dtype == torch.float16 and e16 <= gate16
+                   and ctx.diff(lse16, lse32) <= (F32_GATE if gate16
+                                                  else 0.0),
+                   f"fp16 O of {kn} {name}: {e16:.3e} > {gate16:.3e}")
+            r = ctx.rec[f"{kn} fp32 Q over bf16"]
+            r["max_abs_err"] = max(r["max_abs_err"], *errs)
+            if form in recorded:
+                r.update(ms=ms, plain_ms=ms_p, library_ms=lib_ms, **bound)
+        del draws, q, k, v, kf, vf
+
+
+def _phase_f32_bf16_decode(ctx):
+    """K6 and K7 on an fp32 q over a bf16 cache against their plain
+    versions at the serving batch (B=8, H=16, Hkv=4, 4224 live tokens of
+    4352), d = 128, 64, 32 and 16, flat and peaked inputs (1e-4); K7 over
+    the same keys in pages (128 tokens at d = 128, else 16) bit for bit
+    against K6. At d = 128 each: the kernel's ms on a cold L2
+    (torch.profiler), its bytes bound (fp32 q and O, bf16 K/V), the plain
+    ms, and the library call (fp32 SDPA on the one-row query under the
+    length mask, TF32 off, on the cache upcast to fp32) with the upcast's
+    own ms."""
+    torch = ctx.torch
+    F = torch.nn.functional
+    from cuda_flashattention_torch.ops.decode import (
+        decode_attention, decode_attention_plain)
+    from cuda_flashattention_torch.ops.paged import (
+        paged_decode_attention, paged_decode_attention_plain)
+    from cuda_flashattention_torch.utils.timing import cuda_time_ms
+    dev, card = ctx.dev, ctx.card
+    b, h, hkv = BATCH, 16, 4
+    gen = torch.Generator(device=dev).manual_seed(23)
+    lens = torch.full((b,), DEC_LIVE, dtype=torch.int32, device=dev)
+    live = torch.arange(DEC_CAP, device=dev)[None, :] < lens[:, None]
+    for d in (128, 64, 32, 16):
+        page = PAGE if d == 128 else DEC_PAGE
+        n_pages = DEC_CAP // page
+        order = torch.randperm(b * n_pages, generator=gen, device=dev)
+        table = order.view(b, n_pages).to(torch.int32)
+
+        def paged(x):
+            pages = x.view(b, hkv, n_pages, page, d).transpose(1, 2).reshape(
+                b * n_pages, hkv, page, d)
+            pool = torch.empty_like(pages)
+            pool[order] = pages
+            return pool
+
+        errs, runs = {"K6": [], "K7": []}, None
+        for peaked in (False, True):
+            def u(*shape):
+                return torch.rand(shape, generator=gen, device=dev) - 0.5
+            q = u(b, h, d)
+            k, v = u(b, hkv, DEC_CAP, d), u(b, hkv, DEC_CAP, d)
+            if peaked:
+                q, k = q * Q_PEAK, k * K_PEAK
+            k, v = k.bfloat16(), v.bfloat16()
+            pk, pv = paged(k), paged(v)
+            o, lse = decode_attention(q, k, v, lens)
+            o7, lse7 = paged_decode_attention(q, pk, pv, table, lens)
+            torch.cuda.synchronize()
+            o_p, lse_p = decode_attention_plain(q, k, v, lens)
+            o7_p, lse7_p = paged_decode_attention_plain(q, pk, pv, table,
+                                                        lens)
+            errs["K6"].append(max(ctx.diff(o, o_p), ctx.diff(lse, lse_p)))
+            errs["K7"].append(max(ctx.diff(o7, o7_p),
+                                  ctx.diff(lse7, lse7_p)))
+            _check(o.dtype == torch.float32 and o_p.abs().max().item() > 0
+                   and max(errs["K6"] + errs["K7"]) <= F32_GATE,
+                   f"fp32 q over bf16 cache d={d} peaked={peaked}: {errs}")
+            _check(bool(torch.equal(o7, o) and torch.equal(lse7, lse)),
+                   f"K7 fp32 q over bf16 pools d={d}: not bit for bit K6's")
+            if not peaked:
+                runs = (q, k, v, pk, pv, table)
+        if d != 128:
+            print(f"[decode fp32 q over bf16] K6 and K7 d={d}: max|diff| "
+                  f"K6 {max(errs['K6']):.3e}, K7 {max(errs['K7']):.3e} "
+                  f"(gate {F32_GATE}), K7 bit for bit K6 ({card})",
+                  flush=True)
+            continue
+        q, k, v, pk, pv, table = runs
+        up_ms = cuda_time_ms(lambda: (k.float(), v.float()),
+                             before=ctx.l2_flush.zero_)
+        kf, vf = k.float(), v.float()
+        lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kf, vf, attn_mask=live[:, None, None, :],
+            enable_gqa=True), before=ctx.l2_flush.zero_)
+        tokens = b * hkv * DEC_LIVE
+        for kn in ("K6", "K7"):
+            if kn == "K6":
+                def call():
+                    return decode_attention(q, k, v, lens)
+
+                def plain():
+                    return decode_attention_plain(q, k, v, lens)
+            else:
+                def call():
+                    return paged_decode_attention(q, pk, pv, table, lens)
+
+                def plain():
+                    return paged_decode_attention_plain(q, pk, pv, table,
+                                                        lens)
+            ms = _call_ms(call, kn, iters=5, before=ctx.l2_flush.zero_)
+            ms_p = cuda_time_ms(plain, iters=5, before=ctx.l2_flush.zero_)
+            nbytes = (2 * _nbytes(q) + b * h * 4 + b * 4 + tokens * d * 4
+                      + (b * n_pages * 4 if kn == "K7" else 0))
+            bound = _bound_f32(nbytes, 4.0 * h * d * DEC_LIVE * b)
+            print(f"[decode fp32 q over bf16] {kn} d={d}"
+                  + (f", {page}-token pages" if kn == "K7" else "")
+                  + f": B={b} H={h} Hkv={hkv} {DEC_LIVE} live of {DEC_CAP}; "
+                  f"max|diff| flat {errs[kn][0]:.3e} peaked "
+                  f"{errs[kn][1]:.3e} (gate {F32_GATE}); kernel {ms:.4f} ms "
+                  f"cold ({100 * bound['bound_ms'] / ms:.1f}% of its bound "
+                  f"{bound['bound_ms']:.4f} ms, {bound['bound_by']}), library "
+                  f"fp32 {lib_ms:.4f} ms + upcast {up_ms:.4f} ms, plain "
+                  f"{ms_p:.4f} ms ({card})", flush=True)
+            r = ctx.rec[f"{kn} fp32 q over bf16"]
+            r["max_abs_err"] = max(r["max_abs_err"], *errs[kn])
+            r.update(ms=ms, plain_ms=ms_p, library_ms=lib_ms, **bound)
+        del runs, q, k, v, pk, pv, kf, vf
+
+
+def _phase_f32_bf16_serving(ctx):
+    """Main path of an fp32 model served over bf16 caches: the 246M
+    serving config with `dtype=torch.float32`, one bf16 cache per layer
+    from `init_cache(..., dtype=torch.bfloat16)`, B=8 prompts of 4096
+    tokens through `prefill_chunked(chunk=512)`, then 32 greedy
+    `decode_one` steps; again with `cfg.window` = 1024. Per layer each
+    chunk launches K1's fp32 build on itself (fp32 over fp32) and, after
+    the first, reads the bf16 prefix with its fp32 Q as "auto" routes it,
+    as the JAX function does: K1b with its guarded fallback (K1's fp32-Q-
+    over-bf16 build, which exits at once) without a window, and K1's
+    fp32-Q-over-bf16 build under the window (a causal read of 512 rows
+    goes online); decode is K6's fp32-q-over-bf16 build. Counts: online 32
+    (+ 28 under the window), bound 28 and fallback 28 without it, K6 128.
+    K5's build for an fp32 Q over bf16 K/V is where "auto" sends a causal
+    call past 5120 rows: `flash_attention_forward` on an fp32 Q over bf16
+    K/V at [1, 16, 6144, 128] causal, K5 and its guarded K1 once each,
+    within 1e-4 of the plain version. Against the same run on the
+    plain attention functions: each run's last-chunk logits within
+    F32_LOGIT_GATE · max(1, max |plain|) and its greedy tokens equal (or
+    departing only where the plain run's two best logits lie within that
+    gate). Then the paged run of the serving stage at the model's
+    attention shape: bf16 pools of 4096 pages of 128 tokens, B=8 sequences
+    of 4096 fp32 K/V tokens through `reserve_for` + `paged_bulk_append`,
+    32 steps of `reserve_for` + `paged_append` + `paged_decode_step` on an
+    fp32 q (K7), each bit for bit against K6 on a contiguous bf16 shadow
+    and once within 1e-4 of the plain version; a sequence retires and its
+    pages serve a new one."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.models import transformer as tfm
+    from cuda_flashattention_torch.ops.decode import decode_attention
+    from cuda_flashattention_torch.ops.kv_cache import (
+        append as cache_append, init_cache)
+    from cuda_flashattention_torch.ops.paged import (
+        PageAllocator, init_paged_cache, paged_append, paged_bulk_append,
+        paged_decode_attention, paged_decode_attention_plain,
+        paged_decode_step)
+    dev, card = ctx.dev, ctx.card
+    cfg = tfm.TransformerConfig(dtype=torch.float32, **CFG_KW)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    model = tfm.Transformer(cfg, generator=gen)
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, LONG_PROMPT),
+                           generator=gen, device=dev, dtype=torch.int32)
+    new, n_chunks = F32_CHUNK_NEW, LONG_PROMPT // LONG_CHUNK
+    n_prefix = (n_chunks - 1) * cfg.n_layers
+
+    def caches():
+        return tuple(init_cache(BATCH, cfg.n_kv_heads, LONG_PROMPT + new,
+                                cfg.d_head, dtype=torch.bfloat16, device=dev)
+                     for _ in range(cfg.n_layers))
+
+    def serve(m):
+        """(last-chunk logits, tokens [B, 1 + new], each step's logits,
+        prefill s, decode s)"""
+        c = caches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, c = tfm.prefill_chunked(m, prompt, c, chunk=LONG_CHUNK)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        _check(all(x.k.dtype == torch.bfloat16 for x in c),
+               "the caches are not bf16")
+        tok = torch.argmax(lg, dim=-1).to(prompt.dtype)
+        toks, steps = [tok], []
+        t0 = time.perf_counter()
+        for i in range(new):
+            lg_dec, c = tfm.decode_one(m, tok, LONG_PROMPT + i, c)
+            tok = torch.argmax(lg_dec, dim=-1).to(prompt.dtype)
+            toks.append(tok)
+            steps.append(lg_dec)
+        torch.cuda.synchronize()
+        return (lg, torch.stack(toks, 1), steps, prefill_s,
+                time.perf_counter() - t0)
+
+    serve(model)  # warm-up
+    n_own = n_chunks * cfg.n_layers  # the chunks' own reads, fp32 over fp32
+    for label, window in (("bf16 caches", 0),
+                          ("bf16 caches, window 1024", LONG_WINDOW)):
+        m = _windowed(model, window) if window else model
+        ctx.zero_counts()
+        lg, toks, steps, prefill_s, decode_s = serve(m)
+        counts = dict(ctx.fwd_forms)
+        n_dec = decode_attention.launches
+        expect = (dict(online=n_own + n_prefix, bound=0, kmajor=0,
+                       fallback=0) if window else
+                  dict(online=n_own, bound=n_prefix, kmajor=0,
+                       fallback=n_prefix))
+        with _serving_on_plain_attention():
+            lg_p, toks_p, steps_p, _, _ = serve(m)
+        top = max(1.0, max(x.abs().max().item() for x in [lg_p] + steps_p))
+        e_lg = max(ctx.diff(a, b_) for a, b_ in zip([lg] + steps,
+                                                    [lg_p] + steps_p))
+        same = (toks == toks_p).float().mean().item()
+        departure, tie_ok = "", True
+        if not torch.equal(toks, toks_p):
+            step = int((toks != toks_p).any(0).nonzero()[0])
+            at = lg_p if step == 0 else steps_p[step - 1]
+            rows = toks[:, step] != toks_p[:, step]
+            best = at[rows].float().topk(2, dim=-1).values
+            gap = (best[:, 0] - best[:, 1]).max().item()
+            tie_ok = gap <= F32_LOGIT_GATE * top
+            departure = (f" (first departure at token {step}, where the "
+                         f"plain run's two best logits lie {gap:.3e} apart)")
+            e_lg = ctx.diff(lg, lg_p)  # past a departure the contexts differ
+        print(f"[f32-over-bf16] {label}: fp32 model, B={BATCH} x "
+              f"{LONG_PROMPT} tokens in chunks of {LONG_CHUNK}, then {new} "
+              f"greedy steps: launches {counts} (expect {expect}), K6 "
+              f"{n_dec} (expect {cfg.n_layers * new}); logits vs plain "
+              f"attention max|d| {e_lg:.3e} (gate {F32_LOGIT_GATE} x "
+              f"{top:.3f}); greedy tokens equal {same:.4f}{departure}; "
+              f"prefill {prefill_s * 1e3:.3f} ms "
+              f"({BATCH * LONG_PROMPT / prefill_s:.0f} prompt tok/s), decode "
+              f"{decode_s / new * 1e3:.3f} ms/step ({card})", flush=True)
+        _check(counts == expect and n_dec == cfg.n_layers * new,
+               f"fp32 over bf16 {label}: launches {counts}, K6 {n_dec}")
+        _check(bool(torch.isfinite(lg).all()) and e_lg <= F32_LOGIT_GATE * top,
+               f"fp32 over bf16 {label}: logits {e_lg:.3e}")
+        _check(tie_ok, f"fp32 over bf16 {label}: tokens depart from the "
+               f"plain run{departure}")
+        ctx.launches["K1 fp32"] += n_own
+        ctx.launches["K1b fp32 Q over bf16"] += counts["bound"]
+        # K1's build for an fp32 Q over bf16 K/V: the windowed prefix reads
+        # and the guarded launches behind K1b (which exit at once)
+        ctx.launches["K1 fp32 Q over bf16"] += (counts["online"] - n_own
+                                                + counts["fallback"])
+        ctx.launches["K6 fp32 q over bf16"] += n_dec
+        del lg_p, steps_p
+    del model
+
+    # K5's build: "auto" on a causal call past 5120 rows
+    from cuda_flashattention_torch.ops.flash_fwd import (
+        flash_attention_forward, flash_attention_forward_plain)
+    b, h, hkv, nq, nk, d = F32_PATH[0], F32_PATH[1], F32_PATH[1], \
+        F32_PATH[2], F32_PATH[2], F32_PATH[3]
+    q = torch.rand((b, h, nq, d), generator=gen, device=dev) - 0.5
+    k = (torch.rand((b, hkv, nk, d), generator=gen, device=dev)
+         - 0.5).bfloat16()
+    v = (torch.rand((b, hkv, nk, d), generator=gen, device=dev)
+         - 0.5).bfloat16()
+    ctx.zero_counts()
+    o, lse = flash_attention_forward(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    forms = dict(ctx.fwd_forms)
+    o_p, lse_p = flash_attention_forward_plain(q, k, v, causal=True)
+    e = max(ctx.diff(o, o_p), ctx.diff(lse, lse_p))
+    print(f"[f32-over-bf16] flash_attention_forward on an fp32 Q over bf16 "
+          f"K/V, [{b}, {h}, {nq}, {d}] causal: launches {forms} (expect "
+          f"kmajor 1, fallback 1); max|diff| vs plain {e:.3e} (gate "
+          f"{F32_GATE}) ({card})", flush=True)
+    _check(forms == dict(online=0, bound=0, kmajor=1, fallback=1)
+           and e <= F32_GATE and o.dtype == torch.float32,
+           f"fp32 Q over bf16 K/V through K5: {forms}, {e:.3e}")
+    ctx.launches["K5 fp32 Q over bf16"] += forms["kmajor"]
+    ctx.launches["K1 fp32 Q over bf16"] += forms["fallback"]
+    del q, k, v, o, o_p
+
+    # the paged run over bf16 pools under an fp32 q
+    b, hkv, h, d = BATCH, cfg.n_kv_heads, cfg.n_heads, cfg.d_head
+    total = PAGED_PREFILL + F32BF16_PAGED_STEPS
+    k_all = torch.rand((b, hkv, total, d), generator=gen, device=dev) - 0.5
+    v_all = torch.rand((b, hkv, total, d), generator=gen, device=dev) - 0.5
+    cache = init_paged_cache(N_PAGES, b, MAX_PAGES, hkv, PAGE, d,
+                             dtype=torch.bfloat16, device=dev)
+    alloc = PageAllocator(N_PAGES)
+    shadow = init_cache(b, hkv, MAX_PAGES * PAGE, d, dtype=torch.bfloat16,
+                        device=dev)
+    for i in range(b):
+        alloc.reserve_for(cache, i, PAGED_PREFILL)
+    paged_bulk_append(cache, k_all[:, :, :PAGED_PREFILL],
+                      v_all[:, :, :PAGED_PREFILL])
+    cache_append(shadow, k_all[:, :, :PAGED_PREFILL],
+                 v_all[:, :, :PAGED_PREFILL])
+    _check(cache.k_pages.dtype == torch.bfloat16, "the pools are not bf16")
+    ctx.zero_counts()
+    n_k7, e_plain = 0, None
+    for t in range(F32BF16_PAGED_STEPS):
+        at = PAGED_PREFILL + t
+        for i in range(b):
+            alloc.reserve_for(cache, i, 1)
+        paged_append(cache, k_all[:, :, at], v_all[:, :, at])
+        cache_append(shadow, k_all[:, :, at:at + 1], v_all[:, :, at:at + 1])
+        q = (torch.rand((b, h, d), generator=gen, device=dev) - 0.5) * Q_PEAK
+        o, lse = paged_decode_step(q, cache)
+        n_k7 = paged_decode_attention.launches
+        lengths = torch.full((b,), at + 1, dtype=torch.int32, device=dev)
+        o_c, lse_c = decode_attention(q, shadow.k, shadow.v, lengths)
+        torch.cuda.synchronize()
+        _check(bool(torch.equal(o, o_c) and torch.equal(lse, lse_c)),
+               f"paged step {t} over bf16 pools: not bit for bit K6's")
+        if t == F32BF16_PAGED_STEPS - 1:
+            o_p, lse_p = paged_decode_attention_plain(
+                q, cache.k_pages, cache.v_pages, cache.page_table,
+                cache.lengths)
+            e_plain = max(ctx.diff(o, o_p), ctx.diff(lse, lse_p))
+            _check(e_plain <= F32_GATE, f"paged over bf16 pools vs plain "
+                   f"{e_plain:.3e}")
+    free_before = len(alloc.free)
+    alloc.release_sequence(cache, 3)
+    freed = len(alloc.free) - free_before
+    alloc.reserve_for(cache, 3, PAGE)
+    paged_append(cache, k_all[:, :, 0], v_all[:, :, 0])
+    o, _ = paged_decode_step(q, cache)
+    torch.cuda.synchronize()
+    n_k7 = paged_decode_attention.launches
+    print(f"[f32-over-bf16] paged run: bf16 pools of {N_PAGES} pages x "
+          f"{PAGE} tokens, B={b} x {PAGED_PREFILL} fp32 K/V tokens, "
+          f"{F32BF16_PAGED_STEPS} fp32-q decode steps bit for bit K6's on "
+          f"the shadow, last step vs plain {e_plain:.3e} (gate {F32_GATE}); "
+          f"retired sequence 3: {freed} pages back; K7 launches {n_k7} "
+          f"({card})", flush=True)
+    _check(n_k7 == F32BF16_PAGED_STEPS + 1 and freed == -(
+        -(PAGED_PREFILL + F32BF16_PAGED_STEPS) // PAGE) and bool(
+            torch.isfinite(o).all()),
+           f"paged run: K7 {n_k7}, {freed} pages freed")
+    ctx.launches["K7 fp32 q over bf16"] += n_k7
+    del cache, shadow, alloc, k_all, v_all
+
+
+def _phase_utils(ctx):
+    """Checkpoint, trace, kernel report, memory snapshot and monitor on
+    the card. The 271M training config takes 2 `make_train_step` steps
+    (SGD with momentum, so the optimizer has state; K1 and K4 once per
+    layer and step), is saved with `utils/checkpoint.py`, restored into a
+    fresh model and optimizer, and each copy takes one more step through
+    the split backward (K2 + K3, which add no atomics, so the two copies
+    can be held bit for bit): losses, gradients and parameters equal.
+    Then one fused step under `utils/profiling.trace` + `annotate`, whose
+    Chrome trace must name K1 and K4; one `kernel_report` of K1 at [1, 16,
+    4096, 128] causal at `device_peaks`' rates; a memory snapshot
+    (`save_device_memory_profile`) and `memory_stats`; one `poll_once`."""
+    import os
+    import pickle
+    import tempfile
+    torch = ctx.torch
+    from cuda_flashattention_torch.models import transformer as tfm
+    from cuda_flashattention_torch.ops import attention
+    from cuda_flashattention_torch.ops import flash_bwd as fb
+    from cuda_flashattention_torch.ops.flash_fwd import (
+        flash_attention_forward)
+    from cuda_flashattention_torch.utils import checkpoint as ckpt
+    from cuda_flashattention_torch.utils.monitor import poll_once
+    from cuda_flashattention_torch.utils.profiling import (
+        TRACE_FILE, annotate, kernel_report, save_device_memory_profile,
+        trace)
+    from cuda_flashattention_torch.utils.timing import (
+        attention_flops, cuda_time_ms, device_peaks, memory_stats)
+    dev, card = ctx.dev, ctx.card
+    tcfg = tfm.TransformerConfig(**TRAIN_KW)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    tokens = torch.randint(0, tcfg.vocab_size, (1, TRAIN_T), generator=gen,
+                           device=dev)
+
+    def fresh(seed):
+        m = tfm.Transformer(tcfg, generator=torch.Generator(
+            device=dev).manual_seed(seed))
+        opt = torch.optim.SGD(m.parameters(), lr=1e-4, momentum=0.9)
+        return m, opt, tfm.make_train_step(m, opt)
+
+    model, opt, step = fresh(0)
+    ctx.zero_counts()
+    losses = [step(tokens).item() for _ in range(2)]
+    torch.cuda.synchronize()
+    counts = dict(ctx.bwd_launches)
+    n_fwd = _forward_launches(ctx, add=False)
+    _check(n_fwd == 2 * tcfg.n_layers and counts["fused"] == 2 * tcfg.n_layers,
+           f"checkpointed training: forward {n_fwd}, backward {counts}")
+    ctx.launches["K1"] += n_fwd
+    ctx.launches["K4"] += counts["fused"]
+    ctx.launches["K4 D prologue"] += counts["delta"]
+    split = mock.patch.object(attention, "flash_attention_backward",
+                              functools.partial(fb.flash_attention_backward,
+                                                fused=False))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = ckpt.save(os.path.join(tmp, "step2"),
+                         {"model": model.state_dict(),
+                          "opt": opt.state_dict()})
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        model2, opt2, step2 = fresh(1)
+        step2(tokens)  # builds the optimizer state that `like` shows
+        t0 = time.perf_counter()
+        state = ckpt.restore(path, {"model": model2.state_dict(),
+                                    "opt": opt2.state_dict()})
+        model2.load_state_dict(state["model"])
+        opt2.load_state_dict(state["opt"])
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    same_params = all(torch.equal(a, b_) for a, b_ in
+                      zip(model.parameters(), model2.parameters()))
+    ctx.zero_counts()
+    with split:
+        loss_a = step(tokens).item()
+        loss_b = step2(tokens).item()
+    torch.cuda.synchronize()
+    split_counts = dict(ctx.bwd_launches)
+    same_grads = all(torch.equal(a.grad, b_.grad) for a, b_ in
+                     zip(model.parameters(), model2.parameters()))
+    same_after = all(torch.equal(a, b_) for a, b_ in
+                     zip(model.parameters(), model2.parameters()))
+    print(f"[checkpoint] 271M config, 2 SGD(momentum) steps (losses "
+          f"{losses[0]:.4f}, {losses[1]:.4f}): saved {size / 2**20:.1f} MiB "
+          f"in {save_s * 1e3:.1f} ms, restored into a fresh model in "
+          f"{restore_s * 1e3:.1f} ms; parameters equal {same_params}; one "
+          f"more step each (K2 {split_counts['dkdv']}, K3 "
+          f"{split_counts['dq']}): loss {loss_a:.6f} vs {loss_b:.6f}, "
+          f"gradients equal {same_grads}, parameters after equal "
+          f"{same_after} ({card})", flush=True)
+    _check(same_params and loss_a == loss_b and same_grads and same_after
+           and split_counts["dkdv"] == split_counts["dq"]
+           == 2 * tcfg.n_layers,
+           "the restored model does not resume the run")
+    ctx.launches["K2"] += split_counts["dkdv"]
+    ctx.launches["K3"] += split_counts["dq"]
+    ctx.launches["K1"] += _forward_launches(ctx, add=False)
+    ctx.launches["K4 D prologue"] += split_counts["delta"]
+    del model2, opt2, step2, state
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx.zero_counts()
+        with trace(tmp):
+            with annotate("train_step"):
+                step(tokens)
+                torch.cuda.synchronize()
+        events = json.load(open(os.path.join(tmp, TRACE_FILE)))[
+            "traceEvents"]
+        names = {e.get("name", "") for e in events}
+        labels = {_kernel_of(n) for n in names} - {""}
+        counts = dict(ctx.bwd_launches)
+        n_fwd = _forward_launches(ctx)
+        ctx.launches["K4"] += counts["fused"]
+        ctx.launches["K4 D prologue"] += counts["delta"]
+        print(f"[trace] one train step under utils.profiling.trace: "
+              f"{len(events)} events in {TRACE_FILE}, package kernels "
+              f"{sorted(labels)}, annotation present "
+              f"{'train_step' in names} ({card})", flush=True)
+        _check({"K1", "K4"} <= labels and "train_step" in names,
+               f"the trace names {sorted(labels)}")
+    del model, opt, step
+
+    q = ctx.mk(1, 16, TRAIN_T, 128, peak=Q_PEAK)
+    k, v = ctx.mk(1, 16, TRAIN_T, 128, peak=K_PEAK), ctx.mk(1, 16, TRAIN_T,
+                                                           128)
+    ms = cuda_time_ms(lambda: flash_attention_forward(q, k, v, causal=True))
+    peaks = device_peaks()
+    report = kernel_report(
+        "K1 [1, 16, 4096, 128] causal bf16", ms / 1e3,
+        attention_flops(1, 16, TRAIN_T, TRAIN_T, 128, causal=True),
+        _nbytes(q, k, v, q) + 16 * TRAIN_T * 4)
+    print(f"[kernel_report] device_peaks {peaks} ({card})", flush=True)
+    _check(math.isfinite(report["tflops"]) and report["tflops"] > 0,
+           f"kernel_report {report}")
+    del q, k, v
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "memory.pickle")
+        save_device_memory_profile(path)
+        snapshot = pickle.load(open(path, "rb"))
+        n_seg = len(snapshot.get("segments", []))
+        stats = memory_stats()
+        print(f"[memory] snapshot: {n_seg} segments, "
+              f"{os.path.getsize(path)} bytes; memory_stats: "
+              f"{len(stats)} keys, in use "
+              f"{stats.get('allocated_bytes.all.current', 0) / 2**30:.2f} "
+              f"GiB, peak {stats.get('allocated_bytes.all.peak', 0) / 2**30:.2f}"
+              f" GiB, bytes_limit {stats.get('bytes_limit', 0) / 2**30:.2f} "
+              f"GiB ({card})", flush=True)
+        _check(n_seg > 0 and stats.get("bytes_limit", 0) > 0,
+               "no memory snapshot or counters")
+    rows = poll_once()
+    _check(len(rows) == ctx.torch.cuda.device_count() and rows[0][3] > 0,
+           f"poll_once gave {rows}")
+
+
 # The tuning phase (17): the tuners' shapes, the training shape the
 # 128-key K1 is held at, and the timed iterations per candidate (few: the
 # sweep is a check that every built tile runs and of the cache)
@@ -2993,7 +3626,10 @@ def main() -> int:
             "K6 fp32", "K7 fp32", "K1 fp32 d<64", "K4 fp32 d<64",
             "K1 fp32 Q over codes", "K1b fp32 Q over codes",
             "K5 fp32 Q over codes", "K3 fp32", "K8 fp32", "K9 fp32",
-            "K1 bf16 128-key", "K1b bf16 128-key", "K4 D prologue")}
+            "K1 bf16 128-key", "K1b bf16 128-key", "K4 D prologue",
+            "K1 fp32 Q over bf16", "K1b fp32 Q over bf16",
+            "K5 fp32 Q over bf16", "K6 fp32 q over bf16",
+            "K7 fp32 q over bf16")}
     # launches on the main paths, summed over the runs that drive them
     launches = {kn: 0 for kn in rec}
 
@@ -4374,6 +5010,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     _phase_f32_chunked(ctx)
     torch.cuda.empty_cache()
+    _phase_f32_bf16_forward(ctx)
+    torch.cuda.empty_cache()
+    _phase_f32_bf16_decode(ctx)
+    torch.cuda.empty_cache()
+    _phase_f32_bf16_serving(ctx)
+    torch.cuda.empty_cache()
+    _phase_utils(ctx)
+    torch.cuda.empty_cache()
     _phase_ladder_train(ctx)
     _phase_ladder(ctx)
     torch.cuda.empty_cache()
@@ -4478,6 +5122,30 @@ def main() -> int:
          "rowsum(dO * O) and K4's dQ accumulator zeroed, one launch before "
          "K4 or K2 + K3; the train steps; times at [1, 16, 4096, 128])",
          "flash_bwd_kv.cu", "flash_bwd.py:252"),
+        ("K1b fp32 Q over bf16", "flash_attention_forward softmax=bound on "
+         "an fp32 Q over bf16 K/V (K1b's BF16KV build: Q split into bf16 hi "
+         "+ lo, the bf16 K/V tiles as TMA brings them, two wgmma products "
+         "each, P unrounded; the fp32 serving model's chunked prefill "
+         "reading its bf16 caches; times at the prefix, 512 x 3584)",
+         "flash_fwd_bound.cu", "flash_fwd.py:123"),
+        ("K1 fp32 Q over bf16", "flash_attention_forward softmax=online on "
+         "an fp32 Q over bf16 K/V (K1's BF16KV build; the fp32 model's "
+         "windowed prefix reads over bf16 caches, and the guarded launch "
+         "behind each K1b / K5 read, which exits at once; times at the "
+         "prefix)", "flash_fwd.cu", "flash_fwd.py:123"),
+        ("K5 fp32 Q over bf16", "flash_attention_forward softmax=auto, "
+         "causal past 5120 rows, on an fp32 Q over bf16 K/V (K5's BF16KV "
+         "build; [1, 16, 6144, 128])", "flash_fwd_kmajor.cu",
+         "flash_fwd.py:399"),
+        ("K6 fp32 q over bf16", "decode_attention on an fp32 q over a bf16 "
+         "cache (K6's builds QT = float over bf16 storage, d 16-128, P "
+         "unrounded; the fp32 serving model's decode over bf16 caches; "
+         "times at B=8 H=16 Hkv=4, 4224 live of 4352)", "decode.cu",
+         "decode.py:145"),
+        ("K7 fp32 q over bf16", "paged_decode_attention on an fp32 q over "
+         "bf16 pools (K7's builds QT = float over bf16 storage, bit for bit "
+         "K6's; the paged run over bf16 pools at d 128, 128-token pages)",
+         "paged.cu", "paged.py:51"),
     ]
     kernels = []
     for kn, name, source, replaces in described:

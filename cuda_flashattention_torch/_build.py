@@ -47,19 +47,19 @@ SIGNATURES = {
     # ptrs[10] (q, k, v, k_scale, v_scale, q_seg, kv_seg, guard, o, lse),
     # B, H, Hkv, Nq, Nk, D, strides[9] (q/k/v: batch, head, row, in
     # elements), k_type, v_type (0 bf16, 1 int8, 2 fp8, 3 fp32: with an
-    # fp32 q), q_f32 (an fp32 q, over fp32 or one-byte K/V), causal,
-    # window, kv_offset, out_f32, kn (keys of a tile: 64, or 128 over bf16
-    # q/k/v), stream
+    # fp32 q), q_f32 (an fp32 q, over fp32, bf16 or one-byte K/V), causal,
+    # window, kv_offset, out_type (O in 0 bf16, 1 fp32, 2 fp16), kn (keys
+    # of a tile: 64, or 128 over bf16 q/k/v), stream
     "cfa_flash_fwd": [_PP, _I, _I, _I, _I, _I, _I, _LP,
                       _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # ptrs[10] (q, k, v, k_scale, v_scale, q_factor, c, n_loose, o, lse),
     # B, H, Hkv, Nq, Nk, D, strides[9], k_type, v_type, q_f32, qq, causal,
-    # window, kv_offset, out_f32, kn, stream
+    # window, kv_offset, out_type, kn, stream
     "cfa_flash_fwd_bound": [_PP, _I, _I, _I, _I, _I, _I, _LP,
                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # ptrs[12] (q, k, v, k_scale, v_scale, q_factor, c, l_acc, o_acc,
     # n_loose, o, lse), B, H, Hkv, Nq, Nk, D, strides[9], k_type, v_type,
-    # q_f32, qq, causal, window, kv_offset, out_f32, span, stream
+    # q_f32, qq, causal, window, kv_offset, out_type, span, stream
     "cfa_flash_fwd_kmajor": [_PP, _I, _I, _I, _I, _I, _I, _LP,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, k_scale, v_scale, q_sigma, lengths, windows, o, lse, part,

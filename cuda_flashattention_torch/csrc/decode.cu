@@ -1,8 +1,8 @@
 // One-token decode attention over a contiguous KV cache for Hopper: each
 // query row attends the live, in-window keys of its KV head. The cache is
 // bf16, int8, fp8 e4m3, or mixed (int8 K, fp8 V), the quantized ones with
-// per-token fp32 scales, under a bf16 q; or fp32, int8, fp8 or mixed under
-// an fp32 q; under `qq` Q arrives as per-head int8 and Q.K runs as an
+// per-token fp32 scales, under a bf16 q; or fp32, bf16, int8, fp8 or mixed
+// under an fp32 q; under `qq` Q arrives as per-head int8 and Q.K runs as an
 // exact integer dot. Head dims 16, 32, 64 and 128.
 //
 // Replaces: cuda_flashattention_tpu/ops/decode.py::_decode_kernel. The
@@ -85,8 +85,7 @@ struct Launch {
 }  // namespace
 
 // q and o [B, H, D] are fp32 when q_f32, else bf16 (D: 16, 32, 64 or
-// 128). k_type / v_type: 0 bf16 (bf16 q), 1 int8, 2 fp8 e4m3, 3 fp32
-// (fp32 q). k_scale / v_scale [B, Hkv, max_n] fp32 for a quantized cache,
+// 128). k_type / v_type: 0 bf16, 1 int8, 2 fp8 e4m3, 3 fp32 (fp32 q). k_scale / v_scale [B, Hkv, max_n] fp32 for a quantized cache,
 // else null. With qq != 0, q is int8 and q_sigma [B, H] holds
 // sigma_q * scale per row; o keeps the type q_f32 names. windows [B] or
 // null; window 0 for none. split: C, keys per split of the context (the

@@ -42,9 +42,11 @@
 // depend on the arrival order.
 
 // Query and output type QT: bf16 or fp32. Storage types, per array:
-// bf16 (under a bf16 q), fp32 (under an fp32 q), int8, or fp8 e4m3
-// (converted by the hardware's cvt, no bit surgery), the quantized ones
-// with one fp32 scale per cached token. Numerics follow the TPU body,
+// bf16, fp32 (under an fp32 q), int8, or fp8 e4m3 (converted by the
+// hardware's cvt, no bit surgery), the quantized ones with one fp32 scale
+// per cached token. A bf16 cache under an fp32 q (an fp32 model serving
+// over a half-size cache) widens each key and value exactly to fp32 and
+// keeps P unrounded, as the JAX body computes in q's dtype. Numerics follow the TPU body,
 // whose compute dtype is q's, or bf16 under QQ:
 //   s = (q . k_q) * scale * k_scale[j]            (fp32 sum of exact products)
 //   s = float(int32 q8 . k8) * (sigma_q*scale)[row] * k_scale[j]   under QQ,
@@ -76,7 +78,8 @@ constexpr int NTHREADS = NWARPS * 32;
 // Rows per CTA for `rows` query rows per KV head: 1, 4 or 8.
 inline int tile_rows(int rows) { return rows == 1 ? 1 : rows <= 4 ? 4 : 8; }
 
-// storage type codes of the C interface; fp32 pairs with an fp32 q only
+// storage type codes of the C interface; fp32 pairs with an fp32 q only,
+// the others with either
 constexpr int kBf16 = 0, kInt8 = 1, kFp8 = 2, kF32 = 3;
 
 // What both kernels are given besides their cache.
@@ -451,10 +454,10 @@ inline cudaError_t prepare_split(Args* a, int B, long long cap, int split,
 }
 
 // The (K, V) storage pairs and q types that are built: one type for both
-// arrays, or int8 K with fp8 V; a bf16 cache under a bf16 q, an fp32 one
-// under an fp32 q, the quantized ones under either; QQ on int8 K only.
+// arrays, or int8 K with fp8 V; an fp32 cache under an fp32 q, the bf16
+// and quantized ones under either; QQ on int8 K only.
 inline bool valid_types(int kt, int vt, int qq, int q_f32) {
-  const bool pair = (kt == kBf16 && vt == kBf16 && !q_f32) ||
+  const bool pair = (kt == kBf16 && vt == kBf16) ||
                     (kt == kF32 && vt == kF32 && q_f32) ||
                     (kt == kInt8 && vt == kInt8) ||
                     (kt == kFp8 && vt == kFp8) || (kt == kInt8 && vt == kFp8);
@@ -471,9 +474,8 @@ cudaError_t dispatch_types(int kt, int vt, int qq, A... args) {
   using fp8 = __nv_fp8_e4m3;
   if constexpr (std::is_same<QT, float>::value) {
     if (kt == kF32) return L<D, QT, float, float, false, R>::run(args...);
-  } else {
-    if (kt == kBf16) return L<D, QT, bf16, bf16, false, R>::run(args...);
   }
+  if (kt == kBf16) return L<D, QT, bf16, bf16, false, R>::run(args...);
   if (kt == kFp8) return L<D, QT, fp8, fp8, false, R>::run(args...);
   if (vt == kInt8)
     return qq ? L<D, QT, int8_t, int8_t, true, R>::run(args...)

@@ -1,8 +1,8 @@
 // FlashAttention-2 forward with the online softmax on a Q-major walk (K1),
 // for Hopper: bf16 Q, K/V in bf16, int8 or fp8 e4m3 with per-token scales,
-// or an fp32 Q over fp32 K and V or over those one-byte K/V (the F32
-// builds: fp32 tiles split into bf16 hi and lo, flash_fwd_bound_sm90.cuh),
-// fp32 or bf16 out, with the natural-log LSE per query row.
+// or an fp32 Q over fp32, bf16 or those one-byte K/V (the F32 builds: fp32
+// tiles split into bf16 hi and lo, flash_fwd_bound_sm90.cuh), fp32, bf16
+// or fp16 out, with the natural-log LSE per query row.
 //
 // Replaces: cuda_flashattention_tpu/ops/flash_fwd.py::_fwd_kernel with
 // bound=False, with the causal band of its compact grid, its window and
@@ -57,22 +57,25 @@ constexpr int NCV = 3;  // converted K/V pairs (one-byte K/V), used in turn
 
 // Shared memory of one CTA (byte offsets from a 1024-aligned base): the Q
 // tile (under F32 its hi and lo tiles); NST stages of K and V as TMA
-// writes them (bf16 slabs, or one-byte codes; under F32 without QUANT the
+// writes them (bf16 slabs, or one-byte codes; under F32 over fp32 K/V the
 // producer warpgroup's hi and lo tiles of each), each followed by the
 // tile's K and V scales (QUANT) and key segment ids (SEG); under QUANT NCV
 // converted K/V pairs (exact bf16, so one tile each under F32 too);
 // barriers. Split K/V tiles take twice the bytes: at d = 128 two stages
 // fit, else three (an fp32 Q over codes: 212 KB at d = 128); so do the
-// 128-key build's bf16 tiles (KN keys a tile).
-template <int D, bool QUANT, bool SEG, bool F32, int KN>
+// 128-key build's bf16 tiles (KN keys a tile). An fp32 Q over bf16 K/V
+// (BF16KV) keeps three bf16 stages beside its split Q: 161 KB at d = 128.
+template <int D, bool QUANT, bool SEG, bool F32, int KN, bool BF16KV>
 struct Layout {
   using T = Tiles<D, false>;
   static_assert(KN == BN || (!QUANT && !F32), "128 keys: bf16 K/V only");
-  static constexpr int NST = (F32 && !QUANT) || KN == BN2 ? (D == 128 ? 2 : 3)
-                                                         : 3;  // stages
+  static_assert(!BF16KV || (F32 && !QUANT), "BF16KV: an fp32 Q");
+  static constexpr bool SPLIT_KV = F32 && !QUANT && !BF16KV;  // fp32 K/V
+  static constexpr int NST = SPLIT_KV || KN == BN2 ? (D == 128 ? 2 : 3)
+                                                   : 3;  // stages
   static constexpr int kv16 = KN * D * 2;             // a bf16 K or V tile
   static constexpr int kvh =                          // K, then V
-      QUANT ? T::CODES : F32 ? 2 * T::KV16 : kv16;
+      QUANT ? T::CODES : SPLIT_KV ? 2 * T::KV16 : kv16;
   static constexpr int tma_bytes = 2 * kvh;
   static constexpr int ids = tma_bytes + (QUANT ? 2 * BN * 4 : 0);
   static constexpr int stage = align1k(ids + (SEG ? KN * 4 : 0));
@@ -85,7 +88,7 @@ struct Layout {
   static_assert(bytes <= 232448, "the CTA's shared memory");
 };
 
-template <int D, bool QUANT, bool SEG, bool F32, int KN>
+template <int D, bool QUANT, bool SEG, bool F32, int KN, bool BF16KV>
 __global__ void __launch_bounds__(NTHREADS, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
@@ -96,8 +99,12 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   // the guard (a bound form's loose-row count) is read before anything
   if (guard != nullptr && *guard == 0) return;
   using T = Tiles<D, false>;
-  using L = Layout<D, QUANT, SEG, F32, KN>;
+  using L = Layout<D, QUANT, SEG, F32, KN, BF16KV>;
   constexpr int NST = L::NST;
+  constexpr bool SPLIT_KV = L::SPLIT_KV;
+  // K/V tiles that are exact bf16 operands under an fp32 Q: two wgmmas a
+  // product (converted codes, or bf16 K/V as TMA left them)
+  constexpr bool EXACT = QUANT || BF16KV;
   // the producer warp's per-tile loads beside the TMA: scales, segment ids
   constexpr bool SIDE = QUANT || SEG;
   extern __shared__ uint8_t smem_raw[];
@@ -118,9 +125,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < NST; ++s) {
-      // the TMA issue, and with SIDE the 32 lanes of the side loads; under
-      // F32 (fp32 K/V) the producer warpgroup's 128 threads
-      mbar_init(full + 8 * s, F32 && !QUANT ? 128 : SIDE ? 33 : 1);
+      // the TMA issue, and with SIDE the 32 lanes of the side loads; over
+      // fp32 K/V the producer warpgroup's 128 threads
+      mbar_init(full + 8 * s, SPLIT_KV ? 128 : SIDE ? 33 : 1);
       mbar_init(empty + 8 * s, 8);  // lane 0 of each consumer warp
     }
     mbar_init(q_bar, F32 ? 128 : 1);
@@ -144,7 +151,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       fence_proxy_async();
       mbar_arrive(q_bar);
     }
-    if (F32 && !QUANT) {
+    if (SPLIT_KV) {
       // fp32 K/V: split in the same way, a stage at a time
       for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
         const int st_i = i % NST;
@@ -322,7 +329,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       // the first tile: S and its softmax, no P·V before it (acc is 0)
       tile(0, kt, vt, ksc, vsc, kseg);
       wgmma_fence();
-      qk_issue_any<D, F32, QUANT>(s_acc, base, kt, wg);
+      qk_issue_any<D, F32, EXACT>(s_acc, base, kt, wg);
       wgmma_commit();
       wgmma_wait_all();
       copy_after_wait(s, s_acc);
@@ -333,9 +340,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         // while the tensor cores do the P·V, the rescale of O after it
         tile(i, kt, vt, ksc, vsc, kseg);
         wgmma_fence();
-        qk_issue_any<D, F32, QUANT>(s_acc, base, kt, wg);
+        qk_issue_any<D, F32, EXACT>(s_acc, base, kt, wg);
         wgmma_commit();
-        pv_issue_any<D, F32, QUANT>(acc, p, p_lo, v_prev);
+        pv_issue_any<D, F32, EXACT>(acc, p, p_lo, v_prev);
         wgmma_commit();
         wgmma_wait_one();
         copy_after_wait(s, s_acc);
@@ -356,7 +363,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         v_prev = vt;
       }
       wgmma_fence();
-      pv_issue_any<D, F32, QUANT>(acc, p, p_lo, v_prev);
+      pv_issue_any<D, F32, EXACT>(acc, p, p_lo, v_prev);
       wgmma_commit();
       wgmma_wait_all();
 #pragma unroll
@@ -377,16 +384,17 @@ struct Extra {
   const int* guard;
 };
 
-template <int D, bool QUANT, bool SEG, bool F32, int KN = BN>
+template <int D, bool QUANT, bool SEG, bool F32, int KN = BN,
+          bool BF16KV = false>
 cudaError_t launch(const Maps& mp, const Args& a, const Extra& x,
                    const F32Src& f, int B, cudaStream_t stream) {
-  const int smem = Layout<D, QUANT, SEG, F32, KN>::bytes;
+  const int smem = Layout<D, QUANT, SEG, F32, KN, BF16KV>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, QUANT, SEG, F32, KN>,
+      flash_fwd_kernel<D, QUANT, SEG, F32, KN, BF16KV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Nq + a.R - 1) / a.R, a.H / a.Gp, B);
-  flash_fwd_kernel<D, QUANT, SEG, F32, KN>
+  flash_fwd_kernel<D, QUANT, SEG, F32, KN, BF16KV>
       <<<grid, NTHREADS, smem, stream>>>(mp.q, mp.k, mp.v, a, x.q_seg,
                                          x.kv_seg, x.guard, f);
   return cudaGetLastError();
@@ -404,6 +412,11 @@ cudaError_t launch_form(const Maps& mp, const Args& a, const Extra& x,
   if (f32 && a.k_type == kF32) {
     return seg ? launch<D, false, true, true>(mp, a, x, f, B, stream)
                : launch<D, false, false, true>(mp, a, x, f, B, stream);
+  }
+  if (f32 && a.k_type == kBf16) {  // an fp32 Q over bf16 K/V
+    return seg ? launch<D, false, true, true, BN, true>(mp, a, x, f, B, stream)
+               : launch<D, false, false, true, BN, true>(mp, a, x, f, B,
+                                                         stream);
   }
   if (f32) {  // an fp32 Q over one-byte K/V
     return seg ? launch<D, true, true, true>(mp, a, x, f, B, stream)
@@ -426,19 +439,21 @@ cudaError_t launch_form(const Maps& mp, const Args& a, const Extra& x,
 // ([B,H,Nq,D] contiguous), lse ([B,H,Nq]). strides: q, k, v, each (batch,
 // head, row), in elements, rows 16-byte aligned. k_type/v_type: 0 bf16, 1
 // int8, 2 fp8 e4m3, 3 fp32 (K and V both bf16, both one-byte or, with an
-// fp32 Q, both fp32). q_f32: an fp32 Q (over fp32 or one-byte K/V). kn:
-// keys of a tile, 64, or 128 (bf16 Q and K/V only).
+// fp32 Q, both fp32). q_f32: an fp32 Q (over fp32, bf16 or one-byte K/V).
+// out_type: O in bf16 (0), fp32 (1) or fp16 (2). kn: keys of a tile, 64,
+// or 128 (bf16 Q and K/V only).
 extern "C" int cfa_flash_fwd(void* const* ptrs, int B, int H, int Hkv, int Nq,
                              int Nk, int D, const long long* strides,
                              int k_type, int v_type, int q_f32, int causal,
-                             int window, int kv_offset, int out_f32, int kn,
+                             int window, int kv_offset, int out_type, int kn,
                              void* stream) {
   if (B == 0 || H == 0 || Nq == 0) return cudaSuccess;
   if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
   if ((k_type == kBf16) != (v_type == kBf16)) return cudaErrorInvalidValue;
   if ((k_type == kF32) != (v_type == kF32)) return cudaErrorInvalidValue;
   const bool f32 = q_f32 != 0;
-  if (f32 ? k_type == kBf16 : k_type == kF32) return cudaErrorInvalidValue;
+  if (!f32 && k_type == kF32) return cudaErrorInvalidValue;
+  if (out_type < kOutBf16 || out_type > kOutF16) return cudaErrorInvalidValue;
   if (kn != BN && (kn != BN2 || f32 || k_type != kBf16)) {
     return cudaErrorInvalidValue;
   }
@@ -456,7 +471,7 @@ extern "C" int cfa_flash_fwd(void* const* ptrs, int B, int H, int Hkv, int Nq,
   a.R = BM / a.Gp;
   a.k_type = k_type; a.v_type = v_type;
   a.causal = causal; a.window = window; a.kv_offset = kv_offset;
-  a.out_f32 = out_f32;
+  a.out_type = out_type;
   if (k_type != kBf16 && k_type != kF32 &&
       (a.k_scale == nullptr || a.v_scale == nullptr)) {
     return cudaErrorInvalidValue;

@@ -1,8 +1,8 @@
 // FlashAttention-2 forward with the score-bound softmax on a Q-major walk
 // (K1b), for Hopper: bf16 Q, K/V in bf16, int8 or fp8 e4m3 with per-token
-// scales (or int8 Q and K under quantize_q), or an fp32 Q over fp32 K and V
-// or over those one-byte K/V (the F32 builds: fp32 tiles split into bf16
-// hi and lo), fp32 or bf16 out, the natural-log LSE and the count of
+// scales (or int8 Q and K under quantize_q), or an fp32 Q over fp32, bf16
+// or those one-byte K/V (the F32 builds: fp32 tiles split into bf16 hi and
+// lo), fp32, bf16 or fp16 out, the natural-log LSE and the count of
 // loose-bound rows.
 //
 // Replaces: cuda_flashattention_tpu/ops/flash_fwd.py::_fwd_kernel with
@@ -45,16 +45,18 @@ constexpr int stages() { return QUANT ? 3 : 2; }
 // Shared memory of one CTA (byte offsets from a 1024-aligned base): the Q
 // tile (under F32 its hi and lo tiles); NST stages of K and V as TMA
 // writes them (bf16 slabs, or one-byte codes followed by the tile's K and
-// V scales; under F32 without QUANT the producer warpgroup's hi and lo
-// tiles of each); under QUANT two converted K/V pairs (exact bf16 tiles),
-// used in turn; barriers.
-template <int D, bool QUANT, bool QQ, bool F32, int KN>
+// V scales; under F32 over fp32 K/V the producer warpgroup's hi and lo
+// tiles of each, over bf16 K/V (BF16KV) the bf16 slabs); under QUANT two
+// converted K/V pairs (exact bf16 tiles), used in turn; barriers.
+template <int D, bool QUANT, bool QQ, bool F32, int KN, bool BF16KV>
 struct Layout {
   using T = Tiles<D, QQ>;
   static_assert(KN == BN || (!QUANT && !F32), "128 keys: bf16 K/V only");
+  static_assert(!BF16KV || (F32 && !QUANT), "BF16KV: an fp32 Q");
+  static constexpr bool SPLIT_KV = F32 && !QUANT && !BF16KV;  // fp32 K/V
   static constexpr int NST = stages<QUANT>();
   static constexpr int kvh =                          // K, then V
-      QUANT ? T::CODES : F32 ? 2 * T::KV16 : KN * D * 2;
+      QUANT ? T::CODES : SPLIT_KV ? 2 * T::KV16 : KN * D * 2;
   static constexpr int tma_bytes = 2 * kvh;
   static constexpr int stage = align1k(tma_bytes + (QUANT ? 2 * BN * 4 : 0));
   static constexpr int st_off = align1k(F32 ? 2 * T::Q : T::Q);
@@ -66,7 +68,7 @@ struct Layout {
   static_assert(bytes <= 232448, "the CTA's shared memory");
 };
 
-template <int D, bool QUANT, bool QQ, bool F32, int KN>
+template <int D, bool QUANT, bool QQ, bool F32, int KN, bool BF16KV>
 __global__ void __launch_bounds__(NTHREADS, 1)
     flash_fwd_bound_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
@@ -75,8 +77,11 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   static_assert(QUANT || !QQ, "quantize_q reads quantized K/V");
   static_assert(!(QQ && F32), "quantize_q's Q is int8");
   using T = Tiles<D, QQ>;
-  using L = Layout<D, QUANT, QQ, F32, KN>;
+  using L = Layout<D, QUANT, QQ, F32, KN, BF16KV>;
   constexpr int NST = L::NST;
+  constexpr bool SPLIT_KV = L::SPLIT_KV;
+  // K/V tiles that are exact bf16 operands under an fp32 Q
+  constexpr bool EXACT = QUANT || BF16KV;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t base = smem_u32(smem);
@@ -95,8 +100,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   if (threadIdx.x == 0) {
     for (int s = 0; s < NST; ++s) {
       // the TMA issue, and under QUANT the 32 lanes that load the scales;
-      // under F32 (fp32 K/V) the producer warpgroup's 128 threads
-      mbar_init(full + 8 * s, F32 && !QUANT ? 128 : QUANT ? 33 : 1);
+      // over fp32 K/V the producer warpgroup's 128 threads
+      mbar_init(full + 8 * s, SPLIT_KV ? 128 : QUANT ? 33 : 1);
       mbar_init(empty + 8 * s, 8);  // lane 0 of each consumer warp
     }
     mbar_init(q_bar, F32 ? 128 : 1);
@@ -120,7 +125,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       fence_proxy_async();
       mbar_arrive(q_bar);
     }
-    if (F32 && !QUANT) {
+    if (SPLIT_KV) {
       // fp32 K/V: split in the same way, a stage at a time
       for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
         const int st_i = i % NST;
@@ -222,7 +227,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         wgmma_wait_all();
         fence_regs(s);
       } else {
-        qk<D, QQ, F32, QUANT>(s, base, kt, wg);
+        qk<D, QQ, F32, EXACT>(s, base, kt, wg);
       }
       uint32_t p[KN / 4], p_lo[KN / 4];  // under F32 P = p + p_lo
       if (interior<KN>(a, c0, q0, q0 + a.R - 1)) {
@@ -243,7 +248,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 #pragma unroll
         for (int sl = 0; sl < D / 64; ++sl) fence_regs(acc[sl]);
       } else {
-        pv<D, F32, QUANT>(acc, p, vt, p_lo);
+        pv<D, F32, EXACT>(acc, p, vt, p_lo);
       }
       if (!QUANT && lane == 0) mbar_arrive(empty + 8 * st);
     }
@@ -251,16 +256,17 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
 }
 
-template <int D, bool QUANT, bool QQ, bool F32, int KN = BN>
+template <int D, bool QUANT, bool QQ, bool F32, int KN = BN,
+          bool BF16KV = false>
 cudaError_t launch(const Maps& m, const Args& a, const F32Src& f, int B,
                    cudaStream_t stream) {
-  const int smem = Layout<D, QUANT, QQ, F32, KN>::bytes;
+  const int smem = Layout<D, QUANT, QQ, F32, KN, BF16KV>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bound_kernel<D, QUANT, QQ, F32, KN>,
+      flash_fwd_bound_kernel<D, QUANT, QQ, F32, KN, BF16KV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Nq + a.R - 1) / a.R, a.H / a.Gp, B);
-  flash_fwd_bound_kernel<D, QUANT, QQ, F32, KN>
+  flash_fwd_bound_kernel<D, QUANT, QQ, F32, KN, BF16KV>
       <<<grid, NTHREADS, smem, stream>>>(m.q, m.k, m.v, a, f);
   return cudaGetLastError();
 }
@@ -271,9 +277,14 @@ cudaError_t launch_form(const Maps& m, const Args& a, const F32Src& f, int B,
   if (kn == BN2) {  // bf16 Q and K/V (the entry point checked)
     return launch<D, false, false, false, BN2>(m, a, f, B, stream);
   }
-  if (f32) {  // an fp32 Q over fp32 K/V, or over one-byte K/V
-    return a.k_type == kF32 ? launch<D, false, false, true>(m, a, f, B, stream)
-                            : launch<D, true, false, true>(m, a, f, B, stream);
+  if (f32) {  // an fp32 Q over fp32, bf16 or one-byte K/V
+    if (a.k_type == kF32) {
+      return launch<D, false, false, true>(m, a, f, B, stream);
+    }
+    if (a.k_type == kBf16) {
+      return launch<D, false, false, true, BN, true>(m, a, f, B, stream);
+    }
+    return launch<D, true, false, true>(m, a, f, B, stream);
   }
   if (a.k_type == kBf16) {
     return launch<D, false, false, false>(m, a, f, B, stream);
@@ -290,20 +301,22 @@ cudaError_t launch_form(const Maps& m, const Args& a, const F32Src& f, int B,
 // ([B,H,Nq]). strides: q, k, v, each (batch, head, row), in elements, rows
 // 16-byte aligned. k_type/v_type: 0 bf16, 1 int8, 2 fp8 e4m3, 3 fp32 (K
 // and V both bf16, both one-byte or, with an fp32 Q, both fp32). q_f32:
-// an fp32 Q (over fp32 or one-byte K/V; not with qq, whose Q is int8).
-// kn: keys of a tile, 64, or 128 (bf16 Q and K/V only).
+// an fp32 Q (over fp32, bf16 or one-byte K/V; not with qq, whose Q is
+// int8). out_type: O in bf16 (0), fp32 (1) or fp16 (2). kn: keys of a
+// tile, 64, or 128 (bf16 Q and K/V only).
 extern "C" int cfa_flash_fwd_bound(void* const* ptrs, int B, int H, int Hkv,
                                    int Nq, int Nk, int D,
                                    const long long* strides, int k_type,
                                    int v_type, int q_f32, int qq, int causal,
-                                   int window, int kv_offset, int out_f32,
+                                   int window, int kv_offset, int out_type,
                                    int kn, void* stream) {
   if (B == 0 || H == 0 || Nq == 0) return cudaSuccess;
   if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
   if ((k_type == kBf16) != (v_type == kBf16)) return cudaErrorInvalidValue;
   if ((k_type == kF32) != (v_type == kF32)) return cudaErrorInvalidValue;
   const bool f32 = q_f32 != 0;
-  if (f32 ? k_type == kBf16 : k_type == kF32) return cudaErrorInvalidValue;
+  if (!f32 && k_type == kF32) return cudaErrorInvalidValue;
+  if (out_type < kOutBf16 || out_type > kOutF16) return cudaErrorInvalidValue;
   if (qq && (k_type == kBf16 || f32)) return cudaErrorInvalidValue;
   if (kn != BN && (kn != BN2 || f32 || k_type != kBf16)) {
     return cudaErrorInvalidValue;
@@ -322,7 +335,7 @@ extern "C" int cfa_flash_fwd_bound(void* const* ptrs, int B, int H, int Hkv,
   a.R = BM / a.Gp;
   a.k_type = k_type; a.v_type = v_type;
   a.causal = causal; a.window = window; a.kv_offset = kv_offset;
-  a.out_f32 = out_f32;
+  a.out_type = out_type;
   if (k_type != kBf16 && k_type != kF32 &&
       (a.k_scale == nullptr || a.v_scale == nullptr)) {
     return cudaErrorInvalidValue;

@@ -40,6 +40,11 @@
 //     leaves 8, within 1e-4 of the fp32 plain version where bf16 P alone
 //     moves O by ~1e-3. Split tiles take twice the shared memory, so the
 //     F32 builds keep fewer stages (and K5 a shorter span).
+//   - an fp32 Q over bf16 K/V (the BF16KV builds of K1, K1b and K5: an
+//     fp32 model reading a bf16 cache): Q is split as above, the K and V
+//     tiles come by TMA as the bf16 slabs of the bf16 builds and are
+//     exact bf16 operands as they stand (their lo parts are 0), so each
+//     product is two wgmmas, lo·k + hi·k, and P is split as under F32.
 //
 // Numerics (those of the plain version, ops/flash_fwd.py::_forward_plain):
 //   s = (q̂ · k_q) · k_scale[col]     fp32; under quantize_q the int32 dot
@@ -55,8 +60,8 @@
 //   l sums the unrounded p
 //   acc += bf16(p · v_scale[col]) · v_q     rounded AFTER the scale (F32:
 //       acc += p · v from the split products, no rounding of p to bf16)
-//   O = acc / l, LSE = ref·ln2 + ln l (ref: c bound, m online); O = 0,
-//   LSE = NEG_INF (−1e30) where l = 0.
+//   O = acc / l in fp32, bf16 or fp16 (out_type), LSE = ref·ln2 + ln l
+//   (ref: c bound, m online); O = 0, LSE = NEG_INF (−1e30) where l = 0.
 // FA1 (K8) has numerics of its own, in fa1.cu.
 
 #pragma once
@@ -82,6 +87,7 @@ constexpr int BN2 = 128;
 constexpr int NTHREADS = 384;  // two consumer warpgroups and the producer's
 constexpr int NCONSUMER = 256;
 constexpr int kBf16 = 0, kInt8 = 1, kFp8 = 2, kF32 = 3;  // storage codes
+constexpr int kOutBf16 = 0, kOutF32 = 1, kOutF16 = 2;     // O's type codes
 // a row with visible keys whose l < 2^-96 has a loose bound
 constexpr float kLooseBound = 0x1p-96f;
 constexpr float kRegrid = (float)(127.0 / 448.0);  // fp8 → int8 code units
@@ -303,12 +309,12 @@ struct Args {
   int* n_loose;           // count of loose-bound rows (bound forms)
   float* l_acc;           // K5: [B,H,Nq] fp32, zeroed
   float* o_acc;           // K5: [B,H,Nq,D] fp32, zeroed
-  void* o;                // [B,H,Nq,D] fp32 or bf16, contiguous
+  void* o;                // [B,H,Nq,D] out_type, contiguous
   float* lse;             // [B,H,Nq]
   int H, Hkv, Nq, Nk;
   int G, Gp, R;           // group size, heads packed in a tile, rows per head
   int k_type, v_type;
-  int causal, window, kv_offset, out_f32;
+  int causal, window, kv_offset, out_type;  // out_type: kOut*
   int span;               // K5: key tiles per CTA
 };
 
@@ -1052,6 +1058,33 @@ __device__ __forceinline__ void finish_row(const Args& a, long long row,
   }
 }
 
+// O elements e and e + 1 (e even) in O's type.
+__device__ __forceinline__ void store_pair(const Args& a, long long e,
+                                           float v0, float v1) {
+  if (a.out_type == kOutF32) {
+    *reinterpret_cast<float2*>(static_cast<float*>(a.o) + e) =
+        make_float2(v0, v1);
+  } else if (a.out_type == kOutF16) {
+    *reinterpret_cast<__half2*>(static_cast<__half*>(a.o) + e) =
+        __floats2half2_rn(v0, v1);
+  } else {
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.o) + e) =
+        __floats2bfloat162_rn(v0, v1);
+  }
+}
+
+// O element e in O's type.
+__device__ __forceinline__ void store_one(const Args& a, long long e,
+                                          float v) {
+  if (a.out_type == kOutF32) {
+    static_cast<float*>(a.o)[e] = v;
+  } else if (a.out_type == kOutF16) {
+    static_cast<__half*>(a.o)[e] = __float2half_rn(v);
+  } else {
+    static_cast<bf16*>(a.o)[e] = __float2bfloat16(v);
+  }
+}
+
 // The Q-major epilogue of this thread's rows: O = acc / l (0 where l = 0),
 // LSE against r.c, the loose-bound count (bound forms).
 template <int D, bool BOUND = true>
@@ -1075,14 +1108,7 @@ __device__ __forceinline__ void store_rows(const Args& a, const Rows& r,
       if (r.pos[hr] < 0) continue;
       const int col = sl * 64 + 8 * (i >> 2) + 2 * (lane & 3);
       const float v0 = acc[sl][i] * inv[hr], v1 = acc[sl][i + 1] * inv[hr];
-      if (a.out_f32) {
-        *reinterpret_cast<float2*>(static_cast<float*>(a.o) + row[hr] * D +
-                                   col) = make_float2(v0, v1);
-      } else {
-        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.o) +
-                                           row[hr] * D + col) =
-            __floats2bfloat162_rn(v0, v1);
-      }
+      store_pair(a, row[hr] * D + col, v0, v1);
     }
   }
   if ((lane & 3) == 0) {

@@ -3,8 +3,9 @@
 // once, and the Q tiles of every query head of its group stream past. Its
 // F32 builds read an fp32 Q and hold each Q tile split into bf16 hi and lo
 // tiles, over fp32 K and V split the same way (a span of one key tile at
-// d = 128, four at d = 64) or over one-byte K/V converted to exact bf16
-// tiles (three at d = 128, eight at d = 64).
+// d = 128, four at d = 64), or over bf16 K/V, exact tiles as TMA leaves
+// them, or one-byte K/V converted to exact bf16 tiles (three at d = 128,
+// eight at d = 64).
 //
 // Replaces: cuda_flashattention_tpu/ops/flash_fwd.py::_fwd_kernel_kmajor.
 // What that kernel computes is the bound forward's result (K1b) on a
@@ -46,21 +47,24 @@ constexpr int NQS = 2;  // Q tiles in flight
 
 // the most key tiles a CTA keeps resident (what fits beside the Q ring);
 // fp32 K/V tiles are held split, at twice the bytes, and an fp32 Q's ring
-// is split too (ops/flash_fwd.py::_KMAJOR_MAX_SPAN*)
-__host__ __device__ constexpr int max_span(int D, bool f32, bool quant) {
-  return f32 ? (quant ? (D == 128 ? 3 : 8) : (D == 128 ? 1 : 4))
+// is split too (ops/flash_fwd.py::_KMAJOR_MAX_SPAN*); `exact`: K/V held as
+// exact bf16 tiles (bf16 or one-byte K/V)
+__host__ __device__ constexpr int max_span(int D, bool f32, bool exact) {
+  return f32 ? (exact ? (D == 128 ? 3 : 8) : (D == 128 ? 1 : 4))
              : (D == 128 ? 4 : 8);
 }
 
 // Shared memory of one CTA (byte offsets from a 1024-aligned base): the
-// span's K and V tiles as wgmma reads them (under F32 without QUANT the hi
+// span's K and V tiles as wgmma reads them (under F32 over fp32 K/V the hi
 // and lo tiles of each); the Q ring (F32: split), whose space first holds
-// the span's codes under QUANT; the span's scales; barriers.
-template <int D, bool QUANT, bool QQ, bool F32>
+// the span's codes under QUANT; the span's scales; barriers. An fp32 Q
+// over bf16 K/V (BF16KV) keeps the bf16 build's tiles beside a split ring.
+template <int D, bool QUANT, bool QQ, bool F32, bool BF16KV>
 struct Layout {
   using T = Tiles<D, QQ>;
-  static constexpr int SPAN = max_span(D, F32, QUANT);
-  static constexpr bool SPLIT_KV = F32 && !QUANT;
+  static_assert(!BF16KV || (F32 && !QUANT), "BF16KV: an fp32 Q");
+  static constexpr int SPAN = max_span(D, F32, QUANT || BF16KV);
+  static constexpr bool SPLIT_KV = F32 && !QUANT && !BF16KV;
   // V after K in a tile pair; split K/V are each hi then lo
   static constexpr int tile_v = SPLIT_KV ? 2 * T::KV16 : align1k(T::KC);
   static constexpr int tile_stride = tile_v + (SPLIT_KV ? 2 : 1) * T::KV16;
@@ -76,7 +80,7 @@ struct Layout {
   static_assert(bytes <= 232448, "the CTA's shared memory");
 };
 
-template <int D, bool QUANT, bool QQ, bool F32>
+template <int D, bool QUANT, bool QQ, bool F32, bool BF16KV>
 __global__ void __launch_bounds__(NTHREADS, 1)
     flash_fwd_kmajor_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
@@ -85,7 +89,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   static_assert(QUANT || !QQ, "quantize_q reads quantized K/V");
   static_assert(!(QQ && F32), "quantize_q's Q is int8");
   using T = Tiles<D, QQ>;
-  using L = Layout<D, QUANT, QQ, F32>;
+  using L = Layout<D, QUANT, QQ, F32, BF16KV>;
+  // K/V tiles that are exact bf16 operands under an fp32 Q
+  constexpr bool EXACT = QUANT || BF16KV;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t base = smem_u32(smem);
@@ -160,6 +166,22 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       }
       fence_proxy_async();
       mbar_arrive(span_bar);
+      split_q_ring();
+    } else if (BF16KV) {
+      // bf16 K/V under an fp32 Q: the span by TMA straight into its
+      // resident tiles, then the Q tiles
+      if (threadIdx.x == 2 * 128) {
+        mbar_expect_tx(span_bar, nt * 2 * T::KV16);
+        for (int j = 0; j < nt; ++j) {
+          const uint32_t dst = base + j * L::tile_stride;
+          for (int sl = 0; sl < T::SLABS; ++sl) {
+            tma_load_4d(dst + sl * BN * 128, &tm_k, span_bar, sl * 64,
+                        (t_lo + j) * BN, hk, b);
+            tma_load_4d(dst + L::tile_v + sl * BN * 128, &tm_v, span_bar,
+                        sl * 64, (t_lo + j) * BN, hk, b);
+          }
+        }
+      }
       split_q_ring();
     } else if (F32) {
       // one-byte K/V under an fp32 Q: the span's codes by TMA into the Q
@@ -263,7 +285,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         const float* ksc = QUANT ? scales + j * 2 * BN : nullptr;
         const float* vsc = QUANT ? ksc + BN : nullptr;
         float s[32];
-        qk<D, QQ, F32, QUANT>(s, q, kt, wg);
+        qk<D, QQ, F32, EXACT>(s, q, kt, wg);
         uint32_t p[16], p_lo[16];  // under F32 P = p + p_lo
         if (interior(a, t * BN, q0, q0 + a.R - 1)) {
           bound_step<QUANT, QQ, false, F32>(a, r, s, ksc, vsc, t * BN, l, p,
@@ -272,7 +294,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
           bound_step<QUANT, QQ, true, F32>(a, r, s, ksc, vsc, t * BN, l, p,
                                            p_lo);
         }
-        pv<D, F32, QUANT>(acc, p, kt + L::tile_v, p_lo);
+        pv<D, F32, EXACT>(acc, p, kt + L::tile_v, p_lo);
       }
       if (lane == 0) mbar_arrive(q_empty + 8 * st);  // Q is read
       add_rows<D>(a, r, acc, l, b);
@@ -291,28 +313,23 @@ __global__ void __launch_bounds__(128)
   const float l = a.l_acc[row];
   const float inv = l == 0.f ? 0.f : 1.f / l;
   for (int c = lane; c < D; c += 32) {
-    const float val = a.o_acc[row * D + c] * inv;
-    if (a.out_f32) {
-      static_cast<float*>(a.o)[row * D + c] = val;
-    } else {
-      static_cast<bf16*>(a.o)[row * D + c] = __float2bfloat16(val);
-    }
+    store_one(a, row * D + c, a.o_acc[row * D + c] * inv);
   }
   if (lane == 0) finish_row(a, row, (int)(row % a.Nq), l, a.c[row]);
 }
 
-template <int D, bool QUANT, bool QQ, bool F32>
+template <int D, bool QUANT, bool QQ, bool F32, bool BF16KV = false>
 cudaError_t launch(const Maps& m, const Args& a, const F32Src& f, int B,
                    cudaStream_t stream) {
   if (a.Nk > 0) {
-    const int smem = Layout<D, QUANT, QQ, F32>::bytes;
+    const int smem = Layout<D, QUANT, QQ, F32, BF16KV>::bytes;
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kmajor_kernel<D, QUANT, QQ, F32>,
+        flash_fwd_kmajor_kernel<D, QUANT, QQ, F32, BF16KV>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     const int n_tiles = (a.Nk + BN - 1) / BN;
     const dim3 grid((n_tiles + a.span - 1) / a.span, a.Hkv, B);
-    flash_fwd_kmajor_kernel<D, QUANT, QQ, F32>
+    flash_fwd_kmajor_kernel<D, QUANT, QQ, F32, BF16KV>
         <<<grid, NTHREADS, smem, stream>>>(m.q, m.k, m.v, a, f);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -326,9 +343,14 @@ cudaError_t launch(const Maps& m, const Args& a, const F32Src& f, int B,
 template <int D>
 cudaError_t launch_form(const Maps& m, const Args& a, const F32Src& f, int B,
                         int qq, bool f32, cudaStream_t stream) {
-  if (f32) {  // an fp32 Q over fp32 K/V, or over one-byte K/V
-    return a.k_type == kF32 ? launch<D, false, false, true>(m, a, f, B, stream)
-                            : launch<D, true, false, true>(m, a, f, B, stream);
+  if (f32) {  // an fp32 Q over fp32, bf16 or one-byte K/V
+    if (a.k_type == kF32) {
+      return launch<D, false, false, true>(m, a, f, B, stream);
+    }
+    if (a.k_type == kBf16) {
+      return launch<D, false, false, true, true>(m, a, f, B, stream);
+    }
+    return launch<D, true, false, true>(m, a, f, B, stream);
   }
   if (a.k_type == kBf16) {
     return launch<D, false, false, false>(m, a, f, B, stream);
@@ -342,23 +364,24 @@ cudaError_t launch_form(const Maps& m, const Args& a, const F32Src& f, int B,
 // K5. ptrs: q, k, v, k_scale, v_scale, q_factor, c, l_acc ([B,H,Nq] fp32,
 // zeroed), o_acc ([B,H,Nq,D] fp32, zeroed), n_loose, o, lse; the rest as
 // cfa_flash_fwd_bound's, and span: key tiles of 64 per CTA, 1 to
-// max_span(D, q_f32, one-byte K/V) (ops/flash_fwd.py::_KMAJOR_MAX_SPAN*).
+// max_span(D, q_f32, K/V not fp32) (ops/flash_fwd.py::_KMAJOR_MAX_SPAN*).
 extern "C" int cfa_flash_fwd_kmajor(void* const* ptrs, int B, int H, int Hkv,
                                     int Nq, int Nk, int D,
                                     const long long* strides, int k_type,
                                     int v_type, int q_f32, int qq, int causal,
-                                    int window, int kv_offset, int out_f32,
+                                    int window, int kv_offset, int out_type,
                                     int span, void* stream) {
   if (B == 0 || H == 0 || Nq == 0) return cudaSuccess;
   if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
   if ((k_type == kBf16) != (v_type == kBf16)) return cudaErrorInvalidValue;
   if ((k_type == kF32) != (v_type == kF32)) return cudaErrorInvalidValue;
   const bool f32 = q_f32 != 0;
-  if (f32 ? k_type == kBf16 : k_type == kF32) return cudaErrorInvalidValue;
+  if (!f32 && k_type == kF32) return cudaErrorInvalidValue;
+  if (out_type < kOutBf16 || out_type > kOutF16) return cudaErrorInvalidValue;
   if (qq && (k_type == kBf16 || f32)) return cudaErrorInvalidValue;
   if (D != 64 && D != 128) return cudaErrorInvalidValue;
   const bool quant = k_type != kBf16 && k_type != kF32;
-  if (span < 1 || span > max_span(D, f32, quant)) {
+  if (span < 1 || span > max_span(D, f32, k_type != kF32)) {
     return cudaErrorInvalidValue;
   }
   Args a = {};
@@ -377,7 +400,7 @@ extern "C" int cfa_flash_fwd_kmajor(void* const* ptrs, int B, int H, int Hkv,
   a.R = BM / a.Gp;
   a.k_type = k_type; a.v_type = v_type;
   a.causal = causal; a.window = window; a.kv_offset = kv_offset;
-  a.out_f32 = out_f32;
+  a.out_type = out_type;
   a.span = span;
   if (quant && (a.k_scale == nullptr || a.v_scale == nullptr)) {
     return cudaErrorInvalidValue;

@@ -6,14 +6,17 @@ needless).
 
 `BlockSizes` keeps the JAX fields, and `BUILT_TILES` states the tiles
 each CUDA kernel is compiled for: a tile is a build on the card, not a
-run-time size, so a request names one of them or raises ValueError,
-on the CPU as well (where the plain versions then ignore it: every tile
-computes the same function)."""
+run-time size. A requested tile that no build has runs at the largest
+built tile of that kernel not above it (the smallest where none is), as
+the JAX kernels take any tile and a tile only sets their speed
+(`check_tiles`); on the CPU the plain versions ignore the tile (every
+tile computes the same function)."""
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import numbers
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -33,8 +36,8 @@ DECODE_HEAD_DIMS = (16, 32, 64, 128)
 # bf16 builds of K1 and K1b (csrc/flash_fwd.cu, csrc/flash_fwd_bound.cu).
 # K5 keeps `block_k` = 64 · span keys resident (a span of 64-key tiles,
 # up to what its shared memory holds beside its Q ring; fp32 tiles are
-# split in two bf16 tiles, and an fp32 Q over one-byte K/V keeps exact
-# bf16 K/V tiles beside a split Q ring: csrc/flash_fwd_kmajor.cu).
+# split in two bf16 tiles, and an fp32 Q over bf16 or one-byte K/V keeps
+# exact bf16 K/V tiles beside a split Q ring: csrc/flash_fwd_kmajor.cu).
 FWD_BLOCK_Q = 128
 KMAJOR_TILE = 64
 KMAJOR_MAX_SPAN = {64: 8, 128: 4}
@@ -50,8 +53,9 @@ ONLINE_SHORT_NQ = 5120
 
 # Operand types of the table: "bf16" (bf16 Q, K, V, dO), "fp32" (fp32
 # ones), "codes" (one-byte K/V: int8, fp8 or int8 K with fp8 V, under a
-# bf16 Q) and "fp32/codes" (the same under an fp32 Q).
-TILE_TYPES = ("bf16", "fp32", "codes", "fp32/codes")
+# bf16 Q), "fp32/codes" (the same under an fp32 Q) and "fp32/bf16" (an
+# fp32 Q over bf16 K/V).
+TILE_TYPES = ("bf16", "fp32", "codes", "fp32/codes", "fp32/bf16")
 
 
 def _kmajor_tiles(spans: Dict[int, int], d: int) -> Tuple[int, ...]:
@@ -69,7 +73,8 @@ BUILT_TILES: Dict[Tuple[str, str, int], Tuple[Tuple[int, ...],
        for ty, spans in (("bf16", KMAJOR_MAX_SPAN),
                          ("codes", KMAJOR_MAX_SPAN),
                          ("fp32", KMAJOR_MAX_SPAN_F32),
-                         ("fp32/codes", KMAJOR_MAX_SPAN_F32Q))
+                         ("fp32/codes", KMAJOR_MAX_SPAN_F32Q),
+                         ("fp32/bf16", KMAJOR_MAX_SPAN_F32Q))
        for d in (64, 128)},
     **{(kn, ty, d): ((BWD_BLOCK_Q,), (BWD_BLOCK_K,))
        for kn in ("K2", "K4") for ty in ("bf16", "fp32") for d in (64, 128)},
@@ -80,7 +85,8 @@ def tile_type(q_dtype: torch.dtype, k_dtype: torch.dtype) -> str:
     """The operand type of a call, as `BUILT_TILES` names it."""
     codes = k_dtype.itemsize == 1
     if q_dtype == torch.float32:
-        return "fp32/codes" if codes else "fp32"
+        return ("fp32/codes" if codes else
+                "fp32/bf16" if k_dtype == torch.bfloat16 else "fp32")
     return "codes" if codes else "bf16"
 
 
@@ -91,27 +97,51 @@ def built_tiles(kernel: str, ty: str,
     return BUILT_TILES[kernel, ty, 64 if d <= 64 else 128]
 
 
+def nearest_built(requested, built: Tuple[int, ...]) -> int:
+    """The built tile a request runs at: the largest of `built` not above
+    `requested`, or the smallest of them where none is."""
+    below = [t for t in built if t <= requested]
+    return max(below) if below else min(built)
+
+
+# (kernel, operand type, head dim, requested pair, built pair) of every
+# mapping already logged
+_LOGGED_MAPPINGS = set()
+
+
 def check_tiles(kernel: str, ty: str, d: int, block_sizes, what: str,
                 bwd: bool = False) -> int:
-    """The key tile of `block_sizes` (the backward's with `bwd`) once its
-    (block_q, block_k) pair is checked against the tiles `kernel` is built
-    for: ValueError naming them otherwise, TypeError when `block_sizes`
-    has not the four fields of `BlockSizes` (the JAX class has them too).
-    """
+    """The key tile `kernel` runs at for `block_sizes` (the backward's pair
+    with `bwd`): a (block_q, block_k) pair the kernel is built for over
+    operands of type `ty` at head dim d is kept, any other number is
+    mapped field by field to `nearest_built` (the JAX kernels take any
+    tile: a tile sets their speed, not their result), and each mapping is
+    logged once. TypeError when `block_sizes` has not the four fields of
+    `BlockSizes`, or a field is not a real number, which the JAX functions
+    refuse too (the JAX class has the fields)."""
     names = ("block_q_bwd", "block_k_bwd") if bwd else ("block_q", "block_k")
     try:
-        block_q, block_k = (getattr(block_sizes, n) for n in names)
+        requested = tuple(getattr(block_sizes, n) for n in names)
     except AttributeError:
         raise TypeError(f"{what}: expected a BlockSizes (fields block_q, "
                         f"block_k, block_q_bwd, block_k_bwd), got "
                         f"{block_sizes!r}") from None
+    for n, x in zip(names, requested):
+        if isinstance(x, bool) or not isinstance(x, numbers.Real):
+            raise TypeError(f"{what}: {n} must be a number, got {x!r}")
     qs, ks = built_tiles(kernel, ty, d)
-    if block_q not in qs or block_k not in ks:
-        raise ValueError(
-            f"{what}: the CUDA kernel {kernel} over {ty} operands at d="
-            f"{64 if d <= 64 else 128} is built for block_q in {qs} and "
-            f"block_k in {ks}; got block_q={block_q}, block_k={block_k}")
-    return block_k
+    used = (nearest_built(requested[0], qs), nearest_built(requested[1], ks))
+    if used != requested:
+        key = (kernel, ty, 64 if d <= 64 else 128, requested, used)
+        if key not in _LOGGED_MAPPINGS:
+            _LOGGED_MAPPINGS.add(key)
+            from cuda_flashattention_torch.utils.log import get_logger
+            get_logger(__name__).info(
+                "%s: the CUDA kernel %s over %s operands at d=%d is built "
+                "for %s in %s and %s in %s; (%s, %s) runs as (%s, %s)",
+                what, kernel, ty, key[2], names[0], qs, names[1], ks,
+                *requested, *used)
+    return used[1]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,25 +169,26 @@ class BlockSizes:
     def clamp(self, nq: int, nk: int) -> "BlockSizes":
         """The JAX version shrinks each tile to the problem. A built tile
         runs a problem smaller than itself masked, and a shrunk tile need
-        not be built, so nothing changes: no request becomes legal or
-        illegal by it."""
+        not be built, so nothing changes: the kernels map the request as
+        they would have (`check_tiles`)."""
         del nq, nk
         return self
 
 
 def kmajor_span(b: int, h_kv: int, nk: int, d: int, sms: int,
-                f32: bool = False, quantized: bool = False) -> int:
+                f32: bool = False, exact_kv: bool = False) -> int:
     """Key tiles per K5 CTA: the longest span the CTA can keep resident
-    (`f32`: in its build for an fp32 Q, over fp32 K/V or, `quantized`,
-    over one-byte K/V) whose grid (one CTA per span, KV head and batch)
-    still holds two waves of `sms` CTAs; 1, the most CTAs, when none
-    does. Longer spans add each query row's partial sums fewer times.
-    An fp32 Q over codes takes the longest span whatever the grid: its
-    producer reads and splits every Q tile once per span, which a short
-    span repeats (`utils/kmajor_spans.py` times each span)."""
+    (`f32`: in its build for an fp32 Q, over fp32 K/V or, `exact_kv`,
+    over K/V that are exact bf16 tiles: one-byte codes or bf16) whose
+    grid (one CTA per span, KV head and batch) still holds two waves of
+    `sms` CTAs; 1, the most CTAs, when none does. Longer spans add each
+    query row's partial sums fewer times. An fp32 Q over exact K/V takes
+    the longest span whatever the grid: its producer reads and splits
+    every Q tile once per span, which a short span repeats
+    (`utils/kmajor_spans.py` times each span)."""
     d = 64 if d <= 64 else 128
     tiles = cdiv(nk, KMAJOR_TILE)
-    if f32 and quantized:
+    if f32 and exact_kv:
         return KMAJOR_MAX_SPAN_F32Q[d]
     longest = (KMAJOR_MAX_SPAN_F32 if f32 else KMAJOR_MAX_SPAN)[d]
     for span in range(longest, 1, -1):

@@ -11,19 +11,20 @@ version of the same numerics. `split_size`, `decode_splits` and
 kernel shares.
 
 Q may be bf16 or fp32 and the head dim 16, 32, 64 or 128. The cache may
-be bf16 (under a bf16 Q), fp32 (under an fp32 Q), int8, fp8 e4m3 or mixed
-(int8 K, fp8 V), the quantized ones with per-token scales `k_scale`/
-`v_scale` [B,Hkv,max_N]; `window` and per-sequence `windows` restrict
-attention to the newest tokens; `quantize_q` runs Q·Kᵀ as an integer dot
-over an int8-K cache; H/Hkv may be any size. `block_k` is the kernel's
-split size C (keys per split of the context): any size from 1 to the
-cache's capacity, which is one split; another raises ValueError, on the
-CPU as well. Unset, `split_size` picks it (`default_decode_block_k` is
-that rule under the JAX name).
+be bf16, fp32 (under an fp32 Q), int8, fp8 e4m3 or mixed (int8 K, fp8
+V), the quantized ones with per-token scales `k_scale`/`v_scale`
+[B,Hkv,max_N]; `window` and per-sequence `windows` restrict attention to
+the newest tokens; `quantize_q` runs Q·Kᵀ as an integer dot over an
+int8-K cache; H/Hkv may be any size. `block_k` is the kernel's split size
+C (keys per split of the context): any int from 1 on, clamped to the
+cache's capacity (one split), as the JAX function clamps it
+(`check_block_k`). Unset, `split_size` picks it (`default_decode_block_k`
+is that rule under the JAX name).
 """
 
 from __future__ import annotations
 
+import numbers
 from typing import List, Optional, Tuple
 
 import torch
@@ -41,10 +42,10 @@ from cuda_flashattention_torch.ops.common import (
 _TYPE_CODES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2,
                torch.float32: 3}
 # (K, V) storage pairs the kernels are instantiated for, by q's dtype: the
-# quantized ones under either, bf16 under bf16, fp32 under fp32
+# quantized ones and bf16 under either, fp32 under fp32
 _QUANT_PAIRS = ((1, 1), (2, 2), (1, 2))
 _KERNEL_PAIRS = {torch.bfloat16: ((0, 0),) + _QUANT_PAIRS,
-                 torch.float32: ((3, 3),) + _QUANT_PAIRS}
+                 torch.float32: ((3, 3), (0, 0)) + _QUANT_PAIRS}
 
 # The split of the context shared by K6 and K7 (csrc/decode_body.cuh):
 # warps per CTA; keys per split at d = 128 (at d = 64 twice as many, so a
@@ -121,16 +122,20 @@ def default_decode_block_k(k_dtype, v_dtype, q_dtype, qq: bool, window: int,
     return max(1, min(split, max_n))
 
 
-def check_block_k(block_k: int, capacity: int, what: str) -> int:
-    """`block_k` as the decode kernels take it, a split size from 1 to
-    the cache's capacity (the most keys one split can hold); ValueError
-    otherwise."""
-    if not (isinstance(block_k, int) and 1 <= block_k <= max(1, capacity)):
-        raise ValueError(
-            f"{what}: block_k is the decode kernel's split size, an int from "
-            f"1 to the cache's capacity {capacity} (that: one split); got "
-            f"{block_k!r}")
-    return block_k
+def check_block_k(block_k, capacity: int, what: str) -> int:
+    """`block_k` as the decode kernels take it: a split size, clamped to
+    the cache's capacity (one split holds every key), as the JAX function
+    clamps its block to the cache. ValueError where the JAX function
+    fails too: a block_k that is not an int (2.5, True, "8": the JAX
+    grid takes only ints) or below 1 (0 divides by zero there, a
+    negative one gives a negative grid)."""
+    if isinstance(block_k, bool) or not isinstance(block_k, numbers.Integral):
+        raise ValueError(f"{what}: block_k is the decode kernel's split size, "
+                         f"an int, got {block_k!r}")
+    if block_k < 1:
+        raise ValueError(f"{what}: block_k is the decode kernel's split size, "
+                         f"at least 1, got {block_k}")
+    return min(int(block_k), max(1, capacity))
 
 
 def split_scratch(b: int, h_kv: int, rows: int, d: int, capacity: int,
@@ -258,8 +263,9 @@ def kernel_inputs(q, k, v, k_scale, v_scale, windows, quantize_q, scale,
     if pair not in _KERNEL_PAIRS[q.dtype] or (
             pair in _QUANT_PAIRS) != quantized:
         raise NotImplementedError(
-            f"the CUDA {what} takes a cache in q's dtype ({q.dtype}) "
-            f"without scales, or an int8, fp8 or int8-K/fp8-V cache with "
+            f"the CUDA {what} takes a bf16 cache, or one in q's dtype "
+            f"({q.dtype}), without scales, or an int8, fp8 or int8-K/fp8-V "
+            f"cache with "
             f"scales; got k {k.dtype} v {v.dtype}, scales "
             f"{'given' if quantized else 'absent'}")
     for name, x in (("k", k), ("v", v), ("k_scale", k_scale),
@@ -357,10 +363,11 @@ def decode_attention(
     fp8-K or unquantized cache ignores the flag.
 
     Returns (o [B,H,d] in q's dtype, lse [B,H] fp32). On the card the
-    kernel takes a bf16 or fp32 q, d in {16, 32, 64, 128}, and a cache in
-    q's dtype or an int8, fp8 or int8-K/fp8-V one; with an fp32 q, P
-    weights V unrounded (bf16 under `quantize_q`), as in the JAX body.
-    `block_k`: the split size (module docstring); every size gives the
+    kernel takes a bf16 or fp32 q, d in {16, 32, 64, 128}, and a bf16
+    cache, a cache in q's dtype or an int8, fp8 or int8-K/fp8-V one; with
+    an fp32 q, P weights V unrounded (bf16 under `quantize_q`), as in the
+    JAX body, whose compute dtype is q's. `block_k`: the split size
+    (module docstring; clamped to the capacity); every size gives the
     same result up to the order of the splits' merge. The count of its
     launches is `decode_attention.launches`."""
     if q.ndim != 3 or k.ndim != 4 or k.shape != v.shape:
@@ -376,7 +383,7 @@ def decode_attention(
     if (k_scale is None) != (v_scale is None):
         raise ValueError("k_scale and v_scale must be given together")
     if block_k is not None:
-        check_block_k(block_k, k.shape[2], "decode_attention")
+        block_k = check_block_k(block_k, k.shape[2], "decode_attention")
     if q.device.type == "cpu":
         return decode_attention_plain(
             q, k, v, lengths, k_scale=k_scale, v_scale=v_scale, scale=scale,

@@ -23,8 +23,9 @@ is the PyTorch reduction of `flash_attention_backward_plain`.
 Masks are the forward's: causal with `kv_offset`, a sliding `window`,
 segment ids and the ragged tail. `block_sizes` names the backward's
 tiles (`block_q_bwd`, `block_k_bwd`): K2 and K4 are built for (64, 128)
-only, and K3 runs at its own tile under that pair; any other pair raises
-ValueError, on the CPU as well.
+only, and K3 runs at its own tile under that pair; any other pair runs
+at that one (`ops.common.check_tiles` logs the mapping once), as the JAX
+kernels take any tile.
 """
 
 from __future__ import annotations
@@ -360,8 +361,8 @@ def flash_attention_backward(
     (`CFA_BWD_FUSED_BUDGET`, `CFA_BWD_FUSED`): that budget has no GPU
     counterpart (K4 keeps no full-sequence state on chip), so neither it
     nor the environment knobs are ported. `block_sizes`: its
-    (`block_q_bwd`, `block_k_bwd`) must be the built (64, 128); the
-    forward's fields are not read here. On the card the kernels take
+    (`block_q_bwd`, `block_k_bwd`) runs at the built (64, 128), whatever
+    it names; the forward's fields are not read here. On the card the kernels take
     d in {64, 128} (d = 16, 32 or another multiple of 8 below 128 on
     zero-padded heads, as the forward) and bf16 q/k/v/dO, or fp32 ones
     through the kernels' fp32 builds (each tile split into bf16 hi and lo

@@ -24,8 +24,9 @@ Counterpart of cuda_flashattention_tpu/ops/flash_fwd.py
 `block_sizes` picks the key tile among those the routed kernel is built
 for (`ops.common.BUILT_TILES`): 64 keys everywhere, or 128 in the bf16
 builds of K1 and K1b; K5's span; the query tile is 128 rows. Any other
-request raises ValueError, on the CPU as well, where the plain version
-then ignores the tile (every tile computes the same function).
+request runs at the nearest built tile below it (`ops.common.check_tiles`,
+which logs the mapping once); on the CPU the plain version ignores the
+tile (every tile computes the same function).
 
 All three run on one Hopper body, csrc/flash_fwd_bound_sm90.cuh (wgmma,
 TMA). `softmax="auto"` routes as the JAX function does (`_resolve_use_bound`,
@@ -90,12 +91,29 @@ _SOFTMAX_MODES = ("auto", "bound", "bound_unchecked", "online")
 _STORAGE_CODES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2,
                   torch.float32: 3}
 # (K, V) storage pairs the kernels take under a bf16 Q: one type for both,
-# or the "mixed" cache's int8 K with fp8 V; an fp32 Q takes fp32 K/V or
-# the three quantized pairs
+# or the "mixed" cache's int8 K with fp8 V; an fp32 Q takes fp32 K/V, bf16
+# K/V (without scales) or the three quantized pairs
 _STORAGE_PAIRS = ((torch.bfloat16, torch.bfloat16), (torch.int8, torch.int8),
                   (torch.float8_e4m3fn, torch.float8_e4m3fn),
                   (torch.int8, torch.float8_e4m3fn))
-_F32_STORAGE_PAIRS = ((torch.float32, torch.float32),) + _STORAGE_PAIRS[1:]
+_F32_STORAGE_PAIRS = ((torch.float32, torch.float32),) + _STORAGE_PAIRS
+# The output types the kernels' epilogues write (their C code): O in any
+# other type the JAX function takes is the fp32 epilogue's O cast on the
+# host (`_resolve_out_dtype`).
+_OUT_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
+
+
+def _resolve_out_dtype(q, out_dtype) -> torch.dtype:
+    """O's dtype: q's by default. The JAX function casts its fp32 O to any
+    `out_dtype` but float64 (refused without 64-bit mode, which the JAX
+    package does not enable) and the complex types; so does this one:
+    ValueError for those."""
+    out_dtype = q.dtype if out_dtype is None else out_dtype
+    if not isinstance(out_dtype, torch.dtype) or out_dtype.is_complex or (
+            out_dtype == torch.float64):
+        raise ValueError(f"out_dtype {out_dtype}: the forward writes O in a "
+                         f"real type of at most 32 bits")
+    return out_dtype
 
 
 def _prescale_q(q: torch.Tensor, scale: float) -> torch.Tensor:
@@ -374,9 +392,8 @@ def flash_attention_forward_plain(
     plan = _plan(q, k, v, scale, causal, window, kv_offset, block_sizes,
                  k_scale, v_scale, q_segment_ids, kv_segment_ids, softmax,
                  quantize_q)
-    return _fwd_plain(q, k, v, plan, q.dtype if out_dtype is None
-                      else out_dtype, k_scale, v_scale, q_segment_ids,
-                      kv_segment_ids)
+    return _fwd_plain(q, k, v, plan, _resolve_out_dtype(q, out_dtype),
+                      k_scale, v_scale, q_segment_ids, kv_segment_ids)
 
 
 def _fwd_plain(q, k, v, plan: _Plan, *rest):
@@ -422,13 +439,14 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
     # an fp32 Q goes to the kernels' fp32 builds, which read it as it is
     # and split each tile into bf16 hi and lo parts: over fp32 K/V split
-    # the same way, or over one-byte K/V (converted exactly to bf16); under
-    # quantize_q the int8 Q of the host runs the int8 build as for bf16
+    # the same way, or over bf16 K/V (read by TMA as they are) or one-byte
+    # K/V (converted exactly to bf16); under quantize_q the int8 Q of the
+    # host runs the int8 build as for bf16
     f32 = q.dtype == torch.float32
     if f32 and (k.dtype, v.dtype) not in _F32_STORAGE_PAIRS:
         raise NotImplementedError(
-            f"the CUDA forward takes an fp32 Q with fp32 K/V, or K/V stored "
-            f"as one of {_F32_STORAGE_PAIRS[1:]} with scales, got k "
+            f"the CUDA forward takes an fp32 Q with fp32 or bf16 K/V, or K/V "
+            f"stored as one of {_F32_STORAGE_PAIRS[2:]} with scales, got k "
             f"{k.dtype} / v {v.dtype}")
     if not f32 and q.dtype != torch.bfloat16:
         raise NotImplementedError(
@@ -438,8 +456,11 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
             f"the CUDA forward takes bf16 inputs, or K/V stored as one of "
             f"{_STORAGE_PAIRS[1:]} with scales, got k {k.dtype} / v "
             f"{v.dtype}")
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise NotImplementedError(f"out_dtype {out_dtype} on the card")
+    if out_dtype not in _OUT_CODES:
+        # the fp32 epilogue, cast as the JAX function casts its fp32 O
+        o, lse = _fwd_cuda(q, k, v, plan, torch.float32, k_scale, v_scale,
+                           q_seg, kv_seg)
+        return o.to(out_dtype), lse
     k_type, v_type = _STORAGE_CODES[k.dtype], _STORAGE_CODES[v.dtype]
     k, v = kernel_operand(k), kernel_operand(v)
     ksc = vsc = None
@@ -455,7 +476,7 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
     counts = flash_attention_forward.form_launches
     tail = (int(plan.causal), plan.window, plan.kv_offset,
-            int(out_dtype == torch.float32))
+            _OUT_CODES[out_dtype])
     # the Q the kernel reads is fp32 unless it is quantize_q's int8 Q
     q_f32 = int(f32 and not (plan.use_bound and plan.qq))
 
@@ -511,7 +532,7 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
                 sms = torch.cuda.get_device_properties(
                     q.device).multi_processor_count
                 span = _kmajor_span(b, h_kv, nk, d, sms, bool(q_f32),
-                                    plan.quantized)
+                                    k.dtype != torch.float32)
             err = lib.cfa_flash_fwd_kmajor(
                 _ptrs(q_op, k, v, ksc, vsc, q_factor, c, l_acc, o_acc,
                       n_loose, o, lse), *shape, span, stream)
@@ -562,18 +583,23 @@ def flash_attention_forward(
     `softmax`: "auto", "online", "bound" or "bound_unchecked" (module
     docstring). `block_sizes` (`ops.common.BlockSizes`): block_q 128 and
     the routed kernel's key tile, 64, or 128 over bf16 Q/K/V in K1 and
-    K1b, or K5's 64 · span; ValueError on a tile no build has. `quantize_q` (quantized K/V, bound softmax): Q·Kᵀ on
+    K1b, or K5's 64 · span; another tile runs at the nearest built one
+    below it (`ops.common.check_tiles`). `quantize_q` (quantized K/V,
+    bound softmax): Q·Kᵀ on
     per-head int8 Q; it waives the loose-bound fallback, and over fp8 keys
     it takes a bf16 Q (else it is dropped, as in the JAX function, whose
     further gate by on-chip memory is not ported). O is in `out_dtype`
-    (default: q's dtype). On the card the kernels take d in {64, 128}, and
+    (default: q's dtype; the kernels write fp32, bf16 or fp16, and any
+    other real type of at most 32 bits is the fp32 O cast, as the JAX
+    function casts; float64 and complex types raise ValueError, as they
+    do there). On the card the kernels take d in {64, 128}, and
     d = 16, 32 or another multiple of 8 below 128 on zero-padded heads
     (`ops.common.pad_heads`: the next of 64 and 128, O sliced back), and
-    a bf16 Q over the K/V above, or an fp32 Q over fp32 K/V or over the
-    quantized K/V above (their fp32 builds: each fp32 tile split into bf16
-    hi and lo parts, each product three bf16 products with fp32 sums, two
-    over one-byte K/V, whose codes are exact in bf16; P · v_scale is not
-    rounded); `flash_attention_forward.launches` counts
+    a bf16 Q over the K/V above, or an fp32 Q over fp32 or bf16 K/V or
+    over the quantized K/V above (their fp32 builds: each fp32 tile split
+    into bf16 hi and lo parts, each product three bf16 products with fp32
+    sums, two over bf16 or one-byte K/V, which are exact bf16 tiles; P ·
+    v_scale is not rounded); `flash_attention_forward.launches` counts
     their launches and `.form_launches` the same per form: "online",
     "bound", "kmajor", and "fallback" for the guarded online launch behind
     a checked bound call; `.key128_launches` counts those of the 128-key
@@ -582,7 +608,7 @@ def flash_attention_forward(
     plan = _plan(q, k, v, scale, causal, window, kv_offset, block_sizes,
                  k_scale, v_scale, q_segment_ids, kv_segment_ids, softmax,
                  quantize_q)
-    out_dtype = q.dtype if out_dtype is None else out_dtype
+    out_dtype = _resolve_out_dtype(q, out_dtype)
     args = (q, k, v, plan, out_dtype, k_scale, v_scale, q_segment_ids,
             kv_segment_ids)
     if q.device.type == "cpu":

@@ -1,1 +1,2 @@
-"""Utilities of the port: device timing."""
+"""Utilities of the port: device timing and peaks, profiling, logging,
+checkpoints, the card monitor and the tuner."""

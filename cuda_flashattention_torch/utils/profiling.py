@@ -1,23 +1,117 @@
-"""Device time by kernel, from torch.profiler.
+"""Traces, named regions, kernel reports, memory snapshots and device
+time by kernel, from torch.profiler.
 
-Partial counterpart of cuda_flashattention_tpu/utils/profiling.py. On the
-card, `kernel_times` runs a function under torch.profiler and sums the
-device time of each kernel by name. It reads kernel events only: the
-per-op device totals of `key_averages()` count a kernel again under every
-operator that encloses it. `device_events` returns those events with the
-stream each ran on, and `covered_share` says how much of one set of events
-ran under another (the ring's copies under its kernels). The JAX module's
-trace helpers,
-`kernel_report` and memory profile are not ported yet.
+Counterpart of cuda_flashattention_tpu/utils/profiling.py:
+
+    from cuda_flashattention_torch.utils.profiling import annotate, trace
+
+    with trace("/tmp/cfa_trace"):          # a Chrome trace, trace.json
+        with annotate("attention_fwd"):    # a named region inside it
+            o = flash_attention(q, k, v)
+            torch.cuda.synchronize()
+
+`trace` captures the host and, on the card, the device's kernels with
+torch.profiler and writes a Chrome trace (chrome://tracing, Perfetto);
+`annotate` names a region in it (and an NVTX range on the card);
+`kernel_report` turns a measured time into TFLOP/s, GB/s and shares of the
+card's peaks (`utils.timing.device_peaks`); `save_device_memory_profile`
+pickles the caching allocator's snapshot. On the card, `kernel_times` runs
+a function under torch.profiler and sums the device time of each kernel by
+name. It reads kernel events only: the per-op device totals of
+`key_averages()` count a kernel again under every operator that encloses
+it. `device_events` returns those events with the stream each ran on, and
+`covered_share` says how much of one set of events ran under another (the
+ring's copies under its kernels).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
+import pickle
 import time
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, Iterator, List, Tuple
 
 import torch
+
+TRACE_FILE = "trace.json"  # the Chrome trace `trace` writes into log_dir
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
+    """Capture a torch.profiler trace of the block (host operators and,
+    with a card, its kernels and copies) and write it into `log_dir` as
+    the Chrome trace `TRACE_FILE`. Yields the profiler, whose `events()`
+    can be read once the block is left."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    with prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+
+
+@contextlib.contextmanager
+def annotate(name: str) -> Iterator[None]:
+    """A named region in profiler timelines (`torch.profiler.
+    record_function`), and an NVTX range when there is a card; nearly free
+    when no trace is active."""
+    nvtx = torch.cuda.is_available()
+    if nvtx:
+        torch.cuda.nvtx.range_push(name)
+    try:
+        with torch.profiler.record_function(name):
+            yield
+    finally:
+        if nvtx:
+            torch.cuda.nvtx.range_pop()
+
+
+def kernel_report(name: str, seconds: float, flops: float = 0.0,
+                  bytes_moved: float = 0.0, device=None) -> Dict[str, float]:
+    """TFLOP/s, GB/s and their shares of the card's bf16 and memory peaks
+    for a measured call, under the JAX function's keys, and its one-line
+    summary printed as the JAX function prints it (shares are NaN off a
+    card in `device_peaks`' table)."""
+    from cuda_flashattention_torch.utils.timing import device_peaks
+
+    peaks = device_peaks(device)
+    tflops = flops / seconds / 1e12 if flops else 0.0
+    gbps = bytes_moved / seconds / 1e9 if bytes_moved else 0.0
+    out = {
+        "name": name,
+        "ms": seconds * 1e3,
+        "tflops": tflops,
+        "gbps": gbps,
+        "frac_peak_flops": (tflops / peaks["peak_tflops"]
+                            if peaks["peak_tflops"] else float("nan")),
+        "frac_peak_bw": (gbps / peaks["peak_hbm_gbps"]
+                         if peaks["peak_hbm_gbps"] else float("nan")),
+    }
+    print(f"[kernel_report] {name}: {out['ms']:.3f} ms"
+          + (f", {tflops:.1f} TFLOP/s"
+             f" ({100*out['frac_peak_flops']:.1f}% peak)" if flops else "")
+          + (f", {gbps:.1f} GB/s"
+             f" ({100*out['frac_peak_bw']:.1f}% peak)" if bytes_moved
+             else ""))
+    return out
+
+
+def save_device_memory_profile(path: str, device=None) -> None:
+    """Pickle the card's memory snapshot (`torch.cuda.memory._snapshot`:
+    the caching allocator's segments and blocks, with the allocation
+    stacks when `torch.cuda.memory._record_memory_history` is on) into
+    `path`; it loads in PyTorch's memory viz. Raises without a card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("save_device_memory_profile needs a CUDA device")
+    snapshot = torch.cuda.memory._snapshot(device)
+    with open(path, "wb") as f:
+        pickle.dump(snapshot, f)
 
 
 @dataclasses.dataclass

@@ -115,16 +115,18 @@ def test_no_gradient_for_options():
 
 
 def test_unported_options_raise():
-    """Block sizes that are not a `BlockSizes`, or name a tile no kernel
-    is built for, are refused (TypeError, ValueError); a window without
-    causal and half a pair of segment ids are refused as the JAX op
-    refuses them."""
+    """Block sizes that are not a `BlockSizes` are refused (TypeError), as
+    the JAX op refuses them; a tile no kernel is built for (JAX's default
+    2048 x 2048) runs at the nearest built one, with the default tiles'
+    result; a window without causal and half a pair of segment ids are
+    refused as the JAX op refuses them."""
     q = torch.from_numpy(seeded_random((1, 2, 8, 32), 0))
     with pytest.raises(TypeError, match="BlockSizes"):
         flash_attention(q, q, q, causal=True, block_sizes=object())
-    with pytest.raises(ValueError, match="built for"):
+    assert torch.equal(
         flash_attention(q, q, q, causal=True,
-                        block_sizes=BlockSizes(block_q=2048, block_k=2048))
+                        block_sizes=BlockSizes(block_q=2048, block_k=2048)),
+        flash_attention(q, q, q, causal=True))
     with pytest.raises(ValueError, match="window requires causal"):
         flash_attention(q, q, q, window=4)
     with pytest.raises(ValueError, match="without kv_segment_ids"):

@@ -1,13 +1,14 @@
 """Tiles in the torch port: `ops.common.BlockSizes`, `auto_block_sizes`
-and the table of the tiles each CUDA kernel is built for, their
-validation on CPU tensors (an unbuilt tile raises ValueError here as on
-the card), and the ops with explicit tiles against the JAX functions at
-JAX tiles (bf16 forward 5e-3, backward 1e-3 · max |JAX| on the fused,
-window-0 path, where the JAX kernel computes D in-kernel, `fuse_delta`;
-decode 5e-3), and the ring forms with explicit tiles against the port's
-own one-device functions (a JAX ring compile costs 30-60 s). On the CPU
-the plain versions ignore a validated tile: every tile computes the same
-function."""
+and the table of the tiles each CUDA kernel is built for, the mapping of
+an unbuilt tile to the nearest built one below it (as on the card; the
+JAX kernels take any tile, which sets only their speed) and of a decode
+split size past the capacity to the capacity (the JAX clamp), and the ops
+with explicit tiles against the JAX functions at JAX tiles (bf16 forward
+5e-3, backward 1e-3 · max |JAX| on the fused, window-0 path, where the JAX
+kernel computes D in-kernel, `fuse_delta`; decode 5e-3), and the ring
+forms with explicit tiles against the port's own one-device functions (a
+JAX ring compile costs 30-60 s). On the CPU the plain versions ignore a
+mapped tile: every tile computes the same function."""
 
 import dataclasses
 
@@ -84,7 +85,7 @@ def test_table_lists_the_builds():
     for d in (64, 128):
         for kn in ("K1", "K1b"):
             assert BUILT_TILES[kn, "bf16", d] == ((128,), (64, 128))
-            for ty in ("fp32", "codes", "fp32/codes"):
+            for ty in ("fp32", "codes", "fp32/codes", "fp32/bf16"):
                 assert BUILT_TILES[kn, ty, d] == ((128,), (64,))
         for kn in ("K2", "K4"):
             for ty in ("bf16", "fp32"):
@@ -92,6 +93,7 @@ def test_table_lists_the_builds():
     assert BUILT_TILES["K5", "bf16", 128][1] == (64, 128, 192, 256)
     assert BUILT_TILES["K5", "fp32", 128][1] == (64,)
     assert BUILT_TILES["K5", "fp32/codes", 128][1] == (64, 128, 192)
+    assert BUILT_TILES["K5", "fp32/bf16", 128][1] == (64, 128, 192)
     assert BUILT_TILES["K5", "codes", 64][1] == tuple(64 * s
                                                       for s in range(1, 9))
     # narrow heads run on the d = 64 builds
@@ -115,7 +117,7 @@ def test_auto_block_sizes_is_the_default_rule(b, h_kv, nk, d):
         assert bs.block_k in BUILT_TILES["K5", "bf16", d][1]
 
 
-# ---- refusal on CPU tensors ----------------------------------------------
+# ---- unbuilt tiles on CPU tensors -----------------------------------------
 
 def _qkv(b=1, h=4, h_kv=2, nq=40, nk=70, d=64, dtype=torch.bfloat16,
          seed=0):
@@ -133,20 +135,33 @@ def _qkv(b=1, h=4, h_kv=2, nq=40, nk=70, d=64, dtype=torch.bfloat16,
     (BlockSizes(block_k=576), torch.bfloat16,
      dict(causal=True, softmax="bound")),
 ])
-def test_forward_refuses_unbuilt_tiles_on_the_cpu(bs, dtype, kw):
+def test_forward_refuses_unbuilt_tiles_on_the_cpu(bs, dtype, kw, capsys):
+    """Tiles the forward was refusing: each now runs at the nearest built
+    tile below it (the JAX function takes them all), gives the default
+    tiles' result, and its mapping is logged once (the package's logger
+    writes to stderr)."""
     q, k, v = _qkv(dtype=dtype)
-    with pytest.raises(ValueError, match="is built for block_q in"):
-        flash_attention_forward(q, k, v, block_sizes=bs, **kw)
+    common._LOGGED_MAPPINGS.clear()
+    capsys.readouterr()
+    got = flash_attention_forward(q, k, v, block_sizes=bs, **kw)
+    flash_attention_forward(q, k, v, block_sizes=bs, **kw)
+    err = capsys.readouterr().err
+    want = flash_attention_forward(q, k, v, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert err.count("runs as") == 1 and "is built for" in err
 
 
 def test_one_byte_kv_refuse_the_128_key_tile():
+    """K1 over codes has no 128-key build: 128 keys run at 64 (K5 over
+    codes takes 128 keys as a span of 2)."""
     from cuda_flashattention_torch.ops.quant import quantize_kv
     q, k, v = _qkv()
     kv = quantize_kv(k, v, "int8")
-    with pytest.raises(ValueError, match=r"codes operands .* \(64,\)"):
-        flash_attention_forward(q, kv.k_q, kv.v_q, k_scale=kv.k_scale,
-                                v_scale=kv.v_scale, softmax="online",
-                                block_sizes=BlockSizes(block_k=128))
+    assert common.check_tiles("K1", "codes", 64, BlockSizes(block_k=128),
+                              "test") == 64
+    flash_attention_forward(q, kv.k_q, kv.v_q, k_scale=kv.k_scale,
+                            v_scale=kv.v_scale, softmax="online",
+                            block_sizes=BlockSizes(block_k=128))
     # K5 over codes: 128 keys are a span of 2
     flash_attention_forward(q, kv.k_q, kv.v_q, k_scale=kv.k_scale,
                             v_scale=kv.v_scale, causal=True,
@@ -160,29 +175,46 @@ def test_one_byte_kv_refuse_the_128_key_tile():
                                            block_k_bwd=2048)])
 @pytest.mark.parametrize("fused", [True, False])
 def test_backward_refuses_unbuilt_pairs_on_the_cpu(bs, fused):
+    """Pairs the backward was refusing: its one build, (64, 128), runs
+    every pair, with the default pair's gradients."""
     q, k, v = _qkv()
     o, lse = flash_attention_forward(q, k, v, causal=True)
-    with pytest.raises(ValueError, match=r"block_q in \(64,\) and block_k "
-                                         r"in \(128,\)"):
-        flash_attention_backward(q, k, v, o, lse, o, causal=True,
-                                 block_sizes=bs, fused=fused)
+    assert common.check_tiles("K2" if not fused else "K4", "bf16", 64, bs,
+                              "test", bwd=True) == 128
+    got = flash_attention_backward(q, k, v, o, lse, o, causal=True,
+                                   block_sizes=bs, fused=fused)
+    want = flash_attention_backward(q, k, v, o, lse, o, causal=True,
+                                    fused=fused)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.parametrize("block_k", [0, -4, 71, 10**6, 2.5])
 def test_decode_refuses_split_sizes_past_the_capacity(block_k):
+    """A split size past the capacity (71, 10**6 over 70 keys) is clamped
+    to it, one split, as the JAX function clamps its block; what the JAX
+    function fails on too (0, -4, 2.5) stays a ValueError."""
     q = _t(seeded_random((2, 4, 32), 1))
     k = _t(seeded_random((2, 2, 70, 32), 2))
-    with pytest.raises(ValueError, match="split size"):
-        tdec.decode_attention(q, k, k, torch.tensor([70, 3]),
-                              block_k=block_k)
+    lengths = torch.tensor([70, 3])
+    if isinstance(block_k, float) or block_k < 1:
+        with pytest.raises(ValueError, match="split size"):
+            tdec.decode_attention(q, k, k, lengths, block_k=block_k)
+        return
+    assert tdec.check_block_k(block_k, 70, "test") == 70
+    got = tdec.decode_attention(q, k, k, lengths, block_k=block_k)
+    want = tdec.decode_attention(q, k, k, lengths)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_ring_attention_refuses_an_unbuilt_tile():
+    """A tile the ring's steps were refusing runs at the nearest built
+    one, with the default tiles' result."""
     mesh = make_mesh((2,), ("sp",), ["cpu"] * 2)
     q, k, v = _qkv(nq=64, nk=64)
-    with pytest.raises(ValueError, match="is built for"):
-        tring.ring_attention(q, k, v, mesh, causal=True,
-                             block_sizes=BlockSizes(block_k=512))
+    got = tring.ring_attention(q, k, v, mesh, causal=True,
+                               block_sizes=BlockSizes(block_k=512))
+    want = tring.ring_attention(q, k, v, mesh, causal=True)
+    assert torch.equal(got, want)
 
 
 def test_default_decode_block_k_is_the_split_rule():
@@ -257,6 +289,46 @@ def test_fused_backward_with_explicit_tiles_matches_jax_fuse_delta(fwd_case,
         assert _diff(g.float(), w) <= BWD_GATE * max_abs(w)
 
 
+# JAX's own tiles: the BlockSizes() defaults and a (512, 512) of its
+# auto_block_sizes, which the port's builds do not have
+JAX_TILES = {"defaults": (2048, 2048, 1024, 2048),
+             "512x512": (512, 512, 1024, 2048)}
+
+
+@pytest.fixture(scope="module", params=sorted(JAX_TILES))
+def jax_tiles_case(request, fwd_case):
+    """The JAX forward and fused backward at JAX's tiles, on fwd_case's
+    inputs."""
+    tiles = JAX_TILES[request.param]
+    q, k, v, do = fwd_case["inputs"]
+    jq, jk, jv, jdo = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, do))
+    jbs = jcommon.BlockSizes(*tiles)
+    o, lse = jax_fwd(jq, jk, jv, causal=True, block_sizes=jbs)
+    grads = jax_bwd(jq, jk, jv, o, lse, jdo, causal=True, block_sizes=jbs,
+                    fused=True)
+    return dict(tiles=tiles, o=o, lse=lse, grads=grads)
+
+
+def test_forward_and_backward_at_jax_tiles_match_jax(fwd_case,
+                                                     jax_tiles_case):
+    """The forward and the fused backward under the JAX package's own
+    tiles, which no build of the port has: they run at the nearest built
+    ones and give the JAX function's result (forward 5e-3, each gradient
+    1e-3 · max |JAX|)."""
+    q, k, v, do = fwd_case["inputs"]
+    bs = BlockSizes(*jax_tiles_case["tiles"])
+    o, lse = flash_attention_forward(_t(q), _t(k), _t(v), causal=True,
+                                     block_sizes=bs)
+    assert _diff(o.float(), jax_tiles_case["o"]) <= FWD_GATE
+    assert _diff(lse, jax_tiles_case["lse"]) <= FWD_GATE
+    o_j = _t(np.asarray(jax_tiles_case["o"], np.float32))
+    lse_j = torch.from_numpy(np.array(jax_tiles_case["lse"], np.float32))
+    got = flash_attention_backward(_t(q), _t(k), _t(v), o_j, lse_j, _t(do),
+                                   causal=True, block_sizes=bs, fused=True)
+    for g, w in zip(got, jax_tiles_case["grads"]):
+        assert _diff(g.float(), w) <= BWD_GATE * max_abs(w)
+
+
 def test_flash_attention_passes_tiles_to_both_directions():
     q, k, v = (x.requires_grad_() for x in _qkv(nq=70, nk=70))
     bs = BlockSizes(block_k=128)
@@ -270,10 +342,14 @@ def test_flash_attention_passes_tiles_to_both_directions():
     assert torch.equal(o, o2)
     for g, x in zip(grads, (q, k, v)):
         assert torch.equal(g, x.grad)
+    # an unbuilt backward pair runs at the one built pair
+    for x in (q, k, v):
+        x.grad = None
     o3 = flash_attention(q, k, v, causal=True,
                          block_sizes=BlockSizes(block_q_bwd=128))
-    with pytest.raises(ValueError, match="built for"):
-        o3.float().sum().backward()
+    o3.float().square().sum().backward()
+    for g, x in zip(grads, (q, k, v)):
+        assert torch.equal(g, x.grad)
 
 
 @pytest.fixture(scope="module")
@@ -299,6 +375,22 @@ def test_decode_with_explicit_split_matches_jax(decode_case, block_k):
     assert _diff(lse, decode_case["lse"]) <= DEC_GATE
 
 
+@pytest.mark.parametrize("block_k", [301, 10**6])
+def test_decode_split_past_the_capacity_matches_jax(decode_case, block_k):
+    """A split size past the 300-key cache: JAX clamps its block to the
+    cache, the port its split size to the capacity; both give the same
+    result (5e-3, bf16)."""
+    q, k, v, lengths = decode_case["inputs"]
+    o_j, lse_j = jax_decode(*(jnp.asarray(a, jnp.bfloat16) for a in
+                              (q, k, v)), jnp.asarray(lengths),
+                            block_k=block_k)
+    o, lse = tdec.decode_attention(_t(q), _t(k), _t(v),
+                                   torch.from_numpy(lengths),
+                                   block_k=block_k)
+    assert _diff(o.float(), o_j) <= DEC_GATE
+    assert _diff(lse, lse_j) <= DEC_GATE
+
+
 def test_decode_step_passes_block_k():
     cache = init_cache(2, 2, 64, 32, device="cpu")
     k = _t(seeded_random((2, 2, 40, 32), 8))
@@ -307,8 +399,9 @@ def test_decode_step_passes_block_k():
     want = decode_step(q, cache)
     got = decode_step(q, cache, block_k=16)
     assert torch.equal(want[0], got[0]) and torch.equal(want[1], got[1])
-    with pytest.raises(ValueError, match="split size"):
-        decode_step(q, cache, block_k=65)
+    # past the capacity: clamped to it, one split
+    got = decode_step(q, cache, block_k=65)
+    assert torch.equal(want[0], got[0]) and torch.equal(want[1], got[1])
 
 
 @pytest.mark.parametrize("bs", [BlockSizes(), BlockSizes(block_k=128)])

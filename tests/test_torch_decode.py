@@ -251,12 +251,14 @@ def test_dead_cache_rows_may_hold_anything():
 def test_unported_options_raise(kw):
     """None of the options that used to raise does now: `block_k` is the
     kernel's split size (here the capacity, one split; one past it is
-    refused), and the others are taken."""
+    clamped to it, as the JAX function clamps its block), and the others
+    are taken."""
     q, k, v = (torch.from_numpy(a) for a in _inputs(0, 1, 2, 2, 8, 32))
     lengths = torch.tensor([8], dtype=torch.int32)
     if "block_k" in kw:
-        with pytest.raises(ValueError, match="split size"):
-            decode_attention(q, k, v, lengths, block_k=kw["block_k"] + 1)
+        past = decode_attention(q, k, v, lengths, block_k=kw["block_k"] + 1)
+        at = decode_attention(q, k, v, lengths, block_k=kw["block_k"])
+        assert torch.equal(past[0], at[0]) and torch.equal(past[1], at[1])
     o, lse = decode_attention(q, k, v, lengths, **kw)
     assert o.shape == q.shape and lse.shape == q.shape[:2]
     assert torch.isfinite(o).all() and torch.isfinite(lse).all()

@@ -169,13 +169,58 @@ def test_quantize_q_on_an_fp32_q_over_fp8_keys_is_dropped(lib, monkeypatch):
 
 
 def test_fp32_q_over_bf16_k_still_raises(lib):
-    """What stays refused: an fp32 Q over bf16 K/V (the forward takes fp32
-    K/V or one-byte codes under an fp32 Q), before any launch."""
+    """An fp32 Q over bf16 K/V has a build now (below); what stays refused
+    before any launch is an fp32 Q over fp16 K/V, or over bf16 K with fp32
+    V (the forward takes fp32, bf16 or one-byte K/V under an fp32 Q)."""
     q, k, v, _ = _qkv(None)
-    with pytest.raises(NotImplementedError, match="fp32 Q with fp32 K/V"):
-        _forward(q, k.to(torch.bfloat16), v.to(torch.bfloat16), {},
-                 "online")
+    for kk, vv in ((k.half(), v.half()), (k.to(torch.bfloat16), v)):
+        with pytest.raises(NotImplementedError,
+                           match="fp32 Q with fp32 or bf16 K/V"):
+            _forward(q, kk, vv, {}, "online")
     assert lib.calls == []
+
+
+@pytest.mark.parametrize("softmax,causal,entries", [
+    ("online", False, ["cfa_flash_fwd"]),
+    ("bound_unchecked", False, ["cfa_flash_fwd_bound"]),
+    ("auto", False, ["cfa_flash_fwd_bound", "cfa_flash_fwd"]),
+    ("auto", True, ["cfa_flash_fwd_kmajor", "cfa_flash_fwd"])])
+def test_fp32_q_over_bf16_kv_reaches_its_build(lib, softmax, causal,
+                                               entries):
+    """An fp32 Q over bf16 K/V launches the fp32-Q builds with storage
+    code 0 for K and V and q_f32 = 1 (behind a bound launch, the guarded
+    online one of the same build); K5 takes its longest span, as over
+    codes (the exact-K/V rule of `kmajor_span`)."""
+    q, k, v, _ = _qkv(None, nq=5200 if causal else 40)
+    k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    plan, _ = _forward(q, k, v, {}, softmax, causal=causal)
+    assert lib.names() == entries
+    assert all(_types(a) == (0, 0, 1) for _, a in lib.calls)
+    if causal:
+        assert plan.use_kmajor
+        assert lib.calls[0][1][-2] == ff._KMAJOR_MAX_SPAN_F32Q[128]
+
+
+@pytest.mark.parametrize("out_dtype,code", [
+    (torch.bfloat16, 0), (torch.float32, 1), (torch.float16, 2),
+    (torch.int32, 1), (torch.bool, 1)])
+@pytest.mark.parametrize("entry", ["cfa_flash_fwd", "cfa_flash_fwd_bound",
+                                   "cfa_flash_fwd_kmajor"])
+def test_out_dtype_reaches_the_epilogue(lib, out_dtype, code, entry):
+    """bf16, fp32 and fp16 O are the kernels' epilogues (the code before
+    the key tile or span); any other type the JAX function takes is the
+    fp32 epilogue's O cast on the host."""
+    q, k, v, _ = _qkv(None)
+    k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    softmax = "online" if entry == "cfa_flash_fwd" else "bound_unchecked"
+    plan = ff._plan(q, k, v, None, True, 0, 0, None, None, None, None, None,
+                    softmax, False)
+    plan = ff.dataclasses.replace(plan,
+                                  use_kmajor=entry == "cfa_flash_fwd_kmajor")
+    o, _ = ff._fwd_cuda(q, k, v, plan, out_dtype, None, None, None, None)
+    (name, args), = lib.calls
+    assert name == entry and args[-3] == code
+    assert o.dtype == out_dtype and o.shape == q.shape
 
 
 @pytest.mark.parametrize("d", [128, 32])

@@ -211,18 +211,25 @@ def test_fixtures_match_jax(dtype):
 @pytest.mark.parametrize("kw", [
     dict(block_sizes=object()),                  # not a BlockSizes
     dict(block_sizes=BlockSizes(block_q_bwd=1024,
-                                block_k_bwd=2048)),  # a TPU tile: unbuilt
+                                block_k_bwd=2048)),  # a TPU tile: mapped
     dict(window=4),                              # a window needs causal
     dict(q_segment_ids=torch.zeros(1, 8)),       # without kv_segment_ids
 ])
 def test_unported_options_raise(kw):
-    """Block sizes must be a `BlockSizes` naming the backward's built
-    pair; the others are argument combinations that mean nothing."""
+    """Block sizes must be a `BlockSizes` (TypeError), as in JAX; a TPU
+    pair the card has no build for runs at the built (64, 128) with its
+    gradients, as the JAX function takes any tile; the others are
+    argument combinations that mean nothing."""
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(0, 1, 2, 2, 8, 8, 32))
+    lse = torch.zeros(1, 2, 8)
+    if isinstance(kw.get("block_sizes"), BlockSizes):
+        got = flash_attention_backward(q, k, v, q, lse, do, **kw)
+        want = flash_attention_backward(q, k, v, q, lse, do)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        return
     with pytest.raises(TypeError if kw.get("block_sizes") is not None
-                       and not isinstance(kw["block_sizes"], BlockSizes)
                        else ValueError):
-        flash_attention_backward(q, k, v, q, torch.zeros(1, 2, 8), do, **kw)
+        flash_attention_backward(q, k, v, q, lse, do, **kw)
 
 
 def test_no_plain_fallback_off_the_cpu():

@@ -389,7 +389,7 @@ def test_forward_matches_oracle_fp32():
 
 @pytest.mark.parametrize("kw", [
     dict(block_sizes=object()),                           # not a BlockSizes
-    dict(block_sizes=BlockSizes(2048, 2048)),             # a TPU tile
+    dict(block_sizes=BlockSizes(2048, 2048)),       # a TPU tile: mapped
     dict(window=4),                                            # not causal
     dict(k_scale=torch.ones(1, 2, 8)),                         # no v_scale
     dict(q_segment_ids=torch.zeros(1, 8), kv_segment_ids=torch.zeros(1, 8),
@@ -398,12 +398,17 @@ def test_forward_matches_oracle_fp32():
     dict(softmax="nope"),
 ])
 def test_unported_options_raise(kw):
-    """Block sizes must be a `BlockSizes` naming a built tile (TypeError,
-    ValueError); the rest are the argument combinations the JAX function
-    refuses too."""
+    """Block sizes must be a `BlockSizes` (TypeError), as in JAX; a TPU
+    tile the card has no build for runs at the nearest built one with the
+    default tiles' result, as the JAX function takes any tile; the rest
+    are the argument combinations the JAX function refuses too."""
     q, k, v = (torch.from_numpy(a) for a in _inputs(0, 1, 2, 2, 8, 8, 32))
+    if isinstance(kw.get("block_sizes"), BlockSizes):
+        got, want = flash_attention_forward(q, k, v, **kw), \
+            flash_attention_forward(q, k, v)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        return
     with pytest.raises(TypeError if kw.get("block_sizes") is not None
-                       and not isinstance(kw["block_sizes"], BlockSizes)
                        else ValueError):
         flash_attention_forward(q, k, v, **kw)
 

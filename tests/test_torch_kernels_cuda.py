@@ -450,14 +450,15 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     q16 = q32.half()
     with pytest.raises(NotImplementedError, match="bf16 or fp32"):
         flash_attention_forward(q16, q16, q16)
-    # an fp32 Q takes fp32 or one-byte K/V, not bf16 ones
-    with pytest.raises(NotImplementedError, match="fp32 Q with fp32 K/V"):
-        flash_attention_forward(q32, q[..., :64], q[..., :64])
+    # an fp32 Q takes fp32, bf16 or one-byte K/V, not fp16 ones
+    with pytest.raises(NotImplementedError,
+                       match="fp32 Q with fp32 or bf16 K/V"):
+        flash_attention_forward(q32, q16, q16)
     lens = torch.ones(1, dtype=torch.int32, device=dev)
     with pytest.raises(NotImplementedError, match="bf16 or fp32 q"):
         decode_attention(q16[:, :, 0], q16, q16, lens)
-    with pytest.raises(NotImplementedError, match="cache"):  # bf16 cache
-        decode_attention(q32[:, :, 0], q[..., :64], q[..., :64], lens)
+    with pytest.raises(NotImplementedError, match="cache"):  # fp16 cache
+        decode_attention(q32[:, :, 0], q16, q16, lens)
     with pytest.raises(ValueError, match="d in"):  # no decode build
         decode_attention(q32[:, :, 0, :48], q32[..., :48], q32[..., :48],
                          lens)
@@ -939,10 +940,13 @@ def test_forward_refuses_what_it_does_not_take(dev):
         flash_attention_forward(q, k8, k8)
     with pytest.raises(TypeError, match="BlockSizes"):
         flash_attention_forward(q, q, q, block_sizes=object())
+    # a tile no build has runs at the nearest built one (128 keys here)
     from cuda_flashattention_torch.ops.common import BlockSizes
-    with pytest.raises(ValueError, match="built for"):
-        flash_attention_forward(q, q, q, block_sizes=BlockSizes(
-            block_q=2048, block_k=2048))
+    got = flash_attention_forward(q, q, q, block_sizes=BlockSizes(
+        block_q=2048, block_k=2048))
+    want = flash_attention_forward(q, q, q, block_sizes=BlockSizes(
+        block_k=128))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 # ---------------------------------------------------------------------------
@@ -2627,3 +2631,232 @@ def test_tuners_on_a_small_shape(dev, tmp_path, monkeypatch):
     assert autotune.autotune_block_sizes(nq=512, nk=512, d=128, heads=4,
                                          causal=True, iters=2) == fwd
     assert isinstance(fwd, BlockSizes)
+
+
+# ---------------------------------------------------------------------------
+# An fp32 model served over bf16 caches: the BF16KV builds of K1, K1b and
+# K5 (an fp32 Q over bf16 K/V), fp16 O in their epilogues, K6 / K7 on an
+# fp32 q over a bf16 cache, unbuilt tiles and split sizes mapped as the
+# JAX functions take them, and a seeded fuzz of K1, K1b, K5 and K6 against
+# their plain versions. Gates: fp32 1e-4, bf16 as above.
+# ---------------------------------------------------------------------------
+
+_F32BF16_SHAPES = _F32Q_SHAPES + [
+    (2, 8, 2, 300, 500, 32, dict(causal=True, kv_offset=200)),  # d 32
+    (1, 8, 4, 130, 260, 16, dict()),                            # d 16
+]
+
+
+def _f32bf16_inputs(dev, b, h, h_kv, nq, nk, d, seed, peaked):
+    q, k, v = _f32_inputs(dev, b, h, h_kv, nq, nk, d, seed, peaked)
+    return q, k.bfloat16(), v.bfloat16()
+
+
+def _one_form(form, q, k, v, out_dtype=torch.float32, **kw):
+    """The kernel of `form` alone ("online": K1, "bound": K1b, "kmajor":
+    K5, no guarded fallback), and its plain version."""
+    if form == "online":
+        kw = dict(kw, softmax="online", out_dtype=out_dtype)
+        return (flash_attention_forward(q, k, v, **kw),
+                flash_attention_forward_plain(q, k, v, **kw))
+    return (_pinned(form, q, k, v, out_dtype=out_dtype, **kw),
+            flash_attention_forward_plain(q, k, v, softmax="bound_unchecked",
+                                          out_dtype=out_dtype, **kw))
+
+
+@pytest.mark.parametrize("peaked", [False, True])
+@pytest.mark.parametrize("form", ["online", "bound", "kmajor"])
+@pytest.mark.parametrize("b,h,h_kv,nq,nk,d,kw", _F32BF16_SHAPES)
+def test_f32q_forward_over_bf16(dev, no_tf32, form, peaked, b, h, h_kv, nq,
+                                nk, d, kw):
+    """K1 (online), K1b and K5 (each pinned) on an fp32 Q over bf16 K/V,
+    every mask, d 128 and 64 and padded 32 and 16: one launch of the form,
+    fp32 O and LSE within 1e-4 of the plain fp32 version."""
+    q, k, v = _f32bf16_inputs(dev, b, h, h_kv, nq, nk, d, nq + nk, peaked)
+    _nan_fill_allocator(dev)
+    before = _form_counts()
+    got, want = _one_form(form, q, k, v, **kw)
+    torch.cuda.synchronize()
+    after = _form_counts()
+    assert {n: after[n] - before[n] for n in after} == {
+        "online": int(form == "online"), "bound": int(form == "bound"),
+        "kmajor": int(form == "kmajor"), "fallback": 0}
+    _assert_f32_fwd(got, want)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_f32q_over_bf16_segments_and_auto(dev, no_tf32, causal):
+    """K1's BF16KV build under segment ids; then "auto", which routes as
+    the JAX function: not causal (the chunked prefill's prefix reads) to
+    K1b, causal past 5120 rows to K5, each with its guarded K1 of the same
+    build behind it."""
+    q, k, v = _f32bf16_inputs(dev, 2, 8, 2, 300, 300, 128, 3, True)
+    seg = _segments(dev, 2, 300, [70, 1, 129, 100])
+    kw = dict(causal=causal, q_segment_ids=seg, kv_segment_ids=seg)
+    _assert_f32_fwd(flash_attention_forward(q, k, v, **kw),
+                    flash_attention_forward_plain(q, k, v, **kw))
+    shape = (1, 16, 4, 5200, 5200, 128) if causal else (2, 16, 4, 256, 800,
+                                                         128)
+    q, k, v = _f32bf16_inputs(dev, *shape, 4, True)
+    kw = dict(causal=causal)
+    before = _form_counts()
+    got = flash_attention_forward(q, k, v, **kw)
+    torch.cuda.synchronize()
+    grown = {n: _form_counts()[n] - before[n] for n in before}
+    assert grown == dict(online=0, bound=int(not causal),
+                         kmajor=int(causal), fallback=1)
+    _assert_f32_fwd(got, flash_attention_forward_plain(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("form", ["online", "bound", "kmajor"])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_fp16_out(dev, no_tf32, form, q_dtype):
+    """O in fp16 from K1's, K1b's and K5's epilogues (an fp32 or bf16 Q
+    over bf16 K/V): the fp32-out build's O rounded to fp16 (K5's fp32 sums
+    add in another order run to run: one fp16 ulp), the LSE the same, and
+    rows that see no key (kv_offset -20) O = 0, LSE = NEG_INF."""
+    q, k, v = _f32bf16_inputs(dev, 2, 16, 4, 300, 500, 128, 9, True)
+    q = q.to(q_dtype)
+    kw = dict(causal=True, kv_offset=-20)
+    (o32, lse32), _ = _one_form(form, q, k, v, **kw)
+    (o16, lse16), (o16_p, _) = _one_form(form, q, k, v,
+                                         out_dtype=torch.float16, **kw)
+    torch.cuda.synchronize()
+    assert o16.dtype == torch.float16 and o16_p.dtype == torch.float16
+    ulp = 0.0 if form != "kmajor" else 2.0 ** -10
+    assert _err(o16, o32.half()) <= ulp * max(1.0, o32.abs().max().item())
+    assert _err(lse16, lse32) <= (0.0 if form != "kmajor" else F32_GATE)
+    assert torch.all(o16[:, :, :20] == 0)
+    assert torch.all(lse16[:, :, :20] == -1e30)
+    # O cast as the JAX function casts, for a type no epilogue writes
+    o_i, _ = flash_attention_forward(q, k, v, out_dtype=torch.int32, **kw)
+    assert o_i.dtype == torch.int32
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_decode_f32_q_over_bf16_cache(dev, no_tf32, d):
+    """K6 on an fp32 q over a bf16 cache (P unrounded, each key and value
+    widened exactly) against the plain version at 1e-4, under windows and
+    with empty sequences; K7 over the same keys in 16-token pages bit for
+    bit against K6."""
+    b, h, h_kv, max_n = 8, 16, 4, 1100
+    lengths = [1100, 1, 640, 0, 999, 128, 513, 77]
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(d)
+    for peaked in (False, True):
+        q, k, v = _decode_inputs(dev, torch.float32, b, h, h_kv, max_n, d,
+                                 d + 3, peaked)
+        k, v = k.bfloat16(), v.bfloat16()
+        for kw in (dict(), dict(window=300)):
+            before = decode_attention.launches
+            got = decode_attention(q, k, v, lens, **kw)
+            torch.cuda.synchronize()
+            assert decode_attention.launches == before + 1
+            want = decode_attention_plain(q, k, v, lens, **kw)
+            _assert_decode_close(got, want, torch.float32, False, peaked)
+            cache, (kq, vq, _, _) = _paged_copy(dev, k, v, lengths, 16,
+                                                -(-max_n // 16) + 2, None,
+                                                gen)
+            before = paged_decode_attention.launches
+            paged = paged_decode_step(q, cache, **kw)
+            torch.cuda.synchronize()
+            assert paged_decode_attention.launches == before + 1
+            assert torch.equal(paged[0], got[0])
+            assert torch.equal(paged[1], got[1])
+
+
+def test_unbuilt_tiles_and_splits_run_on_the_card(dev):
+    """JAX's BlockSizes() defaults and a (512, 512) run the forward at the
+    nearest built tile (its bits), and the backward at its one pair
+    (dK, dV bit for bit; dQ's TMA reduces add in any order); a decode
+    split size past the capacity gives the capacity's bits."""
+    from cuda_flashattention_torch.ops.common import BlockSizes
+    (q, k, v), _ = _fwd_inputs(dev, 1, 16, 16, 1024, 1024, 128, None, 5)
+    do = torch.ones_like(q)
+    for tiles in ((2048, 2048, 1024, 2048), (512, 512, 1024, 2048)):
+        bs = BlockSizes(*tiles)
+        for kw in (dict(causal=True), dict(softmax="bound")):
+            got = flash_attention_forward(q, k, v, block_sizes=bs, **kw)
+            want = flash_attention_forward(q, k, v, **kw,
+                                           block_sizes=BlockSizes(
+                                               block_k=128))
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+        o, lse = flash_attention_forward(q, k, v, causal=True)
+        got = flash_attention_backward(q, k, v, o, lse, do, causal=True,
+                                       block_sizes=bs)
+        want = flash_attention_backward(q, k, v, o, lse, do, causal=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+        _assert_rel(got[0], want[0], "dQ")
+    qd = q[:, :, 0].contiguous()
+    lens = torch.full((1,), 1000, dtype=torch.int32, device=dev)
+    got = decode_attention(qd, k, v, lens, block_k=10 ** 6)
+    want = decode_attention(qd, k, v, lens, block_k=1024)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _fuzz_case(rng):
+    """One random forward case: shape, GQA group, head dim, operand types,
+    mask."""
+    d = int(rng.choice([16, 32, 64, 128]))
+    h_kv = int(rng.choice([1, 2, 4]))
+    h = h_kv * int(rng.choice([1, 2, 4, 8]))
+    nq, nk = int(rng.integers(1, 700)), int(rng.integers(1, 900))
+    types = str(rng.choice(["bf16", "fp32", "fp32/bf16"]))
+    mask = int(rng.integers(0, 4))
+    kw = [dict(), dict(causal=True, kv_offset=nk - nq),
+          dict(causal=True, kv_offset=int(rng.integers(-50, nk))),
+          dict(causal=True, kv_offset=nk - nq,
+               window=int(rng.integers(1, nk + 1)))][mask]
+    return int(rng.integers(1, 3)), h, h_kv, nq, nk, d, types, kw
+
+
+def test_fuzz_forward_and_decode(dev, no_tf32):
+    """Ten seeded random cases (as tests/test_fuzz.py draws them for the
+    JAX package): K1, K1b and K5 pinned at random nq, nk, d, group,
+    operand types and mask, and K6 at random lengths, windows, d and
+    types, each against its plain version (fp32 1e-4; bf16 5e-3 and 2e-2 ·
+    max |plain O|)."""
+    import numpy as np
+    rng = np.random.default_rng(2024)
+    for case in range(10):
+        b, h, h_kv, nq, nk, d, types, kw = _fuzz_case(rng)
+        q, k, v = _f32_inputs(dev, b, h, h_kv, nq, nk, d, case, True)
+        if types == "bf16":
+            q = q.bfloat16()
+        if types != "fp32":
+            k, v = k.bfloat16(), v.bfloat16()
+        for form in ("online", "bound", "kmajor"):
+            got, want = _one_form(form, q, k, v, **kw)
+            torch.cuda.synchronize()
+            what = (form, b, h, h_kv, nq, nk, d, types, kw)
+            (o, lse), (o_p, lse_p) = got, want
+            if types == "bf16":
+                assert torch.isfinite(o).all(), what
+                # the relative gate where |O| is large enough for it
+                ref = o_p.abs().max().item()
+                assert _err(o, o_p) <= GATE, what
+                assert ref < 0.25 or _err(o, o_p) <= REL_GATE * ref, what
+                assert _err(lse, lse_p) <= GATE, what
+            else:
+                assert _err(o, o_p) <= F32_GATE, what
+                assert _err(lse, lse_p) <= F32_GATE, what
+        dtype = torch.bfloat16 if types == "bf16" else torch.float32
+        cap = int(rng.integers(1, 1500))
+        lengths = torch.from_numpy(rng.integers(0, cap + 1, b)).to(
+            device=dev, dtype=torch.int32)
+        window = int(rng.choice([0, int(rng.integers(1, cap + 1))]))
+        qd, kc, vc = _decode_inputs(dev, dtype, b, h, h_kv, cap, d, case,
+                                    True)
+        if types == "fp32/bf16":
+            kc, vc = kc.bfloat16(), vc.bfloat16()
+        got = decode_attention(qd, kc, vc, lengths, window=window)
+        want = decode_attention_plain(qd, kc, vc, lengths, window=window)
+        torch.cuda.synchronize()
+        gate = GATE if dtype == torch.bfloat16 else F32_GATE
+        what = ("K6", b, h, h_kv, cap, d, types, lengths.tolist(), window)
+        assert _err(got[0], want[0]) <= gate, what
+        assert _err(got[1], want[1]) <= gate, what

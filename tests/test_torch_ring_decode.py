@@ -67,6 +67,18 @@ def test_ring_decode_per_sequence_lengths():
     assert_close(lse_t, lse_j, GATE, "ring decode LSE")
 
 
+@pytest.mark.parametrize("block_k", [100, 1000])
+def test_ring_decode_split_past_the_shard(block_k):
+    """A split size that fits the whole 256-token cache but not a rank's
+    64-token shard (100), or neither (1000): each rank's decode clamps it
+    to its shard, as each JAX rank clamps its block."""
+    q, k, v = _decode_inputs(2, 256, 11)
+    o_j, lse_j, o_t, lse_t = _decode_both(q, k, v, [200, 256],
+                                          block_k=block_k)
+    assert_close(o_t, o_j, GATE, f"ring decode O (block_k={block_k})")
+    assert_close(lse_t, lse_j, GATE, f"ring decode LSE (block_k={block_k})")
+
+
 @pytest.mark.parametrize("window", [40, 100, 300])
 def test_ring_decode_window(window):
     """The global window cut falls mid-shard, spans shards, or exceeds
