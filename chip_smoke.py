@@ -307,6 +307,40 @@ Phases, each of which raises on failure (so the script exits non-zero):
    `utils/profiling.trace` + `annotate`, whose Chrome trace names K1 and
    K4; `kernel_report` of K1 at `device_peaks`' rates; a memory snapshot
    and `memory_stats`; `utils/monitor.poll_once`.
+25. Wide heads (`_phase_wide_kernels`): the d = 256 builds of K1
+   (online), K1b and K5 (pinned) at the Gemma-width model's attention
+   shapes (8 query heads over 4 KV heads): the prefill (B=8, 512 causal),
+   a ragged 500-row prefill, the chunked prefill's prefix (512 x 3584),
+   its windowed slice (512 x 1024, window 1024) and a ragged GQA prefix
+   (300 x 2999 causal), over bf16, int8, fp8 and mixed K/V, `quantize_q`
+   on each quantized pair, and K1 under segment ids: bf16 gates, K5
+   within 1e-4 of K1b, each form's ms at the prefill and the prefix. K6
+   and K7 (128-token pages, bit for bit K6's) at d = 256 over every
+   cache (bf16 q: bf16, int8, fp8, mixed, `quantize_q`; fp32 q: fp32,
+   bf16, int8; fp32 gate 1e-4) at B=8, 4224 live of 4352. K6 at d in
+   {8, 48, 80, 96, 100, 200, 256} over bf16 and int8 caches read in place
+   (d = 100 one element at a time, the others in vector loads): the
+   peak allocation of a call must stay below the cache's bytes. The
+   forward at d = 96 and 200 at the prefix: the call (on zero-padded
+   copies) against the next build's width, and the copies alone. Rows
+   "K1 d256" ... "K7 d256": kernel ms (torch.profiler), bound, plain ms,
+   SDPA on the same (dequantised) inputs.
+26. Main path of serving at Gemma 2 2B's widths (`_phase_gemma_serving`;
+   google/gemma-2-2b config.json: vocab 256000, d_model 2304, 26 layers,
+   8 query heads over 4 KV heads, d_head 256, d_ff 9216; the repo's
+   block, bf16, seeded weights, no cut of depth or width): `generate()`
+   on B=8 prompts of 512 tokens for 128 greedy tokens over a bf16 and an
+   int8 cache (K1 26, K6 26 x 128 per run), against the plain attention
+   functions (prefill logits 0.125, greedy tokens, the int8 cache on the
+   bf16 run's tokens 0.25); `prefill_chunked(chunk=512)` of B=8 x 4096
+   tokens and 32 greedy steps over bf16, int8 and fp8 caches and, with
+   `cfg.window` = 1024, an int8 cache (online 208; K1b or K5 182, each
+   behind its guarded K1; K6 832), logits within 0.125 of the plain
+   path and, without a window, within 0.125 / 0.25 / 0.5 of a
+   whole-prompt prefill over bf16; the paged loop over bf16 and int8
+   pools (4096 pages x 128 tokens, B=8 x 4096 tokens, 32 steps bit for
+   bit K6's on a shadow, a sequence retired and its pages reused).
+   Prefill ms, decode tok/s, chunked-prefill ms and paged step ms.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; a kernel's `launches` in the JSON line is its sum over
@@ -321,7 +355,10 @@ to 06, the fp32 `flash_attention` path with its fused and split
 backward, the fp32 `generate()` runs, the fp32 chunked-serving runs, the
 fp32 FA1 calls and device-ring call, the ladder model's training
 steps, and the fp32 model's serving runs over bf16 caches with its
-paged run and the forward at [1, 16, 6144, 128]). Launches made to compare a kernel with its plain version or to
+paged run and the forward at [1, 16, 6144, 128]; for the d = 256 rows
+the Gemma-width model's generate(), chunked and paged runs, whose
+launches are also added to K1, K1b, K5, K6 and K7). Launches made to
+compare a kernel with its plain version or to
 time it are not in it, nor are K1's guarded fallback launches behind a
 checked bound call, which exit at once, but for K1's fp32-Q build over
 codes: on its path (fp32 chunked serving) it runs only as that guarded
@@ -2824,6 +2861,660 @@ def _phase_f32_bf16_serving(ctx):
     del cache, shadow, alloc, k_all, v_all
 
 
+# ---------------------------------------------------------------------------
+# Wide heads (phases 25-26): the d = 256 builds of K1, K1b, K5, K6 and K7,
+# decode at widths between the builds, and a model of Gemma 2 2B's widths
+# (google/gemma-2-2b, config.json: hidden_size 2304, 8 heads over 4 KV
+# heads, head_dim 256, intermediate_size 9216, vocab 256000, 26 layers) on
+# the repo's block (RMSNorm + RoPE + SwiGLU), seeded weights
+# ---------------------------------------------------------------------------
+
+GEMMA_KW = dict(vocab_size=256000, d_model=2304, n_layers=26, n_heads=8,
+                n_kv_heads=4, d_head=256, d_ff=9216, max_seq=8192)
+# decode at widths between the builds (bf16 and int8 caches, read in place)
+ANY_WIDTHS = (8, 48, 80, 96, 100, 200, 256)  # 100: element loads
+# greedy decode steps after the chunked prefill; steps of the paged loop
+GEMMA_CHUNK_NEW, GEMMA_PAGED_STEPS = 32, 32
+
+
+def _phase_wide_kernels(ctx):
+    """The d = 256 builds against their plain versions at the Gemma-width
+    model's attention shapes (8 query heads over 4 KV heads, d 256), bf16
+    gates (5e-3, O also within 2e-2 · max |plain O| on peaked inputs):
+    K1 (online), K1b and K5 (pinned, K5 within 1e-4 of K1b) at the
+    serving prefill (B=8, 512 causal), a ragged 500-row prefill, the
+    chunked prefill's prefix (512 rows over 3584 keys), its windowed
+    slice (512 over 1024, window 1024, kv_offset 1024) and a ragged GQA
+    prefix (300 over 2999, causal, kv_offset 2699), over bf16, int8, fp8
+    and mixed K/V, each quantized pair with and without `quantize_q`; K1
+    under segment ids. Each form's ms at the prefill and the prefix
+    (torch.profiler). K6 and K7 (128-token pages, bit for bit K6's) at
+    B=8 with 4224 live tokens of a 4352-token cache over every cache: a
+    bf16 q over bf16, int8, fp8 and mixed (`quantize_q` on int8 and
+    mixed), an fp32 q over fp32, bf16 and int8 (1e-4). K6 at d in
+    ANY_WIDTHS over bf16 and int8 caches, the cache read in place: the
+    peak allocation of a call stays below the cache's bytes. The forward
+    at d = 96 and 200 at the prefix, on zero-padded copies: the call
+    against the next build's width, and the copies alone. Rows K1 / K1b
+    / K5 / K6 / K7 d256: kernel ms, bound, plain ms, and SDPA on the same
+    (dequantised) inputs."""
+    torch = ctx.torch
+    F = torch.nn.functional
+    from cuda_flashattention_torch.ops import flash_fwd as ff
+    from cuda_flashattention_torch.ops.decode import (
+        decode_attention, decode_attention_plain)
+    from cuda_flashattention_torch.ops.paged import (
+        paged_decode_attention, paged_decode_attention_plain)
+    from cuda_flashattention_torch.ops.quant import quantize_kv
+    from cuda_flashattention_torch.utils.timing import cuda_time_ms
+    dev, card = ctx.dev, ctx.card
+    h, hkv, d = (GEMMA_KW["n_heads"], GEMMA_KW["n_kv_heads"],
+                 GEMMA_KW["d_head"])
+    gen = torch.Generator(device=dev).manual_seed(25)
+
+    def u(*shape, peak=1.0, dtype=torch.bfloat16):
+        return ((torch.rand(shape, generator=gen, device=dev) - 0.5)
+                * peak).to(dtype)
+
+    def stored(k, v, qtype):
+        """(k, v, scales, dequantised k, v) as a cache of `qtype` holds
+        them."""
+        if qtype is None:
+            return k, v, {}, k, v
+        kv = quantize_kv(k, v, qtype)
+        sc = dict(k_scale=kv.k_scale, v_scale=kv.v_scale)
+        kd = (kv.k_q.float() * kv.k_scale[..., None]).to(k.dtype)
+        vd = (kv.v_q.float() * kv.v_scale[..., None]).to(v.dtype)
+        return kv.k_q, kv.v_q, sc, kd, vd
+
+    def form_calls(form, q, k, v, sc, kw, qq):
+        """(kernel call, plain call) of one forward form: online (K1), or
+        K1b / K5 pinned through `_plan` + `_fwd_cuda` (no guarded
+        fallback); fp32 O."""
+        if form == "online":
+            args = dict(softmax="online", out_dtype=torch.float32, **kw,
+                        **sc)
+            return (lambda: ff.flash_attention_forward(q, k, v, **args),
+                    lambda: ff.flash_attention_forward_plain(q, k, v,
+                                                             **args))
+        plan = ff._plan(q, k, v, None, kw.get("causal", False),
+                        kw.get("window", 0), kw.get("kv_offset", 0), None,
+                        sc.get("k_scale"), sc.get("v_scale"), None, None,
+                        "bound_unchecked", qq)
+        plan = dataclasses.replace(plan, use_kmajor=form == "kmajor")
+        return (lambda: ff._fwd_cuda(q, k, v, plan, torch.float32,
+                                     sc.get("k_scale"), sc.get("v_scale"),
+                                     None, None),
+                lambda: ff.flash_attention_forward_plain(
+                    q, k, v, softmax="bound_unchecked", quantize_q=qq,
+                    out_dtype=torch.float32, **kw, **sc))
+
+    def close(got, want, what):
+        (o, lse), (o_p, lse_p) = got, want
+        e_o, ref, ok = ctx.o_close(o, o_p)
+        e_l = ctx.diff(lse, lse_p)
+        _check(ok and e_l <= GATE and bool(torch.isfinite(o).all()),
+               f"{what}: max|dO| {e_o:.3e} (max|O| {ref:.3e}) max|dLSE| "
+               f"{e_l:.3e}")
+        return max(e_o, e_l)
+
+    kernel_of = {"online": "K1", "bound": "K1b", "kmajor": "K5"}
+    cases = [
+        ("prefill 512 causal", BATCH, 512, 512, dict(causal=True)),
+        ("ragged 500 causal", BATCH, 500, 500, dict(causal=True)),
+        ("prefix 512x3584", BATCH, 512, 3584, {}),
+        ("windowed prefix 512x1024", BATCH, 512, 1024,
+         dict(causal=True, window=LONG_WINDOW, kv_offset=LONG_WINDOW)),
+        ("ragged GQA prefix 300x2999", 2, 300, 2999,
+         dict(causal=True, kv_offset=2699)),
+    ]
+    # the rows of the kernels line: each kernel where the main path
+    # runs it (K5: the fp8 cache's prefix reads)
+    rows = {("K1", "prefill 512 causal", None),
+            ("K1b", "prefix 512x3584", None),
+            ("K5", "prefix 512x3584", "fp8")}
+    timed = ("prefill 512 causal", "prefix 512x3584")
+    for name, b, nq, nk, kw in cases:
+        q = u(b, h, nq, d, peak=Q_PEAK)
+        k0, v0 = u(b, hkv, nk, d, peak=K_PEAK), u(b, hkv, nk, d)
+        flops = 4.0 * _visible_pairs(ctx, b, h, nq, nk, kw) * d
+        line = []
+        for qtype in (None, "int8", "fp8", "mixed"):
+            k, v, sc, kd, vd = stored(k0, v0, qtype)
+            lib_ms = (_library_ms(ctx, q, kd, vd, kw) if name in timed
+                      else float("nan"))
+            bound = _bound(_nbytes(q, k, v, *sc.values())
+                           + b * h * nq * (4 * d + 4), flops)
+            for qq in ((False, True) if qtype else (False,)):
+                got = {}
+                for form in ("online", "bound", "kmajor"):
+                    if qq and form == "online":
+                        continue  # quantize_q is a bound form's
+                    kn = kernel_of[form]
+                    call, plain = form_calls(form, q, k, v, sc, kw, qq)
+                    got[form] = call()
+                    torch.cuda.synchronize()
+                    want = plain()
+                    what = (f"{kn} d=256 {name} over {qtype or 'bf16'}"
+                            + (" quantize_q" if qq else ""))
+                    e = close(got[form], want, what)
+                    r = ctx.rec[f"{kn} d256"]
+                    r["max_abs_err"] = max(r["max_abs_err"], e)
+                    if name not in timed:
+                        continue
+                    ms = _call_ms(call, kn)
+                    line.append(f"{kn}{' qq' if qq else ''} "
+                                f"{qtype or 'bf16'} {ms:.4f}")
+                    if (kn, name, qtype) in rows and not qq:
+                        ms_p = cuda_time_ms(plain, iters=2, warmup=1)
+                        r.update(ms=ms, plain_ms=ms_p, library_ms=lib_ms,
+                                 **bound)
+                        print(f"[wide] {kn} d=256 {name} over "
+                              f"{qtype or 'bf16'}: B={b} H={h} Hkv={hkv} "
+                              f"max|diff| {e:.3e}; kernel {ms:.4f} ms "
+                              f"({100 * bound['bound_ms'] / ms:.1f}% of its "
+                              f"bound {bound['bound_ms']:.4f} ms, "
+                              f"{bound['bound_by']}), library (SDPA"
+                              + (" on the dequantised K/V" if qtype else "")
+                              + f") {lib_ms:.4f} ms, plain {ms_p:.4f} ms "
+                              f"({card})", flush=True)
+                e_k = max(ctx.diff(got["kmajor"][0], got["bound"][0]),
+                          ctx.diff(got["kmajor"][1], got["bound"][1]))
+                _check(e_k <= 1e-4, f"K5 vs K1b d=256 {name} {qtype}: "
+                       f"{e_k:.3e}")
+        print(f"[wide] d=256 {name}: K1, K1b and K5 within the bf16 gates "
+              f"over bf16, int8, fp8 and mixed K/V (quantize_q on each "
+              f"quantized pair), K5 within 1e-4 of K1b"
+              + (f"; kernel ms: {', '.join(line)}" if line else "")
+              + f" ({card})", flush=True)
+        del q, k0, v0, k, v, sc, kd, vd, got
+
+    # a d between builds runs on zero-padded copies of Q, K and V: what
+    # the copy costs a call at the chunked prefill's prefix read
+    from cuda_flashattention_torch.ops.common import pad_heads, run_dim
+    for dw in (96, 200):
+        dn = run_dim(dw)
+        calls = {}
+        for width in (dw, dn):
+            q = u(BATCH, h, 512, width, peak=Q_PEAK)
+            k, v = u(BATCH, hkv, 3584, width, peak=K_PEAK), u(BATCH, hkv,
+                                                               3584, width)
+            calls[width] = cuda_time_ms(
+                lambda: ff.flash_attention_forward(q, k, v,
+                                                   out_dtype=torch.float32),
+                iters=10)
+            if width == dw:
+                pad_ms = cuda_time_ms(lambda: pad_heads("forward", q, k, v),
+                                      iters=10)
+                pad_mb = (_nbytes(q, k, v) * (dn / dw + 1)) / 1e6
+        print(f"[wide] d={dw} on the d={dn} build (zero-padded copies), "
+              f"prefix 512x3584 B={BATCH} H={h} Hkv={hkv}: the call "
+              f"{calls[dw]:.4f} ms against {calls[dn]:.4f} ms at d={dn}; "
+              f"the copies alone {pad_ms:.4f} ms ({pad_mb:.1f} MB read and "
+              f"written) ({card})", flush=True)
+        del q, k, v
+
+    # K1 under segment ids (its SEG build at d = 256)
+    b, n = 2, 1024
+    ids = torch.repeat_interleave(
+        torch.arange(4, device=dev),
+        torch.tensor([300, 1, 500, 223], device=dev))[None].expand(
+            b, n).contiguous()
+    q, k, v = (u(b, h, n, d, peak=Q_PEAK), u(b, hkv, n, d, peak=K_PEAK),
+               u(b, hkv, n, d))
+    for causal in (True, False):
+        kw = dict(causal=causal, q_segment_ids=ids, kv_segment_ids=ids,
+                  out_dtype=torch.float32)
+        got = ff.flash_attention_forward(q, k, v, **kw)
+        torch.cuda.synchronize()
+        e = close(got, ff.flash_attention_forward_plain(q, k, v, **kw),
+                  f"K1 d=256 segment ids causal={causal}")
+        ctx.rec["K1 d256"]["max_abs_err"] = max(
+            ctx.rec["K1 d256"]["max_abs_err"], e)
+    print(f"[wide] K1 d=256 under segment ids (B={b}, N={n}, segments 300, "
+          f"1, 500, 223), causal and not: within the bf16 gates ({card})",
+          flush=True)
+    del q, k, v, got
+
+    # K6 and K7 at d = 256 over every cache
+    b = BATCH
+    lens = torch.full((b,), DEC_LIVE, dtype=torch.int32, device=dev)
+    live = torch.arange(DEC_CAP, device=dev)[None, :] < lens[:, None]
+    n_pages = DEC_CAP // PAGE
+    order = torch.randperm(b * n_pages, generator=gen, device=dev)
+    table = order.view(b, n_pages).to(torch.int32)
+
+    def paged(x):
+        """The cache [B, Hkv, N, ...] as PAGE-token pages behind `table`."""
+        pages = x.view(b, hkv, n_pages, PAGE, *x.shape[3:]).transpose(
+            1, 2).reshape(b * n_pages, hkv, PAGE, *x.shape[3:])
+        pool = torch.empty_like(pages)
+        pool[order] = pages
+        return pool
+
+    dec_rows = [(torch.bfloat16, None, None, False),
+                (torch.bfloat16, "int8", None, False),
+                (torch.bfloat16, "int8", None, True),
+                (torch.bfloat16, "fp8", None, False),
+                (torch.bfloat16, "mixed", None, False),
+                (torch.bfloat16, "mixed", None, True),
+                (torch.float32, None, torch.float32, False),
+                (torch.float32, None, torch.bfloat16, False),
+                (torch.float32, "int8", None, False)]
+    for qdt, qtype, cdt, qq in dec_rows:
+        q = u(b, h, d, peak=Q_PEAK, dtype=qdt)
+        kc = u(b, hkv, DEC_CAP, d, peak=K_PEAK, dtype=cdt or qdt)
+        vc = u(b, hkv, DEC_CAP, d, dtype=cdt or qdt)
+        k, v, sc, kd, vd = stored(kc, vc, qtype)
+        extra = dict(quantize_q=True) if qq else {}
+        f32 = qdt == torch.float32 and not qq
+        gate = F32_GATE if f32 else GATE
+        errs = {}
+        o, lse = decode_attention(q, k, v, lens, **sc, **extra)
+        torch.cuda.synchronize()
+        o_p, lse_p = decode_attention_plain(q, k, v, lens, **sc, **extra)
+        errs["K6"] = max(ctx.diff(o, o_p), ctx.diff(lse, lse_p))
+        pk, pv = paged(k), paged(v)
+        psc = {n_: paged(x) for n_, x in sc.items()}
+        o7, lse7 = paged_decode_attention(q, pk, pv, table, lens, **psc,
+                                          **extra)
+        torch.cuda.synchronize()
+        o7p, lse7p = paged_decode_attention_plain(q, pk, pv, table, lens,
+                                                  **psc, **extra)
+        errs["K7"] = max(ctx.diff(o7, o7p), ctx.diff(lse7, lse7p))
+        top = o_p.float().abs().max().item()
+        what = (f"d=256 decode, {qdt} q over a "
+                f"{qtype or (cdt or qdt)} cache" + (" quantize_q" if qq
+                                                     else ""))
+        _check(top > 0 and max(errs.values()) <= gate
+               and (f32 or ctx.diff(o, o_p) <= REL_GATE * top),
+               f"{what}: max|diff| {errs}, max|O| {top:.3e}")
+        _check(bool(torch.equal(o7, o) and torch.equal(lse7, lse)),
+               f"{what}: K7 not bit for bit K6's")
+        for kn in ("K6", "K7"):
+            r = ctx.rec[f"{kn} d256"]
+            r["max_abs_err"] = max(r["max_abs_err"], errs[kn])
+        line = ""
+        if qdt == torch.bfloat16 and qtype is None:
+            tokens = b * hkv * DEC_LIVE
+            for kn, call, plain in (
+                    ("K6", lambda: decode_attention(q, k, v, lens),
+                     lambda: decode_attention_plain(q, k, v, lens)),
+                    ("K7", lambda: paged_decode_attention(q, pk, pv, table,
+                                                          lens),
+                     lambda: paged_decode_attention_plain(q, pk, pv, table,
+                                                          lens))):
+                ms = _call_ms(call, kn, iters=5, before=ctx.l2_flush.zero_)
+                ms_p = cuda_time_ms(plain, iters=3,
+                                    before=ctx.l2_flush.zero_)
+                lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                    q[:, :, None], k, v, attn_mask=live[:, None, None, :],
+                    enable_gqa=True), before=ctx.l2_flush.zero_)
+                nbytes = (2 * _nbytes(q) + b * (h + 1) * 4
+                          + tokens * d * 4
+                          + (b * n_pages * 4 if kn == "K7" else 0))
+                bound = _bound(nbytes, 4.0 * h * d * DEC_LIVE * b)
+                ctx.rec[f"{kn} d256"].update(ms=ms, plain_ms=ms_p,
+                                             library_ms=lib_ms, **bound)
+                line += (f"; {kn} {ms:.4f} ms cold ("
+                         f"{100 * bound['bound_ms'] / ms:.1f}% of its bound "
+                         f"{bound['bound_ms']:.4f} ms, {bound['bound_by']}), "
+                         f"library {lib_ms:.4f} ms, plain {ms_p:.4f} ms")
+        print(f"[wide] {what}: B={b} H={h} Hkv={hkv} {DEC_LIVE} live of "
+              f"{DEC_CAP}; max|diff| K6 {errs['K6']:.3e} K7 "
+              f"{errs['K7']:.3e} (gate {gate}); K7 bit for bit K6's"
+              f"{line} ({card})", flush=True)
+        del q, kc, vc, k, v, sc, kd, vd, pk, pv, psc
+
+    # K6 at widths between its builds, the cache read as it lies
+    for dw in ANY_WIDTHS:
+        for qtype in (None, "int8"):
+            q = u(b, h, dw, peak=Q_PEAK)
+            k, v, sc, _, _ = stored(u(b, hkv, DEC_CAP, dw, peak=K_PEAK),
+                                    u(b, hkv, DEC_CAP, dw), qtype)
+            cache_bytes = _nbytes(k, v, *sc.values())
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            o, lse = decode_attention(q, k, v, lens, **sc)
+            torch.cuda.synchronize()
+            grown = torch.cuda.max_memory_allocated() - base
+            o_p, lse_p = decode_attention_plain(q, k, v, lens, **sc)
+            e_o, ref, ok = ctx.o_close(o, o_p)
+            e_l = ctx.diff(lse, lse_p)
+            ms = _call_ms(lambda: decode_attention(q, k, v, lens, **sc),
+                          "K6", iters=5, before=ctx.l2_flush.zero_)
+            print(f"[wide] K6 d={dw} over a {qtype or 'bf16'} cache "
+                  f"[{b}, {hkv}, {DEC_CAP}, {dw}], {DEC_LIVE} live: "
+                  f"max|dO| {e_o:.3e} (max|O| {ref:.3e}) max|dLSE| "
+                  f"{e_l:.3e}; the call's peak allocation {grown} B < the "
+                  f"cache's {cache_bytes} B; kernel {ms:.4f} ms cold "
+                  f"({card})", flush=True)
+            _check(ok and e_l <= GATE and o.shape == q.shape,
+                   f"K6 d={dw} {qtype}: dO {e_o:.3e} dLSE {e_l:.3e}")
+            _check(grown < cache_bytes, f"K6 d={dw} {qtype}: the call "
+                   f"allocated {grown} B, the cache is {cache_bytes} B")
+            del q, k, v, sc, o, lse, o_p, lse_p
+
+
+def _phase_gemma_serving(ctx):
+    """Main path of serving at Gemma 2 2B's widths (GEMMA_KW: 26 layers,
+    d_model 2304, 8 query heads over 4 KV heads of d_head 256, d_ff 9216,
+    vocab 256000, bf16; weights from a seeded generator, nothing
+    downloaded). `generate()`: B=8 prompts of 512 tokens, 128 greedy
+    tokens, over a bf16 and an int8 cache: K1 (its d = 256 build) once
+    per layer, K6 once per layer and token; the bf16 run's tokens against
+    the same model on the plain attention functions (equal, or departing
+    only where the plain run's two best logits lie within LOGIT_GATE),
+    its prefill logits within LOGIT_GATE of the plain path's, the int8
+    cache replayed on the bf16 run's tokens within QUANT_LOGIT_GATE of its
+    last-step logits. `prefill_chunked(chunk=512)`: B=8 prompts of 4096
+    tokens, then 32 greedy steps, over bf16, int8 and fp8 caches and, with
+    `cfg.window` = 1024, an int8 cache: per form launches (own chunks K1
+    8 · 26; the prefix reads K1b over bf16 and int8, K5 over fp8 and under
+    the window, 7 · 26, each behind its guarded K1; K6 32 · 26), the last
+    chunk's logits within LOGIT_GATE of the run on the plain attention
+    functions and, without a window, within LOGIT_GATE / QUANT_LOGIT_GATE
+    / FP8_LOGIT_GATE of a whole-prompt `prefill` over a bf16 cache; the
+    greedy tokens against the plain run's. The paged loop at the model's
+    attention shape: bf16 and int8 pools of 4096 pages of 128 tokens, B=8
+    sequences of 4096 tokens through `reserve_for` + `paged_bulk_append`,
+    32 steps of `reserve_for` + `paged_append` + `paged_decode_step`
+    (K7), each bit for bit K6's on a contiguous shadow and the last within
+    the gates of the plain version; a sequence retires and its pages
+    serve a new one. Prefill ms, decode tok/s, chunked-prefill ms and
+    paged step ms once each. No depth or width is cut."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.models import transformer as tfm
+    from cuda_flashattention_torch.models.generate import generate
+    from cuda_flashattention_torch.ops.decode import decode_attention
+    from cuda_flashattention_torch.ops.kv_cache import (
+        append as cache_append, init_cache)
+    from cuda_flashattention_torch.ops.paged import (
+        PageAllocator, init_paged_cache, paged_append, paged_bulk_append,
+        paged_decode_attention, paged_decode_attention_plain,
+        paged_decode_step)
+    dev, card = ctx.dev, ctx.card
+    cfg = tfm.TransformerConfig(dtype=torch.bfloat16, **GEMMA_KW)
+    n_layers = cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(26)
+    model = tfm.Transformer(cfg, generator=gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
+                           device=dev, dtype=torch.int32)
+    print(f"[gemma] {n_params / 1e9:.3f}B parameters "
+          f"({_nbytes(*model.parameters()) / 2**30:.2f} GiB in bf16): "
+          f"vocab {cfg.vocab_size}, d_model {cfg.d_model}, {n_layers} "
+          f"layers, {cfg.n_heads} heads over {cfg.n_kv_heads} KV heads of "
+          f"d_head {cfg.d_head}, d_ff {cfg.d_ff} ({card})", flush=True)
+    generate(model, prompt, 2)  # warm-up
+    torch.cuda.synchronize()
+
+    def departure(toks, toks_p, logits_at):
+        """'' when the token rows agree, else where they first part and
+        whether the plain run's two best logits there lie within
+        LOGIT_GATE (a tie that rounding may break either way)."""
+        if torch.equal(toks, toks_p):
+            return "", True
+        step = int((toks != toks_p).any(0).nonzero()[0])
+        at = logits_at(step)
+        rows = toks[:, step] != toks_p[:, step]
+        best = at[rows].float().topk(2, dim=-1).values
+        gap = (best[:, 0] - best[:, 1]).max().item()
+        return (f" (first departure at token {step}, where the plain run's "
+                f"two best logits lie {gap:.3e} apart)",
+                gap <= LOGIT_GATE)
+
+    def count(kn, n):
+        ctx.launches[kn] += n
+        ctx.launches[f"{kn} d256"] += n
+
+    # ---- generate(): bf16 and int8 caches
+    caches = tfm.init_caches(cfg, BATCH, PROMPT + NEW, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg_k, _ = tfm.prefill(model, prompt, caches)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    with _serving_on_plain_attention():
+        caches = tfm.init_caches(cfg, BATCH, PROMPT + NEW, device=dev)
+        lg_p, _ = tfm.prefill(model, prompt, caches)
+    e_prefill = ctx.diff(lg_k, lg_p)
+    del caches
+    runs = {}
+    for label, qtype in (("bf16 cache", None), ("int8 cache", "int8")):
+        ctx.zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, logits = generate(model, prompt, NEW, qtype=qtype)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_fwd, n_dec = ctx.fwd_forms["online"], decode_attention.launches
+        _check(n_fwd == n_layers and n_dec == n_layers * NEW
+               and sum(ctx.fwd_forms.values()) == n_fwd,
+               f"gemma generate {label}: launches {ctx.fwd_forms}, K6 "
+               f"{n_dec}")
+        _check(tuple(out.shape) == (BATCH, PROMPT + NEW)
+               and bool(((out >= 0) & (out < cfg.vocab_size)).all())
+               and bool(torch.isfinite(logits).all()),
+               f"gemma generate {label}: tokens or logits")
+        count("K1", n_fwd)
+        count("K6", n_dec)
+        runs[label] = (out, logits)
+        print(f"[gemma] generate {label}: B={BATCH} prompt={PROMPT} "
+              f"new={NEW}: launches K1 {n_fwd} (expect {n_layers}), K6 "
+              f"{n_dec} (expect {n_layers * NEW}); {wall:.3f} s, prefill "
+              f"{prefill_s * 1e3:.3f} ms (bf16 cache, timed alone), decode "
+              f"{BATCH * NEW / (wall - prefill_s):.1f} tok/s (the run's "
+              f"time less that prefill) ({card})", flush=True)
+    out, logits = runs["bf16 cache"]
+    with _serving_on_plain_attention():
+        out_p, logits_p = generate(model, prompt, NEW)
+    steps_p = {}
+
+    def plain_logits_at(step):
+        """The plain run's logits before new token `step`."""
+        if step == 0:
+            return lg_p
+        if not steps_p:
+            with _serving_on_plain_attention():
+                c = tfm.init_caches(cfg, BATCH, PROMPT + NEW, device=dev)
+                _, c = tfm.prefill(model, prompt, c)
+                for i in range(NEW - 1):
+                    lg, c = tfm.decode_one(model, out_p[:, PROMPT + i],
+                                           PROMPT + i, c)
+                    steps_p[i + 1] = lg
+        return steps_p[step]
+
+    dep, tie_ok = departure(out[:, PROMPT:], out_p[:, PROMPT:],
+                            plain_logits_at)
+    e_last = ctx.diff(logits, logits_p) if not dep else float("nan")
+    caches = tfm.init_caches(cfg, BATCH, PROMPT + NEW, qtype="int8",
+                             device=dev)
+    lg8, caches = tfm.prefill(model, prompt, caches)
+    for i in range(NEW):
+        lg8, caches = tfm.decode_one(model, out[:, PROMPT + i], PROMPT + i,
+                                     caches)
+    e8 = ctx.diff(lg8, logits)
+    del caches
+    same = (out == out_p).float().mean().item()
+    same8 = (runs["int8 cache"][0] == out).float().mean().item()
+    print(f"[gemma] generate vs the plain attention functions: prefill "
+          f"logits max|d| {e_prefill:.3e} (gate {LOGIT_GATE}); bf16 "
+          f"cache's tokens equal {same:.4f}{dep}; last-step logits max|d| "
+          f"{e_last:.3e}; the int8 cache on the bf16 run's tokens: "
+          f"last-step logits max|d| {e8:.3e} (gate {QUANT_LOGIT_GATE}); "
+          f"the int8 run's free greedy tokens equal to the bf16 run's "
+          f"{same8:.4f} ({card})", flush=True)
+    _check(e_prefill <= LOGIT_GATE, f"gemma prefill logits {e_prefill:.3e}")
+    _check(tie_ok, f"gemma generate: tokens depart from the plain run{dep}")
+    _check(dep or e_last <= LOGIT_GATE, f"gemma last logits {e_last:.3e}")
+    _check(e8 <= QUANT_LOGIT_GATE, f"gemma int8-cache logits {e8:.3e}")
+    del runs, out, out_p, logits, logits_p, lg8, steps_p
+
+    # ---- prefill_chunked(chunk=512) + greedy steps
+    new, n_chunks = GEMMA_CHUNK_NEW, LONG_PROMPT // LONG_CHUNK
+    own, n_prefix = n_chunks * n_layers, (n_chunks - 1) * n_layers
+    long_prompt = torch.randint(0, cfg.vocab_size, (BATCH, LONG_PROMPT),
+                                generator=gen, device=dev, dtype=torch.int32)
+
+    def serve(m, qtype):
+        """(last-chunk logits, tokens [B, 1 + new], each step's logits,
+        prefill s, decode s)"""
+        c = tfm.init_caches(m.cfg, BATCH, LONG_PROMPT + new, qtype=qtype,
+                            device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, c = tfm.prefill_chunked(m, long_prompt, c, chunk=LONG_CHUNK)
+        torch.cuda.synchronize()
+        p_s = time.perf_counter() - t0
+        tok = torch.argmax(lg, dim=-1).to(long_prompt.dtype)
+        toks, steps = [tok], []
+        t0 = time.perf_counter()
+        for i in range(new):
+            lg_dec, c = tfm.decode_one(m, tok, LONG_PROMPT + i, c)
+            tok = torch.argmax(lg_dec, dim=-1).to(long_prompt.dtype)
+            toks.append(tok)
+            steps.append(lg_dec)
+        torch.cuda.synchronize()
+        return lg, torch.stack(toks, 1), steps, p_s, time.perf_counter() - t0
+
+    serve(model, None)  # warm-up
+    c = tfm.init_caches(cfg, BATCH, LONG_PROMPT, device=dev)
+    lg_whole, c = tfm.prefill(model, long_prompt, c)
+    del c
+    whole_gate = {None: LOGIT_GATE, "int8": QUANT_LOGIT_GATE,
+                  "fp8": FP8_LOGIT_GATE}
+    chunk_s = None
+    for label, qtype, window in (("bf16 cache", None, 0),
+                                 ("int8 cache", "int8", 0),
+                                 ("fp8 cache", "fp8", 0),
+                                 ("int8 cache, window 1024", "int8",
+                                  LONG_WINDOW)):
+        m = _windowed(model, window) if window else model
+        ctx.zero_counts()
+        lg, toks, steps, p_s, d_s = serve(m, qtype)
+        counts, n_dec = dict(ctx.fwd_forms), decode_attention.launches
+        # the prefix reads: K1b over bf16 and int8 caches, K5 over fp8 and
+        # under the window (a causal quantized read), each checked
+        prefix_form = "kmajor" if qtype == "fp8" or window else "bound"
+        expect = dict(online=own, bound=0, kmajor=0, fallback=n_prefix)
+        expect[prefix_form] = n_prefix
+        with _serving_on_plain_attention():
+            lg_p, toks_p, steps_p, _, _ = serve(m, qtype)
+        e_lg = ctx.diff(lg, lg_p)
+        dep, tie_ok = departure(
+            toks, toks_p, lambda s: lg_p if s == 0 else steps_p[s - 1])
+        e_whole = float("nan") if window else ctx.diff(lg, lg_whole)
+        if chunk_s is None:
+            chunk_s = p_s
+        print(f"[gemma] prefill_chunked {label}: B={BATCH} x {LONG_PROMPT} "
+              f"tokens in chunks of {LONG_CHUNK}, then {new} greedy steps: "
+              f"launches {counts} (expect {expect}), K6 {n_dec} (expect "
+              f"{n_layers * new}); last-chunk logits vs plain attention "
+              f"max|d| {e_lg:.3e} (gate {LOGIT_GATE}), vs whole-prompt "
+              f"prefill over bf16 {e_whole:.3e} (gate "
+              f"{whole_gate[qtype]}); greedy tokens equal to the plain "
+              f"run's {(toks == toks_p).float().mean().item():.4f}{dep}; "
+              f"chunked prefill {p_s * 1e3:.3f} ms "
+              f"({BATCH * LONG_PROMPT / p_s:.0f} prompt tok/s), decode "
+              f"{d_s / new * 1e3:.3f} ms/step ({card})", flush=True)
+        _check(counts == expect and n_dec == n_layers * new,
+               f"gemma chunked {label}: launches {counts}, K6 {n_dec}")
+        _check(bool(torch.isfinite(lg).all()) and e_lg <= LOGIT_GATE,
+               f"gemma chunked {label}: logits vs plain {e_lg:.3e}")
+        _check(window or e_whole <= whole_gate[qtype],
+               f"gemma chunked {label}: vs whole prefill {e_whole:.3e}")
+        _check(tie_ok, f"gemma chunked {label}: tokens depart from the "
+               f"plain run{dep}")
+        count("K1", counts["online"])
+        count("K1b", counts["bound"])
+        count("K5", counts["kmajor"])
+        count("K6", n_dec)
+        del lg_p, steps_p, steps
+    del lg_whole
+
+    # ---- the paged loop at the model's attention shape
+    b, h, hkv, d = BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    steps = GEMMA_PAGED_STEPS
+    total = PAGED_PREFILL + steps
+    k_all = ctx.mk(b, hkv, total, d)
+    v_all = ctx.mk(b, hkv, total, d)
+    step_ms = None
+    for label, qtype in (("bf16 pools", None), ("int8 pools", "int8")):
+        cache = init_paged_cache(N_PAGES, b, MAX_PAGES, hkv, PAGE, d,
+                                 qtype=qtype, device=dev)
+        alloc = PageAllocator(N_PAGES)
+        shadow = init_cache(b, hkv, MAX_PAGES * PAGE, d, qtype=qtype,
+                            device=dev)
+        for i in range(b):
+            alloc.reserve_for(cache, i, PAGED_PREFILL)
+        paged_bulk_append(cache, k_all[:, :, :PAGED_PREFILL],
+                          v_all[:, :, :PAGED_PREFILL])
+        cache_append(shadow, k_all[:, :, :PAGED_PREFILL],
+                     v_all[:, :, :PAGED_PREFILL])
+        ctx.zero_counts()
+        times, e_plain = [], None
+        for t in range(steps):
+            at = PAGED_PREFILL + t
+            for i in range(b):
+                alloc.reserve_for(cache, i, 1)
+            paged_append(cache, k_all[:, :, at], v_all[:, :, at])
+            cache_append(shadow, k_all[:, :, at:at + 1],
+                         v_all[:, :, at:at + 1])
+            q = ctx.mk(b, h, d, peak=Q_PEAK * K_PEAK)
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            e0.record()
+            o, lse = paged_decode_step(q, cache)
+            e1.record()
+            n_k7 = paged_decode_attention.launches
+            o_c, lse_c = decode_attention(
+                q, shadow.k, shadow.v, cache.lengths,
+                k_scale=shadow.k_scale, v_scale=shadow.v_scale)
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+            _check(bool(torch.equal(o, o_c) and torch.equal(lse, lse_c)),
+                   f"gemma paged {label} step {t}: not bit for bit K6's")
+        o_p, lse_p = paged_decode_attention_plain(
+            q, cache.k_pages, cache.v_pages, cache.page_table,
+            cache.lengths, k_scale=cache.k_scale, v_scale=cache.v_scale)
+        (e_o, ref, ok), e_l = ctx.o_close(o, o_p), ctx.diff(lse, lse_p)
+        _check(ok and e_l <= GATE, f"gemma paged {label}: dO {e_o:.3e} "
+               f"(max|O| {ref:.3e}) dLSE {e_l:.3e}")
+        free_before = len(alloc.free)
+        alloc.release_sequence(cache, 3)
+        freed = len(alloc.free) - free_before
+        alloc.reserve_for(cache, 3, PAGE)
+        paged_append(cache, k_all[:, :, 0], v_all[:, :, 0])
+        o, _ = paged_decode_step(q, cache)
+        torch.cuda.synchronize()
+        n_k7 = paged_decode_attention.launches
+        _check(n_k7 == steps + 1 and freed == -(-total // PAGE)
+               and bool(torch.isfinite(o).all()),
+               f"gemma paged {label}: K7 {n_k7}, {freed} pages freed")
+        count("K7", n_k7)
+        r = ctx.rec["K7 d256"]
+        r["max_abs_err"] = max(r["max_abs_err"], e_o, e_l)
+        med = statistics.median(times)
+        if step_ms is None:
+            step_ms = med
+        print(f"[gemma] paged loop, {label}: {N_PAGES} pages x {PAGE} "
+              f"tokens x {hkv} KV heads x d {d} "
+              f"({_nbytes(cache.k_pages, cache.v_pages) / 2**30:.2f} GiB), "
+              f"B={b} x {PAGED_PREFILL} tokens, {steps} steps bit for bit "
+              f"K6's on the shadow, the last vs plain max|dO| {e_o:.3e} "
+              f"(max|O| {ref:.3e}) max|dLSE| {e_l:.3e}; retired sequence "
+              f"3: {freed} pages back and reused; K7 launches {n_k7}; "
+              f"paged_decode_step {med:.4f} ms (median) ({card})",
+              flush=True)
+        del cache, shadow, alloc
+    del k_all, v_all, model
+    print(f"[gemma] summary: prefill {prefill_s * 1e3:.3f} ms (B={BATCH} x "
+          f"{PROMPT}), chunked prefill {chunk_s * 1e3:.3f} ms (B={BATCH} x "
+          f"{LONG_PROMPT}, bf16 cache), paged step {step_ms:.4f} ms "
+          f"({card})", flush=True)
+
+
 def _phase_utils(ctx):
     """Checkpoint, trace, kernel report, memory snapshot and monitor on
     the card. The 271M training config takes 2 `make_train_step` steps
@@ -3550,8 +4241,11 @@ def main() -> int:
     _build.library()
     built = _build.build_seconds
     print(f"[build] kernels ready in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {'%.2f s' % built if built is not None else 'cached'})",
-          flush=True)
+          f"(nvcc {'%.2f s' % built if built is not None else 'cached'}"
+          + "".join(f"; {n} {t:.1f} s"
+                    for n, t in sorted(_build.source_seconds.items(),
+                                       key=lambda x: -x[1]))
+          + ")", flush=True)
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -3629,7 +4323,8 @@ def main() -> int:
             "K1 bf16 128-key", "K1b bf16 128-key", "K4 D prologue",
             "K1 fp32 Q over bf16", "K1b fp32 Q over bf16",
             "K5 fp32 Q over bf16", "K6 fp32 q over bf16",
-            "K7 fp32 q over bf16")}
+            "K7 fp32 q over bf16", "K1 d256", "K1b d256", "K5 d256",
+            "K6 d256", "K7 d256")}
     # launches on the main paths, summed over the runs that drive them
     launches = {kn: 0 for kn in rec}
 
@@ -5016,6 +5711,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     _phase_f32_bf16_serving(ctx)
     torch.cuda.empty_cache()
+    _phase_wide_kernels(ctx)
+    torch.cuda.empty_cache()
+    _phase_gemma_serving(ctx)
+    torch.cuda.empty_cache()
     _phase_utils(ctx)
     torch.cuda.empty_cache()
     _phase_ladder_train(ctx)
@@ -5145,6 +5844,28 @@ def main() -> int:
         ("K7 fp32 q over bf16", "paged_decode_attention on an fp32 q over "
          "bf16 pools (K7's builds QT = float over bf16 storage, bit for bit "
          "K6's; the paged run over bf16 pools at d 128, 128-token pages)",
+         "paged.cu", "paged.py:51"),
+        ("K1 d256", "flash_attention_forward at d = 256 (K1's d = 256 build, "
+         "a bf16 Q over bf16 or one-byte K/V: S, softmax and P·V of a key "
+         "tile in order; the Gemma-width model's prefill and chunks, also "
+         "counted under K1; times at B=8 H=8 Hkv=4 512 causal)",
+         "flash_fwd.cu", "flash_fwd.py:123"),
+        ("K1b d256", "flash_attention_forward softmax=bound at d = 256 "
+         "(K1b's d = 256 build; the Gemma-width model's prefix reads over "
+         "bf16 and int8 caches, also counted under K1b; times at the "
+         "prefix, 512 x 3584)", "flash_fwd_bound.cu", "flash_fwd.py:123"),
+        ("K5 d256", "flash_attention_forward softmax=bound, fp8 keys or "
+         "causal, at d = 256 (K5's d = 256 build, a span of one key tile; "
+         "the Gemma-width model's prefix reads over an fp8 cache and under "
+         "its window, also counted under K5; times over fp8 K/V at the "
+         "prefix, 512 x 3584)", "flash_fwd_kmajor.cu", "flash_fwd.py:399"),
+        ("K6 d256", "decode_attention at d = 256 (K6's d = 256 builds, eight "
+         "elements a lane; the Gemma-width model's decode, also counted "
+         "under K6; times at B=8 H=8 Hkv=4, 4224 live of 4352, cold L2)",
+         "decode.cu", "decode.py:145"),
+        ("K7 d256", "paged_decode_attention at d = 256 (K7's d = 256 "
+         "builds, bit for bit K6's; the Gemma-width paged loop, also "
+         "counted under K7; times at 4224 live tokens in 128-token pages)",
          "paged.cu", "paged.py:51"),
     ]
     kernels = []

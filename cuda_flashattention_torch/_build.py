@@ -23,8 +23,9 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -110,6 +111,8 @@ SIGNATURES = {
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None
+# each source's nvcc seconds in the last build of this process
+source_seconds: Dict[str, float] = {}
 
 
 def sources() -> List[Path]:
@@ -159,17 +162,23 @@ def _library_path(srcs: List[Path]) -> Path:
     return BUILD_DIR / f"libcfa_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _run_all(cmds: List[List[str]]) -> None:
-    """Run the commands concurrently; raise with nvcc's output if any
-    fails. Every process started is waited for."""
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for c in cmds]
-    outputs = [p.communicate()[0] for p in procs]
-    for cmd, p, text in zip(cmds, procs, outputs):
+def _run_all(cmds: List[List[str]]) -> List[float]:
+    """Run the commands concurrently (a thread waits on each); raise with
+    nvcc's output if any fails. Every process started is waited for.
+    Returns each command's seconds."""
+    def one(cmd):
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd, stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True)
+        return p, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+        done = list(pool.map(one, cmds))
+    for cmd, (p, _) in zip(cmds, done):
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed ({p.returncode}): "
-                               f"{' '.join(cmd)}\n{text}")
+                               f"{' '.join(cmd)}\n{p.stdout}")
+    return [t for _, t in done]
 
 
 def _build(out: Path) -> None:
@@ -182,7 +191,10 @@ def _build(out: Path) -> None:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         srcs = sources()
         objs = [Path(tmp) / f"{s.stem}.o" for s in srcs]
-        _run_all([compile_command(nvcc, s, o) for s, o in zip(srcs, objs)])
+        secs = _run_all([compile_command(nvcc, s, o)
+                         for s, o in zip(srcs, objs)])
+        source_seconds.clear()
+        source_seconds.update({s.name: t for s, t in zip(srcs, secs)})
         lib = Path(tmp) / out.name
         _run_all([link_command(nvcc, objs, lib)])
         os.replace(lib, out)

@@ -3,7 +3,8 @@
 // bf16, int8, fp8 e4m3, or mixed (int8 K, fp8 V), the quantized ones with
 // per-token fp32 scales, under a bf16 q; or fp32, bf16, int8, fp8 or mixed
 // under an fp32 q; under `qq` Q arrives as per-head int8 and Q.K runs as an
-// exact integer dot. Head dims 16, 32, 64 and 128.
+// exact integer dot. Any head dim d from 1 to 256, read in place at its
+// own row width on the build for the next of 16, 32, 64, 128 and 256.
 //
 // Replaces: cuda_flashattention_tpu/ops/decode.py::_decode_kernel. The
 // per-key update and the epilogue (attend_block, decode_epilogue there)
@@ -39,7 +40,7 @@ using namespace cfa_decode_body;
 template <int D, typename QT, typename KT, typename VT, bool QQ,
           int R>
 __global__ void __launch_bounds__(NTHREADS)
-decode_kernel(Args a, const KT* __restrict__ k,  // [B, Hkv, max_n, D]
+decode_kernel(Args a, const KT* __restrict__ k,  // [B, Hkv, max_n, d]
               const VT* __restrict__ v, int max_n) {
   const int s = blockIdx.x % a.nsplit;
   const int tile = blockIdx.x / a.nsplit;
@@ -63,7 +64,7 @@ decode_kernel(Args a, const KT* __restrict__ k,  // [B, Hkv, max_n, D]
       ks = a.k_scale[t];
       vs = a.v_scale[t];
     }
-    body.attend(k + t * D, v + t * D, ks, vs, a.scale);
+    body.attend(k + t * a.d, v + t * a.d, ks, vs, a.scale);
   }
   const int tiles = gridDim.x / a.nsplit;
   body.finish(a, ((long long)b * a.Hkv + hk) * tiles + tile, s, s_first,
@@ -84,11 +85,12 @@ struct Launch {
 
 }  // namespace
 
-// q and o [B, H, D] are fp32 when q_f32, else bf16 (D: 16, 32, 64 or
-// 128). k_type / v_type: 0 bf16, 1 int8, 2 fp8 e4m3, 3 fp32 (fp32 q). k_scale / v_scale [B, Hkv, max_n] fp32 for a quantized cache,
-// else null. With qq != 0, q is int8 and q_sigma [B, H] holds
-// sigma_q * scale per row; o keeps the type q_f32 names. windows [B] or
-// null; window 0 for none. split: C, keys per split of the context (the
+// q and o [B, H, D] are fp32 when q_f32, else bf16; the cache is [B, Hkv,
+// max_n, D] (D: any row width from 1 to 256, read as it lies). k_type /
+// v_type: 0 bf16, 1 int8, 2 fp8 e4m3, 3 fp32 (fp32 q). k_scale / v_scale
+// [B, Hkv, max_n] fp32 for a quantized cache, else null. With qq != 0, q
+// is int8 and q_sigma [B, H] holds sigma_q * scale per row; o keeps the
+// type q_f32 names. windows [B] or null; window 0 for none. split: C, keys per split of the context (the
 // host's rule); with more than one split of max_n, part [B·Hkv·row tiles ·
 // ceil(max_n / C) · R · (D + 2)] fp32 and tickets [B·Hkv·row tiles] int32
 // are the call's scratch (tickets are zeroed here, on the stream).
@@ -115,6 +117,9 @@ extern "C" int cfa_decode(const void* q, const void* k, const void* v,
   a.Hkv = Hkv;
   a.scale = scale;
   a.window = window;
+  a.d = D;
+  a.vec = vector_loads(D, q, qq ? 1 : q_f32 ? 4 : 2, k, k_type, v, v_type);
+  if (build_dim(D) == 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = prepare_split(&a, B, max_n, split, part, tickets, st);
   if (err != cudaSuccess) return err;

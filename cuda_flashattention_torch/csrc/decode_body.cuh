@@ -55,9 +55,16 @@
 //   acc += cd(p * v_scale[j]) * v_q  (cd: bf16 rounds AFTER the scale; an
 //                                     fp32 q without QQ leaves p as it is)
 //   O = acc / l in QT, LSE = m + ln l; l = 0 gives O = 0, LSE = NEG_INF.
-// Head dims 16, 32, 64 and 128: a lane owns N = max(1, D/32) consecutive
-// elements, so at D = 16 lanes 16-31 own none; they never load, carry
-// zeros through the shuffle sums and write nothing.
+// Head dims: any d from 1 to 256, run on the build D in {16, 32, 64, 128,
+// 256} that is the smallest not below d. A lane owns N = max(1, D/32)
+// consecutive elements of [0, D), and only those below d are real: the
+// cache, q and o are read and written at their own row width d, in place
+// (no padded copy), so a lane whose elements all lie at or past d (at D =
+// 16 lanes 16-31 always) never loads, carries zeros through the shuffle
+// sums and writes nothing. Where d is a multiple of N and every array is
+// aligned to N elements (`Args.vec`) a lane reads its elements in one
+// vector load; otherwise (d = 90 in bf16, say) one element at a time, each
+// tested against d.
 
 #pragma once
 
@@ -84,13 +91,13 @@ constexpr int kBf16 = 0, kInt8 = 1, kFp8 = 2, kF32 = 3;
 
 // What both kernels are given besides their cache.
 struct Args {
-  const void* q;         // [B, Hkv*rows, D] in QT, or int8 under QQ
+  const void* q;         // [B, Hkv*rows, d] in QT, or int8 under QQ
   const float* q_sigma;  // [B, Hkv*rows] sigma_q * scale, QQ only
   const float* k_scale;  // one fp32 per cached token, quantized only
   const float* v_scale;
   const int* lengths;    // [B]
   const int* windows;    // [B] or nullptr
-  void* o;               // [B, Hkv*rows, D] in QT
+  void* o;               // [B, Hkv*rows, d] in QT
   float* lse;            // [B, Hkv*rows]
   int rows;              // query rows per KV head
   int Hkv;
@@ -98,9 +105,38 @@ struct Args {
   int window;            // 0: none; with `windows`, a cap on each of them
   int split;             // C, keys per split
   int nsplit;            // splits per row tile in the grid
-  float* part;           // [row tiles, nsplit, R, D + 2] fp32, or null
+  float* part;           // [row tiles, nsplit, R, d + 2] fp32, or null
   int* tickets;          // [row tiles], zero before the launch, or null
+  int d;                 // the row width of q, o and the cache (<= D)
+  int vec;               // whole-vector loads of a lane's N elements
 };
+
+// The build a row width d runs on: the smallest of 16, 32, 64, 128 and 256
+// not below it; 0 where there is none.
+__host__ __device__ constexpr int build_dim(int d) {
+  return d <= 0 ? 0 : d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64
+       : d <= 128 ? 128 : d <= 256 ? 256 : 0;
+}
+
+// Bytes of one stored element of a storage type code.
+inline int elem_bytes(int type) {
+  return type == kBf16 ? 2 : type == kF32 ? 4 : 1;
+}
+
+// Whether a lane's N elements of every row may be read in one vector load:
+// d a multiple of N (so a lane's elements lie all below d or all past it)
+// and each array's base aligned to N of its elements (rows of d elements
+// then keep that alignment).
+inline int vector_loads(int d, const void* q, int q_bytes, const void* k,
+                        int k_type, const void* v, int v_type) {
+  const int D = build_dim(d);
+  const int n = D >= 32 ? D / 32 : 1;
+  auto aligned = [n](const void* p, int bytes) {
+    return reinterpret_cast<uintptr_t>(p) % (uintptr_t)(n * bytes) == 0;
+  };
+  return d % n == 0 && aligned(q, q_bytes) && aligned(k, elem_bytes(k_type)) &&
+         aligned(v, elem_bytes(v_type));
+}
 
 // First visible key of sequence b: max(0, length - win), where win is the
 // static window, the sequence's own, or the smaller of the two.
@@ -134,11 +170,17 @@ __device__ __forceinline__ bool split_keys(const Args& a, int first,
   return true;
 }
 
-// N consecutive stored values (N = 1, 2 or 4) as floats, in one load.
-// Every conversion is exact: bf16, int8 and e4m3 all embed in fp32.
+// N consecutive stored values (N = 1, 2, 4 or 8) as floats, in one load
+// (two float4s for eight fp32). Every conversion is exact: bf16, int8 and
+// e4m3 all embed in fp32.
 template <int N>
 __device__ __forceinline__ void load_vals(const float* p, float* out) {
-  if constexpr (N == 4) {
+  if constexpr (N == 8) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    const float4 g = *reinterpret_cast<const float4*>(p + 4);
+    out[0] = f.x; out[1] = f.y; out[2] = f.z; out[3] = f.w;
+    out[4] = g.x; out[5] = g.y; out[6] = g.z; out[7] = g.w;
+  } else if constexpr (N == 4) {
     const float4 f = *reinterpret_cast<const float4*>(p);
     out[0] = f.x; out[1] = f.y; out[2] = f.z; out[3] = f.w;
   } else if constexpr (N == 2) {
@@ -151,7 +193,17 @@ __device__ __forceinline__ void load_vals(const float* p, float* out) {
 
 template <int N>
 __device__ __forceinline__ void load_vals(const __nv_bfloat16* p, float* out) {
-  if constexpr (N == 4) {
+  if constexpr (N == 8) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const unsigned int w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  } else if constexpr (N == 4) {
     const uint2 raw = *reinterpret_cast<const uint2*>(p);
     const float2 fa =
         __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
@@ -169,7 +221,14 @@ __device__ __forceinline__ void load_vals(const __nv_bfloat16* p, float* out) {
 
 template <int N>
 __device__ __forceinline__ void load_vals(const int8_t* p, float* out) {
-  if constexpr (N == 4) {
+  if constexpr (N == 8) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const unsigned int w[2] = {raw.x, raw.y};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      out[i] = (float)(signed char)((w[i >> 2] >> (8 * (i & 3))) & 0xffu);
+    }
+  } else if constexpr (N == 4) {
     const char4 c = *reinterpret_cast<const char4*>(p);
     out[0] = (float)c.x; out[1] = (float)c.y;
     out[2] = (float)c.z; out[3] = (float)c.w;
@@ -189,7 +248,17 @@ __device__ __forceinline__ float2 fp8x2_to_float2(unsigned short pair) {
 
 template <int N>
 __device__ __forceinline__ void load_vals(const __nv_fp8_e4m3* p, float* out) {
-  if constexpr (N == 4) {
+  if constexpr (N == 8) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const unsigned int w[2] = {raw.x, raw.y};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float2 fa = fp8x2_to_float2((unsigned short)(w[i] & 0xffffu));
+      const float2 fb = fp8x2_to_float2((unsigned short)(w[i] >> 16));
+      out[4 * i + 0] = fa.x; out[4 * i + 1] = fa.y;
+      out[4 * i + 2] = fb.x; out[4 * i + 3] = fb.y;
+    }
+  } else if constexpr (N == 4) {
     const unsigned int w = *reinterpret_cast<const unsigned int*>(p);
     const float2 fa = fp8x2_to_float2((unsigned short)(w & 0xffffu));
     const float2 fb = fp8x2_to_float2((unsigned short)(w >> 16));
@@ -205,8 +274,8 @@ __device__ __forceinline__ void load_vals(const __nv_fp8_e4m3* p, float* out) {
   }
 }
 
-// N consecutive int8 packed into the low bytes of a word (for __dp4a; the
-// bytes above N are zero and add nothing to the dot).
+// N consecutive int8 (N <= 4) packed into the low bytes of a word (for
+// __dp4a; the bytes above N are zero and add nothing to the dot).
 template <int N>
 __device__ __forceinline__ int load_word(const int8_t* p) {
   if constexpr (N == 4) {
@@ -227,12 +296,15 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 template <int D, typename QT, typename KT, typename VT, bool QQ, int ROWS>
 struct Body {
   static constexpr int N = D >= 32 ? D / 32 : 1;  // d-elements a lane owns
+  static constexpr int NW = (N + 3) / 4;  // words of a lane's int8 codes
+  static constexpr int WN = N < 4 ? N : 4;  // codes in each word
   static constexpr bool kQuant =
       std::is_same<KT, int8_t>::value || std::is_same<KT, __nv_fp8_e4m3>::value;
   // P is rounded to the compute dtype before P.V: bf16 for a bf16 q and
   // under QQ; an fp32 q keeps it
   static constexpr bool kRoundP = QQ || std::is_same<QT, __nv_bfloat16>::value;
-  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dim");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128 || D == 256,
+                "head dim");
   static_assert(std::is_same<QT, float>::value ||
                     std::is_same<QT, __nv_bfloat16>::value,
                 "q is bf16 or fp32");
@@ -243,28 +315,65 @@ struct Body {
                 "an fp32 cache is read under an fp32 q");
 
   float qf[ROWS][N];  // the rows' q slices (unused under QQ)
-  int q8[ROWS];       // the same as packed int8 (QQ)
+  int q8[ROWS][NW];   // the same as packed int8 (QQ)
   float qs[ROWS];     // sigma_q * scale per row (QQ)
   float m[ROWS], l[ROWS], acc[ROWS][N];
   int nrows;          // live rows of this tile
   long long row0;     // flat index of the tile's first row in q, o, lse
   int c0;             // this lane's first d-element
+  int d;              // the row width (Args.d)
+  bool vec;           // whole-vector loads (Args.vec)
 
-  // Whether this lane owns elements: every lane from D = 32 on.
-  __device__ __forceinline__ bool owns() const { return D >= 32 || c0 < D; }
+  // Whether this lane owns elements below d.
+  __device__ __forceinline__ bool owns() const { return c0 < d; }
+
+  // This lane's N elements of a row (zeros past d).
+  template <typename T>
+  __device__ __forceinline__ void load(const T* row, float* out) const {
+    if (vec) {
+      load_vals<N>(row + c0, out);
+    } else {
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        out[c] = 0.f;
+        if (c0 + c < d) load_vals<1>(row + c0 + c, out + c);
+      }
+    }
+  }
+
+  // This lane's N int8 codes of a row, WN to a word (zero bytes past d).
+  __device__ __forceinline__ void load_words(const int8_t* row,
+                                             int (&w)[NW]) const {
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      const int c = c0 + 4 * i;
+      if (vec) {
+        w[i] = load_word<WN>(row + c);
+      } else {
+        w[i] = 0;
+#pragma unroll
+        for (int e = 0; e < WN; ++e) {
+          if (c + e < d) w[i] |= (int)(unsigned char)row[c + e] << (8 * e);
+        }
+      }
+    }
+  }
 
   __device__ __forceinline__ void init(const Args& a, int b, int hk,
                                        int tile) {
     const int lane = threadIdx.x % 32;
     c0 = lane * N;
+    d = a.d;
+    vec = a.vec != 0;
     nrows = min(ROWS, a.rows - tile * ROWS);
     row0 = ((long long)b * a.Hkv + hk) * a.rows + (long long)tile * ROWS;
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
       m[r] = kNegInf;
       l[r] = 0.f;
-      q8[r] = 0;
       qs[r] = 0.f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) q8[r][w] = 0;
 #pragma unroll
       for (int c = 0; c < N; ++c) {
         acc[r][c] = 0.f;
@@ -273,30 +382,31 @@ struct Body {
       if (r < nrows) {
         if constexpr (QQ) {
           if (owns())
-            q8[r] = load_word<N>(static_cast<const int8_t*>(a.q) +
-                                 (row0 + r) * D + c0);
+            load_words(static_cast<const int8_t*>(a.q) + (row0 + r) * d,
+                       q8[r]);
           qs[r] = a.q_sigma[row0 + r];
         } else if (owns()) {
-          load_vals<N>(static_cast<const QT*>(a.q) + (row0 + r) * D + c0,
-                       qf[r]);
+          load(static_cast<const QT*>(a.q) + (row0 + r) * d, qf[r]);
         }
       }
     }
   }
 
-  // One key: krow/vrow point at the key's D stored values, ks/vs are its
+  // One key: krow/vrow point at the key's d stored values, ks/vs are its
   // scales (ignored for a bf16 cache).
   __device__ __forceinline__ void attend(const KT* krow, const VT* vrow,
                                          float ks, float vs, float scale) {
     float kf[N], vf[N];
-    int kw = 0;
+    int kw[NW];
+#pragma unroll
+    for (int w = 0; w < NW; ++w) kw[w] = 0;
     if (owns()) {
       if constexpr (QQ) {
-        kw = load_word<N>(krow + c0);
+        load_words(krow, kw);
       } else {
-        load_vals<N>(krow + c0, kf);
+        load(krow, kf);
       }
-      load_vals<N>(vrow + c0, vf);
+      load(vrow, vf);
     } else {
 #pragma unroll
       for (int c = 0; c < N; ++c) kf[c] = vf[c] = 0.f;
@@ -305,7 +415,9 @@ struct Body {
     for (int r = 0; r < ROWS; ++r) {
       float s;
       if constexpr (QQ) {
-        int dot = __dp4a(q8[r], kw, 0);
+        int dot = 0;
+#pragma unroll
+        for (int w = 0; w < NW; ++w) dot = __dp4a(q8[r][w], kw[w], dot);
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
           dot += __shfl_xor_sync(0xffffffffu, dot, off);
@@ -360,10 +472,10 @@ struct Body {
     __syncthreads();
     const bool alone = s_first == s_last;
     float* mine =
-        alone ? nullptr : a.part + (tile_id * a.nsplit + s) * ROWS * (D + 2);
-    for (int i = threadIdx.x; i < nrows * D; i += NTHREADS) {
-      const int r = i / D;
-      const int c = i % D;
+        alone ? nullptr : a.part + (tile_id * a.nsplit + s) * ROWS * (d + 2);
+    for (int i = threadIdx.x; i < nrows * d; i += NTHREADS) {
+      const int r = i / d;
+      const int c = i % d;
       float mx = kNegInf;
 #pragma unroll
       for (int w = 0; w < NWARPS; ++w) mx = fmaxf(mx, part_m[w][r]);
@@ -378,10 +490,10 @@ struct Body {
       if (alone) {
         put(a, r, c, mx, lsum, osum);
       } else {
-        mine[r * (D + 2) + 2 + c] = osum;
+        mine[r * (d + 2) + 2 + c] = osum;
         if (c == 0) {
-          mine[r * (D + 2)] = mx;
-          mine[r * (D + 2) + 1] = lsum;
+          mine[r * (d + 2)] = mx;
+          mine[r * (d + 2) + 1] = lsum;
         }
       }
     }
@@ -396,21 +508,21 @@ struct Body {
     __syncthreads();
     if (!merges) return;
     __threadfence();
-    const float* parts = a.part + tile_id * a.nsplit * ROWS * (D + 2);
-    for (int i = threadIdx.x; i < nrows * D; i += NTHREADS) {
-      const int r = i / D;
-      const int c = i % D;
+    const float* parts = a.part + tile_id * a.nsplit * ROWS * (d + 2);
+    for (int i = threadIdx.x; i < nrows * d; i += NTHREADS) {
+      const int r = i / d;
+      const int c = i % d;
       // unrolled: the partials' loads go out eight at a time, the sums
       // stay in split order
       float mx = kNegInf;
 #pragma unroll 8
       for (int t = s_first; t <= s_last; ++t) {
-        mx = fmaxf(mx, __ldcg(parts + (t * ROWS + r) * (D + 2)));
+        mx = fmaxf(mx, __ldcg(parts + (t * ROWS + r) * (d + 2)));
       }
       float lsum = 0.f, osum = 0.f;
 #pragma unroll 8
       for (int t = s_first; t <= s_last; ++t) {
-        const float* p = parts + (t * ROWS + r) * (D + 2);
+        const float* p = parts + (t * ROWS + r) * (d + 2);
         const float lt = __ldcg(p + 1);
         const float wgt = lt > 0.f ? __expf(__ldcg(p) - mx) : 0.f;
         lsum += lt * wgt;
@@ -425,7 +537,7 @@ struct Body {
   // row, LSE = mx + ln lsum (NEG_INF where lsum = 0).
   __device__ __forceinline__ void put(const Args& a, int r, int c, float mx,
                                         float lsum, float osum) {
-    store(static_cast<QT*>(a.o) + (row0 + r) * D + c,
+    store(static_cast<QT*>(a.o) + (row0 + r) * d + c,
           lsum > 0.f ? osum / lsum : 0.f);
     if (c == 0) a.lse[row0 + r] = lsum > 0.f ? mx + logf(lsum) : kNegInf;
   }
@@ -496,25 +608,27 @@ cudaError_t dispatch_rows(int rows, int kt, int vt, int qq, A... args) {
 
 template <template <int, typename, typename, typename, bool, int> class L,
           typename QT, typename... A>
-cudaError_t dispatch_dim(int D, int rows, int kt, int vt, int qq,
+cudaError_t dispatch_dim(int d, int rows, int kt, int vt, int qq,
                          A... args) {
-  switch (D) {
+  switch (build_dim(d)) {
     case 16: return dispatch_rows<L, 16, QT>(rows, kt, vt, qq, args...);
     case 32: return dispatch_rows<L, 32, QT>(rows, kt, vt, qq, args...);
     case 64: return dispatch_rows<L, 64, QT>(rows, kt, vt, qq, args...);
     case 128: return dispatch_rows<L, 128, QT>(rows, kt, vt, qq, args...);
+    case 256: return dispatch_rows<L, 256, QT>(rows, kt, vt, qq, args...);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// d: the row width, 1 to 256 (the build is build_dim(d)).
 template <template <int, typename, typename, typename, bool, int> class L,
           typename... A>
-cudaError_t dispatch(int D, int rows, int kt, int vt, int qq, int q_f32,
+cudaError_t dispatch(int d, int rows, int kt, int vt, int qq, int q_f32,
                      A... args) {
   if (!valid_types(kt, vt, qq, q_f32)) return cudaErrorInvalidValue;
   if (q_f32)
-    return dispatch_dim<L, float>(D, rows, kt, vt, qq, args...);
-  return dispatch_dim<L, __nv_bfloat16>(D, rows, kt, vt, qq, args...);
+    return dispatch_dim<L, float>(d, rows, kt, vt, qq, args...);
+  return dispatch_dim<L, __nv_bfloat16>(d, rows, kt, vt, qq, args...);
 }
 
 }  // namespace cfa_decode_body

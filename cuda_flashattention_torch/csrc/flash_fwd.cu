@@ -41,6 +41,12 @@
 // P live, so its steps run in order: S, the softmax, P·V. At d = 128 a K+V
 // stage is 64 KB: two stages beside the 32 KB Q tile.
 //
+// At d = 256 (a bf16 Q over bf16 or one-byte K/V) O alone takes 128
+// registers a consumer thread, so the 64-key walk runs in the same order,
+// without the overlap; the 64 KB Q tile leaves room for two stages and,
+// over one-byte K/V, one converted pair, which both warpgroups finish
+// reading before it is overwritten.
+//
 // The kernel can be launched behind a device-side guard: it then exits
 // before anything else unless the bound form before it counted a loose
 // row, which is how the loose-bound fallback runs without a host round
@@ -53,8 +59,6 @@ using namespace cfa_bound;
 
 namespace {
 
-constexpr int NCV = 3;  // converted K/V pairs (one-byte K/V), used in turn
-
 // Shared memory of one CTA (byte offsets from a 1024-aligned base): the Q
 // tile (under F32 its hi and lo tiles); NST stages of K and V as TMA
 // writes them (bf16 slabs, or one-byte codes; under F32 over fp32 K/V the
@@ -65,14 +69,20 @@ constexpr int NCV = 3;  // converted K/V pairs (one-byte K/V), used in turn
 // fit, else three (an fp32 Q over codes: 212 KB at d = 128); so do the
 // 128-key build's bf16 tiles (KN keys a tile). An fp32 Q over bf16 K/V
 // (BF16KV) keeps three bf16 stages beside its split Q: 161 KB at d = 128.
+// At d = 256 (bf16 Q; the 64 KB Q tile) two stages and one converted
+// pair: 192 KB over bf16 K/V, 195 KB over one-byte codes.
 template <int D, bool QUANT, bool SEG, bool F32, int KN, bool BF16KV>
 struct Layout {
   using T = Tiles<D, false>;
   static_assert(KN == BN || (!QUANT && !F32), "128 keys: bf16 K/V only");
   static_assert(!BF16KV || (F32 && !QUANT), "BF16KV: an fp32 Q");
+  static_assert(D != 256 || (!F32 && KN == BN), "d = 256: bf16 Q, 64 keys");
   static constexpr bool SPLIT_KV = F32 && !QUANT && !BF16KV;  // fp32 K/V
-  static constexpr int NST = SPLIT_KV || KN == BN2 ? (D == 128 ? 2 : 3)
-                                                   : 3;  // stages
+  static constexpr int NST = D == 256 ? 2
+                             : SPLIT_KV || KN == BN2 ? (D == 128 ? 2 : 3)
+                                                     : 3;  // stages
+  // converted K/V pairs (one-byte K/V), used in turn
+  static constexpr int NCV = D == 256 ? 1 : 3;
   static constexpr int kv16 = KN * D * 2;             // a bf16 K or V tile
   static constexpr int kvh =                          // K, then V
       QUANT ? T::CODES : SPLIT_KV ? 2 * T::KV16 : kv16;
@@ -250,8 +260,11 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       if (QUANT) {
         // both warpgroups convert the tile once for the CTA's Gp heads,
         // into the pair of three tiles ago: each warpgroup waited for that
-        // tile's P·V before the barrier of the tile after it
-        uint8_t* cv = smem + L::cv_off + (i % NCV) * L::cv_stride;
+        // tile's P·V before the barrier of the tile after it. With one
+        // pair (d = 256, whose walk runs in order) both first finish the
+        // previous tile's P·V, which reads it.
+        if (L::NCV == 1 && i > 0) consumer_sync();
+        uint8_t* cv = smem + L::cv_off + (i % L::NCV) * L::cv_stride;
         const uint8_t* raw = smem + stage_off;
         codes_to_bf16<D, NCONSUMER>(cv, raw, a.k_type, tid);
         codes_to_bf16<D, NCONSUMER>(cv + L::cv_v, raw + L::kvh, a.v_type,
@@ -282,16 +295,25 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     };
 
     const int n = t_end - t_begin;
-    if constexpr (KN == BN2) {
-      // the 128-key walk, in order: S, its softmax, P·V
+    if constexpr (KN == BN2 || D == 256) {
+      // in order: S, its softmax, P·V. The 128-key walk's S, and at d =
+      // 256 O's 128 registers, leave no room for a second S and P live
+      // across the overlap below.
       for (int i = 0; i < n; ++i) {
-        const int st = i % NST;
-        mbar_wait(full + 8 * st, (i / NST) & 1);
-        const int stage_off = L::st_off + st * L::stage;
-        const uint32_t kt = base + stage_off, vt = kt + L::kvh;
-        const int* kseg =
-            SEG ? reinterpret_cast<const int*>(smem + stage_off + L::ids)
-                : nullptr;
+        uint32_t kt, vt;
+        const float* ksc = nullptr;
+        const float* vsc = nullptr;
+        const int* kseg;
+        if constexpr (KN == BN2) {
+          mbar_wait(full + 8 * (i % NST), (i / NST) & 1);
+          const int stage_off = L::st_off + (i % NST) * L::stage;
+          kt = base + stage_off;
+          vt = kt + L::kvh;
+          kseg = SEG ? reinterpret_cast<const int*>(smem + stage_off + L::ids)
+                     : nullptr;
+        } else {
+          tile(i, kt, vt, ksc, vsc, kseg);
+        }
         float s[KN / 2], alpha[2];
         uint32_t p[KN / 4];
         wgmma_fence();
@@ -301,12 +323,14 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         fence_regs(s);
         const int c0 = (t_begin + i) * KN;
         if (!SEG && interior<KN>(a, c0, q0, q0 + a.R - 1)) {
-          online_step<false, false, false, false, KN>(
-              a, r, s, nullptr, nullptr, kseg, qseg, c0, m, l, alpha, p);
+          online_step<QUANT, false, false, false, KN>(
+              a, r, s, ksc, vsc, kseg, qseg, c0, m, l, alpha, p);
         } else {
-          online_step<false, SEG, true, false, KN>(
-              a, r, s, nullptr, nullptr, kseg, qseg, c0, m, l, alpha, p);
+          online_step<QUANT, SEG, true, false, KN>(
+              a, r, s, ksc, vsc, kseg, qseg, c0, m, l, alpha, p);
         }
+        // under QUANT the stage's codes, scales and ids are read
+        if (QUANT && lane == 0) mbar_arrive(empty + 8 * (i % NST));
         scale_acc<D>(acc, alpha);
         wgmma_fence();
         pv_issue<D, KN>(acc, p, vt);
@@ -315,7 +339,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 #pragma unroll
         for (int sl = 0; sl < D / 64; ++sl) fence_regs(acc[sl]);
         // the stage's K, V and ids are read
-        if (lane == 0) mbar_arrive(empty + 8 * st);
+        if (!QUANT && lane == 0) mbar_arrive(empty + 8 * (i % NST));
       }
     } else if (n > 0) {
       uint32_t kt, vt;
@@ -405,30 +429,43 @@ cudaError_t launch_form(const Maps& mp, const Args& a, const Extra& x,
                         const F32Src& f, int B, bool f32, int kn,
                         cudaStream_t stream) {
   const bool seg = x.q_seg != nullptr;
-  if (kn == BN2) {  // bf16 Q and K/V (the entry point checked)
-    return seg ? launch<D, false, true, false, BN2>(mp, a, x, f, B, stream)
-               : launch<D, false, false, false, BN2>(mp, a, x, f, B, stream);
+  if constexpr (D == 256) {
+    // a bf16 Q over bf16 or one-byte K/V, 64-key tiles
+    if (f32 || kn != BN) return cudaErrorInvalidValue;
+    const bool quant = a.k_type != kBf16;
+    if (seg) {
+      return quant ? launch<D, true, true, false>(mp, a, x, f, B, stream)
+                   : launch<D, false, true, false>(mp, a, x, f, B, stream);
+    }
+    return quant ? launch<D, true, false, false>(mp, a, x, f, B, stream)
+                 : launch<D, false, false, false>(mp, a, x, f, B, stream);
+  } else {
+    if (kn == BN2) {  // bf16 Q and K/V (the entry point checked)
+      return seg ? launch<D, false, true, false, BN2>(mp, a, x, f, B, stream)
+                 : launch<D, false, false, false, BN2>(mp, a, x, f, B, stream);
+    }
+    if (f32 && a.k_type == kF32) {
+      return seg ? launch<D, false, true, true>(mp, a, x, f, B, stream)
+                 : launch<D, false, false, true>(mp, a, x, f, B, stream);
+    }
+    if (f32 && a.k_type == kBf16) {  // an fp32 Q over bf16 K/V
+      return seg ? launch<D, false, true, true, BN, true>(mp, a, x, f, B,
+                                                          stream)
+                 : launch<D, false, false, true, BN, true>(mp, a, x, f, B,
+                                                           stream);
+    }
+    if (f32) {  // an fp32 Q over one-byte K/V
+      return seg ? launch<D, true, true, true>(mp, a, x, f, B, stream)
+                 : launch<D, true, false, true>(mp, a, x, f, B, stream);
+    }
+    const bool quant = a.k_type != kBf16;
+    if (seg) {
+      return quant ? launch<D, true, true, false>(mp, a, x, f, B, stream)
+                   : launch<D, false, true, false>(mp, a, x, f, B, stream);
+    }
+    return quant ? launch<D, true, false, false>(mp, a, x, f, B, stream)
+                 : launch<D, false, false, false>(mp, a, x, f, B, stream);
   }
-  if (f32 && a.k_type == kF32) {
-    return seg ? launch<D, false, true, true>(mp, a, x, f, B, stream)
-               : launch<D, false, false, true>(mp, a, x, f, B, stream);
-  }
-  if (f32 && a.k_type == kBf16) {  // an fp32 Q over bf16 K/V
-    return seg ? launch<D, false, true, true, BN, true>(mp, a, x, f, B, stream)
-               : launch<D, false, false, true, BN, true>(mp, a, x, f, B,
-                                                         stream);
-  }
-  if (f32) {  // an fp32 Q over one-byte K/V
-    return seg ? launch<D, true, true, true>(mp, a, x, f, B, stream)
-               : launch<D, true, false, true>(mp, a, x, f, B, stream);
-  }
-  const bool quant = a.k_type != kBf16;
-  if (seg) {
-    return quant ? launch<D, true, true, false>(mp, a, x, f, B, stream)
-                 : launch<D, false, true, false>(mp, a, x, f, B, stream);
-  }
-  return quant ? launch<D, true, false, false>(mp, a, x, f, B, stream)
-               : launch<D, false, false, false>(mp, a, x, f, B, stream);
 }
 
 }  // namespace
@@ -441,7 +478,7 @@ cudaError_t launch_form(const Maps& mp, const Args& a, const Extra& x,
 // int8, 2 fp8 e4m3, 3 fp32 (K and V both bf16, both one-byte or, with an
 // fp32 Q, both fp32). q_f32: an fp32 Q (over fp32, bf16 or one-byte K/V).
 // out_type: O in bf16 (0), fp32 (1) or fp16 (2). kn: keys of a tile, 64,
-// or 128 (bf16 Q and K/V only).
+// or 128 (bf16 Q and K/V only). D: 64, 128, or 256 (a bf16 Q, 64 keys).
 extern "C" int cfa_flash_fwd(void* const* ptrs, int B, int H, int Hkv, int Nq,
                              int Nk, int D, const long long* strides,
                              int k_type, int v_type, int q_f32, int causal,
@@ -495,6 +532,8 @@ extern "C" int cfa_flash_fwd(void* const* ptrs, int B, int H, int Hkv, int Nq,
       return launch_form<64>(mp, a, x, f, B, f32, kn, s);
     case 128:
       return launch_form<128>(mp, a, x, f, B, f32, kn, s);
+    case 256:
+      return launch_form<256>(mp, a, x, f, B, f32, kn, s);
     default:
       return cudaErrorInvalidValue;
   }

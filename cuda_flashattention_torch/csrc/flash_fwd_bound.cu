@@ -29,7 +29,10 @@
 // Interior tiles skip the element mask. The 128-key build (KN = BN2, bf16
 // Q and K/V; `block_k` = 128 on the host selects it) walks key tiles of
 // 128 with one m64n128 wgmma a step for S: half the steps, barriers and
-// bound passes; two stages of 64 KB at d = 128.
+// bound passes; two stages of 64 KB at d = 128. At d = 256 (bf16 or
+// quantize_q's int8 Q) one-byte K/V keep two stages, and over bf16 tiles
+// one converted pair, which both warpgroups finish reading before it is
+// overwritten.
 
 #include "flash_fwd_bound_sm90.cuh"
 
@@ -38,23 +41,27 @@ using namespace cfa_bound;
 namespace {
 
 // key-tile stages in flight: a one-byte stage is half the bytes, and its
-// scales come in by plain loads, so it keeps one more ahead
-template <bool QUANT>
-constexpr int stages() { return QUANT ? 3 : 2; }
+// scales come in by plain loads, so it keeps one more ahead (not at d =
+// 256, whose 64 KB Q tile leaves room for two)
+template <int D, bool QUANT>
+constexpr int stages() { return QUANT && D != 256 ? 3 : 2; }
 
 // Shared memory of one CTA (byte offsets from a 1024-aligned base): the Q
 // tile (under F32 its hi and lo tiles); NST stages of K and V as TMA
 // writes them (bf16 slabs, or one-byte codes followed by the tile's K and
 // V scales; under F32 over fp32 K/V the producer warpgroup's hi and lo
 // tiles of each, over bf16 K/V (BF16KV) the bf16 slabs); under QUANT two
-// converted K/V pairs (exact bf16 tiles), used in turn; barriers.
+// converted K/V pairs (exact bf16 tiles, or an s8 K tile under QQ), used
+// in turn, or one at d = 256 over bf16 tiles (195 KB with it); barriers.
 template <int D, bool QUANT, bool QQ, bool F32, int KN, bool BF16KV>
 struct Layout {
   using T = Tiles<D, QQ>;
   static_assert(KN == BN || (!QUANT && !F32), "128 keys: bf16 K/V only");
   static_assert(!BF16KV || (F32 && !QUANT), "BF16KV: an fp32 Q");
+  static_assert(D != 256 || (!F32 && KN == BN), "d = 256: bf16 Q, 64 keys");
   static constexpr bool SPLIT_KV = F32 && !QUANT && !BF16KV;  // fp32 K/V
-  static constexpr int NST = stages<QUANT>();
+  static constexpr int NST = stages<D, QUANT>();
+  static constexpr int NCV = D == 256 && !QQ ? 1 : 2;  // converted pairs
   static constexpr int kvh =                          // K, then V
       QUANT ? T::CODES : SPLIT_KV ? 2 * T::KV16 : KN * D * 2;
   static constexpr int tma_bytes = 2 * kvh;
@@ -63,7 +70,7 @@ struct Layout {
   static constexpr int cv_v = align1k(T::KC);          // V in a converted pair
   static constexpr int cv_stride = align1k(cv_v + T::KV16);
   static constexpr int cv_off = st_off + NST * stage;
-  static constexpr int bar_off = cv_off + (QUANT ? 2 * cv_stride : 0);
+  static constexpr int bar_off = cv_off + (QUANT ? NCV * cv_stride : 0);
   static constexpr int bytes = bar_off + 8 * (2 * NST + 1) + 1024;
   static_assert(bytes <= 232448, "the CTA's shared memory");
 };
@@ -141,11 +148,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       }
     } else if (threadIdx.x < 2 * 128 + (QUANT ? 32 : 1)) {
       if (!F32 && lane == 0) {
-        const int q_slabs = QQ ? 1 : T::SLABS;
         mbar_expect_tx(q_bar, a.Gp * a.R * D * (QQ ? 1 : 2));
-        for (int sl = 0; sl < q_slabs; ++sl) {
-          tma_load_4d(base + sl * BM * 128, &tm_q, q_bar, sl * 64, q0, h0,
-                      b);
+        for (int sl = 0; sl < T::QSLABS; ++sl) {
+          tma_load_4d(base + sl * BM * 128, &tm_q, q_bar, sl * T::QCOL, q0,
+                      h0, b);
         }
       }
       for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
@@ -202,8 +208,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       if (QUANT) {
         // both warpgroups convert the tile once for the CTA's Gp heads,
         // into the pair used two tiles ago: each warpgroup finished that
-        // tile's P·V before the barrier of the tile in between
-        uint8_t* cv = smem + L::cv_off + (i & 1) * L::cv_stride;
+        // tile's P·V before the barrier of the tile in between. With one
+        // pair both first finish the previous tile's P·V, which reads it.
+        if (L::NCV == 1 && i > 0) consumer_sync();
+        uint8_t* cv = smem + L::cv_off + (i % L::NCV) * L::cv_stride;
         const uint8_t* raw = smem + stage_off;
         if (QQ) {
           codes_to_s8<D, NCONSUMER>(cv, raw, a.k_type, tid);
@@ -274,23 +282,33 @@ cudaError_t launch(const Maps& m, const Args& a, const F32Src& f, int B,
 template <int D>
 cudaError_t launch_form(const Maps& m, const Args& a, const F32Src& f, int B,
                         int qq, bool f32, int kn, cudaStream_t stream) {
-  if (kn == BN2) {  // bf16 Q and K/V (the entry point checked)
-    return launch<D, false, false, false, BN2>(m, a, f, B, stream);
-  }
-  if (f32) {  // an fp32 Q over fp32, bf16 or one-byte K/V
-    if (a.k_type == kF32) {
-      return launch<D, false, false, true>(m, a, f, B, stream);
+  if constexpr (D == 256) {
+    // a bf16 (or quantize_q's int8) Q over bf16 or one-byte K/V, 64 keys
+    if (f32 || kn != BN) return cudaErrorInvalidValue;
+    if (a.k_type == kBf16) {
+      return launch<D, false, false, false>(m, a, f, B, stream);
+    }
+    return qq ? launch<D, true, true, false>(m, a, f, B, stream)
+              : launch<D, true, false, false>(m, a, f, B, stream);
+  } else {
+    if (kn == BN2) {  // bf16 Q and K/V (the entry point checked)
+      return launch<D, false, false, false, BN2>(m, a, f, B, stream);
+    }
+    if (f32) {  // an fp32 Q over fp32, bf16 or one-byte K/V
+      if (a.k_type == kF32) {
+        return launch<D, false, false, true>(m, a, f, B, stream);
+      }
+      if (a.k_type == kBf16) {
+        return launch<D, false, false, true, BN, true>(m, a, f, B, stream);
+      }
+      return launch<D, true, false, true>(m, a, f, B, stream);
     }
     if (a.k_type == kBf16) {
-      return launch<D, false, false, true, BN, true>(m, a, f, B, stream);
+      return launch<D, false, false, false>(m, a, f, B, stream);
     }
-    return launch<D, true, false, true>(m, a, f, B, stream);
+    return qq ? launch<D, true, true, false>(m, a, f, B, stream)
+              : launch<D, true, false, false>(m, a, f, B, stream);
   }
-  if (a.k_type == kBf16) {
-    return launch<D, false, false, false>(m, a, f, B, stream);
-  }
-  return qq ? launch<D, true, true, false>(m, a, f, B, stream)
-            : launch<D, true, false, false>(m, a, f, B, stream);
 }
 
 }  // namespace
@@ -303,7 +321,8 @@ cudaError_t launch_form(const Maps& m, const Args& a, const F32Src& f, int B,
 // and V both bf16, both one-byte or, with an fp32 Q, both fp32). q_f32:
 // an fp32 Q (over fp32, bf16 or one-byte K/V; not with qq, whose Q is
 // int8). out_type: O in bf16 (0), fp32 (1) or fp16 (2). kn: keys of a
-// tile, 64, or 128 (bf16 Q and K/V only).
+// tile, 64, or 128 (bf16 Q and K/V only). D: 64, 128, or 256 (a bf16 or
+// int8 Q, 64 keys).
 extern "C" int cfa_flash_fwd_bound(void* const* ptrs, int B, int H, int Hkv,
                                    int Nq, int Nk, int D,
                                    const long long* strides, int k_type,
@@ -356,6 +375,8 @@ extern "C" int cfa_flash_fwd_bound(void* const* ptrs, int B, int H, int Hkv,
       return launch_form<64>(m, a, f, B, qq, f32, kn, s);
     case 128:
       return launch_form<128>(m, a, f, B, qq, f32, kn, s);
+    case 256:
+      return launch_form<256>(m, a, f, B, qq, f32, kn, s);
     default:
       return cudaErrorInvalidValue;
   }

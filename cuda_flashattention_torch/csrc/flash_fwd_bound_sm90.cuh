@@ -45,6 +45,12 @@
 //     tiles come by TMA as the bf16 slabs of the bf16 builds and are
 //     exact bf16 operands as they stand (their lo parts are 0), so each
 //     product is two wgmmas, lo·k + hi·k, and P is split as under F32.
+//   - head dim 256 (a bf16 Q over bf16 or one-byte K/V, quantize_q too;
+//     the fp32 builds' split tiles do not fit beside it): a tile is four
+//     64-column slabs (a 128-row Q tile 64 KB, a K + V stage 64 KB) and O
+//     takes 128 registers a consumer thread (acc[4][32]), so each walk runs
+//     a key tile's S, softmax and P·V in order, and one-byte K/V keep two
+//     code stages and one converted pair (K5 a span of one tile).
 //
 // Numerics (those of the plain version, ops/flash_fwd.py::_forward_plain):
 //   s = (q̂ · k_q) · k_scale[col]     fp32; under quantize_q the int32 dot
@@ -319,6 +325,9 @@ struct Args {
 };
 
 // Bytes of the tiles in shared memory; every tile starts on 1024 bytes.
+// Under quantize_q (QQ) the int8 Q and K tiles hold a row in one slab of D
+// bytes up to D = 128 (64 B or 128 B swizzle), and at D = 256 in two slabs
+// of 128 bytes, as a bf16 tile holds its 64-column slabs.
 template <int D, bool QQ>
 struct Tiles {
   static constexpr int SLABS = D / 64;            // bf16 slabs of 64 columns
@@ -326,9 +335,11 @@ struct Tiles {
   static constexpr int KV16 = BN * D * 2;          // a bf16 K or V tile
   static constexpr int CODES = BN * D;             // one-byte codes
   static constexpr int KC = QQ ? CODES : KV16;     // a K tile wgmma reads
-  static constexpr int QROW = QQ ? D : 128;        // Q row bytes per slab
+  static constexpr int QROW = QQ && D < 128 ? D : 128;  // row bytes per slab
+  static constexpr int QSLABS = QQ ? D / QROW : SLABS;  // slabs of a Q row
+  static constexpr int QCOL = QQ ? QROW : 64;      // elements of a Q slab row
   static constexpr int QSWZ = QROW == 128 ? 1 : 2;
-  static_assert(D == 64 || D == 128, "head dims 64 and 128");
+  static_assert(D == 64 || D == 128 || D == 256, "head dims 64, 128, 256");
 };
 
 __host__ __device__ constexpr int align1k(int x) { return (x + 1023) & ~1023; }
@@ -404,9 +415,11 @@ inline bool make_maps(Maps* m, const void* q, const void* k, const void* v,
                       const long long* st, int k_type, int v_type, int qq,
                       int Gp, int R, int kn = BN) {
   const int qe = qq ? 1 : 2;
+  // an int8 Q row is one slab of up to 128 bytes (two at D = 256, Tiles)
+  const int q_row = D < 128 ? D : 128;
   bool ok = q == nullptr ||
             encode4(&m->q, q, qq, D, Nq, H, B, st[2] * qe, st[1] * qe,
-                    st[0] * qe, qq ? D : 64, R, Gp, qq ? D : 128);
+                    st[0] * qe, qq ? q_row : 64, R, Gp, qq ? q_row : 128);
   const void* kv[2] = {k, v};
   const int types[2] = {k_type, v_type};
   CUtensorMap* maps[2] = {&m->k, &m->v};
@@ -518,13 +531,15 @@ __device__ __forceinline__ void codes_to_bf16(uint8_t* dst, const uint8_t* raw,
   }
 }
 
-// The int8 K tile of quantize_q (rows of D bytes, swizzled as TMA would):
-// int8 codes are copied, e4m3 codes re-gridded onto int8,
-// clip(round_half_even(k · 127/448), ±127).
+// The int8 K tile of quantize_q (rows of D bytes in Tiles<D, true>'s slabs,
+// swizzled as TMA would): int8 codes are copied, e4m3 codes re-gridded onto
+// int8, clip(round_half_even(k · 127/448), ±127).
 template <int D, int NT>
 __device__ __forceinline__ void codes_to_s8(uint8_t* dst, const uint8_t* raw,
                                             int type, int tid) {
   constexpr int CPR = D / 16;
+  constexpr int QROW = Tiles<D, true>::QROW;
+  constexpr int CPS = QROW / 16;  // 16-byte chunks of a row in one slab
   for (int w = tid; w < BN * CPR; w += NT) {
     const int row = w / CPR, j = w % CPR;
     uint4 codes = *reinterpret_cast<const uint4*>(raw + row * D + j * 16);
@@ -544,7 +559,8 @@ __device__ __forceinline__ void codes_to_s8(uint8_t* dst, const uint8_t* raw,
       }
       codes = make_uint4(q[0], q[1], q[2], q[3]);
     }
-    *reinterpret_cast<uint4*>(dst + swz(row, j, D)) = codes;
+    *reinterpret_cast<uint4*>(dst + (j / CPS) * (BN * QROW) +
+                              swz(row, j % CPS, QROW)) = codes;
   }
 }
 
@@ -854,9 +870,14 @@ __device__ __forceinline__ void qk(float (&s)[32], uint32_t q, uint32_t k,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 32; ++kk) {
+      // 32 bytes of depth a step: slab sl of the rows, offset `off` in it
+      const int sl = kk * 32 / T::QROW, off = kk * 32 % T::QROW;
       wgmma_ss_s8(si,
-                  make_desc(q + wg * 64 * D + kk * 32, 16, 8 * D, T::QSWZ),
-                  make_desc(k + kk * 32, 16, 8 * D, T::QSWZ), kk);
+                  make_desc(q + sl * BM * T::QROW + wg * 64 * T::QROW + off,
+                            16, 8 * T::QROW, T::QSWZ),
+                  make_desc(k + sl * BN * T::QROW + off, 16, 8 * T::QROW,
+                            T::QSWZ),
+                  kk);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -936,7 +957,13 @@ __device__ __forceinline__ void bound_step(const Args& a, const Rows& r,
       const int col = 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
       const int hr = (j >> 1) & 1;
       float x = s[j];
-      if (QUANT) x *= QQ ? ksc[col] * r.f[hr] : ksc[col];
+      // the scaled score rounded before the bound is taken off, as the
+      // plain version rounds it: contracted into one fma with the
+      // subtraction below, it would round (or not) by each kernel's code
+      // layout, and K1b and K5 flip different bf16 roundings of P
+      if (QUANT) {
+        x = __fmul_rn(x, QQ ? __fmul_rn(ksc[col], r.f[hr]) : ksc[col]);
+      }
       bool ok = true;
       if (MASKED) {
         const int cg = c0 + col;
@@ -981,7 +1008,7 @@ __device__ __forceinline__ void online_step(
     const int col = 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
     const int hr = (j >> 1) & 1;
     float x = s[j];
-    if (QUANT) x *= ksc[col];
+    if (QUANT) x = __fmul_rn(x, ksc[col]);  // rounded, as in bound_step
     if (MASKED) {
       const int cg = c0 + col;
       bool ok = cg < a.Nk;

@@ -5,7 +5,8 @@
 // tiles, over fp32 K and V split the same way (a span of one key tile at
 // d = 128, four at d = 64), or over bf16 K/V, exact tiles as TMA leaves
 // them, or one-byte K/V converted to exact bf16 tiles (three at d = 128,
-// eight at d = 64).
+// eight at d = 64). At d = 256 (a bf16 Q, or quantize_q's int8 Q) a span
+// is one key tile: its 64 KB K + V pair beside two 64 KB Q tiles.
 //
 // Replaces: cuda_flashattention_tpu/ops/flash_fwd.py::_fwd_kernel_kmajor.
 // What that kernel computes is the bound forward's result (K1b) on a
@@ -49,9 +50,12 @@ constexpr int NQS = 2;  // Q tiles in flight
 // fp32 K/V tiles are held split, at twice the bytes, and an fp32 Q's ring
 // is split too (ops/flash_fwd.py::_KMAJOR_MAX_SPAN*); `exact`: K/V held as
 // exact bf16 tiles (bf16 or one-byte K/V)
+// (d = 256, bf16 or int8 Q only: one tile pair of 64 KB beside two 64 KB
+// Q tiles)
 __host__ __device__ constexpr int max_span(int D, bool f32, bool exact) {
-  return f32 ? (exact ? (D == 128 ? 3 : 8) : (D == 128 ? 1 : 4))
-             : (D == 128 ? 4 : 8);
+  return D == 256 ? 1
+         : f32    ? (exact ? (D == 128 ? 3 : 8) : (D == 128 ? 1 : 4))
+                  : (D == 128 ? 4 : 8);
 }
 
 // Shared memory of one CTA (byte offsets from a 1024-aligned base): the
@@ -63,6 +67,7 @@ template <int D, bool QUANT, bool QQ, bool F32, bool BF16KV>
 struct Layout {
   using T = Tiles<D, QQ>;
   static_assert(!BF16KV || (F32 && !QUANT), "BF16KV: an fp32 Q");
+  static_assert(D != 256 || !F32, "d = 256: a bf16 or int8 Q");
   static constexpr int SPAN = max_span(D, F32, QUANT || BF16KV);
   static constexpr bool SPLIT_KV = F32 && !QUANT && !BF16KV;
   // V after K in a tile pair; split K/V are each hi then lo
@@ -218,7 +223,6 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         }
       }
       if (QUANT) mbar_wait(free_bar, 0);
-      const int q_slabs = QQ ? 1 : T::SLABS;
       for (int item = 0; item < n_items; ++item) {
         const int st = item % NQS;
         const int h0 = hk * a.G + (item / per_pack) * a.Gp;
@@ -226,9 +230,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         mbar_wait(q_empty + 8 * st, ((item / NQS) & 1) ^ 1);
         mbar_expect_tx(q_full + 8 * st, a.Gp * a.R * D * (QQ ? 1 : 2));
         const uint32_t dst = base + L::q_off + st * L::q_stride;
-        for (int sl = 0; sl < q_slabs; ++sl) {
-          tma_load_4d(dst + sl * BM * 128, &tm_q, q_full + 8 * st, sl * 64, q0,
-                      h0, b);
+        for (int sl = 0; sl < T::QSLABS; ++sl) {
+          tma_load_4d(dst + sl * BM * 128, &tm_q, q_full + 8 * st,
+                      sl * T::QCOL, q0, h0, b);
         }
       }
     }
@@ -343,20 +347,29 @@ cudaError_t launch(const Maps& m, const Args& a, const F32Src& f, int B,
 template <int D>
 cudaError_t launch_form(const Maps& m, const Args& a, const F32Src& f, int B,
                         int qq, bool f32, cudaStream_t stream) {
-  if (f32) {  // an fp32 Q over fp32, bf16 or one-byte K/V
-    if (a.k_type == kF32) {
-      return launch<D, false, false, true>(m, a, f, B, stream);
+  if constexpr (D == 256) {
+    if (f32) return cudaErrorInvalidValue;  // a bf16 or int8 Q
+    if (a.k_type == kBf16) {
+      return launch<D, false, false, false>(m, a, f, B, stream);
+    }
+    return qq ? launch<D, true, true, false>(m, a, f, B, stream)
+              : launch<D, true, false, false>(m, a, f, B, stream);
+  } else {
+    if (f32) {  // an fp32 Q over fp32, bf16 or one-byte K/V
+      if (a.k_type == kF32) {
+        return launch<D, false, false, true>(m, a, f, B, stream);
+      }
+      if (a.k_type == kBf16) {
+        return launch<D, false, false, true, true>(m, a, f, B, stream);
+      }
+      return launch<D, true, false, true>(m, a, f, B, stream);
     }
     if (a.k_type == kBf16) {
-      return launch<D, false, false, true, true>(m, a, f, B, stream);
+      return launch<D, false, false, false>(m, a, f, B, stream);
     }
-    return launch<D, true, false, true>(m, a, f, B, stream);
+    return qq ? launch<D, true, true, false>(m, a, f, B, stream)
+              : launch<D, true, false, false>(m, a, f, B, stream);
   }
-  if (a.k_type == kBf16) {
-    return launch<D, false, false, false>(m, a, f, B, stream);
-  }
-  return qq ? launch<D, true, true, false>(m, a, f, B, stream)
-            : launch<D, true, false, false>(m, a, f, B, stream);
 }
 
 }  // namespace
@@ -365,6 +378,7 @@ cudaError_t launch_form(const Maps& m, const Args& a, const F32Src& f, int B,
 // zeroed), o_acc ([B,H,Nq,D] fp32, zeroed), n_loose, o, lse; the rest as
 // cfa_flash_fwd_bound's, and span: key tiles of 64 per CTA, 1 to
 // max_span(D, q_f32, K/V not fp32) (ops/flash_fwd.py::_KMAJOR_MAX_SPAN*).
+// D: 64, 128, or 256 (a bf16 or int8 Q, span 1).
 extern "C" int cfa_flash_fwd_kmajor(void* const* ptrs, int B, int H, int Hkv,
                                     int Nq, int Nk, int D,
                                     const long long* strides, int k_type,
@@ -379,7 +393,8 @@ extern "C" int cfa_flash_fwd_kmajor(void* const* ptrs, int B, int H, int Hkv,
   if (!f32 && k_type == kF32) return cudaErrorInvalidValue;
   if (out_type < kOutBf16 || out_type > kOutF16) return cudaErrorInvalidValue;
   if (qq && (k_type == kBf16 || f32)) return cudaErrorInvalidValue;
-  if (D != 64 && D != 128) return cudaErrorInvalidValue;
+  if (D != 64 && D != 128 && D != 256) return cudaErrorInvalidValue;
+  if (D == 256 && f32) return cudaErrorInvalidValue;
   const bool quant = k_type != kBf16 && k_type != kF32;
   if (span < 1 || span > max_span(D, f32, k_type != kF32)) {
     return cudaErrorInvalidValue;
@@ -421,6 +436,8 @@ extern "C" int cfa_flash_fwd_kmajor(void* const* ptrs, int B, int H, int Hkv,
       return launch_form<64>(m, a, f, B, qq, f32, s);
     case 128:
       return launch_form<128>(m, a, f, B, qq, f32, s);
+    case 256:
+      return launch_form<256>(m, a, f, B, qq, f32, s);
     default:
       return cudaErrorInvalidValue;
   }

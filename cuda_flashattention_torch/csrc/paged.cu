@@ -38,7 +38,7 @@ template <int D, typename QT, typename KT, typename VT, bool QQ,
           int R>
 __global__ void __launch_bounds__(NTHREADS)
 paged_kernel(Args a,
-             const KT* __restrict__ k_pages,  // [n_pages, Hkv, page, D]
+             const KT* __restrict__ k_pages,  // [n_pages, Hkv, page, d]
              const VT* __restrict__ v_pages,
              const int* __restrict__ table,   // [B, max_pages]
              int page, int max_pages) {
@@ -74,7 +74,7 @@ paged_kernel(Args a,
           ks = a.k_scale[t];
           vs = a.v_scale[t];
         }
-        body.attend(k_pages + t * D, v_pages + t * D, ks, vs, a.scale);
+        body.attend(k_pages + t * a.d, v_pages + t * a.d, ks, vs, a.scale);
       }
     }
   }
@@ -99,7 +99,8 @@ struct Launch {
 
 }  // namespace
 
-// Pools [n_pages, Hkv, page, D]; scale pools [n_pages, Hkv, page] fp32 or
+// Pools [n_pages, Hkv, page, D] (D: any row width from 1 to 256, read as
+// the pools lie); scale pools [n_pages, Hkv, page] fp32 or
 // null; page_table [B, max_pages] int32. The other arguments are those of
 // cfa_decode, with page·max_pages in max_n's place for the split's grid
 // and scratch.
@@ -129,6 +130,10 @@ extern "C" int cfa_paged_decode(const void* q, const void* k_pages,
   a.Hkv = Hkv;
   a.scale = scale;
   a.window = window;
+  a.d = D;
+  a.vec = vector_loads(D, q, qq ? 1 : q_f32 ? 4 : 2, k_pages, k_type, v_pages,
+                       v_type);
+  if (build_dim(D) == 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = prepare_split(&a, B, (long long)page * max_pages, split,
                                   part, tickets, st);

@@ -25,10 +25,24 @@ import torch
 # inf - inf = nan in the running-max updates. Empty rows report it as LSE.
 NEG_INF = -1e30
 
-# head dims the CUDA kernels are instantiated for (csrc/*.cu); the decode
-# kernels also for 16 and 32 (csrc/decode_body.cuh)
+# Head dims the CUDA kernels are instantiated for, by family: the forward
+# (K1, K1b, K5: csrc/flash_fwd*.cu; 256 for a bf16 Q only); the backward
+# (K2, K3, K4 and its prologue), FA1 (K8) and the device ring (K9); decode
+# (K6, K7: csrc/decode_body.cuh), which reads any d up to its largest
+# build in place on the next build up. The forward and backward families
+# run a narrower d on zero-padded heads (`pad_heads`).
+FWD_HEAD_DIMS = (64, 128, 256)
 KERNEL_HEAD_DIMS = (64, 128)
-DECODE_HEAD_DIMS = (16, 32, 64, 128)
+DECODE_HEAD_DIMS = (16, 32, 64, 128, 256)
+# the head dims of the forward's fp32-Q builds (F32, BF16KV and over
+# one-byte K/V)
+FWD_F32_HEAD_DIMS = (64, 128)
+
+
+def run_dim(d: int, dims: Tuple[int, ...] = FWD_HEAD_DIMS) -> Optional[int]:
+    """The build of `dims` a head dim d runs on: the smallest not below d,
+    or None past the largest (and for d < 1)."""
+    return next((x for x in dims if d <= x), None) if d >= 1 else None
 
 
 # The forward kernels' query tile (K1, K1b, K5: two warpgroups of 64 rows
@@ -40,7 +54,8 @@ DECODE_HEAD_DIMS = (16, 32, 64, 128)
 # exact bf16 K/V tiles beside a split Q ring: csrc/flash_fwd_kmajor.cu).
 FWD_BLOCK_Q = 128
 KMAJOR_TILE = 64
-KMAJOR_MAX_SPAN = {64: 8, 128: 4}
+# (at d = 256 one 64 KB tile pair beside a ring of two 64 KB Q tiles)
+KMAJOR_MAX_SPAN = {64: 8, 128: 4, 256: 1}
 KMAJOR_MAX_SPAN_F32 = {64: 4, 128: 1}
 KMAJOR_MAX_SPAN_F32Q = {64: 8, 128: 3}
 # K2 and K4's pair (csrc/flash_bwd_kv.cu: 128-key CTAs stream 64-row Q
@@ -64,20 +79,24 @@ def _kmajor_tiles(spans: Dict[int, int], d: int) -> Tuple[int, ...]:
 
 # (kernel, operand type, head dim the kernel runs at) -> (block_q choices,
 # block_k choices): the tiles each kernel is built for. The wrappers
-# validate a request against it; utils/autotune.py enumerates it.
+# validate a request against it; utils/autotune.py enumerates it. At d =
+# 256 the forward has its bf16-Q builds only ("bf16", "codes"), at 64 keys.
 BUILT_TILES: Dict[Tuple[str, str, int], Tuple[Tuple[int, ...],
                                               Tuple[int, ...]]] = {
-    **{(kn, ty, d): ((FWD_BLOCK_Q,), (64, 128) if ty == "bf16" else (64,))
-       for kn in ("K1", "K1b") for ty in TILE_TYPES for d in (64, 128)},
+    **{(kn, ty, d): ((FWD_BLOCK_Q,),
+                     (64, 128) if ty == "bf16" and d < 256 else (64,))
+       for kn in ("K1", "K1b") for ty in TILE_TYPES for d in FWD_HEAD_DIMS
+       if d in FWD_F32_HEAD_DIMS or not ty.startswith("fp32")},
     **{("K5", ty, d): ((FWD_BLOCK_Q,), _kmajor_tiles(spans, d))
        for ty, spans in (("bf16", KMAJOR_MAX_SPAN),
                          ("codes", KMAJOR_MAX_SPAN),
                          ("fp32", KMAJOR_MAX_SPAN_F32),
                          ("fp32/codes", KMAJOR_MAX_SPAN_F32Q),
                          ("fp32/bf16", KMAJOR_MAX_SPAN_F32Q))
-       for d in (64, 128)},
+       for d in spans},
     **{(kn, ty, d): ((BWD_BLOCK_Q,), (BWD_BLOCK_K,))
-       for kn in ("K2", "K4") for ty in ("bf16", "fp32") for d in (64, 128)},
+       for kn in ("K2", "K4") for ty in ("bf16", "fp32")
+       for d in KERNEL_HEAD_DIMS},
 }
 
 
@@ -90,11 +109,20 @@ def tile_type(q_dtype: torch.dtype, k_dtype: torch.dtype) -> str:
     return "codes" if codes else "bf16"
 
 
+def tile_dim(kernel: str, d: int) -> Optional[int]:
+    """The head dim `kernel` runs a call of head dim d at (narrower heads
+    run padded, `pad_heads`), or None past its family's builds."""
+    return run_dim(d, FWD_HEAD_DIMS if kernel in ("K1", "K1b", "K5")
+                   else KERNEL_HEAD_DIMS)
+
+
 def built_tiles(kernel: str, ty: str,
-                d: int) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+                d: int) -> Optional[Tuple[Tuple[int, ...], Tuple[int, ...]]]:
     """(block_q choices, block_k choices) of `kernel` over operands of type
-    `ty` at head dim d (narrow heads run padded to 64, `pad_heads`)."""
-    return BUILT_TILES[kernel, ty, 64 if d <= 64 else 128]
+    `ty` at head dim d (narrow heads run padded, `pad_heads`), or None
+    where no build takes that type at d (an fp32 Q or the backward at d =
+    256: the wrappers refuse such calls on the card)."""
+    return BUILT_TILES.get((kernel, ty, tile_dim(kernel, d)))
 
 
 def nearest_built(requested, built: Tuple[int, ...]) -> int:
@@ -118,7 +146,9 @@ def check_tiles(kernel: str, ty: str, d: int, block_sizes, what: str,
     tile: a tile sets their speed, not their result), and each mapping is
     logged once. TypeError when `block_sizes` has not the four fields of
     `BlockSizes`, or a field is not a real number, which the JAX functions
-    refuse too (the JAX class has the fields)."""
+    refuse too (the JAX class has the fields). None, with no mapping,
+    where no build of `kernel` takes `ty` at d (`built_tiles`): the plain
+    version ignores the tile and the card refuses the call."""
     names = ("block_q_bwd", "block_k_bwd") if bwd else ("block_q", "block_k")
     try:
         requested = tuple(getattr(block_sizes, n) for n in names)
@@ -129,10 +159,13 @@ def check_tiles(kernel: str, ty: str, d: int, block_sizes, what: str,
     for n, x in zip(names, requested):
         if isinstance(x, bool) or not isinstance(x, numbers.Real):
             raise TypeError(f"{what}: {n} must be a number, got {x!r}")
-    qs, ks = built_tiles(kernel, ty, d)
+    built = built_tiles(kernel, ty, d)
+    if built is None:
+        return None
+    qs, ks = built
     used = (nearest_built(requested[0], qs), nearest_built(requested[1], ks))
     if used != requested:
-        key = (kernel, ty, 64 if d <= 64 else 128, requested, used)
+        key = (kernel, ty, tile_dim(kernel, d), requested, used)
         if key not in _LOGGED_MAPPINGS:
             _LOGGED_MAPPINGS.add(key)
             from cuda_flashattention_torch.utils.log import get_logger
@@ -186,11 +219,11 @@ def kmajor_span(b: int, h_kv: int, nk: int, d: int, sms: int,
     the longest span whatever the grid: its producer reads and splits
     every Q tile once per span, which a short span repeats
     (`utils/kmajor_spans.py` times each span)."""
-    d = 64 if d <= 64 else 128
+    d = run_dim(d)
     tiles = cdiv(nk, KMAJOR_TILE)
     if f32 and exact_kv:
-        return KMAJOR_MAX_SPAN_F32Q[d]
-    longest = (KMAJOR_MAX_SPAN_F32 if f32 else KMAJOR_MAX_SPAN)[d]
+        return KMAJOR_MAX_SPAN_F32Q.get(d, 1)
+    longest = (KMAJOR_MAX_SPAN_F32 if f32 else KMAJOR_MAX_SPAN).get(d, 1)
     for span in range(longest, 1, -1):
         if cdiv(tiles, span) * h_kv * b >= 2 * sms:
             return span
@@ -241,26 +274,28 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def pad_heads(what: str, *xs: Optional[torch.Tensor]):
-    """The forward and backward kernels' head dim for these tensors (their
-    last dim d, which they share) and the tensors as the kernels take
-    them: d itself when a build has it (64, 128), with no copy; else, for
-    d = 16, 32 or any other multiple of 8 below 128, each tensor copied
-    with zero columns up to the next of 64 and 128. Zero columns of Q and
-    K add nothing to a score, nor to a row norm or an absmax; zero
-    columns of V and dO give zero columns of O, dQ, dK and dV, which the
-    caller slices away. The softmax scale must be resolved from d before
-    (`resolve_scale`). Returns (d_run, [tensors]), None kept as None;
-    ValueError for any other d."""
+def pad_heads(what: str, *xs: Optional[torch.Tensor],
+              dims: Tuple[int, ...] = FWD_HEAD_DIMS):
+    """A kernel family's head dim for these tensors (their last dim d,
+    which they share) and the tensors as its kernels take them: d itself
+    when a build has it (`dims`: the forward's `FWD_HEAD_DIMS`, the
+    backward's, K8's and K9's `KERNEL_HEAD_DIMS`), with no copy; else, for
+    any d from 1 to the largest build, each tensor copied with zero
+    columns up to the next build. Zero columns of Q and K add nothing to
+    a score, nor to a row norm or an absmax; zero columns of V and dO give
+    zero columns of O, dQ, dK and dV, which the caller slices away. The
+    softmax scale must be resolved from d before (`resolve_scale`).
+    Returns (d_run, [tensors]), None kept as None; ValueError past the
+    largest build."""
     d = next(x for x in xs if x is not None).shape[-1]
-    if d in KERNEL_HEAD_DIMS:
+    if d in dims:
         return d, list(xs)
-    if not (0 < d < 128 and d % 8 == 0):
+    d_run = run_dim(d, dims)
+    if d_run is None:
         raise ValueError(
-            f"the CUDA {what} takes d in {KERNEL_HEAD_DIMS}, or a multiple "
-            f"of 8 below 128 (run at the next of them with zero columns), "
-            f"got {d}")
-    d_run = 64 if d <= 64 else 128
+            f"the CUDA {what} takes d from 1 to {max(dims)} (builds at "
+            f"{dims}; a narrower d runs at the next of them with zero "
+            f"columns), got {d}")
     padded = []
     for x in xs:
         if x is not None:

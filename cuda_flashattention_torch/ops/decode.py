@@ -10,7 +10,9 @@ version of the same numerics. `split_size`, `decode_splits` and
 `warp_keys` state the kernels' partition of the context, which the paged
 kernel shares.
 
-Q may be bf16 or fp32 and the head dim 16, 32, 64 or 128. The cache may
+Q may be bf16 or fp32 and the head dim any d from 1 to 256: the kernel
+reads the cache in place at its own row width on the build for the next
+of 16, 32, 64, 128 and 256 (lanes mask the columns past d). The cache may
 be bf16, fp32 (under an fp32 Q), int8, fp8 e4m3 or mixed (int8 K, fp8
 V), the quantized ones with per-token scales `k_scale`/`v_scale`
 [B,Hkv,max_N]; `window` and per-sequence `windows` restrict attention to
@@ -36,6 +38,7 @@ from cuda_flashattention_torch.ops.common import (
     cdiv,
     quantize_q_per_head,
     resolve_scale,
+    run_dim,
 )
 
 # storage type codes of the C interface (csrc/decode_body.cuh)
@@ -68,7 +71,9 @@ def split_size(b: int, h_kv: int, row_tiles: int, d: int) -> int:
     """C, the keys of one split of a decode walk, from the call's shape
     alone (never from the cache's capacity or the lengths), so that the
     contiguous (K6) and the paged (K7) kernels split alike: unsplit once
-    b·h_kv·row_tiles CTAs fill the card, else SPLIT_KEYS·128/d keys."""
+    b·h_kv·row_tiles CTAs fill the card, else SPLIT_KEYS·128/d keys (a
+    split holds the bytes of 128 keys at d = 128 at every d: 64 keys at
+    d = 256)."""
     if b * h_kv * row_tiles >= SPLIT_FILL_CTAS:
         return NO_SPLIT
     return SPLIT_KEYS * 128 // d
@@ -252,9 +257,11 @@ def kernel_inputs(q, k, v, k_scale, v_scale, windows, quantize_q, scale,
     share. Returns (q or its int8 codes, q_sigma or None, k_scale,
     v_scale, windows int32 or None, k code, v code, qq, q_f32)."""
     d = q.shape[-1]
-    if d not in DECODE_HEAD_DIMS:
-        raise ValueError(f"the CUDA {what} takes d in {DECODE_HEAD_DIMS}, "
-                         f"got {d}")
+    if run_dim(d, DECODE_HEAD_DIMS) is None:
+        raise ValueError(
+            f"the CUDA {what} takes d from 1 to {max(DECODE_HEAD_DIMS)} "
+            f"(read in place on the build for the next of "
+            f"{DECODE_HEAD_DIMS}), got {d}")
     if q.dtype not in _KERNEL_PAIRS:
         raise NotImplementedError(
             f"the CUDA {what} takes a bf16 or fp32 q, got {q.dtype}")
@@ -363,7 +370,8 @@ def decode_attention(
     fp8-K or unquantized cache ignores the flag.
 
     Returns (o [B,H,d] in q's dtype, lse [B,H] fp32). On the card the
-    kernel takes a bf16 or fp32 q, d in {16, 32, 64, 128}, and a bf16
+    kernel takes a bf16 or fp32 q, any d from 1 to 256 (the cache read as
+    it lies, never copied), and a bf16
     cache, a cache in q's dtype or an int8, fp8 or int8-K/fp8-V one; with
     an fp32 q, P weights V unrounded (bf16 under `quantize_q`), as in the
     JAX body, whose compute dtype is q's. `block_k`: the split size

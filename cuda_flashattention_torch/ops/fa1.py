@@ -28,6 +28,7 @@ import torch
 
 from cuda_flashattention_torch import _build
 from cuda_flashattention_torch.ops.common import (
+    KERNEL_HEAD_DIMS,
     NEG_INF,
     cdiv,
     kernel_operand,
@@ -129,7 +130,7 @@ def _fa1_cuda(q, k, v, scale, causal, block_q, block_k):
     n_sub = _kernel_sub_tiles(nq, nk, block_q, block_k)
     # the scale from the caller's d, before narrow heads are padded
     qs = _prescale_q(q, resolve_scale(scale, d))
-    d_run, (qs, k, v) = pad_heads("FA1", qs, k, v)
+    d_run, (qs, k, v) = pad_heads("FA1", qs, k, v, dims=KERNEL_HEAD_DIMS)
     qs, k, v = kernel_operand(qs), kernel_operand(k), kernel_operand(v)
     o = torch.empty((b, h, nq, d_run), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 9)(*qs.stride()[:3], *k.stride()[:3],
@@ -162,9 +163,9 @@ def fa1_attention(
     first clamped to max(8, min(block, round_up(N, 8))). Rows are
     independent, so `block_q` changes no number. On the card a CTA owns 128
     rows and the kernel takes bf16 or fp32 inputs (its fp32 build: each
-    tile split into bf16 hi and lo parts), d in {64, 128} or d = 16, 32 or
-    another multiple of 8 below 128 on zero-padded heads
-    (`ops.common.pad_heads`, the scale from the caller's d), `block_q` a
+    tile split into bf16 hi and lo parts), d in {64, 128} or any d below
+    128 on zero-padded heads (`ops.common.pad_heads`, the scale from the
+    caller's d; past 128 no build), `block_q` a
     multiple of 64 (or one block over all rows) and `block_k` in {64, 128,
     192, 256} (or one block over all keys when Nk ≤ 256); any other value
     raises ValueError. The count of its launches is

@@ -39,6 +39,7 @@ from cuda_flashattention_torch import _build
 from cuda_flashattention_torch.ops.common import (
     BWD_BLOCK_K,
     BWD_BLOCK_Q,
+    KERNEL_HEAD_DIMS,
     NEG_INF,
     cdiv,
     check_qkv,
@@ -287,7 +288,8 @@ def _dkdv_cuda(q, k, v, o, lse, do, scale=None, causal=False, window=0,
     the split path's first kernel, timed on its own. Narrow heads run
     padded, as in `_bwd_cuda`."""
     d = q.shape[-1]
-    _, (q, k, v, o, do) = pad_heads("backward", q, k, v, o, do)
+    _, (q, k, v, o, do) = pad_heads("backward", q, k, v, o, do,
+                         dims=KERNEL_HEAD_DIMS)
     dk, dv = _launch_dkdv(_bwd_prepare(
         q, k, v, o, lse, do, resolve_scale(scale, d), causal, window,
         kv_offset, q_segment_ids, kv_segment_ids))
@@ -297,7 +299,8 @@ def _dkdv_cuda(q, k, v, o, lse, do, scale=None, causal=False, window=0,
 def _bwd_cuda(q, k, v, o, lse, do, scale, causal, window, kv_offset, q_seg,
               kv_seg, fused):
     d = q.shape[-1]
-    d_run, padded = pad_heads("backward", q, k, v, o, do)
+    d_run, padded = pad_heads("backward", q, k, v, o, do,
+                         dims=KERNEL_HEAD_DIMS)
     if d_run != d:
         # the d = 64 or 128 build on zero-padded heads, at d's scale
         q, k, v, o, do = padded
@@ -363,8 +366,8 @@ def flash_attention_backward(
     nor the environment knobs are ported. `block_sizes`: its
     (`block_q_bwd`, `block_k_bwd`) runs at the built (64, 128), whatever
     it names; the forward's fields are not read here. On the card the kernels take
-    d in {64, 128} (d = 16, 32 or another multiple of 8 below 128 on
-    zero-padded heads, as the forward) and bf16 q/k/v/dO, or fp32 ones
+    d in {64, 128} (any d below 128 on zero-padded heads, as the forward;
+    d past 128 raises ValueError: no build) and bf16 q/k/v/dO, or fp32 ones
     through the kernels' fp32 builds (each tile split into bf16 hi and lo
     parts; the gradients come back fp32), fused or split.
     The counts of their launches are

@@ -61,6 +61,7 @@ import torch
 
 from cuda_flashattention_torch import _build
 from cuda_flashattention_torch.ops.common import (
+    FWD_F32_HEAD_DIMS,
     KMAJOR_MAX_SPAN,
     KMAJOR_MAX_SPAN_F32,
     KMAJOR_MAX_SPAN_F32Q,
@@ -75,6 +76,7 @@ from cuda_flashattention_torch.ops.common import (
     pad_heads,
     quantize_q_per_head,
     resolve_scale,
+    run_dim,
     tile_type,
 )
 
@@ -224,7 +226,8 @@ def _plan(q, k, v, scale, causal, window, kv_offset, block_sizes, k_scale,
                               "flash_attention_forward block_sizes")
         # the guarded online launch behind a bound one keeps the tile
         # where K1 is built for it
-        if block_k in built_tiles("K1", ty, d)[1]:
+        k1 = built_tiles("K1", ty, d)
+        if k1 is not None and block_k in k1[1]:
             fallback_k = block_k
     return _Plan(
         d=d, scale=resolve_scale(scale, d), causal=causal, window=window,
@@ -426,9 +429,17 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
               kv_seg):
     b, h, nq, d = q.shape
     h_kv, nk = k.shape[1], k.shape[2]
+    # the kernels read an fp32 Q unless it is quantize_q's int8 Q; their
+    # fp32 builds stop at d = 128 (split Q tiles of 128 KB at 256)
+    reads_f32 = q.dtype == torch.float32 and not (plan.use_bound and plan.qq)
+    if reads_f32 and run_dim(d) not in FWD_F32_HEAD_DIMS:
+        raise NotImplementedError(
+            f"the CUDA forward takes an fp32 Q at d up to "
+            f"{max(FWD_F32_HEAD_DIMS)} (its fp32 builds), got fp32 at d = "
+            f"{d}: the d = 256 builds take a bf16 Q")
     d_run, padded = pad_heads("forward", q, k, v)
     if d_run != d:
-        # the d = 64 or 128 build on zero-padded heads; plan.scale is d's
+        # the next build up on zero-padded heads; plan.scale is d's
         o, lse = _fwd_cuda(*padded, plan, out_dtype, k_scale, v_scale,
                            q_seg, kv_seg)
         return o[..., :d], lse
@@ -592,10 +603,11 @@ def flash_attention_forward(
     (default: q's dtype; the kernels write fp32, bf16 or fp16, and any
     other real type of at most 32 bits is the fp32 O cast, as the JAX
     function casts; float64 and complex types raise ValueError, as they
-    do there). On the card the kernels take d in {64, 128}, and
-    d = 16, 32 or another multiple of 8 below 128 on zero-padded heads
-    (`ops.common.pad_heads`: the next of 64 and 128, O sliced back), and
-    a bf16 Q over the K/V above, or an fp32 Q over fp32 or bf16 K/V or
+    do there). On the card the kernels take d in {64, 128, 256}, and
+    any other d below 256 on zero-padded heads (`ops.common.pad_heads`:
+    the next of 64, 128 and 256, O sliced back; at a d that is no build
+    each call copies Q, K and V), and a bf16 Q over the K/V above, or, at
+    d up to 128, an fp32 Q over fp32 or bf16 K/V or
     over the quantized K/V above (their fp32 builds: each fp32 tile split
     into bf16 hi and lo parts, each product three bf16 products with fp32
     sums, two over bf16 or one-byte K/V, which are exact bf16 tiles; P ·

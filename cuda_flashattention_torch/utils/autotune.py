@@ -7,8 +7,9 @@ tiles the kernels are built for (`ops.common.BUILT_TILES`), not the JAX
 tuner's VMEM-sized lists:
 
   * "fwd": the key tiles of the kernel the call routes to: 64 and 128
-    for K1 or K1b over bf16, 64 over fp32, K5's 64 · span;
-  * "bwd": the backward's one built pair (64, 128);
+    for K1 or K1b over bf16, 64 over fp32, K5's 64 · span (at d = 256
+    64 keys alone, K5's one-tile span: bf16 only);
+  * "bwd": the backward's one built pair (64, 128), at d up to 128;
   * decode: K6's split sizes from 128 keys, doubling, up to the cache's
     capacity, and the capacity itself (one split);
   * page: the page sizes K7 takes, 16 to 1024 keys by doubling, that fit
@@ -157,13 +158,20 @@ def candidate_blocks(nq: int, nk: int, d: int, causal: bool = False,
     """The (block_q, block_k) tiles that the kernel a call routes to is
     built for ("bwd": the backward's pair) and that fit the problem: key
     tiles past the keys rounded up to 64 are left out, the smallest
-    always kept."""
+    always kept. NotImplementedError where no build takes the call (the
+    backward, or an fp32 forward, past d = 128)."""
     if mode == "bwd":
-        ty = "fp32" if dtype == torch.float32 else "bf16"
-        return [(q, k) for q in built_tiles("K4", ty, d)[0]
-                for k in built_tiles("K4", ty, d)[1]]
-    qs, ks = built_tiles(_fwd_route(nq, causal, dtype),
-                         tile_type(dtype, dtype), d)
+        kernel, ty = "K4", "fp32" if dtype == torch.float32 else "bf16"
+    else:
+        kernel, ty = _fwd_route(nq, causal, dtype), tile_type(dtype, dtype)
+    built = built_tiles(kernel, ty, d)
+    if built is None:
+        raise NotImplementedError(
+            f"no CUDA build of {kernel} takes {ty} operands at d = {d}: "
+            f"nothing to tune")
+    qs, ks = built
+    if mode == "bwd":
+        return [(q, k) for q in qs for k in ks]
     fit = [k for k in ks if k <= max(ks[0], round_up(nk, 64))]
     return [(q, k) for q in qs for k in fit]
 

@@ -209,3 +209,34 @@ def test_cli_parses_the_jax_arguments(monkeypatch):
     autotune.main(["--mode", "decode", "--seq", "4352", "--kv-heads", "4",
                    "--batch", "8"])
     assert (seen["ctx"], seen["kv_heads"], seen["batch"]) == (4352, 4, 8)
+
+
+def test_candidates_at_d256_are_its_builds():
+    """At d = 256 the forward's bf16 builds have the 64-key tile alone (K5
+    a span of one tile); the backward and an fp32 forward have no build,
+    so there is nothing to tune."""
+    assert autotune.candidate_blocks(4096, 4096, 256, causal=True) == [
+        (128, 64)]
+    assert autotune.candidate_blocks(8192, 8192, 256, causal=True) == [
+        (128, 64)]
+    assert autotune.candidate_blocks(512, 3584, 256) == [(128, 64)]
+    # a d between builds runs on the next one up
+    assert autotune.candidate_blocks(512, 3584, 200) == [(128, 64)]
+    with pytest.raises(NotImplementedError, match="K4 takes bf16"):
+        autotune.candidate_blocks(4096, 4096, 256, mode="bwd")
+    with pytest.raises(NotImplementedError, match="fp32"):
+        autotune.candidate_blocks(4096, 4096, 256, causal=True,
+                                  dtype=torch.float32)
+
+
+def test_autotune_at_d256(tuner):
+    """The sweep at d = 256 times its one built tile and keeps it; a
+    request for the backward's tiles there raises before any timing."""
+    tuner["pick"] = _pick_tile
+    bs = autotune.autotune_block_sizes(nq=80, nk=80, d=256, heads=2,
+                                       causal=True, iters=1, device="cpu")
+    assert bs == BlockSizes(block_k=64)
+    assert tuner["calls"] == [64]
+    with pytest.raises(NotImplementedError):
+        autotune.autotune_block_sizes(nq=80, nk=80, d=256, heads=2,
+                                      mode="bwd", iters=1, device="cpu")

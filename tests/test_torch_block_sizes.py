@@ -436,3 +436,52 @@ def test_ring_decode_with_explicit_split_matches_one_device(block_k):
     o1, lse1 = tdec.decode_attention(q, k, v, lengths)
     assert _diff(o.float(), o1.float()) <= DEC_GATE
     assert _diff(lse, lse1) <= DEC_GATE
+
+
+def test_table_lists_the_d256_builds():
+    """d = 256: K1 and K1b over bf16 or one-byte K/V at 64 keys, K5 at a
+    span of one tile; no fp32-Q build and no backward there. A width
+    between builds looks up the next build up, and one past every build
+    of its family has none."""
+    for ty in ("bf16", "codes"):
+        for kn in ("K1", "K1b", "K5"):
+            assert BUILT_TILES[kn, ty, 256] == ((128,), (64,))
+    for ty in ("fp32", "fp32/codes", "fp32/bf16"):
+        for kn in ("K1", "K1b", "K5"):
+            assert (kn, ty, 256) not in BUILT_TILES
+            assert common.built_tiles(kn, ty, 200) is None
+    for kn in ("K2", "K4"):
+        assert (kn, "bf16", 256) not in BUILT_TILES
+        assert common.built_tiles(kn, "bf16", 256) is None
+    assert common.built_tiles("K1", "bf16", 96) == BUILT_TILES["K1", "bf16",
+                                                               128]
+    assert common.built_tiles("K1b", "codes", 130) == BUILT_TILES[
+        "K1b", "codes", 256]
+    assert common.built_tiles("K1", "bf16", 300) is None
+
+
+def test_d256_tiles_map_to_the_built_one(capsys):
+    """block_k = 128 (a 128-key build at d <= 128) runs at 64 keys at d =
+    256, logged once; K5's 192 too; an fp32 Q at d = 256 has no build,
+    so no mapping (the card refuses the call, the CPU ignores the tile)."""
+    assert common.check_tiles("K1", "bf16", 256, BlockSizes(block_k=128),
+                       "test256") == 64
+    assert common.check_tiles("K5", "codes", 256, BlockSizes(block_k=192),
+                       "test256") == 64
+    err = capsys.readouterr().err
+    assert "at d=256" in err and "(128, 128) runs as (128, 64)" in err
+    assert common.check_tiles("K1", "fp32", 256, BlockSizes(block_k=128),
+                       "test256") is None
+    assert common.check_tiles("K4", "bf16", 256, BlockSizes(), "test256",
+                       bwd=True) is None
+
+
+@pytest.mark.parametrize("d", [96, 256])
+def test_forward_at_wide_heads_takes_any_tile_on_the_cpu(d):
+    """On the CPU the plain version ignores the tile at every width: a
+    block_k the d = 256 builds lack gives the default's result."""
+    q, k, v = _qkv(d=d)
+    want = flash_attention_forward(q, k, v, causal=True)
+    got = flash_attention_forward(q, k, v, causal=True,
+                                  block_sizes=BlockSizes(block_k=128))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

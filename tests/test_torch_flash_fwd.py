@@ -493,10 +493,12 @@ def test_padded_heads_keep_the_quantize_q_bound():
 
 
 @pytest.mark.parametrize("d,d_run", [(8, 64), (16, 64), (48, 64), (64, 64),
-                                     (72, 128), (120, 128), (128, 128)])
+                                     (72, 128), (120, 128), (128, 128),
+                                     (1, 64), (20, 64), (90, 128), (130, 256),
+                                     (200, 256), (256, 256)])
 def test_pad_heads_widths(d, d_run):
-    """d = 64, 128 pass through as they are; other multiples of 8 below
-    128 pad to the next of them with zero columns; other widths raise."""
+    """d = 64, 128, 256 pass through as they are; any other d up to 256
+    pads to the next of them with zero columns; wider ones raise."""
     from cuda_flashattention_torch.ops.common import pad_heads
     x = torch.rand(1, 2, 3, d)
     got, (px, none) = pad_heads("forward", x, None)
@@ -512,6 +514,19 @@ def test_pad_heads_widths(d, d_run):
 
 @pytest.mark.parametrize("d", [20, 130, 256])
 def test_pad_heads_refuse_other_widths(d):
-    from cuda_flashattention_torch.ops.common import pad_heads
-    with pytest.raises(ValueError, match="multiple of 8 below 128"):
-        pad_heads("forward", torch.rand(1, 1, 2, d))
+    """Each kernel family refuses the widths past its largest build, naming
+    the form: the backward's (and K8's, K9's) builds at 64 and 128 past
+    128, the forward's past 256; below that any d runs on zero-padded
+    heads (20 at 64)."""
+    from cuda_flashattention_torch.ops.common import (
+        KERNEL_HEAD_DIMS,
+        pad_heads,
+    )
+    x = torch.rand(1, 1, 2, d)
+    if d > 128:
+        with pytest.raises(ValueError, match="backward takes d from 1 to 128"):
+            pad_heads("backward", x, dims=KERNEL_HEAD_DIMS)
+    else:
+        assert pad_heads("backward", x, dims=KERNEL_HEAD_DIMS)[0] == 64
+    with pytest.raises(ValueError, match="forward takes d from 1 to 256"):
+        pad_heads("forward", torch.rand(1, 1, 2, d + 256))

@@ -442,9 +442,9 @@ def test_autograd_through_the_kernels(dev):
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
-    # d = 100: no build, and not a multiple of 8 to pad
-    q = torch.zeros(1, 2, 8, 100, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="d in"):
+    # d = 300: past every build of the forward (256)
+    q = torch.zeros(1, 2, 8, 300, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="forward takes d from 1 to 256"):
         flash_attention_forward(q, q, q)
     q32 = torch.zeros(1, 2, 8, 64, device=dev)
     q16 = q32.half()
@@ -459,9 +459,8 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         decode_attention(q16[:, :, 0], q16, q16, lens)
     with pytest.raises(NotImplementedError, match="cache"):  # fp16 cache
         decode_attention(q32[:, :, 0], q16, q16, lens)
-    with pytest.raises(ValueError, match="d in"):  # no decode build
-        decode_attention(q32[:, :, 0, :48], q32[..., :48], q32[..., :48],
-                         lens)
+    with pytest.raises(ValueError, match="d from 1 to 256"):  # no build
+        decode_attention(q[:, :, 0], q, q, lens)
     qd, kd = q[:, :, 0, :64].contiguous(), q[..., :64].contiguous()
     with pytest.raises(NotImplementedError, match="cache"):  # int8 V alone
         decode_attention(qd, kd, kd.to(torch.int8), lens)
@@ -472,8 +471,10 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         flash_attention_backward(q16, q16, q16, q16, lse, q16)
     with pytest.raises(NotImplementedError, match="all of one type"):
         flash_attention_backward(q32, q32, q32, q32, lse, q32.bfloat16())
-    with pytest.raises(ValueError, match="d in"):
-        flash_attention_backward(q, q, q, q, lse, q)
+    # the backward's builds stop at d = 128
+    q256 = torch.zeros(1, 2, 8, 256, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="backward takes d from 1 to 128"):
+        flash_attention_backward(q256, q256, q256, q256, lse, q256)
 
 
 # ---------------------------------------------------------------------------
@@ -2166,14 +2167,16 @@ def test_narrow_heads_through_autograd(dev, no_tf32):
 
 
 def test_padded_heads_refuse_other_widths(dev):
-    """d = 48 is padded to 64; d = 20 and 136 raise, naming the rule."""
-    q = torch.rand(1, 2, 40, 48, device=dev)
-    o, _ = flash_attention_forward(q, q, q)
-    assert o.shape == q.shape
-    for d in (20, 136):
-        x = torch.rand(1, 2, 40, d, device=dev)
-        with pytest.raises(ValueError, match="multiple of 8 below 128"):
-            flash_attention_forward(x, x, x)
+    """An fp32 Q: d = 48 and 20 are padded to 64; d = 136 (the d = 256
+    build) raises, naming fp32 and the width: the fp32 builds stop at
+    128."""
+    for d in (48, 20):
+        q = torch.rand(1, 2, 40, d, device=dev)
+        o, _ = flash_attention_forward(q, q, q)
+        assert o.shape == q.shape
+    x = torch.rand(1, 2, 40, 136, device=dev)
+    with pytest.raises(NotImplementedError, match="fp32 at d = 136"):
+        flash_attention_forward(x, x, x)
 
 
 # ---------------------------------------------------------------------------
@@ -2860,3 +2863,265 @@ def test_fuzz_forward_and_decode(dev, no_tf32):
         what = ("K6", b, h, h_kv, cap, d, types, lengths.tolist(), window)
         assert _err(got[0], want[0]) <= gate, what
         assert _err(got[1], want[1]) <= gate, what
+
+
+# ---------------------------------------------------------------------------
+# Wide heads: K1, K1b and K5 at d = 256 (a bf16 Q over bf16, int8, fp8 and
+# mixed K/V, every mask, quantize_q), the forward at widths between builds
+# on zero-padded heads, and K6 / K7 at every d from 1 to 256 read in place.
+# Gates as above: 5e-3 on O and LSE, O also within 2e-2 · max |plain| on
+# peaked inputs; K5 within 1e-4 of K1b; K7 bit for bit against K6; an fp32
+# q within 1e-4. A decode call's peak allocation stays below the cache's
+# bytes (no padded copy of it).
+# ---------------------------------------------------------------------------
+
+WIDE_CASES = [
+    # the serving prefill: a quantize_q score contracted into an fma with
+    # the bound flipped K1b's P roundings against K5's here (2.1e-4)
+    (8, 8, 4, 512, 512, 256, dict(causal=True)),
+    (2, 8, 4, 300, 300, 256, dict(causal=True, window=100)),
+    (1, 8, 4, 130, 500, 256, dict(causal=True, kv_offset=370)),
+    (1, 4, 4, 200, 200, 256, dict(causal=True, window=64, kv_offset=-70)),
+    (2, 8, 2, 128, 384, 256, dict(causal=False)),
+    (1, 8, 1, 77, 300, 256, dict(causal=True, window=100, kv_offset=223)),
+]
+
+
+@pytest.mark.parametrize("qtype", [None, "int8", "fp8", "mixed"])
+@pytest.mark.parametrize("b,h,h_kv,nq,nk,d,kw", WIDE_CASES)
+def test_wide_forward_online(dev, qtype, b, h, h_kv, nq, nk, d, kw):
+    """K1 at d = 256 (its in-order walk; one converted pair over one-byte
+    K/V) against the plain version; one online launch."""
+    args, scales = _fwd_inputs(dev, b, h, h_kv, nq, nk, d, qtype, nq + nk)
+    kw = dict(kw, softmax="online", out_dtype=torch.float32, **scales)
+    _nan_fill_allocator(dev)
+    before = _form_counts()
+    got = flash_attention_forward(*args, **kw)
+    torch.cuda.synchronize()
+    assert _form_counts()["online"] == before["online"] + 1
+    _assert_fwd_close(got, flash_attention_forward_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_wide_forward_segments(dev, causal):
+    """K1's SEG build at d = 256, ragged segments."""
+    b, h, h_kv, n, d = 2, 8, 4, 300, 256
+    (q, k, v), _ = _fwd_inputs(dev, b, h, h_kv, n, n, d, None, 13)
+    seg = _segments(dev, b, n, [70, 1, 129, 100])
+    kw = dict(causal=causal, q_segment_ids=seg, kv_segment_ids=seg)
+    got = flash_attention_forward(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _assert_fwd_close(got, flash_attention_forward_plain(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("qtype,quantize_q", _STORAGE_FORMS)
+@pytest.mark.parametrize("b,h,h_kv,nq,nk,d,kw", WIDE_CASES)
+def test_wide_bound_kernels_pinned(dev, qtype, quantize_q, b, h, h_kv, nq,
+                                   nk, d, kw):
+    """K1b and K5 at d = 256, each pinned, over every storage pair with and
+    without quantize_q (int8 Q rows of two 128-byte slabs), against the
+    plain version; K5 within 1e-4 of K1b."""
+    args, scales = _fwd_inputs(dev, b, h, h_kv, nq, nk, d, qtype, nq + nk)
+    kw = dict(kw, **scales)
+    want = flash_attention_forward_plain(
+        *args, softmax="bound_unchecked", quantize_q=quantize_q,
+        out_dtype=torch.float32, **kw)
+    _nan_fill_allocator(dev)
+    got = {}
+    for form in ("bound", "kmajor"):
+        before = _form_counts()
+        got[form] = _pinned(form, *args, quantize_q=quantize_q, **kw)
+        torch.cuda.synchronize()
+        assert _form_counts()[form] == before[form] + 1
+        _assert_fwd_close(got[form], want)
+    assert _err(got["kmajor"][0], got["bound"][0]) <= 1e-4
+    assert _err(got["kmajor"][1], got["bound"][1]) <= 1e-4
+
+
+@pytest.mark.parametrize("form", ["online", "bound", "kmajor"])
+@pytest.mark.parametrize("qtype", [None, "int8"])
+@pytest.mark.parametrize("d", [8, 90, 96, 100, 130, 200])
+def test_forward_between_builds(dev, d, qtype, form):
+    """A d that is no build runs on the next build up, heads zero-padded at
+    the caller's scale; O comes back at width d."""
+    b, h, h_kv, nq, nk = 2, 8, 4, 200, 333
+    args, scales = _fwd_inputs(dev, b, h, h_kv, nq, nk, d, qtype, d)
+    kw = dict(causal=True, kv_offset=nk - nq, **scales)
+    if form == "online":
+        got = flash_attention_forward(*args, softmax="online",
+                                      out_dtype=torch.float32, **kw)
+        want = flash_attention_forward_plain(*args, softmax="online",
+                                             out_dtype=torch.float32, **kw)
+    else:
+        got = _pinned(form, *args, **kw)
+        want = flash_attention_forward_plain(
+            *args, softmax="bound_unchecked", out_dtype=torch.float32, **kw)
+    torch.cuda.synchronize()
+    assert got[0].shape == args[0].shape
+    _assert_fwd_close(got, want)
+
+
+def test_wide_forward_auto_routes_and_falls_back(dev):
+    """"auto" at d = 256: the fp8 prefix read goes to K5, the guarded
+    online fallback behind a checked K1b launch runs the d = 256 K1."""
+    b, h, h_kv, nq, nk, d = 2, 8, 4, 128, 640, 256
+    args, scales = _fwd_inputs(dev, b, h, h_kv, nq, nk, d, "fp8", 3)
+    before = _form_counts()
+    got = flash_attention_forward(*args, out_dtype=torch.float32, **scales)
+    torch.cuda.synchronize()
+    after = _form_counts()
+    assert after["kmajor"] - before["kmajor"] == 1
+    assert after["fallback"] - before["fallback"] == 1
+    _assert_fwd_close(got, flash_attention_forward_plain(
+        *args, out_dtype=torch.float32, **scales))
+
+
+def test_wide_forms_refused(dev):
+    """At d past 128 an fp32 Q, the backward, K8 and K9 each raise,
+    naming the form; nothing falls back."""
+    q32 = torch.rand(1, 2, 64, 256, device=dev)
+    with pytest.raises(NotImplementedError, match="fp32 at d = 256"):
+        flash_attention_forward(q32, q32, q32)
+    with pytest.raises(NotImplementedError, match="fp32 at d = 256"):
+        flash_attention_forward(q32, q32.bfloat16(), q32.bfloat16())
+    q = q32.bfloat16()
+    o, lse = flash_attention_forward(q, q, q)
+    with pytest.raises(ValueError, match="backward takes d from 1 to 128"):
+        flash_attention_backward(q, q, q, o, lse, o)
+    with pytest.raises(ValueError, match="FA1 takes d from 1 to 128"):
+        fa1_attention(q, q, q)
+
+
+def _no_copy_call(fn, cache_bytes):
+    """fn() and the peak of what it allocated past what was live before:
+    below the cache's bytes, so no padded copy of the cache was made."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    assert grown < cache_bytes, (grown, cache_bytes)
+    return out
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(window=100),
+                                dict(quantize_q=True)])
+@pytest.mark.parametrize("qtype", [None, "int8", "fp8", "mixed"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wide_decode(dev, no_tf32, dtype, qtype, kw):
+    """K6 at d = 256: a bf16 or fp32 q over every cache (fp32 too under an
+    fp32 q), windows, quantize_q (two int8 words a lane), a split context;
+    NaN past each live length; no copy of the cache."""
+    b, h, h_kv, max_n, d = 8, 8, 4, 1100, 256
+    lengths = [1100, 1, 640, 0, 999, 128, 513, 77]
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    for peaked in (False, True):
+        q, k, v = _decode_inputs(dev, dtype, b, h, h_kv, max_n, d, 7, peaked)
+        k, v, scales = _stored(k, v, qtype)
+        for i, n in enumerate(lengths):
+            for x in (scales.values() if scales else (k, v)):
+                x[i, :, n:] = float("nan")
+        nbytes = k.nbytes + v.nbytes
+        before = decode_attention.launches
+        got = _no_copy_call(
+            lambda: decode_attention(q, k, v, lens, **scales, **kw), nbytes)
+        assert decode_attention.launches == before + 1
+        want = decode_attention_plain(q, k, v, lens, **scales, **kw)
+        qq = kw.get("quantize_q", False) and qtype in ("int8", "mixed")
+        _assert_decode_close(got, want, dtype, qq, peaked)
+        assert torch.all(got[0][3] == 0) and torch.all(got[1][3] == -1e30)
+    if dtype == torch.float32 and qtype is None:
+        # an fp32 q over a bf16 cache (the fp32 model's half-size cache)
+        kb, vb = k.bfloat16(), v.bfloat16()
+        got = decode_attention(q, kb, vb, lens, **kw)
+        torch.cuda.synchronize()
+        _assert_decode_close(got, decode_attention_plain(
+            q, kb, vb, lens, **kw), dtype, False, True)
+
+
+@pytest.mark.parametrize("qtype", [None, "int8", "fp8"])
+@pytest.mark.parametrize("d", [1, 8, 20, 48, 80, 90, 96, 100, 130, 200, 250])
+def test_decode_any_width(dev, d, qtype):
+    """K6 at widths between its builds, read at the cache's own row width
+    (vector loads where d is a multiple of a lane's elements, else one
+    element at a time: d = 90, 100, 130, 250), with a window and
+    quantize_q; no copy of the cache."""
+    b, h, h_kv, max_n = 4, 8, 2, 700
+    lengths = [700, 1, 333, 0]
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    q, k, v = _decode_inputs(dev, torch.bfloat16, b, h, h_kv, max_n, d,
+                             d + 3, True)
+    k, v, scales = _stored(k, v, qtype)
+    nbytes = k.nbytes + v.nbytes
+    for kw in (dict(), dict(window=100), dict(quantize_q=True)):
+        got = _no_copy_call(
+            lambda: decode_attention(q, k, v, lens, **scales, **kw), nbytes)
+        assert got[0].shape == q.shape
+        want = decode_attention_plain(q, k, v, lens, **scales, **kw)
+        qq = kw.get("quantize_q", False) and qtype == "int8"
+        _assert_decode_close(got, want, torch.bfloat16, qq, True)
+
+
+@pytest.mark.parametrize("qtype", [None, "int8"])
+def test_decode_any_width_misaligned_views(dev, qtype):
+    """A cache that is a view starting one element in (its base off the
+    vector alignment): element loads, the same result as the copy."""
+    b, h, h_kv, max_n, d = 2, 4, 2, 300, 128
+    lens = torch.tensor([300, 77], dtype=torch.int32, device=dev)
+    q, k, v = _decode_inputs(dev, torch.bfloat16, b, h, h_kv, max_n, d, 1,
+                             True)
+    k, v, scales = _stored(k, v, qtype)
+    kb = torch.empty(k.numel() + 1, dtype=k.dtype, device=dev)
+    vb = torch.empty(v.numel() + 1, dtype=v.dtype, device=dev)
+    kb.view(torch.uint8)[k.element_size():] = k.reshape(-1).view(torch.uint8)
+    vb.view(torch.uint8)[v.element_size():] = v.reshape(-1).view(torch.uint8)
+    ko, vo = kb[1:].view(k.shape), vb[1:].view(v.shape)
+    got = decode_attention(q, ko, vo, lens, **scales)
+    torch.cuda.synchronize()
+    want = decode_attention(q, k, v, lens, **scales)
+    assert _err(got[0], want[0]) <= 1e-6 and _err(got[1], want[1]) <= 1e-6
+
+
+@pytest.mark.parametrize("qtype", [None, "int8", "fp8", "mixed"])
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 256),
+                                     (torch.float32, 256),
+                                     (torch.bfloat16, 80),
+                                     (torch.bfloat16, 90),
+                                     (torch.bfloat16, 200)])
+def test_wide_paged(dev, no_tf32, dtype, d, qtype):
+    """K7 at d = 256 and between builds: against its plain version, bit for
+    bit against K6 on the same keys, and `paged_prefix_attention` (a
+    chunk's rows folded into K7's rows) against the plain prefix."""
+    b, h, h_kv, page = 4, 8, 4, 128
+    lengths = [300, 0, 129, 1]
+    max_pages = -(-300 // page) + 2
+    gen = torch.Generator(device=dev).manual_seed(d)
+    q, k, v = _decode_inputs(dev, dtype, b, h, h_kv, 300, d, d, True)
+    cache, (kq, vq, ks, vs) = _paged_copy(dev, k, v, lengths, page,
+                                          max_pages, qtype, gen)
+    for kw in (dict(), dict(window=100)):
+        before = paged_decode_attention.launches
+        got = paged_decode_step(q, cache, **kw)
+        torch.cuda.synchronize()
+        assert paged_decode_attention.launches == before + 1
+        want = paged_decode_attention_plain(
+            q, cache.k_pages, cache.v_pages, cache.page_table,
+            cache.lengths, k_scale=cache.k_scale, v_scale=cache.v_scale,
+            **kw)
+        _assert_decode_close(got, want, dtype, False, True)
+        o_c, lse_c = decode_attention(q, kq, vq, cache.lengths, k_scale=ks,
+                                      v_scale=vs, **kw)
+        assert torch.equal(got[0], o_c) and torch.equal(got[1], lse_c)
+    if dtype == torch.bfloat16:
+        qc = _decode_inputs(dev, dtype, b, h * 16, h_kv, 1, d, 5, True)[0]
+        qc = qc.view(b, h, 16, d)
+        got = paged_prefix_attention(qc, cache)
+        torch.cuda.synchronize()
+        want = paged_decode_attention_plain(
+            qc.reshape(b, h * 16, d), cache.k_pages, cache.v_pages,
+            cache.page_table, cache.lengths, k_scale=cache.k_scale,
+            v_scale=cache.v_scale)
+        _assert_decode_close((got[0].reshape(b, h * 16, d),
+                              got[1].reshape(b, h * 16)), want, dtype,
+                             False, True)

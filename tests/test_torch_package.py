@@ -302,3 +302,20 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", tmp_path)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
+
+
+def test_build_runs_the_commands_together_and_times_each(tmp_path):
+    """`_build._run_all` starts every command at once and returns each
+    one's seconds; a failing command raises with its output."""
+    import sys
+    import time
+
+    from cuda_flashattention_torch import _build
+    sleep = [sys.executable, "-c", "import time; time.sleep(0.5)"]
+    t0 = time.perf_counter()
+    secs = _build._run_all([sleep, sleep, sleep])
+    assert len(secs) == 3 and all(0.4 < t < 5 for t in secs)
+    assert time.perf_counter() - t0 < 1.4  # together, not one after another
+    with pytest.raises(RuntimeError, match="boom"):
+        _build._run_all([[sys.executable, "-c",
+                          "import sys; print('boom'); sys.exit(3)"]])

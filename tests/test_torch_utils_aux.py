@@ -188,3 +188,27 @@ def test_monitor_without_a_card(monkeypatch, capsys):
     assert capsys.readouterr().out == ""
     stop = monitor.start_monitor(interval_s=0.01)
     stop()
+
+
+def test_ptxas_report_parses_verbose_output():
+    """`utils/ptxas_report.parse` on a recorded `-Xptxas -v` excerpt: each
+    entry's registers, spills and stack frame (the build itself needs
+    nvcc, so it runs on the card's machine)."""
+    from cuda_flashattention_torch.utils import ptxas_report
+    text = (
+        "ptxas info    : Compiling entry function '_Z1fILi256EEvv' for "
+        "'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1fILi256EEvv\n"
+        "    8 bytes stack frame, 16 bytes spill stores, 24 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 168 registers, used 2 barriers\n"
+        "ptxas info    : Compiling entry function '_Z1gv' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 40 registers\n")
+    assert ptxas_report.parse(text) == {
+        "_Z1fILi256EEvv": dict(regs=168, stack=8, spill_stores=16,
+                               spill_loads=24),
+        "_Z1gv": dict(regs=40, stack=0, spill_stores=0, spill_loads=0)}
+    assert ptxas_report.demangle(["_Z1gv"], "/nonexistent/nvcc") in (
+        ["_Z1gv"], ["g()"])
