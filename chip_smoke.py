@@ -341,6 +341,21 @@ Phases, each of which raises on failure (so the script exits non-zero):
    pools (4096 pages x 128 tokens, B=8 x 4096 tokens, 32 steps bit for
    bit K6's on a shadow, a sequence retired and its pages reused).
    Prefill ms, decode tok/s, chunked-prefill ms and paged step ms.
+27. The backward at d = 256 (`_phase_wide_backward`) and training at Gemma
+   2 2B's widths (`_phase_gemma_training`): the d = 256 builds of K4, K2 +
+   K3 and the prologue against the plain backward (peaked inputs, gate
+   2e-2 · max |plain| per gradient) at [1, 8, 4096, 256] over 4 KV heads
+   causal and under window 1024, segment ids causal and not, a ragged 300
+   x 400 with kv_offset -20 and d = 200 on padded heads; D within 1e-5 ·
+   max(1, max |plain D|) and K4's accumulator zeroed; each case's kernel
+   ms, bound, plain ms and SDPA's backward (rows "K4 d256", "K2 d256",
+   "K3 d256", "prologue d256"). Then the Gemma-width model (GEMMA_KW, 26
+   layers, no cut) on B=1 x T=4096: 5 timed SGD(1e-4) `make_train_step`
+   steps (K1 = K4 = the prologue = 130, K2 = K3 = 0), step ms, tokens/s,
+   TFLOP/s, peak GiB and a profile by kernel group; loss (2e-2) and every
+   gradient (5e-2 relative L2) against the plain attention functions;
+   one split-backward step (K2 = K3 = 26); the windowed model (window
+   1024) the same way; 10 Adam steps that lower the loss.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; a kernel's `launches` in the JSON line is its sum over
@@ -356,8 +371,9 @@ backward, the fp32 `generate()` runs, the fp32 chunked-serving runs, the
 fp32 FA1 calls and device-ring call, the ladder model's training
 steps, and the fp32 model's serving runs over bf16 caches with its
 paged run and the forward at [1, 16, 6144, 128]; for the d = 256 rows
-the Gemma-width model's generate(), chunked and paged runs, whose
-launches are also added to K1, K1b, K5, K6 and K7). Launches made to
+the Gemma-width model's generate(), chunked and paged runs and its
+timed, split-backward and windowed train steps, whose launches are also
+added to K1, K1b, K5, K6, K7, K2, K3, K4 and the prologue). Launches made to
 compare a kernel with its plain version or to
 time it are not in it, nor are K1's guarded fallback launches behind a
 checked bound call, which exit at once, but for K1's fp32-Q build over
@@ -3515,6 +3531,374 @@ def _phase_gemma_serving(ctx):
           f"({card})", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: the backward at d = 256 (K4, K2 + K3 and the prologue's d = 256
+# builds) and the Gemma-width model trained through make_train_step
+# ---------------------------------------------------------------------------
+
+GEMMA_TRAIN_T = 4096
+
+
+def _phase_wide_backward(ctx):
+    """The d = 256 builds of K4, K2 + K3 and the prologue against the plain
+    backward at the Gemma-width layer's shapes (8 query heads over 4 KV
+    heads), peaked inputs (Q x8, K x4), gate per gradient max |diff| <=
+    BWD_GATE · max |plain|: the training shape [1, 8, 4096, 256] causal,
+    the same under window 1024, segment ids causal and not (B=2, 1000
+    rows, ragged segments), a ragged 300 x 400 with kv_offset -20 (empty
+    rows, unseen keys) and d = 200 on heads zero-padded to 256. The
+    prologue's D within 1e-5 · max(1, max |plain D|) and K4's accumulator
+    zeroed. Per case the kernels' device ms (torch.profiler), their bounds
+    (products over the visible pairs over the bf16 rate; the prologue's
+    bytes over the memory rate), the plain backward's ms and the library
+    call's (SDPA's autograd backward on the same inputs); the training
+    shape's numbers are the rows "K4 d256", "K2 d256", "K3 d256" and
+    "prologue d256"."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.ops import flash_bwd as fb
+    from cuda_flashattention_torch.ops.flash_fwd import (
+        flash_attention_forward)
+    from cuda_flashattention_torch.utils.timing import cuda_time_ms
+    dev, card, rec = ctx.dev, ctx.card, ctx.rec
+    h, hkv, d = (GEMMA_KW["n_heads"], GEMMA_KW["n_kv_heads"],
+                 GEMMA_KW["d_head"])
+    gen = torch.Generator(device=dev).manual_seed(27)
+
+    def u(*shape, peak=1.0):
+        return ((torch.rand(shape, generator=gen, device=dev) - 0.5)
+                * peak).to(torch.bfloat16)
+
+    seg = torch.repeat_interleave(
+        torch.arange(4, device=dev),
+        torch.tensor([300, 1, 450, 249], device=dev))[None].expand(
+            2, 1000).contiguous()
+    t = GEMMA_TRAIN_T
+    cases = [
+        ("training 4096 causal", 1, t, t, d, dict(causal=True)),
+        ("training 4096 window 1024", 1, t, t, d,
+         dict(causal=True, window=LONG_WINDOW)),
+        ("ragged 1000 segments causal", 2, 1000, 1000, d,
+         dict(causal=True, q_segment_ids=seg, kv_segment_ids=seg)),
+        ("ragged 1000 segments", 2, 1000, 1000, d,
+         dict(q_segment_ids=seg, kv_segment_ids=seg)),
+        ("ragged 300x400 kv_offset -20", 2, 300, 400, d,
+         dict(causal=True, kv_offset=-20)),
+        ("d=200 on the d=256 build, 1000 causal", 1, 1000, 1000, 200,
+         dict(causal=True)),
+    ]
+    failures = []
+    for name, b, nq, nk, dd, kw in cases:
+        q, do = u(b, h, nq, dd, peak=Q_PEAK), u(b, h, nq, dd)
+        k, v = u(b, hkv, nk, dd, peak=K_PEAK), u(b, hkv, nk, dd)
+        o, lse = flash_attention_forward(q, k, v, **kw)
+        args = (q, k, v, o, lse, do)
+        fused = fb.flash_attention_backward(*args, fused=True, **kw)
+        split = fb.flash_attention_backward(*args, fused=False, **kw)
+        torch.cuda.synchronize()
+        plain = fb.flash_attention_backward_plain(*args, **kw)
+        lines = []
+        for label, got, kerns in (("K4", fused, ("K4",) * 3),
+                                  ("K2+K3", split, ("K3", "K2", "K2"))):
+            line = []
+            for gname, g, w, kern in zip(("dQ", "dK", "dV"), got, plain,
+                                         kerns):
+                e, ref = ctx.diff(g, w), w.float().abs().max().item()
+                line.append(f"{gname} {e:.3e}/{ref:.3e}")
+                r = rec[f"{kern} d256"]
+                r["max_abs_err"] = max(r["max_abs_err"], e)
+                if not (ref > 0 and e <= BWD_GATE * ref
+                        and bool(torch.isfinite(g).all())
+                        and g.shape == w.shape):
+                    failures.append(f"d=256 {name} {label} {gname}: "
+                                    f"max|diff| {e:.3e}, max|ref| {ref:.3e}")
+            lines.append(f"{label} {', '.join(line)}")
+        del fused, split, plain
+        timed = name.startswith("training 4096 causal")
+        dev_ms = _device_ms_by_kernel(lambda: (
+            fb.flash_attention_backward(*args, fused=True, **kw),
+            fb.flash_attention_backward(*args, fused=False, **kw)),
+            ("K2", "K3", "K4"), iters=3)
+        _check(all(math.isfinite(x) for x in dev_ms.values()),
+               f"d=256 {name}: the profiler recorded no launch of a "
+               f"backward kernel: {dev_ms}")
+        ms_p = cuda_time_ms(lambda: fb.flash_attention_backward_plain(
+            *args, **kw), iters=2, warmup=1)
+        if kw == dict(causal=True):
+            # SDPA's causal form (is_causal), as the d = 128 rows time it
+            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            o_l = torch.nn.functional.scaled_dot_product_attention(
+                *leaves, is_causal=True, enable_gqa=True)
+            lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
+                o_l, leaves, do, retain_graph=True), iters=10)
+            del leaves, o_l
+        else:
+            lib_ms = _library_ms(ctx, q, k, v, kw, backward=True, do=do)
+        pairs = _visible_pairs(ctx, b, h, nq, nk, kw)
+        read = _nbytes(q, k, v, o, lse, do)
+        # products per visible (query, key) pair: K2 S, dP, dV, dK; K3 S,
+        # dP, dQ; K4 all five; 2·d operations each
+        bounds = {kn: _bound(read + written, 2.0 * pairs * dd * products)
+                  for kn, products, written in (("K2", 4, _nbytes(k, v)),
+                                                ("K3", 3, _nbytes(q)),
+                                                ("K4", 5, _nbytes(q, k, v)))}
+        if timed:
+            for kn in ("K2", "K3", "K4"):
+                rec[f"{kn} d256"].update(ms=dev_ms[kn], plain_ms=ms_p,
+                                         library_ms=lib_ms, **bounds[kn])
+        print(f"[wide-bwd] {name}: B={b} H={h} Hkv={hkv} Nq={nq} Nk={nk} "
+              f"d={dd} vs plain max|diff|/max|ref|: {'; '.join(lines)} "
+              f"(gate {BWD_GATE} x max|ref|); device K4 "
+              f"{dev_ms['K4']:.4f} ms ({_vs_bound(dev_ms['K4'], bounds['K4'])})"
+              f", K2 {dev_ms['K2']:.4f} ms "
+              f"(bound {bounds['K2']['bound_ms']:.4f}), K3 "
+              f"{dev_ms['K3']:.4f} ms (bound {bounds['K3']['bound_ms']:.4f})"
+              f"; plain {ms_p:.4f} ms; library (SDPA backward, "
+              + ("is_causal" if kw == dict(causal=True)
+                 else "boolean mask" if _mask(ctx, nq, nk, kw) is not None
+                 else "no mask") + f") {lib_ms:.4f} ms ({card})",
+              flush=True)
+        if dd == d:
+            # the prologue's D, and K4's accumulator zeroed
+            acc = torch.full(q.shape, 7.0, device=dev)
+            got = fb._launch_delta(o, do, acc)
+            want = fb.delta_plain(o, do)
+            torch.cuda.synchronize()
+            e = ctx.diff(got, want)
+            gate = 1e-5 * max(1.0, want.abs().max().item())
+            r = rec["prologue d256"]
+            r["max_abs_err"] = max(r["max_abs_err"], e)
+            if not (e <= gate and torch.count_nonzero(acc).item() == 0):
+                failures.append(f"d=256 {name} prologue: max|dD| {e:.3e} "
+                                f"(gate {gate:.3e}), or dQ's accumulator "
+                                f"not zero")
+            if timed:
+                ms = _call_ms(lambda: fb._launch_delta(o, do, acc),
+                              "K4 D prologue", iters=10)
+
+                def plain_d():
+                    fb.delta_plain(o, do)
+                    torch.zeros(q.shape, dtype=torch.float32, device=dev)
+                ms_pd = cuda_time_ms(plain_d, iters=10)
+                lib = cuda_time_ms(lambda: (do.float() * o.float()).sum(-1),
+                                   iters=10)
+                bound = _bound(_nbytes(o, do, got, acc), 0.0)
+                r.update(ms=ms, plain_ms=ms_pd, library_ms=lib, **bound)
+                print(f"[wide-bwd] prologue d=256 {name}: max|dD| {e:.3e} "
+                      f"(gate {gate:.3e}); kernel {ms:.4f} ms "
+                      f"({100 * bound['bound_ms'] / ms:.1f}% of its bound "
+                      f"{bound['bound_ms']:.4f} ms, bytes: O and dO read, D "
+                      f"and the fp32 accumulator written); plain "
+                      f"{ms_pd:.4f} ms; library (do.float() * "
+                      f"o.float()).sum(-1) {lib:.4f} ms ({card})",
+                      flush=True)
+            del acc, got, want
+        del q, k, v, o, lse, do, args
+    _check(not failures, "; ".join(failures))
+
+
+def _phase_gemma_training(ctx):
+    """Main path of training at Gemma 2 2B's widths (GEMMA_KW, bf16,
+    seeded weights, full width and depth: 26 layers, d_head 256, 8 query
+    heads over 4 KV heads; B=1 x T=4096 tokens, one seeded batch):
+    `make_train_step` with SGD(1e-4), 2 warm-up steps then 5 timed ones:
+    median step ms, tokens/s, TFLOP/s counted as bench.py counts a train
+    step, peak GiB; launches over the timed steps K1 = K4 = the prologue
+    = 26 x 5 (each also counted in its d256 row), K2 = K3 = 0; a profile
+    of one step by kernel group. The loss and every parameter's gradient
+    of one step against the same step on the plain attention functions
+    (loss within LOSS_GATE, relative L2 per gradient within GRAD_GATE);
+    one step through the split backward (K2 and K3 26 times each) at the
+    same gates; the windowed model (`cfg.window` = 1024) the same way;
+    10 Adam(1e-3) steps that must lower the loss. No depth or width is
+    cut."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.models import transformer as tfm
+    from cuda_flashattention_torch.ops import attention
+    from cuda_flashattention_torch.ops.flash_bwd import (
+        flash_attention_backward, flash_attention_backward_plain)
+    from cuda_flashattention_torch.ops.flash_fwd import (
+        flash_attention_forward, flash_attention_forward_plain)
+    from cuda_flashattention_torch.utils.profiling import kernel_times
+    from cuda_flashattention_torch.utils.timing import attention_flops
+    dev, card, launches = ctx.dev, ctx.card, ctx.launches
+    bwd_launches, fwd_forms = ctx.bwd_launches, ctx.fwd_forms
+    t = GEMMA_TRAIN_T
+    cfg = tfm.TransformerConfig(dtype=torch.bfloat16,
+                                **{**GEMMA_KW, "max_seq": t})
+    n = cfg.n_layers
+
+    def fresh(c):
+        return tfm.Transformer(
+            c, generator=torch.Generator(device=dev).manual_seed(27))
+
+    model = fresh(cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = torch.randint(0, cfg.vocab_size, (1, t), device=dev,
+                           generator=torch.Generator(
+                               device=dev).manual_seed(28),
+                           dtype=torch.int32)
+    print(f"[gemma-train] {n_params / 1e9:.3f}B parameters, {n} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads over "
+          f"{cfg.n_kv_heads} KV heads of d_head {cfg.d_head}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}; B=1 T={t}, bf16, SGD(1e-4) "
+          f"({card})", flush=True)
+    train_flops = (6.0 * n_params * t
+                   + 3 * attention_flops(1, cfg.n_heads, t, t, cfg.d_head,
+                                         causal=True) * n)
+
+    def timed_steps(m, tag):
+        """2 warm-up and TIMED_STEPS timed `make_train_step` steps of m:
+        (median ms, losses, launch counts over the timed steps, peak
+        GiB)."""
+        step = tfm.make_train_step(m, torch.optim.SGD(m.parameters(),
+                                                      lr=1e-4))
+        for _ in range(2):
+            step(tokens)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ctx.zero_counts()
+        step_s, losses = [], []
+        for _ in range(TIMED_STEPS):
+            t0 = time.perf_counter()
+            loss = step(tokens)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+        counts = dict(fwd=fwd_forms["online"],
+                      total=flash_attention_forward.launches, **bwd_launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        expect = TIMED_STEPS * n
+        step_ms = statistics.median(step_s) * 1e3
+        print(f"[{tag}] launches over {TIMED_STEPS} steps: K1 "
+              f"{counts['fwd']}, K4 {counts['fused']}, the prologue "
+              f"{counts['delta']}, K2 {counts['dkdv']}, K3 {counts['dq']} "
+              f"(expect {expect}, {expect}, {expect}, 0, 0); step "
+              f"{step_ms:.3f} ms (median of {TIMED_STEPS}: "
+              f"{', '.join(f'{x * 1e3:.3f}' for x in step_s)}), "
+              f"{t / step_ms * 1e3:.1f} tokens/s, "
+              f"{train_flops / step_ms / 1e9:.1f} TFLOP/s "
+              f"({train_flops / 1e12:.3f} TFLOP a step), peak memory "
+              f"{peak:.2f} GiB; losses "
+              f"{', '.join(f'{x:.4f}' for x in losses)} ({card})",
+              flush=True)
+        _check(counts == dict(fwd=expect, total=expect, fused=expect,
+                              dkdv=0, dq=0, delta=expect),
+               f"{tag} launch counts {counts}")
+        _check(all(math.isfinite(x) for x in losses), f"{tag} losses "
+               f"{losses}")
+        for kn, c in (("K1", counts["fwd"]), ("K4", counts["fused"]),
+                      ("K4 D prologue", counts["delta"])):
+            launches[kn] += c
+        for kn, c in (("K1", counts["fwd"]), ("K4", counts["fused"]),
+                      ("prologue", counts["delta"])):
+            launches[f"{kn} d256"] += c
+        return step
+
+    names = [nm for nm, _ in model.named_parameters()]
+
+    def loss_and_grads(m):
+        m.zero_grad(set_to_none=True)
+        loss = tfm.loss_fn(m, tokens)
+        loss.backward()
+        grads = [p.grad.clone() for p in m.parameters()]
+        m.zero_grad(set_to_none=True)
+        return loss.item(), grads
+
+    def rel_l2(ga, gb):
+        errs = [((a.float() - b.float()).norm() / b.float().norm()).item()
+                for a, b in zip(ga, gb)]
+        i = max(range(len(errs)), key=errs.__getitem__)
+        return errs[i], names[i]
+
+    plain_bwd = (lambda q, k, v, o, lse, do, block_sizes=None, fused=None,
+                 **kw:
+                 flash_attention_backward_plain(q, k, v, o, lse, do, **kw))
+
+    def against_plain(m, tag):
+        """The loss and every gradient of one step through the kernels
+        against the same on the plain attention functions."""
+        loss_k, grads_k = loss_and_grads(m)
+        with mock.patch.object(attention, "flash_attention_forward",
+                               flash_attention_forward_plain), \
+                mock.patch.object(attention, "flash_attention_backward",
+                                  plain_bwd):
+            loss_p, grads_p = loss_and_grads(m)
+        e_grad, worst = rel_l2(grads_k, grads_p)
+        del grads_p
+        print(f"[{tag}] kernels vs plain attention ({n} layers): loss "
+              f"{loss_k:.6f} vs {loss_p:.6f} (|d| "
+              f"{abs(loss_k - loss_p):.3e}, gate {LOSS_GATE}); worst "
+              f"gradient relative L2 {e_grad:.3e} ({worst}; gate "
+              f"{GRAD_GATE})", flush=True)
+        _check(abs(loss_k - loss_p) <= LOSS_GATE,
+               f"{tag}: kernel vs plain loss {loss_k} vs {loss_p}")
+        _check(e_grad <= GRAD_GATE, f"{tag}: kernel vs plain gradient of "
+               f"{worst}: relative L2 {e_grad:.3e}")
+        return loss_k, grads_k
+
+    # ---- the timed steps, a profile, the plain comparison, the split path
+    step = timed_steps(model, "gemma-train")
+    prof = kernel_times(lambda: step(tokens))
+    groups = {}
+    for nm, ms in prof.ms.items():
+        groups[_group_of(nm)] = groups.get(_group_of(nm), 0.0) + ms
+    print(f"[gemma-train] profile of one step: {sum(prof.count.values())} "
+          f"kernels, device busy {prof.busy_ms:.3f} ms of a profiled wall "
+          f"of {prof.wall_ms:.3f} ms ({prof.busy_ms / prof.wall_ms:.1%})"
+          + "".join(f"; {g} {ms:.3f} ms ({ms / prof.busy_ms:.1%})"
+                    for g, ms in sorted(groups.items(),
+                                        key=lambda kv: -kv[1]))
+          + f" ({card})", flush=True)
+    del step
+    loss_k, grads_k = against_plain(model, "gemma-train")
+    ctx.zero_counts()
+    with mock.patch.object(attention, "flash_attention_backward",
+                           functools.partial(flash_attention_backward,
+                                             fused=False)):
+        loss_s, grads_s = loss_and_grads(model)
+    torch.cuda.synchronize()
+    counts = dict(fwd=flash_attention_forward.launches, **bwd_launches)
+    e_split, worst = rel_l2(grads_s, grads_k)
+    del grads_s, grads_k
+    print(f"[gemma-train] split backward: launches K1 {counts['fwd']}, K2 "
+          f"{counts['dkdv']}, K3 {counts['dq']}, K4 {counts['fused']}, the "
+          f"prologue {counts['delta']} (expect {n} each, K4 0); loss "
+          f"{loss_s:.6f}; worst gradient relative L2 to the fused backward "
+          f"{e_split:.3e} ({worst}; gate {GRAD_GATE})", flush=True)
+    _check(counts == dict(fwd=n, fused=0, dkdv=n, dq=n, delta=n),
+           f"gemma split-backward launch counts {counts}")
+    _check(abs(loss_s - loss_k) <= LOSS_GATE and e_split <= GRAD_GATE,
+           f"gemma split vs fused backward: loss {loss_s} vs {loss_k}, "
+           f"gradient of {worst} {e_split:.3e}")
+    for kn in ("K1", "K2", "K3"):
+        c = counts["fwd" if kn == "K1" else "dkdv" if kn == "K2" else "dq"]
+        launches[kn] += c
+        launches[f"{kn} d256"] += c
+    launches["K4 D prologue"] += counts["delta"]
+    launches["prologue d256"] += counts["delta"]
+    del model
+
+    # ---- the windowed model (cfg.window = 1024)
+    torch.cuda.empty_cache()
+    wmodel = fresh(dataclasses.replace(cfg, window=LONG_WINDOW))
+    wstep = timed_steps(wmodel, f"gemma-wtrain window {LONG_WINDOW}")
+    del wstep
+    against_plain(wmodel, f"gemma-wtrain window {LONG_WINDOW}")
+    del wmodel
+
+    # ---- loss falls: 10 Adam steps on a fresh model and the same batch
+    torch.cuda.empty_cache()
+    model = fresh(cfg)
+    step = tfm.make_train_step(model,
+                               torch.optim.Adam(model.parameters(), lr=1e-3))
+    adam = [step(tokens).item() for _ in range(ADAM_STEPS)]
+    print(f"[gemma-train] Adam(1e-3), {ADAM_STEPS} steps, {n} layers: "
+          f"losses {', '.join(f'{x:.4f}' for x in adam)}", flush=True)
+    _check(all(math.isfinite(x) for x in adam) and adam[-1] < adam[0],
+           f"gemma Adam losses did not fall: {adam}")
+    del model, step
+
+
 def _phase_utils(ctx):
     """Checkpoint, trace, kernel report, memory snapshot and monitor on
     the card. The 271M training config takes 2 `make_train_step` steps
@@ -4324,7 +4708,8 @@ def main() -> int:
             "K1 fp32 Q over bf16", "K1b fp32 Q over bf16",
             "K5 fp32 Q over bf16", "K6 fp32 q over bf16",
             "K7 fp32 q over bf16", "K1 d256", "K1b d256", "K5 d256",
-            "K6 d256", "K7 d256")}
+            "K6 d256", "K7 d256", "K4 d256", "K2 d256", "K3 d256",
+            "prologue d256")}
     # launches on the main paths, summed over the runs that drive them
     launches = {kn: 0 for kn in rec}
 
@@ -5715,6 +6100,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     _phase_gemma_serving(ctx)
     torch.cuda.empty_cache()
+    _phase_wide_backward(ctx)
+    torch.cuda.empty_cache()
+    _phase_gemma_training(ctx)
+    torch.cuda.empty_cache()
     _phase_utils(ctx)
     torch.cuda.empty_cache()
     _phase_ladder_train(ctx)
@@ -5867,6 +6256,25 @@ def main() -> int:
          "builds, bit for bit K6's; the Gemma-width paged loop, also "
          "counted under K7; times at 4224 live tokens in 128-token pages)",
          "paged.cu", "paged.py:51"),
+        ("K4 d256", "flash_attention_backward at d = 256 (K4's d = 256 "
+         "build: 64-key CTAs, the warpgroups splitting the query columns "
+         "of S and dP and then d, dQ by atomics; the Gemma-width model's "
+         "train steps, also counted under K4; times at [1, 8, 4096, 256] "
+         "over 4 KV heads, causal)", "flash_bwd_kv.cu", "flash_bwd.py:252"),
+        ("K2 d256", "flash_attention_backward fused=False at d = 256 (K2's "
+         "d = 256 build; the Gemma-width model's split-backward step, also "
+         "counted under K2; times at [1, 8, 4096, 256], causal)",
+         "flash_bwd_kv.cu", "flash_bwd.py:117"),
+        ("K3 d256", "flash_attention_backward fused=False at d = 256 (K3's "
+         "d = 256 build: 32-key tiles beside resident Q and dO; the "
+         "Gemma-width model's split-backward step, also counted under K3; "
+         "times at [1, 8, 4096, 256], causal)", "flash_bwd.cu",
+         "flash_bwd.py:192"),
+        ("prologue d256", "flash_attention_backward's prologue at d = 256 "
+         "(D = rowsum(dO * O) and K4's zeroed dQ accumulator, one warp a "
+         "row; the Gemma-width model's train steps, also counted under "
+         "K4 D prologue; times at [1, 8, 4096, 256])", "flash_bwd_kv.cu",
+         "flash_bwd.py:252"),
     ]
     kernels = []
     for kn, name, source, replaces in described:

@@ -65,6 +65,13 @@
 // unchanged. A 64-row CTA with two 64-key stages would fit as well, but
 // with one consumer warpgroup and every K/V tile split once per 64 rows
 // instead of per 128.
+//
+// The d = 256 build (bf16) has the F32 d = 128 build's bytes: Q and dO
+// resident take 128 KB (four 64-column slabs of 128 rows each), so it
+// walks 32-key tiles too (wgmma m64n32 for S and dP, dQ += dS·K two k16
+// steps): a K + V stage is 32 KB, three stages (two under SEG) beside Q
+// and dO, 226 KB. Registers per consumer thread: dQ 128 (acc[4][32]), S
+// and dP 16 each (and their copies), dS 8, within setmaxnreg's 240.
 
 #include <math.h>
 
@@ -91,12 +98,13 @@ using cfa_bound::split_rows;
 using cfa_bound::tma_load_4d;
 using cfa_bound::wgmma_commit;
 using cfa_bound::wgmma_fence;
+using cfa_bound::wgmma_ss_bf16_n32;
 using cfa_bound::wgmma_wait_all;
 using cfa_bound::wgmma_wait_one;
 
 constexpr double kLog2e = 1.4426950408889634;
 constexpr int BM = cfa_bound::BM;  // query rows of a CTA (two warpgroups)
-constexpr int BN = cfa_bound::BN;  // keys of a streamed tile (F32: 32)
+constexpr int BN = cfa_bound::BN;  // keys of a tile (F32, d = 256: 32)
 constexpr int NTHREADS = 384;      // two consumer warpgroups and the producer's
 
 // What the kernel is given besides its four TMA maps (its own struct: the
@@ -117,12 +125,13 @@ struct DqArgs {
 // (D/64 slabs of 128 rows x 128 B each); NST stages of K and V (D/64 slabs
 // of KN rows x 128 B each) and the tile's key segment ids (SEG); barriers.
 // Under F32 each tile is a hi tile and a lo tile (lo right after hi) and a
-// key tile is 32 keys.
+// key tile is 32 keys, as at d = 256.
 template <int D, bool SEG, bool F32>
 struct Layout {
   static constexpr int PL = F32 ? 2 : 1;   // planes of a tile: hi (and lo)
-  static constexpr int KN = F32 ? 32 : BN;  // keys of a tile
-  static constexpr int NST = !F32 ? 4 : D == 64 ? 4 : SEG ? 2 : 3;  // stages
+  static constexpr bool K32 = F32 || D == 256;
+  static constexpr int KN = K32 ? 32 : BN;  // keys of a tile
+  static constexpr int NST = !K32 || D == 64 ? 4 : SEG ? 2 : 3;  // stages
   static constexpr int QT = BM * D * 2;    // the Q (or dO) tile (a plane)
   static constexpr int KV = KN * D * 2;    // a K (or V) tile (a plane)
   static constexpr int do_off = PL * QT;
@@ -216,28 +225,10 @@ __device__ __forceinline__ void probs(const DqArgs& a, float (&s)[N],
   }
 }
 
-// The F32 build's S (or dP) [64 x 32] of this warpgroup's rows = Q · Kᵀ
-// on 32-key split tiles (a lo tile right after its hi tile), as wgmma
-// m64n32k16; its dQ += dS · K is the body's pv_issue_f32 over 32 keys.
-#define CFA_D16(d)                                                        \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),        \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-#define CFA_REGS16                                                         \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
-
-// D[64x32] (+)= A[64x16] · B[16x32], bf16 from shared memory, both K-major.
-__device__ __forceinline__ void wgmma_ss_bf16_n32(float (&d)[16], uint64_t da,
-                                                  uint64_t db,
-                                                  int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " CFA_REGS16
-      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : CFA_D16(d)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
+// S (or dP) [64 x 32] of this warpgroup's rows = Q · Kᵀ on a 32-key tile
+// (the F32 build's and the d = 256 build's), as wgmma m64n32k16; dQ += dS
+// · K is the body's pv_issue (pv_issue_f32) over 32 keys; F32: split
+// tiles, a lo tile right after its hi tile.
 template <int D, bool ACC>
 __device__ __forceinline__ void qk32_issue(float (&s)[16], uint32_t q,
                                            uint32_t k, int wg) {
@@ -361,17 +352,17 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       if (lane == 0) {
         mbar_expect_tx(full + 8 * st, 2 * L::KV);
         for (int sl = 0; sl < SLABS; ++sl) {
-          tma_load_4d(dst + sl * BN * 128, &tm_k, full + 8 * st, sl * 64,
-                      t * BN, hk, b);
-          tma_load_4d(dst + L::KV + sl * BN * 128, &tm_v, full + 8 * st,
-                      sl * 64, t * BN, hk, b);
+          tma_load_4d(dst + sl * KN * 128, &tm_k, full + 8 * st, sl * 64,
+                      t * KN, hk, b);
+          tma_load_4d(dst + L::KV + sl * KN * 128, &tm_v, full + 8 * st,
+                      sl * 64, t * KN, hk, b);
         }
       }
       if (SEG) {
         int* ids = reinterpret_cast<int*>(smem + L::st_off + st * L::stage +
                                           L::ids);
-        for (int c = lane; c < BN; c += 32) {
-          const int key = t * BN + c;
+        for (int c = lane; c < KN; c += 32) {
+          const int key = t * KN + c;
           ids[c] = key < a.Nk ? a.kv_seg[(long long)b * a.Nk + key] : -2;
         }
         mbar_arrive(full + 8 * st);
@@ -443,6 +434,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         qk32_issue_f32<D>(s_acc, q_tile, k_tile, wg);
         wgmma_commit();
         qk32_issue_f32<D>(dp_acc, do_tile, v_tile, wg);
+      } else if constexpr (L::K32) {
+        qk32_issue<D, false>(s_acc, q_tile, k_tile, wg);
+        wgmma_commit();
+        qk32_issue<D, false>(dp_acc, do_tile, v_tile, wg);
       } else {
         cfa_bound::qk_issue<D>(s_acc, q_tile, k_tile, wg);
         wgmma_commit();
@@ -487,6 +482,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       wgmma_fence();
       if constexpr (F32) {
         cfa_bound::pv_issue_f32<D, false, KN>(dq, dsk, dsk_lo, k_tile);
+      } else if constexpr (L::K32) {
+        cfa_bound::pv_issue<D, KN>(dq, dsk, k_tile);
       } else {
         cfa_bound::pv_issue<D>(dq, dsk, k_tile);
       }
@@ -584,8 +581,8 @@ extern "C" int cfa_flash_bwd_q(const void* q, const void* k, const void* v,
   a.window = causal ? window : 0;
   a.kv_offset = kv_offset;
   // Q and dO [B,H,Nq,D] in boxes of 64 columns x R positions x Gp heads, K
-  // and V [B,Hkv,Nk,D] in boxes of 64 columns x 64 keys, 128 B swizzled,
-  // zeros past the live rows
+  // and V [B,Hkv,Nk,D] in boxes of 64 columns x 64 keys (32 at d = 256),
+  // 128 B swizzled, zeros past the live rows
   // (the fp32 build reads them through F32Src instead)
   cfa_bound::Maps mp = {};
   CUtensorMap m[4] = {};
@@ -598,7 +595,8 @@ extern "C" int cfa_flash_bwd_q(const void* q, const void* k, const void* v,
       for (int j = 0; j < 3; ++j) f.st[3 * t + j] = strides[3 * t + j];
     }
   } else if (!cfa_bound::make_maps(&mp, q, k, v, B, H, Hkv, Nq, Nk, D,
-                                   strides, kBf16, kBf16, 0, a.Gp, a.R) ||
+                                   strides, kBf16, kBf16, 0, a.Gp, a.R,
+                                   D == 256 ? 32 : BN) ||
              !cfa_bound::encode4(&m[3], dout, false, D, Nq, H, B, sd[2] * 2,
                                  sd[1] * 2, sd[0] * 2, 64, a.R, a.Gp, 128)) {
     return cudaErrorInvalidValue;
@@ -613,6 +611,9 @@ extern "C" int cfa_flash_bwd_q(const void* q, const void* k, const void* v,
     case 128:
       return f32 ? launch_form<128, true>(m, a, f, B, st)
                  : launch_form<128, false>(m, a, f, B, st);
+    case 256:  // bf16 only
+      return f32 ? cudaErrorInvalidValue
+                 : launch_form<256, false>(m, a, f, B, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -77,6 +77,28 @@
 // it), one Q/dO stage at d = 128, and there dQ goes into dq_acc by 8-byte
 // atomics from the registers, the staging tiles of the TMA reduce not
 // fitting (225 KB); at d = 64 it keeps both stages and the TMA reduce.
+//
+// The d = 256 build (bf16 only). Kept as at d = 128, a 128-key CTA would
+// hold dK and dV in 256 fp32 registers a thread (past the 255 a thread
+// has) and K, V, a Q + dO stage, the dS and staging tiles in ~390 KB. So:
+//   - A CTA owns 64 keys (K + V 64 KB), and the two warpgroups split the
+//     work instead of the keys: each computes Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ
+//     for all 64 keys over its 32 of the tile's 64 query columns (SS
+//     wgmma m64n32, so neither product is computed twice), P and dS in
+//     registers, and stores Pᵀ and dSᵀ (keys x queries) and, in K4, dS
+//     (queries x keys) into shared memory with stmatrix: three 8 KB
+//     tiles, 128 B swizzled.
+//   - After a barrier of both warpgroups, each owns 128 of the 256
+//     columns: dV += Pᵀ·dO and dK += dSᵀ·Q by SS wgmma (A = the Pᵀ / dSᵀ
+//     tile, K-major; B = dO / Q, MN-major), and K4's dQ_i = dS·K over the
+//     CTA's 64 keys, added into dq_acc by 8-byte atomics from the
+//     registers (the staging tiles of a TMA reduce do not fit beside two
+//     stages; 16-byte atomics measured no faster, utils/bwd_variants.py
+//     --d 256).
+// Budget at d = 256: shared memory K and V 64 KB, Pᵀ, dSᵀ and (K4) dS 24
+// KB, NST = 2 stages of Q, dO (64 KB) and the rows: 219 KB of 227 KB (K2
+// 211 KB); registers per consumer thread: dK and dV 128 (64 keys x 128
+// columns each), Sᵀ and dPᵀ 32, dQ 64 (live after Sᵀ and dPᵀ are spent).
 
 #include <math.h>
 
@@ -103,11 +125,13 @@ using cfa_bound::swz;
 using cfa_bound::tma_load_4d;
 using cfa_bound::wgmma_commit;
 using cfa_bound::wgmma_fence;
+using cfa_bound::wgmma_ss_bf16_n32;
 using cfa_bound::wgmma_wait_all;
 using cfa_bound::wgmma_wait_one;
 
 constexpr double kLog2e = 1.4426950408889634;
 constexpr int BK = 128;        // keys of a CTA (two warpgroups of 64)
+constexpr int BK_WIDE = 64;    // keys of a CTA at d = 256
 constexpr int BQ = 64;         // query rows of a streamed tile
 constexpr int NTHREADS = 384;  // two consumer warpgroups and the producer's
 static_assert(BK == cfa_bound::BM && BQ == cfa_bound::BN,
@@ -136,21 +160,30 @@ struct BwdArgs {
 // ids; barriers. Under F32 each of K, V, dS, Q and dO is a hi tile and a
 // lo tile (lo right after hi), twice the bytes: one dS tile, and at d =
 // 128 one stage and dQ added by vector atomics from the registers
-// (130 + 32 + 65 KB of the 227).
+// (130 + 32 + 65 KB of the 227). At d = 256 (WIDE) K and V hold 64 keys,
+// and the dS tiles are the Pᵀ, dSᵀ and (K4) dS tiles of 64 x 64, in that
+// order; dQ goes by atomics.
 template <int D, bool FUSED, bool F32>
 struct Layout {
+  static constexpr bool WIDE = D == 256;
+  static_assert(!(WIDE && F32), "no fp32 build at d = 256");
+  static constexpr int KB = WIDE ? BK_WIDE : BK;  // keys of a CTA
   static constexpr int PL = F32 ? 2 : 1;  // planes of a tile: hi (and lo)
   static constexpr int NST = F32 && D == 128 ? 1 : 2;  // Q/dO stages
   static constexpr int NDS = F32 ? 1 : 2;              // dS tiles
-  static constexpr bool RED = !F32 || D == 64;         // dQ by TMA reduce
-  static constexpr int KV = BK * D * 2;  // a bf16 K or V tile (or plane)
+  static constexpr bool RED = !WIDE && (!F32 || D == 64);  // dQ by TMA
+  static constexpr int KV = KB * D * 2;  // a bf16 K or V tile (or plane)
   static constexpr int QT = BQ * D * 2;
-  static constexpr int DS = BQ * BK * 2;
+  static constexpr int DS = BQ * KB * 2;
   static constexpr int k_off = 0;
   static constexpr int v_off = PL * KV;
   static constexpr int ds_off = 2 * PL * KV;
+  static constexpr int NT = WIDE ? (FUSED ? 3 : 2) : FUSED ? NDS * PL : 0;
+  static constexpr int pt_off = ds_off;        // WIDE: Pᵀ
+  static constexpr int dst_off = ds_off + DS;  // WIDE: dSᵀ
+  static constexpr int dsw_off = ds_off + 2 * DS;  // WIDE: dS (K4)
   static constexpr int STG = BQ * 64 * 4;  // a warpgroup's dQ staging
-  static constexpr int stg_off = ds_off + (FUSED ? NDS * PL * DS : 0);
+  static constexpr int stg_off = ds_off + NT * DS;
   static constexpr int st_off = stg_off + (FUSED && RED ? 2 * STG : 0);
   static constexpr int rows_off = 2 * PL * QT;  // within a stage
   static constexpr int stage = cfa_bound::align1k(rows_off + 3 * BQ * 4);
@@ -169,6 +202,16 @@ __device__ __forceinline__ void wgmma_ss_bf16_tb(float (&d)[32], uint64_t da,
       ", %32, %33, p, 1, 1, 0, 1;\n}\n"
       : CFA_D32(d)
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// Four 8x8 bf16 matrices of this warp's fragments, stored as they are.
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t r0,
+                                            uint32_t r1, uint32_t r2,
+                                            uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};" ::
+          "r"(addr), "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
 }
 
 // Four 8x8 bf16 matrices of this warp's fragments, stored transposed.
@@ -193,18 +236,22 @@ __device__ __forceinline__ void cta_tile(const BwdArgs& a, int& kt, int& hk,
   b = rest / a.Hkv;
 }
 
-// The Q tiles [first, last] that can see keys c0 .. c0 + BK − 1
+// The Q tiles [first, last] that can see keys c0 .. c0 + KB − 1
 // (ops/flash_bwd.py::_bwd_q_tiles states the same walk): causal rows see
-// keys <= row + kv_offset; with a window the last row that reaches the
-// tile's last key is that key − kv_offset + window − 1.
+// keys <= row + kv_offset, so none when the first row that sees key c0
+// lies past Nq; with a window the last row that reaches the tile's last
+// key is that key − kv_offset + window − 1.
+template <int KB>
 __device__ __forceinline__ void q_tiles(const BwdArgs& a, int c0, int& first,
                                         int& last) {
   first = 0;
   last = (a.Nq + BQ - 1) / BQ - 1;
   if (a.causal) {
-    first = max(0, c0 - a.kv_offset) / BQ;
+    const int row0 = max(0, c0 - a.kv_offset);
+    first = row0 / BQ;
+    if (row0 >= a.Nq) last = -1;
     if (a.window > 0) {
-      const int last_row = min(a.Nk, c0 + BK) - 2 + a.window - a.kv_offset;
+      const int last_row = min(a.Nk, c0 + KB) - 2 + a.window - a.kv_offset;
       last = last_row < 0 ? -1 : min(last, last_row / BQ);
     }
   }
@@ -223,18 +270,18 @@ __device__ __forceinline__ bool interior(const BwdArgs& a, int kc0, int q0,
   return true;
 }
 
-// P on this thread's 32 entries of Sᵀ (two key rows kr[0..1], the tile's
-// query columns in wgmma's accumulator layout): in place, p = exp2(s ·
-// scale·log2e − lse2[col]), 0 where masked. With MASKED false no element
-// is tested.
-template <bool MASKED, bool SEG>
-__device__ __forceinline__ void probs(const BwdArgs& a, float (&s)[32],
+// P on this thread's N entries of Sᵀ (two key rows kr[0..1], N / 2 query
+// columns from q0 in wgmma's accumulator layout: 64 at N = 32, the d =
+// 256 build's 32 at N = 16): in place, p = exp2(s · scale·log2e −
+// lse2[col]), 0 where masked. With MASKED false no element is tested.
+template <bool MASKED, bool SEG, int N = 32>
+__device__ __forceinline__ void probs(const BwdArgs& a, float (&s)[N],
                                       const float* lse2, const int* qseg,
                                       const int (&kr)[2], const int (&kseg)[2],
                                       int q0, int window) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int j = 0; j < 32; j += 2) {
+  for (int j = 0; j < N; j += 2) {
     const int col = 8 * (j >> 2) + 2 * (lane & 3);
     const int hr = (j >> 1) & 1;
     const float2 l = *reinterpret_cast<const float2*>(lse2 + col);
@@ -329,19 +376,20 @@ __device__ __forceinline__ void stage_dq(uint8_t* stg, const float (&d)[32]) {
 
 // This warpgroup's 64 rows of dK (or dV) as bf16 (fp32 under F32), past
 // Nk skipped.
-template <int D, bool F32>
-__device__ __forceinline__ void store_kv(void* out,
-                                         const float (&acc)[D / 64][32],
+// (NS slabs of 64 columns from col0: all D of them, or at d = 256 the
+// warpgroup's 128)
+template <int D, bool F32, int NS = D / 64>
+__device__ __forceinline__ void store_kv(void* out, const float (&acc)[NS][32],
                                          const int (&kr)[2], int Nk,
-                                         long long kv_base) {
+                                         long long kv_base, int col0 = 0) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int sl = 0; sl < D / 64; ++sl) {
+  for (int sl = 0; sl < NS; ++sl) {
 #pragma unroll
     for (int i = 0; i < 32; i += 2) {
       const int hr = (i >> 1) & 1;
       if (kr[hr] >= Nk) continue;
-      const int col = sl * 64 + 8 * (i >> 2) + 2 * (lane & 3);
+      const int col = col0 + sl * 64 + 8 * (i >> 2) + 2 * (lane & 3);
       const long long at = (kv_base + kr[hr]) * D + col;
       if (F32) {
         *reinterpret_cast<float2*>(static_cast<float*>(out) + at) =
@@ -356,7 +404,8 @@ __device__ __forceinline__ void store_kv(void* out,
 
 // This warpgroup's dQ part (64 rows x 64 columns from col0) added into
 // dq_acc by 8-byte atomics, rows past Nq skipped: K4's fp32 build at d =
-// 128, which has no room for the staging tiles of the TMA reduce.
+// 128 and its d = 256 build, which have no room for the staging tiles of
+// the TMA reduce.
 template <int D>
 __device__ __forceinline__ void add_dq(float* dq_acc, const float (&d)[32],
                                        int q0, int Nq, long long row_base,
@@ -371,6 +420,196 @@ __device__ __forceinline__ void add_dq(float* dq_acc, const float (&d)[32],
     atomicAdd(reinterpret_cast<float2*>(dq_acc + (row_base + q) * D + col),
               make_float2(d[j], d[j + 1]));
   }
+}
+
+// Sᵀ[64 keys x 32 queries] = K·Qᵀ at d = 256 (or dPᵀ = V·dOᵀ): k the
+// 64-key K (V) tile, q the first of 32 rows of the Q (dO) tile, both
+// K-major in four 64-column slabs.
+__device__ __forceinline__ void kq_issue_wide(float (&s)[16], uint32_t k,
+                                              uint32_t q) {
+#pragma unroll
+  for (int sl = 0; sl < 4; ++sl) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_ss_bf16_n32(s, make_desc(k + sl * BK_WIDE * 128 + kk * 32, 16,
+                                     1024, 1),
+                        make_desc(q + sl * BQ * 128 + kk * 32, 16, 1024, 1),
+                        sl + kk > 0);
+    }
+  }
+}
+
+// The d = 256 build's consumer warpgroups: both hold the CTA's 64 keys.
+// Per (query head, Q tile) pair warpgroup wg computes Sᵀ and dPᵀ over the
+// tile's query columns 32·wg .. 32·wg + 31, P and dS, and stores its
+// columns of Pᵀ, dSᵀ and (K4) dS; then, the tiles whole, dV and dK over
+// its 128 columns 128·wg .. and K4's dQ over the same columns.
+template <bool FUSED, bool SEG>
+__device__ __forceinline__ void wide_consumer(const BwdArgs& a, uint8_t* smem,
+                                              uint32_t full, uint32_t empty,
+                                              uint32_t kv_bar, int c0, int hk,
+                                              int b, int G, int first,
+                                              int per_head) {
+  using L = Layout<256, FUSED, false>;
+  constexpr int NST = L::NST;
+  const uint32_t base = smem_u32(smem);
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x & 31;
+  const int wp = (threadIdx.x >> 5) & 3;
+  const int window = a.causal ? a.window : 0;
+  int kr[2], kseg[2] = {0, 0};  // the thread's key rows and their ids
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    kr[hr] = c0 + 16 * wp + (lane >> 2) + 8 * hr;
+    if (SEG) {
+      kseg[hr] = kr[hr] < a.Nk ? a.kv_seg[(long long)b * a.Nk + kr[hr]] : -2;
+    }
+  }
+  float dk[2][32], dv[2][32];
+#pragma unroll
+  for (int sl = 0; sl < 2; ++sl) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      dk[sl][j] = 0.f;
+      dv[sl][j] = 0.f;
+    }
+  }
+  const uint32_t k_tile = base + L::k_off;
+  const uint32_t v_tile = base + L::v_off;
+  const uint32_t pt_tile = base + L::pt_off;
+  const uint32_t dst_tile = base + L::dst_off;
+  const uint32_t ds_tile = base + L::dsw_off;
+  if (per_head > 0) mbar_wait(kv_bar, 0);
+
+  int i = 0;
+  for (int g = 0; g < G; ++g) {
+    const int h = hk * G + g;
+    for (int it = first; it < first + per_head; ++it, ++i) {
+      const int st = i % NST;
+      const int q0 = it * BQ;
+      mbar_wait(full + 8 * st, (i / NST) & 1);
+      const uint32_t q_tile = base + L::st_off + st * L::stage;
+      const uint32_t do_tile = q_tile + L::QT;
+      const float* rows = reinterpret_cast<const float*>(
+          smem + L::st_off + st * L::stage + L::rows_off);
+
+      // Sᵀ = K·Qᵀ, then dPᵀ = V·dOᵀ, over this warpgroup's 32 query
+      // columns (rows 32·wg .. of the Q and dO slabs); P while dPᵀ is on
+      // the tensor cores
+      float s_acc[16], dp_acc[16];
+      wgmma_fence();
+      kq_issue_wide(s_acc, k_tile, q_tile + wg * 32 * 128);
+      wgmma_commit();
+      kq_issue_wide(dp_acc, v_tile, do_tile + wg * 32 * 128);
+      wgmma_commit();
+      wgmma_wait_one();
+      float p[16];
+      copy_after_wait(p, s_acc);
+      const int qc = 32 * wg;  // this warpgroup's first query column
+      if (!SEG && interior(a, c0, q0, window)) {
+        probs<false, false, 16>(a, p, rows + qc, nullptr, kr, kseg, q0 + qc,
+                                window);
+      } else {
+        probs<true, SEG, 16>(
+            a, p, rows + qc, reinterpret_cast<const int*>(rows) + 2 * BQ + qc,
+            kr, kseg, q0 + qc, window);
+      }
+      wgmma_wait_all();
+      float dp[16];
+      copy_after_wait(dp, dp_acc);
+
+      // dS = P ⊙ (dP − D)·scale; P and dS as bf16 pairs in the accumulator
+      // layout (pair 2·c + hr: key row hr, query columns 8·c + 2·(lane & 3))
+      uint32_t pk[8], dsk[8];
+#pragma unroll
+      for (int j = 0; j < 16; j += 2) {
+        const int col = qc + 8 * (j >> 2) + 2 * (lane & 3);
+        const float2 dl = *reinterpret_cast<const float2*>(rows + BQ + col);
+        __nv_bfloat162 pp = __floats2bfloat162_rn(p[j], p[j + 1]);
+        __nv_bfloat162 dd = __floats2bfloat162_rn(
+            p[j] * (dp[j] - dl.x) * a.scale,
+            p[j + 1] * (dp[j + 1] - dl.y) * a.scale);
+        pk[j >> 1] = *reinterpret_cast<uint32_t*>(&pp);
+        dsk[j >> 1] = *reinterpret_cast<uint32_t*>(&dd);
+      }
+      // the tiles are free once both warpgroups' products of the previous
+      // pair have landed
+      consumer_sync();
+      // Pᵀ and dSᵀ (key rows, query columns): matrix m of a stmatrix is
+      // key rows 16·warp + 8·(m & 1), query chunk qc / 8 + 2·c + (m >> 1);
+      // dS (query rows, key columns) the same matrices transposed
+      const int m = lane >> 3;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const uint32_t at = swz(16 * wp + 8 * (m & 1) + (lane & 7),
+                                qc / 8 + 2 * c + (m >> 1), 128);
+        stmatrix_x4(pt_tile + at, pk[4 * c], pk[4 * c + 1], pk[4 * c + 2],
+                    pk[4 * c + 3]);
+        stmatrix_x4(dst_tile + at, dsk[4 * c], dsk[4 * c + 1],
+                    dsk[4 * c + 2], dsk[4 * c + 3]);
+        if (FUSED) {
+          stmatrix_x4_trans(
+              ds_tile + swz(qc + 8 * (2 * c + (m >> 1)) + (lane & 7),
+                            2 * wp + (m & 1), 128),
+              dsk[4 * c], dsk[4 * c + 1], dsk[4 * c + 2], dsk[4 * c + 3]);
+        }
+      }
+      fence_proxy_async();
+      consumer_sync();
+
+      // dV += Pᵀ·dO and dK += dSᵀ·Q over this warpgroup's columns
+      // (slabs 2·wg, 2·wg + 1 of dO and Q, MN-major), and K4's dQ_i = dS·K
+      // over the same columns of K
+      float dq[2][32];
+      wgmma_fence();
+#pragma unroll
+      for (int sl = 0; sl < 2; ++sl) {
+        const int slab = 2 * wg + sl;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t da = make_desc(pt_tile + kk * 32, 16, 1024, 1);
+          const uint64_t dsa = make_desc(dst_tile + kk * 32, 16, 1024, 1);
+          wgmma_ss_bf16_tb(dv[sl], da,
+                           make_desc(do_tile + slab * BQ * 128 + kk * 2048,
+                                     1024, 1024, 1),
+                           1);
+          wgmma_ss_bf16_tb(dk[sl], dsa,
+                           make_desc(q_tile + slab * BQ * 128 + kk * 2048,
+                                     1024, 1024, 1),
+                           1);
+          if (FUSED) {
+            wgmma_ss_bf16_tb(
+                dq[sl], make_desc(ds_tile + kk * 32, 16, 1024, 1),
+                make_desc(k_tile + slab * L::KB * 128 + kk * 2048, 1024,
+                          1024, 1),
+                kk > 0);
+          }
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int sl = 0; sl < 2; ++sl) {
+        fence_regs(dk[sl]);
+        fence_regs(dv[sl]);
+        if (FUSED) fence_regs(dq[sl]);
+      }
+      // Q, dO and the rows are read
+      if (lane == 0) mbar_arrive(empty + 8 * st);
+      if (FUSED) {
+        const long long row_base = (long long)(b * a.H + h) * a.Nq;
+#pragma unroll
+        for (int sl = 0; sl < 2; ++sl) {
+          add_dq<256>(a.dq_acc, dq[sl], q0, a.Nq, row_base,
+                      128 * wg + 64 * sl);
+        }
+      }
+    }
+  }
+  // dK, dV cast once; a key tile that no query sees writes its zeros
+  const long long kv_base = (long long)(b * a.Hkv + hk) * a.Nk;
+  store_kv<256, false, 2>(a.dk, dk, kr, a.Nk, kv_base, 128 * wg);
+  store_kv<256, false, 2>(a.dv, dv, kr, a.Nk, kv_base, 128 * wg);
 }
 
 // K2 (FUSED = false) and K4 (FUSED = true); F32: fp32 Q, K, V, dO read
@@ -393,12 +632,13 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const uint32_t empty = full + 8 * NST;    // + 8 * stage
   const uint32_t kv_bar = empty + 8 * NST;
 
+  constexpr int KB = L::KB;
   int kt, hk, b;
   cta_tile(a, kt, hk, b);
-  const int c0 = kt * BK;
+  const int c0 = kt * KB;
   const int G = a.H / a.Hkv;
   int first, last;
-  q_tiles(a, c0, first, last);
+  q_tiles<KB>(a, c0, first, last);
   const int per_head = max(0, last - first + 1);
 
   if (threadIdx.x == 0) {
@@ -440,9 +680,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     } else if (!F32 && lane == 0 && per_head > 0) {
       mbar_expect_tx(kv_bar, 2 * L::KV);
       for (int sl = 0; sl < SLABS; ++sl) {
-        tma_load_4d(base + L::k_off + sl * BK * 128, &tm_k, kv_bar, sl * 64,
+        tma_load_4d(base + L::k_off + sl * KB * 128, &tm_k, kv_bar, sl * 64,
                     c0, hk, b);
-        tma_load_4d(base + L::v_off + sl * BK * 128, &tm_v, kv_bar, sl * 64,
+        tma_load_4d(base + L::v_off + sl * KB * 128, &tm_v, kv_bar, sl * 64,
                     c0, hk, b);
       }
     }
@@ -492,12 +732,19 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     return;
   }
 
-  // two consumer warpgroups, 64 keys each
+  // two consumer warpgroups, 64 keys each (at d = 256 both on the CTA's
+  // 64 keys, wide_consumer)
   if (F32) {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
   }
+  if constexpr (L::WIDE) {
+    wide_consumer<FUSED, SEG>(a, smem, full, empty, kv_bar, c0, hk, b, G,
+                              first, per_head);
+    return;
+  }
+  // d <= 128: each warpgroup on its own 64 keys
   const int window = a.causal ? a.window : 0;
   const int kc0 = c0 + 64 * wg;
   int kr[2], kseg[2] = {0, 0};  // the thread's key rows and their ids
@@ -689,7 +936,8 @@ cudaError_t launch(const CUtensorMap (&m)[5], const BwdArgs& a,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const int grid = ((a.Nk + BK - 1) / BK) * a.Hkv * a.B;
+  constexpr int KB = Layout<D, FUSED, F32>::KB;
+  const int grid = ((a.Nk + KB - 1) / KB) * a.Hkv * a.B;
   kernel<<<grid, NTHREADS, smem, stream>>>(m[0], m[1], m[2], m[3], m[4], a,
                                            f);
   return cudaGetLastError();
@@ -749,15 +997,16 @@ extern "C" int cfa_flash_bwd_kv(const void* q, const void* k, const void* v,
   a.scale = (float)scale;
   a.causal = causal; a.window = window; a.kv_offset = kv_offset;
   // Q and dO [B,H,Nq,D] in boxes of 64 columns x BQ rows; K and V
-  // [B,Hkv,Nk,D] in boxes of 64 columns x BK rows; 128 B swizzled, zeros
-  // past the live rows
+  // [B,Hkv,Nk,D] in boxes of 64 columns x BK rows (BK_WIDE at d = 256);
+  // 128 B swizzled, zeros past the live rows
   // (the fp32 build reads them through F32Src instead)
   CUtensorMap m[5] = {};
   F32Src f = {};
   const void* ptr[4] = {q, k, v, dout};
   const int heads[4] = {H, Hkv, Hkv, H};
   const int rows[4] = {Nq, Nk, Nk, Nq};
-  const int box[4] = {BQ, BK, BK, BQ};
+  const int kb = D == 256 ? BK_WIDE : BK;
+  const int box[4] = {BQ, kb, kb, BQ};
   for (int t = 0; t < 4; ++t) {
     const long long* s = strides + 3 * t;
     if (f32) {
@@ -794,6 +1043,9 @@ extern "C" int cfa_flash_bwd_kv(const void* q, const void* k, const void* v,
     case 128:
       return f32 ? launch_form<128, true>(m, a, f, st)
                  : launch_form<128, false>(m, a, f, st);
+    case 256:  // bf16 only
+      return f32 ? cudaErrorInvalidValue
+                 : launch_form<256, false>(m, a, f, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -958,6 +1210,9 @@ extern "C" int cfa_bwd_delta(const void* o, const void* dout, void* delta,
                                     do_f32, s);
     case 128:
       return launch_delta_types<128>(o, dout, dl, dq, rows, H, Nq, st, o_f32,
+                                     do_f32, s);
+    case 256:
+      return launch_delta_types<256>(o, dout, dl, dq, rows, H, Nq, st, o_f32,
                                      do_f32, s);
     default:
       return cudaErrorInvalidValue;

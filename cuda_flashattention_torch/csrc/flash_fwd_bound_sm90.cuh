@@ -249,6 +249,26 @@ __device__ __forceinline__ void wgmma_ss_bf16(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+#define CFA_D16(d)                                                        \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),        \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define CFA_REGS16                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// D[64x32] (+)= A[64x16] · B[16x32], bf16 from shared memory, both K-major
+// (K3's 32-key tiles; the d = 256 backward's half of a 64-row Q tile).
+__device__ __forceinline__ void wgmma_ss_bf16_n32(float (&d)[16], uint64_t da,
+                                                  uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " CFA_REGS16
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : CFA_D16(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 #define CFA_D32_HI(d)                                                     \
   "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),        \
       "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),    \

@@ -27,11 +27,12 @@ NEG_INF = -1e30
 
 # Head dims the CUDA kernels are instantiated for, by family: the forward
 # (K1, K1b, K5: csrc/flash_fwd*.cu; 256 for a bf16 Q only); the backward
-# (K2, K3, K4 and its prologue), FA1 (K8) and the device ring (K9); decode
-# (K6, K7: csrc/decode_body.cuh), which reads any d up to its largest
-# build in place on the next build up. The forward and backward families
-# run a narrower d on zero-padded heads (`pad_heads`).
+# (K2, K3, K4 and its prologue; 256 for bf16 only); FA1 (K8) and the
+# device ring (K9); decode (K6, K7: csrc/decode_body.cuh), which reads any
+# d up to its largest build in place on the next build up. The forward and
+# backward families run a narrower d on zero-padded heads (`pad_heads`).
 FWD_HEAD_DIMS = (64, 128, 256)
+BWD_HEAD_DIMS = (64, 128, 256)
 KERNEL_HEAD_DIMS = (64, 128)
 DECODE_HEAD_DIMS = (16, 32, 64, 128, 256)
 # the head dims of the forward's fp32-Q builds (F32, BF16KV and over
@@ -59,8 +60,10 @@ KMAJOR_MAX_SPAN = {64: 8, 128: 4, 256: 1}
 KMAJOR_MAX_SPAN_F32 = {64: 4, 128: 1}
 KMAJOR_MAX_SPAN_F32Q = {64: 8, 128: 3}
 # K2 and K4's pair (csrc/flash_bwd_kv.cu: 128-key CTAs stream 64-row Q
-# tiles); K3 runs at its own tile (128 rows, 64 keys; 32 in fp32) under it
+# tiles; 64-key CTAs at d = 256); K3 runs at its own tile (128 rows, 64
+# keys; 32 in fp32 and at d = 256) under it
 BWD_BLOCK_Q, BWD_BLOCK_K = 64, 128
+BWD_BLOCK_K_WIDE = 64
 # Below this many query rows "auto" keeps unquantized causal forwards on
 # the online softmax (K1), as the JAX function does; past it they take
 # the bound softmax on the K-major walk (K5).
@@ -80,7 +83,8 @@ def _kmajor_tiles(spans: Dict[int, int], d: int) -> Tuple[int, ...]:
 # (kernel, operand type, head dim the kernel runs at) -> (block_q choices,
 # block_k choices): the tiles each kernel is built for. The wrappers
 # validate a request against it; utils/autotune.py enumerates it. At d =
-# 256 the forward has its bf16-Q builds only ("bf16", "codes"), at 64 keys.
+# 256 the forward has its bf16-Q builds only ("bf16", "codes"), at 64 keys,
+# and K2 / K4 their bf16 builds, 64-key CTAs.
 BUILT_TILES: Dict[Tuple[str, str, int], Tuple[Tuple[int, ...],
                                               Tuple[int, ...]]] = {
     **{(kn, ty, d): ((FWD_BLOCK_Q,),
@@ -94,9 +98,10 @@ BUILT_TILES: Dict[Tuple[str, str, int], Tuple[Tuple[int, ...],
                          ("fp32/codes", KMAJOR_MAX_SPAN_F32Q),
                          ("fp32/bf16", KMAJOR_MAX_SPAN_F32Q))
        for d in spans},
-    **{(kn, ty, d): ((BWD_BLOCK_Q,), (BWD_BLOCK_K,))
+    **{(kn, ty, d): ((BWD_BLOCK_Q,),
+                     (BWD_BLOCK_K_WIDE if d == 256 else BWD_BLOCK_K,))
        for kn in ("K2", "K4") for ty in ("bf16", "fp32")
-       for d in KERNEL_HEAD_DIMS},
+       for d in BWD_HEAD_DIMS if d in KERNEL_HEAD_DIMS or ty == "bf16"},
 }
 
 
@@ -113,15 +118,15 @@ def tile_dim(kernel: str, d: int) -> Optional[int]:
     """The head dim `kernel` runs a call of head dim d at (narrower heads
     run padded, `pad_heads`), or None past its family's builds."""
     return run_dim(d, FWD_HEAD_DIMS if kernel in ("K1", "K1b", "K5")
-                   else KERNEL_HEAD_DIMS)
+                   else BWD_HEAD_DIMS)
 
 
 def built_tiles(kernel: str, ty: str,
                 d: int) -> Optional[Tuple[Tuple[int, ...], Tuple[int, ...]]]:
     """(block_q choices, block_k choices) of `kernel` over operands of type
     `ty` at head dim d (narrow heads run padded, `pad_heads`), or None
-    where no build takes that type at d (an fp32 Q or the backward at d =
-    256: the wrappers refuse such calls on the card)."""
+    where no build takes that type at d (an fp32 Q, forward or backward,
+    at d = 256: the wrappers refuse such calls on the card)."""
     return BUILT_TILES.get((kernel, ty, tile_dim(kernel, d)))
 
 
@@ -181,10 +186,11 @@ def check_tiles(kernel: str, ty: str, d: int, block_sizes, what: str,
 class BlockSizes:
     """Tile sizes of the attention kernels, under the JAX fields: the
     forward's query and key tiles, and the backward's (the 64-row Q tiles
-    that K2 / K4 stream past each 128-key CTA). The defaults are the
-    card's default tiles; `BUILT_TILES` lists every other choice. On the
-    card a tile is a template instance, not a run-time size: any built
-    tile runs any problem size (the kernels mask the ragged tail)."""
+    that K2 / K4 stream past each 128-key CTA, 64-key at d = 256). The
+    defaults are the card's default tiles; `BUILT_TILES` lists every other
+    choice. On the card a tile is a template instance, not a run-time
+    size: any built tile runs any problem size (the kernels mask the
+    ragged tail)."""
 
     block_q: int = FWD_BLOCK_Q
     block_k: int = 64
@@ -279,12 +285,13 @@ def pad_heads(what: str, *xs: Optional[torch.Tensor],
     """A kernel family's head dim for these tensors (their last dim d,
     which they share) and the tensors as its kernels take them: d itself
     when a build has it (`dims`: the forward's `FWD_HEAD_DIMS`, the
-    backward's, K8's and K9's `KERNEL_HEAD_DIMS`), with no copy; else, for
-    any d from 1 to the largest build, each tensor copied with zero
-    columns up to the next build. Zero columns of Q and K add nothing to
-    a score, nor to a row norm or an absmax; zero columns of V and dO give
-    zero columns of O, dQ, dK and dV, which the caller slices away. The
-    softmax scale must be resolved from d before (`resolve_scale`).
+    backward's `BWD_HEAD_DIMS`, K8's and K9's `KERNEL_HEAD_DIMS`), with no
+    copy; else, for any d from 1 to the largest build, each tensor copied
+    with zero columns up to the next build. Zero columns of Q and K add
+    nothing to a score, nor to a row norm or an absmax; zero columns of V
+    and dO give zero columns of O, dQ, dK and dV, which the caller slices
+    away. The softmax scale must be resolved from d before
+    (`resolve_scale`).
     Returns (d_run, [tensors]), None kept as None; ValueError past the
     largest build."""
     d = next(x for x in xs if x is not None).shape[-1]

@@ -7,9 +7,10 @@ hand-written Hopper kernels: the fused single pass K4 (dK/dV per 128-key
 tile, dQ added into an fp32 buffer by TMA reduces) by default, or the
 split pair K2 (dK/dV) + K3 (dQ) with `fused=False`, on bf16 or fp32
 inputs (each kernel's fp32 build splits every tile into bf16 hi and lo
-parts). K2 and K4 are one wgmma + TMA kernel (csrc/flash_bwd_kv.cu), K3
-the Q-major wgmma + TMA kernel of csrc/flash_bwd.cu. On a CPU tensor it
-runs
+parts) at d up to 128, and on bf16 inputs at d = 256 (64-key tiles, the
+two warpgroups splitting d; dQ added by atomics). K2 and K4 are one
+wgmma + TMA kernel (csrc/flash_bwd_kv.cu), K3 the Q-major wgmma + TMA
+kernel of csrc/flash_bwd.cu. On a CPU tensor it runs
 `flash_attention_backward_plain`, a dense PyTorch version of the same
 numerics; the CPU tests and the on-card comparisons use it.
 
@@ -23,9 +24,9 @@ is the PyTorch reduction of `flash_attention_backward_plain`.
 Masks are the forward's: causal with `kv_offset`, a sliding `window`,
 segment ids and the ragged tail. `block_sizes` names the backward's
 tiles (`block_q_bwd`, `block_k_bwd`): K2 and K4 are built for (64, 128)
-only, and K3 runs at its own tile under that pair; any other pair runs
-at that one (`ops.common.check_tiles` logs the mapping once), as the JAX
-kernels take any tile.
+only ((64, 64) at d = 256), and K3 runs at its own tile under that pair;
+any other pair runs at that one (`ops.common.check_tiles` logs the
+mapping once), as the JAX kernels take any tile.
 """
 
 from __future__ import annotations
@@ -38,8 +39,9 @@ import torch
 from cuda_flashattention_torch import _build
 from cuda_flashattention_torch.ops.common import (
     BWD_BLOCK_K,
+    BWD_BLOCK_K_WIDE,
     BWD_BLOCK_Q,
-    KERNEL_HEAD_DIMS,
+    BWD_HEAD_DIMS,
     NEG_INF,
     cdiv,
     check_qkv,
@@ -47,50 +49,70 @@ from cuda_flashattention_torch.ops.common import (
     kernel_operand,
     pad_heads,
     resolve_scale,
+    run_dim,
 )
 
 _LOG2E = 1.4426950408889634
 
 # K2/K4's tiles (csrc/flash_bwd_kv.cu): a CTA owns BK keys, two warpgroups
-# of 64, and streams the query rows that see them BQ at a time
+# of 64 (64 keys, both warpgroups, at d = 256), and streams the query rows
+# that see them BQ at a time
 _BWD_BK = BWD_BLOCK_K
 _BWD_BQ = BWD_BLOCK_Q
 
 
+def _bwd_key_tile(d: int) -> int:
+    """Keys of a K2/K4 CTA for a call of head dim d: 128, or 64 where the
+    call runs on the d = 256 build."""
+    return BWD_BLOCK_K_WIDE if run_dim(d, BWD_HEAD_DIMS) == 256 else _BWD_BK
+
+
 def _bwd_q_tiles(c0: int, nq: int, nk: int, causal: bool, window: int,
-                 kv_offset: int) -> Tuple[int, int]:
-    """The Q tiles [first, last] that the K2/K4 CTA of the key tile at c0
-    walks (for each query head of its group), as the kernel's `q_tiles`
+                 kv_offset: int, bk: int = _BWD_BK) -> Tuple[int, int]:
+    """The Q tiles [first, last] that the K2/K4 CTA of the `bk`-key tile at
+    c0 walks (for each query head of its group), as the kernel's `q_tiles`
     computes them: causal rows see keys <= row + kv_offset, so the first
-    tile holds row c0 − kv_offset; with a window the last row that reaches
-    the tile's last key is that key − kv_offset + window − 1. Empty when
-    first > last. Exactly the tiles with a visible pair (segment ids
-    aside, which mask inside the walk)."""
+    tile holds row c0 − kv_offset (none when that row lies past nq); with
+    a window the last row that reaches the tile's last key is that key −
+    kv_offset + window − 1. Empty when first > last. Exactly the tiles
+    with a visible pair (segment ids aside, which mask inside the walk)."""
     first, last = 0, cdiv(nq, _BWD_BQ) - 1
     if causal:
-        first = max(0, c0 - kv_offset) // _BWD_BQ
+        row0 = max(0, c0 - kv_offset)
+        first = row0 // _BWD_BQ
+        if row0 >= nq:
+            last = -1
         if window > 0:
-            last_row = min(nk, c0 + _BWD_BK) - 2 + window - kv_offset
+            last_row = min(nk, c0 + bk) - 2 + window - kv_offset
             last = -1 if last_row < 0 else min(last, last_row // _BWD_BQ)
     return first, last
 
 
-def _bwd_cta_order(nk: int, h_kv: int, b: int) -> List[Tuple[int, int, int]]:
+def _bwd_cta_order(nk: int, h_kv: int, b: int,
+                   bk: int = _BWD_BK) -> List[Tuple[int, int, int]]:
     """(key tile, KV head, batch) of each K2/K4 CTA in launch order, as the
-    kernel's `cta_tile` maps its block index: key tiles slowest, so that
-    under causal, where key tile 0 sees the most queries, the longest walks
-    start in the first wave."""
+    kernel's `cta_tile` maps its block index (`bk`-key tiles): key tiles
+    slowest, so that under causal, where key tile 0 sees the most queries,
+    the longest walks start in the first wave."""
     return [(kt, lin % h_kv, lin // h_kv)
-            for kt in range(cdiv(nk, _BWD_BK)) for lin in range(h_kv * b)]
+            for kt in range(cdiv(nk, bk)) for lin in range(h_kv * b)]
 
 
 # K3's tiles (csrc/flash_bwd.cu): a CTA owns 128 query rows, the Gp query
 # heads of one KV head packed as K1 packs them (R = 128 / Gp positions
 # each), and streams the key tiles they see, 64 keys at a time (32 in its
-# fp32 build, whose split tiles take twice the shared memory)
+# fp32 build, whose split tiles take twice the shared memory, and in its d
+# = 256 build, whose resident Q and dO take as much)
 _DQ_BM = 128
 _DQ_BN = 64
 _DQ_BN_F32 = 32
+
+
+def _dq_key_tile(d: int) -> int:
+    """Keys of a K3 key tile for a bf16 call of head dim d: 64, or 32
+    where the call runs on the d = 256 build (as in the fp32 build,
+    `_DQ_BN_F32`)."""
+    return _DQ_BN_F32 if run_dim(d, BWD_HEAD_DIMS) == 256 else _DQ_BN
 
 
 def _dq_packing(h: int, h_kv: int) -> Tuple[int, int]:
@@ -105,8 +127,9 @@ def _dq_packing(h: int, h_kv: int) -> Tuple[int, int]:
 def _dq_key_tiles(q0: int, r: int, nq: int, nk: int, causal: bool,
                   window: int, kv_offset: int,
                   bn: int = _DQ_BN) -> Tuple[int, int]:
-    """The key tiles [begin, end) of `bn` keys (`_DQ_BN`, or `_DQ_BN_F32`
-    in the fp32 build) that the K3 CTA of positions q0 .. q0 + r − 1
+    """The key tiles [begin, end) of `bn` keys (`_dq_key_tile`: `_DQ_BN`,
+    or `_DQ_BN_F32` in the fp32 and d = 256 builds) that the K3 CTA of
+    positions q0 .. q0 + r − 1
     walks, as the kernel's `key_tiles` computes them: causal rows see keys
     <= pos + kv_offset, so the walk ends at the tile holding the last
     row's; with a window it starts at the tile of the first row's first
@@ -208,8 +231,8 @@ def delta_plain(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 def _launch_delta(o, do, dq_acc=None):
     """The prologue on CUDA tensors: D [B, H, Nq] fp32 from O and dO
-    (bf16 or fp32 each, at d 64 or 128), and dq_acc zeroed when given;
-    counted under `launches["delta"]`."""
+    (bf16 or fp32 each, at d 64, 128 or 256), and dq_acc zeroed when
+    given; counted under `launches["delta"]`."""
     for name, x in (("o", o), ("do", do)):
         if x.dtype not in (torch.bfloat16, torch.float32):
             raise NotImplementedError(
@@ -281,15 +304,28 @@ def _launch_dkdv(prep):
     return dk, dv
 
 
+def _pad_bwd(q, k, v, o, do):
+    """(d_run, [q, k, v, o, do]) as the backward's builds take them
+    (`pad_heads` over `BWD_HEAD_DIMS`); NotImplementedError for fp32
+    operands past d = 128, where only the bf16 build is (its fp32 split
+    tiles would not fit beside the resident ones)."""
+    d = q.shape[-1]
+    if q.dtype == torch.float32 and run_dim(d, BWD_HEAD_DIMS) == 256:
+        raise NotImplementedError(
+            f"the CUDA backward takes fp32 q/k/v/dO at d up to 128 (its "
+            f"fp32 builds), got fp32 at d = {d}: the d = 256 builds take "
+            f"bf16")
+    return pad_heads("backward", q, k, v, o, do, dims=BWD_HEAD_DIMS)
+
+
 def _dkdv_cuda(q, k, v, o, lse, do, scale=None, causal=False, window=0,
                kv_offset=0, q_segment_ids=None, kv_segment_ids=None):
     """K2 alone on CUDA tensors, with `flash_attention_backward`'s
     arguments: (dK, dV) in k's dtype, counted under `launches["dkdv"]`:
-    the split path's first kernel, timed on its own. Narrow heads run
-    padded, as in `_bwd_cuda`."""
+    the split path's first kernel, timed on its own. Heads between the
+    builds run padded, as in `_bwd_cuda`."""
     d = q.shape[-1]
-    _, (q, k, v, o, do) = pad_heads("backward", q, k, v, o, do,
-                         dims=KERNEL_HEAD_DIMS)
+    _, (q, k, v, o, do) = _pad_bwd(q, k, v, o, do)
     dk, dv = _launch_dkdv(_bwd_prepare(
         q, k, v, o, lse, do, resolve_scale(scale, d), causal, window,
         kv_offset, q_segment_ids, kv_segment_ids))
@@ -299,10 +335,10 @@ def _dkdv_cuda(q, k, v, o, lse, do, scale=None, causal=False, window=0,
 def _bwd_cuda(q, k, v, o, lse, do, scale, causal, window, kv_offset, q_seg,
               kv_seg, fused):
     d = q.shape[-1]
-    d_run, padded = pad_heads("backward", q, k, v, o, do,
-                         dims=KERNEL_HEAD_DIMS)
+    d_run, padded = _pad_bwd(q, k, v, o, do)
     if d_run != d:
-        # the d = 64 or 128 build on zero-padded heads, at d's scale
+        # the next build up (64, 128, 256) on zero-padded heads, at d's
+        # scale
         q, k, v, o, do = padded
         grads = _bwd_cuda(q, k, v, o, lse, do, resolve_scale(scale, d),
                           causal, window, kv_offset, q_seg, kv_seg, fused)
@@ -365,11 +401,13 @@ def flash_attention_backward(
     counterpart (K4 keeps no full-sequence state on chip), so neither it
     nor the environment knobs are ported. `block_sizes`: its
     (`block_q_bwd`, `block_k_bwd`) runs at the built (64, 128), whatever
-    it names; the forward's fields are not read here. On the card the kernels take
-    d in {64, 128} (any d below 128 on zero-padded heads, as the forward;
-    d past 128 raises ValueError: no build) and bf16 q/k/v/dO, or fp32 ones
+    it names (at d = 256 the built (64, 64)); the forward's fields are not
+    read here. On the card the kernels take d in {64, 128, 256} (any other
+    d up to 256 on zero-padded heads, as the forward; d past 256 raises
+    ValueError: no build) and bf16 q/k/v/dO, or up to d = 128 fp32 ones
     through the kernels' fp32 builds (each tile split into bf16 hi and lo
-    parts; the gradients come back fp32), fused or split.
+    parts; the gradients come back fp32), fused or split; fp32 past d =
+    128 raises NotImplementedError naming "fp32 at d = 256".
     The counts of their launches are
     `flash_attention_backward.launches["dkdv"]`, `["dq"]` and `["fused"]`,
     and of the prologue before them (D, and K4's zeroed accumulator)

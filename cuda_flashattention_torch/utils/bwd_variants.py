@@ -2,7 +2,8 @@
 csrc/flash_bwd_kv.cu) beside the source as it stands, in one process on
 one card.
 
-    python3 cuda_flashattention_torch/utils/bwd_variants.py [name ...]
+    python3 cuda_flashattention_torch/utils/bwd_variants.py [--d 256] \
+        [name ...]
 
 Each variant is the kernel's source with a few text substitutions (so the
 design choices its source note reports can be measured again), built by
@@ -18,12 +19,19 @@ as `ops/flash_bwd.py`. Names (join several with "+"):
   late_wait   dV/dK's wgmma waited for together with dQ's
   ascending   key tiles fastest in the CTA order, not heaviest first
   stages3     three Q/dO stages (fits only beside red_v4)
+  wide_v4     the d = 256 build's dQ added by 16-byte atomics (lanes
+              t and t ^ 1 swap half their pairs) in place of add_dq's
+              8-byte ones
+  wide_no_dq_add  the d = 256 build's dQ product without its atomics
+              (dQ wrong: what they cost)
 Default: as_is red_v4 no_reduce no_dq_add late_wait ascending
-red_v4+stages3. Prints each variant's largest relative error of dQ, dK and
-dV against `flash_attention_backward_plain` at the training shape, then
-K4's and K2's kernel ms (one launch between CUDA events, median of 30)
-at the shapes of `utils/ab_kernels.py` plus GQA (Hkv=4), the variants in
-turn and then in reverse. Needs a CUDA device and nvcc.
+red_v4+stages3 (at --d 256: as_is wide_v4 wide_no_dq_add). Prints each variant's largest
+relative error of dQ, dK and dV against `flash_attention_backward_plain`
+at the training shape, then K4's and K2's kernel ms (one launch between
+CUDA events, median of 30) at the shapes of `utils/ab_kernels.py` plus
+GQA (Hkv=4) (at --d 256: the Gemma-width layer, B=1, 8 query heads over 4
+KV heads, N=4096, causal, window 1024 and unmasked), the variants in turn
+and then in reverse. Needs a CUDA device and nvcc.
 """
 
 import ctypes
@@ -78,6 +86,35 @@ _STAGING = """          // dQ_i's part into the staging tile, then added into dq
                               h, b);
             bulk_commit();
           }
+"""
+
+# the d = 256 build's dQ by 16-byte atomics (wide_v4)
+_ADD_DQ_WIDE = """// The d = 256 build's dQ part (64 rows x 64 columns from col0) added into
+// dq_acc by 16-byte atomics, rows past Nq skipped: lanes t and t ^ 1 swap
+// half their pairs, so that the even lane holds four adjacent columns of
+// row r and the odd lane of row r + 8 (half the atomics of add_dq).
+__device__ __forceinline__ void add_dq_wide_v4(float* dq_acc,
+                                               const float (&d)[32], int q0,
+                                               int Nq, long long row_base,
+                                               int col0) {
+  const int lane = threadIdx.x & 31;
+  const bool odd = lane & 1;
+  const int q = q0 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2) +
+                (odd ? 8 : 0);
+  float* dst = dq_acc + (row_base + q) * 256 + col0 + 2 * (lane & 3) -
+               (odd ? 2 : 0);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float* x = &d[4 * j];
+    const float r0 = __shfl_xor_sync(0xffffffffu, odd ? x[0] : x[2], 1);
+    const float r1 = __shfl_xor_sync(0xffffffffu, odd ? x[1] : x[3], 1);
+    if (q >= Nq) continue;
+    atomicAdd(reinterpret_cast<float4*>(dst + 8 * j),
+              odd ? make_float4(r0, r1, x[2], x[3])
+                  : make_float4(x[0], x[1], r0, r1));
+  }
+}
+
 """
 
 _EARLY_WAIT = """      wgmma_commit();
@@ -137,9 +174,20 @@ VARIANTS = {
     ],
     "stages3": [("  static constexpr int NST = F32 && D == 128 ? 1 : 2;",
                  "  static constexpr int NST = F32 && D == 128 ? 1 : 3;")],
+    "wide_v4": [
+        ("// Sᵀ[64 keys x 32 queries] = K·Qᵀ at d = 256",
+         _ADD_DQ_WIDE + "// Sᵀ[64 keys x 32 queries] = K·Qᵀ at d = 256"),
+        ("          add_dq<256>(a.dq_acc, dq[sl], q0, a.Nq, row_base,\n"
+         "                      128 * wg + 64 * sl);",
+         "          add_dq_wide_v4(a.dq_acc, dq[sl], q0, a.Nq, row_base,\n"
+         "                         128 * wg + 64 * sl);")],
+    "wide_no_dq_add": [
+        ("          add_dq<256>(a.dq_acc, dq[sl], q0, a.Nq, row_base,\n"
+         "                      128 * wg + 64 * sl);", "")],
 }
 DEFAULT = ["as_is", "red_v4", "no_reduce", "no_dq_add", "late_wait",
            "ascending", "red_v4+stages3"]
+DEFAULT_WIDE = ["as_is", "wide_v4", "wide_no_dq_add"]
 
 
 def variant_source(src: str, name: str, variants=None) -> str:
@@ -155,7 +203,7 @@ def variant_source(src: str, name: str, variants=None) -> str:
     return src
 
 
-def main(names) -> None:
+def main(names, d: int = 128) -> None:
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
     import torch
 
@@ -241,10 +289,15 @@ def main(names) -> None:
                dict(causal=True, window=1024)),
               ("train no mask", (1, 16, 16, 4096), dict(causal=False)),
               ("prefill", (8, 16, 4, 512), dict(causal=True))]
+    if d == 256:
+        shapes = [("train causal", (1, 8, 4, 4096), dict(causal=True)),
+                  ("train window 1024", (1, 8, 4, 4096),
+                   dict(causal=True, window=1024)),
+                  ("train no mask", (1, 8, 4, 4096), dict(causal=False))]
     cases = []
     for label, (b, h, h_kv, n), kw in shapes:
-        q, do = mk(b, h, n, 128), mk(b, h, n, 128)
-        k, v = mk(b, h_kv, n, 128), mk(b, h_kv, n, 128)
+        q, do = mk(b, h, n, d), mk(b, h, n, d)
+        k, v = mk(b, h_kv, n, d), mk(b, h_kv, n, d)
         o, lse = flash_attention_forward(q, k, v, **kw)
         cases.append((label, (q, k, v, o, lse, do), kw))
     card = torch.cuda.get_device_name(0)
@@ -275,4 +328,8 @@ def main(names) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or DEFAULT)
+    argv = sys.argv[1:]
+    width = 128
+    if argv[:1] == ["--d"]:
+        width, argv = int(argv[1]), argv[2:]
+    main(argv or (DEFAULT_WIDE if width == 256 else DEFAULT), width)

@@ -213,8 +213,9 @@ def test_cli_parses_the_jax_arguments(monkeypatch):
 
 def test_candidates_at_d256_are_its_builds():
     """At d = 256 the forward's bf16 builds have the 64-key tile alone (K5
-    a span of one tile); the backward and an fp32 forward have no build,
-    so there is nothing to tune."""
+    a span of one tile) and the backward's bf16 build the pair (64, 64);
+    an fp32 forward or backward has no build, so there is nothing to
+    tune."""
     assert autotune.candidate_blocks(4096, 4096, 256, causal=True) == [
         (128, 64)]
     assert autotune.candidate_blocks(8192, 8192, 256, causal=True) == [
@@ -222,21 +223,33 @@ def test_candidates_at_d256_are_its_builds():
     assert autotune.candidate_blocks(512, 3584, 256) == [(128, 64)]
     # a d between builds runs on the next one up
     assert autotune.candidate_blocks(512, 3584, 200) == [(128, 64)]
-    with pytest.raises(NotImplementedError, match="K4 takes bf16"):
-        autotune.candidate_blocks(4096, 4096, 256, mode="bwd")
+    assert autotune.candidate_blocks(4096, 4096, 256, mode="bwd") == [
+        (64, 64)]
+    with pytest.raises(NotImplementedError, match="K4 takes fp32"):
+        autotune.candidate_blocks(4096, 4096, 256, mode="bwd",
+                                  dtype=torch.float32)
     with pytest.raises(NotImplementedError, match="fp32"):
         autotune.candidate_blocks(4096, 4096, 256, causal=True,
                                   dtype=torch.float32)
 
 
 def test_autotune_at_d256(tuner):
-    """The sweep at d = 256 times its one built tile and keeps it; a
-    request for the backward's tiles there raises before any timing."""
+    """The sweep at d = 256 times its one built tile and keeps it, the
+    backward's sweep its one built pair (64, 64); a request for the
+    backward's tiles over fp32 there raises before any timing."""
     tuner["pick"] = _pick_tile
     bs = autotune.autotune_block_sizes(nq=80, nk=80, d=256, heads=2,
                                        causal=True, iters=1, device="cpu")
     assert bs == BlockSizes(block_k=64)
     assert tuner["calls"] == [64]
+    tuner["pick"] = _pick_bwd
+    bs = autotune.autotune_block_sizes(nq=80, nk=80, d=256, heads=2,
+                                       causal=True, mode="bwd", iters=1,
+                                       device="cpu")
+    assert (bs.block_q_bwd, bs.block_k_bwd) == (64, 64)
+    assert tuner["calls"] == [64, (64, 64)]
     with pytest.raises(NotImplementedError):
         autotune.autotune_block_sizes(nq=80, nk=80, d=256, heads=2,
-                                      mode="bwd", iters=1, device="cpu")
+                                      mode="bwd", dtype=torch.float32,
+                                      iters=1, device="cpu")
+    assert tuner["calls"] == [64, (64, 64)]

@@ -440,9 +440,10 @@ def test_ring_decode_with_explicit_split_matches_one_device(block_k):
 
 def test_table_lists_the_d256_builds():
     """d = 256: K1 and K1b over bf16 or one-byte K/V at 64 keys, K5 at a
-    span of one tile; no fp32-Q build and no backward there. A width
-    between builds looks up the next build up, and one past every build
-    of its family has none."""
+    span of one tile, K2 and K4 over bf16 at (64, 64) (64-key CTAs); no
+    fp32 build there, forward or backward. A width between builds looks
+    up the next build up, and one past every build of its family has
+    none."""
     for ty in ("bf16", "codes"):
         for kn in ("K1", "K1b", "K5"):
             assert BUILT_TILES[kn, ty, 256] == ((128,), (64,))
@@ -451,8 +452,11 @@ def test_table_lists_the_d256_builds():
             assert (kn, ty, 256) not in BUILT_TILES
             assert common.built_tiles(kn, ty, 200) is None
     for kn in ("K2", "K4"):
-        assert (kn, "bf16", 256) not in BUILT_TILES
-        assert common.built_tiles(kn, "bf16", 256) is None
+        assert BUILT_TILES[kn, "bf16", 256] == ((64,), (64,))
+        assert common.built_tiles(kn, "bf16", 200) == ((64,), (64,))
+        assert (kn, "fp32", 256) not in BUILT_TILES
+        assert common.built_tiles(kn, "fp32", 200) is None
+        assert common.built_tiles(kn, "bf16", 257) is None
     assert common.built_tiles("K1", "bf16", 96) == BUILT_TILES["K1", "bf16",
                                                                128]
     assert common.built_tiles("K1b", "codes", 130) == BUILT_TILES[
@@ -462,8 +466,9 @@ def test_table_lists_the_d256_builds():
 
 def test_d256_tiles_map_to_the_built_one(capsys):
     """block_k = 128 (a 128-key build at d <= 128) runs at 64 keys at d =
-    256, logged once; K5's 192 too; an fp32 Q at d = 256 has no build,
-    so no mapping (the card refuses the call, the CPU ignores the tile)."""
+    256, logged once; K5's 192 too, and the backward's default (64, 128)
+    at K4's (64, 64); an fp32 Q at d = 256 has no build, so no mapping
+    (the card refuses the call, the CPU ignores the tile)."""
     assert common.check_tiles("K1", "bf16", 256, BlockSizes(block_k=128),
                        "test256") == 64
     assert common.check_tiles("K5", "codes", 256, BlockSizes(block_k=192),
@@ -473,6 +478,9 @@ def test_d256_tiles_map_to_the_built_one(capsys):
     assert common.check_tiles("K1", "fp32", 256, BlockSizes(block_k=128),
                        "test256") is None
     assert common.check_tiles("K4", "bf16", 256, BlockSizes(), "test256",
+                       bwd=True) == 64
+    assert "(64, 128) runs as (64, 64)" in capsys.readouterr().err
+    assert common.check_tiles("K4", "fp32", 256, BlockSizes(), "test256",
                        bwd=True) is None
 
 

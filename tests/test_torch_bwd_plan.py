@@ -1,7 +1,9 @@
 """The backward's walks on the CPU: which Q tiles each 128-key tile of the
-key-parallel kernel (K2 and K4, csrc/flash_bwd_kv.cu) visits, which key
-tiles each 128-row query tile of the dQ kernel (K3, csrc/flash_bwd.cu)
-visits, and the order of their CTAs.
+key-parallel kernel (K2 and K4, csrc/flash_bwd_kv.cu; 64-key tiles in its
+d = 256 build) visits, which key tiles each 128-row query tile of the dQ
+kernel (K3, csrc/flash_bwd.cu; 64-key tiles, 32-key in its fp32 and d =
+256 builds) visits, and the order of their CTAs. The walk tests run at d
+= 128 and d = 256, each at its build's tiles.
 
 `_bwd_q_tiles` / `_bwd_cta_order` and `_dq_key_tiles` / `_dq_cta_order`
 state what the kernels' `q_tiles` / `key_tiles` and `cta_tile` compute.
@@ -21,6 +23,9 @@ from cuda_flashattention_torch.ops.flash_fwd import (
     flash_attention_forward_plain)
 
 BK, BQ = fb._BWD_BK, fb._BWD_BQ
+# the head dims whose builds walk different tiles: 128-key K2/K4 CTAs and
+# 64-key K3 tiles at d = 128, 64-key and 32-key ones at d = 256
+WALK_DIMS = [128, 256]
 
 # (nq, nk, causal, window, kv_offset)
 CASES = [
@@ -58,34 +63,39 @@ def _visible(nq, nk, causal, window, kv_offset):
     return vis
 
 
+@pytest.mark.parametrize("d", WALK_DIMS)
 @pytest.mark.parametrize("nq,nk,causal,window,kv_offset", CASES)
 def test_walk_visits_exactly_the_tiles_with_a_visible_pair(
-        nq, nk, causal, window, kv_offset):
+        nq, nk, causal, window, kv_offset, d):
+    bk = fb._bwd_key_tile(d)
     vis = _visible(nq, nk, causal, window, kv_offset)
-    for kt in range(cdiv(nk, BK)):
-        c0 = kt * BK
-        first, last = fb._bwd_q_tiles(c0, nq, nk, causal, window, kv_offset)
+    for kt in range(cdiv(nk, bk)):
+        c0 = kt * bk
+        first, last = fb._bwd_q_tiles(c0, nq, nk, causal, window, kv_offset,
+                                      bk)
         walked = set(range(first, last + 1))
         assert walked <= set(range(cdiv(nq, BQ)))
         seen = {qt for qt in range(cdiv(nq, BQ))
-                if vis[qt * BQ:(qt + 1) * BQ, c0:c0 + BK].any()}
+                if vis[qt * BQ:(qt + 1) * BQ, c0:c0 + bk].any()}
         assert walked == seen, (kt, first, last, sorted(seen))
 
 
+@pytest.mark.parametrize("d", WALK_DIMS)
 @pytest.mark.parametrize("nk,h_kv,b", [(4096, 16, 1), (1000, 4, 2),
                                        (127, 2, 3), (129, 1, 1),
                                        (16384, 4, 1)])
-def test_cta_order_is_every_tile_once_heaviest_first(nk, h_kv, b):
-    order = fb._bwd_cta_order(nk, h_kv, b)
+def test_cta_order_is_every_tile_once_heaviest_first(nk, h_kv, b, d):
+    bk = fb._bwd_key_tile(d)
+    order = fb._bwd_cta_order(nk, h_kv, b, bk)
     assert sorted(order) == sorted(
-        (kt, hk, bb) for kt in range(cdiv(nk, BK)) for hk in range(h_kv)
+        (kt, hk, bb) for kt in range(cdiv(nk, bk)) for hk in range(h_kv)
         for bb in range(b))
     kts = [kt for kt, _, _ in order]
     assert kts == sorted(kts)
     # under causal the walks only shorten along the order
     nq = nk
     work = [max(0, last - first + 1) for first, last in (
-        fb._bwd_q_tiles(kt * BK, nq, nk, True, 0, 0) for kt in kts)]
+        fb._bwd_q_tiles(kt * bk, nq, nk, True, 0, 0, bk) for kt in kts)]
     assert work == sorted(work, reverse=True)
 
 
@@ -100,6 +110,22 @@ def test_training_shape_fills_the_card():
         64, 62, 60, 58, 56, 54, 52, 50, 48]
 
 
+def test_gemma_training_shape_fills_the_card():
+    """The Gemma-width model's layer at d = 256 (B=1, 4 KV heads, N=4096):
+    64-key CTAs, 256 of them at 1 per SM on 132 SMs (1.9 waves); the first
+    wave holds key tiles 0 to 32, whose walks (per query head) run 64 down
+    to 32 Q tiles."""
+    bk = fb._bwd_key_tile(256)
+    assert bk == 64
+    order = fb._bwd_cta_order(4096, 4, 1, bk)
+    assert len(order) == 256
+    first_wave = [fb._bwd_q_tiles(kt * bk, 4096, 4096, True, 0, 0, bk)
+                  for kt, _, _ in order[:132]]
+    assert [last - first + 1 for first, last in first_wave[::4]] == list(
+        range(64, 31, -1))
+
+
+@pytest.mark.parametrize("d", WALK_DIMS)
 @pytest.mark.parametrize("nq,nk,causal,window,kv_offset,seg", [
     (150, 300, True, 0, 100, False),
     (200, 129, True, 0, 0, True),
@@ -108,10 +134,12 @@ def test_training_shape_fills_the_card():
     (130, 257, False, 0, 0, True),
 ])
 def test_walk_over_visited_pairs_gives_the_plain_gradients(
-        nq, nk, causal, window, kv_offset, seg):
-    """dQ, dK, dV summed over the walk's (key tile, Q tile) pairs only, in
-    fp32, equal the dense plain backward: no pair the walk skips holds a
+        nq, nk, causal, window, kv_offset, seg, d):
+    """dQ, dK, dV summed over the walk's (key tile, Q tile) pairs only (the
+    tiles of head dim d's build, the arithmetic at width 64), in fp32,
+    equal the dense plain backward: no pair the walk skips holds a
     visible entry."""
+    bk = fb._bwd_key_tile(d)
     rng = np.random.default_rng(nq + nk)
     b, h, h_kv, d = 1, 4, 2, 64
     mk = lambda *s: torch.from_numpy(rng.uniform(-1, 1, s).astype(np.float32))
@@ -127,9 +155,10 @@ def test_walk_over_visited_pairs_gives_the_plain_gradients(
     want = fb.flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
     dq = torch.zeros_like(q)
     dk, dv = torch.zeros_like(k), torch.zeros_like(v)
-    for kt in range(cdiv(nk, BK)):
-        c0, c1 = kt * BK, min(nk, kt * BK + BK)
-        first, last = fb._bwd_q_tiles(c0, nq, nk, causal, window, kv_offset)
+    for kt in range(cdiv(nk, bk)):
+        c0, c1 = kt * bk, min(nk, kt * bk + bk)
+        first, last = fb._bwd_q_tiles(c0, nq, nk, causal, window, kv_offset,
+                                      bk)
         for qt in range(first, last + 1):
             r0, r1 = qt * BQ, min(nq, qt * BQ + BQ)
             sub = dict(kw, kv_offset=kv_offset + r0 - c0)
@@ -147,7 +176,7 @@ def test_walk_over_visited_pairs_gives_the_plain_gradients(
                                    msg=lambda m: f"{name}: {m}")
 
 
-# K3: 128 query rows of packed heads per CTA, 64-key tiles
+# K3: 128 query rows of packed heads per CTA, 64-key tiles (32 at d = 256)
 DQ_BM, DQ_BN = fb._DQ_BM, fb._DQ_BN
 
 DQ_CASES = CASES + [
@@ -158,19 +187,21 @@ DQ_CASES = CASES + [
 ]
 
 
+@pytest.mark.parametrize("d", WALK_DIMS)
 @pytest.mark.parametrize("r", [128, 64, 32])
 @pytest.mark.parametrize("nq,nk,causal,window,kv_offset", DQ_CASES)
 def test_dq_walk_visits_exactly_the_tiles_with_a_visible_pair(
-        nq, nk, causal, window, kv_offset, r):
+        nq, nk, causal, window, kv_offset, r, d):
+    bn = fb._dq_key_tile(d)
     vis = _visible(nq, nk, causal, window, kv_offset)
     for qt in range(cdiv(nq, r)):
         q0 = qt * r
         begin, end = fb._dq_key_tiles(q0, r, nq, nk, causal, window,
-                                      kv_offset)
+                                      kv_offset, bn=bn)
         walked = set(range(begin, end))
-        assert walked <= set(range(cdiv(nk, DQ_BN)))
-        seen = {kt for kt in range(cdiv(nk, DQ_BN))
-                if vis[q0:q0 + r, kt * DQ_BN:(kt + 1) * DQ_BN].any()}
+        assert walked <= set(range(cdiv(nk, bn)))
+        seen = {kt for kt in range(cdiv(nk, bn))
+                if vis[q0:q0 + r, kt * bn:(kt + 1) * bn].any()}
         assert walked == seen, (qt, begin, end, sorted(seen))
 
 
@@ -181,11 +212,14 @@ def test_dq_packs_the_heads_of_a_group_as_k1(h, h_kv, gp):
     assert fb._dq_packing(h, h_kv) == (gp, DQ_BM // gp)
 
 
+@pytest.mark.parametrize("d", WALK_DIMS)
 @pytest.mark.parametrize("nq,h,h_kv,b", [(4096, 16, 16, 1), (1000, 16, 4, 2),
-                                         (127, 4, 2, 3), (129, 12, 4, 1)])
+                                         (127, 4, 2, 3), (129, 12, 4, 1),
+                                         (4096, 8, 4, 1)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_dq_cta_order_is_every_tile_once_heaviest_first(nq, h, h_kv, b,
-                                                        causal):
+                                                        causal, d):
+    bn = fb._dq_key_tile(d)
     gp, r = fb._dq_packing(h, h_kv)
     order = fb._dq_cta_order(nq, h, h_kv, b, causal)
     assert sorted(order) == sorted(
@@ -194,13 +228,14 @@ def test_dq_cta_order_is_every_tile_once_heaviest_first(nq, h, h_kv, b,
     if causal:
         # under causal the walks only shorten along the order
         work = [(lambda t: t[1] - t[0])(fb._dq_key_tiles(
-            qt * r, r, nq, nq, True, 0, 0)) for qt, _, _ in order]
+            qt * r, r, nq, nq, True, 0, 0, bn=bn)) for qt, _, _ in order]
         assert work == sorted(work, reverse=True)
     else:  # the grid's own order: Q tiles fastest, then head groups
         assert order == [(qt, hg, bb) for bb in range(b)
                          for hg in range(h // gp) for qt in range(cdiv(nq, r))]
 
 
+@pytest.mark.parametrize("d", WALK_DIMS)
 @pytest.mark.parametrize("nq,nk,h,h_kv,causal,window,kv_offset,seg", [
     (150, 300, 4, 2, True, 0, 100, False),
     (200, 129, 4, 4, True, 0, 0, True),
@@ -210,10 +245,12 @@ def test_dq_cta_order_is_every_tile_once_heaviest_first(nq, h, h_kv, b,
     (65, 300, 4, 4, True, 40, 250, False),
 ])
 def test_dq_walk_over_visited_pairs_gives_the_plain_dq(
-        nq, nk, h, h_kv, causal, window, kv_offset, seg):
-    """dQ summed over K3's (Q tile, key tile) pairs only, in fp32, equals
-    the dense plain backward's: no pair the walk skips holds a visible
-    entry. Each CTA's packed heads share its positions and its walk."""
+        nq, nk, h, h_kv, causal, window, kv_offset, seg, d):
+    """dQ summed over K3's (Q tile, key tile) pairs only (the tiles of
+    head dim d's build, the arithmetic at width 64), in fp32, equals the
+    dense plain backward's: no pair the walk skips holds a visible entry.
+    Each CTA's packed heads share its positions and its walk."""
+    bn = fb._dq_key_tile(d)
     rng = np.random.default_rng(nq + 3 * nk)
     b, d = 1, 64
     mk = lambda *s: torch.from_numpy(rng.uniform(-1, 1, s).astype(np.float32))
@@ -232,9 +269,9 @@ def test_dq_walk_over_visited_pairs_gives_the_plain_dq(
     for qt in range(cdiv(nq, r)):
         r0, r1 = qt * r, min(nq, qt * r + r)
         begin, end = fb._dq_key_tiles(r0, r, nq, nk, causal, window,
-                                      kv_offset)
+                                      kv_offset, bn=bn)
         for kt in range(begin, end):
-            c0, c1 = kt * DQ_BN, min(nk, kt * DQ_BN + DQ_BN)
+            c0, c1 = kt * bn, min(nk, kt * bn + bn)
             sub = dict(kw, kv_offset=kv_offset + r0 - c0)
             if seg:
                 sub.update(q_segment_ids=kw["q_segment_ids"][:, r0:r1],

@@ -471,9 +471,12 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         flash_attention_backward(q16, q16, q16, q16, lse, q16)
     with pytest.raises(NotImplementedError, match="all of one type"):
         flash_attention_backward(q32, q32, q32, q32, lse, q32.bfloat16())
-    # the backward's builds stop at d = 128
-    q256 = torch.zeros(1, 2, 8, 256, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="backward takes d from 1 to 128"):
+    # the backward's builds stop at d = 256, and at d = 128 for fp32
+    q300 = torch.zeros(1, 2, 8, 300, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="backward takes d from 1 to 256"):
+        flash_attention_backward(q300, q300, q300, q300, lse, q300)
+    q256 = torch.zeros(1, 2, 8, 256, device=dev)
+    with pytest.raises(NotImplementedError, match="fp32 at d = 256"):
         flash_attention_backward(q256, q256, q256, q256, lse, q256)
 
 
@@ -2521,7 +2524,7 @@ def test_kmajor_at_each_span(dev, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("d", [16, 64, 128, 200, 256])
 def test_prologue_matches_the_plain_d(dev, dtype, d):
     """The prologue's D within 1e-5 · max(1, max |plain D|) of the plain
     version at a ragged Nq, on heads padded to the kernel's d, and K4's
@@ -2977,17 +2980,23 @@ def test_wide_forward_auto_routes_and_falls_back(dev):
 
 
 def test_wide_forms_refused(dev):
-    """At d past 128 an fp32 Q, the backward, K8 and K9 each raise,
-    naming the form; nothing falls back."""
+    """At d past 128 an fp32 Q (forward and backward) and K8 raise, and
+    past 256 the backward, each naming the form; nothing falls back and
+    nothing launches."""
     q32 = torch.rand(1, 2, 64, 256, device=dev)
     with pytest.raises(NotImplementedError, match="fp32 at d = 256"):
         flash_attention_forward(q32, q32, q32)
     with pytest.raises(NotImplementedError, match="fp32 at d = 256"):
         flash_attention_forward(q32, q32.bfloat16(), q32.bfloat16())
+    lse32 = torch.zeros(1, 2, 64, device=dev)
+    before = dict(flash_attention_backward.launches)
+    with pytest.raises(NotImplementedError, match="fp32 at d = 256"):
+        flash_attention_backward(q32, q32, q32, q32, lse32, q32)
+    q300 = torch.rand(1, 2, 64, 300, device=dev).bfloat16()
+    with pytest.raises(ValueError, match="backward takes d from 1 to 256"):
+        flash_attention_backward(q300, q300, q300, q300, lse32, q300)
+    assert flash_attention_backward.launches == before
     q = q32.bfloat16()
-    o, lse = flash_attention_forward(q, q, q)
-    with pytest.raises(ValueError, match="backward takes d from 1 to 128"):
-        flash_attention_backward(q, q, q, o, lse, o)
     with pytest.raises(ValueError, match="FA1 takes d from 1 to 128"):
         fa1_attention(q, q, q)
 
@@ -3125,3 +3134,174 @@ def test_wide_paged(dev, no_tf32, dtype, d, qtype):
         _assert_decode_close((got[0].reshape(b, h * 16, d),
                               got[1].reshape(b, h * 16)), want, dtype,
                              False, True)
+
+
+# ---------------------------------------------------------------------------
+# The backward at d = 256: K4, K2 + K3 and the prologue's d = 256 builds
+# against the plain backward (BWD_GATE per gradient, on peaked inputs: Q x8,
+# K x4), over every mask, GQA 8:4 and 16:4, ragged shapes with empty rows
+# and unseen keys, widths between 128 and 256 on zero-padded heads, a ring
+# step's full block against a global LSE, autograd, and a seeded fuzz of
+# the backward at d in {64, 128, 256}.
+# ---------------------------------------------------------------------------
+
+
+def _wide_bwd(dev, b, h, h_kv, nq, nk, d, seed, fused, **kw):
+    """The backward into NaN-filled memory against the plain one, on the
+    forward's O and LSE: finite gradients of the input shapes, each within
+    BWD_GATE · max |plain| (or all zero where the plain one is), one
+    prologue launch and one K4 (or K2 + K3)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = (_rand(gen, dev, b, h, nq, d).float() * 8).to(torch.bfloat16)
+    k = (_rand(gen, dev, b, h_kv, nk, d).float() * 4).to(torch.bfloat16)
+    v, do = _rand(gen, dev, b, h_kv, nk, d), _rand(gen, dev, b, h, nq, d)
+    o, lse = flash_attention_forward(q, k, v, **kw)
+    args = (q, k, v, o, lse, do)
+    _nan_fill_allocator(dev)
+    before = dict(flash_attention_backward.launches)
+    got = flash_attention_backward(*args, fused=fused, **kw)
+    torch.cuda.synchronize()
+    grown = {n: flash_attention_backward.launches[n] - before[n]
+             for n in before}
+    assert grown == ({"fused": 1, "dkdv": 0, "dq": 0, "delta": 1} if fused
+                     else {"fused": 0, "dkdv": 1, "dq": 1, "delta": 1})
+    want = flash_attention_backward_plain(*args, **kw)
+    what = (b, h, h_kv, nq, nk, d, fused, kw)
+    for g, w, name in zip(got, want, ("dQ", "dK", "dV")):
+        assert g.dtype == w.dtype and g.shape == w.shape, (what, name)
+        assert torch.isfinite(g.float()).all(), (what, name)
+        if torch.all(w == 0):
+            assert torch.all(g == 0), (what, name)
+        else:
+            _assert_rel(g, w, f"{what} {name}")
+    return got
+
+
+WIDE_BWD_CASES = [
+    # the Gemma-width layer (8 query heads over 4 KV heads)
+    (1, 8, 4, 1024, 1024, dict(causal=True)),
+    (1, 16, 4, 300, 300, dict(causal=True)),                 # GQA 16:4
+    (2, 8, 4, 300, 300, dict(causal=True, window=100)),
+    (1, 8, 4, 200, 333, dict(causal=True, kv_offset=133)),
+    # empty rows and unseen keys, whole 64-key tiles among them
+    (1, 4, 2, 70, 260, dict(causal=True, kv_offset=-20)),
+    (1, 8, 4, 130, 500, dict(causal=True, window=70, kv_offset=370)),
+    (1, 4, 4, 200, 200, dict(causal=True, window=64, kv_offset=-70)),
+    (2, 8, 2, 128, 384, dict(causal=False)),
+    (1, 8, 8, 100, 63, dict(causal=False)),                  # Nk < a tile
+    (1, 8, 4, 65, 129, dict(causal=True, kv_offset=64)),     # tile edges
+]
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("b,h,h_kv,nq,nk,kw", WIDE_BWD_CASES)
+def test_wide_backward_kernels(dev, b, h, h_kv, nq, nk, kw, fused):
+    _wide_bwd(dev, b, h, h_kv, nq, nk, 256, nq + nk, fused, **kw)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("causal", [True, False])
+def test_wide_backward_segments(dev, causal, fused):
+    """The SEG builds at d = 256: segments ending one key before, at and
+    after 64- and 32-key tile edges, and one of a single token."""
+    n = 300
+    seg = _segments(dev, 2, n, [63, 1, 65, 128, 43])
+    _wide_bwd(dev, 2, 8, 4, n, n, 256, 7, fused, causal=causal,
+              q_segment_ids=seg, kv_segment_ids=seg)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("d", [136, 160, 200])
+def test_wide_backward_between_builds(dev, d, fused):
+    """A d between 128 and 256 runs on the d = 256 build, heads zero-padded
+    at the caller's scale; the gradients come back at width d."""
+    got = _wide_bwd(dev, 1, 8, 4, 200, 333, d, d, fused, causal=True,
+                    kv_offset=133)
+    assert got[0].shape[-1] == d and got[1].shape[-1] == d
+
+
+def test_wide_fused_matches_split_and_repeats(dev):
+    """At d = 256 K4 and K2 + K3 agree within the gate; two K4 runs give
+    dK and dV bit for bit and dQ within one bf16 step of its largest
+    value (its atomics land in no fixed order)."""
+    a = _wide_bwd(dev, 1, 8, 4, 1000, 1000, 256, 3, True, causal=True)
+    s = _wide_bwd(dev, 1, 8, 4, 1000, 1000, 256, 3, False, causal=True)
+    for x, y, name in zip(a, s, ("dQ", "dK", "dV")):
+        _assert_rel(x, y, name)
+    b_ = _wide_bwd(dev, 1, 8, 4, 1000, 1000, 256, 3, True, causal=True)
+    assert torch.equal(a[1], b_[1]) and torch.equal(a[2], b_[2])
+    top = a[0].float().abs().max().item()
+    assert _err(a[0], b_[0]) <= 2.0 ** -7 * top
+
+
+def test_wide_backward_on_a_ring_step(dev):
+    """K4 on a ring step's full block at d = 256 (`parallel/ring.py`'s
+    `_step_bwd`: an off-diagonal block, non-causal, against the LSE of the
+    whole two-block context) against the plain backward."""
+    from cuda_flashattention_torch.parallel.ring import _step_bwd
+    gen = torch.Generator(device=dev).manual_seed(11)
+    h, h_kv, n, d = 8, 4, 512, 256
+    q = (_rand(gen, dev, 1, h, n, d).float() * 8).to(torch.bfloat16)
+    k, v = (_rand(gen, dev, 1, h_kv, 2 * n, d) for _ in range(2))
+    do = _rand(gen, dev, 1, h, n, d)
+    # the global O and LSE: the query block attends both key blocks
+    o, lse = flash_attention_forward(q, k, v, out_dtype=torch.float32)
+    kb, vb = k[:, :, :n].contiguous(), v[:, :, :n].contiguous()
+    before = flash_attention_backward.launches["fused"]
+    got = _step_bwd(q, kb, vb, o, lse, do, 0, 1, scale=None, causal=True,
+                    window=0, step=1, shard_len=n)
+    torch.cuda.synchronize()
+    assert flash_attention_backward.launches["fused"] == before + 1
+    want = flash_attention_backward_plain(q, kb, vb, o, lse, do)
+    for g, w, name in zip(got, want, ("dQ", "dK", "dV")):
+        _assert_rel(g, w, name)
+
+
+def test_wide_autograd_through_the_kernels(dev):
+    """flash_attention at d = 256 on strided [B,N,H,d] views: K1 once, K4
+    once (the forward's O and LSE saved for it), gradients as the plain
+    backward's."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    q = _rand(gen, dev, 2, 300, 8, 256).transpose(1, 2).requires_grad_(True)
+    k = _rand(gen, dev, 2, 300, 4, 256).transpose(1, 2).requires_grad_(True)
+    v = _rand(gen, dev, 2, 300, 4, 256).transpose(1, 2).requires_grad_(True)
+    do = _rand(gen, dev, 2, 300, 8, 256).transpose(1, 2)
+    fwd0 = flash_attention_forward.launches
+    bwd0 = flash_attention_backward.launches["fused"]
+    o = flash_attention(q, k, v, causal=True, window=90)
+    grads = torch.autograd.grad(o, (q, k, v), grad_outputs=do)
+    torch.cuda.synchronize()
+    assert flash_attention_forward.launches == fwd0 + 1
+    assert flash_attention_backward.launches["fused"] == bwd0 + 1
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    _, lse = flash_attention_forward_plain(qd, kd, vd, causal=True,
+                                           window=90)
+    want = flash_attention_backward_plain(qd, kd, vd, o.detach(), lse, do,
+                                          causal=True, window=90)
+    for g, w, name in zip(grads, want, ("dQ", "dK", "dV")):
+        _assert_rel(g, w, name)
+
+
+def test_fuzz_backward(dev):
+    """Twelve seeded random cases: nq, nk, GQA group, d in {64, 128, 256},
+    causal / window / segment ids / kv_offset (stacked at random), fused
+    and split, each against the plain backward (BWD_GATE)."""
+    import numpy as np
+    rng = np.random.default_rng(2025)
+    for case in range(12):
+        d = int(rng.choice([64, 128, 256]))
+        h_kv = int(rng.choice([1, 2, 4]))
+        h = h_kv * int(rng.choice([1, 2, 4]))
+        nq, nk = int(rng.integers(1, 600)), int(rng.integers(1, 700))
+        kw = {}
+        if rng.random() < 0.75:
+            kw = dict(causal=True, kv_offset=int(rng.integers(-60, nk)))
+            if rng.random() < 0.5:
+                kw["window"] = int(rng.integers(1, nk + 1))
+        if rng.random() < 0.4:
+            cuts = np.sort(rng.integers(0, min(nq, nk) + 1, 3))
+            lengths = np.diff(np.concatenate([[0], cuts, [max(nq, nk)]]))
+            kw["q_segment_ids"] = _segments(dev, 1, nq, lengths.tolist())
+            kw["kv_segment_ids"] = _segments(dev, 1, nk, lengths.tolist())
+        _wide_bwd(dev, 1, h, h_kv, nq, nk, d, case, bool(rng.random() < 0.5),
+                  **kw)

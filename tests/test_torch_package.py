@@ -291,6 +291,23 @@ def test_ring_variants_patch_the_kept_source(name):
     assert (out == src) == (name == "as_is")
 
 
+@pytest.mark.parametrize("name", ["as_is", "red_v4", "no_reduce",
+                                  "no_dq_add", "late_wait", "ascending",
+                                  "stages3", "wide_v4", "wide_no_dq_add",
+                                  "red_v4+stages3"])
+def test_bwd_variants_patch_the_kept_source(name):
+    """K2 / K4's source ships one design; each variant that
+    `utils/bwd_variants.py` times (at d = 128, and `wide_*` at d = 256)
+    is a text patch of a copy of it, and every text a patch needs is found
+    exactly once."""
+    from cuda_flashattention_torch.utils.bwd_variants import (
+        DEFAULT, DEFAULT_WIDE, VARIANTS, variant_source)
+    src = (_build.CSRC / "flash_bwd_kv.cu").read_text()
+    assert set(DEFAULT + DEFAULT_WIDE) <= set(VARIANTS) | {"red_v4+stages3"}
+    out = variant_source(src, name)
+    assert (out == src) == (name == "as_is")
+
+
 def test_build_dir_is_git_ignored():
     ignored = (REPO / ".gitignore").read_text().split()
     assert _build.BUILD_DIR.name + "/" in ignored
