@@ -356,6 +356,26 @@ Phases, each of which raises on failure (so the script exits non-zero):
    gradient (5e-2 relative L2) against the plain attention functions;
    one split-backward step (K2 = K3 = 26); the windowed model (window
    1024) the same way; 10 Adam steps that lower the loss.
+28. fp32 at d = 256 in the forward (`_phase_wide_f32_kernels`) and an
+   fp32 model served at Gemma 2 2B's widths (`_phase_gemma_f32_serving`):
+   K1 (online), K1b and K5 (pinned) and "auto" on an fp32 Q at the
+   Gemma-width attention shapes of phase 25 over fp32, bf16, int8, fp8 and
+   mixed K/V, flat and peaked, O and LSE within 1e-4 of the plain fp32
+   version, K5 within 1e-4 of K1b; fp16 O, `quantize_q`, d = 200 on padded heads,
+   segment ids, a loose bound; each form's ms, fp32 bound and fp32 SDPA
+   at the prefill, the prefix and the windowed slice (rows "K1 f32
+   d256", "K1b f32 d256", "K5 f32 d256"); K8 at [1, 8, 4096, 256] in
+   bf16 and fp32 (rows "K8 d256", "K8 f32 d256"). Then the fp32
+   Gemma-width model (GEMMA_KW, fp32, 26 layers, no cut of width or
+   depth): `generate()` B=8 x 512 + 32 greedy tokens over fp32 and int8
+   caches, `prefill_chunked(chunk=512)` of B=8 x 4096 tokens and 32
+   greedy steps over fp32, bf16, int8 and fp8 caches and, under window
+   1024, an int8 cache: launch counts per form (K1 208, K1b or K5 182
+   behind their guarded K1, K6 832), logits within 1e-3 · max(1, max
+   |plain|) of the run on the plain attention functions and greedy
+   tokens equal or departing at a tie, the int8 cache on the fp32
+   cache's tokens within 0.25; ms, prompt tokens/s, decode tok/s, peak
+   GiB and a profile by kernel group.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; a kernel's `launches` in the JSON line is its sum over
@@ -373,7 +393,10 @@ steps, and the fp32 model's serving runs over bf16 caches with its
 paged run and the forward at [1, 16, 6144, 128]; for the d = 256 rows
 the Gemma-width model's generate(), chunked and paged runs and its
 timed, split-backward and windowed train steps, whose launches are also
-added to K1, K1b, K5, K6, K7, K2, K3, K4 and the prologue). Launches made to
+added to K1, K1b, K5, K6, K7, K2, K3, K4 and the prologue; for the fp32
+d = 256 rows the fp32 Gemma-width model's generate() and chunked runs,
+whose decode launches are added to K6 d256; for K8 at d = 256 its four
+`fa1_attention` calls). Launches made to
 compare a kernel with its plain version or to
 time it are not in it, nor are K1's guarded fallback launches behind a
 checked bound call, which exit at once, but for K1's fp32-Q build over
@@ -1256,16 +1279,30 @@ def _call_ms(fn, label, iters=3, attempts=3, before=None) -> float:
     """Device ms per call of package kernel `label` (torch.profiler): its
     launches' time over the launches of its main kernel (K5's finalise
     is added to its kernel's call); NaN when none was recorded. `before()`,
-    when given, runs ahead of each call (to evict the L2 cache, say)."""
+    when given, runs ahead of each call (to evict the L2 cache, say).
+    Where the profiler records no device activity at all in any of its
+    windows, the call is timed by CUDA events instead (the wrapper's
+    time, not the kernel's alone), and a line says so."""
     from cuda_flashattention_torch.utils.profiling import kernel_times
+    from cuda_flashattention_torch.utils.timing import cuda_time_ms
+    call = fn if before is None else lambda: (before(), fn())
+    recorded = False
     for _ in range(attempts):
-        prof = kernel_times(fn if before is None else
-                            lambda: (before(), fn()), iters=iters)
+        try:
+            prof = kernel_times(call, iters=iters)
+        except RuntimeError:  # every window of this attempt came back empty
+            continue
+        recorded = True
         names = [n for n in prof.ms if _kernel_of(n) == label]
         calls = sum(prof.count[n] for n in names if "finalize" not in n)
         if calls:
             return sum(prof.ms[n] for n in names) / calls
-    return float("nan")
+    if recorded:
+        return float("nan")
+    ms = cuda_time_ms(fn, iters=iters, before=before)
+    print(f"[profiler] no device activity recorded for {label}: its call "
+          f"timed by CUDA events instead, {ms:.4f} ms", flush=True)
+    return ms
 
 
 def _visible_pairs(ctx, b, h, nq, nk, kw) -> int:
@@ -3899,6 +3936,554 @@ def _phase_gemma_training(ctx):
     del model, step
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: fp32 at d = 256 in the forward (K1, K1b and K5 on an fp32 Q over
+# fp32, bf16 and one-byte K/V; K8 at d = 256) and an fp32 Gemma-width model
+# served
+# ---------------------------------------------------------------------------
+
+# greedy tokens of the fp32 Gemma-width serving runs (the bf16 runs' 128
+# cut so that the phase fits its share of the script's time)
+GEMMA_F32_NEW = 32
+WIDE_F32_KV = ("fp32", "bf16", "int8", "fp8", "mixed")
+K8_WIDE = (1, 8, 4096, 256)  # B, H, N, d of the K8 rows
+
+
+def _stored_f32(kv, k, v):
+    """fp32 k, v stored as `kv` (fp32, bf16, or a quantized pair): (k, v,
+    their scales, and the fp32 K/V that the stored ones stand for)."""
+    from cuda_flashattention_torch.ops.quant import quantize_kv
+    if kv == "fp32":
+        return k, v, {}, k, v
+    if kv == "bf16":
+        kb, vb = k.bfloat16(), v.bfloat16()
+        return kb, vb, {}, kb.float(), vb.float()
+    q = quantize_kv(k, v, kv)
+    return (q.k_q, q.v_q, dict(k_scale=q.k_scale, v_scale=q.v_scale),
+            q.k_q.float() * q.k_scale[..., None],
+            q.v_q.float() * q.v_scale[..., None])
+
+
+def _phase_wide_f32_kernels(ctx):
+    """The fp32-Q builds at d = 256 against their plain fp32 versions at
+    the Gemma-width model's attention shapes (8 query heads over 4 KV
+    heads), TF32 off, on flat and on peaked (Q x8, K x4) inputs: K1
+    (online), K1b and K5 (pinned, no guarded fallback) and what "auto"
+    routes to (its guarded fallback behind a bound form) at the serving
+    prefill (B=8, 512 causal), a ragged 500-row prefill, the chunked
+    prefill's prefix (512 x 3584), its windowed slice (512 x 1024, window
+    1024, kv_offset 1024) and a ragged GQA prefix (300 x 2999 causal,
+    kv_offset 2699), over fp32 (32-key split tiles), bf16 and int8, fp8
+    and mixed K/V: O and LSE within 1e-4, K5 within 1e-4 of K1b. At the
+    prefix: fp16 O equal to the fp32 O rounded (K5 within one fp16 ulp),
+    `quantize_q` (the int8 build on the host's int8 Q over int8 and mixed
+    keys, 5e-3; dropped over fp8 keys, 1e-4), d = 200 on heads padded to
+    256; K1 under segment ids over fp32, bf16 and int8; a loose bound
+    returning the online kernel's bits. Each form's ms at the prefill, the
+    prefix and the windowed slice beside its fp32 bound and fp32 SDPA on
+    the same (upcast or dequantised) inputs; rows "K1 f32 d256", "K1b f32
+    d256", "K5 f32 d256". Then K8 at [1, 8, 4096, 256] in bf16 (5e-3 and
+    2e-2 · max |plain O|) and fp32 (1e-4), causal and not, through
+    `fa1_attention` (rows "K8 d256", "K8 f32 d256")."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.ops import flash_fwd as ff
+    from cuda_flashattention_torch.ops.fa1 import (
+        fa1_attention, fa1_attention_plain)
+    from cuda_flashattention_torch.utils.timing import (
+        attention_flops, cuda_time_ms)
+    dev, card = ctx.dev, ctx.card
+    h, hkv, d = (GEMMA_KW["n_heads"], GEMMA_KW["n_kv_heads"],
+                 GEMMA_KW["d_head"])
+    gen = torch.Generator(device=dev).manual_seed(28)
+
+    def u(*shape, peak=1.0):
+        return (torch.rand(shape, generator=gen, device=dev) - 0.5) * peak
+
+    def calls(form, q, k, v, sc, kw, qq=False, out_dtype=torch.float32):
+        """(kernel call, plain call) of one form: K1 (online), or K1b / K5
+        pinned through `_plan` + `_fwd_cuda` (no guarded fallback)."""
+        if form == "online":
+            args = dict(softmax="online", out_dtype=out_dtype, **kw, **sc)
+            return (lambda: ff.flash_attention_forward(q, k, v, **args),
+                    lambda: ff.flash_attention_forward_plain(q, k, v,
+                                                             **args))
+        plan = ff._plan(q, k, v, None, kw.get("causal", False),
+                        kw.get("window", 0), kw.get("kv_offset", 0), None,
+                        sc.get("k_scale"), sc.get("v_scale"), None, None,
+                        "bound_unchecked", qq)
+        plan = dataclasses.replace(plan, use_kmajor=form == "kmajor")
+        return (lambda: ff._fwd_cuda(q, k, v, plan, out_dtype,
+                                     sc.get("k_scale"), sc.get("v_scale"),
+                                     None, None),
+                lambda: ff.flash_attention_forward_plain(
+                    q, k, v, softmax="bound_unchecked", quantize_q=qq,
+                    out_dtype=out_dtype, **kw, **sc))
+
+    def close(got, want, what, gate=F32_GATE):
+        (o, lse), (o_p, lse_p) = got, want
+        e = max(ctx.diff(o, o_p), ctx.diff(lse, lse_p))
+        _check(e <= gate and o_p.abs().max().item() > 0
+               and bool(torch.isfinite(o).all()),
+               f"{what}: max|diff| {e:.3e} (gate {gate})")
+        return e
+
+    def note(kn, e):
+        r = ctx.rec[f"{kn} f32 d256"]
+        r["max_abs_err"] = max(r["max_abs_err"], e)
+
+    kernel_of = {"online": "K1", "bound": "K1b", "kmajor": "K5"}
+    cases = [
+        ("prefill 512 causal", BATCH, 512, 512, dict(causal=True)),
+        ("ragged 500 causal", BATCH, 500, 500, dict(causal=True)),
+        ("prefix 512x3584", BATCH, 512, 3584, {}),
+        ("windowed prefix 512x1024", BATCH, 512, 1024,
+         dict(causal=True, window=LONG_WINDOW, kv_offset=LONG_WINDOW)),
+        ("ragged GQA prefix 300x2999", 2, 300, 2999,
+         dict(causal=True, kv_offset=2699)),
+    ]
+    # the rows of the kernels line: each kernel where the main path runs
+    # it (K1 on the chunks, K1b on the prefix reads without a window, K5
+    # on the windowed reads of an int8 cache)
+    rows = {("K1", "prefill 512 causal", "fp32"),
+            ("K1b", "prefix 512x3584", "fp32"),
+            ("K5", "windowed prefix 512x1024", "int8")}
+    timed = ("prefill 512 causal", "prefix 512x3584",
+             "windowed prefix 512x1024")
+    for name, b, nq, nk, kw in cases:
+        flops = 4.0 * _visible_pairs(ctx, b, h, nq, nk, kw) * d
+        worst = 0.0
+        for peaked in (False, True):
+            q = u(b, h, nq, d, peak=Q_PEAK if peaked else 1.0)
+            k0 = u(b, hkv, nk, d, peak=K_PEAK if peaked else 1.0)
+            v0 = u(b, hkv, nk, d)
+            for kv in WIDE_F32_KV:
+                k, v, sc, kd, vd = _stored_f32(kv, k0, v0)
+                got, line = {}, []
+                if not peaked and name in timed:
+                    lib_ms = _library_ms(ctx, q, kd, vd, kw)
+                    bound = _bound_f32(_nbytes(q, k, v, *sc.values())
+                                       + b * h * nq * (4 * d + 4), flops)
+                for form in ("online", "bound", "kmajor"):
+                    kn = kernel_of[form]
+                    call, plain = calls(form, q, k, v, sc, kw)
+                    got[form] = call()
+                    torch.cuda.synchronize()
+                    e = close(got[form], plain(),
+                              f"{kn} fp32 d=256 {name} over {kv}"
+                              + (" peaked" if peaked else ""))
+                    note(kn, e)
+                    worst = max(worst, e)
+                    if peaked or name not in timed:
+                        continue
+                    ms = _call_ms(call, kn)
+                    line.append(f"{kn} {ms:.4f} "
+                                f"({100 * bound['bound_ms'] / ms:.1f}%)")
+                    if (kn, name, kv) in rows:
+                        ms_p = cuda_time_ms(plain, iters=2, warmup=1)
+                        ctx.rec[f"{kn} f32 d256"].update(
+                            ms=ms, plain_ms=ms_p, library_ms=lib_ms, **bound)
+                        line.append(f"plain {ms_p:.4f}")
+                e_k = max(ctx.diff(got["kmajor"][0], got["bound"][0]),
+                          ctx.diff(got["kmajor"][1], got["bound"][1]))
+                _check(e_k <= 1e-4, f"K5 vs K1b fp32 d=256 {name} {kv}: "
+                       f"{e_k:.3e}")
+                # "auto": the form the JAX rule routes to, with its guarded
+                # fallback behind a bound form
+                plan = ff._plan(q, k, v, None, kw.get("causal", False),
+                                kw.get("window", 0), kw.get("kv_offset", 0),
+                                None, sc.get("k_scale"), sc.get("v_scale"),
+                                None, None, "auto", False)
+                kn = ("K5" if plan.use_kmajor else
+                      "K1b" if plan.use_bound else "K1")
+                args = dict(out_dtype=torch.float32, **kw, **sc)
+                got_auto = ff.flash_attention_forward(q, k, v, **args)
+                torch.cuda.synchronize()
+                e = close(got_auto, ff.flash_attention_forward_plain(
+                    q, k, v, **args), f"auto ({kn}) fp32 d=256 {name} over "
+                    f"{kv}" + (" peaked" if peaked else ""))
+                note(kn, e)
+                worst = max(worst, e)
+                if line:
+                    print(f"[wide-f32] {name} over {kv} K/V, B={b} H={h} "
+                          f"Hkv={hkv}: kernel ms (share of the fp32 bound "
+                          f"{bound['bound_ms']:.4f} ms, {bound['bound_by']}) "
+                          f"{', '.join(line)}; fp32 SDPA (TF32 off) on the "
+                          f"{'upcast' if kv != 'fp32' else 'same'} K/V "
+                          f"{lib_ms:.4f} ms; K5 vs K1b {e_k:.3e} ({card})",
+                          flush=True)
+            del q, k0, v0, k, v, sc, kd, vd, got
+        print(f"[wide-f32] d=256 {name}: K1, K1b and K5 pinned and what "
+              f"\"auto\" routes to, on an fp32 Q over fp32, bf16, int8, fp8 "
+              f"and mixed K/V, flat and peaked, within 1e-4 of the plain fp32 "
+              f"version (worst {worst:.3e}), K5 within 1e-4 of K1b ({card})",
+              flush=True)
+
+    # at the prefix, peaked: fp16 O, quantize_q, d = 200
+    b, nq, nk = BATCH, 512, 3584
+    q = u(b, h, nq, d, peak=Q_PEAK)
+    k0, v0 = u(b, hkv, nk, d, peak=K_PEAK), u(b, hkv, nk, d)
+    for kv in ("fp32", "bf16"):
+        k, v, sc, _, _ = _stored_f32(kv, k0, v0)
+        for form in ("online", "bound", "kmajor"):
+            o32, lse32 = calls(form, q, k, v, sc, {})[0]()
+            o16, lse16 = calls(form, q, k, v, sc, {},
+                               out_dtype=torch.float16)[0]()
+            torch.cuda.synchronize()
+            ulp = 2.0 ** -10 if form == "kmajor" else 0.0
+            e = ctx.diff(o16, o32.half())
+            _check(o16.dtype == torch.float16
+                   and e <= ulp * max(1.0, o32.abs().max().item())
+                   and ctx.diff(lse16, lse32) <= (F32_GATE if ulp else 0.0),
+                   f"{kernel_of[form]} fp32 d=256 fp16 O over {kv}: {e:.3e}")
+    for kv in ("int8", "mixed", "fp8"):
+        k, v, sc, _, _ = _stored_f32(kv, k0, v0)
+        for form in ("bound", "kmajor"):
+            call, plain = calls(form, q, k, v, sc, {}, qq=True)
+            got = call()
+            torch.cuda.synchronize()
+            # over fp8 keys an fp32 Q drops quantize_q (the JAX rule)
+            e = close(got, plain(), f"{kernel_of[form]} fp32 d=256 "
+                      f"quantize_q over {kv}",
+                      F32_GATE if kv == "fp8" else GATE)
+            if kv == "fp8":
+                note(kernel_of[form], e)
+    q2 = q[..., :200].contiguous()
+    k2, v2 = k0[..., :200].contiguous(), v0[..., :200].contiguous()
+    for form in ("online", "bound", "kmajor"):
+        call, plain = calls(form, q2, k2, v2, {}, {})
+        got = call()
+        torch.cuda.synchronize()
+        _check(got[0].shape == q2.shape, "d = 200: O's width")
+        note(kernel_of[form], close(got, plain(), f"{kernel_of[form]} "
+                                    f"fp32 d=200 on padded heads"))
+    print(f"[wide-f32] prefix 512x3584: fp16 O equal to the fp32 O rounded "
+          f"(K5 within one fp16 ulp) over fp32 and bf16 K/V; quantize_q "
+          f"over int8 and mixed within {GATE}, over fp8 (dropped) within "
+          f"{F32_GATE}; d = 200 on padded heads within {F32_GATE} ({card})",
+          flush=True)
+    del q, k0, v0, q2, k2, v2
+
+    # K1 under segment ids; a loose bound
+    bs, n = 2, 1024
+    ids = torch.repeat_interleave(
+        torch.arange(4, device=dev),
+        torch.tensor([300, 1, 500, 223], device=dev))[None].expand(
+            bs, n).contiguous()
+    q = u(bs, h, n, d, peak=Q_PEAK)
+    k0, v0 = u(bs, hkv, n, d, peak=K_PEAK), u(bs, hkv, n, d)
+    for kv in ("fp32", "bf16", "int8"):
+        k, v, sc, _, _ = _stored_f32(kv, k0, v0)
+        for causal in (True, False):
+            kw = dict(causal=causal, q_segment_ids=ids, kv_segment_ids=ids,
+                      **sc)
+            got = ff.flash_attention_forward(q, k, v, **kw)
+            torch.cuda.synchronize()
+            note("K1", close(got, ff.flash_attention_forward_plain(
+                q, k, v, **kw), f"K1 fp32 d=256 segment ids over {kv} "
+                f"causal={causal}"))
+    q = u(1, 4, 256, d).abs() * 20
+    k0, v0 = -u(1, 4, 256, d).abs() * 20, u(1, 4, 256, d)
+    k0[:, :, 0] = k0[:, :, 0].abs()  # one key far above the rows' scores
+    for kv in ("fp32", "bf16"):
+        k, v, sc, _, _ = _stored_f32(kv, k0, v0)
+        before = dict(ctx.fwd_forms)
+        got = ff.flash_attention_forward(q, k, v, softmax="bound")
+        online = ff.flash_attention_forward(q, k, v, softmax="online")
+        torch.cuda.synchronize()
+        grown = ctx.fwd_forms["fallback"] - before["fallback"]
+        _check(grown == 1 and torch.equal(got[0], online[0])
+               and torch.equal(got[1], online[1]),
+               f"fp32 d=256 loose bound over {kv}: the fallback ran "
+               f"{grown} times or its bits differ from the online kernel's")
+    print(f"[wide-f32] K1 under segment ids (B={bs}, N={n}; fp32, bf16, "
+          f"int8 K/V; causal and not) within {F32_GATE}; a loose bound "
+          f"(fp32, bf16 K/V) returns the online kernel's bits ({card})",
+          flush=True)
+    del q, k0, v0, k, v
+
+    # K8 at d = 256, bf16 and fp32, through its entry point
+    b, hh, n, dd = K8_WIDE
+    for dtype, row in ((torch.bfloat16, "K8 d256"),
+                       (torch.float32, "K8 f32 d256")):
+        q, k, v = (u(b, hh, n, dd, peak=Q_PEAK).to(dtype),
+                   u(b, hh, n, dd, peak=K_PEAK).to(dtype),
+                   u(b, hh, n, dd).to(dtype))
+        ctx.zero_counts()
+        outs = {c: fa1_attention(q, k, v, causal=c) for c in (True, False)}
+        torch.cuda.synchronize()
+        ctx.launches[row] += fa1_attention.launches
+        _check(fa1_attention.launches == 2, f"{row}: launches "
+               f"{fa1_attention.launches}")
+        for causal in (True, False):
+            o_p = fa1_attention_plain(q, k, v, causal=causal)
+            e, ref = ctx.diff(outs[causal], o_p), o_p.float().abs().max().item()
+            ok = (e <= F32_GATE if dtype == torch.float32
+                  else e <= min(GATE, REL_GATE * ref))
+            _check(ok and ref > 0, f"{row} causal={causal}: max|dO| {e:.3e} "
+                   f"(max|O| {ref:.3e})")
+            ctx.rec[row]["max_abs_err"] = max(ctx.rec[row]["max_abs_err"], e)
+            ms = _call_ms(lambda: fa1_attention(q, k, v, causal=causal),
+                          "K8")
+            bound = (_bound_f32 if dtype == torch.float32 else _bound)(
+                _nbytes(q, k, v, q),
+                attention_flops(b, hh, n, n, dd, causal=causal))
+            lib_ms = _library_ms(ctx, q, k, v, dict(causal=causal))
+            line = (f"kernel {ms:.4f} ms ({100 * bound['bound_ms'] / ms:.1f}% "
+                    f"of its bound {bound['bound_ms']:.4f} ms, "
+                    f"{bound['bound_by']}), SDPA {lib_ms:.4f} ms")
+            if causal:
+                ms_p = cuda_time_ms(lambda: fa1_attention_plain(
+                    q, k, v, causal=True), iters=2, warmup=1)
+                ctx.rec[row].update(ms=ms, plain_ms=ms_p, library_ms=lib_ms,
+                                    **bound)
+                line += f", plain {ms_p:.4f} ms"
+            print(f"[wide-f32] {row} [{b}, {hh}, {n}, {dd}] causal={causal}: "
+                  f"max|dO| {e:.3e} (max|O| {ref:.3e}); {line} ({card})",
+                  flush=True)
+        del q, k, v, outs
+
+
+def _phase_gemma_f32_serving(ctx):
+    """Main path of serving an fp32 model at Gemma 2 2B's widths
+    (`TransformerConfig(dtype=torch.float32, **GEMMA_KW)`: 26 layers,
+    d_model 2304, 8 query heads over 4 KV heads of d_head 256, d_ff 9216,
+    vocab 256000; seeded weights, 10.5 GB in fp32, no cut of width or
+    depth). `generate()`: B=8 prompts of 512 tokens, 32 greedy tokens,
+    over an fp32 and an int8 cache (K1's fp32 d = 256 build 26, K6 26 x
+    32 per run); each against the same loop on the plain attention
+    functions (prefill logits within F32_LOGIT_GATE · max(1, max |plain|),
+    greedy tokens equal or departing only at a tie within that gate), the
+    int8 cache replayed on the fp32 cache's tokens within QUANT_LOGIT_GATE
+    of its last-step logits. `prefill_chunked(chunk=512)`: B=8 prompts of
+    4096 tokens, then 32 greedy steps, over fp32, bf16, int8 and fp8
+    caches and, with `cfg.window` = 1024, an int8 cache: per form launches
+    (own chunks K1 8 · 26; the prefix reads K1b, or K5 under the window,
+    7 · 26, each behind its guarded K1; K6 32 · 26), the last chunk's
+    logits and the greedy tokens against the run on the plain attention
+    functions. Chunked-prefill ms and prompt tokens/s, decode ms a step,
+    peak GiB, and a profile by kernel group of one chunked prefill over
+    the fp32 cache."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.models import transformer as tfm
+    from cuda_flashattention_torch.models.generate import generate
+    from cuda_flashattention_torch.ops.decode import decode_attention
+    from cuda_flashattention_torch.ops.kv_cache import init_cache
+    from cuda_flashattention_torch.utils.profiling import kernel_times
+    dev, card = ctx.dev, ctx.card
+    cfg = tfm.TransformerConfig(dtype=torch.float32, **GEMMA_KW)
+    n_layers, new = cfg.n_layers, GEMMA_F32_NEW
+    gen = torch.Generator(device=dev).manual_seed(28)
+    model = tfm.Transformer(cfg, generator=gen)
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
+                           device=dev, dtype=torch.int32)
+    print(f"[gemma-f32] {sum(p.numel() for p in model.parameters()) / 1e9:.3f}"
+          f"B parameters ({_nbytes(*model.parameters()) / 2**30:.2f} GiB in "
+          f"fp32): vocab {cfg.vocab_size}, d_model {cfg.d_model}, {n_layers} "
+          f"layers, {cfg.n_heads} heads over {cfg.n_kv_heads} KV heads of "
+          f"d_head {cfg.d_head}, d_ff {cfg.d_ff} ({card})", flush=True)
+
+    def count(row, n):
+        ctx.launches[row] += n
+
+    def departure(toks, toks_p, logits_at, gate):
+        """'' when the token rows agree, else where they first part and
+        whether the plain run's two best logits there lie within the
+        gate (a tie that fp32 rounding may break either way)."""
+        if torch.equal(toks, toks_p):
+            return "", True
+        step = int((toks != toks_p).any(0).nonzero()[0])
+        at = logits_at(step)
+        rows = toks[:, step] != toks_p[:, step]
+        best = at[rows].float().topk(2, dim=-1).values
+        gap = (best[:, 0] - best[:, 1]).max().item()
+        return (f" (first departure at token {step}, where the plain run's "
+                f"two best logits lie {gap:.3e} apart)", gap <= gate)
+
+    def gate_of(lg_p):
+        return F32_LOGIT_GATE * max(1.0, lg_p.abs().max().item())
+
+    def greedy(m, caches, lg, start, tok_in=None):
+        """Greedy decode steps from the prefill's logits: (tokens [B,
+        new] as generate() appends them, each step's logits); `tok_in`
+        teacher-forces the tokens fed."""
+        tok = torch.argmax(lg, dim=-1).to(prompt.dtype)
+        toks, steps = [], []
+        for i in range(new):
+            toks.append(tok)
+            feed = tok if tok_in is None else tok_in[:, i]
+            lg, caches = tfm.decode_one(m, feed, start + i, caches)
+            steps.append(lg)
+            tok = torch.argmax(lg, dim=-1).to(prompt.dtype)
+        return torch.stack(toks, 1), steps
+
+    # ---- generate(): fp32 and int8 caches
+    generate(model, prompt, 2)  # warm-up
+    torch.cuda.synchronize()
+    runs = {}
+    for label, qtype in (("fp32 cache", None), ("int8 cache", "int8")):
+        ctx.zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, logits = generate(model, prompt, new, qtype=qtype)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_fwd, n_dec = ctx.fwd_forms["online"], decode_attention.launches
+        _check(n_fwd == n_layers and n_dec == n_layers * new
+               and sum(ctx.fwd_forms.values()) == n_fwd,
+               f"gemma fp32 generate {label}: launches {ctx.fwd_forms}, K6 "
+               f"{n_dec}")
+        _check(tuple(out.shape) == (BATCH, PROMPT + new)
+               and bool(torch.isfinite(logits).all()),
+               f"gemma fp32 generate {label}: tokens or logits")
+        count("K1 f32 d256", n_fwd)
+        count("K6 d256", n_dec)
+        caches = tfm.init_caches(cfg, BATCH, PROMPT + new, qtype=qtype,
+                                 device=dev)
+        lg_k, _ = tfm.prefill(model, prompt, caches)
+        with _serving_on_plain_attention():
+            caches = tfm.init_caches(cfg, BATCH, PROMPT + new, qtype=qtype,
+                                     device=dev)
+            lg_p, caches = tfm.prefill(model, prompt, caches)
+            toks_p, steps_p = greedy(model, caches, lg_p, PROMPT)
+        del caches
+        e_prefill = ctx.diff(lg_k, lg_p)
+        dep, tie_ok = departure(
+            out[:, PROMPT:], toks_p,
+            lambda s: lg_p if s == 0 else steps_p[s - 1], gate_of(lg_p))
+        e_last = ctx.diff(logits, steps_p[-1]) if not dep else float("nan")
+        print(f"[gemma-f32] generate {label}: B={BATCH} prompt={PROMPT} "
+              f"new={new}: launches K1 {n_fwd} (expect {n_layers}), K6 "
+              f"{n_dec} (expect {n_layers * new}); {wall:.3f} s, decode "
+              f"{BATCH * new / wall:.1f} tok/s (the run's tokens over its "
+              f"wall); vs the plain attention functions: prefill logits "
+              f"max|d| {e_prefill:.3e} (gate {gate_of(lg_p):.3e}), tokens "
+              f"equal {(out[:, PROMPT:] == toks_p).float().mean().item():.4f}"
+              f"{dep}, last-step logits max|d| {e_last:.3e} ({card})",
+              flush=True)
+        _check(e_prefill <= gate_of(lg_p),
+               f"gemma fp32 {label}: prefill logits {e_prefill:.3e}")
+        _check(tie_ok, f"gemma fp32 {label}: tokens depart from the plain "
+               f"run{dep}")
+        _check(bool(dep) or e_last <= gate_of(steps_p[-1]),
+               f"gemma fp32 {label}: last logits {e_last:.3e}")
+        runs[label] = (out, logits)
+        del lg_k, lg_p, steps_p
+    out, logits = runs["fp32 cache"]
+    caches = tfm.init_caches(cfg, BATCH, PROMPT + new, qtype="int8",
+                             device=dev)
+    lg8, caches = tfm.prefill(model, prompt, caches)
+    _, steps8 = greedy(model, caches, lg8, PROMPT, tok_in=out[:, PROMPT:])
+    e8 = ctx.diff(steps8[-1], logits)
+    print(f"[gemma-f32] the int8 cache on the fp32 cache's tokens: last-step "
+          f"logits max|d| {e8:.3e} (gate {QUANT_LOGIT_GATE}) ({card})",
+          flush=True)
+    _check(e8 <= QUANT_LOGIT_GATE, f"gemma fp32 int8-cache logits {e8:.3e}")
+    del caches, runs, out, logits, steps8
+
+    # ---- prefill_chunked(chunk=512) + greedy steps
+    n_chunks = LONG_PROMPT // LONG_CHUNK
+    own, n_prefix = n_chunks * n_layers, (n_chunks - 1) * n_layers
+    long_prompt = torch.randint(0, cfg.vocab_size, (BATCH, LONG_PROMPT),
+                                generator=gen, device=dev, dtype=torch.int32)
+
+    def caches_of(cache):
+        if cache == "bf16":
+            return tuple(init_cache(BATCH, cfg.n_kv_heads, LONG_PROMPT + new,
+                                    cfg.d_head, dtype=torch.bfloat16,
+                                    device=dev) for _ in range(n_layers))
+        return tfm.init_caches(cfg, BATCH, LONG_PROMPT + new,
+                               qtype=None if cache == "fp32" else cache,
+                               device=dev)
+
+    def prefill(m, cache):
+        c = caches_of(cache)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, c = tfm.prefill_chunked(m, long_prompt, c, chunk=LONG_CHUNK)
+        torch.cuda.synchronize()
+        return lg, c, time.perf_counter() - t0
+
+    def serve(m, cache):
+        """(last-chunk logits, tokens [B, new], each step's logits,
+        prefill s, decode s)"""
+        lg, c, p_s = prefill(m, cache)
+        t0 = time.perf_counter()
+        toks, steps = greedy(m, c, lg, LONG_PROMPT)
+        torch.cuda.synchronize()
+        return lg, toks, steps, p_s, time.perf_counter() - t0
+
+    prefill(model, "fp32")  # warm-up
+    peak = 0.0
+    for label, cache, window in (("fp32 cache", "fp32", 0),
+                                 ("bf16 cache", "bf16", 0),
+                                 ("int8 cache", "int8", 0),
+                                 ("fp8 cache", "fp8", 0),
+                                 ("int8 cache, window 1024", "int8",
+                                  LONG_WINDOW)):
+        m = _windowed(model, window) if window else model
+        ctx.zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        lg, toks, steps, p_s, d_s = serve(m, cache)
+        peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
+        counts, n_dec = dict(ctx.fwd_forms), decode_attention.launches
+        # the prefix reads: K1b, or K5 under the window (a causal read of
+        # a quantized cache), each behind its guarded K1
+        prefix_form = "kmajor" if window else "bound"
+        expect = dict(online=own, bound=0, kmajor=0, fallback=n_prefix)
+        expect[prefix_form] = n_prefix
+        with _serving_on_plain_attention():
+            lg_p, toks_p, steps_p, _, _ = serve(m, cache)
+        e_lg = ctx.diff(lg, lg_p)
+        dep, tie_ok = departure(
+            toks, toks_p, lambda s: lg_p if s == 0 else steps_p[s - 1],
+            gate_of(lg_p))
+        print(f"[gemma-f32] prefill_chunked {label}: B={BATCH} x "
+              f"{LONG_PROMPT} tokens in chunks of {LONG_CHUNK}, then {new} "
+              f"greedy steps: launches {counts} (expect {expect}), K6 "
+              f"{n_dec} (expect {n_layers * new}); last-chunk logits vs "
+              f"plain attention max|d| {e_lg:.3e} (gate "
+              f"{gate_of(lg_p):.3e}); greedy tokens equal to the plain "
+              f"run's {(toks == toks_p).float().mean().item():.4f}{dep}; "
+              f"chunked prefill {p_s * 1e3:.3f} ms "
+              f"({BATCH * LONG_PROMPT / p_s:.0f} prompt tok/s), decode "
+              f"{d_s / new * 1e3:.3f} ms/step ({BATCH * new / d_s:.1f} "
+              f"tok/s) ({card})", flush=True)
+        _check(counts == expect and n_dec == n_layers * new,
+               f"gemma fp32 chunked {label}: launches {counts}, K6 {n_dec}")
+        _check(bool(torch.isfinite(lg).all()) and e_lg <= gate_of(lg_p),
+               f"gemma fp32 chunked {label}: logits vs plain {e_lg:.3e}")
+        _check(tie_ok, f"gemma fp32 chunked {label}: tokens depart from "
+               f"the plain run{dep}")
+        count("K1 f32 d256", counts["online"])
+        count("K1b f32 d256", counts["bound"])
+        count("K5 f32 d256", counts["kmajor"])
+        count("K6 d256", n_dec)
+        del lg_p, steps_p, steps
+    print(f"[gemma-f32] peak allocated over the chunked runs {peak:.2f} GiB "
+          f"({card})", flush=True)
+
+    # where one chunked prefill's time goes (fp32 cache)
+    try:
+        prof = kernel_times(lambda: prefill(model, "fp32"), iters=1)
+    except RuntimeError as e:  # the profiler's windows all came back empty
+        print(f"[gemma-f32] profile of one chunked prefill: not measured "
+              f"({e})", flush=True)
+        del model
+        return
+    groups = {}
+    for kname, t in prof.ms.items():
+        groups[_group_of(kname)] = groups.get(_group_of(kname), 0.0) + t
+    print(f"[gemma-f32] profile of one chunked prefill over the fp32 cache: "
+          f"{sum(prof.count.values())} kernels, device busy "
+          f"{prof.busy_ms:.3f} ms of a profiled wall of {prof.wall_ms:.3f} "
+          f"ms ({prof.busy_ms / prof.wall_ms:.1%}): "
+          + ", ".join(f"{g} {t:.3f} ms ({t / prof.busy_ms:.1%})"
+                      for g, t in sorted(groups.items(),
+                                         key=lambda kv: -kv[1]))
+          + f" ({card})", flush=True)
+    del model
+
+
 def _phase_utils(ctx):
     """Checkpoint, trace, kernel report, memory snapshot and monitor on
     the card. The 271M training config takes 2 `make_train_step` steps
@@ -4709,7 +5294,8 @@ def main() -> int:
             "K5 fp32 Q over bf16", "K6 fp32 q over bf16",
             "K7 fp32 q over bf16", "K1 d256", "K1b d256", "K5 d256",
             "K6 d256", "K7 d256", "K4 d256", "K2 d256", "K3 d256",
-            "prologue d256")}
+            "prologue d256", "K1 f32 d256", "K1b f32 d256", "K5 f32 d256",
+            "K8 d256", "K8 f32 d256")}
     # launches on the main paths, summed over the runs that drive them
     launches = {kn: 0 for kn in rec}
 
@@ -6104,6 +6690,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     _phase_gemma_training(ctx)
     torch.cuda.empty_cache()
+    _phase_wide_f32_kernels(ctx)
+    torch.cuda.empty_cache()
+    _phase_gemma_f32_serving(ctx)
+    torch.cuda.empty_cache()
     _phase_utils(ctx)
     torch.cuda.empty_cache()
     _phase_ladder_train(ctx)
@@ -6275,6 +6865,29 @@ def main() -> int:
          "row; the Gemma-width model's train steps, also counted under "
          "K4 D prologue; times at [1, 8, 4096, 256])", "flash_bwd_kv.cu",
          "flash_bwd.py:252"),
+        ("K1 f32 d256", "flash_attention_forward on an fp32 Q at d = 256 "
+         "(K1's fp32-Q d = 256 builds: over fp32 K/V in 32-key split tiles, "
+         "over bf16 or one-byte K/V in 64-key tiles, one stage beside the "
+         "128 KB split Q tile; the fp32 Gemma-width model's prefill and "
+         "chunks; times over fp32 K/V at B=8 H=8 Hkv=4 512 causal)",
+         "flash_fwd.cu", "flash_fwd.py:123"),
+        ("K1b f32 d256", "flash_attention_forward softmax=bound on an fp32 Q "
+         "at d = 256 (K1b's fp32-Q d = 256 builds; the fp32 Gemma-width "
+         "model's prefix reads over fp32, bf16, int8 and fp8 caches; times "
+         "over fp32 K/V at the prefix, 512 x 3584)", "flash_fwd_bound.cu",
+         "flash_fwd.py:123"),
+        ("K5 f32 d256", "flash_attention_forward softmax=bound, causal, on "
+         "an fp32 Q at d = 256 (K5's fp32-Q d = 256 builds: a span of one "
+         "tile beside a ring of one split Q tile; the fp32 Gemma-width "
+         "model's windowed prefix reads over an int8 cache; times over int8 "
+         "K/V at the windowed prefix, 512 x 1024)", "flash_fwd_kmajor.cu",
+         "flash_fwd.py:399"),
+        ("K8 d256", "fa1_attention at d = 256 in bf16 (K8's d = 256 build, "
+         "two stages; [1, 8, 4096, 256] causal and not)", "fa1.cu",
+         "fa1.py:54"),
+        ("K8 f32 d256", "fa1_attention at d = 256 in fp32 (K8's fp32 d = 256 "
+         "build: 32-key split tiles, two to each 64-key tile of a block; "
+         "[1, 8, 4096, 256] causal and not)", "fa1.cu", "fa1.py:54"),
     ]
     kernels = []
     for kn, name, source, replaces in described:

@@ -50,7 +50,8 @@ SIGNATURES = {
     # elements), k_type, v_type (0 bf16, 1 int8, 2 fp8, 3 fp32: with an
     # fp32 q), q_f32 (an fp32 q, over fp32, bf16 or one-byte K/V), causal,
     # window, kv_offset, out_type (O in 0 bf16, 1 fp32, 2 fp16), kn (keys
-    # of a tile: 64, or 128 over bf16 q/k/v), stream
+    # of a tile: 64, or 128 over bf16 q/k/v at d <= 128, and 32 for an
+    # fp32 q over fp32 k/v at d = 256), stream
     "cfa_flash_fwd": [_PP, _I, _I, _I, _I, _I, _I, _LP,
                       _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # ptrs[10] (q, k, v, k_scale, v_scale, q_factor, c, n_loose, o, lse),

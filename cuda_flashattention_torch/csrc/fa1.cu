@@ -41,6 +41,13 @@
 // bf16 wgmmas (lo·hi + hi·lo + hi·hi), and P is split in registers, not
 // rounded (the TPU kernel's p.astype(v.dtype) is fp32 there). Split tiles
 // take twice the shared memory: two stages at d = 128.
+//
+// At d = 256 O takes 128 registers a consumer thread and a tile 64 KB a
+// bf16 K + V stage: the bf16 build keeps two stages beside its 64 KB Q
+// tile (three would need 256 KB). The F32 build's split Q tile is 128 KB
+// and a 64-key split K + V stage another 128 KB, which does not fit: it
+// walks 32-key tiles (BN32, two to each 64-key tile of a block, a split
+// stage of 64 KB) through one stage.
 
 #include "flash_fwd_bound_sm90.cuh"
 
@@ -52,30 +59,34 @@ constexpr int MAX_SUB = 4;  // 64-key tiles per renormalising block, at most
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory of one CTA (byte offsets from a 1024-aligned base): the Q
-// tile; NST stages of a K tile and a V tile (bf16 slabs); barriers. Under
-// F32 each tile is a hi tile and a lo tile (lo right after hi).
+// tile; NST stages of a K tile and a V tile (bf16 slabs, of KN keys);
+// barriers. Under F32 each tile is a hi tile and a lo tile (lo right after
+// hi).
 template <int D, bool F32>
 struct Layout {
   using T = Tiles<D, false>;
+  static constexpr int KN = key_tile(D, F32, F32 ? kF32 : kBf16);
   static constexpr int PL = F32 ? 2 : 1;   // planes of a tile: hi (and lo)
-  static constexpr int NST = F32 && D == 128 ? 2 : 3;  // K/V stages
+  static constexpr int NST = D == 256 ? (F32 ? 1 : 2)
+                             : F32 && D == 128 ? 2 : 3;  // K/V stages
+  static constexpr int kv16 = KN * D * 2;  // a bf16 K or V tile
   static constexpr int st_off = align1k(PL * T::Q);
-  static constexpr int v_off = PL * T::KV16;     // V within a stage
-  static constexpr int stage = 2 * PL * T::KV16;  // K, then V
+  static constexpr int v_off = PL * kv16;     // V within a stage
+  static constexpr int stage = 2 * PL * kv16;  // K, then V
   static constexpr int bar_off = st_off + NST * stage;
   static constexpr int bytes = bar_off + 8 * (2 * NST + 1) + 1024;
   static_assert(bytes <= 232448, "the CTA's shared memory");
 };
 
-// The thread's 32 scores of a tile in log2 units, NEG_INF where masked,
-// and each row's max over them folded into mx.
-template <bool MASKED>
+// The thread's KN / 2 scores of a tile in log2 units, NEG_INF where
+// masked, and each row's max over them folded into mx.
+template <bool MASKED, int KN>
 __device__ __forceinline__ void scores(const Args& a, const Rows& r,
-                                       float (&s)[32], int c0,
+                                       float (&s)[KN / 2], int c0,
                                        float (&mx)[2]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int j = 0; j < 32; ++j) {
+  for (int j = 0; j < KN / 2; ++j) {
     const int col = 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
     const int hr = (j >> 1) & 1;
     float x = s[j] * kLog2e;
@@ -91,13 +102,13 @@ __device__ __forceinline__ void scores(const Args& a, const Rows& r,
 
 // p = 2^(s − m) (0 where masked) into P, bf16 pairs (F32: split, P = p +
 // p_lo); each row's sum of the unrounded p added to sum.
-template <bool F32>
-__device__ __forceinline__ void probs(const float (&s)[32],
+template <bool F32, int KN>
+__device__ __forceinline__ void probs(const float (&s)[KN / 2],
                                       const float (&m)[2], float (&sum)[2],
-                                      uint32_t (&p)[16],
-                                      uint32_t (&p_lo)[16]) {
+                                      uint32_t (&p)[KN / 4],
+                                      uint32_t (&p_lo)[KN / 4]) {
 #pragma unroll
-  for (int i = 0; i < 32; i += 2) {
+  for (int i = 0; i < KN / 2; i += 2) {
     float pr[2];
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
@@ -124,6 +135,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   using T = Tiles<D, false>;
   using L = Layout<D, F32>;
   constexpr int NST = L::NST;
+  constexpr int KN = L::KN;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t base = smem_u32(smem);
@@ -136,8 +148,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const int q0 = qt * BM;
   const int q_hi = min(q0 + BM, a.Nq) - 1;
   int t_begin, t_end;
-  visible_tiles(a, q0, q_hi, 0, (a.Nk + BN - 1) / BN, t_begin, t_end);
-  const int n_blocks = (t_end + n_sub - 1) / n_sub;
+  visible_tiles<KN>(a, q0, q_hi, 0, (a.Nk + KN - 1) / KN, t_begin, t_end);
+  // a block's tiles: n_sub 64-key tiles, each BN / KN tiles of KN keys
+  const int per_block = n_sub * (BN / KN);
+  const int n_blocks = (t_end + per_block - 1) / per_block;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < NST; ++s) {
@@ -166,20 +180,20 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       mbar_arrive(q_bar);
       int i = 0;
       for (int blk = 0; blk < n_blocks; ++blk) {
-        const int t_last = min(t_end, (blk + 1) * n_sub);
+        const int t_last = min(t_end, (blk + 1) * per_block);
         for (int pass = 0; pass < 2; ++pass) {
-          for (int t = blk * n_sub; t < t_last; ++t, ++i) {
+          for (int t = blk * per_block; t < t_last; ++t, ++i) {
             const int s = i % NST;
             mbar_wait(empty + 8 * s, ((i / NST) & 1) ^ 1);
             uint8_t* stage = smem + L::st_off + s * L::stage;
-            split_rows<D, 128>(stage, stage + T::KV16, BN,
+            split_rows<D, 128>(stage, stage + L::kv16, KN,
                                f.p[1] + b * st[3] + h * st[4], 0, st[5], 0,
-                               1, BN, t * BN, a.Nk, pt);
+                               1, KN, t * KN, a.Nk, pt);
             if (pass == 1) {
               split_rows<D, 128>(stage + L::v_off,
-                                 stage + L::v_off + T::KV16, BN,
+                                 stage + L::v_off + L::kv16, KN,
                                  f.p[2] + b * st[6] + h * st[7], 0, st[8], 0,
-                                 1, BN, t * BN, a.Nk, pt);
+                                 1, KN, t * KN, a.Nk, pt);
             }
             fence_proxy_async();
             mbar_arrive(full + 8 * s);
@@ -193,9 +207,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       }
       int i = 0;
       for (int blk = 0; blk < n_blocks; ++blk) {
-        const int t_last = min(t_end, (blk + 1) * n_sub);
+        const int t_last = min(t_end, (blk + 1) * per_block);
         for (int pass = 0; pass < 2; ++pass) {
-          for (int t = blk * n_sub; t < t_last; ++t, ++i) {
+          for (int t = blk * per_block; t < t_last; ++t, ++i) {
             const int st = i % NST;
             mbar_wait(empty + 8 * st, ((i / NST) & 1) ^ 1);
             const uint32_t dst = base + L::st_off + st * L::stage;
@@ -229,19 +243,20 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     mbar_wait(q_bar, 0);
     int i = 0;
     for (int blk = 0; blk < n_blocks; ++blk) {
-      const int t_last = min(t_end, (blk + 1) * n_sub);
+      const int t_last = min(t_end, (blk + 1) * per_block);
       // first pass: the block's row max
       float mx[2] = {kNegInf, kNegInf};
-      for (int t = blk * n_sub; t < t_last; ++t, ++i) {
+      for (int t = blk * per_block; t < t_last; ++t, ++i) {
         const int st = i % NST;
         mbar_wait(full + 8 * st, (i / NST) & 1);
-        float s[32];
-        qk<D, false, F32>(s, base, base + L::st_off + st * L::stage, wg);
+        float s[KN / 2];
+        qk<D, false, F32, false, KN>(s, base, base + L::st_off + st * L::stage,
+                                     wg);
         if (lane == 0) mbar_arrive(empty + 8 * st);
-        if (interior(a, t * BN, q0, q_hi)) {
-          scores<false>(a, r, s, t * BN, mx);
+        if (interior<KN>(a, t * KN, q0, q_hi)) {
+          scores<false, KN>(a, r, s, t * KN, mx);
         } else {
-          scores<true>(a, r, s, t * BN, mx);
+          scores<true, KN>(a, r, s, t * KN, mx);
         }
       }
       float m_new[2], back[2];
@@ -256,21 +271,21 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       scale_acc<D>(acc, back);
       // second pass: P against the block's max, P·V
       float sum[2] = {0.f, 0.f};
-      for (int t = blk * n_sub; t < t_last; ++t, ++i) {
+      for (int t = blk * per_block; t < t_last; ++t, ++i) {
         const int st = i % NST;
         mbar_wait(full + 8 * st, (i / NST) & 1);
         const uint32_t kt = base + L::st_off + st * L::stage;
-        float s[32];
-        qk<D, false, F32>(s, base, kt, wg);
+        float s[KN / 2];
+        qk<D, false, F32, false, KN>(s, base, kt, wg);
         float unused[2] = {kNegInf, kNegInf};
-        if (interior(a, t * BN, q0, q_hi)) {
-          scores<false>(a, r, s, t * BN, unused);
+        if (interior<KN>(a, t * KN, q0, q_hi)) {
+          scores<false, KN>(a, r, s, t * KN, unused);
         } else {
-          scores<true>(a, r, s, t * BN, unused);
+          scores<true, KN>(a, r, s, t * KN, unused);
         }
-        uint32_t p[16], p_lo[16];  // under F32 P = p + p_lo
-        probs<F32>(s, m_new, sum, p, p_lo);
-        pv<D, F32>(acc, p, kt + L::v_off, p_lo);
+        uint32_t p[KN / 4], p_lo[KN / 4];  // under F32 P = p + p_lo
+        probs<F32, KN>(s, m_new, sum, p, p_lo);
+        pv<D, F32, false, KN>(acc, p, kt + L::v_off, p_lo);
         if (lane == 0) mbar_arrive(empty + 8 * st);
       }
       // the FA1 step: O is divided by the new l after every block
@@ -326,7 +341,8 @@ cudaError_t launch(const Maps& mp, const Args& a, int B, int n_sub,
 // q/k/v [B, H, N, D] bf16 (fp32 under f32) with unit stride on D and
 // 16-byte aligned rows; `strides` holds the (batch, head, row) strides of
 // q, k and v in elements; o [B, H, Nq, D] contiguous, bf16 (fp32 under
-// f32). A renormalising block is n_sub (1..4) tiles of 64 keys.
+// f32). A renormalising block is n_sub (1..4) tiles of 64 keys. D: 64,
+// 128 or 256.
 extern "C" int cfa_fa1(const void* q, const void* k, const void* v, void* o,
                        int B, int H, int Nq, int Nk, int D,
                        const long long* strides, int causal, int n_sub,
@@ -357,6 +373,9 @@ extern "C" int cfa_fa1(const void* q, const void* k, const void* v, void* o,
     case 128:
       return f32 ? launch<128, true>(mp, a, B, n_sub, fs, s)
                  : launch<128, false>(mp, a, B, n_sub, fs, s);
+    case 256:
+      return f32 ? launch<256, true>(mp, a, B, n_sub, fs, s)
+                 : launch<256, false>(mp, a, B, n_sub, fs, s);
     default:
       return cudaErrorInvalidValue;
   }

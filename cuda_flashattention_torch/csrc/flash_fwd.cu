@@ -41,11 +41,21 @@
 // P live, so its steps run in order: S, the softmax, P·V. At d = 128 a K+V
 // stage is 64 KB: two stages beside the 32 KB Q tile.
 //
-// At d = 256 (a bf16 Q over bf16 or one-byte K/V) O alone takes 128
-// registers a consumer thread, so the 64-key walk runs in the same order,
-// without the overlap; the 64 KB Q tile leaves room for two stages and,
-// over one-byte K/V, one converted pair, which both warpgroups finish
-// reading before it is overwritten.
+// At d = 256 O alone takes 128 registers a consumer thread, so the walk
+// runs in the same order, without the overlap. A bf16 Q's 64 KB tile
+// leaves room for two stages and, over one-byte K/V, one converted pair,
+// which both warpgroups finish reading before it is overwritten. An fp32
+// Q's split tile (128 KB) leaves room for one stage: a bf16 K + V stage
+// (BF16KV), or a code stage and one converted pair (231,192 of the
+// 232,448 bytes with segment ids), or, over fp32 K/V, one stage of 32-key
+// tiles (BN32: hi and lo of K and V, 64 KB, where a 64-key split pair
+// would take 128 KB). The
+// alternatives were a 64-row Q tile, which halves what each K/V tile
+// serves and leaves the two warpgroups one 64-row tile to share (each
+// recomputing S, or exchanging it through shared memory), or 32-key tiles
+// for every fp32 form; one stage keeps the CTA, its rows and the host's
+// plan as they are at d <= 128, at the price of the producer's loads (or
+// its split of fp32 K/V) no longer running ahead of the consumers.
 //
 // The kernel can be launched behind a device-side guard: it then exits
 // before anything else unless the bound form before it counted a loose
@@ -69,31 +79,37 @@ namespace {
 // fit, else three (an fp32 Q over codes: 212 KB at d = 128); so do the
 // 128-key build's bf16 tiles (KN keys a tile). An fp32 Q over bf16 K/V
 // (BF16KV) keeps three bf16 stages beside its split Q: 161 KB at d = 128.
-// At d = 256 (bf16 Q; the 64 KB Q tile) two stages and one converted
-// pair: 192 KB over bf16 K/V, 195 KB over one-byte codes.
+// At d = 256 a bf16 Q (the 64 KB Q tile) keeps two stages and one
+// converted pair: 192 KB over bf16 K/V, 195 KB over one-byte codes; an
+// fp32 Q (128 KB split) one stage (of BN32 keys over fp32 K/V). The
+// converted pairs come before the stages and the barriers right after the
+// last stage's bytes: the fp32 Q over codes with segment ids fits by 1 KB.
 template <int D, bool QUANT, bool SEG, bool F32, int KN, bool BF16KV>
 struct Layout {
   using T = Tiles<D, false>;
-  static_assert(KN == BN || (!QUANT && !F32), "128 keys: bf16 K/V only");
-  static_assert(!BF16KV || (F32 && !QUANT), "BF16KV: an fp32 Q");
-  static_assert(D != 256 || (!F32 && KN == BN), "d = 256: bf16 Q, 64 keys");
   static constexpr bool SPLIT_KV = F32 && !QUANT && !BF16KV;  // fp32 K/V
-  static constexpr int NST = D == 256 ? 2
+  static_assert(KN != BN2 || (!QUANT && !F32 && D != 256),
+                "128 keys: bf16 K/V at d <= 128 only");
+  static_assert((KN == BN32) == (D == 256 && SPLIT_KV),
+                "32 keys: fp32 K/V at d = 256 (and there only)");
+  static_assert(!BF16KV || (F32 && !QUANT), "BF16KV: an fp32 Q");
+  static constexpr int NST = D == 256 ? (F32 ? 1 : 2)
                              : SPLIT_KV || KN == BN2 ? (D == 128 ? 2 : 3)
                                                      : 3;  // stages
   // converted K/V pairs (one-byte K/V), used in turn
   static constexpr int NCV = D == 256 ? 1 : 3;
   static constexpr int kv16 = KN * D * 2;             // a bf16 K or V tile
   static constexpr int kvh =                          // K, then V
-      QUANT ? T::CODES : SPLIT_KV ? 2 * T::KV16 : kv16;
+      QUANT ? T::CODES : SPLIT_KV ? 2 * kv16 : kv16;
   static constexpr int tma_bytes = 2 * kvh;
   static constexpr int ids = tma_bytes + (QUANT ? 2 * BN * 4 : 0);
-  static constexpr int stage = align1k(ids + (SEG ? KN * 4 : 0));
-  static constexpr int st_off = align1k(F32 ? 2 * T::Q : T::Q);
+  static constexpr int used = ids + (SEG ? KN * 4 : 0);  // bytes of a stage
+  static constexpr int stage = align1k(used);
+  static constexpr int cv_off = align1k(F32 ? 2 * T::Q : T::Q);
   static constexpr int cv_v = align1k(T::KV16);        // V in a converted pair
   static constexpr int cv_stride = align1k(cv_v + T::KV16);
-  static constexpr int cv_off = st_off + NST * stage;
-  static constexpr int bar_off = cv_off + (QUANT ? NCV * cv_stride : 0);
+  static constexpr int st_off = cv_off + (QUANT ? NCV * cv_stride : 0);
+  static constexpr int bar_off = st_off + (NST - 1) * stage + align8(used);
   static constexpr int bytes = bar_off + 8 * (2 * NST + 1) + 1024;
   static_assert(bytes <= 232448, "the CTA's shared memory");
 };
@@ -167,14 +183,14 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         const int st_i = i % NST;
         mbar_wait(empty + 8 * st_i, ((i / NST) & 1) ^ 1);
         uint8_t* stage = smem + L::st_off + st_i * L::stage;
-        split_rows<D, 128>(stage, stage + T::KV16, BN, f.p[1] + b * st[3],
-                           st[4], st[5], hk, 1, BN, t * BN, a.Nk, pt);
-        split_rows<D, 128>(stage + L::kvh, stage + L::kvh + T::KV16, BN,
-                           f.p[2] + b * st[6], st[7], st[8], hk, 1, BN,
-                           t * BN, a.Nk, pt);
+        split_rows<D, 128>(stage, stage + L::kv16, KN, f.p[1] + b * st[3],
+                           st[4], st[5], hk, 1, KN, t * KN, a.Nk, pt);
+        split_rows<D, 128>(stage + L::kvh, stage + L::kvh + L::kv16, KN,
+                           f.p[2] + b * st[6], st[7], st[8], hk, 1, KN,
+                           t * KN, a.Nk, pt);
         if (SEG) {
-          load_ids<128>(reinterpret_cast<int*>(stage + L::ids), kv_seg, a, b,
-                        t * BN, pt);
+          load_ids<128, KN>(reinterpret_cast<int*>(stage + L::ids), kv_seg,
+                            a, b, t * KN, pt);
         }
         fence_proxy_async();
         mbar_arrive(full + 8 * st_i);
@@ -295,16 +311,17 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     };
 
     const int n = t_end - t_begin;
-    if constexpr (KN == BN2 || D == 256) {
+    if constexpr (KN != BN || D == 256) {
       // in order: S, its softmax, P·V. The 128-key walk's S, and at d =
       // 256 O's 128 registers, leave no room for a second S and P live
-      // across the overlap below.
+      // across the overlap below (under F32 P = p + p_lo, the products on
+      // split tiles).
       for (int i = 0; i < n; ++i) {
         uint32_t kt, vt;
         const float* ksc = nullptr;
         const float* vsc = nullptr;
         const int* kseg;
-        if constexpr (KN == BN2) {
+        if constexpr (KN != BN) {
           mbar_wait(full + 8 * (i % NST), (i / NST) & 1);
           const int stage_off = L::st_off + (i % NST) * L::stage;
           kt = base + stage_off;
@@ -315,25 +332,25 @@ __global__ void __launch_bounds__(NTHREADS, 1)
           tile(i, kt, vt, ksc, vsc, kseg);
         }
         float s[KN / 2], alpha[2];
-        uint32_t p[KN / 4];
+        uint32_t p[KN / 4], p_lo[KN / 4];
         wgmma_fence();
-        qk_issue<D, false, KN>(s, base, kt, wg);
+        qk_issue_any<D, F32, EXACT, KN>(s, base, kt, wg);
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(s);
         const int c0 = (t_begin + i) * KN;
         if (!SEG && interior<KN>(a, c0, q0, q0 + a.R - 1)) {
-          online_step<QUANT, false, false, false, KN>(
-              a, r, s, ksc, vsc, kseg, qseg, c0, m, l, alpha, p);
+          online_step<QUANT, false, false, F32, KN>(
+              a, r, s, ksc, vsc, kseg, qseg, c0, m, l, alpha, p, p_lo);
         } else {
-          online_step<QUANT, SEG, true, false, KN>(
-              a, r, s, ksc, vsc, kseg, qseg, c0, m, l, alpha, p);
+          online_step<QUANT, SEG, true, F32, KN>(
+              a, r, s, ksc, vsc, kseg, qseg, c0, m, l, alpha, p, p_lo);
         }
         // under QUANT the stage's codes, scales and ids are read
         if (QUANT && lane == 0) mbar_arrive(empty + 8 * (i % NST));
         scale_acc<D>(acc, alpha);
         wgmma_fence();
-        pv_issue<D, KN>(acc, p, vt);
+        pv_issue_any<D, F32, EXACT, KN>(acc, p, p_lo, vt);
         wgmma_commit();
         wgmma_wait_all();
 #pragma unroll
@@ -430,8 +447,22 @@ cudaError_t launch_form(const Maps& mp, const Args& a, const Extra& x,
                         cudaStream_t stream) {
   const bool seg = x.q_seg != nullptr;
   if constexpr (D == 256) {
-    // a bf16 Q over bf16 or one-byte K/V, 64-key tiles
-    if (f32 || kn != BN) return cudaErrorInvalidValue;
+    // 64-key tiles, or BN32 over fp32 K/V (the entry point checked kn)
+    if (f32 && a.k_type == kF32) {
+      return seg ? launch<D, false, true, true, BN32>(mp, a, x, f, B, stream)
+                 : launch<D, false, false, true, BN32>(mp, a, x, f, B,
+                                                       stream);
+    }
+    if (f32 && a.k_type == kBf16) {  // an fp32 Q over bf16 K/V
+      return seg ? launch<D, false, true, true, BN, true>(mp, a, x, f, B,
+                                                          stream)
+                 : launch<D, false, false, true, BN, true>(mp, a, x, f, B,
+                                                           stream);
+    }
+    if (f32) {  // an fp32 Q over one-byte K/V
+      return seg ? launch<D, true, true, true>(mp, a, x, f, B, stream)
+                 : launch<D, true, false, true>(mp, a, x, f, B, stream);
+    }
     const bool quant = a.k_type != kBf16;
     if (seg) {
       return quant ? launch<D, true, true, false>(mp, a, x, f, B, stream)
@@ -478,7 +509,8 @@ cudaError_t launch_form(const Maps& mp, const Args& a, const Extra& x,
 // int8, 2 fp8 e4m3, 3 fp32 (K and V both bf16, both one-byte or, with an
 // fp32 Q, both fp32). q_f32: an fp32 Q (over fp32, bf16 or one-byte K/V).
 // out_type: O in bf16 (0), fp32 (1) or fp16 (2). kn: keys of a tile, 64,
-// or 128 (bf16 Q and K/V only). D: 64, 128, or 256 (a bf16 Q, 64 keys).
+// or 128 (bf16 Q and K/V at d <= 128), and 32 for an fp32 Q over fp32 K/V
+// at d = 256 (that build's only tile). D: 64, 128, or 256.
 extern "C" int cfa_flash_fwd(void* const* ptrs, int B, int H, int Hkv, int Nq,
                              int Nk, int D, const long long* strides,
                              int k_type, int v_type, int q_f32, int causal,
@@ -491,7 +523,8 @@ extern "C" int cfa_flash_fwd(void* const* ptrs, int B, int H, int Hkv, int Nq,
   const bool f32 = q_f32 != 0;
   if (!f32 && k_type == kF32) return cudaErrorInvalidValue;
   if (out_type < kOutBf16 || out_type > kOutF16) return cudaErrorInvalidValue;
-  if (kn != BN && (kn != BN2 || f32 || k_type != kBf16)) {
+  if (kn != key_tile(D, f32, k_type) &&
+      (kn != BN2 || f32 || k_type != kBf16 || D == 256)) {
     return cudaErrorInvalidValue;
   }
   Args a = {};

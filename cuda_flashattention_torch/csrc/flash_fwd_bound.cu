@@ -32,7 +32,10 @@
 // bound passes; two stages of 64 KB at d = 128. At d = 256 (bf16 or
 // quantize_q's int8 Q) one-byte K/V keep two stages, and over bf16 tiles
 // one converted pair, which both warpgroups finish reading before it is
-// overwritten.
+// overwritten. An fp32 Q at d = 256 (its split tile 128 KB) keeps one
+// stage, as K1 does and for the same reasons (flash_fwd.cu): a bf16 K + V
+// stage, or a code stage and one converted pair (231,448 of the 232,448
+// bytes), or over fp32 K/V one stage of 32-key split tiles (BN32).
 
 #include "flash_fwd_bound_sm90.cuh"
 
@@ -42,9 +45,12 @@ namespace {
 
 // key-tile stages in flight: a one-byte stage is half the bytes, and its
 // scales come in by plain loads, so it keeps one more ahead (not at d =
-// 256, whose 64 KB Q tile leaves room for two)
-template <int D, bool QUANT>
-constexpr int stages() { return QUANT && D != 256 ? 3 : 2; }
+// 256, whose 64 KB Q tile leaves room for two; an fp32 Q's split one for
+// one)
+template <int D, bool QUANT, bool F32>
+constexpr int stages() {
+  return D == 256 && F32 ? 1 : QUANT && D != 256 ? 3 : 2;
+}
 
 // Shared memory of one CTA (byte offsets from a 1024-aligned base): the Q
 // tile (under F32 its hi and lo tiles); NST stages of K and V as TMA
@@ -52,18 +58,22 @@ constexpr int stages() { return QUANT && D != 256 ? 3 : 2; }
 // V scales; under F32 over fp32 K/V the producer warpgroup's hi and lo
 // tiles of each, over bf16 K/V (BF16KV) the bf16 slabs); under QUANT two
 // converted K/V pairs (exact bf16 tiles, or an s8 K tile under QQ), used
-// in turn, or one at d = 256 over bf16 tiles (195 KB with it); barriers.
+// in turn, or one at d = 256 over bf16 tiles (195 KB with it; 231,448
+// bytes under an fp32 Q); barriers.
 template <int D, bool QUANT, bool QQ, bool F32, int KN, bool BF16KV>
 struct Layout {
   using T = Tiles<D, QQ>;
-  static_assert(KN == BN || (!QUANT && !F32), "128 keys: bf16 K/V only");
-  static_assert(!BF16KV || (F32 && !QUANT), "BF16KV: an fp32 Q");
-  static_assert(D != 256 || (!F32 && KN == BN), "d = 256: bf16 Q, 64 keys");
   static constexpr bool SPLIT_KV = F32 && !QUANT && !BF16KV;  // fp32 K/V
-  static constexpr int NST = stages<D, QUANT>();
+  static_assert(KN != BN2 || (!QUANT && !F32 && D != 256),
+                "128 keys: bf16 K/V at d <= 128 only");
+  static_assert((KN == BN32) == (D == 256 && SPLIT_KV),
+                "32 keys: fp32 K/V at d = 256 (and there only)");
+  static_assert(!BF16KV || (F32 && !QUANT), "BF16KV: an fp32 Q");
+  static constexpr int NST = stages<D, QUANT, F32>();
   static constexpr int NCV = D == 256 && !QQ ? 1 : 2;  // converted pairs
+  static constexpr int kv16 = KN * D * 2;              // a bf16 K or V tile
   static constexpr int kvh =                          // K, then V
-      QUANT ? T::CODES : SPLIT_KV ? 2 * T::KV16 : KN * D * 2;
+      QUANT ? T::CODES : SPLIT_KV ? 2 * kv16 : kv16;
   static constexpr int tma_bytes = 2 * kvh;
   static constexpr int stage = align1k(tma_bytes + (QUANT ? 2 * BN * 4 : 0));
   static constexpr int st_off = align1k(F32 ? 2 * T::Q : T::Q);
@@ -138,11 +148,11 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         const int st_i = i % NST;
         mbar_wait(empty + 8 * st_i, ((i / NST) & 1) ^ 1);
         uint8_t* stage = smem + L::st_off + st_i * L::stage;
-        split_rows<D, 128>(stage, stage + T::KV16, BN, f.p[1] + b * st[3],
-                           st[4], st[5], hk, 1, BN, t * BN, a.Nk, pt);
-        split_rows<D, 128>(stage + L::kvh, stage + L::kvh + T::KV16, BN,
-                           f.p[2] + b * st[6], st[7], st[8], hk, 1, BN,
-                           t * BN, a.Nk, pt);
+        split_rows<D, 128>(stage, stage + L::kv16, KN, f.p[1] + b * st[3],
+                           st[4], st[5], hk, 1, KN, t * KN, a.Nk, pt);
+        split_rows<D, 128>(stage + L::kvh, stage + L::kvh + L::kv16, KN,
+                           f.p[2] + b * st[6], st[7], st[8], hk, 1, KN,
+                           t * KN, a.Nk, pt);
         fence_proxy_async();
         mbar_arrive(full + 8 * st_i);
       }
@@ -228,15 +238,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         vsc = ksc + BN;
       }
       float s[KN / 2];
-      if constexpr (KN == BN2) {
-        wgmma_fence();
-        qk_issue<D, false, KN>(s, base, kt, wg);
-        wgmma_commit();
-        wgmma_wait_all();
-        fence_regs(s);
-      } else {
-        qk<D, QQ, F32, EXACT>(s, base, kt, wg);
-      }
+      qk<D, QQ, F32, EXACT, KN>(s, base, kt, wg);
       uint32_t p[KN / 4], p_lo[KN / 4];  // under F32 P = p + p_lo
       if (interior<KN>(a, c0, q0, q0 + a.R - 1)) {
         bound_step<QUANT, QQ, false, F32, KN>(a, r, s, ksc, vsc, c0, l, p,
@@ -248,16 +250,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       // the stage is read: its codes and scales (QUANT) or its K (bf16;
       // V is read by the P·V below, which completes before the next wait)
       if (QUANT && lane == 0) mbar_arrive(empty + 8 * st);
-      if constexpr (KN == BN2) {
-        wgmma_fence();
-        pv_issue<D, KN>(acc, p, vt);
-        wgmma_commit();
-        wgmma_wait_all();
-#pragma unroll
-        for (int sl = 0; sl < D / 64; ++sl) fence_regs(acc[sl]);
-      } else {
-        pv<D, F32, EXACT>(acc, p, vt, p_lo);
-      }
+      pv<D, F32, EXACT, KN>(acc, p, vt, p_lo);
       if (!QUANT && lane == 0) mbar_arrive(empty + 8 * st);
     }
     store_rows<D>(a, r, acc, l, b);
@@ -283,8 +276,16 @@ template <int D>
 cudaError_t launch_form(const Maps& m, const Args& a, const F32Src& f, int B,
                         int qq, bool f32, int kn, cudaStream_t stream) {
   if constexpr (D == 256) {
-    // a bf16 (or quantize_q's int8) Q over bf16 or one-byte K/V, 64 keys
-    if (f32 || kn != BN) return cudaErrorInvalidValue;
+    // 64-key tiles, or BN32 over fp32 K/V (the entry point checked kn)
+    if (f32) {  // an fp32 Q over fp32, bf16 or one-byte K/V
+      if (a.k_type == kF32) {
+        return launch<D, false, false, true, BN32>(m, a, f, B, stream);
+      }
+      if (a.k_type == kBf16) {
+        return launch<D, false, false, true, BN, true>(m, a, f, B, stream);
+      }
+      return launch<D, true, false, true>(m, a, f, B, stream);
+    }
     if (a.k_type == kBf16) {
       return launch<D, false, false, false>(m, a, f, B, stream);
     }
@@ -321,8 +322,8 @@ cudaError_t launch_form(const Maps& m, const Args& a, const F32Src& f, int B,
 // and V both bf16, both one-byte or, with an fp32 Q, both fp32). q_f32:
 // an fp32 Q (over fp32, bf16 or one-byte K/V; not with qq, whose Q is
 // int8). out_type: O in bf16 (0), fp32 (1) or fp16 (2). kn: keys of a
-// tile, 64, or 128 (bf16 Q and K/V only). D: 64, 128, or 256 (a bf16 or
-// int8 Q, 64 keys).
+// tile, 64, or 128 (bf16 Q and K/V at d <= 128), and 32 for an fp32 Q
+// over fp32 K/V at d = 256 (that build's only tile). D: 64, 128, or 256.
 extern "C" int cfa_flash_fwd_bound(void* const* ptrs, int B, int H, int Hkv,
                                    int Nq, int Nk, int D,
                                    const long long* strides, int k_type,
@@ -337,7 +338,8 @@ extern "C" int cfa_flash_fwd_bound(void* const* ptrs, int B, int H, int Hkv,
   if (!f32 && k_type == kF32) return cudaErrorInvalidValue;
   if (out_type < kOutBf16 || out_type > kOutF16) return cudaErrorInvalidValue;
   if (qq && (k_type == kBf16 || f32)) return cudaErrorInvalidValue;
-  if (kn != BN && (kn != BN2 || f32 || k_type != kBf16)) {
+  if (kn != key_tile(D, f32, k_type) &&
+      (kn != BN2 || f32 || k_type != kBf16 || D == 256)) {
     return cudaErrorInvalidValue;
   }
   Args a = {};

@@ -45,12 +45,16 @@
 //     tiles come by TMA as the bf16 slabs of the bf16 builds and are
 //     exact bf16 operands as they stand (their lo parts are 0), so each
 //     product is two wgmmas, lo·k + hi·k, and P is split as under F32.
-//   - head dim 256 (a bf16 Q over bf16 or one-byte K/V, quantize_q too;
-//     the fp32 builds' split tiles do not fit beside it): a tile is four
-//     64-column slabs (a 128-row Q tile 64 KB, a K + V stage 64 KB) and O
-//     takes 128 registers a consumer thread (acc[4][32]), so each walk runs
-//     a key tile's S, softmax and P·V in order, and one-byte K/V keep two
-//     code stages and one converted pair (K5 a span of one tile).
+//   - head dim 256: a tile is four 64-column slabs (a 128-row bf16 Q tile
+//     64 KB, a bf16 K + V stage 64 KB) and O takes 128 registers a
+//     consumer thread (acc[4][32]), so each walk runs a key tile's S,
+//     softmax and P·V in order. A bf16 Q over one-byte K/V keeps two code
+//     stages and one converted pair (K5 a span of one tile). An fp32 Q's
+//     split tile is 128 KB, which leaves one stage beside it: one bf16
+//     K + V stage (BF16KV), one code stage and one converted pair (231 KB
+//     of the 232,448 bytes), and over fp32 K/V one stage of 32-key tiles
+//     (BN32: their split pair is 64 KB, where a 64-key one, 128 KB, does
+//     not fit); K5 keeps a ring of one Q tile beside a span of one tile.
 //
 // Numerics (those of the plain version, ops/flash_fwd.py::_forward_plain):
 //   s = (q̂ · k_q) · k_scale[col]     fp32; under quantize_q the int32 dot
@@ -90,6 +94,8 @@ constexpr int BN = 64;         // keys of a tile
 // K1's and K1b's second key tile (bf16 Q and K/V only): `block_k` = 128
 // selects it; every other kernel and form keeps BN
 constexpr int BN2 = 128;
+// the key tile of fp32 K/V under an fp32 Q at d = 256 (K1, K1b, K5, K8)
+constexpr int BN32 = 32;
 constexpr int NTHREADS = 384;  // two consumer warpgroups and the producer's
 constexpr int NCONSUMER = 256;
 constexpr int kBf16 = 0, kInt8 = 1, kFp8 = 2, kF32 = 3;  // storage codes
@@ -363,6 +369,13 @@ struct Tiles {
 };
 
 __host__ __device__ constexpr int align1k(int x) { return (x + 1023) & ~1023; }
+__host__ __device__ constexpr int align8(int x) { return (x + 7) & ~7; }
+
+// The key tile of a forward build that takes the 64-key tile's place: BN32
+// for an fp32 Q over fp32 K/V at d = 256, BN everywhere else.
+__host__ __device__ constexpr int key_tile(int D, bool f32, int k_type) {
+  return D == 256 && f32 && k_type == kF32 ? BN32 : BN;
+}
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
@@ -708,7 +721,8 @@ __device__ __forceinline__ bool interior(const Args& a, int c0, int q_lo,
 template <int D, bool ACC = false, int KN = BN>
 __device__ __forceinline__ void qk_issue(float (&s)[KN / 2], uint32_t q,
                                          uint32_t k, int wg) {
-  static_assert(KN == BN || KN == BN2, "key tiles of 64 or 128");
+  static_assert(KN == BN || KN == BN2 || KN == BN32,
+                "key tiles of 32, 64 or 128");
 #pragma unroll
   for (int sl = 0; sl < D / 64; ++sl) {
 #pragma unroll
@@ -718,6 +732,8 @@ __device__ __forceinline__ void qk_issue(float (&s)[KN / 2], uint32_t q,
       const uint64_t db = make_desc(k + sl * KN * 128 + kk * 32, 16, 1024, 1);
       if constexpr (KN == BN2) {
         wgmma_ss_bf16_n128(s, da, db, ACC || sl + kk > 0);
+      } else if constexpr (KN == BN32) {
+        wgmma_ss_bf16_n32(s, da, db, ACC || sl + kk > 0);
       } else {
         wgmma_ss_bf16(s, da, db, ACC || sl + kk > 0);
       }
@@ -725,8 +741,8 @@ __device__ __forceinline__ void qk_issue(float (&s)[KN / 2], uint32_t q,
   }
 }
 
-// (KN: the keys of the V tile, 64, K3's fp32 32 or the 128-key builds' BN2;
-// P holds KN / 4 pairs)
+// (KN: the keys of the V tile, 64, 32 (K3's fp32 and BN32 tiles) or the
+// 128-key builds' BN2; P holds KN / 4 pairs)
 template <int D, int KN = BN>
 __device__ __forceinline__ void pv_issue(float (&acc)[D / 64][32],
                                          const uint32_t (&p)[KN / 4],
@@ -753,12 +769,12 @@ __device__ __forceinline__ void pv_issue(float (&acc)[D / 64][32],
 // (one-byte codes converted under an fp32 Q: every int8 code and every
 // e4m3 value is a bf16 value), so its lo part is 0 and the product is two
 // wgmmas, lo·k + hi·k.
-template <int D, bool EXACT_KV = false>
-__device__ __forceinline__ void qk_issue_f32(float (&s)[32], uint32_t q,
+template <int D, bool EXACT_KV = false, int KN = BN>
+__device__ __forceinline__ void qk_issue_f32(float (&s)[KN / 2], uint32_t q,
                                              uint32_t k, int wg) {
-  qk_issue<D>(s, q + BM * D * 2, k, wg);
-  if (!EXACT_KV) qk_issue<D, true>(s, q, k + BN * D * 2, wg);
-  qk_issue<D, true>(s, q, k, wg);
+  qk_issue<D, false, KN>(s, q + BM * D * 2, k, wg);
+  if (!EXACT_KV) qk_issue<D, true, KN>(s, q, k + KN * D * 2, wg);
+  qk_issue<D, true, KN>(s, q, k, wg);
 }
 
 // acc += P·V with P = p + p_lo in registers and V split in shared memory
@@ -774,24 +790,24 @@ __device__ __forceinline__ void pv_issue_f32(float (&acc)[D / 64][32],
 }
 
 // qk_issue or, under F32, qk_issue_f32; pv_issue or pv_issue_f32.
-template <int D, bool F32, bool EXACT_KV = false>
-__device__ __forceinline__ void qk_issue_any(float (&s)[32], uint32_t q,
+template <int D, bool F32, bool EXACT_KV = false, int KN = BN>
+__device__ __forceinline__ void qk_issue_any(float (&s)[KN / 2], uint32_t q,
                                              uint32_t k, int wg) {
-  if (F32) {
-    qk_issue_f32<D, EXACT_KV>(s, q, k, wg);
+  if constexpr (F32) {
+    qk_issue_f32<D, EXACT_KV, KN>(s, q, k, wg);
   } else {
-    qk_issue<D>(s, q, k, wg);
+    qk_issue<D, false, KN>(s, q, k, wg);
   }
 }
-template <int D, bool F32, bool EXACT_KV = false>
+template <int D, bool F32, bool EXACT_KV = false, int KN = BN>
 __device__ __forceinline__ void pv_issue_any(float (&acc)[D / 64][32],
-                                             const uint32_t (&p)[16],
-                                             const uint32_t (&p_lo)[16],
+                                             const uint32_t (&p)[KN / 4],
+                                             const uint32_t (&p_lo)[KN / 4],
                                              uint32_t v) {
-  if (F32) {
-    pv_issue_f32<D, EXACT_KV>(acc, p, p_lo, v);
+  if constexpr (F32) {
+    pv_issue_f32<D, EXACT_KV, KN>(acc, p, p_lo, v);
   } else {
-    pv_issue<D>(acc, p, v);
+    pv_issue<D, KN>(acc, p, v);
   }
 }
 
@@ -873,19 +889,16 @@ inline F32Src f32_src(void* const* ptrs, const long long* strides) {
   return f;
 }
 
-// S[64x64] of this warpgroup's rows = Q · Kᵀ. q: the Q tile, k: the K tile
-// (shared-memory addresses; split tiles under F32).
-template <int D, bool QQ, bool F32 = false, bool EXACT_KV = false>
-__device__ __forceinline__ void qk(float (&s)[32], uint32_t q, uint32_t k,
+// S[64xKN] of this warpgroup's rows = Q · Kᵀ. q: the Q tile, k: the K
+// tile (shared-memory addresses; split tiles under F32; KN as qk_issue's,
+// 64 under QQ).
+template <int D, bool QQ, bool F32 = false, bool EXACT_KV = false,
+          int KN = BN>
+__device__ __forceinline__ void qk(float (&s)[KN / 2], uint32_t q, uint32_t k,
                                    int wg) {
   using T = Tiles<D, QQ>;
-  if (F32) {
-    wgmma_fence();
-    qk_issue_f32<D, EXACT_KV>(s, q, k, wg);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(s);
-  } else if (QQ) {
+  if constexpr (QQ) {
+    static_assert(KN == BN && !F32, "quantize_q: 64-key tiles, int8 Q");
     int si[32];
     wgmma_fence();
 #pragma unroll
@@ -906,26 +919,26 @@ __device__ __forceinline__ void qk(float (&s)[32], uint32_t q, uint32_t k,
     for (int i = 0; i < 32; ++i) s[i] = (float)si[i];
   } else {
     wgmma_fence();
-    qk_issue<D>(s, q, k, wg);
+    qk_issue_any<D, F32, EXACT_KV, KN>(s, q, k, wg);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
   }
 }
 
-// acc[64xD] += P[64x64] · V[64xD]: P from registers (bf16 pairs in the A
+// acc[64xD] += P[64xKN] · V[KNxD]: P from registers (bf16 pairs in the A
 // layout, which is S's accumulator layout), V MN-major from shared memory;
 // under F32 P = p + p_lo and V split (EXACT_KV: V one exact bf16 tile).
-template <int D, bool F32 = false, bool EXACT_KV = false>
+template <int D, bool F32 = false, bool EXACT_KV = false, int KN = BN>
 __device__ __forceinline__ void pv(float (&acc)[D / 64][32],
-                                   const uint32_t (&p)[16], uint32_t v,
+                                   const uint32_t (&p)[KN / 4], uint32_t v,
                                    const uint32_t* p_lo = nullptr) {
   wgmma_fence();
-  if (F32) {
-    pv_issue_f32<D, EXACT_KV>(
-        acc, p, *reinterpret_cast<const uint32_t(*)[16]>(p_lo), v);
+  if constexpr (F32) {
+    pv_issue_f32<D, EXACT_KV, KN>(
+        acc, p, *reinterpret_cast<const uint32_t(*)[KN / 4]>(p_lo), v);
   } else {
-    pv_issue<D>(acc, p, v);
+    pv_issue<D, KN>(acc, p, v);
   }
   wgmma_commit();
   wgmma_wait_all();

@@ -5,8 +5,12 @@
 // tiles, over fp32 K and V split the same way (a span of one key tile at
 // d = 128, four at d = 64), or over bf16 K/V, exact tiles as TMA leaves
 // them, or one-byte K/V converted to exact bf16 tiles (three at d = 128,
-// eight at d = 64). At d = 256 (a bf16 Q, or quantize_q's int8 Q) a span
-// is one key tile: its 64 KB K + V pair beside two 64 KB Q tiles.
+// eight at d = 64). At d = 256 a span is one key tile: a bf16 Q's (or
+// quantize_q's int8 Q's) ring of two 64 KB Q tiles beside its 64 KB K + V
+// pair, and an fp32 Q's ring of one split 128 KB Q tile beside a bf16 (or
+// converted) 64 KB pair, or beside the 64 KB split pair of a 32-key tile
+// over fp32 K/V (BN32: a 64-key split pair, 128 KB, does not fit), so
+// that the producer's split of the next Q tile waits for the consumers.
 //
 // Replaces: cuda_flashattention_tpu/ops/flash_fwd.py::_fwd_kernel_kmajor.
 // What that kernel computes is the bound forward's result (K1b) on a
@@ -44,14 +48,13 @@ using namespace cfa_bound;
 
 namespace {
 
-constexpr int NQS = 2;  // Q tiles in flight
+constexpr int NQS = 2;  // Q tiles in flight (one under an fp32 Q at d = 256)
 
 // the most key tiles a CTA keeps resident (what fits beside the Q ring);
 // fp32 K/V tiles are held split, at twice the bytes, and an fp32 Q's ring
 // is split too (ops/flash_fwd.py::_KMAJOR_MAX_SPAN*); `exact`: K/V held as
 // exact bf16 tiles (bf16 or one-byte K/V)
-// (d = 256, bf16 or int8 Q only: one tile pair of 64 KB beside two 64 KB
-// Q tiles)
+// (d = 256: one tile, of 64 keys or, over fp32 K/V, of BN32)
 __host__ __device__ constexpr int max_span(int D, bool f32, bool exact) {
   return D == 256 ? 1
          : f32    ? (exact ? (D == 128 ? 3 : 8) : (D == 128 ? 1 : 4))
@@ -67,21 +70,23 @@ template <int D, bool QUANT, bool QQ, bool F32, bool BF16KV>
 struct Layout {
   using T = Tiles<D, QQ>;
   static_assert(!BF16KV || (F32 && !QUANT), "BF16KV: an fp32 Q");
-  static_assert(D != 256 || !F32, "d = 256: a bf16 or int8 Q");
   static constexpr int SPAN = max_span(D, F32, QUANT || BF16KV);
   static constexpr bool SPLIT_KV = F32 && !QUANT && !BF16KV;
+  static constexpr int KN = key_tile(D, F32, SPLIT_KV ? kF32 : kBf16);
+  static constexpr int NQ = D == 256 && F32 ? 1 : NQS;  // Q tiles in flight
+  static constexpr int kv16 = KN * D * 2;  // a bf16 K or V tile
   // V after K in a tile pair; split K/V are each hi then lo
-  static constexpr int tile_v = SPLIT_KV ? 2 * T::KV16 : align1k(T::KC);
-  static constexpr int tile_stride = tile_v + (SPLIT_KV ? 2 : 1) * T::KV16;
+  static constexpr int tile_v = SPLIT_KV ? 2 * kv16 : align1k(T::KC);
+  static constexpr int tile_stride = tile_v + (SPLIT_KV ? 2 : 1) * kv16;
   static constexpr int q_stride = align1k(F32 ? 2 * T::Q : T::Q);
   static constexpr int q_off = SPAN * tile_stride;
   static constexpr int raw_pair = 2 * T::CODES;  // one key tile's codes
-  static constexpr int q_region = NQS * q_stride > (QUANT ? SPAN * raw_pair : 0)
-                                      ? NQS * q_stride
+  static constexpr int q_region = NQ * q_stride > (QUANT ? SPAN * raw_pair : 0)
+                                      ? NQ * q_stride
                                       : SPAN * raw_pair;
   static constexpr int sc_off = q_off + align1k(q_region);
   static constexpr int bar_off = sc_off + (QUANT ? SPAN * 2 * BN * 4 : 0);
-  static constexpr int bytes = bar_off + 8 * (2 * NQS + 2) + 1024;
+  static constexpr int bytes = bar_off + 8 * (2 * NQ + 2) + 1024;
   static_assert(bytes <= 232448, "the CTA's shared memory");
 };
 
@@ -95,20 +100,22 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   static_assert(!(QQ && F32), "quantize_q's Q is int8");
   using T = Tiles<D, QQ>;
   using L = Layout<D, QUANT, QQ, F32, BF16KV>;
+  constexpr int KN = L::KN;  // keys of a tile
+  constexpr int NQ = L::NQ;
   // K/V tiles that are exact bf16 operands under an fp32 Q
   constexpr bool EXACT = QUANT || BF16KV;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t base = smem_u32(smem);
   const uint32_t q_full = base + L::bar_off;  // + 8 * stage
-  const uint32_t q_empty = q_full + 8 * NQS;  // + 8 * stage
-  const uint32_t span_bar = q_empty + 8 * NQS;
+  const uint32_t q_empty = q_full + 8 * NQ;   // + 8 * stage
+  const uint32_t span_bar = q_empty + 8 * NQ;
   const uint32_t free_bar = span_bar + 8;     // the codes are converted
 
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int t_lo = blockIdx.x * a.span;
-  const int t_hi = min((a.Nk + BN - 1) / BN, t_lo + a.span);
+  const int t_hi = min((a.Nk + KN - 1) / KN, t_lo + a.span);
   const int nt = t_hi - t_lo;
   // Q tiles that see a key of the span: causal rows see keys <= pos +
   // kv_offset, so from position span_c0 − kv_offset on; windowed rows up
@@ -116,10 +123,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const int n_q_tiles = (a.Nq + a.R - 1) / a.R;
   int first = 0, last = n_q_tiles - 1;
   if (a.causal) {
-    first = max(0, t_lo * BN - a.kv_offset) / a.R;
+    first = max(0, t_lo * KN - a.kv_offset) / a.R;
     if (a.window > 0) {
       const int last_pos =
-          min(a.Nk, t_hi * BN) - 1 + a.window - 1 - a.kv_offset;
+          min(a.Nk, t_hi * KN) - 1 + a.window - 1 - a.kv_offset;
       last = last_pos < 0 ? -1 : min(last, last_pos / a.R);
     }
   }
@@ -127,7 +134,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const int n_items = (a.G / a.Gp) * per_pack;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < NQS; ++s) {
+    for (int s = 0; s < NQ; ++s) {
       // the TMA issue, or under F32 the producer warpgroup's 128 threads
       mbar_init(q_full + 8 * s, F32 ? 128 : 1);
       mbar_init(q_empty + 8 * s, 8);  // lane 0 of each consumer warp
@@ -147,10 +154,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     // memory and write its hi and lo tiles into the ring
     auto split_q_ring = [&]() {
       for (int item = 0; item < n_items; ++item) {
-        const int qs = item % NQS;
+        const int qs = item % NQ;
         const int h0 = hk * a.G + (item / per_pack) * a.Gp;
         const int q0 = (first + item % per_pack) * a.R;
-        mbar_wait(q_empty + 8 * qs, ((item / NQS) & 1) ^ 1);
+        mbar_wait(q_empty + 8 * qs, ((item / NQ) & 1) ^ 1);
         uint8_t* dst = smem + L::q_off + qs * L::q_stride;
         split_rows<D, 128>(dst, dst + T::Q, BM, f.p[0] + b * st[0], st[1],
                            st[2], h0, a.Gp, a.R, q0, a.Nq, pt);
@@ -163,11 +170,11 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       for (int j = 0; j < nt; ++j) {
         const int t = t_lo + j;
         uint8_t* dst = smem + j * L::tile_stride;
-        split_rows<D, 128>(dst, dst + T::KV16, BN, f.p[1] + b * st[3], st[4],
-                           st[5], hk, 1, BN, t * BN, a.Nk, pt);
-        split_rows<D, 128>(dst + L::tile_v, dst + L::tile_v + T::KV16, BN,
-                           f.p[2] + b * st[6], st[7], st[8], hk, 1, BN,
-                           t * BN, a.Nk, pt);
+        split_rows<D, 128>(dst, dst + L::kv16, KN, f.p[1] + b * st[3], st[4],
+                           st[5], hk, 1, KN, t * KN, a.Nk, pt);
+        split_rows<D, 128>(dst + L::tile_v, dst + L::tile_v + L::kv16, KN,
+                           f.p[2] + b * st[6], st[7], st[8], hk, 1, KN,
+                           t * KN, a.Nk, pt);
       }
       fence_proxy_async();
       mbar_arrive(span_bar);
@@ -224,10 +231,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       }
       if (QUANT) mbar_wait(free_bar, 0);
       for (int item = 0; item < n_items; ++item) {
-        const int st = item % NQS;
+        const int st = item % NQ;
         const int h0 = hk * a.G + (item / per_pack) * a.Gp;
         const int q0 = (first + item % per_pack) * a.R;
-        mbar_wait(q_empty + 8 * st, ((item / NQS) & 1) ^ 1);
+        mbar_wait(q_empty + 8 * st, ((item / NQ) & 1) ^ 1);
         mbar_expect_tx(q_full + 8 * st, a.Gp * a.R * D * (QQ ? 1 : 2));
         const uint32_t dst = base + L::q_off + st * L::q_stride;
         for (int sl = 0; sl < T::QSLABS; ++sl) {
@@ -264,7 +271,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     // loads do not stall the tile's products
     Rows r_next = row_info(a, b, hk * a.G, first * a.R, tid);
     for (int item = 0; item < n_items; ++item) {
-      const int st = item % NQS;
+      const int st = item % NQ;
       const int q0 = (first + item % per_pack) * a.R;
       const Rows r = r_next;
       if (item + 1 < n_items) {
@@ -272,8 +279,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                           (first + (item + 1) % per_pack) * a.R, tid);
       }
       int t_begin, t_end;
-      visible_tiles(a, q0, min(q0 + a.R, a.Nq) - 1, t_lo, t_hi, t_begin,
-                    t_end);
+      visible_tiles<KN>(a, q0, min(q0 + a.R, a.Nq) - 1, t_lo, t_hi, t_begin,
+                        t_end);
       float acc[D / 64][32];
 #pragma unroll
       for (int sl = 0; sl < D / 64; ++sl) {
@@ -282,23 +289,23 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       }
       float l[2] = {0.f, 0.f};
       const uint32_t q = base + L::q_off + st * L::q_stride;
-      mbar_wait(q_full + 8 * st, (item / NQS) & 1);
+      mbar_wait(q_full + 8 * st, (item / NQ) & 1);
       for (int t = t_begin; t < t_end; ++t) {
         const int j = t - t_lo;
         const uint32_t kt = base + j * L::tile_stride;
         const float* ksc = QUANT ? scales + j * 2 * BN : nullptr;
         const float* vsc = QUANT ? ksc + BN : nullptr;
-        float s[32];
-        qk<D, QQ, F32, EXACT>(s, q, kt, wg);
-        uint32_t p[16], p_lo[16];  // under F32 P = p + p_lo
-        if (interior(a, t * BN, q0, q0 + a.R - 1)) {
-          bound_step<QUANT, QQ, false, F32>(a, r, s, ksc, vsc, t * BN, l, p,
-                                            p_lo);
+        float s[KN / 2];
+        qk<D, QQ, F32, EXACT, KN>(s, q, kt, wg);
+        uint32_t p[KN / 4], p_lo[KN / 4];  // under F32 P = p + p_lo
+        if (interior<KN>(a, t * KN, q0, q0 + a.R - 1)) {
+          bound_step<QUANT, QQ, false, F32, KN>(a, r, s, ksc, vsc, t * KN, l,
+                                                p, p_lo);
         } else {
-          bound_step<QUANT, QQ, true, F32>(a, r, s, ksc, vsc, t * BN, l, p,
-                                           p_lo);
+          bound_step<QUANT, QQ, true, F32, KN>(a, r, s, ksc, vsc, t * KN, l,
+                                               p, p_lo);
         }
-        pv<D, F32, EXACT>(acc, p, kt + L::tile_v, p_lo);
+        pv<D, F32, EXACT, KN>(acc, p, kt + L::tile_v, p_lo);
       }
       if (lane == 0) mbar_arrive(q_empty + 8 * st);  // Q is read
       add_rows<D>(a, r, acc, l, b);
@@ -326,12 +333,13 @@ template <int D, bool QUANT, bool QQ, bool F32, bool BF16KV = false>
 cudaError_t launch(const Maps& m, const Args& a, const F32Src& f, int B,
                    cudaStream_t stream) {
   if (a.Nk > 0) {
-    const int smem = Layout<D, QUANT, QQ, F32, BF16KV>::bytes;
+    using L = Layout<D, QUANT, QQ, F32, BF16KV>;
+    const int smem = L::bytes;
     cudaError_t err = cudaFuncSetAttribute(
         flash_fwd_kmajor_kernel<D, QUANT, QQ, F32, BF16KV>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    const int n_tiles = (a.Nk + BN - 1) / BN;
+    const int n_tiles = (a.Nk + L::KN - 1) / L::KN;
     const dim3 grid((n_tiles + a.span - 1) / a.span, a.Hkv, B);
     flash_fwd_kmajor_kernel<D, QUANT, QQ, F32, BF16KV>
         <<<grid, NTHREADS, smem, stream>>>(m.q, m.k, m.v, a, f);
@@ -347,29 +355,20 @@ cudaError_t launch(const Maps& m, const Args& a, const F32Src& f, int B,
 template <int D>
 cudaError_t launch_form(const Maps& m, const Args& a, const F32Src& f, int B,
                         int qq, bool f32, cudaStream_t stream) {
-  if constexpr (D == 256) {
-    if (f32) return cudaErrorInvalidValue;  // a bf16 or int8 Q
-    if (a.k_type == kBf16) {
-      return launch<D, false, false, false>(m, a, f, B, stream);
-    }
-    return qq ? launch<D, true, true, false>(m, a, f, B, stream)
-              : launch<D, true, false, false>(m, a, f, B, stream);
-  } else {
-    if (f32) {  // an fp32 Q over fp32, bf16 or one-byte K/V
-      if (a.k_type == kF32) {
-        return launch<D, false, false, true>(m, a, f, B, stream);
-      }
-      if (a.k_type == kBf16) {
-        return launch<D, false, false, true, true>(m, a, f, B, stream);
-      }
-      return launch<D, true, false, true>(m, a, f, B, stream);
+  if (f32) {  // an fp32 Q over fp32, bf16 or one-byte K/V
+    if (a.k_type == kF32) {
+      return launch<D, false, false, true>(m, a, f, B, stream);
     }
     if (a.k_type == kBf16) {
-      return launch<D, false, false, false>(m, a, f, B, stream);
+      return launch<D, false, false, true, true>(m, a, f, B, stream);
     }
-    return qq ? launch<D, true, true, false>(m, a, f, B, stream)
-              : launch<D, true, false, false>(m, a, f, B, stream);
+    return launch<D, true, false, true>(m, a, f, B, stream);
   }
+  if (a.k_type == kBf16) {
+    return launch<D, false, false, false>(m, a, f, B, stream);
+  }
+  return qq ? launch<D, true, true, false>(m, a, f, B, stream)
+            : launch<D, true, false, false>(m, a, f, B, stream);
 }
 
 }  // namespace
@@ -377,8 +376,9 @@ cudaError_t launch_form(const Maps& m, const Args& a, const F32Src& f, int B,
 // K5. ptrs: q, k, v, k_scale, v_scale, q_factor, c, l_acc ([B,H,Nq] fp32,
 // zeroed), o_acc ([B,H,Nq,D] fp32, zeroed), n_loose, o, lse; the rest as
 // cfa_flash_fwd_bound's, and span: key tiles of 64 per CTA, 1 to
-// max_span(D, q_f32, K/V not fp32) (ops/flash_fwd.py::_KMAJOR_MAX_SPAN*).
-// D: 64, 128, or 256 (a bf16 or int8 Q, span 1).
+// max_span(D, q_f32, K/V not fp32) (ops/flash_fwd.py::_KMAJOR_MAX_SPAN*);
+// its tiles are of key_tile(D, q_f32, k_type) keys (32 for an fp32 Q over
+// fp32 K/V at d = 256). D: 64, 128, or 256 (span 1).
 extern "C" int cfa_flash_fwd_kmajor(void* const* ptrs, int B, int H, int Hkv,
                                     int Nq, int Nk, int D,
                                     const long long* strides, int k_type,
@@ -394,7 +394,6 @@ extern "C" int cfa_flash_fwd_kmajor(void* const* ptrs, int B, int H, int Hkv,
   if (out_type < kOutBf16 || out_type > kOutF16) return cudaErrorInvalidValue;
   if (qq && (k_type == kBf16 || f32)) return cudaErrorInvalidValue;
   if (D != 64 && D != 128 && D != 256) return cudaErrorInvalidValue;
-  if (D == 256 && f32) return cudaErrorInvalidValue;
   const bool quant = k_type != kBf16 && k_type != kF32;
   if (span < 1 || span > max_span(D, f32, k_type != kF32)) {
     return cudaErrorInvalidValue;

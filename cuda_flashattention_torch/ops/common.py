@@ -26,18 +26,19 @@ import torch
 NEG_INF = -1e30
 
 # Head dims the CUDA kernels are instantiated for, by family: the forward
-# (K1, K1b, K5: csrc/flash_fwd*.cu; 256 for a bf16 Q only); the backward
-# (K2, K3, K4 and its prologue; 256 for bf16 only); FA1 (K8) and the
-# device ring (K9); decode (K6, K7: csrc/decode_body.cuh), which reads any
-# d up to its largest build in place on the next build up. The forward and
-# backward families run a narrower d on zero-padded heads (`pad_heads`).
+# (K1, K1b, K5: csrc/flash_fwd*.cu); the backward (K2, K3, K4 and its
+# prologue; 256 for bf16 only); FA1 (K8: csrc/fa1.cu); the device ring
+# (K9); decode (K6, K7: csrc/decode_body.cuh), which reads any d up to its
+# largest build in place on the next build up. The forward, backward and
+# FA1 families run a narrower d on zero-padded heads (`pad_heads`).
 FWD_HEAD_DIMS = (64, 128, 256)
 BWD_HEAD_DIMS = (64, 128, 256)
+FA1_HEAD_DIMS = (64, 128, 256)
 KERNEL_HEAD_DIMS = (64, 128)
 DECODE_HEAD_DIMS = (16, 32, 64, 128, 256)
 # the head dims of the forward's fp32-Q builds (F32, BF16KV and over
 # one-byte K/V)
-FWD_F32_HEAD_DIMS = (64, 128)
+FWD_F32_HEAD_DIMS = (64, 128, 256)
 
 
 def run_dim(d: int, dims: Tuple[int, ...] = FWD_HEAD_DIMS) -> Optional[int]:
@@ -47,18 +48,22 @@ def run_dim(d: int, dims: Tuple[int, ...] = FWD_HEAD_DIMS) -> Optional[int]:
 
 
 # The forward kernels' query tile (K1, K1b, K5: two warpgroups of 64 rows
-# of packed heads) and their key tiles: 64 everywhere, and 128 in the
-# bf16 builds of K1 and K1b (csrc/flash_fwd.cu, csrc/flash_fwd_bound.cu).
-# K5 keeps `block_k` = 64 · span keys resident (a span of 64-key tiles,
-# up to what its shared memory holds beside its Q ring; fp32 tiles are
-# split in two bf16 tiles, and an fp32 Q over bf16 or one-byte K/V keeps
-# exact bf16 K/V tiles beside a split Q ring: csrc/flash_fwd_kmajor.cu).
+# of packed heads) and their key tiles: 64 everywhere, 128 in the bf16
+# builds of K1 and K1b at d <= 128 (csrc/flash_fwd.cu,
+# csrc/flash_fwd_bound.cu), and 32 for an fp32 Q over fp32 K/V at d = 256
+# (`fwd_key_tile`: a 64-key split K + V stage, 128 KB, does not fit beside
+# the 128 KB split Q tile). K5 keeps `block_k` = tile · span keys resident
+# (a span of key tiles, up to what its shared memory holds beside its Q
+# ring; fp32 tiles are split in two bf16 tiles, and an fp32 Q over bf16 or
+# one-byte K/V keeps exact bf16 K/V tiles beside a split Q ring:
+# csrc/flash_fwd_kmajor.cu).
 FWD_BLOCK_Q = 128
 KMAJOR_TILE = 64
-# (at d = 256 one 64 KB tile pair beside a ring of two 64 KB Q tiles)
+# (at d = 256 one tile pair: 64 KB beside a ring of two 64 KB bf16 Q
+# tiles, or beside one split 128 KB fp32 Q tile)
 KMAJOR_MAX_SPAN = {64: 8, 128: 4, 256: 1}
-KMAJOR_MAX_SPAN_F32 = {64: 4, 128: 1}
-KMAJOR_MAX_SPAN_F32Q = {64: 8, 128: 3}
+KMAJOR_MAX_SPAN_F32 = {64: 4, 128: 1, 256: 1}
+KMAJOR_MAX_SPAN_F32Q = {64: 8, 128: 3, 256: 1}
 # K2 and K4's pair (csrc/flash_bwd_kv.cu: 128-key CTAs stream 64-row Q
 # tiles; 64-key CTAs at d = 256); K3 runs at its own tile (128 rows, 64
 # keys; 32 in fp32 and at d = 256) under it
@@ -76,22 +81,31 @@ ONLINE_SHORT_NQ = 5120
 TILE_TYPES = ("bf16", "fp32", "codes", "fp32/codes", "fp32/bf16")
 
 
-def _kmajor_tiles(spans: Dict[int, int], d: int) -> Tuple[int, ...]:
-    return tuple(KMAJOR_TILE * s for s in range(1, spans[d] + 1))
+def fwd_key_tile(ty: str, d: int) -> int:
+    """The key tile of the forward builds (K1, K1b, K5) over operands of
+    type `ty` at head dim d that takes the 64-key tile's place: 32 for an
+    fp32 Q over fp32 K/V at d = 256, 64 everywhere else."""
+    return 32 if ty == "fp32" and d == 256 else KMAJOR_TILE
+
+
+def _kmajor_tiles(spans: Dict[int, int], ty: str,
+                  d: int) -> Tuple[int, ...]:
+    return tuple(fwd_key_tile(ty, d) * s for s in range(1, spans[d] + 1))
 
 
 # (kernel, operand type, head dim the kernel runs at) -> (block_q choices,
 # block_k choices): the tiles each kernel is built for. The wrappers
 # validate a request against it; utils/autotune.py enumerates it. At d =
-# 256 the forward has its bf16-Q builds only ("bf16", "codes"), at 64 keys,
-# and K2 / K4 their bf16 builds, 64-key CTAs.
+# 256 the forward keeps 64-key tiles (32 for an fp32 Q over fp32 K/V), and
+# K2 / K4 have their bf16 builds only, 64-key CTAs.
 BUILT_TILES: Dict[Tuple[str, str, int], Tuple[Tuple[int, ...],
                                               Tuple[int, ...]]] = {
     **{(kn, ty, d): ((FWD_BLOCK_Q,),
-                     (64, 128) if ty == "bf16" and d < 256 else (64,))
+                     (64, 128) if ty == "bf16" and d < 256
+                     else (fwd_key_tile(ty, d),))
        for kn in ("K1", "K1b") for ty in TILE_TYPES for d in FWD_HEAD_DIMS
        if d in FWD_F32_HEAD_DIMS or not ty.startswith("fp32")},
-    **{("K5", ty, d): ((FWD_BLOCK_Q,), _kmajor_tiles(spans, d))
+    **{("K5", ty, d): ((FWD_BLOCK_Q,), _kmajor_tiles(spans, ty, d))
        for ty, spans in (("bf16", KMAJOR_MAX_SPAN),
                          ("codes", KMAJOR_MAX_SPAN),
                          ("fp32", KMAJOR_MAX_SPAN_F32),
@@ -125,8 +139,8 @@ def built_tiles(kernel: str, ty: str,
                 d: int) -> Optional[Tuple[Tuple[int, ...], Tuple[int, ...]]]:
     """(block_q choices, block_k choices) of `kernel` over operands of type
     `ty` at head dim d (narrow heads run padded, `pad_heads`), or None
-    where no build takes that type at d (an fp32 Q, forward or backward,
-    at d = 256: the wrappers refuse such calls on the card)."""
+    where no build takes that type at d (fp32 in the backward at d = 256:
+    the wrappers refuse such calls on the card)."""
     return BUILT_TILES.get((kernel, ty, tile_dim(kernel, d)))
 
 

@@ -15,7 +15,9 @@ csrc/fa1.cu (the forward's wgmma + TMA body: one CTA per 128-row Q tile
 streams K and V through a ring of shared-memory stages; a renormalising
 block is one to four 64-key tiles, walked twice: its row max first, then
 P and P·V), in bf16 or, for fp32 inputs, its fp32 build (each tile split
-into bf16 hi and lo parts, P unrounded). On a CPU tensor it runs
+into bf16 hi and lo parts, P unrounded; at d = 256 it walks each 64-key
+tile as two 32-key tiles, whose split K + V fits beside the split Q
+tile). On a CPU tensor it runs
 `fa1_attention_plain`, which walks the same blocks in PyTorch.
 """
 
@@ -28,7 +30,7 @@ import torch
 
 from cuda_flashattention_torch import _build
 from cuda_flashattention_torch.ops.common import (
-    KERNEL_HEAD_DIMS,
+    FA1_HEAD_DIMS,
     NEG_INF,
     cdiv,
     kernel_operand,
@@ -130,7 +132,7 @@ def _fa1_cuda(q, k, v, scale, causal, block_q, block_k):
     n_sub = _kernel_sub_tiles(nq, nk, block_q, block_k)
     # the scale from the caller's d, before narrow heads are padded
     qs = _prescale_q(q, resolve_scale(scale, d))
-    d_run, (qs, k, v) = pad_heads("FA1", qs, k, v, dims=KERNEL_HEAD_DIMS)
+    d_run, (qs, k, v) = pad_heads("FA1", qs, k, v, dims=FA1_HEAD_DIMS)
     qs, k, v = kernel_operand(qs), kernel_operand(k), kernel_operand(v)
     o = torch.empty((b, h, nq, d_run), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 9)(*qs.stride()[:3], *k.stride()[:3],
@@ -163,9 +165,9 @@ def fa1_attention(
     first clamped to max(8, min(block, round_up(N, 8))). Rows are
     independent, so `block_q` changes no number. On the card a CTA owns 128
     rows and the kernel takes bf16 or fp32 inputs (its fp32 build: each
-    tile split into bf16 hi and lo parts), d in {64, 128} or any d below
-    128 on zero-padded heads (`ops.common.pad_heads`, the scale from the
-    caller's d; past 128 no build), `block_q` a
+    tile split into bf16 hi and lo parts), d in {64, 128, 256} or any d
+    below 256 on zero-padded heads (`ops.common.pad_heads`, the scale from
+    the caller's d; past 256 no build), `block_q` a
     multiple of 64 (or one block over all rows) and `block_k` in {64, 128,
     192, 256} (or one block over all keys when Nk ≤ 256); any other value
     raises ValueError. The count of its launches is

@@ -19,11 +19,13 @@ Counterpart of cuda_flashattention_tpu/ops/flash_fwd.py
            past; each (Q tile, span) pair's l and acc are added with fp32
            atomics, so O differs in its last fp32 bits from run to run.
            `_kmajor_span` sizes the span so that the grid fills the card,
-           unless `block_sizes.block_k` (64 · span) names it.
+           unless `block_sizes.block_k` (tile · span) names it.
 
 `block_sizes` picks the key tile among those the routed kernel is built
 for (`ops.common.BUILT_TILES`): 64 keys everywhere, or 128 in the bf16
-builds of K1 and K1b; K5's span; the query tile is 128 rows. Any other
+builds of K1 and K1b at d <= 128, and 32 for an fp32 Q over fp32 K/V at
+d = 256 (`ops.common.fwd_key_tile`); K5's span; the query tile is 128
+rows. Any other
 request runs at the nearest built tile below it (`ops.common.check_tiles`,
 which logs the mapping once); on the CPU the plain version ignores the
 tile (every tile computes the same function).
@@ -61,16 +63,15 @@ import torch
 
 from cuda_flashattention_torch import _build
 from cuda_flashattention_torch.ops.common import (
-    FWD_F32_HEAD_DIMS,
     KMAJOR_MAX_SPAN,
     KMAJOR_MAX_SPAN_F32,
     KMAJOR_MAX_SPAN_F32Q,
-    KMAJOR_TILE,
     NEG_INF,
     ONLINE_SHORT_NQ,
     built_tiles,
     check_qkv,
     check_tiles,
+    fwd_key_tile,
     kernel_operand,
     kmajor_span,
     pad_heads,
@@ -153,8 +154,8 @@ class _Plan:
     qq: bool          # int8 Q · int8 K
     regrid: bool      # qq over fp8 keys: re-grid them to int8
     checked: bool     # run the loose-bound fallback
-    block_k: Optional[int] = None  # the routed kernel's key tile (K5: 64
-                                   # · span); None: the default rule
+    block_k: Optional[int] = None  # the routed kernel's key tile (K5: its
+                                   # tile · span); None: the default rule
     fallback_k: int = 64  # the guarded online launch's key tile
 
 
@@ -218,10 +219,10 @@ def _plan(q, k, v, scale, causal, window, kv_offset, block_sizes, k_scale,
     if qq and k.dtype == torch.float8_e4m3fn and not fp8_fast:
         qq = False
     use_kmajor = use_bound and (causal or fp8_fast)
-    block_k, fallback_k = None, 64
+    ty = tile_type(q.dtype, k.dtype)
+    block_k, fallback_k = None, fwd_key_tile(ty, run_dim(d))
     if block_sizes is not None:
         kernel = "K5" if use_kmajor else "K1b" if use_bound else "K1"
-        ty = tile_type(q.dtype, k.dtype)
         block_k = check_tiles(kernel, ty, d, block_sizes,
                               "flash_attention_forward block_sizes")
         # the guarded online launch behind a bound one keeps the tile
@@ -416,8 +417,8 @@ def _ptrs(*tensors):
         *[None if t is None else t.data_ptr() for t in tensors])
 
 
-# key tiles (of 64) a K5 CTA keeps resident at each head dim, and the
-# rule that picks its span (ops/common.py); `utils/kmajor_spans.py`
+# key tiles a K5 CTA keeps resident at each head dim, and the rule that
+# picks its span (ops/common.py); `utils/kmajor_spans.py`
 # replaces `_kmajor_span` to time each span
 _KMAJOR_MAX_SPAN = KMAJOR_MAX_SPAN
 _KMAJOR_MAX_SPAN_F32 = KMAJOR_MAX_SPAN_F32
@@ -429,14 +430,6 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
               kv_seg):
     b, h, nq, d = q.shape
     h_kv, nk = k.shape[1], k.shape[2]
-    # the kernels read an fp32 Q unless it is quantize_q's int8 Q; their
-    # fp32 builds stop at d = 128 (split Q tiles of 128 KB at 256)
-    reads_f32 = q.dtype == torch.float32 and not (plan.use_bound and plan.qq)
-    if reads_f32 and run_dim(d) not in FWD_F32_HEAD_DIMS:
-        raise NotImplementedError(
-            f"the CUDA forward takes an fp32 Q at d up to "
-            f"{max(FWD_F32_HEAD_DIMS)} (its fp32 builds), got fp32 at d = "
-            f"{d}: the d = 256 builds take a bf16 Q")
     d_run, padded = pad_heads("forward", q, k, v)
     if d_run != d:
         # the next build up on zero-padded heads; plan.scale is d's
@@ -490,6 +483,9 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
             _OUT_CODES[out_dtype])
     # the Q the kernel reads is fp32 unless it is quantize_q's int8 Q
     q_f32 = int(f32 and not (plan.use_bound and plan.qq))
+    # the key tile a call runs at by default: 64, or 32 for an fp32 Q over
+    # fp32 K/V at d = 256 (that build's only tile)
+    tile = fwd_key_tile(tile_type(q.dtype, k.dtype), d)
 
     def strides(q_op):
         return (ctypes.c_longlong * 9)(
@@ -500,7 +496,7 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
         lib = _build.library()
 
         def online(guard):
-            kn = (plan.block_k or 64) if guard is None else plan.fallback_k
+            kn = (plan.block_k or tile) if guard is None else plan.fallback_k
             err = lib.cfa_flash_fwd(
                 _ptrs(q_hat, k, v, ksc, vsc, q_seg, kv_seg, guard, o, lse),
                 b, h, h_kv, nq, nk, d, strides(q_hat), k_type, v_type, q_f32,
@@ -538,7 +534,7 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
             l_acc = scratch[n_acc:-1]
             n_loose = scratch[-1:].view(torch.int32)
             if plan.block_k is not None:
-                span = plan.block_k // KMAJOR_TILE
+                span = plan.block_k // tile
             else:
                 sms = torch.cuda.get_device_properties(
                     q.device).multi_processor_count
@@ -553,7 +549,7 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
             n_loose = torch.zeros(1, dtype=torch.int32, device=q.device)
             err = lib.cfa_flash_fwd_bound(
                 _ptrs(q_op, k, v, ksc, vsc, q_factor, c, n_loose, o, lse),
-                *shape, plan.block_k or 64, stream)
+                *shape, plan.block_k or tile, stream)
             _build.check(err, "flash_attention_forward bound kernel launch")
             counts["bound"] += 1
             if plan.block_k == 128:
@@ -594,8 +590,9 @@ def flash_attention_forward(
     `softmax`: "auto", "online", "bound" or "bound_unchecked" (module
     docstring). `block_sizes` (`ops.common.BlockSizes`): block_q 128 and
     the routed kernel's key tile, 64, or 128 over bf16 Q/K/V in K1 and
-    K1b, or K5's 64 · span; another tile runs at the nearest built one
-    below it (`ops.common.check_tiles`). `quantize_q` (quantized K/V,
+    K1b at d <= 128, 32 for an fp32 Q over fp32 K/V at d = 256, or K5's
+    tile · span; another tile runs at the nearest built one below it
+    (`ops.common.check_tiles`). `quantize_q` (quantized K/V,
     bound softmax): Q·Kᵀ on
     per-head int8 Q; it waives the loose-bound fallback, and over fp8 keys
     it takes a bf16 Q (else it is dropped, as in the JAX function, whose
@@ -606,8 +603,8 @@ def flash_attention_forward(
     do there). On the card the kernels take d in {64, 128, 256}, and
     any other d below 256 on zero-padded heads (`ops.common.pad_heads`:
     the next of 64, 128 and 256, O sliced back; at a d that is no build
-    each call copies Q, K and V), and a bf16 Q over the K/V above, or, at
-    d up to 128, an fp32 Q over fp32 or bf16 K/V or
+    each call copies Q, K and V), and a bf16 Q over the K/V above, or an
+    fp32 Q over fp32 or bf16 K/V or
     over the quantized K/V above (their fp32 builds: each fp32 tile split
     into bf16 hi and lo parts, each product three bf16 products with fp32
     sums, two over bf16 or one-byte K/V, which are exact bf16 tiles; P ·

@@ -159,8 +159,8 @@ def candidate_blocks(nq: int, nk: int, d: int, causal: bool = False,
     """The (block_q, block_k) tiles that the kernel a call routes to is
     built for ("bwd": the backward's pair) and that fit the problem: key
     tiles past the keys rounded up to 64 are left out, the smallest
-    always kept. NotImplementedError where no build takes the call (an
-    fp32 forward or backward past d = 128)."""
+    always kept. NotImplementedError where no build takes the call (the
+    fp32 backward at d = 256)."""
     if mode == "bwd":
         kernel, ty = "K4", "fp32" if dtype == torch.float32 else "bf16"
     else:

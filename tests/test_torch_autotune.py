@@ -212,10 +212,10 @@ def test_cli_parses_the_jax_arguments(monkeypatch):
 
 
 def test_candidates_at_d256_are_its_builds():
-    """At d = 256 the forward's bf16 builds have the 64-key tile alone (K5
-    a span of one tile) and the backward's bf16 build the pair (64, 64);
-    an fp32 forward or backward has no build, so there is nothing to
-    tune."""
+    """At d = 256 the forward's builds have one key tile (K5 a span of one
+    tile): 64, or 32 for an fp32 Q over fp32 K/V; the backward's bf16
+    build the pair (64, 64); an fp32 backward has no build, so there is
+    nothing to tune."""
     assert autotune.candidate_blocks(4096, 4096, 256, causal=True) == [
         (128, 64)]
     assert autotune.candidate_blocks(8192, 8192, 256, causal=True) == [
@@ -228,9 +228,10 @@ def test_candidates_at_d256_are_its_builds():
     with pytest.raises(NotImplementedError, match="K4 takes fp32"):
         autotune.candidate_blocks(4096, 4096, 256, mode="bwd",
                                   dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="fp32"):
-        autotune.candidate_blocks(4096, 4096, 256, causal=True,
-                                  dtype=torch.float32)
+    assert autotune.candidate_blocks(4096, 4096, 256, causal=True,
+                                     dtype=torch.float32) == [(128, 32)]
+    assert autotune.candidate_blocks(512, 3584, 200,
+                                     dtype=torch.float32) == [(128, 32)]
 
 
 def test_autotune_at_d256(tuner):

@@ -440,17 +440,18 @@ def test_ring_decode_with_explicit_split_matches_one_device(block_k):
 
 def test_table_lists_the_d256_builds():
     """d = 256: K1 and K1b over bf16 or one-byte K/V at 64 keys, K5 at a
-    span of one tile, K2 and K4 over bf16 at (64, 64) (64-key CTAs); no
-    fp32 build there, forward or backward. A width between builds looks
-    up the next build up, and one past every build of its family has
-    none."""
-    for ty in ("bf16", "codes"):
+    span of one tile, under a bf16 or an fp32 Q (an fp32 Q over fp32 K/V
+    at 32 keys); K2 and K4 over bf16 at (64, 64) (64-key CTAs), and no
+    fp32 build of the backward there. A width between builds looks up the
+    next build up, and one past every build of its family has none."""
+    for ty in ("bf16", "codes", "fp32/codes", "fp32/bf16"):
         for kn in ("K1", "K1b", "K5"):
             assert BUILT_TILES[kn, ty, 256] == ((128,), (64,))
-    for ty in ("fp32", "fp32/codes", "fp32/bf16"):
-        for kn in ("K1", "K1b", "K5"):
-            assert (kn, ty, 256) not in BUILT_TILES
-            assert common.built_tiles(kn, ty, 200) is None
+            assert common.built_tiles(kn, ty, 200) == ((128,), (64,))
+    for kn in ("K1", "K1b", "K5"):
+        assert BUILT_TILES[kn, "fp32", 256] == ((128,), (32,))
+        assert common.built_tiles(kn, "fp32", 200) == ((128,), (32,))
+        assert common.built_tiles(kn, "fp32", 257) is None
     for kn in ("K2", "K4"):
         assert BUILT_TILES[kn, "bf16", 256] == ((64,), (64,))
         assert common.built_tiles(kn, "bf16", 200) == ((64,), (64,))
@@ -467,8 +468,10 @@ def test_table_lists_the_d256_builds():
 def test_d256_tiles_map_to_the_built_one(capsys):
     """block_k = 128 (a 128-key build at d <= 128) runs at 64 keys at d =
     256, logged once; K5's 192 too, and the backward's default (64, 128)
-    at K4's (64, 64); an fp32 Q at d = 256 has no build, so no mapping
-    (the card refuses the call, the CPU ignores the tile)."""
+    at K4's (64, 64); an fp32 Q over fp32 K/V at d = 256 runs 32-key
+    tiles, so 64 and 128 map to 32 there; the fp32 backward at d = 256
+    has no build, so no mapping (the card refuses the call, the CPU
+    ignores the tile)."""
     assert common.check_tiles("K1", "bf16", 256, BlockSizes(block_k=128),
                        "test256") == 64
     assert common.check_tiles("K5", "codes", 256, BlockSizes(block_k=192),
@@ -476,7 +479,11 @@ def test_d256_tiles_map_to_the_built_one(capsys):
     err = capsys.readouterr().err
     assert "at d=256" in err and "(128, 128) runs as (128, 64)" in err
     assert common.check_tiles("K1", "fp32", 256, BlockSizes(block_k=128),
-                       "test256") is None
+                       "test256") == 32
+    assert common.check_tiles("K5", "fp32", 256, BlockSizes(), "test256") == 32
+    assert common.check_tiles("K1b", "fp32/bf16", 256,
+                              BlockSizes(block_k=128), "test256") == 64
+    assert "(128, 128) runs as (128, 32)" in capsys.readouterr().err
     assert common.check_tiles("K4", "bf16", 256, BlockSizes(), "test256",
                        bwd=True) == 64
     assert "(64, 128) runs as (64, 64)" in capsys.readouterr().err

@@ -515,20 +515,22 @@ def test_pad_heads_widths(d, d_run):
 @pytest.mark.parametrize("d", [20, 130, 256])
 def test_pad_heads_refuse_other_widths(d):
     """Each kernel family refuses the widths past its largest build, naming
-    the form: K8's (and K9's) builds at 64 and 128 past 128, the
-    backward's and the forward's past 256; below that any d runs on
-    zero-padded heads (20 at 64, 130 at 256)."""
+    the form: K8's (64, 128 and 256), the backward's and the forward's
+    past 256; below that any d runs on zero-padded heads (20 at 64, 130 at
+    256). K9 keeps its builds at 64 and 128 (its wrapper takes those
+    widths alone)."""
     from cuda_flashattention_torch.ops.common import (
         BWD_HEAD_DIMS,
+        FA1_HEAD_DIMS,
         KERNEL_HEAD_DIMS,
         pad_heads,
     )
+    assert KERNEL_HEAD_DIMS == (64, 128) and FA1_HEAD_DIMS == (64, 128, 256)
     x = torch.rand(1, 1, 2, d)
-    if d > 128:
-        with pytest.raises(ValueError, match="FA1 takes d from 1 to 128"):
-            pad_heads("FA1", x, dims=KERNEL_HEAD_DIMS)
-    else:
-        assert pad_heads("FA1", x, dims=KERNEL_HEAD_DIMS)[0] == 64
+    assert pad_heads("FA1", x, dims=FA1_HEAD_DIMS)[0] == (
+        64 if d <= 64 else 256)
+    with pytest.raises(ValueError, match="FA1 takes d from 1 to 256"):
+        pad_heads("FA1", torch.rand(1, 1, 2, d + 256), dims=FA1_HEAD_DIMS)
     assert pad_heads("backward", x, dims=BWD_HEAD_DIMS)[0] == (
         64 if d <= 64 else 256)
     with pytest.raises(ValueError, match="backward takes d from 1 to 256"):

@@ -2169,17 +2169,20 @@ def test_narrow_heads_through_autograd(dev, no_tf32):
         _assert_f32_grad(g, w, name)
 
 
-def test_padded_heads_refuse_other_widths(dev):
-    """An fp32 Q: d = 48 and 20 are padded to 64; d = 136 (the d = 256
-    build) raises, naming fp32 and the width: the fp32 builds stop at
-    128."""
-    for d in (48, 20):
+def test_padded_heads_refuse_other_widths(dev, no_tf32):
+    """An fp32 Q: d = 48 and 20 are padded to 64 and d = 136 to 256 (the
+    fp32 d = 256 builds), each within 1e-4 of the plain version; d = 300,
+    past every build, raises naming the width before any launch."""
+    for d in (48, 20, 136):
         q = torch.rand(1, 2, 40, d, device=dev)
-        o, _ = flash_attention_forward(q, q, q)
-        assert o.shape == q.shape
-    x = torch.rand(1, 2, 40, 136, device=dev)
-    with pytest.raises(NotImplementedError, match="fp32 at d = 136"):
+        got = flash_attention_forward(q, q, q)
+        assert got[0].shape == q.shape
+        _assert_f32_fwd(got, flash_attention_forward_plain(q, q, q))
+    x = torch.rand(1, 2, 40, 300, device=dev)
+    before = _form_counts()
+    with pytest.raises(ValueError, match="forward takes d from 1 to 256"):
         flash_attention_forward(x, x, x)
+    assert _form_counts() == before
 
 
 # ---------------------------------------------------------------------------
@@ -2804,14 +2807,15 @@ def test_unbuilt_tiles_and_splits_run_on_the_card(dev):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-def _fuzz_case(rng):
-    """One random forward case: shape, GQA group, head dim, operand types,
-    mask."""
-    d = int(rng.choice([16, 32, 64, 128]))
+def _fuzz_case(rng, dims=(16, 32, 64, 128),
+               all_types=("bf16", "fp32", "fp32/bf16")):
+    """One random forward case: shape, GQA group, head dim (of `dims`),
+    operand types (of `all_types`), mask."""
+    d = int(rng.choice(list(dims)))
     h_kv = int(rng.choice([1, 2, 4]))
     h = h_kv * int(rng.choice([1, 2, 4, 8]))
     nq, nk = int(rng.integers(1, 700)), int(rng.integers(1, 900))
-    types = str(rng.choice(["bf16", "fp32", "fp32/bf16"]))
+    types = str(rng.choice(list(all_types)))
     mask = int(rng.integers(0, 4))
     kw = [dict(), dict(causal=True, kv_offset=nk - nq),
           dict(causal=True, kv_offset=int(rng.integers(-50, nk))),
@@ -2822,14 +2826,17 @@ def _fuzz_case(rng):
 
 def test_fuzz_forward_and_decode(dev, no_tf32):
     """Ten seeded random cases (as tests/test_fuzz.py draws them for the
-    JAX package): K1, K1b and K5 pinned at random nq, nk, d, group,
-    operand types and mask, and K6 at random lengths, windows, d and
-    types, each against its plain version (fp32 1e-4; bf16 5e-3 and 2e-2 ·
-    max |plain O|)."""
+    JAX package), then six of an fp32 Q at d 200 or 256 (over fp32 or
+    bf16 K/V): K1, K1b and K5 pinned at random nq, nk, d, group, operand
+    types and mask, and K6 at random lengths, windows, d and types, each
+    against its plain version (fp32 1e-4; bf16 5e-3 and 2e-2 · max |plain
+    O|)."""
     import numpy as np
     rng = np.random.default_rng(2024)
-    for case in range(10):
-        b, h, h_kv, nq, nk, d, types, kw = _fuzz_case(rng)
+    for case in range(16):
+        b, h, h_kv, nq, nk, d, types, kw = (
+            _fuzz_case(rng) if case < 10 else
+            _fuzz_case(rng, (200, 256), ("fp32", "fp32/bf16")))
         q, k, v = _f32_inputs(dev, b, h, h_kv, nq, nk, d, case, True)
         if types == "bf16":
             q = q.bfloat16()
@@ -2980,14 +2987,13 @@ def test_wide_forward_auto_routes_and_falls_back(dev):
 
 
 def test_wide_forms_refused(dev):
-    """At d past 128 an fp32 Q (forward and backward) and K8 raise, and
-    past 256 the backward, each naming the form; nothing falls back and
-    nothing launches."""
+    """The fp32 backward at d = 256, K9 at d = 256, and the backward, the
+    forward and K8 past 256 raise, each naming the form; nothing falls
+    back and nothing launches. (The fp32 forward and K8 at d = 256 run:
+    the test_wide_f32_* tests.)"""
+    from cuda_flashattention_torch.parallel.device_ring import (
+        device_ring_matmul)
     q32 = torch.rand(1, 2, 64, 256, device=dev)
-    with pytest.raises(NotImplementedError, match="fp32 at d = 256"):
-        flash_attention_forward(q32, q32, q32)
-    with pytest.raises(NotImplementedError, match="fp32 at d = 256"):
-        flash_attention_forward(q32, q32.bfloat16(), q32.bfloat16())
     lse32 = torch.zeros(1, 2, 64, device=dev)
     before = dict(flash_attention_backward.launches)
     with pytest.raises(NotImplementedError, match="fp32 at d = 256"):
@@ -2996,9 +3002,240 @@ def test_wide_forms_refused(dev):
     with pytest.raises(ValueError, match="backward takes d from 1 to 256"):
         flash_attention_backward(q300, q300, q300, q300, lse32, q300)
     assert flash_attention_backward.launches == before
-    q = q32.bfloat16()
-    with pytest.raises(ValueError, match="FA1 takes d from 1 to 128"):
-        fa1_attention(q, q, q)
+    fwd_before, fa1_before = _form_counts(), fa1_attention.launches
+    with pytest.raises(ValueError, match="forward takes d from 1 to 256"):
+        flash_attention_forward(q300.float(), q300.float(), q300.float())
+    with pytest.raises(ValueError, match="FA1 takes d from 1 to 256"):
+        fa1_attention(q300, q300, q300)
+    assert _form_counts() == fwd_before
+    assert fa1_attention.launches == fa1_before
+    ring_before = device_ring_matmul.launches
+    x, w = torch.rand(2 * 64, 256, device=dev), torch.rand(256, 256,
+                                                           device=dev)
+    with pytest.raises(ValueError, match="ring takes d in"):
+        device_ring_matmul(x, w, _ring_mesh(dev, 2))
+    assert device_ring_matmul.launches == ring_before
+
+
+# ---------------------------------------------------------------------------
+# fp32 at d = 256: K1, K1b and K5 on an fp32 Q over fp32 K/V (32-key split
+# tiles), bf16 K/V and one-byte K/V (64-key tiles, one stage beside the
+# 128 KB split Q tile), every mask; K8 at d = 256 in bf16 and fp32. Gates:
+# 1e-4 on O and LSE (5e-3 where quantize_q's int8 Q runs the int8 build),
+# K5 within 1e-4 of K1b, fp16 O the fp32 O rounded.
+# ---------------------------------------------------------------------------
+
+_F32_KV = ["fp32", "bf16", "int8", "fp8", "mixed"]
+
+
+def _wide_f32_inputs(dev, kv, b, h, h_kv, nq, nk, d, seed, peaked):
+    """An fp32 Q over K/V stored as `kv` (fp32, bf16 or a quantized pair),
+    and the scales of a quantized pair."""
+    q, k, v = _f32_inputs(dev, b, h, h_kv, nq, nk, d, seed, peaked)
+    if kv == "fp32":
+        return (q, k, v), {}
+    if kv == "bf16":
+        return (q, k.bfloat16(), v.bfloat16()), {}
+    kvq = quantize_kv(k, v, kv)
+    return (q, kvq.k_q, kvq.v_q), dict(k_scale=kvq.k_scale,
+                                       v_scale=kvq.v_scale)
+
+
+@pytest.mark.parametrize("peaked", [False, True])
+@pytest.mark.parametrize("form", ["online", "bound", "kmajor"])
+@pytest.mark.parametrize("kv", _F32_KV)
+@pytest.mark.parametrize("b,h,h_kv,nq,nk,d,kw", WIDE_CASES)
+def test_wide_f32_forward_kernels(dev, no_tf32, kv, form, peaked, b, h,
+                                  h_kv, nq, nk, d, kw):
+    """K1 (online), K1b and K5 (each pinned) on an fp32 Q at d = 256 over
+    fp32, bf16 and one-byte K/V against the plain fp32 version: one
+    launch of the form, fp32 O and LSE within 1e-4."""
+    (q, k, v), sc = _wide_f32_inputs(dev, kv, b, h, h_kv, nq, nk, d,
+                                     nq + nk, peaked)
+    _nan_fill_allocator(dev)
+    before = _form_counts()
+    got, want = _one_form(form, q, k, v, **sc, **kw)
+    torch.cuda.synchronize()
+    after = _form_counts()
+    assert {n: after[n] - before[n] for n in after} == {
+        "online": int(form == "online"), "bound": int(form == "bound"),
+        "kmajor": int(form == "kmajor"), "fallback": 0}
+    _assert_f32_fwd(got, want)
+
+
+@pytest.mark.parametrize("kv", _F32_KV)
+@pytest.mark.parametrize("b,h,h_kv,nq,nk,d,kw", WIDE_CASES)
+def test_wide_f32_kmajor_matches_bound(dev, no_tf32, kv, b, h, h_kv, nq, nk,
+                                       d, kw):
+    """K5 within 1e-4 of K1b on the same fp32 d = 256 call: the same
+    products and roundings, another order of fp32 sums."""
+    (q, k, v), sc = _wide_f32_inputs(dev, kv, b, h, h_kv, nq, nk, d, 5,
+                                     True)
+    o_k, lse_k = _pinned("kmajor", q, k, v, **sc, **kw)
+    o_q, lse_q = _pinned("bound", q, k, v, **sc, **kw)
+    torch.cuda.synchronize()
+    assert _err(o_k, o_q) <= 1e-4 and _err(lse_k, lse_q) <= 1e-4
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kv", ["fp32", "bf16", "int8"])
+def test_wide_f32_segments(dev, no_tf32, kv, causal):
+    """K1's fp32-Q SEG builds at d = 256 (fp32 K/V in 32-key tiles, bf16
+    K/V, codes with the converted pair before the stage)."""
+    (q, k, v), sc = _wide_f32_inputs(dev, kv, 2, 8, 4, 300, 300, 256, 13,
+                                     True)
+    seg = _segments(dev, 2, 300, [70, 1, 129, 100])
+    kw = dict(causal=causal, q_segment_ids=seg, kv_segment_ids=seg, **sc)
+    before = _form_counts()
+    got = flash_attention_forward(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _form_counts()["online"] == before["online"] + 1
+    _assert_f32_fwd(got, flash_attention_forward_plain(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("form", ["online", "bound", "kmajor"])
+@pytest.mark.parametrize("kv", ["fp32", "bf16", "int8"])
+def test_wide_f32_fp16_out(dev, no_tf32, kv, form):
+    """O in fp16 from the fp32-Q d = 256 builds: the fp32-out build's O
+    rounded to fp16 (K5: one fp16 ulp), the same LSE, and rows that see
+    no key O = 0, LSE = NEG_INF."""
+    (q, k, v), sc = _wide_f32_inputs(dev, kv, 2, 8, 4, 300, 500, 256, 9,
+                                     True)
+    kw = dict(causal=True, kv_offset=-20, **sc)
+    (o32, lse32), _ = _one_form(form, q, k, v, **kw)
+    (o16, lse16), (o16_p, _) = _one_form(form, q, k, v,
+                                         out_dtype=torch.float16, **kw)
+    torch.cuda.synchronize()
+    assert o16.dtype == torch.float16 and o16_p.dtype == torch.float16
+    ulp = 0.0 if form != "kmajor" else 2.0 ** -10
+    assert _err(o16, o32.half()) <= ulp * max(1.0, o32.abs().max().item())
+    assert _err(lse16, lse32) <= (0.0 if form != "kmajor" else F32_GATE)
+    assert torch.all(o16[:, :, :20] == 0)
+    assert torch.all(lse16[:, :, :20] == -1e30)
+
+
+@pytest.mark.parametrize("form", ["bound", "kmajor"])
+@pytest.mark.parametrize("qtype", ["int8", "mixed", "fp8"])
+def test_wide_f32_quantize_q(dev, no_tf32, qtype, form):
+    """quantize_q on an fp32 Q at d = 256: over int8 keys the host's int8
+    Q runs the d = 256 int8 build (the bf16 gate); over fp8 keys it is
+    dropped, and the fp32-Q build gives the unquantized call's result."""
+    (q, k, v), sc = _wide_f32_inputs(dev, qtype, 2, 8, 4, 300, 600, 256, 7,
+                                     True)
+    kw = dict(causal=True, kv_offset=300, **sc)
+    got = _pinned(form, q, k, v, quantize_q=True, **kw)
+    want = flash_attention_forward_plain(q, k, v, softmax="bound_unchecked",
+                                         quantize_q=True, **kw)
+    torch.cuda.synchronize()
+    if qtype == "fp8":
+        _assert_f32_fwd(got, want)
+    else:
+        assert _err(got[0], want[0]) <= GATE
+        assert _err(got[1], want[1]) <= GATE
+
+
+@pytest.mark.parametrize("kv", ["fp32", "bf16", "int8"])
+def test_wide_f32_loose_bound_falls_back_to_online(dev, no_tf32, kv):
+    """A loose bound at d = 256 (anti-aligned Q and K of huge norm): K1b
+    counts the rows and the guarded fp32-Q K1 of the same storage
+    rewrites them with the online kernel's bits."""
+    b, h, n, d = 1, 4, 256, 256
+    q, k, v = _f32_inputs(dev, b, h, h, n, n, d, 5, False)
+    q = q.abs() * 20
+    k = -k.abs() * 20
+    k[:, :, 0] = k[:, :, 0].abs()  # one key far above the rows' scores
+    sc = {}
+    if kv == "bf16":
+        k, v = k.bfloat16(), v.bfloat16()
+    elif kv == "int8":
+        kvq = quantize_kv(k, v, kv)
+        k, v, sc = kvq.k_q, kvq.v_q, dict(k_scale=kvq.k_scale,
+                                          v_scale=kvq.v_scale)
+    before = _form_counts()
+    got = flash_attention_forward(q, k, v, softmax="bound", **sc)
+    online = flash_attention_forward(q, k, v, softmax="online", **sc)
+    want = flash_attention_forward_plain(q, k, v, softmax="online", **sc)
+    torch.cuda.synchronize()
+    after = _form_counts()
+    assert after["bound"] - before["bound"] == 1
+    assert after["fallback"] - before["fallback"] == 1
+    assert torch.equal(got[0], online[0]) and torch.equal(got[1], online[1])
+    # the rows' LSE is ~1000 (inputs x20): held relative to it
+    _assert_f32_fwd(got, want, lse_scale=want[1].abs().max().item())
+
+
+def test_wide_f32_auto_routes_and_tiles(dev, no_tf32):
+    """"auto" on an fp32 Q at d = 256 routes as the JAX function: the
+    chunked prefill's own chunk (causal, 512 rows) to K1, its prefix read
+    (not causal) to K1b with its guarded K1, a windowed read over int8
+    to K5 with its guarded K1, a causal call past 5120 rows over fp32 K/V
+    to K5 (32-key tiles); a block_k of 64 or 128 over fp32 K/V runs at
+    the built 32 (the default's bits)."""
+    from cuda_flashattention_torch.ops.common import BlockSizes
+    cases = [("fp32", (2, 8, 4, 512, 512, 256), dict(causal=True),
+              dict(online=1)),
+             ("fp32", (2, 8, 4, 256, 1000, 256), dict(),
+              dict(bound=1, fallback=1)),
+             ("bf16", (2, 8, 4, 256, 1000, 256), dict(),
+              dict(bound=1, fallback=1)),
+             ("int8", (2, 8, 4, 256, 1000, 256),
+              dict(causal=True, window=300, kv_offset=744),
+              dict(kmajor=1, fallback=1)),
+             ("fp32", (1, 2, 1, 5200, 5200, 256), dict(causal=True),
+              dict(kmajor=1, fallback=1))]
+    for kv, shape, kw, forms in cases:
+        (q, k, v), sc = _wide_f32_inputs(dev, kv, *shape, 3, True)
+        before = _form_counts()
+        got = flash_attention_forward(q, k, v, **sc, **kw)
+        torch.cuda.synchronize()
+        grown = {n: _form_counts()[n] - before[n] for n in before}
+        assert grown == dict(dict(online=0, bound=0, kmajor=0, fallback=0),
+                             **forms), (kv, shape, grown)
+        _assert_f32_fwd(got, flash_attention_forward_plain(q, k, v, **sc,
+                                                           **kw))
+        if kv == "fp32":
+            for block_k in (64, 128):
+                tiled = flash_attention_forward(
+                    q, k, v, block_sizes=BlockSizes(block_k=block_k), **kw)
+                torch.cuda.synchronize()
+                if grown["kmajor"]:  # fp32 sums add in any order
+                    assert _err(tiled[0], got[0]) <= 1e-4
+                else:
+                    assert torch.equal(tiled[0], got[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,nq,nk,d,causal,block_q,block_k", [
+    (1, 4, 512, 512, 256, True, 256, 256),
+    (2, 2, 300, 300, 256, True, 64, 64),
+    (1, 2, 100, 333, 256, False, 128, 192),
+    (2, 3, 37, 200, 200, False, 256, 256),   # d 200 on heads padded to 256
+    (1, 2, 70, 40, 256, True, 256, 256),
+])
+def test_wide_fa1_kernel(dev, no_tf32, dtype, b, h, nq, nk, d, causal,
+                         block_q, block_k):
+    """K8 at d = 256 (bf16: two stages; fp32: 32-key split tiles, two to a
+    64-key tile of a block) against the plain FA1 walk, peaked inputs:
+    one launch; bf16 within 5e-3 and 2e-2 · max |plain O|, fp32 within
+    1e-4."""
+    q, k, v = _f32_inputs(dev, b, h, h, nq, nk, d, nq + nk + d, True)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    kw = dict(causal=causal, block_q=block_q, block_k=block_k)
+    _nan_fill_allocator(dev)
+    before = fa1_attention.launches
+    o = fa1_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa1_attention.launches == before + 1
+    assert o.dtype == dtype and o.shape == q.shape
+    o_p = fa1_attention_plain(q, k, v, causal=causal,
+                              block_q=max(8, min(block_q, -(-nq // 8) * 8)),
+                              block_k=max(8, min(block_k, -(-nk // 8) * 8)))
+    ref = o_p.float().abs().max().item()
+    assert ref > 0 and torch.isfinite(o.float()).all()
+    if dtype == torch.float32:
+        assert _err(o, o_p) <= F32_GATE
+    else:
+        assert _err(o, o_p) <= min(GATE, REL_GATE * ref)
 
 
 def _no_copy_call(fn, cache_bytes):

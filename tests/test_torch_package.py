@@ -182,8 +182,10 @@ def test_fa1_source_is_a_hopper_kernel():
     assert "Replaces: cuda_flashattention_tpu/ops/fa1.py::_fa1_kernel" in src
     assert "nvcuda" not in src and "wmma::" not in src
     assert '#include "flash_fwd_bound_sm90.cuh"' in src
-    # its products and walk are the body's, in both builds (bf16, F32)
-    for needle in ("qk<D, false, F32>", "pv<D, F32>", "mbar_wait",
+    # its products and walk are the body's, in both builds (bf16, F32),
+    # on its key tile (BN, or BN32 for the fp32 build at d = 256)
+    for needle in ("qk<D, false, F32, false, KN>", "pv<D, F32, false, KN>",
+                   "mbar_wait",
                    "tma_load_4d", "split_rows<D, 128>"):
         assert needle in src, needle
     assert not (_build.CSRC / "flash_fwd_body.cuh").exists()
