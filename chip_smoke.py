@@ -376,6 +376,24 @@ Phases, each of which raises on failure (so the script exits non-zero):
    tokens equal or departing at a tie, the int8 cache on the fp32
    cache's tokens within 0.25; ms, prompt tokens/s, decode tok/s, peak
    GiB and a profile by kernel group.
+29. fp32 training at d = 256 and K9 at d <= 256
+   (`_phase_wide_backward(ctx, f32=True)`, `_phase_wide_ring`,
+   `_phase_f32_wide_ring_attention`, `_phase_gemma_f32_training`): the
+   fp32 d = 256 builds of K4 and K2 + K3 against the plain fp32 backward
+   at phase 27's cases, flat and peaked, each gradient within 1e-4 ·
+   max(1, max |plain|), with kernel ms, fp32 bound, plain ms and SDPA's
+   fp32 backward (rows "K4 f32 d256", "K2 f32 d256", "K3 f32 d256"); K9
+   at d = 256 (the example stage at --width 256, fp32 at n=4 L=1024) and
+   at n=4 L=1024, n=8 L=8192, d = 256 and n=4 d = 200, bf16 and fp32,
+   against the plain ring and the fp32 reference (rows "K9 d256", "K9
+   f32 d256"); one fp32 `ring_attention` at d = 256 over 4 ranks (N =
+   16384, causal) against one call; the fp32 Gemma-width model (GEMMA_KW,
+   fp32, 26 layers) on B=1 x T=4096: 5 timed SGD steps (K1 = K4 = the
+   prologue = 130), step ms, tokens/s, TFLOP/s, peak GiB, a profile; loss
+   (1e-4 relative) and every gradient (1e-3 relative L2) against the
+   plain attention functions at full depth; one split-backward step (K2
+   = K3 = 26); the windowed model (window 1024) the same way; 10 Adam
+   steps at full depth that lower the loss (no cut of depth or width).
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; a kernel's `launches` in the JSON line is its sum over
@@ -3576,21 +3594,25 @@ def _phase_gemma_serving(ctx):
 GEMMA_TRAIN_T = 4096
 
 
-def _phase_wide_backward(ctx):
+def _phase_wide_backward(ctx, f32=False):
     """The d = 256 builds of K4, K2 + K3 and the prologue against the plain
     backward at the Gemma-width layer's shapes (8 query heads over 4 KV
-    heads), peaked inputs (Q x8, K x4), gate per gradient max |diff| <=
-    BWD_GATE · max |plain|: the training shape [1, 8, 4096, 256] causal,
-    the same under window 1024, segment ids causal and not (B=2, 1000
-    rows, ragged segments), a ragged 300 x 400 with kv_offset -20 (empty
-    rows, unseen keys) and d = 200 on heads zero-padded to 256. The
-    prologue's D within 1e-5 · max(1, max |plain D|) and K4's accumulator
-    zeroed. Per case the kernels' device ms (torch.profiler), their bounds
-    (products over the visible pairs over the bf16 rate; the prologue's
-    bytes over the memory rate), the plain backward's ms and the library
-    call's (SDPA's autograd backward on the same inputs); the training
-    shape's numbers are the rows "K4 d256", "K2 d256", "K3 d256" and
-    "prologue d256"."""
+    heads): the training shape [1, 8, 4096, 256] causal, the same under
+    window 1024, segment ids causal and not (B=2, 1000 rows, ragged
+    segments), a ragged 300 x 400 with kv_offset -20 (empty rows, unseen
+    keys) and d = 200 on heads zero-padded to 256. bf16: peaked inputs (Q
+    x8, K x4), gate per gradient max |diff| <= BWD_GATE · max |plain|;
+    the prologue's D within 1e-5 · max(1, max |plain D|) and K4's
+    accumulator zeroed. `f32` (phase 29): fp32 inputs, peaked and flat,
+    each gradient within F32_GATE · max(1, max |plain|) of the plain fp32
+    backward (TF32 off), on the fp32 d = 256 builds. Per case (peaked
+    inputs) the kernels' device ms (torch.profiler), their bounds
+    (products over the visible pairs over the bf16 rate, or in fp32 the
+    TF32 rate, `_bound_f32`; the prologue's bytes over the memory rate),
+    the plain backward's ms and the library call's (SDPA's autograd
+    backward on the same inputs); the training shape's numbers are the
+    rows "K4 d256", "K2 d256", "K3 d256" and "prologue d256" (in fp32 "K4
+    f32 d256", "K2 f32 d256", "K3 f32 d256")."""
     torch = ctx.torch
     from cuda_flashattention_torch.ops import flash_bwd as fb
     from cuda_flashattention_torch.ops.flash_fwd import (
@@ -3599,11 +3621,16 @@ def _phase_wide_backward(ctx):
     dev, card, rec = ctx.dev, ctx.card, ctx.rec
     h, hkv, d = (GEMMA_KW["n_heads"], GEMMA_KW["n_kv_heads"],
                  GEMMA_KW["d_head"])
-    gen = torch.Generator(device=dev).manual_seed(27)
+    gen = torch.Generator(device=dev).manual_seed(29 if f32 else 27)
+    dtype = torch.float32 if f32 else torch.bfloat16
+    tag, row = ("wide-f32-bwd", "f32 d256") if f32 else ("wide-bwd", "d256")
 
     def u(*shape, peak=1.0):
         return ((torch.rand(shape, generator=gen, device=dev) - 0.5)
-                * peak).to(torch.bfloat16)
+                * peak).to(dtype)
+
+    def gate_of(ref):
+        return F32_GATE * max(1.0, ref) if f32 else BWD_GATE * ref
 
     seg = torch.repeat_interleave(
         torch.arange(4, device=dev),
@@ -3624,9 +3651,12 @@ def _phase_wide_backward(ctx):
          dict(causal=True)),
     ]
     failures = []
-    for name, b, nq, nk, dd, kw in cases:
-        q, do = u(b, h, nq, dd, peak=Q_PEAK), u(b, h, nq, dd)
-        k, v = u(b, hkv, nk, dd, peak=K_PEAK), u(b, hkv, nk, dd)
+    for (name, b, nq, nk, dd, kw), peaked in (
+            (case, peaked) for case in cases
+            for peaked in ((True, False) if f32 else (True,))):
+        qk_peak = (Q_PEAK, K_PEAK) if peaked else (1.0, 1.0)
+        q, do = u(b, h, nq, dd, peak=qk_peak[0]), u(b, h, nq, dd)
+        k, v = u(b, hkv, nk, dd, peak=qk_peak[1]), u(b, hkv, nk, dd)
         o, lse = flash_attention_forward(q, k, v, **kw)
         args = (q, k, v, o, lse, do)
         fused = fb.flash_attention_backward(*args, fused=True, **kw)
@@ -3641,22 +3671,30 @@ def _phase_wide_backward(ctx):
                                          kerns):
                 e, ref = ctx.diff(g, w), w.float().abs().max().item()
                 line.append(f"{gname} {e:.3e}/{ref:.3e}")
-                r = rec[f"{kern} d256"]
+                r = rec[f"{kern} {row}"]
                 r["max_abs_err"] = max(r["max_abs_err"], e)
-                if not (ref > 0 and e <= BWD_GATE * ref
+                if not (ref > 0 and e <= gate_of(ref) and g.dtype == dtype
                         and bool(torch.isfinite(g).all())
                         and g.shape == w.shape):
-                    failures.append(f"d=256 {name} {label} {gname}: "
-                                    f"max|diff| {e:.3e}, max|ref| {ref:.3e}")
+                    failures.append(
+                        f"{tag} {name} (Q x{qk_peak[0]:g}) {label} "
+                        f"{gname}: max|diff| {e:.3e}, max|ref| {ref:.3e}")
             lines.append(f"{label} {', '.join(line)}")
         del fused, split, plain
+        gate_text = (f"gate {F32_GATE} x max(1, max|ref|)" if f32
+                     else f"gate {BWD_GATE} x max|ref|")
+        if not peaked:
+            print(f"[{tag}] {name} (flat inputs): vs plain max|diff|/max|ref|"
+                  f": {'; '.join(lines)} ({gate_text}) ({card})", flush=True)
+            del q, k, v, o, lse, do, args
+            continue
         timed = name.startswith("training 4096 causal")
         dev_ms = _device_ms_by_kernel(lambda: (
             fb.flash_attention_backward(*args, fused=True, **kw),
             fb.flash_attention_backward(*args, fused=False, **kw)),
             ("K2", "K3", "K4"), iters=3)
         _check(all(math.isfinite(x) for x in dev_ms.values()),
-               f"d=256 {name}: the profiler recorded no launch of a "
+               f"{tag} {name}: the profiler recorded no launch of a "
                f"backward kernel: {dev_ms}")
         ms_p = cuda_time_ms(lambda: fb.flash_attention_backward_plain(
             *args, **kw), iters=2, warmup=1)
@@ -3674,27 +3712,28 @@ def _phase_wide_backward(ctx):
         read = _nbytes(q, k, v, o, lse, do)
         # products per visible (query, key) pair: K2 S, dP, dV, dK; K3 S,
         # dP, dQ; K4 all five; 2·d operations each
-        bounds = {kn: _bound(read + written, 2.0 * pairs * dd * products)
-                  for kn, products, written in (("K2", 4, _nbytes(k, v)),
-                                                ("K3", 3, _nbytes(q)),
-                                                ("K4", 5, _nbytes(q, k, v)))}
+        bounds = {kn: (_bound_f32 if f32 else _bound)(
+            read + written, 2.0 * pairs * dd * products)
+            for kn, products, written in (("K2", 4, _nbytes(k, v)),
+                                          ("K3", 3, _nbytes(q)),
+                                          ("K4", 5, _nbytes(q, k, v)))}
         if timed:
             for kn in ("K2", "K3", "K4"):
-                rec[f"{kn} d256"].update(ms=dev_ms[kn], plain_ms=ms_p,
-                                         library_ms=lib_ms, **bounds[kn])
-        print(f"[wide-bwd] {name}: B={b} H={h} Hkv={hkv} Nq={nq} Nk={nk} "
+                rec[f"{kn} {row}"].update(ms=dev_ms[kn], plain_ms=ms_p,
+                                          library_ms=lib_ms, **bounds[kn])
+        print(f"[{tag}] {name}: B={b} H={h} Hkv={hkv} Nq={nq} Nk={nk} "
               f"d={dd} vs plain max|diff|/max|ref|: {'; '.join(lines)} "
-              f"(gate {BWD_GATE} x max|ref|); device K4 "
-              f"{dev_ms['K4']:.4f} ms ({_vs_bound(dev_ms['K4'], bounds['K4'])})"
-              f", K2 {dev_ms['K2']:.4f} ms "
-              f"(bound {bounds['K2']['bound_ms']:.4f}), K3 "
-              f"{dev_ms['K3']:.4f} ms (bound {bounds['K3']['bound_ms']:.4f})"
-              f"; plain {ms_p:.4f} ms; library (SDPA backward, "
+              f"({gate_text}); device K4 {dev_ms['K4']:.4f} ms "
+              f"({_vs_bound(dev_ms['K4'], bounds['K4'])}), K2 "
+              f"{dev_ms['K2']:.4f} ms ({_vs_bound(dev_ms['K2'], bounds['K2'])})"
+              f", K3 {dev_ms['K3']:.4f} ms "
+              f"({_vs_bound(dev_ms['K3'], bounds['K3'])}); plain {ms_p:.4f} "
+              f"ms; library (SDPA {'fp32 ' if f32 else ''}backward, "
               + ("is_causal" if kw == dict(causal=True)
                  else "boolean mask" if _mask(ctx, nq, nk, kw) is not None
                  else "no mask") + f") {lib_ms:.4f} ms ({card})",
               flush=True)
-        if dd == d:
+        if dd == d and not f32:
             # the prologue's D, and K4's accumulator zeroed
             acc = torch.full(q.shape, 7.0, device=dev)
             got = fb._launch_delta(o, do, acc)
@@ -3733,6 +3772,58 @@ def _phase_wide_backward(ctx):
     _check(not failures, "; ".join(failures))
 
 
+def _timed_train_steps(ctx, m, tokens, tag, train_flops, rows):
+    """2 warm-up and TIMED_STEPS timed `make_train_step` steps of m with
+    SGD(1e-4) on one batch: median step ms, tokens/s, TFLOP/s
+    (`train_flops` a step), peak GiB and the losses printed; the launches
+    over the timed steps checked (K1 = K4 = the prologue = TIMED_STEPS ·
+    layers, K2 = K3 = 0) and added to `rows` (the kernels' rows for the
+    forward, K4 and the prologue). Returns the step."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.models import transformer as tfm
+    from cuda_flashattention_torch.ops.flash_fwd import (
+        flash_attention_forward)
+    t = tokens.shape[1]
+    step = tfm.make_train_step(m, torch.optim.SGD(m.parameters(), lr=1e-4))
+    for _ in range(2):
+        step(tokens)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ctx.zero_counts()
+    step_s, losses = [], []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        loss = step(tokens)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    counts = dict(fwd=ctx.fwd_forms["online"],
+                  total=flash_attention_forward.launches, **ctx.bwd_launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    expect = TIMED_STEPS * m.cfg.n_layers
+    step_ms = statistics.median(step_s) * 1e3
+    print(f"[{tag}] launches over {TIMED_STEPS} steps: K1 "
+          f"{counts['fwd']}, K4 {counts['fused']}, the prologue "
+          f"{counts['delta']}, K2 {counts['dkdv']}, K3 {counts['dq']} "
+          f"(expect {expect}, {expect}, {expect}, 0, 0); step "
+          f"{step_ms:.3f} ms (median of {TIMED_STEPS}: "
+          f"{', '.join(f'{x * 1e3:.3f}' for x in step_s)}), "
+          f"{t / step_ms * 1e3:.1f} tokens/s, "
+          f"{train_flops / step_ms / 1e9:.1f} TFLOP/s "
+          f"({train_flops / 1e12:.3f} TFLOP a step), peak memory "
+          f"{peak:.2f} GiB; losses "
+          f"{', '.join(f'{x:.6f}' for x in losses)} ({ctx.card})",
+          flush=True)
+    _check(counts == dict(fwd=expect, total=expect, fused=expect,
+                          dkdv=0, dq=0, delta=expect),
+           f"{tag} launch counts {counts}")
+    _check(all(math.isfinite(x) for x in losses), f"{tag} losses {losses}")
+    for key, kernel_rows in rows.items():
+        for row in kernel_rows:
+            ctx.launches[row] += counts[key]
+    return step
+
+
 def _phase_gemma_training(ctx):
     """Main path of training at Gemma 2 2B's widths (GEMMA_KW, bf16,
     seeded weights, full width and depth: 26 layers, d_head 256, 8 query
@@ -3758,7 +3849,7 @@ def _phase_gemma_training(ctx):
     from cuda_flashattention_torch.utils.profiling import kernel_times
     from cuda_flashattention_torch.utils.timing import attention_flops
     dev, card, launches = ctx.dev, ctx.card, ctx.launches
-    bwd_launches, fwd_forms = ctx.bwd_launches, ctx.fwd_forms
+    bwd_launches = ctx.bwd_launches
     t = GEMMA_TRAIN_T
     cfg = tfm.TransformerConfig(dtype=torch.bfloat16,
                                 **{**GEMMA_KW, "max_seq": t})
@@ -3783,53 +3874,11 @@ def _phase_gemma_training(ctx):
                    + 3 * attention_flops(1, cfg.n_heads, t, t, cfg.d_head,
                                          causal=True) * n)
 
+    rows = dict(fwd=["K1", "K1 d256"], fused=["K4", "K4 d256"],
+                delta=["K4 D prologue", "prologue d256"])
+
     def timed_steps(m, tag):
-        """2 warm-up and TIMED_STEPS timed `make_train_step` steps of m:
-        (median ms, losses, launch counts over the timed steps, peak
-        GiB)."""
-        step = tfm.make_train_step(m, torch.optim.SGD(m.parameters(),
-                                                      lr=1e-4))
-        for _ in range(2):
-            step(tokens)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ctx.zero_counts()
-        step_s, losses = [], []
-        for _ in range(TIMED_STEPS):
-            t0 = time.perf_counter()
-            loss = step(tokens)
-            torch.cuda.synchronize()
-            step_s.append(time.perf_counter() - t0)
-            losses.append(loss.item())
-        counts = dict(fwd=fwd_forms["online"],
-                      total=flash_attention_forward.launches, **bwd_launches)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        expect = TIMED_STEPS * n
-        step_ms = statistics.median(step_s) * 1e3
-        print(f"[{tag}] launches over {TIMED_STEPS} steps: K1 "
-              f"{counts['fwd']}, K4 {counts['fused']}, the prologue "
-              f"{counts['delta']}, K2 {counts['dkdv']}, K3 {counts['dq']} "
-              f"(expect {expect}, {expect}, {expect}, 0, 0); step "
-              f"{step_ms:.3f} ms (median of {TIMED_STEPS}: "
-              f"{', '.join(f'{x * 1e3:.3f}' for x in step_s)}), "
-              f"{t / step_ms * 1e3:.1f} tokens/s, "
-              f"{train_flops / step_ms / 1e9:.1f} TFLOP/s "
-              f"({train_flops / 1e12:.3f} TFLOP a step), peak memory "
-              f"{peak:.2f} GiB; losses "
-              f"{', '.join(f'{x:.4f}' for x in losses)} ({card})",
-              flush=True)
-        _check(counts == dict(fwd=expect, total=expect, fused=expect,
-                              dkdv=0, dq=0, delta=expect),
-               f"{tag} launch counts {counts}")
-        _check(all(math.isfinite(x) for x in losses), f"{tag} losses "
-               f"{losses}")
-        for kn, c in (("K1", counts["fwd"]), ("K4", counts["fused"]),
-                      ("K4 D prologue", counts["delta"])):
-            launches[kn] += c
-        for kn, c in (("K1", counts["fwd"]), ("K4", counts["fused"]),
-                      ("prologue", counts["delta"])):
-            launches[f"{kn} d256"] += c
-        return step
+        return _timed_train_steps(ctx, m, tokens, tag, train_flops, rows)
 
     names = [nm for nm, _ in model.named_parameters()]
 
@@ -4482,6 +4531,374 @@ def _phase_gemma_f32_serving(ctx):
                                          key=lambda kv: -kv[1]))
           + f" ({card})", flush=True)
     del model
+
+
+# ---------------------------------------------------------------------------
+# Phase 29: fp32 at d = 256 in the backward (K4, K2 + K3), K9 at d = 256
+# and between builds, an fp32 ring attention at d = 256, and the fp32
+# Gemma-width model trained
+# ---------------------------------------------------------------------------
+
+# the fp32 Gemma-width model's gates against the plain attention functions:
+# the loss relative, every gradient in relative L2
+F32_LOSS_REL_GATE = 1e-4
+F32_GRAD_GATE = 1e-3
+# the fp32 ring attention at d = 256: 4 ranks, shards of the training T
+F32_RING_N = 4 * GEMMA_TRAIN_T
+
+
+def _phase_wide_ring(ctx):
+    """K9 at d = 256 and between builds. Its paths: the example stage at d =
+    256 (bf16, `--width 256`; row "K9 d256") and `device_ring_matmul` on
+    fp32 shards at the example's n=4 L=1024 d=256 (row "K9 f32 d256"),
+    launches counted. Then at n=4 L=1024 and n=8 L=8192, d = 256, in bf16
+    and fp32, and at n=4 L=1024 d = 200 (x and W zero-padded to 256):
+    against the plain ring and tile((Σ x_i) @ W) in fp32 (bf16 within
+    min(K9_GATE, REL_GATE · max |ref|), fp32 within F32_GATE · max(1,
+    max |ref|)), 5 repeats bit for bit; the kernel's ms (torch.profiler),
+    its bound (`_k9_bound`), the plain ring's ms and one `torch.einsum`
+    over the shards (TF32 off)."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.examples import device_ring as stage
+    from cuda_flashattention_torch.parallel.device_ring import (
+        device_ring_matmul, ring_matmul_plain)
+    from cuda_flashattention_torch.utils.timing import cuda_time_ms
+    dev, card = ctx.dev, ctx.card
+    gen = torch.Generator(device=dev).manual_seed(30)
+
+    def draw(dtype, *shape):
+        return (torch.rand(shape, generator=gen, device=dev) - 0.5).to(dtype)
+
+    ctx.zero_counts()
+    rc = stage.main(["--ranks", "4", "--width", "256"])
+    n = device_ring_matmul.launches
+    ctx.launches["K9 d256"] += n
+    print(f"[K9 d256] the example stage at d=256 returned {rc}; K9 "
+          f"launches {n}", flush=True)
+    _check(rc == 0 and n > 0, f"the device-ring stage at d=256 returned "
+           f"{rc} after {n} launches")
+    mesh4 = _shared_card_mesh(ctx, 4)
+    x, w = draw(torch.float32, 4 * K9_SHAPES[0], 256), draw(
+        torch.float32, 256, 256)
+    ctx.zero_counts()
+    device_ring_matmul(x, w, mesh4)
+    torch.cuda.synchronize()
+    n = device_ring_matmul.launches
+    ctx.launches["K9 f32 d256"] += n
+    _check(n == 1, f"fp32 K9 d=256 path: {n} launches")
+    for dtype, row in ((torch.bfloat16, "K9 d256"),
+                       (torch.float32, "K9 f32 d256")):
+        f32 = dtype == torch.float32
+        for n, rows, d in ((4, K9_SHAPES[0], 256), (8, K9_SHAPES[1], 256),
+                           (4, K9_SHAPES[0], 200)):
+            ring_devices = [dev] * n
+            mesh = _shared_card_mesh(ctx, n)
+            x, w = draw(dtype, n * rows, d), draw(dtype, d, d)
+            o = device_ring_matmul(x, w, mesh)
+            torch.cuda.synchronize()
+            grid = device_ring_matmul.last_grid
+            ref = (x.float().view(n, rows, d).sum(0) @ w.float()).repeat(n, 1)
+            top = ref.abs().max().item()
+            gate = (F32_GATE * max(1.0, top) if f32
+                    else min(K9_GATE, REL_GATE * top))
+            o_p = ring_matmul_plain(x, w, mesh)
+            errs = [ctx.diff(o, ref), ctx.diff(o, o_p)]
+            same = sum(torch.equal(device_ring_matmul(x, w, mesh), o)
+                       for _ in range(5))
+            ms_k = _device_ms_by_kernel(
+                lambda: device_ring_matmul(x, w, mesh), ("K9",),
+                iters=K9_ITERS)["K9"]
+            ms_p = cuda_time_ms(lambda: ring_matmul_plain(x, w, mesh),
+                                iters=K9_ITERS)
+            x3 = x.view(n, rows, d)
+            ms_lib = cuda_time_ms(lambda: torch.einsum("nld,de->le", x3, w),
+                                  iters=K9_ITERS)
+            bound = _k9_bound(ring_devices, rows, d, f32=f32)
+            print(f"[K9 d256] {'fp32' if f32 else 'bf16'} n={n} ranks "
+                  f"(sharing card 0), L={rows} d={d}: grid {grid[0]} spans "
+                  f"x {grid[1]} ranks; vs tile((sum x_i) @ W) {errs[0]:.3e},"
+                  f" vs the plain ring {errs[1]:.3e} (gate {gate:.3e}, max"
+                  f"|ref| {top:.3e}); repeats equal {same}/5; kernel "
+                  f"{ms_k:.4f} ms ({_vs_bound(ms_k, bound)}), plain ring "
+                  f"{ms_p:.4f} ms, one einsum {ms_lib:.4f} ms ({card})",
+                  flush=True)
+            _check(top > 0 and max(errs) <= gate and same == 5
+                   and bool(torch.isfinite(o).all()),
+                   f"K9 {dtype} n={n} L={rows} d={d}: {errs} (gate "
+                   f"{gate:.3e}), {same}/5 repeats")
+            r = ctx.rec[row]
+            r["max_abs_err"] = max(r["max_abs_err"], *errs)
+            if (n, rows, d) == (4, K9_SHAPES[0], 256):  # the paths' shape
+                r.update(ms=ms_k, plain_ms=ms_p, library_ms=ms_lib, **bound)
+            del x, w, o, o_p, ref, x3
+
+
+def _phase_f32_wide_ring_attention(ctx):
+    """One fp32 `ring_attention` forward and backward at d = 256 over 4
+    ranks sharing card 0: B=1, 8 query heads over 4 KV heads,
+    N = F32_RING_N (shards of 4096, the training T), causal; against one
+    `flash_attention` call on the whole sequence: O within F32_GATE, each
+    gradient at the ring's gates (`_phase_ring_attention`: O within
+    min(GATE, REL_GATE · max |ref|), each gradient within BWD_GATE · max
+    |ref|; the line also gives each as a share of max |ref|, ~1e-4 in
+    fp32, where the two sum 16384 rows' products in other orders);
+    forward launches and K4 launches 10 each (the causal ring's 4 · 5 / 2
+    steps), counted under the fp32 d = 256 rows; ring and one-call
+    ms."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.ops.attention import flash_attention
+    from cuda_flashattention_torch.parallel.ring import ring_attention
+    from cuda_flashattention_torch.utils.timing import cuda_time_ms
+    n_ranks, n, d = RING_RANKS, F32_RING_N, GEMMA_KW["d_head"]
+    h, hkv = GEMMA_KW["n_heads"], GEMMA_KW["n_kv_heads"]
+    mesh = _shared_card_mesh(ctx, n_ranks)
+    gen = torch.Generator(device=ctx.dev).manual_seed(31)
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=ctx.dev) - 0.5
+
+    q = u(1, h, n, d).requires_grad_()
+    k, v = u(1, hkv, n, d).requires_grad_(), u(1, hkv, n, d).requires_grad_()
+    do = u(1, h, n, d)
+    ctx.zero_counts()
+    o = ring_attention(q, k, v, mesh, causal=True)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    forms = dict(ctx.fwd_forms)
+    n_fwd = forms["online"] + forms["bound"] + forms["kmajor"]
+    n_bwd = ctx.bwd_launches["fused"]
+    for form, row in (("online", "K1 f32 d256"), ("bound", "K1b f32 d256"),
+                      ("kmajor", "K5 f32 d256")):
+        ctx.launches[row] += forms[form]
+    ctx.launches["K4 f32 d256"] += n_bwd
+    ctx.launches["prologue d256"] += ctx.bwd_launches["delta"]
+    o_ref = flash_attention(q, k, v, causal=True)
+    grads_ref = torch.autograd.grad(o_ref, (q, k, v), do)
+    e_o, top = ctx.diff(o, o_ref), o_ref.abs().max().item()
+    line = []
+    ok = (top > 0 and e_o <= min(GATE, REL_GATE * top)
+          and bool(torch.isfinite(o).all()))
+    for name, g, w in zip(("dQ", "dK", "dV"), grads, grads_ref):
+        e, ref = ctx.diff(g, w), w.abs().max().item()
+        line.append(f"{name} {e:.3e} ({e / ref:.1e} of max|ref| {ref:.3e})")
+        ok = (ok and ref > 0 and e <= BWD_GATE * ref
+              and bool(torch.isfinite(g).all()))
+    expect = n_ranks * (n_ranks + 1) // 2
+    t = {}
+    for name, fn in (("ring", lambda *a, **kw: ring_attention(
+            *a, mesh=mesh, **kw)), ("one call", flash_attention)):
+        t[name] = cuda_time_ms(lambda: torch.autograd.grad(
+            fn(q, k, v, causal=True), (q, k, v), do), iters=2, warmup=1)
+    print(f"[f32-ring-d256] B=1 H={h} Hkv={hkv} N={n} d={d} fp32 over "
+          f"{n_ranks} ranks sharing card 0, causal: forward launches {n_fwd} "
+          f"(online {forms['online']}, bound {forms['bound']}, K-major "
+          f"{forms['kmajor']}), K4 {n_bwd} (expect {expect} each); vs one "
+          f"call: max|dO| {e_o:.3e} (max|O| {top:.3e}; gate min({GATE}, "
+          f"{REL_GATE} x max|O|)), gradients max|diff| {', '.join(line)} "
+          f"(gate {BWD_GATE} x max|ref|); forward+backward ring "
+          f"{t['ring']:.3f} ms, one call {t['one call']:.3f} ms "
+          f"({ctx.card})", flush=True)
+    _check(ok, f"fp32 ring at d=256: O {e_o:.3e}, gradients {line}")
+    _check(n_fwd == expect and n_bwd == expect
+           and ctx.bwd_launches["dkdv"] == ctx.bwd_launches["dq"] == 0,
+           f"fp32 ring at d=256 launch counts {forms} {ctx.bwd_launches}")
+
+
+def _phase_gemma_f32_training(ctx):
+    """Main path of training an fp32 model at Gemma 2 2B's widths
+    (`TransformerConfig(dtype=torch.float32, **GEMMA_KW)`: 26 layers,
+    d_model 2304, 8 query heads over 4 KV heads of d_head 256, d_ff 9216,
+    vocab 256000; seeded weights, 9.74 GiB in fp32), B=1 x T=4096 tokens,
+    one seeded batch: `make_train_step` with SGD(1e-4), 2 warm-up steps
+    then 5 timed ones at full depth: median step ms, tokens/s, TFLOP/s as
+    bench.py counts a step, peak GiB; launches over the timed steps K1 =
+    K4 = the prologue = 26 x 5 (the fp32 d = 256 builds: rows "K1 f32
+    d256", "K4 f32 d256", "prologue d256"), K2 = K3 = 0; a profile of one
+    step by kernel group. The loss and every gradient of one step against
+    the same step on the plain attention functions, at full depth (the
+    kernels' gradients wait on the host while the plain step runs): loss
+    within F32_LOSS_REL_GATE relative, each gradient within F32_GRAD_GATE
+    relative L2; one step through the split backward (K2 = K3 = 26; rows
+    "K2 f32 d256", "K3 f32 d256") against the fused one at the same
+    gates; the windowed model (`cfg.window` = 1024) the same way; then
+    10 Adam(1e-3) steps, also at full depth (the moments' 19.5 GiB fit:
+    ~66 GiB), that must lower the loss, and their peak GiB. No depth or
+    width is cut."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.models import transformer as tfm
+    from cuda_flashattention_torch.ops import attention
+    from cuda_flashattention_torch.ops.flash_bwd import (
+        flash_attention_backward, flash_attention_backward_plain)
+    from cuda_flashattention_torch.ops.flash_fwd import (
+        flash_attention_forward, flash_attention_forward_plain)
+    from cuda_flashattention_torch.utils.profiling import kernel_times
+    from cuda_flashattention_torch.utils.timing import attention_flops
+    dev, card, launches = ctx.dev, ctx.card, ctx.launches
+    bwd_launches = ctx.bwd_launches
+    t = GEMMA_TRAIN_T
+    cfg = tfm.TransformerConfig(dtype=torch.float32,
+                                **{**GEMMA_KW, "max_seq": t})
+    n = cfg.n_layers
+
+    def fresh(c):
+        return tfm.Transformer(
+            c, generator=torch.Generator(device=dev).manual_seed(29))
+
+    model = fresh(cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = torch.randint(0, cfg.vocab_size, (1, t), device=dev,
+                           generator=torch.Generator(
+                               device=dev).manual_seed(30),
+                           dtype=torch.int32)
+    print(f"[gemma-f32-train] {n_params / 1e9:.3f}B parameters "
+          f"({_nbytes(*model.parameters()) / 2**30:.2f} GiB in fp32), {n} "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads over "
+          f"{cfg.n_kv_heads} KV heads of d_head {cfg.d_head}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}; B=1 T={t}, fp32 (TF32 off), "
+          f"SGD(1e-4) ({card})", flush=True)
+    train_flops = (6.0 * n_params * t
+                   + 3 * attention_flops(1, cfg.n_heads, t, t, cfg.d_head,
+                                         causal=True) * n)
+
+    rows = dict(fwd=["K1 f32 d256"], fused=["K4 f32 d256"],
+                delta=["prologue d256"])
+
+    def timed_steps(m, tag):
+        return _timed_train_steps(ctx, m, tokens, tag, train_flops, rows)
+
+    names = [nm for nm, _ in model.named_parameters()]
+
+    def step_grads(m):
+        """The loss of one forward and backward of m, its gradients left
+        in the parameters' .grad."""
+        m.zero_grad(set_to_none=True)
+        loss = tfm.loss_fn(m, tokens)
+        loss.backward()
+        return loss.item()
+
+    def on_host(m):
+        """m's gradients copied to the host, and dropped on the card."""
+        grads = [p.grad.to("cpu") for p in m.parameters()]
+        m.zero_grad(set_to_none=True)
+        return grads
+
+    def rel_l2(m, ref_host):
+        """The worst relative L2 distance of m's gradients from ref_host
+        (the reference), and its parameter's name; drops m's."""
+        errs = []
+        for p, r in zip(m.parameters(), ref_host):
+            r = r.to(dev)
+            errs.append(((p.grad - r).norm() / r.norm()).item())
+        m.zero_grad(set_to_none=True)
+        i = max(range(len(errs)), key=errs.__getitem__)
+        return errs[i], names[i]
+
+    plain_bwd = (lambda q, k, v, o, lse, do, block_sizes=None, fused=None,
+                 **kw:
+                 flash_attention_backward_plain(q, k, v, o, lse, do, **kw))
+
+    def against_plain(m, tag):
+        """The loss and every gradient of one step on the plain attention
+        functions against the same through the kernels; the kernels'
+        (loss, gradients on the host)."""
+        loss_k = step_grads(m)
+        grads_k = on_host(m)
+        with mock.patch.object(attention, "flash_attention_forward",
+                               flash_attention_forward_plain), \
+                mock.patch.object(attention, "flash_attention_backward",
+                                  plain_bwd):
+            loss_p = step_grads(m)
+        errs = []
+        for p, gk in zip(m.parameters(), grads_k):
+            errs.append(((gk.to(dev) - p.grad).norm()
+                         / p.grad.norm()).item())
+        m.zero_grad(set_to_none=True)
+        i = max(range(len(errs)), key=errs.__getitem__)
+        e_grad, worst = errs[i], names[i]
+        e_loss = abs(loss_k - loss_p) / abs(loss_p)
+        print(f"[{tag}] kernels vs plain attention ({m.cfg.n_layers} "
+              f"layers): loss {loss_k:.7f} vs {loss_p:.7f} (relative "
+              f"{e_loss:.3e}, gate {F32_LOSS_REL_GATE}); worst gradient "
+              f"relative L2 {e_grad:.3e} ({worst}; gate {F32_GRAD_GATE}; "
+              f"the bf16 model's gate in phase 27: {GRAD_GATE}) ({card})",
+              flush=True)
+        _check(e_loss <= F32_LOSS_REL_GATE,
+               f"{tag}: kernel vs plain loss {loss_k} vs {loss_p}")
+        _check(e_grad <= F32_GRAD_GATE, f"{tag}: kernel vs plain gradient "
+               f"of {worst}: relative L2 {e_grad:.3e}")
+        return loss_k, grads_k
+
+    # ---- the timed steps, a profile, the plain comparison, the split path
+    step = timed_steps(model, "gemma-f32-train")
+    prof = kernel_times(lambda: step(tokens))
+    groups = {}
+    for nm, ms in prof.ms.items():
+        groups[_group_of(nm)] = groups.get(_group_of(nm), 0.0) + ms
+    print(f"[gemma-f32-train] profile of one step: "
+          f"{sum(prof.count.values())} kernels, device busy "
+          f"{prof.busy_ms:.3f} ms of a profiled wall of {prof.wall_ms:.3f} "
+          f"ms ({prof.busy_ms / prof.wall_ms:.1%})"
+          + "".join(f"; {g} {ms:.3f} ms ({ms / prof.busy_ms:.1%})"
+                    for g, ms in sorted(groups.items(),
+                                        key=lambda kv: -kv[1]))
+          + f" ({card})", flush=True)
+    del step
+    torch.cuda.empty_cache()
+    loss_k, grads_k = against_plain(model, "gemma-f32-train")
+    ctx.zero_counts()
+    with mock.patch.object(attention, "flash_attention_backward",
+                           functools.partial(flash_attention_backward,
+                                             fused=False)):
+        loss_s = step_grads(model)
+    torch.cuda.synchronize()
+    counts = dict(fwd=flash_attention_forward.launches, **bwd_launches)
+    e_split, worst = rel_l2(model, grads_k)
+    del grads_k
+    e_loss = abs(loss_s - loss_k) / abs(loss_k)
+    print(f"[gemma-f32-train] split backward: launches K1 {counts['fwd']}, "
+          f"K2 {counts['dkdv']}, K3 {counts['dq']}, K4 {counts['fused']}, "
+          f"the prologue {counts['delta']} (expect {n} each, K4 0); loss "
+          f"{loss_s:.7f} (relative {e_loss:.3e} to the fused step's); worst "
+          f"gradient relative L2 to the fused backward {e_split:.3e} "
+          f"({worst}; gate {F32_GRAD_GATE})", flush=True)
+    _check(counts == dict(fwd=n, fused=0, dkdv=n, dq=n, delta=n),
+           f"gemma fp32 split-backward launch counts {counts}")
+    _check(e_loss <= F32_LOSS_REL_GATE and e_split <= F32_GRAD_GATE,
+           f"gemma fp32 split vs fused backward: loss {loss_s} vs {loss_k}, "
+           f"gradient of {worst} {e_split:.3e}")
+    for row, c in (("K1 f32 d256", counts["fwd"]),
+                   ("K2 f32 d256", counts["dkdv"]),
+                   ("K3 f32 d256", counts["dq"]),
+                   ("prologue d256", counts["delta"])):
+        launches[row] += c
+    del model
+    torch.cuda.empty_cache()
+
+    # ---- the windowed model (cfg.window = 1024)
+    wmodel = fresh(dataclasses.replace(cfg, window=LONG_WINDOW))
+    wstep = timed_steps(wmodel, f"gemma-f32-wtrain window {LONG_WINDOW}")
+    del wstep
+    torch.cuda.empty_cache()
+    against_plain(wmodel, f"gemma-f32-wtrain window {LONG_WINDOW}")
+    del wmodel
+    torch.cuda.empty_cache()
+
+    # ---- loss falls: 10 Adam steps on a fresh model and the same batch
+    # (foreach=False: the moments are updated a tensor at a time, with no
+    # temporaries the size of every parameter)
+    model = fresh(cfg)
+    step = tfm.make_train_step(model, torch.optim.Adam(
+        model.parameters(), lr=1e-3, foreach=False))
+    torch.cuda.reset_peak_memory_stats()
+    adam = [step(tokens).item() for _ in range(ADAM_STEPS)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[gemma-f32-train] Adam(1e-3), {ADAM_STEPS} steps, {n} "
+          f"layers: losses "
+          f"{', '.join(f'{x:.4f}' for x in adam)}; peak memory {peak:.2f} "
+          f"GiB ({card})", flush=True)
+    _check(all(math.isfinite(x) for x in adam) and adam[-1] < adam[0],
+           f"gemma fp32 Adam losses did not fall: {adam}")
+    del model, step
 
 
 def _phase_utils(ctx):
@@ -5295,7 +5712,8 @@ def main() -> int:
             "K7 fp32 q over bf16", "K1 d256", "K1b d256", "K5 d256",
             "K6 d256", "K7 d256", "K4 d256", "K2 d256", "K3 d256",
             "prologue d256", "K1 f32 d256", "K1b f32 d256", "K5 f32 d256",
-            "K8 d256", "K8 f32 d256")}
+            "K8 d256", "K8 f32 d256", "K4 f32 d256", "K2 f32 d256",
+            "K3 f32 d256", "K9 d256", "K9 f32 d256")}
     # launches on the main paths, summed over the runs that drive them
     launches = {kn: 0 for kn in rec}
 
@@ -6693,6 +7111,17 @@ def main() -> int:
     _phase_wide_f32_kernels(ctx)
     torch.cuda.empty_cache()
     _phase_gemma_f32_serving(ctx)
+    # ---- 29. fp32 training at d = 256, K9 at d <= 256 ---------------------
+    torch.cuda.empty_cache()
+    t29 = time.perf_counter()
+    _phase_wide_backward(ctx, f32=True)
+    torch.cuda.empty_cache()
+    _phase_wide_ring(ctx)
+    torch.cuda.empty_cache()
+    _phase_f32_wide_ring_attention(ctx)
+    torch.cuda.empty_cache()
+    _phase_gemma_f32_training(ctx)
+    print(f"[phase 29] {time.perf_counter() - t29:.1f} s", flush=True)
     torch.cuda.empty_cache()
     _phase_utils(ctx)
     torch.cuda.empty_cache()
@@ -6888,6 +7317,29 @@ def main() -> int:
         ("K8 f32 d256", "fa1_attention at d = 256 in fp32 (K8's fp32 d = 256 "
          "build: 32-key split tiles, two to each 64-key tile of a block; "
          "[1, 8, 4096, 256] causal and not)", "fa1.cu", "fa1.py:54"),
+        ("K4 f32 d256", "flash_attention_backward on fp32 at d = 256 (K4's "
+         "fp32 d = 256 build: 64-key CTAs streaming 32-row split Q / dO "
+         "tiles, one stage, dQ as dQᵀ = Kᵀ·dSᵀ by 4-byte atomics; the fp32 "
+         "Gemma-width model's train steps and the fp32 ring attention at d "
+         "= 256; times at [1, 8, 4096, 256] over 4 KV heads, causal)",
+         "flash_bwd_kv.cu", "flash_bwd.py:252"),
+        ("K2 f32 d256", "flash_attention_backward fused=False on fp32 at d "
+         "= 256 (K2's fp32 d = 256 build, K4's walk without dQ; the fp32 "
+         "Gemma-width model's split-backward step; times at [1, 8, 4096, "
+         "256], causal)", "flash_bwd_kv.cu", "flash_bwd.py:117"),
+        ("K3 f32 d256", "flash_attention_backward fused=False on fp32 at d "
+         "= 256 (K3's fp32 d = 256 build: 64-row CTAs, one consumer "
+         "warpgroup, 16-key split tiles in three stages; the fp32 "
+         "Gemma-width model's split-backward step; times at [1, 8, 4096, "
+         "256], causal)", "flash_bwd.cu", "flash_bwd.py:192"),
+        ("K9 d256", "device_ring_matmul at d = 256 in bf16 (K9's d = 256 "
+         "build: W whole, one tile a round; the example stage at --width "
+         "256, n=4 L=1024)", "device_ring.cu",
+         "examples/07_device_ring.py:46"),
+        ("K9 f32 d256", "device_ring_matmul at d = 256 in fp32 (K9's fp32 "
+         "d = 256 build: two CTAs a span, each holding one column half of "
+         "W split, two rings that share nothing; n=4 L=1024)",
+         "device_ring.cu", "examples/07_device_ring.py:46"),
     ]
     kernels = []
     for kn, name, source, replaces in described:

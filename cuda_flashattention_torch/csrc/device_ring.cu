@@ -29,10 +29,10 @@
 //    span of 64-row tiles (the partition is a function of L and the grid,
 //    and the host passes one grid to every launch of the ring), and talks
 //    only to CTA c of its two neighbours. A span is walked in rounds of G
-//    tiles whose o stays in registers (G = 2 at D = 128, 4 at D = 64); per
-//    round the CTA runs the whole n-step ring: per step it loads its G
-//    tiles, pushes them on and multiplies them, then signals ONE flag for
-//    the (rank, CTA, round, step). So the n − 1 hop latencies are paid
+//    tiles whose o stays in registers (G = 2 at D = 128, 4 at D = 64, 1
+//    at 256); per round the CTA runs the whole n-step ring: per step it
+//    loads its G tiles, pushes them on and multiplies them, then signals
+//    ONE flag for the (rank, CTA, round, step). So the n − 1 hop latencies are paid
 //    once per round, not once per tile, and the two CTAs on an SM hide
 //    each other's hops under their products (registers are sized for two:
 //    with three, at 168 registers, they spill, and the kernel took 19%
@@ -82,6 +82,19 @@
 //    the threads at every hop. W hi + lo is 64 KB at D = 128, so a round
 //    there is one tile (G = 1), which keeps two CTAs per SM.
 //
+//  * D = 256. A tile's o is 128 fp32 registers a thread, so a round is one
+//    tile (G = 1; two would take 256, past the 255 a thread has). bf16: W
+//    128 KB and one 32 KB tile image, 160 KB, one CTA per SM. fp32: W's hi
+//    + lo images take 256 KB, past the 232,448 bytes, so W is cut into NH =
+//    2 column halves and a CTA holds one, split (128 KB), beside one split
+//    tile image (64 KB): 192 KB. The grid is spans x halves: CTA 2·c + p
+//    walks span c for o's columns 128·p .., and the two CTAs of a span are
+//    two rings that share nothing, each pushing its own copy of the tiles
+//    through its own half of the double buffers, with its own flags (the
+//    host allocates both: buffers [NH, 2, 2·L, D], flags [NH·grid, 4]).
+//    The host pads any d up to 256 with zero columns (and W with zero rows
+//    and columns) to the next of 64, 128, 256 and slices o back.
+//
 // The designs that measured slower (o in fp32 in device memory, the push
 // as 16-byte stores, one tile per round, registers for three CTAs per SM)
 // are text patches of a copy of this source in utils/ring_variants.py.
@@ -127,13 +140,16 @@ struct RingTable {
   int local[MAX_RANKS];        // blockIdx.y -> rank of this launch
 };
 
-// PL: the planes of an image, hi (and lo under F32)
+// PL: the planes of an image, hi (and lo under F32); NH: the column parts
+// of W (and of o), one CTA each, WC columns apiece
 template <int D, bool F32>
 struct Geo {
   static constexpr int PL = F32 ? 2 : 1;
-  static constexpr int G = D == 64 ? 4 : F32 ? 1 : 2;  // tiles per round
+  static constexpr int NH = D == 256 && F32 ? 2 : 1;
+  static constexpr int WC = D / NH;
+  static constexpr int G = D == 64 ? 4 : D == 128 && !F32 ? 2 : 1;  // tiles
   static constexpr int TILE = PL * BM * D * 2;  // bytes of a tile image
-  static constexpr int W_BYTES = PL * D * D * 2;
+  static constexpr int W_BYTES = PL * D * WC * 2;
   static constexpr int st_off = W_BYTES;    // both multiples of 1024
   static constexpr int bar_off = st_off + G * TILE;
   static constexpr int bytes = bar_off + 8 * G + 1024;  // + alignment
@@ -228,9 +244,10 @@ __device__ __forceinline__ void wgmma_ss_bf16_bmn(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// acc (+)= the tile image at shared address `a` @ W's image at `wa`.
-template <int D>
-__device__ __forceinline__ void tile_issue(float (&acc)[D / 64][32],
+// acc (+)= the tile image at shared address `a` @ W's image at `wa` (its
+// WC columns: WC / 64 slabs of D rows).
+template <int D, int WC>
+__device__ __forceinline__ void tile_issue(float (&acc)[WC / 64][32],
                                            uint32_t a, uint32_t wa,
                                            bool accumulate) {
 #pragma unroll
@@ -238,7 +255,7 @@ __device__ __forceinline__ void tile_issue(float (&acc)[D / 64][32],
     const uint64_t da =
         make_desc(a + (kt / 4) * BM * 128 + (kt % 4) * 32, 16, 1024, 1);
 #pragma unroll
-    for (int h = 0; h < D / 64; ++h) {
+    for (int h = 0; h < WC / 64; ++h) {
       wgmma_ss_bf16_bmn(
           acc[h], da, make_desc(wa + h * D * 128 + kt * 16 * 128, 1024, 1024,
                                 1),
@@ -250,17 +267,17 @@ __device__ __forceinline__ void tile_issue(float (&acc)[D / 64][32],
 // acc (+)= the tile at shared address `a` @ W at `wa`, issued and
 // committed, not waited for; under F32 both split (each lo image right
 // after its hi image): lo·W_hi + hi·W_lo + hi·W_hi.
-template <int D, bool F32>
-__device__ __forceinline__ void tile_product(float (&acc)[D / 64][32],
+template <int D, bool F32, int WC>
+__device__ __forceinline__ void tile_product(float (&acc)[WC / 64][32],
                                              uint32_t a, uint32_t wa,
                                              bool accumulate) {
   wgmma_fence();
   if (F32) {
-    tile_issue<D>(acc, a + BM * D * 2, wa, accumulate);
-    tile_issue<D>(acc, a, wa + D * D * 2, true);
-    tile_issue<D>(acc, a, wa, true);
+    tile_issue<D, WC>(acc, a + BM * D * 2, wa, accumulate);
+    tile_issue<D, WC>(acc, a, wa + D * WC * 2, true);
+    tile_issue<D, WC>(acc, a, wa, true);
   } else {
-    tile_issue<D>(acc, a, wa, accumulate);
+    tile_issue<D, WC>(acc, a, wa, accumulate);
   }
   wgmma_commit();
 }
@@ -321,14 +338,16 @@ __device__ __forceinline__ int acc_col(int h, int i) {
   return h * 64 + 8 * (i >> 2) + 2 * (threadIdx.x & 3);
 }
 
-template <int D>
+// (acc: o's WC columns from col0)
+template <int D, int WC>
 __device__ __forceinline__ void store_acc(float* o,
-                                          const float (&acc)[D / 64][32]) {
+                                          const float (&acc)[WC / 64][32],
+                                          int col0) {
 #pragma unroll
-  for (int h = 0; h < D / 64; ++h) {
+  for (int h = 0; h < WC / 64; ++h) {
 #pragma unroll
     for (int i = 0; i < 32; i += 2) {
-      *reinterpret_cast<float2*>(o + acc_row(i) * D + acc_col(h, i)) =
+      *reinterpret_cast<float2*>(o + acc_row(i) * D + col0 + acc_col(h, i)) =
           make_float2(acc[h][i], acc[h][i + 1]);
     }
   }
@@ -339,15 +358,18 @@ __device__ __forceinline__ void store_acc(float* o,
 // ---------------------------------------------------------------------------
 
 // grid (CTAs per rank, ranks of this launch); CTA c of every rank owns the
-// same span of tiles. epoch_hi = epoch << 32.
+// same span of tiles (with NH column parts, CTA NH·c + p its part p).
+// epoch_hi = epoch << 32.
 template <int D, bool SYS, bool F32>
 __global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
 device_ring_kernel(const RingTable t, int n, int L, u64 epoch_hi) {
   using S = Geo<D, F32>;
   constexpr int G = S::G;
   constexpr int PL = S::PL;
+  constexpr int NH = S::NH;
+  constexpr int WC = S::WC;
   constexpr int CH = D / 8;                      // 16-byte chunks per row
-  constexpr int TILE_VECS = BM * CH / NTHREADS;  // per thread: 4 or 8
+  constexpr int TILE_VECS = BM * CH / NTHREADS;  // per thread: 4, 8, 16
   static_assert(TILE_VECS % 4 == 0, "tile loads in fours");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -360,17 +382,20 @@ device_ring_kernel(const RingTable t, int n, int L, u64 epoch_hi) {
   const int rank = t.local[blockIdx.y];
   const int right = (rank + 1) % n;
   const int left = (rank + n - 1) % n;
-  const int c = blockIdx.x;
+  const int part = blockIdx.x % NH;  // W's and o's columns WC·part ..
+  const int c = blockIdx.x / NH;
+  const int spans = gridDim.x / NH;
   // the span: tiles [start, start + cnt), the same on every rank
   const int tiles = L / BM;
-  const int per = tiles / gridDim.x, extra = tiles % gridDim.x;
+  const int per = tiles / spans, extra = tiles % spans;
   const int start = c * per + min(c, extra);
   const int cnt = per + (c < extra ? 1 : 0);
   const long long slot = (long long)tiles * BM * D * PL;  // bf16 per slot
+  const long long ring_off = (long long)part * 2 * slot;  // this part's
 
-  u64* mine = t.flags[rank] + c * FLAG_WORDS;
-  u64* rflags = t.flags[right] + c * FLAG_WORDS;
-  u64* lflags = t.flags[left] + c * FLAG_WORDS;
+  u64* mine = t.flags[rank] + blockIdx.x * FLAG_WORDS;
+  u64* rflags = t.flags[right] + blockIdx.x * FLAG_WORDS;
+  u64* lflags = t.flags[left] + blockIdx.x * FLAG_WORDS;
   const uint8_t* x = static_cast<const uint8_t*>(t.x) +
                      (long long)blockIdx.y * L * D * (F32 ? 4 : 2);
   float* out = t.out + (long long)blockIdx.y * L * D;
@@ -381,12 +406,13 @@ device_ring_kernel(const RingTable t, int n, int L, u64 epoch_hi) {
     // tell the left neighbour that this rank's call has started
     if (SYS && n > 1) st_release<SYS>(lflags + F_START, epoch_hi);
   }
-  // W, once: row k of W is row k of the MN-major B image (F32: its hi
-  // image, then its lo image)
-  for (int e = tid; e < D * CH; e += NTHREADS) {
+  // W, once: row k of W's WC columns from WC·part is row k of the MN-major
+  // B image (F32: its hi image, then its lo image)
+  constexpr int WCH = WC / 8;
+  for (int e = tid; e < D * WCH; e += NTHREADS) {
     Chunk<F32> c;
-    ld_chunk<D, F32>(c, t.w, e);
-    st_chunk<F32>(smem, image_off(e / CH, e % CH, D), D * D * 2, c);
+    ld_chunk<D, F32>(c, t.w, (e / WCH) * CH + part * WCH + e % WCH);
+    st_chunk<F32>(smem, image_off(e / WCH, e % WCH, D), D * WC * 2, c);
   }
   fence_proxy_async();
   __syncthreads();
@@ -396,7 +422,7 @@ device_ring_kernel(const RingTable t, int n, int L, u64 epoch_hi) {
   for (int r = 0; r < rounds; ++r) {
     const int t0 = start + r * G;  // the round's first tile
     const int m = min(G, cnt - r * G);
-    float acc[G][D / 64][32];
+    float acc[G][WC / 64][32];
     for (int s = 0; s < n; ++s) {
       const bool push = s < n - 1;
       const u64 ctr = epoch_hi | (u64)(r * n + s);
@@ -405,8 +431,8 @@ device_ring_kernel(const RingTable t, int n, int L, u64 epoch_hi) {
         spin_until<SYS>(mine + F_RECV, ctr);
         fence_proxy_async_global();
       }
-      const bf16* src = t.buf[rank] + (s & 1) * slot;
-      bf16* dst = t.buf[right] + ((s + 1) & 1) * slot;
+      const bf16* src = t.buf[rank] + ring_off + (s & 1) * slot;
+      bf16* dst = t.buf[right] + ring_off + ((s + 1) & 1) * slot;
       if (s == 0) {
         // the caller's rows, written in the swizzle by the threads (F32:
         // split), four chunks' loads in flight per thread (the o of the
@@ -462,7 +488,7 @@ device_ring_kernel(const RingTable t, int n, int L, u64 epoch_hi) {
           bulk_store(dst + (long long)(t0 + j) * BM * D * PL, st, S::TILE);
           bulk_commit();
         }
-        tile_product<D, F32>(acc[j], st, wa, s > 0);
+        tile_product<D, F32, WC>(acc[j], st, wa, s > 0);
       }
       if (tid == 0) {
         // The step's tiles are in (and its pushes issued) while its
@@ -480,13 +506,14 @@ device_ring_kernel(const RingTable t, int n, int L, u64 epoch_hi) {
 #pragma unroll
       for (int j = 0; j < G; ++j) {
 #pragma unroll
-        for (int h = 0; h < D / 64; ++h) fence_regs(acc[j][h]);
+        for (int h = 0; h < WC / 64; ++h) fence_regs(acc[j][h]);
       }
       if (s == n - 1) {
 #pragma unroll
         for (int j = 0; j < G; ++j) {
           if (j >= m) break;
-          store_acc<D>(out + (long long)(t0 + j) * BM * D, acc[j]);
+          store_acc<D, WC>(out + (long long)(t0 + j) * BM * D, acc[j],
+                           part * WC);
         }
       }
       // the stages are free once every thread's products are done with
@@ -499,8 +526,9 @@ device_ring_kernel(const RingTable t, int n, int L, u64 epoch_hi) {
   }
 }
 
-// CTAs of one build the card holds at once (with the shared-memory opt-in
-// it needs, set once per card on its first query).
+// CTAs of one build the card holds at once, in spans (NH CTAs each; with
+// the shared-memory opt-in it needs, set once per card on its first
+// query).
 template <int D, bool SYS, bool F32>
 cudaError_t resident(int device, int* out) {
   constexpr int MAX_CARDS = 64;
@@ -519,7 +547,7 @@ cudaError_t resident(int device, int* out) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                  device);
     if (err != cudaSuccess) return err;
-    cached[device] = per_sm * sms;
+    cached[device] = per_sm * sms / Geo<D, F32>::NH;
   }
   *out = cached[device];
   return cudaSuccess;
@@ -532,20 +560,35 @@ cudaError_t launch(const RingTable& table, int n, int n_local, int L,
   int cap = 0;
   cudaError_t err = resident<D, SYS, F32>(device, &cap);
   if (err != cudaSuccess) return err;
-  // every CTA of every rank of this launch must be resident at once
+  // every CTA of every rank of this launch must be resident at once (grid
+  // and cap in spans of NH CTAs)
   if (grid * n_local > cap) return cudaErrorCooperativeLaunchTooLarge;
   RingTable t = table;
   u64 epoch_hi = (u64)epoch << 32;
   void* args[] = {&t, &n, &L, &epoch_hi};
   return cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(device_ring_kernel<D, SYS, F32>),
-      dim3(grid, n_local), dim3(NTHREADS), args, Geo<D, F32>::bytes, stream);
+      dim3(grid * Geo<D, F32>::NH, n_local), dim3(NTHREADS), args,
+      Geo<D, F32>::bytes, stream);
 }
 
 template <bool SYS, bool F32>
 cudaError_t resident_for(int D, int device, int* out) {
-  return D == 64 ? resident<64, SYS, F32>(device, out)
-                 : resident<128, SYS, F32>(device, out);
+  return D == 64    ? resident<64, SYS, F32>(device, out)
+         : D == 128 ? resident<128, SYS, F32>(device, out)
+                    : resident<256, SYS, F32>(device, out);
+}
+
+template <bool SYS, bool F32>
+cudaError_t launch_d(const RingTable& t, int n, int n_local, int L, int D,
+                     int grid, unsigned long long epoch, int device,
+                     cudaStream_t s) {
+  return D == 64    ? launch<64, SYS, F32>(t, n, n_local, L, grid, epoch,
+                                           device, s)
+         : D == 128 ? launch<128, SYS, F32>(t, n, n_local, L, grid, epoch,
+                                            device, s)
+                    : launch<256, SYS, F32>(t, n, n_local, L, grid, epoch,
+                                            device, s);
 }
 
 // launch<D, SYS, F32> for run-time D, sys and f32.
@@ -553,27 +596,15 @@ cudaError_t launch_any(const RingTable& t, int n, int n_local, int L, int D,
                        int grid, unsigned long long epoch, int sys, int f32,
                        int device, cudaStream_t s) {
   if (f32) {
-    if (D == 64) {
-      return sys ? launch<64, true, true>(t, n, n_local, L, grid, epoch,
-                                          device, s)
-                 : launch<64, false, true>(t, n, n_local, L, grid, epoch,
-                                           device, s);
-    }
-    return sys ? launch<128, true, true>(t, n, n_local, L, grid, epoch,
-                                         device, s)
-               : launch<128, false, true>(t, n, n_local, L, grid, epoch,
-                                          device, s);
+    return sys ? launch_d<true, true>(t, n, n_local, L, D, grid, epoch,
+                                      device, s)
+               : launch_d<false, true>(t, n, n_local, L, D, grid, epoch,
+                                       device, s);
   }
-  if (D == 64) {
-    return sys ? launch<64, true, false>(t, n, n_local, L, grid, epoch,
-                                         device, s)
-               : launch<64, false, false>(t, n, n_local, L, grid, epoch,
-                                          device, s);
-  }
-  return sys ? launch<128, true, false>(t, n, n_local, L, grid, epoch,
-                                        device, s)
-             : launch<128, false, false>(t, n, n_local, L, grid, epoch,
-                                         device, s);
+  return sys ? launch_d<true, false>(t, n, n_local, L, D, grid, epoch,
+                                     device, s)
+             : launch_d<false, false>(t, n, n_local, L, D, grid, epoch,
+                                      device, s);
 }
 
 // Runs f with `device` current, restoring the caller's card only where it
@@ -593,12 +624,12 @@ cudaError_t on_device(int device, F f) {
 
 }  // namespace
 
-// CTAs of the (D, sys, f32) build that card `device` holds at once. The
-// ring's common grid is the least, over its cards, of this over the card's
-// ranks.
+// Spans (CTAs, or at D = 256 in fp32 pairs of CTAs, one per column half)
+// of the (D, sys, f32) build that card `device` holds at once. The ring's
+// common grid is the least, over its cards, of this over the card's ranks.
 extern "C" int cfa_device_ring_resident(int D, int sys, int f32, int device,
                                         int* out) {
-  if (D != 64 && D != 128) return cudaErrorInvalidValue;
+  if (D != 64 && D != 128 && D != 256) return cudaErrorInvalidValue;
   return on_device(device, [&]() {
     if (f32) {
       return sys ? resident_for<true, true>(D, device, out)
@@ -612,10 +643,12 @@ extern "C" int cfa_device_ring_resident(int D, int sys, int f32, int device,
 // x, w, out: this launch's shards [n_local, L, D] and W [D, D], bf16 (fp32
 // under f32), and o [n_local, L, D] fp32, all on card `device`; buf, flags:
 // n_shards device pointers each (per rank: its tile images [2, L, D] bf16,
-// [2, 2·L, D] under f32 (hi and lo images), its 64-bit flag words [grid,
-// 4], zeroed once when allocated); local: the n_local ranks
-// this launch runs; L rows per shard (a multiple of 64), D in {64, 128};
-// grid: CTAs per rank, the same for every launch of the ring; epoch: this
+// [2, 2·L, D] under f32 (hi and lo images), at D = 256 under f32 [2, 2, 2·L,
+// D] (one double buffer per column half); its 64-bit flag words [grid,
+// 4] ([2·grid, 4] there), zeroed once when allocated); local: the n_local
+// ranks this launch runs; L rows per shard (a multiple of 64), D in {64,
+// 128, 256}; grid: spans per rank (CTAs, or pairs of CTAs at D = 256 under
+// f32), the same for every launch of the ring; epoch: this
 // call's number on these flags, from 1, increasing by one per call and
 // below 2^32; sys: 1 where a neighbour is on another card; f32: fp32 x
 // and W. Launches on `stream` and does not synchronise.
@@ -626,7 +659,8 @@ extern "C" int cfa_device_ring(const void* x, const void* w, void* out,
                                unsigned long long epoch, int sys, int f32,
                                int device, void* stream) {
   if (n_shards < 1 || n_shards > MAX_RANKS || n_local < 1 ||
-      n_local > n_shards || L < BM || L % BM != 0 || (D != 64 && D != 128) ||
+      n_local > n_shards || L < BM || L % BM != 0 ||
+      (D != 64 && D != 128 && D != 256) ||
       grid < 1 || grid > L / BM || epoch < 1 || epoch >= (1ull << 32)) {
     return cudaErrorInvalidValue;
   }

@@ -72,6 +72,18 @@
 // steps): a K + V stage is 32 KB, three stages (two under SEG) beside Q
 // and dO, 226 KB. Registers per consumer thread: dQ 128 (acc[4][32]), S
 // and dP 16 each (and their copies), dS 8, within setmaxnreg's 240.
+//
+// The F32 build at d = 256 (W1). A 128-row CTA's split Q and dO alone take
+// 256 KB, past the 232,448 bytes. So its CTA holds 64 query rows of packed
+// heads (R = 64 / Gp positions each) with ONE consumer warpgroup (the
+// second exits at once): split Q and dO resident, 128 KB, and 16-key split
+// K + V tiles, 32 KB a stage, three stages (two under SEG), 225 KB. S and
+// dP are wgmma m64n16 (three per k16 step and slab), dQ += dS·K one k16
+// step of RS wgmma per plane pair. Every K/V tile is read and split once
+// per 64 rows, twice as often as per 128; a 32-key stage (64 KB) would
+// leave room for one stage, whose split could never overlap the products.
+// Registers per consumer thread: dQ 128, S and dP 8 each (and their
+// copies), dS 8, within setmaxnreg's 232.
 
 #include <math.h>
 
@@ -98,6 +110,7 @@ using cfa_bound::split_rows;
 using cfa_bound::tma_load_4d;
 using cfa_bound::wgmma_commit;
 using cfa_bound::wgmma_fence;
+using cfa_bound::wgmma_ss_bf16_n16;
 using cfa_bound::wgmma_ss_bf16_n32;
 using cfa_bound::wgmma_wait_all;
 using cfa_bound::wgmma_wait_one;
@@ -125,14 +138,19 @@ struct DqArgs {
 // (D/64 slabs of 128 rows x 128 B each); NST stages of K and V (D/64 slabs
 // of KN rows x 128 B each) and the tile's key segment ids (SEG); barriers.
 // Under F32 each tile is a hi tile and a lo tile (lo right after hi) and a
-// key tile is 32 keys, as at d = 256.
+// key tile is 32 keys, as at d = 256; under F32 at d = 256 (W1) the CTA
+// holds ROWS = 64 query rows and a key tile is 16 keys.
 template <int D, bool SEG, bool F32>
 struct Layout {
   static constexpr int PL = F32 ? 2 : 1;   // planes of a tile: hi (and lo)
-  static constexpr bool K32 = F32 || D == 256;
-  static constexpr int KN = K32 ? 32 : BN;  // keys of a tile
-  static constexpr int NST = !K32 || D == 64 ? 4 : SEG ? 2 : 3;  // stages
-  static constexpr int QT = BM * D * 2;    // the Q (or dO) tile (a plane)
+  static constexpr bool W1 = F32 && D == 256;  // one consumer warpgroup
+  static constexpr int ROWS = W1 ? 64 : BM;    // query rows of a CTA
+  static constexpr int NWG = W1 ? 1 : 2;       // consumer warpgroups
+  static constexpr bool K32 = !W1 && (F32 || D == 256);
+  static constexpr int KN = W1 ? 16 : K32 ? 32 : BN;  // keys of a tile
+  static constexpr int NST =
+      !W1 && (!K32 || D == 64) ? 4 : SEG ? 2 : 3;  // stages
+  static constexpr int QT = ROWS * D * 2;  // the Q (or dO) tile (a plane)
   static constexpr int KV = KN * D * 2;    // a K (or V) tile (a plane)
   static constexpr int do_off = PL * QT;
   static constexpr int st_off = 2 * PL * QT;
@@ -254,6 +272,30 @@ __device__ __forceinline__ void qk32_issue_f32(float (&s)[16], uint32_t q,
   qk32_issue<D, true>(s, q, k, wg);
 }
 
+// S (or dP) [64 x 16] = Q · Kᵀ of the W1 build (64-row Q tile, 16-key K
+// tile, d = 256) on one plane of each, as wgmma m64n16k16; the split form
+// lo·hi + hi·lo + hi·hi.
+template <bool ACC>
+__device__ __forceinline__ void qk16_issue(float (&s)[8], uint32_t q,
+                                           uint32_t k) {
+#pragma unroll
+  for (int sl = 0; sl < 4; ++sl) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_ss_bf16_n16(s, make_desc(q + sl * 64 * 128 + kk * 32, 16, 1024, 1),
+                        make_desc(k + sl * 16 * 128 + kk * 32, 16, 1024, 1),
+                        ACC || sl + kk > 0);
+    }
+  }
+}
+
+__device__ __forceinline__ void qk16_issue_f32(float (&s)[8], uint32_t q,
+                                               uint32_t k) {
+  qk16_issue<false>(s, q + 64 * 256 * 2, k);
+  qk16_issue<true>(s, q, k + 16 * 256 * 2);
+  qk16_issue<true>(s, q, k);
+}
+
 template <int D, bool SEG, bool F32>
 __global__ void __launch_bounds__(NTHREADS, 1)
     flash_bwd_q_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -287,7 +329,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       // the TMA issue, and with SEG the 32 lanes of the id loads; under
       // F32 the producer warpgroup's 128 threads
       mbar_init(full + 8 * s, F32 ? 128 : SEG ? 33 : 1);
-      mbar_init(empty + 8 * s, 8);  // lane 0 of each consumer warp
+      mbar_init(empty + 8 * s, 4 * L::NWG);  // lane 0 of each consumer warp
     }
     mbar_init(q_bar, F32 ? 128 : 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -304,9 +346,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     if (n <= 0) return;
     const int pt = threadIdx.x - 2 * 128;
     const long long* fs = f.st;
-    split_rows<D, 128>(smem, smem + L::QT, BM, f.p[0] + b * fs[0], fs[1],
-                       fs[2], h0, a.Gp, a.R, q0, a.Nq, pt);
-    split_rows<D, 128>(smem + L::do_off, smem + L::do_off + L::QT, BM,
+    split_rows<D, 128>(smem, smem + L::QT, L::ROWS, f.p[0] + b * fs[0],
+                       fs[1], fs[2], h0, a.Gp, a.R, q0, a.Nq, pt);
+    split_rows<D, 128>(smem + L::do_off, smem + L::do_off + L::QT, L::ROWS,
                        f.p[3] + b * fs[9], fs[10], fs[11], h0, a.Gp, a.R, q0,
                        a.Nq, pt);
     fence_proxy_async();
@@ -371,7 +413,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     return;
   }
 
-  // two consumer warpgroups, 64 query rows each
+  // two consumer warpgroups, 64 query rows each (one under W1)
+  if (wg >= L::NWG) return;
   if (F32) {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
   } else {
@@ -399,7 +442,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     qseg[hr] = SEG && ok ? a.q_seg[(long long)b * a.Nq + p] : -1;
   }
   // this warpgroup's positions, for the unmasked-step test
-  const int w_lo = a.R == BM ? q0 + 64 * wg : q0;
+  const int w_lo = a.R == L::ROWS ? q0 + 64 * wg : q0;
   const int w_hi = min(w_lo + min(a.R, 64), a.Nq) - 1;
 
   float dq[SLABS][32];
@@ -430,7 +473,11 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       // P while dP is on the tensor cores
       float s_acc[NS], dp_acc[NS];
       wgmma_fence();
-      if constexpr (F32) {
+      if constexpr (L::W1) {
+        qk16_issue_f32(s_acc, q_tile, k_tile);
+        wgmma_commit();
+        qk16_issue_f32(dp_acc, do_tile, v_tile);
+      } else if constexpr (F32) {
         qk32_issue_f32<D>(s_acc, q_tile, k_tile, wg);
         wgmma_commit();
         qk32_issue_f32<D>(dp_acc, do_tile, v_tile, wg);
@@ -527,7 +574,7 @@ cudaError_t launch(const CUtensorMap (&m)[4], const DqArgs& a,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Nq + a.R - 1) / a.R, a.H / a.Gp, B);
+  const dim3 grid((a.Nq + a.R - 1) / a.R, a.H / a.Gp, B);  // R: ROWS / Gp
   kernel<<<grid, NTHREADS, smem, stream>>>(m[0], m[1], m[2], m[3], a, f);
   return cudaGetLastError();
 }
@@ -574,7 +621,7 @@ extern "C" int cfa_flash_bwd_q(const void* q, const void* k, const void* v,
   a.H = H; a.Nq = Nq; a.Nk = Nk;
   a.G = H / Hkv;
   a.Gp = cfa_bound::packed_heads(a.G);
-  a.R = BM / a.Gp;
+  a.R = (f32 && D == 256 ? 64 : BM) / a.Gp;  // Layout::ROWS / Gp
   a.scale_log2e = (float)(scale * kLog2e);
   a.scale = (float)scale;
   a.causal = causal;
@@ -611,8 +658,8 @@ extern "C" int cfa_flash_bwd_q(const void* q, const void* k, const void* v,
     case 128:
       return f32 ? launch_form<128, true>(m, a, f, B, st)
                  : launch_form<128, false>(m, a, f, B, st);
-    case 256:  // bf16 only
-      return f32 ? cudaErrorInvalidValue
+    case 256:
+      return f32 ? launch_form<256, true>(m, a, f, B, st)
                  : launch_form<256, false>(m, a, f, B, st);
     default:
       return cudaErrorInvalidValue;

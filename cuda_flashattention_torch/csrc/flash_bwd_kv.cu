@@ -78,7 +78,7 @@
 // atomics from the registers, the staging tiles of the TMA reduce not
 // fitting (225 KB); at d = 64 it keeps both stages and the TMA reduce.
 //
-// The d = 256 build (bf16 only). Kept as at d = 128, a 128-key CTA would
+// The d = 256 builds. Kept as at d = 128, a 128-key CTA would
 // hold dK and dV in 256 fp32 registers a thread (past the 255 a thread
 // has) and K, V, a Q + dO stage, the dS and staging tiles in ~390 KB. So:
 //   - A CTA owns 64 keys (K + V 64 KB), and the two warpgroups split the
@@ -99,6 +99,29 @@
 // KB, NST = 2 stages of Q, dO (64 KB) and the rows: 219 KB of 227 KB (K2
 // 211 KB); registers per consumer thread: dK and dV 128 (64 keys x 128
 // columns each), Sᵀ and dPᵀ 32, dQ 64 (live after Sᵀ and dPᵀ are spent).
+//
+// The F32 build at d = 256 (wide_f32_consumer). Split K + V of a 64-key CTA
+// take 128 KB, and a 64-row split Q + dO stage another 128 KB: 256 KB, past
+// the 232,448 bytes. So a stage streams 32 query rows (QR; 64 KB split),
+// and there is one stage:
+//   - Each warpgroup computes Sᵀ and dPᵀ for the CTA's 64 keys over its 16
+//     of the tile's 32 query columns (wgmma m64n16, keys as M), P and dS in
+//     registers, split, and stores Pᵀ and dSᵀ (keys x queries, hi in
+//     query columns 0-31 and lo in 32-63 of one 128 B swizzled 64 x 64
+//     tile) and, in K4, dS (queries x keys: the hi rows 0-31, lo rows
+//     32-63) with stmatrix.
+//   - Then each owns 128 of the 256 columns: dV += Pᵀ·dO and dK += dSᵀ·Q
+//     over the tile's 32 queries (two k16 steps, three wgmmas each), and
+//     K4's dQ as dQᵀ = Kᵀ·dSᵀ over the CTA's 64 keys, M = its two
+//     64-column slabs of d (K MN-major as A, dS K-major as B; a 32-row dQ
+//     tile is below wgmma's M of 64), added into dq_acc by 4-byte atomics.
+//   - With one stage the producer's split of the next Q / dO tile waits
+//     for the consumers to release this one.
+// Budget: shared memory split K and V 128 KB, Pᵀ, dSᵀ and (K4) dS 24 KB
+// (8 KB each, both planes), one stage of split Q and dO (64 KB) and the
+// rows: 218 KB of 227 KB (K2 210 KB); registers per consumer thread: dK and
+// dV 128, Sᵀ and dPᵀ 16, dQᵀ 32 (64-column slabs x 32 queries, two slabs),
+// within setmaxnreg's 232.
 
 #include <math.h>
 
@@ -125,6 +148,7 @@ using cfa_bound::swz;
 using cfa_bound::tma_load_4d;
 using cfa_bound::wgmma_commit;
 using cfa_bound::wgmma_fence;
+using cfa_bound::wgmma_ss_bf16_n16;
 using cfa_bound::wgmma_ss_bf16_n32;
 using cfa_bound::wgmma_wait_all;
 using cfa_bound::wgmma_wait_one;
@@ -133,6 +157,7 @@ constexpr double kLog2e = 1.4426950408889634;
 constexpr int BK = 128;        // keys of a CTA (two warpgroups of 64)
 constexpr int BK_WIDE = 64;    // keys of a CTA at d = 256
 constexpr int BQ = 64;         // query rows of a streamed tile
+constexpr int BQ_WIDE_F32 = 32;  // of a streamed tile in the F32 d = 256 build
 constexpr int NTHREADS = 384;  // two consumer warpgroups and the producer's
 static_assert(BK == cfa_bound::BM && BQ == cfa_bound::BN,
               "the forward's qk_issue / pv_issue tile shapes");
@@ -162,18 +187,20 @@ struct BwdArgs {
 // 128 one stage and dQ added by vector atomics from the registers
 // (130 + 32 + 65 KB of the 227). At d = 256 (WIDE) K and V hold 64 keys,
 // and the dS tiles are the Pᵀ, dSᵀ and (K4) dS tiles of 64 x 64, in that
-// order; dQ goes by atomics.
+// order; dQ goes by atomics. Under F32 at d = 256 a stage holds QR = 32
+// query rows and each of those three tiles holds both planes of a 32-wide
+// tile (hi then lo, in columns or rows); one stage: 218 KB.
 template <int D, bool FUSED, bool F32>
 struct Layout {
   static constexpr bool WIDE = D == 256;
-  static_assert(!(WIDE && F32), "no fp32 build at d = 256");
   static constexpr int KB = WIDE ? BK_WIDE : BK;  // keys of a CTA
+  static constexpr int QR = WIDE && F32 ? BQ_WIDE_F32 : BQ;  // rows a stage
   static constexpr int PL = F32 ? 2 : 1;  // planes of a tile: hi (and lo)
-  static constexpr int NST = F32 && D == 128 ? 1 : 2;  // Q/dO stages
+  static constexpr int NST = F32 && D >= 128 ? 1 : 2;  // Q/dO stages
   static constexpr int NDS = F32 ? 1 : 2;              // dS tiles
   static constexpr bool RED = !WIDE && (!F32 || D == 64);  // dQ by TMA
   static constexpr int KV = KB * D * 2;  // a bf16 K or V tile (or plane)
-  static constexpr int QT = BQ * D * 2;
+  static constexpr int QT = QR * D * 2;
   static constexpr int DS = BQ * KB * 2;
   static constexpr int k_off = 0;
   static constexpr int v_off = PL * KV;
@@ -186,7 +213,7 @@ struct Layout {
   static constexpr int stg_off = ds_off + NT * DS;
   static constexpr int st_off = stg_off + (FUSED && RED ? 2 * STG : 0);
   static constexpr int rows_off = 2 * PL * QT;  // within a stage
-  static constexpr int stage = cfa_bound::align1k(rows_off + 3 * BQ * 4);
+  static constexpr int stage = cfa_bound::align1k(rows_off + 3 * QR * 4);
   static constexpr int bar_off = st_off + NST * stage;
   static constexpr int bytes = bar_off + 8 * (2 * NST + 1) + 1024;
   static_assert(bytes <= 232448, "the CTA's shared memory");
@@ -201,6 +228,20 @@ __device__ __forceinline__ void wgmma_ss_bf16_tb(float (&d)[32], uint64_t da,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " CFA_REGS32
       ", %32, %33, p, 1, 1, 0, 1;\n}\n"
       : CFA_D32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64x32] (+)= A[64x16] · B[16x32], bf16 from shared memory: A MN-major,
+// B K-major (the F32 d = 256 build's dQᵀ = Kᵀ·dSᵀ: A is K's tile as it
+// lies, keys the reduction).
+__device__ __forceinline__ void wgmma_ss_bf16_n32_ta(float (&d)[16],
+                                                     uint64_t da, uint64_t db,
+                                                     int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " CFA_REGS16
+      ", %16, %17, p, 1, 1, 1, 0;\n}\n"
+      : CFA_D16(d)
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -236,36 +277,37 @@ __device__ __forceinline__ void cta_tile(const BwdArgs& a, int& kt, int& hk,
   b = rest / a.Hkv;
 }
 
-// The Q tiles [first, last] that can see keys c0 .. c0 + KB − 1
+// The Q tiles [first, last] of QR rows that can see keys c0 .. c0 + KB − 1
 // (ops/flash_bwd.py::_bwd_q_tiles states the same walk): causal rows see
 // keys <= row + kv_offset, so none when the first row that sees key c0
 // lies past Nq; with a window the last row that reaches the tile's last
 // key is that key − kv_offset + window − 1.
-template <int KB>
+template <int KB, int QR>
 __device__ __forceinline__ void q_tiles(const BwdArgs& a, int c0, int& first,
                                         int& last) {
   first = 0;
-  last = (a.Nq + BQ - 1) / BQ - 1;
+  last = (a.Nq + QR - 1) / QR - 1;
   if (a.causal) {
     const int row0 = max(0, c0 - a.kv_offset);
-    first = row0 / BQ;
+    first = row0 / QR;
     if (row0 >= a.Nq) last = -1;
     if (a.window > 0) {
       const int last_row = min(a.Nk, c0 + KB) - 2 + a.window - a.kv_offset;
-      last = last_row < 0 ? -1 : min(last, last_row / BQ);
+      last = last_row < 0 ? -1 : min(last, last_row / QR);
     }
   }
 }
 
-// Whether every (key of this warpgroup's 64 at kc0, query of the tile at
-// q0) pair is visible, so that the element mask can be skipped (rows past
-// Nq have LSE +inf: their P is 0 either way).
+// Whether every (key of the 64 at kc0, query of the QN at q0) pair is
+// visible, so that the element mask can be skipped (rows past Nq have LSE
+// +inf: their P is 0 either way).
+template <int QN = BQ>
 __device__ __forceinline__ bool interior(const BwdArgs& a, int kc0, int q0,
                                          int window) {
   if (kc0 + 64 > a.Nk) return false;
   if (a.causal) {
     if (kc0 + 63 > q0 + a.kv_offset) return false;
-    if (window > 0 && kc0 <= q0 + BQ - 1 + a.kv_offset - window) return false;
+    if (window > 0 && kc0 <= q0 + QN - 1 + a.kv_offset - window) return false;
   }
   return true;
 }
@@ -612,6 +654,227 @@ __device__ __forceinline__ void wide_consumer(const BwdArgs& a, uint8_t* smem,
   store_kv<256, false, 2>(a.dv, dv, kr, a.Nk, kv_base, 128 * wg);
 }
 
+// Sᵀ[64 keys x 16 queries] (+)= K·Qᵀ at d = 256 on one plane of each: k the
+// 64-key K (or V) tile, q the first of 16 rows of a 32-row Q (or dO) tile,
+// both K-major in four 64-column slabs.
+template <bool ACC>
+__device__ __forceinline__ void kq16_issue(float (&s)[8], uint32_t k,
+                                           uint32_t q) {
+#pragma unroll
+  for (int sl = 0; sl < 4; ++sl) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_ss_bf16_n16(
+          s, make_desc(k + sl * BK_WIDE * 128 + kk * 32, 16, 1024, 1),
+          make_desc(q + sl * BQ_WIDE_F32 * 128 + kk * 32, 16, 1024, 1),
+          ACC || sl + kk > 0);
+    }
+  }
+}
+
+// The same on split tiles: K_lo·Qᵀ + K·Q_loᵀ + K·Qᵀ (each lo plane right
+// after its hi plane).
+__device__ __forceinline__ void kq16_issue_f32(float (&s)[8], uint32_t k,
+                                               uint32_t q) {
+  constexpr int KV = BK_WIDE * 256 * 2, QT = BQ_WIDE_F32 * 256 * 2;
+  kq16_issue<false>(s, k + KV, q);
+  kq16_issue<true>(s, k, q + QT);
+  kq16_issue<true>(s, k, q);
+}
+
+// The F32 d = 256 build's consumer warpgroups: both hold the CTA's 64 keys.
+// Per (query head, 32-row Q tile) pair warpgroup wg computes Sᵀ and dPᵀ
+// over the tile's query columns 16·wg .. 16·wg + 15, P and dS split, and
+// stores its columns of Pᵀ, dSᵀ and (K4) dS; then, the tiles whole, dV and
+// dK over its 128 columns 128·wg .. and K4's dQᵀ over the same columns.
+template <bool FUSED, bool SEG>
+__device__ __forceinline__ void wide_f32_consumer(
+    const BwdArgs& a, uint8_t* smem, uint32_t full, uint32_t empty,
+    uint32_t kv_bar, int c0, int hk, int b, int G, int first, int per_head) {
+  using L = Layout<256, FUSED, true>;
+  static_assert(L::NST == 1 && L::QR == 32, "one stage of 32 rows");
+  constexpr int QR = L::QR;
+  const uint32_t base = smem_u32(smem);
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x & 31;
+  const int wp = (threadIdx.x >> 5) & 3;
+  const int window = a.causal ? a.window : 0;
+  int kr[2], kseg[2] = {0, 0};  // the thread's key rows and their ids
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    kr[hr] = c0 + 16 * wp + (lane >> 2) + 8 * hr;
+    if (SEG) {
+      kseg[hr] = kr[hr] < a.Nk ? a.kv_seg[(long long)b * a.Nk + kr[hr]] : -2;
+    }
+  }
+  float dk[2][32], dv[2][32];
+#pragma unroll
+  for (int sl = 0; sl < 2; ++sl) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      dk[sl][j] = 0.f;
+      dv[sl][j] = 0.f;
+    }
+  }
+  const uint32_t k_tile = base + L::k_off;
+  const uint32_t v_tile = base + L::v_off;
+  const uint32_t pt_tile = base + L::pt_off;
+  const uint32_t dst_tile = base + L::dst_off;
+  const uint32_t ds_tile = base + L::dsw_off;
+  const uint32_t q_tile = base + L::st_off;
+  const uint32_t do_tile = q_tile + 2 * L::QT;
+  const float* rows =
+      reinterpret_cast<const float*>(smem + L::st_off + L::rows_off);
+  const int qc = 16 * wg;  // this warpgroup's first query column
+  if (per_head > 0) mbar_wait(kv_bar, 0);
+
+  int i = 0;
+  for (int g = 0; g < G; ++g) {
+    const int h = hk * G + g;
+    for (int it = first; it < first + per_head; ++it, ++i) {
+      const int q0 = it * QR;
+      mbar_wait(full, i & 1);
+
+      // Sᵀ = K·Qᵀ, then dPᵀ = V·dOᵀ, over this warpgroup's 16 query
+      // columns; P while dPᵀ is on the tensor cores
+      float s_acc[8], dp_acc[8];
+      wgmma_fence();
+      kq16_issue_f32(s_acc, k_tile, q_tile + qc * 128);
+      wgmma_commit();
+      kq16_issue_f32(dp_acc, v_tile, do_tile + qc * 128);
+      wgmma_commit();
+      wgmma_wait_one();
+      float p[8];
+      copy_after_wait(p, s_acc);
+      if (!SEG && interior<16>(a, c0, q0 + qc, window)) {
+        probs<false, false, 8>(a, p, rows + qc, nullptr, kr, kseg, q0 + qc,
+                               window);
+      } else {
+        probs<true, SEG, 8>(
+            a, p, rows + qc, reinterpret_cast<const int*>(rows) + 2 * QR + qc,
+            kr, kseg, q0 + qc, window);
+      }
+      wgmma_wait_all();
+      float dp[8];
+      copy_after_wait(dp, dp_acc);
+
+      // dS = P ⊙ (dP − D)·scale; P and dS split into bf16 pairs in the
+      // accumulator layout (pair 2·c + hr: key row hr, query columns
+      // qc + 8·c + 2·(lane & 3))
+      uint32_t pk[4], pk_lo[4], dsk[4], dsk_lo[4];
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        const int col = qc + 8 * (j >> 2) + 2 * (lane & 3);
+        const float2 dl = *reinterpret_cast<const float2*>(rows + QR + col);
+        split2(p[j], p[j + 1], pk[j >> 1], pk_lo[j >> 1]);
+        split2(p[j] * (dp[j] - dl.x) * a.scale,
+               p[j + 1] * (dp[j + 1] - dl.y) * a.scale, dsk[j >> 1],
+               dsk_lo[j >> 1]);
+      }
+      // the tiles are free once both warpgroups' products of the previous
+      // pair have landed
+      consumer_sync();
+      // Pᵀ and dSᵀ (key rows; hi in query chunks 0-3, lo in 4-7): matrix m
+      // of a stmatrix is key rows 16·warp + 8·(m & 1), query chunk qc / 8 +
+      // (m >> 1); dS (query rows, hi 0-31 and lo 32-63; key columns) the
+      // same matrices transposed
+      const int m = lane >> 3;
+      const int kt_row = 16 * wp + 8 * (m & 1) + (lane & 7);
+      const uint32_t at_hi = swz(kt_row, qc / 8 + (m >> 1), 128);
+      const uint32_t at_lo = swz(kt_row, 4 + qc / 8 + (m >> 1), 128);
+      stmatrix_x4(pt_tile + at_hi, pk[0], pk[1], pk[2], pk[3]);
+      stmatrix_x4(pt_tile + at_lo, pk_lo[0], pk_lo[1], pk_lo[2], pk_lo[3]);
+      stmatrix_x4(dst_tile + at_hi, dsk[0], dsk[1], dsk[2], dsk[3]);
+      stmatrix_x4(dst_tile + at_lo, dsk_lo[0], dsk_lo[1], dsk_lo[2],
+                  dsk_lo[3]);
+      if (FUSED) {
+        const uint32_t at =
+            swz(qc + 8 * (m >> 1) + (lane & 7), 2 * wp + (m & 1), 128);
+        stmatrix_x4_trans(ds_tile + at, dsk[0], dsk[1], dsk[2], dsk[3]);
+        stmatrix_x4_trans(ds_tile + QR * 128 + at, dsk_lo[0], dsk_lo[1],
+                          dsk_lo[2], dsk_lo[3]);
+      }
+      fence_proxy_async();
+      consumer_sync();
+
+      // dV += Pᵀ·dO and dK += dSᵀ·Q over this warpgroup's columns (slabs
+      // 2·wg, 2·wg + 1 of dO and Q, MN-major; the 32 queries in two k16
+      // steps), and K4's dQᵀ = Kᵀ·dSᵀ over the same columns of K; each
+      // product lo·hi + hi·lo + hi·hi
+      float dqt[2][16];
+      wgmma_fence();
+#pragma unroll
+      for (int sl = 0; sl < 2; ++sl) {
+        const int slab = 2 * wg + sl;
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          const uint64_t p_hi = make_desc(pt_tile + kk * 32, 16, 1024, 1);
+          const uint64_t p_lo = make_desc(pt_tile + 64 + kk * 32, 16, 1024, 1);
+          const uint64_t s_hi = make_desc(dst_tile + kk * 32, 16, 1024, 1);
+          const uint64_t s_lo =
+              make_desc(dst_tile + 64 + kk * 32, 16, 1024, 1);
+          const uint32_t dob = do_tile + slab * QR * 128 + kk * 2048;
+          const uint32_t qb = q_tile + slab * QR * 128 + kk * 2048;
+          wgmma_ss_bf16_tb(dv[sl], p_lo, make_desc(dob, 1024, 1024, 1), 1);
+          wgmma_ss_bf16_tb(dv[sl], p_hi,
+                           make_desc(dob + L::QT, 1024, 1024, 1), 1);
+          wgmma_ss_bf16_tb(dv[sl], p_hi, make_desc(dob, 1024, 1024, 1), 1);
+          wgmma_ss_bf16_tb(dk[sl], s_lo, make_desc(qb, 1024, 1024, 1), 1);
+          wgmma_ss_bf16_tb(dk[sl], s_hi, make_desc(qb + L::QT, 1024, 1024, 1),
+                           1);
+          wgmma_ss_bf16_tb(dk[sl], s_hi, make_desc(qb, 1024, 1024, 1), 1);
+        }
+        if (FUSED) {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint32_t kb = k_tile + slab * L::KB * 128 + kk * 2048;
+            const uint64_t d_hi = make_desc(ds_tile + kk * 32, 16, 1024, 1);
+            const uint64_t d_lo =
+                make_desc(ds_tile + QR * 128 + kk * 32, 16, 1024, 1);
+            wgmma_ss_bf16_n32_ta(dqt[sl],
+                                 make_desc(kb + L::KV, 1024, 1024, 1), d_hi,
+                                 kk > 0);
+            wgmma_ss_bf16_n32_ta(dqt[sl], make_desc(kb, 1024, 1024, 1), d_lo,
+                                 1);
+            wgmma_ss_bf16_n32_ta(dqt[sl], make_desc(kb, 1024, 1024, 1), d_hi,
+                                 1);
+          }
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int sl = 0; sl < 2; ++sl) {
+        fence_regs(dk[sl]);
+        fence_regs(dv[sl]);
+        if (FUSED) fence_regs(dqt[sl]);
+      }
+      // Q, dO and the rows are read
+      if (lane == 0) mbar_arrive(empty);
+      if (FUSED) {
+        // dQᵀ element j of slab sl: column 64·(2·wg + sl) + the thread's
+        // row, query q0 + its column
+        const long long row_base = (long long)(b * a.H + h) * a.Nq;
+#pragma unroll
+        for (int sl = 0; sl < 2; ++sl) {
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int q = q0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+            const int col =
+                64 * (2 * wg + sl) + 16 * wp + (lane >> 2) + 8 * ((j >> 1) & 1);
+            if (q < a.Nq) atomicAdd(a.dq_acc + (row_base + q) * 256 + col,
+                                    dqt[sl][j]);
+          }
+        }
+      }
+    }
+  }
+  // dK, dV stored fp32 once; a key tile that no query sees writes its zeros
+  const long long kv_base = (long long)(b * a.Hkv + hk) * a.Nk;
+  store_kv<256, true, 2>(a.dk, dk, kr, a.Nk, kv_base, 128 * wg);
+  store_kv<256, true, 2>(a.dv, dv, kr, a.Nk, kv_base, 128 * wg);
+}
+
 // K2 (FUSED = false) and K4 (FUSED = true); F32: fp32 Q, K, V, dO read
 // through f and split by the producer warpgroup, dK and dV stored fp32.
 template <int D, bool FUSED, bool SEG, bool F32>
@@ -637,8 +900,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   cta_tile(a, kt, hk, b);
   const int c0 = kt * KB;
   const int G = a.H / a.Hkv;
+  constexpr int QR = L::QR;
   int first, last;
-  q_tiles<KB>(a, c0, first, last);
+  q_tiles<KB, QR>(a, c0, first, last);
   const int per_head = max(0, last - first + 1);
 
   if (threadIdx.x == 0) {
@@ -669,11 +933,11 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     constexpr int NL = F32 ? 128 : 32;
     const long long* fs = f.st;
     if (F32 && per_head > 0) {
-      split_rows<D, 128>(smem + L::k_off, smem + L::k_off + L::KV, BK,
-                         f.p[1] + b * fs[3], fs[4], fs[5], hk, 1, BK, c0,
+      split_rows<D, 128>(smem + L::k_off, smem + L::k_off + L::KV, KB,
+                         f.p[1] + b * fs[3], fs[4], fs[5], hk, 1, KB, c0,
                          a.Nk, pt);
-      split_rows<D, 128>(smem + L::v_off, smem + L::v_off + L::KV, BK,
-                         f.p[2] + b * fs[6], fs[7], fs[8], hk, 1, BK, c0,
+      split_rows<D, 128>(smem + L::v_off, smem + L::v_off + L::KV, KB,
+                         f.p[2] + b * fs[6], fs[7], fs[8], hk, 1, KB, c0,
                          a.Nk, pt);
       fence_proxy_async();
       mbar_arrive(kv_bar);
@@ -692,15 +956,15 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       const long long row_base = (long long)(b * a.H + h) * a.Nq;
       for (int it = first; it < first + per_head; ++it, ++i) {
         const int st = i % NST;
-        const int q0 = it * BQ;
+        const int q0 = it * QR;
         mbar_wait(empty + 8 * st, ((i / NST) & 1) ^ 1);
         const uint32_t dst = base + L::st_off + st * L::stage;
         if (F32) {
           uint8_t* stage = smem + L::st_off + st * L::stage;
-          split_rows<D, 128>(stage, stage + L::QT, BQ, f.p[0] + b * fs[0],
-                             fs[1], fs[2], h, 1, BQ, q0, a.Nq, pt);
-          split_rows<D, 128>(stage + 2 * L::QT, stage + 3 * L::QT, BQ,
-                             f.p[3] + b * fs[9], fs[10], fs[11], h, 1, BQ, q0,
+          split_rows<D, 128>(stage, stage + L::QT, QR, f.p[0] + b * fs[0],
+                             fs[1], fs[2], h, 1, QR, q0, a.Nq, pt);
+          split_rows<D, 128>(stage + 2 * L::QT, stage + 3 * L::QT, QR,
+                             f.p[3] + b * fs[9], fs[10], fs[11], h, 1, QR, q0,
                              a.Nq, pt);
         } else if (lane == 0) {
           mbar_expect_tx(full + 8 * st, 2 * L::QT);
@@ -715,13 +979,13 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         // no key, so that its P is 0), D, segment ids (-1 past Nq)
         float* rows = reinterpret_cast<float*>(smem + L::st_off +
                                                st * L::stage + L::rows_off);
-        for (int r = pt; r < BQ; r += NL) {
+        for (int r = pt; r < QR; r += NL) {
           const int qi = q0 + r;
           const float l = qi < a.Nq ? a.lse[row_base + qi] : kNegInf;
           rows[r] = l < kNegInf * 0.5f ? INFINITY : l * (float)kLog2e;
-          rows[BQ + r] = qi < a.Nq ? a.delta[row_base + qi] : 0.f;
+          rows[QR + r] = qi < a.Nq ? a.delta[row_base + qi] : 0.f;
           if (SEG) {
-            reinterpret_cast<int*>(rows)[2 * BQ + r] =
+            reinterpret_cast<int*>(rows)[2 * QR + r] =
                 qi < a.Nq ? a.q_seg[(long long)b * a.Nq + qi] : -1;
           }
         }
@@ -733,13 +997,17 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
 
   // two consumer warpgroups, 64 keys each (at d = 256 both on the CTA's
-  // 64 keys, wide_consumer)
+  // 64 keys, wide_consumer and wide_f32_consumer)
   if (F32) {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
   }
-  if constexpr (L::WIDE) {
+  if constexpr (L::WIDE && F32) {
+    wide_f32_consumer<FUSED, SEG>(a, smem, full, empty, kv_bar, c0, hk, b, G,
+                                  first, per_head);
+    return;
+  } else if constexpr (L::WIDE) {
     wide_consumer<FUSED, SEG>(a, smem, full, empty, kv_bar, c0, hk, b, G,
                               first, per_head);
     return;
@@ -1043,8 +1311,8 @@ extern "C" int cfa_flash_bwd_kv(const void* q, const void* k, const void* v,
     case 128:
       return f32 ? launch_form<128, true>(m, a, f, st)
                  : launch_form<128, false>(m, a, f, st);
-    case 256:  // bf16 only
-      return f32 ? cudaErrorInvalidValue
+    case 256:
+      return f32 ? launch_form<256, true>(m, a, f, st)
                  : launch_form<256, false>(m, a, f, st);
     default:
       return cudaErrorInvalidValue;

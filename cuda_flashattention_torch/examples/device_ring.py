@@ -1,10 +1,12 @@
 """Ladder stage: the device-initiated ring exchange.
 
     python -m cuda_flashattention_torch.examples.device_ring [--ranks N]
+                                                             [--width D]
                                                              [--cpu]
 
 Counterpart of examples/07_device_ring.py. Every rank of a ring holds a
-shard x_i [L, d] (L = 1024, d = 128, bf16); the ring rotates the shards
+shard x_i [L, d] (L = 1024, d = 128 or `--width`, any d up to 256, bf16);
+the ring rotates the shards
 while each rank accumulates o = (Σ_i x_i) @ W. Two rings run on the same
 inputs: `device_ring_matmul`, whose CUDA kernel pushes the shards and
 orders the steps itself (csrc/device_ring.cu), and `ring_matmul_plain`,
@@ -42,6 +44,9 @@ def main(argv=None) -> int:
     ap.add_argument("--ranks", type=int, default=None,
                     help="ranks of the ring (default: one per visible "
                          "card, or 4 sharing a single card)")
+    ap.add_argument("--width", type=int, default=WIDTH,
+                    help=f"d of the shards and of W (default {WIDTH}; the "
+                         f"card takes any d up to 256)")
     ap.add_argument("--cpu", action="store_true",
                     help="run on CPU tensors (the plain version)")
     args = ap.parse_args(argv)
@@ -62,20 +67,21 @@ def main(argv=None) -> int:
     mesh = make_mesh((n,), ("sp",), devices)
     dev = mesh.device(0)
 
+    width = args.width
     rng = np.random.default_rng(0)
-    x = torch.from_numpy(rng.uniform(-0.5, 0.5, (n * SHARD_ROWS, WIDTH))
+    x = torch.from_numpy(rng.uniform(-0.5, 0.5, (n * SHARD_ROWS, width))
                          .astype(np.float32)).to(dev, torch.bfloat16)
-    w = torch.from_numpy(rng.uniform(-0.5, 0.5, (WIDTH, WIDTH))
+    w = torch.from_numpy(rng.uniform(-0.5, 0.5, (width, width))
                          .astype(np.float32)).to(dev, torch.bfloat16)
 
     o_dev = device_ring_matmul(x, w, mesh)
     o_plain = ring_matmul_plain(x, w, mesh)
-    ref = (x.float().view(n, SHARD_ROWS, WIDTH).sum(0) @ w.float()).repeat(
+    ref = (x.float().view(n, SHARD_ROWS, width).sum(0) @ w.float()).repeat(
         n, 1)
     d_dev = (o_dev - ref).abs().max().item()
     d_plain = (o_plain - ref).abs().max().item()
-    print(f"devices={n} ({where})  device-ring diff vs ref: {d_dev:.2e}   "
-          f"plain-ring diff: {d_plain:.2e}")
+    print(f"devices={n} ({where}) d={width}  device-ring diff vs ref: "
+          f"{d_dev:.2e}   plain-ring diff: {d_plain:.2e}")
 
     def sync():
         for d in mesh.distinct_devices():

@@ -25,16 +25,17 @@ import torch
 # inf - inf = nan in the running-max updates. Empty rows report it as LSE.
 NEG_INF = -1e30
 
-# Head dims the CUDA kernels are instantiated for, by family: the forward
-# (K1, K1b, K5: csrc/flash_fwd*.cu); the backward (K2, K3, K4 and its
-# prologue; 256 for bf16 only); FA1 (K8: csrc/fa1.cu); the device ring
-# (K9); decode (K6, K7: csrc/decode_body.cuh), which reads any d up to its
-# largest build in place on the next build up. The forward, backward and
-# FA1 families run a narrower d on zero-padded heads (`pad_heads`).
+# Head dims the CUDA kernels are instantiated for, by family, each in bf16
+# and fp32: the forward (K1, K1b, K5: csrc/flash_fwd*.cu); the backward
+# (K2, K3, K4 and its prologue); FA1 (K8: csrc/fa1.cu); the device ring
+# (K9: csrc/device_ring.cu); decode (K6, K7: csrc/decode_body.cuh), which
+# reads any d up to its largest build in place on the next build up. The
+# forward, backward, FA1 and ring families run a narrower d on zero-padded
+# heads (`pad_heads`; the ring pads its own x and W).
 FWD_HEAD_DIMS = (64, 128, 256)
 BWD_HEAD_DIMS = (64, 128, 256)
 FA1_HEAD_DIMS = (64, 128, 256)
-KERNEL_HEAD_DIMS = (64, 128)
+RING_HEAD_DIMS = (64, 128, 256)
 DECODE_HEAD_DIMS = (16, 32, 64, 128, 256)
 # the head dims of the forward's fp32-Q builds (F32, BF16KV and over
 # one-byte K/V)
@@ -65,10 +66,12 @@ KMAJOR_MAX_SPAN = {64: 8, 128: 4, 256: 1}
 KMAJOR_MAX_SPAN_F32 = {64: 4, 128: 1, 256: 1}
 KMAJOR_MAX_SPAN_F32Q = {64: 8, 128: 3, 256: 1}
 # K2 and K4's pair (csrc/flash_bwd_kv.cu: 128-key CTAs stream 64-row Q
-# tiles; 64-key CTAs at d = 256); K3 runs at its own tile (128 rows, 64
-# keys; 32 in fp32 and at d = 256) under it
+# tiles; 64-key CTAs at d = 256, streaming 32-row tiles in fp32); K3 runs
+# at its own tile (128 rows, 64 keys; 32 in fp32 and at d = 256; 64 rows
+# and 16 keys in fp32 at d = 256) under it
 BWD_BLOCK_Q, BWD_BLOCK_K = 64, 128
 BWD_BLOCK_K_WIDE = 64
+BWD_BLOCK_Q_WIDE_F32 = 32
 # Below this many query rows "auto" keeps unquantized causal forwards on
 # the online softmax (K1), as the JAX function does; past it they take
 # the bound softmax on the K-major walk (K5).
@@ -97,7 +100,7 @@ def _kmajor_tiles(spans: Dict[int, int], ty: str,
 # block_k choices): the tiles each kernel is built for. The wrappers
 # validate a request against it; utils/autotune.py enumerates it. At d =
 # 256 the forward keeps 64-key tiles (32 for an fp32 Q over fp32 K/V), and
-# K2 / K4 have their bf16 builds only, 64-key CTAs.
+# K2 / K4 take 64-key CTAs (streaming 32-row Q tiles in fp32).
 BUILT_TILES: Dict[Tuple[str, str, int], Tuple[Tuple[int, ...],
                                               Tuple[int, ...]]] = {
     **{(kn, ty, d): ((FWD_BLOCK_Q,),
@@ -112,10 +115,11 @@ BUILT_TILES: Dict[Tuple[str, str, int], Tuple[Tuple[int, ...],
                          ("fp32/codes", KMAJOR_MAX_SPAN_F32Q),
                          ("fp32/bf16", KMAJOR_MAX_SPAN_F32Q))
        for d in spans},
-    **{(kn, ty, d): ((BWD_BLOCK_Q,),
+    **{(kn, ty, d): ((BWD_BLOCK_Q_WIDE_F32 if (ty, d) == ("fp32", 256)
+                      else BWD_BLOCK_Q,),
                      (BWD_BLOCK_K_WIDE if d == 256 else BWD_BLOCK_K,))
        for kn in ("K2", "K4") for ty in ("bf16", "fp32")
-       for d in BWD_HEAD_DIMS if d in KERNEL_HEAD_DIMS or ty == "bf16"},
+       for d in BWD_HEAD_DIMS},
 }
 
 
@@ -139,8 +143,8 @@ def built_tiles(kernel: str, ty: str,
                 d: int) -> Optional[Tuple[Tuple[int, ...], Tuple[int, ...]]]:
     """(block_q choices, block_k choices) of `kernel` over operands of type
     `ty` at head dim d (narrow heads run padded, `pad_heads`), or None
-    where no build takes that type at d (fp32 in the backward at d = 256:
-    the wrappers refuse such calls on the card)."""
+    where no build takes that type at d (a forward type the backward
+    never sees, or d past 256)."""
     return BUILT_TILES.get((kernel, ty, tile_dim(kernel, d)))
 
 
@@ -200,7 +204,8 @@ def check_tiles(kernel: str, ty: str, d: int, block_sizes, what: str,
 class BlockSizes:
     """Tile sizes of the attention kernels, under the JAX fields: the
     forward's query and key tiles, and the backward's (the 64-row Q tiles
-    that K2 / K4 stream past each 128-key CTA, 64-key at d = 256). The
+    that K2 / K4 stream past each 128-key CTA, 64-key at d = 256, where
+    the fp32 build streams 32-row tiles). The
     defaults are the card's default tiles; `BUILT_TILES` lists every other
     choice. On the card a tile is a template instance, not a run-time
     size: any built tile runs any problem size (the kernels mask the
@@ -299,7 +304,7 @@ def pad_heads(what: str, *xs: Optional[torch.Tensor],
     """A kernel family's head dim for these tensors (their last dim d,
     which they share) and the tensors as its kernels take them: d itself
     when a build has it (`dims`: the forward's `FWD_HEAD_DIMS`, the
-    backward's `BWD_HEAD_DIMS`, K8's and K9's `KERNEL_HEAD_DIMS`), with no
+    backward's `BWD_HEAD_DIMS`, K8's `FA1_HEAD_DIMS`), with no
     copy; else, for any d from 1 to the largest build, each tensor copied
     with zero columns up to the next build. Zero columns of Q and K add
     nothing to a score, nor to a row norm or an absmax; zero columns of V

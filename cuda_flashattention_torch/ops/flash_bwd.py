@@ -7,8 +7,9 @@ hand-written Hopper kernels: the fused single pass K4 (dK/dV per 128-key
 tile, dQ added into an fp32 buffer by TMA reduces) by default, or the
 split pair K2 (dK/dV) + K3 (dQ) with `fused=False`, on bf16 or fp32
 inputs (each kernel's fp32 build splits every tile into bf16 hi and lo
-parts) at d up to 128, and on bf16 inputs at d = 256 (64-key tiles, the
-two warpgroups splitting d; dQ added by atomics). K2 and K4 are one
+parts) at d up to 256 (at d = 256 64-key tiles, the two warpgroups
+splitting d, dQ added by atomics; in fp32 there K2 / K4 stream 32-row Q
+tiles and K3 walks 16-key tiles with 64-row CTAs). K2 and K4 are one
 wgmma + TMA kernel (csrc/flash_bwd_kv.cu), K3 the Q-major wgmma + TMA
 kernel of csrc/flash_bwd.cu. On a CPU tensor it runs
 `flash_attention_backward_plain`, a dense PyTorch version of the same
@@ -24,7 +25,8 @@ is the PyTorch reduction of `flash_attention_backward_plain`.
 Masks are the forward's: causal with `kv_offset`, a sliding `window`,
 segment ids and the ragged tail. `block_sizes` names the backward's
 tiles (`block_q_bwd`, `block_k_bwd`): K2 and K4 are built for (64, 128)
-only ((64, 64) at d = 256), and K3 runs at its own tile under that pair;
+only ((64, 64) at d = 256, (32, 64) there in fp32), and K3 runs at its
+own tile under that pair;
 any other pair runs at that one (`ops.common.check_tiles` logs the
 mapping once), as the JAX kernels take any tile.
 """
@@ -41,6 +43,7 @@ from cuda_flashattention_torch.ops.common import (
     BWD_BLOCK_K,
     BWD_BLOCK_K_WIDE,
     BWD_BLOCK_Q,
+    BWD_BLOCK_Q_WIDE_F32,
     BWD_HEAD_DIMS,
     NEG_INF,
     cdiv,
@@ -56,35 +59,44 @@ _LOG2E = 1.4426950408889634
 
 # K2/K4's tiles (csrc/flash_bwd_kv.cu): a CTA owns BK keys, two warpgroups
 # of 64 (64 keys, both warpgroups, at d = 256), and streams the query rows
-# that see them BQ at a time
+# that see them BQ at a time (32 in the fp32 d = 256 build)
 _BWD_BK = BWD_BLOCK_K
 _BWD_BQ = BWD_BLOCK_Q
 
 
 def _bwd_key_tile(d: int) -> int:
     """Keys of a K2/K4 CTA for a call of head dim d: 128, or 64 where the
-    call runs on the d = 256 build."""
+    call runs on a d = 256 build."""
     return BWD_BLOCK_K_WIDE if run_dim(d, BWD_HEAD_DIMS) == 256 else _BWD_BK
 
 
+def _bwd_q_tile(d: int, f32: bool = False) -> int:
+    """Query rows of a K2/K4 stage for a call of head dim d (`f32`: fp32
+    operands): 64, or 32 where an fp32 call runs on the d = 256 build."""
+    wide = run_dim(d, BWD_HEAD_DIMS) == 256
+    return BWD_BLOCK_Q_WIDE_F32 if f32 and wide else _BWD_BQ
+
+
 def _bwd_q_tiles(c0: int, nq: int, nk: int, causal: bool, window: int,
-                 kv_offset: int, bk: int = _BWD_BK) -> Tuple[int, int]:
-    """The Q tiles [first, last] that the K2/K4 CTA of the `bk`-key tile at
-    c0 walks (for each query head of its group), as the kernel's `q_tiles`
-    computes them: causal rows see keys <= row + kv_offset, so the first
-    tile holds row c0 − kv_offset (none when that row lies past nq); with
-    a window the last row that reaches the tile's last key is that key −
-    kv_offset + window − 1. Empty when first > last. Exactly the tiles
-    with a visible pair (segment ids aside, which mask inside the walk)."""
-    first, last = 0, cdiv(nq, _BWD_BQ) - 1
+                 kv_offset: int, bk: int = _BWD_BK,
+                 bq: int = _BWD_BQ) -> Tuple[int, int]:
+    """The `bq`-row Q tiles [first, last] that the K2/K4 CTA of the
+    `bk`-key tile at c0 walks (for each query head of its group), as the
+    kernel's `q_tiles` computes them: causal rows see keys <= row +
+    kv_offset, so the first tile holds row c0 − kv_offset (none when that
+    row lies past nq); with a window the last row that reaches the tile's
+    last key is that key − kv_offset + window − 1. Empty when first >
+    last. Exactly the tiles with a visible pair (segment ids aside, which
+    mask inside the walk)."""
+    first, last = 0, cdiv(nq, bq) - 1
     if causal:
         row0 = max(0, c0 - kv_offset)
-        first = row0 // _BWD_BQ
+        first = row0 // bq
         if row0 >= nq:
             last = -1
         if window > 0:
             last_row = min(nk, c0 + bk) - 2 + window - kv_offset
-            last = -1 if last_row < 0 else min(last, last_row // _BWD_BQ)
+            last = -1 if last_row < 0 else min(last, last_row // bq)
     return first, last
 
 
@@ -102,33 +114,47 @@ def _bwd_cta_order(nk: int, h_kv: int, b: int,
 # heads of one KV head packed as K1 packs them (R = 128 / Gp positions
 # each), and streams the key tiles they see, 64 keys at a time (32 in its
 # fp32 build, whose split tiles take twice the shared memory, and in its d
-# = 256 build, whose resident Q and dO take as much)
+# = 256 build, whose resident Q and dO take as much); its fp32 d = 256
+# build owns 64 rows (one consumer warpgroup) and walks 16-key tiles
 _DQ_BM = 128
+_DQ_BM_WIDE_F32 = 64
 _DQ_BN = 64
 _DQ_BN_F32 = 32
+_DQ_BN_WIDE_F32 = 16
 
 
-def _dq_key_tile(d: int) -> int:
-    """Keys of a K3 key tile for a bf16 call of head dim d: 64, or 32
-    where the call runs on the d = 256 build (as in the fp32 build,
-    `_DQ_BN_F32`)."""
-    return _DQ_BN_F32 if run_dim(d, BWD_HEAD_DIMS) == 256 else _DQ_BN
+def _dq_key_tile(d: int, f32: bool = False) -> int:
+    """Keys of a K3 key tile for a call of head dim d (`f32`: fp32
+    operands): 64 in bf16, or 32 where the call runs on the bf16 d = 256
+    build (as in the fp32 build at d up to 128, `_DQ_BN_F32`); 16 in the
+    fp32 d = 256 build."""
+    wide = run_dim(d, BWD_HEAD_DIMS) == 256
+    if f32:
+        return _DQ_BN_WIDE_F32 if wide else _DQ_BN_F32
+    return _DQ_BN_F32 if wide else _DQ_BN
 
 
-def _dq_packing(h: int, h_kv: int) -> Tuple[int, int]:
-    """(Gp, R): the query heads of one KV head that a K3 CTA packs (the
-    largest divisor of the group size up to 16) and the positions of each
-    (128 / Gp)."""
+def _dq_rows(d: int, f32: bool = False) -> int:
+    """Query rows of a K3 CTA: 128, or 64 in the fp32 d = 256 build."""
+    wide = run_dim(d, BWD_HEAD_DIMS) == 256
+    return _DQ_BM_WIDE_F32 if f32 and wide else _DQ_BM
+
+
+def _dq_packing(h: int, h_kv: int, bm: int = _DQ_BM) -> Tuple[int, int]:
+    """(Gp, R): the query heads of one KV head that a K3 CTA of `bm`
+    rows packs (the largest divisor of the group size up to 16) and the
+    positions of each (bm / Gp)."""
     group = h // h_kv
     gp = max(d for d in range(1, min(group, 16) + 1) if group % d == 0)
-    return gp, _DQ_BM // gp
+    return gp, bm // gp
 
 
 def _dq_key_tiles(q0: int, r: int, nq: int, nk: int, causal: bool,
                   window: int, kv_offset: int,
                   bn: int = _DQ_BN) -> Tuple[int, int]:
     """The key tiles [begin, end) of `bn` keys (`_dq_key_tile`: `_DQ_BN`,
-    or `_DQ_BN_F32` in the fp32 and d = 256 builds) that the K3 CTA of
+    `_DQ_BN_F32` in the fp32 and d = 256 builds, `_DQ_BN_WIDE_F32` in the
+    fp32 d = 256 one) that the K3 CTA of
     positions q0 .. q0 + r − 1
     walks, as the kernel's `key_tiles` computes them: causal rows see keys
     <= pos + kv_offset, so the walk ends at the tile holding the last
@@ -149,14 +175,14 @@ def _dq_key_tiles(q0: int, r: int, nq: int, nk: int, causal: bool,
     return begin, end
 
 
-def _dq_cta_order(nq: int, h: int, h_kv: int, b: int,
-                  causal: bool) -> List[Tuple[int, int, int]]:
-    """(Q tile, head group, batch) of each K3 CTA in launch order, as the
-    kernel's `cta_tile` maps its block index (K1's order): the grid's own
-    order, except under causal, where the Q tiles run from the last,
-    which sees the most keys, to the first, all head groups and batches
-    of a tile together."""
-    gp, r = _dq_packing(h, h_kv)
+def _dq_cta_order(nq: int, h: int, h_kv: int, b: int, causal: bool,
+                  bm: int = _DQ_BM) -> List[Tuple[int, int, int]]:
+    """(Q tile, head group, batch) of each K3 CTA of `bm` rows in launch
+    order, as the kernel's `cta_tile` maps its block index (K1's order):
+    the grid's own order, except under causal, where the Q tiles run from
+    the last, which sees the most keys, to the first, all head groups and
+    batches of a tile together."""
+    gp, r = _dq_packing(h, h_kv, bm)
     n_qt, n_hg = cdiv(nq, r), h // gp
     order = []
     for lin in range(n_qt * n_hg * b):
@@ -306,15 +332,8 @@ def _launch_dkdv(prep):
 
 def _pad_bwd(q, k, v, o, do):
     """(d_run, [q, k, v, o, do]) as the backward's builds take them
-    (`pad_heads` over `BWD_HEAD_DIMS`); NotImplementedError for fp32
-    operands past d = 128, where only the bf16 build is (its fp32 split
-    tiles would not fit beside the resident ones)."""
-    d = q.shape[-1]
-    if q.dtype == torch.float32 and run_dim(d, BWD_HEAD_DIMS) == 256:
-        raise NotImplementedError(
-            f"the CUDA backward takes fp32 q/k/v/dO at d up to 128 (its "
-            f"fp32 builds), got fp32 at d = {d}: the d = 256 builds take "
-            f"bf16")
+    (`pad_heads` over `BWD_HEAD_DIMS`, bf16 or fp32 alike); ValueError
+    past d = 256."""
     return pad_heads("backward", q, k, v, o, do, dims=BWD_HEAD_DIMS)
 
 
@@ -401,13 +420,13 @@ def flash_attention_backward(
     counterpart (K4 keeps no full-sequence state on chip), so neither it
     nor the environment knobs are ported. `block_sizes`: its
     (`block_q_bwd`, `block_k_bwd`) runs at the built (64, 128), whatever
-    it names (at d = 256 the built (64, 64)); the forward's fields are not
-    read here. On the card the kernels take d in {64, 128, 256} (any other
-    d up to 256 on zero-padded heads, as the forward; d past 256 raises
-    ValueError: no build) and bf16 q/k/v/dO, or up to d = 128 fp32 ones
-    through the kernels' fp32 builds (each tile split into bf16 hi and lo
-    parts; the gradients come back fp32), fused or split; fp32 past d =
-    128 raises NotImplementedError naming "fp32 at d = 256".
+    it names (at d = 256 the built (64, 64), in fp32 (32, 64)); the
+    forward's fields are not read here. On the card the kernels take d in
+    {64, 128, 256} (any other d up to 256 on zero-padded heads, as the
+    forward; d past 256 raises ValueError: no build) and bf16 q/k/v/dO,
+    or fp32 ones through the kernels' fp32 builds (each tile split into
+    bf16 hi and lo parts; the gradients come back fp32), fused or
+    split.
     The counts of their launches are
     `flash_attention_backward.launches["dkdv"]`, `["dq"]` and `["fused"]`,
     and of the prologue before them (D, and K4's zeroed accumulator)

@@ -25,6 +25,9 @@ The kernel's protocol, stated here in plain Python and used by the wrapper
     rank's 64-row tiles into one span per CTA, the same on every rank, so
     CTA c talks only to CTA c of its neighbours; a span is walked in rounds
     of `KERNEL_GROUP_TILES[d]` tiles, each round the whole n-step ring.
+    At d = 256 in fp32 each span is two CTAs, one per column half of W
+    and o (`column_parts`), two rings that share nothing: each has its
+    own half of the double buffers and its own flag words.
   - `flag_value`: the 64-bit flag words hold (epoch << 32) | count, count =
     round · n + step. A call's epoch is its number on the workspace (from
     1), so the words are zeroed once, when the workspace is made, and a
@@ -52,16 +55,17 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from cuda_flashattention_torch import _build
-from cuda_flashattention_torch.ops.common import KERNEL_HEAD_DIMS
+from cuda_flashattention_torch.ops.common import RING_HEAD_DIMS, run_dim
 from cuda_flashattention_torch.parallel.mesh import Mesh
 
 KERNEL_TILE_ROWS = 64   # rows of a tile (csrc/device_ring.cu BM)
 KERNEL_MAX_RANKS = 32   # entries of the kernel's pointer table
 # tiles whose o a CTA keeps in registers per round (csrc Geo<D, F32>::G):
 # the fp32 build holds W and each tile as bf16 hi and lo images, twice the
-# shared memory, so at d = 128 a round is one tile
-KERNEL_GROUP_TILES = {64: 4, 128: 2}
-KERNEL_GROUP_TILES_F32 = {64: 4, 128: 1}
+# shared memory, so at d = 128 a round is one tile; at d = 256 a tile's o
+# alone is 128 registers a thread
+KERNEL_GROUP_TILES = {64: 4, 128: 2, 256: 1}
+KERNEL_GROUP_TILES_F32 = {64: 4, 128: 1, 256: 1}
 FLAG_WORDS = 4          # per (rank, CTA): recv, credit, start, unused
 EPOCH_LIMIT = 1 << 32   # epochs are 1 .. EPOCH_LIMIT - 1 on one workspace
 MAX_WORKSPACES = 16     # kept at once, least recently used dropped first
@@ -76,6 +80,13 @@ def span_partition(tiles: int, grid: int) -> List[Tuple[int, int]]:
     per, extra = divmod(tiles, grid)
     return [(c * per + min(c, extra), per + (1 if c < extra else 0))
             for c in range(grid)]
+
+
+def column_parts(d: int, f32: bool = False) -> int:
+    """CTAs of one span (csrc Geo<D, F32>::NH): 2 at d = 256 in fp32, where
+    a CTA holds half of W's columns (the whole of W split takes 256 KB),
+    else 1."""
+    return 2 if f32 and d == 256 else 1
 
 
 def rounds_of(count: int, d: int, f32: bool = False) -> int:
@@ -155,7 +166,8 @@ class _Workspace:
     """What a ring keeps between calls on one (devices, rows, d, type,
     streams): per card the ranks it runs, their double buffers (tile
     images: bf16, or under `f32` each tile's hi and lo images, 4 bytes an
-    element as fp32 is) and their flag words; the ctypes pointer tables;
+    element as fp32 is; one pair per column part, `column_parts`) and
+    their flag words (one set per CTA); the ctypes pointer tables;
     the common grid and the scope. Made once: peer access is checked and
     enabled, the flags zeroed, and with several cards every card
     synchronised, so that no card's kernel stores into flags that are not
@@ -191,14 +203,16 @@ class _Workspace:
                 "device ring occupancy")
             resident[dev] = count.value
         tiles = rows // KERNEL_TILE_ROWS
+        # spans per rank (the kernel's CTAs are column_parts times as many)
         self.grid = common_grid(
             resident, {c: len(r) for c, r in self.cards.items()}, tiles)
+        parts = column_parts(d, f32)
         bufs, flags = [0] * n, [0] * n
         self._bufs, self._flags = [], []
         for dev, idxs in self.cards.items():
-            b = torch.empty((len(idxs), 2, (1 + self.f32) * rows, d),
+            b = torch.empty((len(idxs), parts, 2, (1 + self.f32) * rows, d),
                             dtype=torch.bfloat16, device=dev)
-            f = torch.zeros((len(idxs), self.grid, FLAG_WORDS),
+            f = torch.zeros((len(idxs), parts * self.grid, FLAG_WORDS),
                             dtype=torch.int64, device=dev)
             self._bufs.append(b)
             self._flags.append(f)
@@ -287,9 +301,20 @@ def _device_ring_cuda(x, w, mesh: Mesh, axis_name: str) -> torch.Tensor:
         raise NotImplementedError(
             f"the CUDA ring takes bf16 or fp32 x and w of one dtype, got "
             f"{x.dtype} / {w.dtype}")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the CUDA ring takes d in {KERNEL_HEAD_DIMS}, "
-                         f"got {d}")
+    d_run = run_dim(d, RING_HEAD_DIMS)
+    if d_run is None:
+        raise ValueError(f"the CUDA ring takes d from 1 to "
+                         f"{max(RING_HEAD_DIMS)} (builds at "
+                         f"{RING_HEAD_DIMS}; a narrower d runs at the next "
+                         f"of them with zero columns), got {d}")
+    if d_run != d:
+        # zero columns of x and zero rows and columns of W add nothing to
+        # o's first d columns
+        xp = x.new_zeros((x.shape[0], d_run))
+        xp[:, :d] = x
+        wp = w.new_zeros((d_run, d_run))
+        wp[:d, :d] = w
+        return _device_ring_cuda(xp, wp, mesh, axis_name)[:, :d]
     if rows % KERNEL_TILE_ROWS:
         raise ValueError(f"the CUDA ring takes shards of a multiple of "
                          f"{KERNEL_TILE_ROWS} rows, got {rows}")
@@ -352,12 +377,15 @@ def device_ring_matmul(x: torch.Tensor, w: torch.Tensor, mesh: Mesh,
 
     On the card the kernel takes bf16 x and w, or fp32 ones (its fp32
     build: every value split into bf16 hi and lo halves, three bf16
-    products per step, the split images pushed), d in {64, 128}, L a
-    multiple of 64 and at most 32 ranks, every one on a card; ranks on
+    products per step, the split images pushed), d in {64, 128, 256} (any
+    other d up to 256 on x and w zero-padded to the next of them, o
+    sliced back; d past 256 raises ValueError), L a multiple of 64 and at
+    most 32 ranks, every one on a card; ranks on
     different cards need peer access. It raises otherwise: a CUDA tensor
     never takes the plain version. `device_ring_matmul.launches` counts
     the kernel's launches (one per card), `.last_grid` is the last
-    launch's (CTAs per rank, ranks), `.last_scope` its flags' scope
+    launch's (spans per rank, ranks: a span is one CTA, two at d = 256
+    in fp32), `.last_scope` its flags' scope
     ("gpu": one card, "sys": across cards)."""
     if x.device != w.device:
         raise ValueError(f"w is on {w.device}, x on {x.device}")

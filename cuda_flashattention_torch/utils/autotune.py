@@ -10,7 +10,7 @@ tuner's VMEM-sized lists:
     for K1 or K1b over bf16, 64 over fp32, K5's 64 · span (at d = 256
     64 keys alone, K5's one-tile span: bf16 only);
   * "bwd": the backward's one built pair: (64, 128) at d up to 128,
-    (64, 64) at d = 256 (bf16 only);
+    (64, 64) at d = 256 in bf16 and (32, 64) there in fp32;
   * decode: K6's split sizes from 128 keys, doubling, up to the cache's
     capacity, and the capacity itself (one split);
   * page: the page sizes K7 takes, 16 to 1024 keys by doubling, that fit
@@ -159,8 +159,8 @@ def candidate_blocks(nq: int, nk: int, d: int, causal: bool = False,
     """The (block_q, block_k) tiles that the kernel a call routes to is
     built for ("bwd": the backward's pair) and that fit the problem: key
     tiles past the keys rounded up to 64 are left out, the smallest
-    always kept. NotImplementedError where no build takes the call (the
-    fp32 backward at d = 256)."""
+    always kept. NotImplementedError where no build takes the call (d
+    past 256)."""
     if mode == "bwd":
         kernel, ty = "K4", "fp32" if dtype == torch.float32 else "bf16"
     else:

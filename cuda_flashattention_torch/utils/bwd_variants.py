@@ -172,8 +172,8 @@ VARIANTS = {
          "  kt = blockIdx.x % ((a.Nk + BK - 1) / BK);\n"
          "  const int rest = blockIdx.x / ((a.Nk + BK - 1) / BK);"),
     ],
-    "stages3": [("  static constexpr int NST = F32 && D == 128 ? 1 : 2;",
-                 "  static constexpr int NST = F32 && D == 128 ? 1 : 3;")],
+    "stages3": [("  static constexpr int NST = F32 && D >= 128 ? 1 : 2;",
+                 "  static constexpr int NST = F32 && D >= 128 ? 1 : 3;")],
     "wide_v4": [
         ("// Sᵀ[64 keys x 32 queries] = K·Qᵀ at d = 256",
          _ADD_DQ_WIDE + "// Sᵀ[64 keys x 32 queries] = K·Qᵀ at d = 256"),

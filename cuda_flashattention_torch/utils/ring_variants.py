@@ -77,15 +77,15 @@ _PUBLISH_STORES = """      __syncthreads();
         st_release<SYS>(rflags + F_RECV, ctr + 1);
       }
 """
-_LOAD_ACC = """template <int D>
-__device__ __forceinline__ void load_acc(float (&acc)[D / 64][32],
-                                         const float* o) {
+_LOAD_ACC = """template <int D, int WC>
+__device__ __forceinline__ void load_acc(float (&acc)[WC / 64][32],
+                                         const float* o, int col0) {
 #pragma unroll
-  for (int h = 0; h < D / 64; ++h) {
+  for (int h = 0; h < WC / 64; ++h) {
 #pragma unroll
     for (int i = 0; i < 32; i += 2) {
       const float2 v = *reinterpret_cast<const float2*>(
-          o + acc_row(i) * D + acc_col(h, i));
+          o + acc_row(i) * D + col0 + acc_col(h, i));
       acc[h][i] = v.x;
       acc[h][i + 1] = v.y;
     }
@@ -99,7 +99,8 @@ _KERNEL_RULE = """// -----------------------------------------------------------
 _ROUND = """    const int t0 = start + r * G;  // the round's first tile
     const int m = min(G, cnt - r * G);
 """
-_DST = "      bf16* dst = t.buf[right] + ((s + 1) & 1) * slot;\n"
+_DST = ("      bf16* dst = t.buf[right] + ring_off + ((s + 1) & 1) * "
+        "slot;\n")
 # o in L2: every step walks the whole span in chunks of the G stages,
 # reading o back before a chunk's products and writing it after them; the
 # credit is awaited before the first chunk, the flags signalled after the
@@ -113,7 +114,10 @@ _BARRIER = ("      __syncthreads();  // thread 0's waits are over; step 0's "
 _READ_O = """      if (s > 0) {
 #pragma unroll
         for (int j = 0; j < G; ++j) {
-          if (j < m) load_acc<D>(acc[j], out + (long long)(t0 + j) * BM * D);
+          if (j < m) {
+            load_acc<D, WC>(acc[j], out + (long long)(t0 + j) * BM * D,
+                            part * WC);
+          }
         }
       }
 """
@@ -121,8 +125,8 @@ _STEP_END = "      __syncthreads();\n    }\n  }\n}\n"
 
 VARIANTS = {
     "as_is": [],
-    "group1": [("  static constexpr int G = D == 64 ? 4 : F32 ? 1 : 2;",
-                "  static constexpr int G = D == 64 ? 2 : 1;")],
+    "group1": [("  static constexpr int G = D == 64 ? 4 : D == 128 && !F32 "
+                "? 2 : 1;", "  static constexpr int G = D == 64 ? 2 : 1;")],
     "o_l2": [
         (_KERNEL_RULE, _LOAD_ACC + _KERNEL_RULE),
         ("  const int rounds = (cnt + G - 1) / G;\n",

@@ -214,8 +214,8 @@ def test_cli_parses_the_jax_arguments(monkeypatch):
 def test_candidates_at_d256_are_its_builds():
     """At d = 256 the forward's builds have one key tile (K5 a span of one
     tile): 64, or 32 for an fp32 Q over fp32 K/V; the backward's bf16
-    build the pair (64, 64); an fp32 backward has no build, so there is
-    nothing to tune."""
+    build the pair (64, 64) and its fp32 build (32, 64); past 256 no build
+    takes the call, so there is nothing to tune."""
     assert autotune.candidate_blocks(4096, 4096, 256, causal=True) == [
         (128, 64)]
     assert autotune.candidate_blocks(8192, 8192, 256, causal=True) == [
@@ -225,8 +225,12 @@ def test_candidates_at_d256_are_its_builds():
     assert autotune.candidate_blocks(512, 3584, 200) == [(128, 64)]
     assert autotune.candidate_blocks(4096, 4096, 256, mode="bwd") == [
         (64, 64)]
+    assert autotune.candidate_blocks(4096, 4096, 256, mode="bwd",
+                                     dtype=torch.float32) == [(32, 64)]
+    assert autotune.candidate_blocks(1000, 1000, 200, mode="bwd",
+                                     dtype=torch.float32) == [(32, 64)]
     with pytest.raises(NotImplementedError, match="K4 takes fp32"):
-        autotune.candidate_blocks(4096, 4096, 256, mode="bwd",
+        autotune.candidate_blocks(4096, 4096, 300, mode="bwd",
                                   dtype=torch.float32)
     assert autotune.candidate_blocks(4096, 4096, 256, causal=True,
                                      dtype=torch.float32) == [(128, 32)]
@@ -236,8 +240,8 @@ def test_candidates_at_d256_are_its_builds():
 
 def test_autotune_at_d256(tuner):
     """The sweep at d = 256 times its one built tile and keeps it, the
-    backward's sweep its one built pair (64, 64); a request for the
-    backward's tiles over fp32 there raises before any timing."""
+    backward's sweep its one built pair (64, 64), and over fp32 its fp32
+    build's (32, 64); a request past 256 raises before any timing."""
     tuner["pick"] = _pick_tile
     bs = autotune.autotune_block_sizes(nq=80, nk=80, d=256, heads=2,
                                        causal=True, iters=1, device="cpu")
@@ -249,8 +253,13 @@ def test_autotune_at_d256(tuner):
                                        device="cpu")
     assert (bs.block_q_bwd, bs.block_k_bwd) == (64, 64)
     assert tuner["calls"] == [64, (64, 64)]
+    bs = autotune.autotune_block_sizes(nq=80, nk=80, d=256, heads=2,
+                                       mode="bwd", dtype=torch.float32,
+                                       iters=1, device="cpu")
+    assert (bs.block_q_bwd, bs.block_k_bwd) == (32, 64)
+    assert tuner["calls"] == [64, (64, 64), (32, 64)]
     with pytest.raises(NotImplementedError):
-        autotune.autotune_block_sizes(nq=80, nk=80, d=256, heads=2,
+        autotune.autotune_block_sizes(nq=80, nk=80, d=300, heads=2,
                                       mode="bwd", dtype=torch.float32,
                                       iters=1, device="cpu")
-    assert tuner["calls"] == [64, (64, 64)]
+    assert tuner["calls"] == [64, (64, 64), (32, 64)]

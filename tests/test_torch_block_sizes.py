@@ -441,9 +441,10 @@ def test_ring_decode_with_explicit_split_matches_one_device(block_k):
 def test_table_lists_the_d256_builds():
     """d = 256: K1 and K1b over bf16 or one-byte K/V at 64 keys, K5 at a
     span of one tile, under a bf16 or an fp32 Q (an fp32 Q over fp32 K/V
-    at 32 keys); K2 and K4 over bf16 at (64, 64) (64-key CTAs), and no
-    fp32 build of the backward there. A width between builds looks up the
-    next build up, and one past every build of its family has none."""
+    at 32 keys); K2 and K4 over bf16 at (64, 64) (64-key CTAs) and over
+    fp32 at (32, 64) (64-key CTAs streaming 32-row Q tiles). A width
+    between builds looks up the next build up, and one past every build of
+    its family has none."""
     for ty in ("bf16", "codes", "fp32/codes", "fp32/bf16"):
         for kn in ("K1", "K1b", "K5"):
             assert BUILT_TILES[kn, ty, 256] == ((128,), (64,))
@@ -455,9 +456,10 @@ def test_table_lists_the_d256_builds():
     for kn in ("K2", "K4"):
         assert BUILT_TILES[kn, "bf16", 256] == ((64,), (64,))
         assert common.built_tiles(kn, "bf16", 200) == ((64,), (64,))
-        assert (kn, "fp32", 256) not in BUILT_TILES
-        assert common.built_tiles(kn, "fp32", 200) is None
+        assert BUILT_TILES[kn, "fp32", 256] == ((32,), (64,))
+        assert common.built_tiles(kn, "fp32", 200) == ((32,), (64,))
         assert common.built_tiles(kn, "bf16", 257) is None
+        assert common.built_tiles(kn, "fp32", 257) is None
     assert common.built_tiles("K1", "bf16", 96) == BUILT_TILES["K1", "bf16",
                                                                128]
     assert common.built_tiles("K1b", "codes", 130) == BUILT_TILES[
@@ -470,8 +472,7 @@ def test_d256_tiles_map_to_the_built_one(capsys):
     256, logged once; K5's 192 too, and the backward's default (64, 128)
     at K4's (64, 64); an fp32 Q over fp32 K/V at d = 256 runs 32-key
     tiles, so 64 and 128 map to 32 there; the fp32 backward at d = 256
-    has no build, so no mapping (the card refuses the call, the CPU
-    ignores the tile)."""
+    runs (32, 64), so the default (64, 128) maps to it."""
     assert common.check_tiles("K1", "bf16", 256, BlockSizes(block_k=128),
                        "test256") == 64
     assert common.check_tiles("K5", "codes", 256, BlockSizes(block_k=192),
@@ -488,7 +489,12 @@ def test_d256_tiles_map_to_the_built_one(capsys):
                        bwd=True) == 64
     assert "(64, 128) runs as (64, 64)" in capsys.readouterr().err
     assert common.check_tiles("K4", "fp32", 256, BlockSizes(), "test256",
-                       bwd=True) is None
+                       bwd=True) == 64
+    assert "(64, 128) runs as (32, 64)" in capsys.readouterr().err
+    assert common.check_tiles("K2", "fp32", 200, BlockSizes(block_q_bwd=32,
+                                                            block_k_bwd=64),
+                              "test256", bwd=True) == 64
+    assert "test256" not in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("d", [96, 256])

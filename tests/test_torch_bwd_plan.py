@@ -300,3 +300,56 @@ def test_dq_walk_of_the_f32_build_visits_exactly_the_32_key_tiles(
         seen = {kt for kt in range(cdiv(nk, bn))
                 if vis[q0:q0 + r, kt * bn:(kt + 1) * bn].any()}
         assert walked == seen, (qt, begin, end, sorted(seen))
+
+
+@pytest.mark.parametrize("nq,nk,causal,window,kv_offset", CASES + [
+    (31, 65, True, 0, 0), (32, 64, True, 0, 31), (33, 95, True, 20, 62)])
+def test_walk_of_the_f32_wide_build_visits_exactly_the_32_row_tiles(
+        nq, nk, causal, window, kv_offset):
+    """K2 / K4's fp32 d = 256 build: 64-key CTAs streaming 32-row Q tiles
+    (`_bwd_q_tile(256, f32=True)`); the walk visits exactly the tiles with
+    a visible pair."""
+    bk, bq = fb._bwd_key_tile(256), fb._bwd_q_tile(256, f32=True)
+    assert (bk, bq) == (64, 32) and fb._bwd_q_tile(200, f32=True) == 32
+    assert fb._bwd_q_tile(256) == fb._bwd_q_tile(128, f32=True) == 64
+    vis = _visible(nq, nk, causal, window, kv_offset)
+    for kt in range(cdiv(nk, bk)):
+        c0 = kt * bk
+        first, last = fb._bwd_q_tiles(c0, nq, nk, causal, window, kv_offset,
+                                      bk, bq)
+        walked = set(range(first, last + 1))
+        seen = {qt for qt in range(cdiv(nq, bq))
+                if vis[qt * bq:(qt + 1) * bq, c0:c0 + bk].any()}
+        assert walked == seen, (kt, first, last, sorted(seen))
+
+
+@pytest.mark.parametrize("h,h_kv", [(8, 4), (16, 4), (16, 16), (32, 1)])
+@pytest.mark.parametrize("nq,nk,causal,window,kv_offset", DQ_CASES[::3] + [
+    (15, 17, True, 0, 0), (16, 16, True, 0, 0), (17, 47, True, 5, 30)])
+def test_dq_walk_of_the_f32_wide_build_visits_exactly_the_16_key_tiles(
+        nq, nk, causal, window, kv_offset, h, h_kv):
+    """K3's fp32 d = 256 build: 64-row CTAs of packed heads (R = 64 / Gp)
+    over 16-key tiles; the walk visits exactly the tiles with a visible
+    pair, and its CTAs cover every (Q tile, head group, batch) once,
+    heaviest first under causal."""
+    bn, bm = fb._dq_key_tile(256, f32=True), fb._dq_rows(256, f32=True)
+    assert (bn, bm) == (16, 64) and fb._dq_rows(256) == 128
+    gp, r = fb._dq_packing(h, h_kv, bm)
+    assert r == 64 // gp
+    vis = _visible(nq, nk, causal, window, kv_offset)
+    for qt in range(cdiv(nq, r)):
+        q0 = qt * r
+        begin, end = fb._dq_key_tiles(q0, r, nq, nk, causal, window,
+                                      kv_offset, bn=bn)
+        walked = set(range(begin, end))
+        seen = {kt for kt in range(cdiv(nk, bn))
+                if vis[q0:q0 + r, kt * bn:(kt + 1) * bn].any()}
+        assert walked == seen, (qt, begin, end, sorted(seen))
+    order = fb._dq_cta_order(nq, h, h_kv, 2, causal, bm)
+    assert sorted(order) == sorted(
+        (qt, hg, bb) for qt in range(cdiv(nq, r)) for hg in range(h // gp)
+        for bb in range(2))
+    if causal and not window and kv_offset == 0 and nq == nk:
+        work = [(lambda t: t[1] - t[0])(fb._dq_key_tiles(
+            qt * r, r, nq, nk, True, 0, 0, bn=bn)) for qt, _, _ in order]
+        assert work == sorted(work, reverse=True)

@@ -77,9 +77,17 @@ def test_plain_ring_matches_numpy(n, rows, d):
     assert max_abs(o.numpy() - ref) < EXAMPLE_GATE
 
 
-@pytest.mark.parametrize("n", [2, 4, 8])
-def test_plain_ring_matches_the_jax_example(example, n):
-    x, w = _inputs(n, 128, 128, seed=7)
+# (n, d): the ring at d = 128, then at d = 256 (K9's widest build) and d =
+# 200 (a width the card runs padded to 256); the d = 128 cases keep their
+# ids
+_JAX_CASES = ([pytest.param(n, 128, id=str(n)) for n in (2, 4, 8)]
+              + [pytest.param(n, d, id=f"{n}-d{d}")
+                 for d in (256, 200) for n in (2, 4)])
+
+
+@pytest.mark.parametrize("n,d", _JAX_CASES)
+def test_plain_ring_matches_the_jax_example(example, n, d):
+    x, w = _inputs(n, 128, d, seed=7)
     jmesh = jax_make_mesh((n,), ("sp",), jax.devices()[:n])
     want = example.xla_ring_matmul(
         jnp.asarray(x.float().numpy(), jnp.bfloat16),
@@ -151,15 +159,15 @@ def test_example_stage_needs_a_card_unless_asked_for_the_cpu():
     assert proc.returncode != 0 and "Test PASSED!" not in proc.stdout
 
 
-@pytest.mark.parametrize("n", [2, 4, 8])
-def test_plain_ring_matches_the_jax_example_in_fp32(example, n):
+@pytest.mark.parametrize("n,d", _JAX_CASES)
+def test_plain_ring_matches_the_jax_example_in_fp32(example, n, d):
     """fp32 shards and W, which the example takes as they come and the
     card's fp32 build computes: the plain ring against `xla_ring_matmul`
     on the same fp32 values."""
     rng = np.random.default_rng(11 + n)
-    x = torch.from_numpy(rng.uniform(-0.5, 0.5, (n * 128, 128)).astype(
+    x = torch.from_numpy(rng.uniform(-0.5, 0.5, (n * 128, d)).astype(
         np.float32))
-    w = torch.from_numpy(rng.uniform(-0.5, 0.5, (128, 128)).astype(
+    w = torch.from_numpy(rng.uniform(-0.5, 0.5, (d, d)).astype(
         np.float32))
     jmesh = jax_make_mesh((n,), ("sp",), jax.devices()[:n])
     with jax.default_matmul_precision("highest"):

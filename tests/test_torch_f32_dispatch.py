@@ -223,12 +223,12 @@ def test_out_dtype_reaches_the_epilogue(lib, out_dtype, code, entry):
     assert o.dtype == out_dtype and o.shape == q.shape
 
 
-@pytest.mark.parametrize("d", [128, 32])
+@pytest.mark.parametrize("d", [128, 32, 256, 200])
 @pytest.mark.parametrize("seg", [False, True])
 def test_split_backward_on_fp32_plans_k2_then_k3(lib, d, seg):
     """fused=False on fp32 launches the prologue (D, no accumulator to
     zero), then K2's and K3's fp32 builds (f32 = 1), and counts them;
-    narrow heads run at d = 64."""
+    narrow heads run at d = 64, widths past 128 at d = 256."""
     q, k, v, _ = _qkv(None, nq=70, nk=70, d=d)
     o, do = torch.zeros_like(q), torch.ones_like(q)
     lse = torch.zeros(q.shape[:3])
@@ -246,12 +246,37 @@ def test_split_backward_on_fp32_plans_k2_then_k3(lib, d, seg):
     assert kv_args[5] == delta_args[2]  # K2 and K3 read the prologue's D
     assert q_args[5] == delta_args[2]
     assert kv_args[10] is None and kv_args[-2] == 1      # K2, f32
-    assert q_args[-2] == 1 and q_args[14] == (64 if d < 64 else d)
+    assert q_args[-2] == 1 and q_args[14] == {128: 128, 32: 64, 256: 256,
+                                               200: 256}[d]
     assert all(g.dtype == torch.float32 for g in (dq, dk, dv))
     assert dq.shape == q.shape and dk.shape == k.shape
     after = fb.flash_attention_backward.launches
     assert after["dkdv"] == before["dkdv"] + 1
     assert after["dq"] == before["dq"] + 1
+    assert after["delta"] == before["delta"] + 1
+
+
+@pytest.mark.parametrize("d", [256, 200])
+def test_fused_backward_on_fp32_wide_heads_launches_k4(lib, d):
+    """The fused fp32 backward at d = 256 (and 200, on heads zero-padded
+    to 256) launches the prologue, which zeroes K4's fp32 accumulator,
+    then K4's fp32 build (f32 = 1, the accumulator given) at d = 256; the
+    gradients come back fp32 at width d."""
+    q, k, v, _ = _qkv(None, nq=70, nk=90, d=d)
+    o, do = torch.zeros_like(q), torch.ones_like(q)
+    lse = torch.zeros(q.shape[:3])
+    before = dict(fb.flash_attention_backward.launches)
+    dq, dk, dv = fb._bwd_cuda(q, k, v, o, lse, do, None, True, 0, 0, None,
+                              None, True)
+    assert lib.names() == ["cfa_bwd_delta", "cfa_flash_bwd_kv"]
+    (_, delta_args), (_, kv_args) = lib.calls
+    assert delta_args[3] is not None and delta_args[7] == 256
+    assert kv_args[10] == delta_args[3]  # K4 adds into the zeroed dq_acc
+    assert kv_args[16] == 256 and kv_args[-2] == 1
+    assert all(g.dtype == torch.float32 for g in (dq, dk, dv))
+    assert dq.shape == q.shape and dk.shape == k.shape == dv.shape
+    after = fb.flash_attention_backward.launches
+    assert after["fused"] == before["fused"] + 1
     assert after["delta"] == before["delta"] + 1
 
 
@@ -303,6 +328,34 @@ def test_device_ring_launch_names_its_build(lib, f32):
     assert name == "cfa_device_ring" and args[12:14] == (0, f32)
     assert dr.rounds_of(5, 128, f32=bool(f32)) == (5 if f32 else 3)
     assert dr.rounds_of(5, 64, f32=bool(f32)) == 2
+
+
+def test_device_ring_wide_geometry():
+    """At d = 256 a round is one tile in both builds (a tile's o alone is
+    128 registers a thread), and the fp32 build's span is two CTAs, one
+    per column half of W; other widths keep one CTA a span."""
+    assert dr.rounds_of(5, 256) == 5 and dr.rounds_of(5, 256, f32=True) == 5
+    assert dr.column_parts(256, True) == 2
+    assert [dr.column_parts(d, f32) for d in (64, 128) for f32 in
+            (False, True)] + [dr.column_parts(256, False)] == [1] * 5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_device_ring_takes_any_width_up_to_256(dtype):
+    """Any d from 1 to 256 passes the width check (x and W are zero-padded
+    to the next build and then need the mesh on a card); past 256 it
+    raises naming the form, before any card is touched."""
+    from cuda_flashattention_torch.parallel.mesh import make_mesh
+    mesh = make_mesh((2,), ("sp",), ["cpu"] * 2)
+    for d in (8, 100, 200, 256):
+        x, w = torch.zeros((128, d), dtype=dtype), torch.zeros((d, d),
+                                                               dtype=dtype)
+        with pytest.raises(ValueError, match="every rank on a card"):
+            dr._device_ring_cuda(x, w, mesh, "sp")
+    x, w = torch.zeros((128, 300), dtype=dtype), torch.zeros((300, 300),
+                                                             dtype=dtype)
+    with pytest.raises(ValueError, match="ring takes d from 1 to 256"):
+        dr._device_ring_cuda(x, w, mesh, "sp")
 
 
 def test_device_ring_refuses_what_it_does_not_take():

@@ -517,15 +517,15 @@ def test_pad_heads_refuse_other_widths(d):
     """Each kernel family refuses the widths past its largest build, naming
     the form: K8's (64, 128 and 256), the backward's and the forward's
     past 256; below that any d runs on zero-padded heads (20 at 64, 130 at
-    256). K9 keeps its builds at 64 and 128 (its wrapper takes those
-    widths alone)."""
+    256). K9's family reaches 256 too (its wrapper pads x and W itself)."""
     from cuda_flashattention_torch.ops.common import (
         BWD_HEAD_DIMS,
         FA1_HEAD_DIMS,
-        KERNEL_HEAD_DIMS,
+        RING_HEAD_DIMS,
         pad_heads,
     )
-    assert KERNEL_HEAD_DIMS == (64, 128) and FA1_HEAD_DIMS == (64, 128, 256)
+    assert RING_HEAD_DIMS == (64, 128, 256) and FA1_HEAD_DIMS == (
+        64, 128, 256)
     x = torch.rand(1, 1, 2, d)
     assert pad_heads("FA1", x, dims=FA1_HEAD_DIMS)[0] == (
         64 if d <= 64 else 256)

@@ -471,13 +471,13 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         flash_attention_backward(q16, q16, q16, q16, lse, q16)
     with pytest.raises(NotImplementedError, match="all of one type"):
         flash_attention_backward(q32, q32, q32, q32, lse, q32.bfloat16())
-    # the backward's builds stop at d = 256, and at d = 128 for fp32
+    # the backward's builds stop at d = 256, in bf16 and fp32 alike
     q300 = torch.zeros(1, 2, 8, 300, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="backward takes d from 1 to 256"):
         flash_attention_backward(q300, q300, q300, q300, lse, q300)
-    q256 = torch.zeros(1, 2, 8, 256, device=dev)
-    with pytest.raises(NotImplementedError, match="fp32 at d = 256"):
-        flash_attention_backward(q256, q256, q256, q256, lse, q256)
+    with pytest.raises(ValueError, match="backward takes d from 1 to 256"):
+        flash_attention_backward(q300.float(), q300.float(), q300.float(),
+                                 q300.float(), lse, q300.float())
 
 
 # ---------------------------------------------------------------------------
@@ -1255,9 +1255,10 @@ def test_device_ring_refuses_what_it_does_not_take(dev):
         device_ring_matmul(x.half(), w.half(), mesh)
     with pytest.raises(ValueError, match="multiple of 64"):
         device_ring_matmul(x[:4 * 40], w, mesh)
-    with pytest.raises(ValueError, match="d in"):
-        device_ring_matmul(x[:, :32].contiguous(),
-                           w[:32, :32].contiguous(), mesh)
+    # any d up to 256 runs (padded to the next build); past it, no build
+    x300 = _rand(gen, dev, 4 * 64, 300)
+    with pytest.raises(ValueError, match="ring takes d from 1 to 256"):
+        device_ring_matmul(x300, _rand(gen, dev, 300, 300), mesh)
     with pytest.raises(ValueError, match="every rank on a card"):
         device_ring_matmul(x, w, make_mesh((4,), ("sp",), ["cpu"] * 4))
 
@@ -2830,7 +2831,8 @@ def test_fuzz_forward_and_decode(dev, no_tf32):
     bf16 K/V): K1, K1b and K5 pinned at random nq, nk, d, group, operand
     types and mask, and K6 at random lengths, windows, d and types, each
     against its plain version (fp32 1e-4; bf16 5e-3 and 2e-2 · max |plain
-    O|)."""
+    O|); then six fp32 backward cases at d 200 or 256, K4 or K2 + K3 in
+    turn, against the plain backward (1e-4 · max(1, max |plain|))."""
     import numpy as np
     rng = np.random.default_rng(2024)
     for case in range(16):
@@ -2873,6 +2875,13 @@ def test_fuzz_forward_and_decode(dev, no_tf32):
         what = ("K6", b, h, h_kv, cap, d, types, lengths.tolist(), window)
         assert _err(got[0], want[0]) <= gate, what
         assert _err(got[1], want[1]) <= gate, what
+    # then six fp32 backward cases at d 200 or 256 (a generator of their
+    # own, so that the cases above stay as they were), fused and split
+    rng = np.random.default_rng(2026)
+    for case in range(6):
+        b, h, h_kv, nq, nk, d, _, kw = _fuzz_case(rng, (200, 256), ("fp32",))
+        _wide_f32_bwd(dev, b, h, h_kv, nq, nk, d, 100 + case,
+                      bool(case % 2), True, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -2987,17 +2996,17 @@ def test_wide_forward_auto_routes_and_falls_back(dev):
 
 
 def test_wide_forms_refused(dev):
-    """The fp32 backward at d = 256, K9 at d = 256, and the backward, the
-    forward and K8 past 256 raise, each naming the form; nothing falls
-    back and nothing launches. (The fp32 forward and K8 at d = 256 run:
-    the test_wide_f32_* tests.)"""
+    """The backward (bf16 and fp32), the forward, K8 and K9 past 256 raise,
+    each naming the form; nothing falls back and nothing launches. (The
+    fp32 forward, the fp32 backward, K8 and K9 at d = 256 run: the
+    test_wide_f32_* and test_wide_device_ring_* tests.)"""
     from cuda_flashattention_torch.parallel.device_ring import (
         device_ring_matmul)
-    q32 = torch.rand(1, 2, 64, 256, device=dev)
     lse32 = torch.zeros(1, 2, 64, device=dev)
     before = dict(flash_attention_backward.launches)
-    with pytest.raises(NotImplementedError, match="fp32 at d = 256"):
-        flash_attention_backward(q32, q32, q32, q32, lse32, q32)
+    q300f = torch.rand(1, 2, 64, 300, device=dev)
+    with pytest.raises(ValueError, match="backward takes d from 1 to 256"):
+        flash_attention_backward(q300f, q300f, q300f, q300f, lse32, q300f)
     q300 = torch.rand(1, 2, 64, 300, device=dev).bfloat16()
     with pytest.raises(ValueError, match="backward takes d from 1 to 256"):
         flash_attention_backward(q300, q300, q300, q300, lse32, q300)
@@ -3010,10 +3019,11 @@ def test_wide_forms_refused(dev):
     assert _form_counts() == fwd_before
     assert fa1_attention.launches == fa1_before
     ring_before = device_ring_matmul.launches
-    x, w = torch.rand(2 * 64, 256, device=dev), torch.rand(256, 256,
+    x, w = torch.rand(2 * 64, 300, device=dev), torch.rand(300, 300,
                                                            device=dev)
-    with pytest.raises(ValueError, match="ring takes d in"):
-        device_ring_matmul(x, w, _ring_mesh(dev, 2))
+    for t in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="ring takes d from 1 to 256"):
+            device_ring_matmul(x.to(t), w.to(t), _ring_mesh(dev, 2))
     assert device_ring_matmul.launches == ring_before
 
 
@@ -3542,3 +3552,152 @@ def test_fuzz_backward(dev):
             kw["kv_segment_ids"] = _segments(dev, 1, nk, lengths.tolist())
         _wide_bwd(dev, 1, h, h_kv, nq, nk, d, case, bool(rng.random() < 0.5),
                   **kw)
+
+
+# ---------------------------------------------------------------------------
+# fp32 at d = 256 in the backward: K4 and K2 (64-key CTAs streaming 32-row
+# split Q / dO tiles, one stage) and K3 (64-row CTAs, one consumer
+# warpgroup, 16-key split tiles), every mask, d = 256 and 200 (zero-padded
+# heads), flat and peaked (Q x8, K x4) inputs; K9 at d = 256 and between
+# builds, bf16 and fp32. Gates: 1e-4 · max(1, max |plain|) per gradient;
+# K9 bf16 within min(1e-2, 2e-2 · max |ref|), fp32 within 1e-4 · max(1,
+# max |ref|).
+# ---------------------------------------------------------------------------
+
+WIDE_F32_BWD_CASES = [
+    # the Gemma-width layer (8 query heads over 4 KV heads)
+    (1, 8, 4, 1024, 1024, dict(causal=True)),
+    (1, 8, 4, 600, 600, dict(causal=True, window=100)),
+    # ragged, empty rows and unseen keys
+    (2, 8, 4, 300, 400, dict(causal=True, kv_offset=-20)),
+    (1, 16, 4, 300, 300, dict(causal=True)),                 # GQA 16:4
+    (1, 8, 4, 130, 500, dict(causal=True, window=70, kv_offset=370)),
+    (2, 8, 2, 128, 384, dict(causal=False)),
+    (1, 8, 8, 100, 63, dict()),                              # Nk < a tile
+    (1, 8, 4, 65, 129, dict(causal=True, kv_offset=64)),     # tile edges
+]
+
+
+def _wide_f32_bwd(dev, b, h, h_kv, nq, nk, d, seed, fused, peaked, **kw):
+    """The fp32 backward into NaN-filled memory against the plain fp32
+    one: fp32 gradients of the input shapes, each within 1e-4 · max(1, max
+    |plain|) (all zero where the plain one is), one prologue launch and
+    one K4 (or K2 + K3)."""
+    args = _f32_bwd_inputs(dev, b, h, h_kv, nq, nk, d, kw, peaked, seed)
+    want = flash_attention_backward_plain(*args, **kw)
+    _nan_fill_allocator(dev)
+    before = dict(flash_attention_backward.launches)
+    got = flash_attention_backward(*args, fused=fused, **kw)
+    torch.cuda.synchronize()
+    grown = {n: flash_attention_backward.launches[n] - before[n]
+             for n in before}
+    assert grown == ({"fused": 1, "dkdv": 0, "dq": 0, "delta": 1} if fused
+                     else {"fused": 0, "dkdv": 1, "dq": 1, "delta": 1})
+    what = (b, h, h_kv, nq, nk, d, fused, peaked, kw)
+    for g, w, name in zip(got, want, ("dQ", "dK", "dV")):
+        assert g.shape == w.shape and torch.isfinite(g).all(), (what, name)
+        if torch.all(w == 0):
+            assert torch.all(g == 0), (what, name)
+        else:
+            _assert_f32_grad(g, w, f"{what} {name}")
+    return got
+
+
+@pytest.mark.parametrize("peaked", [False, True])
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("d", [256, 200])
+@pytest.mark.parametrize("b,h,h_kv,nq,nk,kw", WIDE_F32_BWD_CASES)
+def test_wide_f32_backward_kernels(dev, no_tf32, b, h, h_kv, nq, nk, kw, d,
+                                   fused, peaked):
+    got = _wide_f32_bwd(dev, b, h, h_kv, nq, nk, d, nq + nk + d, fused,
+                        peaked, **kw)
+    assert all(g.shape[-1] == d for g in got)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("causal", [True, False])
+def test_wide_f32_backward_segments(dev, no_tf32, causal, fused):
+    """The fp32 SEG builds at d = 256: segments ending one key before, at
+    and after 16-, 32- and 64-key tile edges, and one of a single
+    token."""
+    n = 300
+    seg = _segments(dev, 2, n, [63, 1, 65, 128, 43])
+    _wide_f32_bwd(dev, 2, 8, 4, n, n, 256, 7, fused, True, causal=causal,
+                  q_segment_ids=seg, kv_segment_ids=seg)
+
+
+def test_wide_f32_k2_matches_k4(dev, no_tf32):
+    """K2 and K4's fp32 d = 256 builds share the dK / dV walk: the same
+    bits; K2 + K3 and K4 agree within the fp32 gate."""
+    from cuda_flashattention_torch.ops import flash_bwd as fb
+    kw = dict(causal=True, window=300)
+    args = _f32_bwd_inputs(dev, 1, 8, 4, 700, 700, 256, kw, True, 5)
+    fused = flash_attention_backward(*args, fused=True, **kw)
+    split = flash_attention_backward(*args, fused=False, **kw)
+    dk2, dv2 = fb._dkdv_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(dk2, fused[1]) and torch.equal(dv2, fused[2])
+    assert torch.equal(split[1], fused[1]) and torch.equal(split[2],
+                                                           fused[2])
+    _assert_f32_grad(split[0], fused[0], "dQ")
+
+
+def test_wide_f32_autograd_through_the_kernels(dev, no_tf32):
+    """flash_attention at d = 256 on fp32 [B,N,H,d] views: K1 once and K4
+    once, fp32 gradients within the fp32 gate of the plain backward."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=dev) - 0.5
+    q = u(2, 300, 8, 256).transpose(1, 2).requires_grad_(True)
+    k = u(2, 300, 4, 256).transpose(1, 2).requires_grad_(True)
+    v = u(2, 300, 4, 256).transpose(1, 2).requires_grad_(True)
+    do = u(2, 300, 8, 256).transpose(1, 2)
+    fwd0 = flash_attention_forward.launches
+    bwd0 = flash_attention_backward.launches["fused"]
+    o = flash_attention(q, k, v, causal=True, window=90)
+    grads = torch.autograd.grad(o, (q, k, v), grad_outputs=do)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.float32
+    assert flash_attention_forward.launches == fwd0 + 1
+    assert flash_attention_backward.launches["fused"] == bwd0 + 1
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    o_p, lse = flash_attention_forward_plain(qd, kd, vd, causal=True,
+                                             window=90)
+    assert _err(o, o_p) <= F32_GATE
+    want = flash_attention_backward_plain(qd, kd, vd, o_p, lse, do,
+                                          causal=True, window=90)
+    for g, w, name in zip(grads, want, ("dQ", "dK", "dV")):
+        _assert_f32_grad(g, w, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,rows,d", [(1, 64, 256), (4, 1024, 256),
+                                      (8, 192, 256), (3, 8192, 256),
+                                      (4, 1024, 200), (2, 128, 100),
+                                      (2, 192, 8)])
+def test_wide_device_ring_kernel(dev, no_tf32, dtype, n, rows, d):
+    """K9 at d = 256 (bf16: W whole, one tile a round; fp32: two CTAs a
+    span, one per column half of W) and at widths between builds (x and W
+    zero-padded, o sliced back) against the plain ring and (Σ x_i) @ W in
+    fp32, one launch; 3 more calls give the first's bits."""
+    from cuda_flashattention_torch.parallel.device_ring import (
+        device_ring_matmul, ring_matmul_plain)
+    gen = torch.Generator(device=dev).manual_seed(n * rows + d)
+    x = (torch.rand((n * rows, d), generator=gen, device=dev) - 0.5).to(
+        dtype)
+    w = (torch.rand((d, d), generator=gen, device=dev) - 0.5).to(dtype)
+    mesh = _ring_mesh(dev, n)
+    before = device_ring_matmul.launches
+    o = device_ring_matmul(x, w, mesh)
+    torch.cuda.synchronize()
+    assert device_ring_matmul.launches == before + 1
+    assert o.dtype == torch.float32 and o.shape == (n * rows, d)
+    ref = _ring_ref(x, w, n)
+    top = ref.abs().max().item()
+    gate = (F32_GATE * max(1.0, top) if dtype == torch.float32
+            else min(1e-2, 2e-2 * top))
+    assert top > 0 and _err(o, ref) <= gate, _err(o, ref)
+    assert _err(o, ring_matmul_plain(x, w, mesh)) <= gate
+    for _ in range(3):
+        assert torch.equal(device_ring_matmul(x, w, mesh), o)

@@ -203,6 +203,29 @@ def test_ring_batch_and_head_axes(axes):
     _assert_grads(g_t, [g.numpy() for g in g_r], GATE, f"ring {axes}")
 
 
+def test_ring_f32_wide_heads():
+    """fp32 at d = 256 (the width whose fp32 backward the card's d = 256
+    builds take): the ring over 4 ranks, GQA 4:2, causal and windowed,
+    against the port's one-device `flash_attention`, forward and
+    gradients."""
+    q, k, v = _qkv(1, 4, 2, 64, 256, 91)
+    do = torch.from_numpy(seeded_random(q.shape, 92))
+    tmesh = make_mesh((4,), ("sp",), ["cpu"] * 4)
+    for kw in (dict(causal=True), dict(causal=True, window=24)):
+        tq, tk, tv = (torch.from_numpy(a).requires_grad_()
+                      for a in (q, k, v))
+        o_t = tring.ring_attention(tq, tk, tv, tmesh, **kw)
+        g_t = torch.autograd.grad(o_t, (tq, tk, tv), do)
+        rq, rk, rv = (torch.from_numpy(a).requires_grad_()
+                      for a in (q, k, v))
+        o_r = flash_attention(rq, rk, rv, **kw)
+        g_r = torch.autograd.grad(o_r, (rq, rk, rv), do)
+        assert o_t.dtype == torch.float32 and o_t.shape == o_r.shape
+        assert_close(o_t, o_r.detach().numpy(), GATE, f"d=256 ring O {kw}")
+        _assert_grads(g_t, [g.numpy() for g in g_r], GATE,
+                      f"d=256 ring {kw}")
+
+
 def test_ring_ragged_over_eight_ranks():
     """N = 100 over 8 ranks, as the JAX package's own test cuts it:
     forward against JAX, gradients against one device."""
