@@ -394,6 +394,25 @@ Phases, each of which raises on failure (so the script exits non-zero):
    plain attention functions at full depth; one split-backward step (K2
    = K3 = 26); the windowed model (window 1024) the same way; 10 Adam
    steps at full depth that lower the loss (no cut of depth or width).
+30. The mesh across processes (`_phase_multiprocess`, after the
+   distributed layer's phases): the launcher
+   (`python -m cuda_flashattention_torch.scripts.launch_multihost`) runs
+   ladder stages 01 and 04 at 2 processes x 2 ranks on card 0, whose
+   processes share the card (the staged transport: device, pinned host
+   buffer, gloo, device); then `utils/multiprocess_paths.py` over 4
+   processes of one rank: the causal ring forward + backward at B=1
+   H=16 N=16384 against the same ring in one process (O min(5e-3, 2e-2 ·
+   max), each gradient 2e-2 · max; forward and K4 launches summed over
+   the processes 10 each), ring decode B=8 over a 16384-token cache
+   within 5e-3 of K6 on the whole cache (K6 4), and the sp4 and tp2·sp2
+   train steps of the 271M config at B=1 x T=16384 (3 timed steps;
+   launches as the one-process steps') against the same weights without
+   a mesh (loss 2e-2, every gradient 5e-2 relative L2); per process its
+   launches, ms, bytes moved between processes, host wait on them and
+   peak GiB, beside the one-process ring's and step's ms. With two or
+   more cards the ring and the sp step again on NCCL, one process per
+   card; with one card a line says they were skipped. Every launch runs
+   under a timeout.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; a kernel's `launches` in the JSON line is its sum over
@@ -401,8 +420,8 @@ those runs (the three `generate()` runs, the four chunked-serving runs,
 the paged lifecycle, the two FA1 calls, the timed training steps of both
 models, the split-backward step, the ring-attention cases, Ulysses, the
 ring-decode calls, the sequence- and tensor-parallel train steps, the
-pipelined
-forward, the device-ring stage, the tuned serving runs, the checkpointed
+multi-process ring, ring decode and train steps (summed over their
+processes), the pipelined forward, the device-ring stage, the tuned serving runs, the checkpointed
 and traced train steps; for the fp32 forms the ladder's stages 03
 to 06, the fp32 `flash_attention` path with its fused and split
 backward, the fp32 `generate()` runs, the fp32 chunked-serving runs, the
@@ -1047,6 +1066,7 @@ def _phase_model_parallel(ctx, mesh, tag, **axes):
         f"{card}: {torch.cuda.max_memory_allocated(card) / 2**30:.2f} GiB"
         for card in cards)
     step_ms = statistics.median(step_s) * 1e3
+    ctx.step_ms[tag] = [x * 1e3 for x in step_s]
     print(f"[{tag}] 271M config, B=1 T={SP_T}, mesh {mesh.shape} "
           f"{axes}, SGD(1e-4), every layer on the ranks: launches over "
           f"{SP_STEPS} steps: forward {n_fwd} (online {forms['online']}, "
@@ -1131,6 +1151,214 @@ def _phase_gpipe(ctx):
            f"pipeline_forward logits off by {e:.3e}")
     _check(n_fwd == tcfg.n_layers * PP_MICRO,
            f"pipeline_forward launched the forward {n_fwd} times")
+
+
+MP_TIMEOUT = 240  # seconds for one launch's processes
+
+
+def _mp_run(ctx, nproc, per, command, env=None):
+    """`python -m cuda_flashattention_torch.scripts.launch_multihost -np
+    nproc --devices-per-proc per -m command...` from the checkout, under
+    the launcher's timeout (which stops its processes) and a later one of
+    its own (which stops the launcher's whole process group); its stdout
+    and seconds. A nonzero exit fails the run."""
+    import os
+    import signal
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m",
+           "cuda_flashattention_torch.scripts.launch_multihost", "-np",
+           str(nproc), "--devices-per-proc", str(per), "--timeout",
+           str(MP_TIMEOUT), "-m", *command]
+    t0 = time.perf_counter()
+    p = subprocess.Popen(cmd, cwd=root, env=dict(
+        os.environ, PYTHONPATH=root, **(env or {})), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = p.communicate(timeout=MP_TIMEOUT + 60)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        out, err = p.communicate()
+    _check(p.returncode == 0, f"launch of {command[0]} ({nproc} x {per}) "
+           f"exited {p.returncode}:\n{out[-3000:]}\n{err[-3000:]}")
+    return out, time.perf_counter() - t0
+
+
+def _mp_paths(ctx, nproc, per, paths, options, env=None):
+    """utils/multiprocess_paths.py --check over `paths` in `nproc`
+    processes of `per` ranks: every process's report and the seconds of
+    the launch."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as out:
+        _, secs = _mp_run(ctx, nproc, per, [
+            "cuda_flashattention_torch.utils.multiprocess_paths", "--out",
+            out, "--check", *options, *paths], env)
+        return [json.loads(open(f"{out}/p{p}.json").read())
+                for p in range(nproc)], secs
+
+
+def _mp_per_process(reports, path):
+    """One line of each process's numbers on `path`."""
+    rows = []
+    for r in reports:
+        i = r["paths"][path]
+        lx = i["launches"]
+        f = lx["forms"]
+        rows.append(
+            f"p{r['process']}: fwd {f['online'] + f['bound'] + f['kmajor']} "
+            f"(online {f['online']}, bound {f['bound']}, K-major "
+            f"{f['kmajor']}), K4 {lx['bwd']['fused']}, K6 {lx['decode']}; "
+            + (f"{i['ms']:.1f} ms; " if "ms" in i else
+               f"steps {', '.join(f'{x:.1f}' for x in i['step_ms'])} ms; ")
+            + f"moved {i['moved_bytes'] / 2**20:.1f} MiB, waited "
+              f"{i['wait_s'] * 1e3:.1f} ms; peak {i['peak_gib']:.2f} GiB")
+    return "; ".join(rows)
+
+
+def _mp_launches(ctx, reports, path):
+    """The launches of `path` summed over the processes (added to the
+    run's per-kernel sums): (forward, K4, K6)."""
+    fwd = k4 = k6 = 0
+    for r in reports:
+        lx = r["paths"][path]["launches"]
+        for form, kn in (("online", "K1"), ("bound", "K1b"),
+                         ("kmajor", "K5")):
+            ctx.launches[kn] += lx["forms"][form]
+            fwd += lx["forms"][form]
+        ctx.launches["K4"] += lx["bwd"]["fused"]
+        ctx.launches["K6"] += lx["decode"]
+        k4, k6 = k4 + lx["bwd"]["fused"], k6 + lx["decode"]
+    return fwd, k4, k6
+
+
+MP_STEPS = 2  # timed train steps across processes (staged: ~4 s each)
+
+
+def _phase_multiprocess(ctx):
+    """The mesh across processes, through the launcher on this machine's
+    card: ladder stages 01 and 04 at 2 processes x 2 ranks (processes
+    sharing card 0: the staged transport); then, over 4 processes of one
+    rank, the causal ring forward + backward at N = 16384 and ring decode
+    (B = 8 over a 16384-token cache) against the same calls in one
+    process (the ring's gates; decode 5e-3 against K6 on the whole
+    cache), and the sp4 and tp2·sp2 train steps of the 271M config at
+    B=1 x T=16384 against the same weights without a mesh (loss 2e-2,
+    every gradient 5e-2 relative L2); per process its launches, ms, bytes
+    moved, host wait and peak GiB. Two launches; the NCCL run, which
+    needs two or more cards, is `_phase_multiprocess_nccl`."""
+    import torch.distributed as dist
+    t_phase = time.perf_counter()
+    nccl = dist.is_nccl_available()
+    print(f"[mp] torch.distributed: gloo {dist.is_gloo_available()}, NCCL "
+          f"{nccl}" + (f" {'.'.join(map(str, ctx.torch.cuda.nccl.version()))}"
+                       if nccl else ""), flush=True)
+    out, secs = _mp_run(ctx, 2, 2, ["cuda_flashattention_torch.examples",
+                                    "ppermute_verify", "ring_attention"])
+    lines = [x for x in out.splitlines() if "over 2 processes" in x]
+    print(f"[mp-ladder] stages 01 and 04 at 2 processes x 2 ranks: "
+          + " | ".join(lines) + f" ({secs:.1f} s)", flush=True)
+    _check(out.count("Test PASSED!") == 2 and "transport staged" in out,
+           f"multi-process ladder stages: {out[-1500:]}")
+    reports, secs = _mp_paths(ctx, 4, 1, ["ring_causal", "decode", "train"],
+                              _MP_RING + _MP_TRAIN + [
+                                  "--axes", "sp=4", "--axes", "tp=2,sp=2"])
+    _mp_report_ring(ctx, reports, "staged", "processes sharing card 0")
+    for axes, tag in (("sp=4", "sp-train"), ("tp=2,sp=2", "tp-sp-train")):
+        _mp_report_train(ctx, reports, f"train[{axes}]", "staged", tag)
+    print(f"[mp] 4-process launch {secs:.1f} s (joining the group "
+          + ", ".join(f"{r['join_s']:.1f}" for r in reports)
+          + f" s); phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def _phase_multiprocess_nccl(ctx):
+    """With two or more cards: the causal ring and the sp step again over
+    NCCL, one process per card (up to 4), as `_phase_multiprocess` holds
+    them; with one card, a line says that they were skipped."""
+    cards = ctx.torch.cuda.device_count()
+    if cards < 2:
+        print("[mp-nccl] one card visible: the NCCL ring and sp step (one "
+              "process per card) are skipped", flush=True)
+        return
+    n = min(cards, 4)
+    reports, secs = _mp_paths(ctx, n, 1, ["ring_causal", "train"],
+                              _MP_RING + _MP_TRAIN + ["--axes", f"sp={n}"])
+    _mp_report_ring(ctx, reports, "nccl", f"one process per card, {n} "
+                    f"cards")
+    _mp_report_train(ctx, reports, "train", "nccl", "sp-train-cards")
+    print(f"[mp-nccl] {n}-process launch {secs:.1f} s", flush=True)
+
+
+_MP_RING = ["--dtype", "bf16", "--batch", "1", "--heads", str(RING_H),
+            "--kv-heads", str(RING_H), "--d", "128", "--seq", str(RING_N),
+            "--decode-batch", str(DECODE_B)]
+_MP_TRAIN = ["--model", "271m", "--train-seq", str(SP_T), "--steps",
+             str(MP_STEPS)]
+
+
+def _mp_report_ring(ctx, reports, transport, where):
+    """The ring's (and, where it ran, ring decode's) lines and gates."""
+    nproc = len(reports)
+    _check(all(r["transport"] == transport for r in reports),
+           f"transports {[r['transport'] for r in reports]}")
+    p0 = reports[0]["paths"]
+    fwd, k4, _ = _mp_launches(ctx, reports, "ring_causal")
+    tri = nproc * (nproc + 1) // 2
+    e = p0["ring_causal"]["errors"]
+    share = max(r["paths"]["ring_causal"]["wait_s"] * 1e3
+                / r["paths"]["ring_causal"]["ms"] for r in reports)
+    print(f"[mp-ring] causal B=1 H={RING_H} N={RING_N} over {nproc} "
+          f"processes of one rank ({where}; transport {transport}): "
+          f"launches summed fwd {fwd}, K4 {k4} (expect {tri} each); vs the "
+          f"one-process {nproc}-rank ring: "
+          + ", ".join(f"{k} {v[0]:.3e}/{v[1]:.3e}" for k, v in e.items())
+          + f"; forward + backward {p0['ring_causal']['ms']:.1f} ms on p0 "
+          f"against {p0['ring_causal']['alone_ms']:.1f} ms in one process; "
+          f"host waits on transfers at most {share:.1%} of a process's "
+          f"call; {_mp_per_process(reports, 'ring_causal')} ({ctx.card})",
+          flush=True)
+    _check(fwd == tri and k4 == tri, f"mp ring launches {fwd} {k4}")
+    _check(e["o"][0] <= min(GATE, REL_GATE * e["o"][1]), f"mp ring O {e['o']}")
+    for g in ("dq", "dk", "dv"):
+        _check(e[g][1] > 0 and e[g][0] <= BWD_GATE * e[g][1],
+               f"mp ring {g} {e[g]}")
+    if "decode" not in p0:
+        return
+    _, _, k6 = _mp_launches(ctx, reports, "decode")
+    e = p0["decode"]["errors"]
+    print(f"[mp-decode] ring_decode B={DECODE_B} over a {RING_N}-token "
+          f"cache, {nproc} processes: K6 {k6} (expect {nproc}); vs K6 on the "
+          f"whole cache O {e['o@whole'][0]:.3e}, LSE {e['lse@whole'][0]:.3e}; "
+          f"vs one process O {e['o'][0]:.3e}; {p0['decode']['ms']:.1f} ms "
+          f"on p0, {p0['decode']['alone_ms']:.1f} ms in one process "
+          f"({ctx.card})", flush=True)
+    _check(k6 == nproc, f"mp decode launches {k6}")
+    _check(all(v[0] <= GATE for v in e.values()), f"mp decode {e}")
+
+
+def _mp_report_train(ctx, reports, path, transport, tag):
+    """A train path's line and gates, beside the one-process step `tag`."""
+    nproc = len(reports)
+    fwd, k4, _ = _mp_launches(ctx, reports, path)
+    tp = 2 if "tp=" in path else 1
+    sp = nproc // tp
+    expect = MP_STEPS * TRAIN_KW["n_layers"] * tp * sp * (sp + 1) // 2
+    i0 = reports[0]["paths"][path]
+    e = i0["errors"]
+    worst = max((k for k in e if k != "loss"), key=lambda k: e[k][2])
+    step = statistics.median(i0["step_ms"])
+    one = ctx.step_ms.get(tag)
+    print(f"[mp-train] 271M config, B=1 T={SP_T}, {path} over {nproc} "
+          f"processes ({transport}): launches summed fwd {fwd}, K4 {k4} "
+          f"(expect {expect} each); loss |d| {e['loss'][0]:.3e} (gate "
+          f"{LOSS_GATE}); worst gradient relative L2 {e[worst][2]:.3e} "
+          f"({worst}; gate {GRAD_GATE}); step {step:.1f} ms on p0 "
+          + (f"against {statistics.median(one):.1f} ms for the one-process "
+             f"{tag} step " if one else "")
+          + f"(losses {i0['losses']}); {_mp_per_process(reports, path)} "
+          f"({ctx.card})", flush=True)
+    _check(fwd == expect and k4 == expect,
+           f"mp {path} launches {fwd} {k4}")
+    _check(e["loss"][0] <= LOSS_GATE and e[worst][2] <= GRAD_GATE,
+           f"mp {path}: loss {e['loss']}, {worst} {e[worst]}")
 
 
 def _k9_bound(ring_devices, rows, d, f32=False):
@@ -7042,7 +7270,7 @@ def main() -> int:
         torch=torch, dev=dev, card=card, gen=gen, mk=mk, diff=diff,
         o_close=o_close, zero_counts=zero_counts, rec=rec,
         launches=launches, fwd_forms=fwd_forms, bwd_launches=bwd_launches,
-        l2_flush=l2_flush)
+        l2_flush=l2_flush, step_ms={})
     n_cards = torch.cuda.device_count()
     shared = f"{RING_RANKS} ranks share card 0"
     print(f"[mesh] {n_cards} card(s) visible: the ranks of every mesh share "
@@ -7081,6 +7309,9 @@ def main() -> int:
     else:
         print("[sp-train-cards] one card visible: the sp step over distinct "
               "cards is skipped", flush=True)
+    torch.cuda.empty_cache()
+    _phase_multiprocess(ctx)
+    _phase_multiprocess_nccl(ctx)
 
     # ---- 15-16. fp32: the kernels' fp32 builds and the ladder ------------
     torch.cuda.empty_cache()

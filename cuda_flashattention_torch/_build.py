@@ -10,12 +10,15 @@ Each C entry point returns `cudaGetLastError()` after its launch;
 `check()` turns a non-zero code into an exception.
 
 Nothing here runs at import: `library()` builds and loads on its first
-call, which only a wrapper handed a CUDA tensor makes.
+call, which only a wrapper handed a CUDA tensor makes; `ensure_built()`
+builds without loading (the multi-process launcher's step before it
+starts its processes).
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -202,14 +205,28 @@ def _build(out: Path) -> None:
     build_seconds = time.perf_counter() - t0
 
 
+def ensure_built() -> Path:
+    """The kernels' shared library on disk, built if it is not there. The
+    build holds a lock file beside the libraries, so that of several
+    processes starting at once (a multi-process launch) one runs nvcc and
+    the others wait for its library."""
+    path = _library_path(sources())
+    if path.exists():
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not path.exists():
+            _build(path)
+    return path
+
+
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on first call."""
     global _lib
     with _lock:
         if _lib is None:
-            path = _library_path(sources())
-            if not path.exists():
-                _build(path)
+            path = ensure_built()
             lib = ctypes.CDLL(str(path))
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)

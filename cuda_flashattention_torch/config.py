@@ -63,6 +63,25 @@ LADDER_SEQ = Knob(
     "Sequence length of the ladder's ring stages (examples/_ladder.py: "
     "the reference's 5096; the CPU tests use a shorter one).")
 
+# Multi-process launch (set by scripts/launch_multihost.py, the mpirun
+# equivalent; read by examples/_ladder.bootstrap and
+# parallel/mesh.initialize_distributed):
+COORD = Knob("CFA_COORD", "", "Coordinator address host:port.")
+NPROC = Knob("CFA_NPROC", "1", "Total process count.")
+PID = Knob("CFA_PID", "0", "This process's id.")
+LOCAL_RANKS = Knob(
+    "CFA_LOCAL_RANKS", "1",
+    "Mesh ranks each process puts on its device (the launcher's "
+    "--devices-per-proc).")
+CPU = Knob(
+    "CFA_CPU", "0",
+    "1 → the processes of a group run on the CPU (the launcher's --cpu); "
+    "else each takes a card and raises without one.")
+DIST_TIMEOUT_S = Knob(
+    "CFA_DIST_TIMEOUT_S", "300",
+    "Seconds a process of a group waits for a peer (its joining, a "
+    "receive) before it raises.")
+
 
 def all_knobs() -> Dict[str, Knob]:
     return {k: v for k, v in globals().items() if isinstance(v, Knob)}

@@ -37,7 +37,11 @@ per device one copy of each replicated leaf and of each slice its ranks
 use, shared by the ranks on that device, so that autograd sums their
 gradients there and `ShardedTransformer.sync_grads` adds the devices'
 copies. `gather_model` reads a placed model back whole. `pipeline_forward` runs the layer stack
-as a GPipe pipeline (parallel/pipeline.py).
+as a GPipe pipeline (parallel/pipeline.py). On a mesh that spans
+processes (`parallel/mesh.initialize_distributed`) each process places
+and runs its own ranks, the loss adds every rank's NLL in every process,
+`sync_grads` sums across processes and `gather_model` gives every
+process the whole model.
 """
 
 from __future__ import annotations
@@ -300,7 +304,9 @@ def loss_fn(model, tokens: torch.Tensor, **fwd_kw) -> torch.Tensor:
     cut, so the last row of a sequence block keeps its target in the next
     block; each rank sums the NLL of its rows (the global last position
     and the padding have none) and the ranks' sums are added on the
-    tokens' device and divided by B · (T − 1)."""
+    tokens' device and divided by B · (T − 1) (across processes, every
+    process adds every rank's sum, in rank order: the same loss
+    everywhere, with gradients reaching its own ranks)."""
     block_sizes = fwd_kw.pop("block_sizes", None)
     plan = _plan_for(model, tokens, **fwd_kw)
     if plan is None:
@@ -316,7 +322,10 @@ def loss_fn(model, tokens: torch.Tensor, **fwd_kw) -> torch.Tensor:
 
     per_rank = _forward_ranks(model, tokens, plan, nll_sum, block_sizes)
     b, t = tokens.shape
-    total = sum(x.to(tokens.device) for x in per_rank.values())
+    like = torch.empty((), dtype=torch.float32, device=tokens.device)
+    total = sum(plan.mesh.share(
+        per_rank[r].to(tokens.device) if r in per_rank else None, r, like)
+        for r in plan.ranks)
     return total / (b * (t - 1))
 
 
@@ -377,6 +386,11 @@ class _MeshPlan:
             c == 0 for a, c in self.mesh.coords(r).items()
             if a not in named))
 
+    @property
+    def local_ranks(self) -> Tuple[int, ...]:
+        """The working ranks of this process."""
+        return tuple(self.mesh.local(self.ranks))
+
     def replica_axes(self, name: str) -> Tuple[str, ...]:
         """The mesh axes over which a leaf (by its `layer_weights` name,
         or `embed` / `final_norm`) has copies: the data and sequence axes,
@@ -388,13 +402,13 @@ class _MeshPlan:
 
     def owners(self, axes: Tuple[str, ...]) -> Dict[int, int]:
         """{rank: the rank whose copy of a leaf it uses}, for a leaf with
-        copies over `axes`: the first rank on its device among the ranks
-        that differ from it only on `axes`."""
+        copies over `axes`: the first rank on its device (of its process)
+        among the ranks that differ from it only on `axes`."""
         out = {}
         for fiber in self.mesh.fibers(axes, self.ranks):
-            first: Dict[torch.device, int] = {}
+            first: Dict[Any, int] = {}
             for r in fiber:
-                out[r] = first.setdefault(self.mesh.device(r), r)
+                out[r] = first.setdefault(self.mesh.place(r), r)
         return out
 
 
@@ -488,10 +502,10 @@ def _scatter_rows(plan: _MeshPlan, xs):
 def _forward_ranks(model, tokens: torch.Tensor, plan: _MeshPlan, head,
                    block_sizes: Optional[BlockSizes] = None
                    ) -> Dict[int, torch.Tensor]:
-    """Every layer on the ranks: {rank: head(rank, fp32 logits of the
-    rank's rows)}, computed on the rank's stream."""
+    """Every layer on this process's ranks: {rank: head(rank, fp32 logits
+    of the rank's rows)}, computed on the rank's stream."""
     cfg, mesh = model.cfg, plan.mesh
-    ranks = plan.ranks
+    ranks = plan.local_ranks
     b, t = tokens.shape
     n_b, ell = b // plan.size(plan.batch_axis), _block_len(plan, t)
     out = {}
@@ -554,14 +568,22 @@ def _forward_ranks(model, tokens: torch.Tensor, plan: _MeshPlan, head,
 
 def _assemble(plan: _MeshPlan, per_rank: Dict[int, torch.Tensor],
               tokens: torch.Tensor) -> torch.Tensor:
-    """The ranks' logits rows → [B, T, V] on the tokens' device."""
+    """The ranks' logits rows → [B, T, V] on the tokens' device (every
+    process gathers every rank's, `Mesh.share`)."""
     b, t = tokens.shape
     n_b, ell = b // plan.size(plan.batch_axis), _block_len(plan, t)
     dev = tokens.device
+    vocab = next(iter(per_rank.values())).shape[-1]
     blocks = {}
     for r in plan.ranks:
         key = (plan.index(r, plan.batch_axis), plan.index(r, plan.seq_axis))
-        blocks.setdefault(key, []).append(per_rank[r].to(dev))
+        # the rank's piece of the block's n_b · L rows (`_rank_rows`)
+        rows = torch.empty(n_b * ell, device="meta").tensor_split(
+            plan.size(plan.head_axis))[plan.index(r, plan.head_axis)]
+        like = torch.empty((rows.numel(), vocab), dtype=torch.float32,
+                           device=dev)
+        blocks.setdefault(key, []).append(plan.mesh.share(
+            per_rank[r].to(dev) if r in per_rank else None, r, like))
     rows = [torch.cat([torch.cat(blocks[(bi, si)]).view(n_b, ell, -1)
                        for si in range(plan.size(plan.seq_axis))], dim=1)
             for bi in range(plan.size(plan.batch_axis))]
@@ -587,12 +609,12 @@ class _RankParams(nn.Module):
 
 
 class ShardedTransformer(nn.Module):
-    """A `Transformer` placed on a mesh (`shard_model`): per rank, its
-    slices and copies as `nn.Parameter`s on the rank's device, kept there
-    between steps; ranks on one device share them (`parameters()` yields
-    each once). On a card the ranks' streams then add into one gradient:
-    autograd orders each add after the stream that produced it, and
-    PyTorch warns once that the streams differ. `forward`, `loss_fn` and
+    """A `Transformer` placed on a mesh (`shard_model`): per rank of this
+    process, its slices and copies as `nn.Parameter`s on the rank's
+    device, kept there between steps; ranks on one device share them
+    (`parameters()` yields each once). On a card the ranks' streams then
+    add into one gradient: autograd orders each add after the stream that
+    produced it, and PyTorch warns once that the streams differ. `forward`, `loss_fn` and
     `make_train_step` run it on its ranks; `gather_model` reads it back
     whole."""
 
@@ -616,8 +638,9 @@ class ShardedTransformer(nn.Module):
         over the data and sequence axes for all leaves, over the tensor
         axis too for the norms and the embedding. One `all_reduce` per
         group of leaves that share their replica axes, on their flattened
-        gradients, over one rank per device; none where each group of
-        replicas sits on one device. A missing gradient counts as zeros."""
+        gradients, over one rank per device (and process); none where each
+        group of replicas sits on one device. A missing gradient counts as
+        zeros."""
         plan, w = self.plan, self.weights()
         buckets: Dict[Tuple[str, ...], list] = {}
         for name in _LEAVES:
@@ -632,7 +655,7 @@ class ShardedTransformer(nn.Module):
             if not groups:
                 continue
             params = {r: [p for name in members for p in _leaves(w[r], name)]
-                      for g in groups for r in g}
+                      for g in groups for r in plan.mesh.local(g)}
             flat = {}
             for r, ps in params.items():
                 with plan.mesh.on(r):
@@ -661,11 +684,13 @@ def shard_model(model: Transformer, mesh: Mesh,
                 head_axis: Optional[str] = None) -> ShardedTransformer:
     """Place `model` on `mesh`, once: the counterpart of
     `jax.device_put(params, param_shardings(...))`. Each working rank
-    (index 0 on the axes not named) gets `shard_param`'s slice of every
-    matrix under `head_axis` and a copy of every replicated leaf, as new
-    `nn.Parameter`s on its device. Ranks that share a device use one
-    parameter for one slice or copy (`_MeshPlan.owners`), as a device
-    holds one copy of a replicated JAX array. `model` is left as it was.
+    (index 0 on the axes not named) of this process gets `shard_param`'s
+    slice of every matrix under `head_axis` and a copy of every replicated
+    leaf, as new `nn.Parameter`s on its device (every process holds the
+    whole `model`, made from the same seed, and places its own ranks).
+    Ranks that share a device use one parameter for one slice or copy
+    (`_MeshPlan.owners`), as a device holds one copy of a replicated JAX
+    array. `model` is left as it was.
     Build the optimizer over the result's parameters."""
     plan = _make_plan(model.cfg, mesh, batch_axis, seq_axis, head_axis)
     specs = param_shardings(model, mesh, head_axis=head_axis)
@@ -675,8 +700,8 @@ def shard_model(model: Transformer, mesh: Mesh,
         owners = plan.owners(plan.replica_axes(name))
         made = {o: nn.Parameter(slices[o].clone(
             memory_format=torch.contiguous_format))
-            for o in set(owners.values())}
-        return {r: made[owners[r]] for r in plan.ranks}
+            for o in {owners[r] for r in plan.local_ranks}}
+        return {r: made[owners[r]] for r in plan.local_ranks}
 
     tree = _weight_tree(model)
     embed = place(tree["embed"], specs["embed"], "embed")
@@ -686,7 +711,7 @@ def shard_model(model: Transformer, mesh: Mesh,
     trees = {r: dict(embed=embed[r], final_norm=final[r],
                      layers=[{n: c[r] for n, c in lw.items()}
                              for lw in layers])
-             for r in plan.ranks}
+             for r in plan.local_ranks}
     return ShardedTransformer(model.cfg, plan, trees)
 
 
@@ -697,27 +722,35 @@ def gather_model(model: ShardedTransformer, device=None) -> Transformer:
     from its slices, each replicated leaf from the first rank's copy, and
     likewise their gradients where every piece has one (after
     `sync_grads`, which sums those of the replicated leaves over their
-    devices)."""
+    devices). Across processes every process gets the whole model: each
+    piece comes from the process of its rank (`Mesh.share`)."""
     plan = model.plan
-    first = plan.ranks[0]
-    dev = torch.device(device) if device is not None else \
-        plan.mesh.device(first)
-    tp_ranks = (plan.mesh.axis_ranks(plan.head_axis,
-                                     **plan.mesh.coords(first))
+    mesh, first = plan.mesh, plan.ranks[0]
+    dev = torch.device(device) if device is not None else mesh.home
+    tp_ranks = (mesh.axis_ranks(plan.head_axis, **mesh.coords(first))
                 if plan.head_axis else [first])
     w = model.weights()
     out = Transformer(model.cfg, torch.Generator(device=dev))
     for name in _LEAVES:
         dst = _leaves(_weight_tree(out), name)
-        pieces = [_leaves(w[r], name) for r in tp_ranks]
+        ranks = tp_ranks if name in _TP_DIM else tp_ranks[:1]
+        dim = _TP_DIM.get(name, 0)
+        pieces = {r: _leaves(w[r], name) for r in mesh.local(ranks)}
         for i, p in enumerate(dst):
-            parts = [leaves[i] for leaves in pieces]
-            if name not in _TP_DIM:
-                parts = parts[:1]
-            dim = _TP_DIM.get(name, 0)
-            p.copy_(torch.cat([x.detach().to(dev) for x in parts], dim))
-            if all(x.grad is not None for x in parts):
-                p.grad = torch.cat([x.grad.to(dev) for x in parts], dim)
+            parts, grads = [], []
+            for r, like in zip(ranks, p.chunk(len(ranks), dim)):
+                x = pieces[r][i] if r in pieces else None
+                parts.append(mesh.share(
+                    None if x is None else x.detach().to(dev), r, like))
+                has = mesh.share(None if x is None else torch.tensor(
+                    [x.grad is not None], device=dev), r,
+                    torch.empty(1, dtype=torch.bool, device=dev))
+                grads.append(mesh.share(
+                    None if x is None else x.grad.to(dev), r, like)
+                    if has.item() else None)
+            p.copy_(torch.cat(parts, dim))
+            if all(g is not None for g in grads):
+                p.grad = torch.cat(grads, dim)
     return out
 
 
@@ -787,12 +820,13 @@ def param_shardings(model: Transformer, mesh: Mesh, batch_axis: str = "dp",
 
 def shard_param(w: torch.Tensor, spec: Tuple[Optional[str], ...],
                 mesh: Mesh) -> Dict[int, torch.Tensor]:
-    """The slice of `w` that each rank of the mesh holds under `spec` (a
-    leaf of `param_shardings`): {rank: slice, on the rank's device}. The
-    slices are views of `w` where a rank shares its device, copies
-    otherwise (`shard_model` copies them into the placed parameters)."""
+    """The slice of `w` that each rank of the mesh in this process holds
+    under `spec` (a leaf of `param_shardings`): {rank: slice, on the
+    rank's device}. The slices are views of `w` where a rank shares its
+    device, copies otherwise (`shard_model` copies them into the placed
+    parameters)."""
     out = {}
-    for rank in range(mesh.size):
+    for rank in mesh.local(range(mesh.size)):
         coords = mesh.coords(rank)
         piece = w
         for dim, axis in enumerate(spec):

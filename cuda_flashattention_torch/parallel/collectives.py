@@ -7,9 +7,12 @@ groups of the axis (`Mesh.fibers`: every choice of the other coordinates
 is one group, in `Mesh.axis_ranks` order) and returns the same. All
 groups of one call run in one fork/join of the rank streams
 (`Mesh.region`). A rank gets another rank's tensor through `Mesh.send`
-(a copy on its copy stream) when the two sit on different devices; ranks
-that share a device read each other's tensors in place, with only their
-streams ordered, and never copy to themselves. Each call ends in a
+(a copy on its copy stream) when the two sit on different devices or in
+different processes; ranks of one process that share a device read each
+other's tensors in place, with only their streams ordered, and never copy
+to themselves. On a mesh that spans processes each process passes and
+gets back the tensors of its own ranks, and a group's tensors have one
+shape and dtype (a receiver allocates from its own). Each call ends in a
 barrier of every group's compute streams, so that no rank reuses the
 memory of a tensor before the other ranks have read it.
 
@@ -39,7 +42,7 @@ its two halves.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Union
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 
@@ -51,9 +54,15 @@ Shards = Dict[int, torch.Tensor]
 calls = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
 
 
-def _fetch(mesh: Mesh, reg: _Region, x: torch.Tensor, src: int,
-           dst: int) -> torch.Tensor:
-    """`x`, which rank `src` holds, readable on rank `dst`'s stream."""
+def _fetch(mesh: Mesh, reg: _Region, x: Optional[torch.Tensor], src: int,
+           dst: int, like) -> Optional[torch.Tensor]:
+    """`x`, which rank `src` holds, readable on rank `dst`'s stream; None
+    where `dst` runs in another process (after posting `src`'s side where
+    `src` runs here). A piece from another process is received into a
+    tensor shaped as `like`."""
+    if not (mesh.is_local(src) and mesh.is_local(dst)):
+        moving = mesh.send(x, src, dst, like=like)
+        return None if moving is None else moving.wait()
     if mesh.device(src) != mesh.device(dst):
         reg.keep(x)
         return mesh.send(x, src, dst).wait()
@@ -68,12 +77,15 @@ def _collective(mesh: Mesh, axes: Axes, xs: Shards, body,
                 groups=None) -> Shards:
     """Run body(reg, group) for each group of `axes` over the ranks of
     `xs` (or for each of `groups`), in one region, then a barrier per
-    group; the union of the groups' {rank: result}."""
+    group; the union of the groups' {rank: result}. On a mesh that spans
+    processes `xs` holds this process's ranks and the groups take in the
+    other processes' (`Mesh.fibers`)."""
     if groups is None:
         groups = mesh.fibers(axes, list(xs))
+    groups = [g for g in groups if mesh.local(g)]
     ranks = [r for g in groups for r in g]
     out: Shards = {}
-    with mesh.region(ranks, mesh.device(ranks[0])) as reg:
+    with mesh.region(ranks, mesh.home) as reg:
         for group in groups:
             out.update(body(reg, group))
         for group in groups:
@@ -84,27 +96,40 @@ def _collective(mesh: Mesh, axes: Axes, xs: Shards, body,
 def _sum_pieces(mesh, reg, xs, group, dim):
     """Piece j of the group's sum on `dim`, on the group's j-th rank."""
     n = len(group)
-    pieces = {r: xs[r].tensor_split(n, dim) for r in group}
+    mine = mesh.local(group)
+    pieces = {r: xs[r].tensor_split(n, dim) for r in mine}
+    shapes = xs[mine[0]].tensor_split(n, dim)
     out = {}
     for j, dst in enumerate(group):
-        with mesh.on(dst):
-            acc = None
-            for src in group:
-                p = _fetch(mesh, reg, pieces[src][j], src, dst)
+        acc = None
+        for src in group:
+            p = _fetch(mesh, reg, pieces.get(src, [None] * n)[j], src, dst,
+                       shapes[j])
+            if p is None:
+                continue
+            with mesh.on(dst):
                 if acc is None:
                     acc = p.to(torch.float32, copy=True)
                 else:
                     acc.add_(p)
-            out[dst] = acc.to(xs[dst].dtype)
+        if acc is not None:
+            with mesh.on(dst):
+                out[dst] = acc.to(xs[dst].dtype)
     return out
 
 
-def _concat(mesh, reg, xs, group, dim):
+def _concat(mesh, reg, xs, group, dim, likes=None):
+    """The group's tensors concatenated on `dim`, on each of its ranks; a
+    tensor from another process is shaped as likes[i] for the group's
+    i-th rank (default: as this process's first)."""
+    likes = likes or [xs[mesh.local(group)[0]]] * len(group)
     out = {}
     for dst in group:
-        with mesh.on(dst):
-            out[dst] = torch.cat(
-                [_fetch(mesh, reg, xs[src], src, dst) for src in group], dim)
+        parts = [_fetch(mesh, reg, xs.get(src), src, dst, like)
+                 for src, like in zip(group, likes)]
+        if mesh.is_local(dst):
+            with mesh.on(dst):
+                out[dst] = torch.cat(parts, dim)
     return out
 
 
@@ -130,10 +155,12 @@ def all_reduce(mesh: Mesh, axes: Axes, xs: Shards, groups=None) -> Shards:
     calls["all_reduce"] += 1
 
     def body(reg, group):
-        flat = {r: xs[r].reshape(-1) for r in group}
+        mine = mesh.local(group)
+        flat = {r: xs[r].reshape(-1) for r in mine}
         part = _sum_pieces(mesh, reg, flat, group, 0)
-        whole = _concat(mesh, reg, part, group, 0)
-        return {r: whole[r].view(xs[r].shape) for r in group}
+        whole = _concat(mesh, reg, part, group, 0,
+                        flat[mine[0]].tensor_split(len(group)))
+        return {r: whole[r].view(xs[r].shape) for r in mine}
 
     return _collective(mesh, axes, xs, body, groups)
 

@@ -386,7 +386,18 @@ def device_ring_matmul(x: torch.Tensor, w: torch.Tensor, mesh: Mesh,
     the kernel's launches (one per card), `.last_grid` is the last
     launch's (spans per rank, ranks: a span is one CTA, two at d = 256
     in fp32), `.last_scope` its flags' scope
-    ("gpu": one card, "sys": across cards)."""
+    ("gpu": one card, "sys": across cards).
+
+    The ring is one process's: the kernel reaches its neighbours by
+    device pointers, which do not cross processes (that needs CUDA IPC
+    handles), so a mesh that spans processes raises ValueError, on the
+    CPU too."""
+    if mesh.spans_processes:
+        raise ValueError(
+            "device_ring_matmul runs a ring of one process (its kernel "
+            "reaches the neighbours' buffers by device pointers): a mesh "
+            "that spans processes is not supported: build the mesh over "
+            "this process's devices")
     if x.device != w.device:
         raise ValueError(f"w is on {w.device}, x on {x.device}")
     if x.device.type == "cpu":

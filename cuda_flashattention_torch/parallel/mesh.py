@@ -1,48 +1,86 @@
-"""Device mesh, per-rank streams and the rank-to-rank copy.
+"""Device mesh, per-rank streams and the rank-to-rank copy, in one
+process or over several.
 
 Counterpart of cuda_flashattention_tpu/parallel/mesh.py. The JAX package
-is single-controller: one process, a `Mesh` of devices, functions that
-take and return global arrays. The port is the same thing. A `Mesh` here
-is an array of `torch.device` with axis names; its entries may repeat, so
-that N ranks share one card (each with its own compute stream and copy
-stream) exactly as the JAX tests put 8 virtual devices on one CPU. The
-parallel functions (`ring_attention`, `ring_decode`, `ulysses_attention`,
-`gpipe_spmd`, `device_ring_matmul`) shard their global inputs over the
-ranks of a mesh axis, run each rank's part on that rank's device and
-stream, and gather a global result on the input's device.
+is single-controller: a `Mesh` of devices and functions that take and
+return global arrays, and under `jax.distributed` the same program runs in
+every process over one global device list. The port is the same thing. A
+`Mesh` here is an array of devices with axis names; a rank is an entry,
+and each entry is a device of this process or a `Place` (a process and its
+device) of the global list that `initialize_distributed` builds. Entries
+may repeat, so that N ranks share one card (each with its own compute
+stream and copy stream) exactly as the JAX tests put 8 virtual devices on
+one CPU. The parallel functions (`ring_attention`, `ring_decode`,
+`ulysses_attention`, `gpipe_spmd`, the collectives, the sharded model)
+run the ranks of this process (`Mesh.is_local`) and walk every rank's
+part of their host loops in the same order in every process, so that the
+transfers between processes pair up.
 
 This module owns the streams and the one primitive that moves a shard
-from rank a to rank b (`Mesh.send`): a `copy_` on the receiver's copy
-stream, ordered by events against the producer and the consumer; across
-cards it is a peer copy. Nothing here falls back to the CPU when a card
-is missing: `make_mesh` without `devices` takes the visible CUDA cards
-and raises when there are too few.
-
-A multi-process backing (`torch.distributed`, one process per card or per
-host) is not ported: `initialize_distributed` is a no-op for one process
-and raises NotImplementedError otherwise.
+from rank a to rank b (`Mesh.send`). Between ranks of one process it is a
+`copy_` on the receiver's copy stream, ordered by events against the
+producer and the consumer; across cards it is a peer copy. Between
+processes it is a point-to-point pair: the sender's process posts the
+send, the receiver's posts the receive into a buffer it allocates from the
+shape and dtype its caller gives (`like`), and a process that owns neither
+side does nothing. The transport is chosen once, from the device
+identities the processes exchange at `initialize_distributed`
+(`TRANSPORT`):
+  - "nccl": every process has a card of its own; NCCL send / recv on the
+    copy streams.
+  - "staged": processes share a card (NCCL refuses two ranks on one card):
+    device to a pinned host buffer on the sender's copy stream, gloo
+    isend / irecv (which takes no CUDA tensors), host to device on the
+    receiver's copy stream. The sender's host waits for its copy before
+    the send is posted.
+  - "gloo": every process runs on the CPU; gloo isend / irecv.
+Nothing falls back: a failed NCCL group raises, a peer that does not
+answer raises within the group's timeout, and `make_mesh` without
+`devices` takes the visible cards (or the global list) and raises when
+there are too few.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
+import dataclasses
+import datetime
+import json
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+import os
+import socket
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from cuda_flashattention_torch import config
+
+
+@dataclasses.dataclass(frozen=True)
+class Place:
+    """An entry of the global device list: a process and its device (as
+    that process names it)."""
+    process: int
+    device: torch.device
+
 
 class Transfer:
-    """A shard on its way to `rank`: `wait()` orders the rank's compute
-    stream after the copy and returns the tensor."""
+    """A shard on its way to `rank`: `wait()` finishes the receive where
+    it comes from another process, orders the rank's compute stream after
+    the copy and returns the tensor."""
 
     def __init__(self, mesh: "Mesh", rank: int, tensor: torch.Tensor,
-                 event: Optional["torch.cuda.Event"]):
+                 event: Optional["torch.cuda.Event"],
+                 finish: Optional[Callable[[], object]] = None):
         self._mesh, self._rank = mesh, rank
-        self._tensor, self._event = tensor, event
+        self._tensor, self._event, self._finish = tensor, event, finish
 
     def wait(self) -> torch.Tensor:
+        if self._finish is not None:
+            self._event, self._finish = self._finish(), None
         if self._event is not None:
             self._mesh.streams(self._rank)[0].wait_event(self._event)
         return self._tensor
@@ -61,33 +99,333 @@ class _Region:
         self._kept.extend(t for t in tensors if t is not None)
 
 
+# ---------------------------------------------------------------------------
+# The process group
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _World:
+    """This process's view of the group: its index, its device, the
+    global device list and the transport."""
+    process: int
+    nproc: int
+    device: torch.device
+    places: List[Place]
+    transport: str
+    nccl: object = None           # the NCCL group under "nccl"
+    seq: Dict[Tuple[int, int], int] = dataclasses.field(
+        default_factory=dict)     # messages posted per (from, to) process
+    sends: list = dataclasses.field(default_factory=list)  # not yet waited
+
+
+_DISTRIBUTED_INITIALIZED = False
+_WORLD: Optional[_World] = None
+# the transport between processes once a group of several is up: "nccl",
+# "staged" or "gloo" (module docstring); None in one process
+TRANSPORT: Optional[str] = None
+_TAG_LIMIT = 2 ** 31 - 1
+# what this process has moved to and from other processes: messages
+# posted, their bytes, and the host seconds spent waiting on them (the
+# staged sends' device-to-host copies, the receives, the sends' completion)
+transfer_stats = {"messages": 0, "bytes": 0, "wait_s": 0.0}
+
+
+def _waited(fn):
+    """fn(), its host time added to `transfer_stats["wait_s"]`."""
+    t0 = time.perf_counter()
+    try:
+        return fn()
+    finally:
+        transfer_stats["wait_s"] += time.perf_counter() - t0
+
+
+def process_index() -> int:
+    """This process's index in the group (0 without one)."""
+    return _WORLD.process if _WORLD is not None else 0
+
+
+def process_count() -> int:
+    return _WORLD.nproc if _WORLD is not None else 1
+
+
+def _identity(device: torch.device) -> str:
+    """What tells one device from another across processes: the card's
+    UUID on its host, or the process itself on the CPU."""
+    host = socket.gethostname()
+    if device.type == "cpu":
+        return f"{host}/cpu/{os.getpid()}"
+    return f"{host}/{torch.cuda.get_device_properties(device).uuid}"
+
+
+def choose_transport(identities: Sequence[str]) -> str:
+    """The transport for processes whose devices have these identities
+    (`_identity`): "gloo" when every one is a CPU, "nccl" when each is a
+    card of its own, "staged" when some processes share a card. A group
+    that mixes CPUs and cards is refused."""
+    cpu = ["/cpu/" in i for i in identities]
+    if all(cpu):
+        return "gloo"
+    if any(cpu):
+        raise ValueError("the processes mix CPUs and cards: run every "
+                         "process on a card, or every one on the CPU")
+    return "nccl" if len(set(identities)) == len(identities) else "staged"
+
+
+def initialize_distributed(coordinator_address: Optional[str] = None,
+                           num_processes: Optional[int] = None,
+                           process_id: Optional[int] = None, *,
+                           local_ranks: Optional[int] = None,
+                           cpu: Optional[bool] = None,
+                           timeout_s: Optional[float] = None) -> None:
+    """Multi-process bootstrap (the `init_mpi_nccl` equivalent). A no-op
+    for a single process with no coordinator (safe to call more than once,
+    as the JAX function is).
+
+    With a coordinator ("host:port"), `num_processes` and `process_id`, it
+    joins a `torch.distributed` group over `tcp://<coordinator>` whose
+    peers must answer within `timeout_s` (default $CFA_DIST_TIMEOUT_S),
+    or the call that waits on them raises. The process takes card
+    `process_id % torch.cuda.device_count()`, or the CPU when `cpu` is
+    set (default $CFA_CPU); without a card and without `cpu` it raises.
+    It puts `local_ranks` mesh ranks on that device (default
+    $CFA_LOCAL_RANKS), publishes the device's identity in the group's
+    store, reads every peer's, and builds the global device list
+    (`global_devices`) and the transport (`TRANSPORT`) from them. An NCCL
+    group is tried at once with one all-reduce, so that a failed one
+    raises here."""
+    global _DISTRIBUTED_INITIALIZED, _WORLD, TRANSPORT
+    if _DISTRIBUTED_INITIALIZED:
+        return
+    if coordinator_address is None and num_processes in (None, 1):
+        _DISTRIBUTED_INITIALIZED = True
+        return
+    if None in (coordinator_address, num_processes, process_id):
+        raise ValueError("a multi-process group needs coordinator_address, "
+                         "num_processes and process_id")
+    import torch.distributed as dist
+
+    local_ranks = int(local_ranks or config.LOCAL_RANKS.as_int)
+    cpu = config.CPU.as_bool if cpu is None else bool(cpu)
+    timeout = datetime.timedelta(
+        seconds=float(timeout_s or config.DIST_TIMEOUT_S()))
+    if cpu:
+        device = torch.device("cpu")
+    elif not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is present: a process of the group takes a "
+            "card; pass cpu=True (the ladder's --cpu) to run it on the CPU")
+    else:
+        device = torch.device("cuda",
+                              process_id % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    if not dist.is_initialized():
+        dist.init_process_group("gloo",
+                                init_method=f"tcp://{coordinator_address}",
+                                world_size=num_processes, rank=process_id,
+                                timeout=timeout)
+    if (dist.get_world_size(), dist.get_rank()) != (num_processes,
+                                                    process_id):
+        raise ValueError(f"the group already up is process "
+                         f"{dist.get_rank()} of {dist.get_world_size()}")
+    store = dist.distributed_c10d._get_default_store()
+    store.set(f"cfa/place/{process_id}", json.dumps(dict(
+        identity=_identity(device), type=device.type, index=device.index,
+        ranks=local_ranks)))
+    places, identities = [], []
+    for p in range(num_processes):
+        info = json.loads(store.get(f"cfa/place/{p}"))
+        identities.append(info["identity"])
+        places += [Place(p, torch.device(info["type"], info["index"]))
+                   ] * info["ranks"]
+    transport = choose_transport(identities)
+    world = _World(process_id, num_processes, device, places, transport)
+    if transport == "nccl":
+        world.nccl = dist.new_group(backend="nccl")
+        probe = torch.ones(1, device=device)
+        dist.all_reduce(probe, group=world.nccl)
+        torch.cuda.synchronize(device)
+        if probe.item() != num_processes:
+            raise RuntimeError(f"the NCCL group's first all-reduce gave "
+                               f"{probe.item()}, not {num_processes}")
+    _WORLD, TRANSPORT = world, transport
+    _DISTRIBUTED_INITIALIZED = True
+    atexit.register(shutdown_distributed)
+
+
+def shutdown_distributed() -> None:
+    """Wait for the sends still in flight and leave the group."""
+    global _DISTRIBUTED_INITIALIZED, _WORLD, TRANSPORT
+    if _WORLD is None:
+        return
+    import torch.distributed as dist
+    try:
+        _settle()
+    finally:
+        _WORLD, TRANSPORT = None, None
+        _DISTRIBUTED_INITIALIZED = False
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def global_devices() -> list:
+    """Every rank's device: the `Place`s of every process (`local_ranks`
+    entries each, in process order) in a group of several, else the
+    visible cards. Raises without a card outside a group."""
+    if _WORLD is not None:
+        return list(_WORLD.places)
+    return _visible_cards()
+
+
+def _visible_cards() -> List[torch.device]:
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is present: a mesh is built over the visible "
+            "cards by default; pass devices=[...] to place its ranks "
+            "yourself (entries may repeat, e.g. [\"cpu\"] * 4)")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+# -- the transport between processes -----------------------------------------
+
+def _tag(src: int, dst: int) -> int:
+    """The next message's tag from process src to process dst. Both sides
+    count the messages of the pair, so a process that skipped one makes
+    the next receive wait and time out instead of taking the wrong data."""
+    n = _WORLD.seq.get((src, dst), 0)
+    _WORLD.seq[(src, dst)] = n + 1
+    return n % _TAG_LIMIT
+
+
+def _as_bytes(x: torch.Tensor) -> torch.Tensor:
+    return x.detach().contiguous().reshape(-1).view(torch.uint8)
+
+
+def _post_send(x: torch.Tensor, proc: int, stream=None) -> None:
+    """Post `x` to process `proc`. On a card, `stream` is current and x is
+    ready on it."""
+    import torch.distributed as dist
+    w = _WORLD
+    if x.numel() == 0:
+        return
+    tag, data = _tag(w.process, proc), _as_bytes(x)
+    transfer_stats["messages"] += 1
+    transfer_stats["bytes"] += data.numel()
+    if w.transport == "nccl":
+        work = dist.isend(data, proc, group=w.nccl)
+    elif data.is_cuda:  # staged
+        host = torch.empty(data.shape, dtype=torch.uint8, pin_memory=True)
+        host.copy_(data, non_blocking=True)
+        # gloo reads the host buffer: the copy must be done
+        _waited(stream.record_event().synchronize)
+        work = dist.isend(host, proc, tag=tag)
+    else:
+        work = dist.isend(data, proc, tag=tag)
+    w.sends.append(work)
+
+
+def _post_recv(out: torch.Tensor, proc: int, stream=None) -> Callable:
+    """Post a receive from process `proc` into the contiguous `out`;
+    returns finish(), which completes it (on a card: queued on `stream`,
+    current here and in finish)."""
+    import torch.distributed as dist
+    w = _WORLD
+    if out.numel() == 0:
+        return lambda: None
+    tag, data = _tag(proc, w.process), _as_bytes(out)
+    if w.transport == "nccl":
+        work = dist.irecv(data, proc, group=w.nccl)
+        work.wait()  # the stream waits for NCCL's
+        return lambda: None
+    if not data.is_cuda:
+        work = dist.irecv(data, proc, tag=tag)
+        return lambda: _waited(work.wait)
+    host = torch.empty(data.shape, dtype=torch.uint8, pin_memory=True)
+    work = dist.irecv(host, proc, tag=tag)  # staged
+
+    def finish():
+        _waited(work.wait)
+        with torch.cuda.device(out.device), torch.cuda.stream(stream):
+            data.copy_(host, non_blocking=True)
+    return finish
+
+
+def _settle() -> None:
+    """Wait for every send this process has posted."""
+    if _WORLD is None:
+        return
+    sends, _WORLD.sends = _WORLD.sends, []
+    for work in sends:
+        _waited(work.wait)
+
+
+# ---------------------------------------------------------------------------
+# The mesh
+# ---------------------------------------------------------------------------
+
 class Mesh:
     """An array of devices with named axes. `shape[axis]` is the axis
-    size; a rank is the flat (row-major) index of an entry."""
+    size; a rank is the flat (row-major) index of an entry. An entry is a
+    device of this process or a `Place` of the global device list."""
 
     def __init__(self, devices, axis_names: Sequence[str]):
-        devs = np.empty(np.shape(devices), dtype=object)
-        flat = [torch.device(d) for d in np.asarray(
-            devices, dtype=object).reshape(-1)]
-        for i, d in enumerate(flat):
-            if d.type == "cuda" and d.index is None:
+        entries = np.asarray(devices, dtype=object)
+        devs = np.empty(entries.shape, dtype=object)
+        procs = np.empty(entries.shape, dtype=np.int64)
+        me = process_index()
+        for idx, d in np.ndenumerate(entries):
+            proc, d = ((d.process, torch.device(d.device))
+                       if isinstance(d, Place) else (me, torch.device(d)))
+            if proc == me and d.type == "cuda" and d.index is None:
                 d = torch.device("cuda", torch.cuda.current_device())
-            devs.reshape(-1)[i] = d
+            devs[idx], procs[idx] = d, proc
         if devs.ndim != len(axis_names):
             raise ValueError(f"{devs.ndim} mesh dims, {len(axis_names)} "
                              f"axis names")
         self.devices = devs
+        self.processes = procs
         self.axis_names: Tuple[str, ...] = tuple(axis_names)
         self.shape: Dict[str, int] = dict(zip(self.axis_names, devs.shape))
         self.size = int(devs.size)
+        self._me = me
         self._streams: Dict[int, tuple] = {}
 
     def __repr__(self) -> str:
         names = [str(d) for d in self.distinct_devices()]
-        return f"Mesh({self.shape}, devices={names})"
+        procs = sorted(set(self.processes.reshape(-1).tolist()))
+        over = f", processes={procs}" if len(procs) > 1 else ""
+        return f"Mesh({self.shape}, devices={names}{over})"
 
     def device(self, rank: int) -> torch.device:
+        """The rank's device, as the rank's own process names it."""
         return self.devices.reshape(-1)[rank]
+
+    def process(self, rank: int) -> int:
+        return int(self.processes.reshape(-1)[rank])
+
+    def place(self, rank: int) -> Place:
+        return Place(self.process(rank), self.device(rank))
+
+    def is_local(self, rank: int) -> bool:
+        """Whether this process runs the rank."""
+        return self.process(rank) == self._me
+
+    def local(self, ranks: Sequence[int]) -> List[int]:
+        """The ranks of `ranks` that this process runs, in order."""
+        return [r for r in ranks if self.is_local(r)]
+
+    @property
+    def spans_processes(self) -> bool:
+        return bool((self.processes != self._me).any())
+
+    @property
+    def home(self) -> torch.device:
+        """This process's device in the mesh (its first local rank's):
+        where the global inputs and results of the parallel functions
+        live."""
+        for r in range(self.size):
+            if self.is_local(r):
+                return self.device(r)
+        raise ValueError(f"process {self._me} holds no rank of {self}")
 
     def rank_of(self, **coords: int) -> int:
         """Flat rank of the entry at `coords` (axes left out: index 0)."""
@@ -115,18 +453,27 @@ class Mesh:
         """`ranks` cut into the groups that differ only on `axes` (one axis
         name or several), each in rank order: for one axis, the
         `axis_ranks` of each fixed choice of the other coordinates. Every
-        group must be whole."""
+        group must be whole; on a mesh that spans processes the other
+        processes' ranks of a group are added to it (a process names only
+        the ranks it runs), so that every process sees the same groups."""
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         for name in axes:
             if name not in self.shape:
                 raise ValueError(f"mesh has no axis {name!r} "
                                  f"(axes {self.axis_names})")
+
+        def key(r):
+            return tuple(c for name, c in self.coords(r).items()
+                         if name not in axes)
+
+        given = set(ranks)
         groups: Dict[tuple, List[int]] = {}
-        for r in sorted(set(ranks)):
-            key = tuple(c for name, c in self.coords(r).items()
-                        if name not in axes)
-            groups.setdefault(key, []).append(r)
+        for r in sorted(given):
+            groups.setdefault(key(r), [])
         size = math.prod(self.shape[name] for name in axes)
+        for r in range(self.size):
+            if key(r) in groups and (r in given or not self.is_local(r)):
+                groups[key(r)].append(r)
         for group in groups.values():
             if len(group) != size:
                 raise ValueError(f"ranks {group} hold {len(group)} of the "
@@ -134,10 +481,11 @@ class Mesh:
         return list(groups.values())
 
     def distinct_devices(self) -> List[torch.device]:
+        """The devices of this process's ranks, each once."""
         seen: List[torch.device] = []
-        for d in self.devices.reshape(-1):
-            if d not in seen:
-                seen.append(d)
+        for r in range(self.size):
+            if self.is_local(r) and self.device(r) not in seen:
+                seen.append(self.device(r))
         return seen
 
     # -- streams -----------------------------------------------------------
@@ -145,6 +493,9 @@ class Mesh:
     def streams(self, rank: int):
         """(compute stream, copy stream) of a rank on a card, made on
         first use; (None, None) for a CPU rank."""
+        if not self.is_local(rank):
+            raise ValueError(f"rank {rank} runs in process "
+                             f"{self.process(rank)}, not in {self._me}")
         dev = self.device(rank)
         if dev.type != "cuda":
             return None, None
@@ -165,17 +516,22 @@ class Mesh:
 
     @contextlib.contextmanager
     def region(self, ranks: Sequence[int], source: torch.device):
-        """Fork the ranks' streams from the current stream of `source`
-        (the device the global inputs live on) and join them back into it
-        at the end, so that the caller sees ordinary stream semantics:
-        what it queued before the region is visible to every rank, and
-        what the ranks produced is visible to what it queues after."""
+        """Fork the local ranks' streams from the current stream of
+        `source` (a device of this process: the one the global inputs live
+        on) and join them back into it at the end, so that the caller sees
+        ordinary stream semantics: what it queued before the region is
+        visible to every rank, and what the ranks produced is visible to
+        what it queues after. The sends to other processes posted in the
+        region are complete when it ends."""
         reg = _Region()
         cuda = [r for r in dict.fromkeys(ranks)
-                if self.device(r).type == "cuda"]
+                if self.is_local(r) and self.device(r).type == "cuda"]
         source = torch.device(source)
         if not cuda:
-            yield reg
+            try:
+                yield reg
+            finally:
+                _settle()
             return
         if source.type == "cuda":
             main = torch.cuda.current_stream(source)
@@ -191,20 +547,23 @@ class Mesh:
             for r in cuda:
                 for s in self.streams(r):
                     main.wait_event(s.record_event())
+            _settle()
             reg._kept.clear()
 
     def barrier(self, ranks: Sequence[int]) -> None:
-        """Every rank's compute stream waits for what every other rank's
-        compute stream has queued so far."""
+        """Every local rank's compute stream waits for what every other
+        local rank's compute stream has queued so far."""
         cuda = [r for r in dict.fromkeys(ranks)
-                if self.device(r).type == "cuda"]
+                if self.is_local(r) and self.device(r).type == "cuda"]
         events = [self.streams(r)[0].record_event() for r in cuda]
         for r in cuda:
             for e in events:
                 self.streams(r)[0].wait_event(e)
 
-    def send(self, x: torch.Tensor, src: int, dst: int) -> Transfer:
-        """Copy `x`, which rank `src` holds, to rank `dst`.
+    def send(self, x: Optional[torch.Tensor], src: int, dst: int,
+             like=None) -> Optional[Transfer]:
+        """Copy `x`, which rank `src` holds, to rank `dst`: a `Transfer`
+        in `dst`'s process, None elsewhere.
 
         The destination is allocated on `dst`'s compute stream; the copy
         runs on `dst`'s copy stream after everything `src`'s compute
@@ -213,7 +572,48 @@ class Mesh:
         in that memory before). `Transfer.wait()` makes `dst`'s compute
         stream wait for the copy. Queued before a step's kernels and
         awaited after them, the copy overlaps them. On CPU ranks it is a
-        plain copy."""
+        plain copy.
+
+        Between processes the sender's process posts the send (after its
+        compute stream's work, on its copy stream) and the receiver's
+        process posts the receive into a buffer shaped as `like` (a
+        tensor, or a (shape, dtype) pair; x is None there). Every process
+        must make the same calls in the same order."""
+        src_here, dst_here = self.is_local(src), self.is_local(dst)
+        if src_here and dst_here:
+            return self._send_local(x, src, dst)
+        if src_here:
+            with self._after(src) as stream:
+                _post_send(x, self.process(dst), stream)
+            return None
+        if not dst_here:
+            return None
+        shape, dtype = ((like.shape, like.dtype)
+                        if isinstance(like, torch.Tensor) else like)
+        dev = self.device(dst)
+        with self.on(dst):
+            out = torch.empty(shape, dtype=dtype, device=dev)
+        with self._after(dst) as stream:
+            finish = _post_recv(out, self.process(src), stream)
+
+        def done():
+            finish()
+            return None if stream is None else stream.record_event()
+        return Transfer(self, dst, out, None, done)
+
+    @contextlib.contextmanager
+    def _after(self, rank: int):
+        """The rank's copy stream, made current after what its compute
+        stream has queued so far (None on a CPU rank)."""
+        compute, copy = self.streams(rank)
+        if compute is None:
+            yield None
+            return
+        copy.wait_event(compute.record_event())
+        with torch.cuda.device(self.device(rank)), torch.cuda.stream(copy):
+            yield copy
+
+    def _send_local(self, x, src, dst) -> Transfer:
         dev = self.device(dst)
         if dev.type != "cuda":
             return Transfer(self, dst, x.to(dev, copy=True), None)
@@ -235,76 +635,80 @@ class Mesh:
             out.copy_(x, non_blocking=True)
         return Transfer(self, dst, out, copy.record_event())
 
-
-_DISTRIBUTED_INITIALIZED = False
-
-
-def initialize_distributed(coordinator_address: Optional[str] = None,
-                           num_processes: Optional[int] = None,
-                           process_id: Optional[int] = None) -> None:
-    """Multi-process bootstrap. A no-op for a single process with no
-    coordinator configured (safe to call more than once), as the JAX
-    function is; the multi-process backing on `torch.distributed` is not
-    ported (ROADMAP queue 1, item 6) and raises NotImplementedError."""
-    global _DISTRIBUTED_INITIALIZED
-    if _DISTRIBUTED_INITIALIZED:
-        return
-    if coordinator_address is None and num_processes in (None, 1):
-        _DISTRIBUTED_INITIALIZED = True
-        return
-    raise NotImplementedError(
-        "multi-process meshes (torch.distributed backing, "
-        "scripts/launch_multihost.py) are not ported: ROADMAP queue 1, "
-        "item 6. One process drives every card it can see.")
-
-
-def _visible_cards() -> List[torch.device]:
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is present: a mesh is built over the visible "
-            "cards by default; pass devices=[...] to place its ranks "
-            "yourself (entries may repeat, e.g. [\"cpu\"] * 4)")
-    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    def share(self, x: Optional[torch.Tensor], rank: int,
+              like) -> torch.Tensor:
+        """Rank `rank`'s tensor in every process of the mesh: `x` itself in
+        the rank's process (which posts it to the others), elsewhere a
+        copy received into a tensor shaped as `like` on the device and
+        current stream where `like` lives. On the rank's process the
+        result is `x`, so gradients reach it; elsewhere it is a constant.
+        Every process of the mesh must call it, in the same order."""
+        procs = sorted(set(self.processes.reshape(-1).tolist()))
+        if self.is_local(rank):
+            stream = (torch.cuda.current_stream(x.device) if x.is_cuda
+                      else None)
+            for p in procs:
+                if p != self._me:
+                    with torch.cuda.device(x.device) if x.is_cuda \
+                            else contextlib.nullcontext():
+                        _post_send(x, p, stream)
+            _settle()
+            return x
+        if self._me not in procs:
+            raise ValueError(f"process {self._me} holds no rank of {self}")
+        out = torch.empty(like.shape, dtype=like.dtype, device=like.device)
+        stream = torch.cuda.current_stream(out.device) if out.is_cuda \
+            else None
+        with torch.cuda.device(out.device) if out.is_cuda \
+                else contextlib.nullcontext():
+            _post_recv(out, self.process(rank), stream)()
+        return out
 
 
 def make_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str],
               devices=None) -> Mesh:
-    """Build a Mesh over the given devices, or over the visible CUDA cards.
+    """Build a Mesh over the given devices, or over `global_devices()`.
 
-    `devices=None` takes the visible cards and raises when there are
-    fewer than the mesh needs, or none. A given list may repeat a device
+    `devices=None` takes the global device list in a multi-process group,
+    else the visible cards, and raises when there are fewer than the mesh
+    needs, or none. A given list may repeat a device
     (`[torch.device("cuda", 0)] * 4`, `["cpu"] * 8`): the ranks then share
-    it, each with its own streams. Axis order convention: put the
-    fastest-communicating axis last."""
-    devs = list(_visible_cards() if devices is None else devices)
+    it, each with its own streams; its entries may be `Place`s of the
+    global list. Axis order convention: put the fastest-communicating axis
+    last."""
+    devs = list(global_devices() if devices is None else devices)
     n = int(math.prod(axis_sizes))
     if n > len(devs):
         raise ValueError(f"mesh {tuple(axis_sizes)} needs {n} devices, "
                          f"have {len(devs)}")
     arr = np.empty(n, dtype=object)
     for i in range(n):
-        arr[i] = torch.device(devs[i])
+        arr[i] = devs[i] if isinstance(devs[i], Place) else \
+            torch.device(devs[i])
     return Mesh(arr.reshape(tuple(axis_sizes)), tuple(axis_names))
 
 
 def sequence_mesh(n_devices: Optional[int] = None, axis_name: str = "sp",
                   devices=None) -> Mesh:
     """1-axis mesh for sequence (ring / context) parallelism over
-    `n_devices` ranks (default: every device given or visible)."""
-    devs = list(_visible_cards() if devices is None else devices)
+    `n_devices` ranks (default: every device given, or of the global
+    list)."""
+    devs = list(global_devices() if devices is None else devices)
     n = n_devices or len(devs)
     return make_mesh((n,), (axis_name,), devs)
 
 
 def shard_on_axis(mesh: Mesh, x: torch.Tensor, axis: int,
-                  mesh_axis: str) -> List[torch.Tensor]:
+                  mesh_axis: str) -> List[Optional[torch.Tensor]]:
     """Shard x along `axis` over `mesh_axis`: the list of the ranks'
     contiguous shards, each on its rank's device (the other mesh axes at
-    index 0). `x.shape[axis]` must divide evenly."""
+    index 0); None for a rank of another process. `x.shape[axis]` must
+    divide evenly."""
     n = mesh.shape[mesh_axis]
     if x.shape[axis] % n:
         raise ValueError(f"dim {axis} of {tuple(x.shape)} does not divide "
                          f"over the {n} ranks of {mesh_axis!r}")
     return [piece.contiguous().to(mesh.device(rank))
+            if mesh.is_local(rank) else None
             for piece, rank in zip(x.chunk(n, dim=axis),
                                    mesh.axis_ranks(mesh_axis))]

@@ -17,6 +17,13 @@ Counterpart of cuda_flashattention_tpu/parallel/pipeline.py:
 
 `gpipe_spmd` pipelines ANY stage_fn(stage_params, x) -> x with the same
 activation shape in and out (a transformer block stack qualifies).
+
+On a mesh that spans processes each process places the layers and
+microbatches of its own stages, walks every stage's ticks in the same
+order as the others (a hop to or from another process is a `Mesh.send`
+pair), and gathers the last stages' outputs (`Mesh.share`). There the
+pipeline is a forward only: autograd does not cross a hop between
+processes, so a call that would need a gradient raises.
 """
 
 from __future__ import annotations
@@ -62,7 +69,8 @@ class StageParams(list):
 def stage_param_sharding(stacked: Any, mesh: Mesh,
                          axis: str = "pp") -> StageParams:
     """The stages' parameters: for each rank of `axis`, the pytree of its
-    layer slice [s·L/S, (s+1)·L/S), placed on that rank's device."""
+    layer slice [s·L/S, (s+1)·L/S), placed on that rank's device (None
+    for a rank of another process)."""
     ranks = mesh.axis_ranks(axis)
     n_layers = tree_leaves(stacked)[0].shape[0]
     if n_layers % len(ranks):
@@ -71,7 +79,7 @@ def stage_param_sharding(stacked: Any, mesh: Mesh,
     per = n_layers // len(ranks)
     return StageParams(
         tree_map(lambda w: w[s * per:(s + 1) * per].to(mesh.device(r)),
-                 stacked)
+                 stacked) if mesh.is_local(r) else None
         for s, r in enumerate(ranks))
 
 
@@ -92,7 +100,9 @@ def gpipe_spmd(
     `stage_param_sharding` returns. `x` is the batch [B, ...]; with a
     `batch_axis` it is cut over that axis first and each shard runs its
     own pipeline, whose local batch must divide by `n_micro`. Returns the
-    last stage's outputs [B, ...] on x's device. Differentiable."""
+    last stage's outputs [B, ...] on x's device. Differentiable in one
+    process; across processes a forward only, where a stage's output has
+    its input's shape and dtype."""
     n_stages = mesh.shape[axis_name]
     ticks = n_micro + n_stages - 1
     nb = mesh.shape[batch_axis] if batch_axis else 1
@@ -110,6 +120,13 @@ def gpipe_spmd(
     if presharded and len(stacked_params) != n_stages:
         raise ValueError(f"{len(stacked_params)} stage parameter sets for "
                          f"{n_stages} stages")
+    if mesh.spans_processes and torch.is_grad_enabled() and any(
+            t.requires_grad for t in [x, *tree_leaves(stacked_params)]
+            if t is not None):
+        raise NotImplementedError(
+            "gpipe_spmd across processes is a forward only (autograd does "
+            "not cross a hop between processes): call it under "
+            "torch.no_grad(), or on a mesh of one process")
     outs = [[None] * n_micro for _ in pipes]
     with mesh.region([r for p in pipes for r in p], x.device):
         if not presharded:
@@ -122,6 +139,9 @@ def gpipe_spmd(
         for ranks in pipes:
             stages = []
             for s, r in enumerate(ranks):
+                if not mesh.is_local(r):
+                    stages.append(None)
+                    continue
                 with mesh.on(r):
                     stages.append(tree_map(
                         lambda w: (w if presharded
@@ -138,18 +158,23 @@ def gpipe_spmd(
                     m = t - s
                     if not 0 <= m < n_micro:
                         continue  # a bubble: nothing to run
-                    with mesh.on(r):
-                        if s == 0:
-                            # stage 0 injects microbatch m
-                            x_in = micro[p][m].to(mesh.device(r))
-                        else:
-                            x_in = arriving.pop((p, s, m)).wait()
-                        y = stage_fn(params[p][s], x_in)
+                    y = None
+                    if mesh.is_local(r):
+                        with mesh.on(r):
+                            if s == 0:
+                                # stage 0 injects microbatch m
+                                x_in = micro[p][m].to(mesh.device(r))
+                            else:
+                                x_in = arriving.pop((p, s, m)).wait()
+                            y = stage_fn(params[p][s], x_in)
                     if s < n_stages - 1:
-                        arriving[(p, s + 1, m)] = mesh.send(y, r,
-                                                            ranks[s + 1])
+                        arriving[(p, s + 1, m)] = mesh.send(
+                            y, r, ranks[s + 1], like=micro[p][m])
                     else:
                         # microbatch m leaves the LAST stage at tick
                         # m + S − 1
                         outs[p][m] = y
-    return torch.cat([y.to(x.device) for pipe in outs for y in pipe], dim=0)
+    return torch.cat([mesh.share(None if y is None else y.to(x.device),
+                                 ranks[-1], like=micro[p][m])
+                      for p, ranks in enumerate(pipes)
+                      for m, y in enumerate(outs[p])], dim=0)

@@ -29,6 +29,14 @@ with their K/V block and go home in one last hop.
 
 `ring_decode` needs no rotation: each rank runs the decode kernel (K6) on
 its resident slice of the cache and the partials are reduced once.
+
+Across processes (a mesh of `Place`s) every process holds the global
+inputs, as a global `jax.Array` is addressable everywhere: each runs the
+cells of its own ranks, posts every hop in the same order as the others
+(`Mesh.send` pairs them up; which steps are skipped is decided on the
+host, identically everywhere, so a hop is never sent on one side and
+skipped on the other), and the global result is gathered into every
+process (`Mesh.share`).
 """
 
 from __future__ import annotations
@@ -189,8 +197,10 @@ def _cells(plan: _RingPlan, b: int, h: int, h_kv: int) -> List[_Cell]:
 def _place(mesh: Mesh, cell: _Cell, x: Optional[torch.Tensor], heads: str):
     """The cell's shard of a global tensor ([B,H,N,d], [B,H,N] or [B,N]),
     on the cell's device: a view where the devices agree, else a copy
-    queued on the cell's compute stream."""
-    if x is None:
+    queued on the cell's compute stream; None for a cell of another
+    process (every process holds the global tensor: nothing moves between
+    processes here)."""
+    if x is None or not mesh.is_local(cell.rank):
         return None
     if x.ndim == 2:
         sl = x[cell.b_sl, cell.n_sl]
@@ -211,15 +221,19 @@ def _right(cells: List[_Cell], plan: _RingPlan, i: int, hops: int = 1) -> int:
     return base + (cells[i].idx + hops) % plan.n_shards
 
 
-def _gather(out: torch.Tensor, cell: _Cell, part: torch.Tensor,
-            heads: str) -> None:
-    """Write a cell's part into the global result (after the join)."""
-    part = part.to(device=out.device, dtype=out.dtype)
+def _gather(mesh: Mesh, out: torch.Tensor, cell: _Cell,
+            part: Optional[torch.Tensor], heads: str) -> None:
+    """Write a cell's part into the global result (after the join), in
+    every process: the cell's process shares it with the others
+    (`Mesh.share`), so every process must gather every cell, in order."""
     if out.ndim == 3:
-        out[cell.b_sl, cell.hq_sl, cell.n_sl] = part
+        dst = out[cell.b_sl, cell.hq_sl, cell.n_sl]
     else:
         h_sl = cell.hq_sl if heads == "q" else cell.hkv_sl
-        out[cell.b_sl, h_sl, cell.n_sl] = part
+        dst = out[cell.b_sl, h_sl, cell.n_sl]
+    if part is not None:
+        part = part.to(device=out.device, dtype=out.dtype)
+    dst.copy_(mesh.share(part, cell.rank, like=dst))
 
 
 def _forward_cells(plan: _RingPlan, cells: List[_Cell], reg, dtype) -> None:
@@ -227,6 +241,7 @@ def _forward_cells(plan: _RingPlan, cells: List[_Cell], reg, dtype) -> None:
     shards: sets each cell's O (in `dtype`) and LSE (fp32)."""
     mesh = plan.mesh
     steps = plan.max_steps
+    mine = [c for c in cells if mesh.is_local(c.rank)]
     for c in cells:
         c.o = c.lse = None
     for step in range(steps):
@@ -235,15 +250,8 @@ def _forward_cells(plan: _RingPlan, cells: List[_Cell], reg, dtype) -> None:
         if not last:
             # the next step's K/V start travelling before this step's
             # kernels are queued, and are awaited after them
-            for i, c in enumerate(cells):
-                j = _right(cells, plan, i)
-                dst = cells[j].rank
-                pending[j] = [
-                    mesh.send(c.k, c.rank, dst),
-                    mesh.send(c.v, c.rank, dst),
-                    mesh.send(c.kseg, c.rank, dst) if plan.ragged
-                    else None]
-        for c in cells:
+            pending = _pass_blocks(plan, cells)
+        for c in mine:
             kv_idx = (c.idx - step) % plan.n_shards
             with mesh.on(c.rank):
                 part = _step_fwd(
@@ -257,20 +265,42 @@ def _forward_cells(plan: _RingPlan, cells: List[_Cell], reg, dtype) -> None:
                     c.o, c.lse = part
                 else:
                     c.o, c.lse = combine_partials(c.o, c.lse, *part)
-        if not last:
-            for j, (tk, tv, ts) in pending.items():
-                c = cells[j]
-                reg.keep(c.k, c.v, c.kseg)
-                c.k, c.v = tk.wait(), tv.wait()
-                if ts is not None:
-                    c.kseg = ts.wait()
-    for c in cells:
+        _take_blocks(cells, pending, reg)
+    for c in mine:
         with mesh.on(c.rank):
             c.o = c.o.to(dtype)
         reg.keep(c.o, c.lse, c.k, c.v, c.kseg)
     # no rank reuses the memory of a block before its right neighbour
     # has copied it
     mesh.barrier([c.rank for c in cells])
+
+
+def _pass_blocks(plan: _RingPlan, cells: List[_Cell]) -> dict:
+    """Post every cell's K/V block (and its key segment ids when ragged)
+    to its right neighbour: {receiving cell index: [k, v, kseg transfers]}
+    for the cells of this process. Every process posts the hops of every
+    cell in the same order."""
+    mesh, pending = plan.mesh, {}
+    for i, c in enumerate(cells):
+        j = _right(cells, plan, i)
+        to = cells[j]
+        moving = [mesh.send(c.k, c.rank, to.rank, like=to.k),
+                  mesh.send(c.v, c.rank, to.rank, like=to.v),
+                  mesh.send(c.kseg, c.rank, to.rank, like=to.kseg)
+                  if plan.ragged else None]
+        if mesh.is_local(to.rank):
+            pending[j] = moving
+    return pending
+
+
+def _take_blocks(cells: List[_Cell], pending: dict, reg) -> None:
+    """Each receiving cell takes the block `_pass_blocks` sent it."""
+    for j, (tk, tv, ts) in pending.items():
+        c = cells[j]
+        reg.keep(c.k, c.v, c.kseg)
+        c.k, c.v = tk.wait(), tv.wait()
+        if ts is not None:
+            c.kseg = ts.wait()
 
 
 def _ring_forward(plan: _RingPlan, q, k, v, qseg, kseg):
@@ -289,8 +319,8 @@ def _ring_forward(plan: _RingPlan, q, k, v, qseg, kseg):
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, h, n_pad), dtype=torch.float32, device=q.device)
     for c in cells:
-        _gather(out, c, c.o, "q")
-        _gather(lse, c, c.lse, "q")
+        _gather(mesh, out, c, c.o, "q")
+        _gather(mesh, lse, c, c.lse, "q")
     return out, lse
 
 
@@ -301,6 +331,9 @@ def _backward_cells(plan: _RingPlan, cells: List[_Cell], reg) -> None:
     mesh = plan.mesh
     steps = plan.max_steps
     for c in cells:
+        c.dq = c.dk = c.dv = c.dk_home = c.dv_home = None
+        if not mesh.is_local(c.rank):
+            continue
         with mesh.on(c.rank):
             c.dq = torch.zeros(c.q.shape, dtype=torch.float32,
                                device=c.q.device)
@@ -312,15 +345,10 @@ def _backward_cells(plan: _RingPlan, cells: List[_Cell], reg) -> None:
         last = step == steps - 1
         pending = {}
         if not last:
-            for i, c in enumerate(cells):
-                j = _right(cells, plan, i)
-                dst = cells[j].rank
-                pending[j] = [
-                    mesh.send(c.k, c.rank, dst),
-                    mesh.send(c.v, c.rank, dst),
-                    mesh.send(c.kseg, c.rank, dst) if plan.ragged
-                    else None]
+            pending = _pass_blocks(plan, cells)
         for i, c in enumerate(cells):
+            if not mesh.is_local(c.rank):
+                continue
             kv_idx = (c.idx - step) % plan.n_shards
             with mesh.on(c.rank):
                 part = _step_bwd(
@@ -339,35 +367,27 @@ def _backward_cells(plan: _RingPlan, cells: List[_Cell], reg) -> None:
                     c.dk += part[1].float()
                     c.dv += part[2].float()
         if not last:
-            for j, (tk, tv, ts) in pending.items():
-                c = cells[j]
-                reg.keep(c.k, c.v, c.kseg)
-                c.k, c.v = tk.wait(), tv.wait()
-                if ts is not None:
-                    c.kseg = ts.wait()
+            _take_blocks(cells, pending, reg)
             # dK/dV accumulators travel WITH their K/V block, after
             # the step that updated them
             for i, c in enumerate(cells):
-                j = _right(cells, plan, i)
-                arriving[j] = (mesh.send(c.dk, c.rank, cells[j].rank),
-                               mesh.send(c.dv, c.rank, cells[j].rank))
+                to = cells[_right(cells, plan, i)]
+                moving = (mesh.send(c.dk, c.rank, to.rank, like=to.dk),
+                          mesh.send(c.dv, c.rank, to.rank, like=to.dv))
+                if mesh.is_local(to.rank):
+                    arriving[_right(cells, plan, i)] = moving
     # After max_steps − 1 hops the cell at ring index i holds the
     # accumulators of K/V shard i − (max_steps − 1): one hop sends
     # each home (none when the ring never moved).
-    homes = {}
     for i, c in enumerate(cells):
-        j = _right(cells, plan, i, hops=-(steps - 1))
-        if j == i:
-            homes[j] = (c.dk, c.dv)
-        else:
-            homes[j] = tuple(
-                mesh.send(t, c.rank, cells[j].rank) for t in (c.dk, c.dv))
-    for j, (tk, tv) in homes.items():
-        c = cells[j]
-        if isinstance(tk, torch.Tensor):
-            c.dk_home, c.dv_home = tk, tv
-        else:
-            c.dk_home, c.dv_home = tk.wait(), tv.wait()
+        home = cells[_right(cells, plan, i, hops=-(steps - 1))]
+        if home is c:
+            c.dk_home, c.dv_home = c.dk, c.dv
+            continue
+        moving = [mesh.send(t, c.rank, home.rank, like=home.dk)
+                  for t in (c.dk, c.dv)]
+        if mesh.is_local(home.rank):
+            home.dk_home, home.dv_home = (t.wait() for t in moving)
     for c in cells:
         reg.keep(c.dq, c.dk, c.dv, c.dk_home, c.dv_home, c.k, c.v,
                  c.kseg)
@@ -392,9 +412,9 @@ def _ring_backward(plan: _RingPlan, q, k, v, o, lse, qseg, kseg, do):
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     for c in cells:
-        _gather(dq, c, c.dq, "q")
-        _gather(dk, c, c.dk_home, "kv")
-        _gather(dv, c, c.dv_home, "kv")
+        _gather(mesh, dq, c, c.dq, "q")
+        _gather(mesh, dk, c, c.dk_home, "kv")
+        _gather(mesh, dv, c, c.dv_home, "kv")
     return dq, dk, dv
 
 
@@ -476,8 +496,9 @@ def ring_attention(
 
 
 def _local_cells(mesh: Mesh, axis_name: str, ranks) -> List[_Cell]:
-    """One ring per group of `axis_name` over `ranks`, its cells
-    consecutive in ring order (the shards' slices are not needed)."""
+    """One ring per group of `axis_name` over `ranks` (and the other
+    processes' ranks of those groups), its cells consecutive in ring order
+    (the shards' slices are not needed)."""
     cells = []
     for group, ring in enumerate(mesh.fibers(axis_name, ranks)):
         cells += [_Cell(rank, idx, group, None, None, None, None)
@@ -498,8 +519,9 @@ class RingAttentionLocal(torch.autograd.Function):
         at = {r: i for i, r in enumerate(ranks)}
         with mesh.region(ranks, mesh.device(ranks[0])) as reg:
             for c in cells:
-                i = at[c.rank]
-                c.q, c.k, c.v = qkv[i], qkv[n + i], qkv[2 * n + i]
+                i = at.get(c.rank)
+                c.q, c.k, c.v = ((qkv[i], qkv[n + i], qkv[2 * n + i])
+                                 if i is not None else (None,) * 3)
                 c.qseg = c.kseg = None
             _forward_cells(plan, cells, reg, qkv[0].dtype)
         by_rank = {c.rank: c for c in cells}
@@ -517,14 +539,19 @@ class RingAttentionLocal(torch.autograd.Function):
         at = {r: i for i, r in enumerate(ranks)}
         with mesh.region(ranks, mesh.device(ranks[0])) as reg:
             for c in cells:
-                i = at[c.rank]
+                c.qseg = c.kseg = None
+                i = at.get(c.rank)
+                if i is None:
+                    c.q = c.k = c.v = c.o = c.lse = c.do = None
+                    continue
                 c.q, c.k, c.v = saved[i], saved[n + i], saved[2 * n + i]
                 c.o, c.lse, c.do = saved[3 * n + i], saved[4 * n + i], do[i]
-                c.qseg = c.kseg = None
             _backward_cells(plan, cells, reg)
             grads = [None] * (3 * n)
             for c in cells:
-                i = at[c.rank]
+                i = at.get(c.rank)
+                if i is None:
+                    continue
                 with mesh.on(c.rank):
                     grads[i] = c.dq.to(saved[i].dtype)
                     grads[n + i] = c.dk_home.to(saved[n + i].dtype)
@@ -547,7 +574,9 @@ def ring_attention_local(
     """Ring attention over shards that already sit on their ranks: q, k, v
     are `{rank: shard}` (q [B,H,L,d], k/v [B,Hkv,L,d] on the rank's
     device) over whole groups of `axis_name`, or lists in
-    `mesh.axis_ranks(axis_name)` order for one ring. Returns each rank's
+    `mesh.axis_ranks(axis_name)` order for one ring. On a mesh that spans
+    processes each process passes its own ranks' shards (a list holds None
+    for the others') and gets theirs back. Returns each rank's
     O shard the same way, in q's dtype. Differentiable (the ring
     backward); the kernels of each step are those of `ring_attention`.
 
@@ -561,8 +590,9 @@ def ring_attention_local(
     `block_sizes` reaches every step's kernels."""
     listed = not isinstance(q, dict)
     if listed:
-        ranks = mesh.axis_ranks(axis_name)
-        q, k, v = (dict(zip(ranks, x)) for x in (q, k, v))
+        ranks = mesh.local(mesh.axis_ranks(axis_name))
+        q, k, v = ({r: x[i] for i, r in enumerate(mesh.axis_ranks(
+            axis_name)) if r in ranks} for x in (q, k, v))
     ranks = tuple(q)
     q0, k0 = q[ranks[0]], k[ranks[0]]
     if q0.shape[1] % k0.shape[1] != 0:
@@ -583,10 +613,12 @@ def ring_attention_local(
                      scale=resolve_scale(scale, q0.shape[-1]),
                      causal=bool(causal), window=window, ragged=False,
                      block_sizes=block_sizes)
-    out = RingAttentionLocal.apply(
+    out = dict(zip(ranks, RingAttentionLocal.apply(
         plan, ranks, *(q[r] for r in ranks), *(k[r] for r in ranks),
-        *(v[r] for r in ranks))
-    return list(out) if listed else dict(zip(ranks, out))
+        *(v[r] for r in ranks))))
+    if listed:
+        return [out.get(r) for r in mesh.axis_ranks(axis_name)]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -617,23 +649,40 @@ def ring_decode_local(
     one max / sum reduction over the ranks (the `pmax` / `psum` of the JAX
     function). No rotation: for decode the queries are tiny and the cache
     stays put. Returns (o [B,H,d] in q's dtype, lse [B,H]) on q's
-    device."""
+    device.
+
+    On a mesh that spans processes each process runs its own ranks'
+    shards (the others' entries are not read: None will do) and the
+    ranks' partials are shared with every process (`Mesh.share`), which
+    merges them in rank order: every process returns the same bits."""
     ranks = mesh.axis_ranks(axis_name)
     if not (len(k) == len(v) == len(lengths) == len(ranks)):
         raise ValueError(f"{len(k)} K / {len(v)} V / {len(lengths)} length "
                          f"shards for {len(ranks)} ranks of {axis_name!r}")
-    parts = []
+    parts = {}
     with mesh.region(ranks, q.device):
         for i, rank in enumerate(ranks):
+            if not mesh.is_local(rank):
+                continue
             dev = mesh.device(rank)
             with mesh.on(rank):
-                parts.append(decode_attention(
+                parts[rank] = decode_attention(
                     q.to(dev), k[i], v[i], lengths[i].to(dev),
                     k_scale=None if k_scale is None else k_scale[i],
                     v_scale=None if v_scale is None else v_scale[i],
                     scale=scale, block_k=block_k, window=window,
-                    windows=None if windows is None else windows[i].to(dev)))
-    o, lse = _merge_ranks(parts, q.device)
+                    windows=None if windows is None else windows[i].to(dev))
+    like_o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    like_lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    shared = []
+    for rank in ranks:
+        o_r, lse_r = parts.get(rank, (None, None))
+        shared.append((
+            mesh.share(None if o_r is None else o_r.to(q.device), rank,
+                       like_o),
+            mesh.share(None if lse_r is None else lse_r.to(q.device), rank,
+                       like_lse)))
+    o, lse = _merge_ranks(shared, q.device)
     return o.to(q.dtype), lse
 
 
@@ -653,7 +702,8 @@ def _shards(mesh: Mesh, axis_name: str, x: Optional[Shards], dim: int,
             local_n: int, pad_value: float) -> Optional[List[torch.Tensor]]:
     """The ranks' contiguous slices of a cache tensor along `dim`: a list
     is taken as already sharded; a global tensor is padded to the shard
-    grid and cut (a copy of every shard that is not already contiguous)."""
+    grid and cut (a copy of every shard that is not already contiguous;
+    None for a rank of another process)."""
     if x is None:
         return None
     ranks = mesh.axis_ranks(axis_name)
@@ -666,7 +716,7 @@ def _shards(mesh: Mesh, axis_name: str, x: Optional[Shards], dim: int,
             x = F.pad(x.view(torch.uint8), pad).view(torch.float8_e4m3fn)
         else:
             x = F.pad(x, pad, value=pad_value)
-    return [p.contiguous().to(mesh.device(r))
+    return [p.contiguous().to(mesh.device(r)) if mesh.is_local(r) else None
             for p, r in zip(x.chunk(len(ranks), dim=dim), ranks)]
 
 
@@ -708,7 +758,7 @@ def ring_decode(
     if isinstance(k, torch.Tensor):
         local_n = cdiv(k.shape[2], n_shards)
     else:
-        local_n = k[0].shape[2]
+        local_n = next(x for x in k if x is not None).shape[2]
     ks = _shards(mesh, axis_name, k, 2, local_n, 0.0)
     vs = _shards(mesh, axis_name, v, 2, local_n, 0.0)
     kss = _shards(mesh, axis_name, k_scale, 2, local_n, 1.0)

@@ -12,7 +12,8 @@ def test_all_knobs_are_the_ones_that_apply_on_the_card():
     names = {k.name for k in config.all_knobs().values()}
     assert names == {"CFA_LOG_LEVEL", "CFA_LOG_ALL_PROCS",
                      "CFA_AUTOTUNE_CACHE", "CFA_NATIVE_CACHE",
-                     "CFA_LADDER_SEQ"}
+                     "CFA_LADDER_SEQ", "CFA_COORD", "CFA_NPROC", "CFA_PID",
+                     "CFA_LOCAL_RANKS", "CFA_CPU", "CFA_DIST_TIMEOUT_S"}
     assert config.AUTOTUNE_CACHE.default.endswith(
         "/.cache/cfa_torch/autotune.json")
 

@@ -3701,3 +3701,85 @@ def test_wide_device_ring_kernel(dev, no_tf32, dtype, n, rows, d):
     assert _err(o, ring_matmul_plain(x, w, mesh)) <= gate
     for _ in range(3):
         assert torch.equal(device_ring_matmul(x, w, mesh), o)
+
+
+# ---------------------------------------------------------------------------
+# The mesh across processes (scripts/launch_multihost.py)
+# ---------------------------------------------------------------------------
+
+MP_PATHS = ("ring_causal", "ring_ragged", "decode", "ulysses", "collectives",
+            "train")
+
+
+def _mp_launch(tmp_path, nproc, per_proc, env_extra=None, timeout=600):
+    """`utils/multiprocess_paths.py --check` over every path, bf16 at
+    B=1 H=8 Hkv=4 N=4096 d=128 (decode B=4; the small fp32 model, sp over
+    every rank), launched as `nproc` processes of `per_proc` ranks; each
+    process's report."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    repo = Path(__file__).resolve().parent.parent
+    out = tmp_path / "mp"
+    cmd = [sys.executable, "-m",
+           "cuda_flashattention_torch.scripts.launch_multihost", "-np",
+           str(nproc), "--devices-per-proc", str(per_proc), "--timeout",
+           str(timeout - 30), "-m",
+           "cuda_flashattention_torch.utils.multiprocess_paths", "--out",
+           str(out), "--check", "--dtype", "bf16", "--batch", "1",
+           "--decode-batch", "4", "--heads", "8", "--kv-heads", "4", "--d",
+           "128", "--seq", "4096", "--train-seq", "64", "--axes",
+           f"sp={nproc * per_proc}",
+           *MP_PATHS]
+    env = dict(os.environ, PYTHONPATH=str(repo), **(env_extra or {}))
+    r = subprocess.run(cmd, cwd=repo, env=env, capture_output=True,
+                       text=True, timeout=timeout)
+    assert r.returncode == 0, r.stdout[-4000:] + r.stderr[-4000:]
+    return [json.loads((out / f"p{p}.json").read_text())
+            for p in range(nproc)]
+
+
+def _mp_check(reports, transport):
+    """Every process names the transport; process 0's paths against its
+    own one-process runs at the ring's gates (O min(5e-3, 2e-2 · max),
+    gradients 2e-2 · max), decode 5e-3 against K6 on the whole cache,
+    the collectives bit for bit, the train step's loss 2e-2 and every
+    gradient 5e-2 relative L2; the ring's forward and K4 launches, summed
+    over the processes, are the one-process ring's."""
+    assert all(r["transport"] == transport for r in reports), reports
+    paths = reports[0]["paths"]
+    for path in ("ring_causal", "ring_ragged", "ulysses"):
+        e = paths[path]["errors"]
+        assert e["o"][0] <= min(GATE, 2e-2 * e["o"][1]), (path, e)
+        for g in ("dq", "dk", "dv"):
+            assert e[g][1] > 0 and e[g][0] <= BWD_GATE * e[g][1], (path, e)
+    for name in ("o", "lse", "o@whole", "lse@whole"):
+        assert paths["decode"]["errors"][name][0] <= GATE, paths["decode"]
+    assert all(v[0] == 0.0 for v in paths["collectives"]["errors"].values())
+    e = paths["train"]["errors"]
+    assert e["loss"][0] <= 2e-2, e
+    assert all(v[2] <= 5e-2 for k, v in e.items() if k != "loss"), e
+    n = reports[0]["ranks"]
+    fwd = sum(r["paths"]["ring_causal"]["launches"]["fwd"] for r in reports)
+    k4 = sum(r["paths"]["ring_causal"]["launches"]["bwd"]["fused"]
+             for r in reports)
+    assert k4 == n * (n + 1) // 2, reports
+    assert fwd >= k4, reports
+
+
+def test_multiprocess_staged_on_one_card(dev, tmp_path):
+    """Two processes of two ranks each on card 0 (processes that share a
+    card: the staged transport, device → pinned host → gloo → device)."""
+    _mp_check(_mp_launch(tmp_path, 2, 2, {"CUDA_VISIBLE_DEVICES": "0"}),
+              "staged")
+
+
+def test_multiprocess_nccl_across_cards(dev, tmp_path):
+    """With two or more cards visible: one process per card (up to 4), one
+    rank each: NCCL send / recv."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more cards")
+    _mp_check(_mp_launch(tmp_path, min(cards, 4), 1), "nccl")

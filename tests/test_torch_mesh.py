@@ -2,7 +2,16 @@
 the same axis sizes and names give the same rank layout, the same shards
 and the same one-hop ring permutation. The port's mesh is an array of
 `torch.device` whose entries may repeat; here every rank is "cpu", as the
-JAX tests put 8 virtual devices on one CPU."""
+JAX tests put 8 virtual devices on one CPU. Its multi-process backing:
+`initialize_distributed` in one process, the transport chosen from the
+device identities, entries of other processes, and two real processes of
+the launcher (a gloo group on the CPU) that build a global mesh and raise
+on a silent peer."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +30,7 @@ from cuda_flashattention_torch.parallel.mesh import (
     shard_on_axis,
 )
 
+REPO = Path(__file__).resolve().parent.parent
 CPUS = ["cpu"] * 8
 LAYOUTS = [((8,), ("sp",)), ((2, 4), ("dp", "sp")),
            ((2, 2, 2), ("dp", "tp", "sp")), ((4, 2), ("pp", "dp")),
@@ -131,12 +141,149 @@ def test_sequence_mesh_takes_given_devices():
 
 
 def test_initialize_distributed(monkeypatch):
-    """A no-op for one process, safe to repeat; the multi-process backing
-    is not ported and says where it is queued."""
+    """A no-op for one process, safe to repeat: no group, no transport,
+    the mesh stays this process's."""
     monkeypatch.setattr(tmesh_mod, "_DISTRIBUTED_INITIALIZED", False)
     initialize_distributed()
     initialize_distributed()
+    initialize_distributed(num_processes=1)
+    assert tmesh_mod.TRANSPORT is None and tmesh_mod.process_count() == 1
+    tm = make_mesh((2,), ("sp",), CPUS[:2])
+    assert not tm.spans_processes and tm.local([0, 1]) == [0, 1]
     monkeypatch.setattr(tmesh_mod, "_DISTRIBUTED_INITIALIZED", False)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        initialize_distributed("localhost:1234", num_processes=2,
-                               process_id=0)
+    with pytest.raises(ValueError, match="needs coordinator_address"):
+        initialize_distributed("127.0.0.1:1", num_processes=2)
+
+
+def test_initialize_distributed_needs_a_card_or_the_cpu(monkeypatch):
+    """Without a card a process of a group raises unless it is asked to
+    run on the CPU; it never lands there by itself (and joins no group)."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    monkeypatch.setattr(tmesh_mod, "_DISTRIBUTED_INITIALIZED", False)
+    monkeypatch.delenv("CFA_CPU", raising=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        initialize_distributed("127.0.0.1:1", num_processes=2, process_id=0)
+    assert tmesh_mod._WORLD is None
+
+
+@pytest.mark.parametrize("identities,transport", [
+    (["h/cpu/1", "h/cpu/2"], "gloo"),
+    (["h/GPU-a", "h/GPU-b", "h/GPU-c", "h/GPU-d"], "nccl"),
+    (["h/GPU-a", "h/GPU-a"], "staged"),
+    (["h/GPU-a", "h/GPU-b", "h/GPU-a", "h/GPU-b"], "staged"),
+    (["h1/GPU-a", "h2/GPU-a"], "nccl"),
+])
+def test_transport_from_device_identities(identities, transport):
+    """NCCL where every process has a card of its own; processes that
+    share a card stage through the host (NCCL refuses two ranks on one
+    card); CPU processes send over gloo."""
+    assert tmesh_mod.choose_transport(identities) == transport
+
+
+def test_transport_refuses_cpus_beside_cards():
+    with pytest.raises(ValueError, match="mix CPUs and cards"):
+        tmesh_mod.choose_transport(["h/cpu/1", "h/GPU-a"])
+
+
+def test_places_of_other_processes():
+    """Entries of the global device list that another process runs:
+    this process runs only its own ranks, a group of an axis takes in the
+    other processes' ranks, and the device-initiated ring refuses."""
+    from cuda_flashattention_torch.parallel.device_ring import (
+        device_ring_matmul)
+    cpu = torch.device("cpu")
+    places = [tmesh_mod.Place(p, cpu) for p in (0, 0, 1, 1)]
+    tm = make_mesh((2, 2), ("dp", "sp"), places)
+    assert tm.spans_processes and tm.local(range(4)) == [0, 1]
+    assert [tm.is_local(r) for r in range(4)] == [True, True, False, False]
+    assert tm.home == cpu and tm.process(3) == 1
+    assert tm.fibers("dp", [0, 1]) == [[0, 2], [1, 3]]
+    assert tm.fibers("sp", [0, 1]) == [[0, 1]]
+    with pytest.raises(ValueError, match="entries of their"):
+        tm.fibers("sp", [0])  # this process's rank 1 is missing
+    with pytest.raises(ValueError, match="runs in process 1"):
+        tm.streams(2)
+    assert shard_on_axis(tm, torch.zeros(4, 2), 0, "dp")[1] is None
+    with pytest.raises(ValueError, match="spans processes"):
+        device_ring_matmul(torch.zeros(2, 64), torch.zeros(64, 64),
+                           make_mesh((4,), ("sp",), places))
+
+
+def test_gpipe_across_processes_is_a_forward():
+    from cuda_flashattention_torch.parallel.pipeline import gpipe_spmd
+    places = [tmesh_mod.Place(p, torch.device("cpu")) for p in (0, 1)]
+    w = torch.zeros(2, 4, 4, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="forward only"):
+        gpipe_spmd(lambda p, x: x @ p[0], w, torch.zeros(2, 4),
+                   make_mesh((2,), ("pp",), places), n_micro=1)
+
+
+def _launch(tmp_path, body, np=2, timeout=120):
+    """Run `body` as a script in `np` processes of the launcher (on the
+    CPU); its processes' output."""
+    script = tmp_path / "child.py"
+    script.write_text(body)
+    r = subprocess.run(
+        [sys.executable, "-m",
+         "cuda_flashattention_torch.scripts.launch_multihost", "-np",
+         str(np), "--devices-per-proc", "2", "--cpu", str(script)],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
+        capture_output=True, text=True, timeout=timeout)
+    return r
+
+
+def test_two_process_group_builds_a_global_mesh(tmp_path):
+    """`initialize_distributed("127.0.0.1:<port>", num_processes=2,
+    process_id=i)` forms a gloo group; `make_mesh` then spans both
+    processes' ranks, and a hop between them carries the data."""
+    r = _launch(tmp_path, """
+import torch
+from cuda_flashattention_torch import config
+from cuda_flashattention_torch.parallel import mesh as M
+M.initialize_distributed(config.COORD(), config.NPROC.as_int,
+                         config.PID.as_int)
+M.initialize_distributed(config.COORD(), config.NPROC.as_int,
+                         config.PID.as_int)  # idempotent
+mesh = M.make_mesh((4,), ("sp",))
+me = M.process_index()
+assert M.TRANSPORT == "gloo" and M.process_count() == 2
+assert [mesh.process(r) for r in range(4)] == [0, 0, 1, 1]
+assert mesh.local(range(4)) == [2 * me, 2 * me + 1]
+with mesh.region(range(4), mesh.home):
+    moving = mesh.send(torch.full((3,), 7.0) if me == 0 else None, 1, 2,
+                       like=((3,), torch.float32))
+    got = moving.wait() if me == 1 else None
+if me == 1:
+    assert got.tolist() == [7.0, 7.0, 7.0], got
+print("mesh", mesh, "ok", flush=True)
+""")
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "processes=[0, 1]" in r.stdout and "ok" in r.stdout, r.stdout
+
+
+def test_lost_peer_raises_within_the_timeout(tmp_path):
+    """A peer that never sends makes the receive raise once the group's
+    timeout (3 s here) has passed: it does not hang."""
+    r = _launch(tmp_path, """
+import sys, time, torch
+from cuda_flashattention_torch import config
+from cuda_flashattention_torch.parallel import mesh as M
+M.initialize_distributed(config.COORD(), config.NPROC.as_int,
+                         config.PID.as_int, timeout_s=3)
+mesh = M.make_mesh((4,), ("sp",))
+if M.process_index() == 1:
+    time.sleep(8)  # alive, silent
+    sys.exit(0)
+t0 = time.perf_counter()
+try:
+    with mesh.region(range(4), mesh.home):
+        mesh.send(None, 2, 0, like=((4,), torch.float32)).wait()
+except RuntimeError as e:
+    print(f"raised after {time.perf_counter() - t0:.2f} s: {e}")
+    sys.exit(0)
+sys.exit("no error")
+""")
+    assert r.returncode == 0, r.stdout + r.stderr
+    secs = float(r.stdout.split("raised after ")[1].split(" s")[0])
+    assert 2.5 <= secs <= 8.0, r.stdout
