@@ -77,10 +77,6 @@ CPU = Knob(
     "CFA_CPU", "0",
     "1 → the processes of a group run on the CPU (the launcher's --cpu); "
     "else each takes a card and raises without one.")
-DIST_TIMEOUT_S = Knob(
-    "CFA_DIST_TIMEOUT_S", "300",
-    "Seconds a process of a group waits for a peer (its joining, a "
-    "receive) before it raises.")
 
 
 def all_knobs() -> Dict[str, Knob]:

@@ -124,10 +124,13 @@ _WORLD: Optional[_World] = None
 # "staged" or "gloo" (module docstring); None in one process
 TRANSPORT: Optional[str] = None
 _TAG_LIMIT = 2 ** 31 - 1
-# what this process has moved to and from other processes: messages
-# posted, their bytes, and the host seconds spent waiting on them (the
-# staged sends' device-to-host copies, the receives, the sends' completion)
-transfer_stats = {"messages": 0, "bytes": 0, "wait_s": 0.0}
+# seconds a process of a group waits for a peer (its joining, a receive)
+# before it raises: `initialize_distributed`'s default
+DIST_TIMEOUT_S = 300.0
+# what this process has moved to other processes: the bytes posted, and
+# the host seconds spent waiting on transfers (the staged sends'
+# device-to-host copies, the receives, the sends' completion)
+transfer_stats = {"bytes": 0, "wait_s": 0.0}
 
 
 def _waited(fn):
@@ -176,15 +179,15 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                            process_id: Optional[int] = None, *,
                            local_ranks: Optional[int] = None,
                            cpu: Optional[bool] = None,
-                           timeout_s: Optional[float] = None) -> None:
+                           timeout_s: float = DIST_TIMEOUT_S) -> None:
     """Multi-process bootstrap (the `init_mpi_nccl` equivalent). A no-op
     for a single process with no coordinator (safe to call more than once,
     as the JAX function is).
 
     With a coordinator ("host:port"), `num_processes` and `process_id`, it
     joins a `torch.distributed` group over `tcp://<coordinator>` whose
-    peers must answer within `timeout_s` (default $CFA_DIST_TIMEOUT_S),
-    or the call that waits on them raises. The process takes card
+    peers must answer within `timeout_s` seconds, or the call that waits
+    on them raises. The process takes card
     `process_id % torch.cuda.device_count()`, or the CPU when `cpu` is
     set (default $CFA_CPU); without a card and without `cpu` it raises.
     It puts `local_ranks` mesh ranks on that device (default
@@ -206,8 +209,7 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
 
     local_ranks = int(local_ranks or config.LOCAL_RANKS.as_int)
     cpu = config.CPU.as_bool if cpu is None else bool(cpu)
-    timeout = datetime.timedelta(
-        seconds=float(timeout_s or config.DIST_TIMEOUT_S()))
+    timeout = datetime.timedelta(seconds=float(timeout_s))
     if cpu:
         device = torch.device("cpu")
     elif not torch.cuda.is_available():
@@ -300,27 +302,37 @@ def _as_bytes(x: torch.Tensor) -> torch.Tensor:
     return x.detach().contiguous().reshape(-1).view(torch.uint8)
 
 
-def _post_send(x: torch.Tensor, proc: int, stream=None) -> None:
-    """Post `x` to process `proc`. On a card, `stream` is current and x is
-    ready on it."""
+def _stage(x: torch.Tensor, stream=None) -> torch.Tensor:
+    """The bytes of `x` to post: under the staged transport a pinned host
+    copy, made on `stream` (current, x ready on it) and waited for, since
+    gloo reads the host buffer; else x's own."""
+    data = _as_bytes(x)
+    if _WORLD.transport == "nccl" or not data.is_cuda:
+        return data
+    host = torch.empty(data.shape, dtype=torch.uint8, pin_memory=True)
+    host.copy_(data, non_blocking=True)
+    _waited(stream.record_event().synchronize)
+    return host
+
+
+def _post(data: torch.Tensor, proc: int) -> None:
+    """Post bytes from `_stage` to process `proc`."""
     import torch.distributed as dist
     w = _WORLD
-    if x.numel() == 0:
-        return
-    tag, data = _tag(w.process, proc), _as_bytes(x)
-    transfer_stats["messages"] += 1
+    tag = _tag(w.process, proc)
     transfer_stats["bytes"] += data.numel()
     if w.transport == "nccl":
         work = dist.isend(data, proc, group=w.nccl)
-    elif data.is_cuda:  # staged
-        host = torch.empty(data.shape, dtype=torch.uint8, pin_memory=True)
-        host.copy_(data, non_blocking=True)
-        # gloo reads the host buffer: the copy must be done
-        _waited(stream.record_event().synchronize)
-        work = dist.isend(host, proc, tag=tag)
     else:
         work = dist.isend(data, proc, tag=tag)
     w.sends.append(work)
+
+
+def _post_send(x: torch.Tensor, proc: int, stream=None) -> None:
+    """Post `x` to process `proc`. On a card, `stream` is current and x is
+    ready on it."""
+    if x.numel() > 0:
+        _post(_stage(x, stream), proc)
 
 
 def _post_recv(out: torch.Tensor, proc: int, stream=None) -> Callable:
@@ -645,13 +657,15 @@ class Mesh:
         Every process of the mesh must call it, in the same order."""
         procs = sorted(set(self.processes.reshape(-1).tolist()))
         if self.is_local(rank):
-            stream = (torch.cuda.current_stream(x.device) if x.is_cuda
-                      else None)
-            for p in procs:
-                if p != self._me:
-                    with torch.cuda.device(x.device) if x.is_cuda \
-                            else contextlib.nullcontext():
-                        _post_send(x, p, stream)
+            others = [p for p in procs if p != self._me]
+            if others and x.numel() > 0:
+                with torch.cuda.device(x.device) if x.is_cuda \
+                        else contextlib.nullcontext():
+                    stream = (torch.cuda.current_stream(x.device)
+                              if x.is_cuda else None)
+                    data = _stage(x, stream)  # once for every peer
+                    for p in others:
+                        _post(data, p)
             _settle()
             return x
         if self._me not in procs:

@@ -17,12 +17,13 @@ seconds it waited on them (`parallel/mesh.transfer_stats`). With
 (fp32). With `--check` process 0 runs the path again without the other
 processes and writes the differences into its json (`errors`: per
 output the largest, the reference's largest |value| and the relative L2
-norm), and but for the train step the host ms of a second such run
-(`alone_ms`): the ring, Ulysses,
-the collectives and GPipe against the same call on a mesh of as many
-ranks of its own device (ring decode also against `decode_attention` on
-the whole cache: "o@whole"), the train step against the same weights
-without a mesh.
+norm): the ring, Ulysses, the collectives and GPipe against the same
+call on a mesh of as many ranks of its own device (ring decode also
+against `decode_attention` on the whole cache: "o@whole"), the train step
+against the same weights, made anew, without a mesh. But for the train
+step it also times that one-process call (`alone_ms`), on the mesh the
+check built and ran once, after every process has finished its paths and
+while the others wait idle.
 
 Paths (sizes from the options):
   ring_causal, ring_ragged   `ring_attention` forward and backward over
@@ -152,7 +153,8 @@ def _errors(got: dict, want: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# The paths: each returns (global outputs, a rerun without the group)
+# The paths: each returns (run(mesh) → global outputs, the mesh's shape
+# and axis names, None or a callable of further references)
 # ---------------------------------------------------------------------------
 
 def _ring(args, devs, home, causal):
@@ -169,10 +171,7 @@ def _ring(args, devs, home, causal):
         o = ring_attention(q, k, v, mesh, causal=causal)
         dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
         return dict(o=o, dq=dq, dk=dk, dv=dv)
-
-    mesh = make_mesh((len(devs),), ("sp",), devs)
-    return (lambda: run(mesh),
-            lambda: run(make_mesh((len(devs),), ("sp",), [home] * len(devs))))
+    return run, (len(devs),), ("sp",), None
 
 
 def _decode(args, devs, home):
@@ -191,13 +190,11 @@ def _decode(args, devs, home):
         o, lse = ring_decode(q, k, v, lengths, mesh)
         return dict(o=o, lse=lse)
 
-    def again():
-        """The ring on this process's device, and decode_attention (K6)
-        on the whole cache."""
+    def whole():
+        """decode_attention (K6) on the whole cache."""
         o, lse = decode_attention(q, k, v, lengths)
-        return {**run(make_mesh((len(devs),), ("sp",), [home] * len(devs))),
-                "o@whole": o, "lse@whole": lse}
-    return lambda: run(make_mesh((len(devs),), ("sp",), devs)), again
+        return {"o@whole": o, "lse@whole": lse}
+    return run, (len(devs),), ("sp",), whole
 
 
 def _ulysses(args, devs, home):
@@ -213,10 +210,7 @@ def _ulysses(args, devs, home):
         o = ulysses_attention(q, k, v, mesh, causal=True)
         dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
         return dict(o=o, dq=dq, dk=dk, dv=dv)
-
-    mesh = make_mesh((len(devs),), ("sp",), devs)
-    return (lambda: run(mesh),
-            lambda: run(make_mesh((len(devs),), ("sp",), [home] * len(devs))))
+    return run, (len(devs),), ("sp",), None
 
 
 def _collectives(args, devs, home):
@@ -248,9 +242,7 @@ def _collectives(args, devs, home):
             torch.empty(next(iter(per.values())).shape, device=home))
             for r in range(mesh.size)]) for name, per in got.items()}
 
-    return (lambda: run(make_mesh(shape, ("dp", "sp"), devs)),
-            lambda: run(make_mesh(shape, ("dp", "sp"),
-                                  [home] * len(devs))))
+    return run, shape, ("dp", "sp"), None
 
 
 def pipe_stage(stage_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -269,9 +261,7 @@ def _gpipe(args, devs, home):
     def run(mesh):
         with torch.no_grad():
             return dict(y=gpipe_spmd(pipe_stage, ws, x, mesh, n_micro=4))
-    return (lambda: run(make_mesh((len(devs),), ("pp",), devs)),
-            lambda: run(make_mesh((len(devs),), ("pp",),
-                                  [home] * len(devs))))
+    return run, (len(devs),), ("pp",), None
 
 
 def _axes(spec: str):
@@ -283,7 +273,8 @@ def _axes(spec: str):
             {kw[a]: a for a in names})
 
 
-def _train(args, axes, devs, home, info):
+def _model(args, home):
+    """The train path's model: seeded weights, or those of --weights."""
     from cuda_flashattention_torch.models import transformer as tfm
     kw, dtype = MODELS[args.model]
     cfg = tfm.TransformerConfig(dtype=DTYPES[dtype], **kw)
@@ -291,6 +282,13 @@ def _train(args, axes, devs, home, info):
     if args.weights is not None:
         model.load_state_dict(torch.load(args.weights, map_location=home,
                                          weights_only=True))
+    return model
+
+
+def _train(args, axes, devs, home, info):
+    from cuda_flashattention_torch.models import transformer as tfm
+    model = _model(args, home)
+    cfg = model.cfg
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (args.batch, args.train_seq or args.seq)).astype(
             np.int32)).to(home)
@@ -301,9 +299,9 @@ def _train(args, axes, devs, home, info):
     loss = tfm.loss_fn(placed, tokens)
     loss.backward()
     placed.sync_grads()
-    whole = tfm.gather_model(placed, home)
     out = dict(loss=loss.detach())
-    out.update({f"grad/{n}": p.grad for n, p in whole.named_parameters()})
+    out.update({f"grad/{n}": p.grad for n, p in
+                tfm.gather_model(placed, home).named_parameters()})
     step = tfm.make_train_step(
         placed, torch.optim.SGD(placed.parameters(), lr=1e-4))
     step_ms, losses = [], []
@@ -317,13 +315,33 @@ def _train(args, axes, devs, home, info):
     del placed, step
 
     def whole_step():
-        """The same weights without a mesh: loss and gradients."""
-        whole.zero_grad(set_to_none=True)
+        """The same weights, made anew, without a mesh: loss and
+        gradients."""
+        whole = _model(args, home)
         ref = tfm.loss_fn(whole, tokens)
         ref.backward()
         return dict(loss=ref.detach(), **{
             f"grad/{n}": p.grad for n, p in whole.named_parameters()})
     return out, whole_step
+
+
+def _time_alone(alone, paths: dict, home) -> None:
+    """Process 0 times each path's one-process call (`alone_ms`) on its
+    mesh, built and run once by the check, once every process has
+    finished its paths; the others wait, idle, until it is done."""
+    import torch.distributed as dist
+    group = mesh_mod.process_count() > 1
+    if group:
+        dist.barrier()
+    for name, run, one in alone:
+        t0 = time.perf_counter()
+        run(one)
+        _sync(home)
+        paths[name]["alone_ms"] = (time.perf_counter() - t0) * 1e3
+        print(f"[multiprocess_paths] p0 {name}: alone_ms "
+              f"{paths[name]['alone_ms']:.3f}", flush=True)
+    if group:
+        dist.barrier()
 
 
 # ---------------------------------------------------------------------------
@@ -353,6 +371,7 @@ def main(argv=None) -> int:
     if "train" in args.paths:
         jobs += [("train" if len(axes) == 1 else f"train[{a}]", a)
                  for a in axes]
+    alone = []  # (path, run, its one-process mesh) to time at the end
     try:
         for name, train_axes in jobs:
             info = {}
@@ -362,16 +381,21 @@ def main(argv=None) -> int:
             if train_axes:
                 got, again = _train(args, train_axes, devs, home, info)
             else:
-                run, again = makers[name]()
-                run()  # warm-up: the timed call below makes the counts
+                run, shape, names, whole = makers[name]()
+                mesh = make_mesh(shape, names, devs)
+                run(mesh)  # warm-up: the timed call below makes the counts
                 _sync(home)
                 _zero_launches()
                 stats0 = dict(mesh_mod.transfer_stats)
                 t0 = time.perf_counter()
-                got = run()
+                got = run(mesh)
                 _sync(home)
                 info["ms"] = (time.perf_counter() - t0) * 1e3
                 info["launches"] = _launches()
+                one = make_mesh(shape, names, [home] * len(devs))
+
+                def again(run=run, one=one, whole=whole):
+                    return {**run(one), **(whole() if whole else {})}
             info["moved_bytes"] = (mesh_mod.transfer_stats["bytes"]
                                    - stats0["bytes"])
             info["wait_s"] = (mesh_mod.transfer_stats["wait_s"]
@@ -387,13 +411,12 @@ def main(argv=None) -> int:
                 # first transfer waits for this one
                 info["errors"] = _errors(got, again())
                 if not train_axes:
-                    t0 = time.perf_counter()
-                    again()
-                    _sync(home)
-                    info["alone_ms"] = (time.perf_counter() - t0) * 1e3
+                    alone.append((name, run, one))
             report["paths"][name] = info
             print(f"[multiprocess_paths] p{pid} {name}: "
                   + json.dumps(info), flush=True)
+        if args.check:
+            _time_alone(alone, report["paths"], home)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
     (args.out / f"p{pid}.json").write_text(json.dumps(report, indent=1))

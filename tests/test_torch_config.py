@@ -13,7 +13,7 @@ def test_all_knobs_are_the_ones_that_apply_on_the_card():
     assert names == {"CFA_LOG_LEVEL", "CFA_LOG_ALL_PROCS",
                      "CFA_AUTOTUNE_CACHE", "CFA_NATIVE_CACHE",
                      "CFA_LADDER_SEQ", "CFA_COORD", "CFA_NPROC", "CFA_PID",
-                     "CFA_LOCAL_RANKS", "CFA_CPU", "CFA_DIST_TIMEOUT_S"}
+                     "CFA_LOCAL_RANKS", "CFA_CPU"}
     assert config.AUTOTUNE_CACHE.default.endswith(
         "/.cache/cfa_torch/autotune.json")
 

@@ -75,12 +75,13 @@ def _args(extra=()):
     return mp.parse(["ring_causal", "--out", "unused", *SIZES, *extra])
 
 
-def _one_process(run_pair):
+def _one_process(make):
     """A path's outputs on a mesh of 4 repeated "cpu" ranks in this
-    process (the rerun a path returns beside its run)."""
+    process, shaped as the path's own mesh."""
     devs = [torch.device("cpu")] * 4
+    run, shape, names, _ = make(devs)
     return {k: v.detach().float().numpy()
-            for k, v in run_pair(devs)[1]().items() if "@" not in k}
+            for k, v in run(make_mesh(shape, names, devs)).items()}
 
 
 @pytest.fixture(scope="module")
