@@ -165,7 +165,11 @@ Phases, each of which raises on failure (so the script exits non-zero):
    sp4 step runs again with its ranks over distinct cards (cards[i % n]),
    else the output says it was skipped.
 13. GPipe: `pipeline_forward` of the same config at B=4 x T=2048, 2 stages
-   x 2 layers, 4 microbatches: logits against `forward` (0.125).
+   x 2 layers, 4 microbatches: logits against `forward` (0.125); then the
+   model trained through it (a loss over its logits, GPipe's backward),
+   once over the restacked layers and once over `stage_param_sharding`'s
+   placed stages, each against `loss_fn` without a mesh (loss 2e-2, every
+   gradient 5e-2 relative L2) with K1, K4 and the prologue 16 each.
 14. K9, the device-initiated ring. Its path is the example stage
    `cuda_flashattention_torch.examples.device_ring` (both rings within
    1e-2 of the reference, `Test PASSED!`). Then K9 against
@@ -397,10 +401,20 @@ Phases, each of which raises on failure (so the script exits non-zero):
 30. The mesh across processes (`_phase_multiprocess`, after the
    distributed layer's phases): the launcher
    (`python -m cuda_flashattention_torch.scripts.launch_multihost`) runs
-   ladder stages 01 and 04 at 2 processes x 2 ranks on card 0, whose
+   ladder stages 01, 04 and 07 at 2 processes x 2 ranks on card 0, whose
    processes share the card (the staged transport: device, pinned host
-   buffer, gloo, device); then `utils/multiprocess_paths.py` over 4
-   processes of one rank: the causal ring forward + backward at B=1
+   buffer, gloo, device); then `utils/multiprocess_paths.py` at 2
+   processes x 2 ranks: K9 over a ring of 4 ranks whose neighbours in the
+   other process are reached through CUDA IPC handles (n=4, L in {1024,
+   8192}, d in {128, 256}, bf16 and fp32: bf16 within min(1e-2, 2e-2 ·
+   max |ref|) and fp32 within 1e-4 · max(1, max |ref|) of the fp32
+   reference, bit for bit the one-process K9, 20 repeats bit-identical;
+   times labelled as the card's time-slicing between the processes) and
+   phase 13's step trained at pp=2 over one rank of each process
+   against the same step in one process (loss 1e-3, every gradient 1e-2
+   relative L2; K1, K4 and the prologue 32 over 2 steps); then over 4
+   processes of one rank: K9 again, the step at pp=2·dp=2 (2
+   microbatches a pipe), and the causal ring forward + backward at B=1
    H=16 N=16384 against the same ring in one process (O min(5e-3, 2e-2 ·
    max), each gradient 2e-2 · max; forward and K4 launches summed over
    the processes 10 each), ring decode B=8 over a 16384-token cache
@@ -410,9 +424,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
    a mesh (loss 2e-2, every gradient 5e-2 relative L2); per process its
    launches, ms, bytes moved between processes, host wait on them and
    peak GiB, beside the one-process ring's and step's ms. With two or
-   more cards the ring and the sp step again on NCCL, one process per
-   card; with one card a line says they were skipped. Every launch runs
-   under a timeout.
+   more cards the ring, the sp step, K9 and the pipelined step again on
+   NCCL, one process per card; with one card a line says they were
+   skipped. Every launch runs under a timeout.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; a kernel's `launches` in the JSON line is its sum over
@@ -1126,9 +1140,16 @@ def _phase_model_parallel(ctx, mesh, tag, **axes):
 
 
 def _phase_gpipe(ctx):
-    """`pipeline_forward` of the training config against `forward`."""
+    """`pipeline_forward` of the training config against `forward`; then
+    pipelined training in one process: a loss over its logits and the
+    backward through GPipe's schedule, once over the restacked layers and
+    once over `stage_param_sharding`'s placed stages, each against
+    `loss_fn` over the same weights without a mesh (loss LOSS_GATE, every
+    gradient GRAD_GATE relative L2), with K1, K4 and the D prologue
+    launched once per layer and microbatch."""
     torch = ctx.torch
     from cuda_flashattention_torch.models import transformer as tfm
+    from cuda_flashattention_torch.utils.multiprocess_paths import pipe_loss
 
     tcfg = tfm.TransformerConfig(dtype=torch.bfloat16, **TRAIN_KW)
     gen = torch.Generator(device=ctx.dev).manual_seed(0)
@@ -1143,14 +1164,61 @@ def _phase_gpipe(ctx):
         torch.cuda.synchronize()
     n_fwd = _forward_launches(ctx)
     e = ctx.diff(got, want)
+    del want, got
     print(f"[gpipe] 271M config, B={PP_B} T={PP_T}, 2 stages x 2 layers, "
           f"n_micro={PP_MICRO}: forward launches {n_fwd} (expect "
           f"{tcfg.n_layers * PP_MICRO}); logits vs forward: max|diff|="
           f"{e:.3e} (gate {LOGIT_GATE})", flush=True)
-    _check(bool(torch.isfinite(got).all()) and e <= LOGIT_GATE,
-           f"pipeline_forward logits off by {e:.3e}")
+    _check(e <= LOGIT_GATE, f"pipeline_forward logits off by {e:.3e}")
     _check(n_fwd == tcfg.n_layers * PP_MICRO,
            f"pipeline_forward launched the forward {n_fwd} times")
+
+    loss_1 = tfm.loss_fn(model, tokens)
+    loss_1.backward()
+    loss_1 = loss_1.item()
+    ref = {n: w.grad.float() for n, w in model.named_parameters()}
+    expect = tcfg.n_layers * PP_MICRO
+    for placed in (False, True):
+        form = "placed stages" if placed else "restacked"
+        model.zero_grad(set_to_none=True)
+        pipe_loss(model, tokens, mesh, PP_MICRO, placed=placed).backward()
+        torch.cuda.synchronize()
+        model.zero_grad(set_to_none=True)
+        torch.cuda.reset_peak_memory_stats(ctx.dev)
+        ctx.zero_counts()
+        t0 = time.perf_counter()
+        loss = pipe_loss(model, tokens, mesh, PP_MICRO, placed=placed)
+        loss.backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n_fwd = _forward_launches(ctx)
+        counts = dict(ctx.bwd_launches)
+        ctx.launches["K4"] += counts["fused"]
+        ctx.launches["K4 D prologue"] += counts["delta"]
+        errs = {n: ((w.grad.float() - ref[n]).norm() / ref[n].norm()).item()
+                for n, w in model.named_parameters()}
+        worst = max(errs, key=errs.get)
+        loss = loss.item()
+        print(f"[gpipe-train] 271M config, B={PP_B} T={PP_T}, 2 stages x 2 "
+              f"layers, n_micro={PP_MICRO}, {form}: launches forward "
+              f"{n_fwd} (online {ctx.fwd_forms['online']}), K4 "
+              f"{counts['fused']}, prologue {counts['delta']}, K2 "
+              f"{counts['dkdv']}, K3 {counts['dq']} (expect {expect}, "
+              f"{expect}, {expect}, 0, 0); loss {loss:.6f} vs loss_fn "
+              f"without a mesh {loss_1:.6f} (|d| {abs(loss - loss_1):.3e}, "
+              f"gate {LOSS_GATE}); worst gradient relative L2 "
+              f"{errs[worst]:.3e} ({worst}; gate {GRAD_GATE}) over "
+              f"{len(errs)} parameters; forward + backward {ms:.1f} ms, "
+              f"peak {torch.cuda.max_memory_allocated(ctx.dev) / 2**30:.2f} "
+              f"GiB ({ctx.card})", flush=True)
+        _check(ctx.fwd_forms["online"] == expect and counts == dict(
+            fused=expect, delta=expect, dkdv=0, dq=0),
+            f"pipelined training ({form}) launches {n_fwd} {counts}")
+        _check(math.isfinite(loss) and abs(loss - loss_1) <= LOSS_GATE
+               and errs[worst] <= GRAD_GATE,
+               f"pipelined training ({form}): loss {loss} vs {loss_1}, "
+               f"{worst} relative L2 {errs[worst]:.3e}")
+        ctx.step_ms[f"pp-train-{'placed' if placed else 'restacked'}"] = [ms]
 
 
 MP_TIMEOUT = 240  # seconds for one launch's processes
@@ -1231,20 +1299,37 @@ def _mp_launches(ctx, reports, path):
 
 
 MP_STEPS = 2  # timed train steps across processes (staged: ~4 s each)
+# pipelined training across processes: the one-process gates of phase 13
+# tighten to these against the one-process pipelined step
+MP_PIPE_LOSS_GATE, MP_PIPE_GRAD_GATE = 1e-3, 1e-2
+# K9 across processes: n = 4 ranks, L x d x type, 20 repeats on one
+# workspace; the fp32 gate is 1e-4 · max(1, max |ref|)
+MP_K9_ROWS, MP_K9_D, MP_K9_REPEATS = (1024, 8192), (128, 256), 20
+F32_RING_GATE = 1e-4
 
 
 def _phase_multiprocess(ctx):
     """The mesh across processes, through the launcher on this machine's
-    card: ladder stages 01 and 04 at 2 processes x 2 ranks (processes
-    sharing card 0: the staged transport); then, over 4 processes of one
-    rank, the causal ring forward + backward at N = 16384 and ring decode
-    (B = 8 over a 16384-token cache) against the same calls in one
-    process (the ring's gates; decode 5e-3 against K6 on the whole
-    cache), and the sp4 and tp2·sp2 train steps of the 271M config at
+    card (processes sharing card 0: the staged transport). Ladder stages
+    01, 04 and 07 at 2 processes x 2 ranks. Then at 2 processes x 2
+    ranks: K9 over a ring of 4 ranks in 2 processes, and the phase-13
+    pipelined training step at pp=2 over one rank of each process; over 4
+    processes of one rank: the causal ring forward + backward at N = 16384
+    and ring decode (B = 8 over a 16384-token cache) against the same
+    calls in one process (the ring's gates; decode 5e-3 against K6 on the
+    whole cache), the sp4 and tp2·sp2 train steps of the 271M config at
     B=1 x T=16384 against the same weights without a mesh (loss 2e-2,
-    every gradient 5e-2 relative L2); per process its launches, ms, bytes
-    moved, host wait and peak GiB. Two launches; the NCCL run, which
-    needs two or more cards, is `_phase_multiprocess_nccl`."""
+    every gradient 5e-2 relative L2), K9 over 4 processes of one rank,
+    and the pipelined step at pp=2·dp=2. The pipelined steps against the
+    same step in one process (loss 1e-3, every gradient 1e-2 relative
+    L2); K9 at n = 4, L in {1024, 8192}, d in {128, 256}, bf16 and fp32,
+    against the fp32 reference (bf16 min(1e-2, 2e-2 · max |ref|), fp32
+    1e-4 · max(1, max |ref|)), bit for bit the one-process K9 on the same
+    shards, 20 repeated calls bit-identical; its times are the card
+    switching between the processes' contexts (time-sliced), not the
+    kernel's. Per process its launches, ms, bytes moved, host wait and
+    peak GiB. Three launches; the NCCL run, which needs two or more
+    cards, is `_phase_multiprocess_nccl`."""
     import torch.distributed as dist
     t_phase = time.perf_counter()
     nccl = dist.is_nccl_available()
@@ -1252,38 +1337,60 @@ def _phase_multiprocess(ctx):
           f"{nccl}" + (f" {'.'.join(map(str, ctx.torch.cuda.nccl.version()))}"
                        if nccl else ""), flush=True)
     out, secs = _mp_run(ctx, 2, 2, ["cuda_flashattention_torch.examples",
-                                    "ppermute_verify", "ring_attention"])
+                                    "ppermute_verify", "ring_attention",
+                                    "device_ring"])
     lines = [x for x in out.splitlines() if "over 2 processes" in x]
-    print(f"[mp-ladder] stages 01 and 04 at 2 processes x 2 ranks: "
+    print(f"[mp-ladder] stages 01, 04 and 07 at 2 processes x 2 ranks: "
           + " | ".join(lines) + f" ({secs:.1f} s)", flush=True)
-    _check(out.count("Test PASSED!") == 2 and "transport staged" in out,
-           f"multi-process ladder stages: {out[-1500:]}")
-    reports, secs = _mp_paths(ctx, 4, 1, ["ring_causal", "decode", "train"],
-                              _MP_RING + _MP_TRAIN + [
-                                  "--axes", "sp=4", "--axes", "tp=2,sp=2"])
+    _check(out.count("Test PASSED!") == 3 and "transport staged" in out
+           and len(lines) == 3, f"multi-process ladder stages: "
+           f"{out[-1500:]}")
+    reports, secs = _mp_paths(ctx, 2, 2, ["k9", "pipe_train"], _MP_K9 + [
+        *_MP_PIPE, "--pipe-axes", "pp=2", "--micro", str(PP_MICRO)])
+    _mp_report_k9(ctx, reports, "staged", "2 processes x 2 ranks sharing "
+                  "card 0, time-sliced")
+    _mp_report_pipe(ctx, reports, "pipe_train", "staged",
+                    "pp-train-restacked")
+    print(f"[mp] 2-process launch {secs:.1f} s", flush=True)
+    reports, secs = _mp_paths(
+        ctx, 4, 1, ["ring_causal", "decode", "train", "k9", "pipe_train"],
+        _MP_RING + _MP_TRAIN + _MP_K9 + [
+            *_MP_PIPE, "--pipe-axes", "pp=2,dp=2", "--micro", "2",
+            "--axes", "sp=4", "--axes", "tp=2,sp=2"])
     _mp_report_ring(ctx, reports, "staged", "processes sharing card 0")
     for axes, tag in (("sp=4", "sp-train"), ("tp=2,sp=2", "tp-sp-train")):
         _mp_report_train(ctx, reports, f"train[{axes}]", "staged", tag)
+    _mp_report_k9(ctx, reports, "staged", "4 processes x 1 rank sharing "
+                  "card 0, time-sliced", record=True)
+    _mp_report_pipe(ctx, reports, "pipe_train", "staged", None)
     print(f"[mp] 4-process launch {secs:.1f} s (joining the group "
           + ", ".join(f"{r['join_s']:.1f}" for r in reports)
           + f" s); phase {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def _phase_multiprocess_nccl(ctx):
-    """With two or more cards: the causal ring and the sp step again over
-    NCCL, one process per card (up to 4), as `_phase_multiprocess` holds
-    them; with one card, a line says that they were skipped."""
+    """With two or more cards: the causal ring, the sp step, K9 and the
+    pipelined step (pp=2 over 2 cards, pp=2·dp=2 over 4) again over NCCL,
+    one process per card, as `_phase_multiprocess` holds them; with one
+    card, a line says that they were skipped."""
     cards = ctx.torch.cuda.device_count()
     if cards < 2:
-        print("[mp-nccl] one card visible: the NCCL ring and sp step (one "
-              "process per card) are skipped", flush=True)
+        print("[mp-nccl] one card visible: the NCCL ring, sp step, K9 and "
+              "pipelined step (one process per card) are skipped",
+              flush=True)
         return
-    n = min(cards, 4)
-    reports, secs = _mp_paths(ctx, n, 1, ["ring_causal", "train"],
-                              _MP_RING + _MP_TRAIN + ["--axes", f"sp={n}"])
+    n = 4 if cards >= 4 else 2
+    pipe = (["--pipe-axes", "pp=2", "--micro", str(PP_MICRO)] if n == 2
+            else ["--pipe-axes", "pp=2,dp=2", "--micro", "2"])
+    reports, secs = _mp_paths(
+        ctx, n, 1, ["ring_causal", "train", "k9", "pipe_train"],
+        _MP_RING + _MP_TRAIN + _MP_K9 + _MP_PIPE + pipe
+        + ["--axes", f"sp={n}"])
     _mp_report_ring(ctx, reports, "nccl", f"one process per card, {n} "
                     f"cards")
     _mp_report_train(ctx, reports, "train", "nccl", "sp-train-cards")
+    _mp_report_k9(ctx, reports, "nccl", f"one process per card, {n} cards")
+    _mp_report_pipe(ctx, reports, "pipe_train", "nccl", None)
     print(f"[mp-nccl] {n}-process launch {secs:.1f} s", flush=True)
 
 
@@ -1292,6 +1399,115 @@ _MP_RING = ["--dtype", "bf16", "--batch", "1", "--heads", str(RING_H),
             "--decode-batch", str(DECODE_B)]
 _MP_TRAIN = ["--model", "271m", "--train-seq", str(SP_T), "--steps",
              str(MP_STEPS)]
+_MP_PIPE = ["--model", "271m", "--pipe-batch", str(PP_B), "--pipe-seq",
+            str(PP_T), "--steps", str(MP_STEPS)]
+_MP_K9 = ["--k9-rows", *map(str, MP_K9_ROWS), "--k9-d", *map(str, MP_K9_D),
+          "--k9-dtypes", "bf16", "fp32", "--k9-repeats", str(MP_K9_REPEATS),
+          "--k9-iters", "5"]
+
+
+def _mp_report_k9(ctx, reports, transport, where, record=False):
+    """K9 across processes: per case its gates, bit-equality with the
+    one-process K9, the repeats, and its times beside the bound and one
+    einsum over the shards (timed here, in one process); `record`: the
+    "K9 across processes" row takes the example's case (L=1024, d=128,
+    bf16)."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.utils.timing import cuda_time_ms
+    _check(all(r["transport"] == transport for r in reports),
+           f"transports {[r['transport'] for r in reports]}")
+    p0 = reports[0]["paths"]["k9"]
+    n = reports[0]["ranks"]
+    launches = sum(r["paths"]["k9"]["launches"]["k9"] for r in reports)
+    cases = len(MP_K9_ROWS) * len(MP_K9_D) * 2
+    e = p0["errors"]
+    for key, t in p0["k9"].items():
+        rows, d, dt = key.split(",")
+        rows, d = int(rows), int(d)
+        f32 = dt == "fp32"
+        got_ref = e[f"o[{key}]@ref"]
+        top = got_ref[1]
+        gate = (F32_RING_GATE * max(1.0, top) if f32
+                else min(K9_GATE, REL_GATE * top))
+        one = e[f"o[{key}]"][0]
+        # the library call: one einsum over the shards, in this process
+        x = ctx.mk(n * rows, d).to(torch.float32 if f32 else torch.bfloat16)
+        w = ctx.mk(d, d).to(x.dtype)
+        x3 = x.view(n, rows, d)
+        lib_ms = cuda_time_ms(lambda: torch.einsum("nld,de->le", x3, w),
+                              iters=K9_ITERS)
+        # one card each under NCCL (pushes over NVLink), else card 0
+        bound = _k9_bound(list(range(n)) if transport == "nccl"
+                          else [ctx.dev] * n, rows, d, f32=f32)
+        kms = [r["paths"]["k9"]["k9"][key].get("kernel_ms", float("nan"))
+               for r in reports]
+        wms = [r["paths"]["k9"]["k9"][key]["ms"] for r in reports]
+        starts = [r["paths"]["k9"]["k9"][key]["start_ms"] for r in reports]
+        same = [r["paths"]["k9"]["k9"][key]["same"] for r in reports]
+        print(f"[mp-K9] n={n} over {len(reports)} processes ({where}; "
+              f"transport {transport}), L={rows} d={d} {dt}: "
+              f"{t['scope']} scope, grid {t['grid'][0]} spans x "
+              f"{t['grid'][1]} ranks per launch; vs (sum x_i) @ W in fp32 "
+              f"{got_ref[0]:.3e} (max|ref| {top:.3e}, gate {gate:.3e}); vs "
+              f"the one-process K9 {one:.3e} (bit for bit: 0); repeats "
+              f"equal to the first {same} of {MP_K9_REPEATS} per process; "
+              f"kernel {', '.join(f'{x:.4f}' for x in kms)} ms per process "
+              f"(CUDA events around the launch: a process's time holds its "
+              f"wait for neighbours that launch later), wrapper "
+              f"{', '.join(f'{x:.3f}' for x in wms)} ms (with the rows' "
+              f"share), plain ring across processes "
+              f"{t['plain_ms']:.3f} ms, the host's wait before the launch "
+              f"(stream + barrier) {', '.join(f'{x:.3f}' for x in starts)} "
+              f"ms; one einsum over the shards in one process "
+              f"{lib_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}) ({ctx.card})", flush=True)
+        _check(got_ref[0] <= gate and one == 0.0
+               and all(x == MP_K9_REPEATS for x in same),
+               f"K9 across processes L={rows} d={d} {dt}: {got_ref[0]:.3e} "
+               f"vs the reference, {one:.3e} vs one process, repeats {same}")
+        if record and (rows, d, dt) == (K9_SHAPES[0], 128, "bf16"):
+            ctx.rec["K9 across processes"].update(
+                max_abs_err=one, ms=statistics.median(kms),
+                plain_ms=t["plain_ms"], library_ms=lib_ms, **bound)
+    _check(launches == cases * len(reports),
+           f"K9 across processes launched {launches} times")
+    if record:
+        ctx.launches["K9 across processes"] += launches
+        ctx.launches["K9"] += launches
+
+
+def _mp_report_pipe(ctx, reports, path, transport, tag):
+    """The pipelined step across processes against the same step in one
+    process (`--check`), with its launches and per-process numbers."""
+    nproc = len(reports)
+    fwd, k4, _ = _mp_launches(ctx, reports, path)
+    i0 = reports[0]["paths"][path]
+    e = i0["errors"]
+    worst = max((k for k in e if k != "loss"), key=lambda k: e[k][2])
+    n_micro = PP_MICRO if nproc == 2 else 2
+    nb = 1 if nproc == 2 else 2
+    expect = MP_STEPS * TRAIN_KW["n_layers"] * n_micro * nb
+    delta = sum(r["paths"][path]["launches"]["bwd"]["delta"]
+                for r in reports)
+    ctx.launches["K4 D prologue"] += delta
+    step = statistics.median(i0["step_ms"])
+    one = ctx.step_ms.get(tag) if tag else None
+    print(f"[mp-pipe] 271M config, B={PP_B} T={PP_T}, pipelined "
+          f"({i0.get('mesh', path)}) over {nproc} processes ({transport}): "
+          f"launches summed fwd {fwd}, K4 {k4}, prologue {delta} (expect "
+          f"{expect} each over {MP_STEPS} steps); vs the same step in one "
+          f"process: loss |d| {e['loss'][0]:.3e} (gate {MP_PIPE_LOSS_GATE}), "
+          f"worst gradient relative L2 {e[worst][2]:.3e} ({worst}; gate "
+          f"{MP_PIPE_GRAD_GATE}); step {step:.1f} ms on p0 "
+          + (f"against {one[0]:.1f} ms for phase 13's one-process forward + "
+             f"backward " if one else "")
+          + f"(losses {i0['losses']}); {_mp_per_process(reports, path)} "
+          f"({ctx.card})", flush=True)
+    _check(fwd == expect and k4 == expect and delta == expect,
+           f"mp {path} launches {fwd} {k4} {delta}")
+    _check(e["loss"][0] <= MP_PIPE_LOSS_GATE
+           and e[worst][2] <= MP_PIPE_GRAD_GATE,
+           f"mp {path}: loss {e['loss']}, {worst} {e[worst]}")
 
 
 def _mp_report_ring(ctx, reports, transport, where):
@@ -5941,7 +6157,7 @@ def main() -> int:
             "K6 d256", "K7 d256", "K4 d256", "K2 d256", "K3 d256",
             "prologue d256", "K1 f32 d256", "K1b f32 d256", "K5 f32 d256",
             "K8 d256", "K8 f32 d256", "K4 f32 d256", "K2 f32 d256",
-            "K3 f32 d256", "K9 d256", "K9 f32 d256")}
+            "K3 f32 d256", "K9 d256", "K9 f32 d256", "K9 across processes")}
     # launches on the main paths, summed over the runs that drive them
     launches = {kn: 0 for kn in rec}
 
@@ -7570,6 +7786,13 @@ def main() -> int:
         ("K9 f32 d256", "device_ring_matmul at d = 256 in fp32 (K9's fp32 "
          "d = 256 build: two CTAs a span, each holding one column half of "
          "W split, two rings that share nothing; n=4 L=1024)",
+         "device_ring.cu", "examples/07_device_ring.py:46"),
+        ("K9 across processes", "device_ring_matmul over a ring whose ranks "
+         "run in 4 processes sharing the card (K9's .sys build over "
+         "buffers and flags mapped by CUDA IPC handles; also counted under "
+         "K9; n=4 L=1024 d=128 bf16; ms: the kernel's time while the card "
+         "switches between the processes' contexts, time-sliced, per "
+         "process; plain: the plain ring across the same processes)",
          "device_ring.cu", "examples/07_device_ring.py:46"),
     ]
     kernels = []

@@ -110,6 +110,14 @@ SIGNATURES = {
     "cfa_device_ring_resident": [_I, _I, _I, _I, _IP],
     # device, peer: cudaDeviceEnablePeerAccess(peer) on `device`
     "cfa_enable_peer_access": [_I, _I],
+    # device, bytes, ptr (out), handle (out, 64 bytes): a zeroed cudaMalloc
+    # and its IPC handle
+    "cfa_ipc_alloc": [_I, _L, _PP, _P],
+    # device, handle (64 bytes), ptr (out): another process's allocation
+    "cfa_ipc_open": [_I, _P, _PP],
+    # device, ptr: unmap an opened allocation / free an own one
+    "cfa_ipc_close": [_I, _P],
+    "cfa_ipc_free": [_I, _P],
 }
 
 _lock = threading.Lock()

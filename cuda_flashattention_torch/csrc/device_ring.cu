@@ -69,7 +69,20 @@
 //  * The launch is cooperative (it refuses a grid that is not resident at
 //    once: a spin on a CTA that never starts would hang), and every spin
 //    and mbarrier wait traps after seconds, so a protocol fault fails the
-//    run instead of hanging the card.
+//    run instead of hanging the card. A spin's bound is wall time (the
+//    global timer, SPIN_NS), not SM cycles: a CTA that another process's
+//    context preempts may resume on another SM, whose cycle counter is
+//    not its first SM's.
+//
+//  * Ranks in several processes. Each process allocates its ranks'
+//    double buffers and flag words in one cudaMalloc (cfa_ipc_alloc: the
+//    caching allocator's blocks are sub-allocations, and an IPC handle
+//    names a whole allocation), exports it with cudaIpcGetMemHandle, and
+//    opens the other processes' handles (cfa_ipc_open). The pointer table
+//    then holds this process's pointers for its own ranks and the mapped
+//    ones for the others': the kernel and its protocol are the same. A
+//    neighbour in another process writes the flags from another context,
+//    even on the same card, so such a ring runs the SYS build.
 //
 //  * fp32 x and W (the F32 build): every value is held as two bf16 halves,
 //    hi = bf16(x) and lo = bf16(x − hi), and o += shard @ W is three bf16
@@ -99,6 +112,8 @@
 // as 16-byte stores, one tile per round, registers for three CTAs per SM)
 // are text patches of a copy of this source in utils/ring_variants.py.
 
+#include <cstring>
+
 #include "flash_fwd_bound_sm90.cuh"
 
 namespace {
@@ -127,9 +142,9 @@ constexpr int F_RECV = 0;
 constexpr int F_CREDIT = 1;
 constexpr int F_START = 2;
 constexpr int MIN_BLOCKS = 2;   // CTAs per SM the registers are sized for
-// a spin gives up (and traps) after this many clock cycles: seconds, where
-// a hop takes microseconds
-constexpr long long SPIN_CYCLES = 6000000000LL;
+// a spin gives up (and traps) after this many nanoseconds of the global
+// timer: seconds, where a hop takes microseconds
+constexpr unsigned long long SPIN_NS = 10000000000ULL;
 
 struct RingTable {
   const void* x;               // this launch's shards [n_local, L, D]
@@ -183,12 +198,18 @@ __device__ __forceinline__ u64 ld_acquire(const u64* p) {
   return v;
 }
 
+__device__ __forceinline__ u64 global_ns() {
+  u64 t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
 // One thread waits until the word at p has reached `target`.
 template <bool SYS>
 __device__ __forceinline__ void spin_until(const u64* p, u64 target) {
-  const long long t0 = clock64();
+  const u64 t0 = global_ns();
   while (ld_acquire<SYS>(p) < target) {
-    if (clock64() - t0 > SPIN_CYCLES) __trap();
+    if (global_ns() - t0 > SPIN_NS) __trap();
   }
 }
 
@@ -696,4 +717,45 @@ extern "C" int cfa_enable_peer_access(int device, int peer) {
     }
     return err;
   });
+}
+
+// -- workspaces shared between processes ----------------------------------
+
+// One allocation of `bytes` on card `device`, zeroed (the flag words start
+// at 0) and finished before this returns, and its IPC handle (64 bytes,
+// cudaIpcMemHandle_t) written to `handle`.
+extern "C" int cfa_ipc_alloc(int device, long long bytes, void** ptr,
+                             void* handle) {
+  return on_device(device, [&]() {
+    cudaError_t err = cudaMalloc(ptr, (size_t)bytes);
+    if (err != cudaSuccess) return err;
+    err = cudaMemset(*ptr, 0, (size_t)bytes);
+    if (err == cudaSuccess) err = cudaDeviceSynchronize();
+    if (err == cudaSuccess) {
+      err = cudaIpcGetMemHandle(static_cast<cudaIpcMemHandle_t*>(handle),
+                                *ptr);
+    }
+    if (err != cudaSuccess) cudaFree(*ptr);
+    return err;
+  });
+}
+
+// Another process's allocation, by its handle, mapped for card `device`
+// (peer access to the allocation's card enabled where it is another).
+extern "C" int cfa_ipc_open(int device, const void* handle, void** ptr) {
+  return on_device(device, [&]() {
+    cudaIpcMemHandle_t h;
+    memcpy(&h, handle, sizeof(h));
+    return cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess);
+  });
+}
+
+// Unmap what cfa_ipc_open mapped.
+extern "C" int cfa_ipc_close(int device, void* ptr) {
+  return on_device(device, [&]() { return cudaIpcCloseMemHandle(ptr); });
+}
+
+// Free what cfa_ipc_alloc allocated, once every importer has closed it.
+extern "C" int cfa_ipc_free(int device, void* ptr) {
+  return on_device(device, [&]() { return cudaFree(ptr); });
 }

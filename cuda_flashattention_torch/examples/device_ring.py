@@ -19,6 +19,12 @@ The ring runs over the visible cards, one rank per card; with a single
 card `--ranks` ranks (default 4) share it, each with its own streams: the
 kernel, its flags and its pushes are the same code either way. `--cpu`
 runs the stage on CPU tensors, where both rings are the plain version.
+Under the launcher (scripts/launch_multihost.py) the ring is the global
+device list, its ranks in several processes: the kernel reaches the
+other processes' buffers through CUDA IPC handles, the plain ring sends
+between them, every process makes the same inputs from the same seed,
+and process 0 prints the lines and the verdict of every process
+(`_ladder.agree`).
 """
 
 from __future__ import annotations
@@ -30,6 +36,9 @@ import time
 import numpy as np
 import torch
 
+from cuda_flashattention_torch import config
+from cuda_flashattention_torch.examples import _ladder
+from cuda_flashattention_torch.parallel import mesh as mesh_mod
 from cuda_flashattention_torch.parallel.device_ring import (
     device_ring_matmul,
     ring_matmul_plain,
@@ -50,8 +59,12 @@ def main(argv=None) -> int:
     ap.add_argument("--cpu", action="store_true",
                     help="run on CPU tensors (the plain version)")
     args = ap.parse_args(argv)
+    args.cpu = args.cpu or config.CPU.as_bool  # the launcher's --cpu
 
-    if args.cpu:
+    if _ladder.bootstrap(args.cpu):
+        devices = _ladder.devices(args.ranks, args.cpu)
+        n, where = len(devices), _ladder.where(devices)
+    elif args.cpu:
         n = args.ranks or 4
         devices, where = ["cpu"] * n, "cpu"
     elif not torch.cuda.is_available():
@@ -64,8 +77,9 @@ def main(argv=None) -> int:
         devices = [torch.device("cuda", i % cards) for i in range(n)]
         where = (f"{cards} cards" if cards > 1
                  else f"one card shared by {n} ranks")
+    say = mesh_mod.process_index() == 0
     mesh = make_mesh((n,), ("sp",), devices)
-    dev = mesh.device(0)
+    dev = mesh.home
 
     width = args.width
     rng = np.random.default_rng(0)
@@ -80,8 +94,9 @@ def main(argv=None) -> int:
         n, 1)
     d_dev = (o_dev - ref).abs().max().item()
     d_plain = (o_plain - ref).abs().max().item()
-    print(f"devices={n} ({where}) d={width}  device-ring diff vs ref: "
-          f"{d_dev:.2e}   plain-ring diff: {d_plain:.2e}")
+    if say:
+        print(f"devices={n} ({where}) d={width}  device-ring diff vs ref: "
+              f"{d_dev:.2e}   plain-ring diff: {d_plain:.2e}")
 
     def sync():
         for d in mesh.distinct_devices():
@@ -96,11 +111,13 @@ def main(argv=None) -> int:
         for _ in range(ITERS):
             fn(x, w, mesh)
         sync()
-        print(f"{name} ring: {(time.perf_counter() - t0) / ITERS * 1e6:.1f} "
-              f"us/iter")
+        if say:
+            print(f"{name} ring: "
+                  f"{(time.perf_counter() - t0) / ITERS * 1e6:.1f} us/iter")
 
-    ok = d_dev < GATE and d_plain < GATE
-    print("Test PASSED!" if ok else "Test FAILED!")
+    ok = _ladder.agree(mesh, d_dev < GATE and d_plain < GATE)
+    if say:
+        print("Test PASSED!" if ok else "Test FAILED!")
     return 0 if ok else 1
 
 

@@ -41,14 +41,39 @@ The kernel's protocol, stated here in plain Python and used by the wrapper
     launch, so that host threads sharing a stream enqueue their calls in
     the order of their epochs.
   - Scope: the `.gpu` build when every rank is on one card, `.sys` when
-    some neighbour is on another.
+    some neighbour is on another card or in another process.
+
+Across processes (a mesh that spans them) each process launches its own
+ranks, all on its one card, and the ring's workspace is shared: each
+process allocates its ranks' double buffers and flag words in one
+allocation of its own (`cfa_ipc_alloc`, outside the caching allocator),
+publishes its IPC handle and its card's share of CTAs in the group's
+store, and opens the others' handles (`_XpWorkspace`; `xp_sources`,
+`xp_layout` and `xp_grid` are its plan). A process cannot open its own
+handle: its own ranks take its own pointers. The processes agree on one
+grid (the least that every card holds for all the ranks on it, of every
+process) and draw the same epoch per call: before each launch a process
+waits for its stream and for the ring's other processes (`store_barrier`,
+named by the epoch), so that no kernel spins while a neighbour's is still
+queued behind other work or its host is late, and a process whose calls
+do not pair with the others' waits there and raises at the group's
+timeout instead of reading another call's data. Such a workspace is freed
+together, at `shutdown_distributed` (every importer closes its mapping
+before the owner frees). Processes that share a card do not run their
+kernels at once without MPS: the card switches between their contexts,
+and the ring moves forward as it does; its times are the card's
+time-slicing, not the kernel's. The output's rows of the other
+processes' ranks come from their processes (`Mesh.share`), so every
+process returns the whole o.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import json
 import threading
+import time
 import weakref
 from typing import Dict, List, Sequence, Tuple
 
@@ -56,6 +81,7 @@ import torch
 
 from cuda_flashattention_torch import _build
 from cuda_flashattention_torch.ops.common import RING_HEAD_DIMS, run_dim
+from cuda_flashattention_torch.parallel import mesh as mesh_mod
 from cuda_flashattention_torch.parallel.mesh import Mesh
 
 KERNEL_TILE_ROWS = 64   # rows of a tile (csrc/device_ring.cu BM)
@@ -69,6 +95,8 @@ KERNEL_GROUP_TILES_F32 = {64: 4, 128: 1, 256: 1}
 FLAG_WORDS = 4          # per (rank, CTA): recv, credit, start, unused
 EPOCH_LIMIT = 1 << 32   # epochs are 1 .. EPOCH_LIMIT - 1 on one workspace
 MAX_WORKSPACES = 16     # kept at once, least recently used dropped first
+XP_ALIGN = 1024         # bytes: each block of a cross-process allocation
+IPC_HANDLE_BYTES = 64   # cudaIpcMemHandle_t
 
 
 def span_partition(tiles: int, grid: int) -> List[Tuple[int, int]]:
@@ -119,6 +147,52 @@ def flag_value(epoch: int, count: int) -> int:
     return (epoch << 32) | count
 
 
+def xp_sources(procs: Sequence[int], me: int) -> List[tuple]:
+    """Where each rank of a ring whose ranks run in processes `procs` (in
+    ring order) finds its double buffers and flags, seen from process
+    `me`: ("local", j) for this process's j-th rank of the ring (its own
+    allocation), ("mapped", p, j) for process p's j-th (p's allocation,
+    opened by its IPC handle)."""
+    seen: Dict[int, int] = {}
+    out = []
+    for p in procs:
+        j = seen.get(p, 0)
+        seen[p] = j + 1
+        out.append(("local", j) if p == me else ("mapped", p, j))
+    return out
+
+
+def xp_layout(rows: int, d: int, f32: bool, grid: int,
+              n_local: int) -> Tuple[List[Tuple[int, int]], int]:
+    """A process's allocation for its `n_local` ranks of a cross-process
+    ring: per rank (byte offset of its double buffers, of its flag words),
+    each block aligned to `XP_ALIGN`, and the allocation's bytes. The
+    offsets of a process's j-th rank depend on j alone, so every process
+    finds them in another's allocation."""
+    def up(nbytes: int) -> int:
+        return -(-nbytes // XP_ALIGN) * XP_ALIGN
+
+    parts = column_parts(d, f32)
+    buf = up(parts * 2 * (1 + int(f32)) * rows * d * 2)  # bf16 images
+    flags = up(parts * grid * FLAG_WORDS * 8)
+    return ([(j * (buf + flags), j * (buf + flags) + buf)
+             for j in range(n_local)], n_local * (buf + flags))
+
+
+def xp_grid(infos: Dict[int, dict], tiles: int) -> int:
+    """The grid every process of a cross-process ring launches: from each
+    process's {"card": its card's identity, "resident": the spans that
+    card holds at once, "ranks": its ranks of the ring}, the least share
+    of a card over ALL the ranks on it (processes on one card count
+    together, so their kernels fit at once where the card runs them
+    together), at most one span per tile (`common_grid`)."""
+    resident, ranks_on = {}, collections.Counter()
+    for info in infos.values():
+        resident[info["card"]] = info["resident"]
+        ranks_on[info["card"]] += info["ranks"]
+    return common_grid(resident, ranks_on, tiles)
+
+
 def _check(x: torch.Tensor, w: torch.Tensor, n: int):
     if x.ndim != 2 or w.ndim != 2 or w.shape != (x.shape[1], x.shape[1]):
         raise ValueError(f"expected x [n·L, d] and w [d, d], got "
@@ -135,31 +209,45 @@ def ring_matmul_plain(x: torch.Tensor, w: torch.Tensor, mesh: Mesh,
     the host (`Mesh.send`, queued before the step's product and awaited
     after it) and one fp32 `torch.matmul` per step. x [n·L, d] sharded on
     rows over `axis_name`, w [d, d] → o [n·L, d] fp32 on x's device, every
-    rank's rows holding (Σ_i x_i) @ W."""
+    rank's rows holding (Σ_i x_i) @ W. Across processes each process runs
+    its own ranks and gathers the others' rows (`Mesh.share`)."""
     ranks = mesh.axis_ranks(axis_name)
     n = len(ranks)
-    _check(x, w, n)
+    rows, d = _check(x, w, n)
     with mesh.region(ranks, x.device) as reg:
-        cur, ws, acc = [], [], []
-        for piece, r in zip(x.chunk(n, dim=0), ranks):
-            with mesh.on(r):
-                cur.append(piece.to(mesh.device(r)))
-                ws.append(w.to(mesh.device(r)).float())
-                acc.append(None)
+        cur, ws, acc = [None] * n, [None] * n, [None] * n
+        for i, (piece, r) in enumerate(zip(x.chunk(n, dim=0), ranks)):
+            if mesh.is_local(r):
+                with mesh.on(r):
+                    cur[i] = piece.to(mesh.device(r))
+                    ws[i] = w.to(mesh.device(r)).float()
+        like = x[:rows]  # a shard's shape and dtype
         for step in range(n):
             pending = None
             if step < n - 1:
-                pending = [mesh.send(cur[i], ranks[i], ranks[(i + 1) % n])
+                pending = [mesh.send(cur[i], ranks[i], ranks[(i + 1) % n],
+                                     like=like)
                            for i in range(n)]
             for i, r in enumerate(ranks):
-                with mesh.on(r):
-                    part = torch.matmul(cur[i].float(), ws[i])
-                    acc[i] = part if acc[i] is None else acc[i] + part
+                if mesh.is_local(r):
+                    with mesh.on(r):
+                        part = torch.matmul(cur[i].float(), ws[i])
+                        acc[i] = part if acc[i] is None else acc[i] + part
             if pending is not None:
                 reg.keep(*cur)
-                cur = [pending[(i - 1) % n].wait() for i in range(n)]
+                cur = [None if pending[(i - 1) % n] is None
+                       else pending[(i - 1) % n].wait() for i in range(n)]
         reg.keep(*cur, *acc)
-    return torch.cat([a.to(x.device) for a in acc], dim=0)
+    return _gather_rows(mesh, ranks, acc, x.device, rows, d)
+
+
+def _gather_rows(mesh: Mesh, ranks, acc, device, rows: int,
+                 d: int) -> torch.Tensor:
+    """Every rank's o rows [L, d] (this process's in `acc`, None for the
+    others') as one [n·L, d] fp32 tensor on `device`."""
+    like = torch.empty((rows, d), dtype=torch.float32, device=device)
+    return torch.cat([mesh.share(None if a is None else a.to(device), r,
+                                 like) for a, r in zip(acc, ranks)], dim=0)
 
 
 class _Workspace:
@@ -272,6 +360,175 @@ def _workspace(lib, devs: Tuple[torch.device, ...], rows: int, d: int,
         return ws
 
 
+class _XpWorkspace:
+    """A ring's workspace across processes (module docstring), made by
+    every process of the ring at its first call of one (ranks, rows, d,
+    type): this process's allocation (`xp_layout`) and the others',
+    mapped; the pointer tables; the agreed grid; the epochs. Its store
+    keys are named by the ring's processes and a count of the workspaces
+    they made before, the same in each of them."""
+
+    _made: "collections.Counter" = collections.Counter()
+
+    def __init__(self, lib, mesh: Mesh, ranks: Sequence[int], rows: int,
+                 d: int, f32: bool):
+        me = mesh_mod.process_index()
+        procs = [mesh.process(r) for r in ranks]
+        self.procs = sorted(set(procs))
+        self.n, self.rows, self.d, self.f32 = len(ranks), rows, d, int(f32)
+        self.sys = 1  # a neighbour writes from another context
+        self.mine = [i for i, q in enumerate(procs) if q == me]
+        cards = {mesh.device(ranks[i]) for i in self.mine}
+        if len(cards) != 1:
+            raise ValueError(f"process {me} runs its ranks of the device "
+                             f"ring on {sorted(map(str, cards))}: across "
+                             f"processes each process's ranks share its "
+                             f"one card")
+        self.dev = cards.pop()
+        tag = "-".join(map(str, self.procs))
+        _XpWorkspace._made[tag] += 1
+        self.name = f"k9/{tag}/{_XpWorkspace._made[tag]}"
+        st = mesh_mod.store()
+        count = ctypes.c_int(0)
+        _build.check(lib.cfa_device_ring_resident(
+            d, self.sys, self.f32, self.dev.index, ctypes.byref(count)),
+            "device ring occupancy")
+        st.set(f"cfa/{self.name}/info/{me}", json.dumps(dict(
+            card=mesh_mod.identity(self.dev), resident=count.value,
+            ranks=len(self.mine))))
+        infos = {q: json.loads(st.get(f"cfa/{self.name}/info/{q}"))
+                 for q in self.procs}
+        self.grid = xp_grid(infos, rows // KERNEL_TILE_ROWS)
+        held = [info["card"] for info in infos.values()]
+        # processes that share a card: the card time-slices their kernels
+        self.shared_card = len(set(held)) < len(held)
+        layout, total = xp_layout(rows, d, f32, self.grid, len(self.mine))
+        own, handle = ctypes.c_void_p(), ctypes.create_string_buffer(
+            IPC_HANDLE_BYTES)
+        _build.check(lib.cfa_ipc_alloc(self.dev.index, total,
+                                       ctypes.byref(own), handle),
+                     "device ring workspace across processes")
+        self.own = own.value
+        st.set(f"cfa/{self.name}/handle/{me}", handle.raw.hex())
+        self.mapped: Dict[int, int] = {}
+        for q in self.procs:
+            if q == me:
+                continue  # a process cannot open its own handle
+            raw = bytes.fromhex(st.get(f"cfa/{self.name}/handle/{q}")
+                                .decode())
+            ptr = ctypes.c_void_p()
+            _build.check(lib.cfa_ipc_open(
+                self.dev.index, ctypes.create_string_buffer(raw, len(raw)),
+                ctypes.byref(ptr)), f"opening process {q}'s ring workspace")
+            self.mapped[q] = ptr.value
+        bufs, flags = [], []
+        for src in xp_sources(procs, me):
+            base = self.own if src[0] == "local" else self.mapped[src[1]]
+            b, f = layout[src[-1]]
+            bufs.append(base + b)
+            flags.append(base + f)
+        self.bufs = (ctypes.c_void_p * self.n)(*bufs)
+        self.flags = (ctypes.c_void_p * self.n)(*flags)
+        self.local = (ctypes.c_int * len(self.mine))(*self.mine)
+        self.epoch = 0
+        self.lock = threading.Lock()
+        self._lib = lib
+        # every process's flags are zero and mapped before any launch
+        mesh_mod.store_barrier(f"{self.name}/made", self.procs)
+        self._prev = f"{self.name}/made"
+        mesh_mod.at_shutdown(_release_xp_workspaces)
+
+    def start(self, stream) -> int:
+        """This call's epoch, once this process's stream has drained and
+        every process of the ring has reached the same epoch (held under
+        `lock`)."""
+        self.epoch += 1
+        if self.epoch >= EPOCH_LIMIT:
+            raise RuntimeError(f"the cross-process device ring's workspace "
+                               f"has run {EPOCH_LIMIT - 1} calls: its flags "
+                               f"cannot be zeroed again while mapped")
+        t0 = time.perf_counter()
+        stream.synchronize()
+        name = f"{self.name}/e{self.epoch}"
+        mesh_mod.store_barrier(name, self.procs, prev=self._prev)
+        self._prev = name
+        device_ring_matmul.last_start_s = time.perf_counter() - t0
+        return self.epoch
+
+    def release(self) -> None:
+        """Unmap the others' allocations, wait for every process of the
+        ring to have done so, and free this process's."""
+        torch.cuda.synchronize(self.dev)
+        for q, ptr in self.mapped.items():
+            _build.check(self._lib.cfa_ipc_close(self.dev.index, ptr),
+                         f"closing process {q}'s ring workspace")
+        mesh_mod.store_barrier(f"{self.name}/closed", self.procs)
+        _build.check(self._lib.cfa_ipc_free(self.dev.index, self.own),
+                     "freeing the ring workspace")
+
+
+# cross-process workspaces, kept until `shutdown_distributed` (their
+# release is collective, so no least-recently-used rule drops them)
+_xp_workspaces: Dict[tuple, _XpWorkspace] = {}
+
+
+def _release_xp_workspaces() -> None:
+    while _xp_workspaces:
+        _xp_workspaces.popitem()[1].release()
+
+
+def _device_ring_xp(lib, x, w, mesh: Mesh, axis_name: str, rows: int,
+                    d: int) -> torch.Tensor:
+    """K9 over a ring whose ranks run in several processes: this
+    process's ranks in one launch on its card, the others' rows of o from
+    their processes."""
+    ranks = mesh.axis_ranks(axis_name)
+    f32 = x.dtype == torch.float32
+    key = (tuple(mesh.place(r) for r in ranks), rows, d, f32)
+    with _workspaces_lock:
+        ws = _xp_workspaces.get(key)
+        if ws is None:
+            ws = _xp_workspaces[key] = _XpWorkspace(lib, mesh, ranks, rows,
+                                                     d, f32)
+    dev = ws.dev
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev)
+        x_dev = torch.cat([x[i * rows:(i + 1) * rows]
+                           for i in ws.mine]).to(dev).contiguous()
+        w_dev = w.to(dev).contiguous()
+        out_dev = torch.empty((len(ws.mine) * rows, d), dtype=torch.float32,
+                              device=dev)
+        events = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+        with ws.lock:
+            epoch = ws.start(stream)
+            events[0].record(stream)
+            err = lib.cfa_device_ring(
+                x_dev.data_ptr(), w_dev.data_ptr(), out_dev.data_ptr(),
+                ws.bufs, ws.flags, ws.n, ws.local, len(ws.mine), rows, d,
+                ws.grid, epoch, ws.sys, ws.f32, dev.index,
+                stream.cuda_stream)
+            _build.check(err, "device_ring_matmul kernel launch")
+            events[1].record(stream)
+        device_ring_matmul.last_events = events
+        device_ring_matmul.launches += 1
+        device_ring_matmul.last_grid = (ws.grid, len(ws.mine))
+        device_ring_matmul.last_scope = "sys"
+        if ws.shared_card:
+            try:
+                stream.synchronize()
+            except RuntimeError as e:
+                raise RuntimeError(
+                    f"the device ring across processes that share a card "
+                    f"({dev}) did not finish: the card runs their kernels "
+                    f"in turns, and a spin on a neighbour's flag gave up "
+                    f"(its trap): {e}") from e
+    acc = [None] * ws.n
+    for j, i in enumerate(ws.mine):
+        acc[i] = out_dev[j * rows:(j + 1) * rows]
+    return _gather_rows(mesh, ranks, acc, x.device, rows, d)
+
+
 def _launch(lib, ws: _Workspace, dev: torch.device, x_dev, w_dev, out_dev,
             epoch: int, stream) -> None:
     idxs = ws.cards[dev]
@@ -326,6 +583,9 @@ def _device_ring_cuda(x, w, mesh: Mesh, axis_name: str) -> torch.Tensor:
             raise ValueError(f"x is on {x.device} but the mesh holds {dev}: "
                              f"the CUDA ring needs every rank on a card")
     lib = _build.library()
+    if mesh.spans_processes:
+        return _device_ring_xp(lib, x.contiguous(), w.contiguous(), mesh,
+                               axis_name, rows, d)
     main = torch.cuda.current_stream(x.device)
     cards = list(dict.fromkeys(devs))
     one_card = cards == [x.device]
@@ -388,16 +648,13 @@ def device_ring_matmul(x: torch.Tensor, w: torch.Tensor, mesh: Mesh,
     in fp32), `.last_scope` its flags' scope
     ("gpu": one card, "sys": across cards).
 
-    The ring is one process's: the kernel reaches its neighbours by
-    device pointers, which do not cross processes (that needs CUDA IPC
-    handles), so a mesh that spans processes raises ValueError, on the
-    CPU too."""
-    if mesh.spans_processes:
-        raise ValueError(
-            "device_ring_matmul runs a ring of one process (its kernel "
-            "reaches the neighbours' buffers by device pointers): a mesh "
-            "that spans processes is not supported: build the mesh over "
-            "this process's devices")
+    A mesh that spans processes runs each process's ranks in one launch
+    on its card, over a workspace shared by CUDA IPC handles (module
+    docstring); `.last_start_s` is the host seconds its last call waited
+    for its stream and the other processes before the launch, and
+    `.last_events` the CUDA events recorded just before and after that
+    launch (the kernel's time, once they have completed). On CPU tensors
+    the plain ring runs across processes too."""
     if x.device != w.device:
         raise ValueError(f"w is on {w.device}, x on {x.device}")
     if x.device.type == "cpu":
@@ -410,3 +667,5 @@ def device_ring_matmul(x: torch.Tensor, w: torch.Tensor, mesh: Mesh,
 device_ring_matmul.launches = 0
 device_ring_matmul.last_grid = (0, 0)
 device_ring_matmul.last_scope = None
+device_ring_matmul.last_start_s = 0.0
+device_ring_matmul.last_events = None

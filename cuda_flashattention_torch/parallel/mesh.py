@@ -131,6 +131,8 @@ DIST_TIMEOUT_S = 300.0
 # the host seconds spent waiting on transfers (the staged sends'
 # device-to-host copies, the receives, the sends' completion)
 transfer_stats = {"bytes": 0, "wait_s": 0.0}
+# what `shutdown_distributed` runs before it leaves the group
+_SHUTDOWN_HOOKS: List[Callable[[], None]] = []
 
 
 def _waited(fn):
@@ -151,7 +153,7 @@ def process_count() -> int:
     return _WORLD.nproc if _WORLD is not None else 1
 
 
-def _identity(device: torch.device) -> str:
+def identity(device: torch.device) -> str:
     """What tells one device from another across processes: the card's
     UUID on its host, or the process itself on the CPU."""
     host = socket.gethostname()
@@ -162,7 +164,7 @@ def _identity(device: torch.device) -> str:
 
 def choose_transport(identities: Sequence[str]) -> str:
     """The transport for processes whose devices have these identities
-    (`_identity`): "gloo" when every one is a CPU, "nccl" when each is a
+    (`identity`): "gloo" when every one is a CPU, "nccl" when each is a
     card of its own, "staged" when some processes share a card. A group
     that mixes CPUs and cards is refused."""
     cpu = ["/cpu/" in i for i in identities]
@@ -229,13 +231,13 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                                                     process_id):
         raise ValueError(f"the group already up is process "
                          f"{dist.get_rank()} of {dist.get_world_size()}")
-    store = dist.distributed_c10d._get_default_store()
-    store.set(f"cfa/place/{process_id}", json.dumps(dict(
-        identity=_identity(device), type=device.type, index=device.index,
+    st = store()
+    st.set(f"cfa/place/{process_id}", json.dumps(dict(
+        identity=identity(device), type=device.type, index=device.index,
         ranks=local_ranks)))
     places, identities = [], []
     for p in range(num_processes):
-        info = json.loads(store.get(f"cfa/place/{p}"))
+        info = json.loads(st.get(f"cfa/place/{p}"))
         identities.append(info["identity"])
         places += [Place(p, torch.device(info["type"], info["index"]))
                    ] * info["ranks"]
@@ -255,18 +257,52 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
 
 
 def shutdown_distributed() -> None:
-    """Wait for the sends still in flight and leave the group."""
+    """Wait for the sends still in flight, run what `at_shutdown`
+    registered (in order) and leave the group."""
     global _DISTRIBUTED_INITIALIZED, _WORLD, TRANSPORT
     if _WORLD is None:
         return
     import torch.distributed as dist
     try:
         _settle()
+        while _SHUTDOWN_HOOKS:
+            _SHUTDOWN_HOOKS.pop(0)()
     finally:
         _WORLD, TRANSPORT = None, None
         _DISTRIBUTED_INITIALIZED = False
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def at_shutdown(fn: Callable[[], None]) -> None:
+    """Run fn() in `shutdown_distributed`, while the group is still up (a
+    release that the processes make together)."""
+    if fn not in _SHUTDOWN_HOOKS:
+        _SHUTDOWN_HOOKS.append(fn)
+
+
+def store():
+    """The group's key-value store (the one `initialize_distributed`
+    exchanges the devices through)."""
+    import torch.distributed as dist
+    return dist.distributed_c10d._get_default_store()
+
+
+def store_barrier(name: str, procs: Sequence[int],
+                  prev: Optional[str] = None) -> None:
+    """Wait until every process of `procs` has reached the barrier `name`
+    (a name used once), through the group's store, within the group's
+    timeout. `prev`: the name of these processes' previous barrier, whose
+    keys the last to arrive deletes (everyone has left it)."""
+    st = store()
+    key = f"cfa/barrier/{name}"
+    if st.add(key, 1) == len(procs):
+        st.set(f"{key}/go", b"1")
+        if prev is not None:
+            for k in (f"cfa/barrier/{prev}", f"cfa/barrier/{prev}/go"):
+                st.delete_key(k)
+    else:
+        st.wait([f"{key}/go"])
 
 
 def global_devices() -> list:

@@ -17,13 +17,14 @@ seconds it waited on them (`parallel/mesh.transfer_stats`). With
 (fp32). With `--check` process 0 runs the path again without the other
 processes and writes the differences into its json (`errors`: per
 output the largest, the reference's largest |value| and the relative L2
-norm): the ring, Ulysses, the collectives and GPipe against the same
-call on a mesh of as many ranks of its own device (ring decode also
-against `decode_attention` on the whole cache: "o@whole"), the train step
-against the same weights, made anew, without a mesh. But for the train
-step it also times that one-process call (`alone_ms`), on the mesh the
-check built and ran once, after every process has finished its paths and
-while the others wait idle.
+norm): the ring, Ulysses, the collectives, GPipe, K9 and the pipelined
+step against the same call on a mesh of as many ranks of its own device
+(ring decode also against `decode_attention` on the whole cache:
+"o@whole"; K9 against (Σ_i x_i) @ W in fp32: "o[...]@ref"), the train
+step against the same weights, made anew, without a mesh. But for the
+train steps it also times that one-process call (`alone_ms`), on the
+mesh the check built and ran once, after every process has finished its
+paths and while the others wait idle.
 
 Paths (sizes from the options):
   ring_causal, ring_ragged   `ring_attention` forward and backward over
@@ -35,12 +36,33 @@ Paths (sizes from the options):
                              over "dp" of a ("dp", "sp") = (2, ranks / 2)
                              mesh (dp groups span the processes) and the
                              autograd pairs; every rank's result
-  gpipe                      `gpipe_spmd` of tanh layers over "pp"
+  gpipe                      `gpipe_spmd` of tanh layers over "pp":
+                             the output and the gradients of x and of
+                             the whole layer stack
   train                      `make_train_step` of `--model` placed by
                              `shard_model` on `--axes` (e.g. sp=4,
                              dp=2,sp=2, tp=2,sp=2; once per --axes): the
                              first step's loss and gradients, then
                              `--steps` timed steps
+  pipe_train                 `--model` trained through `pipeline_forward`
+                             on `--pipe-axes` (pp=2, or pp=2,dp=2 with the
+                             batch cut over dp; a mesh smaller than the
+                             device list takes ranks spread over the
+                             processes; ":placed" after the axes passes
+                             `stage_param_sharding`'s list), `--micro`
+                             microbatches: the first step's loss and the
+                             gradients of every parameter (where the
+                             stages are placed, each layer's from the
+                             process that holds it), then `--steps` timed
+                             SGD steps
+  k9                         `device_ring_matmul` over every rank
+                             ("sp"), at each of `--k9-rows` x `--k9-d` x
+                             `--k9-dtypes`: o, the wrapper's ms per call
+                             and the plain ring's, the kernel's (CUDA
+                             events, on cards across processes), the host
+                             seconds before its launch, and whether
+                             `--k9-repeats` calls on one workspace equal
+                             the first bit for bit
 """
 
 from __future__ import annotations
@@ -50,6 +72,7 @@ import json
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -61,7 +84,7 @@ from cuda_flashattention_torch.parallel.mesh import make_mesh
 from cuda_flashattention_torch.utils.testing import seeded_random
 
 PATHS = ("ring_causal", "ring_ragged", "decode", "ulysses", "collectives",
-         "gpipe", "train")
+         "gpipe", "train", "pipe_train", "k9")
 # the tests' small model, and the repo's 271M training config (bench.py
 # sec_train), as chip_smoke.py trains it
 MODELS = {
@@ -101,6 +124,25 @@ def parse(argv=None) -> argparse.Namespace:
                          "given more than once, the path runs once per "
                          "mesh, as train[<axes>] (default sp=4)")
     ap.add_argument("--steps", type=int, default=1)
+    ap.add_argument("--pipe-axes", action="append", default=None,
+                    help="the pipe_train path's mesh, e.g. pp=2 or "
+                         "pp=2,dp=2 (\":placed\" after it: the stages "
+                         "placed by stage_param_sharding); given more than "
+                         "once, the path runs once per mesh, as "
+                         "pipe_train[<axes>] (default pp=2)")
+    ap.add_argument("--micro", type=int, default=2,
+                    help="the pipe_train path's microbatches")
+    ap.add_argument("--pipe-batch", type=int, default=None,
+                    help="the pipe_train path's batch (default --batch)")
+    ap.add_argument("--pipe-seq", type=int, default=None,
+                    help="the pipe_train path's tokens per sequence "
+                         "(default --train-seq, else --seq)")
+    ap.add_argument("--k9-rows", type=int, nargs="+", default=[64])
+    ap.add_argument("--k9-d", type=int, nargs="+", default=[16])
+    ap.add_argument("--k9-dtypes", nargs="+", choices=DTYPES,
+                    default=["fp32"])
+    ap.add_argument("--k9-repeats", type=int, default=2)
+    ap.add_argument("--k9-iters", type=int, default=3)
     return ap.parse_args(argv)
 
 
@@ -115,10 +157,13 @@ def _launches() -> dict:
         flash_attention_backward)
     from cuda_flashattention_torch.ops.flash_fwd import (
         flash_attention_forward)
+    from cuda_flashattention_torch.parallel.device_ring import (
+        device_ring_matmul)
     return dict(fwd=flash_attention_forward.launches,
                 forms=dict(flash_attention_forward.form_launches),
                 bwd=dict(flash_attention_backward.launches),
-                decode=decode_attention.launches)
+                decode=decode_attention.launches,
+                k9=device_ring_matmul.launches)
 
 
 def _zero_launches() -> None:
@@ -127,7 +172,10 @@ def _zero_launches() -> None:
         flash_attention_backward)
     from cuda_flashattention_torch.ops.flash_fwd import (
         flash_attention_forward)
+    from cuda_flashattention_torch.parallel.device_ring import (
+        device_ring_matmul)
     flash_attention_forward.launches = 0
+    device_ring_matmul.launches = 0
     for d in (flash_attention_forward.form_launches,
               flash_attention_backward.launches):
         for k in d:
@@ -257,11 +305,175 @@ def _gpipe(args, devs, home):
     ws = torch.stack([_inputs((PIPE_D, PIPE_D), 160 + i, torch.float32,
                               home) * 0.5 for i in range(PIPE_LAYERS)])
     x = _inputs((PIPE_B, PIPE_D), 170, torch.float32, home)
+    dy = _inputs((PIPE_B, PIPE_D), 171, torch.float32, home)
 
     def run(mesh):
-        with torch.no_grad():
-            return dict(y=gpipe_spmd(pipe_stage, ws, x, mesh, n_micro=4))
+        w, a = ws.clone().requires_grad_(), x.clone().requires_grad_()
+        y = gpipe_spmd(pipe_stage, w, a, mesh, n_micro=4)
+        dw, dx = torch.autograd.grad(y, (w, a), dy)
+        return dict(y=y.detach(), dw=dw, dx=dx)
     return run, (len(devs),), ("pp",), None
+
+
+def _spread(devs: list, n: int) -> list:
+    """n of the ranks' devices, spread evenly over the list (one rank of
+    each process where n is the process count); every process must keep
+    one."""
+    if len(devs) % n:
+        raise ValueError(f"{n} ranks do not spread over {len(devs)}")
+    out = devs[::len(devs) // n]
+    procs = {d.process for d in devs if isinstance(d, mesh_mod.Place)}
+    if procs - {d.process for d in out if isinstance(d, mesh_mod.Place)}:
+        raise ValueError(f"a mesh of {n} ranks leaves out some of the "
+                         f"{len(procs)} processes")
+    return out
+
+
+def pipe_loss(model, tokens: torch.Tensor, mesh, n_micro: int,
+              batch_axis: Optional[str] = None,
+              placed: bool = False) -> torch.Tensor:
+    """Next-token cross entropy over `pipeline_forward`'s logits (the mean
+    over positions [:, :-1], as `loss_fn`), the layers stacked anew (and,
+    `placed`, cut by `stage_param_sharding`) so that the gradients reach
+    the model's parameters."""
+    import torch.nn.functional as F
+
+    from cuda_flashattention_torch.models import transformer as tfm
+    from cuda_flashattention_torch.parallel.pipeline import (
+        stack_stage_params, stage_param_sharding)
+    stacked = stack_stage_params([tfm.layer_weights(b)
+                                  for b in model.layers])
+    if placed:
+        stacked = stage_param_sharding(stacked, mesh)
+    logits = tfm.pipeline_forward(model, tokens, mesh, n_micro,
+                                  batch_axis=batch_axis, stacked=stacked)
+    targets = torch.roll(tokens, -1, dims=1).long()
+    return F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
+                           targets[:, :-1].reshape(-1))
+
+
+def _pipe_train(args, spec, devs, home, info):
+    """The pipe_train path on one `--pipe-axes` spec; like `_train`."""
+    axes, _, mode = spec.partition(":")
+    placed = mode == "placed"
+    pairs = [a.split("=") for a in axes.split(",")]
+    shape = tuple(int(v) for _, v in pairs)
+    names = tuple(a for a, _ in pairs)
+    batch_axis = "dp" if "dp" in names else None
+    n = int(np.prod(shape))
+    model = _model(args, home)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, model.cfg.vocab_size, (args.pipe_batch or args.batch,
+                                  args.pipe_seq or args.train_seq
+                                  or args.seq)).astype(np.int32)).to(home)
+    mesh = make_mesh(shape, names, _spread(devs, n))
+    info["mesh"] = spec
+
+    def grads(m, mesh):
+        """Every parameter's gradient; where the stages are placed across
+        processes, each layer's from the process that holds its stage."""
+        out = {}
+        per = len(m.layers) // mesh.shape["pp"]
+        for name, p in m.named_parameters():
+            g = p.grad
+            if placed and mesh.spans_processes and name.startswith(
+                    "layers."):
+                stage = int(name.split(".")[1]) // per
+                owner = mesh.rank_of(pp=stage)
+                g = mesh.share(g if mesh.is_local(owner) else None, owner,
+                               like=p)
+            out[f"grad/{name}"] = g
+        return out
+
+    loss = pipe_loss(model, tokens, mesh, args.micro, batch_axis, placed)
+    loss.backward()
+    out = dict(loss=loss.detach(), **grads(model, mesh))
+    opt = torch.optim.SGD(model.parameters(), lr=1e-4)
+    step_ms, losses = [], []
+    _zero_launches()
+    for _ in range(args.steps):
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = pipe_loss(model, tokens, mesh, args.micro, batch_axis,
+                         placed)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+        _sync(home)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    info.update(step_ms=step_ms, losses=losses, launches=_launches())
+    del model, opt
+
+    def whole_step():
+        """The same pipelined step in this process alone, on as many ranks
+        of its own device: loss and gradients."""
+        one = make_mesh(shape, names, [home] * n)
+        whole = _model(args, home)
+        ref = pipe_loss(whole, tokens, one, args.micro, batch_axis, placed)
+        ref.backward()
+        return dict(loss=ref.detach(), **grads(whole, one))
+    return out, whole_step
+
+
+def _k9(args, devs, home):
+    from cuda_flashattention_torch.parallel.device_ring import (
+        device_ring_matmul, ring_matmul_plain)
+    n = len(devs)
+    cases = [(rows, d, dt) for rows in args.k9_rows for d in args.k9_d
+             for dt in args.k9_dtypes]
+    inputs = {c: (_inputs((n * c[0], c[1]), 900 + i, DTYPES[c[2]], home),
+                  _inputs((c[1], c[1]), 950 + i, DTYPES[c[2]], home))
+              for i, c in enumerate(cases)}
+    timing = {}
+
+    def run(mesh):
+        return {f"o[{r},{d},{dt}]": device_ring_matmul(*inputs[(r, d, dt)],
+                                                       mesh)
+                for r, d, dt in cases}
+
+    def reference():
+        """tile((Σ_i x_i) @ W) in fp32, on this process's device."""
+        out = {}
+        for (r, d, dt), (x, w) in inputs.items():
+            o = x.float().view(n, r, d).sum(0) @ w.float()
+            out[f"o[{r},{d},{dt}]@ref"] = o.repeat(n, 1)
+        return out
+
+    def measure(mesh):
+        """Per case: the wrapper's ms per call (host clock, synchronised)
+        and the plain ring's, the last call's kernel ms (CUDA events around its launch, on a
+        card across processes), the host seconds it waited before its
+        launch, and how many of `--k9-repeats` calls equal the first bit
+        for bit."""
+        for r, d, dt in cases:
+            x, w = inputs[(r, d, dt)]
+            first = device_ring_matmul(x, w, mesh)
+            same = sum(torch.equal(device_ring_matmul(x, w, mesh), first)
+                       for _ in range(args.k9_repeats))
+            _sync(home)
+            t0 = time.perf_counter()
+            for _ in range(args.k9_iters):
+                device_ring_matmul(x, w, mesh)
+            _sync(home)
+            ms = (time.perf_counter() - t0) * 1e3 / args.k9_iters
+            t0 = time.perf_counter()
+            for _ in range(args.k9_iters):
+                ring_matmul_plain(x, w, mesh)
+            _sync(home)
+            row = dict(ms=ms,
+                       plain_ms=(time.perf_counter() - t0) * 1e3
+                       / args.k9_iters,
+                       start_ms=device_ring_matmul.last_start_s * 1e3,
+                       same=same, repeats=args.k9_repeats,
+                       grid=list(device_ring_matmul.last_grid),
+                       scope=device_ring_matmul.last_scope)
+            events = device_ring_matmul.last_events
+            if events is not None:  # on a card, across processes
+                row["kernel_ms"] = events[0].elapsed_time(events[1])
+            timing[f"{r},{d},{dt}"] = row
+
+    run.measure, run.timing = measure, timing
+    return run, (n,), ("sp",), reference
 
 
 def _axes(spec: str):
@@ -363,23 +575,27 @@ def main(argv=None) -> int:
                   decode=lambda: _decode(args, devs, home),
                   ulysses=lambda: _ulysses(args, devs, home),
                   collectives=lambda: _collectives(args, devs, home),
-                  gpipe=lambda: _gpipe(args, devs, home))
+                  gpipe=lambda: _gpipe(args, devs, home),
+                  k9=lambda: _k9(args, devs, home))
+    trainers = dict(train=_train, pipe_train=_pipe_train)
     saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
-    axes = args.axes or ["sp=4"]
-    jobs = [(p, None) for p in args.paths if p != "train"]
-    if "train" in args.paths:
-        jobs += [("train" if len(axes) == 1 else f"train[{a}]", a)
-                 for a in axes]
+    jobs = [(p, None) for p in args.paths if p not in trainers]
+    for path, specs in (("train", args.axes or ["sp=4"]),
+                        ("pipe_train", args.pipe_axes or ["pp=2"])):
+        if path in args.paths:
+            jobs += [(path if len(specs) == 1 else f"{path}[{a}]",
+                      (path, a)) for a in specs]
     alone = []  # (path, run, its one-process mesh) to time at the end
     try:
-        for name, train_axes in jobs:
+        for name, train in jobs:
             info = {}
             stats0 = dict(mesh_mod.transfer_stats)
             if home.type == "cuda":
                 torch.cuda.reset_peak_memory_stats(home)
-            if train_axes:
-                got, again = _train(args, train_axes, devs, home, info)
+            if train:
+                got, again = trainers[train[0]](args, train[1], devs, home,
+                                                info)
             else:
                 run, shape, names, whole = makers[name]()
                 mesh = make_mesh(shape, names, devs)
@@ -392,6 +608,9 @@ def main(argv=None) -> int:
                 _sync(home)
                 info["ms"] = (time.perf_counter() - t0) * 1e3
                 info["launches"] = _launches()
+                if hasattr(run, "measure"):
+                    run.measure(mesh)
+                    info["k9"] = run.timing
                 one = make_mesh(shape, names, [home] * len(devs))
 
                 def again(run=run, one=one, whole=whole):
@@ -410,7 +629,7 @@ def main(argv=None) -> int:
                 # alone: the other processes go on to the next path, whose
                 # first transfer waits for this one
                 info["errors"] = _errors(got, again())
-                if not train_axes:
+                if not train:
                     alone.append((name, run, one))
             report["paths"][name] = info
             print(f"[multiprocess_paths] p{pid} {name}: "

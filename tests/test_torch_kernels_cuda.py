@@ -3711,11 +3711,12 @@ MP_PATHS = ("ring_causal", "ring_ragged", "decode", "ulysses", "collectives",
             "train")
 
 
-def _mp_launch(tmp_path, nproc, per_proc, env_extra=None, timeout=600):
+def _mp_launch(tmp_path, nproc, per_proc, env_extra=None, timeout=600,
+               args=None):
     """`utils/multiprocess_paths.py --check` over every path, bf16 at
     B=1 H=8 Hkv=4 N=4096 d=128 (decode B=4; the small fp32 model, sp over
-    every rank), launched as `nproc` processes of `per_proc` ranks; each
-    process's report."""
+    every rank), or over `args`, launched as `nproc` processes of
+    `per_proc` ranks; each process's report."""
     import json
     import os
     import subprocess
@@ -3728,11 +3729,11 @@ def _mp_launch(tmp_path, nproc, per_proc, env_extra=None, timeout=600):
            str(nproc), "--devices-per-proc", str(per_proc), "--timeout",
            str(timeout - 30), "-m",
            "cuda_flashattention_torch.utils.multiprocess_paths", "--out",
-           str(out), "--check", "--dtype", "bf16", "--batch", "1",
-           "--decode-batch", "4", "--heads", "8", "--kv-heads", "4", "--d",
-           "128", "--seq", "4096", "--train-seq", "64", "--axes",
-           f"sp={nproc * per_proc}",
-           *MP_PATHS]
+           str(out), "--check", *(args or [
+               "--dtype", "bf16", "--batch", "1", "--decode-batch", "4",
+               "--heads", "8", "--kv-heads", "4", "--d", "128", "--seq",
+               "4096", "--train-seq", "64", "--axes",
+               f"sp={nproc * per_proc}", *MP_PATHS])]
     env = dict(os.environ, PYTHONPATH=str(repo), **(env_extra or {}))
     r = subprocess.run(cmd, cwd=repo, env=env, capture_output=True,
                        text=True, timeout=timeout)
@@ -3783,3 +3784,158 @@ def test_multiprocess_nccl_across_cards(dev, tmp_path):
     if cards < 2:
         pytest.skip("needs two or more cards")
     _mp_check(_mp_launch(tmp_path, min(cards, 4), 1), "nccl")
+
+
+# K9 and pipelined training across processes: n = 4 ranks, L = 1024,
+# d 128 and 256, bf16 and fp32; the small fp32 model at B=4 x 64
+MP_K9 = ["--k9-rows", "1024", "--k9-d", "128", "256", "--k9-dtypes",
+         "bf16", "fp32", "--k9-repeats", "5"]
+
+
+def _mp_k9_pipe(tmp_path, nproc, per_proc, pipe_axes, micro,
+                env_extra=None):
+    """`utils/multiprocess_paths.py --check k9 pipe_train` in `nproc`
+    processes of `per_proc` ranks; each process's report."""
+    return _mp_launch(tmp_path, nproc, per_proc, env_extra, args=[
+        *MP_K9, "--pipe-axes", pipe_axes, "--micro", str(micro),
+        "--pipe-batch", "4", "--seq", "64", "k9", "pipe_train"])
+
+
+def _mp_k9_pipe_check(reports, transport):
+    """K9: every case within its gate of the fp32 reference (bf16
+    min(1e-2, 2e-2 · max), fp32 1e-4 · max(1, max)), bit for bit the
+    one-process K9, every repeat bit-identical, one launch per case in
+    each process, the .sys scope; the pipelined step's loss within 1e-5
+    and every gradient within 1e-4 · max of the same step in one
+    process."""
+    assert all(r["transport"] == transport for r in reports), reports
+    k9 = reports[0]["paths"]["k9"]
+    for key, t in k9["k9"].items():
+        got, top, _ = k9["errors"][f"o[{key}]@ref"]
+        gate = (1e-4 * max(1.0, top) if key.endswith("fp32")
+                else min(1e-2, 2e-2 * top))
+        assert top > 0 and got <= gate, (key, got, gate)
+        assert k9["errors"][f"o[{key}]"][0] == 0.0, (key, k9["errors"])
+        assert t["scope"] == "sys", t
+        for r in reports:
+            row = r["paths"]["k9"]["k9"][key]
+            assert row["same"] == row["repeats"], (key, row)
+    cases = len(k9["k9"])
+    assert all(r["paths"]["k9"]["launches"]["k9"] == cases
+               for r in reports), reports
+    e = reports[0]["paths"]["pipe_train"]["errors"]
+    assert e["loss"][0] <= 1e-5, e
+    assert all(v[1] > 0 and v[0] <= 1e-4 * v[1]
+               for k, v in e.items() if k != "loss"), e
+
+
+def test_multiprocess_device_ring_and_pipeline_on_one_card(dev, tmp_path):
+    """Two processes of two ranks each on card 0: K9 over a ring of 4
+    whose neighbours in the other process are reached through buffers
+    and flags mapped by CUDA IPC handles (the card time-slices the two
+    processes' kernels), and the pipelined training step at pp=2 over one
+    rank of each process (GPipe's backward across processes)."""
+    _mp_k9_pipe_check(_mp_k9_pipe(tmp_path, 2, 2, "pp=2", 2,
+                                  {"CUDA_VISIBLE_DEVICES": "0"}), "staged")
+
+
+def test_multiprocess_device_ring_and_pipeline_across_cards(dev, tmp_path):
+    """With two or more cards visible: one process per card (2, or 4 with
+    pp=2·dp=2), one rank each: K9 over NVLink between processes, and the
+    pipelined step over NCCL."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more cards")
+    n = 4 if cards >= 4 else 2
+    _mp_k9_pipe_check(_mp_k9_pipe(tmp_path, n, 1, "pp=2" if n == 2
+                                  else "pp=2,dp=2", 2), "nccl")
+
+
+def test_multiprocess_device_ring_late_neighbour(dev, tmp_path):
+    """A process of the ring that reaches its call 5 s after the other:
+    the other waits on the host before its launch (the ring's barrier),
+    so no kernel spins out its trap; both calls finish and equal the
+    first call bit for bit."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    repo = Path(__file__).resolve().parent.parent
+    script = tmp_path / "late.py"
+    script.write_text("""
+import time
+import torch
+from cuda_flashattention_torch.examples import _ladder
+from cuda_flashattention_torch.parallel import mesh as M
+from cuda_flashattention_torch.parallel.device_ring import device_ring_matmul
+devs = _ladder.devices(None, False)
+home = _ladder.home(devs)
+mesh = M.make_mesh((4,), ("sp",), devs)
+g = torch.Generator().manual_seed(0)
+x = torch.randn(4 * 1024, 128, generator=g).to(home, torch.bfloat16)
+w = (torch.randn(128, 128, generator=g) * 0.1).to(home, torch.bfloat16)
+first = device_ring_matmul(x, w, mesh)
+torch.cuda.synchronize()
+if M.process_index() == 1:
+    time.sleep(5)
+t0 = time.perf_counter()
+again = device_ring_matmul(x, w, mesh)
+torch.cuda.synchronize()
+print(f"late p{M.process_index()} {time.perf_counter() - t0:.3f} s, waited "
+      f"{device_ring_matmul.last_start_s:.3f} s, equal "
+      f"{torch.equal(first, again)}", flush=True)
+assert torch.equal(first, again)
+""")
+    r = subprocess.run(
+        [sys.executable, "-m",
+         "cuda_flashattention_torch.scripts.launch_multihost", "-np", "2",
+         "--devices-per-proc", "2", "--timeout", "240", str(script)],
+        cwd=repo, env=dict(os.environ, PYTHONPATH=str(repo),
+                           CUDA_VISIBLE_DEVICES="0"),
+        capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-4000:] + r.stderr[-4000:]
+    waited = float(r.stdout.split("waited ")[1].split(" s")[0])
+    assert waited >= 4.0 and "equal True" in r.stdout, r.stdout
+
+
+@pytest.mark.parametrize("placed", [False, True], ids=["restacked",
+                                                       "placed"])
+def test_pipeline_training_on_the_card(dev, placed):
+    """The pipelined training step in one process, 2 stages sharing the
+    card, over the restacked layers and over `stage_param_sharding`'s
+    placed stages: loss within 2e-2 and every gradient within 5e-2
+    relative L2 of `loss_fn` without a mesh; K1, K4 and the prologue once
+    per layer and microbatch."""
+    from cuda_flashattention_torch.models import transformer as tfm
+    from cuda_flashattention_torch.ops.flash_bwd import (
+        flash_attention_backward)
+    from cuda_flashattention_torch.ops.flash_fwd import (
+        flash_attention_forward)
+    from cuda_flashattention_torch.parallel.mesh import make_mesh
+    from cuda_flashattention_torch.utils.multiprocess_paths import pipe_loss
+    cfg = tfm.TransformerConfig(vocab_size=512, d_model=256, n_layers=4,
+                                n_heads=2, n_kv_heads=2, d_head=128,
+                                d_ff=512, max_seq=256, dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = tfm.Transformer(cfg, gen)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 256), generator=gen,
+                           device=dev, dtype=torch.int32)
+    ref = tfm.loss_fn(model, tokens)
+    ref.backward()
+    want = {n: p.grad.float() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    mesh = make_mesh((2,), ("pp",), [dev] * 2)
+    flash_attention_forward.form_launches["online"] = 0
+    for k in flash_attention_backward.launches:
+        flash_attention_backward.launches[k] = 0
+    loss = pipe_loss(model, tokens, mesh, 2, placed=placed)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert flash_attention_forward.form_launches["online"] == 8
+    assert flash_attention_backward.launches == dict(
+        dkdv=0, dq=0, fused=8, delta=8)
+    assert abs(loss.item() - ref.item()) <= 2e-2
+    for n, p in model.named_parameters():
+        g = p.grad.float()
+        assert torch.isfinite(g).all(), n
+        assert ((g - want[n]).norm() / want[n].norm()).item() <= 5e-2, n

@@ -188,10 +188,8 @@ def test_transport_refuses_cpus_beside_cards():
 
 def test_places_of_other_processes():
     """Entries of the global device list that another process runs:
-    this process runs only its own ranks, a group of an axis takes in the
-    other processes' ranks, and the device-initiated ring refuses."""
-    from cuda_flashattention_torch.parallel.device_ring import (
-        device_ring_matmul)
+    this process runs only its own ranks, and a group of an axis takes in
+    the other processes' ranks."""
     cpu = torch.device("cpu")
     places = [tmesh_mod.Place(p, cpu) for p in (0, 0, 1, 1)]
     tm = make_mesh((2, 2), ("dp", "sp"), places)
@@ -205,18 +203,6 @@ def test_places_of_other_processes():
     with pytest.raises(ValueError, match="runs in process 1"):
         tm.streams(2)
     assert shard_on_axis(tm, torch.zeros(4, 2), 0, "dp")[1] is None
-    with pytest.raises(ValueError, match="spans processes"):
-        device_ring_matmul(torch.zeros(2, 64), torch.zeros(64, 64),
-                           make_mesh((4,), ("sp",), places))
-
-
-def test_gpipe_across_processes_is_a_forward():
-    from cuda_flashattention_torch.parallel.pipeline import gpipe_spmd
-    places = [tmesh_mod.Place(p, torch.device("cpu")) for p in (0, 1)]
-    w = torch.zeros(2, 4, 4, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="forward only"):
-        gpipe_spmd(lambda p, x: x @ p[0], w, torch.zeros(2, 4),
-                   make_mesh((2,), ("pp",), places), n_micro=1)
 
 
 def _launch(tmp_path, body, np=2, timeout=120):
@@ -260,6 +246,47 @@ print("mesh", mesh, "ok", flush=True)
 """)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "processes=[0, 1]" in r.stdout and "ok" in r.stdout, r.stdout
+
+
+def test_gpipe_backward_keeps_the_microbatch_order(tmp_path):
+    """GPipe's backward across processes walks the reverse schedule
+    itself: two microbatches' gradients (the same shape, weighted 1 and
+    -7 by the loss, so a swap shows) pair with their own receives even
+    where the two processes build the loss, and so their autograd
+    graphs, in opposite microbatch orders. Every gradient is bit for bit
+    the one-process pipeline's."""
+    r = _launch(tmp_path, """
+import torch
+from cuda_flashattention_torch import config
+from cuda_flashattention_torch.parallel import mesh as M
+from cuda_flashattention_torch.parallel.pipeline import gpipe_spmd
+M.initialize_distributed(config.COORD(), config.NPROC.as_int,
+                         config.PID.as_int)
+me = M.process_index()
+
+def stage(w, x):
+    return torch.tanh(x @ w[0])
+
+gen = torch.Generator().manual_seed(3)
+ws = torch.randn(2, 8, 8, generator=gen) * 0.5
+x = torch.randn(4, 8, generator=gen)
+weights = (1.0, -7.0)
+got = []
+for mesh in (M.make_mesh((2,), ("pp",), M.global_devices()[::2]),
+             M.make_mesh((2,), ("pp",), ["cpu"] * 2)):
+    w, a = ws.clone().requires_grad_(), x.clone().requires_grad_()
+    y = gpipe_spmd(stage, w, a, mesh, n_micro=2)
+    parts = [(y[m * 2:(m + 1) * 2] * c).sum()
+             for m, c in enumerate(weights)]
+    order = parts if (me == 0 or not mesh.spans_processes) else parts[::-1]
+    loss = order[0] + order[1]  # the same value in both orders
+    got.append(torch.autograd.grad(loss, (w, a)))
+for name, g, want in zip(("dw", "dx"), got[0], got[1]):
+    assert torch.equal(g, want), (name, (g - want).abs().max())
+print("microbatch order ok", me, flush=True)
+""")
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "microbatch order ok 0" in r.stdout, r.stdout
 
 
 def test_lost_peer_raises_within_the_timeout(tmp_path):

@@ -3,20 +3,22 @@ started by the launcher (`cuda_flashattention_torch.scripts.
 launch_multihost`, 2 processes x 2 CPU ranks, a gloo group), as
 tests/test_examples.py::test_multiprocess_launcher starts the JAX ladder.
 
-The ladder stages 00, 01 and 04 print their pass lines. The paths of
+The ladder stages 00, 01, 04 and 07 print their pass lines. The paths of
 `utils/multiprocess_paths.py` (ring forward and backward, causal and
 ragged non-causal, ring decode, Ulysses, the collectives and their
-autograd pairs, GPipe, and the sp2·dp2 and tp2·sp2 train steps of a small
-model) write their global outputs from process 0 to an .npz, which is
-held here against the port's one-process function on a mesh of repeated
-"cpu" devices: bit-equal where the summation order is the same (every
-path but the train step, whose replicated gradients are summed across the
-processes and not by autograd on one device: 1e-4 · max there), and, one
-case per kind, against the JAX function on the same numpy inputs (fp32,
-1e-4, both sides on `softmax="auto"`). One launch per group of paths and
-one JAX compile per function (module-scoped fixtures); every child runs
-under a 120 s timeout."""
+autograd pairs, GPipe forward and backward, the plain device ring,
+and the sp2·dp2 and tp2·sp2 train steps of a small model) write their
+global outputs from process 0 to an .npz, which is held here against the
+port's one-process function on a mesh of repeated "cpu" devices:
+bit-equal where the summation order is the same (every path but the
+train step, whose replicated gradients are summed across the processes
+and not by autograd on one device: 1e-4 · max there), and, one case per
+kind, against the JAX function on the same numpy inputs (fp32, 1e-4, both
+sides on `softmax="auto"`; the plain ring 1e-5). One launch per
+group of paths and one JAX compile per function (module-scoped
+fixtures); every child runs under a 120 s timeout."""
 
+import importlib.util
 import os
 import subprocess
 import sys
@@ -55,6 +57,10 @@ SIZES = ["--batch", "2", "--heads", "4", "--kv-heads", "2", "--seq", "64",
          "--d", "16"]
 TRAIN_FORMS = {"dp_sp": "dp=2,sp=2", "tp_sp": "tp=2,sp=2"}
 TRAIN_B, TRAIN_T = 2, 32
+# the plain device ring over the 4 ranks: L rows a shard, widths, types
+K9_ROWS, K9_D = 64, (16, 128)
+K9_SIZES = ["--k9-rows", str(K9_ROWS), "--k9-d", *map(str, K9_D),
+            "--k9-dtypes", "fp32", "bf16"]
 
 
 def launch(*target, seq="2544"):
@@ -89,7 +95,8 @@ def paths(tmp_path_factory):
     out = tmp_path_factory.mktemp("paths")
     launch("-m", "cuda_flashattention_torch.utils.multiprocess_paths",
            "--out", str(out), "--save", *SIZES, "ring_causal",
-           "ring_ragged", "decode", "ulysses", "collectives", "gpipe")
+           "ring_ragged", "decode", "ulysses", "collectives", "gpipe", "k9",
+           *K9_SIZES)
     return {p.stem: dict(np.load(p)) for p in out.glob("*.npz")}
 
 
@@ -116,7 +123,8 @@ def test_multiprocess_launcher_ring_of_4():
     assert "transport gloo" in out, out
 
 
-@pytest.mark.parametrize("stage", ["psum_vecadd", "ring_attention"])
+@pytest.mark.parametrize("stage", ["psum_vecadd", "ring_attention",
+                                   "device_ring"])
 def test_multiprocess_ladder_stage(stage):
     out = launch("-m", f"cuda_flashattention_torch.examples.{stage}")
     assert "Test PASSED!" in out and "over 2 processes" in out, out
@@ -222,13 +230,21 @@ def test_collectives_same_bits(paths):
 
 
 def test_gpipe_matches(paths):
-    got = paths["gpipe"]["y"]
+    """GPipe across processes, forward and backward (the reverse schedule
+    of `_GPipeAcross`): the output and the gradients of x and of the whole
+    layer stack, bit for bit the one-process pipeline's, and within 1e-5
+    of JAX's `gpipe_spmd` and its `jax.grad` (1e-5 · max on the
+    gradients)."""
+    got = paths["gpipe"]
     want = _one_process(lambda devs: mp._gpipe(_args(), devs,
                                                torch.device("cpu")))
-    np.testing.assert_array_equal(got, want["y"])
+    assert set(got) == set(want) == {"y", "dw", "dx"}
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
     ws = [seeded_random((mp.PIPE_D, mp.PIPE_D), 160 + i) * 0.5
           for i in range(mp.PIPE_LAYERS)]
     x = seeded_random((mp.PIPE_B, mp.PIPE_D), 170)
+    dy = seeded_random((mp.PIPE_B, mp.PIPE_D), 171)
     jmesh = jax_make_mesh((4,), ("pp",), jax.devices()[:4])
     jw = jpipe.stack_stage_params([jnp.asarray(w) for w in ws])
 
@@ -236,10 +252,57 @@ def test_gpipe_matches(paths):
         for i in range(w.shape[0]):
             a = jnp.tanh(a @ w[i])
         return a
-    y_j = jpipe.gpipe_spmd(stage, jax.device_put(
-        jw, jpipe.stage_param_sharding(jw, jmesh)), jnp.asarray(x), jmesh,
-        n_micro=4)
-    assert_close(got, y_j, 1e-5, "gpipe vs JAX")
+
+    def loss(w, a):
+        y = jpipe.gpipe_spmd(stage, w, a, jmesh, n_micro=4)
+        return jnp.sum(y * dy), y
+    (_, y_j), (dw_j, dx_j) = jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True)(jax.device_put(
+            jw, jpipe.stage_param_sharding(jw, jmesh)), jnp.asarray(x))
+    assert_close(got["y"], y_j, 1e-5, "gpipe vs JAX")
+    assert_close(got["dw"], dw_j, 1e-5 * max_abs(dw_j), "gpipe dW vs JAX")
+    assert_close(got["dx"], dx_j, 1e-5 * max_abs(dx_j), "gpipe dX vs JAX")
+
+
+@pytest.fixture(scope="module")
+def example07():
+    """examples/07_device_ring.py as a module, untouched."""
+    sys.path.insert(0, str(REPO / "examples"))
+    try:
+        spec = importlib.util.spec_from_file_location(
+            "example_07_device_ring", REPO / "examples" / "07_device_ring.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    finally:
+        sys.path.remove(str(REPO / "examples"))
+    return mod
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("d", K9_D)
+def test_device_ring_across_processes(paths, example07, d, dtype):
+    """`device_ring_matmul` on CPU tensors over a ring whose ranks run in
+    two processes (the plain ring, its hops `Mesh.send` pairs and the
+    other process's rows of o shared): bit for bit the one-process ring,
+    and within 1e-5 of the JAX example's `xla_ring_matmul` on the same
+    values (fp32 shards: the bf16 ones as fp32)."""
+    got = paths["k9"][f"o[{K9_ROWS},{d},{dtype}]"]
+    args = mp.parse(["k9", "--out", "unused", *K9_SIZES])
+    want = _one_process(lambda devs: mp._k9(args, devs,
+                                            torch.device("cpu")))
+    np.testing.assert_array_equal(got, want[f"o[{K9_ROWS},{d},{dtype}]"])
+    i = [(r, dd, dt) for r in args.k9_rows for dd in args.k9_d
+         for dt in args.k9_dtypes].index((K9_ROWS, d, dtype))
+    x = torch.from_numpy(seeded_random((4 * K9_ROWS, d), 900 + i)).to(
+        mp.DTYPES[dtype]).float().numpy()
+    w = torch.from_numpy(seeded_random((d, d), 950 + i)).to(
+        mp.DTYPES[dtype]).float().numpy()
+    with jax.default_matmul_precision("highest"):
+        ref = example07.xla_ring_matmul(jnp.asarray(x), jnp.asarray(w),
+                                        jax_make_mesh((4,), ("sp",),
+                                                      jax.devices()[:4]))
+    assert max_abs(ref) > 0
+    assert_close(got, ref, 1e-5, f"k9 d={d} {dtype} vs JAX")
 
 
 # ---------------------------------------------------------------------------

@@ -12,18 +12,28 @@ state where nothing can move), and that every rank's o equals
 (Σ_i x_i) @ W. One card: a call's CTAs start together once the previous
 call's have all ended (one launch on one stream). Across cards: each card
 runs its own ranks' CTAs and its calls in order, unordered with the other
-cards'. Gate: 1e-12 on float64 sums of the same products."""
+cards'. Across processes the plan adds which pointer-table entries are a
+process's own and which are mapped from another's allocation, where in an
+allocation each rank's blocks sit, and the grid the processes agree on;
+the protocol is then simulated with each process a launch of its own.
+Gate: 1e-12 on float64 sums of the same products."""
 
 import numpy as np
 import pytest
 
 from cuda_flashattention_torch.parallel.device_ring import (
     EPOCH_LIMIT,
+    FLAG_WORDS,
     KERNEL_GROUP_TILES,
+    XP_ALIGN,
+    column_parts,
     common_grid,
     flag_value,
     rounds_of,
     span_partition,
+    xp_grid,
+    xp_layout,
+    xp_sources,
 )
 
 RECV, CREDIT, START = "recv", "credit", "start"
@@ -308,3 +318,97 @@ def test_simulation_catches_a_missing_start_word():
     found = _faults(lambda rng: Ring(n, 2, 128, 1, rng, start=False),
                     [0, 1, 2, 3], 4, 60)
     assert found > 0
+
+
+# ---------------------------------------------------------------------------
+# Across processes: the workspace's plan
+# ---------------------------------------------------------------------------
+
+LAYOUTS = {"2x2": [0, 0, 1, 1], "4x1": [0, 1, 2, 3],
+           "interleaved": [0, 1, 0, 1], "3 of 5": [0, 0, 1, 2, 2]}
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_xp_table_entries_are_own_or_mapped(layout):
+    """Seen from every process, each rank of the ring resolves to the same
+    allocation (its owner's) and block (its index among the owner's
+    ranks); the owner's entries are its own pointers, every other one is
+    mapped from the owner's handle, so no process opens its own."""
+    procs = LAYOUTS[layout]
+    resolved = {}
+    for me in sorted(set(procs)):
+        table = xp_sources(procs, me)
+        assert len(table) == len(procs)
+        for i, (src, owner) in enumerate(zip(table, procs)):
+            if owner == me:
+                assert src[0] == "local"
+            else:
+                assert src[0] == "mapped" and src[1] == owner
+            resolved.setdefault(i, set()).add((owner, src[-1]))
+    for i, seen in resolved.items():
+        assert len(seen) == 1, (i, seen)
+    blocks = [next(iter(resolved[i])) for i in range(len(procs))]
+    assert len(set(blocks)) == len(procs)  # no two ranks share a block
+    for p in set(procs):  # an owner's blocks are 0 .. its ranks - 1
+        assert sorted(j for q, j in blocks if q == p) == list(
+            range(procs.count(p)))
+
+
+@pytest.mark.parametrize("rows,d,f32,grid", [
+    (64, 64, False, 1), (1024, 128, False, 16), (8192, 128, True, 64),
+    (1024, 256, False, 16), (8192, 256, True, 33)])
+def test_xp_layout_blocks(rows, d, f32, grid):
+    """Each rank's double buffers (bf16 tile images, twice the bytes under
+    fp32: hi and lo; one pair per column part) and flag words (FLAG_WORDS
+    64-bit words per CTA) in aligned blocks that do not overlap and fit
+    the allocation; a block's offset does not depend on how many ranks the
+    allocation holds, so another process finds it."""
+    parts = column_parts(d, f32)
+    buf = parts * 2 * (2 if f32 else 1) * rows * d * 2
+    flags = parts * grid * FLAG_WORDS * 8
+    for n_local in (1, 2, 3):
+        blocks, total = xp_layout(rows, d, f32, grid, n_local)
+        spans = sorted([(b, b + buf) for b, _ in blocks]
+                       + [(f, f + flags) for _, f in blocks])
+        for (a0, a1), (b0, _) in zip(spans, spans[1:]):
+            assert a1 <= b0
+        assert spans[-1][1] <= total
+        assert all(a % XP_ALIGN == 0 for a, _ in spans)
+        assert blocks == xp_layout(rows, d, f32, grid, 3)[0][:n_local]
+
+
+def test_xp_grid_counts_every_process_on_a_card():
+    """The processes' agreed grid: the ranks on one card count together
+    whatever process runs them, so four processes of one rank on one card
+    take the grid of one process of four ranks; distinct cards take each
+    card's share; never more than one span per tile."""
+    one = dict(card="h/GPU-a", resident=264, ranks=1)
+    assert xp_grid({p: one for p in range(4)}, 256) == 66
+    assert xp_grid({p: dict(one, ranks=2) for p in range(2)}, 256) == 66
+    assert xp_grid({p: dict(one, card=f"h/GPU-{p}") for p in range(4)},
+                   256) == 256
+    assert xp_grid({p: dict(one, card=f"h/GPU-{p}") for p in range(4)},
+                   16) == 16
+    mixed = {0: dict(one, ranks=2), 1: dict(one, card="h/GPU-b"),
+             2: dict(one, card="h/GPU-b", ranks=3)}
+    assert xp_grid(mixed, 512) == 66
+    assert xp_grid({0: one, 1: one}, 256) == common_grid(
+        {"h/GPU-a": 264}, {"h/GPU-a": 2}, 256)
+
+
+@pytest.mark.parametrize("layout", ["2x2", "4x1", "interleaved"])
+def test_ring_across_processes_over_epochs(layout):
+    """Each process launches its own ranks and runs its calls in order,
+    unordered with the other processes' (the .sys build, its kernels
+    interleaved as a card that switches between processes runs them): the
+    protocol holds over epochs with the grid the processes agree on."""
+    procs = LAYOUTS[layout]
+    infos = {p: dict(card="h/GPU-a", resident=12, ranks=procs.count(p))
+             for p in set(procs)}
+    tiles = 7
+    grid = xp_grid(infos, tiles)
+    assert grid == 3
+    for seed in range(4):
+        rng = np.random.default_rng(seed * 104729 + len(layout))
+        ring = Ring(len(procs), tiles, 128, grid, rng)
+        assert run(ring, 4, procs, rng) > 0
