@@ -427,6 +427,26 @@ Phases, each of which raises on failure (so the script exits non-zero):
    more cards the ring, the sp step, K9 and the pipelined step again on
    NCCL, one process per card; with one card a line says they were
    skipped. Every launch runs under a timeout.
+31. fp16 and mixed float types (`_phase_f16_kernels`,
+   `_phase_mixed_kernels`, `_phase_f16_serving`, `_phase_mixed_serving`,
+   `_phase_f16_training`, after the tuning phase): every fp16 build (the
+   `csrc/*_f16.cu` units) against its plain version at the bf16 gates
+   (K1, K1b, K5 at the training shape, the prefix over fp16 and int8 K/V
+   and [1, 8, 4096, 256] causal, flat and peaked, K5 within 1e-4 of K1b,
+   fp16 O the fp32 O rounded; K6 / K7 at 4224 live keys, d 128 and 256,
+   fp16 and int8 caches, K7 bit for bit; K4, K2 + K3 and the prologue at
+   the training shape and d = 256; K8; K9), each mixed form against its
+   plain version at 1e-4 plus one ulp of P's and O's types (the rounding
+   of P shown to act), rows "K1 f16" ... "K9 f16" and one "mixed" row per
+   family; the fp16 246M model served (`generate()` over fp16 and int8
+   caches, chunked over fp16, int8, fp8 and windowed int8 caches, the
+   paged loop over fp16 pools), the bf16 model over fp32 caches and the
+   fp16 model over bf16 caches served, each against the plain attention
+   functions (logits within 0.125, tokens equal or departing at a tie),
+   and the fp16 271M model trained (5 timed steps, a split step, ±
+   window; loss within 2e-2, every gradient within 5e-2 relative L2 of
+   the plain path under a 2^16 loss scale, the bf16 model's worst
+   gradient beside fp16's).
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; a kernel's `launches` in the JSON line is its sum over
@@ -6016,6 +6036,1014 @@ def _phase_ladder(ctx):
                f"torch vs native oracle: {e_o:.3e} / {e_l:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 31: fp16 and mixed float types. fp16 runs the fp16 units' builds
+# (csrc/*_f16.cu: bf16's kernels with fp16 operands, `.f16` wgmma, P and dS
+# rounded to fp16); Q, K, V (dO, x, W) of mixed float types run the fp32
+# builds on exactly upcast operands, rounding P (dS) to the type JAX rounds
+# it to. Their kernel rows, an fp16 serving model and an fp16 training
+# model on their main paths, and the mixed serving paths.
+# ---------------------------------------------------------------------------
+
+F16_ROWS = ("K1 f16", "K1b f16", "K5 f16", "K6 f16", "K7 f16", "K2 f16",
+            "K3 f16", "K4 f16", "prologue f16", "K8 f16", "K9 f16")
+MIXED_ROWS = ("forward mixed", "decode mixed", "backward mixed", "K8 mixed",
+              "K9 mixed")
+# the training shape (B, H, Hkv, Nq, Nk, d; causal), the wide-head shape
+F16_TRAIN = (1, 16, 16, 4096, 4096, 128)
+F16_WIDE = (1, 8, 4, 4096, 4096, 256)
+# fp16's P under the bound softmax is 2^(s − c) rounded to fp16 (least
+# subnormal 2^-24), as JAX rounds it: peaked inputs of the bound forms
+# keep c within ~8 log2 units of the scores (Q x4, K x1); online forms and
+# decode take Q x8, K x4 as the bf16 rows do
+F16_BOUND_PEAK = (4.0, 1.0)
+# the mixed forms' gate: 1e-4 · max(1, max |plain|) plus one ulp of P's and
+# of O's type at max |plain| (a P at a rounding boundary may round the
+# other way in the kernel's and the plain version's fp32 sums)
+ULP = {"torch.float32": 0.0, "torch.bfloat16": 2.0 ** -7,
+       "torch.float16": 2.0 ** -10}
+# decode steps of the fp16 and mixed chunked-serving runs; the paged loop
+F16_CHUNK_NEW, F16_PAGED_STEPS = 16, 16
+# the fp16 training comparison's loss scale (`_phase_f16_training`)
+F16_LOSS_SCALE = 2.0 ** 16
+
+
+def _mixed_gate(o_ref, p_dtype, out_dtype, v_top=None):
+    top = o_ref.float().abs().max().item()
+    v_top = top if v_top is None else v_top
+    return (1e-4 * max(1.0, top) + ULP[str(out_dtype)] * top
+            + ULP[str(p_dtype)] * v_top)
+
+
+def _u16(ctx, shape, peak=1.0, dtype=None):
+    torch = ctx.torch
+    x = (torch.rand(shape, generator=ctx.gen, device=ctx.dev) - 0.5) * peak
+    return x.to(dtype or torch.float16)
+
+
+def _rec_row(ctx, row, errs, ms=None, plain_ms=None, library_ms=None,
+             bound=None):
+    r = ctx.rec[row]
+    r["max_abs_err"] = max([r["max_abs_err"], *errs])
+    if ms is not None:
+        r.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound)
+
+
+def _phase_f16_kernels(ctx):
+    """Every fp16 build against its plain version: K1 (online), K1b and K5
+    (pinned, `_plan` + `_fwd_cuda`) at the training shape [1, 16, 4096,
+    128] causal, at the chunked prefill's prefix (512 x 3584; fp16 and int8
+    K/V) and at [1, 8, 4096, 256] over 4 KV heads causal, flat and peaked,
+    O within GATE and 2e-2 · max |plain|, LSE within GATE; K5 within 1e-4
+    of K1b (fp32 O); fp16 O equal to the fp32 O rounded (K1, K1b). K6 at B=8
+    H=16 Hkv=4 over 4224 live of 4352 fp16 and int8 keys, and at d = 256;
+    K7 bit for bit K6 on the same keys. K4, K2 + K3 and the prologue at the
+    training shape and at d = 256, each gradient within 2e-2 · max |plain|.
+    K8 at [1, 16, 4096, 128] causal; K9 at n=4 L=1024 d=128 against the
+    fp32 reference. Each row: kernel ms, bound (2 bytes an element, 989
+    TFLOP/s), plain ms, SDPA in fp16 (its backward for K2-K4)."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.ops import flash_bwd as fb
+    from cuda_flashattention_torch.ops import flash_fwd as ff
+    from cuda_flashattention_torch.ops.decode import (
+        decode_attention, decode_attention_plain)
+    from cuda_flashattention_torch.ops.fa1 import (
+        fa1_attention, fa1_attention_plain)
+    from cuda_flashattention_torch.ops.paged import (
+        init_paged_cache, paged_decode_attention)
+    from cuda_flashattention_torch.ops.quant import quantize_kv
+    from cuda_flashattention_torch.parallel.device_ring import (
+        device_ring_matmul, ring_matmul_plain)
+    from cuda_flashattention_torch.utils.timing import (
+        attention_flops, cuda_time_ms)
+    card, h16 = ctx.card, torch.float16
+
+    def pinned(form, q, k, v, kw, out=h16, scales=None):
+        scales = scales or {}
+        softmax = "online" if form == "online" else "bound_unchecked"
+        plan = ff._plan(q, k, v, None, kw.get("causal", False),
+                        kw.get("window", 0), kw.get("kv_offset", 0), None,
+                        scales.get("k_scale"), scales.get("v_scale"), None,
+                        None, softmax, False)
+        if form != "online":
+            plan = dataclasses.replace(plan, use_kmajor=form == "kmajor")
+        return ff._fwd_cuda(q, k, v, plan, out, scales.get("k_scale"),
+                            scales.get("v_scale"), None, None)
+
+    # ---- the forward: K1, K1b, K5
+    cases = [("train [1, 16, 4096, 128] causal", F16_TRAIN,
+              dict(causal=True), None, ("online",)),
+             ("prefix 512x3584", F32Q_PREFIX, {}, None, ("bound", "kmajor")),
+             ("prefix 512x3584 int8", F32Q_PREFIX, {}, "int8", ()),
+             ("[1, 8, 4096, 256] causal", F16_WIDE, dict(causal=True), None,
+              ())]
+    for name, (b, h, hkv, nq, nk, d), kw, qtype, recorded in cases:
+        pairs = _visible_pairs(ctx, b, h, nq, nk, kw)
+        bound = _bound(2 * (2 * b * h * nq * d + 2 * b * hkv * nk * d)
+                       + 4 * b * h * nq, 4.0 * d * pairs)
+        for form in ("online", "bound", "kmajor"):
+            kn = {"online": "K1", "bound": "K1b", "kmajor": "K5"}[form]
+            sq, sk = (Q_PEAK, K_PEAK) if form == "online" else F16_BOUND_PEAK
+            errs, draws = [], []
+            for peaked in (False, True):
+                q = _u16(ctx, (b, h, nq, d), sq if peaked else 1.0)
+                k = _u16(ctx, (b, hkv, nk, d), sk if peaked else 1.0)
+                v = _u16(ctx, (b, hkv, nk, d))
+                sc = {}
+                if qtype:
+                    kv = quantize_kv(k, v, qtype)
+                    k, v = kv.k_q, kv.v_q
+                    sc = dict(k_scale=kv.k_scale, v_scale=kv.v_scale)
+                o, lse = pinned(form, q, k, v, kw, scales=sc)
+                torch.cuda.synchronize()
+                softmax = "online" if form == "online" else "bound_unchecked"
+                o_p, lse_p = ff.flash_attention_forward_plain(
+                    q, k, v, softmax=softmax, **kw, **sc)
+                e, ref, ok = ctx.o_close(o, o_p)
+                e_l = ctx.diff(lse, lse_p)
+                errs += [e, e_l]
+                _check(ok and e_l <= GATE and o.dtype == h16,
+                       f"{kn} f16 {name} peaked={peaked}: O {e:.3e} of "
+                       f"{ref:.3e}, LSE {e_l:.3e}")
+                draws.append((q, k, v, sc))
+            q, k, v, sc = draws[0]
+            o32, _ = pinned(form, q, k, v, kw, torch.float32, sc)
+            o16, _ = pinned(form, q, k, v, kw, h16, sc)
+            torch.cuda.synchronize()
+            e16 = ctx.diff(o16, o32.half())
+            gate16 = (2.0 ** -10 * max(1.0, o32.abs().max().item())
+                      if form == "kmajor" else 0.0)
+            _check(e16 <= gate16, f"{kn} f16 {name}: fp16 O vs the fp32 O "
+                   f"rounded {e16:.3e} > {gate16:.3e}")
+            if form == "kmajor":
+                o1b, _ = pinned("bound", q, k, v, kw, torch.float32, sc)
+                e5 = ctx.diff(o32, o1b)
+                _check(e5 <= 1e-4, f"K5 f16 {name} vs K1b: {e5:.3e}")
+            line = (f"[f16] {kn} {name}: max|dO| flat {errs[0]:.3e} peaked "
+                    f"{errs[2]:.3e}, max|dLSE| {max(errs[1], errs[3]):.3e} "
+                    f"(gates {GATE}, {REL_GATE} x max|O|); fp16 O vs fp32 "
+                    f"O rounded {e16:.3e}")
+            if form in recorded:
+                ms = _call_ms(lambda: pinned(form, q, k, v, kw, h16, sc), kn)
+                ms_p = cuda_time_ms(lambda: ff.flash_attention_forward_plain(
+                    q, k, v, softmax="online" if form == "online"
+                    else "bound_unchecked", **kw, **sc), iters=3, warmup=1)
+                lib = _library_ms(ctx, q, k, v, kw)
+                share = 100 * bound["bound_ms"] / ms
+                line += (f"; kernel {ms:.4f} ms ({share:.1f}% of its bound "
+                         f"{bound['bound_ms']:.4f} ms, {bound['bound_by']}),"
+                         f" plain {ms_p:.4f} ms, SDPA fp16 {lib:.4f} ms")
+                _rec_row(ctx, f"{kn} f16", errs, ms, ms_p, lib, bound)
+            else:
+                _rec_row(ctx, f"{kn} f16", errs)
+            print(line + f" ({card})", flush=True)
+        del draws
+
+    # ---- decode: K6, K7 bit for bit
+    for d, b, h, hkv in ((128, 8, 16, 4), (256, 8, 8, 4)):
+        for qtype in (None, "int8"):
+            q = _u16(ctx, (b, h, d), Q_PEAK)
+            k = _u16(ctx, (b, hkv, DEC_CAP, d), K_PEAK)
+            v = _u16(ctx, (b, hkv, DEC_CAP, d))
+            sc = {}
+            if qtype:
+                kv = quantize_kv(k, v, qtype)
+                k, v = kv.k_q, kv.v_q
+                sc = dict(k_scale=kv.k_scale, v_scale=kv.v_scale)
+            lens = torch.full((b,), DEC_LIVE, dtype=torch.int32,
+                              device=ctx.dev)
+            o, lse = decode_attention(q, k, v, lens, **sc)
+            o_p, lse_p = decode_attention_plain(q, k, v, lens, **sc)
+            torch.cuda.synchronize()
+            e, ref, ok = ctx.o_close(o, o_p)
+            e_l = ctx.diff(lse, lse_p)
+            _check(ok and e_l <= GATE and o.dtype == h16,
+                   f"K6 f16 d={d} {qtype}: O {e:.3e} of {ref:.3e}, LSE "
+                   f"{e_l:.3e}")
+            # K7 over pools holding the same keys in 128-token pages
+            n_pg = DEC_CAP // PAGE
+            pool = init_paged_cache(b * n_pg, b, n_pg, hkv, PAGE, d,
+                                    qtype=qtype, dtype=h16, device=ctx.dev)
+            table = torch.arange(b * n_pg, device=ctx.dev,
+                                 dtype=torch.int32).view(b, n_pg)
+
+            def pages(x):
+                return x.view(b, hkv, n_pg, PAGE, *x.shape[3:]).transpose(
+                    1, 2).reshape(b * n_pg, hkv, PAGE, *x.shape[3:])
+            pool.k_pages.copy_(pages(k))
+            pool.v_pages.copy_(pages(v))
+            psc = {}
+            if qtype:
+                pool.k_scale.copy_(pages(sc["k_scale"]))
+                pool.v_scale.copy_(pages(sc["v_scale"]))
+                psc = dict(k_scale=pool.k_scale, v_scale=pool.v_scale)
+            o7, lse7 = paged_decode_attention(q, pool.k_pages, pool.v_pages,
+                                              table, lens, **psc)
+            torch.cuda.synchronize()
+            _check(bool(torch.equal(o7, o) and torch.equal(lse7, lse)),
+                   f"K7 f16 d={d} {qtype}: not bit for bit K6's")
+            line = (f"[f16] K6 B={b} H={h} Hkv={hkv} d={d} {qtype or 'fp16'}"
+                    f" cache, {DEC_LIVE} live: max|dO| {e:.3e} of "
+                    f"{ref:.3e}, max|dLSE| {e_l:.3e}; K7 bit for bit")
+            _rec_row(ctx, "K6 f16", [e, e_l])
+            _rec_row(ctx, "K7 f16", [e, e_l])
+            if d == 128 and qtype is None:
+                bound = _bound(2 * (2 * b * hkv * DEC_LIVE * d + 2 * b * h * d)
+                               + 4 * b * h, 4.0 * b * h * DEC_LIVE * d)
+                flush = ctx.l2_flush.zero_
+                ms6 = _call_ms(lambda: decode_attention(q, k, v, lens), "K6",
+                               before=flush)
+                ms7 = _call_ms(lambda: paged_decode_attention(
+                    q, pool.k_pages, pool.v_pages, table, lens), "K7",
+                    before=flush)
+                ms_p = cuda_time_ms(lambda: decode_attention_plain(
+                    q, k, v, lens), iters=3, warmup=1)
+                mask = (torch.arange(DEC_CAP, device=ctx.dev) < DEC_LIVE)
+                lib = cuda_time_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        q[:, :, None], k, v, attn_mask=mask[None],
+                        enable_gqa=True), iters=10)
+                line += (f"; K6 {ms6:.4f} ms, K7 {ms7:.4f} ms (cold L2; "
+                         f"bound {bound['bound_ms']:.4f} ms, "
+                         f"{bound['bound_by']}), plain {ms_p:.4f} ms, SDPA "
+                         f"fp16 {lib:.4f} ms")
+                _rec_row(ctx, "K6 f16", [], ms6, ms_p, lib, bound)
+                _rec_row(ctx, "K7 f16", [], ms7, ms_p, None, bound)
+            print(line + f" ({card})", flush=True)
+            del pool, k, v
+
+    # ---- the backward: K4, K2 + K3, the prologue
+    for name, (b, h, hkv, n, _, d) in (("train", F16_TRAIN),
+                                       ("wide", F16_WIDE)):
+        q = _u16(ctx, (b, h, n, d), 2.0)
+        k = _u16(ctx, (b, hkv, n, d), 2.0)
+        v, do = _u16(ctx, (b, hkv, n, d)), _u16(ctx, (b, h, n, d))
+        o, lse = ff.flash_attention_forward(q, k, v, causal=True)
+        want = fb.flash_attention_backward_plain(q, k, v, o, lse, do,
+                                                 causal=True)
+        rows = []
+        for fused, kns in ((True, ("K4",)), (False, ("K2", "K3"))):
+            got = fb.flash_attention_backward(q, k, v, o, lse, do,
+                                              causal=True, fused=fused)
+            torch.cuda.synchronize()
+            errs = []
+            for g, w, gname in zip(got, want, ("dQ", "dK", "dV")):
+                e, top = ctx.diff(g, w), w.float().abs().max().item()
+                errs.append(e)
+                _check(g.dtype == h16 and top > 0 and e <= BWD_GATE * top,
+                       f"{'/'.join(kns)} f16 {name} {gname}: {e:.3e} of "
+                       f"{top:.3e}")
+            for kn in kns:
+                _rec_row(ctx, f"{kn} f16", errs)
+            rows.append(f"{'+'.join(kns)} max|d| dQ {errs[0]:.3e} dK "
+                        f"{errs[1]:.3e} dV {errs[2]:.3e}")
+        delta = fb._launch_delta(o, do)
+        e_d = ctx.diff(delta, fb.delta_plain(o, do))
+        _check(e_d <= 1e-3 * max(1.0, delta.abs().max().item()),
+               f"prologue f16 {name}: {e_d:.3e}")
+        _rec_row(ctx, "prologue f16", [e_d])
+        line = f"[f16] backward {name} [{b}, {h}, {n}, {d}] causal: " + \
+            "; ".join(rows) + f"; prologue D {e_d:.3e}"
+        if name == "train":
+            flops = attention_flops(b, h, n, n, d, causal=True,
+                                    backward=True)
+            io = 2 * (4 * b * h * n * d + 4 * b * hkv * n * d) + 8 * b * h * n
+            ms4 = _call_ms(lambda: fb.flash_attention_backward(
+                q, k, v, o, lse, do, causal=True), "K4")
+            ms2 = _call_ms(lambda: fb._dkdv_cuda(q, k, v, o, lse, do,
+                                                 causal=True), "K2")
+            ms3 = _call_ms(lambda: fb.flash_attention_backward(
+                q, k, v, o, lse, do, causal=True, fused=False), "K3")
+            acc = torch.empty(q.shape, dtype=torch.float32, device=ctx.dev)
+            msd = _call_ms(lambda: fb._launch_delta(o, do, acc),
+                           "K4 D prologue")
+            ms_p = cuda_time_ms(lambda: fb.flash_attention_backward_plain(
+                q, k, v, o, lse, do, causal=True), iters=3, warmup=1)
+            msd_p = cuda_time_ms(lambda: fb.delta_plain(o, do), iters=10)
+            lib = _library_ms(ctx, q, k, v, dict(causal=True), backward=True,
+                              do=do)
+            lib_d = cuda_time_ms(lambda: (do.float() * o.float()).sum(-1),
+                                 iters=10)
+            b4 = _bound(io, flops)
+            b2 = _bound(io - 2 * b * h * n * d, flops * 4 / 5)
+            b3 = _bound(2 * (3 * b * h * n * d + 2 * b * hkv * n * d)
+                        + 8 * b * h * n, flops * 3 / 5)
+            bd = _bound(2 * 2 * b * h * n * d + 4 * b * h * n
+                        + 4 * b * h * n * d, 0.0)
+            _rec_row(ctx, "K4 f16", [], ms4, ms_p, lib, b4)
+            _rec_row(ctx, "K2 f16", [], ms2, ms_p, lib, b2)
+            _rec_row(ctx, "K3 f16", [], ms3, ms_p, lib, b3)
+            _rec_row(ctx, "prologue f16", [], msd, msd_p, lib_d, bd)
+            line += (f"; K4 {ms4:.4f} ms ({100 * b4['bound_ms'] / ms4:.1f}% "
+                     f"of its bound {b4['bound_ms']:.4f} ms), K2 {ms2:.4f}, "
+                     f"K3 {ms3:.4f}, prologue {msd:.4f} ms, plain {ms_p:.4f}"
+                     f" ms, SDPA fp16 backward {lib:.4f} ms")
+        print(line + f" ({card})", flush=True)
+        del q, k, v, do, o, lse, want
+
+    # ---- K8
+    b, h, n, d = F32_FA1
+    q, k, v = (_u16(ctx, (b, h, n, d), 2.0) for _ in range(3))
+    ctx.zero_counts()
+    o = fa1_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    ctx.launches["K8 f16"] += fa1_attention.launches
+    o_p = fa1_attention_plain(q, k, v, causal=True)
+    e, ref, ok = ctx.o_close(o, o_p)
+    _check(ok and o.dtype == h16, f"K8 f16: {e:.3e} of {ref:.3e}")
+    bound = _bound(2 * 4 * b * h * n * d, attention_flops(b, h, n, n, d,
+                                                          causal=True))
+    ms = _call_ms(lambda: fa1_attention(q, k, v, causal=True), "K8")
+    ms_p = cuda_time_ms(lambda: fa1_attention_plain(q, k, v, causal=True),
+                        iters=1, warmup=1)
+    lib = _library_ms(ctx, q, k, v, dict(causal=True))
+    _rec_row(ctx, "K8 f16", [e], ms, ms_p, lib, bound)
+    share = 100 * bound["bound_ms"] / ms
+    print(f"[f16] K8 [{b}, {h}, {n}, {d}] causal: max|dO| {e:.3e} of "
+          f"{ref:.3e}; kernel {ms:.4f} ms ({share:.1f}% of its bound), "
+          f"plain {ms_p:.4f} ms, SDPA fp16 {lib:.4f} ms ({card})",
+          flush=True)
+
+    # ---- K9
+    n_r, rows, d = 4, 1024, 128
+    mesh = _shared_card_mesh(ctx, n_r)
+    x, w = _u16(ctx, (n_r * rows, d)), _u16(ctx, (d, d))
+    ctx.zero_counts()
+    o = device_ring_matmul(x, w, mesh)
+    torch.cuda.synchronize()
+    ctx.launches["K9 f16"] += device_ring_matmul.launches
+    ref = (x.float().view(n_r, rows, d).sum(0) @ w.float()).repeat(n_r, 1)
+    e = ctx.diff(o, ref)
+    e_p = ctx.diff(o, ring_matmul_plain(x, w, mesh))
+    top = max(1.0, ref.abs().max().item())
+    _check(o.dtype == torch.float32 and max(e, e_p) <= 1e-3 * top,
+           f"K9 f16: {e:.3e} / {e_p:.3e}")
+    bound = _k9_bound([ctx.dev] * n_r, rows, d)
+    bound = {k_: bound[k_] for k_ in ("bound_ms", "bound_by")}
+    ms = _call_ms(lambda: device_ring_matmul(x, w, mesh), "K9")
+    ms_p = cuda_time_ms(lambda: ring_matmul_plain(x, w, mesh), iters=3)
+    lib = cuda_time_ms(lambda: torch.einsum(
+        "nld,de->nle", x.view(n_r, rows, d), w).sum(0), iters=10)
+    _rec_row(ctx, "K9 f16", [e, e_p], ms, ms_p, lib, bound)
+    print(f"[f16] K9 n={n_r} L={rows} d={d}: vs fp32 reference {e:.3e}, vs "
+          f"plain ring {e_p:.3e} (gate 1e-3 x {top:.3f}); kernel {ms:.4f} "
+          f"ms, plain {ms_p:.4f} ms, einsum fp16 {lib:.4f} ms ({card})",
+          flush=True)
+
+
+def _phase_mixed_kernels(ctx):
+    """Mixed float types against the plain versions (TF32 off), at the
+    gate `_mixed_gate`: the forward (K1, K1b, K5 pinned) on a bf16 or fp16
+    Q over fp32 K/V, an fp16 Q over bf16 K/V and a bf16 Q over fp16 K/V at
+    [2, 8, 1024, 128] causal and d = 256; the rounding of P shown to act (a
+    bf16 Q over fp32 K/V sits on the plain version that rounds P and, on
+    average, > 5x further from the one that leaves it unrounded); decode
+    and paged decode (K7 bit for bit K6) of a bf16 q over an fp32 cache and
+    an fp16 q over a bf16 cache; the backward (K4 and K2 + K3) of a bf16 q
+    over fp32 k, v, dO and of fp32 q, k, v with a bf16 dO; K8 on an fp32 Q
+    over bf16 K/V; K9 on fp32 x over bf16 W. The rows' times: the bf16 Q
+    over fp32 K/V at the chunked prefill's prefix (K1b: the bf16 model over
+    an fp32 cache), the decode at B=8 H=16 Hkv=4 over 4224 live fp32 keys,
+    `flash_attention` forward + backward on bf16 q, k over an fp32 v at
+    [1, 16, 4096, 128] causal (K1 and K4 once each: the training entry),
+    K8 at [1, 16, 4096, 128] causal, K9 at n=4 L=1024 d=128; bounds at
+    the operands' storage widths and the TF32 rate (the products are fp32
+    ones), library: fp32 SDPA on the upcast operands plus the upcast."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.ops import flash_bwd as fb
+    from cuda_flashattention_torch.ops import flash_fwd as ff
+    from cuda_flashattention_torch.ops.attention import flash_attention
+    from cuda_flashattention_torch.ops.decode import (
+        decode_attention, decode_attention_plain)
+    from cuda_flashattention_torch.ops.fa1 import (
+        fa1_attention, fa1_attention_plain)
+    from cuda_flashattention_torch.ops.paged import (
+        init_paged_cache, paged_decode_attention)
+    from cuda_flashattention_torch.parallel.device_ring import (
+        device_ring_matmul, ring_matmul_plain)
+    from cuda_flashattention_torch.utils.timing import (
+        attention_flops, cuda_time_ms)
+    card = ctx.card
+    bf, h16, f32 = torch.bfloat16, torch.float16, torch.float32
+
+    def pinned(form, q, k, v, kw, out):
+        softmax = "online" if form == "online" else "bound_unchecked"
+        plan = ff._plan(q, k, v, None, kw.get("causal", False),
+                        kw.get("window", 0), kw.get("kv_offset", 0), None,
+                        None, None, None, None, softmax, False)
+        if form != "online":
+            plan = dataclasses.replace(plan, use_kmajor=form == "kmajor")
+        return ff._fwd_cuda(q, k, v, plan, out, None, None, None, None)
+
+    # ---- the forward
+    worst = 0.0
+    for d in (128, 256):
+        for tq, tk in ((bf, f32), (h16, f32), (h16, bf), (bf, h16)):
+            q = _u16(ctx, (2, 8, 1024, d), F16_BOUND_PEAK[0], tq)
+            k = _u16(ctx, (2, 4, 1024, d), F16_BOUND_PEAK[1], tk)
+            v = _u16(ctx, (2, 4, 1024, d), 1.0, tk)
+            kw = dict(causal=True)
+            for form in ("online", "bound", "kmajor"):
+                o, lse = pinned(form, q, k, v, kw, tq)
+                torch.cuda.synchronize()
+                softmax = "online" if form == "online" else "bound_unchecked"
+                o_p, lse_p = ff.flash_attention_forward_plain(
+                    q, k, v, softmax=softmax, **kw)
+                gate = _mixed_gate(o_p, tq, tq, v.float().abs().max().item())
+                e, e_l = ctx.diff(o, o_p), ctx.diff(lse, lse_p)
+                worst = max(worst, e, e_l)
+                _check(o.dtype == tq and e <= gate and e_l <= F32_GATE * max(
+                    1.0, lse_p.abs().max().item()),
+                    f"forward mixed {form} {tq} over {tk} d={d}: O {e:.3e} "
+                    f"(gate {gate:.3e}), LSE {e_l:.3e}")
+    q = _u16(ctx, (1, 16, 1024, 128), Q_PEAK, bf)
+    k, v = _u16(ctx, (1, 16, 1024, 128), K_PEAK, f32), _u16(
+        ctx, (1, 16, 1024, 128), 1.0, f32)
+    o, _ = ff.flash_attention_forward(q, k, v, causal=True,
+                                      softmax="online", out_dtype=f32)
+    rounded, _ = ff.flash_attention_forward_plain(
+        q, k, v, causal=True, softmax="online", out_dtype=f32)
+    unrounded, _ = ff.flash_attention_forward_plain(
+        q.float(), k, v, causal=True, softmax="online", out_dtype=f32)
+    near = (o - rounded).abs().mean().item()
+    far = (o - unrounded).abs().mean().item()
+    _check(far > 5 * near, f"rounding P to bf16 does not show: mean |d| "
+           f"{near:.3e} to the rounded plain version, {far:.3e} to the "
+           f"unrounded one")
+    b, h, hkv, nq, nk, d = F32Q_PREFIX
+    q = _u16(ctx, (b, h, nq, d), 1.0, bf)
+    k, v = (_u16(ctx, (b, hkv, nk, d), 1.0, f32) for _ in range(2))
+    pairs = b * h * nq * nk
+    bound = _bound_f32(2 * b * h * nq * d * 2 + 4 * 2 * b * hkv * nk * d
+                       + 4 * b * h * nq, 4.0 * d * pairs)
+    ms = _call_ms(lambda: pinned("bound", q, k, v, {}, bf), "K1b")
+    ms_p = cuda_time_ms(lambda: ff.flash_attention_forward_plain(
+        q, k, v, softmax="bound_unchecked"), iters=3, warmup=1)
+    up = cuda_time_ms(lambda: q.float(), iters=10)
+    lib = _library_ms(ctx, q.float(), k, v, {}) + up
+    _rec_row(ctx, "forward mixed", [worst], ms, ms_p, lib, bound)
+    print(f"[mixed] forward: bf16 / fp16 Q over fp32 K/V, fp16 over bf16, "
+          f"bf16 over fp16, K1 / K1b / K5 at [2, 8, 1024, 128 and 256] "
+          f"causal: worst |d| {worst:.3e} (1e-4 + ulps); P to bf16 acts: "
+          f"mean |d| {near:.3e} to the rounded plain, {far:.3e} to the "
+          f"unrounded; K1b bf16 Q over fp32 K/V at the prefix {ms:.4f} ms "
+          f"({100 * bound['bound_ms'] / ms:.1f}% of its fp32 bound "
+          f"{bound['bound_ms']:.4f} ms), plain {ms_p:.4f} ms, fp32 SDPA + "
+          f"upcast {lib:.4f} ms ({card})", flush=True)
+
+    # ---- decode and paged decode
+    b, h, hkv, d = 8, 16, 4, 128
+    lens = torch.full((b,), DEC_LIVE, dtype=torch.int32, device=ctx.dev)
+    n_pg = DEC_CAP // PAGE
+    table = torch.arange(b * n_pg, device=ctx.dev,
+                         dtype=torch.int32).view(b, n_pg)
+    worst, timed = 0.0, None
+    for tq, tc in ((bf, f32), (h16, bf)):
+        q = _u16(ctx, (b, h, d), Q_PEAK, tq)
+        k = _u16(ctx, (b, hkv, DEC_CAP, d), K_PEAK, tc)
+        v = _u16(ctx, (b, hkv, DEC_CAP, d), 1.0, tc)
+        o, lse = decode_attention(q, k, v, lens)
+        o_p, lse_p = decode_attention_plain(q, k, v, lens)
+        torch.cuda.synchronize()
+        e, e_l = ctx.diff(o, o_p), ctx.diff(lse, lse_p)
+        gate = _mixed_gate(o_p, tq, tq, 0.5)
+        _check(o.dtype == tq and e <= gate and e_l <= F32_GATE * max(
+            1.0, lse_p.abs().max().item()),
+            f"decode mixed {tq} over {tc}: O {e:.3e} (gate {gate:.3e}), "
+            f"LSE {e_l:.3e}")
+        pool = init_paged_cache(b * n_pg, b, n_pg, hkv, PAGE, d, dtype=tc,
+                                device=ctx.dev)
+
+        def pages(x):
+            return x.view(b, hkv, n_pg, PAGE, d).transpose(1, 2).reshape(
+                b * n_pg, hkv, PAGE, d)
+        pool.k_pages.copy_(pages(k))
+        pool.v_pages.copy_(pages(v))
+        o7, lse7 = paged_decode_attention(q, pool.k_pages, pool.v_pages,
+                                          table, lens)
+        torch.cuda.synchronize()
+        _check(bool(torch.equal(o7, o) and torch.equal(lse7, lse)),
+               f"decode mixed {tq} over {tc}: K7 not bit for bit K6's")
+        worst = max(worst, e, e_l)
+        if timed is None:
+            timed = (q, k, v, pool)
+    q, k, v, pool = timed
+    flush = ctx.l2_flush.zero_
+    bound = _bound_f32(4 * 2 * b * hkv * DEC_LIVE * d + 2 * 2 * b * h * d
+                       + 4 * b * h, 4.0 * b * h * DEC_LIVE * d)
+    ms = _call_ms(lambda: decode_attention(q, k, v, lens), "K6",
+                  before=flush)
+    ms7 = _call_ms(lambda: paged_decode_attention(
+        q, pool.k_pages, pool.v_pages, table, lens), "K7", before=flush)
+    ms_p = cuda_time_ms(lambda: decode_attention_plain(q, k, v, lens),
+                        iters=3, warmup=1)
+    mask = torch.arange(DEC_CAP, device=ctx.dev) < DEC_LIVE
+    up = cuda_time_ms(lambda: q.float(), iters=10)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = cuda_time_ms(lambda: sdpa(
+        q.float()[:, :, None], k, v, attn_mask=mask[None], enable_gqa=True),
+        iters=10) + up
+    _rec_row(ctx, "decode mixed", [worst], ms, ms_p, lib, bound)
+    print(f"[mixed] decode: bf16 q over an fp32 cache and fp16 q over a bf16 "
+          f"cache, B={b} H={h} Hkv={hkv} d={d}, {DEC_LIVE} live: worst |d| "
+          f"{worst:.3e}; K7 bit for bit K6; K6 (bf16 q over fp32) {ms:.4f} "
+          f"ms, K7 {ms7:.4f} ms (cold L2; bound {bound['bound_ms']:.4f} ms), "
+          f"plain {ms_p:.4f} ms, fp32 SDPA + upcast {lib:.4f} ms ({card})",
+          flush=True)
+    del timed, q, k, v, pool
+
+    # ---- the backward
+    worst = 0.0
+    for types in ((bf, f32, f32, f32), (f32, f32, f32, bf)):
+        b, h, n, d = 1, 8, 1024, 128
+        q = _u16(ctx, (b, h, n, d), 2.0, types[0])
+        k = _u16(ctx, (b, h, n, d), 2.0, types[1])
+        v, do = _u16(ctx, (b, h, n, d), 1.0, types[2]), _u16(
+            ctx, (b, h, n, d), 1.0, types[3])
+        o, lse = ff.flash_attention_forward_plain(q.float(), k, v,
+                                                  causal=True)
+        want = fb.flash_attention_backward_plain(q, k, v, o, lse, do,
+                                                 causal=True)
+        narrow = max(ULP[str(t)] for t in types)
+        for fused in (True, False):
+            got = fb.flash_attention_backward(q, k, v, o, lse, do,
+                                              causal=True, fused=fused)
+            torch.cuda.synchronize()
+            for g, w, t in zip(got, want, types):
+                top = w.float().abs().max().item()
+                e = ctx.diff(g, w)
+                gate = 1e-4 * max(1.0, top) + (ULP[str(t)] + 2 * narrow) * top
+                worst = max(worst, e)
+                _check(g.dtype == t and top > 0 and e <= gate,
+                       f"backward mixed {types} fused={fused}: {e:.3e} > "
+                       f"{gate:.3e}")
+    # the training entry on a bf16 q and k over an fp32 v (K4 rounds dS
+    # once for dK and dQ, so q and k share a type on this path)
+    b, h, hkv, n, _, d = F16_TRAIN
+    q = _u16(ctx, (b, n, h, d), 1.0, bf).transpose(1, 2).requires_grad_()
+    k = _u16(ctx, (b, n, hkv, d), 1.0, bf).transpose(1, 2).requires_grad_()
+    v = _u16(ctx, (b, n, hkv, d), 1.0, f32).transpose(1, 2).requires_grad_()
+    do = _u16(ctx, (b, h, n, d), 1.0, bf)
+
+    def fwd_bwd():
+        o = flash_attention(q, k, v, causal=True)
+        return torch.autograd.grad(o, (q, k, v), do)
+    ctx.zero_counts()
+    grads = fwd_bwd()
+    torch.cuda.synchronize()
+    counts = dict(ctx.bwd_launches)
+    _check(counts["fused"] == 1 and all(g.dtype == t for g, t in zip(
+        grads, (bf, bf, f32))), f"flash_attention mixed: {counts}")
+    ctx.launches["backward mixed"] += counts["fused"]
+    ctx.launches["forward mixed"] += ctx.fwd_forms["online"]
+    flops = attention_flops(b, h, n, n, d, causal=True, backward=True)
+    bound = _bound_f32(2 * 2 * b * h * n * d + 2 * 2 * b * hkv * n * d
+                       + 4 * 2 * b * hkv * n * d + 2 * 2 * b * h * n * d
+                       + 8 * b * h * n, flops)
+    qd, kd, vd = (x.detach() for x in (q, k, v))
+    o, lse = ff.flash_attention_forward(qd, kd, vd, causal=True)
+    ms = _call_ms(lambda: fb.flash_attention_backward(
+        qd, kd, vd, o, lse, do, causal=True), "K4")
+    ms_p = cuda_time_ms(lambda: fb.flash_attention_backward_plain(
+        qd, kd, vd, o, lse, do, causal=True), iters=3, warmup=1)
+    up = cuda_time_ms(lambda: (qd.float(), kd.float(), do.float()),
+                      iters=10)
+    lib = _library_ms(ctx, qd.float(), kd.float(), vd, dict(causal=True),
+                      backward=True, do=do.float()) + up
+    _rec_row(ctx, "backward mixed", [worst], ms, ms_p, lib, bound)
+    print(f"[mixed] backward: bf16 q over fp32 k, v, dO and fp32 q, k, v "
+          f"with a bf16 dO, fused and split at [1, 8, 1024, 128] causal: "
+          f"worst |d| {worst:.3e}; flash_attention on bf16 q, k over an "
+          f"fp32 v at [{b}, {h}, {n}, {d}] causal: K1 "
+          f"{ctx.fwd_forms['online']}, K4 {counts['fused']}, prologue "
+          f"{counts['delta']}; K4 (fp32 build, P to bf16) {ms:.4f} ms "
+          f"({100 * bound['bound_ms'] / ms:.1f}% of its fp32 bound), plain "
+          f"{ms_p:.4f} ms, fp32 SDPA backward + upcast {lib:.4f} ms "
+          f"({card})", flush=True)
+    del q, k, v, do, grads, qd, kd, vd, o, lse
+
+    # ---- K8
+    b, h, n, d = F32_FA1
+    q = _u16(ctx, (b, h, n, d), 2.0, f32)
+    k, v = _u16(ctx, (b, h, n, d), 2.0, bf), _u16(ctx, (b, h, n, d), 1.0, bf)
+    ctx.zero_counts()
+    o = fa1_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    ctx.launches["K8 mixed"] += fa1_attention.launches
+    o_p = fa1_attention_plain(q, k, v, causal=True)
+    e = ctx.diff(o, o_p)
+    gate = _mixed_gate(o_p, bf, f32, 0.5)
+    _check(o.dtype == f32 and e <= gate, f"K8 mixed: {e:.3e} > {gate:.3e}")
+    bound = _bound_f32(4 * 2 * b * h * n * d + 2 * 2 * b * h * n * d,
+                       attention_flops(b, h, n, n, d, causal=True))
+    ms = _call_ms(lambda: fa1_attention(q, k, v, causal=True), "K8")
+    ms_p = cuda_time_ms(lambda: fa1_attention_plain(q, k, v, causal=True),
+                        iters=1, warmup=1)
+    up = cuda_time_ms(lambda: (k.float(), v.float()), iters=10)
+    lib = _library_ms(ctx, q, k.float(), v.float(), dict(causal=True)) + up
+    _rec_row(ctx, "K8 mixed", [e], ms, ms_p, lib, bound)
+    print(f"[mixed] K8 fp32 Q over bf16 K/V [{b}, {h}, {n}, {d}] causal: "
+          f"max|dO| {e:.3e} (gate {gate:.3e}); kernel {ms:.4f} ms, plain "
+          f"{ms_p:.4f} ms, fp32 SDPA + upcast {lib:.4f} ms ({card})",
+          flush=True)
+    del q, k, v, o, o_p
+
+    # ---- K9
+    n_r, rows, d = 4, 1024, 128
+    mesh = _shared_card_mesh(ctx, n_r)
+    x, w = _u16(ctx, (n_r * rows, d), 1.0, f32), _u16(ctx, (d, d), 1.0, bf)
+    ctx.zero_counts()
+    o = device_ring_matmul(x, w, mesh)
+    torch.cuda.synchronize()
+    ctx.launches["K9 mixed"] += device_ring_matmul.launches
+    ref = (x.float().view(n_r, rows, d).sum(0) @ w.float()).repeat(n_r, 1)
+    e = ctx.diff(o, ref)
+    e_p = ctx.diff(o, ring_matmul_plain(x, w, mesh))
+    top = max(1.0, ref.abs().max().item())
+    _check(max(e, e_p) <= 1e-4 * top, f"K9 mixed: {e:.3e} / {e_p:.3e}")
+    bound = _k9_bound([ctx.dev] * n_r, rows, d, f32=True)
+    bound = {k_: bound[k_] for k_ in ("bound_ms", "bound_by")}
+    ms = _call_ms(lambda: device_ring_matmul(x, w, mesh), "K9")
+    ms_p = cuda_time_ms(lambda: ring_matmul_plain(x, w, mesh), iters=3)
+    up = cuda_time_ms(lambda: w.float(), iters=10)
+    lib = cuda_time_ms(lambda: torch.einsum(
+        "nld,de->nle", x.view(n_r, rows, d), w.float()).sum(0),
+        iters=10) + up
+    _rec_row(ctx, "K9 mixed", [e, e_p], ms, ms_p, lib, bound)
+    print(f"[mixed] K9 fp32 x over bf16 W, n={n_r} L={rows} d={d}: vs fp32 "
+          f"reference {e:.3e}, vs plain {e_p:.3e} (gate 1e-4 x {top:.3f}); "
+          f"kernel {ms:.4f} ms, plain {ms_p:.4f} ms, fp32 einsum + upcast "
+          f"{lib:.4f} ms ({card})", flush=True)
+
+
+def _serve_runs(ctx, tag, m, prompt, new, caches_fn, chunk=None):
+    """One serving run through the kernels and the same on the plain
+    attention functions: `prefill_chunked(chunk)` (or, without `chunk`,
+    `generate()`'s whole-prompt prefill) over caches_fn(), then `new`
+    greedy `decode_one` steps. Logits within LOGIT_GATE of the plain run's
+    and greedy tokens equal, or departing only where the plain run's two
+    best logits lie within that gate. Returns the kernel run's forward
+    form counts and its decode launches."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.models import transformer as tfm
+    from cuda_flashattention_torch.ops.decode import decode_attention
+    t = prompt.shape[1]
+
+    def run():
+        c = caches_fn()
+        if chunk:
+            lg, c = tfm.prefill_chunked(m, prompt, c, chunk=chunk)
+        else:
+            lg, c = tfm.prefill(m, prompt, c)
+        tok = torch.argmax(lg, dim=-1).to(prompt.dtype)
+        toks, steps = [tok], [lg]
+        for i in range(new):
+            lg_dec, c = tfm.decode_one(m, tok, t + i, c)
+            tok = torch.argmax(lg_dec, dim=-1).to(prompt.dtype)
+            toks.append(tok)
+            steps.append(lg_dec)
+        torch.cuda.synchronize()
+        return torch.stack(toks, 1), steps
+
+    ctx.zero_counts()
+    t0 = time.perf_counter()
+    toks, steps = run()
+    wall = time.perf_counter() - t0
+    counts, n_dec = dict(ctx.fwd_forms), decode_attention.launches
+    with _serving_on_plain_attention():
+        toks_p, steps_p = run()
+    e_lg = max(ctx.diff(a, b_) for a, b_ in zip(steps, steps_p))
+    departure, tie_ok = "", True
+    if not torch.equal(toks, toks_p):
+        step = int((toks != toks_p).any(0).nonzero()[0])
+        rows = toks[:, step] != toks_p[:, step]
+        best = steps_p[step][rows].float().topk(2, dim=-1).values
+        gap = (best[:, 0] - best[:, 1]).max().item()
+        tie_ok = gap <= LOGIT_GATE
+        departure = (f" (first departure at token {step}, where the plain "
+                     f"run's two best logits lie {gap:.3e} apart)")
+        e_lg = max(ctx.diff(a, b_) for a, b_ in zip(steps[:step + 1],
+                                                     steps_p[:step + 1]))
+    print(f"[{tag}] B={prompt.shape[0]} x {t} tokens"
+          + (f" in chunks of {chunk}" if chunk else "") + f", {new} greedy "
+          f"steps: launches {counts}, K6 {n_dec}; logits vs plain attention "
+          f"max|d| {e_lg:.3e} (gate {LOGIT_GATE}); greedy tokens equal "
+          f"{(toks == toks_p).float().mean().item():.4f}{departure}; "
+          f"{wall:.3f} s ({ctx.card})", flush=True)
+    _check(all(bool(torch.isfinite(x).all()) for x in steps)
+           and e_lg <= LOGIT_GATE, f"{tag}: logits {e_lg:.3e}")
+    _check(tie_ok, f"{tag}: tokens depart from the plain run{departure}")
+    return counts, n_dec
+
+
+def _phase_f16_serving(ctx):
+    """Main path of fp16 serving: the 246M serving config with
+    `dtype=torch.float16`: `generate()` on B=8 prompts of 512 tokens for
+    128 new tokens over an fp16 and an int8 cache (K1 f16 per layer, K6
+    f16 per layer and step); `prefill_chunked(chunk=512)` on B=8 x 4096
+    tokens then F16_CHUNK_NEW greedy steps over fp16, int8 and fp8 caches
+    and, with `cfg.window` = 1024, an int8 cache (each chunk K1 f16 on
+    itself, its prefix read as "auto" routes an fp16 Q: K1b f16 or, under
+    the window, K5 f16); each against the same run on the plain attention
+    functions (`_serve_runs`). Then the paged loop over fp16 pools (N_PAGES
+    pages of PAGE tokens): B=8 x 4096 tokens through `paged_bulk_append`,
+    F16_PAGED_STEPS steps of `paged_decode_step` (K7 f16), each bit for bit
+    K6 f16 on a contiguous fp16 shadow, the last within GATE of the plain
+    version; a sequence retires and its pages serve a new one."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.models import transformer as tfm
+    from cuda_flashattention_torch.models.generate import generate
+    from cuda_flashattention_torch.ops.decode import decode_attention
+    from cuda_flashattention_torch.ops.kv_cache import (
+        append as cache_append, init_cache)
+    from cuda_flashattention_torch.ops.paged import (
+        PageAllocator, init_paged_cache, paged_append, paged_bulk_append,
+        paged_decode_attention, paged_decode_attention_plain,
+        paged_decode_step)
+    dev, card = ctx.dev, ctx.card
+    cfg = tfm.TransformerConfig(dtype=torch.float16, **CFG_KW)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    model = tfm.Transformer(cfg, generator=gen)
+    n = cfg.n_layers
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
+                           device=dev, dtype=torch.int32)
+    generate(model, prompt, 2)  # warm-up
+    for qtype in (None, "int8"):
+        ctx.zero_counts()
+        t0 = time.perf_counter()
+        out, _ = generate(model, prompt, NEW, qtype=qtype)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_fwd, n_dec = ctx.fwd_forms["online"], decode_attention.launches
+        print(f"[f16-generate] {qtype or 'fp16'} cache: launches K1 {n_fwd} "
+              f"(expect {n}), K6 {n_dec} (expect {n * NEW}); "
+              f"{BATCH * NEW / wall:.1f} tok/s ({card})", flush=True)
+        _check(n_fwd == n and n_dec == n * NEW and sum(
+            ctx.fwd_forms.values()) == n, f"fp16 generate {qtype}: "
+            f"{ctx.fwd_forms}, K6 {n_dec}")
+        _check(tuple(out.shape) == (BATCH, PROMPT + NEW),
+               "fp16 generate: tokens")
+        ctx.launches["K1 f16"] += n_fwd
+        ctx.launches["K6 f16"] += n_dec
+        _serve_runs(ctx, f"f16-generate {qtype or 'fp16'} cache", model,
+                    prompt, NEW, lambda: tfm.init_caches(
+                        cfg, BATCH, PROMPT + NEW, qtype=qtype, device=dev))
+    del prompt
+
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, LONG_PROMPT),
+                           generator=gen, device=dev, dtype=torch.int32)
+    n_own = LONG_PROMPT // LONG_CHUNK * n
+    n_prefix = n_own - n
+    for label, qtype, window in (("fp16", None, 0), ("int8", "int8", 0),
+                                 ("fp8", "fp8", 0),
+                                 ("int8 window 1024", "int8", LONG_WINDOW)):
+        m = _windowed(model, window) if window else model
+        counts, n_dec = _serve_runs(
+            ctx, f"f16-chunked {label} cache", m, prompt, F16_CHUNK_NEW,
+            lambda: tfm.init_caches(m.cfg, BATCH, LONG_PROMPT + F16_CHUNK_NEW,
+                                    qtype=qtype, device=dev),
+            chunk=LONG_CHUNK)
+        reads = counts["online"] + counts["bound"] + counts["kmajor"]
+        _check(reads == n_own + n_prefix and n_dec == n * F16_CHUNK_NEW,
+               f"fp16 chunked {label}: {counts}, K6 {n_dec}")
+        ctx.launches["K1 f16"] += counts["online"]
+        ctx.launches["K1b f16"] += counts["bound"]
+        ctx.launches["K5 f16"] += counts["kmajor"]
+        ctx.launches["K6 f16"] += n_dec
+    del model, prompt
+
+    # the paged loop over fp16 pools
+    b, hkv, h, d = BATCH, cfg.n_kv_heads, cfg.n_heads, cfg.d_head
+    total = PAGED_PREFILL + F16_PAGED_STEPS
+    k_all = _u16(ctx, (b, hkv, total, d))
+    v_all = _u16(ctx, (b, hkv, total, d))
+    cache = init_paged_cache(N_PAGES, b, MAX_PAGES, hkv, PAGE, d,
+                             dtype=torch.float16, device=dev)
+    alloc = PageAllocator(N_PAGES)
+    shadow = init_cache(b, hkv, MAX_PAGES * PAGE, d, dtype=torch.float16,
+                        device=dev)
+    for i in range(b):
+        alloc.reserve_for(cache, i, PAGED_PREFILL)
+    paged_bulk_append(cache, k_all[:, :, :PAGED_PREFILL],
+                      v_all[:, :, :PAGED_PREFILL])
+    cache_append(shadow, k_all[:, :, :PAGED_PREFILL],
+                 v_all[:, :, :PAGED_PREFILL])
+    ctx.zero_counts()
+    e_plain = None
+    for t in range(F16_PAGED_STEPS):
+        at = PAGED_PREFILL + t
+        for i in range(b):
+            alloc.reserve_for(cache, i, 1)
+        paged_append(cache, k_all[:, :, at], v_all[:, :, at])
+        cache_append(shadow, k_all[:, :, at:at + 1], v_all[:, :, at:at + 1])
+        q = _u16(ctx, (b, h, d), Q_PEAK)
+        o, lse = paged_decode_step(q, cache)
+        lengths = torch.full((b,), at + 1, dtype=torch.int32, device=dev)
+        o_c, lse_c = decode_attention(q, shadow.k, shadow.v, lengths)
+        torch.cuda.synchronize()
+        _check(bool(torch.equal(o, o_c) and torch.equal(lse, lse_c)),
+               f"fp16 paged step {t}: not bit for bit K6's")
+        if t == F16_PAGED_STEPS - 1:
+            o_p, lse_p = paged_decode_attention_plain(
+                q, cache.k_pages, cache.v_pages, cache.page_table,
+                cache.lengths)
+            e_plain, ref, ok = ctx.o_close(o, o_p)
+            _check(ok and ctx.diff(lse, lse_p) <= GATE,
+                   f"fp16 paged vs plain {e_plain:.3e} of {ref:.3e}")
+    free_before = len(alloc.free)
+    alloc.release_sequence(cache, 3)
+    freed = len(alloc.free) - free_before
+    alloc.reserve_for(cache, 3, PAGE)
+    paged_append(cache, k_all[:, :, 0], v_all[:, :, 0])
+    o, _ = paged_decode_step(q, cache)
+    torch.cuda.synchronize()
+    n_k7 = paged_decode_attention.launches
+    print(f"[f16-paged] fp16 pools of {N_PAGES} pages x {PAGE} tokens, B={b} "
+          f"x {PAGED_PREFILL} tokens, {F16_PAGED_STEPS} steps bit for bit "
+          f"K6's on the shadow, last step vs plain {e_plain:.3e}; retired "
+          f"sequence 3: {freed} pages back; K7 launches {n_k7} ({card})",
+          flush=True)
+    _check(n_k7 == F16_PAGED_STEPS + 1 and freed == -(-total // PAGE)
+           and bool(torch.isfinite(o).all()),
+           f"fp16 paged run: K7 {n_k7}, {freed} pages freed")
+    ctx.launches["K7 f16"] += n_k7
+    ctx.launches["K6 f16"] += decode_attention.launches
+    del cache, shadow, alloc, k_all, v_all
+
+
+def _phase_mixed_serving(ctx):
+    """Main paths of serving over a cache of another type: the 246M serving
+    config in bf16 over fp32 caches, and in fp16 over bf16 caches (one
+    `init_cache(..., dtype=...)` per layer): `generate()` on B=8 prompts of
+    512 tokens for 32 new tokens (its caches made in that type; the
+    prefill never reads them, each decode step reads them through K6's
+    fp32-q build on q upcast, P rounded to the model's type), and
+    `prefill_chunked(chunk=512)` on B=8 x 4096 tokens then F16_CHUNK_NEW
+    greedy steps (each chunk's own read K1 in the model's type, its
+    prefix read through the fp32 builds on Q upcast, P rounded likewise:
+    "forward mixed"); each against the same run on the plain attention
+    functions (`_serve_runs`)."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.models import generate as gen_mod
+    from cuda_flashattention_torch.models import transformer as tfm
+    from cuda_flashattention_torch.ops.decode import decode_attention
+    from cuda_flashattention_torch.ops.kv_cache import init_cache
+    dev = ctx.dev
+    new = F32_GEN[2]
+    for model_type, cache_type in ((torch.bfloat16, torch.float32),
+                                   (torch.float16, torch.bfloat16)):
+        cfg = tfm.TransformerConfig(dtype=model_type, **CFG_KW)
+        gen = torch.Generator(device=dev).manual_seed(32)
+        model = tfm.Transformer(cfg, generator=gen)
+        n = cfg.n_layers
+        tag = (f"{str(model_type)[6:]} model over {str(cache_type)[6:]} "
+               f"caches")
+
+        def caches(batch, length, m=model):
+            return tuple(init_cache(batch, m.cfg.n_kv_heads, length,
+                                    m.cfg.d_head, dtype=cache_type,
+                                    device=dev)
+                         for _ in range(m.cfg.n_layers))
+        prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                               generator=gen, device=dev, dtype=torch.int32)
+        with mock.patch.object(
+                gen_mod, "init_caches",
+                lambda c, b_, length, qtype=None, device=None: caches(
+                    b_, length)):
+            ctx.zero_counts()
+            out, _ = gen_mod.generate(model, prompt, new)
+            torch.cuda.synchronize()
+        n_fwd, n_dec = ctx.fwd_forms["online"], decode_attention.launches
+        _check(n_fwd == n and n_dec == n * new and tuple(out.shape) == (
+            BATCH, PROMPT + new), f"{tag} generate: {ctx.fwd_forms}, K6 "
+            f"{n_dec}")
+        ctx.launches["K1" if model_type == torch.bfloat16 else "K1 f16"] += (
+            n_fwd)
+        ctx.launches["decode mixed"] += n_dec
+        _serve_runs(ctx, f"mixed-generate {tag}", model, prompt, new,
+                    lambda: caches(BATCH, PROMPT + new))
+        prompt = torch.randint(0, cfg.vocab_size, (BATCH, LONG_PROMPT),
+                               generator=gen, device=dev, dtype=torch.int32)
+        counts, n_dec = _serve_runs(
+            ctx, f"mixed-chunked {tag}", model, prompt, F16_CHUNK_NEW,
+            lambda: caches(BATCH, LONG_PROMPT + F16_CHUNK_NEW),
+            chunk=LONG_CHUNK)
+        n_own = LONG_PROMPT // LONG_CHUNK * n
+        reads = counts["online"] + counts["bound"] + counts["kmajor"]
+        _check(reads == 2 * n_own - n and n_dec == n * F16_CHUNK_NEW,
+               f"{tag} chunked: {counts}, K6 {n_dec}")
+        own = "K1" if model_type == torch.bfloat16 else "K1 f16"
+        ctx.launches[own] += n_own
+        ctx.launches["forward mixed"] += reads - n_own
+        ctx.launches["decode mixed"] += n_dec
+        del model, prompt
+
+
+def _phase_f16_training(ctx):
+    """Main path of fp16 training: the 271M training config (TRAIN_KW) with
+    `dtype=torch.float16`, B=1 x T=4096 tokens, `make_train_step` with
+    SGD(1e-4): 2 warm-up and TIMED_STEPS timed steps (K1 f16 = K4 f16 = the
+    prologue = 4 a step); one step through the split backward (K2 f16 = K3
+    f16 = 4); the windowed model (`cfg.window` = 1024) likewise. The loss
+    and every gradient of a step against the same step on the plain
+    attention functions (loss within LOSS_GATE, relative L2 within
+    GRAD_GATE), fused, split and windowed; the bf16 model's worst gradient
+    on the same batch beside fp16's. The comparison scales the loss by
+    F16_LOSS_SCALE before its backward and the gradients back after it,
+    on both paths alike, as an fp16 trainer does (torch.cuda.amp's
+    GradScaler starts at 2^16): the activation gradients of a mean loss
+    over 4096 tokens sit near 1e-6, in fp16's subnormals, where dO, dP
+    and dS (rounded to fp16, as JAX rounds them) keep a few bits and the
+    two paths' rounding flips differ by ~13% relative L2 (layers.2.wq,
+    unscaled). The timed steps are `make_train_step`'s, unscaled."""
+    torch = ctx.torch
+    from cuda_flashattention_torch.models import transformer as tfm
+    from cuda_flashattention_torch.ops import attention
+    from cuda_flashattention_torch.ops.flash_bwd import (
+        flash_attention_backward, flash_attention_backward_plain)
+    from cuda_flashattention_torch.ops.flash_fwd import (
+        flash_attention_forward_plain)
+    from cuda_flashattention_torch.utils.timing import attention_flops
+    dev, card = ctx.dev, ctx.card
+    t = TRAIN_T
+    tokens = torch.randint(0, TRAIN_KW["vocab_size"], (1, t), device=dev,
+                           generator=torch.Generator(
+                               device=dev).manual_seed(33),
+                           dtype=torch.int32)
+    plain_bwd = (lambda q, k, v, o, lse, do, block_sizes=None, fused=None,
+                 **kw:
+                 flash_attention_backward_plain(q, k, v, o, lse, do, **kw))
+
+    def fresh(dtype, window=0):
+        cfg = tfm.TransformerConfig(dtype=dtype, window=window, **TRAIN_KW)
+        return tfm.Transformer(
+            cfg, generator=torch.Generator(device=dev).manual_seed(34))
+
+    def loss_and_grads(m):
+        m.zero_grad(set_to_none=True)
+        loss = tfm.loss_fn(m, tokens)
+        (loss * F16_LOSS_SCALE).backward()
+        grads = [p.grad / F16_LOSS_SCALE for p in m.parameters()]
+        m.zero_grad(set_to_none=True)
+        return loss.item(), grads
+
+    def against_plain(m, tag, names):
+        loss_k, grads_k = loss_and_grads(m)
+        with mock.patch.object(attention, "flash_attention_forward",
+                               flash_attention_forward_plain), \
+                mock.patch.object(attention, "flash_attention_backward",
+                                  plain_bwd):
+            loss_p, grads_p = loss_and_grads(m)
+        errs = [((a.float() - b_.float()).norm() / b_.float().norm()).item()
+                for a, b_ in zip(grads_k, grads_p)]
+        i = max(range(len(errs)), key=errs.__getitem__)
+        print(f"[{tag}] kernels vs plain attention: loss {loss_k:.6f} vs "
+              f"{loss_p:.6f} (|d| {abs(loss_k - loss_p):.3e}, gate "
+              f"{LOSS_GATE}); worst gradient relative L2 {errs[i]:.3e} "
+              f"({names[i]}; gate {GRAD_GATE}) ({card})", flush=True)
+        _check(math.isfinite(loss_k) and abs(loss_k - loss_p) <= LOSS_GATE,
+               f"{tag}: loss {loss_k} vs {loss_p}")
+        _check(errs[i] <= GRAD_GATE, f"{tag}: gradient of {names[i]} "
+               f"{errs[i]:.3e}")
+        return errs[i]
+
+    model = fresh(torch.float16)
+    names = [nm for nm, _ in model.named_parameters()]
+    n_params = sum(p.numel() for p in model.parameters())
+    flops = (6.0 * n_params * t + 3 * attention_flops(
+        1, model.cfg.n_heads, t, t, model.cfg.d_head, causal=True)
+        * model.cfg.n_layers)
+    rows = dict(fwd=["K1 f16"], fused=["K4 f16"], delta=["prologue f16"])
+    _timed_train_steps(ctx, model, tokens, "f16-train", flops, rows)
+    e16 = against_plain(model, "f16-train", names)
+    ctx.zero_counts()
+    with mock.patch.object(attention, "flash_attention_backward",
+                           functools.partial(flash_attention_backward,
+                                             fused=False)):
+        e_split = against_plain(model, "f16-train split backward", names)
+    counts = dict(ctx.bwd_launches)
+    n = model.cfg.n_layers
+    # the kernel pass of against_plain (the plain pass launches nothing)
+    _check(counts["dkdv"] == n and counts["dq"] == n and counts["fused"] == 0,
+           f"fp16 split backward launches {counts}")
+    ctx.launches["K2 f16"] += counts["dkdv"]
+    ctx.launches["K3 f16"] += counts["dq"]
+    del model
+    torch.cuda.empty_cache()
+    wmodel = fresh(torch.float16, LONG_WINDOW)
+    _timed_train_steps(ctx, wmodel, tokens, f"f16-wtrain window "
+                       f"{LONG_WINDOW}", flops, rows)
+    e_w = against_plain(wmodel, f"f16-wtrain window {LONG_WINDOW}", names)
+    del wmodel
+    torch.cuda.empty_cache()
+    e_bf = against_plain(fresh(torch.bfloat16), "bf16-train (beside fp16)",
+                         names)
+    print(f"[f16-train] worst gradient relative L2 against the plain "
+          f"attention functions: fp16 {e16:.3e} (split {e_split:.3e}, "
+          f"window {e_w:.3e}), bf16 {e_bf:.3e} on the same batch ({card})",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -6157,7 +7185,8 @@ def main() -> int:
             "K6 d256", "K7 d256", "K4 d256", "K2 d256", "K3 d256",
             "prologue d256", "K1 f32 d256", "K1b f32 d256", "K5 f32 d256",
             "K8 d256", "K8 f32 d256", "K4 f32 d256", "K2 f32 d256",
-            "K3 f32 d256", "K9 d256", "K9 f32 d256", "K9 across processes")}
+            "K3 f32 d256", "K9 d256", "K9 f32 d256", "K9 across processes",
+            *F16_ROWS, *MIXED_ROWS)}
     # launches on the main paths, summed over the runs that drive them
     launches = {kn: 0 for kn in rec}
 
@@ -7576,6 +8605,15 @@ def main() -> int:
     _phase_ladder(ctx)
     torch.cuda.empty_cache()
     _phase_tuning(ctx)
+    # ---- 31. fp16 and mixed float types ---------------------------------
+    torch.cuda.empty_cache()
+    t31 = time.perf_counter()
+    for phase in (_phase_f16_kernels, _phase_mixed_kernels,
+                  _phase_f16_serving, _phase_mixed_serving,
+                  _phase_f16_training):
+        phase(ctx)
+        torch.cuda.empty_cache()
+    print(f"[phase 31] {time.perf_counter() - t31:.1f} s", flush=True)
 
     # ---- last lines ------------------------------------------------------
     csrc = "cuda_flashattention_torch/csrc/"
@@ -7794,6 +8832,72 @@ def main() -> int:
          "switches between the processes' contexts, time-sliced, per "
          "process; plain: the plain ring across the same processes)",
          "device_ring.cu", "examples/07_device_ring.py:46"),
+        ("K1 f16", "flash_attention_forward on fp16 Q/K/V or an fp16 Q over "
+         "int8, fp8 or mixed K/V (K1's fp16 build: bf16's kernel with fp16 "
+         "operands, .f16 wgmma, P rounded to fp16; the fp16 serving model's "
+         "prefill and chunks, the fp16 training steps; times at [1, 16, "
+         "4096, 128] causal)", "flash_fwd_f16.cu", "flash_fwd.py:123"),
+        ("K1b f16", "flash_attention_forward softmax=bound on an fp16 Q "
+         "(K1b's fp16 build; the fp16 model's chunked prefix reads over "
+         "fp16, int8 and fp8 caches; times at the prefix, 512 x 3584)",
+         "flash_fwd_bound_f16.cu", "flash_fwd.py:123"),
+        ("K5 f16", "flash_attention_forward softmax=bound, causal, on an "
+         "fp16 Q (K5's fp16 build; the fp16 model's windowed prefix reads "
+         "over an int8 cache; times at the prefix, 512 x 3584)",
+         "flash_fwd_kmajor_f16.cu", "flash_fwd.py:399"),
+        ("K6 f16", "decode_attention on an fp16 q over fp16, int8, fp8 or "
+         "mixed caches (K6's fp16-q unit: P rounded to fp16, bf16 under "
+         "quantize_q; the fp16 model's generate() and chunked serving; "
+         "times at B=8 H=16 Hkv=4, 4224 live of 4352, cold L2)",
+         "decode_f16.cu", "decode.py:145"),
+        ("K7 f16", "paged_decode_attention on an fp16 q over fp16 pools "
+         "(K7's fp16-q unit, bit for bit K6's; the paged loop over fp16 "
+         "pools; times at 4224 live tokens in 128-token pages)",
+         "paged_f16.cu", "paged.py:51"),
+        ("K2 f16", "flash_attention_backward fused=False on fp16 (K2's fp16 "
+         "build; the fp16 model's split-backward step; times at [1, 16, "
+         "4096, 128] causal)", "flash_bwd_kv_f16.cu", "flash_bwd.py:117"),
+        ("K3 f16", "flash_attention_backward fused=False on fp16 (K3's fp16 "
+         "build; the fp16 model's split-backward step; times at [1, 16, "
+         "4096, 128] causal)", "flash_bwd_f16.cu", "flash_bwd.py:192"),
+        ("K4 f16", "flash_attention_backward on fp16 (K4's fp16 build: P "
+         "rounded to dO's type, dS to q's and k's, all fp16; the fp16 "
+         "model's train steps; times at [1, 16, 4096, 128] causal)",
+         "flash_bwd_kv_f16.cu", "flash_bwd.py:252"),
+        ("prologue f16", "flash_attention_backward's prologue on fp16 O "
+         "and dO (D = rowsum(dO * O), K4's dQ accumulator zeroed; the fp16 "
+         "model's train steps; times at [1, 16, 4096, 128])",
+         "flash_bwd_kv.cu", "flash_bwd.py:252"),
+        ("K8 f16", "fa1_attention on fp16 (K8's fp16 build, P in v's type; "
+         "[1, 16, 4096, 128] causal)", "fa1_f16.cu", "fa1.py:54"),
+        ("K9 f16", "device_ring_matmul on fp16 shards and W (K9's fp16 "
+         "build, o fp32; n=4 L=1024 d=128)", "device_ring_f16.cu",
+         "examples/07_device_ring.py:46"),
+        ("forward mixed", "flash_attention_forward on Q, K, V of mixed float "
+         "types (K1, K1b and K5's fp32 builds on Q and, unless both bf16, "
+         "K/V upcast exactly, P rounded to Q's type before P·V; the bf16 "
+         "model's chunked prefix reads over fp32 caches, the fp16 model's "
+         "over bf16 caches, flash_attention on bf16 q, k over an fp32 v; "
+         "times: K1b, a bf16 Q over fp32 K/V at the prefix, 512 x 3584)",
+         "flash_fwd_bound.cu", "flash_fwd.py:123"),
+        ("decode mixed", "decode_attention / paged_decode_attention on a q "
+         "over a float cache of another type (K6 / K7's fp32-q unit on q "
+         "upcast, P rounded to q's type; the bf16 model's decode over fp32 "
+         "caches, the fp16 model's over bf16 caches; times: K6, a bf16 q "
+         "over an fp32 cache, B=8 H=16 Hkv=4, 4224 live of 4352)",
+         "decode_f32.cu", "decode.py:145"),
+        ("backward mixed", "flash_attention_backward on q / k / v / dO of "
+         "mixed float types (K4, or K2 + K3 where q's and k's types differ, "
+         "fp32 builds on upcast operands, P rounded to dO's type, dS to q's "
+         "and k's; flash_attention on bf16 q, k over an fp32 v at [1, 16, "
+         "4096, 128] causal; times: K4 there)", "flash_bwd_kv.cu",
+         "flash_bwd.py:252"),
+        ("K8 mixed", "fa1_attention on mixed float types (K8's fp32 build "
+         "on upcast operands, P rounded to v's type; an fp32 Q over bf16 "
+         "K/V at [1, 16, 4096, 128] causal)", "fa1.cu", "fa1.py:54"),
+        ("K9 mixed", "device_ring_matmul on x and W of two float types "
+         "(K9's fp32 build on W upcast; fp32 x over bf16 W, n=4 L=1024 "
+         "d=128)", "device_ring.cu", "examples/07_device_ring.py:46"),
     ]
     kernels = []
     for kn, name, source, replaces in described:

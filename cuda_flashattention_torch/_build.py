@@ -50,8 +50,10 @@ _IP = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     # ptrs[10] (q, k, v, k_scale, v_scale, q_seg, kv_seg, guard, o, lse),
     # B, H, Hkv, Nq, Nk, D, strides[9] (q/k/v: batch, head, row, in
-    # elements), k_type, v_type (0 bf16, 1 int8, 2 fp8, 3 fp32: with an
-    # fp32 q), q_f32 (an fp32 q, over fp32, bf16 or one-byte K/V), causal,
+    # elements), k_type, v_type (0 bf16 (fp16 in the `_f16` entry points),
+    # 1 int8, 2 fp8, 3 fp32: with an fp32 q), q_f32 (1 an fp32 q, over
+    # fp32, bf16 or one-byte K/V; 2 / 3 the same with P rounded to bf16 /
+    # fp16 before P·V, a mixed-type call upcast; 0 in `_f16`), causal,
     # window, kv_offset, out_type (O in 0 bf16, 1 fp32, 2 fp16), kn (keys
     # of a tile: 64, or 128 over bf16 q/k/v at d <= 128, and 32 for an
     # fp32 q over fp32 k/v at d = 256), stream
@@ -69,41 +71,49 @@ SIGNATURES = {
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, k_scale, v_scale, q_sigma, lengths, windows, o, lse, part,
     # tickets (the split's scratch, or NULL), B, H, Hkv, max_n, D, k_type,
-    # v_type (0 bf16, 1 int8, 2 fp8, 3 fp32), qq, q_f32 (q and o fp32, else
-    # bf16), scale, window, split, stream
+    # v_type (0 bf16, 1 int8, 2 fp8, 3 fp32, 4 fp16), qq, p_round (the
+    # fp32-q unit: P rounded to bf16 (1) or fp16 (2), a 2-byte q upcast),
+    # scale, window, split, stream; q and o bf16 (fp16 in `cfa_decode_f16`,
+    # fp32 in `cfa_decode_f32`)
     "cfa_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I,
                    _I, _P],
     # q, k_pages, v_pages, k_scale, v_scale, q_sigma, page_table, lengths,
     # windows, o, lse, part, tickets, B, H, Hkv, page, max_pages, D, k_type,
-    # v_type, qq, q_f32, scale, window, split, stream
+    # v_type, qq, p_round, scale, window, split, stream (and `_f16`,
+    # `_f32` as cfa_decode's)
     "cfa_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          ctypes.c_float, _I, _I, _P],
     # q, k, v, o, B, H, Nq, Nk, D, strides[9] (q/k/v: batch, head, row),
-    # causal, n_sub, f32 (fp32 q/k/v and o, else bf16), stream
+    # causal, n_sub, f32 (1 fp32 q/k/v and o, 2 / 3 with P rounded to
+    # bf16 / fp16, else 0: bf16, or fp16 in `cfa_fa1_f16`), stream
     "cfa_fa1": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LP, _I, _I, _I, _P],
     # the backward's prologue: o, dO, delta (out), dq_acc (zeroed, or NULL
     # on the split path), B, H, Nq, D, strides[6] (o/dO: batch, head, row),
-    # o_f32, do_f32 (each fp32, else bf16), stream
+    # o_type, do_type (each 0 bf16, 1 fp32, 2 fp16), stream
     "cfa_bwd_delta": [_P, _P, _P, _P, _I, _I, _I, _I, _LP, _I, _I, _P],
     # q, k, v, dO, lse, delta, q_seg, kv_seg (int32 ids or NULL), dk, dv,
     # dq_acc (NULL: K2, else K4), B, H, Hkv, Nq, Nk, D, strides[12]
     # (q/k/v/dO: batch, head, row), scale, causal, window, kv_offset, f32
-    # (fp32 q/k/v/dO and dK/dV, else bf16), stream
+    # (1 + r_p + 3·r_ds: fp32 q/k/v/dO and dK/dV, P and dS rounded by the
+    # codes r_p, r_ds (0 none, 1 bf16, 2 fp16) for a mixed-type call
+    # upcast; 0: bf16, or fp16 in the `_f16` entry points), stream
     "cfa_flash_bwd_kv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _LP, _D, _I, _I, _I, _I,
                          _P],
     # q, k, v, dO, lse, delta, q_seg, kv_seg, dq, B, H, Hkv, Nq, Nk, D,
-    # strides[12], scale, causal, window, kv_offset, f32 (fp32 q/k/v/dO
-    # and dq, else bf16), stream
+    # strides[12], scale, causal, window, kv_offset, f32 (1 + 3·r_ds:
+    # fp32 q/k/v/dO and dq, dS rounded by r_ds; 0: bf16, or fp16 in
+    # `_f16`), stream
     "cfa_flash_bwd_q": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _LP, _D, _I, _I, _I, _I,
                         _P],
     # x, w, out (this launch's shards, W and o), buf[n], flags[n] (per-rank
     # device pointers), n_shards, local[n_local] (the ranks this launch
     # runs), n_local, L, D, grid (CTAs per rank, common to the ring), epoch,
-    # sys (flags at system scope), f32 (fp32 x and w), device, stream
+    # sys (flags at system scope), f32 (fp32 x and w; else bf16, or fp16
+    # in `_f16`), device, stream
     "cfa_device_ring": [_P, _P, _P, _PP, _PP, _I, _IP, _I, _I, _I, _I,
                         ctypes.c_ulonglong, _I, _I, _I, _P],
     # D, sys, f32, device, out: CTAs of that build the card holds at once
@@ -119,6 +129,18 @@ SIGNATURES = {
     "cfa_ipc_close": [_I, _P],
     "cfa_ipc_free": [_I, _P],
 }
+
+# the fp16 units' entry points (csrc/*_f16.cu) and the other q types'
+# decode units (csrc/decode_f16.cu, decode_f32.cu, paged_*.cu): the
+# signatures of the bf16 ones
+SIGNATURES.update({
+    name + "_f16": SIGNATURES[name]
+    for name in ("cfa_flash_fwd", "cfa_flash_fwd_bound",
+                 "cfa_flash_fwd_kmajor", "cfa_decode", "cfa_paged_decode",
+                 "cfa_fa1", "cfa_flash_bwd_kv", "cfa_flash_bwd_q",
+                 "cfa_device_ring", "cfa_device_ring_resident")})
+SIGNATURES.update({name + "_f32": SIGNATURES[name]
+                   for name in ("cfa_decode", "cfa_paged_decode")})
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

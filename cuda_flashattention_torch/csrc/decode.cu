@@ -85,22 +85,26 @@ struct Launch {
 
 }  // namespace
 
-// q and o [B, H, D] are fp32 when q_f32, else bf16; the cache is [B, Hkv,
-// max_n, D] (D: any row width from 1 to 256, read as it lies). k_type /
-// v_type: 0 bf16, 1 int8, 2 fp8 e4m3, 3 fp32 (fp32 q). k_scale / v_scale
-// [B, Hkv, max_n] fp32 for a quantized cache, else null. With qq != 0, q
-// is int8 and q_sigma [B, H] holds sigma_q * scale per row; o keeps the
-// type q_f32 names. windows [B] or null; window 0 for none. split: C, keys per split of the context (the
-// host's rule); with more than one split of max_n, part [B·Hkv·row tiles ·
-// ceil(max_n / C) · R · (D + 2)] fp32 and tickets [B·Hkv·row tiles] int32
-// are the call's scratch (tickets are zeroed here, on the stream).
+// q and o [B, H, D] are bf16 (fp16 in cfa_decode_f16, decode_f16.cu; fp32
+// in cfa_decode_f32, decode_f32.cu); the cache is [B, Hkv, max_n, D] (D:
+// any row width from 1 to 256, read as it lies). k_type / v_type: 0 bf16,
+// 1 int8, 2 fp8 e4m3, 3 fp32 (fp32 q), 4 fp16 (a 2-byte cache under a q
+// of its type or an fp32 q). p_round (fp32 q): P rounded to bf16 (1) or
+// fp16 (2) before P·V, for a 2-byte q upcast over a cache of another float
+// type; 0 elsewhere. k_scale / v_scale [B, Hkv, max_n] fp32 for a
+// quantized cache, else null. With qq != 0, q is int8 and q_sigma [B, H]
+// holds sigma_q * scale per row; o keeps the unit's q type. windows [B] or
+// null; window 0 for none. split: C, keys per split of the context (the
+// host's rule); with more than one split of max_n, part [B·Hkv·row tiles
+// · ceil(max_n / C) · R · (D + 2)] fp32 and tickets [B·Hkv·row tiles]
+// int32 are the call's scratch (tickets are zeroed here, on the stream).
 extern "C" int cfa_decode(const void* q, const void* k, const void* v,
                           const void* k_scale, const void* v_scale,
                           const void* q_sigma, const void* lengths,
                           const void* windows, void* o, void* lse,
                           void* part, void* tickets, int B, int H, int Hkv,
                           int max_n, int D, int k_type, int v_type, int qq,
-                          int q_f32, float scale, int window, int split,
+                          int p_round, float scale, int window, int split,
                           void* stream) {
   if (B == 0 || H == 0) return cudaSuccess;
   if (Hkv <= 0 || H % Hkv != 0 || max_n < 0) return cudaErrorInvalidValue;
@@ -118,11 +122,13 @@ extern "C" int cfa_decode(const void* q, const void* k, const void* v,
   a.scale = scale;
   a.window = window;
   a.d = D;
-  a.vec = vector_loads(D, q, qq ? 1 : q_f32 ? 4 : 2, k, k_type, v, v_type);
+  a.p_round = p_round;
+  a.vec = vector_loads(D, q, qq ? 1 : (int)sizeof(DecodeQ), k, k_type, v,
+                       v_type);
   if (build_dim(D) == 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = prepare_split(&a, B, max_n, split, part, tickets, st);
   if (err != cudaSuccess) return err;
-  return dispatch<Launch>(D, a.rows, k_type, v_type, qq, q_f32, a, k, v, B,
-                          max_n, st);
+  return dispatch<Launch, DecodeQ>(D, a.rows, k_type, v_type, qq, a, k, v, B,
+                                   max_n, st);
 }

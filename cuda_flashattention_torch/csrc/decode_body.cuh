@@ -41,19 +41,26 @@
 // O and LSE, and resets the ticket. No other atomic: the result does not
 // depend on the arrival order.
 
-// Query and output type QT: bf16 or fp32. Storage types, per array:
-// bf16, fp32 (under an fp32 q), int8, or fp8 e4m3 (converted by the
-// hardware's cvt, no bit surgery), the quantized ones with one fp32 scale
-// per cached token. A bf16 cache under an fp32 q (an fp32 model serving
-// over a half-size cache) widens each key and value exactly to fp32 and
-// keeps P unrounded, as the JAX body computes in q's dtype. Numerics follow the TPU body,
-// whose compute dtype is q's, or bf16 under QQ:
+// Query and output type QT: bf16, fp16 or fp32, one per translation unit
+// (decode.cu / paged.cu bf16, the *_f16.cu units fp16, the *_f32.cu units
+// fp32: DECODE_QT). Storage types, per array: bf16 or fp16 (under a q of
+// the same type, or an fp32 q), fp32 (under an fp32 q), int8, or fp8 e4m3
+// (converted by the hardware's cvt, no bit surgery), the quantized ones
+// with one fp32 scale per cached token. A 2-byte cache under an fp32 q (an
+// fp32 model serving over a half-size cache) widens each key and value
+// exactly to fp32 and keeps P unrounded, as the JAX body computes in q's
+// dtype; a bf16 or fp16 q over a cache of another float type (fp32, or the
+// other 2-byte type) runs the fp32-q build on the q upcast on the host,
+// exact, with P rounded to q's type (Args.p_round), which is what JAX's
+// promotion computes. Numerics follow the TPU body, whose compute dtype is
+// q's, or bf16 under QQ:
 //   s = (q . k_q) * scale * k_scale[j]            (fp32 sum of exact products)
 //   s = float(int32 q8 . k8) * (sigma_q*scale)[row] * k_scale[j]   under QQ,
 //       where the int8 dot runs on __dp4a and is exact
 //   p = exp(s - m); l sums the unrounded p
-//   acc += cd(p * v_scale[j]) * v_q  (cd: bf16 rounds AFTER the scale; an
-//                                     fp32 q without QQ leaves p as it is)
+//   acc += cd(p * v_scale[j]) * v_q  (cd: bf16 or fp16 rounds AFTER the
+//                                     scale; an fp32 q without QQ leaves p
+//                                     as it is, unless p_round)
 //   O = acc / l in QT, LSE = m + ln l; l = 0 gives O = 0, LSE = NEG_INF.
 // Head dims: any d from 1 to 256, run on the build D in {16, 32, 64, 128,
 // 256} that is the smallest not below d. A lane owns N = max(1, D/32)
@@ -85,9 +92,9 @@ constexpr int NTHREADS = NWARPS * 32;
 // Rows per CTA for `rows` query rows per KV head: 1, 4 or 8.
 inline int tile_rows(int rows) { return rows == 1 ? 1 : rows <= 4 ? 4 : 8; }
 
-// storage type codes of the C interface; fp32 pairs with an fp32 q only,
-// the others with either
-constexpr int kBf16 = 0, kInt8 = 1, kFp8 = 2, kF32 = 3;
+// storage type codes of the C interface: fp32 pairs with an fp32 q only,
+// bf16 (fp16) with a bf16 (fp16) or fp32 q, the one-byte codes with any
+constexpr int kBf16 = 0, kInt8 = 1, kFp8 = 2, kF32 = 3, kF16 = 4;
 
 // What both kernels are given besides their cache.
 struct Args {
@@ -109,6 +116,7 @@ struct Args {
   int* tickets;          // [row tiles], zero before the launch, or null
   int d;                 // the row width of q, o and the cache (<= D)
   int vec;               // whole-vector loads of a lane's N elements
+  int p_round;           // fp32 q only: P rounded to bf16 (1) or fp16 (2)
 };
 
 // The build a row width d runs on: the smallest of 16, 32, 64, 128 and 256
@@ -120,7 +128,7 @@ __host__ __device__ constexpr int build_dim(int d) {
 
 // Bytes of one stored element of a storage type code.
 inline int elem_bytes(int type) {
-  return type == kBf16 ? 2 : type == kF32 ? 4 : 1;
+  return type == kBf16 || type == kF16 ? 2 : type == kF32 ? 4 : 1;
 }
 
 // Whether a lane's N elements of every row may be read in one vector load:
@@ -220,6 +228,33 @@ __device__ __forceinline__ void load_vals(const __nv_bfloat16* p, float* out) {
 }
 
 template <int N>
+__device__ __forceinline__ void load_vals(const __half* p, float* out) {
+  if constexpr (N == 8) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const unsigned int w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f =
+          __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  } else if constexpr (N == 4) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const float2 fa =
+        __half22float2(*reinterpret_cast<const __half2*>(&raw.x));
+    const float2 fb =
+        __half22float2(*reinterpret_cast<const __half2*>(&raw.y));
+    out[0] = fa.x; out[1] = fa.y; out[2] = fb.x; out[3] = fb.y;
+  } else if constexpr (N == 2) {
+    const float2 fa = __half22float2(*reinterpret_cast<const __half2*>(p));
+    out[0] = fa.x; out[1] = fa.y;
+  } else {
+    out[0] = __half2float(*p);
+  }
+}
+
+template <int N>
 __device__ __forceinline__ void load_vals(const int8_t* p, float* out) {
   if constexpr (N == 8) {
     const uint2 raw = *reinterpret_cast<const uint2*>(p);
@@ -291,6 +326,9 @@ __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
+__device__ __forceinline__ void store(__half* p, float x) {
+  *p = __float2half_rn(x);
+}
 
 // The online-softmax state of one warp for the CTA's row tile.
 template <int D, typename QT, typename KT, typename VT, bool QQ, int ROWS>
@@ -301,13 +339,16 @@ struct Body {
   static constexpr bool kQuant =
       std::is_same<KT, int8_t>::value || std::is_same<KT, __nv_fp8_e4m3>::value;
   // P is rounded to the compute dtype before P.V: bf16 for a bf16 q and
-  // under QQ; an fp32 q keeps it
-  static constexpr bool kRoundP = QQ || std::is_same<QT, __nv_bfloat16>::value;
+  // under QQ, fp16 for an fp16 q; an fp32 q keeps it unless p_round says
+  // (a 2-byte q upcast)
+  static constexpr bool kF32Q = std::is_same<QT, float>::value && !QQ;
+  static constexpr bool kHalfP = !QQ && std::is_same<QT, __half>::value;
   static_assert(D == 16 || D == 32 || D == 64 || D == 128 || D == 256,
                 "head dim");
   static_assert(std::is_same<QT, float>::value ||
-                    std::is_same<QT, __nv_bfloat16>::value,
-                "q is bf16 or fp32");
+                    std::is_same<QT, __nv_bfloat16>::value ||
+                    std::is_same<QT, __half>::value,
+                "q is bf16, fp16 or fp32");
   static_assert(!QQ || std::is_same<KT, int8_t>::value,
                 "the int8 Q.K dot needs int8 keys");
   static_assert(!std::is_same<KT, float>::value ||
@@ -323,6 +364,7 @@ struct Body {
   int c0;             // this lane's first d-element
   int d;              // the row width (Args.d)
   bool vec;           // whole-vector loads (Args.vec)
+  int p_round;        // Args.p_round (fp32 q)
 
   // Whether this lane owns elements below d.
   __device__ __forceinline__ bool owns() const { return c0 < d; }
@@ -365,6 +407,7 @@ struct Body {
     c0 = lane * N;
     d = a.d;
     vec = a.vec != 0;
+    p_round = a.p_round;
     nrows = min(ROWS, a.rows - tile * ROWS);
     row0 = ((long long)b * a.Hkv + hk) * a.rows + (long long)tile * ROWS;
 #pragma unroll
@@ -439,8 +482,16 @@ struct Body {
       m[r] = m_next;
       // P weights V in the compute dtype, after the V scale is folded in
       const float pv = kQuant ? p * vs : p;
-      const float pr =
-          kRoundP ? __bfloat162float(__float2bfloat16(pv)) : pv;
+      float pr;
+      if constexpr (kF32Q) {
+        pr = p_round == 1   ? __bfloat162float(__float2bfloat16(pv))
+             : p_round == 2 ? __half2float(__float2half_rn(pv))
+                            : pv;
+      } else if constexpr (kHalfP) {
+        pr = __half2float(__float2half_rn(pv));
+      } else {
+        pr = __bfloat162float(__float2bfloat16(pv));
+      }
 #pragma unroll
       for (int c = 0; c < N; ++c) acc[r][c] = acc[r][c] * alpha + pr * vf[c];
     }
@@ -565,14 +616,18 @@ inline cudaError_t prepare_split(Args* a, int B, long long cap, int split,
                          stream);
 }
 
-// The (K, V) storage pairs and q types that are built: one type for both
-// arrays, or int8 K with fp8 V; an fp32 cache under an fp32 q, the bf16
-// and quantized ones under either; QQ on int8 K only.
-inline bool valid_types(int kt, int vt, int qq, int q_f32) {
-  const bool pair = (kt == kBf16 && vt == kBf16) ||
-                    (kt == kF32 && vt == kF32 && q_f32) ||
-                    (kt == kInt8 && vt == kInt8) ||
-                    (kt == kFp8 && vt == kFp8) || (kt == kInt8 && vt == kFp8);
+// The (K, V) storage pairs built for q type QT: one type for both arrays,
+// or int8 K with fp8 V; a float cache of q's own type, or under an fp32 q
+// any float cache; QQ on int8 K only.
+template <typename QT>
+inline bool valid_types(int kt, int vt, int qq) {
+  const bool f32q = std::is_same<QT, float>::value;
+  const int own = std::is_same<QT, __half>::value ? kF16
+                  : f32q                          ? kF32
+                                                  : kBf16;
+  const bool pair = (kt == vt && (kt == own || kt == kInt8 || kt == kFp8 ||
+                                  (f32q && (kt == kBf16 || kt == kF16)))) ||
+                    (kt == kInt8 && vt == kFp8);
   return pair && (!qq || kt == kInt8);
 }
 
@@ -586,8 +641,13 @@ cudaError_t dispatch_types(int kt, int vt, int qq, A... args) {
   using fp8 = __nv_fp8_e4m3;
   if constexpr (std::is_same<QT, float>::value) {
     if (kt == kF32) return L<D, QT, float, float, false, R>::run(args...);
+    if (kt == kF16) return L<D, QT, __half, __half, false, R>::run(args...);
+    if (kt == kBf16) return L<D, QT, bf16, bf16, false, R>::run(args...);
+  } else if constexpr (std::is_same<QT, __half>::value) {
+    if (kt == kF16) return L<D, QT, __half, __half, false, R>::run(args...);
+  } else {
+    if (kt == kBf16) return L<D, QT, bf16, bf16, false, R>::run(args...);
   }
-  if (kt == kBf16) return L<D, QT, bf16, bf16, false, R>::run(args...);
   if (kt == kFp8) return L<D, QT, fp8, fp8, false, R>::run(args...);
   if (vt == kInt8)
     return qq ? L<D, QT, int8_t, int8_t, true, R>::run(args...)
@@ -620,15 +680,23 @@ cudaError_t dispatch_dim(int d, int rows, int kt, int vt, int qq,
   }
 }
 
-// d: the row width, 1 to 256 (the build is build_dim(d)).
+// d: the row width, 1 to 256 (the build is build_dim(d)); QT: the
+// translation unit's q type.
 template <template <int, typename, typename, typename, bool, int> class L,
-          typename... A>
-cudaError_t dispatch(int d, int rows, int kt, int vt, int qq, int q_f32,
-                     A... args) {
-  if (!valid_types(kt, vt, qq, q_f32)) return cudaErrorInvalidValue;
-  if (q_f32)
-    return dispatch_dim<L, float>(d, rows, kt, vt, qq, args...);
-  return dispatch_dim<L, __nv_bfloat16>(d, rows, kt, vt, qq, args...);
+          typename QT, typename... A>
+cudaError_t dispatch(int d, int rows, int kt, int vt, int qq, A... args) {
+  if (!valid_types<QT>(kt, vt, qq)) return cudaErrorInvalidValue;
+  return dispatch_dim<L, QT>(d, rows, kt, vt, qq, args...);
 }
+
+// The q type of this translation unit (decode.cu, paged.cu: bf16; the
+// *_f16.cu units fp16, the *_f32.cu units fp32).
+#if defined(CFA_DECODE_F32)
+typedef float DecodeQ;
+#elif defined(CFA_DECODE_F16)
+typedef __half DecodeQ;
+#else
+typedef __nv_bfloat16 DecodeQ;
+#endif
 
 }  // namespace cfa_decode_body

@@ -119,6 +119,7 @@
 namespace {
 
 using cfa_bound::bf16;
+using cfa_bound::kHalf;
 using cfa_bound::fence_proxy_async;
 using cfa_bound::fence_regs;
 using cfa_bound::make_desc;
@@ -259,7 +260,7 @@ __device__ __forceinline__ void wgmma_ss_bf16_bmn(float (&d)[32], uint64_t da,
                                                   int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " CFA_REGS32
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." CFA_AB " " CFA_REGS32
       ", %32, %33, p, 1, 1, 0, 1;\n}\n"
       : CFA_D32(d)
       : "l"(da), "l"(db), "r"(accumulate));
@@ -612,20 +613,38 @@ cudaError_t launch_d(const RingTable& t, int n, int n_local, int L, int D,
                                             device, s);
 }
 
-// launch<D, SYS, F32> for run-time D, sys and f32.
+// launch<D, SYS, F32> for run-time D, sys and f32 (a template, so that the
+// fp16 unit does not instantiate the fp32 builds).
+template <int = 0>
 cudaError_t launch_any(const RingTable& t, int n, int n_local, int L, int D,
                        int grid, unsigned long long epoch, int sys, int f32,
                        int device, cudaStream_t s) {
-  if (f32) {
-    return sys ? launch_d<true, true>(t, n, n_local, L, D, grid, epoch,
-                                      device, s)
-               : launch_d<false, true>(t, n, n_local, L, D, grid, epoch,
-                                       device, s);
+  if constexpr (!kHalf) {  // the fp32 builds: the bf16 unit only
+    if (f32) {
+      return sys ? launch_d<true, true>(t, n, n_local, L, D, grid, epoch,
+                                        device, s)
+                 : launch_d<false, true>(t, n, n_local, L, D, grid, epoch,
+                                         device, s);
+    }
   }
   return sys ? launch_d<true, false>(t, n, n_local, L, D, grid, epoch,
                                      device, s)
              : launch_d<false, false>(t, n, n_local, L, D, grid, epoch,
                                       device, s);
+}
+
+// resident_for<SYS, F32> for run-time sys and f32 (a template, as
+// launch_any).
+template <int = 0>
+cudaError_t resident_any(int D, int sys, int f32, int device, int* out) {
+  if constexpr (!kHalf) {
+    if (f32) {
+      return sys ? resident_for<true, true>(D, device, out)
+                 : resident_for<false, true>(D, device, out);
+    }
+  }
+  return sys ? resident_for<true, false>(D, device, out)
+             : resident_for<false, false>(D, device, out);
 }
 
 // Runs f with `device` current, restoring the caller's card only where it
@@ -648,22 +667,18 @@ cudaError_t on_device(int device, F f) {
 // Spans (CTAs, or at D = 256 in fp32 pairs of CTAs, one per column half)
 // of the (D, sys, f32) build that card `device` holds at once. The ring's
 // common grid is the least, over its cards, of this over the card's ranks.
-extern "C" int cfa_device_ring_resident(int D, int sys, int f32, int device,
-                                        int* out) {
+extern "C" int cfa_device_ring_resident(int D, int sys, int f32,
+                                                   int device, int* out) {
   if (D != 64 && D != 128 && D != 256) return cudaErrorInvalidValue;
-  return on_device(device, [&]() {
-    if (f32) {
-      return sys ? resident_for<true, true>(D, device, out)
-                 : resident_for<false, true>(D, device, out);
-    }
-    return sys ? resident_for<true, false>(D, device, out)
-               : resident_for<false, false>(D, device, out);
-  });
+  if (kHalf && f32) return cudaErrorInvalidValue;
+  return on_device(device,
+                   [&]() { return resident_any(D, sys, f32, device, out); });
 }
 
-// x, w, out: this launch's shards [n_local, L, D] and W [D, D], bf16 (fp32
-// under f32), and o [n_local, L, D] fp32, all on card `device`; buf, flags:
-// n_shards device pointers each (per rank: its tile images [2, L, D] bf16,
+// x, w, out: this launch's shards [n_local, L, D] and W [D, D], bf16 (fp16
+// in the fp16 unit, cfa_device_ring_f16; fp32 under f32, bf16 unit only),
+// and o [n_local, L, D] fp32, all on card `device`; buf, flags: n_shards
+// device pointers each (per rank: its tile images [2, L, D] bf16,
 // [2, 2·L, D] under f32 (hi and lo images), at D = 256 under f32 [2, 2, 2·L,
 // D] (one double buffer per column half); its 64-bit flag words [grid,
 // 4] ([2·grid, 4] there), zeroed once when allocated); local: the n_local
@@ -682,7 +697,8 @@ extern "C" int cfa_device_ring(const void* x, const void* w, void* out,
   if (n_shards < 1 || n_shards > MAX_RANKS || n_local < 1 ||
       n_local > n_shards || L < BM || L % BM != 0 ||
       (D != 64 && D != 128 && D != 256) ||
-      grid < 1 || grid > L / BM || epoch < 1 || epoch >= (1ull << 32)) {
+      grid < 1 || grid > L / BM || epoch < 1 || epoch >= (1ull << 32) ||
+      (kHalf && f32)) {
     return cudaErrorInvalidValue;
   }
   // the count round·n + step stays below 2^32

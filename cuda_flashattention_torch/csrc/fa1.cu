@@ -100,13 +100,15 @@ __device__ __forceinline__ void scores(const Args& a, const Rows& r,
   }
 }
 
-// p = 2^(s − m) (0 where masked) into P, bf16 pairs (F32: split, P = p +
-// p_lo); each row's sum of the unrounded p added to sum.
+// p = 2^(s − m) (0 where masked) into P, 2-byte pairs (F32: split, P = p +
+// p_lo, p first rounded by p_round, round_to's code); each row's sum of the
+// unrounded p added to sum.
 template <bool F32, int KN>
 __device__ __forceinline__ void probs(const float (&s)[KN / 2],
                                       const float (&m)[2], float (&sum)[2],
                                       uint32_t (&p)[KN / 4],
-                                      uint32_t (&p_lo)[KN / 4]) {
+                                      uint32_t (&p_lo)[KN / 4],
+                                      int p_round) {
 #pragma unroll
   for (int i = 0; i < KN / 2; i += 2) {
     float pr[2];
@@ -118,10 +120,9 @@ __device__ __forceinline__ void probs(const float (&s)[KN / 2],
       sum[hr] += pr[e];
     }
     if (F32) {
-      split2(pr[0], pr[1], p[i >> 1], p_lo[i >> 1]);
+      split2r(pr[0], pr[1], p_round, p[i >> 1], p_lo[i >> 1]);
     } else {
-      __nv_bfloat162 pair = __floats2bfloat162_rn(pr[0], pr[1]);
-      p[i >> 1] = *reinterpret_cast<uint32_t*>(&pair);
+      p[i >> 1] = pack2(pr[0], pr[1]);
     }
   }
 }
@@ -284,7 +285,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
           scores<true, KN>(a, r, s, t * KN, unused);
         }
         uint32_t p[KN / 4], p_lo[KN / 4];  // under F32 P = p + p_lo
-        probs<F32, KN>(s, m_new, sum, p, p_lo);
+        probs<F32, KN>(s, m_new, sum, p, p_lo, f.round[0]);
         pv<D, F32, false, KN>(acc, p, kt + L::v_off, p_lo);
         if (lane == 0) mbar_arrive(empty + 8 * st);
       }
@@ -300,7 +301,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       }
       scale_acc<D>(acc, inv);
     }
-    // O in bf16 (F32: fp32); rows past Nq are not written
+    // O in the element type (F32: fp32); rows past Nq are not written
 #pragma unroll
     for (int sl = 0; sl < D / 64; ++sl) {
 #pragma unroll
@@ -314,9 +315,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                                      col) = make_float2(acc[sl][j],
                                                         acc[sl][j + 1]);
         } else {
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.o) +
-                                             row * D + col) =
-              __floats2bfloat162_rn(acc[sl][j], acc[sl][j + 1]);
+          *reinterpret_cast<uint32_t*>(static_cast<elem*>(a.o) + row * D +
+                                       col) =
+              pack2(acc[sl][j], acc[sl][j + 1]);
         }
       }
     }
@@ -336,9 +337,21 @@ cudaError_t launch(const Maps& mp, const Args& a, int B, int n_sub,
   return cudaGetLastError();
 }
 
+// The 2-byte build, or (the bf16 unit only) the fp32 one.
+template <int D>
+cudaError_t launch_type(const Maps& mp, const Args& a, int B, int n_sub,
+                        const F32Src& f, int f32, cudaStream_t stream) {
+  if constexpr (!kHalf) {
+    if (f32) return launch<D, true>(mp, a, B, n_sub, f, stream);
+  }
+  return launch<D, false>(mp, a, B, n_sub, f, stream);
+}
+
 }  // namespace
 
-// q/k/v [B, H, N, D] bf16 (fp32 under f32) with unit stride on D and
+// q/k/v [B, H, N, D] bf16 (fp16 in the fp16 unit, cfa_fa1_f16; fp32 under
+// f32, 2 / 3 with P rounded to bf16 / fp16 before P·V: a mixed-type call
+// upcast, JAX's P in v's type) with unit stride on D and
 // 16-byte aligned rows; `strides` holds the (batch, head, row) strides of
 // q, k and v in elements; o [B, H, Nq, D] contiguous, bf16 (fp32 under
 // f32). A renormalising block is n_sub (1..4) tiles of 64 keys. D: 64,
@@ -349,6 +362,7 @@ extern "C" int cfa_fa1(const void* q, const void* k, const void* v, void* o,
                        int f32, void* stream) {
   if (B == 0 || H == 0 || Nq == 0) return cudaSuccess;
   if (n_sub < 1 || n_sub > MAX_SUB) return cudaErrorInvalidValue;
+  if (f32 < 0 || f32 > 3 || (kHalf && f32)) return cudaErrorInvalidValue;
   Args a = {};
   a.o = o;
   a.H = H; a.Hkv = H; a.Nq = Nq; a.Nk = Nk;
@@ -360,7 +374,7 @@ extern "C" int cfa_fa1(const void* q, const void* k, const void* v, void* o,
   if (f32) {
     void* const ptrs[3] = {const_cast<void*>(q), const_cast<void*>(k),
                            const_cast<void*>(v)};
-    fs = f32_src(ptrs, strides);
+    fs = f32_src(ptrs, strides, f32);
   } else if (!make_maps(&mp, q, k, v, B, H, H, Nq, Nk, D, strides, kBf16,
                         kBf16, 0, 1, BM)) {
     return cudaErrorInvalidValue;
@@ -368,14 +382,11 @@ extern "C" int cfa_fa1(const void* q, const void* k, const void* v, void* o,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return f32 ? launch<64, true>(mp, a, B, n_sub, fs, s)
-                 : launch<64, false>(mp, a, B, n_sub, fs, s);
+      return launch_type<64>(mp, a, B, n_sub, fs, f32, s);
     case 128:
-      return f32 ? launch<128, true>(mp, a, B, n_sub, fs, s)
-                 : launch<128, false>(mp, a, B, n_sub, fs, s);
+      return launch_type<128>(mp, a, B, n_sub, fs, f32, s);
     case 256:
-      return f32 ? launch<256, true>(mp, a, B, n_sub, fs, s)
-                 : launch<256, false>(mp, a, B, n_sub, fs, s);
+      return launch_type<256>(mp, a, B, n_sub, fs, f32, s);
     default:
       return cudaErrorInvalidValue;
   }

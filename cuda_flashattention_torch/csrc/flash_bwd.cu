@@ -93,6 +93,10 @@ namespace {
 
 using cfa_bound::align1k;
 using cfa_bound::bf16;
+using cfa_bound::elem;
+using cfa_bound::kHalf;
+using cfa_bound::pack2;
+using cfa_bound::split2r;
 using cfa_bound::copy_after_wait;
 using cfa_bound::F32Src;
 using cfa_bound::fence_proxy_async;
@@ -511,18 +515,17 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       float dp[NS];
       copy_after_wait(dp, dp_acc);
 
-      // dS = P ⊙ (dP − D)·scale, rounded to bf16 in wgmma's A layout
-      // (F32: split, dS = dsk + dsk_lo)
+      // dS = P ⊙ (dP − D)·scale, rounded to the element type in wgmma's A
+      // layout (F32: split, dS = dsk + dsk_lo, first rounded by f.round[1])
 #pragma unroll
       for (int j = 0; j < NS; j += 2) {
         const int hr = (j >> 1) & 1;
         const float ds0 = p[j] * (dp[j] - dl[hr]) * a.scale;
         const float ds1 = p[j + 1] * (dp[j + 1] - dl[hr]) * a.scale;
         if (F32) {
-          split2(ds0, ds1, dsk[j >> 1], dsk_lo[j >> 1]);
+          split2r(ds0, ds1, f.round[1], dsk[j >> 1], dsk_lo[j >> 1]);
         } else {
-          __nv_bfloat162 pair = __floats2bfloat162_rn(ds0, ds1);
-          dsk[j >> 1] = *reinterpret_cast<uint32_t*>(&pair);
+          dsk[j >> 1] = pack2(ds0, ds1);
         }
       }
       // dQ += dS·K, left in flight under the next tile's S and dP
@@ -558,9 +561,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         *reinterpret_cast<float2*>(static_cast<float*>(a.dq) + row * D +
                                    col) = make_float2(dq[sl][j], dq[sl][j + 1]);
       } else {
-        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.dq) +
-                                           row * D + col) =
-            __floats2bfloat162_rn(dq[sl][j], dq[sl][j + 1]);
+        *reinterpret_cast<uint32_t*>(static_cast<elem*>(a.dq) + row * D +
+                                     col) = pack2(dq[sl][j], dq[sl][j + 1]);
       }
     }
   }
@@ -586,9 +588,23 @@ cudaError_t launch_form(const CUtensorMap (&m)[4], const DqArgs& a,
                             : launch<D, false, F32>(m, a, f, B, stream);
 }
 
+// The 2-byte build, or (the bf16 unit only) the fp32 one.
+template <int D>
+cudaError_t launch_type(const CUtensorMap (&m)[4], const DqArgs& a,
+                        const F32Src& f, int f32, int B, cudaStream_t stream) {
+  if constexpr (!kHalf) {
+    if (f32) return launch_form<D, true>(m, a, f, B, stream);
+  }
+  return launch_form<D, false>(m, a, f, B, stream);
+}
+
 }  // namespace
 
-// K3. f32: q, k, v, dO and dq fp32 (the F32 build), else bf16. strides: q,
+// K3. f32: q, k, v, dO and dq fp32 (the F32 build), else bf16 (fp16 in
+// the fp16 unit, cfa_flash_bwd_q_f16, which takes f32 = 0 only); f32 = 1 +
+// 3·r_ds rounds dS before dQ = dS·K by round_to's code r_ds (a mixed-type
+// call's upcast operands: dS to k's type; K2 / K4's packing of the codes,
+// whose P code K3 ignores). strides: q,
 // k, v, dO, each (batch, head, row), in elements, every one a multiple of
 // 16 bytes' elements and the bases 16-byte aligned (TMA; fp32 rows are
 // read as float4). q_seg [B, Nq] and kv_seg [B, Nk] are int32 segment ids,
@@ -604,6 +620,7 @@ extern "C" int cfa_flash_bwd_q(const void* q, const void* k, const void* v,
                                void* stream) {
   if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
   if ((q_seg == nullptr) != (kv_seg == nullptr)) return cudaErrorInvalidValue;
+  if (f32 < 0 || f32 > 9 || (kHalf && f32)) return cudaErrorInvalidValue;
   if (B == 0 || H == 0 || Nq == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Nk == 0) {
@@ -636,6 +653,7 @@ extern "C" int cfa_flash_bwd_q(const void* q, const void* k, const void* v,
   F32Src f = {};
   const long long* sd = strides + 9;
   if (f32) {
+    f.round[1] = (f32 - 1) / 3;
     const void* ptr[4] = {q, k, v, dout};
     for (int t = 0; t < 4; ++t) {
       f.p[t] = static_cast<const float*>(ptr[t]);
@@ -653,14 +671,11 @@ extern "C" int cfa_flash_bwd_q(const void* q, const void* k, const void* v,
   m[2] = mp.v;
   switch (D) {
     case 64:
-      return f32 ? launch_form<64, true>(m, a, f, B, st)
-                 : launch_form<64, false>(m, a, f, B, st);
+      return launch_type<64>(m, a, f, f32, B, st);
     case 128:
-      return f32 ? launch_form<128, true>(m, a, f, B, st)
-                 : launch_form<128, false>(m, a, f, B, st);
+      return launch_type<128>(m, a, f, f32, B, st);
     case 256:
-      return f32 ? launch_form<256, true>(m, a, f, B, st)
-                 : launch_form<256, false>(m, a, f, B, st);
+      return launch_type<256>(m, a, f, f32, B, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -130,6 +130,10 @@
 namespace {
 
 using cfa_bound::bf16;
+using cfa_bound::elem;
+using cfa_bound::kHalf;
+using cfa_bound::pack2;
+using cfa_bound::split2r;
 using cfa_bound::consumer_sync;
 using cfa_bound::copy_after_wait;
 using cfa_bound::fence_proxy_async;
@@ -225,7 +229,7 @@ __device__ __forceinline__ void wgmma_ss_bf16_tb(float (&d)[32], uint64_t da,
                                                  uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " CFA_REGS32
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." CFA_AB " " CFA_REGS32
       ", %32, %33, p, 1, 1, 0, 1;\n}\n"
       : CFA_D32(d)
       : "l"(da), "l"(db), "r"(accumulate));
@@ -239,7 +243,7 @@ __device__ __forceinline__ void wgmma_ss_bf16_n32_ta(float (&d)[16],
                                                      int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " CFA_REGS16
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." CFA_AB " " CFA_REGS16
       ", %16, %17, p, 1, 1, 1, 0;\n}\n"
       : CFA_D16(d)
       : "l"(da), "l"(db), "r"(accumulate));
@@ -437,8 +441,8 @@ __device__ __forceinline__ void store_kv(void* out, const float (&acc)[NS][32],
         *reinterpret_cast<float2*>(static_cast<float*>(out) + at) =
             make_float2(acc[sl][i], acc[sl][i + 1]);
       } else {
-        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + at) =
-            __floats2bfloat162_rn(acc[sl][i], acc[sl][i + 1]);
+        *reinterpret_cast<uint32_t*>(static_cast<elem*>(out) + at) =
+            pack2(acc[sl][i], acc[sl][i + 1]);
       }
     }
   }
@@ -567,12 +571,9 @@ __device__ __forceinline__ void wide_consumer(const BwdArgs& a, uint8_t* smem,
       for (int j = 0; j < 16; j += 2) {
         const int col = qc + 8 * (j >> 2) + 2 * (lane & 3);
         const float2 dl = *reinterpret_cast<const float2*>(rows + BQ + col);
-        __nv_bfloat162 pp = __floats2bfloat162_rn(p[j], p[j + 1]);
-        __nv_bfloat162 dd = __floats2bfloat162_rn(
-            p[j] * (dp[j] - dl.x) * a.scale,
-            p[j + 1] * (dp[j + 1] - dl.y) * a.scale);
-        pk[j >> 1] = *reinterpret_cast<uint32_t*>(&pp);
-        dsk[j >> 1] = *reinterpret_cast<uint32_t*>(&dd);
+        pk[j >> 1] = pack2(p[j], p[j + 1]);
+        dsk[j >> 1] = pack2(p[j] * (dp[j] - dl.x) * a.scale,
+                            p[j + 1] * (dp[j + 1] - dl.y) * a.scale);
       }
       // the tiles are free once both warpgroups' products of the previous
       // pair have landed
@@ -690,7 +691,8 @@ __device__ __forceinline__ void kq16_issue_f32(float (&s)[8], uint32_t k,
 template <bool FUSED, bool SEG>
 __device__ __forceinline__ void wide_f32_consumer(
     const BwdArgs& a, uint8_t* smem, uint32_t full, uint32_t empty,
-    uint32_t kv_bar, int c0, int hk, int b, int G, int first, int per_head) {
+    uint32_t kv_bar, int c0, int hk, int b, int G, int first, int per_head,
+    const F32Src& f) {
   using L = Layout<256, FUSED, true>;
   static_assert(L::NST == 1 && L::QR == 32, "one stage of 32 rows");
   constexpr int QR = L::QR;
@@ -766,10 +768,10 @@ __device__ __forceinline__ void wide_f32_consumer(
       for (int j = 0; j < 8; j += 2) {
         const int col = qc + 8 * (j >> 2) + 2 * (lane & 3);
         const float2 dl = *reinterpret_cast<const float2*>(rows + QR + col);
-        split2(p[j], p[j + 1], pk[j >> 1], pk_lo[j >> 1]);
-        split2(p[j] * (dp[j] - dl.x) * a.scale,
-               p[j + 1] * (dp[j + 1] - dl.y) * a.scale, dsk[j >> 1],
-               dsk_lo[j >> 1]);
+        split2r(p[j], p[j + 1], f.round[0], pk[j >> 1], pk_lo[j >> 1]);
+        split2r(p[j] * (dp[j] - dl.x) * a.scale,
+                p[j + 1] * (dp[j + 1] - dl.y) * a.scale, f.round[1],
+                dsk[j >> 1], dsk_lo[j >> 1]);
       }
       // the tiles are free once both warpgroups' products of the previous
       // pair have landed
@@ -1005,7 +1007,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
   if constexpr (L::WIDE && F32) {
     wide_f32_consumer<FUSED, SEG>(a, smem, full, empty, kv_bar, c0, hk, b, G,
-                                  first, per_head);
+                                  first, per_head, f);
     return;
   } else if constexpr (L::WIDE) {
     wide_consumer<FUSED, SEG>(a, smem, full, empty, kv_bar, c0, hk, b, G,
@@ -1085,13 +1087,11 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         const float ds0 = p[j] * (dp[j] - dl.x) * a.scale;
         const float ds1 = p[j + 1] * (dp[j + 1] - dl.y) * a.scale;
         if (F32) {
-          split2(p[j], p[j + 1], pk[j >> 1], pk_lo[j >> 1]);
-          split2(ds0, ds1, dsk[j >> 1], dsk_lo[j >> 1]);
+          split2r(p[j], p[j + 1], f.round[0], pk[j >> 1], pk_lo[j >> 1]);
+          split2r(ds0, ds1, f.round[1], dsk[j >> 1], dsk_lo[j >> 1]);
         } else {
-          __nv_bfloat162 pp = __floats2bfloat162_rn(p[j], p[j + 1]);
-          __nv_bfloat162 dd = __floats2bfloat162_rn(ds0, ds1);
-          pk[j >> 1] = *reinterpret_cast<uint32_t*>(&pp);
-          dsk[j >> 1] = *reinterpret_cast<uint32_t*>(&dd);
+          pk[j >> 1] = pack2(p[j], p[j + 1]);
+          dsk[j >> 1] = pack2(ds0, ds1);
         }
       }
       const uint32_t ds_tile =
@@ -1223,10 +1223,24 @@ cudaError_t launch_form(const CUtensorMap (&m)[5], const BwdArgs& a,
                : launch<D, false, false, F32>(m, a, f, stream);
 }
 
+// The 2-byte build, or (the bf16 unit only) the fp32 one.
+template <int D>
+cudaError_t launch_type(const CUtensorMap (&m)[5], const BwdArgs& a,
+                        const F32Src& f, int f32, cudaStream_t stream) {
+  if constexpr (!kHalf) {
+    if (f32) return launch_form<D, true>(m, a, f, stream);
+  }
+  return launch_form<D, false>(m, a, f, stream);
+}
+
 }  // namespace
 
 // K2 when dq_acc is null, else K4 (which also adds dQ into dq_acc).
-// f32: q, k, v, dO (and dk, dv) fp32, else bf16. strides: q, k, v, dO,
+// f32: q, k, v, dO (and dk, dv) fp32, else bf16 (fp16 in the fp16 unit,
+// cfa_flash_bwd_kv_f16, which takes f32 = 0 only); f32 = 1 + r_p + 3·r_ds
+// rounds P before dV and dS before dK (and K4's dQ) by round_to's codes
+// r_p, r_ds (a mixed-type call's upcast operands: P to dO's type, dS to
+// q's). strides: q, k, v, dO,
 // each (batch, head, row), in elements, every one a multiple of 16 bytes'
 // elements and the bases 16-byte aligned (TMA; fp32 rows are read as
 // float4). q_seg [B, Nq] and kv_seg [B, Nk] are int32 segment ids, or both
@@ -1242,6 +1256,7 @@ extern "C" int cfa_flash_bwd_kv(const void* q, const void* k, const void* v,
                                 int kv_offset, int f32, void* stream) {
   if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
   if ((q_seg == nullptr) != (kv_seg == nullptr)) return cudaErrorInvalidValue;
+  if (f32 < 0 || f32 > 9 || (kHalf && f32)) return cudaErrorInvalidValue;
   if (B == 0 || Nk == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (H == 0 || Nq == 0) {
@@ -1275,6 +1290,10 @@ extern "C" int cfa_flash_bwd_kv(const void* q, const void* k, const void* v,
   const int rows[4] = {Nq, Nk, Nk, Nq};
   const int kb = D == 256 ? BK_WIDE : BK;
   const int box[4] = {BQ, kb, kb, BQ};
+  if (f32) {
+    f.round[0] = (f32 - 1) % 3;  // P, before dV = Pᵀ·dO
+    f.round[1] = (f32 - 1) / 3;  // dS, before dK = dSᵀ·Q (and K4's dQ)
+  }
   for (int t = 0; t < 4; ++t) {
     const long long* s = strides + 3 * t;
     if (f32) {
@@ -1306,19 +1325,17 @@ extern "C" int cfa_flash_bwd_kv(const void* q, const void* k, const void* v,
   }
   switch (D) {
     case 64:
-      return f32 ? launch_form<64, true>(m, a, f, st)
-                 : launch_form<64, false>(m, a, f, st);
+      return launch_type<64>(m, a, f, f32, st);
     case 128:
-      return f32 ? launch_form<128, true>(m, a, f, st)
-                 : launch_form<128, false>(m, a, f, st);
+      return launch_type<128>(m, a, f, f32, st);
     case 256:
-      return f32 ? launch_form<256, true>(m, a, f, st)
-                 : launch_form<256, false>(m, a, f, st);
+      return launch_type<256>(m, a, f, f32, st);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+#ifndef CFA_F16  // the prologue is built once, in the bf16 unit
 // ---------------------------------------------------------------------------
 // The backward's prologue: D and the zeroed dQ accumulator
 // ---------------------------------------------------------------------------
@@ -1349,14 +1366,27 @@ namespace {
 constexpr int kDeltaThreads = 256;
 constexpr int kDeltaRows = 4;  // rows a thread loads before it sums
 
-// 8 elements at p (bf16, or fp32 under F32) as floats; p 16-byte aligned.
-template <bool F32>
+// the prologue's type codes of O and dO
+constexpr int kDeltaBf16 = 0, kDeltaF32 = 1, kDeltaF16 = 2;
+
+// 8 elements at p (of type code T) as floats; p 16-byte aligned.
+template <int T>
 __device__ __forceinline__ void load8(const void* p, float (&x)[8]) {
-  if (F32) {
+  if constexpr (T == kDeltaF32) {
     const float4 a = __ldg(static_cast<const float4*>(p));
     const float4 b = __ldg(static_cast<const float4*>(p) + 1);
     x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
     x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+  } else if constexpr (T == kDeltaF16) {
+    const uint4 w = __ldg(static_cast<const uint4*>(p));
+    const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f =
+          __half22float2(*reinterpret_cast<const __half2*>(&u[i]));
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
   } else {
     const uint4 w = __ldg(static_cast<const uint4*>(p));
     const uint32_t u[4] = {w.x, w.y, w.z, w.w};
@@ -1373,7 +1403,7 @@ struct DeltaStrides {
   long long o[3], d[3];
 };
 
-template <int D, bool O32, bool DO32>
+template <int D, int OT, int DT>
 __global__ void __launch_bounds__(kDeltaThreads)
     bwd_delta_kernel(const void* __restrict__ o, const void* __restrict__ dout,
                      float* __restrict__ delta, float* __restrict__ dq_acc,
@@ -1392,8 +1422,11 @@ __global__ void __launch_bounds__(kDeltaThreads)
       const int h = (int)(r / Nq % H), i = (int)(r % Nq);
       const long long oo = b * st.o[0] + h * st.o[1] + i * st.o[2] + part * 8;
       const long long od = b * st.d[0] + h * st.d[1] + i * st.d[2] + part * 8;
-      load8<O32>(static_cast<const char*>(o) + oo * (O32 ? 4 : 2), x[u]);
-      load8<DO32>(static_cast<const char*>(dout) + od * (DO32 ? 4 : 2), y[u]);
+      load8<OT>(static_cast<const char*>(o) + oo * (OT == kDeltaF32 ? 4 : 2),
+                x[u]);
+      load8<DT>(static_cast<const char*>(dout) +
+                    od * (DT == kDeltaF32 ? 4 : 2),
+                y[u]);
     } else {
 #pragma unroll
       for (int e = 0; e < 8; ++e) x[u][e] = y[u][e] = 0.f;
@@ -1422,48 +1455,71 @@ __global__ void __launch_bounds__(kDeltaThreads)
   }
 }
 
-template <int D, bool O32, bool DO32>
+template <int D, int OT, int DT>
 cudaError_t launch_delta(const void* o, const void* dout, float* delta,
                          float* dq_acc, long long rows, int H, int Nq,
                          const DeltaStrides& st, cudaStream_t stream) {
   constexpr long long per_block = kDeltaThreads / (D / 8) * kDeltaRows;
   const long long blocks = (rows + per_block - 1) / per_block;
-  bwd_delta_kernel<D, O32, DO32><<<(unsigned)blocks, kDeltaThreads, 0,
-                                   stream>>>(o, dout, delta, dq_acc, rows, H,
-                                             Nq, st);
+  bwd_delta_kernel<D, OT, DT><<<(unsigned)blocks, kDeltaThreads, 0,
+                                stream>>>(o, dout, delta, dq_acc, rows, H, Nq,
+                                          st);
   return cudaGetLastError();
+}
+
+template <int D, int OT>
+cudaError_t launch_delta_do(const void* o, const void* dout, float* delta,
+                            float* dq_acc, long long rows, int H, int Nq,
+                            const DeltaStrides& st, int do_type,
+                            cudaStream_t s) {
+  switch (do_type) {
+    case kDeltaF32:
+      return launch_delta<D, OT, kDeltaF32>(o, dout, delta, dq_acc, rows, H,
+                                            Nq, st, s);
+    case kDeltaF16:
+      return launch_delta<D, OT, kDeltaF16>(o, dout, delta, dq_acc, rows, H,
+                                            Nq, st, s);
+    default:
+      return launch_delta<D, OT, kDeltaBf16>(o, dout, delta, dq_acc, rows, H,
+                                             Nq, st, s);
+  }
 }
 
 template <int D>
 cudaError_t launch_delta_types(const void* o, const void* dout, float* delta,
                                float* dq_acc, long long rows, int H, int Nq,
-                               const DeltaStrides& st, int o_f32, int do_f32,
+                               const DeltaStrides& st, int o_type, int do_type,
                                cudaStream_t s) {
-  if (o_f32) {
-    return do_f32 ? launch_delta<D, true, true>(o, dout, delta, dq_acc, rows,
-                                                H, Nq, st, s)
-                  : launch_delta<D, true, false>(o, dout, delta, dq_acc, rows,
-                                                 H, Nq, st, s);
+  switch (o_type) {
+    case kDeltaF32:
+      return launch_delta_do<D, kDeltaF32>(o, dout, delta, dq_acc, rows, H,
+                                           Nq, st, do_type, s);
+    case kDeltaF16:
+      return launch_delta_do<D, kDeltaF16>(o, dout, delta, dq_acc, rows, H,
+                                           Nq, st, do_type, s);
+    default:
+      return launch_delta_do<D, kDeltaBf16>(o, dout, delta, dq_acc, rows, H,
+                                            Nq, st, do_type, s);
   }
-  return do_f32 ? launch_delta<D, false, true>(o, dout, delta, dq_acc, rows, H,
-                                               Nq, st, s)
-                : launch_delta<D, false, false>(o, dout, delta, dq_acc, rows,
-                                                H, Nq, st, s);
 }
 
 }  // namespace
 
 // The backward's prologue, before K4 (or K2 + K3): delta [B,H,Nq] fp32 =
 // rowsum(dO ⊙ O), and dq_acc [B,H,Nq,D] fp32 contiguous set to zero when it
-// is not null (K4). o, dout [B,H,Nq,D], bf16 or fp32 each (o_f32, do_f32);
+// is not null (K4). o, dout [B,H,Nq,D], each of its own type: o_type,
+// do_type 0 bf16, 1 fp32, 2 fp16;
 // strides: o then dO, each (batch, head, row), in elements, rows of unit
 // stride and 16-byte aligned.
 extern "C" int cfa_bwd_delta(const void* o, const void* dout, void* delta,
                              void* dq_acc, int B, int H, int Nq, int D,
-                             const long long* strides, int o_f32, int do_f32,
-                             void* stream) {
+                             const long long* strides, int o_type,
+                             int do_type, void* stream) {
   const long long rows = (long long)B * H * Nq;
   if (rows == 0) return cudaSuccess;
+  if (o_type < 0 || o_type > 2 || do_type < 0 || do_type > 2) {
+    return cudaErrorInvalidValue;
+  }
   DeltaStrides st;
   for (int i = 0; i < 3; ++i) {
     st.o[i] = strides[i];
@@ -1474,15 +1530,16 @@ extern "C" int cfa_bwd_delta(const void* o, const void* dout, void* delta,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch_delta_types<64>(o, dout, dl, dq, rows, H, Nq, st, o_f32,
-                                    do_f32, s);
+      return launch_delta_types<64>(o, dout, dl, dq, rows, H, Nq, st, o_type,
+                                    do_type, s);
     case 128:
-      return launch_delta_types<128>(o, dout, dl, dq, rows, H, Nq, st, o_f32,
-                                     do_f32, s);
+      return launch_delta_types<128>(o, dout, dl, dq, rows, H, Nq, st, o_type,
+                                     do_type, s);
     case 256:
-      return launch_delta_types<256>(o, dout, dl, dq, rows, H, Nq, st, o_f32,
-                                     do_f32, s);
+      return launch_delta_types<256>(o, dout, dl, dq, rows, H, Nq, st, o_type,
+                                     do_type, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
+#endif  // CFA_F16

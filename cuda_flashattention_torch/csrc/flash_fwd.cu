@@ -282,8 +282,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         if (L::NCV == 1 && i > 0) consumer_sync();
         uint8_t* cv = smem + L::cv_off + (i % L::NCV) * L::cv_stride;
         const uint8_t* raw = smem + stage_off;
-        codes_to_bf16<D, NCONSUMER>(cv, raw, a.k_type, tid);
-        codes_to_bf16<D, NCONSUMER>(cv + L::cv_v, raw + L::kvh, a.v_type,
+        codes_to_elem<D, NCONSUMER>(cv, raw, a.k_type, tid);
+        codes_to_elem<D, NCONSUMER>(cv + L::cv_v, raw + L::kvh, a.v_type,
                                     tid);
         fence_proxy_async();
         consumer_sync();
@@ -302,10 +302,12 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       const int c0 = (t_begin + i) * BN;
       if (!SEG && interior(a, c0, q0, q0 + a.R - 1)) {
         online_step<QUANT, false, false, F32>(a, r, s, ksc, vsc, kseg, qseg,
-                                              c0, m, l, alpha, pn, pn_lo);
+                                              c0, m, l, alpha, pn, pn_lo,
+                                              f.round[0]);
       } else {
         online_step<QUANT, SEG, true, F32>(a, r, s, ksc, vsc, kseg, qseg, c0,
-                                           m, l, alpha, pn, pn_lo);
+                                           m, l, alpha, pn, pn_lo,
+                                           f.round[0]);
       }
       if (QUANT && lane == 0) mbar_arrive(empty + 8 * (i % NST));
     };
@@ -341,10 +343,12 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         const int c0 = (t_begin + i) * KN;
         if (!SEG && interior<KN>(a, c0, q0, q0 + a.R - 1)) {
           online_step<QUANT, false, false, F32, KN>(
-              a, r, s, ksc, vsc, kseg, qseg, c0, m, l, alpha, p, p_lo);
+              a, r, s, ksc, vsc, kseg, qseg, c0, m, l, alpha, p, p_lo,
+              f.round[0]);
         } else {
           online_step<QUANT, SEG, true, F32, KN>(
-              a, r, s, ksc, vsc, kseg, qseg, c0, m, l, alpha, p, p_lo);
+              a, r, s, ksc, vsc, kseg, qseg, c0, m, l, alpha, p, p_lo,
+              f.round[0]);
         }
         // under QUANT the stage's codes, scales and ids are read
         if (QUANT && lane == 0) mbar_arrive(empty + 8 * (i % NST));
@@ -446,7 +450,22 @@ cudaError_t launch_form(const Maps& mp, const Args& a, const Extra& x,
                         const F32Src& f, int B, bool f32, int kn,
                         cudaStream_t stream) {
   const bool seg = x.q_seg != nullptr;
-  if constexpr (D == 256) {
+  if constexpr (kHalf) {  // the fp16 unit: 2-byte Q (the entry point checked)
+    const bool quant = a.k_type != kBf16;
+    if constexpr (D != 256) {
+      if (kn == BN2) {
+        return seg ? launch<D, false, true, false, BN2>(mp, a, x, f, B, stream)
+                   : launch<D, false, false, false, BN2>(mp, a, x, f, B,
+                                                         stream);
+      }
+    }
+    if (seg) {
+      return quant ? launch<D, true, true, false>(mp, a, x, f, B, stream)
+                   : launch<D, false, true, false>(mp, a, x, f, B, stream);
+    }
+    return quant ? launch<D, true, false, false>(mp, a, x, f, B, stream)
+                 : launch<D, false, false, false>(mp, a, x, f, B, stream);
+  } else if constexpr (D == 256) {
     // 64-key tiles, or BN32 over fp32 K/V (the entry point checked kn)
     if (f32 && a.k_type == kF32) {
       return seg ? launch<D, false, true, true, BN32>(mp, a, x, f, B, stream)
@@ -507,7 +526,10 @@ cudaError_t launch_form(const Maps& mp, const Args& a, const Extra& x,
 // ([B,H,Nq,D] contiguous), lse ([B,H,Nq]). strides: q, k, v, each (batch,
 // head, row), in elements, rows 16-byte aligned. k_type/v_type: 0 bf16, 1
 // int8, 2 fp8 e4m3, 3 fp32 (K and V both bf16, both one-byte or, with an
-// fp32 Q, both fp32). q_f32: an fp32 Q (over fp32, bf16 or one-byte K/V).
+// fp32 Q, both fp32). q_f32: an fp32 Q (over fp32, bf16 or one-byte K/V),
+// 2 / 3 one whose P is rounded to bf16 / fp16 before P·V (a mixed-type
+// call's upcast operands); not in the fp16 unit (cfa_flash_fwd_f16: fp16
+// Q, storage code 0 fp16 K/V).
 // out_type: O in bf16 (0), fp32 (1) or fp16 (2). kn: keys of a tile, 64,
 // or 128 (bf16 Q and K/V at d <= 128), and 32 for an fp32 Q over fp32 K/V
 // at d = 256 (that build's only tile). D: 64, 128, or 256.
@@ -521,6 +543,7 @@ extern "C" int cfa_flash_fwd(void* const* ptrs, int B, int H, int Hkv, int Nq,
   if ((k_type == kBf16) != (v_type == kBf16)) return cudaErrorInvalidValue;
   if ((k_type == kF32) != (v_type == kF32)) return cudaErrorInvalidValue;
   const bool f32 = q_f32 != 0;
+  if (q_f32 < 0 || q_f32 > 3 || (kHalf && f32)) return cudaErrorInvalidValue;
   if (!f32 && k_type == kF32) return cudaErrorInvalidValue;
   if (out_type < kOutBf16 || out_type > kOutF16) return cudaErrorInvalidValue;
   if (kn != key_tile(D, f32, k_type) &&
@@ -553,7 +576,7 @@ extern "C" int cfa_flash_fwd(void* const* ptrs, int B, int H, int Hkv, int Nq,
   // (one-byte K/V still come by TMA)
   Maps mp = {};
   F32Src f = {};
-  if (f32) f = f32_src(ptrs, strides);
+  if (f32) f = f32_src(ptrs, strides, q_f32);
   if (k_type != kF32 &&
       !make_maps(&mp, f32 ? nullptr : ptrs[0], ptrs[1], ptrs[2], B, H, Hkv,
                  Nq, Nk, D, strides, k_type, v_type, 0, a.Gp, a.R, kn)) {
@@ -572,6 +595,8 @@ extern "C" int cfa_flash_fwd(void* const* ptrs, int B, int H, int Hkv, int Nq,
   }
 }
 
+#ifndef CFA_F16
 extern "C" const char* cfa_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+#endif

@@ -226,9 +226,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         if (QQ) {
           codes_to_s8<D, NCONSUMER>(cv, raw, a.k_type, tid);
         } else {
-          codes_to_bf16<D, NCONSUMER>(cv, raw, a.k_type, tid);
+          codes_to_elem<D, NCONSUMER>(cv, raw, a.k_type, tid);
         }
-        codes_to_bf16<D, NCONSUMER>(cv + L::cv_v, raw + L::kvh, a.v_type,
+        codes_to_elem<D, NCONSUMER>(cv + L::cv_v, raw + L::kvh, a.v_type,
                                     tid);
         fence_proxy_async();
         consumer_sync();
@@ -242,10 +242,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       uint32_t p[KN / 4], p_lo[KN / 4];  // under F32 P = p + p_lo
       if (interior<KN>(a, c0, q0, q0 + a.R - 1)) {
         bound_step<QUANT, QQ, false, F32, KN>(a, r, s, ksc, vsc, c0, l, p,
-                                              p_lo);
+                                              p_lo, f.round[0]);
       } else {
         bound_step<QUANT, QQ, true, F32, KN>(a, r, s, ksc, vsc, c0, l, p,
-                                             p_lo);
+                                             p_lo, f.round[0]);
       }
       // the stage is read: its codes and scales (QUANT) or its K (bf16;
       // V is read by the P·V below, which completes before the next wait)
@@ -275,7 +275,17 @@ cudaError_t launch(const Maps& m, const Args& a, const F32Src& f, int B,
 template <int D>
 cudaError_t launch_form(const Maps& m, const Args& a, const F32Src& f, int B,
                         int qq, bool f32, int kn, cudaStream_t stream) {
-  if constexpr (D == 256) {
+  if constexpr (kHalf) {  // the fp16 unit: fp16 Q (the entry point checked)
+    if constexpr (D != 256) {
+      if (kn == BN2) {
+        return launch<D, false, false, false, BN2>(m, a, f, B, stream);
+      }
+    }
+    return a.k_type == kBf16 ? launch<D, false, false, false>(m, a, f, B,
+                                                              stream)
+                             : launch<D, true, false, false>(m, a, f, B,
+                                                             stream);
+  } else if constexpr (D == 256) {
     // 64-key tiles, or BN32 over fp32 K/V (the entry point checked kn)
     if (f32) {  // an fp32 Q over fp32, bf16 or one-byte K/V
       if (a.k_type == kF32) {
@@ -321,7 +331,9 @@ cudaError_t launch_form(const Maps& m, const Args& a, const F32Src& f, int B,
 // 16-byte aligned. k_type/v_type: 0 bf16, 1 int8, 2 fp8 e4m3, 3 fp32 (K
 // and V both bf16, both one-byte or, with an fp32 Q, both fp32). q_f32:
 // an fp32 Q (over fp32, bf16 or one-byte K/V; not with qq, whose Q is
-// int8). out_type: O in bf16 (0), fp32 (1) or fp16 (2). kn: keys of a
+// int8), 2 / 3 one whose P is rounded to bf16 / fp16 before P·V; neither
+// q_f32 nor qq in the fp16 unit (cfa_flash_fwd_bound_f16: fp16 Q, code 0
+// fp16 K/V). out_type: O in bf16 (0), fp32 (1) or fp16 (2). kn: keys of a
 // tile, 64, or 128 (bf16 Q and K/V at d <= 128), and 32 for an fp32 Q
 // over fp32 K/V at d = 256 (that build's only tile). D: 64, 128, or 256.
 extern "C" int cfa_flash_fwd_bound(void* const* ptrs, int B, int H, int Hkv,
@@ -335,6 +347,8 @@ extern "C" int cfa_flash_fwd_bound(void* const* ptrs, int B, int H, int Hkv,
   if ((k_type == kBf16) != (v_type == kBf16)) return cudaErrorInvalidValue;
   if ((k_type == kF32) != (v_type == kF32)) return cudaErrorInvalidValue;
   const bool f32 = q_f32 != 0;
+  if (q_f32 < 0 || q_f32 > 3) return cudaErrorInvalidValue;
+  if (kHalf && (f32 || qq)) return cudaErrorInvalidValue;
   if (!f32 && k_type == kF32) return cudaErrorInvalidValue;
   if (out_type < kOutBf16 || out_type > kOutF16) return cudaErrorInvalidValue;
   if (qq && (k_type == kBf16 || f32)) return cudaErrorInvalidValue;
@@ -365,7 +379,7 @@ extern "C" int cfa_flash_fwd_bound(void* const* ptrs, int B, int H, int Hkv,
   // (one-byte K/V still come by TMA)
   Maps m = {};
   F32Src f = {};
-  if (f32) f = f32_src(ptrs, strides);
+  if (f32) f = f32_src(ptrs, strides, q_f32);
   if (k_type != kF32 &&
       !make_maps(&m, f32 ? nullptr : ptrs[0], ptrs[1], ptrs[2], B, H, Hkv,
                  Nq, Nk, D, strides, k_type, v_type, qq, a.Gp, a.R, kn)) {

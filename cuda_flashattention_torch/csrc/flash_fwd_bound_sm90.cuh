@@ -83,9 +83,33 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// The 2-byte element type of a translation unit's native builds: bf16, or
+// fp16 in a unit compiled with CFA_F16 (the csrc/*_f16.cu files, each of
+// which includes its bf16 source whole). fp16 has bf16's width, so the
+// tiles, TMA boxes, swizzles and walks are the same; the wgmma operand
+// type, the packing of P (and dS) and the conversion of one-byte codes
+// change. Such a unit builds the 2-byte forms only (no fp32 builds, no
+// int8 Q: quantize_q's int8 Q runs the bf16 unit's build, which computes
+// P·V in bf16 whatever Q's type, as the JAX kernel does), has its own copy
+// of this namespace (its host helpers differ), and names its C entry
+// points with the suffix _f16 (the *_f16.cu file defines each name so).
+#ifdef CFA_F16
+#define cfa_bound cfa_bound_f16
+#define CFA_AB "f16.f16"
+#else
+#define CFA_AB "bf16.bf16"
+#endif
+
 namespace cfa_bound {
 
 typedef __nv_bfloat16 bf16;
+#ifdef CFA_F16
+typedef __half elem;
+constexpr bool kHalf = true;
+#else
+typedef __nv_bfloat16 elem;
+constexpr bool kHalf = false;
+#endif
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -249,7 +273,7 @@ __device__ __forceinline__ void wgmma_ss_bf16(float (&d)[32], uint64_t da,
                                               uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " CFA_REGS32
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." CFA_AB " " CFA_REGS32
       ", %32, %33, p, 1, 1, 0, 0;\n}\n"
       : CFA_D32(d)
       : "l"(da), "l"(db), "r"(accumulate));
@@ -269,7 +293,7 @@ __device__ __forceinline__ void wgmma_ss_bf16_n32(float (&d)[16], uint64_t da,
                                                   int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " CFA_REGS16
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." CFA_AB " " CFA_REGS16
       ", %16, %17, p, 1, 1, 0, 0;\n}\n"
       : CFA_D16(d)
       : "l"(da), "l"(db), "r"(accumulate));
@@ -283,7 +307,7 @@ __device__ __forceinline__ void wgmma_ss_bf16_n16(float (&d)[8], uint64_t da,
                                                   int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32." CFA_AB " "
       "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
@@ -314,7 +338,7 @@ __device__ __forceinline__ void wgmma_ss_bf16_n128(float (&d)[64], uint64_t da,
                                                    int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " CFA_REGS64
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." CFA_AB " " CFA_REGS64
       ", %64, %65, p, 1, 1, 0, 0;\n}\n"
       : CFA_D32(d), CFA_D32_HI(d)
       : "l"(da), "l"(db), "r"(accumulate));
@@ -338,7 +362,7 @@ __device__ __forceinline__ void wgmma_rs_bf16(float (&d)[32],
                                               uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " CFA_REGS32
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." CFA_AB " " CFA_REGS32
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : CFA_D32(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
@@ -439,6 +463,7 @@ inline bool encode4(CUtensorMap* map, const void* base, bool one_byte,
                             : CU_TENSOR_MAP_SWIZZLE_NONE;
   return fn(map,
             one_byte ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+            : kHalf  ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
             4, const_cast<void*>(base), dims, strides, box, unit,
             CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
@@ -531,8 +556,10 @@ __device__ __forceinline__ void cvt16(const uint4& raw, int type, float* out) {
 //         and one multiply by 2^120 restores the value (NaN codes, which
 //         no quantizer writes, come out as 480).
 // The values have at most 8 significant bits: a bf16 is the fp32's upper
-// half.
-__device__ __forceinline__ void codes4_to_bf16(uint32_t w, int type,
+// half. In the fp16 unit the pairs are packed by cvt (int8 codes and e4m3
+// values are fp16 values too: 11 significant bits, e4m3's least subnormal
+// 2^-9 a normal fp16).
+__device__ __forceinline__ void codes4_to_elem(uint32_t w, int type,
                                                uint32_t& lo, uint32_t& hi) {
   float f[4];
   if (type == kInt8) {
@@ -550,26 +577,34 @@ __device__ __forceinline__ void codes4_to_bf16(uint32_t w, int type,
 #pragma unroll
     for (int k = 0; k < 4; ++k) f[k] *= 0x1p120f;
   }
-  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
-  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+  if constexpr (kHalf) {
+    const __half2 a = __floats2half2_rn(f[0], f[1]);
+    const __half2 b = __floats2half2_rn(f[2], f[3]);
+    lo = *reinterpret_cast<const uint32_t*>(&a);
+    hi = *reinterpret_cast<const uint32_t*>(&b);
+  } else {
+    lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+    hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+  }
 }
 
 // A tile of 64 rows of D one-byte codes (dense, as TMA left them) into the
-// bf16 tile wgmma reads: D/64 slabs of 64 rows x 128 B, 128 B swizzled.
-// Every int8 and e4m3 value is a bf16 value: the conversion is exact.
-// NT threads share the work; tid is the thread's index among them.
+// 2-byte tile wgmma reads (bf16, or fp16 in the fp16 unit): D/64 slabs of
+// 64 rows x 128 B, 128 B swizzled. Every int8 and e4m3 value is a bf16 and
+// an fp16 value: the conversion is exact. NT threads share the work; tid
+// is the thread's index among them.
 template <int D, int NT>
-__device__ __forceinline__ void codes_to_bf16(uint8_t* dst, const uint8_t* raw,
+__device__ __forceinline__ void codes_to_elem(uint8_t* dst, const uint8_t* raw,
                                               int type, int tid) {
   constexpr int CPR = D / 16;  // 16-code chunks per row
   for (int w = tid; w < BN * CPR; w += NT) {
     const int row = w / CPR, j = w % CPR;
     const uint4 codes = *reinterpret_cast<const uint4*>(raw + row * D + j * 16);
     uint32_t h[8];
-    codes4_to_bf16(codes.x, type, h[0], h[1]);
-    codes4_to_bf16(codes.y, type, h[2], h[3]);
-    codes4_to_bf16(codes.z, type, h[4], h[5]);
-    codes4_to_bf16(codes.w, type, h[6], h[7]);
+    codes4_to_elem(codes.x, type, h[0], h[1]);
+    codes4_to_elem(codes.y, type, h[2], h[3]);
+    codes4_to_elem(codes.z, type, h[4], h[5]);
+    codes4_to_elem(codes.w, type, h[6], h[7]);
     // bf16 columns 16j .. 16j + 15: slab j / 4, chunks 2(j % 4) and + 1
     uint8_t* slab = dst + (j >> 2) * (BN * 128);
     *reinterpret_cast<uint4*>(slab + swz(row, 2 * (j & 3), 128)) =
@@ -836,6 +871,36 @@ __device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
+// Two floats rounded to the unit's element type, packed as one pair (a in
+// the low half): P and dS as the 2-byte builds' wgmma operands.
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  if constexpr (kHalf) {
+    const __half2 h = __floats2half2_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  } else {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+}
+
+// Rounding codes of the fp32 builds' mixed-type forms (F32Src::round): x
+// as it is (0), rounded to bf16 (1) or to fp16 (2). JAX computes a product
+// of two float types on exactly upcast operands, except where it first
+// casts P (or dS) to a narrower type: the fp32 builds hold the upcast
+// operands and round P (dS) to that type before they split it, which is
+// then exact (an fp16 has 11 significant bits, hi + lo hold 16).
+__device__ __forceinline__ float round_to(float x, int mode) {
+  if (mode == 1) return __bfloat162float(__float2bfloat16_rn(x));
+  if (mode == 2) return __half2float(__float2half_rn(x));
+  return x;
+}
+
+// split2 of the two values rounded first (round_to's codes).
+__device__ __forceinline__ void split2r(float a, float b, int mode,
+                                        uint32_t& hi, uint32_t& lo) {
+  split2(round_to(a, mode), round_to(b, mode), hi, lo);
+}
+
 // An fp32 tile of `rows` rows x D from device memory into its bf16 hi and
 // lo tiles as wgmma reads them: D/64 slabs of `rows` rows x 128 B, 128 B
 // swizzled as TMA lays out a bf16 tile. Tile row r is position pos0 + r %
@@ -894,13 +959,22 @@ __device__ __forceinline__ void split_rows(uint8_t* hi, uint8_t* lo, int rows,
 struct F32Src {
   const float* p[4];
   long long st[12];
+  // round_to's codes: [0] P before P·V (the forward; dV's Pᵀ·dO in the
+  // backward), [1] dS before dSᵀ·Q and dS·K (the backward). 0 where every
+  // operand was fp32; a mixed-type call upcasts its 2-byte operands and
+  // rounds where JAX rounds.
+  int round[2];
 };
 
-// A forward entry point's q, k, v pointers and their nine strides.
-inline F32Src f32_src(void* const* ptrs, const long long* strides) {
+// A forward entry point's q, k, v pointers and their nine strides; q_f32
+// is the entry points' code: 1 an fp32 Q, 2 / 3 an fp32 Q whose P is
+// rounded to bf16 / fp16 before P·V (round_to's 1 / 2).
+inline F32Src f32_src(void* const* ptrs, const long long* strides,
+                      int q_f32) {
   F32Src f = {};
   for (int i = 0; i < 3; ++i) f.p[i] = static_cast<const float*>(ptrs[i]);
   for (int i = 0; i < 9; ++i) f.st[i] = strides[i];
+  f.round[0] = q_f32 > 1 ? q_f32 - 1 : 0;
   return f;
 }
 
@@ -986,15 +1060,17 @@ __device__ __forceinline__ void scale_acc(float (&acc)[D / 64][32],
 
 // The bound step on this thread's KN / 2 scores of a tile pair (32, or 64
 // over a BN2 tile): p = 2^(s − c) (0 where masked), l += p, P = bf16(p ·
-// v_scale) packed in pairs (under F32 split: P = p + p_lo). With MASKED
-// false every pair is visible and no element is tested.
+// v_scale) packed in pairs (under F32 split: P = p + p_lo, P rounded
+// first by p_round, round_to's code). With MASKED false every pair is
+// visible and no element is tested.
 template <bool QUANT, bool QQ, bool MASKED, bool F32 = false, int KN = BN>
 __device__ __forceinline__ void bound_step(const Args& a, const Rows& r,
                                            const float (&s)[KN / 2],
                                            const float* ksc, const float* vsc,
                                            int c0, float (&l)[2],
                                            uint32_t (&p)[KN / 4],
-                                           uint32_t* p_lo = nullptr) {
+                                           uint32_t* p_lo = nullptr,
+                                           int p_round = 0) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int i = 0; i < KN / 2; i += 2) {
@@ -1026,10 +1102,9 @@ __device__ __forceinline__ void bound_step(const Args& a, const Rows& r,
       pr[e] = QUANT ? pe * vsc[col] : pe;
     }
     if (F32) {
-      split2(pr[0], pr[1], p[i >> 1], p_lo[i >> 1]);
+      split2r(pr[0], pr[1], p_round, p[i >> 1], p_lo[i >> 1]);
     } else {
-      __nv_bfloat162 pair = __floats2bfloat162_rn(pr[0], pr[1]);
-      p[i >> 1] = *reinterpret_cast<uint32_t*>(&pair);
+      p[i >> 1] = pack2(pr[0], pr[1]);
     }
   }
 }
@@ -1048,7 +1123,7 @@ __device__ __forceinline__ void online_step(
     const Args& a, const Rows& r, float (&s)[KN / 2], const float* ksc,
     const float* vsc, const int* kseg, const int (&qseg)[2], int c0,
     float (&m)[2], float (&l)[2], float (&alpha)[2], uint32_t (&p)[KN / 4],
-    uint32_t* p_lo = nullptr) {
+    uint32_t* p_lo = nullptr, int p_round = 0) {
   const int lane = threadIdx.x & 31;
   float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
@@ -1097,10 +1172,9 @@ __device__ __forceinline__ void online_step(
       pr[e] = QUANT ? pe * vsc[col] : pe;
     }
     if (F32) {
-      split2(pr[0], pr[1], p[i >> 1], p_lo[i >> 1]);
+      split2r(pr[0], pr[1], p_round, p[i >> 1], p_lo[i >> 1]);
     } else {
-      __nv_bfloat162 pair = __floats2bfloat162_rn(pr[0], pr[1]);
-      p[i >> 1] = *reinterpret_cast<uint32_t*>(&pair);
+      p[i >> 1] = pack2(pr[0], pr[1]);
     }
   }
 }

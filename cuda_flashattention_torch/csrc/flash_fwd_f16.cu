@@ -1,0 +1,5 @@
+// The fp16 unit of flash_fwd.cu: its 2-byte builds with fp16 elements
+// (flash_fwd_bound_sm90.cuh, CFA_F16), under entry points named _f16.
+#define CFA_F16 1
+#define cfa_flash_fwd cfa_flash_fwd_f16
+#include "flash_fwd.cu"

@@ -256,9 +256,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         if (QQ) {
           codes_to_s8<D, NCONSUMER>(dst, raw, a.k_type, tid);
         } else {
-          codes_to_bf16<D, NCONSUMER>(dst, raw, a.k_type, tid);
+          codes_to_elem<D, NCONSUMER>(dst, raw, a.k_type, tid);
         }
-        codes_to_bf16<D, NCONSUMER>(dst + L::tile_v, raw + T::CODES,
+        codes_to_elem<D, NCONSUMER>(dst + L::tile_v, raw + T::CODES,
                                     a.v_type, tid);
         float* sc = reinterpret_cast<float*>(smem + L::sc_off) + j * 2 * BN;
         load_scales<NCONSUMER>(sc, a, b, hk, (t_lo + j) * BN, tid);
@@ -300,10 +300,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         uint32_t p[KN / 4], p_lo[KN / 4];  // under F32 P = p + p_lo
         if (interior<KN>(a, t * KN, q0, q0 + a.R - 1)) {
           bound_step<QUANT, QQ, false, F32, KN>(a, r, s, ksc, vsc, t * KN, l,
-                                                p, p_lo);
+                                                p, p_lo, f.round[0]);
         } else {
           bound_step<QUANT, QQ, true, F32, KN>(a, r, s, ksc, vsc, t * KN, l,
-                                               p, p_lo);
+                                               p, p_lo, f.round[0]);
         }
         pv<D, F32, EXACT, KN>(acc, p, kt + L::tile_v, p_lo);
       }
@@ -355,27 +355,35 @@ cudaError_t launch(const Maps& m, const Args& a, const F32Src& f, int B,
 template <int D>
 cudaError_t launch_form(const Maps& m, const Args& a, const F32Src& f, int B,
                         int qq, bool f32, cudaStream_t stream) {
-  if (f32) {  // an fp32 Q over fp32, bf16 or one-byte K/V
-    if (a.k_type == kF32) {
-      return launch<D, false, false, true>(m, a, f, B, stream);
+  if constexpr (kHalf) {  // the fp16 unit: fp16 Q (the entry point checked)
+    return a.k_type == kBf16 ? launch<D, false, false, false>(m, a, f, B,
+                                                              stream)
+                             : launch<D, true, false, false>(m, a, f, B,
+                                                             stream);
+  } else {
+    if (f32) {  // an fp32 Q over fp32, bf16 or one-byte K/V
+      if (a.k_type == kF32) {
+        return launch<D, false, false, true>(m, a, f, B, stream);
+      }
+      if (a.k_type == kBf16) {
+        return launch<D, false, false, true, true>(m, a, f, B, stream);
+      }
+      return launch<D, true, false, true>(m, a, f, B, stream);
     }
     if (a.k_type == kBf16) {
-      return launch<D, false, false, true, true>(m, a, f, B, stream);
+      return launch<D, false, false, false>(m, a, f, B, stream);
     }
-    return launch<D, true, false, true>(m, a, f, B, stream);
+    return qq ? launch<D, true, true, false>(m, a, f, B, stream)
+              : launch<D, true, false, false>(m, a, f, B, stream);
   }
-  if (a.k_type == kBf16) {
-    return launch<D, false, false, false>(m, a, f, B, stream);
-  }
-  return qq ? launch<D, true, true, false>(m, a, f, B, stream)
-            : launch<D, true, false, false>(m, a, f, B, stream);
 }
 
 }  // namespace
 
 // K5. ptrs: q, k, v, k_scale, v_scale, q_factor, c, l_acc ([B,H,Nq] fp32,
 // zeroed), o_acc ([B,H,Nq,D] fp32, zeroed), n_loose, o, lse; the rest as
-// cfa_flash_fwd_bound's, and span: key tiles of 64 per CTA, 1 to
+// cfa_flash_fwd_bound's (q_f32's codes and the fp16 unit's
+// cfa_flash_fwd_kmajor_f16 too), and span: key tiles of 64 per CTA, 1 to
 // max_span(D, q_f32, K/V not fp32) (ops/flash_fwd.py::_KMAJOR_MAX_SPAN*);
 // its tiles are of key_tile(D, q_f32, k_type) keys (32 for an fp32 Q over
 // fp32 K/V at d = 256). D: 64, 128, or 256 (span 1).
@@ -390,6 +398,8 @@ extern "C" int cfa_flash_fwd_kmajor(void* const* ptrs, int B, int H, int Hkv,
   if ((k_type == kBf16) != (v_type == kBf16)) return cudaErrorInvalidValue;
   if ((k_type == kF32) != (v_type == kF32)) return cudaErrorInvalidValue;
   const bool f32 = q_f32 != 0;
+  if (q_f32 < 0 || q_f32 > 3) return cudaErrorInvalidValue;
+  if (kHalf && (f32 || qq)) return cudaErrorInvalidValue;
   if (!f32 && k_type == kF32) return cudaErrorInvalidValue;
   if (out_type < kOutBf16 || out_type > kOutF16) return cudaErrorInvalidValue;
   if (qq && (k_type == kBf16 || f32)) return cudaErrorInvalidValue;
@@ -423,7 +433,7 @@ extern "C" int cfa_flash_fwd_kmajor(void* const* ptrs, int B, int H, int Hkv,
   // (one-byte K/V still come by TMA)
   Maps m = {};
   F32Src f = {};
-  if (f32) f = f32_src(ptrs, strides);
+  if (f32) f = f32_src(ptrs, strides, q_f32);
   if (k_type != kF32 &&
       !make_maps(&m, f32 ? nullptr : ptrs[0], ptrs[1], ptrs[2], B, H, Hkv,
                  Nq, Nk, D, strides, k_type, v_type, qq, a.Gp, a.R)) {

@@ -103,7 +103,8 @@ struct Launch {
 // the pools lie); scale pools [n_pages, Hkv, page] fp32 or
 // null; page_table [B, max_pages] int32. The other arguments are those of
 // cfa_decode, with page·max_pages in max_n's place for the split's grid
-// and scratch.
+// and scratch (the q type as there: paged_f16.cu's cfa_paged_decode_f16,
+// paged_f32.cu's cfa_paged_decode_f32).
 extern "C" int cfa_paged_decode(const void* q, const void* k_pages,
                                 const void* v_pages, const void* k_scale,
                                 const void* v_scale, const void* q_sigma,
@@ -111,9 +112,9 @@ extern "C" int cfa_paged_decode(const void* q, const void* k_pages,
                                 const void* windows, void* o, void* lse,
                                 void* part, void* tickets, int B, int H,
                                 int Hkv, int page, int max_pages, int D,
-                                int k_type, int v_type, int qq, int q_f32,
-                                float scale, int window, int split,
-                                void* stream) {
+                                int k_type, int v_type, int qq,
+                                int p_round, float scale, int window,
+                                int split, void* stream) {
   if (B == 0 || H == 0) return cudaSuccess;
   if (Hkv <= 0 || H % Hkv != 0 || page <= 0 || max_pages < 0)
     return cudaErrorInvalidValue;
@@ -131,14 +132,16 @@ extern "C" int cfa_paged_decode(const void* q, const void* k_pages,
   a.scale = scale;
   a.window = window;
   a.d = D;
-  a.vec = vector_loads(D, q, qq ? 1 : q_f32 ? 4 : 2, k_pages, k_type, v_pages,
-                       v_type);
+  a.p_round = p_round;
+  a.vec = vector_loads(D, q, qq ? 1 : (int)sizeof(DecodeQ), k_pages, k_type,
+                       v_pages, v_type);
   if (build_dim(D) == 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = prepare_split(&a, B, (long long)page * max_pages, split,
                                   part, tickets, st);
   if (err != cudaSuccess) return err;
-  return dispatch<Launch>(D, a.rows, k_type, v_type, qq, q_f32, a, k_pages,
-                          v_pages, static_cast<const int*>(page_table), B,
-                          page, max_pages, st);
+  return dispatch<Launch, DecodeQ>(D, a.rows, k_type, v_type, qq, a, k_pages,
+                                   v_pages,
+                                   static_cast<const int*>(page_table), B,
+                                   page, max_pages, st);
 }

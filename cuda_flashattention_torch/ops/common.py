@@ -25,8 +25,8 @@ import torch
 # inf - inf = nan in the running-max updates. Empty rows report it as LSE.
 NEG_INF = -1e30
 
-# Head dims the CUDA kernels are instantiated for, by family, each in bf16
-# and fp32: the forward (K1, K1b, K5: csrc/flash_fwd*.cu); the backward
+# Head dims the CUDA kernels are instantiated for, by family, each in bf16,
+# fp16 and fp32: the forward (K1, K1b, K5: csrc/flash_fwd*.cu); the backward
 # (K2, K3, K4 and its prologue); FA1 (K8: csrc/fa1.cu); the device ring
 # (K9: csrc/device_ring.cu); decode (K6, K7: csrc/decode_body.cuh), which
 # reads any d up to its largest build in place on the next build up. The
@@ -77,11 +77,20 @@ BWD_BLOCK_Q_WIDE_F32 = 32
 # the bound softmax on the K-major walk (K5).
 ONLINE_SHORT_NQ = 5120
 
-# Operand types of the table: "bf16" (bf16 Q, K, V, dO), "fp32" (fp32
-# ones), "codes" (one-byte K/V: int8, fp8 or int8 K with fp8 V, under a
-# bf16 Q), "fp32/codes" (the same under an fp32 Q) and "fp32/bf16" (an
-# fp32 Q over bf16 K/V).
-TILE_TYPES = ("bf16", "fp32", "codes", "fp32/codes", "fp32/bf16")
+# Operand types of the table: "bf16" (bf16 Q, K, V, dO), "fp16" (fp16
+# ones: the fp16 units' builds, bf16's tiles), "fp32" (fp32 ones, and the
+# mixed float types a call upcasts to them), "codes" (one-byte K/V: int8,
+# fp8 or int8 K with fp8 V, under a bf16 Q), "fp16/codes" and "fp32/codes"
+# (the same under an fp16 or fp32 Q) and "fp32/bf16" (an fp32 Q, or an
+# fp16 one upcast, over bf16 K/V).
+TILE_TYPES = ("bf16", "fp16", "fp32", "codes", "fp16/codes", "fp32/codes",
+              "fp32/bf16")
+# the 2-byte operand types, whose builds share their tiles
+HALF_TYPES = ("bf16", "fp16")
+# round_to's codes of the fp32 builds (csrc/flash_fwd_bound_sm90.cuh): the
+# type a mixed-type call's P (or dS) is rounded to before a product, as
+# JAX rounds it; 0 for fp32, which leaves it as it is
+ROUND_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def fwd_key_tile(ty: str, d: int) -> int:
@@ -104,13 +113,15 @@ def _kmajor_tiles(spans: Dict[int, int], ty: str,
 BUILT_TILES: Dict[Tuple[str, str, int], Tuple[Tuple[int, ...],
                                               Tuple[int, ...]]] = {
     **{(kn, ty, d): ((FWD_BLOCK_Q,),
-                     (64, 128) if ty == "bf16" and d < 256
+                     (64, 128) if ty in HALF_TYPES and d < 256
                      else (fwd_key_tile(ty, d),))
        for kn in ("K1", "K1b") for ty in TILE_TYPES for d in FWD_HEAD_DIMS
        if d in FWD_F32_HEAD_DIMS or not ty.startswith("fp32")},
     **{("K5", ty, d): ((FWD_BLOCK_Q,), _kmajor_tiles(spans, ty, d))
        for ty, spans in (("bf16", KMAJOR_MAX_SPAN),
+                         ("fp16", KMAJOR_MAX_SPAN),
                          ("codes", KMAJOR_MAX_SPAN),
+                         ("fp16/codes", KMAJOR_MAX_SPAN),
                          ("fp32", KMAJOR_MAX_SPAN_F32),
                          ("fp32/codes", KMAJOR_MAX_SPAN_F32Q),
                          ("fp32/bf16", KMAJOR_MAX_SPAN_F32Q))
@@ -118,18 +129,36 @@ BUILT_TILES: Dict[Tuple[str, str, int], Tuple[Tuple[int, ...],
     **{(kn, ty, d): ((BWD_BLOCK_Q_WIDE_F32 if (ty, d) == ("fp32", 256)
                       else BWD_BLOCK_Q,),
                      (BWD_BLOCK_K_WIDE if d == 256 else BWD_BLOCK_K,))
-       for kn in ("K2", "K4") for ty in ("bf16", "fp32")
+       for kn in ("K2", "K4") for ty in ("bf16", "fp16", "fp32")
        for d in BWD_HEAD_DIMS},
 }
 
 
-def tile_type(q_dtype: torch.dtype, k_dtype: torch.dtype) -> str:
-    """The operand type of a call, as `BUILT_TILES` names it."""
-    codes = k_dtype.itemsize == 1
-    if q_dtype == torch.float32:
-        return ("fp32/codes" if codes else
-                "fp32/bf16" if k_dtype == torch.bfloat16 else "fp32")
-    return "codes" if codes else "bf16"
+def tile_type(q_dtype: torch.dtype, k_dtype: torch.dtype,
+              v_dtype: Optional[torch.dtype] = None) -> str:
+    """The operand type of a forward call, as `BUILT_TILES` names it: its
+    own 2-byte or fp32 type where Q, K and V share one; over one-byte
+    codes Q's; and where the float types differ, the fp32 builds the call
+    is upcast to (`fwd_operands`): over bf16 K/V "fp32/bf16", else
+    "fp32"."""
+    v_dtype = k_dtype if v_dtype is None else v_dtype
+    if k_dtype.itemsize == 1:
+        return {torch.float32: "fp32/codes",
+                torch.float16: "fp16/codes"}.get(q_dtype, "codes")
+    if q_dtype == k_dtype == v_dtype:
+        return {torch.float32: "fp32", torch.float16: "fp16"}.get(q_dtype,
+                                                                  "bf16")
+    return "fp32/bf16" if k_dtype == v_dtype == torch.bfloat16 else "fp32"
+
+
+def bwd_tile_type(*dtypes: torch.dtype) -> str:
+    """The operand type of a backward call (q, k, v, dO): "bf16" or
+    "fp16" where all four share it, else "fp32" (fp32 operands, and mixed
+    ones, which run the fp32 builds upcast)."""
+    if len(set(dtypes)) == 1 and dtypes[0] in (torch.bfloat16,
+                                               torch.float16):
+        return "bf16" if dtypes[0] == torch.bfloat16 else "fp16"
+    return "fp32"
 
 
 def tile_dim(kernel: str, d: int) -> Optional[int]:

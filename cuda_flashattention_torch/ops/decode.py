@@ -10,11 +10,12 @@ version of the same numerics. `split_size`, `decode_splits` and
 `warp_keys` state the kernels' partition of the context, which the paged
 kernel shares.
 
-Q may be bf16 or fp32 and the head dim any d from 1 to 256: the kernel
-reads the cache in place at its own row width on the build for the next
-of 16, 32, 64, 128 and 256 (lanes mask the columns past d). The cache may
-be bf16, fp32 (under an fp32 Q), int8, fp8 e4m3 or mixed (int8 K, fp8
-V), the quantized ones with per-token scales `k_scale`/`v_scale`
+Q may be bf16, fp16 or fp32 (one translation unit of the kernel each:
+csrc/decode.cu, decode_f16.cu, decode_f32.cu) and the head dim any d from
+1 to 256: the kernel reads the cache in place at its own row width on the
+build for the next of 16, 32, 64, 128 and 256 (lanes mask the columns
+past d). The cache may be bf16, fp16, fp32, int8, fp8 e4m3 or mixed (int8
+K, fp8 V), the quantized ones with per-token scales `k_scale`/`v_scale`
 [B,Hkv,max_N]; `window` and per-sequence `windows` restrict attention to
 the newest tokens; `quantize_q` runs Q·Kᵀ as an integer dot over an
 int8-K cache; H/Hkv may be any size. `block_k` is the kernel's split size
@@ -33,6 +34,7 @@ import torch
 
 from cuda_flashattention_torch import _build
 from cuda_flashattention_torch.ops.common import (
+    ROUND_CODES,
     DECODE_HEAD_DIMS,
     NEG_INF,
     cdiv,
@@ -43,12 +45,11 @@ from cuda_flashattention_torch.ops.common import (
 
 # storage type codes of the C interface (csrc/decode_body.cuh)
 _TYPE_CODES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2,
-               torch.float32: 3}
-# (K, V) storage pairs the kernels are instantiated for, by q's dtype: the
-# quantized ones and bf16 under either, fp32 under fp32
+               torch.float32: 3, torch.float16: 4}
 _QUANT_PAIRS = ((1, 1), (2, 2), (1, 2))
-_KERNEL_PAIRS = {torch.bfloat16: ((0, 0),) + _QUANT_PAIRS,
-                 torch.float32: ((3, 3), (0, 0)) + _QUANT_PAIRS}
+_FLOATS = (torch.bfloat16, torch.float16, torch.float32)
+# the q type of each translation unit's entry points (`_f16`, `_f32`)
+_UNITS = {torch.bfloat16: "", torch.float16: "_f16", torch.float32: "_f32"}
 
 # The split of the context shared by K6 and K7 (csrc/decode_body.cuh):
 # warps per CTA; keys per split at d = 128 (at d = 64 twice as many, so a
@@ -222,9 +223,11 @@ def decode_attention_plain(
                          q8.float().view(b, h_kv, group, d), k.float())
         s = s * (sq * scale).view(b, h_kv, group, 1)
     else:
+        # q · k on exactly upcast operands, as JAX promotes them (a
+        # quantized cache's codes are exact in any float type)
         s = torch.einsum("bhgd,bhkd->bhgk",
                          q.float().view(b, h_kv, group, d),
-                         k.to(cd).float()) * scale
+                         k.float()) * scale
     if quantized:
         s = s * k_scale.float()[:, :, None, :]
     cols = torch.arange(max_n, device=q.device)[None, :]
@@ -254,26 +257,33 @@ def decode_attention_plain(
 def kernel_inputs(q, k, v, k_scale, v_scale, windows, quantize_q, scale,
                   what: str):
     """Check and prepare what the contiguous and the paged decode kernels
-    share. Returns (q or its int8 codes, q_sigma or None, k_scale,
-    v_scale, windows int32 or None, k code, v code, qq, q_f32)."""
+    share. Returns (q or its int8 codes, q_sigma or None, k, v, k_scale,
+    v_scale, windows int32 or None, k code, v code, qq, unit, p_round):
+    `unit` the entry points' suffix of the q type they are built for ("",
+    "_f16", "_f32"), whose type O comes in, and `p_round` the fp32 unit's
+    rounding of P. A bf16 or fp16 q over a cache of its type, or over
+    one-byte codes, runs its own unit; an fp32 q the fp32 unit over any
+    float cache or the codes; a bf16 or fp16 q over another float cache
+    (fp32, or the other 2-byte type) the fp32 unit on q upcast exactly,
+    P rounded to q's type (JAX's promotion). K and V of two float types
+    are upcast to fp32 (a copy of the cache per call)."""
     d = q.shape[-1]
     if run_dim(d, DECODE_HEAD_DIMS) is None:
         raise ValueError(
             f"the CUDA {what} takes d from 1 to {max(DECODE_HEAD_DIMS)} "
             f"(read in place on the build for the next of "
             f"{DECODE_HEAD_DIMS}), got {d}")
-    if q.dtype not in _KERNEL_PAIRS:
+    if q.dtype not in _FLOATS:
         raise NotImplementedError(
-            f"the CUDA {what} takes a bf16 or fp32 q, got {q.dtype}")
+            f"the CUDA {what} takes a bf16, fp16 or fp32 q, got {q.dtype}")
     quantized = k_scale is not None
     pair = (_TYPE_CODES.get(k.dtype), _TYPE_CODES.get(v.dtype))
-    if pair not in _KERNEL_PAIRS[q.dtype] or (
-            pair in _QUANT_PAIRS) != quantized:
+    floats = k.dtype in _FLOATS and v.dtype in _FLOATS
+    if (pair in _QUANT_PAIRS) != quantized or not (quantized or floats):
         raise NotImplementedError(
-            f"the CUDA {what} takes a bf16 cache, or one in q's dtype "
-            f"({q.dtype}), without scales, or an int8, fp8 or int8-K/fp8-V "
-            f"cache with "
-            f"scales; got k {k.dtype} v {v.dtype}, scales "
+            f"the CUDA {what} takes a bf16, fp16 or fp32 cache without "
+            f"scales, or an int8, fp8 or int8-K/fp8-V cache with scales; "
+            f"got k {k.dtype} v {v.dtype}, scales "
             f"{'given' if quantized else 'absent'}")
     for name, x in (("k", k), ("v", v), ("k_scale", k_scale),
                     ("v_scale", v_scale)):
@@ -290,8 +300,14 @@ def kernel_inputs(q, k, v, k_scale, v_scale, windows, quantize_q, scale,
                 f"not match the cache {tuple(k.shape)}")
         if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
             raise ValueError("per-token scales must be fp32")
+    elif k.dtype != v.dtype:
+        k, v = k.float(), v.float()
+        pair = (_TYPE_CODES[torch.float32],) * 2
     qq = bool(quantize_q) and quantized and k.dtype == torch.int8
-    q_f32 = q.dtype == torch.float32
+    unit, p_round = _UNITS[q.dtype], 0
+    if not quantized and k.dtype != q.dtype and q.dtype != torch.float32:
+        unit, p_round = _UNITS[torch.float32], ROUND_CODES[q.dtype]
+        q = q.float()
     q_sigma = None
     if qq:
         q, sq = quantize_q_per_head(q, (-1,))
@@ -300,8 +316,12 @@ def kernel_inputs(q, k, v, k_scale, v_scale, windows, quantize_q, scale,
     if windows is not None:
         windows = windows.to(device=q.device, dtype=torch.int32).reshape(
             q.shape[0]).contiguous()
-    return (q.contiguous(), q_sigma, k_scale, v_scale, windows, *pair, qq,
-            q_f32)
+    return (q.contiguous(), q_sigma, k, v, k_scale, v_scale, windows, *pair,
+            qq, unit, p_round)
+
+
+# the O type of each unit's kernels
+UNIT_DTYPES = {u: t for t, u in _UNITS.items()}
 
 
 def optional_ptr(x: Optional[torch.Tensor]) -> Optional[int]:
@@ -315,29 +335,29 @@ def _decode_cuda(q, k, v, lengths, k_scale, v_scale, scale, window, windows,
     b, h, d = q.shape
     h_kv, max_n = k.shape[1], k.shape[2]
     out_dtype = q.dtype
-    q, q_sigma, k_scale, v_scale, windows, kt, vt, qq, q_f32 = (
+    q, q_sigma, k, v, k_scale, v_scale, windows, kt, vt, qq, unit, p_round = (
         kernel_inputs(q, k, v, k_scale, v_scale, windows, quantize_q, scale,
                       "decode"))
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     if lengths.shape != (b,):
         raise ValueError(f"lengths {tuple(lengths.shape)} != ({b},)")
-    o = torch.empty((b, h, d), dtype=out_dtype, device=q.device)
+    o = torch.empty((b, h, d), dtype=UNIT_DTYPES[unit], device=q.device)
     lse = torch.empty((b, h), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         split, part, tickets = split_scratch(b, h_kv, h // h_kv, d, max_n,
                                              q.device, block_k)
         stream = torch.cuda.current_stream().cuda_stream
-        err = _build.library().cfa_decode(
+        err = getattr(_build.library(), "cfa_decode" + unit)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             optional_ptr(k_scale), optional_ptr(v_scale),
             optional_ptr(q_sigma), lengths.data_ptr(), optional_ptr(windows),
             o.data_ptr(), lse.data_ptr(), optional_ptr(part),
             optional_ptr(tickets), b, h, h_kv, max_n, d, kt, vt, int(qq),
-            int(q_f32), resolve_scale(scale, d), int(window or 0), split,
+            p_round, resolve_scale(scale, d), int(window or 0), split,
             stream)
     _build.check(err, "decode_attention kernel launch")
     decode_attention.launches += 1
-    return o, lse
+    return o.to(out_dtype), lse
 
 
 def decode_attention(
@@ -370,11 +390,13 @@ def decode_attention(
     fp8-K or unquantized cache ignores the flag.
 
     Returns (o [B,H,d] in q's dtype, lse [B,H] fp32). On the card the
-    kernel takes a bf16 or fp32 q, any d from 1 to 256 (the cache read as
-    it lies, never copied), and a bf16
-    cache, a cache in q's dtype or an int8, fp8 or int8-K/fp8-V one; with
-    an fp32 q, P weights V unrounded (bf16 under `quantize_q`), as in the
-    JAX body, whose compute dtype is q's. `block_k`: the split size
+    kernel takes a bf16, fp16 or fp32 q, any d from 1 to 256 (the cache
+    read as it lies, never copied, but for K and V of two float types),
+    and a bf16, fp16 or fp32 cache or an int8, fp8 or int8-K/fp8-V one; P
+    weights V rounded to q's dtype (unrounded for an fp32 q; bf16 under
+    `quantize_q`), as in the JAX body, whose compute dtype is q's (a q
+    over a float cache of another type runs the fp32 build on q upcast,
+    `kernel_inputs`). `block_k`: the split size
     (module docstring; clamped to the capacity); every size gives the
     same result up to the order of the splits' merge. The count of its
     launches is `decode_attention.launches`."""

@@ -14,10 +14,11 @@ On a CUDA tensor it launches the hand-written Hopper kernel of
 csrc/fa1.cu (the forward's wgmma + TMA body: one CTA per 128-row Q tile
 streams K and V through a ring of shared-memory stages; a renormalising
 block is one to four 64-key tiles, walked twice: its row max first, then
-P and P·V), in bf16 or, for fp32 inputs, its fp32 build (each tile split
-into bf16 hi and lo parts, P unrounded; at d = 256 it walks each 64-key
-tile as two 32-key tiles, whose split K + V fits beside the split Q
-tile). On a CPU tensor it runs
+P and P·V), in bf16, in fp16 (csrc/fa1_f16.cu) or, for fp32 inputs and
+inputs of mixed float types, its fp32 build (each tile split into bf16 hi
+and lo parts, P rounded to v's type where that is narrower; at d = 256 it
+walks each 64-key tile as two 32-key tiles, whose split K + V fits beside
+the split Q tile). On a CPU tensor it runs
 `fa1_attention_plain`, which walks the same blocks in PyTorch.
 """
 
@@ -32,6 +33,7 @@ from cuda_flashattention_torch import _build
 from cuda_flashattention_torch.ops.common import (
     FA1_HEAD_DIMS,
     NEG_INF,
+    ROUND_CODES,
     cdiv,
     kernel_operand,
     pad_heads,
@@ -48,7 +50,11 @@ KERNEL_MAX_SUB = 4
 
 
 def _prescale_q(q: torch.Tensor, scale: float) -> torch.Tensor:
-    """Q · scale, rounded in Q's dtype, as the TPU host function does."""
+    """Q · scale, rounded in Q's dtype, as the TPU host function does (for
+    an fp16 Q the factor first rounded to fp16, as JAX's weakly typed
+    scalar is; `ops/flash_fwd.py::_prescale_q` says why only there)."""
+    if q.dtype == torch.float16:
+        return q * torch.tensor(scale, dtype=q.dtype)
     return (q * scale).to(q.dtype)
 
 
@@ -119,33 +125,37 @@ def _kernel_sub_tiles(nq: int, nk: int, block_q: int, block_k: int) -> int:
 def _fa1_cuda(q, k, v, scale, causal, block_q, block_k):
     b, h, nq, d = q.shape
     nk = k.shape[2]
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise NotImplementedError(
-            f"the CUDA FA1 takes bf16 or fp32 inputs, got q {q.dtype}")
-    for name, x in (("k", k), ("v", v)):
-        if x.dtype != q.dtype:
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.dtype not in ROUND_CODES:
             raise NotImplementedError(
-                f"the CUDA FA1 takes q, k and v of one dtype, got q "
-                f"{q.dtype}, {name} {x.dtype}")
+                f"the CUDA FA1 takes bf16, fp16 or fp32 inputs, got {name} "
+                f"{x.dtype}")
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
     n_sub = _kernel_sub_tiles(nq, nk, block_q, block_k)
     # the scale from the caller's d, before narrow heads are padded
     qs = _prescale_q(q, resolve_scale(scale, d))
+    # one 2-byte type: its build (fp16: `cfa_fa1_f16`); fp32, or mixed
+    # float types upcast exactly (JAX's promotion), the fp32 build, which
+    # rounds P to v's type (f32 = 1 + its `ROUND_CODES`) and writes fp32 O
+    one = q.dtype == k.dtype == v.dtype
+    unit = "_f16" if one and q.dtype == torch.float16 else ""
+    f32 = 0 if one and q.dtype != torch.float32 else 1 + ROUND_CODES[v.dtype]
+    if f32:
+        qs, k, v = qs.float(), k.float(), v.float()
     d_run, (qs, k, v) = pad_heads("FA1", qs, k, v, dims=FA1_HEAD_DIMS)
     qs, k, v = kernel_operand(qs), kernel_operand(k), kernel_operand(v)
-    o = torch.empty((b, h, nq, d_run), dtype=q.dtype, device=q.device)
+    o = torch.empty((b, h, nq, d_run), dtype=qs.dtype, device=q.device)
     strides = (ctypes.c_longlong * 9)(*qs.stride()[:3], *k.stride()[:3],
                                       *v.stride()[:3])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _build.library().cfa_fa1(
+        err = getattr(_build.library(), "cfa_fa1" + unit)(
             qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h,
-            nq, nk, d_run, strides, int(bool(causal)), n_sub,
-            int(q.dtype == torch.float32), stream)
+            nq, nk, d_run, strides, int(bool(causal)), n_sub, f32, stream)
     _build.check(err, "fa1_attention kernel launch")
     fa1_attention.launches += 1
-    return o[..., :d]
+    return o[..., :d].to(q.dtype)
 
 
 def fa1_attention(
@@ -164,11 +174,12 @@ def fa1_attention(
     `block_q` the rows worked on together; as in the JAX function each is
     first clamped to max(8, min(block, round_up(N, 8))). Rows are
     independent, so `block_q` changes no number. On the card a CTA owns 128
-    rows and the kernel takes bf16 or fp32 inputs (its fp32 build: each
-    tile split into bf16 hi and lo parts), d in {64, 128, 256} or any d
-    below 256 on zero-padded heads (`ops.common.pad_heads`, the scale from
-    the caller's d; past 256 no build), `block_q` a
-    multiple of 64 (or one block over all rows) and `block_k` in {64, 128,
+    rows and the kernel takes bf16, fp16 or fp32 inputs (its fp32 build:
+    each tile split into bf16 hi and lo parts; mixed float types run it
+    on exactly upcast operands, P rounded to v's dtype as in JAX), d in
+    {64, 128, 256} or any d below 256 on zero-padded heads
+    (`ops.common.pad_heads`, the scale from the caller's d; past 256 no
+    build), `block_q` a multiple of 64 (or one block over all rows) and `block_k` in {64, 128,
     192, 256} (or one block over all keys when Nk ≤ 256); any other value
     raises ValueError. The count of its launches is
     `fa1_attention.launches`."""

@@ -5,11 +5,14 @@ Counterpart of cuda_flashattention_tpu/ops/flash_bwd.py
 (`flash_attention_backward`). On a CUDA tensor it launches the
 hand-written Hopper kernels: the fused single pass K4 (dK/dV per 128-key
 tile, dQ added into an fp32 buffer by TMA reduces) by default, or the
-split pair K2 (dK/dV) + K3 (dQ) with `fused=False`, on bf16 or fp32
-inputs (each kernel's fp32 build splits every tile into bf16 hi and lo
-parts) at d up to 256 (at d = 256 64-key tiles, the two warpgroups
-splitting d, dQ added by atomics; in fp32 there K2 / K4 stream 32-row Q
-tiles and K3 walks 16-key tiles with 64-row CTAs). K2 and K4 are one
+split pair K2 (dK/dV) + K3 (dQ) with `fused=False`, on bf16, fp16 or
+fp32 inputs (the fp16 builds are the `_f16` entry points; each kernel's
+fp32 build splits every tile into bf16 hi and lo parts), or inputs of
+mixed float types upcast to the fp32 builds, which round P and dS where
+JAX rounds them (`ROUND_CODES`), at d up to 256 (at d = 256 64-key
+tiles, the two warpgroups splitting d, dQ added by atomics; in fp32 there
+K2 / K4 stream 32-row Q tiles and K3 walks 16-key tiles with 64-row
+CTAs). K2 and K4 are one
 wgmma + TMA kernel (csrc/flash_bwd_kv.cu), K3 the Q-major wgmma + TMA
 kernel of csrc/flash_bwd.cu. On a CPU tensor it runs
 `flash_attention_backward_plain`, a dense PyTorch version of the same
@@ -46,6 +49,8 @@ from cuda_flashattention_torch.ops.common import (
     BWD_BLOCK_Q_WIDE_F32,
     BWD_HEAD_DIMS,
     NEG_INF,
+    ROUND_CODES,
+    bwd_tile_type,
     cdiv,
     check_qkv,
     check_tiles,
@@ -255,15 +260,19 @@ def delta_plain(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (do.float() * o.float()).sum(-1)
 
 
+# the prologue's type codes of O and dO (csrc/flash_bwd_kv.cu)
+_DELTA_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
+
+
 def _launch_delta(o, do, dq_acc=None):
     """The prologue on CUDA tensors: D [B, H, Nq] fp32 from O and dO
-    (bf16 or fp32 each, at d 64, 128 or 256), and dq_acc zeroed when
-    given; counted under `launches["delta"]`."""
+    (bf16, fp16 or fp32 each, at d 64, 128 or 256), and dq_acc zeroed
+    when given; counted under `launches["delta"]`."""
     for name, x in (("o", o), ("do", do)):
-        if x.dtype not in (torch.bfloat16, torch.float32):
+        if x.dtype not in _DELTA_CODES:
             raise NotImplementedError(
-                f"the CUDA backward's prologue takes a bf16 or fp32 {name}, "
-                f"got {x.dtype}")
+                f"the CUDA backward's prologue takes a bf16, fp16 or fp32 "
+                f"{name}, got {x.dtype}")
     o, do = kernel_operand(o), kernel_operand(do)
     b, h, nq, d = o.shape
     delta = torch.empty((b, h, nq), dtype=torch.float32, device=o.device)
@@ -272,8 +281,7 @@ def _launch_delta(o, do, dq_acc=None):
         err = _build.library().cfa_bwd_delta(
             o.data_ptr(), do.data_ptr(), delta.data_ptr(),
             None if dq_acc is None else dq_acc.data_ptr(), b, h, nq, d,
-            strides, int(o.dtype == torch.float32),
-            int(do.dtype == torch.float32),
+            strides, _DELTA_CODES[o.dtype], _DELTA_CODES[do.dtype],
             torch.cuda.current_stream().cuda_stream)
         _build.check(err, "flash_attention_backward prologue (D) launch")
         flash_attention_backward.launches["delta"] += 1
@@ -283,24 +291,24 @@ def _launch_delta(o, do, dq_acc=None):
 def _bwd_prepare(q, k, v, o, lse, do, scale, causal, window, kv_offset,
                  q_seg, kv_seg, dq_acc=None):
     """Check what the CUDA kernels take and lay out one call's arguments:
-    (q, f32, dk, dv, head, shape, keep), head and shape as the C entry
-    points take them around the outputs (dk and dv allocated, in k's
-    dtype), keep the tensors behind head's pointers. D comes from the
-    prologue, which also zeroes `dq_acc` (K4's accumulator) when given."""
+    (q, build, dk, dv, head, shape, keep), head and shape as the C entry
+    points take them around the outputs (dk and dv allocated in the type
+    the build writes), keep the tensors behind head's pointers. D comes
+    from the prologue (on O and dO as they are), which also zeroes
+    `dq_acc` (K4's accumulator) when given; build is the call's
+    `_BwdBuild`."""
     b, h, nq, d = q.shape
     h_kv, nk = k.shape[1], k.shape[2]
-    dtypes = [x.dtype for x in (q, k, v, do)]
-    if dtypes not in ([torch.bfloat16] * 4, [torch.float32] * 4):
-        raise NotImplementedError(
-            f"the CUDA backward takes bf16 or fp32 q/k/v/dO, all of one "
-            f"type, got {[str(t) for t in dtypes]}")
+    build = _BwdBuild.of(q.dtype, k.dtype, v.dtype, do.dtype)
     for name, x in (("k", k), ("v", v), ("o", o), ("lse", lse), ("do", do),
                     ("q_segment_ids", q_seg), ("kv_segment_ids", kv_seg)):
         if x is not None and x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-    q, k, v, do = (kernel_operand(x) for x in (q, k, v, do))
     lse = lse.float().contiguous()
     delta = _launch_delta(o, do, dq_acc)  # [B, H, Nq] fp32
+    if build.mixed:
+        q, k, v, do = (x.float() for x in (q, k, v, do))
+    q, k, v, do = (kernel_operand(x) for x in (q, k, v, do))
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3])
     dk = torch.empty((b, h_kv, nk, d), dtype=k.dtype, device=q.device)
@@ -315,19 +323,53 @@ def _bwd_prepare(q, k, v, o, lse, do, scale, causal, window, kv_offset,
     shape = (b, h, h_kv, nq, nk, d, strides, resolve_scale(scale, d),
              int(bool(causal)), int(window), int(kv_offset))
     keep = (q, k, v, do, lse, delta, q_seg, kv_seg)
-    return q, q.dtype == torch.float32, dk, dv, head, shape, keep
+    return q, build, dk, dv, head, shape, keep
+
+
+class _BwdBuild:
+    """The builds a backward call runs: the unit of its 2-byte type
+    (`unit`: "" bf16, "_f16" fp16) where q, k, v and dO share it, else the
+    fp32 builds (`kv` / `dq`: the f32 codes of K2/K4 and of K3, 0 for the
+    2-byte builds). A call of mixed float types (`mixed`, `out`: q's, k's,
+    v's dtypes, those of dQ, dK, dV) runs them on exactly upcast operands,
+    with P rounded to dO's type before dV, dS to q's before dK and to k's
+    before dQ (`ROUND_CODES`), as JAX rounds them; K4 rounds dS once for
+    both, so a call whose q and k types differ takes K2 + K3 (`split`)."""
+
+    def __init__(self, unit, kv, dq, mixed, out):
+        self.unit, self.kv, self.dq, self.mixed, self.out = (
+            unit, kv, dq, mixed, out)
+        self.split = mixed and out[0] != out[1]
+
+    @classmethod
+    def of(cls, q_dtype, k_dtype, v_dtype, do_dtype):
+        """The builds of q, k, v, dO of these types; NotImplementedError
+        for a type no build takes."""
+        dtypes = (q_dtype, k_dtype, v_dtype, do_dtype)
+        if any(t not in ROUND_CODES for t in dtypes):
+            raise NotImplementedError(
+                f"the CUDA backward takes bf16, fp16 or fp32 q/k/v/dO, got "
+                f"{[str(t) for t in dtypes]}")
+        out = (q_dtype, k_dtype, v_dtype)
+        ty = bwd_tile_type(q_dtype, k_dtype, v_dtype, do_dtype)
+        if ty != "fp32":
+            return cls("_f16" if ty == "fp16" else "", 0, 0, False, out)
+        mixed = {q_dtype, k_dtype, v_dtype, do_dtype} != {torch.float32}
+        return cls("", 1 + ROUND_CODES[do_dtype] + 3 * ROUND_CODES[q_dtype],
+                   1 + 3 * ROUND_CODES[k_dtype], mixed, out)
 
 
 def _launch_dkdv(prep):
-    """K2 on a prepared call (`_bwd_prepare`): (dK, dV)."""
-    q, f32, dk, dv, head, shape, _ = prep
+    """K2 on a prepared call (`_bwd_prepare`): (dK, dV) in k's and v's
+    dtypes."""
+    q, build, dk, dv, head, shape, _ = prep
     with torch.cuda.device(q.device):
-        err = _build.library().cfa_flash_bwd_kv(
-            *head, dk.data_ptr(), dv.data_ptr(), None, *shape, int(f32),
+        err = getattr(_build.library(), "cfa_flash_bwd_kv" + build.unit)(
+            *head, dk.data_ptr(), dv.data_ptr(), None, *shape, build.kv,
             torch.cuda.current_stream().cuda_stream)
         _build.check(err, "flash_attention_backward dK/dV kernel launch")
         flash_attention_backward.launches["dkdv"] += 1
-    return dk, dv
+    return dk.to(build.out[1]), dv.to(build.out[2])
 
 
 def _pad_bwd(q, k, v, o, do):
@@ -362,31 +404,35 @@ def _bwd_cuda(q, k, v, o, lse, do, scale, causal, window, kv_offset, q_seg,
         grads = _bwd_cuda(q, k, v, o, lse, do, resolve_scale(scale, d),
                           causal, window, kv_offset, q_seg, kv_seg, fused)
         return tuple(g[..., :d] for g in grads)
-    # K4's fp32 dQ accumulator, zeroed by the prologue
+    # K4's fp32 dQ accumulator, zeroed by the prologue (a mixed call whose
+    # q and k types differ runs K2 + K3: `_BwdBuild.split`)
+    fused = fused and not _BwdBuild.of(q.dtype, k.dtype, v.dtype,
+                                       do.dtype).split
     dq_acc = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
               if fused else None)
     prep = _bwd_prepare(q, k, v, o, lse, do, scale, causal, window,
                         kv_offset, q_seg, kv_seg, dq_acc)
-    q, f32, dk, dv, head, shape, _ = prep
+    q, build, dk, dv, head, shape, _ = prep
     b, h, nq, d = q.shape
     launches = flash_attention_backward.launches
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         lib = _build.library()
         if fused:
-            err = lib.cfa_flash_bwd_kv(*head, dk.data_ptr(), dv.data_ptr(),
-                                       dq_acc.data_ptr(), *shape, int(f32),
-                                       stream)
+            err = getattr(lib, "cfa_flash_bwd_kv" + build.unit)(
+                *head, dk.data_ptr(), dv.data_ptr(), dq_acc.data_ptr(),
+                *shape, build.kv, stream)
             _build.check(err, "flash_attention_backward fused kernel launch")
             launches["fused"] += 1
-            return dq_acc.to(q.dtype), dk, dv
-        _launch_dkdv(prep)
+            return (dq_acc.to(build.out[0]), dk.to(build.out[1]),
+                    dv.to(build.out[2]))
+        dk, dv = _launch_dkdv(prep)
         dq = torch.empty((b, h, nq, d), dtype=q.dtype, device=q.device)
-        err = lib.cfa_flash_bwd_q(*head, dq.data_ptr(), *shape, int(f32),
-                                  stream)
+        err = getattr(lib, "cfa_flash_bwd_q" + build.unit)(
+            *head, dq.data_ptr(), *shape, build.dq, stream)
         _build.check(err, "flash_attention_backward dQ kernel launch")
         launches["dq"] += 1
-    return dq, dk, dv
+    return dq.to(build.out[0]), dk, dv
 
 
 def flash_attention_backward(
@@ -423,10 +469,14 @@ def flash_attention_backward(
     it names (at d = 256 the built (64, 64), in fp32 (32, 64)); the
     forward's fields are not read here. On the card the kernels take d in
     {64, 128, 256} (any other d up to 256 on zero-padded heads, as the
-    forward; d past 256 raises ValueError: no build) and bf16 q/k/v/dO,
-    or fp32 ones through the kernels' fp32 builds (each tile split into
-    bf16 hi and lo parts; the gradients come back fp32), fused or
-    split.
+    forward; d past 256 raises ValueError: no build) and bf16 or fp16
+    q/k/v/dO (their own builds), or fp32 ones through the kernels' fp32
+    builds (each tile split into bf16 hi and lo parts; the gradients come
+    back fp32), fused or split; q/k/v/dO of mixed float types run the
+    fp32 builds on exactly upcast operands, rounding P to dO's type and
+    dS to q's (dK) and k's (dQ) as JAX does, the gradients cast to q's,
+    k's and v's dtypes (a fused call whose q and k types differ runs K2 +
+    K3, each rounding dS once).
     The counts of their launches are
     `flash_attention_backward.launches["dkdv"]`, `["dq"]` and `["fused"]`,
     and of the prologue before them (D, and K4's zeroed accumulator)
@@ -451,7 +501,7 @@ def flash_attention_backward(
             f"{tuple(kv_segment_ids.shape)} do not match q "
             f"{tuple(q.shape)} / k {tuple(k.shape)}")
     if block_sizes is not None:
-        ty = "fp32" if q.dtype == torch.float32 else "bf16"
+        ty = bwd_tile_type(q.dtype, k.dtype, v.dtype, do.dtype)
         check_tiles("K4" if fused is None or fused else "K2", ty, q.shape[-1],
                     block_sizes, "flash_attention_backward block_sizes",
                     bwd=True)

@@ -68,6 +68,7 @@ from cuda_flashattention_torch.ops.common import (
     KMAJOR_MAX_SPAN_F32Q,
     NEG_INF,
     ONLINE_SHORT_NQ,
+    ROUND_CODES,
     built_tiles,
     check_qkv,
     check_tiles,
@@ -91,15 +92,16 @@ _ONLINE_SHORT_NQ = ONLINE_SHORT_NQ
 _FALLBACK_SLACK_LOG2 = 96.0
 
 _SOFTMAX_MODES = ("auto", "bound", "bound_unchecked", "online")
-_STORAGE_CODES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2,
-                  torch.float32: 3}
-# (K, V) storage pairs the kernels take under a bf16 Q: one type for both,
-# or the "mixed" cache's int8 K with fp8 V; an fp32 Q takes fp32 K/V, bf16
-# K/V (without scales) or the three quantized pairs
-_STORAGE_PAIRS = ((torch.bfloat16, torch.bfloat16), (torch.int8, torch.int8),
-                  (torch.float8_e4m3fn, torch.float8_e4m3fn),
-                  (torch.int8, torch.float8_e4m3fn))
-_F32_STORAGE_PAIRS = ((torch.float32, torch.float32),) + _STORAGE_PAIRS
+# storage codes of the C entry points: 0 is the unit's 2-byte type (bf16,
+# or fp16 in the fp16 unit's entry points, `_f16`)
+_STORAGE_CODES = {torch.bfloat16: 0, torch.float16: 0, torch.int8: 1,
+                  torch.float8_e4m3fn: 2, torch.float32: 3}
+_FLOATS = (torch.bfloat16, torch.float16, torch.float32)
+# the quantized (K, V) storage pairs: one type for both, or the "mixed"
+# cache's int8 K with fp8 V, under any float Q
+_CODE_PAIRS = ((torch.int8, torch.int8),
+               (torch.float8_e4m3fn, torch.float8_e4m3fn),
+               (torch.int8, torch.float8_e4m3fn))
 # The output types the kernels' epilogues write (their C code): O in any
 # other type the JAX function takes is the fp32 epilogue's O cast on the
 # host (`_resolve_out_dtype`).
@@ -121,7 +123,16 @@ def _resolve_out_dtype(q, out_dtype) -> torch.dtype:
 
 def _prescale_q(q: torch.Tensor, scale: float) -> torch.Tensor:
     """Q · scale · log2(e), rounded in Q's dtype: the kernel then works in
-    log2 units with exp2."""
+    log2 units with exp2. For an fp16 Q the factor is first rounded to
+    fp16, as JAX's weakly typed scalar is, so that each product is rounded
+    once from the same two operands in both packages (at fp16's precision
+    the factor's rounding shows in the LSE). A bf16 Q keeps the factor
+    unrounded, as the port always has: JAX's bf16 rounding of it moves the
+    scores by up to 2^-9 relative, inside the bf16 gates, and differently
+    from FA1's factor (`ops/fa1.py`), which the FA2 forward is held to on
+    the card."""
+    if q.dtype == torch.float16:
+        return q * torch.tensor(scale * _LOG2E, dtype=q.dtype)
     return (q * (scale * _LOG2E)).to(q.dtype)
 
 
@@ -219,7 +230,7 @@ def _plan(q, k, v, scale, causal, window, kv_offset, block_sizes, k_scale,
     if qq and k.dtype == torch.float8_e4m3fn and not fp8_fast:
         qq = False
     use_kmajor = use_bound and (causal or fp8_fast)
-    ty = tile_type(q.dtype, k.dtype)
+    ty = tile_type(q.dtype, k.dtype, v.dtype)
     block_k, fallback_k = None, fwd_key_tile(ty, run_dim(d))
     if block_sizes is not None:
         kernel = "K5" if use_kmajor else "K1b" if use_bound else "K1"
@@ -441,25 +452,36 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
                     ("kv_segment_ids", kv_seg)):
         if x is not None and x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-    # an fp32 Q goes to the kernels' fp32 builds, which read it as it is
-    # and split each tile into bf16 hi and lo parts: over fp32 K/V split
-    # the same way, or over bf16 K/V (read by TMA as they are) or one-byte
-    # K/V (converted exactly to bf16); under quantize_q the int8 Q of the
-    # host runs the int8 build as for bf16
-    f32 = q.dtype == torch.float32
-    if f32 and (k.dtype, v.dtype) not in _F32_STORAGE_PAIRS:
+    # a bf16 or fp16 Q over K/V of its type, or over one-byte codes, runs
+    # the unit of its type (fp16: the `_f16` entry points); an fp32 Q the
+    # fp32 builds, which read it as it is and split each tile into bf16 hi
+    # and lo parts: over fp32 K/V split the same way, or over bf16 K/V
+    # (read by TMA as they are) or one-byte K/V (converted exactly to
+    # bf16); under quantize_q the int8 Q of the host runs the bf16 unit's
+    # int8 build whatever Q's type (its P·V is bf16, as JAX's). Mixed float
+    # types follow JAX's promotion: each product on exactly upcast
+    # operands, P rounded to Q's type before P·V; so Q (prescaled in its
+    # own type) and, unless both are bf16, K and V are upcast to fp32 and
+    # the fp32 builds round P (`ROUND_CODES`)
+    ty = tile_type(q.dtype, k.dtype, v.dtype)
+    if q.dtype not in _FLOATS:
         raise NotImplementedError(
-            f"the CUDA forward takes an fp32 Q with fp32 or bf16 K/V, or K/V "
-            f"stored as one of {_F32_STORAGE_PAIRS[2:]} with scales, got k "
-            f"{k.dtype} / v {v.dtype}")
-    if not f32 and q.dtype != torch.bfloat16:
+            f"the CUDA forward takes a bf16, fp16 or fp32 Q, got {q.dtype}")
+    if plan.quantized and (k.dtype, v.dtype) not in _CODE_PAIRS:
         raise NotImplementedError(
-            f"the CUDA forward takes bf16 or fp32 inputs, got q {q.dtype}")
-    if not f32 and (k.dtype, v.dtype) not in _STORAGE_PAIRS:
+            f"the CUDA forward takes quantized K/V stored as one of "
+            f"{_CODE_PAIRS}, got k {k.dtype} / v {v.dtype}")
+    if not plan.quantized and not (k.dtype in _FLOATS and v.dtype in _FLOATS):
         raise NotImplementedError(
-            f"the CUDA forward takes bf16 inputs, or K/V stored as one of "
-            f"{_STORAGE_PAIRS[1:]} with scales, got k {k.dtype} / v "
-            f"{v.dtype}")
+            f"the CUDA forward takes bf16, fp16 or fp32 K/V, got k {k.dtype} "
+            f"/ v {v.dtype}")
+    mixed = ty in ("fp32", "fp32/bf16") and q.dtype != torch.float32
+    if ty == "fp32":
+        k, v = k.float(), v.float()
+    f32 = q.dtype == torch.float32 or mixed
+    # the fp16 unit's builds, unless only quantize_q's int8 Q is read
+    half = (q.dtype == torch.float16 and not mixed
+            and not (plan.use_bound and plan.qq))
     if out_dtype not in _OUT_CODES:
         # the fp32 epilogue, cast as the JAX function casts its fp32 O
         o, lse = _fwd_cuda(q, k, v, plan, torch.float32, k_scale, v_scale,
@@ -473,19 +495,24 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
     if plan.segmented:
         q_seg = q_seg.to(torch.int32).contiguous()
         kv_seg = kv_seg.to(torch.int32).contiguous()
-    # the prescaled Q, unless only the int8 Q of quantize_q is read
-    q_hat = (None if plan.use_bound and plan.qq
-             else kernel_operand(_prescale_q(q, plan.scale)))
+    # the prescaled Q (rounded in Q's type, then exactly upcast where the
+    # call is mixed), unless only the int8 Q of quantize_q is read
+    q_hat = None
+    if not (plan.use_bound and plan.qq):
+        q_hat = _prescale_q(q, plan.scale)
+        q_hat = kernel_operand(q_hat.float() if mixed else q_hat)
     o = torch.empty((b, h, nq, d), dtype=out_dtype, device=q.device)
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
     counts = flash_attention_forward.form_launches
     tail = (int(plan.causal), plan.window, plan.kv_offset,
             _OUT_CODES[out_dtype])
-    # the Q the kernel reads is fp32 unless it is quantize_q's int8 Q
-    q_f32 = int(f32 and not (plan.use_bound and plan.qq))
+    # the Q the kernel reads is fp32 unless it is quantize_q's int8 Q: code
+    # 1, or under a mixed call 2 / 3, P rounded to bf16 / fp16
+    q_f32 = (1 + ROUND_CODES[q.dtype]
+             if f32 and not (plan.use_bound and plan.qq) else 0)
     # the key tile a call runs at by default: 64, or 32 for an fp32 Q over
     # fp32 K/V at d = 256 (that build's only tile)
-    tile = fwd_key_tile(tile_type(q.dtype, k.dtype), d)
+    tile = fwd_key_tile(ty, d)
 
     def strides(q_op):
         return (ctypes.c_longlong * 9)(
@@ -494,10 +521,11 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         lib = _build.library()
+        unit = "_f16" if half else ""
 
         def online(guard):
             kn = (plan.block_k or tile) if guard is None else plan.fallback_k
-            err = lib.cfa_flash_fwd(
+            err = getattr(lib, "cfa_flash_fwd" + unit)(
                 _ptrs(q_hat, k, v, ksc, vsc, q_seg, kv_seg, guard, o, lse),
                 b, h, h_kv, nq, nk, d, strides(q_hat), k_type, v_type, q_f32,
                 *tail, kn, stream)
@@ -540,14 +568,14 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
                     q.device).multi_processor_count
                 span = _kmajor_span(b, h_kv, nk, d, sms, bool(q_f32),
                                     k.dtype != torch.float32)
-            err = lib.cfa_flash_fwd_kmajor(
+            err = getattr(lib, "cfa_flash_fwd_kmajor" + unit)(
                 _ptrs(q_op, k, v, ksc, vsc, q_factor, c, l_acc, o_acc,
                       n_loose, o, lse), *shape, span, stream)
             _build.check(err, "flash_attention_forward K-major kernel launch")
             counts["kmajor"] += 1
         else:
             n_loose = torch.zeros(1, dtype=torch.int32, device=q.device)
-            err = lib.cfa_flash_fwd_bound(
+            err = getattr(lib, "cfa_flash_fwd_bound" + unit)(
                 _ptrs(q_op, k, v, ksc, vsc, q_factor, c, n_loose, o, lse),
                 *shape, plan.block_k or tile, stream)
             _build.check(err, "flash_attention_forward bound kernel launch")
@@ -603,12 +631,17 @@ def flash_attention_forward(
     do there). On the card the kernels take d in {64, 128, 256}, and
     any other d below 256 on zero-padded heads (`ops.common.pad_heads`:
     the next of 64, 128 and 256, O sliced back; at a d that is no build
-    each call copies Q, K and V), and a bf16 Q over the K/V above, or an
+    each call copies Q, K and V), and a bf16 or fp16 Q over K/V of its
+    type or the quantized K/V above (the bf16 and fp16 builds; quantize_q
+    runs the bf16 unit's int8-Q build, P·V in bf16, for either), or an
     fp32 Q over fp32 or bf16 K/V or
     over the quantized K/V above (their fp32 builds: each fp32 tile split
     into bf16 hi and lo parts, each product three bf16 products with fp32
     sums, two over bf16 or one-byte K/V, which are exact bf16 tiles; P ·
-    v_scale is not rounded); `flash_attention_forward.launches` counts
+    v_scale is not rounded), and Q, K, V of mixed float types as JAX
+    promotes them (the 2-byte operands upcast exactly to fp32, bf16 K/V
+    read as they are, the fp32 builds rounding P to Q's type before P·V);
+    `flash_attention_forward.launches` counts
     their launches and `.form_launches` the same per form: "online",
     "bound", "kmajor", and "fallback" for the guarded online launch behind
     a checked bound call; `.key128_launches` counts those of the 128-key

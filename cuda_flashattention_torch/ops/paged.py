@@ -37,6 +37,7 @@ from cuda_flashattention_torch.ops.common import (
 )
 from cuda_flashattention_torch.ops.decode import (
     decode_attention_plain,
+    UNIT_DTYPES,
     kernel_inputs,
     optional_ptr,
     split_scratch,
@@ -103,28 +104,29 @@ def _paged_cuda(q, k_pages, v_pages, page_table, lengths, k_scale, v_scale,
     _, h_kv, ps, _ = k_pages.shape
     max_pages = page_table.shape[1]
     out_dtype = q.dtype
-    q, q_sigma, k_scale, v_scale, windows, kt, vt, qq, q_f32 = (
-        kernel_inputs(q, k_pages, v_pages, k_scale, v_scale, windows,
-                      quantize_q, scale, "paged decode"))
+    (q, q_sigma, k_pages, v_pages, k_scale, v_scale, windows, kt, vt, qq,
+     unit, p_round) = kernel_inputs(q, k_pages, v_pages, k_scale, v_scale,
+                                    windows, quantize_q, scale,
+                                    "paged decode")
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
-    o = torch.empty((b, h, d), dtype=out_dtype, device=q.device)
+    o = torch.empty((b, h, d), dtype=UNIT_DTYPES[unit], device=q.device)
     lse = torch.empty((b, h), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         split, part, tickets = split_scratch(b, h_kv, h // h_kv, d,
                                              ps * max_pages, q.device)
         stream = torch.cuda.current_stream().cuda_stream
-        err = _build.library().cfa_paged_decode(
+        err = getattr(_build.library(), "cfa_paged_decode" + unit)(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             optional_ptr(k_scale), optional_ptr(v_scale),
             optional_ptr(q_sigma), table.data_ptr(), lengths.data_ptr(),
             optional_ptr(windows), o.data_ptr(), lse.data_ptr(),
             optional_ptr(part), optional_ptr(tickets), b, h, h_kv, ps,
-            max_pages, d, kt, vt, int(qq), int(q_f32),
+            max_pages, d, kt, vt, int(qq), p_round,
             resolve_scale(scale, d), int(window or 0), split, stream)
     _build.check(err, "paged_decode_attention kernel launch")
     paged_decode_attention.launches += 1
-    return o, lse
+    return o.to(out_dtype), lse
 
 
 def paged_decode_attention(
@@ -201,11 +203,11 @@ paged_decode_attention.launches = 0
 class PagedKVCache:
     """Paged KV cache of one attention layer.
 
-    k_pages/v_pages: [n_pages, Hkv, page_size, d] shared pools (bf16, fp32,
-    int8 or fp8). k_scale/v_scale: [n_pages, Hkv, page_size] fp32 pools or
-    None. page_table: [B, max_pages] int32 physical ids. lengths: [B]
-    int32 live tokens per sequence. All on one device; the appends and
-    the allocator update them in place."""
+    k_pages/v_pages: [n_pages, Hkv, page_size, d] shared pools (bf16,
+    fp16, fp32, int8 or fp8). k_scale/v_scale: [n_pages, Hkv, page_size]
+    fp32 pools or None. page_table: [B, max_pages] int32 physical ids.
+    lengths: [B] int32 live tokens per sequence. All on one device; the
+    appends and the allocator update them in place."""
 
     k_pages: torch.Tensor
     v_pages: torch.Tensor

@@ -262,9 +262,10 @@ class _Workspace:
     zero yet. `lock` is held from `next_epoch` to a call's last launch."""
 
     def __init__(self, lib, devs: Sequence[torch.device], rows: int, d: int,
-                 f32: bool = False):
+                 f32: bool = False, unit: str = ""):
         n = len(devs)
         self.n, self.rows, self.d, self.f32 = n, rows, d, int(f32)
+        self.unit = unit  # the entry points' suffix: "_f16" for fp16
         self.cards: Dict[torch.device, List[int]] = {}
         for i, dev in enumerate(devs):
             self.cards.setdefault(dev, []).append(i)
@@ -286,7 +287,7 @@ class _Workspace:
         resident = {}
         for dev in self.cards:
             count = ctypes.c_int(0)
-            _build.check(lib.cfa_device_ring_resident(
+            _build.check(getattr(lib, "cfa_device_ring_resident" + unit)(
                 d, self.sys, self.f32, dev.index, ctypes.byref(count)),
                 "device ring occupancy")
             resident[dev] = count.value
@@ -340,15 +341,16 @@ _ring_devices: "weakref.WeakKeyDictionary[Mesh, Dict]" = (
 
 
 def _workspace(lib, devs: Tuple[torch.device, ...], rows: int, d: int,
-               f32: bool, streams: Tuple[int, ...]) -> _Workspace:
-    """The workspace of `devs` (in ring order) at (rows, d) of the bf16 or
-    (`f32`) fp32 build, whose cards' current streams are `streams` (in the
-    order the cards first appear)."""
-    key = (devs, rows, d, streams, f32)
+               f32: bool, streams: Tuple[int, ...],
+               unit: str = "") -> _Workspace:
+    """The workspace of `devs` (in ring order) at (rows, d) of the bf16,
+    fp16 (`unit` "_f16") or (`f32`) fp32 build, whose cards' current
+    streams are `streams` (in the order the cards first appear)."""
+    key = (devs, rows, d, streams, f32, unit)
     with _workspaces_lock:
         ws = _workspaces.get(key)
         if ws is None:
-            ws = _Workspace(lib, devs, rows, d, f32)
+            ws = _Workspace(lib, devs, rows, d, f32, unit)
             _workspaces[key] = ws
             # dropping one is safe: its buffers go back to the allocator in
             # the order of the streams its kernels ran on, and each kernel
@@ -371,11 +373,12 @@ class _XpWorkspace:
     _made: "collections.Counter" = collections.Counter()
 
     def __init__(self, lib, mesh: Mesh, ranks: Sequence[int], rows: int,
-                 d: int, f32: bool):
+                 d: int, f32: bool, unit: str = ""):
         me = mesh_mod.process_index()
         procs = [mesh.process(r) for r in ranks]
         self.procs = sorted(set(procs))
         self.n, self.rows, self.d, self.f32 = len(ranks), rows, d, int(f32)
+        self.unit = unit
         self.sys = 1  # a neighbour writes from another context
         self.mine = [i for i, q in enumerate(procs) if q == me]
         cards = {mesh.device(ranks[i]) for i in self.mine}
@@ -390,7 +393,7 @@ class _XpWorkspace:
         self.name = f"k9/{tag}/{_XpWorkspace._made[tag]}"
         st = mesh_mod.store()
         count = ctypes.c_int(0)
-        _build.check(lib.cfa_device_ring_resident(
+        _build.check(getattr(lib, "cfa_device_ring_resident" + unit)(
             d, self.sys, self.f32, self.dev.index, ctypes.byref(count)),
             "device ring occupancy")
         st.set(f"cfa/{self.name}/info/{me}", json.dumps(dict(
@@ -483,13 +486,13 @@ def _device_ring_xp(lib, x, w, mesh: Mesh, axis_name: str, rows: int,
     process's ranks in one launch on its card, the others' rows of o from
     their processes."""
     ranks = mesh.axis_ranks(axis_name)
-    f32 = x.dtype == torch.float32
-    key = (tuple(mesh.place(r) for r in ranks), rows, d, f32)
+    f32, unit = x.dtype == torch.float32, _unit(x)
+    key = (tuple(mesh.place(r) for r in ranks), rows, d, f32, unit)
     with _workspaces_lock:
         ws = _xp_workspaces.get(key)
         if ws is None:
             ws = _xp_workspaces[key] = _XpWorkspace(lib, mesh, ranks, rows,
-                                                     d, f32)
+                                                     d, f32, unit)
     dev = ws.dev
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev)
@@ -503,7 +506,7 @@ def _device_ring_xp(lib, x, w, mesh: Mesh, axis_name: str, rows: int,
         with ws.lock:
             epoch = ws.start(stream)
             events[0].record(stream)
-            err = lib.cfa_device_ring(
+            err = getattr(lib, "cfa_device_ring" + ws.unit)(
                 x_dev.data_ptr(), w_dev.data_ptr(), out_dev.data_ptr(),
                 ws.bufs, ws.flags, ws.n, ws.local, len(ws.mine), rows, d,
                 ws.grid, epoch, ws.sys, ws.f32, dev.index,
@@ -529,10 +532,16 @@ def _device_ring_xp(lib, x, w, mesh: Mesh, axis_name: str, rows: int,
     return _gather_rows(mesh, ranks, acc, x.device, rows, d)
 
 
+def _unit(x: torch.Tensor) -> str:
+    """The entry points' suffix of x's build: "_f16" for fp16 x and W,
+    "" for bf16 and fp32."""
+    return "_f16" if x.dtype == torch.float16 else ""
+
+
 def _launch(lib, ws: _Workspace, dev: torch.device, x_dev, w_dev, out_dev,
             epoch: int, stream) -> None:
     idxs = ws.cards[dev]
-    err = lib.cfa_device_ring(
+    err = getattr(lib, "cfa_device_ring" + _unit(x_dev))(
         x_dev.data_ptr(), w_dev.data_ptr(), out_dev.data_ptr(), ws.bufs,
         ws.flags, ws.n, ws.local[dev], len(idxs), ws.rows, ws.d, ws.grid,
         epoch, ws.sys, ws.f32, dev.index, stream.cuda_stream)
@@ -554,10 +563,15 @@ def _device_ring_cuda(x, w, mesh: Mesh, axis_name: str) -> torch.Tensor:
     devs = _devices_of(mesh, axis_name)
     n = len(devs)
     rows, d = _check(x, w, n)
-    if x.dtype != w.dtype or x.dtype not in (torch.bfloat16, torch.float32):
+    floats = (torch.bfloat16, torch.float16, torch.float32)
+    if x.dtype not in floats or w.dtype not in floats:
         raise NotImplementedError(
-            f"the CUDA ring takes bf16 or fp32 x and w of one dtype, got "
+            f"the CUDA ring takes bf16, fp16 or fp32 x and w, got "
             f"{x.dtype} / {w.dtype}")
+    if x.dtype != w.dtype:
+        # JAX's promotion: the product of two float types on exactly
+        # upcast operands, which the fp32 build holds (each split exactly)
+        x, w = x.float(), w.float()
     d_run = run_dim(d, RING_HEAD_DIMS)
     if d_run is None:
         raise ValueError(f"the CUDA ring takes d from 1 to "
@@ -591,7 +605,8 @@ def _device_ring_cuda(x, w, mesh: Mesh, axis_name: str) -> torch.Tensor:
     one_card = cards == [x.device]
     streams = ((main.cuda_stream,) if one_card else tuple(
         torch.cuda.current_stream(c).cuda_stream for c in cards))
-    ws = _workspace(lib, devs, rows, d, x.dtype == torch.float32, streams)
+    ws = _workspace(lib, devs, rows, d, x.dtype == torch.float32, streams,
+                    _unit(x))
     x, w = x.contiguous(), w.contiguous()
     out = torch.empty((n * rows, d), dtype=torch.float32, device=x.device)
     if one_card:
@@ -635,9 +650,11 @@ def device_ring_matmul(x: torch.Tensor, w: torch.Tensor, mesh: Mesh,
     on rows over `axis_name`, w [d, d] → o [n·L, d] fp32 on x's device,
     every rank's L rows holding the same (Σ_i x_i) @ W.
 
-    On the card the kernel takes bf16 x and w, or fp32 ones (its fp32
+    On the card the kernel takes bf16 or fp16 x and w (its bf16 and fp16
+    builds), or fp32 ones (its fp32
     build: every value split into bf16 hi and lo halves, three bf16
-    products per step, the split images pushed), d in {64, 128, 256} (any
+    products per step, the split images pushed), and x and w of two float
+    types upcast to the fp32 build (JAX's promotion), d in {64, 128, 256} (any
     other d up to 256 on x and w zero-padded to the next of them, o
     sliced back; d past 256 raises ValueError), L a multiple of 64 and at
     most 32 ranks, every one on a card; ranks on

@@ -51,6 +51,7 @@ from cuda_flashattention_torch.ops.common import (
     BlockSizes,
     auto_block_sizes,
     built_tiles,
+    bwd_tile_type,
     resolve_device,
     round_up,
     tile_type,
@@ -162,7 +163,7 @@ def candidate_blocks(nq: int, nk: int, d: int, causal: bool = False,
     always kept. NotImplementedError where no build takes the call (d
     past 256)."""
     if mode == "bwd":
-        kernel, ty = "K4", "fp32" if dtype == torch.float32 else "bf16"
+        kernel, ty = "K4", bwd_tile_type(dtype, dtype, dtype, dtype)
     else:
         kernel, ty = _fwd_route(nq, causal, dtype), tile_type(dtype, dtype)
     built = built_tiles(kernel, ty, d)
@@ -353,6 +354,10 @@ def autotune_page_size(
                  f"page ctx={ctx}", verbose)
 
 
+_DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16,
+           "fp32": torch.float32}
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m cuda_flashattention_torch.utils.autotune",
@@ -371,6 +376,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mode", choices=["fwd", "bwd", "decode", "page"],
                     default="fwd")
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--dtype", choices=sorted(_DTYPES), default="bf16",
+                    help="Q, K, V (and dO) type of fwd and bwd")
     return ap
 
 
@@ -392,7 +399,7 @@ def main(argv=None) -> None:
             nq=opts.seq, nk=opts.seq, d=opts.d, batch=opts.batch,
             heads=opts.heads, kv_heads=opts.kv_heads, causal=opts.causal,
             window=opts.window, mode=opts.mode, iters=opts.iters,
-            verbose=True)
+            dtype=_DTYPES[opts.dtype], verbose=True)
         print(f"best: {bs}")
 
 

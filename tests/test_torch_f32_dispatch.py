@@ -169,15 +169,18 @@ def test_quantize_q_on_an_fp32_q_over_fp8_keys_is_dropped(lib, monkeypatch):
 
 
 def test_fp32_q_over_bf16_k_still_raises(lib):
-    """An fp32 Q over bf16 K/V has a build now (below); what stays refused
-    before any launch is an fp32 Q over fp16 K/V, or over bf16 K with fp32
-    V (the forward takes fp32, bf16 or one-byte K/V under an fp32 Q)."""
+    """What this test once saw refused, an fp32 Q over fp16 K/V or over
+    bf16 K with fp32 V, now runs: JAX computes such products on exactly
+    upcast operands, so the 2-byte K/V are upcast to fp32 and the fp32
+    builds run them (storage codes 3, q_f32 = 1: an fp32 Q's P is not
+    rounded)."""
     q, k, v, _ = _qkv(None)
     for kk, vv in ((k.half(), v.half()), (k.to(torch.bfloat16), v)):
-        with pytest.raises(NotImplementedError,
-                           match="fp32 Q with fp32 or bf16 K/V"):
-            _forward(q, kk, vv, {}, "online")
-    assert lib.calls == []
+        lib.calls.clear()
+        _, (o, _) = _forward(q, kk, vv, {}, "online")
+        assert lib.names() == ["cfa_flash_fwd"]
+        assert _types(lib.calls[0][1]) == (3, 3, 1)
+        assert o.dtype == torch.float32
 
 
 @pytest.mark.parametrize("softmax,causal,entries", [
@@ -306,11 +309,27 @@ def test_fa1_reaches_its_build_at_any_narrow_head(lib, d, d_run, dtype):
 
 
 def test_fa1_refuses_mixed_dtypes(lib):
+    """Mixed float types, once refused, run K8's fp32 build on exactly
+    upcast operands with P rounded to v's type (f32 = 1 + its round code:
+    1 fp32, 2 bf16), O back in q's dtype; fp16 inputs run the fp16 unit
+    (`cfa_fa1_f16`, f32 = 0); an integer input is still refused."""
     q = torch.ones((1, 2, 64, 64))
-    with pytest.raises(NotImplementedError, match="one dtype"):
-        tfa1._fa1_cuda(q, q.to(torch.bfloat16), q, None, False, 64, 64)
-    with pytest.raises(NotImplementedError, match="bf16 or fp32"):
-        tfa1._fa1_cuda(q.half(), q.half(), q.half(), None, False, 64, 64)
+    for k, v, code in ((q.to(torch.bfloat16), q, 1),
+                       (q, q.to(torch.bfloat16), 2),
+                       (q.half(), q.half(), 3)):
+        lib.calls.clear()
+        o = tfa1._fa1_cuda(q, k, v, None, False, 64, 64)
+        (name, args), = lib.calls
+        assert name == "cfa_fa1" and args[-2] == code
+        assert o.dtype == torch.float32
+    lib.calls.clear()
+    h = q.half()
+    o = tfa1._fa1_cuda(h, h, h, None, False, 64, 64)
+    (name, args), = lib.calls
+    assert name == "cfa_fa1_f16" and args[-2] == 0 and o.dtype == h.dtype
+    lib.calls.clear()
+    with pytest.raises(NotImplementedError, match="bf16, fp16 or fp32"):
+        tfa1._fa1_cuda(q.to(torch.int8), q, q, None, False, 64, 64)
     assert lib.calls == []
 
 
@@ -359,15 +378,15 @@ def test_device_ring_takes_any_width_up_to_256(dtype):
 
 
 def test_device_ring_refuses_what_it_does_not_take():
-    """The dtype check comes before any card is touched: fp32 x with bf16
-    w, and int8, raise; fp32 x and w pass it (and then need the mesh on a
-    card)."""
+    """The dtype check comes before any card is touched: int8 raises; fp32
+    x and w, fp16 ones and x and w of two float types (upcast to the fp32
+    build, JAX's promotion) pass it (and then need the mesh on a card)."""
     from cuda_flashattention_torch.parallel.mesh import make_mesh
     mesh = make_mesh((2,), ("sp",), ["cpu"] * 2)
     x, w = torch.zeros((128, 64)), torch.zeros((64, 64))
-    with pytest.raises(NotImplementedError, match="one dtype"):
-        dr._device_ring_cuda(x, w.to(torch.bfloat16), mesh, "sp")
-    with pytest.raises(NotImplementedError, match="bf16 or fp32"):
+    with pytest.raises(NotImplementedError, match="bf16, fp16 or fp32"):
         dr._device_ring_cuda(x.to(torch.int8), w.to(torch.int8), mesh, "sp")
-    with pytest.raises(ValueError, match="every rank on a card"):
-        dr._device_ring_cuda(x, w, mesh, "sp")
+    for xx, ww in ((x, w), (x, w.to(torch.bfloat16)), (x.half(), w.half()),
+                   (x.half(), w.to(torch.bfloat16))):
+        with pytest.raises(ValueError, match="every rank on a card"):
+            dr._device_ring_cuda(xx, ww, mesh, "sp")

@@ -12,7 +12,9 @@ type, window and `quantize_q` form), the paged decode and FA1;
 for the backward, per gradient, max |diff| <= 2e-2 · max |plain| (an
 absolute gate near the gradients' own size would pass all-zero dK). The
 fp32 builds (the `test_f32_*` tests): 1e-4 on O and LSE, 1e-4 · max(1,
-max |plain|) per gradient."""
+max |plain|) per gradient. The fp16 builds (`test_f16_*`) take the bf16
+gates; mixed float types (`test_mixed_*`) the fp32 gate plus one ulp of
+the output's and of the rounded operand's types (`_assert_mixed`)."""
 
 import pytest
 import torch
@@ -329,11 +331,16 @@ def test_fa1_kernel_strided_views_and_refusals(dev):
         fa1_attention(big, big, big, block_k=96)
     with pytest.raises(ValueError, match="the CUDA FA1 takes block_q"):
         fa1_attention(big, big, big, block_q=96)
-    # fp32 has a build since K8's F32 one; mixed and fp16 inputs do not
-    with pytest.raises(NotImplementedError, match="one dtype"):
-        fa1_attention(big.float(), big, big)
-    with pytest.raises(NotImplementedError, match="bf16 or fp32"):
-        fa1_attention(big.half(), big.half(), big.half())
+    # fp32 has a build since K8's F32 one, fp16 the fp16 unit's, and
+    # mixed types run the fp32 build (P rounded to v's type, O in q's)
+    o = fa1_attention(big.float(), big, big)
+    assert o.dtype == torch.float32
+    _assert_mixed(o, fa1_attention_plain(big.float(), big, big), big,
+                  torch.bfloat16)
+    h = big.half()
+    assert _err(fa1_attention(h, h, h), fa1_attention_plain(h, h, h)) <= GATE
+    with pytest.raises(NotImplementedError, match="bf16, fp16 or fp32"):
+        fa1_attention(big.to(torch.int8), big, big)
 
 
 def test_entry_points_allocate_on_the_card_by_default(dev):
@@ -446,19 +453,20 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     q = torch.zeros(1, 2, 8, 300, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="forward takes d from 1 to 256"):
         flash_attention_forward(q, q, q)
-    q32 = torch.zeros(1, 2, 8, 64, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q32 = _u(gen, dev, 1, 2, 8, 64)
     q16 = q32.half()
-    with pytest.raises(NotImplementedError, match="bf16 or fp32"):
-        flash_attention_forward(q16, q16, q16)
-    # an fp32 Q takes fp32, bf16 or one-byte K/V, not fp16 ones
-    with pytest.raises(NotImplementedError,
-                       match="fp32 Q with fp32 or bf16 K/V"):
-        flash_attention_forward(q32, q16, q16)
+    # fp16 has the fp16 unit's builds, and an fp32 Q over fp16 K/V the
+    # fp32 builds on the K/V upcast: both run now
+    for args in ((q16, q16, q16), (q32, q16, q16)):
+        o, _ = flash_attention_forward(*args)
+        o_p, _ = flash_attention_forward_plain(*args)
+        assert o.dtype == args[0].dtype and _err(o, o_p) <= GATE
     lens = torch.ones(1, dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError, match="bf16 or fp32 q"):
-        decode_attention(q16[:, :, 0], q16, q16, lens)
-    with pytest.raises(NotImplementedError, match="cache"):  # fp16 cache
-        decode_attention(q32[:, :, 0], q16, q16, lens)
+    for qd, kd in ((q16, q16), (q32, q16)):
+        o, _ = decode_attention(qd[:, :, 0], kd, kd, lens)
+        o_p, _ = decode_attention_plain(qd[:, :, 0], kd, kd, lens)
+        assert o.dtype == qd.dtype and _err(o, o_p) <= GATE
     with pytest.raises(ValueError, match="d from 1 to 256"):  # no build
         decode_attention(q[:, :, 0], q, q, lens)
     qd, kd = q[:, :, 0, :64].contiguous(), q[..., :64].contiguous()
@@ -467,10 +475,16 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(NotImplementedError, match="cache"):  # no scales
         decode_attention(qd, kd.to(torch.int8), kd.to(torch.int8), lens)
     lse = torch.zeros(1, 2, 8, device=dev)
-    with pytest.raises(NotImplementedError, match="bf16 or fp32"):
-        flash_attention_backward(q16, q16, q16, q16, lse, q16)
-    with pytest.raises(NotImplementedError, match="all of one type"):
-        flash_attention_backward(q32, q32, q32, q32, lse, q32.bfloat16())
+    # fp16 has its own builds, mixed types the fp32 ones: both run now
+    for args in ((q16, q16, q16, q16, lse, q16),
+                 (q32, q32, q32, q32, lse, q32.bfloat16())):
+        got = flash_attention_backward(*args)
+        want = flash_attention_backward_plain(*args)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and _err(g, w) <= GATE
+    with pytest.raises(NotImplementedError, match="bf16, fp16 or fp32"):
+        flash_attention_backward(q32, q32, q32, q32, lse,
+                                 q32.to(torch.int8))
     # the backward's builds stop at d = 256, in bf16 and fp32 alike
     q300 = torch.zeros(1, 2, 8, 300, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="backward takes d from 1 to 256"):
@@ -1247,12 +1261,13 @@ def test_device_ring_refuses_what_it_does_not_take(dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     x, w = _rand(gen, dev, 4 * 64, 128), _rand(gen, dev, 128, 128)
     mesh = _ring_mesh(dev, 4)
-    # fp32 x and w have a build since K9's F32 one; mixed types and fp16
-    # do not
-    with pytest.raises(NotImplementedError, match="one dtype"):
-        device_ring_matmul(x.float(), w, mesh)
-    with pytest.raises(NotImplementedError, match="bf16 or fp32"):
-        device_ring_matmul(x.half(), w.half(), mesh)
+    # fp32 x and w have a build since K9's F32 one, fp16 the fp16 unit's,
+    # and mixed types run the fp32 build on x and w upcast
+    ref = _ring_ref(x, w, 4)
+    for xx, ww in ((x.float(), w), (x.half(), w.half())):
+        assert _err(device_ring_matmul(xx, ww, mesh), ref) <= 1e-3
+    with pytest.raises(NotImplementedError, match="bf16, fp16 or fp32"):
+        device_ring_matmul(x.to(torch.int8), w, mesh)
     with pytest.raises(ValueError, match="multiple of 64"):
         device_ring_matmul(x[:4 * 40], w, mesh)
     # any d up to 256 runs (padded to the next build); past it, no build
@@ -1871,13 +1886,27 @@ def test_f32_backward_segments(dev, no_tf32, causal):
 
 def test_f32_split_backward_raises_before_any_launch(dev):
     """fused=False takes fp32 since K3's fp32 build (test_f32_split_*);
-    what it still refuses, fp32 q/k/v with a bf16 dO, raises before it
-    launches K2 or K3."""
+    fp32 q/k/v with a bf16 dO, once refused here, runs K2 + K3's fp32
+    builds on dO upcast (P rounded to bf16 before dV, as JAX rounds it),
+    once each behind the prologue; an integer dO still raises before any
+    launch."""
     args = _f32_bwd_inputs(dev, 1, 2, 2, 64, 64, 64, {}, False, 1)
     args = (*args[:5], args[5].to(torch.bfloat16))
     before = dict(flash_attention_backward.launches)
-    with pytest.raises(NotImplementedError, match="all of one type"):
-        flash_attention_backward(*args, fused=False)
+    got = flash_attention_backward(*args, fused=False)
+    want = flash_attention_backward_plain(*args)
+    torch.cuda.synchronize()
+    after = flash_attention_backward.launches
+    assert {n: after[n] - before[n] for n in after} == {
+        "dkdv": 1, "dq": 1, "fused": 0, "delta": 1}
+    for g, w, name in zip(got, want, ("dQ", "dK", "dV")):
+        assert g.dtype == torch.float32
+        top = w.abs().max().item()
+        assert _err(g, w) <= 1e-4 * max(1.0, top) + 2.0 ** -7 * top, name
+    bad = (*args[:5], args[5].to(torch.int8))
+    before = dict(flash_attention_backward.launches)
+    with pytest.raises(NotImplementedError, match="bf16, fp16 or fp32"):
+        flash_attention_backward(*bad, fused=False)
     assert flash_attention_backward.launches == before
 
 
@@ -3939,3 +3968,370 @@ def test_pipeline_training_on_the_card(dev, placed):
         g = p.grad.float()
         assert torch.isfinite(g).all(), n
         assert ((g - want[n]).norm() / want[n].norm()).item() <= 5e-2, n
+
+
+# -- fp16 builds and mixed float types --------------------------------------
+#
+# fp16 runs the fp16 units' builds (csrc/*_f16.cu: bf16's kernels with fp16
+# operands, wgmma .f16, P and dS rounded to fp16) at the bf16 gates. Mixed
+# float types run the fp32 builds on exactly upcast operands, P (dS)
+# rounded to the type JAX rounds it to: held to 1e-4 · max(1, max |plain|)
+# plus one ulp of the output's and of P's type at the plain version's
+# largest |O| and |V| (a P at a rounding boundary may round the other way).
+
+_ULP = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7,
+        torch.float16: 2.0 ** -10}
+
+
+def _u(gen, dev, *shape, scale=1.0):
+    return (torch.rand(shape, generator=gen, device=dev) - 0.5) * scale
+
+
+def _assert_mixed(got, want, v, p_type):
+    o, o_p = got, want
+    top = o_p.float().abs().max().item()
+    vtop = v.float().abs().max().item()
+    assert top > 0 and torch.isfinite(o.float()).all()
+    gate = (1e-4 * max(1.0, top) + _ULP[o_p.dtype] * top
+            + _ULP[p_type] * vtop)
+    assert _err(o, o_p) <= gate, (_err(o, o_p), gate)
+
+
+# Peaked inputs of the bound forms in fp16 (and of any fp16 P): P = 2^(s −
+# c) against the Cauchy–Schwarz bound c is rounded to fp16, whose least
+# subnormal is 2^-24, as the JAX kernel rounds it; at Q x8, K x4 the bound
+# sits ~30 log2 units above the scores and every P underflows (JAX's too).
+# Q x4, K x1 keep c within ~8 units.
+_F16_BOUND_PEAK = (4.0, 1.0)
+
+_F16_FWD = [
+    (2, 16, 4, 512, 512, 128, dict(causal=True)),
+    (1, 4, 2, 37, 53, 64, dict(causal=True, kv_offset=16)),
+    (2, 8, 8, 100, 300, 128, dict()),
+    (1, 8, 4, 300, 300, 256, dict(causal=True)),
+    (1, 4, 2, 200, 200, 200, dict(causal=True)),
+    (2, 4, 2, 90, 90, 16, dict()),
+    (2, 8, 2, 300, 300, 128, dict(causal=True, window=100)),
+    (1, 4, 4, 200, 200, 128, dict(causal=True, window=64, kv_offset=-70)),
+]
+
+
+@pytest.mark.parametrize("peaked", [False, True])
+@pytest.mark.parametrize("qtype", [None, "int8", "fp8", "mixed"])
+@pytest.mark.parametrize("form", ["online", "bound", "kmajor"])
+@pytest.mark.parametrize("b,h,h_kv,nq,nk,d,kw", _F16_FWD)
+def test_f16_forward_forms(dev, b, h, h_kv, nq, nk, d, kw, form, qtype,
+                           peaked):
+    """An fp16 Q over fp16 or one-byte K/V: K1, K1b and K5 of the fp16
+    unit against the plain version (P rounded to fp16), O in fp16; K5 within
+    1e-4 of K1b (fp32 O). Peaked inputs: Q x8, K x4 online; the bound forms
+    Q x4, K x1 (_F16_BOUND_PEAK)."""
+    gen = torch.Generator(device=dev).manual_seed(nq + nk + d)
+    sq, sk = ((8.0, 4.0) if form == "online" else _F16_BOUND_PEAK) if (
+        peaked) else (1.0, 1.0)
+    q = _u(gen, dev, b, h, nq, d, scale=sq).half()
+    k = _u(gen, dev, b, h_kv, nk, d, scale=sk).half()
+    v = _u(gen, dev, b, h_kv, nk, d).half()
+    k, v, scales = _stored(k, v, qtype)
+    kw = dict(kw, **scales)
+    if form == "online":
+        got = flash_attention_forward(q, k, v, softmax="online", **kw)
+        want = flash_attention_forward_plain(q, k, v, softmax="online", **kw)
+    else:
+        got = _pinned(form, q, k, v, out_dtype=torch.float16, **kw)
+        want = flash_attention_forward_plain(
+            q, k, v, softmax="bound_unchecked", **kw)
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.float16
+    _assert_fwd_close(got, want)
+    if form == "kmajor":
+        ref = _pinned("bound", q, k, v, **kw)[0]
+        assert _err(_pinned("kmajor", q, k, v, **kw)[0], ref) <= 1e-4
+
+
+@pytest.mark.parametrize("qtype", ["int8", "mixed", "fp8"])
+def test_f16_forward_quantize_q(dev, qtype):
+    """quantize_q under an fp16 Q: over int8 keys the bf16 unit's int8-Q
+    build (P·V in bf16, as JAX's), O fp16; over fp8 keys the flag is
+    dropped (JAX's rule) and the fp16 build runs."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = _u(gen, dev, 2, 16, 100, 128, scale=_F16_BOUND_PEAK[0]).half()
+    k = _u(gen, dev, 2, 4, 300, 128, scale=_F16_BOUND_PEAK[1]).half()
+    v = _u(gen, dev, 2, 4, 300, 128).half()
+    k, v, scales = _stored(k, v, qtype)
+    kw = dict(causal=True, kv_offset=200, quantize_q=True, **scales)
+    got = flash_attention_forward(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.float16
+    _assert_fwd_close(got, flash_attention_forward_plain(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("block_k", [64, 128])
+@pytest.mark.parametrize("kw", [dict(causal=True), dict(),
+                                dict(causal=True, window=256)])
+def test_f16_forward_tiles_and_segments(dev, block_k, kw):
+    """The fp16 unit's 64- and 128-key builds of K1 and K1b; segment ids."""
+    from cuda_flashattention_torch.ops.common import BlockSizes
+    gen = torch.Generator(device=dev).manual_seed(block_k)
+    q = _u(gen, dev, 1, 16, 1024, 128).half()
+    k, v = _u(gen, dev, 1, 4, 1024, 128).half(), _u(gen, dev, 1, 4, 1024,
+                                                    128).half()
+    bs = BlockSizes(block_k=block_k)
+    for softmax in ("online", "bound"):
+        if softmax == "bound" and kw.get("causal"):
+            continue
+        got = flash_attention_forward(q, k, v, softmax=softmax,
+                                      block_sizes=bs, **kw)
+        want = flash_attention_forward_plain(q, k, v, softmax=softmax, **kw)
+        torch.cuda.synchronize()
+        _assert_fwd_close(got, want)
+    ids = torch.arange(1024, device=dev) // 300
+    seg = dict(q_segment_ids=ids[None], kv_segment_ids=ids[None])
+    got = flash_attention_forward(q, k, v, block_sizes=bs, **seg, **kw)
+    _assert_fwd_close(got, flash_attention_forward_plain(q, k, v, **seg,
+                                                          **kw))
+
+
+def test_f16_out_is_the_fp32_out_rounded(dev):
+    """fp16 O from the fp16 builds' epilogue is their fp32 O rounded."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q = _u(gen, dev, 1, 8, 512, 128).half()
+    k, v = _u(gen, dev, 1, 8, 512, 128).half(), _u(gen, dev, 1, 8, 512,
+                                                   128).half()
+    # K1 causal and K1b (not causal: a causal bound call is K5's, whose
+    # fp32 sums add in any order)
+    for softmax, causal in (("online", True), ("bound_unchecked", False)):
+        o32, _ = flash_attention_forward(q, k, v, causal=causal,
+                                         softmax=softmax,
+                                         out_dtype=torch.float32)
+        o16, _ = flash_attention_forward(q, k, v, causal=causal,
+                                         softmax=softmax)
+        assert torch.equal(o16, o32.half())
+
+
+_MIXED = [(torch.bfloat16, torch.float32, torch.float32),
+          (torch.float16, torch.float32, torch.float32),
+          (torch.float16, torch.bfloat16, torch.bfloat16),
+          (torch.bfloat16, torch.float16, torch.float16),
+          (torch.float32, torch.float16, torch.float16),
+          (torch.bfloat16, torch.bfloat16, torch.float32),
+          (torch.float16, torch.float16, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("form", ["online", "bound", "kmajor"])
+@pytest.mark.parametrize("types", _MIXED)
+def test_mixed_forward(dev, types, form, d, no_tf32):
+    """Q, K, V of mixed float types: the fp32 builds on upcast operands, P
+    rounded to Q's type, O in Q's type, against the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(d)
+    tq, tk, tv = types
+    q = _u(gen, dev, 2, 8, 200, d, scale=_F16_BOUND_PEAK[0]).to(tq)
+    k = _u(gen, dev, 2, 4, 300, d, scale=_F16_BOUND_PEAK[1]).to(tk)
+    v = _u(gen, dev, 2, 4, 300, d).to(tv)
+    kw = dict(causal=True, kv_offset=100)
+    if form == "online":
+        got = flash_attention_forward(q, k, v, softmax="online", **kw)[0]
+        want = flash_attention_forward_plain(q, k, v, softmax="online",
+                                             **kw)[0]
+    else:
+        got = _pinned(form, q, k, v, out_dtype=tq, **kw)[0]
+        want = flash_attention_forward_plain(
+            q, k, v, softmax="bound_unchecked", **kw)[0]
+    torch.cuda.synchronize()
+    assert got.dtype == tq
+    _assert_mixed(got, want, v, tq)
+
+
+@pytest.mark.parametrize("tq", [torch.bfloat16, torch.float16])
+def test_mixed_forward_rounds_p(dev, tq, no_tf32):
+    """The rounding flag acts: a 2-byte Q over fp32 K/V (fp32 O, peaked
+    scores) sits on the plain version that rounds P to Q's type, and off
+    the one that leaves P unrounded (the same call on Q upcast) by far
+    more than its own distance, on average over O."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q = _u(gen, dev, 1, 16, 512, 128, scale=8).to(tq)
+    k = _u(gen, dev, 1, 16, 512, 128, scale=4)
+    v = _u(gen, dev, 1, 16, 512, 128)
+    kw = dict(causal=True, out_dtype=torch.float32, softmax="online")
+    o, _ = flash_attention_forward(q, k, v, **kw)
+    rounded, _ = flash_attention_forward_plain(q, k, v, **kw)
+    unrounded, _ = flash_attention_forward_plain(q.float(), k, v, **kw)
+    near = (o - rounded).abs().mean().item()
+    far = (o - unrounded).abs().mean().item()
+    assert far > 5 * near, (near, far)
+
+
+@pytest.mark.parametrize("peaked", [False, True])
+@pytest.mark.parametrize("qtype,quantize_q", [
+    (None, False), ("int8", False), ("fp8", False), ("mixed", False),
+    ("int8", True), ("mixed", True)])
+@pytest.mark.parametrize("d", [16, 64, 128, 200, 256])
+def test_f16_decode_and_paged(dev, d, qtype, quantize_q, peaked):
+    """K6 and K7 of the fp16-q unit over fp16 and one-byte caches, against
+    the plain version; K7 bit for bit K6 on the same keys."""
+    b, h, h_kv, max_n = 4, 8, 2, 700
+    q, k, v = _decode_inputs(dev, torch.float16, b, h, h_kv, max_n, d, d,
+                             peaked)
+    lens = torch.tensor([700, 1, 333, 0], dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(d)
+    cache, (kq, vq, ks, vs) = _paged_copy(dev, k, v, lens.tolist(), 64, 11,
+                                          qtype, gen)
+    scales = {} if qtype is None else dict(k_scale=ks, v_scale=vs)
+    got = decode_attention(q, kq, vq, lens, quantize_q=quantize_q, **scales)
+    want = decode_attention_plain(q, kq, vq, lens, quantize_q=quantize_q,
+                                  **scales)
+    torch.cuda.synchronize()
+    _assert_decode_close(got, want, torch.float16, quantize_q, peaked)
+    if peaked:
+        top = want[0].float().abs().max().item()
+        assert _err(got[0], want[0]) <= REL_GATE * top
+    paged = paged_decode_attention(q, cache.k_pages, cache.v_pages,
+                                   cache.page_table, lens,
+                                   k_scale=cache.k_scale,
+                                   v_scale=cache.v_scale,
+                                   quantize_q=quantize_q)
+    torch.cuda.synchronize()
+    assert torch.equal(paged[0], got[0]) and torch.equal(paged[1], got[1])
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("tq,tc", [
+    (torch.bfloat16, torch.float32), (torch.float16, torch.float32),
+    (torch.float16, torch.bfloat16), (torch.bfloat16, torch.float16),
+    (torch.float32, torch.float16)])
+def test_mixed_decode_and_paged(dev, tq, tc, d):
+    """A q over a float cache of another type: the fp32-q unit on q upcast,
+    P rounded to q's type, O in q's; K7 bit for bit K6."""
+    b, h, h_kv, max_n = 4, 8, 2, 700
+    gen = torch.Generator(device=dev).manual_seed(d)
+    q = _u(gen, dev, b, h, d, scale=8).to(tq)
+    k = _u(gen, dev, b, h_kv, max_n, d, scale=4).to(tc)
+    v = _u(gen, dev, b, h_kv, max_n, d).to(tc)
+    lens = torch.tensor([700, 1, 333, 0], dtype=torch.int32, device=dev)
+    o, lse = decode_attention(q, k, v, lens)
+    o_p, lse_p = decode_attention_plain(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert o.dtype == tq
+    _assert_mixed(o, o_p, v, tq)
+    assert _err(lse, lse_p) <= 1e-4 * max(1.0, lse_p.abs().max().item())
+    cache, _ = _paged_copy(dev, k, v, lens.tolist(), 64, 11, None, gen)
+    paged = paged_decode_attention(q, cache.k_pages, cache.v_pages,
+                                   cache.page_table, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(paged[0], o) and torch.equal(paged[1], lse)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("d,kw", [
+    (128, dict(causal=True)), (64, dict(causal=True, kv_offset=-20)),
+    (128, dict()), (256, dict(causal=True)), (200, dict(causal=True)),
+    (16, dict(causal=True)), (128, dict(causal=True, window=100)),
+    (128, "segments")])
+def test_f16_backward(dev, d, kw, fused):
+    """K4, K2 + K3 and the prologue of the fp16 unit: gradients in fp16
+    within the bf16 gate of the plain backward (P rounded to dO's type,
+    dS to q's and k's: fp16)."""
+    gen = torch.Generator(device=dev).manual_seed(d + int(fused))
+    b, h, h_kv, n = 2, 8, 4, 300
+    q = _u(gen, dev, b, h, n, d, scale=2).half()
+    k = _u(gen, dev, b, h_kv, n, d, scale=2).half()
+    v, do = _u(gen, dev, b, h_kv, n, d).half(), _u(gen, dev, b, h, n,
+                                                   d).half()
+    if kw == "segments":
+        ids = torch.arange(n, device=dev) // 70
+        kw = dict(causal=True, q_segment_ids=torch.stack([ids, ids]),
+                  kv_segment_ids=torch.stack([ids, ids]))
+    o, lse = flash_attention_forward_plain(q, k, v, **kw)
+    before = dict(flash_attention_backward.launches)
+    got = flash_attention_backward(q, k, v, o, lse, do, fused=fused, **kw)
+    torch.cuda.synchronize()
+    after = flash_attention_backward.launches
+    assert after["delta"] == before["delta"] + 1
+    assert after["fused" if fused else "dq"] == before[
+        "fused" if fused else "dq"] + 1
+    want = flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
+    for g, w, name in zip(got, want, ("dQ", "dK", "dV")):
+        assert g.dtype == torch.float16
+        _assert_rel(g, w, name)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("types", [
+    (torch.bfloat16, torch.float32, torch.float32, torch.float32),
+    (torch.float32, torch.float32, torch.float32, torch.bfloat16),
+    (torch.float16, torch.bfloat16, torch.bfloat16, torch.float16),
+    (torch.float16, torch.float16, torch.float16, torch.float32),
+    (torch.bfloat16, torch.bfloat16, torch.float32, torch.bfloat16)])
+def test_mixed_backward(dev, types, d, fused, no_tf32):
+    """q / k / v / dO not all of one type: the fp32 builds on upcast
+    operands, P rounded to dO's type, dS to q's (dK) and k's (dQ), the
+    gradients in q's, k's, v's types, against the plain backward (1e-4 ·
+    max(1, max |plain|) plus one ulp of the gradient's and the rounded
+    operand's types)."""
+    gen = torch.Generator(device=dev).manual_seed(d)
+    tq, tk, tv, tdo = types
+    b, h, h_kv, n = 1, 8, 4, 300
+    q = _u(gen, dev, b, h, n, d, scale=2).to(tq)
+    k = _u(gen, dev, b, h_kv, n, d, scale=2).to(tk)
+    v, do = _u(gen, dev, b, h_kv, n, d).to(tv), _u(gen, dev, b, h, n,
+                                                   d).to(tdo)
+    o, lse = flash_attention_forward_plain(q.float(), k.float(), v.float(),
+                                           causal=True)
+    got = flash_attention_backward(q, k, v, o, lse, do, causal=True,
+                                   fused=fused)
+    want = flash_attention_backward_plain(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    narrow = max(_ULP[t] for t in types)
+    for g, w, t in zip(got, want, (tq, tk, tv)):
+        assert g.dtype == t
+        top = w.float().abs().max().item()
+        assert top > 0
+        gate = 1e-4 * max(1.0, top) + (_ULP[t] + 2 * narrow) * top
+        assert _err(g, w) <= gate, (_err(g, w), gate)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_f16_and_mixed_fa1(dev, d, causal, no_tf32):
+    """K8: fp16 through the fp16 unit (bf16 gate), mixed types through the
+    fp32 build (P rounded to v's type, O in q's)."""
+    gen = torch.Generator(device=dev).manual_seed(d)
+    q, k, v = (_u(gen, dev, 1, 4, 512, d, scale=2) for _ in range(3))
+    h = [x.half() for x in (q, k, v)]
+    o = fa1_attention(*h, causal=causal)
+    assert o.dtype == torch.float16
+    assert _err(o, fa1_attention_plain(*h, causal=causal)) <= GATE
+    for types in ((torch.float32, torch.bfloat16, torch.bfloat16),
+                  (torch.float16, torch.float32, torch.bfloat16)):
+        m = [x.to(t) for x, t in zip((q, k, v), types)]
+        o = fa1_attention(*m, causal=causal)
+        want = fa1_attention_plain(*m, causal=causal)
+        torch.cuda.synchronize()
+        assert o.dtype == types[0]
+        _assert_mixed(o, want, m[2], types[2])
+
+
+@pytest.mark.parametrize("d", [64, 128, 200, 256])
+@pytest.mark.parametrize("types", [(torch.float16, torch.float16),
+                                   (torch.float32, torch.bfloat16),
+                                   (torch.float16, torch.bfloat16)])
+def test_f16_and_mixed_device_ring(dev, types, d, no_tf32):
+    """K9: fp16 x and w through the fp16 unit (o fp32), x and w of two
+    float types through the fp32 build, against the fp32 reference."""
+    from cuda_flashattention_torch.parallel.device_ring import (
+        device_ring_matmul, ring_matmul_plain)
+    gen = torch.Generator(device=dev).manual_seed(d)
+    n, rows = 4, 256
+    x = _u(gen, dev, n * rows, d).to(types[0])
+    w = _u(gen, dev, d, d).to(types[1])
+    mesh = _ring_mesh(dev, n)
+    o = device_ring_matmul(x, w, mesh)
+    torch.cuda.synchronize()
+    ref = _ring_ref(x, w, n)
+    top = ref.abs().max().item()
+    assert o.dtype == torch.float32
+    gate = (1e-3 if types == (torch.float16,) * 2 else 1e-4) * max(1.0, top)
+    assert _err(o, ref) <= gate
+    assert _err(o, ring_matmul_plain(x, w, mesh)) <= gate

@@ -102,12 +102,19 @@ def test_chip_smoke_fails_alone(tmp_path):
 
 
 def test_build_command_targets_sm90a():
-    """One nvcc per source (started together), then one link."""
+    """One nvcc per source (started together), then one link: each
+    wgmma source and its fp16 unit (`*_f16.cu`, the source included whole
+    under CFA_F16), and the decode walks by q type (bf16, fp16, fp32)."""
     srcs = _build.sources()
+    wgmma = ("flash_fwd", "flash_fwd_bound", "flash_fwd_kmajor", "flash_bwd",
+             "flash_bwd_kv", "fa1", "device_ring")
     assert {s.name for s in srcs} == {
-        "flash_fwd.cu", "flash_fwd_bound.cu", "flash_fwd_kmajor.cu",
-        "flash_bwd.cu", "flash_bwd_kv.cu", "decode.cu", "paged.cu", "fa1.cu",
-        "device_ring.cu"}
+        *(f"{n}{u}.cu" for n in wgmma for u in ("", "_f16")),
+        *(f"{n}{u}.cu" for n in ("decode", "paged")
+          for u in ("", "_f16", "_f32"))}
+    for n in wgmma:
+        unit = (_build.CSRC / f"{n}_f16.cu").read_text()
+        assert "#define CFA_F16 1" in unit and f'#include "{n}.cu"' in unit
     # the bodies the sources share are hashed, not compiled
     assert {"decode_body.cuh", "flash_fwd_bound_sm90.cuh"} <= {
         h.name for h in _build.headers()}

@@ -212,3 +212,15 @@ def test_ptxas_report_parses_verbose_output():
         "_Z1gv": dict(regs=40, stack=0, spill_stores=0, spill_loads=0)}
     assert ptxas_report.demangle(["_Z1gv"], "/nonexistent/nvcc") in (
         ["_Z1gv"], ["g()"])
+
+
+def test_dtype_times_needs_a_card(monkeypatch):
+    """`utils/dtype_times.py` (bf16 against fp16 builds on the card)
+    parses its rounds and raises without a card instead of timing the
+    CPU; each of its rows names a kernel its profiler filter knows."""
+    from cuda_flashattention_torch.utils import dtype_times
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        dtype_times.main(["--rounds", "1"])
+    assert set(dtype_times._NAMES) == {"K1", "K1b", "K5", "K6", "K7", "K4",
+                                       "K2", "K3", "K8", "K9"}
