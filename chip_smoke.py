@@ -8630,10 +8630,12 @@ def main() -> int:
          "flash_fwd_kmajor.cu",
          "flash_fwd.py:399"),
         ("K6", "decode_attention (K6, one-token decode: bf16, int8, fp8 "
-         "and mixed caches, windows, quantize_q)", "decode.cu",
+         "and mixed caches, windows, quantize_q; key tiles through a ring "
+         "of TMA stages, one producer warp)", "decode.cu",
          "decode.py:145"),
         ("K7", "paged_decode_attention (K7, one-token decode over paged "
-         "pools)", "paged.cu", "paged.py:51"),
+         "pools; K6's key tiles, copied as runs inside pages)", "paged.cu",
+         "paged.py:51"),
         ("K8", "fa1_attention (K8, FA1 forward)", "fa1.cu", "fa1.py:54"),
         ("K2", "flash_attention_backward fused=False (K2, dK/dV; wgmma + "
          "TMA)", "flash_bwd_kv.cu", "flash_bwd.py:117"),

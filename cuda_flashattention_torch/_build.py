@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels at first use and bind them with ctypes.
 
 `csrc/*.cu` are compiled by `nvcc` for Hopper (`sm_90a`), one process
-per source, all started together, and linked into one shared library with
+per source, as many at once as this process has CPUs (the decode units,
+the longest, first), and linked into one shared library with
 a plain C interface, under `build/` beside the sources (a directory git
 ignores). The library's file name carries a hash of the sources, the
 headers they share (`csrc/*.cuh`) and the flags, so an edited kernel is
@@ -74,16 +75,16 @@ SIGNATURES = {
     # v_type (0 bf16, 1 int8, 2 fp8, 3 fp32, 4 fp16), qq, p_round (the
     # fp32-q unit: P rounded to bf16 (1) or fp16 (2), a 2-byte q upcast),
     # scale, window, split, stream; q and o bf16 (fp16 in `cfa_decode_f16`,
-    # fp32 in `cfa_decode_f32`)
+    # fp32 in `cfa_decode_f32`); the int8-K caches through the `_i8` ones
     "cfa_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I,
                    _I, _P],
     # q, k_pages, v_pages, k_scale, v_scale, q_sigma, page_table, lengths,
-    # windows, o, lse, part, tickets, B, H, Hkv, page, max_pages, D, k_type,
-    # v_type, qq, p_round, scale, window, split, stream (and `_f16`,
-    # `_f32` as cfa_decode's)
+    # windows, o, lse, part, tickets, B, H, Hkv, page, max_pages, n_pages
+    # (the pools' pages), D, k_type, v_type, qq, p_round, scale, window,
+    # split, stream (and `_f16`, `_f32`, `_i8` as cfa_decode's)
     "cfa_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          ctypes.c_float, _I, _I, _P],
     # q, k, v, o, B, H, Nq, Nk, D, strides[9] (q/k/v: batch, head, row),
     # causal, n_sub, f32 (1 fp32 q/k/v and o, 2 / 3 with P rounded to
@@ -141,6 +142,11 @@ SIGNATURES.update({
                  "cfa_device_ring", "cfa_device_ring_resident")})
 SIGNATURES.update({name + "_f32": SIGNATURES[name]
                    for name in ("cfa_decode", "cfa_paged_decode")})
+# the decode units' int8-K halves (csrc/decode_i8.cu, decode_f16_i8.cu,
+# decode_f32_i8.cu, paged_*_i8.cu), one per q type
+SIGNATURES.update({f"{name}{unit}_i8": SIGNATURES[name]
+                   for name in ("cfa_decode", "cfa_paged_decode")
+                   for unit in ("", "_f16", "_f32")})
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -196,8 +202,35 @@ def _library_path(srcs: List[Path]) -> Path:
     return BUILD_DIR / f"libcfa_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _run_all(cmds: List[List[str]]) -> List[float]:
-    """Run the commands concurrently (a thread waits on each); raise with
+def build_workers() -> int:
+    """The nvcc processes a build runs at once: the CPUs this process may
+    run on (at least one)."""
+    if hasattr(os, "sched_getaffinity"):
+        return max(1, len(os.sched_getaffinity(0)))
+    return max(1, os.cpu_count() or 1)
+
+
+def build_order(srcs: List[Path]) -> List[Path]:
+    """The sources in the order their nvcc starts, the longest first so
+    that no core idles while one of them still runs: the units over the
+    decode body (`decode_body.cuh`, included directly or through
+    decode.cu / paged.cu), whose many template instances make them the
+    build's long pole, and among them the int8-K units (`_i8`: four
+    cache types a build) and the fp32-q ones (four) before those of
+    two; then the others; ties in name order."""
+    def decode_unit(s: Path) -> bool:
+        text = s.read_text()
+        return any(f'#include "{h}"' in text
+                   for h in ("decode_body.cuh", "decode.cu", "paged.cu"))
+    return sorted(srcs, key=lambda s: (not decode_unit(s),
+                                       "_i8" not in s.stem,
+                                       "_f32" not in s.stem, s.name))
+
+
+def _run_all(cmds: List[List[str]],
+             workers: Optional[int] = None) -> List[float]:
+    """Run the commands concurrently, `workers` at a time in the order
+    given (all at once by default; a thread waits on each); raise with
     nvcc's output if any fails. Every process started is waited for.
     Returns each command's seconds."""
     def one(cmd):
@@ -206,7 +239,7 @@ def _run_all(cmds: List[List[str]]) -> List[float]:
                            stderr=subprocess.STDOUT, text=True)
         return p, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+    with ThreadPoolExecutor(max_workers=workers or len(cmds)) as pool:
         done = list(pool.map(one, cmds))
     for cmd, (p, _) in zip(cmds, done):
         if p.returncode != 0:
@@ -223,10 +256,10 @@ def _build(out: Path) -> None:
     # build in a private directory and rename the library into place, so
     # a concurrent process never loads a half-written one
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        srcs = sources()
+        srcs = build_order(sources())
         objs = [Path(tmp) / f"{s.stem}.o" for s in srcs]
         secs = _run_all([compile_command(nvcc, s, o)
-                         for s, o in zip(srcs, objs)])
+                         for s, o in zip(srcs, objs)], build_workers())
         source_seconds.clear()
         source_seconds.update({s.name: t for s, t in zip(srcs, secs)})
         lib = Path(tmp) / out.name

@@ -7,7 +7,7 @@
 // own row width on the build for the next of 16, 32, 64, 128 and 256.
 //
 // Replaces: cuda_flashattention_tpu/ops/decode.py::_decode_kernel. The
-// per-key update and the epilogue (attend_block, decode_epilogue there)
+// per-tile update and the epilogue (attend_block, decode_epilogue there)
 // are in decode_body.cuh, shared with the paged walk of paged.cu.
 //
 // What bounds it on the H100: bytes. Every step reads the visible K and V
@@ -15,21 +15,24 @@
 // about G flops per byte in bf16 (G = H/Hkv query heads per KV head, 4 in
 // the serving model), two orders of magnitude under the card's balance
 // point. A quantized cache halves those bytes (plus 8 bytes of scales per
-// token). But at a serving batch the walk is bound by latency first: one
-// warp attends one key at a time, and B·Hkv row tiles (32 CTAs at B=8,
-// Hkv=4) would leave most of the 132 SMs idle.
+// token).
 //
 // What this design does about it: one CTA per (split of the context, row
 // tile of up to 8 query rows, KV head, batch) serves all the rows of the
 // tile, so K/V are read from device memory once per tile rather than once
-// per query head, and the splits (decode_body.cuh; their size C from the
-// host's rule, ops/decode.py::split_size) put B·Hkv·tiles·length/C CTAs
-// on the card, each walking C keys. Each warp walks its own interleaved
-// share of the split's keys with coalesced loads and keeps a private
-// online softmax in registers; the warps' states merge once in shared
-// memory, the splits' in the same launch by the last CTA of the tile. A
-// window is a loop bound: the walk starts at max(0, length − window), and
-// keys outside it are never read; splits outside it exit at once.
+// per query head, and the splits (their size C from the host's rule,
+// ops/decode.py::split_size) put B·Hkv·tiles·length/C CTAs on the card.
+// A CTA walks its split in key tiles: a producer warp brings each tile in
+// as one TMA box a column part (K and V, over the cache viewed as [B][Hkv]
+// [max_n][d]) into a ring of shared-memory stages while eight consumer
+// warps score, softmax and add the tile before (decode_body.cuh,
+// TileWalk); the splits merge in the same launch. A window is a loop
+// bound: the walk starts at the tile of max(0, length − window), so at
+// most T − 1 keys before the window are copied (and never attended), and
+// splits outside it exit at once. Rows whose bytes are not a multiple of
+// 16 come in by cp.async instead, and rows no cp.async can take (their
+// bytes not a multiple of 4, or a base off 4 bytes) by the producer warp's
+// shifted loads, into the same slots: one walk for every shape.
 
 #include "decode_body.cuh"
 
@@ -39,46 +42,63 @@ using namespace cfa_decode_body;
 
 template <int D, typename QT, typename KT, typename VT, bool QQ,
           int R>
-__global__ void __launch_bounds__(NTHREADS)
-decode_kernel(Args a, const KT* __restrict__ k,  // [B, Hkv, max_n, d]
+__global__ void __launch_bounds__(TILE_THREADS, 3)
+decode_kernel(const __grid_constant__ CUtensorMap mk,  // over k, v (tma)
+              const __grid_constant__ CUtensorMap mv, Args a,
+              const KT* __restrict__ k,  // [B, Hkv, max_n, d]
               const VT* __restrict__ v, int max_n) {
+  using W = TileWalk<D, QT, KT, VT, QQ, R>;
   const int s = blockIdx.x % a.nsplit;
   const int tile = blockIdx.x / a.nsplit;
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
   const int length = min(max(a.lengths[b], 0), max_n);
   const int first = first_key(a, b, length);
   int lo, hi, s_first, s_last;
   if (!split_keys(a, first, length, s, lo, hi, s_first, s_last)) return;
-
-  Body<D, QT, KT, VT, QQ, R> body;
-  body.init(a, b, hk, tile);
   const long long base = ((long long)b * a.Hkv + hk) * max_n;  // in tokens
-  // unrolled: four keys' loads in flight at once, the sums in key order
-#pragma unroll 4
-  for (int j = lo + warp; j < hi; j += NWARPS) {
-    const long long t = base + j;
-    float ks = 1.f, vs = 1.f;
-    if constexpr (Body<D, QT, KT, VT, QQ, R>::kQuant) {
-      ks = a.k_scale[t];
-      vs = a.v_scale[t];
+  // a tile is one box of T rows at the tile's first key (rows past max_n
+  // come in as zeros), or its live keys as one run of cp.async copies (or
+  // shifted loads)
+  auto produce = [&](uint32_t st, uint32_t bar, int j0, int j1, int t0,
+                     int lane) {
+    if (lane == 0) {
+      mbar_expect_tx(bar, a.tma ? W::T * W::TX_ROW : 0);
+      if (a.tma) W::boxes(&mk, &mv, st, bar, 0, t0, hk, b);
     }
-    body.attend(k + t * a.d, v + t * a.d, ks, vs, a.scale);
-  }
+    const long long row = base + j0;
+    W::copy_run(a, st, j0 - t0, j1 - j0, k + row * a.d, v + row * a.d,
+                a.k_scale + row, a.v_scale + row, lane);
+  };
   const int tiles = gridDim.x / a.nsplit;
-  body.finish(a, ((long long)b * a.Hkv + hk) * tiles + tile, s, s_first,
-              s_last);
+  W::run(a, b, hk, tile, lo, hi, ((long long)b * a.Hkv + hk) * tiles + tile,
+         s, s_first, s_last, produce);
 }
 
 template <int D, typename QT, typename KT, typename VT, bool QQ,
           int R>
 struct Launch {
-  static cudaError_t run(const Args& a, const void* k, const void* v, int B,
+  static cudaError_t run(Args a, const void* k, const void* v, int B,
                          int max_n, cudaStream_t stream) {
-    dim3 grid(a.nsplit * ((a.rows + R - 1) / R), a.Hkv, B);
-    decode_kernel<D, QT, KT, VT, QQ, R><<<grid, NTHREADS, 0, stream>>>(
-        a, static_cast<const KT*>(k), static_cast<const VT*>(v), max_n);
+    using W = TileWalk<D, QT, KT, VT, QQ, R>;
+    const dim3 grid(a.nsplit * ((a.rows + R - 1) / R), a.Hkv, B);
+    // the maps over [B][Hkv][max_n] rows, boxes of T rows
+    CUtensorMap mk{}, mv{};
+    a.tma = a.gran == 16 && max_n > 0;
+    a.box_rows = W::T;
+    if (a.tma && !(encode_rows(&mk, k, W::EK, a.d, max_n, a.Hkv, B,
+                               W::G.bw, W::T) &&
+                   encode_rows(&mv, v, W::EK, a.d, max_n, a.Hkv, B,
+                               W::G.bw, W::T)))
+      return cudaErrorInvalidValue;
+    static unsigned smem_set = 0;
+    const cudaError_t err =
+        allow_smem(decode_kernel<D, QT, KT, VT, QQ, R>, W::BYTES, smem_set);
+    if (err != cudaSuccess) return err;
+    decode_kernel<D, QT, KT, VT, QQ, R>
+        <<<grid, TILE_THREADS, W::BYTES, stream>>>(
+            mk, mv, a, static_cast<const KT*>(k), static_cast<const VT*>(v),
+            max_n);
     return cudaGetLastError();
   }
 };
@@ -98,6 +118,9 @@ struct Launch {
 // host's rule); with more than one split of max_n, part [B·Hkv·row tiles
 // · ceil(max_n / C) · R · (D + 2)] fp32 and tickets [B·Hkv·row tiles]
 // int32 are the call's scratch (tickets are zeroed here, on the stream).
+// The int8-K caches (k_type 1) run the entry points of the *_i8.cu units
+// (cfa_decode_i8, cfa_decode_f16_i8, cfa_decode_f32_i8), the others these;
+// each refuses the other's with cudaErrorInvalidValue.
 extern "C" int cfa_decode(const void* q, const void* k, const void* v,
                           const void* k_scale, const void* v_scale,
                           const void* q_sigma, const void* lengths,
@@ -108,7 +131,7 @@ extern "C" int cfa_decode(const void* q, const void* k, const void* v,
                           void* stream) {
   if (B == 0 || H == 0) return cudaSuccess;
   if (Hkv <= 0 || H % Hkv != 0 || max_n < 0) return cudaErrorInvalidValue;
-  Args a;
+  Args a{};
   a.q = q;
   a.q_sigma = static_cast<const float*>(q_sigma);
   a.k_scale = static_cast<const float*>(k_scale);
@@ -123,8 +146,7 @@ extern "C" int cfa_decode(const void* q, const void* k, const void* v,
   a.window = window;
   a.d = D;
   a.p_round = p_round;
-  a.vec = vector_loads(D, q, qq ? 1 : (int)sizeof(DecodeQ), k, k_type, v,
-                       v_type);
+  a.gran = copy_granularity(D, k, k_type, v, v_type);
   if (build_dim(D) == 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = prepare_split(&a, B, max_n, split, part, tickets, st);

@@ -1,0 +1,7 @@
+// The int8-K unit of paged.cu for a bf16 q (decode_body.cuh, kI8Unit): its
+// builds over int8 and int8-K / fp8-V caches, with and without an int8 Q,
+// under the entry point cfa_paged_decode_i8; paged.cu builds the other
+// caches.
+#define CFA_DECODE_I8 1
+#define cfa_paged_decode cfa_paged_decode_i8
+#include "paged.cu"

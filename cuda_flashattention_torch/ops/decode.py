@@ -4,14 +4,17 @@ Counterpart of cuda_flashattention_tpu/ops/decode.py (`decode_attention`).
 On a CUDA tensor it launches the hand-written Hopper kernel of
 csrc/decode.cu (one CTA per (split of the context, tile of up to 8 query
 rows, KV head, batch), natural-exp online softmax, keys outside
-[length − window, length) never read, the splits merged in the same
+[length − window, length) never attended, the splits merged in the same
 launch). On a CPU tensor it runs `decode_attention_plain`, a dense PyTorch
-version of the same numerics. `split_size`, `decode_splits` and
-`warp_keys` state the kernels' partition of the context, which the paged
-kernel shares.
+version of the same numerics. `split_size`, `decode_splits`, `key_tile`,
+`tile_runs` and `slice_keys` state the kernels' partition of the context
+into splits and key tiles and the order in which each tile's keys are
+added, which the paged kernel shares; `row_copy` states how a call's rows
+reach the key slots (every shape runs the one walk).
 
-Q may be bf16, fp16 or fp32 (one translation unit of the kernel each:
-csrc/decode.cu, decode_f16.cu, decode_f32.cu) and the head dim any d from
+Q may be bf16, fp16 or fp32 (two translation units of the kernel each:
+csrc/decode.cu, decode_f16.cu, decode_f32.cu over the float and fp8
+caches, their `_i8` units over the int8-K ones) and the head dim any d from
 1 to 256: the kernel reads the cache in place at its own row width on the
 build for the next of 16, 32, 64, 128 and 256 (lanes mask the columns
 past d). The cache may be bf16, fp16, fp32, int8, fp8 e4m3 or mixed (int8
@@ -52,14 +55,22 @@ _FLOATS = (torch.bfloat16, torch.float16, torch.float32)
 _UNITS = {torch.bfloat16: "", torch.float16: "_f16", torch.float32: "_f32"}
 
 # The split of the context shared by K6 and K7 (csrc/decode_body.cuh):
-# warps per CTA; keys per split at d = 128 (at d = 64 twice as many, so a
-# split reads as many bytes); the grid of B·Hkv·row tiles CTAs at which a
-# call already fills the card (about four 128-thread CTAs per SM of an
-# H100) and is walked unsplit.
-DECODE_WARPS = 4
-SPLIT_KEYS = 128
-SPLIT_FILL_CTAS = 512
+# keys per split at d = 128, eight of the tile walk's 32-key tiles, so that
+# a CTA's ring of three stages runs full for most of its walk (the sweep
+# of `utils/ab_kernels.py decode-sweep` at B=8 × Hkv=4 on an H100: 256
+# keys beat 128 and 512 at 640 and at 4224 live keys); at d = 256 half as
+# many keys, so a split reads as many bytes; at d <= 64 twice as many (the
+# tiles there hold 64 or 128 keys and a key costs little); and the grid of
+# B·Hkv·row tiles CTAs at which a call already fills the card (three
+# tile-walk CTAs, up to ~70 KB of shared memory each, per SM of 132) and
+# is walked unsplit.
+SPLIT_KEYS = 256
+SPLIT_FILL_CTAS = 396
 NO_SPLIT = 1 << 30  # a split size no cache reaches: one split
+# The tile walk (csrc/decode_body.cuh, TileWalk): its consumer threads,
+# which score a tile's keys and add them; the K tile's byte budget.
+TILE_CONSUMERS = 256
+TILE_BYTES = 8192
 
 
 def tile_rows(rows: int) -> int:
@@ -72,12 +83,11 @@ def split_size(b: int, h_kv: int, row_tiles: int, d: int) -> int:
     """C, the keys of one split of a decode walk, from the call's shape
     alone (never from the cache's capacity or the lengths), so that the
     contiguous (K6) and the paged (K7) kernels split alike: unsplit once
-    b·h_kv·row_tiles CTAs fill the card, else SPLIT_KEYS·128/d keys (a
-    split holds the bytes of 128 keys at d = 128 at every d: 64 keys at
-    d = 256)."""
+    b·h_kv·row_tiles CTAs fill the card, else SPLIT_KEYS·128/max(d, 64)
+    keys (256 at d = 128, 128 at d = 256, 512 at d ≤ 64)."""
     if b * h_kv * row_tiles >= SPLIT_FILL_CTAS:
         return NO_SPLIT
-    return SPLIT_KEYS * 128 // d
+    return SPLIT_KEYS * 128 // max(d, 64)
 
 
 def decode_splits(first: int, length: int, split: int,
@@ -97,20 +107,75 @@ def decode_splits(first: int, length: int, split: int,
     return out
 
 
-def warp_keys(lo: int, hi: int, warp: int, page: int = 0) -> List[int]:
-    """The keys of split [lo, hi) that `warp` attends, in its order: key j
-    goes to warp (j − lo) mod DECODE_WARPS. With `page` > 0, as the paged
-    kernel reaches them (page by page, the first key of each page that
-    belongs to the warp found from the page's first key in the split);
-    otherwise as the contiguous kernel strides through them."""
-    if page <= 0:
-        return list(range(lo + warp, hi, DECODE_WARPS))
-    keys = []
-    for ip in range(lo // page, (hi - 1) // page + 1):
-        p_lo, p_hi = max(lo, ip * page), min(hi, (ip + 1) * page)
-        j = p_lo + ((warp - (p_lo - lo)) & (DECODE_WARPS - 1))
-        keys.extend(range(j, p_hi, DECODE_WARPS))
-    return keys
+def key_tile(d: int, elem_bytes: int) -> int:
+    """T, the keys of one tile of the tile walk at row width d over a
+    cache of `elem_bytes`-byte elements (`geom` in csrc/decode_body.cuh):
+    128 while a row of the build D (the next of DECODE_HEAD_DIMS) holds at
+    most 64 bytes, else as many as fit TILE_BYTES of K (32 at d = 128 in
+    bf16, 16 at d = 256, 8 for an fp32 cache at d = 256)."""
+    slot = run_dim(d, DECODE_HEAD_DIMS) * elem_bytes
+    return 128 if slot <= 64 else TILE_BYTES // slot
+
+
+def key_slices(d: int) -> int:
+    """The key slices of P·V at row width d: 2·TILE_CONSUMERS / D (each
+    consumer thread owns two of the build D's columns)."""
+    return 2 * TILE_CONSUMERS // run_dim(d, DECODE_HEAD_DIMS)
+
+
+def tile_runs(lo: int, hi: int, tile: int,
+              page: int = 0) -> List[Tuple[int, List[Tuple[int, int]]]]:
+    """The key tiles a CTA walks over split [lo, hi), in order: (t0, runs)
+    for the tile of keys [t0, t0 + tile) (t0 a multiple of `tile`, so the
+    tiles are the key index's alone), `runs` the (first, end) stretches of
+    its live keys [max(lo, t0), min(hi, t0 + tile)) that the producer warp
+    copies as consecutive rows: the whole live range for a contiguous cache
+    (`page` 0), one stretch per page it touches for pools of `page`-token
+    pages. Key j lands in slot j − t0 either way, so both walks hand the
+    consumers the same slots."""
+    out = []
+    for t0 in range(lo // tile * tile, hi, tile):
+        j0, j1 = max(lo, t0), min(hi, t0 + tile)
+        if page <= 0:
+            runs = [(j0, j1)]
+        else:
+            runs = [(max(j0, ip * page), min(j1, (ip + 1) * page))
+                    for ip in range(j0 // page, (j1 - 1) // page + 1)]
+        out.append((t0, runs))
+    return out
+
+
+def slice_keys(j0: int, j1: int, t0: int, d: int, ks: int) -> List[int]:
+    """The live keys [j0, j1) of the tile at t0 that P·V's key slice `ks`
+    adds, in its order: slots j − t0 ≡ ks (mod `key_slices(d)`); the
+    slices' sums add in slice order once the walk is over."""
+    return [j for j in range(j0, j1) if (j - t0) % key_slices(d) == ks]
+
+
+def row_copy(d: int, k: torch.Tensor, v: torch.Tensor) -> int:
+    """How the producer warp brings a call's K and V rows into the key
+    slots (K6 and K7 alike; `copy_granularity` in csrc/decode_body.cuh):
+    the bytes of one cp.async, 16, 8 or 4, the largest that divides the
+    row's bytes (d · the element size) and both bases' addresses (at 16,
+    TMA boxes where the layout allows); 0 where none does, for rows read
+    as aligned words shifted into place: an odd d over a 2-byte cache (d =
+    7, 91), d not a multiple of 4 over a one-byte one (d = 90 over int8),
+    a cache view whose base is off 4 bytes. Each way fills the same slots,
+    which the consumers read alike, so the result does not depend on it."""
+    row = d * k.element_size()
+    for g in (16, 8, 4):
+        if row % g == 0 and k.data_ptr() % g == 0 and v.data_ptr() % g == 0:
+            return g
+    return 0
+
+
+def entry_point(name: str, unit: str, k_code: int) -> str:
+    """The C entry point of a call: `name` ("cfa_decode",
+    "cfa_paged_decode") with the q type's unit suffix ("", "_f16",
+    "_f32"), and "_i8" over an int8-K cache (code 1), whose builds are
+    units of their own (csrc/*_i8.cu) so that no unit's nvcc outlasts the
+    others by far."""
+    return name + unit + ("_i8" if k_code == _TYPE_CODES[torch.int8] else "")
 
 
 def default_decode_block_k(k_dtype, v_dtype, q_dtype, qq: bool, window: int,
@@ -347,7 +412,8 @@ def _decode_cuda(q, k, v, lengths, k_scale, v_scale, scale, window, windows,
         split, part, tickets = split_scratch(b, h_kv, h // h_kv, d, max_n,
                                              q.device, block_k)
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(_build.library(), "cfa_decode" + unit)(
+        err = getattr(_build.library(),
+                      entry_point("cfa_decode", unit, kt))(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             optional_ptr(k_scale), optional_ptr(v_scale),
             optional_ptr(q_sigma), lengths.data_ptr(), optional_ptr(windows),
@@ -398,8 +464,10 @@ def decode_attention(
     over a float cache of another type runs the fp32 build on q upcast,
     `kernel_inputs`). `block_k`: the split size
     (module docstring; clamped to the capacity); every size gives the
-    same result up to the order of the splits' merge. The count of its
-    launches is `decode_attention.launches`."""
+    same result up to the order of the splits' merge. Every shape runs
+    the one walk (rows that no cp.async can take, `row_copy` 0, come in
+    by shifted loads into the same slots; a launch error raises). The
+    count of its launches is `decode_attention.launches`."""
     if q.ndim != 3 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"expected q [B,H,d] and k/v [B,Hkv,N,d], got q "
                          f"{tuple(q.shape)} k {tuple(k.shape)} "

@@ -14,8 +14,10 @@ instead of one contiguous strip per sequence:
 
 On CUDA tensors `paged_decode_attention` launches the hand-written Hopper
 kernel of csrc/paged.cu, which gathers through the table as it walks (no
-copy is materialised) and shares its arithmetic, its split of the context
-and the splits' merge with the contiguous decode (csrc/decode_body.cuh,
+copy is materialised: each key tile is copied into shared memory as the
+runs of keys that lie in one page each, `ops/decode.py::tile_runs`) and
+shares its arithmetic, its split of the context, its key tiles and the
+splits' merge with the contiguous decode (csrc/decode_body.cuh,
 ops/decode.py::split_size). On CPU tensors it runs
 `paged_decode_attention_plain`, which gathers each sequence's live pages
 and runs `decode_attention_plain` on them. The caches are updated in
@@ -38,6 +40,7 @@ from cuda_flashattention_torch.ops.common import (
 from cuda_flashattention_torch.ops.decode import (
     decode_attention_plain,
     UNIT_DTYPES,
+    entry_point,
     kernel_inputs,
     optional_ptr,
     split_scratch,
@@ -116,13 +119,14 @@ def _paged_cuda(q, k_pages, v_pages, page_table, lengths, k_scale, v_scale,
         split, part, tickets = split_scratch(b, h_kv, h // h_kv, d,
                                              ps * max_pages, q.device)
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(_build.library(), "cfa_paged_decode" + unit)(
+        err = getattr(_build.library(),
+                      entry_point("cfa_paged_decode", unit, kt))(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             optional_ptr(k_scale), optional_ptr(v_scale),
             optional_ptr(q_sigma), table.data_ptr(), lengths.data_ptr(),
             optional_ptr(windows), o.data_ptr(), lse.data_ptr(),
             optional_ptr(part), optional_ptr(tickets), b, h, h_kv, ps,
-            max_pages, d, kt, vt, int(qq), p_round,
+            max_pages, k_pages.shape[0], d, kt, vt, int(qq), p_round,
             resolve_scale(scale, d), int(window or 0), split, stream)
     _build.check(err, "paged_decode_attention kernel launch")
     paged_decode_attention.launches += 1
@@ -155,8 +159,9 @@ def paged_decode_attention(
     Returns (o [B,H,d] in q's dtype, lse [B,H] fp32). H may be any
     multiple of Hkv: rows beyond 8 per KV head go to further CTAs. On the
     card the kernel takes what `decode_attention`'s takes, at any
-    page_size ≥ 1; the count of its launches is
-    `paged_decode_attention.launches`."""
+    page_size ≥ 1, walking the same key tiles as `decode_attention` with
+    each key in the same slot (so K7 gives K6's bits); the count of its
+    launches is `paged_decode_attention.launches`."""
     if q.ndim != 3 or k_pages.ndim != 4 or k_pages.shape != v_pages.shape:
         raise ValueError(f"expected q [B,H,d] and pools [n_pages,Hkv,page,d]"
                          f", got q {tuple(q.shape)} k_pages "

@@ -258,11 +258,13 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
 
 def shutdown_distributed() -> None:
     """Wait for the sends still in flight, run what `at_shutdown`
-    registered (in order) and leave the group."""
+    registered (in order) and leave the group together (`_leave`: the
+    store's host, process 0, leaves last)."""
     global _DISTRIBUTED_INITIALIZED, _WORLD, TRANSPORT
     if _WORLD is None:
         return
     import torch.distributed as dist
+    world = _WORLD
     try:
         _settle()
         while _SHUTDOWN_HOOKS:
@@ -271,7 +273,31 @@ def shutdown_distributed() -> None:
         _WORLD, TRANSPORT = None, None
         _DISTRIBUTED_INITIALIZED = False
         if dist.is_initialized():
-            dist.destroy_process_group()
+            try:
+                _leave(world)
+            finally:
+                dist.destroy_process_group()
+
+
+_LEFT_KEY = "cfa/shutdown/left"
+
+
+def _leave(world: "_World") -> None:
+    """Process 0 hosts the group's store and takes it down when it
+    destroys the group, so it must not leave while another process still
+    needs the store: a process that comes to its shutdown later (its
+    hooks' closing barriers, a last `store_barrier`) would then wait on a
+    store that is gone, until its timeout. So every other process, once
+    its hooks are done, counts itself out through the store (the last one
+    out says so), and process 0 waits for that before it leaves."""
+    if world.nproc < 2:
+        return
+    st = store()
+    if world.process != 0:
+        if st.add(_LEFT_KEY, 1) == world.nproc - 1:
+            st.set(f"{_LEFT_KEY}/all", b"1")
+    else:
+        st.wait([f"{_LEFT_KEY}/all"])
 
 
 def at_shutdown(fn: Callable[[], None]) -> None:

@@ -2,12 +2,12 @@
 commits on one card within one call.
 
     python3 cuda_flashattention_torch/utils/ab_kernels.py <checkout root>
-                                                          [K9 | decode]
+                                         [K9 | decode | decode-sweep]
 
 imports `cuda_flashattention_torch` from <checkout root> (building its
 kernels there), and prints, on bf16 inputs with d=128 (with `K9`, only the
 last item; with `decode`, only the K6 and K7 rows, without the split
-sweep):
+sweep; with `decode-sweep`, the K6 and K7 rows and their split sweep):
   - the online forward (K1) and the fused backward (K4), both causal, at
     the serving prefill shape (B=8, H=16, Hkv=4, N=512, fp32 out) and the
     training shape (B=1, H=16, N=4096, bf16 out); K1 there also under
@@ -30,7 +30,18 @@ sweep):
     128-token pages, each on a cold L2 (a 256 MiB write before every
     call, as a server's decode step finds the cache); where the checkout
     splits the context (`ops.decode.SPLIT_KEYS`), the same three rows
-    under split sizes of 64, 128, 256 and 512 keys and unsplit;
+    under split sizes of 64, 128, 256 and 512 keys and unsplit; then, at
+    4224 live of 4352, cold: K6 over int8, fp8 and mixed caches, int8
+    under `quantize_q`, an fp32 q over an fp32 cache, K7 over an int8
+    pool and the whole paged step (`paged_decode_step`, wrapper ms); the
+    Gemma-width shape (B=8, H=8, Hkv=4, d=256) K6 over bf16 and int8 and
+    K7 over bf16; K6 at d = 8, 16 and 32, and at d = 7 and 91, whose
+    rows no cp.async can take (B=8, H=16, Hkv=4, bf16); the wrapper
+    warm, back to back (its host time per call where that exceeds the
+    kernel's: K6 at 640 live, K7 at 4224); and
+    beside them the library call, one `scaled_dot_product_attention`
+    with a one-row query under the length mask, on the same bf16 keys
+    (the rows named "SDPA");
   - the device ring (K9, `device_ring_matmul`) with its ranks sharing the
     card: L=1024 at n=1, 4 (the example stage) and 8, L=8192 at n=1, 4
     and 8 (kernel alone per launch: its time per hop is (n8 − n1) / 7).
@@ -72,14 +83,15 @@ def main(root: str, only: str = "") -> None:
 
     def report(label, fn, word, iters, cold=False):
         """`label`: wrapper ms, the device ms per call of the kernels whose
-        name holds `word` (each launches once a call) and each listed
+        name holds `word` (each launches once a call; none for word None:
+        a library call, whose time is the wrapper's) and each listed
         package kernel's ms per launch; with `cold`, each call follows a
         write that evicts the L2 cache."""
         wrapper = cuda_time_ms(fn, iters=iters,
                                before=flush.zero_ if cold else None)
         prof = kernel_times((lambda: (flush.zero_(), fn())) if cold else fn,
                             iters=max(1, iters // 4))
-        names = [n for n in prof.ms if word in n]
+        names = [n for n in prof.ms if word and word in n]
         per_call = sum(prof.ms[n] / prof.count[n] for n in names)
         each = ", ".join(f"{short(n)} "
                          f"{prof.ms[n] / prof.count[n]:.4f}" for n in prof.ms
@@ -103,10 +115,10 @@ def main(root: str, only: str = "") -> None:
         device_ring_rows()
         return
 
-    if only != "decode":
+    if not only.startswith("decode"):
         forward_backward_rows(mk, dev, report)
     _decode_rows(mk, gen, dev, report, sweep=only != "decode")
-    if only != "decode":
+    if not only.startswith("decode"):
         device_ring_rows()
 
 
@@ -242,6 +254,107 @@ def _decode_rows(mk, gen, dev, report, sweep):
                     report(f"{label}, {name}", fn, word, 40, cold=True)
         finally:
             dec.SPLIT_KEYS = keys
+    _decode_forms(mk, gen, dev, report)
+
+
+def _decode_forms(mk, gen, dev, report):
+    """K6 / K7 at 4224 live of 4352 keys, cold, over the other cache types
+    and q types, at the Gemma width and at narrow heads, each beside the
+    library call on its bf16 keys."""
+    import torch
+    import torch.nn.functional as F
+
+    from cuda_flashattention_torch.ops.decode import decode_attention
+    from cuda_flashattention_torch.ops.paged import (
+        paged_decode_attention, paged_decode_step, PagedKVCache)
+    from cuda_flashattention_torch.ops.quant import quantize_kv
+
+    live, cap, page = 4224, 4352, 128
+
+    def inputs(b, h, hkv, d):
+        q = mk(b, h, d, peak=8)
+        k, v = mk(b, hkv, cap, d, peak=4), mk(b, hkv, cap, d)
+        return q, k, v, torch.full((b,), live, dtype=torch.int32, device=dev)
+
+    def pools(k, v, ks=None, vs=None):
+        """The first `live` keys of each sequence in `page`-token pages
+        behind a shuffled table."""
+        b, hkv, _, d = k.shape
+        per = live // page
+        order = torch.randperm(b * per, generator=gen, device=dev)
+
+        def paged(x):
+            x = x[:, :, :live].reshape(b, hkv, per, page, *x.shape[3:])
+            x = x.transpose(1, 2).reshape(b * per, hkv, page, *x.shape[4:])
+            return x[order].contiguous()
+        table = torch.argsort(order).to(torch.int32).reshape(b, per)
+        return (paged(k), paged(v), None if ks is None else paged(ks),
+                None if vs is None else paged(vs), table)
+
+    def sdpa(label, q, k, v, lens):
+        b, h, d = q.shape
+        mask = (torch.arange(k.shape[2], device=dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        report(f"SDPA {label}", lambda: F.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=mask, enable_gqa=True), None,
+            40, cold=True)
+
+    q, k, v, lens = inputs(8, 16, 4, 128)
+    rows = []
+    for qtype in ("int8", "fp8", "mixed"):
+        kv = quantize_kv(k, v, qtype)
+        sc = dict(k_scale=kv.k_scale, v_scale=kv.v_scale)
+        rows.append((f"K6 {qtype} 4224 live", "decode_k",
+                     lambda kv=kv, sc=sc: decode_attention(
+                         q, kv.k_q, kv.v_q, lens, **sc)))
+        if qtype == "int8":
+            rows.append(("K6 int8 + quantize_q 4224 live", "decode_k",
+                         lambda kv=kv, sc=sc: decode_attention(
+                             q, kv.k_q, kv.v_q, lens, quantize_q=True,
+                             **sc)))
+            kp, vp, ksp, vsp, table = pools(kv.k_q, kv.v_q, kv.k_scale,
+                                            kv.v_scale)
+            rows.append(("K7 int8 4224 live", "paged_k",
+                         lambda kp=kp, vp=vp, ksp=ksp, vsp=vsp, table=table:
+                         paged_decode_attention(q, kp, vp, table, lens,
+                                                k_scale=ksp, v_scale=vsp)))
+    qf, kf, vf = q.float(), k.float(), v.float()
+    rows.append(("K6 fp32 q over fp32 4224 live", "decode_k",
+                 lambda: decode_attention(qf, kf, vf, lens)))
+    kp, vp, _, _, table = pools(k, v)
+    cache = PagedKVCache(kp, vp, None, None, table, lens.clone())
+    rows.append(("paged step (paged_decode_step) 4224 live", "paged_k",
+                 lambda: paged_decode_step(q, cache)))
+    sdpa_rows = [("d=128 4224 live", q, k, v, lens)]
+    q2, k2, v2, lens2 = inputs(8, 8, 4, 256)
+    kv2 = quantize_kv(k2, v2, "int8")
+    kp2, vp2, _, _, table2 = pools(k2, v2)
+    rows += [
+        ("K6 d=256 4224 live", "decode_k",
+         lambda: decode_attention(q2, k2, v2, lens2)),
+        ("K6 d=256 int8 4224 live", "decode_k",
+         lambda: decode_attention(q2, kv2.k_q, kv2.v_q, lens2,
+                                  k_scale=kv2.k_scale, v_scale=kv2.v_scale)),
+        ("K7 d=256 4224 live", "paged_k",
+         lambda: paged_decode_attention(q2, kp2, vp2, table2, lens2))]
+    sdpa_rows.append(("d=256 4224 live", q2, k2, v2, lens2))
+    for d in (8, 16, 32, 7, 91):
+        qn, kn, vn, lensn = inputs(8, 16, 4, d)
+        rows.append((f"K6 d={d} 4224 live", "decode_k",
+                     lambda qn=qn, kn=kn, vn=vn, lensn=lensn:
+                     decode_attention(qn, kn, vn, lensn)))
+        sdpa_rows.append((f"d={d} 4224 live", qn, kn, vn, lensn))
+    for label, word, fn in rows:
+        report(label, fn, word, 40, cold=True)
+    # the wrapper warm and back to back: host time per call
+    q6, k6, v6 = q, k[:, :, :640].contiguous(), v[:, :, :640].contiguous()
+    lens6 = torch.full((8,), 640, dtype=torch.int32, device=dev)
+    report("K6 640 live, warm", lambda: decode_attention(q6, k6, v6, lens6),
+           "decode_k", 200)
+    report("paged step 4224 live, warm", lambda: paged_decode_step(q, cache),
+           "paged_k", 200)
+    for row in sdpa_rows:
+        sdpa(*row)
 
 
 if __name__ == "__main__":

@@ -3351,7 +3351,9 @@ def test_decode_any_width(dev, d, qtype):
 @pytest.mark.parametrize("qtype", [None, "int8"])
 def test_decode_any_width_misaligned_views(dev, qtype):
     """A cache that is a view starting one element in (its base off the
-    vector alignment): element loads, the same result as the copy."""
+    4-byte alignment cp.async needs): its rows come in by shifted loads
+    into the slots the aligned copy's TMA boxes fill, so the result is the
+    copy's, bit for bit."""
     b, h, h_kv, max_n, d = 2, 4, 2, 300, 128
     lens = torch.tensor([300, 77], dtype=torch.int32, device=dev)
     q, k, v = _decode_inputs(dev, torch.bfloat16, b, h, h_kv, max_n, d, 1,
@@ -3362,10 +3364,144 @@ def test_decode_any_width_misaligned_views(dev, qtype):
     kb.view(torch.uint8)[k.element_size():] = k.reshape(-1).view(torch.uint8)
     vb.view(torch.uint8)[v.element_size():] = v.reshape(-1).view(torch.uint8)
     ko, vo = kb[1:].view(k.shape), vb[1:].view(v.shape)
+    from cuda_flashattention_torch.ops import decode as dec
+    assert dec.row_copy(d, ko, vo) == 0 and dec.row_copy(d, k, v) == 16
     got = decode_attention(q, ko, vo, lens, **scales)
     torch.cuda.synchronize()
     want = decode_attention(q, k, v, lens, **scales)
     assert _err(got[0], want[0]) <= 1e-6 and _err(got[1], want[1]) <= 1e-6
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# ---------------------------------------------------------------------------
+# The tile walk's edges (csrc/decode_body.cuh, TileWalk): key tiles of T
+# keys at multiples of T, splits of C keys; K7 bit-equal to K6 on the same
+# keys at page sizes 16, 64 and 128; rows copied each way the walk copies.
+# ---------------------------------------------------------------------------
+
+_TILE_FORMS = [dict(), dict(window=90), dict(windows=[0, 1, 70, 100, 63, 3]),
+               dict(quantize_q=True), dict(block_k=100),
+               dict(block_k=100, window=150, quantize_q=True)]
+
+
+def _launch_counts():
+    from cuda_flashattention_torch.ops.paged import paged_decode_attention
+    return decode_attention.launches, paged_decode_attention.launches
+
+
+def _paged_same_bits(dev, q, k, v, lengths, qtype, gen, kw, pages):
+    """K7 over pools of each page size holding the same keys (their own
+    quantisation of k, v) against K6 on those keys: bit for bit."""
+    kw = {x: y for x, y in kw.items() if x != "block_k"}
+    for page in pages:
+        cache, (kq, vq, ks, vs) = _paged_copy(
+            dev, k, v, lengths, page, -(-max(lengths) // page) + 2, qtype,
+            gen)
+        o_k, lse_k = paged_decode_step(q, cache, **kw)
+        torch.cuda.synchronize()
+        o_c, lse_c = decode_attention(q, kq, vq, cache.lengths, k_scale=ks,
+                                      v_scale=vs, **kw)
+        assert torch.equal(o_k, o_c) and torch.equal(lse_k, lse_c), page
+
+
+@pytest.mark.parametrize("kw", _TILE_FORMS)
+@pytest.mark.parametrize("qtype", [None, "int8", "fp8", "mixed"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_decode_tile_edges(dev, d, qtype, kw):
+    """Lengths 0, 1, T − 1, T + 1, 2T + 1 and past a split (T: the walk's
+    key tile at this d), a window whose first key falls inside a tile,
+    per-sequence windows, `quantize_q`, a split size of 100 keys (not a
+    multiple of T), every cache type, on peaked inputs and NaN past each
+    live context: K6 at the decode gates of the plain version; K7 over
+    16-, 64- and 128-token pages bit-equal to K6."""
+    from cuda_flashattention_torch.ops import decode as dec
+    t = dec.key_tile(d, 1 if qtype else 2)
+    lengths = [0, 1, t - 1, t + 1, 2 * t + 1, 700]
+    b, h, h_kv, max_n = len(lengths), 8, 2, 704
+    q, k, v = _decode_inputs(dev, torch.bfloat16, b, h, h_kv, max_n, d,
+                             d + t, True)
+    for i, n in enumerate(lengths):
+        k[i, :, n:] = float("nan")
+        v[i, :, n:] = float("nan")
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    kw = dict(kw)
+    if "windows" in kw:
+        kw["windows"] = torch.tensor(kw["windows"], dtype=torch.int32,
+                                     device=dev)
+    kq, vq, scales = _stored(k, v, qtype)
+    before = _launch_counts()
+    got = decode_attention(q, kq, vq, lens, **scales, **kw)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before[0] + 1
+    assert torch.all(got[0][0] == 0) and torch.all(got[1][0] == -1e30)
+    want = decode_attention_plain(q, kq, vq, lens, **scales, **kw)
+    qq = kw.get("quantize_q", False) and qtype in ("int8", "mixed")
+    _assert_decode_close(got, want, torch.bfloat16, qq, True)
+    gen = torch.Generator(device=dev).manual_seed(d)
+    _paged_same_bits(dev, q, k, v, lengths, qtype, gen, kw, (16, 64, 128))
+    assert _launch_counts()[1] == before[1] + 3
+
+
+@pytest.mark.parametrize("qtype", [None, "int8", "fp8", "mixed"])
+@pytest.mark.parametrize("d", [8, 16, 32, 90, 100, 7, 91])
+def test_decode_narrow_and_odd_widths_by_walk(dev, d, qtype):
+    """d = 8, 16, 32 (the narrow heads), 90 and 100 (rows copied 4 and 8
+    bytes at a time by cp.async), and the rows no cp.async can take (d =
+    7 and 91 in bf16, d = 90, 7 and 91 over int8 or fp8), which the
+    producer warp copies by shifted loads: each at the decode gates,
+    with a window, K7 bit-equal to K6 on 16- and 64-token pages."""
+    b, h, h_kv, max_n = 4, 8, 2, 700
+    lengths = [700, 1, 333, 129]
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    q, k, v = _decode_inputs(dev, torch.bfloat16, b, h, h_kv, max_n, d,
+                             d + 11, True)
+    kq, vq, scales = _stored(k, v, qtype)
+    from cuda_flashattention_torch.ops import decode as dec
+    row = d * kq.element_size()
+    assert dec.row_copy(d, kq, vq) == (16 if row % 16 == 0 else 8
+                                        if row % 8 == 0 else 4
+                                        if row % 4 == 0 else 0)
+    gen = torch.Generator(device=dev).manual_seed(d)
+    for kw in (dict(), dict(window=100)):
+        before = _launch_counts()
+        got = decode_attention(q, kq, vq, lens, **scales, **kw)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == before[0] + 1
+        want = decode_attention_plain(q, kq, vq, lens, **scales, **kw)
+        _assert_decode_close(got, want, torch.bfloat16, False, True)
+        _paged_same_bits(dev, q, k, v, lengths, qtype, gen, kw, (16, 64))
+        assert _launch_counts()[1] == before[1] + 2
+
+
+@pytest.mark.parametrize("quantize_q", [False, True])
+@pytest.mark.parametrize("qdtype", [torch.bfloat16, torch.float16,
+                                    torch.float32])
+def test_serving_forms_run_the_tile_walk(dev, no_tf32, qdtype, quantize_q):
+    """Every serving form (d = 64, 128, 256; every q type; every cache
+    type; a window) comes in as 16-byte copies (TMA boxes: `row_copy`
+    16) and launches K6 once, at its gates (an fp32 q at 1e-4, 5e-3 under
+    `quantize_q`)."""
+    from cuda_flashattention_torch.ops import decode as dec
+    b, h, h_kv, max_n = 8, 16, 4, 640
+    lengths = [640, 513, 1, 0, 64, 65, 300, 639]
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    own = {torch.bfloat16: None, torch.float16: None, torch.float32: None}
+    for d in (64, 128, 256):
+        q, k, v = _decode_inputs(dev, qdtype, b, h, h_kv, max_n, d, d, True)
+        for qtype in (own[qdtype], "int8", "fp8", "mixed"):
+            kq, vq, scales = _stored(k, v, qtype)
+            for kw in (dict(quantize_q=quantize_q),
+                       dict(window=128, quantize_q=quantize_q)):
+                assert dec.row_copy(d, kq, vq) == 16, (d, qtype)
+                before = decode_attention.launches
+                got = decode_attention(q, kq, vq, lens, **scales, **kw)
+                torch.cuda.synchronize()
+                assert decode_attention.launches == before + 1, (d, qtype)
+                want = decode_attention_plain(q, kq, vq, lens, **scales,
+                                              **kw)
+                qq = quantize_q and qtype in ("int8", "mixed")
+                _assert_decode_close(got, want, qdtype, qq,
+                                     qdtype == torch.bfloat16)
 
 
 @pytest.mark.parametrize("qtype", [None, "int8", "fp8", "mixed"])

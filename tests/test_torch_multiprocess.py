@@ -131,6 +131,57 @@ def test_multiprocess_ladder_stage(stage):
     assert out.count("Test PASSED!") == 1, out  # process 0 prints
 
 
+# A script whose process 0 reaches its shutdown first: the others sleep,
+# then use the group's store (a barrier among themselves, and a closing
+# one registered with `at_shutdown`, as K9's workspaces register theirs,
+# after which each leaves a file in the directory given as its argument).
+# Process 0 counts those files once its shutdown has returned.
+LATE_STORE_USERS = """
+import sys, time
+from pathlib import Path
+from cuda_flashattention_torch.examples import _ladder
+from cuda_flashattention_torch.parallel import mesh
+_ladder.bootstrap(cpu=True)
+out = Path(sys.argv[1])
+me, late = mesh.process_index(), list(range(1, mesh.process_count()))
+if me != 0:
+    time.sleep(2.0)
+    def closing():
+        mesh.store_barrier("late/closed", late)
+        (out / f"closed_{me}").touch()
+    mesh.at_shutdown(closing)
+    mesh.store_barrier("late/work", late)
+mesh.shutdown_distributed()
+if me == 0:
+    n = len(list(out.glob("closed_*")))
+    print(f"process 0 left after {n} closing barriers", flush=True)
+"""
+
+
+def test_shutdown_waits_for_the_processes_that_still_use_the_store(
+        tmp_path):
+    """Process 0 hosts the group's store. It finishes its work first and
+    reaches `shutdown_distributed` while the other three still sleep; they
+    then use the store (a barrier among themselves, and their shutdown
+    hooks' closing barrier). Process 0 leaves only once they have counted
+    themselves out, so every process exits with 0 (it used to take the
+    store down with it, and the late barriers failed or hung), and
+    process 0's shutdown returns only after all three closing barriers
+    have passed."""
+    script = tmp_path / "late_store_users.py"
+    script.write_text(LATE_STORE_USERS)
+    marks = tmp_path / "marks"
+    marks.mkdir()
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run(
+        [sys.executable, "-m", "cuda_flashattention_torch.scripts."
+         "launch_multihost", "-np", "4", "--cpu", "--timeout", "90",
+         str(script), str(marks)], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=120)
+    assert r.returncode == 0, f"rc={r.returncode}\n{r.stdout}\n{r.stderr}"
+    assert "process 0 left after 3 closing barriers" in r.stdout, r.stdout
+
+
 # ---------------------------------------------------------------------------
 # The paths against the one-process port and the JAX functions
 # ---------------------------------------------------------------------------

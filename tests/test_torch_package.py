@@ -104,17 +104,24 @@ def test_chip_smoke_fails_alone(tmp_path):
 def test_build_command_targets_sm90a():
     """One nvcc per source (started together), then one link: each
     wgmma source and its fp16 unit (`*_f16.cu`, the source included whole
-    under CFA_F16), and the decode walks by q type (bf16, fp16, fp32)."""
+    under CFA_F16), and the decode walks by q type (bf16, fp16, fp32),
+    each in two units: the float and fp8 caches, and the int8-K ones
+    (`*_i8.cu`, under CFA_DECODE_I8)."""
     srcs = _build.sources()
     wgmma = ("flash_fwd", "flash_fwd_bound", "flash_fwd_kmajor", "flash_bwd",
              "flash_bwd_kv", "fa1", "device_ring")
     assert {s.name for s in srcs} == {
         *(f"{n}{u}.cu" for n in wgmma for u in ("", "_f16")),
-        *(f"{n}{u}.cu" for n in ("decode", "paged")
-          for u in ("", "_f16", "_f32"))}
+        *(f"{n}{u}{h}.cu" for n in ("decode", "paged")
+          for u in ("", "_f16", "_f32") for h in ("", "_i8"))}
     for n in wgmma:
         unit = (_build.CSRC / f"{n}_f16.cu").read_text()
         assert "#define CFA_F16 1" in unit and f'#include "{n}.cu"' in unit
+    for n in ("decode", "paged"):
+        for u in ("", "_f16", "_f32"):
+            unit = (_build.CSRC / f"{n}{u}_i8.cu").read_text()
+            assert "#define CFA_DECODE_I8 1" in unit
+            assert f'#include "{n}.cu"' in unit
     # the bodies the sources share are hashed, not compiled
     assert {"decode_body.cuh", "flash_fwd_bound_sm90.cuh"} <= {
         h.name for h in _build.headers()}
@@ -237,27 +244,45 @@ def test_dq_kernel_is_a_hopper_kernel():
 
 
 def test_decode_walks_share_the_split_and_its_merge():
-    """K6 and K7 take their split of the context and the splits' merge
-    from the one body, and their wrappers the split size from the one
-    host rule; each entry point takes the call's scratch."""
+    """K6 and K7 take their split of the context, their one walk (a ring
+    of stages filled by TMA, cp.async or element loads) and the splits'
+    merge from the one body, and their wrappers the split size from the
+    one host rule; each entry point takes the call's scratch."""
     body = (_build.CSRC / "decode_body.cuh").read_text()
     for needle in ("split_keys(", "prepare_split(", "atomicAdd(a.tickets",
-                   "__ldcg(", "void finish(const Args& a, long long tile_id"):
+                   "__ldcg(", "void copy_shifted(", "__funnelshift_r(",
+                   "struct TileWalk", "cp.async.mbarrier.arrive.noinc",
+                   "cp.async.bulk.tensor.4d", "inline bool encode_rows(",
+                   "static __device__ __forceinline__ void merge(",
+                   "inline int copy_granularity("):
         assert needle in body, needle
     for name in ("decode.cu", "paged.cu"):
         src = (_build.CSRC / name).read_text()
         assert '#include "decode_body.cuh"' in src
         assert "split_keys(a, first, length, s, lo, hi" in src, name
-        assert "body.finish(a, " in src and "prepare_split(&a, B, " in src
+        assert "prepare_split(&a, B, " in src and "allow_smem(" in src
+        assert "Lane" not in src and "int walk" not in src, name
+        assert "W::run(a, b, hk, tile, lo, hi" in src, name
+        assert "W::copy_run(a, st, " in src and "W::boxes(&mk, &mv" in src
+        assert "encode_rows(&mk, k, W::EK" in src, name
         assert "atomic" not in src, name
     import inspect
     from cuda_flashattention_torch.ops import decode, paged
     for fn in (decode._decode_cuda, paged._paged_cuda):
-        assert "split_scratch(" in inspect.getsource(fn)
+        src = inspect.getsource(fn)
+        assert "split_scratch(" in src and "entry_point(" in src
     # part, tickets and the split size joined both C signatures, then the
-    # q type (q_f32)
+    # q type (q_f32), then the pools' page count (it bounds K7's tensor
+    # maps); every unit's entry point has its q type's signature
     assert len(_build.SIGNATURES["cfa_decode"]) == 25
-    assert len(_build.SIGNATURES["cfa_paged_decode"]) == 27
+    assert len(_build.SIGNATURES["cfa_paged_decode"]) == 28
+    for name in ("cfa_decode", "cfa_paged_decode"):
+        for unit in ("", "_f16", "_f32"):
+            for half in ("", "_i8"):
+                assert (_build.SIGNATURES[name + unit + half]
+                        == _build.SIGNATURES[name])
+    assert decode.entry_point("cfa_decode", "_f16", 1) == "cfa_decode_f16_i8"
+    assert decode.entry_point("cfa_paged_decode", "", 2) == "cfa_paged_decode"
 
 
 def test_device_ring_is_bound_with_its_signature():
@@ -328,6 +353,27 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", tmp_path)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
+
+
+def test_build_starts_the_longest_units_first():
+    """At most one nvcc per CPU, the units over the decode body first
+    (int8-K, then fp32-q, then the rest of them), then the others: every
+    source once."""
+    from cuda_flashattention_torch import _build
+    srcs = _build.sources()
+    order = [s.name for s in _build.build_order(srcs)]
+    assert sorted(order) == sorted(s.name for s in srcs)
+    decode = [n for n in order if n.startswith(("decode", "paged"))]
+    assert order[:len(decode)] == decode and len(decode) == 12
+    assert all(n.endswith("_i8.cu") for n in decode[:6])
+    assert all("_f32" in n for n in decode[6:8])
+    assert 1 <= _build.build_workers() <= (os.cpu_count() or 1)
+    import sys
+    import time
+    sleep = [sys.executable, "-c", "import time; time.sleep(0.5)"]
+    t0 = time.perf_counter()
+    _build._run_all([sleep, sleep], workers=1)
+    assert time.perf_counter() - t0 >= 0.9  # one after the other
 
 
 def test_build_runs_the_commands_together_and_times_each(tmp_path):
