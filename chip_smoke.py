@@ -594,7 +594,7 @@ def _kernel_of(name: str) -> str:
                            (r"flash_bwd_kv_kernel<\d+, false,", "K2"),
                            (r"flash_bwd_q_kernel", "K3"),
                            (r"flash_fwd_kmajor", "K5"),
-                           (r"flash_fwd_bound_kernel", "K1b"),
+                           (r"flash_fwd_bound_", "K1b"),
                            (r"flash_fwd_kernel", "K1"),
                            (r"fa1_kernel", "K8"),
                            (r"::decode_kernel<", "K6"),
@@ -1267,7 +1267,7 @@ def _mp_run(ctx, nproc, per, command, env=None):
         os.killpg(p.pid, signal.SIGKILL)
         out, err = p.communicate()
     _check(p.returncode == 0, f"launch of {command[0]} ({nproc} x {per}) "
-           f"exited {p.returncode}:\n{out[-3000:]}\n{err[-3000:]}")
+           f"exited {p.returncode}:\n{out[-3000:]}\n{err[-30000:]}")
     return out, time.perf_counter() - t0
 
 
@@ -1372,11 +1372,7 @@ def _phase_multiprocess(ctx):
     _mp_report_pipe(ctx, reports, "pipe_train", "staged",
                     "pp-train-restacked")
     print(f"[mp] 2-process launch {secs:.1f} s", flush=True)
-    reports, secs = _mp_paths(
-        ctx, 4, 1, ["ring_causal", "decode", "train", "k9", "pipe_train"],
-        _MP_RING + _MP_TRAIN + _MP_K9 + [
-            *_MP_PIPE, "--pipe-axes", "pp=2,dp=2", "--micro", "2",
-            "--axes", "sp=4", "--axes", "tp=2,sp=2"])
+    reports, secs = _mp_paths(ctx, 4, 1, MP_FOUR_PATHS, MP_FOUR_OPTIONS)
     _mp_report_ring(ctx, reports, "staged", "processes sharing card 0")
     for axes, tag in (("sp=4", "sp-train"), ("tp=2,sp=2", "tp-sp-train")):
         _mp_report_train(ctx, reports, f"train[{axes}]", "staged", tag)
@@ -1424,6 +1420,11 @@ _MP_PIPE = ["--model", "271m", "--pipe-batch", str(PP_B), "--pipe-seq",
 _MP_K9 = ["--k9-rows", *map(str, MP_K9_ROWS), "--k9-d", *map(str, MP_K9_D),
           "--k9-dtypes", "bf16", "fp32", "--k9-repeats", str(MP_K9_REPEATS),
           "--k9-iters", "5"]
+# the 4-process launch of phase 30 (`utils/mp_launches.py` repeats it)
+MP_FOUR_PATHS = ["ring_causal", "decode", "train", "k9", "pipe_train"]
+MP_FOUR_OPTIONS = _MP_RING + _MP_TRAIN + _MP_K9 + [
+    *_MP_PIPE, "--pipe-axes", "pp=2,dp=2", "--micro", "2", "--axes", "sp=4",
+    "--axes", "tp=2,sp=2"]
 
 
 def _mp_report_k9(ctx, reports, transport, where, record=False):
@@ -1760,7 +1761,8 @@ def _bound_f32(nbytes: float, flops: float) -> dict:
 def _call_ms(fn, label, iters=3, attempts=3, before=None) -> float:
     """Device ms per call of package kernel `label` (torch.profiler): its
     launches' time over the launches of its main kernel (K5's finalise
-    is added to its kernel's call); NaN when none was recorded. `before()`,
+    and the conversion pass of one-byte K/V at d = 256 are added to their
+    kernel's call); NaN when none was recorded. `before()`,
     when given, runs ahead of each call (to evict the L2 cache, say).
     Where the profiler records no device activity at all in any of its
     windows, the call is timed by CUDA events instead (the wrapper's
@@ -1776,7 +1778,8 @@ def _call_ms(fn, label, iters=3, attempts=3, before=None) -> float:
             continue
         recorded = True
         names = [n for n in prof.ms if _kernel_of(n) == label]
-        calls = sum(prof.count[n] for n in names if "finalize" not in n)
+        calls = sum(prof.count[n] for n in names
+                    if "finalize" not in n and "convert" not in n)
         if calls:
             return sum(prof.ms[n] for n in names) / calls
     if recorded:
@@ -3540,6 +3543,17 @@ def _phase_wide_kernels(ctx):
                     ms = _call_ms(call, kn)
                     line.append(f"{kn}{' qq' if qq else ''} "
                                 f"{qtype or 'bf16'} {ms:.4f}")
+                    if kn != "K1" and name == "prefix 512x3584":
+                        # K1b and K5 over every K/V form: one-byte K/V
+                        # converted before the walk, K5 on K1b's walk
+                        print(f"[wide] {kn} d=256 {name} over "
+                              f"{qtype or 'bf16'}"
+                              + (" quantize_q" if qq else "")
+                              + f": kernel {ms:.4f} ms ("
+                              f"{100 * bound['bound_ms'] / ms:.1f}% of its "
+                              f"bound {bound['bound_ms']:.4f} ms), SDPA"
+                              + (" on the dequantised K/V" if qtype else "")
+                              + f" {lib_ms:.4f} ms ({card})", flush=True)
                     if (kn, name, qtype) in rows and not qq:
                         ms_p = cuda_time_ms(plain, iters=2, warmup=1)
                         r.update(ms=ms, plain_ms=ms_p, library_ms=lib_ms,
@@ -6052,6 +6066,8 @@ MIXED_ROWS = ("forward mixed", "decode mixed", "backward mixed", "K8 mixed",
 # the training shape (B, H, Hkv, Nq, Nk, d; causal), the wide-head shape
 F16_TRAIN = (1, 16, 16, 4096, 4096, 128)
 F16_WIDE = (1, 8, 4, 4096, 4096, 256)
+# the Gemma-width model's chunked-prefill prefix read (B, H, Hkv, Nq, Nk, d)
+F16_GEMMA_PREFIX = (8, 8, 4, 512, 3584, 256)
 # fp16's P under the bound softmax is 2^(s − c) rounded to fp16 (least
 # subnormal 2^-24), as JAX rounds it: peaked inputs of the bound forms
 # keep c within ~8 log2 units of the scores (Q x4, K x1); online forms and
@@ -6136,7 +6152,11 @@ def _phase_f16_kernels(ctx):
              ("prefix 512x3584", F32Q_PREFIX, {}, None, ("bound", "kmajor")),
              ("prefix 512x3584 int8", F32Q_PREFIX, {}, "int8", ()),
              ("[1, 8, 4096, 256] causal", F16_WIDE, dict(causal=True), None,
-              ())]
+              ()),
+             ("Gemma prefix 512x3584 d=256 int8", F16_GEMMA_PREFIX, {},
+              "int8", ())]
+    # timed and printed, not recorded: the fp16 unit's converted builds
+    timed_only = ("Gemma prefix 512x3584 d=256 int8",)
     for name, (b, h, hkv, nq, nk, d), kw, qtype, recorded in cases:
         pairs = _visible_pairs(ctx, b, h, nq, nk, kw)
         bound = _bound(2 * (2 * b * h * nq * d + 2 * b * hkv * nk * d)
@@ -6183,17 +6203,26 @@ def _phase_f16_kernels(ctx):
                     f"{errs[2]:.3e}, max|dLSE| {max(errs[1], errs[3]):.3e} "
                     f"(gates {GATE}, {REL_GATE} x max|O|); fp16 O vs fp32 "
                     f"O rounded {e16:.3e}")
-            if form in recorded:
+            if form in recorded or (name in timed_only and form != "online"):
                 ms = _call_ms(lambda: pinned(form, q, k, v, kw, h16, sc), kn)
                 ms_p = cuda_time_ms(lambda: ff.flash_attention_forward_plain(
                     q, k, v, softmax="online" if form == "online"
                     else "bound_unchecked", **kw, **sc), iters=3, warmup=1)
-                lib = _library_ms(ctx, q, k, v, kw)
+                kd, vd = k, v
+                if qtype:  # SDPA on the dequantised K/V
+                    kd = (k.float() * sc["k_scale"][..., None]).half()
+                    vd = (v.float() * sc["v_scale"][..., None]).half()
+                lib = _library_ms(ctx, q, kd, vd, kw)
                 share = 100 * bound["bound_ms"] / ms
                 line += (f"; kernel {ms:.4f} ms ({share:.1f}% of its bound "
                          f"{bound['bound_ms']:.4f} ms, {bound['bound_by']}),"
-                         f" plain {ms_p:.4f} ms, SDPA fp16 {lib:.4f} ms")
-                _rec_row(ctx, f"{kn} f16", errs, ms, ms_p, lib, bound)
+                         f" plain {ms_p:.4f} ms, SDPA fp16"
+                         + (" on the dequantised K/V" if qtype else "")
+                         + f" {lib:.4f} ms")
+                if name in timed_only:
+                    _rec_row(ctx, f"{kn} f16", errs)
+                else:
+                    _rec_row(ctx, f"{kn} f16", errs, ms, ms_p, lib, bound)
             else:
                 _rec_row(ctx, f"{kn} f16", errs)
             print(line + f" ({card})", flush=True)
@@ -8746,14 +8775,17 @@ def main() -> int:
          "counted under K1; times at B=8 H=8 Hkv=4 512 causal)",
          "flash_fwd.cu", "flash_fwd.py:123"),
         ("K1b d256", "flash_attention_forward softmax=bound at d = 256 "
-         "(K1b's d = 256 build; the Gemma-width model's prefix reads over "
-         "bf16 and int8 caches, also counted under K1b; times at the "
-         "prefix, 512 x 3584)", "flash_fwd_bound.cu", "flash_fwd.py:123"),
+         "(K1b's d = 256 build, one-byte K/V converted into exact 2-byte "
+         "copies by a pass of their own before the walk; the Gemma-width "
+         "model's prefix reads over bf16 and int8 caches, also counted "
+         "under K1b; times at the prefix, 512 x 3584)",
+         "flash_fwd_bound.cu", "flash_fwd.py:123"),
         ("K5 d256", "flash_attention_forward softmax=bound, fp8 keys or "
-         "causal, at d = 256 (K5's d = 256 build, a span of one key tile; "
-         "the Gemma-width model's prefix reads over an fp8 cache and under "
-         "its window, also counted under K5; times over fp8 K/V at the "
-         "prefix, 512 x 3584)", "flash_fwd_kmajor.cu", "flash_fwd.py:399"),
+         "causal, at d = 256 (K5's d = 256 build: K1b's Q-major walk, one-"
+         "byte K/V converted before it, no partial sums; the Gemma-width "
+         "model's prefix reads over an fp8 cache and under its window, "
+         "also counted under K5; times over fp8 K/V at the prefix, "
+         "512 x 3584)", "flash_fwd_kmajor.cu", "flash_fwd.py:399"),
         ("K6 d256", "decode_attention at d = 256 (K6's d = 256 builds, eight "
          "elements a lane; the Gemma-width model's decode, also counted "
          "under K6; times at B=8 H=8 Hkv=4, 4224 live of 4352, cold L2)",

@@ -26,7 +26,8 @@
 //   - int8 or e4m3 K/V come in as codes (half the bytes of bf16) and are
 //     converted once per tile by the consumers into a bf16 tile (or, under
 //     quantize_q, an int8 tile: fp8 keys re-gridded), written in the same
-//     swizzle wgmma reads.
+//     swizzle wgmma reads; at d = 256 under a 2-byte or int8 Q once per
+//     call into device memory instead (PRE, below).
 //   - A 128-row tile packs the Gp query heads of one KV head that the host
 //     chose (Gp rows blocks of R = 128 / Gp positions): each K/V tile, and
 //     each conversion of one, serves Gp heads.
@@ -48,8 +49,10 @@
 //   - head dim 256: a tile is four 64-column slabs (a 128-row bf16 Q tile
 //     64 KB, a bf16 K + V stage 64 KB) and O takes 128 registers a
 //     consumer thread (acc[4][32]), so each walk runs a key tile's S,
-//     softmax and P·V in order. A bf16 Q over one-byte K/V keeps two code
-//     stages and one converted pair (K5 a span of one tile). An fp32 Q's
+//     softmax and P·V in order. A 2-byte (or int8) Q over one-byte K/V has
+//     them converted before the walk, in one pass per call (PRE,
+//     `convert_pass`), and reads the copies as bf16 K/V; K5 runs K1b's
+//     Q-major walk there (`q_walk`). An fp32 Q's
 //     split tile is 128 KB, which leaves one stage beside it: one bf16
 //     K + V stage (BF16KV), one code stage and one converted pair (231 KB
 //     of the 232,448 bytes), and over fp32 K/V one stage of 32-key tiles
@@ -614,6 +617,25 @@ __device__ __forceinline__ void codes_to_elem(uint8_t* dst, const uint8_t* raw,
   }
 }
 
+// 16 e4m3 codes re-gridded onto int8 codes, clip(round_half_even(k ·
+// 127/448), ±127): quantize_q's int8 K over fp8 keys.
+__device__ __forceinline__ uint4 regrid16(const uint4& codes) {
+  float f[16];
+  cvt16(codes, kFp8, f);
+  unsigned int q[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    q[i] = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int code =
+          max(-127, min(127, __float2int_rn(f[4 * i + e] * kRegrid)));
+      q[i] |= ((unsigned int)code & 0xffu) << (8 * e);
+    }
+  }
+  return make_uint4(q[0], q[1], q[2], q[3]);
+}
+
 // The int8 K tile of quantize_q (rows of D bytes in Tiles<D, true>'s slabs,
 // swizzled as TMA would): int8 codes are copied, e4m3 codes re-gridded onto
 // int8, clip(round_half_even(k · 127/448), ±127).
@@ -626,22 +648,7 @@ __device__ __forceinline__ void codes_to_s8(uint8_t* dst, const uint8_t* raw,
   for (int w = tid; w < BN * CPR; w += NT) {
     const int row = w / CPR, j = w % CPR;
     uint4 codes = *reinterpret_cast<const uint4*>(raw + row * D + j * 16);
-    if (type == kFp8) {
-      float f[16];
-      cvt16(codes, kFp8, f);
-      unsigned int q[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        q[i] = 0;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int code =
-              max(-127, min(127, __float2int_rn(f[4 * i + e] * kRegrid)));
-          q[i] |= ((unsigned int)code & 0xffu) << (8 * e);
-        }
-      }
-      codes = make_uint4(q[0], q[1], q[2], q[3]);
-    }
+    if (type == kFp8) codes = regrid16(codes);
     *reinterpret_cast<uint4*>(dst + (j / CPS) * (BN * QROW) +
                               swz(row, j % CPS, QROW)) = codes;
   }
@@ -1075,6 +1082,15 @@ __device__ __forceinline__ void bound_step(const Args& a, const Rows& r,
 #pragma unroll
   for (int i = 0; i < KN / 2; i += 2) {
     float pr[2];
+    // the pair's two columns are adjacent: their scales in one 8-byte load
+    // each (the scale rows start on 8 bytes)
+    float ks[2] = {1.f, 1.f}, vs[2] = {1.f, 1.f};
+    if (QUANT) {
+      const int pair = 8 * (i >> 2) + 2 * (lane & 3);
+      const float2 k2 = *reinterpret_cast<const float2*>(ksc + pair);
+      const float2 v2 = *reinterpret_cast<const float2*>(vsc + pair);
+      ks[0] = k2.x; ks[1] = k2.y; vs[0] = v2.x; vs[1] = v2.y;
+    }
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int j = i + e;
@@ -1086,7 +1102,7 @@ __device__ __forceinline__ void bound_step(const Args& a, const Rows& r,
       // subtraction below, it would round (or not) by each kernel's code
       // layout, and K1b and K5 flip different bf16 roundings of P
       if (QUANT) {
-        x = __fmul_rn(x, QQ ? __fmul_rn(ksc[col], r.f[hr]) : ksc[col]);
+        x = __fmul_rn(x, QQ ? __fmul_rn(ks[e], r.f[hr]) : ks[e]);
       }
       bool ok = true;
       if (MASKED) {
@@ -1099,7 +1115,7 @@ __device__ __forceinline__ void bound_step(const Args& a, const Rows& r,
       }
       const float pe = ok ? exp2f(x - r.c[hr]) : 0.f;
       l[hr] += pe;
-      pr[e] = QUANT ? pe * vsc[col] : pe;
+      pr[e] = QUANT ? pe * vs[e] : pe;
     }
     if (F32) {
       split2r(pr[0], pr[1], p_round, p[i >> 1], p_lo[i >> 1]);
@@ -1314,6 +1330,397 @@ __device__ __forceinline__ void add_rows(const Args& a, const Rows& r,
       if (live[hr]) atomicAdd(a.l_acc + row[hr], l[hr]);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// One-byte K/V converted before the walk (PRE)
+// ---------------------------------------------------------------------------
+
+// A 2-byte (or quantize_q's int8) Q at d = 256 over one-byte K/V: a tile
+// converted in shared memory beside its walk costs the consumers ~2 µs a
+// key tile (32 KB of codes read and 64 KB of 2-byte values written in
+// shared memory, which the products' own reads already nearly fill, and one
+// converted pair that both warpgroups must finish before the next tile can
+// be written into it: 2.2x the bf16 walk at the Gemma prefix). So a pass of
+// its own converts the call's codes once, in device memory, into exact
+// 2-byte copies ([B,Hkv,Nk,D] contiguous, scratch of the host's), and the
+// walk reads them by TMA as it reads bf16 K/V, with the scales applied as
+// before: V always; K unless quantize_q reads int8 keys as they are (its
+// int8 K tile is the codes), and under quantize_q over e4m3 keys re-gridded
+// onto int8 codes. The pass moves 3 bytes per code (the codes read, the
+// copy written), once per call, where the in-walk conversion repeated its
+// work for every Q tile of a KV head.
+struct ConvArgs {
+  const uint8_t* src[2];  // K, V codes
+  uint8_t* dst[2];        // their converted copies, or null: not converted
+  long long st[6];        // K's, then V's (batch, head, row) strides, bytes
+  int type[2];            // storage codes (kInt8, kFp8)
+  int s8[2];              // 1: re-grid e4m3 onto int8 codes (else 2-byte)
+  int Hkv, Nk;
+};
+
+// Tensor blockIdx.z (0 K, 1 V) of (batch, KV head) blockIdx.y: its Nk
+// rows in 16-code chunks, four loads in flight a thread, each 16 codes
+// into 16 2-byte values (or int8 codes).
+template <int D>
+__device__ __forceinline__ void convert_pass(const ConvArgs& c) {
+  // K's or V's fields, chosen without indexing the parameter by a
+  // run-time value (which would copy it to local memory)
+  const bool v = blockIdx.z != 0;
+  const int bh = blockIdx.y;
+  uint8_t* dst = v ? c.dst[1] : c.dst[0];
+  if (dst == nullptr) return;
+  constexpr int CPR = D / 16;  // chunks of a row
+  constexpr int U = 4;
+  const long long st0 = v ? c.st[3] : c.st[0], st1 = v ? c.st[4] : c.st[1];
+  const long long st2 = v ? c.st[5] : c.st[2];
+  const int type = v ? c.type[1] : c.type[0];
+  const bool s8 = v ? c.s8[1] : c.s8[0];
+  const uint8_t* src =
+      (v ? c.src[1] : c.src[0]) + (bh / c.Hkv) * st0 + (bh % c.Hkv) * st1;
+  const int chunks = c.Nk * CPR;
+  dst += (long long)bh * chunks * (s8 ? 16 : 32);
+  const int step = gridDim.x * blockDim.x;
+  for (int w0 = blockIdx.x * blockDim.x + threadIdx.x; w0 < chunks;
+       w0 += U * step) {
+    uint4 x[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int w = w0 + u * step;
+      x[u] = w < chunks ? __ldg(reinterpret_cast<const uint4*>(
+                              src + (w / CPR) * st2 + (w % CPR) * 16))
+                        : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int w = w0 + u * step;
+      if (w >= chunks) continue;  // (no break: x stays in registers)
+      if (s8) {
+        *reinterpret_cast<uint4*>(dst + (long long)w * 16) = regrid16(x[u]);
+      } else {
+        uint32_t h[8];
+        codes4_to_elem(x[u].x, type, h[0], h[1]);
+        codes4_to_elem(x[u].y, type, h[2], h[3]);
+        codes4_to_elem(x[u].z, type, h[4], h[5]);
+        codes4_to_elem(x[u].w, type, h[6], h[7]);
+        uint4* out = reinterpret_cast<uint4*>(dst + (long long)w * 32);
+        out[0] = make_uint4(h[0], h[1], h[2], h[3]);
+        out[1] = make_uint4(h[4], h[5], h[6], h[7]);
+      }
+    }
+  }
+}
+
+// Whether a bound-forward build converts its K/V in a pass of its own
+// (PRE): one-byte K/V under a 2-byte or int8 Q at d = 256.
+__host__ __device__ constexpr bool pre_converted(int D, bool f32,
+                                                 int k_type) {
+  return D == 256 && !f32 && k_type != kBf16 && k_type != kF32;
+}
+
+// The pass of one call (kernel: the unit's __global__ around convert_pass)
+// and the maps of its walk: Q as make_maps's; K as the 2-byte slabs of the
+// bf16 builds or, under quantize_q, as the int8 Q's slabs (q_row bytes,
+// swizzled as codes_to_s8 lays a tile out; the codes themselves for int8
+// keys); V as 2-byte slabs. kc, vc: the host's scratch for the copies, kc
+// unused (may be null) for int8 keys under qq. q_st: Q's strides; k_st:
+// the codes' (both in elements).
+template <int D, typename Kernel>
+cudaError_t convert_and_map(Kernel kernel, Maps* m, const void* q,
+                            const void* k, const void* v, void* kc, void* vc,
+                            int B, int H, int Hkv, int Nq, int Nk,
+                            const long long* st, int k_type, int v_type,
+                            int qq, int Gp, int R, cudaStream_t stream) {
+  const bool copy_k = !(qq && k_type == kInt8);
+  if (vc == nullptr || (copy_k && kc == nullptr)) return cudaErrorInvalidValue;
+  ConvArgs c = {};
+  c.src[0] = static_cast<const uint8_t*>(k);
+  c.src[1] = static_cast<const uint8_t*>(v);
+  c.dst[0] = copy_k ? static_cast<uint8_t*>(kc) : nullptr;
+  c.dst[1] = static_cast<uint8_t*>(vc);
+  for (int i = 0; i < 6; ++i) c.st[i] = st[3 + i];  // one-byte: bytes
+  c.type[0] = k_type;
+  c.type[1] = v_type;
+  c.s8[0] = qq;
+  c.Hkv = Hkv;
+  c.Nk = Nk;
+  const int chunks = Nk * (D / 16);  // of one (batch, KV head)
+  if (chunks > 0 && B * Hkv > 0) {
+    const dim3 grid((chunks + 4 * 256 - 1) / (4 * 256), B * Hkv, 2);
+    kernel<<<grid, 256, 0, stream>>>(c);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  // the copies are [B,Hkv,Nk,D] contiguous
+  const long long kce = copy_k && !qq ? 2 : 1;  // bytes of a K element
+  const long long cst[3] = {(long long)Hkv * Nk * D, (long long)Nk * D, D};
+  const long long* ks = copy_k ? cst : st + 3;
+  const void* kt = copy_k ? kc : k;
+  const int q_row = D < 128 ? D : 128;
+  bool ok = encode4(&m->q, q, qq, D, Nq, H, B, st[2] * (qq ? 1 : 2),
+                    st[1] * (qq ? 1 : 2), st[0] * (qq ? 1 : 2),
+                    qq ? q_row : 64, R, Gp, qq ? q_row : 128);
+  ok = ok && encode4(&m->k, kt, qq, D, Nk, Hkv, B, ks[2] * kce, ks[1] * kce,
+                     ks[0] * kce, qq ? q_row : 64, BN, 1, qq ? q_row : 128);
+  ok = ok && encode4(&m->v, vc, false, D, Nk, Hkv, B, cst[2] * 2, cst[1] * 2,
+                     cst[0] * 2, 64, BN, 1, 128);
+  return ok ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// The score-bound Q-major walk: K1b (flash_fwd_bound.cu), and K5's builds
+// at d = 256 under a 2-byte or int8 Q (flash_fwd_kmajor.cu)
+// ---------------------------------------------------------------------------
+
+// key-tile stages in flight: a one-byte stage is half the bytes, and its
+// scales come in by plain loads, so it keeps one more ahead (not at d =
+// 256, whose 64 KB Q tile leaves room for two; an fp32 Q's split one for
+// one)
+template <int D, bool QUANT, bool F32>
+constexpr int walk_stages() {
+  return D == 256 && F32 ? 1 : QUANT && D != 256 ? 3 : 2;
+}
+
+// Shared memory of one CTA (byte offsets from a 1024-aligned base): the Q
+// tile (under F32 its hi and lo tiles); NST stages of K and V as TMA
+// writes them (bf16 slabs, or one-byte codes followed by the tile's K and
+// V scales; under F32 over fp32 K/V the producer warpgroup's hi and lo
+// tiles of each, over bf16 K/V (BF16KV) the bf16 slabs; under PRE the
+// converted copies' 2-byte slabs, or quantize_q's int8 K slabs, and V's,
+// followed by the scales); under QUANT but not PRE two converted K/V pairs
+// (exact bf16 tiles, or an s8 K tile under QQ), used in turn, or one at d
+// = 256 over bf16 tiles (231,448 bytes under an fp32 Q); barriers. At d =
+// 256 under PRE: the 64 KB Q tile and two 65 KB stages (a 32 KB K tile, a
+// 32 KB V tile, 512 B of scales), 199,720 bytes (quantize_q: a 32 KB int8
+// Q tile and two 49 KB stages, 134,184).
+template <int D, bool QUANT, bool QQ, bool F32, int KN, bool BF16KV,
+          bool PRE>
+struct WalkLayout {
+  using T = Tiles<D, QQ>;
+  static constexpr bool SPLIT_KV = F32 && !QUANT && !BF16KV;  // fp32 K/V
+  static_assert(KN != BN2 || (!QUANT && !F32 && D != 256),
+                "128 keys: bf16 K/V at d <= 128 only");
+  static_assert((KN == BN32) == (D == 256 && SPLIT_KV),
+                "32 keys: fp32 K/V at d = 256 (and there only)");
+  static_assert(!BF16KV || (F32 && !QUANT), "BF16KV: an fp32 Q");
+  static_assert(!PRE || (QUANT && !F32), "PRE: converted one-byte K/V");
+  static constexpr int NST = walk_stages<D, QUANT, F32>();
+  static constexpr int NCV = D == 256 && !QQ ? 1 : 2;  // converted pairs
+  static constexpr int kv16 = KN * D * 2;              // a bf16 K or V tile
+  static constexpr int kvh =                          // K, then V
+      PRE ? T::KC : QUANT ? T::CODES : SPLIT_KV ? 2 * kv16 : kv16;
+  static constexpr int tma_bytes = PRE ? T::KC + T::KV16 : 2 * kvh;
+  static constexpr int stage = align1k(tma_bytes + (QUANT ? 2 * BN * 4 : 0));
+  static constexpr int st_off = align1k(F32 ? 2 * T::Q : T::Q);
+  static constexpr int cv_v = align1k(T::KC);          // V in a converted pair
+  static constexpr int cv_stride = align1k(cv_v + T::KV16);
+  static constexpr int cv_off = st_off + NST * stage;
+  static constexpr int bar_off = cv_off + (QUANT && !PRE ? NCV * cv_stride : 0);
+  static constexpr int bytes = bar_off + 8 * (2 * NST + 1) + 1024;
+  static_assert(bytes <= 232448, "the CTA's shared memory");
+};
+
+// The walk of one CTA (a kernel's whole body; tm_*: its __grid_constant__
+// maps): a 128-row tile of packed query heads over the key tiles its rows
+// can see, p = 2^(s − c) with no running max, O written at the end. Under
+// causal without a window the Q tiles are issued heaviest first
+// (cta_tile); under a window the first rows may be the heavy ones, and the
+// grid's own order keeps a KV head's Q tiles together in L2.
+template <int D, bool QUANT, bool QQ, bool F32, int KN, bool BF16KV,
+          bool PRE>
+__device__ __forceinline__ void q_walk(const CUtensorMap* tm_q,
+                                       const CUtensorMap* tm_k,
+                                       const CUtensorMap* tm_v, const Args& a,
+                                       const F32Src& f) {
+  static_assert(QUANT || !QQ, "quantize_q reads quantized K/V");
+  static_assert(!(QQ && F32), "quantize_q's Q is int8");
+  using T = Tiles<D, QQ>;
+  using L = WalkLayout<D, QUANT, QQ, F32, KN, BF16KV, PRE>;
+  constexpr int NST = L::NST;
+  constexpr bool SPLIT_KV = L::SPLIT_KV;
+  // K/V tiles that are exact bf16 operands under an fp32 Q
+  constexpr bool EXACT = QUANT || BF16KV;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t full = base + L::bar_off;     // + 8 * stage
+  const uint32_t empty = full + 8 * NST;       // + 8 * stage
+  const uint32_t q_bar = empty + 8 * NST;
+
+  int qt = blockIdx.x, hg = blockIdx.y, b = blockIdx.z;
+  if (a.window <= 0) cta_tile(a, qt, hg, b);
+  const int q0 = qt * a.R;
+  const int h0 = hg * a.Gp;
+  const int hk = h0 / a.G;
+  const int q_hi = min(q0 + a.R, a.Nq) - 1;
+  int t_begin, t_end;
+  visible_tiles<KN>(a, q0, q_hi, 0, (a.Nk + KN - 1) / KN, t_begin, t_end);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NST; ++s) {
+      // the TMA issue, and under QUANT the 32 lanes that load the scales;
+      // over fp32 K/V the producer warpgroup's 128 threads
+      mbar_init(full + 8 * s, SPLIT_KV ? 128 : QUANT ? 33 : 1);
+      mbar_init(empty + 8 * s, 8);  // lane 0 of each consumer warp
+    }
+    mbar_init(q_bar, F32 ? 128 : 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // the producer: one thread issues every load; under QUANT its warp
+    // also brings each tile's scales beside the codes
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    const int lane = threadIdx.x & 31;
+    const int pt = threadIdx.x - 2 * 128;
+    const long long* st = f.st;
+    if (F32) {
+      // an fp32 Q: the warpgroup's 128 threads read the tile from device
+      // memory and write its hi and lo tiles (split_rows)
+      split_rows<D, 128>(smem, smem + T::Q, BM, f.p[0] + b * st[0], st[1],
+                         st[2], h0, a.Gp, a.R, q0, a.Nq, pt);
+      fence_proxy_async();
+      mbar_arrive(q_bar);
+    }
+    if (SPLIT_KV) {
+      // fp32 K/V: split in the same way, a stage at a time
+      for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
+        const int st_i = i % NST;
+        mbar_wait(empty + 8 * st_i, ((i / NST) & 1) ^ 1);
+        uint8_t* stage = smem + L::st_off + st_i * L::stage;
+        split_rows<D, 128>(stage, stage + L::kv16, KN, f.p[1] + b * st[3],
+                           st[4], st[5], hk, 1, KN, t * KN, a.Nk, pt);
+        split_rows<D, 128>(stage + L::kvh, stage + L::kvh + L::kv16, KN,
+                           f.p[2] + b * st[6], st[7], st[8], hk, 1, KN,
+                           t * KN, a.Nk, pt);
+        fence_proxy_async();
+        mbar_arrive(full + 8 * st_i);
+      }
+    } else if (threadIdx.x < 2 * 128 + (QUANT ? 32 : 1)) {
+      if (!F32 && lane == 0) {
+        mbar_expect_tx(q_bar, a.Gp * a.R * D * (QQ ? 1 : 2));
+        for (int sl = 0; sl < T::QSLABS; ++sl) {
+          tma_load_4d(base + sl * BM * 128, tm_q, q_bar, sl * T::QCOL, q0,
+                      h0, b);
+        }
+      }
+      for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
+        const int st = i % NST;
+        mbar_wait(empty + 8 * st, ((i / NST) & 1) ^ 1);
+        const uint32_t dst = base + L::st_off + st * L::stage;
+        if (lane == 0) {
+          mbar_expect_tx(full + 8 * st, L::tma_bytes);
+          if (QUANT && !PRE) {
+            tma_load_4d(dst, tm_k, full + 8 * st, 0, t * BN, hk, b);
+            tma_load_4d(dst + L::kvh, tm_v, full + 8 * st, 0, t * BN, hk, b);
+          } else {
+            // K's slabs: 2-byte, or quantize_q's int8 rows of QROW bytes
+            constexpr int KSL = PRE && QQ ? T::QSLABS : T::SLABS;
+            constexpr int KROW = PRE && QQ ? T::QROW : 128;
+            constexpr int KCOL = PRE && QQ ? T::QCOL : 64;
+            for (int sl = 0; sl < KSL; ++sl) {
+              tma_load_4d(dst + sl * KN * KROW, tm_k, full + 8 * st,
+                          sl * KCOL, t * KN, hk, b);
+            }
+            for (int sl = 0; sl < T::SLABS; ++sl) {
+              tma_load_4d(dst + L::kvh + sl * KN * 128, tm_v, full + 8 * st,
+                          sl * 64, t * KN, hk, b);
+            }
+          }
+        }
+        // the scales, while the codes are in flight
+        if (QUANT) {
+          load_scales<32>(reinterpret_cast<float*>(smem + L::st_off +
+                                                   st * L::stage +
+                                                   L::tma_bytes),
+                          a, b, hk, t * BN, lane);
+          mbar_arrive(full + 8 * st);
+        }
+      }
+    }
+  } else {
+    // two consumer warpgroups, 64 rows each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const Rows r = row_info(a, b, h0, q0, tid);
+    float acc[D / 64][32];
+#pragma unroll
+    for (int sl = 0; sl < D / 64; ++sl) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[sl][i] = 0.f;
+    }
+    float l[2] = {0.f, 0.f};
+    mbar_wait(q_bar, 0);
+    for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
+      const int st = i % NST;
+      const int c0 = t * KN;
+      mbar_wait(full + 8 * st, (i / NST) & 1);
+      const int stage_off = L::st_off + st * L::stage;
+      uint32_t kt = base + stage_off, vt = kt + L::kvh;
+      const float* ksc = nullptr;
+      const float* vsc = nullptr;
+      if (PRE) {
+        ksc = reinterpret_cast<const float*>(smem + stage_off + L::tma_bytes);
+        vsc = ksc + BN;
+      } else if (QUANT) {
+        // both warpgroups convert the tile once for the CTA's Gp heads,
+        // into the pair used two tiles ago: each warpgroup finished that
+        // tile's P·V before the barrier of the tile in between. With one
+        // pair both first finish the previous tile's P·V, which reads it.
+        if (L::NCV == 1 && i > 0) consumer_sync();
+        uint8_t* cv = smem + L::cv_off + (i % L::NCV) * L::cv_stride;
+        const uint8_t* raw = smem + stage_off;
+        if (QQ) {
+          codes_to_s8<D, NCONSUMER>(cv, raw, a.k_type, tid);
+        } else {
+          codes_to_elem<D, NCONSUMER>(cv, raw, a.k_type, tid);
+        }
+        codes_to_elem<D, NCONSUMER>(cv + L::cv_v, raw + L::kvh, a.v_type,
+                                    tid);
+        fence_proxy_async();
+        consumer_sync();
+        kt = smem_u32(cv);
+        vt = kt + L::cv_v;
+        ksc = reinterpret_cast<const float*>(smem + stage_off + L::tma_bytes);
+        vsc = ksc + BN;
+      }
+      float s[KN / 2];
+      qk<D, QQ, F32, EXACT, KN>(s, base, kt, wg);
+      uint32_t p[KN / 4], p_lo[KN / 4];  // under F32 P = p + p_lo
+      if (interior<KN>(a, c0, q0, q0 + a.R - 1)) {
+        bound_step<QUANT, QQ, false, F32, KN>(a, r, s, ksc, vsc, c0, l, p,
+                                              p_lo, f.round[0]);
+      } else {
+        bound_step<QUANT, QQ, true, F32, KN>(a, r, s, ksc, vsc, c0, l, p,
+                                             p_lo, f.round[0]);
+      }
+      // the stage is read: its codes and scales (QUANT) or its K (bf16;
+      // V is read by the P·V below, which completes before the next wait)
+      constexpr bool CONVERTED = QUANT && !PRE;  // K/V in a converted pair
+      if (CONVERTED && lane == 0) mbar_arrive(empty + 8 * st);
+      pv<D, F32, EXACT, KN>(acc, p, vt, p_lo);
+      if (!CONVERTED && lane == 0) mbar_arrive(empty + 8 * st);
+    }
+    store_rows<D>(a, r, acc, l, b);
+  }
+}
+
+// The grid of a walk (Q tiles, head groups, batches) and its launch;
+// kernel: the unit's __global__ around q_walk with these parameters.
+template <int D, bool QUANT, bool QQ, bool F32, int KN, bool BF16KV,
+          bool PRE, typename Kernel>
+cudaError_t launch_walk(Kernel kernel, const Maps& m, const Args& a,
+                        const F32Src& f, int B, cudaStream_t stream) {
+  const int smem = WalkLayout<D, QUANT, QQ, F32, KN, BF16KV, PRE>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Nq + a.R - 1) / a.R, a.H / a.Gp, B);
+  kernel<<<grid, NTHREADS, smem, stream>>>(m.q, m.k, m.v, a, f);
+  return cudaGetLastError();
 }
 
 }  // namespace cfa_bound

@@ -5,12 +5,12 @@
 // tiles, over fp32 K and V split the same way (a span of one key tile at
 // d = 128, four at d = 64), or over bf16 K/V, exact tiles as TMA leaves
 // them, or one-byte K/V converted to exact bf16 tiles (three at d = 128,
-// eight at d = 64). At d = 256 a span is one key tile: a bf16 Q's (or
-// quantize_q's int8 Q's) ring of two 64 KB Q tiles beside its 64 KB K + V
-// pair, and an fp32 Q's ring of one split 128 KB Q tile beside a bf16 (or
-// converted) 64 KB pair, or beside the 64 KB split pair of a 32-key tile
-// over fp32 K/V (BN32: a 64-key split pair, 128 KB, does not fit), so
-// that the producer's split of the next Q tile waits for the consumers.
+// eight at d = 64). At d = 256 an fp32 Q's span is one key tile: a ring
+// of one split 128 KB Q tile beside a bf16 (or converted) 64 KB pair, or
+// beside the 64 KB split pair of a 32-key tile over fp32 K/V (BN32: a
+// 64-key split pair, 128 KB, does not fit), so that the producer's split
+// of the next Q tile waits for the consumers. A 2-byte (or quantize_q's
+// int8) Q at d = 256 takes the Q-major walk instead (below).
 //
 // Replaces: cuda_flashattention_tpu/ops/flash_fwd.py::_fwd_kernel_kmajor.
 // What that kernel computes is the bound forward's result (K1b) on a
@@ -41,6 +41,18 @@
 // loose-bound count, and O = 0, LSE = NEG_INF for rows nothing touched.
 // The order of the atomic adds changes from run to run, so O does in its
 // last fp32 bits.
+//
+// At d = 256 under a 2-byte or int8 Q no span longer than one 64-key tile
+// fits beside the Q ring, so the key split bought nothing and cost a 128 x
+// 256 fp32 partial added by atomics for every (Q tile, key tile) pair:
+// ~1.9 GB of atomic adds a call at the Gemma-width prefix (B=8, Hkv=4, 512
+// rows over 3584 keys). Those builds run the
+// Q-major walk of K1b (`flash_fwd_kmajor_qwalk_kernel` over the header's
+// q_walk: no partial sums, no finalise, no zeroed scratch; one-byte K/V
+// converted in one pass per call before it, `convert_pass`), which is the
+// same function (`_fwd_kernel_kmajor` computes `_fwd_kernel`'s bound
+// result) with each row's sums kept in registers; its O does not vary
+// from run to run. The span there is one tile, as before (`span` 1).
 
 #include "flash_fwd_bound_sm90.cuh"
 
@@ -352,15 +364,61 @@ cudaError_t launch(const Maps& m, const Args& a, const F32Src& f, int B,
   return cudaGetLastError();
 }
 
+// K5 at d = 256 under a 2-byte or int8 Q: the Q-major walk of K1b
+// (flash_fwd_bound_sm90.cuh, q_walk), over bf16 K/V or one-byte K/V
+// converted before it (PRE)
+template <bool QUANT, bool QQ, bool PRE>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    flash_fwd_kmajor_qwalk_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                  const __grid_constant__ CUtensorMap tm_k,
+                                  const __grid_constant__ CUtensorMap tm_v,
+                                  const Args a, const F32Src f) {
+  q_walk<256, QUANT, QQ, false, BN, false, PRE>(&tm_q, &tm_k, &tm_v, a, f);
+}
+
+// the conversion pass of the PRE builds
+template <int D>
+__global__ void __launch_bounds__(256)
+    flash_fwd_kmajor_convert_kernel(const ConvArgs c) {
+  convert_pass<D>(c);
+}
+
+template <bool QUANT, bool QQ, bool PRE>
+cudaError_t launch_q(const Maps& m, const Args& a, const F32Src& f, int B,
+                     cudaStream_t stream) {
+  return launch_walk<256, QUANT, QQ, false, BN, false, PRE>(
+      flash_fwd_kmajor_qwalk_kernel<QUANT, QQ, PRE>, m, a, f, B, stream);
+}
+
+// (a template, so that the fp16 unit does not instantiate the int8-Q build)
+template <int D>
+cudaError_t launch_q_walk(const Maps& m, const Args& a, const F32Src& f,
+                          int B, int qq, cudaStream_t stream) {
+  static_assert(D == 256, "the Q-major K5 builds are d = 256's");
+  if (a.k_type == kBf16) {
+    return launch_q<false, false, false>(m, a, f, B, stream);
+  }
+  if constexpr (!kHalf) {
+    if (qq) return launch_q<true, true, true>(m, a, f, B, stream);
+  }
+  return launch_q<true, false, true>(m, a, f, B, stream);
+}
+
 template <int D>
 cudaError_t launch_form(const Maps& m, const Args& a, const F32Src& f, int B,
                         int qq, bool f32, cudaStream_t stream) {
   if constexpr (kHalf) {  // the fp16 unit: fp16 Q (the entry point checked)
-    return a.k_type == kBf16 ? launch<D, false, false, false>(m, a, f, B,
-                                                              stream)
-                             : launch<D, true, false, false>(m, a, f, B,
-                                                             stream);
+    if constexpr (D == 256) {
+      return launch_q_walk<D>(m, a, f, B, qq, stream);
+    } else {
+      return a.k_type == kBf16
+                 ? launch<D, false, false, false>(m, a, f, B, stream)
+                 : launch<D, true, false, false>(m, a, f, B, stream);
+    }
   } else {
+    if constexpr (D == 256) {
+      if (!f32) return launch_q_walk<D>(m, a, f, B, qq, stream);
+    }
     if (f32) {  // an fp32 Q over fp32, bf16 or one-byte K/V
       if (a.k_type == kF32) {
         return launch<D, false, false, true>(m, a, f, B, stream);
@@ -370,23 +428,28 @@ cudaError_t launch_form(const Maps& m, const Args& a, const F32Src& f, int B,
       }
       return launch<D, true, false, true>(m, a, f, B, stream);
     }
-    if (a.k_type == kBf16) {
-      return launch<D, false, false, false>(m, a, f, B, stream);
+    if constexpr (D != 256) {
+      if (a.k_type == kBf16) {
+        return launch<D, false, false, false>(m, a, f, B, stream);
+      }
+      return qq ? launch<D, true, true, false>(m, a, f, B, stream)
+                : launch<D, true, false, false>(m, a, f, B, stream);
     }
-    return qq ? launch<D, true, true, false>(m, a, f, B, stream)
-              : launch<D, true, false, false>(m, a, f, B, stream);
+    return cudaErrorInvalidValue;  // d = 256 under a 2-byte Q: above
   }
 }
 
 }  // namespace
 
 // K5. ptrs: q, k, v, k_scale, v_scale, q_factor, c, l_acc ([B,H,Nq] fp32,
-// zeroed), o_acc ([B,H,Nq,D] fp32, zeroed), n_loose, o, lse; the rest as
-// cfa_flash_fwd_bound's (q_f32's codes and the fp16 unit's
-// cfa_flash_fwd_kmajor_f16 too), and span: key tiles of 64 per CTA, 1 to
-// max_span(D, q_f32, K/V not fp32) (ops/flash_fwd.py::_KMAJOR_MAX_SPAN*);
-// its tiles are of key_tile(D, q_f32, k_type) keys (32 for an fp32 Q over
-// fp32 K/V at d = 256). D: 64, 128, or 256 (span 1).
+// zeroed), o_acc ([B,H,Nq,D] fp32, zeroed), n_loose, o, lse, kc, vc; the
+// rest as cfa_flash_fwd_bound's (q_f32's codes, kc and vc, and the fp16
+// unit's cfa_flash_fwd_kmajor_f16 too), and span: key tiles of 64 per
+// CTA, 1 to max_span(D, q_f32, K/V not fp32)
+// (ops/flash_fwd.py::_KMAJOR_MAX_SPAN*); its tiles are of key_tile(D,
+// q_f32, k_type) keys (32 for an fp32 Q over fp32 K/V at d = 256). D: 64,
+// 128, or 256 (span 1; under a 2-byte or int8 Q the Q-major walk, which
+// reads neither l_acc nor o_acc: NULL).
 extern "C" int cfa_flash_fwd_kmajor(void* const* ptrs, int B, int H, int Hkv,
                                     int Nq, int Nk, int D,
                                     const long long* strides, int k_type,
@@ -434,12 +497,19 @@ extern "C" int cfa_flash_fwd_kmajor(void* const* ptrs, int B, int H, int Hkv,
   Maps m = {};
   F32Src f = {};
   if (f32) f = f32_src(ptrs, strides, q_f32);
-  if (k_type != kF32 &&
-      !make_maps(&m, f32 ? nullptr : ptrs[0], ptrs[1], ptrs[2], B, H, Hkv,
-                 Nq, Nk, D, strides, k_type, v_type, qq, a.Gp, a.R)) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pre_converted(D, f32, k_type)) {
+    const cudaError_t err = convert_and_map<256>(
+        flash_fwd_kmajor_convert_kernel<256>, &m, ptrs[0], ptrs[1], ptrs[2],
+        ptrs[12], ptrs[13], B, H, Hkv, Nq, Nk, strides, k_type, v_type, qq,
+        a.Gp, a.R, s);
+    if (err != cudaSuccess) return err;
+  } else if (k_type != kF32 &&
+             !make_maps(&m, f32 ? nullptr : ptrs[0], ptrs[1], ptrs[2], B, H,
+                        Hkv, Nq, Nk, D, strides, k_type, v_type, qq, a.Gp,
+                        a.R)) {
     return cudaErrorInvalidValue;
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
       return launch_form<64>(m, a, f, B, qq, f32, s);

@@ -60,8 +60,9 @@ def run_dim(d: int, dims: Tuple[int, ...] = FWD_HEAD_DIMS) -> Optional[int]:
 # csrc/flash_fwd_kmajor.cu).
 FWD_BLOCK_Q = 128
 KMAJOR_TILE = 64
-# (at d = 256 one tile pair: 64 KB beside a ring of two 64 KB bf16 Q
-# tiles, or beside one split 128 KB fp32 Q tile)
+# (at d = 256 a span of one tile: under an fp32 Q one tile pair beside
+# one split 128 KB Q tile; under a 2-byte or int8 Q K5 runs K1b's Q-major
+# walk there, `kmajor_q_walk`, and its span 1 names that walk's key tile)
 KMAJOR_MAX_SPAN = {64: 8, 128: 4, 256: 1}
 KMAJOR_MAX_SPAN_F32 = {64: 4, 128: 1, 256: 1}
 KMAJOR_MAX_SPAN_F32Q = {64: 8, 128: 3, 256: 1}
@@ -282,6 +283,34 @@ def kmajor_span(b: int, h_kv: int, nk: int, d: int, sms: int,
         if cdiv(tiles, span) * h_kv * b >= 2 * sms:
             return span
     return 1
+
+
+def kv_converted(d: int, q_f32: bool, quantized: bool) -> bool:
+    """Whether the bound forward (K1b, K5) at run dim d converts one-byte
+    K/V to exact 2-byte copies in a pass of its own before its walk (the
+    PRE builds of csrc/flash_fwd_bound_sm90.cuh, `pre_converted`): at d =
+    256 under a 2-byte Q or quantize_q's int8 Q (`q_f32` false: the
+    entry points' code 0); the fp32-Q builds and d <= 128 convert each key
+    tile in shared memory."""
+    return quantized and not q_f32 and d == 256
+
+
+def kmajor_q_walk(d: int, q_f32: bool) -> bool:
+    """Whether K5 at run dim d runs K1b's Q-major walk (no key split, no
+    partial sums or finalise, no zeroed scratch): at d = 256 under a
+    2-byte or int8 Q, where no span longer than one 64-key tile fits
+    (csrc/flash_fwd_kmajor.cu)."""
+    return d == 256 and not q_f32
+
+
+def kv_copy_bytes(b: int, h_kv: int, nk: int, d: int, *, qq: bool,
+                  k_int8: bool) -> Tuple[int, int]:
+    """Bytes of the copies of K and V that a `kv_converted` call writes
+    before its walk ([B,Hkv,Nk,d] each): V as 2-byte values; K as 2-byte
+    values, or under quantize_q as int8 codes (re-gridded from e4m3), and
+    none under quantize_q over int8 keys, whose codes the walk reads."""
+    n = b * h_kv * nk * d
+    return (0 if qq and k_int8 else n if qq else 2 * n), 2 * n
 
 
 def auto_block_sizes(nq: int, nk: int, d: int, causal: bool = False,

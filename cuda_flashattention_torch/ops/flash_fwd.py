@@ -19,7 +19,14 @@ Counterpart of cuda_flashattention_tpu/ops/flash_fwd.py
            past; each (Q tile, span) pair's l and acc are added with fp32
            atomics, so O differs in its last fp32 bits from run to run.
            `_kmajor_span` sizes the span so that the grid fills the card,
-           unless `block_sizes.block_k` (tile · span) names it.
+           unless `block_sizes.block_k` (tile · span) names it. At d = 256
+           under a 2-byte or int8 Q, where no span past one tile fits,
+           K5 runs K1b's Q-major walk (`kmajor_q_walk`: no partial sums).
+
+At d = 256 under a 2-byte or int8 Q, K1b and K5 convert one-byte K/V once
+per call, before their walk, into exact 2-byte copies (`kv_converted`;
+their bytes `kv_copy_bytes`, scratch allocated per call), which the walk
+reads as it reads bf16 K/V.
 
 `block_sizes` picks the key tile among those the routed kernel is built
 for (`ops.common.BUILT_TILES`): 64 keys everywhere, or 128 in the bf16
@@ -74,7 +81,10 @@ from cuda_flashattention_torch.ops.common import (
     check_tiles,
     fwd_key_tile,
     kernel_operand,
+    kmajor_q_walk,
     kmajor_span,
+    kv_converted,
+    kv_copy_bytes,
     pad_heads,
     quantize_q_per_head,
     resolve_scale,
@@ -552,7 +562,17 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
         c = c.contiguous()
         shape = (b, h, h_kv, nq, nk, d, strides(q_op), k_type, v_type,
                  q_f32, int(plan.qq), *tail)
-        if plan.use_kmajor:
+        # at d = 256 under a 2-byte or int8 Q, one-byte K/V are converted
+        # into exact copies before the walk, in this scratch (kc, vc)
+        kc = vc = None
+        if kv_converted(d, bool(q_f32), plan.quantized):
+            k_bytes, v_bytes = kv_copy_bytes(
+                b, h_kv, nk, d, qq=plan.qq, k_int8=k.dtype == torch.int8)
+            copies = torch.empty(k_bytes + v_bytes, dtype=torch.uint8,
+                                 device=q.device)
+            kc = copies[:k_bytes] if k_bytes else None
+            vc = copies[k_bytes:]
+        if plan.use_kmajor and not kmajor_q_walk(d, bool(q_f32)):
             # one zeroed buffer: each (Q tile, span) pair's partial sums,
             # added with atomics (acc, then l), then the loose-row count
             n_acc = b * h * nq * d
@@ -568,16 +588,21 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
                     q.device).multi_processor_count
                 span = _kmajor_span(b, h_kv, nk, d, sms, bool(q_f32),
                                     k.dtype != torch.float32)
+        else:
+            # K1b, and K5 on the Q-major walk: the sums stay in registers
+            o_acc = l_acc = None
+            n_loose = torch.zeros(1, dtype=torch.int32, device=q.device)
+            span = 1
+        if plan.use_kmajor:
             err = getattr(lib, "cfa_flash_fwd_kmajor" + unit)(
                 _ptrs(q_op, k, v, ksc, vsc, q_factor, c, l_acc, o_acc,
-                      n_loose, o, lse), *shape, span, stream)
+                      n_loose, o, lse, kc, vc), *shape, span, stream)
             _build.check(err, "flash_attention_forward K-major kernel launch")
             counts["kmajor"] += 1
         else:
-            n_loose = torch.zeros(1, dtype=torch.int32, device=q.device)
             err = getattr(lib, "cfa_flash_fwd_bound" + unit)(
-                _ptrs(q_op, k, v, ksc, vsc, q_factor, c, n_loose, o, lse),
-                *shape, plan.block_k or tile, stream)
+                _ptrs(q_op, k, v, ksc, vsc, q_factor, c, n_loose, o, lse, kc,
+                      vc), *shape, plan.block_k or tile, stream)
             _build.check(err, "flash_attention_forward bound kernel launch")
             counts["bound"] += 1
             if plan.block_k == 128:

@@ -46,10 +46,13 @@ import atexit
 import contextlib
 import dataclasses
 import datetime
+import faulthandler
 import json
 import math
 import os
+import signal
 import socket
+import sys
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -133,6 +136,10 @@ DIST_TIMEOUT_S = 300.0
 transfer_stats = {"bytes": 0, "wait_s": 0.0}
 # what `shutdown_distributed` runs before it leaves the group
 _SHUTDOWN_HOOKS: List[Callable[[], None]] = []
+# the signal on which a process of a group writes every thread's Python
+# stack to stderr (`faulthandler`): the launcher sends it to the processes
+# still running at its timeout, before it stops them
+STACK_SIGNAL = signal.SIGUSR1
 
 
 def _waited(fn):
@@ -253,7 +260,18 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                                f"{probe.item()}, not {num_processes}")
     _WORLD, TRANSPORT = world, transport
     _DISTRIBUTED_INITIALIZED = True
+    if sys.__stderr__ is not None:  # the process's own stderr, not a capture
+        faulthandler.register(STACK_SIGNAL, file=sys.__stderr__,
+                              all_threads=True)
     atexit.register(shutdown_distributed)
+
+
+def _mark(world: "_World", step: str) -> None:
+    """One line on stderr for a step of `shutdown_distributed`: the
+    process and the host's clock, so that the lines of several processes
+    show which one came late and where it waits."""
+    print(f"[mesh] p{world.process} shutdown: {step} at {time.time():.3f}",
+          file=sys.stderr, flush=True)
 
 
 def shutdown_distributed() -> None:
@@ -265,18 +283,24 @@ def shutdown_distributed() -> None:
         return
     import torch.distributed as dist
     world = _WORLD
+    _mark(world, "begins")
     try:
         _settle()
+        _mark(world, "sends settled")
         while _SHUTDOWN_HOOKS:
-            _SHUTDOWN_HOOKS.pop(0)()
+            hook = _SHUTDOWN_HOOKS.pop(0)
+            hook()
+            _mark(world, f"hook {hook.__name__} done")
     finally:
         _WORLD, TRANSPORT = None, None
         _DISTRIBUTED_INITIALIZED = False
         if dist.is_initialized():
             try:
                 _leave(world)
+                _mark(world, "left")
             finally:
                 dist.destroy_process_group()
+                _mark(world, "group destroyed")
 
 
 _LEFT_KEY = "cfa/shutdown/left"

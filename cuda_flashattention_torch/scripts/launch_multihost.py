@@ -13,9 +13,15 @@ port (`CFA_COORD`), the process count and index (`CFA_NPROC`,
 from `--devices-per-proc`) and, under `--cpu`, `CFA_CPU=1` (the processes
 run on the CPU; else process i takes card i mod the visible cards). The
 global mesh then spans N·K ranks. Process 0's output is shown as it comes;
-the others' is kept and printed, to stderr, for a process that fails. When
-a process fails, the others are stopped, and the launcher exits with the
-code of the first process that failed (124 when `--timeout` ran out).
+the others' is kept and printed, to stderr, for a process that fails
+(with `--log-dir DIR`, every process's output but process 0's is also
+written to DIR/p<i>.log). When a process fails, the others are stopped,
+and the launcher exits with the code of the first process that failed
+(124 when `--timeout` ran out). At the timeout each process still running
+is first sent `parallel/mesh.STACK_SIGNAL`, on which a process of a group
+writes every thread's Python stack to its stderr, so that the output
+shows where a late process waits; `shutdown_distributed` also prints a
+line per step of each process's shutdown, with the host's clock.
 
 Without `--cpu` the kernel library is built once, before any process
 starts (`_build.ensure_built`), so that N processes do not run nvcc N
@@ -34,7 +40,14 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 from typing import List
+
+# seconds the processes still running at the timeout get to write their
+# stacks before they are stopped
+STACK_WAIT_S = 3.0
+# the characters of a failed process's output that the launcher prints
+TAIL_CHARS = 16000
 
 
 def free_port() -> int:
@@ -56,7 +69,10 @@ def parse(argv=None) -> argparse.Namespace:
                     help="run every process on the CPU")
     ap.add_argument("--timeout", type=float, default=None,
                     help="seconds after which every process is stopped")
-    valued = {"-np", "--devices-per-proc", "--timeout"}
+    ap.add_argument("--log-dir", type=Path, default=None,
+                    help="write each process's output but process 0's "
+                         "to DIR/p<i>.log")
+    valued = {"-np", "--devices-per-proc", "--timeout", "--log-dir"}
     i = 0
     while i < len(argv) and argv[i] != "-m" and argv[i].startswith("-"):
         i += 2 if argv[i] in valued else 1
@@ -76,6 +92,19 @@ def child_env(coord: str, nproc: int, pid: int, local_ranks: int,
                 "CFA_PID": str(pid), "CFA_LOCAL_RANKS": str(local_ranks),
                 "CFA_CPU": "1" if cpu else "0"})
     return env
+
+
+def dump_stacks(procs) -> None:
+    """Ask each process for its threads' stacks (`STACK_SIGNAL`, which a
+    process of a group answers on its stderr) and give them
+    `STACK_WAIT_S` to write them."""
+    from cuda_flashattention_torch.parallel.mesh import STACK_SIGNAL
+    for p in procs:
+        try:
+            p.send_signal(STACK_SIGNAL)
+        except ProcessLookupError:  # it ended meanwhile
+            pass
+    time.sleep(STACK_WAIT_S)
 
 
 def main(argv=None) -> int:
@@ -99,8 +128,11 @@ def main(argv=None) -> int:
     try:
         while any(p.poll() is None for p in procs):
             if deadline is not None and time.monotonic() > deadline:
-                print(f"[launch_multihost] stopped after {args.timeout} s",
-                      file=sys.stderr)
+                late = [i for i, p in enumerate(procs) if p.poll() is None]
+                print(f"[launch_multihost] processes {late} still running "
+                      f"after {args.timeout} s: their stacks, then they "
+                      f"are stopped", file=sys.stderr, flush=True)
+                dump_stacks([procs[i] for i in late])
                 rc = 124
                 break
             failed = [i for i, p in enumerate(procs)
@@ -114,18 +146,22 @@ def main(argv=None) -> int:
             if p.poll() is None:
                 p.kill()
             p.wait()
+    if args.log_dir is not None:
+        args.log_dir.mkdir(parents=True, exist_ok=True)
     for pid, (p, log) in enumerate(zip(procs, logs)):
+        text = ""
+        if log is not None:
+            log.seek(0)
+            text = log.read()
+            log.close()
+            if args.log_dir is not None:
+                (args.log_dir / f"p{pid}.log").write_text(text)
         if p.returncode != 0:
             print(f"[launch_multihost] process {pid} exited {p.returncode}",
                   file=sys.stderr)
-            if log is not None:
-                log.seek(0)
-                tail = log.read()[-4000:]
-                print("".join(f"[p{pid}] {line}\n"
-                              for line in tail.splitlines()),
-                      file=sys.stderr, end="")
-        if log is not None:
-            log.close()
+            print("".join(f"[p{pid}] {line}\n"
+                          for line in text[-TAIL_CHARS:].splitlines()),
+                  file=sys.stderr, end="")
     if rc == 0:
         rc = next((p.returncode for p in procs if p.returncode), 0)
     return rc

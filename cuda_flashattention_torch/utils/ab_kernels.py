@@ -2,7 +2,8 @@
 commits on one card within one call.
 
     python3 cuda_flashattention_torch/utils/ab_kernels.py <checkout root>
-                                         [K9 | decode | decode-sweep]
+                                         [K9 | decode | decode-sweep |
+                                          forward]
 
 imports `cuda_flashattention_torch` from <checkout root> (building its
 kernels there), and prints, on bf16 inputs with d=128 (with `K9`, only the
@@ -45,6 +46,11 @@ sweep; with `decode-sweep`, the K6 and K7 rows and their split sweep):
   - the device ring (K9, `device_ring_matmul`) with its ranks sharing the
     card: L=1024 at n=1, 4 (the example stage) and 8, L=8192 at n=1, 4
     and 8 (kernel alone per launch: its time per hop is (n8 − n1) / 7).
+With `forward`, only the forward rows of `forward_rows` (below): the build's
+nvcc seconds, then per row the kernel alone (every `flash_fwd*` kernel of
+a call, K5's finalise and the conversion pass included, and the zeroing of
+its scratch), its bound and share, and SDPA on the same (dequantised)
+inputs under the same mask.
 For each: the wrapper's median ms (CUDA events) and the device ms per
 call of its kernels (torch.profiler), with each kernel's ms per launch.
 The K4 rows run first, so that both checkouts reach them after the same
@@ -55,6 +61,7 @@ calls, differ by more than two commits do. Needs a CUDA device.
 """
 
 import sys
+import time
 
 
 def main(root: str, only: str = "") -> None:
@@ -113,6 +120,9 @@ def main(root: str, only: str = "") -> None:
 
     if only == "K9":
         device_ring_rows()
+        return
+    if only == "forward":
+        forward_rows(mk, dev, card)
         return
 
     if not only.startswith("decode"):
@@ -208,6 +218,207 @@ def forward_backward_rows(mk, dev, report):
     report("N=16384 causal K5", lambda: flash_attention_forward(
         q, k, v, causal=True, softmax="bound_unchecked"), "flash_fwd", 8)
     del q, k, v
+
+
+def forward_rows(mk, dev, card):
+    """The forward kernels' rows (bf16 inputs peaked as chip_smoke's, Q x8
+    and K x4; fp32 O), each pinned through `ops.flash_fwd._plan` +
+    `_fwd_cuda` (the bound forms without the guarded fallback launch):
+      - K1b and K5 at the Gemma-width prefix (B=8, H=8, Hkv=4, 512 rows
+        over 3584 keys, d=256) over bf16, int8, fp8 and mixed K/V, each
+        quantized pair also under quantize_q;
+      - both at its windowed prefix (the 1024-key slice, causal, window
+        1024, kv_offset 1024) over bf16, int8 and fp8;
+      - K5 at [1, 8, 8192, 256] over 4 KV heads, causal, bf16;
+      - the fp32-Q d = 256 builds: K1b over int8 and bf16 at the prefix,
+        K5 over int8 at the windowed prefix;
+      - fp16: K1b and K5 at the Gemma prefix over int8, K1b at d=128's;
+      - d = 128: at the 246M model's prefix (B=8, H=16, Hkv=4, 512 over
+        3584) K1 (online) bf16, K1b bf16 and int8, K5 fp8; K5 over int8 at
+        its windowed prefix; K1 and K8 at [1, 16, 4096, 128] causal;
+      - K1 at the Gemma prefill (B=8, 512 causal, d=256) and K8 at [1, 8,
+        4096, 256] causal.
+    Each row: the kernel alone per call (torch.profiler over 5 calls: the
+    `flash_fwd*` / `fa1` kernels and the fill of a zeroed scratch), the
+    bound (the larger of the bytes, K/V at their storage width, over 3.35
+    TB/s and 4·pairs·d over 989 TFLOP/s, or 495 for an fp32 Q) and SDPA's
+    wrapper ms on the same inputs (dequantised, Q's type) under the same
+    mask."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from cuda_flashattention_torch import _build
+    from cuda_flashattention_torch.ops import flash_fwd as ff
+    from cuda_flashattention_torch.ops.fa1 import fa1_attention
+    from cuda_flashattention_torch.ops.quant import quantize_kv
+    from cuda_flashattention_torch.utils.profiling import kernel_times
+    from cuda_flashattention_torch.utils.timing import cuda_time_ms
+
+    t0 = time.perf_counter()
+    _build.library()
+    if _build.build_seconds is not None:
+        longest = max(_build.source_seconds.items(), key=lambda x: x[1])
+        print(f"{sys.argv[1]} build: nvcc {_build.build_seconds:.1f} s wall "
+              f"({time.perf_counter() - t0:.1f} s with the load), longest "
+              f"unit {longest[0]} {longest[1]:.1f} s; forward units "
+              + ", ".join(f"{n} {t:.1f}" for n, t in sorted(
+                  _build.source_seconds.items()) if n.startswith(
+                      ("flash_fwd", "fa1"))) + f" ({card})", flush=True)
+
+    def pairs(nq, nk, causal=False, window=0, kv_offset=0):
+        i = np.arange(nq, dtype=np.int64) + kv_offset
+        hi = np.minimum(nk, i + 1) if causal else np.full(nq, nk)
+        lo = np.maximum(0, i - window + 1) if window else np.zeros(nq)
+        return int(np.maximum(0, hi - lo).sum())
+
+    def inputs(b, h, hkv, nq, nk, d, qtype, dtype=torch.bfloat16):
+        q = mk(b, h, nq, d, peak=8).to(dtype)
+        k, v = mk(b, hkv, nk, d, peak=4), mk(b, hkv, nk, d)
+        if qtype is None:
+            return q, k.to(dtype), v.to(dtype), {}, k.to(dtype), v.to(dtype)
+        kv = quantize_kv(k, v, qtype)
+        sc = dict(k_scale=kv.k_scale, v_scale=kv.v_scale)
+        kd = (kv.k_q.float() * kv.k_scale[..., None]).to(dtype)
+        vd = (kv.v_q.float() * kv.v_scale[..., None]).to(dtype)
+        return q, kv.k_q, kv.v_q, sc, kd, vd
+
+    def pinned(form, q, k, v, sc, kw, qq=False):
+        softmax = "online" if form == "online" else "bound_unchecked"
+        plan = ff._plan(q, k, v, None, kw.get("causal", False),
+                        kw.get("window", 0), kw.get("kv_offset", 0), None,
+                        sc.get("k_scale"), sc.get("v_scale"), None, None,
+                        softmax, qq)
+        plan = dataclasses.replace(plan, use_kmajor=form == "kmajor")
+        return lambda: ff._fwd_cuda(q, k, v, plan, torch.float32,
+                                    sc.get("k_scale"), sc.get("v_scale"),
+                                    None, None)
+
+    sdpa_ms = {}
+
+    def sdpa(key, q, kd, vd, kw):
+        """SDPA's wrapper ms on the dequantised K/V (Q's type), once per
+        key: `is_causal` for a plain causal square call, else the call's
+        boolean mask."""
+        if key in sdpa_ms:
+            return sdpa_ms[key]
+        nq, nk = q.shape[2], kd.shape[2]
+        mkw = dict(enable_gqa=q.shape[1] != kd.shape[1])
+        if kw.get("causal"):
+            if nq == nk and not kw.get("kv_offset") and not kw.get("window"):
+                mkw["is_causal"] = True
+            else:
+                i = torch.arange(nq, device=dev)[:, None] + kw.get(
+                    "kv_offset", 0)
+                j = torch.arange(nk, device=dev)[None, :]
+                ok = j <= i
+                if kw.get("window"):
+                    ok = ok & (j > i - kw["window"])
+                mkw["attn_mask"] = ok
+        kd, vd = kd.to(q.dtype), vd.to(q.dtype)
+        sdpa_ms[key] = cuda_time_ms(
+            lambda: F.scaled_dot_product_attention(q, kd, vd, **mkw),
+            iters=10)
+        return sdpa_ms[key]
+
+    def row(label, fn, q, k, v, sc, kw, key, kd, vd):
+        fn()
+        torch.cuda.synchronize()
+        prof = kernel_times(fn, iters=5)
+        mine = {n: prof.ms[n] / 5 for n in prof.ms
+                if any(w in n for w in ("flash_fwd", "fa1", "FillFunctor"))}
+        ms = sum(mine.values())
+        b, h, nq, d = q.shape
+        nbytes = (sum(x.numel() * x.element_size() for x in (q, k, v))
+                  + sum(x.numel() * 4 for x in sc.values())
+                  + b * h * nq * (4 * d + 4))
+        flops = 4.0 * b * h * pairs(nq, k.shape[2], **kw) * d
+        rate = 495e12 if q.dtype == torch.float32 else 989e12
+        t_b, t_o = nbytes / 3.35e12 * 1e3, flops / rate * 1e3
+        bound, by = max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+        lib = sdpa(key, q, kd, vd, kw)
+        parts = ", ".join(f"{n.replace('void ', '').split('(')[0][:40]} "
+                          f"{t:.4f}" for n, t in mine.items())
+        print(f"{sys.argv[1]} fwd {label}: kernel {ms:.4f} ms per call "
+              f"[{parts}]; bound {bound:.4f} ms ({by}): "
+              f"{100 * bound / ms:.1f}%; SDPA {lib:.4f} ms ({card})",
+              flush=True)
+
+    gemma = (8, 8, 4, 512, 3584, 256)
+    window = dict(causal=True, window=1024, kv_offset=1024)
+    shapes = [("Gemma prefix", gemma, {}),
+              ("Gemma windowed prefix", (8, 8, 4, 512, 1024, 256), window)]
+    for name, shape, kw in shapes:
+        for qtype in (None, "int8", "fp8", "mixed"):
+            if qtype == "mixed" and kw:
+                continue
+            q, k, v, sc, kd, vd = inputs(*shape, qtype)
+            for qq in ((False, True) if qtype and not kw else (False,)):
+                for form, kn in (("bound", "K1b"), ("kmajor", "K5")):
+                    row(f"{kn} d=256 {name} {qtype or 'bf16'}"
+                        + (" quantize_q" if qq else ""),
+                        pinned(form, q, k, v, sc, kw, qq), q, k, v, sc, kw,
+                        (name, "bf16"), kd, vd)
+            del q, k, v, sc, kd, vd
+    q, k, v, sc, kd, vd = inputs(1, 8, 4, 8192, 8192, 256, None)
+    causal = dict(causal=True)
+    row("K5 d=256 [1, 8, 8192, 256] causal bf16",
+        pinned("kmajor", q, k, v, sc, causal), q, k, v, sc, causal,
+        ("8192 causal", "bf16"), kd, vd)
+    del q, k, v, kd, vd
+    for name, shape, kw, qtype, form, kn in (
+            ("Gemma prefix", gemma, {}, "int8", "bound", "K1b"),
+            ("Gemma prefix", gemma, {}, None, "bound", "K1b"),
+            ("Gemma windowed prefix", (8, 8, 4, 512, 1024, 256), window,
+             "int8", "kmajor", "K5")):
+        q, k, v, sc, kd, vd = inputs(*shape, qtype, torch.float32)
+        if qtype is None:  # an fp32 Q over a bf16 cache (BF16KV)
+            k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        row(f"{kn} fp32 Q d=256 {name} {qtype or 'bf16'} K/V",
+            pinned(form, q, k, v, sc, kw), q, k, v, sc, kw,
+            (name, "fp32"), kd, vd)
+        del q, k, v, kd, vd
+    for name, shape, qtype in (("Gemma prefix", gemma, "int8"),
+                               ("prefix d=128", (8, 16, 4, 512, 3584, 128),
+                                None)):
+        q, k, v, sc, kd, vd = inputs(*shape, qtype, torch.float16)
+        forms = (("bound", "K1b"), ("kmajor", "K5")) if qtype else (
+            ("bound", "K1b"),)
+        for form, kn in forms:
+            row(f"{kn} fp16 {name} {qtype or 'fp16'}",
+                pinned(form, q, k, v, sc, {}), q, k, v, sc, {},
+                (name, "fp16"), kd, vd)
+        del q, k, v, kd, vd
+    prefix = (8, 16, 4, 512, 3584, 128)
+    for form, kn, qtype in (("online", "K1", None), ("bound", "K1b", None),
+                            ("bound", "K1b", "int8"),
+                            ("kmajor", "K5", "fp8")):
+        q, k, v, sc, kd, vd = inputs(*prefix, qtype)
+        row(f"{kn} d=128 prefix {qtype or 'bf16'}",
+            pinned(form, q, k, v, sc, {}), q, k, v, sc, {},
+            ("prefix d=128", "bf16"), kd, vd)
+        del q, k, v, kd, vd
+    q, k, v, sc, kd, vd = inputs(8, 16, 4, 512, 1024, 128, "int8")
+    row("K5 d=128 windowed prefix int8", pinned("kmajor", q, k, v, sc,
+                                                  window),
+        q, k, v, sc, window, ("windowed d=128", "bf16"), kd, vd)
+    del q, k, v, kd, vd
+    for shape, online in (((1, 16, 16, 4096, 4096, 128), True),
+                          ((8, 8, 4, 512, 512, 256), True),
+                          ((1, 8, 8, 4096, 4096, 256), False)):
+        q, k, v, sc, kd, vd = inputs(*shape, None)
+        b, h, hkv, n, _, d = shape
+        if online:
+            row(f"K1 d={d} [{b}, {h}, {n}, {d}] causal",
+                pinned("online", q, k, v, sc, causal), q, k, v, sc, causal,
+                (shape, "bf16"), kd, vd)
+        if shape[0] == 1:
+            row(f"K8 d={d} [{b}, {h}, {n}, {d}] causal",
+                lambda: fa1_attention(q, k, v, causal=True), q, k, v, sc,
+                causal, (shape, "bf16"), kd, vd)
+        del q, k, v, kd, vd
 
 
 def _decode_rows(mk, gen, dev, report, sweep):

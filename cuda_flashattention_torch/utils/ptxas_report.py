@@ -10,7 +10,7 @@ loads in bytes, and the stack frame. Needs nvcc, so it runs on the
 machine with the card:
 
     python -m cuda_flashattention_torch.utils.ptxas_report \\
-        --match 'ILi256E' [--json ptxas.json]
+        --match 'ILi256E' [--sources 'flash_fwd*'] [--json ptxas.json]
 
 (`ILi256E`: a first template argument of 256, as the names are mangled;
 cu++filt writes it `(int)256`.)
@@ -19,6 +19,7 @@ cu++filt writes it `(int)256`.)
 from __future__ import annotations
 
 import argparse
+import fnmatch
 import json
 import re
 import shutil
@@ -71,13 +72,15 @@ def demangle(names: List[str], nvcc: str) -> List[str]:
     return done.splitlines()
 
 
-def report(match: str = "") -> List[Dict]:
-    """One dict per kernel instance whose name matches `match`: source,
-    kernel, regs, spill_stores, spill_loads, stack."""
+def report(match: str = "", sources: str = "*") -> List[Dict]:
+    """One dict per kernel instance whose name matches `match`, of the
+    sources whose file name matches the glob `sources`: source, kernel,
+    regs, spill_stores, spill_loads, stack."""
     nvcc = _build.find_nvcc()
     rows = []
     with tempfile.TemporaryDirectory() as tmp:
-        srcs = _build.sources()
+        srcs = [s for s in _build.sources()
+                if fnmatch.fnmatch(s.name, sources)]
         procs = [subprocess.Popen(
             _build.compile_command(nvcc, s, Path(tmp) / f"{s.stem}.o")
             + ["-Xptxas", "-v"], stdout=subprocess.PIPE,
@@ -99,9 +102,11 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--match", default="",
                     help="regex on the demangled kernel name")
+    ap.add_argument("--sources", default="*",
+                    help="glob on the csrc/*.cu file names to compile")
     ap.add_argument("--json", default=None, help="also write the rows here")
     args = ap.parse_args(argv)
-    rows = report(args.match)
+    rows = report(args.match, args.sources)
     for r in rows:
         print(f"{r['source']:22s} regs {r.get('regs', -1):3d} spill "
               f"{r.get('spill_stores', -1)}/{r.get('spill_loads', -1)} B "

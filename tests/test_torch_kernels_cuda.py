@@ -2986,6 +2986,115 @@ def test_wide_bound_kernels_pinned(dev, qtype, quantize_q, b, h, h_kv, nq,
     assert _err(got["kmajor"][1], got["bound"][1]) <= 1e-4
 
 
+# The converted builds at d = 256 (one-byte K/V converted before the walk,
+# K5 on K1b's Q-major walk): the key counts of the ring's shards (4000,
+# 15998: ragged last tiles), causal frontiers and window edges inside a key
+# tile, GQA groups of 1, 2, 4 and 8, flat and peaked inputs
+WIDE_CONVERTED_CASES = [
+    (1, 8, 4, 128, 4000, 256, dict()),                          # G = 2
+    (1, 4, 4, 64, 15998, 256, dict(causal=True, kv_offset=15934)),  # G = 1
+    (2, 16, 4, 96, 1000, 256, dict(causal=True, window=333,
+                                   kv_offset=900)),             # G = 4
+    (1, 8, 1, 70, 577, 256, dict(causal=True, kv_offset=-5)),   # G = 8
+    (2, 8, 4, 200, 261, 256, dict(causal=True, window=97,
+                                  kv_offset=61)),
+]
+
+
+def _wide_inputs(dev, b, h, h_kv, nq, nk, d, qtype, seed, peaked,
+                 dtype=torch.bfloat16):
+    """Q, K, V (peaked: Q x8, K x4; flat: x1), K/V stored as `qtype`."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sq, sk = (8.0, 4.0) if peaked else (1.0, 1.0)
+    q = _u(gen, dev, b, h, nq, d, scale=sq).to(dtype)
+    k = _u(gen, dev, b, h_kv, nk, d, scale=sk).to(dtype)
+    v = _u(gen, dev, b, h_kv, nk, d).to(dtype)
+    k, v, scales = _stored(k, v, qtype)
+    return (q, k, v), scales
+
+
+def _both_bound_kernels(args, scales, quantize_q, kw, out_dtype=None):
+    """K1b and K5 pinned, each against the plain version, and K5 within
+    1e-4 of K1b (fp32 O): one launch of each form."""
+    want = flash_attention_forward_plain(
+        *args, softmax="bound_unchecked", quantize_q=quantize_q,
+        out_dtype=out_dtype, **kw, **scales)
+    got = {}
+    for form in ("bound", "kmajor"):
+        before = _form_counts()
+        got[form] = _pinned(form, *args, quantize_q=quantize_q,
+                            out_dtype=out_dtype or args[0].dtype, **kw,
+                            **scales)
+        torch.cuda.synchronize()
+        after = _form_counts()
+        assert {n: after[n] - before[n] for n in after} == {
+            "online": 0, "bound": int(form == "bound"),
+            "kmajor": int(form == "kmajor"), "fallback": 0}
+        _assert_fwd_close(got[form], want)
+    o32 = {f: _pinned(f, *args, quantize_q=quantize_q, **kw, **scales)
+           for f in ("bound", "kmajor")}
+    torch.cuda.synchronize()
+    assert _err(o32["kmajor"][0], o32["bound"][0]) <= 1e-4
+    assert _err(o32["kmajor"][1], o32["bound"][1]) <= 1e-4
+
+
+@pytest.mark.parametrize("peaked", [False, True])
+@pytest.mark.parametrize("qtype,quantize_q", _STORAGE_FORMS)
+@pytest.mark.parametrize("b,h,h_kv,nq,nk,d,kw", WIDE_CONVERTED_CASES)
+def test_wide_converted_bound_kernels(dev, qtype, quantize_q, peaked, b, h,
+                                      h_kv, nq, nk, d, kw):
+    """K1b and K5 at d = 256 over one-byte K/V converted before their walk
+    (bf16 K/V: the walk alone), every storage pair with and without
+    quantize_q (fp8 keys re-gridded), at the ring's ragged key counts,
+    mask edges inside key tiles and GQA groups of 1 to 8, on flat and
+    peaked inputs: the bf16 gates against the plain version, K5 within
+    1e-4 of K1b."""
+    args, scales = _wide_inputs(dev, b, h, h_kv, nq, nk, d, qtype,
+                                nq + nk + int(peaked), peaked)
+    _nan_fill_allocator(dev)
+    _both_bound_kernels(args, scales, quantize_q, kw,
+                        out_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("quantize_q", [False, True])
+@pytest.mark.parametrize("qtype", ["int8", "fp8", "mixed"])
+def test_wide_converted_read_a_view_of_a_longer_cache(dev, qtype,
+                                                      quantize_q):
+    """The live 700 keys of a 1200-key cache at d = 256, the tail's codes
+    NaN under e4m3 (127 under int8), K/V as the cache's strided views: the
+    conversion pass reads the view and stops at the live length."""
+    b, h, h_kv, nq, d, n_live = 2, 8, 4, 96, 256, 700
+    (q, k, v), scales = _wide_inputs(dev, b, h, h_kv, nq, 1200, d, qtype, 9,
+                                     True)
+    k.view(torch.uint8)[:, :, n_live:] = 0x7F
+    v.view(torch.uint8)[:, :, n_live:] = 0x7F
+    k, v = k[:, :, :n_live], v[:, :, :n_live]
+    scales = {n: x[:, :, :n_live] for n, x in scales.items()}
+    assert not k.is_contiguous()
+    _both_bound_kernels((q, k, v), scales, quantize_q,
+                        dict(causal=True, kv_offset=n_live - nq),
+                        out_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("peaked", [False, True])
+@pytest.mark.parametrize("qtype", ["int8", "fp8", "mixed"])
+@pytest.mark.parametrize("d,kw", [
+    (256, dict()), (256, dict(causal=True, window=150, kv_offset=400)),
+    (200, dict()), (200, dict(causal=True, kv_offset=400))])
+def test_wide_converted_f16(dev, d, kw, qtype, peaked):
+    """The fp16 unit's converted builds (codes to fp16 copies), at d = 256
+    and at d = 200 on heads padded to 256: fp16 O at the bf16 gates, K5
+    within 1e-4 of K1b (peaked: _F16_BOUND_PEAK)."""
+    gen = torch.Generator(device=dev).manual_seed(d + int(peaked))
+    sq, sk = _F16_BOUND_PEAK if peaked else (1.0, 1.0)
+    q = _u(gen, dev, 2, 8, 130, d, scale=sq).half()
+    k = _u(gen, dev, 2, 4, 530, d, scale=sk).half()
+    v = _u(gen, dev, 2, 4, 530, d).half()
+    k, v, scales = _stored(k, v, qtype)
+    _both_bound_kernels((q, k, v), scales, False, kw,
+                        out_dtype=torch.float16)
+
+
 @pytest.mark.parametrize("form", ["online", "bound", "kmajor"])
 @pytest.mark.parametrize("qtype", [None, "int8"])
 @pytest.mark.parametrize("d", [8, 90, 96, 100, 130, 200])

@@ -182,6 +182,44 @@ def test_shutdown_waits_for_the_processes_that_still_use_the_store(
     assert "process 0 left after 3 closing barriers" in r.stdout, r.stdout
 
 
+STUCK_HOOK = """
+import time
+from cuda_flashattention_torch.examples import _ladder
+from cuda_flashattention_torch.parallel import mesh
+_ladder.bootstrap(cpu=True)
+if mesh.process_index() == 1:
+    def stuck_in_its_hook():
+        time.sleep(600)
+    mesh.at_shutdown(stuck_in_its_hook)
+mesh.shutdown_distributed()
+"""
+
+
+def test_launcher_shows_where_a_late_process_waits(tmp_path):
+    """A process that never leaves its shutdown hook: at the launcher's
+    timeout every process still running writes its threads' stacks
+    (`mesh.STACK_SIGNAL`) before it is stopped, so the output names the
+    hook process 1 waits in and the store wait process 0 waits in; each
+    process's shutdown steps come with the host's clock, and `--log-dir`
+    keeps process 1's output."""
+    script = tmp_path / "stuck_hook.py"
+    script.write_text(STUCK_HOOK)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run(
+        [sys.executable, "-m", "cuda_flashattention_torch.scripts."
+         "launch_multihost", "-np", "2", "--cpu", "--timeout", "15",
+         "--log-dir", str(tmp_path / "logs"), str(script)], cwd=REPO,
+        env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 124, r.stderr
+    assert "processes [0, 1] still running" in r.stderr, r.stderr
+    assert "in stuck_in_its_hook" in r.stderr, r.stderr
+    assert "in _leave" in r.stderr, r.stderr
+    for step in ("p0 shutdown: begins", "p0 shutdown: sends settled",
+                 "p1 shutdown: begins"):
+        assert f"[mesh] {step} at " in r.stderr, r.stderr
+    assert "in stuck_in_its_hook" in (tmp_path / "logs" / "p1.log").read_text()
+
+
 # ---------------------------------------------------------------------------
 # The paths against the one-process port and the JAX functions
 # ---------------------------------------------------------------------------

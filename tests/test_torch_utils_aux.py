@@ -224,3 +224,18 @@ def test_dtype_times_needs_a_card(monkeypatch):
         dtype_times.main(["--rounds", "1"])
     assert set(dtype_times._NAMES) == {"K1", "K1b", "K5", "K6", "K7", "K4",
                                        "K2", "K3", "K8", "K9"}
+
+
+def test_mp_launches_reads_the_shutdown_steps():
+    """`utils/mp_launches.shutdown_steps` on the lines
+    `shutdown_distributed` writes, from several processes' outputs (the
+    launches themselves need the card)."""
+    from cuda_flashattention_torch.utils import mp_launches
+    texts = ["[mesh] p0 shutdown: begins at 100.250\n"
+             "[mesh] p0 shutdown: hook _release_xp_workspaces done at "
+             "101.000\n",
+             "noise\n[mesh] p3 shutdown: begins at 99.500\n"
+             "[mesh] p3 shutdown: group destroyed at 102.125\n"]
+    assert mp_launches.shutdown_steps(texts) == {
+        0: {"begins": 100.25, "hook _release_xp_workspaces done": 101.0},
+        3: {"begins": 99.5, "group destroyed": 102.125}}
