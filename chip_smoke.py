@@ -593,6 +593,7 @@ def _kernel_of(name: str) -> str:
     for pattern, label in ((r"flash_bwd_kv_kernel<\d+, true,", "K4"),
                            (r"flash_bwd_kv_kernel<\d+, false,", "K2"),
                            (r"flash_bwd_q_kernel", "K3"),
+                           # (K5 on K1b's Q-major walk runs K1b's kernel)
                            (r"flash_fwd_kmajor", "K5"),
                            (r"flash_fwd_bound_", "K1b"),
                            (r"flash_fwd_kernel", "K1"),
@@ -1762,7 +1763,8 @@ def _call_ms(fn, label, iters=3, attempts=3, before=None) -> float:
     """Device ms per call of package kernel `label` (torch.profiler): its
     launches' time over the launches of its main kernel (K5's finalise
     and the conversion pass of one-byte K/V at d = 256 are added to their
-    kernel's call); NaN when none was recorded. `before()`,
+    kernel's call; a K5 call on K1b's Q-major walk launches K1b's kernel,
+    which counts as K5's); NaN when none was recorded. `before()`,
     when given, runs ahead of each call (to evict the L2 cache, say).
     Where the profiler records no device activity at all in any of its
     windows, the call is timed by CUDA events instead (the wrapper's
@@ -1777,7 +1779,8 @@ def _call_ms(fn, label, iters=3, attempts=3, before=None) -> float:
         except RuntimeError:  # every window of this attempt came back empty
             continue
         recorded = True
-        names = [n for n in prof.ms if _kernel_of(n) == label]
+        labels = ("K5", "K1b") if label == "K5" else (label,)
+        names = [n for n in prof.ms if _kernel_of(n) in labels]
         calls = sum(prof.count[n] for n in names
                     if "finalize" not in n and "convert" not in n)
         if calls:
@@ -7102,6 +7105,7 @@ def main() -> int:
         PageAllocator, init_paged_cache, paged_append, paged_bulk_append,
         paged_decode_attention, paged_decode_attention_plain,
         paged_decode_step, paged_prefix_attention)
+    from cuda_flashattention_torch.ops.common import kmajor_q_walk
     from cuda_flashattention_torch.ops.quant import quantize_kv
     from cuda_flashattention_torch.parallel.device_ring import (
         device_ring_matmul)
@@ -7466,6 +7470,36 @@ def main() -> int:
          sum(1023 - r for r in range(PAGED_CHUNK))),
     ]
     routed_kernel = {"online": "K1", "bound": "K1b", "kmajor": "K5"}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def kernel_of(form, q, k):
+        """(profiler name pattern, launches per call) of a pinned form on
+        a bf16 Q: K5 runs K1b's Q-major walk (one launch of K1b's kernel)
+        where the rule on its shape sends it there, else its key split and
+        the finalise."""
+        if form == "kmajor":
+            if kmajor_q_walk(d, False, b=q.shape[0], h=q.shape[1],
+                             h_kv=k.shape[1], nq=q.shape[2], sms=sms,
+                             codes=k.dtype.itemsize == 1):
+                return "flash_fwd_bound_kernel", 1
+            return "flash_fwd_kmajor", 2
+        return {"bound": "flash_fwd_bound_kernel",
+                "online": "flash_fwd_kernel"}[form], 1
+
+    def k5_vs_k1b(name, k5, k1b, shared):
+        """K5 against K1b: bit for bit where K5 ran K1b's instance
+        (`shared`), within 1e-4 on its key split."""
+        e = max(diff(k5[0], k1b[0]), diff(k5[1], k1b[1]))
+        if shared:
+            if not (torch.equal(k5[0], k1b[0]) and torch.equal(k5[1],
+                                                                k1b[1])):
+                failures.append(f"{name}: K5 on K1b's walk differs from "
+                                f"K1b ({e:.3e})")
+            return f"K5 on K1b's walk: bit for bit K1b's ({e:.1e})"
+        if not e <= 1e-4:
+            failures.append(f"{name}: K5 vs K1b {e:.3e} > 1e-4")
+        return f"K5 key split vs K1b {e:.3e}"
+
     form_ms = {}
     for tag, nq, nk, mask, pairs in fwd_shapes:
         q = mk(b, h, nq, d, peak=Q_PEAK)
@@ -7499,10 +7533,8 @@ def main() -> int:
             for f, out in outs.items():
                 check_fwd(f"{name} pinned {f}", routed_kernel[f], out,
                           want_on if f == "online" else want)
-            e_km = max(diff(outs["kmajor"][0], outs["bound"][0]),
-                       diff(outs["kmajor"][1], outs["bound"][1]))
-            if not e_km <= 1e-4:
-                failures.append(f"{name}: K5 vs K1b {e_km:.3e} > 1e-4")
+            k5_line = k5_vs_k1b(name, outs["kmajor"], outs["bound"],
+                                kernel_of("kmajor", q, k)[1] == 1)
             ms = {f: cuda_time_ms(lambda: run_form(f, q, k, v, **kw),
                                   iters=10)
                   for f in ("online", "bound", "kmajor")}
@@ -7513,11 +7545,9 @@ def main() -> int:
                 **kw), iters=10)
             ms_p = cuda_time_ms(lambda: flash_attention_forward_plain(
                 q, k, v, out_dtype=torch.float32, **kw), iters=3, warmup=1)
+            pattern, per_call = kernel_of(routed, q, k)
             ms_d = device_ms(lambda: run_form(routed, q, k, v, **kw),
-                             {"kmajor": "flash_fwd_kmajor",
-                              "bound": "flash_fwd_bound_kernel",
-                              "online": "flash_fwd_kernel"}[routed],
-                             per_call=2 if routed == "kmajor" else 1)
+                             pattern, per_call=per_call)
             ms_on = device_ms(lambda: run_form("online", q, k, v, **kw),
                               "flash_fwd_kernel")
             form_ms[name] = ms
@@ -7538,15 +7568,16 @@ def main() -> int:
                 cols_ = torch.arange(nk, device=dev)[None, :]
                 band = (cols_ <= rows_) & (cols_ > rows_ - mask["window"])
             lib_ms = sdpa_ms(q, k_d, v_d, attn_mask=band)
-            print(f"[fwd] {name}: auto -> {kern}: {line}; K5 vs K1b "
-                  f"{e_km:.3e}; wrapper ms: online {ms['online']:.4f}, "
+            print(f"[fwd] {name}: auto -> {kern}: {line}; {k5_line}; "
+                  f"wrapper ms: online {ms['online']:.4f}, "
                   f"bound (K1b) {ms['bound']:.4f}, K-major (K5) "
                   f"{ms['kmajor']:.4f}; auto {ms_auto:.4f} (unchecked "
                   f"{ms_unchecked:.4f}: the guard costs "
                   f"{(ms_auto - ms_unchecked) * 1e3:.1f} us); {kern} kernel "
-                  f"alone {ms_d:.4f}; K1 (online) kernel alone {ms_on:.4f} "
-                  f"({vs_bound(ms_on, bound)}); plain {ms_p:.4f}; library "
-                  f"call {lib_ms:.4f} ({card})", flush=True)
+                  f"alone {ms_d:.4f} ({vs_bound(ms_d, bound)}); K1 (online) "
+                  f"kernel alone {ms_on:.4f} ({vs_bound(ms_on, bound)}); "
+                  f"plain {ms_p:.4f}; library call {lib_ms:.4f} ({card})",
+                  flush=True)
             first = (kern == "K1b" and qtype is None) or (
                 kern == "K5" and qtype == "fp8" and not mask["causal"])
             if first:  # the rows of the kernels' table
@@ -7568,16 +7599,70 @@ def main() -> int:
                                                                **qkw))
                 ms_q = cuda_time_ms(lambda: flash_attention_forward(
                     q, k, v, **qkw), iters=10)
+                pattern, per_call = kernel_of(routed_q, q, k)
                 ms_qd = device_ms(
                     lambda: flash_attention_forward(q, k, v, **qkw),
-                    "flash_fwd_kmajor" if routed_q == "kmajor"
-                    else "flash_fwd_bound_kernel",
-                    per_call=2 if routed_q == "kmajor" else 1)
+                    pattern, per_call=per_call)
                 print(f"[fwd] {name}, quantize_q -> "
                       f"{routed_kernel[routed_q]}: {line}; wrapper "
-                      f"{ms_q:.4f} ms, kernel alone {ms_qd:.4f} ms ({card})",
-                      flush=True)
+                      f"{ms_q:.4f} ms, kernel alone {ms_qd:.4f} ms "
+                      f"({vs_bound(ms_qd, bound)}); library call "
+                      f"{lib_ms:.4f} ({card})", flush=True)
         del q, k_bf, v_bf, k, v, got, want, want_on, outs
+
+    # the other side of K5's crossing: one 512-row chunk of one sequence
+    # over a 16384-token cache of one-byte codes, where the Q-major grid is
+    # 64 CTAs and K5 keeps its key split: over fp8 K/V ("auto" routes
+    # there; timed), and over int8 and mixed K/V (K5 pinned), each also
+    # under quantize_q, against the plain version and within 1e-4 of K1b
+    q = mk(1, h, PAGED_CHUNK, d, peak=Q_PEAK)
+    k_bf, v_bf = mk(1, hkv, 16384, d, peak=K_PEAK), mk(1, hkv, 16384, d)
+    for qtype in ("fp8", "int8", "mixed"):
+        k, v, scales = stored(k_bf, v_bf, qtype)
+        name = f"one chunk 512x16384 (B=1), {qtype} K/V"
+        pattern, per_call = kernel_of("kmajor", q, k)
+        _check(per_call == 2, f"{name}: K5 takes its key split")
+        for qq in (False, True):
+            tag = name + (", quantize_q" if qq else "")
+            qkw = dict(scales, quantize_q=qq)
+            want = flash_attention_forward_plain(
+                q, k, v, out_dtype=torch.float32, softmax="bound_unchecked",
+                **qkw)
+            got = run_form("kmajor", q, k, v, **qkw)
+            torch.cuda.synchronize()
+            line = check_fwd(tag + " pinned kmajor", "K5", got, want)
+            k5_line = k5_vs_k1b(tag, got, run_form("bound", q, k, v, **qkw),
+                                False)
+            if qtype != "fp8" or qq:
+                print(f"[fwd] {tag}: K5 pinned (key split): {line}; "
+                      f"{k5_line} ({card})", flush=True)
+                continue
+            zero_counts()
+            got = flash_attention_forward(q, k, v, out_dtype=torch.float32,
+                                          **scales)
+            torch.cuda.synchronize()
+            _check(fwd_forms == dict(online=0, bound=0, kmajor=1,
+                                     fallback=1),
+                   f"{name}: launches {fwd_forms}")
+            line = check_fwd(name, "K5", got, flash_attention_forward_plain(
+                q, k, v, out_dtype=torch.float32, **scales))
+            ms_d = device_ms(lambda: run_form("kmajor", q, k, v, **scales),
+                             pattern, per_call=per_call)
+            ms_b = device_ms(lambda: run_form("bound", q, k, v, **scales),
+                             "flash_fwd_bound_kernel")
+            bound = fwd_bound(q, k, v, scales, h * PAGED_CHUNK * 16384)
+            k_d = (k.float() * scales["k_scale"][..., None]).to(
+                torch.bfloat16)
+            v_d = (v.float() * scales["v_scale"][..., None]).to(
+                torch.bfloat16)
+            lib_ms = sdpa_ms(q, k_d, v_d)
+            print(f"[fwd] {name}: auto -> K5 (key split): {line}; "
+                  f"{k5_line}; K5 kernel alone {ms_d:.4f} "
+                  f"({vs_bound(ms_d, bound)}); K1b's walk there "
+                  f"{ms_b:.4f}; library call {lib_ms:.4f} ({card})",
+                  flush=True)
+            del k_d, v_d
+    del q, k_bf, v_bf, k, v, got, want
     _check(not failures, "; ".join(failures))
 
     # the loose-bound fallback: anti-aligned Q and K of large norm put every
@@ -8655,8 +8740,11 @@ def main() -> int:
          "FA2 forward, Q-major, wgmma + TMA; quantize_q)",
          "flash_fwd_bound.cu", "flash_fwd.py:123"),
         ("K5", "flash_attention_forward softmax=bound, causal or fp8 keys "
-         "(K5, score-bound FA2 forward, split over keys, wgmma + TMA)",
-         "flash_fwd_kmajor.cu",
+         "(K5, score-bound FA2 forward: under a 2-byte or int8 Q on K1b's "
+         "Q-major walk wherever its grid fills the card, the main path, "
+         "one-byte K/V converted in the walk; else split "
+         "over keys, flash_fwd_kmajor.cu; wgmma + TMA)",
+         "flash_fwd_bound.cu",
          "flash_fwd.py:399"),
         ("K6", "decode_attention (K6, one-token decode: bf16, int8, fp8 "
          "and mixed caches, windows, quantize_q; key tiles through a ring "
@@ -8785,7 +8873,7 @@ def main() -> int:
          "byte K/V converted before it, no partial sums; the Gemma-width "
          "model's prefix reads over an fp8 cache and under its window, "
          "also counted under K5; times over fp8 K/V at the prefix, "
-         "512 x 3584)", "flash_fwd_kmajor.cu", "flash_fwd.py:399"),
+         "512 x 3584)", "flash_fwd_bound.cu", "flash_fwd.py:399"),
         ("K6 d256", "decode_attention at d = 256 (K6's d = 256 builds, eight "
          "elements a lane; the Gemma-width model's decode, also counted "
          "under K6; times at B=8 H=8 Hkv=4, 4224 live of 4352, cold L2)",
@@ -8876,9 +8964,10 @@ def main() -> int:
          "fp16, int8 and fp8 caches; times at the prefix, 512 x 3584)",
          "flash_fwd_bound_f16.cu", "flash_fwd.py:123"),
         ("K5 f16", "flash_attention_forward softmax=bound, causal, on an "
-         "fp16 Q (K5's fp16 build; the fp16 model's windowed prefix reads "
-         "over an int8 cache; times at the prefix, 512 x 3584)",
-         "flash_fwd_kmajor_f16.cu", "flash_fwd.py:399"),
+         "fp16 Q (K5's fp16 build, on K1b's fp16 Q-major walk at these "
+         "grids; the fp16 model's windowed prefix reads over an int8 "
+         "cache; times at the prefix, 512 x 3584)",
+         "flash_fwd_bound_f16.cu", "flash_fwd.py:399"),
         ("K6 f16", "decode_attention on an fp16 q over fp16, int8, fp8 or "
          "mixed caches (K6's fp16-q unit: P rounded to fp16, bf16 under "
          "quantize_q; the fp16 model's generate() and chunked serving; "
@@ -8944,6 +9033,13 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+        # every number of the row measured in this run
+        numbers = [r[x] for x in ("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms")]
+        if r["library_ms"] is not None:
+            numbers.append(r["library_ms"])
+        _check(all(math.isfinite(x) for x in numbers),
+               f"{kn}: a number of its row is not finite ({numbers})")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -282,9 +282,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         if (L::NCV == 1 && i > 0) consumer_sync();
         uint8_t* cv = smem + L::cv_off + (i % L::NCV) * L::cv_stride;
         const uint8_t* raw = smem + stage_off;
-        codes_to_elem<D, NCONSUMER>(cv, raw, a.k_type, tid);
-        codes_to_elem<D, NCONSUMER>(cv + L::cv_v, raw + L::kvh, a.v_type,
-                                    tid);
+        convert_codes<D, false, NCONSUMER>(cv, raw, a.k_type, tid);
+        convert_codes<D, false, NCONSUMER>(cv + L::cv_v, raw + L::kvh,
+                                           a.v_type, tid);
         fence_proxy_async();
         consumer_sync();
         kt = smem_u32(cv);

@@ -25,8 +25,16 @@
 // ring of 2 stages (3 for one-byte K/V, whose scales its warp brings in
 // beside them) while the consumers run wgmma; S, P, l and O never leave
 // registers. One-byte K/V tiles are converted once per CTA and key tile,
-// into a double-buffered bf16 (or s8) tile, for all Gp heads at once.
-// Interior tiles skip the element mask. The 128-key build (KN = BN2, bf16
+// for all Gp heads at once, into a 2-byte (or s8) tile. At d <= 128 under
+// a 2-byte or int8 Q the consumers convert K into one of two K tiles
+// before their Q·Kᵀ, and the producer warpgroup's three other warps
+// convert V into a ring of three V tiles meanwhile (VSPLIT): the whole
+// conversion on the consumers' path took K1b over int8 to 1.8x its bf16
+// time (PERF.md §6), the whole of it on the producer warpgroup, even on
+// all four of its warps, fell behind the consumers' step and ran slower
+// still, and the split runs the two halves side by side.
+// Under an fp32 Q the consumers convert both, into two pairs. Interior
+// tiles skip the element mask. The 128-key build (KN = BN2, bf16
 // Q and K/V; `block_k` = 128 on the host selects it) walks key tiles of
 // 128 with one m64n128 wgmma a step for S: half the steps, barriers and
 // bound passes; two stages of 64 KB at d = 128. At d = 256 (a 2-byte or
@@ -34,7 +42,8 @@
 // per call, into exact 2-byte copies in device memory (the PRE builds:
 // `convert_pass`, whose comment says why), which the walk reads by TMA as
 // it reads bf16 K/V, two stages beside the Q tile, scales as before. The
-// walk itself is in the header (`q_walk`): K5's d = 256 builds run it too.
+// walk itself is in the header (`q_walk`); the host sends K5's calls under
+// a 2-byte or int8 Q here wherever this walk's grid fills the card.
 // An fp32 Q at d = 256 (its split tile 128 KB) keeps one
 // stage, as K1 does and for the same reasons (flash_fwd.cu): a bf16 K + V
 // stage, or a code stage and one converted pair (231,448 of the 232,448

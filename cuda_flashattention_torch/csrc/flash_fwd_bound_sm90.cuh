@@ -22,12 +22,16 @@
 //     operand from registers and V from shared memory (MN-major B). S, P,
 //     m, l and the O accumulator stay in registers for the whole walk.
 //   - setmaxnreg gives the producer warpgroup 40 registers and the
-//     consumers 232.
+//     consumers 232 (56 and 224 where the producer converts V).
 //   - int8 or e4m3 K/V come in as codes (half the bytes of bf16) and are
-//     converted once per tile by the consumers into a bf16 tile (or, under
-//     quantize_q, an int8 tile: fp8 keys re-gridded), written in the same
-//     swizzle wgmma reads; at d = 256 under a 2-byte or int8 Q once per
-//     call into device memory instead (PRE, below).
+//     converted once per tile into a bf16 tile (or, under quantize_q, an
+//     int8 tile: fp8 keys re-gridded), written in the same swizzle wgmma
+//     reads: by the consumers; in K1b's walk under a 2-byte or int8 Q at
+//     d <= 128 (VSPLIT) the consumers convert K alone and the producer
+//     warpgroup's three other warps convert V into a ring of its own
+//     meanwhile (`convert_tile`, the storage types template arguments);
+//     at d = 256 under a 2-byte or int8 Q once per call into device
+//     memory instead (PRE, below).
 //   - A 128-row tile packs the Gp query heads of one KV head that the host
 //     chose (Gp rows blocks of R = 128 / Gp positions): each K/V tile, and
 //     each conversion of one, serves Gp heads.
@@ -51,8 +55,7 @@
 //     consumer thread (acc[4][32]), so each walk runs a key tile's S,
 //     softmax and P·V in order. A 2-byte (or int8) Q over one-byte K/V has
 //     them converted before the walk, in one pass per call (PRE,
-//     `convert_pass`), and reads the copies as bf16 K/V; K5 runs K1b's
-//     Q-major walk there (`q_walk`). An fp32 Q's
+//     `convert_pass`), and reads the copies as bf16 K/V. An fp32 Q's
 //     split tile is 128 KB, which leaves one stage beside it: one bf16
 //     K + V stage (BF16KV), one code stage and one converted pair (231 KB
 //     of the 232,448 bytes), and over fp32 K/V one stage of 32-key tiles
@@ -549,71 +552,85 @@ __device__ __forceinline__ void cvt16(const uint4& raw, int type, float* out) {
   }
 }
 
-// Four one-byte codes (a 32-bit word) as two bf16 pairs, exactly, on the
-// integer and fp32 pipes (the hardware's cvt instructions issue at a
-// fraction of their rate):
-//   int8: byte b ^ 0x80 = b + 128 goes in the low mantissa bits of 2^23,
-//         and 2^23 + 128 is subtracted;
-//   e4m3: the sign, exponent and mantissa bits move into an fp32 (the
-//         exponent's bias off by 120, subnormals onto fp32 subnormals),
-//         and one multiply by 2^120 restores the value (NaN codes, which
-//         no quantizer writes, come out as 480).
-// The values have at most 8 significant bits: a bf16 is the fp32's upper
-// half. In the fp16 unit the pairs are packed by cvt (int8 codes and e4m3
-// values are fp16 values too: 11 significant bits, e4m3's least subnormal
-// 2^-9 a normal fp16).
-__device__ __forceinline__ void codes4_to_elem(uint32_t w, int type,
-                                               uint32_t& lo, uint32_t& hi) {
-  float f[4];
-  if (type == kInt8) {
+// Four one-byte codes (a 32-bit word) as two 2-byte pairs (bf16, or fp16
+// in the fp16 unit), exactly:
+//   int8, bf16: byte b ^ 0x80 = b + 128 goes in the low mantissa bits of
+//         2^23, 2^23 + 128 is subtracted in fp32, and the bf16 is the
+//         fp32's upper half (at most 8 significant bits). A bf16x2 fma on
+//         the sign-split code, fewer instructions, ran K1 over int8 4%
+//         slower than this (PERF.md §6);
+//   int8, fp16: b ^ 0x80 = b + 128 in the mantissa of 1024 (0x6400), 1152
+//         subtracted, a pair at a time in the halves of one register;
+//   e4m3: the hardware's cvt to an fp16 pair (exact: 3 mantissa bits,
+//         e4m3's least subnormal 2^-9 a normal fp16), and for bf16 the
+//         fp16's exponent and top 7 mantissa bits moved down 3 bits (the
+//         fp16 exponent field read as bf16's, off by 127 − 15 = 112) and
+//         one multiply by 2^112 (every nonzero value is a normal fp16, so
+//         a normal bf16; zero stays zero; NaN codes, which no quantizer
+//         writes, come out as finite values). It replaced a move of the
+//         bits into an fp32 and a multiply by 2^120 a code (~6.5
+//         instructions a code against 2.5; PERF.md §6).
+__device__ __forceinline__ uint32_t bf16x2_fma(uint32_t a, uint32_t b,
+                                               uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// Codes 0 and 1 (sel 0x4140) or 2 and 3 (sel 0x4342) of w as one pair,
+// but int8 codes into bf16 (codes4_to_elem_t)
+template <int TYPE>
+__device__ __forceinline__ uint32_t codes2_to_elem(uint32_t w, uint32_t sel) {
+  if constexpr (TYPE == kInt8) {
+    static_assert(kHalf || TYPE != kInt8, "int8 into bf16: four at a time");
+    const uint32_t h = __byte_perm(w ^ 0x80808080u, 0x64646464u, sel);
+    const __half2 r = __hsub2(*reinterpret_cast<const __half2*>(&h),
+                              __half2(__float2half(1152.f),
+                                      __float2half(1152.f)));
+    return *reinterpret_cast<const uint32_t*>(&r);
+  } else {
+    const __half2_raw raw = __nv_cvt_fp8x2_to_halfraw2(
+        static_cast<__nv_fp8x2_storage_t>(sel == 0x4140u ? w & 0xFFFFu
+                                                         : w >> 16),
+        __NV_E4M3);
+    const uint32_t h = static_cast<uint32_t>(raw.x) |
+                       (static_cast<uint32_t>(raw.y) << 16);
+    if constexpr (kHalf) {
+      return h;
+    } else {
+      // 0x7780 is 2^112 in bf16; -0 added keeps a product's sign and bits
+      return bf16x2_fma(((h >> 3) & 0x0FFF0FFFu) | (h & 0x80008000u),
+                        0x77807780u, 0x80008000u);
+    }
+  }
+}
+
+template <int TYPE>
+__device__ __forceinline__ void codes4_to_elem_t(uint32_t w, uint32_t& lo,
+                                                 uint32_t& hi) {
+  if constexpr (TYPE == kInt8 && !kHalf) {
     const uint32_t u = w ^ 0x80808080u;
+    float f[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       f[k] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + k)) -
              8388736.0f;
     }
-  } else {
-    f[0] = __uint_as_float(((w & 0x7Fu) << 20) | ((w & 0x80u) << 24));
-    f[1] = __uint_as_float(((w & 0x7F00u) << 12) | ((w & 0x8000u) << 16));
-    f[2] = __uint_as_float(((w & 0x7F0000u) << 4) | ((w & 0x800000u) << 8));
-    f[3] = __uint_as_float(((w & 0x7F000000u) >> 4) | (w & 0x80000000u));
-#pragma unroll
-    for (int k = 0; k < 4; ++k) f[k] *= 0x1p120f;
-  }
-  if constexpr (kHalf) {
-    const __half2 a = __floats2half2_rn(f[0], f[1]);
-    const __half2 b = __floats2half2_rn(f[2], f[3]);
-    lo = *reinterpret_cast<const uint32_t*>(&a);
-    hi = *reinterpret_cast<const uint32_t*>(&b);
-  } else {
     lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
     hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+  } else {
+    lo = codes2_to_elem<TYPE>(w, 0x4140u);  // codes 0, 1
+    hi = codes2_to_elem<TYPE>(w, 0x4342u);  // codes 2, 3
   }
 }
 
-// A tile of 64 rows of D one-byte codes (dense, as TMA left them) into the
-// 2-byte tile wgmma reads (bf16, or fp16 in the fp16 unit): D/64 slabs of
-// 64 rows x 128 B, 128 B swizzled. Every int8 and e4m3 value is a bf16 and
-// an fp16 value: the conversion is exact. NT threads share the work; tid
-// is the thread's index among them.
-template <int D, int NT>
-__device__ __forceinline__ void codes_to_elem(uint8_t* dst, const uint8_t* raw,
-                                              int type, int tid) {
-  constexpr int CPR = D / 16;  // 16-code chunks per row
-  for (int w = tid; w < BN * CPR; w += NT) {
-    const int row = w / CPR, j = w % CPR;
-    const uint4 codes = *reinterpret_cast<const uint4*>(raw + row * D + j * 16);
-    uint32_t h[8];
-    codes4_to_elem(codes.x, type, h[0], h[1]);
-    codes4_to_elem(codes.y, type, h[2], h[3]);
-    codes4_to_elem(codes.z, type, h[4], h[5]);
-    codes4_to_elem(codes.w, type, h[6], h[7]);
-    // bf16 columns 16j .. 16j + 15: slab j / 4, chunks 2(j % 4) and + 1
-    uint8_t* slab = dst + (j >> 2) * (BN * 128);
-    *reinterpret_cast<uint4*>(slab + swz(row, 2 * (j & 3), 128)) =
-        make_uint4(h[0], h[1], h[2], h[3]);
-    *reinterpret_cast<uint4*>(slab + swz(row, 2 * (j & 3) + 1, 128)) =
-        make_uint4(h[4], h[5], h[6], h[7]);
+// (the storage type known at run time)
+__device__ __forceinline__ void codes4_to_elem(uint32_t w, int type,
+                                               uint32_t& lo, uint32_t& hi) {
+  if (type == kInt8) {
+    codes4_to_elem_t<kInt8>(w, lo, hi);
+  } else {
+    codes4_to_elem_t<kFp8>(w, lo, hi);
   }
 }
 
@@ -636,21 +653,71 @@ __device__ __forceinline__ uint4 regrid16(const uint4& codes) {
   return make_uint4(q[0], q[1], q[2], q[3]);
 }
 
-// The int8 K tile of quantize_q (rows of D bytes in Tiles<D, true>'s slabs,
-// swizzled as TMA would): int8 codes are copied, e4m3 codes re-gridded onto
-// int8, clip(round_half_even(k · 127/448), ±127).
-template <int D, int NT>
-__device__ __forceinline__ void codes_to_s8(uint8_t* dst, const uint8_t* raw,
-                                            int type, int tid) {
-  constexpr int CPR = D / 16;
+// One tile of 64 rows of D one-byte codes (dense, as TMA left them) into
+// the tile wgmma reads: a 2-byte tile (D/64 slabs of 64 rows x 128 B, 128
+// B swizzled) of codes of storage type TYPE, or under S8 quantize_q's int8
+// tile (rows of QROW bytes in slabs; int8 codes copied, e4m3 re-gridded).
+// NT threads, tid the thread's index among them, U 16-code chunks in
+// flight a thread: the types are template arguments, so that no branch
+// separates one word's conversion from the next and the compiler can
+// interleave them (with the type a run-time value, a branch and a
+// divergence barrier a word cost a lone warp most of its issue rate).
+template <int D, int TYPE, bool S8, int NT>
+__device__ __forceinline__ void convert_tile(uint8_t* dst,
+                                             const uint8_t* raw, int tid) {
+  constexpr int CPR = D / 16;      // 16-code chunks of a row
+  constexpr int N1 = BN * CPR;     // chunks of the tile
+  constexpr int U = 4;
   constexpr int QROW = Tiles<D, true>::QROW;
-  constexpr int CPS = QROW / 16;  // 16-byte chunks of a row in one slab
-  for (int w = tid; w < BN * CPR; w += NT) {
-    const int row = w / CPR, j = w % CPR;
-    uint4 codes = *reinterpret_cast<const uint4*>(raw + row * D + j * 16);
-    if (type == kFp8) codes = regrid16(codes);
-    *reinterpret_cast<uint4*>(dst + (j / CPS) * (BN * QROW) +
-                              swz(row, j % CPS, QROW)) = codes;
+  constexpr int CPS = QROW / 16;   // chunks of an s8 row in one slab
+  for (int w0 = tid; w0 < N1; w0 += U * NT) {
+    uint4 x[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int w = w0 + u * NT;
+      x[u] = w < N1 ? *reinterpret_cast<const uint4*>(raw + w * 16)
+                    : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int w = w0 + u * NT;
+      if (w >= N1) continue;  // (no break: x stays in registers)
+      const int row = w / CPR, j = w % CPR;
+      if constexpr (S8) {
+        const uint4 c = TYPE == kFp8 ? regrid16(x[u]) : x[u];
+        *reinterpret_cast<uint4*>(dst + (j / CPS) * (BN * QROW) +
+                                  swz(row, j % CPS, QROW)) = c;
+      } else {
+        uint32_t h[8];
+        codes4_to_elem_t<TYPE>(x[u].x, h[0], h[1]);
+        codes4_to_elem_t<TYPE>(x[u].y, h[2], h[3]);
+        codes4_to_elem_t<TYPE>(x[u].z, h[4], h[5]);
+        codes4_to_elem_t<TYPE>(x[u].w, h[6], h[7]);
+        // 2-byte columns 16j .. 16j + 15: slab j / 4, chunks 2(j % 4), + 1
+        uint8_t* slab = dst + (j >> 2) * (BN * 128);
+        *reinterpret_cast<uint4*>(slab + swz(row, 2 * (j & 3), 128)) =
+            make_uint4(h[0], h[1], h[2], h[3]);
+        *reinterpret_cast<uint4*>(slab + swz(row, 2 * (j & 3) + 1, 128)) =
+            make_uint4(h[4], h[5], h[6], h[7]);
+      }
+    }
+  }
+}
+
+// A key tile's codes (K's or V's, dense, as TMA left them) into the tile
+// wgmma reads, as convert_tile lays it out: a 2-byte tile, or under S8
+// quantize_q's int8 K tile; `type` the storage type (int8 or e4m3: K and
+// V may differ). Every int8 and e4m3 value is a bf16 and an fp16 value,
+// so the conversion is exact. NT threads, tid the thread's index among
+// them; the caller fences the stores (fence_proxy_async) before wgmma
+// may read them.
+template <int D, bool S8, int NT>
+__device__ __forceinline__ void convert_codes(uint8_t* dst, const uint8_t* raw,
+                                              int type, int tid) {
+  if (type == kInt8) {
+    convert_tile<D, kInt8, S8, NT>(dst, raw, tid);
+  } else {
+    convert_tile<D, kFp8, S8, NT>(dst, raw, tid);
   }
 }
 
@@ -1421,7 +1488,7 @@ __host__ __device__ constexpr bool pre_converted(int D, bool f32,
 // The pass of one call (kernel: the unit's __global__ around convert_pass)
 // and the maps of its walk: Q as make_maps's; K as the 2-byte slabs of the
 // bf16 builds or, under quantize_q, as the int8 Q's slabs (q_row bytes,
-// swizzled as codes_to_s8 lays a tile out; the codes themselves for int8
+// swizzled as convert_tile lays a tile out; the codes themselves for int8
 // keys); V as 2-byte slabs. kc, vc: the host's scratch for the copies, kc
 // unused (may be null) for int8 keys under qq. q_st: Q's strides; k_st:
 // the codes' (both in elements).
@@ -1468,8 +1535,10 @@ cudaError_t convert_and_map(Kernel kernel, Maps* m, const void* q,
 }
 
 // ---------------------------------------------------------------------------
-// The score-bound Q-major walk: K1b (flash_fwd_bound.cu), and K5's builds
-// at d = 256 under a 2-byte or int8 Q (flash_fwd_kmajor.cu)
+// The score-bound Q-major walk: K1b (flash_fwd_bound.cu). The host sends
+// K5's calls under a 2-byte or int8 Q here too, through K1b's entry point,
+// wherever this walk's grid fills the card (ops/common.py::kmajor_q_walk:
+// always at d = 256)
 // ---------------------------------------------------------------------------
 
 // key-tile stages in flight: a one-byte stage is half the bytes, and its
@@ -1487,12 +1556,18 @@ constexpr int walk_stages() {
 // V scales; under F32 over fp32 K/V the producer warpgroup's hi and lo
 // tiles of each, over bf16 K/V (BF16KV) the bf16 slabs; under PRE the
 // converted copies' 2-byte slabs, or quantize_q's int8 K slabs, and V's,
-// followed by the scales); under QUANT but not PRE two converted K/V pairs
-// (exact bf16 tiles, or an s8 K tile under QQ), used in turn, or one at d
-// = 256 over bf16 tiles (231,448 bytes under an fp32 Q); barriers. At d =
-// 256 under PRE: the 64 KB Q tile and two 65 KB stages (a 32 KB K tile, a
-// 32 KB V tile, 512 B of scales), 199,720 bytes (quantize_q: a 32 KB int8
-// Q tile and two 49 KB stages, 134,184).
+// followed by the scales); under QUANT but not PRE the converted K/V pairs
+// (exact 2-byte tiles, or an s8 K tile under QQ), used in turn, or one at
+// d = 256 over bf16 tiles (231,448 bytes under an fp32 Q); under a 2-byte
+// or int8 Q at d <= 128 (VSPLIT) those pairs hold K alone, and a ring of
+// three converted V tiles follows them; barriers (VSPLIT: a full and an
+// empty one per converted V tile after the stages'). At d = 128 under
+// VSPLIT: the 32 KB Q tile, three 17 KB code stages, two 16 KB K tiles
+// and three 16 KB V tiles, 168,040 bytes (quantize_q: a 16 KB int8 Q tile
+// and 8 KB s8 K tiles, 135,272; d = 64: 86,120). At d = 256 under PRE:
+// the 64 KB Q tile and two 65 KB stages (a 32 KB K tile, a 32 KB V tile,
+// 512 B of scales), 199,720 bytes (quantize_q: a 32 KB int8 Q tile and
+// two 49 KB stages, 134,184).
 template <int D, bool QUANT, bool QQ, bool F32, int KN, bool BF16KV,
           bool PRE>
 struct WalkLayout {
@@ -1504,8 +1579,16 @@ struct WalkLayout {
                 "32 keys: fp32 K/V at d = 256 (and there only)");
   static_assert(!BF16KV || (F32 && !QUANT), "BF16KV: an fp32 Q");
   static_assert(!PRE || (QUANT && !F32), "PRE: converted one-byte K/V");
+  // one-byte K/V under a 2-byte or int8 Q at d <= 128: the consumers
+  // convert K before their Q·Kᵀ, and the producer warpgroup's three other
+  // warps convert V meanwhile (VSPLIT; d = 256 converts before the walk,
+  // PRE; under an fp32 Q, whose producer warpgroup splits Q, the consumers
+  // convert both)
+  static constexpr bool VSPLIT = QUANT && !PRE && !F32;
+  static_assert(!VSPLIT || D != 256, "VSPLIT: d <= 128");
   static constexpr int NST = walk_stages<D, QUANT, F32>();
   static constexpr int NCV = D == 256 && !QQ ? 1 : 2;  // converted pairs
+  static constexpr int NVC = 3;                        // VSPLIT: V tiles
   static constexpr int kv16 = KN * D * 2;              // a bf16 K or V tile
   static constexpr int kvh =                          // K, then V
       PRE ? T::KC : QUANT ? T::CODES : SPLIT_KV ? 2 * kv16 : kv16;
@@ -1513,12 +1596,19 @@ struct WalkLayout {
   static constexpr int stage = align1k(tma_bytes + (QUANT ? 2 * BN * 4 : 0));
   static constexpr int st_off = align1k(F32 ? 2 * T::Q : T::Q);
   static constexpr int cv_v = align1k(T::KC);          // V in a converted pair
-  static constexpr int cv_stride = align1k(cv_v + T::KV16);
+  static constexpr int cv_stride =
+      VSPLIT ? align1k(T::KC) : align1k(cv_v + T::KV16);
   static constexpr int cv_off = st_off + NST * stage;
-  static constexpr int bar_off = cv_off + (QUANT && !PRE ? NCV * cv_stride : 0);
-  static constexpr int bytes = bar_off + 8 * (2 * NST + 1) + 1024;
+  static constexpr int vc_off = cv_off + (QUANT && !PRE ? NCV * cv_stride : 0);
+  static constexpr int bar_off = vc_off + (VSPLIT ? NVC * T::KV16 : 0);
+  static constexpr int n_bars = 2 * NST + 1 + (VSPLIT ? 2 * NVC : 0);
+  static constexpr int bytes = bar_off + 8 * n_bars + 1024;
   static_assert(bytes <= 232448, "the CTA's shared memory");
 };
+
+// The producer warpgroup's converting warps under VSPLIT: warps 1-3 (warp
+// 0 issues the TMA loads and brings the scales)
+constexpr int NCONVERT = 96;
 
 // The walk of one CTA (a kernel's whole body; tm_*: its __grid_constant__
 // maps): a 128-row tile of packed query heads over the key tiles its rows
@@ -1537,7 +1627,9 @@ __device__ __forceinline__ void q_walk(const CUtensorMap* tm_q,
   using T = Tiles<D, QQ>;
   using L = WalkLayout<D, QUANT, QQ, F32, KN, BF16KV, PRE>;
   constexpr int NST = L::NST;
+  constexpr int NVC = L::NVC;
   constexpr bool SPLIT_KV = L::SPLIT_KV;
+  constexpr bool VSPLIT = L::VSPLIT;
   // K/V tiles that are exact bf16 operands under an fp32 Q
   constexpr bool EXACT = QUANT || BF16KV;
   extern __shared__ uint8_t smem_raw[];
@@ -1546,6 +1638,9 @@ __device__ __forceinline__ void q_walk(const CUtensorMap* tm_q,
   const uint32_t full = base + L::bar_off;     // + 8 * stage
   const uint32_t empty = full + 8 * NST;       // + 8 * stage
   const uint32_t q_bar = empty + 8 * NST;
+  // VSPLIT: a converted V tile is written (vc_full) and read (vc_empty)
+  const uint32_t vc_full = q_bar + 8;           // + 8 * tile
+  const uint32_t vc_empty = vc_full + 8 * NVC;  // + 8 * tile
 
   int qt = blockIdx.x, hg = blockIdx.y, b = blockIdx.z;
   if (a.window <= 0) cta_tile(a, qt, hg, b);
@@ -1561,9 +1656,15 @@ __device__ __forceinline__ void q_walk(const CUtensorMap* tm_q,
       // the TMA issue, and under QUANT the 32 lanes that load the scales;
       // over fp32 K/V the producer warpgroup's 128 threads
       mbar_init(full + 8 * s, SPLIT_KV ? 128 : QUANT ? 33 : 1);
-      mbar_init(empty + 8 * s, 8);  // lane 0 of each consumer warp
+      // lane 0 of each consumer warp, and under VSPLIT of each converting
+      // warp
+      mbar_init(empty + 8 * s, VSPLIT ? 8 + NCONVERT / 32 : 8);
     }
     mbar_init(q_bar, F32 ? 128 : 1);
+    for (int c = 0; VSPLIT && c < NVC; ++c) {
+      mbar_init(vc_full + 8 * c, NCONVERT / 32);
+      mbar_init(vc_empty + 8 * c, 8);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -1571,8 +1672,14 @@ __device__ __forceinline__ void q_walk(const CUtensorMap* tm_q,
   const int wg = threadIdx.x / 128;
   if (wg == 2) {
     // the producer: one thread issues every load; under QUANT its warp
-    // also brings each tile's scales beside the codes
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    // also brings each tile's scales beside the codes, and under VSPLIT
+    // its other three warps convert V (56 registers: 128 · 56 + 256 · 224
+    // is the 384 · 168 the CTA is launched with)
+    if constexpr (VSPLIT) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 56;");
+    } else {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    }
     const int lane = threadIdx.x & 31;
     const int pt = threadIdx.x - 2 * 128;
     const long long* st = f.st;
@@ -1639,10 +1746,33 @@ __device__ __forceinline__ void q_walk(const CUtensorMap* tm_q,
           mbar_arrive(full + 8 * st);
         }
       }
+    } else if constexpr (VSPLIT) {
+      // warps 1-3: each code stage's V into the next free V tile, while
+      // the consumers convert its K; one lane a warp arrives, after the
+      // warp's stores
+      const int ct = threadIdx.x - (2 * 128 + 32);
+      for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
+        const int st = i % NST, vs = i % NVC;
+        mbar_wait(vc_empty + 8 * vs, ((i / NVC) & 1) ^ 1);
+        mbar_wait(full + 8 * st, (i / NST) & 1);
+        convert_codes<D, false, NCONVERT>(
+            smem + L::vc_off + vs * T::KV16,
+            smem + L::st_off + st * L::stage + L::kvh, a.v_type, ct);
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(empty + 8 * st);
+          mbar_arrive(vc_full + 8 * vs);
+        }
+      }
     }
   } else {
     // two consumer warpgroups, 64 rows each
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    if constexpr (VSPLIT) {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 224;");
+    } else {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    }
     const int tid = threadIdx.x;
     const int lane = tid & 31;
     const Rows r = row_info(a, b, h0, q0, tid);
@@ -1670,16 +1800,15 @@ __device__ __forceinline__ void q_walk(const CUtensorMap* tm_q,
         // into the pair used two tiles ago: each warpgroup finished that
         // tile's P·V before the barrier of the tile in between. With one
         // pair both first finish the previous tile's P·V, which reads it.
+        // Under VSPLIT only K (the producer warpgroup converts V).
         if (L::NCV == 1 && i > 0) consumer_sync();
         uint8_t* cv = smem + L::cv_off + (i % L::NCV) * L::cv_stride;
         const uint8_t* raw = smem + stage_off;
-        if (QQ) {
-          codes_to_s8<D, NCONSUMER>(cv, raw, a.k_type, tid);
-        } else {
-          codes_to_elem<D, NCONSUMER>(cv, raw, a.k_type, tid);
+        convert_codes<D, QQ, NCONSUMER>(cv, raw, a.k_type, tid);
+        if constexpr (!VSPLIT) {
+          convert_codes<D, false, NCONSUMER>(cv + L::cv_v, raw + L::kvh,
+                                             a.v_type, tid);
         }
-        codes_to_elem<D, NCONSUMER>(cv + L::cv_v, raw + L::kvh, a.v_type,
-                                    tid);
         fence_proxy_async();
         consumer_sync();
         kt = smem_u32(cv);
@@ -1701,8 +1830,13 @@ __device__ __forceinline__ void q_walk(const CUtensorMap* tm_q,
       // V is read by the P·V below, which completes before the next wait)
       constexpr bool CONVERTED = QUANT && !PRE;  // K/V in a converted pair
       if (CONVERTED && lane == 0) mbar_arrive(empty + 8 * st);
+      if constexpr (VSPLIT) {  // V converted by the producer warpgroup
+        mbar_wait(vc_full + 8 * (i % NVC), (i / NVC) & 1);
+        vt = base + L::vc_off + (i % NVC) * T::KV16;
+      }
       pv<D, F32, EXACT, KN>(acc, p, vt, p_lo);
       if (!CONVERTED && lane == 0) mbar_arrive(empty + 8 * st);
+      if (VSPLIT && lane == 0) mbar_arrive(vc_empty + 8 * (i % NVC));
     }
     store_rows<D>(a, r, acc, l, b);
   }

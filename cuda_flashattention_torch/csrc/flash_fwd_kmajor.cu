@@ -10,7 +10,9 @@
 // beside the 64 KB split pair of a 32-key tile over fp32 K/V (BN32: a
 // 64-key split pair, 128 KB, does not fit), so that the producer's split
 // of the next Q tile waits for the consumers. A 2-byte (or quantize_q's
-// int8) Q at d = 256 takes the Q-major walk instead (below).
+// int8) Q reads one-byte K/V here, converted once per span, where the
+// Q-major walk would not fill the card at d <= 128; everywhere else it
+// takes the Q-major walk (below).
 //
 // Replaces: cuda_flashattention_tpu/ops/flash_fwd.py::_fwd_kernel_kmajor.
 // What that kernel computes is the bound forward's result (K1b) on a
@@ -42,17 +44,24 @@
 // The order of the atomic adds changes from run to run, so O does in its
 // last fp32 bits.
 //
-// At d = 256 under a 2-byte or int8 Q no span longer than one 64-key tile
-// fits beside the Q ring, so the key split bought nothing and cost a 128 x
-// 256 fp32 partial added by atomics for every (Q tile, key tile) pair:
-// ~1.9 GB of atomic adds a call at the Gemma-width prefix (B=8, Hkv=4, 512
-// rows over 3584 keys). Those builds run the
-// Q-major walk of K1b (`flash_fwd_kmajor_qwalk_kernel` over the header's
-// q_walk: no partial sums, no finalise, no zeroed scratch; one-byte K/V
-// converted in one pass per call before it, `convert_pass`), which is the
-// same function (`_fwd_kernel_kmajor` computes `_fwd_kernel`'s bound
-// result) with each row's sums kept in registers; its O does not vary
-// from run to run. The span there is one tile, as before (`span` 1).
+// Under a 2-byte or int8 Q the host sends K5's calls to K1b's Q-major walk
+// (flash_fwd_bound.cu, through its entry point) over 2-byte K/V, over
+// one-byte K/V wherever that walk's grid holds 3/4 of a wave
+// (ops/common.py::kmajor_q_walk), and always at d = 256, where no span
+// longer than one 64-key tile fits beside the Q ring: there
+// the key split bought nothing and cost a 128 x 256 fp32 partial added by
+// atomics for every (Q tile, key tile) pair (~1.9 GB of atomic adds a call
+// at the Gemma-width prefix). At the 246M model's prefix (d = 128, span 4)
+// the split's atomics are ~470 MB a call against 29 MB of fp8 codes, and
+// what it saves, a tile's conversion once per span, K1b's producer
+// warpgroup now does off the consumers' path. That walk is the same
+// function (`_fwd_kernel_kmajor` computes `_fwd_kernel`'s bound result)
+// with each row's sums in registers, and its O does not vary from run to
+// run. Over 2-byte K/V that walk led the split at every grid measured,
+// 64 CTAs and up (PERF.md §6), so no build here takes a 2-byte Q
+// over 2-byte K/V. The key split below stays, over one-byte K/V, for a
+// grid the Q-major walk cannot fill (one 512-row chunk of one sequence
+// over a long cache), and for an fp32 Q.
 
 #include "flash_fwd_bound_sm90.cuh"
 
@@ -110,6 +119,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                             const Args a, const F32Src f) {
   static_assert(QUANT || !QQ, "quantize_q reads quantized K/V");
   static_assert(!(QQ && F32), "quantize_q's Q is int8");
+  static_assert(QUANT || F32, "a 2-byte Q over 2-byte K/V runs K1b's walk");
   using T = Tiles<D, QQ>;
   using L = Layout<D, QUANT, QQ, F32, BF16KV>;
   constexpr int KN = L::KN;  // keys of a tile
@@ -222,26 +232,16 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       mbar_wait(free_bar, 0);
       split_q_ring();
     } else if (threadIdx.x == 2 * 128) {
-      // the span: bf16 straight into its resident tiles, codes into the
-      // Q ring's space for the consumers to convert
-      mbar_expect_tx(span_bar, nt * (QUANT ? L::raw_pair : 2 * T::KV16));
+      // the span's codes into the Q ring's space for the consumers to
+      // convert
+      mbar_expect_tx(span_bar, nt * L::raw_pair);
       for (int j = 0; j < nt; ++j) {
         const int t = t_lo + j;
-        if (QUANT) {
-          const uint32_t dst = base + L::q_off + j * L::raw_pair;
-          tma_load_4d(dst, &tm_k, span_bar, 0, t * BN, hk, b);
-          tma_load_4d(dst + T::CODES, &tm_v, span_bar, 0, t * BN, hk, b);
-        } else {
-          const uint32_t dst = base + j * L::tile_stride;
-          for (int sl = 0; sl < T::SLABS; ++sl) {
-            tma_load_4d(dst + sl * BN * 128, &tm_k, span_bar, sl * 64, t * BN,
-                        hk, b);
-            tma_load_4d(dst + L::tile_v + sl * BN * 128, &tm_v, span_bar,
-                        sl * 64, t * BN, hk, b);
-          }
-        }
+        const uint32_t dst = base + L::q_off + j * L::raw_pair;
+        tma_load_4d(dst, &tm_k, span_bar, 0, t * BN, hk, b);
+        tma_load_4d(dst + T::CODES, &tm_v, span_bar, 0, t * BN, hk, b);
       }
-      if (QUANT) mbar_wait(free_bar, 0);
+      mbar_wait(free_bar, 0);
       for (int item = 0; item < n_items; ++item) {
         const int st = item % NQ;
         const int h0 = hk * a.G + (item / per_pack) * a.Gp;
@@ -265,13 +265,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       for (int j = 0; j < nt; ++j) {
         const uint8_t* raw = smem + L::q_off + j * L::raw_pair;
         uint8_t* dst = smem + j * L::tile_stride;
-        if (QQ) {
-          codes_to_s8<D, NCONSUMER>(dst, raw, a.k_type, tid);
-        } else {
-          codes_to_elem<D, NCONSUMER>(dst, raw, a.k_type, tid);
-        }
-        codes_to_elem<D, NCONSUMER>(dst + L::tile_v, raw + T::CODES,
-                                    a.v_type, tid);
+        convert_codes<D, QQ, NCONSUMER>(dst, raw, a.k_type, tid);
+        convert_codes<D, false, NCONSUMER>(dst + L::tile_v, raw + T::CODES,
+                                           a.v_type, tid);
         float* sc = reinterpret_cast<float*>(smem + L::sc_off) + j * 2 * BN;
         load_scales<NCONSUMER>(sc, a, b, hk, (t_lo + j) * BN, tid);
       }
@@ -364,61 +360,14 @@ cudaError_t launch(const Maps& m, const Args& a, const F32Src& f, int B,
   return cudaGetLastError();
 }
 
-// K5 at d = 256 under a 2-byte or int8 Q: the Q-major walk of K1b
-// (flash_fwd_bound_sm90.cuh, q_walk), over bf16 K/V or one-byte K/V
-// converted before it (PRE)
-template <bool QUANT, bool QQ, bool PRE>
-__global__ void __launch_bounds__(NTHREADS, 1)
-    flash_fwd_kmajor_qwalk_kernel(const __grid_constant__ CUtensorMap tm_q,
-                                  const __grid_constant__ CUtensorMap tm_k,
-                                  const __grid_constant__ CUtensorMap tm_v,
-                                  const Args a, const F32Src f) {
-  q_walk<256, QUANT, QQ, false, BN, false, PRE>(&tm_q, &tm_k, &tm_v, a, f);
-}
-
-// the conversion pass of the PRE builds
-template <int D>
-__global__ void __launch_bounds__(256)
-    flash_fwd_kmajor_convert_kernel(const ConvArgs c) {
-  convert_pass<D>(c);
-}
-
-template <bool QUANT, bool QQ, bool PRE>
-cudaError_t launch_q(const Maps& m, const Args& a, const F32Src& f, int B,
-                     cudaStream_t stream) {
-  return launch_walk<256, QUANT, QQ, false, BN, false, PRE>(
-      flash_fwd_kmajor_qwalk_kernel<QUANT, QQ, PRE>, m, a, f, B, stream);
-}
-
-// (a template, so that the fp16 unit does not instantiate the int8-Q build)
-template <int D>
-cudaError_t launch_q_walk(const Maps& m, const Args& a, const F32Src& f,
-                          int B, int qq, cudaStream_t stream) {
-  static_assert(D == 256, "the Q-major K5 builds are d = 256's");
-  if (a.k_type == kBf16) {
-    return launch_q<false, false, false>(m, a, f, B, stream);
-  }
-  if constexpr (!kHalf) {
-    if (qq) return launch_q<true, true, true>(m, a, f, B, stream);
-  }
-  return launch_q<true, false, true>(m, a, f, B, stream);
-}
-
 template <int D>
 cudaError_t launch_form(const Maps& m, const Args& a, const F32Src& f, int B,
                         int qq, bool f32, cudaStream_t stream) {
   if constexpr (kHalf) {  // the fp16 unit: fp16 Q (the entry point checked)
-    if constexpr (D == 256) {
-      return launch_q_walk<D>(m, a, f, B, qq, stream);
-    } else {
-      return a.k_type == kBf16
-                 ? launch<D, false, false, false>(m, a, f, B, stream)
-                 : launch<D, true, false, false>(m, a, f, B, stream);
+    if constexpr (D != 256) {
+      return launch<D, true, false, false>(m, a, f, B, stream);
     }
   } else {
-    if constexpr (D == 256) {
-      if (!f32) return launch_q_walk<D>(m, a, f, B, qq, stream);
-    }
     if (f32) {  // an fp32 Q over fp32, bf16 or one-byte K/V
       if (a.k_type == kF32) {
         return launch<D, false, false, true>(m, a, f, B, stream);
@@ -429,27 +378,26 @@ cudaError_t launch_form(const Maps& m, const Args& a, const F32Src& f, int B,
       return launch<D, true, false, true>(m, a, f, B, stream);
     }
     if constexpr (D != 256) {
-      if (a.k_type == kBf16) {
-        return launch<D, false, false, false>(m, a, f, B, stream);
-      }
       return qq ? launch<D, true, true, false>(m, a, f, B, stream)
                 : launch<D, true, false, false>(m, a, f, B, stream);
     }
-    return cudaErrorInvalidValue;  // d = 256 under a 2-byte Q: above
   }
+  // d = 256 under a 2-byte or int8 Q: the host sends it to K1b's walk
+  // (and 2-byte K/V under such a Q at any d: the entry point refused them)
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // K5. ptrs: q, k, v, k_scale, v_scale, q_factor, c, l_acc ([B,H,Nq] fp32,
-// zeroed), o_acc ([B,H,Nq,D] fp32, zeroed), n_loose, o, lse, kc, vc; the
-// rest as cfa_flash_fwd_bound's (q_f32's codes, kc and vc, and the fp16
-// unit's cfa_flash_fwd_kmajor_f16 too), and span: key tiles of 64 per
-// CTA, 1 to max_span(D, q_f32, K/V not fp32)
+// zeroed), o_acc ([B,H,Nq,D] fp32, zeroed), n_loose, o, lse, kc, vc (kc
+// and vc unused: NULL); the rest as cfa_flash_fwd_bound's (q_f32's codes,
+// and the fp16 unit's cfa_flash_fwd_kmajor_f16 too), and span: key tiles
+// of 64 per CTA, 1 to max_span(D, q_f32, K/V not fp32)
 // (ops/flash_fwd.py::_KMAJOR_MAX_SPAN*); its tiles are of key_tile(D,
 // q_f32, k_type) keys (32 for an fp32 Q over fp32 K/V at d = 256). D: 64,
-// 128, or 256 (span 1; under a 2-byte or int8 Q the Q-major walk, which
-// reads neither l_acc nor o_acc: NULL).
+// 128, or 256 under an fp32 Q (span 1; a 2-byte or int8 Q at d = 256, and
+// over 2-byte K/V at any d, runs K1b's walk, through cfa_flash_fwd_bound).
 extern "C" int cfa_flash_fwd_kmajor(void* const* ptrs, int B, int H, int Hkv,
                                     int Nq, int Nk, int D,
                                     const long long* strides, int k_type,
@@ -468,6 +416,7 @@ extern "C" int cfa_flash_fwd_kmajor(void* const* ptrs, int B, int H, int Hkv,
   if (qq && (k_type == kBf16 || f32)) return cudaErrorInvalidValue;
   if (D != 64 && D != 128 && D != 256) return cudaErrorInvalidValue;
   const bool quant = k_type != kBf16 && k_type != kF32;
+  if (!f32 && !quant) return cudaErrorInvalidValue;  // K1b's walk
   if (span < 1 || span > max_span(D, f32, k_type != kF32)) {
     return cudaErrorInvalidValue;
   }
@@ -498,16 +447,10 @@ extern "C" int cfa_flash_fwd_kmajor(void* const* ptrs, int B, int H, int Hkv,
   F32Src f = {};
   if (f32) f = f32_src(ptrs, strides, q_f32);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (pre_converted(D, f32, k_type)) {
-    const cudaError_t err = convert_and_map<256>(
-        flash_fwd_kmajor_convert_kernel<256>, &m, ptrs[0], ptrs[1], ptrs[2],
-        ptrs[12], ptrs[13], B, H, Hkv, Nq, Nk, strides, k_type, v_type, qq,
-        a.Gp, a.R, s);
-    if (err != cudaSuccess) return err;
-  } else if (k_type != kF32 &&
-             !make_maps(&m, f32 ? nullptr : ptrs[0], ptrs[1], ptrs[2], B, H,
-                        Hkv, Nq, Nk, D, strides, k_type, v_type, qq, a.Gp,
-                        a.R)) {
+  if (pre_converted(D, f32, k_type)) return cudaErrorInvalidValue;
+  if (k_type != kF32 &&
+      !make_maps(&m, f32 ? nullptr : ptrs[0], ptrs[1], ptrs[2], B, H, Hkv,
+                 Nq, Nk, D, strides, k_type, v_type, qq, a.Gp, a.R)) {
     return cudaErrorInvalidValue;
   }
   switch (D) {

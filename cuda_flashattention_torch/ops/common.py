@@ -57,12 +57,17 @@ def run_dim(d: int, dims: Tuple[int, ...] = FWD_HEAD_DIMS) -> Optional[int]:
 # (a span of key tiles, up to what its shared memory holds beside its Q
 # ring; fp32 tiles are split in two bf16 tiles, and an fp32 Q over bf16 or
 # one-byte K/V keeps exact bf16 K/V tiles beside a split Q ring:
-# csrc/flash_fwd_kmajor.cu).
+# csrc/flash_fwd_kmajor.cu) where its build takes an fp32 Q. Under a
+# 2-byte or int8 Q, K5 runs K1b's Q-major walk over 2-byte K/V, and over
+# one-byte K/V wherever that walk's grid fills the card (`kmajor_q_walk`),
+# so its `block_k` names K1b's key tile; below that, over one-byte K/V,
+# its key split keeps the span the rule picks (`kmajor_span`) on tiles of
+# the same 64 keys.
 FWD_BLOCK_Q = 128
 KMAJOR_TILE = 64
 # (at d = 256 a span of one tile: under an fp32 Q one tile pair beside
-# one split 128 KB Q tile; under a 2-byte or int8 Q K5 runs K1b's Q-major
-# walk there, `kmajor_q_walk`, and its span 1 names that walk's key tile)
+# one split 128 KB Q tile; a 2-byte or int8 Q always takes the Q-major
+# walk there)
 KMAJOR_MAX_SPAN = {64: 8, 128: 4, 256: 1}
 KMAJOR_MAX_SPAN_F32 = {64: 4, 128: 1, 256: 1}
 KMAJOR_MAX_SPAN_F32Q = {64: 8, 128: 3, 256: 1}
@@ -118,12 +123,13 @@ BUILT_TILES: Dict[Tuple[str, str, int], Tuple[Tuple[int, ...],
                      else (fwd_key_tile(ty, d),))
        for kn in ("K1", "K1b") for ty in TILE_TYPES for d in FWD_HEAD_DIMS
        if d in FWD_F32_HEAD_DIMS or not ty.startswith("fp32")},
+    # K5 under a 2-byte or int8 Q: K1b's tiles (its Q-major walk)
+    **{("K5", ty, d): ((FWD_BLOCK_Q,),
+                       (64, 128) if ty in HALF_TYPES and d < 256 else (64,))
+       for ty in ("bf16", "fp16", "codes", "fp16/codes")
+       for d in FWD_HEAD_DIMS},
     **{("K5", ty, d): ((FWD_BLOCK_Q,), _kmajor_tiles(spans, ty, d))
-       for ty, spans in (("bf16", KMAJOR_MAX_SPAN),
-                         ("fp16", KMAJOR_MAX_SPAN),
-                         ("codes", KMAJOR_MAX_SPAN),
-                         ("fp16/codes", KMAJOR_MAX_SPAN),
-                         ("fp32", KMAJOR_MAX_SPAN_F32),
+       for ty, spans in (("fp32", KMAJOR_MAX_SPAN_F32),
                          ("fp32/codes", KMAJOR_MAX_SPAN_F32Q),
                          ("fp32/bf16", KMAJOR_MAX_SPAN_F32Q))
        for d in spans},
@@ -295,12 +301,46 @@ def kv_converted(d: int, q_f32: bool, quantized: bool) -> bool:
     return quantized and not q_f32 and d == 256
 
 
-def kmajor_q_walk(d: int, q_f32: bool) -> bool:
-    """Whether K5 at run dim d runs K1b's Q-major walk (no key split, no
-    partial sums or finalise, no zeroed scratch): at d = 256 under a
-    2-byte or int8 Q, where no span longer than one 64-key tile fits
-    (csrc/flash_fwd_kmajor.cu)."""
-    return d == 256 and not q_f32
+def packed_heads(group: int) -> int:
+    """Query heads of one KV head that a 128-row tile of the forward packs
+    (csrc/flash_fwd_bound_sm90.cuh::packed_heads): the largest divisor of
+    the group size up to 16."""
+    return max(g for g in range(1, min(group, 16) + 1) if group % g == 0)
+
+
+def q_major_grid(b: int, h: int, h_kv: int, nq: int) -> int:
+    """CTAs of the Q-major walk (K1, K1b): a 128-row tile of Gp packed
+    heads, R = 128 / Gp positions each, per (Q tile, head group, batch)."""
+    gp = packed_heads(h // h_kv)
+    return cdiv(nq, FWD_BLOCK_Q // gp) * (h // gp) * b
+
+
+# The crossing of K5's two walks under a 2-byte or int8 Q at d <= 128 over
+# one-byte K/V: the Q-major walk once its grid holds this share of a wave
+# of CTAs. It lies between 64 and 128 CTAs (PERF.md §6: a sweep of
+# one 512-row chunk per sequence over a 16384-token fp8 cache: at B=1, 64
+# CTAs, the Q-major walk takes 0.45 ms against the key split's 0.31; at
+# B=2, 128 CTAs, 0.45 against 0.50; at B=8 1.76 against 1.89). Over 2-byte
+# K/V the Q-major walk led at every grid measured, 64 CTAs and up (the
+# same call: 0.22 against 0.28 ms at B=1 over a bf16 cache, 0.013 against
+# 0.069 at [1, 16/4, 512, 128] causal), so no 2-byte K/V take the split.
+KMAJOR_Q_WALK_MIN_WAVES = 0.75
+
+
+def kmajor_q_walk(d: int, q_f32: bool, *, b: int, h: int, h_kv: int,
+                  nq: int, sms: int, codes: bool = False) -> bool:
+    """Whether K5 at run dim d runs K1b's Q-major walk (through K1b's
+    entry point: no key split, no partial sums or finalise, no zeroed
+    scratch; its O does not vary from run to run) rather than its key
+    split: under a 2-byte or int8 Q (`q_f32` false), over 2-byte K/V and
+    at d = 256 always (no span longer than one 64-key tile fits there),
+    and over one-byte K/V (`codes`) at d <= 128 where the Q-major grid
+    (`q_major_grid`) holds `KMAJOR_Q_WALK_MIN_WAVES` of a wave of `sms`
+    CTAs. A rule on shapes alone. The fp32-Q builds keep the key split."""
+    if q_f32:
+        return False
+    return (d == 256 or not codes
+            or q_major_grid(b, h, h_kv, nq) >= KMAJOR_Q_WALK_MIN_WAVES * sms)
 
 
 def kv_copy_bytes(b: int, h_kv: int, nk: int, d: int, *, qq: bool,
@@ -319,12 +359,13 @@ def auto_block_sizes(nq: int, nk: int, d: int, causal: bool = False,
                      f32: bool = False) -> BlockSizes:
     """The tiles the card's kernels take when a call names none: 128
     query rows and 64 keys, the backward's (64, 128), and, where "auto"
-    routes to the K-major walk K5 (fp8 keys, or causal past
-    `ONLINE_SHORT_NQ` rows), block_k = 64 · `kmajor_span` for `batch` ×
-    `kv_heads` over an H100's 132 SMs. None of the JAX version's VMEM
+    routes an fp32 Q (`f32`) to the K-major walk K5 (fp8 keys, or causal
+    past `ONLINE_SHORT_NQ` rows), block_k = 64 · `kmajor_span` for `batch`
+    × `kv_heads` over an H100's 132 SMs. Under a 2-byte Q, K5's `block_k`
+    is K1b's key tile (64 by default). None of the JAX version's VMEM
     arithmetic applies."""
     block_k = 64
-    if fp8 or (causal and nq > ONLINE_SHORT_NQ):
+    if f32 and (fp8 or (causal and nq > ONLINE_SHORT_NQ)):
         block_k = KMAJOR_TILE * kmajor_span(batch, kv_heads, nk, d, sms, f32,
                                             fp8)
     return BlockSizes(block_k=block_k)

@@ -55,6 +55,7 @@ from cuda_flashattention_torch.ops.common import (
     check_qkv,
     check_tiles,
     kernel_operand,
+    packed_heads,
     pad_heads,
     resolve_scale,
     run_dim,
@@ -149,8 +150,7 @@ def _dq_packing(h: int, h_kv: int, bm: int = _DQ_BM) -> Tuple[int, int]:
     """(Gp, R): the query heads of one KV head that a K3 CTA of `bm`
     rows packs (the largest divisor of the group size up to 16) and the
     positions of each (bm / Gp)."""
-    group = h // h_kv
-    gp = max(d for d in range(1, min(group, 16) + 1) if group % d == 0)
+    gp = packed_heads(h // h_kv)
     return gp, bm // gp
 
 

@@ -19,20 +19,25 @@ Counterpart of cuda_flashattention_tpu/ops/flash_fwd.py
            past; each (Q tile, span) pair's l and acc are added with fp32
            atomics, so O differs in its last fp32 bits from run to run.
            `_kmajor_span` sizes the span so that the grid fills the card,
-           unless `block_sizes.block_k` (tile · span) names it. At d = 256
-           under a 2-byte or int8 Q, where no span past one tile fits,
-           K5 runs K1b's Q-major walk (`kmajor_q_walk`: no partial sums).
+           unless `block_sizes.block_k` (tile · span) names it (fp32-Q
+           builds). Under a 2-byte or int8 Q a K5 call runs K1b's walk
+           through K1b's entry point over 2-byte K/V and at d = 256 (no
+           span past one tile fits there) always, and over one-byte K/V
+           wherever K1b's Q-major grid holds 3/4 of a wave of CTAs
+           (`kmajor_q_walk`: no partial sums, O the same bits as K1b's),
+           still counted as K5's.
 
 At d = 256 under a 2-byte or int8 Q, K1b and K5 convert one-byte K/V once
 per call, before their walk, into exact 2-byte copies (`kv_converted`;
 their bytes `kv_copy_bytes`, scratch allocated per call), which the walk
-reads as it reads bf16 K/V.
+reads as it reads bf16 K/V; at d <= 128 the walk converts each key tile
+in shared memory, K by the consumers and V by the producer warpgroup.
 
 `block_sizes` picks the key tile among those the routed kernel is built
 for (`ops.common.BUILT_TILES`): 64 keys everywhere, or 128 in the bf16
-builds of K1 and K1b at d <= 128, and 32 for an fp32 Q over fp32 K/V at
-d = 256 (`ops.common.fwd_key_tile`); K5's span; the query tile is 128
-rows. Any other
+builds of K1 and K1b (and K5 under a 2-byte Q) at d <= 128, and 32 for
+an fp32 Q over fp32 K/V at d = 256 (`ops.common.fwd_key_tile`); K5's
+span under an fp32 Q; the query tile is 128 rows. Any other
 request runs at the nearest built tile below it (`ops.common.check_tiles`,
 which logs the mapping once); on the CPU the plain version ignores the
 tile (every tile computes the same function).
@@ -438,13 +443,16 @@ def _ptrs(*tensors):
         *[None if t is None else t.data_ptr() for t in tensors])
 
 
-# key tiles a K5 CTA keeps resident at each head dim, and the rule that
-# picks its span (ops/common.py); `utils/kmajor_spans.py`
-# replaces `_kmajor_span` to time each span
+# key tiles a K5 CTA keeps resident at each head dim, the rule that
+# picks its span and the rule that sends it to K1b's Q-major walk
+# (ops/common.py); `utils/kmajor_spans.py` replaces `_kmajor_span` to time
+# each span, `utils/ab_kernels.py` and the tests `_kmajor_q_walk` to time
+# and hold either walk at any shape
 _KMAJOR_MAX_SPAN = KMAJOR_MAX_SPAN
 _KMAJOR_MAX_SPAN_F32 = KMAJOR_MAX_SPAN_F32
 _KMAJOR_MAX_SPAN_F32Q = KMAJOR_MAX_SPAN_F32Q
 _kmajor_span = kmajor_span
+_kmajor_q_walk = kmajor_q_walk
 
 
 def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
@@ -572,7 +580,14 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
                                  device=q.device)
             kc = copies[:k_bytes] if k_bytes else None
             vc = copies[k_bytes:]
-        if plan.use_kmajor and not kmajor_q_walk(d, bool(q_f32)):
+        key_split = plan.use_kmajor
+        if key_split:
+            sms = torch.cuda.get_device_properties(
+                q.device).multi_processor_count
+            key_split = not _kmajor_q_walk(d, bool(q_f32), b=b, h=h,
+                                           h_kv=h_kv, nq=nq, sms=sms,
+                                           codes=plan.quantized)
+        if key_split:
             # one zeroed buffer: each (Q tile, span) pair's partial sums,
             # added with atomics (acc, then l), then the loose-row count
             n_acc = b * h * nq * d
@@ -581,32 +596,30 @@ def _fwd_cuda(q, k, v, plan: _Plan, out_dtype, k_scale, v_scale, q_seg,
             o_acc = scratch[:n_acc]
             l_acc = scratch[n_acc:-1]
             n_loose = scratch[-1:].view(torch.int32)
-            if plan.block_k is not None:
+            # `block_k` names the span of the fp32-Q builds only (under a
+            # 2-byte or int8 Q the split reads one-byte K/V, whose one
+            # built tile, K1b's 64 keys, is the split's tile too)
+            if plan.block_k is not None and q_f32:
                 span = plan.block_k // tile
             else:
-                sms = torch.cuda.get_device_properties(
-                    q.device).multi_processor_count
                 span = _kmajor_span(b, h_kv, nk, d, sms, bool(q_f32),
                                     k.dtype != torch.float32)
-        else:
-            # K1b, and K5 on the Q-major walk: the sums stay in registers
-            o_acc = l_acc = None
-            n_loose = torch.zeros(1, dtype=torch.int32, device=q.device)
-            span = 1
-        if plan.use_kmajor:
             err = getattr(lib, "cfa_flash_fwd_kmajor" + unit)(
                 _ptrs(q_op, k, v, ksc, vsc, q_factor, c, l_acc, o_acc,
                       n_loose, o, lse, kc, vc), *shape, span, stream)
             _build.check(err, "flash_attention_forward K-major kernel launch")
-            counts["kmajor"] += 1
         else:
+            # K1b, and K5 on K1b's Q-major walk: the sums stay in registers
+            n_loose = torch.zeros(1, dtype=torch.int32, device=q.device)
+            kn = plan.block_k or tile
             err = getattr(lib, "cfa_flash_fwd_bound" + unit)(
                 _ptrs(q_op, k, v, ksc, vsc, q_factor, c, n_loose, o, lse, kc,
-                      vc), *shape, plan.block_k or tile, stream)
+                      vc), *shape, kn, stream)
             _build.check(err, "flash_attention_forward bound kernel launch")
-            counts["bound"] += 1
-            if plan.block_k == 128:
-                flash_attention_forward.key128_launches["bound"] += 1
+            if kn == 128:
+                flash_attention_forward.key128_launches[
+                    "kmajor" if plan.use_kmajor else "bound"] += 1
+        counts["kmajor" if plan.use_kmajor else "bound"] += 1
         flash_attention_forward.launches += 1
         if plan.checked:
             online(n_loose)
@@ -642,9 +655,10 @@ def flash_attention_forward(
     `v_scale` [B,Hkv,Nk], dequantisation folded into the products.
     `softmax`: "auto", "online", "bound" or "bound_unchecked" (module
     docstring). `block_sizes` (`ops.common.BlockSizes`): block_q 128 and
-    the routed kernel's key tile, 64, or 128 over bf16 Q/K/V in K1 and
-    K1b at d <= 128, 32 for an fp32 Q over fp32 K/V at d = 256, or K5's
-    tile · span; another tile runs at the nearest built one below it
+    the routed kernel's key tile, 64, or 128 over bf16 Q/K/V in K1, K1b
+    and K5 at d <= 128, 32 for an fp32 Q over fp32 K/V at d = 256, or,
+    for K5 under an fp32 Q, its tile · span; another tile runs at the
+    nearest built one below it
     (`ops.common.check_tiles`). `quantize_q` (quantized K/V,
     bound softmax): Q·Kᵀ on
     per-head int8 Q; it waives the loose-bound fallback, and over fp8 keys
@@ -671,7 +685,7 @@ def flash_attention_forward(
     "bound", "kmajor", and "fallback" for the guarded online launch behind
     a checked bound call; `.key128_launches` counts those of the 128-key
     builds of K1 ("online", and "fallback" for its guarded launches) and
-    K1b ("bound")."""
+    K1b ("bound", and "kmajor" for K5's calls on its walk)."""
     plan = _plan(q, k, v, scale, causal, window, kv_offset, block_sizes,
                  k_scale, v_scale, q_segment_ids, kv_segment_ids, softmax,
                  quantize_q)
@@ -689,4 +703,4 @@ flash_attention_forward.launches = 0
 flash_attention_forward.form_launches = {"online": 0, "bound": 0,
                                          "kmajor": 0, "fallback": 0}
 flash_attention_forward.key128_launches = {"online": 0, "bound": 0,
-                                           "fallback": 0}
+                                           "kmajor": 0, "fallback": 0}

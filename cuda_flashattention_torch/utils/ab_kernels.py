@@ -3,7 +3,8 @@ commits on one card within one call.
 
     python3 cuda_flashattention_torch/utils/ab_kernels.py <checkout root>
                                          [K9 | decode | decode-sweep |
-                                          forward]
+                                          forward | forward-quick |
+                                          crossing]
 
 imports `cuda_flashattention_torch` from <checkout root> (building its
 kernels there), and prints, on bf16 inputs with d=128 (with `K9`, only the
@@ -50,7 +51,9 @@ With `forward`, only the forward rows of `forward_rows` (below): the build's
 nvcc seconds, then per row the kernel alone (every `flash_fwd*` kernel of
 a call, K5's finalise and the conversion pass included, and the zeroing of
 its scratch), its bound and share, and SDPA on the same (dequantised)
-inputs under the same mask.
+inputs under the same mask. `forward-quick`: the same rows over a library
+of the forward units alone (`forward_units_only`); `crossing`: over the
+same library, only the rows of K5's two walks (`crossing_rows`).
 For each: the wrapper's median ms (CUDA events) and the device ms per
 call of its kernels (torch.profiler), with each kernel's ms per launch.
 The K4 rows run first, so that both checkouts reach them after the same
@@ -121,8 +124,10 @@ def main(root: str, only: str = "") -> None:
     if only == "K9":
         device_ring_rows()
         return
-    if only == "forward":
-        forward_rows(mk, dev, card)
+    if only in ("forward", "forward-quick", "crossing"):
+        if only != "forward":
+            forward_units_only()
+        forward_rows(mk, dev, card, only_crossing=only == "crossing")
         return
 
     if not only.startswith("decode"):
@@ -220,7 +225,20 @@ def forward_backward_rows(mk, dev, report):
     del q, k, v
 
 
-def forward_rows(mk, dev, card):
+def forward_units_only():
+    """Build and bind only the forward units (`flash_fwd*.cu`, `fa1*.cu`:
+    K1, K1b, K5, K8 and their fp16 units) of the checkout just imported,
+    for `forward-quick`: a build of ~1 min instead of ~4 (the decode units
+    are the long pole), into a library of its own name."""
+    from cuda_flashattention_torch import _build
+    every = _build.sources
+    _build.sources = lambda: [s for s in every()
+                              if s.name.startswith(("flash_fwd", "fa1"))]
+    _build.SIGNATURES = {n: a for n, a in _build.SIGNATURES.items()
+                         if n.startswith(("cfa_flash_fwd", "cfa_fa1"))}
+
+
+def forward_rows(mk, dev, card, only_crossing=False):
     """The forward kernels' rows (bf16 inputs peaked as chip_smoke's, Q x8
     and K x4; fp32 O), each pinned through `ops.flash_fwd._plan` +
     `_fwd_cuda` (the bound forms without the guarded fallback launch):
@@ -232,10 +250,15 @@ def forward_rows(mk, dev, card):
       - K5 at [1, 8, 8192, 256] over 4 KV heads, causal, bf16;
       - the fp32-Q d = 256 builds: K1b over int8 and bf16 at the prefix,
         K5 over int8 at the windowed prefix;
-      - fp16: K1b and K5 at the Gemma prefix over int8, K1b at d=128's;
+      - fp16: K1b and K5 at the Gemma prefix over int8, and at d=128's
+        over fp16 and int8;
       - d = 128: at the 246M model's prefix (B=8, H=16, Hkv=4, 512 over
-        3584) K1 (online) bf16, K1b bf16 and int8, K5 fp8; K5 over int8 at
-        its windowed prefix; K1 and K8 at [1, 16, 4096, 128] causal;
+        3584) K1b and K5 over bf16, int8, fp8 and mixed K/V, each
+        quantized pair also under quantize_q, K1 (online) over bf16 and
+        int8; the same at its windowed prefix (512 over 1024, window 1024)
+        over bf16, int8, fp8; K5 at [1, 16, 6144, 128] and [1, 16, 16384,
+        128] causal; the crossing of K5's walks (`crossing_rows`); K1 and K8 at
+        [1, 16, 4096, 128] causal, K8 also not causal;
       - K1 at the Gemma prefill (B=8, 512 causal, d=256) and K8 at [1, 8,
         4096, 256] causal.
     Each row: the kernel alone per call (torch.profiler over 5 calls: the
@@ -346,6 +369,9 @@ def forward_rows(mk, dev, card):
               f"{100 * bound / ms:.1f}%; SDPA {lib:.4f} ms ({card})",
               flush=True)
 
+    if only_crossing:
+        crossing_rows(ff, inputs, pinned, row)
+        return
     gemma = (8, 8, 4, 512, 3584, 256)
     window = dict(causal=True, window=1024, kv_offset=1024)
     shapes = [("Gemma prefix", gemma, {}),
@@ -380,31 +406,44 @@ def forward_rows(mk, dev, card):
             pinned(form, q, k, v, sc, kw), q, k, v, sc, kw,
             (name, "fp32"), kd, vd)
         del q, k, v, kd, vd
+    prefix = (8, 16, 4, 512, 3584, 128)
     for name, shape, qtype in (("Gemma prefix", gemma, "int8"),
-                               ("prefix d=128", (8, 16, 4, 512, 3584, 128),
-                                None)):
+                               ("prefix d=128", prefix, None),
+                               ("prefix d=128", prefix, "int8")):
         q, k, v, sc, kd, vd = inputs(*shape, qtype, torch.float16)
-        forms = (("bound", "K1b"), ("kmajor", "K5")) if qtype else (
-            ("bound", "K1b"),)
-        for form, kn in forms:
+        for form, kn in (("bound", "K1b"), ("kmajor", "K5")):
             row(f"{kn} fp16 {name} {qtype or 'fp16'}",
                 pinned(form, q, k, v, sc, {}), q, k, v, sc, {},
                 (name, "fp16"), kd, vd)
         del q, k, v, kd, vd
-    prefix = (8, 16, 4, 512, 3584, 128)
-    for form, kn, qtype in (("online", "K1", None), ("bound", "K1b", None),
-                            ("bound", "K1b", "int8"),
-                            ("kmajor", "K5", "fp8")):
-        q, k, v, sc, kd, vd = inputs(*prefix, qtype)
-        row(f"{kn} d=128 prefix {qtype or 'bf16'}",
-            pinned(form, q, k, v, sc, {}), q, k, v, sc, {},
-            ("prefix d=128", "bf16"), kd, vd)
+    # d = 128: the 246M model's prefix reads and their windowed slice
+    for name, shape, kw in (("prefix", prefix, {}),
+                            ("windowed prefix", (8, 16, 4, 512, 1024, 128),
+                             window)):
+        for qtype in (None, "int8", "fp8", "mixed"):
+            if qtype == "mixed" and kw:
+                continue
+            q, k, v, sc, kd, vd = inputs(*shape, qtype)
+            forms = [("bound", "K1b"), ("kmajor", "K5")]
+            if not kw and qtype in (None, "int8"):
+                forms.insert(0, ("online", "K1"))
+            for qq in ((False, True) if qtype and not kw else (False,)):
+                for form, kn in forms:
+                    if form == "online" and qq:
+                        continue
+                    row(f"{kn} d=128 {name} {qtype or 'bf16'}"
+                        + (" quantize_q" if qq else ""),
+                        pinned(form, q, k, v, sc, kw, qq), q, k, v, sc, kw,
+                        (name + " d=128", "bf16"), kd, vd)
+            del q, k, v, sc, kd, vd
+    # K5 on long causal calls (SDPA `is_causal` beside them)
+    for n in (6144, 16384):
+        q, k, v, sc, kd, vd = inputs(1, 16, 16, n, n, 128, None)
+        row(f"K5 d=128 [1, 16, {n}, 128] causal bf16",
+            pinned("kmajor", q, k, v, sc, causal), q, k, v, sc, causal,
+            (n, "bf16"), kd, vd)
         del q, k, v, kd, vd
-    q, k, v, sc, kd, vd = inputs(8, 16, 4, 512, 1024, 128, "int8")
-    row("K5 d=128 windowed prefix int8", pinned("kmajor", q, k, v, sc,
-                                                  window),
-        q, k, v, sc, window, ("windowed d=128", "bf16"), kd, vd)
-    del q, k, v, kd, vd
+    crossing_rows(ff, inputs, pinned, row)
     for shape, online in (((1, 16, 16, 4096, 4096, 128), True),
                           ((8, 8, 4, 512, 512, 256), True),
                           ((1, 8, 8, 4096, 4096, 256), False)):
@@ -418,7 +457,67 @@ def forward_rows(mk, dev, card):
             row(f"K8 d={d} [{b}, {h}, {n}, {d}] causal",
                 lambda: fa1_attention(q, k, v, causal=True), q, k, v, sc,
                 causal, (shape, "bf16"), kd, vd)
+            if d == 128:
+                row(f"K8 d={d} [{b}, {h}, {n}, {d}] not causal",
+                    lambda: fa1_attention(q, k, v), q, k, v, sc, {},
+                    (shape, "bf16 full"), kd, vd)
         del q, k, v, kd, vd
+
+
+def crossing_rows(ff, inputs, pinned, row):
+    """The crossing of K5's two walks under a bf16 Q at d <= 128, by the
+    rule and (where the checkout has it) each walk forced (`_forced_walk`:
+    over bf16 K/V both forced rows are the Q-major walk): one 512-row
+    chunk per sequence over a 16384-token fp8 cache, and over a bf16 one
+    (causal, kv_offset 15872), B = 1, 2, 4, 8 (H=16, Hkv=4); [1, 16, N, d]
+    causal over bf16 K/V at d = 64 and 128, N = 512 ... 4096, and at N =
+    512 and 2048 under GQA 16:4 (d = 128): Q-major grids of 64 to 512
+    CTAs."""
+    import torch
+
+    chunk = dict(causal=True, kv_offset=16384 - 512)
+    cases = [(f"B={b} 512x16384 fp8", (b, 16, 4, 512, 16384, 128), "fp8",
+              {}) for b in (1, 2, 4, 8)]
+    cases += [(f"B={b} 512x16384 bf16 causal", (b, 16, 4, 512, 16384, 128),
+               None, chunk) for b in (1, 2, 4, 8)]
+    cases += [(f"[1, 16, {n}, {d}] causal bf16", (1, 16, 16, n, n, d), None,
+               dict(causal=True)) for d in (64, 128)
+              for n in (512, 1024, 2048, 4096)]
+    cases += [(f"[1, 16/4, {n}, 128] causal bf16", (1, 16, 4, n, n, 128),
+               None, dict(causal=True)) for n in (512, 2048)]
+    for label, shape, qtype, kw in cases:
+        q, k, v, sc, kd, vd = inputs(*shape, qtype)
+        walks = [("rule", None)]
+        if hasattr(ff, "_kmajor_q_walk"):
+            walks += [("Q-major", True), ("K-major", False)]
+        for walk_label, walk in walks:
+            with _forced_walk(ff, walk):
+                row(f"K5 d={shape[-1]} {label} ({walk_label})",
+                    pinned("kmajor", q, k, v, sc, kw), q, k, v, sc, kw,
+                    (label,), kd, vd)
+        del q, k, v, kd, vd
+        torch.cuda.empty_cache()
+
+
+class _forced_walk:
+    """Within the block, K5 under a 2-byte or int8 Q takes the Q-major
+    walk (`walk` True) or the key split (False) at any shape, by replacing
+    `ops.flash_fwd._kmajor_q_walk`; None leaves the rule. Over 2-byte K/V
+    (`codes` false) the Q-major walk always: K5 has no 2-byte key split
+    since the Q-major walk led it at every grid measured (PERF.md §6)."""
+
+    def __init__(self, ff, walk):
+        self.ff, self.walk, self.saved = ff, walk, None
+
+    def __enter__(self):
+        if self.walk is not None:
+            self.saved = self.ff._kmajor_q_walk
+            self.ff._kmajor_q_walk = lambda d, q_f32, codes=False, **_: (
+                not q_f32 and (d == 256 or not codes or self.walk))
+
+    def __exit__(self, *exc):
+        if self.saved is not None:
+            self.ff._kmajor_q_walk = self.saved
 
 
 def _decode_rows(mk, gen, dev, report, sweep):

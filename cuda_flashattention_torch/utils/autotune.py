@@ -146,7 +146,8 @@ def _rand(gen, shape, dtype, device):
 
 def _fwd_route(nq: int, causal: bool, dtype) -> str:
     """The kernel "auto" routes an unquantized call to: K1 (online), K1b
-    (bound, Q-major) or K5 (bound, causal: K-major)."""
+    (bound, Q-major) or K5 (bound, causal: under a 2-byte Q over 2-byte
+    K/V on K1b's Q-major walk)."""
     from cuda_flashattention_torch.ops.flash_fwd import _resolve_use_bound
     if not _resolve_use_bound("auto", causal=causal, quantized=False,
                               segmented=False, nq=nq):

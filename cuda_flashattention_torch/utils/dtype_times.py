@@ -28,9 +28,11 @@ import dataclasses
 import re
 import statistics
 
-# profiler kernel names of each row's kernel
+# profiler kernel names of each row's kernel (K5 at the prefix runs K1b's
+# Q-major walk, K1b's kernel)
 _NAMES = {"K1": r"flash_fwd_kernel", "K1b": r"flash_fwd_bound_kernel",
-          "K5": r"flash_fwd_kmajor", "K6": r"::decode_kernel<",
+          "K5": r"flash_fwd_kmajor|flash_fwd_bound_kernel",
+          "K6": r"::decode_kernel<",
           "K7": r"::paged_kernel<", "K4": r"flash_bwd_kv_kernel<\d+, true,",
           "K2": r"flash_bwd_kv_kernel<\d+, false,",
           "K3": r"flash_bwd_q_kernel", "K8": r"fa1_kernel",

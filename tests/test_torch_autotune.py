@@ -54,8 +54,12 @@ def _pick_bwd(args, kw):
 def test_candidates_are_the_routed_kernels_built_tiles():
     assert autotune.candidate_blocks(4096, 4096, 128, causal=True) == [
         (128, 64), (128, 128)]
-    # past 5120 causal rows "auto" takes K5: its spans
+    # past 5120 causal rows "auto" takes K5: under a bf16 Q K1b's tiles
+    # (its Q-major walk), under an fp32 Q its spans
     assert autotune.candidate_blocks(8192, 8192, 128, causal=True) == [
+        (128, 64), (128, 128)]
+    assert autotune.candidate_blocks(8192, 8192, 64, causal=True,
+                                     dtype=torch.float32) == [
         (128, 64), (128, 128), (128, 192), (128, 256)]
     assert autotune.candidate_blocks(512, 3584, 128) == [(128, 64),
                                                          (128, 128)]

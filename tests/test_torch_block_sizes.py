@@ -90,12 +90,18 @@ def test_table_lists_the_builds():
         for kn in ("K2", "K4"):
             for ty in ("bf16", "fp32"):
                 assert BUILT_TILES[kn, ty, d] == ((64,), (128,))
-    assert BUILT_TILES["K5", "bf16", 128][1] == (64, 128, 192, 256)
+    # K5 under a 2-byte or int8 Q: K1b's tiles (its Q-major walk); under
+    # an fp32 Q tile · span
+    for ty in ("bf16", "fp16", "codes", "fp16/codes"):
+        for d in (64, 128, 256):
+            assert BUILT_TILES["K5", ty, d] == BUILT_TILES["K1b", ty, d]
+    assert BUILT_TILES["K5", "bf16", 128][1] == (64, 128)
+    assert BUILT_TILES["K5", "codes", 64][1] == (64,)
     assert BUILT_TILES["K5", "fp32", 128][1] == (64,)
     assert BUILT_TILES["K5", "fp32/codes", 128][1] == (64, 128, 192)
     assert BUILT_TILES["K5", "fp32/bf16", 128][1] == (64, 128, 192)
-    assert BUILT_TILES["K5", "codes", 64][1] == tuple(64 * s
-                                                      for s in range(1, 9))
+    assert BUILT_TILES["K5", "fp32/codes", 64][1] == tuple(
+        64 * s for s in range(1, 9))
     # narrow heads run on the d = 64 builds
     assert common.built_tiles("K1", "bf16", 16) == BUILT_TILES["K1", "bf16",
                                                                64]
@@ -104,17 +110,24 @@ def test_table_lists_the_builds():
 @pytest.mark.parametrize("b,h_kv,nk,d", [(1, 16, 4096, 128),
                                          (8, 4, 3584, 128), (1, 1, 512, 64)])
 def test_auto_block_sizes_is_the_default_rule(b, h_kv, nk, d):
-    """Today's tiles where "auto" routes to K1 or K1b, and K5's span rule
-    (`_kmajor_span`) where it routes to K5: fp8 keys, or causal past
-    5120 rows."""
+    """Today's tiles where "auto" routes to K1 or K1b, and where it routes
+    to K5 (fp8 keys, or causal past 5120 rows): under a 2-byte Q K1b's
+    default tile (K5's `block_k` is K1b's key tile, and its key split,
+    where it keeps one, takes the rule's span), under an fp32 Q the span
+    rule (`_kmajor_span`)."""
     assert auto_block_sizes(4096, nk, d, causal=True) == BlockSizes()
     assert auto_block_sizes(512, nk, d) == BlockSizes()
     for nq, causal, fp8 in ((8192, True, False), (512, False, True)):
         bs = auto_block_sizes(nq, nk, d, causal=causal, fp8=fp8, batch=b,
                               kv_heads=h_kv)
-        span = ff._kmajor_span(b, h_kv, nk, d, 132, False, fp8)
-        assert bs == BlockSizes(block_k=64 * span)
+        assert bs == BlockSizes()
         assert bs.block_k in BUILT_TILES["K5", "bf16", d][1]
+        bs = auto_block_sizes(nq, nk, d, causal=causal, fp8=fp8, batch=b,
+                              kv_heads=h_kv, f32=True)
+        span = ff._kmajor_span(b, h_kv, nk, d, 132, True, fp8)
+        assert bs == BlockSizes(block_k=64 * span)
+        assert bs.block_k in BUILT_TILES["K5", "fp32/codes" if fp8
+                                         else "fp32", d][1]
 
 
 # ---- unbuilt tiles on CPU tensors -----------------------------------------
@@ -152,8 +165,8 @@ def test_forward_refuses_unbuilt_tiles_on_the_cpu(bs, dtype, kw, capsys):
 
 
 def test_one_byte_kv_refuse_the_128_key_tile():
-    """K1 over codes has no 128-key build: 128 keys run at 64 (K5 over
-    codes takes 128 keys as a span of 2)."""
+    """K1 over codes has no 128-key build: 128 keys run at 64 (so does
+    K5 over codes, whose key tile is K1b's)."""
     from cuda_flashattention_torch.ops.quant import quantize_kv
     q, k, v = _qkv()
     kv = quantize_kv(k, v, "int8")
@@ -162,7 +175,9 @@ def test_one_byte_kv_refuse_the_128_key_tile():
     flash_attention_forward(q, kv.k_q, kv.v_q, k_scale=kv.k_scale,
                             v_scale=kv.v_scale, softmax="online",
                             block_sizes=BlockSizes(block_k=128))
-    # K5 over codes: 128 keys are a span of 2
+    # K5 over codes: K1b's 64-key tile
+    assert common.check_tiles("K5", "codes", 64, BlockSizes(block_k=128),
+                              "test") == 64
     flash_attention_forward(q, kv.k_q, kv.v_q, k_scale=kv.k_scale,
                             v_scale=kv.v_scale, causal=True,
                             softmax="bound",

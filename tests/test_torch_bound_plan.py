@@ -1,5 +1,6 @@
 """The bound forward's host part, on the CPU: the K5 span and grid choice,
-the score bound c that K1b and K5 are given, and at d = 256 which calls
+which K5 calls take K1b's Q-major walk (the crossing rule on shapes), the
+score bound c that K1b and K5 are given, and at d = 256 which calls
 convert one-byte K/V before their walk, the bytes of the copies, and what
 the entry points are handed (the kernels' library replaced by a recorder).
 
@@ -19,41 +20,58 @@ import torch
 
 from cuda_flashattention_torch.ops import common
 from cuda_flashattention_torch.ops import flash_fwd as ff
-from cuda_flashattention_torch.ops.common import cdiv
+from cuda_flashattention_torch.ops.common import BlockSizes, cdiv
 from cuda_flashattention_torch.ops.quant import quantize_kv
 
 SMS = 132  # an H100's streaming multiprocessors
 ULPS = 4
 
 
-@pytest.mark.parametrize("b,h_kv,nk,d", [
-    (8, 4, 3584, 128),    # the chunked-prefill prefix
-    (8, 4, 1024, 128),    # the windowed prefix's slice
-    (1, 16, 16384, 128),  # the one-rank N=16384 call
-    (1, 4, 16384, 128),   # a Ulysses rank's heads
-    (1, 1, 1, 64),
-    (2, 2, 257, 64),
-    (1, 8, 100000, 64),
+# (B, H, Hkv, Nq, Nk, d) of K5 calls that keep the key split: under a
+# 2-byte Q over one-byte K/V where the Q-major grid is under three
+# quarters of a wave, and under an fp32 Q
+@pytest.mark.parametrize("b,h,h_kv,nq,nk,d,f32", [
+    (1, 16, 4, 512, 16384, 128, False),  # one chunk over a long cache
+    (2, 8, 8, 256, 16384, 128, False),
+    (1, 16, 4, 512, 3584, 128, False),
+    (8, 16, 4, 512, 3584, 128, True),    # the fp32 model's prefix read
+    (8, 16, 4, 512, 1024, 128, True),    # its windowed slice
+    (1, 16, 16, 4096, 4096, 128, True),
+    (1, 4, 1, 40, 1, 64, False),
+    (2, 4, 2, 100, 257, 64, False),
+    (1, 8, 8, 64, 100000, 64, False),
 ])
-def test_kmajor_span_covers_the_keys(b, h_kv, nk, d):
-    span = ff._kmajor_span(b, h_kv, nk, d, SMS)
+def test_kmajor_span_covers_the_keys(b, h, h_kv, nq, nk, d, f32):
+    assert not common.kmajor_q_walk(d, f32, b=b, h=h, h_kv=h_kv, nq=nq,
+                                    sms=SMS, codes=True)
+    span = ff._kmajor_span(b, h_kv, nk, d, SMS, f32)
+    longest = (ff._KMAJOR_MAX_SPAN_F32 if f32 else ff._KMAJOR_MAX_SPAN)[d]
     tiles = cdiv(nk, 64)
-    assert 1 <= span <= ff._KMAJOR_MAX_SPAN[d]
+    assert 1 <= span <= longest
     assert cdiv(tiles, span) * span >= tiles
     grid = cdiv(tiles, span) * h_kv * b
     # two waves, or the most CTAs the keys allow
     assert grid >= 2 * SMS or span == 1
     # and no longer span would still give two waves
-    if span < ff._KMAJOR_MAX_SPAN[d]:
+    if span < longest:
         assert cdiv(tiles, span + 1) * h_kv * b < 2 * SMS
 
 
 def test_kmajor_span_fills_two_waves_at_the_prefix():
-    """Q-major gives the prefix 8 x 4 x 4 = 128 tiles, under one wave; the
-    key split gives at least two."""
-    span = ff._kmajor_span(8, 4, 3584, 128, SMS)
-    assert span == ff._KMAJOR_MAX_SPAN[128]
-    assert cdiv(cdiv(3584, 64), span) * 4 * 8 >= 2 * SMS
+    """The 246M prefix (B=8, H=16, Hkv=4, 512 rows) gives the Q-major walk
+    8 x 4 x 16 = 512 packed tiles, 3.9 waves: K5 takes it under a 2-byte
+    Q. One sequence's chunk over a 16384-token cache gives it 64, under
+    half a wave: there the key split keeps a span that fills two."""
+    assert common.q_major_grid(8, 16, 4, 512) == 512
+    assert common.kmajor_q_walk(128, False, b=8, h=16, h_kv=4, nq=512,
+                                sms=SMS, codes=True)
+    assert common.q_major_grid(1, 16, 4, 512) == 64
+    span = ff._kmajor_span(1, 4, 16384, 128, SMS)
+    assert span == 3
+    assert cdiv(cdiv(16384, 64), span) * 4 >= 2 * SMS
+    # the fp32-Q prefix read keeps its span rule (the longest, exact K/V)
+    assert ff._kmajor_span(8, 4, 3584, 128, SMS, True, True) == \
+        ff._KMAJOR_MAX_SPAN_F32Q[128]
 
 
 def _old_score_bound(q_hat, k, k_scale, factor=None, regrid=False):
@@ -140,17 +158,60 @@ def test_score_bound_matches_the_old_formula(qtype, quantize_q, aligned):
     (256, False, True, True),     # a 2-byte (or quantize_q's int8) Q
     (256, True, True, False),     # the fp32-Q build converts in the walk
     (256, False, False, False),   # bf16 K/V: nothing to convert
-    (128, False, True, False),    # d <= 128: converted in the walk
-    (64, False, True, False)])
+    (128, False, True, False),    # d <= 128: each tile converted in
+    (64, False, True, False),     # the walk
+    (128, True, True, False)])    # (an fp32 Q: the consumers)
 def test_which_calls_convert_kv(d, q_f32, quantized, converted):
+    """A pass of its own converts one-byte K/V before the walk only at d =
+    256 under a 2-byte or int8 Q, whichever walk K5 then takes."""
     assert common.kv_converted(d, q_f32, quantized) is converted
 
 
-@pytest.mark.parametrize("d,q_f32,q_walk", [
-    (256, False, True), (256, True, False), (128, False, False),
-    (64, False, False)])
-def test_which_kmajor_builds_take_the_q_major_walk(d, q_f32, q_walk):
-    assert common.kmajor_q_walk(d, q_f32) is q_walk
+# (B, H, Hkv, Nq, d, q_f32, one-byte K/V) -> whether K5 takes K1b's
+# Q-major walk
+@pytest.mark.parametrize("b,h,h_kv,nq,d,q_f32,codes,q_walk", [
+    (8, 16, 4, 512, 128, False, True, True),    # the 246M prefix: 512 CTAs
+    (8, 16, 4, 512, 128, False, False, True),
+    (8, 16, 4, 512, 128, True, True, False),    # an fp32 Q keeps the split
+    (1, 16, 4, 512, 128, False, True, False),   # one chunk over a cache: 64
+    (2, 16, 4, 512, 128, False, True, True),    # 128: 3/4 of a wave
+    (2, 16, 4, 512, 128, False, False, True),   # over 2-byte K/V: always
+    (1, 16, 4, 512, 128, False, False, True),   # (one chunk: 64 CTAs)
+    (1, 16, 16, 512, 128, False, False, True),
+    (1, 16, 16, 512, 64, False, False, True),
+    (1, 16, 4, 800, 128, False, True, True),    # 100 CTAs
+    (1, 16, 4, 768, 128, False, True, False),   # 96
+    (4, 16, 4, 512, 128, False, True, True),    # 256
+    (4, 16, 4, 512, 128, False, False, True),   # over 2-byte K/V, a wave
+    (1, 4, 1, 16384, 128, False, False, True),  # a Ulysses rank's heads
+    (1, 8, 8, 8192, 128, False, False, True),   # a tp2·sp2 ring's block
+    (1, 16, 16, 4000, 128, False, False, True),  # a ragged ring shard
+    (1, 16, 16, 6144, 128, False, False, True),  # the long causal call
+    (8, 8, 4, 512, 256, False, True, True),     # the Gemma prefix
+    (1, 1, 1, 1, 256, False, True, True),       # d = 256: always
+    (8, 8, 4, 512, 256, True, False, False),
+    (8, 16, 4, 512, 64, False, True, True),
+    (1, 4, 2, 100, 64, False, False, True),    # 2 CTAs, 2-byte K/V
+    (1, 4, 2, 100, 64, False, True, False)])
+def test_which_kmajor_builds_take_the_q_major_walk(b, h, h_kv, nq, d, q_f32,
+                                                   codes, q_walk):
+    assert common.kmajor_q_walk(d, q_f32, b=b, h=h, h_kv=h_kv, nq=nq,
+                                sms=SMS, codes=codes) is q_walk
+    if d < 256 and not q_f32:
+        grid = common.q_major_grid(b, h, h_kv, nq)
+        assert q_walk == (not codes
+                          or grid >= common.KMAJOR_Q_WALK_MIN_WAVES * SMS)
+
+
+@pytest.mark.parametrize("group,gp", [(1, 1), (2, 2), (4, 4), (8, 8),
+                                      (16, 16), (32, 16), (6, 6), (24, 12),
+                                      (7, 7), (17, 1)])
+def test_packed_heads_mirror_the_kernels(group, gp):
+    """`packed_heads` as csrc/flash_fwd_bound_sm90.cuh computes it: the
+    largest divisor of the group up to 16."""
+    assert common.packed_heads(group) == gp
+    assert common.q_major_grid(1, group, 1, 128) == cdiv(
+        128, 128 // gp) * (group // gp)
 
 
 # (B, Hkv, cached tokens, d): the Gemma-width prefix, the same cache at
@@ -215,18 +276,26 @@ KMAJOR_PTRS = dict(l_acc=7, o_acc=8, n_loose=9, kc=12, vc=13)
     (8, 8, 4, 512, 1024, 256),    # its windowed slice
     (2, 8, 4, 300, 2999, 256),    # a ragged GQA prefix
     (8, 16, 4, 512, 3584, 128),   # the 246M model's prefix
-    (1, 16, 4, 4096, 4096, 128)])  # a ring step's block
+    (1, 16, 4, 4096, 4096, 128),  # a ring step's block
+    (1, 16, 4, 512, 16384, 128),  # one chunk over a long cache
+    (2, 8, 2, 300, 1000, 64)])    # a small GQA call
 @pytest.mark.parametrize("qtype,quantize_q", [
     (None, False), ("int8", False), ("fp8", False), ("mixed", False),
     ("int8", True), ("fp8", True)])
 @pytest.mark.parametrize("kmajor", [False, True])
+@pytest.mark.parametrize("block_k", [None, 128])
 def test_the_entry_points_get_the_copies_and_the_walk(lib, shape, qtype,
-                                                      quantize_q, kmajor):
-    """What `_fwd_cuda` hands K1b and K5 on a bf16 Q: at d = 256 over
-    one-byte K/V the scratch of the copies (one buffer, K's copy first,
-    V's at K's bytes; none for K under quantize_q over int8 keys) and,
-    for K5, no partial-sum scratch and a span of 1; elsewhere no copies,
-    and K5 its zeroed partial sums."""
+                                                      quantize_q, kmajor,
+                                                      block_k):
+    """What `_fwd_cuda` hands K1b and K5 on a bf16 Q: K5 goes to K1b's
+    entry point over bf16 K/V, and over one-byte K/V wherever the Q-major
+    grid fills the card (always at d = 256), counted as K5's, with K1b's
+    key tile (`block_k` 128 over bf16 K/V at d <= 128, else 64) and no
+    partial-sum scratch; elsewhere (one-byte K/V, whose one tile is 64
+    keys) to its own with its zeroed partial sums and the rule's span. At d = 256 over one-byte K/V the scratch of the copies (one
+    buffer, K's copy first, V's at K's bytes; none for K under quantize_q
+    over int8 keys); none at d <= 128, where the walk's producer
+    warpgroup converts."""
     b, h, h_kv, nq, nk, d = shape
     q = torch.zeros(b, h, nq, d, dtype=torch.bfloat16)
     kw = {}
@@ -240,17 +309,27 @@ def test_the_entry_points_get_the_copies_and_the_walk(lib, shape, qtype,
         v = torch.zeros(b, h_kv, nk, d, dtype=torch.int8).view(vt)
         kw = dict(k_scale=torch.ones(b, h_kv, nk),
                   v_scale=torch.ones(b, h_kv, nk))
-    plan = ff._plan(q, k, v, None, False, 0, 0, None, kw.get("k_scale"),
-                    kw.get("v_scale"), None, None, "bound_unchecked",
-                    quantize_q)
+    plan = ff._plan(q, k, v, None, False, 0, 0,
+                    None if block_k is None else BlockSizes(block_k=block_k),
+                    kw.get("k_scale"), kw.get("v_scale"), None, None,
+                    "bound_unchecked", quantize_q)
     plan = dataclasses.replace(plan, use_kmajor=kmajor)
+    counts = dict(ff.flash_attention_forward.form_launches)
+    key128 = dict(ff.flash_attention_forward.key128_launches)
     ff._fwd_cuda(q, k, v, plan, torch.float32, kw.get("k_scale"),
                  kw.get("v_scale"), None, None)
     (name, args), = lib.calls
-    assert name == ("cfa_flash_fwd_kmajor" if kmajor else
+    q_walk = common.kmajor_q_walk(d, False, b=b, h=h, h_kv=h_kv, nq=nq,
+                                  sms=SMS, codes=qtype is not None)
+    split = kmajor and not q_walk
+    assert name == ("cfa_flash_fwd_kmajor" if split else
                     "cfa_flash_fwd_bound")
+    grown = {f: ff.flash_attention_forward.form_launches[f] - counts[f]
+             for f in counts}
+    assert grown == dict(online=0, fallback=0, bound=int(not kmajor),
+                         kmajor=int(kmajor))
     ptrs = args[0]
-    slot = KMAJOR_PTRS if kmajor else BOUND_PTRS
+    slot = KMAJOR_PTRS if split else BOUND_PTRS
     converted = common.kv_converted(d, False, qtype is not None)
     k_bytes, v_bytes = common.kv_copy_bytes(
         b, h_kv, nk, d, qq=plan.qq, k_int8=k.dtype == torch.int8)
@@ -264,13 +343,16 @@ def test_the_entry_points_get_the_copies_and_the_walk(lib, shape, qtype,
     else:
         assert kc is None and vc is None
     assert ptrs[slot["n_loose"]] is not None
-    if kmajor:
-        q_walk = common.kmajor_q_walk(d, False)
-        assert q_walk == (d == 256)
+    wide = qtype is None and d < 256 and block_k == 128
+    if split:
         accs = (ptrs[slot["l_acc"]], ptrs[slot["o_acc"]])
-        assert (accs == (None, None)) == q_walk
-        span = args[-2]
-        if q_walk:
-            assert span == 1
-        else:
-            assert span == ff._kmajor_span(b, h_kv, nk, d, SMS)
+        assert None not in accs
+        assert args[-2] == ff._kmajor_span(b, h_kv, nk, d, SMS)
+    else:
+        assert len(ptrs) == 12  # K1b's: no l_acc or o_acc
+        assert args[-2] == (128 if wide else 64)
+    grown128 = {f: ff.flash_attention_forward.key128_launches[f] - key128[f]
+                for f in key128}
+    assert grown128 == dict(online=0, fallback=0,
+                            bound=int(wide and not kmajor),
+                            kmajor=int(wide and kmajor and not split))

@@ -735,16 +735,199 @@ def test_bound_kernels_read_a_view_of_a_longer_cache(dev, qtype):
 def test_kmajor_takes_its_longest_span(dev, d):
     """The host's longest span (`_KMAJOR_MAX_SPAN`) is one the kernel
     takes: enough keys for two waves of 132 CTAs get it, and K5 matches
-    the plain version there."""
+    the plain version there (over int8 K/V: a 2-byte Q's key split reads
+    one-byte K/V)."""
     from cuda_flashattention_torch.ops import flash_fwd as ff
     span = ff._KMAJOR_MAX_SPAN[d]
     b, h, h_kv, nq = 2, 8, 4, 64
     nk = 64 * span * -(-2 * 132 // (b * h_kv))
     assert ff._kmajor_span(b, h_kv, nk, d, 132) == span
-    args, _ = _fwd_inputs(dev, b, h, h_kv, nq, nk, d, None, d)
+    # a Q-major grid of 2 CTAs: K5 keeps its key split
+    assert not ff._kmajor_q_walk(d, False, b=b, h=h, h_kv=h_kv, nq=nq,
+                                 sms=132, codes=True)
+    args, scales = _fwd_inputs(dev, b, h, h_kv, nq, nk, d, "int8", d)
     want = flash_attention_forward_plain(*args, softmax="bound_unchecked",
-                                         out_dtype=torch.float32)
-    got = _pinned("kmajor", *args)
+                                         out_dtype=torch.float32, **scales)
+    got = _pinned("kmajor", *args, **scales)
+    torch.cuda.synchronize()
+    _assert_fwd_close(got, want)
+
+
+def _force_walk(monkeypatch, walk):
+    """K5 under a 2-byte or int8 Q on K1b's Q-major walk ("q") or on its
+    key split ("k") at any shape (`ops.flash_fwd._kmajor_q_walk`, the rule
+    on shapes, replaced); d = 256 and 2-byte K/V (no key split is built
+    for them) keep the Q-major walk, an fp32 Q the split."""
+    from cuda_flashattention_torch.ops import flash_fwd as ff
+    monkeypatch.setattr(ff, "_kmajor_q_walk",
+                        lambda d, q_f32, codes=False, **_: (
+                            not q_f32 and (d == 256 or not codes
+                                           or walk == "q")))
+
+
+# the walk's edges at d <= 128: ragged Nk (4000, and the ring phases'
+# 15998), the causal frontier with kv_offset, windows that start and end
+# inside key tiles, packed heads at G = 1, 2, 4 and 8, and d < 64 and
+# d = 100 on padded heads
+_WALK_EDGES = [
+    (1, 8, 2, 200, 4000, 128, dict()),                               # G=4
+    (1, 4, 1, 128, 15998, 128, dict(causal=True, kv_offset=15870)),
+    (2, 16, 4, 300, 700, 128, dict(causal=True, kv_offset=400)),
+    (1, 8, 8, 130, 1000, 64, dict(causal=True, window=300,
+                                  kv_offset=870)),                   # G=1
+    (2, 8, 4, 257, 513, 64, dict(causal=True, window=64,
+                                 kv_offset=256)),                    # G=2
+    (1, 16, 2, 77, 300, 128, dict(causal=True, window=100,
+                                  kv_offset=223)),                   # G=8
+    (2, 8, 2, 90, 333, 32, dict()),
+    (1, 8, 4, 100, 500, 100, dict(causal=True, kv_offset=400)),
+]
+
+
+@pytest.mark.parametrize("walk", ["q", "k"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("peaked", [False, True])
+@pytest.mark.parametrize("qtype,quantize_q", _STORAGE_FORMS)
+@pytest.mark.parametrize("b,h,h_kv,nq,nk,d,kw", _WALK_EDGES)
+def test_bound_walks_at_the_edges(dev, monkeypatch, b, h, h_kv, nq, nk, d,
+                                  kw, qtype, quantize_q, peaked, dtype, walk):
+    """K1b and K5 at d = 64 and 128 (and d = 32, 100 padded), over bf16 or
+    fp16 (the fp16 units) and every one-byte K/V type, with and without
+    quantize_q, against the plain version on flat and peaked inputs (bf16
+    Q x8, K x4; fp16 Q x4, K x1, `_F16_BOUND_PEAK`), K5 on either walk:
+    on K1b's Q-major walk the same instance as K1b, bit for bit; on its key
+    split within 1e-4 of K1b (its partial sums add in any order). One
+    launch each, counted as K1b's and K5's. Over one-byte K/V the walk's
+    consumers convert K and the producer warpgroup V (a ring of its own);
+    over 2-byte K/V K5 takes the Q-major walk on either `walk`."""
+    _force_walk(monkeypatch, walk)
+    gen = torch.Generator(device=dev).manual_seed(nq + nk + d)
+    sq, sk = ((8.0, 4.0) if dtype == torch.bfloat16 else _F16_BOUND_PEAK
+              ) if peaked else (1.0, 1.0)
+    q = _u(gen, dev, b, h, nq, d, scale=sq).to(dtype)
+    k = _u(gen, dev, b, h_kv, nk, d, scale=sk).to(dtype)
+    v = _u(gen, dev, b, h_kv, nk, d).to(dtype)
+    k, v, scales = _stored(k, v, qtype)
+    kw = dict(kw, **scales)
+    want = flash_attention_forward_plain(
+        q, k, v, softmax="bound_unchecked", quantize_q=quantize_q,
+        out_dtype=torch.float32, **kw)
+    _nan_fill_allocator(dev)
+    before = _form_counts()
+    got = {f: _pinned(f, q, k, v, quantize_q=quantize_q, **kw)
+           for f in ("bound", "kmajor")}
+    torch.cuda.synchronize()
+    after = _form_counts()
+    assert {n: after[n] - before[n] for n in after} == {
+        "online": 0, "bound": 1, "kmajor": 1, "fallback": 0}
+    for f in got:
+        _assert_fwd_close(got[f], want)
+    if walk == "q" or qtype is None:
+        assert torch.equal(got["kmajor"][0], got["bound"][0])
+        assert torch.equal(got["kmajor"][1], got["bound"][1])
+    else:
+        assert _err(got["kmajor"][0], got["bound"][0]) <= 1e-4
+        assert _err(got["kmajor"][1], got["bound"][1]) <= 1e-4
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_k5_on_the_q_major_walk_takes_the_128_key_tile(dev, monkeypatch, d,
+                                                      dtype):
+    """K5 on K1b's walk takes K1b's key tiles: `block_k` 128 over 2-byte
+    K/V is K1b's 128-key build, bit for bit K1b's pinned, counted under
+    `key128_launches["kmajor"]`; against the plain version."""
+    _force_walk(monkeypatch, "q")
+    gen = torch.Generator(device=dev).manual_seed(d)
+    b, h, h_kv, nq, nk = 2, 16, 4, 300, 1000
+    q = _u(gen, dev, b, h, nq, d, scale=4.0).to(dtype)
+    k = _u(gen, dev, b, h_kv, nk, d, scale=1.0).to(dtype)
+    v = _u(gen, dev, b, h_kv, nk, d).to(dtype)
+    kw = dict(causal=True, kv_offset=nk - nq, softmax="bound_unchecked",
+              out_dtype=torch.float32, block_sizes=_tiles(128))
+    import dataclasses
+    from cuda_flashattention_torch.ops import flash_fwd as ff
+    key128 = dict(flash_attention_forward.key128_launches)
+    got = flash_attention_forward(q, k, v, **kw)
+    torch.cuda.synchronize()
+    grown = {n: flash_attention_forward.key128_launches[n] - key128[n]
+             for n in key128}
+    assert grown == dict(online=0, bound=0, kmajor=1, fallback=0)
+    # K1b's 128-key build pinned on the same call
+    plan = ff._plan(q, k, v, None, True, 0, nk - nq, _tiles(128), None,
+                    None, None, None, "bound_unchecked", False)
+    assert plan.use_kmajor and plan.block_k == 128
+    k1b = ff._fwd_cuda(q, k, v, dataclasses.replace(plan, use_kmajor=False),
+                       torch.float32, None, None, None, None)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], k1b[0]) and torch.equal(got[1], k1b[1])
+    _assert_fwd_close(got, flash_attention_forward_plain(
+        q, k, v, causal=True, kv_offset=nk - nq, softmax="bound_unchecked",
+        out_dtype=torch.float32))
+
+
+@pytest.mark.parametrize("qtype", ["fp8", "int8", None])
+@pytest.mark.parametrize("b,nk", [(8, 3584), (1, 16384), (2, 16384),
+                                  (4, 4096)])
+def test_k5_takes_the_rules_walk(dev, qtype, b, nk):
+    """"auto" (fp8 keys: K5) and K5 pinned at the 246M model's prefix read
+    (B=8, H=16, Hkv=4, 512 rows) and at one to four chunks over a long
+    cache: the rule's walk (`ops.common.kmajor_q_walk` on the shape and
+    the K/V's width); on K1b's walk bit for bit K1b, on the key split
+    within 1e-4; against the plain version."""
+    from cuda_flashattention_torch.ops import flash_fwd as ff
+    h, h_kv, nq, d = 16, 4, 512, 128
+    args, scales = _fwd_inputs(dev, b, h, h_kv, nq, nk, d, qtype, b + nk)
+    q_walk = ff._kmajor_q_walk(d, False, b=b, h=h, h_kv=h_kv, nq=nq,
+                               sms=torch.cuda.get_device_properties(
+                                   dev).multi_processor_count,
+                               codes=qtype is not None)
+    want = flash_attention_forward_plain(*args, softmax="bound_unchecked",
+                                         out_dtype=torch.float32, **scales)
+    got = _pinned("kmajor", *args, **scales)
+    k1b = _pinned("bound", *args, **scales)
+    torch.cuda.synchronize()
+    _assert_fwd_close(got, want)
+    if q_walk:
+        assert torch.equal(got[0], k1b[0]) and torch.equal(got[1], k1b[1])
+    else:
+        assert _err(got[0], k1b[0]) <= 1e-4 and _err(got[1], k1b[1]) <= 1e-4
+    if qtype == "fp8":
+        before = _form_counts()
+        auto = flash_attention_forward(*args, out_dtype=torch.float32,
+                                       **scales)
+        torch.cuda.synchronize()
+        after = _form_counts()
+        assert after["kmajor"] - before["kmajor"] == 1
+        assert _err(auto[0], want[0]) <= GATE
+
+
+@pytest.mark.parametrize("walk", ["q", "k"])
+@pytest.mark.parametrize("qtype", [None, "int8", "fp8", "mixed"])
+def test_k5_walks_read_a_view_of_a_longer_cache(dev, monkeypatch, walk,
+                                                qtype):
+    """K5 on either walk over K/V sliced to the live 300 keys of a
+    1000-key cache whose tail is NaN (e4m3 NaN, int8 127 codes)."""
+    _force_walk(monkeypatch, walk)
+    b, h, h_kv, nq, d, n_live = 2, 8, 2, 96, 128, 300
+    (q, k, v), _ = _fwd_inputs(dev, b, h, h_kv, nq, 1000, d, None, 9)
+    scales = {}
+    if qtype is not None:
+        kv = quantize_kv(k, v, qtype)
+        k, v = kv.k_q, kv.v_q
+        scales = dict(k_scale=kv.k_scale[:, :, :n_live],
+                      v_scale=kv.v_scale[:, :, :n_live])
+        k.view(torch.uint8)[:, :, n_live:] = 0x7F
+        v.view(torch.uint8)[:, :, n_live:] = 0x7F
+    else:
+        k[:, :, n_live:] = float("nan")
+        v[:, :, n_live:] = float("nan")
+    k, v = k[:, :, :n_live], v[:, :, :n_live]
+    assert not k.is_contiguous()
+    kw = dict(causal=True, kv_offset=n_live - nq, **scales)
+    want = flash_attention_forward_plain(q, k, v, softmax="bound_unchecked",
+                                         out_dtype=torch.float32, **kw)
+    got = _pinned("kmajor", q, k, v, **kw)
     torch.cuda.synchronize()
     _assert_fwd_close(got, want)
 
@@ -2538,19 +2721,23 @@ def test_128_key_k1b_behind_its_guard(dev):
 
 
 @pytest.mark.parametrize("d", [64, 128])
-def test_kmajor_at_each_span(dev, d):
-    """K5 at every span its build keeps (block_k = 64 · span) against the
+def test_kmajor_at_each_span(dev, monkeypatch, d):
+    """K5's key split under a 2-byte Q (over int8 K/V: it reads one-byte
+    K/V) at every span its build keeps (the span rule `_kmajor_span`
+    replaced: `block_k` names K1b's key tile for these forms) against the
     plain version and against the rule's span."""
-    from cuda_flashattention_torch.ops.common import BUILT_TILES
+    from cuda_flashattention_torch.ops import flash_fwd as ff
     b, h, h_kv, nq, nk = 2, 8, 2, 256, 1100
-    args, _ = _fwd_inputs(dev, b, h, h_kv, nq, nk, d, None, d + 1)
+    assert not ff._kmajor_q_walk(d, False, b=b, h=h, h_kv=h_kv, nq=nq,
+                                 sms=132, codes=True)
+    args, scales = _fwd_inputs(dev, b, h, h_kv, nq, nk, d, "int8", d + 1)
     kw = dict(causal=True, kv_offset=nk - nq, softmax="bound_unchecked",
-              out_dtype=torch.float32)
+              out_dtype=torch.float32, **scales)
     want = flash_attention_forward_plain(*args, **kw)
     rule = flash_attention_forward(*args, **kw)
-    for block_k in BUILT_TILES["K5", "bf16", d][1]:
-        got = flash_attention_forward(*args, block_sizes=_tiles(block_k),
-                                      **kw)
+    for span in range(1, ff._KMAJOR_MAX_SPAN[d] + 1):
+        monkeypatch.setattr(ff, "_kmajor_span", lambda *_a, s=span: s)
+        got = flash_attention_forward(*args, **kw)
         torch.cuda.synchronize()
         _assert_fwd_close(got, want)
         assert _err(got[0], rule[0]) <= 1e-4
